@@ -1,0 +1,35 @@
+"""jax_llama_tpu_torch — the PyTorch/CUDA port of jax_llama_tpu for one
+NVIDIA H100.
+
+It imports torch and numpy only: never jax, and nothing of the JAX
+package.  Entry points run on the card (``device="cuda"``) and raise when
+no GPU is present unless the caller passes ``device="cpu"``.
+
+  Model:      LLaMAConfig, get_config, init_params, from_jax_params,
+              forward, KVCache, init_cache
+  Decode:     GenerationConfig, generate, LLaMA
+  Tokenizers: ByteTokenizer
+  Kernels:    ops.flash_attention (hand-written CUDA, csrc/flash_fwd.cu)
+"""
+
+from .config import LLaMAConfig, get_config, swiglu_hidden_size
+from .engine import GenerationConfig, generate
+from .generation import LLaMA
+from .models import (
+    KVCache,
+    forward,
+    from_jax_params,
+    init_cache,
+    init_params,
+    param_count,
+)
+from .tokenizers import ByteTokenizer
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "LLaMAConfig", "get_config", "swiglu_hidden_size", "GenerationConfig",
+    "generate", "LLaMA", "ByteTokenizer", "KVCache", "forward",
+    "from_jax_params", "init_cache", "init_params", "param_count",
+    "__version__",
+]

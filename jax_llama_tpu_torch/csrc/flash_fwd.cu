@@ -1,0 +1,437 @@
+// Flash-attention forward for Hopper (sm_90a), plain C entry point.
+//
+// Replaces the TPU kernel `_flash_forward` of
+// jax_llama_tpu/ops/flash_attention.py (pallas_call at :868; bodies
+// `_flash_kernel`, `_flash_tri_tile_update`, `_tri_gate`), reached from
+// `flash_attention` there.  Same function, forward only (no lse, no int8
+// KV, no dropout):
+//
+//   out[b, t, h] = sum_s softmax_s(q[b,t,h] . k[b,s,h/G] / sqrt(d)) v[b,s,h/G]
+//
+// over the slots s with 0 <= kv_pos[b,s] <= q_pos[b,t] (kv_pos -1 marks a
+// padding or unwritten slot and is treated as +INT_MAX, so one compare
+// masks it).  A query row that sees no live slot writes 0.
+//
+// Layout: q and out [B, T, H, d], k and v [B, S, KVH, d], all contiguous;
+// q_pos [B, T] and kv_pos [B, S] int32.  GQA is packed into the query rows
+// as the JAX wrapper packs it: packed row r = g*T + t of KV head kvh is
+// query head h = kvh*G + g at token t.  The packing is done by address
+// arithmetic here, so no packed copy of q or out is made.
+//
+// What bounds it on an H100: memory.  At the main path's prefill shape
+// (B = 4, T = S = 512, H = 32, KVH = 8, d = 128, causal with left
+// padding) the call must move q, k, v and out once, about 40 MB, while
+// the live (query, slot) pairs need only about 4 GFLOP of tensor-core
+// work, so the least time is set by HBM bandwidth; at decode (T = 1 over
+// a long cache) it is streaming K/V once per KV head.  Between the
+// tiles, the exp/max/rescale work runs on the CUDA cores.  What the
+// design does about it:
+//   * bf16 products run on the tensor cores (mma.sync m16n8k16, fp32
+//     accumulate); each warp owns 16 packed query rows and keeps its Q
+//     fragments, scores and output accumulator in registers, so the score
+//     tile never touches shared or device memory.
+//   * GQA packing reads each K/V tile from HBM once per KV head and query
+//     tile, instead of once per query head.
+//   * Dead KV tiles are skipped: the block first finds the last slot that
+//     any of its rows may attend (the per-q-tile bound of the JAX wrapper,
+//     :794-803) and stops there; tiles below it with no live slot (left
+//     padding) are skipped without loading K or V.
+//   * The online softmax runs in base 2 (log2(e) folded into the scale),
+//     in fp32; P is rounded to the input dtype for the P.V product, as in
+//     the JAX kernel.
+// Not done yet (later work): a cp.async or TMA pipeline that overlaps the
+// next tile's loads with this tile's math (each block now waits on every
+// K/V tile load, which is what keeps it well above the memory bound),
+// wgmma, split-KV for decode.
+//
+// The float32 path is a plain CUDA-core kernel (one warp per packed row)
+// kept for callers that run the model in float32; the main path is bf16.
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <stdint.h>
+#include <climits>
+#include <math.h>
+
+namespace {
+
+constexpr int BM = 64;             // packed query rows per block
+constexpr int BN = 64;             // kv slots per tile
+constexpr int NWARPS = BM / 16;    // 16 rows per warp
+constexpr int NTHREADS = NWARPS * 32;
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t pack_raw(uint16_t lo, uint16_t hi) {
+  return static_cast<uint32_t>(lo) | (static_cast<uint32_t>(hi) << 16);
+}
+
+__device__ __forceinline__ uint32_t ld32(const uint16_t* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// D[16x8] += A[16x16] * B[16x8], bf16 inputs, fp32 accumulate.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ int remap_pos(int p) { return p < 0 ? INT_MAX : p; }
+
+// Block-wide: the largest query position among rows [row0, row0+rows) of
+// the packed plane, and the tile bound 1 + (last kv tile holding a slot
+// with remapped position <= that maximum).  Needs blockDim.x >= rows.
+__device__ __forceinline__ int kv_tile_bound(const int* __restrict__ q_pos,
+                                             const int* __restrict__ kv_pos,
+                                             int b, int T, int S, int R,
+                                             int row0, int rows, int tile,
+                                             int* qmax_s, int* last_s) {
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    *qmax_s = INT_MIN;
+    *last_s = -1;
+  }
+  __syncthreads();
+  if (tid < rows && row0 + tid < R) {
+    atomicMax(qmax_s, q_pos[b * T + (row0 + tid) % T]);
+  }
+  __syncthreads();
+  const int qmax = *qmax_s;
+  int last = -1;
+  for (int s = tid; s < S; s += blockDim.x) {
+    if (remap_pos(kv_pos[(size_t)b * S + s]) <= qmax) last = s;
+  }
+  if (last >= 0) atomicMax(last_s, last);
+  __syncthreads();
+  return (*last_s + tile) / tile;  // 0 when no slot is live
+}
+
+template <int D>
+__global__ void __launch_bounds__(NTHREADS)
+flash_fwd_bf16_kernel(const uint16_t* __restrict__ q,
+                      const uint16_t* __restrict__ k,
+                      const uint16_t* __restrict__ v,
+                      const int* __restrict__ q_pos,
+                      const int* __restrict__ kv_pos,
+                      uint16_t* __restrict__ out, int T, int S, int H, int KVH,
+                      float scale_log2) {
+  static_assert(D % 16 == 0 && D <= 128, "head_dim");
+  constexpr int LD = D + 8;  // padded shared row, in bf16 elements
+  constexpr int KSTEPS = D / 16;
+  constexpr int DBLK = D / 8;
+  constexpr int NBLK = BN / 8;
+  __shared__ __align__(16) uint16_t ks[BN * LD];
+  __shared__ __align__(16) uint16_t vs[BN * LD];
+  __shared__ int kps[BN];
+  __shared__ int qmax_s, last_s;
+
+  const int G = H / KVH;
+  const int R = G * T;
+  const int b = blockIdx.z, kvh = blockIdx.y, row0 = blockIdx.x * BM;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int grp = lane >> 2, tig = lane & 3;
+
+  const int n_tiles = kv_tile_bound(q_pos, kv_pos, b, T, S, R, row0, BM, BN,
+                                    &qmax_s, &last_s);
+  const int qmax = qmax_s;
+
+  // This thread's two packed rows: grp and grp + 8 of the warp's 16.
+  int qp[2];
+  const uint16_t* qrow[2];
+  size_t orow[2];
+  bool valid[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = row0 + warp * 16 + grp + 8 * i;
+    valid[i] = r < R;
+    const int t = valid[i] ? r % T : 0;
+    const int h = kvh * G + (valid[i] ? r / T : 0);
+    qp[i] = valid[i] ? q_pos[b * T + t] : -1;  // -1: attends nothing
+    orow[i] = ((size_t)(b * T + t) * H + h) * D;
+    qrow[i] = q + orow[i];
+  }
+
+  uint32_t qf[KSTEPS][4];
+#pragma unroll
+  for (int kk = 0; kk < KSTEPS; ++kk) {
+    const int c = kk * 16 + tig * 2;
+    qf[kk][0] = valid[0] ? ld32(qrow[0] + c) : 0u;
+    qf[kk][1] = valid[1] ? ld32(qrow[1] + c) : 0u;
+    qf[kk][2] = valid[0] ? ld32(qrow[0] + c + 8) : 0u;
+    qf[kk][3] = valid[1] ? ld32(qrow[1] + c + 8) : 0u;
+  }
+
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};  // partial row sums over this thread's columns
+  float o[DBLK][4];
+#pragma unroll
+  for (int nb = 0; nb < DBLK; ++nb) {
+    o[nb][0] = o[nb][1] = o[nb][2] = o[nb][3] = 0.f;
+  }
+
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int s0 = tile * BN;
+    __syncthreads();  // the previous tile's shared reads are done
+    bool live = false;
+    if (tid < BN) {
+      const int s = s0 + tid;
+      const int kp = s < S ? remap_pos(kv_pos[(size_t)b * S + s]) : INT_MAX;
+      kps[tid] = kp;
+      live = kp <= qmax;
+    }
+    if (!__syncthreads_or(live)) continue;  // dead tile: no K/V traffic
+
+    for (int c = tid; c < BN * (D / 8); c += NTHREADS) {
+      const int row = c / (D / 8);
+      const int col = (c % (D / 8)) * 8;
+      const int s = s0 + row;
+      uint4 kv4 = make_uint4(0, 0, 0, 0), vv4 = make_uint4(0, 0, 0, 0);
+      if (s < S) {
+        const size_t g = ((size_t)(b * S + s) * KVH + kvh) * D + col;
+        kv4 = *reinterpret_cast<const uint4*>(k + g);
+        vv4 = *reinterpret_cast<const uint4*>(v + g);
+      }
+      *reinterpret_cast<uint4*>(&ks[row * LD + col]) = kv4;
+      *reinterpret_cast<uint4*>(&vs[row * LD + col]) = vv4;
+    }
+    __syncthreads();
+
+    // S = Q K^T for this warp's 16 rows x BN slots.
+    float sc[NBLK][4];
+#pragma unroll
+    for (int nb = 0; nb < NBLK; ++nb) {
+      sc[nb][0] = sc[nb][1] = sc[nb][2] = sc[nb][3] = 0.f;
+    }
+#pragma unroll
+    for (int kk = 0; kk < KSTEPS; ++kk) {
+#pragma unroll
+      for (int nb = 0; nb < NBLK; ++nb) {
+        const uint16_t* kr = &ks[(nb * 8 + grp) * LD + kk * 16 + tig * 2];
+        mma_bf16(sc[nb], qf[kk], ld32(kr), ld32(kr + 8));
+      }
+    }
+
+    // Scale into the base-2 domain, mask, row max.
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int nb = 0; nb < NBLK; ++nb) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        const int kp = kps[nb * 8 + tig * 2 + (e & 1)];
+        const float s = kp <= qp[i] ? sc[nb][e] * scale_log2 : -INFINITY;
+        sc[nb][e] = s;
+        mx[i] = fmaxf(mx[i], s);
+      }
+    }
+    float alpha[2], m_use[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m[i], mx[i]);
+      m_use[i] = m_new == -INFINITY ? 0.f : m_new;
+      alpha[i] = exp2f(m[i] - m_use[i]);
+      m[i] = m_new;
+      l[i] *= alpha[i];
+    }
+#pragma unroll
+    for (int nb = 0; nb < DBLK; ++nb) {
+      o[nb][0] *= alpha[0];
+      o[nb][1] *= alpha[0];
+      o[nb][2] *= alpha[1];
+      o[nb][3] *= alpha[1];
+    }
+#pragma unroll
+    for (int nb = 0; nb < NBLK; ++nb) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(sc[nb][e] - m_use[e >> 1]);
+        sc[nb][e] = p;
+        l[e >> 1] += p;
+      }
+    }
+
+    // O += P V: the score accumulators of n-blocks 2j, 2j+1 are exactly
+    // the A fragment of k-step j; P is rounded to bf16 here.
+#pragma unroll
+    for (int j = 0; j < BN / 16; ++j) {
+      uint32_t a[4];
+      a[0] = pack_bf16x2(sc[2 * j][0], sc[2 * j][1]);
+      a[1] = pack_bf16x2(sc[2 * j][2], sc[2 * j][3]);
+      a[2] = pack_bf16x2(sc[2 * j + 1][0], sc[2 * j + 1][1]);
+      a[3] = pack_bf16x2(sc[2 * j + 1][2], sc[2 * j + 1][3]);
+      const int r0 = j * 16 + tig * 2;
+#pragma unroll
+      for (int nb = 0; nb < DBLK; ++nb) {
+        const int col = nb * 8 + grp;
+        const uint32_t b0 = pack_raw(vs[r0 * LD + col], vs[(r0 + 1) * LD + col]);
+        const uint32_t b1 =
+            pack_raw(vs[(r0 + 8) * LD + col], vs[(r0 + 9) * LD + col]);
+        mma_bf16(o[nb], a, b0, b1);
+      }
+    }
+  }
+
+  // Normalise and store; rows that saw no live slot (l == 0) write 0.
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (!valid[i]) continue;
+    const float den = l[i] == 0.f ? 1.f : l[i];
+    uint16_t* orp = out + orow[i];
+#pragma unroll
+    for (int nb = 0; nb < DBLK; ++nb) {
+      *reinterpret_cast<uint32_t*>(orp + nb * 8 + tig * 2) =
+          pack_bf16x2(o[nb][2 * i] / den, o[nb][2 * i + 1] / den);
+    }
+  }
+}
+
+// float32: one warp per packed query row, lane j owns features j, j+32, ...
+constexpr int F32_ROWS = 8;
+constexpr int F32_BN = 32;
+
+template <int DPL>  // features per lane: head_dim = 32 * DPL
+__global__ void __launch_bounds__(F32_ROWS * 32)
+flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const int* __restrict__ q_pos,
+                     const int* __restrict__ kv_pos, float* __restrict__ out,
+                     int T, int S, int H, int KVH, float scale_log2) {
+  constexpr int D = 32 * DPL;
+  __shared__ float ks[F32_BN * D];
+  __shared__ float vs[F32_BN * D];
+  __shared__ int kps[F32_BN];
+  __shared__ int qmax_s, last_s;
+
+  const int G = H / KVH;
+  const int R = G * T;
+  const int b = blockIdx.z, kvh = blockIdx.y, row0 = blockIdx.x * F32_ROWS;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  const int n_tiles = kv_tile_bound(q_pos, kv_pos, b, T, S, R, row0,
+                                    F32_ROWS, F32_BN, &qmax_s, &last_s);
+  const int qmax = qmax_s;
+
+  const int r = row0 + warp;
+  const bool valid = r < R;
+  const int t = valid ? r % T : 0;
+  const int h = kvh * G + (valid ? r / T : 0);
+  const int qp = valid ? q_pos[b * T + t] : -1;
+  const size_t orow = ((size_t)(b * T + t) * H + h) * D;
+  float qv[DPL], acc[DPL];
+#pragma unroll
+  for (int i = 0; i < DPL; ++i) {
+    qv[i] = valid ? q[orow + lane + 32 * i] : 0.f;
+    acc[i] = 0.f;
+  }
+  float m = -INFINITY, l = 0.f;
+
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int s0 = tile * F32_BN;
+    __syncthreads();
+    bool live = false;
+    if (tid < F32_BN) {
+      const int s = s0 + tid;
+      const int kp = s < S ? remap_pos(kv_pos[(size_t)b * S + s]) : INT_MAX;
+      kps[tid] = kp;
+      live = kp <= qmax;
+    }
+    if (!__syncthreads_or(live)) continue;
+    for (int c = tid; c < F32_BN * D; c += blockDim.x) {
+      const int row = c / D, col = c % D;
+      const int s = s0 + row;
+      const size_t g = ((size_t)(b * S + s) * KVH + kvh) * D + col;
+      ks[c] = s < S ? k[g] : 0.f;
+      vs[c] = s < S ? v[g] : 0.f;
+    }
+    __syncthreads();
+    for (int j = 0; j < F32_BN; ++j) {
+      if (kps[j] > qp) continue;  // uniform across the warp
+      float dot = 0.f;
+#pragma unroll
+      for (int i = 0; i < DPL; ++i) dot += qv[i] * ks[j * D + lane + 32 * i];
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        dot += __shfl_xor_sync(0xffffffffu, dot, off);
+      }
+      const float s = dot * scale_log2;
+      const float m_new = fmaxf(m, s);
+      const float alpha = exp2f(m - m_new);
+      const float p = exp2f(s - m_new);
+      l = l * alpha + p;
+#pragma unroll
+      for (int i = 0; i < DPL; ++i) {
+        acc[i] = acc[i] * alpha + p * vs[j * D + lane + 32 * i];
+      }
+      m = m_new;
+    }
+  }
+  if (valid) {
+    const float den = l == 0.f ? 1.f : l;
+#pragma unroll
+    for (int i = 0; i < DPL; ++i) out[orow + lane + 32 * i] = acc[i] / den;
+  }
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16.  Returns the cudaError_t of the launch
+// (0 on success).  Launches on `stream` and does not synchronise.
+extern "C" int flash_fwd(const void* q, const void* k, const void* v,
+                         const int* q_pos, const int* kv_pos, void* out,
+                         int B, int T, int S, int H, int KVH, int D, int dtype,
+                         float scale_log2, void* stream) {
+  if (B <= 0 || T <= 0 || S <= 0 || KVH <= 0 || H % KVH != 0 || B > 65535 ||
+      KVH > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long R = (long)(H / KVH) * T;
+  if (dtype == 1) {
+    dim3 grid((unsigned)((R + BM - 1) / BM), KVH, B);
+    const uint16_t* qq = static_cast<const uint16_t*>(q);
+    const uint16_t* kk = static_cast<const uint16_t*>(k);
+    const uint16_t* vv = static_cast<const uint16_t*>(v);
+    uint16_t* oo = static_cast<uint16_t*>(out);
+    if (D == 128) {
+      flash_fwd_bf16_kernel<128><<<grid, NTHREADS, 0, st>>>(
+          qq, kk, vv, q_pos, kv_pos, oo, T, S, H, KVH, scale_log2);
+    } else if (D == 64) {
+      flash_fwd_bf16_kernel<64><<<grid, NTHREADS, 0, st>>>(
+          qq, kk, vv, q_pos, kv_pos, oo, T, S, H, KVH, scale_log2);
+    } else {
+      return (int)cudaErrorInvalidValue;
+    }
+  } else if (dtype == 0) {
+    dim3 grid((unsigned)((R + F32_ROWS - 1) / F32_ROWS), KVH, B);
+    const float* qq = static_cast<const float*>(q);
+    const float* kk = static_cast<const float*>(k);
+    const float* vv = static_cast<const float*>(v);
+    float* oo = static_cast<float*>(out);
+    if (D == 128) {
+      flash_fwd_f32_kernel<4><<<grid, F32_ROWS * 32, 0, st>>>(
+          qq, kk, vv, q_pos, kv_pos, oo, T, S, H, KVH, scale_log2);
+    } else if (D == 64) {
+      flash_fwd_f32_kernel<2><<<grid, F32_ROWS * 32, 0, st>>>(
+          qq, kk, vv, q_pos, kv_pos, oo, T, S, H, KVH, scale_log2);
+    } else {
+      return (int)cudaErrorInvalidValue;
+    }
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
