@@ -6,10 +6,12 @@ package.  Entry points run on the card (``device="cuda"``) and raise when
 no GPU is present unless the caller passes ``device="cpu"``.
 
   Model:      LLaMAConfig, get_config, init_params, from_jax_params,
-              forward, KVCache, init_cache
+              forward, KVCache, init_cache, PagedKVCache
   Decode:     GenerationConfig, generate, LLaMA
+  Serving:    ContinuousBatcher, init_pool (paged KV pool)
   Tokenizers: ByteTokenizer
-  Kernels:    ops.flash_attention (hand-written CUDA, csrc/flash_fwd.cu)
+  Kernels:    ops.flash_attention (hand-written CUDA, csrc/flash_fwd.cu),
+              ops.paged_attention (hand-written CUDA, csrc/paged_decode.cu)
 """
 
 from .config import LLaMAConfig, get_config, swiglu_hidden_size
@@ -17,12 +19,14 @@ from .engine import GenerationConfig, generate
 from .generation import LLaMA
 from .models import (
     KVCache,
+    PagedKVCache,
     forward,
     from_jax_params,
     init_cache,
     init_params,
     param_count,
 )
+from .serving import ContinuousBatcher, init_pool
 from .tokenizers import ByteTokenizer
 
 __version__ = "0.1.0"
@@ -31,5 +35,5 @@ __all__ = [
     "LLaMAConfig", "get_config", "swiglu_hidden_size", "GenerationConfig",
     "generate", "LLaMA", "ByteTokenizer", "KVCache", "forward",
     "from_jax_params", "init_cache", "init_params", "param_count",
-    "__version__",
+    "PagedKVCache", "ContinuousBatcher", "init_pool", "__version__",
 ]

@@ -1,0 +1,349 @@
+// Paged-attention decode over a block-table KV pool for Hopper (sm_90a),
+// plain C entry point.
+//
+// Replaces the TPU kernel `paged_pool_attention` of
+// jax_llama_tpu/ops/paged_attention.py (pallas_call at :371, body
+// `_paged_kernel` at :79), for one query token per row (t_tokens = 1) and
+// a bf16 or float32 pool (no int8 scales):
+//
+//   out[b, h, g] = sum_s softmax_s(q[b,h,g] . k[layer,h,blk(s),off(s)] / sqrt(d))
+//                  v[layer,h,blk(s),off(s)]
+//   lse[b, h, g] = log sum_s exp(q[b,h,g] . k[...] / sqrt(d))
+//
+// over the slots s of the blocks that row b's table names, restricted to
+// 0 <= pool_pos[blk, off] <= q_pos[b].  A row with q_pos = -1 is inactive;
+// a row that sees no live slot writes out = 0 and lse = MASK_VALUE (the
+// JAX kernel's finalize), so the caller's merge weight exp(lse - m)
+// underflows to exactly 0.
+//
+// Layout: q [B, KVH, G, d] in the pool's dtype (query head h_q = kvh*G + g);
+// k_pool, v_pool [L, KVH, NB, BLK, d] contiguous; pool_pos [NB, BLK] int32
+// (-1 = invalid slot); table [B, MB] int32 physical block ids, NB (or any
+// id outside [0, NB)) marks an unused entry; q_pos [B] int32.  out
+// [B, KVH, G, d] and lse [B, KVH, G] are float32, as in the JAX kernel.
+// Any block size works: a K/V row is d * sizeof(T) bytes, a multiple of 16,
+// so every row stays 16-byte aligned (the TPU kernel's multiple-of-8 rule
+// is its sublane tiling and does not carry over).
+//
+// What bounds it on an H100: memory.  A decode step does ~4·G·d FLOPs per
+// live slot and moves 2·d·bytes(dtype) of K/V per slot and KV head, far
+// below the ~295 FLOP/byte at which the tensor cores would become the
+// limit.  The least time is the live slots' K/V over HBM bandwidth.  What
+// the design does about it:
+//   * One block per (row, KV head).  It walks the row's table inside the
+//     kernel and reads each live [BLK, d] K and V tile straight from the
+//     layer's plane of the pool: no gathered view, no per-layer copy.
+//   * The G query heads of a KV head share each K/V tile (GQA packing), so
+//     the pool is read once per KV head, never once per query head.
+//   * A prologue finds the row's live-block bound (1 + the last table
+//     entry holding a slot the query may attend; JAX :313-333).  Table
+//     entries past it, sentinel entries, and 64-slot sub-tiles with no
+//     attendable slot are skipped without loading K or V.  Processing a
+//     wholly masked tile would add exp(MASK - MASK) = 1 of garbage (JAX
+//     :128-141), so skipping is required, not an optimisation.
+//   * A tile's K and V rows are copied to shared memory with cp.async, so
+//     all of a tile's loads are in flight at once.
+//   * The online softmax (m, l) per query head runs in float32, in base 2
+//     with log2(e) folded into the pre-scaled q; the output accumulator
+//     sits in registers (one feature column per thread).  P is rounded to
+//     the pool dtype before the P.V product, as the JAX kernel does; l sums
+//     the unrounded P.
+// Not done yet (later work): the grid is B*KVH blocks (64 for llama3-8b at
+// 8 slots, on 132 SMs) and each block waits on its own tile loads, so a
+// long row is latency-bound.  A split-KV second pass (flash-decoding) and
+// a double buffer (the next tile's copies in flight during this tile's
+// math) are the next steps.
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <stdint.h>
+#include <climits>
+#include <math.h>
+
+namespace {
+
+constexpr int NTHREADS = 128;
+constexpr int NWARPS = NTHREADS / 32;
+constexpr int MAXG = 8;  // query heads per KV head
+constexpr float MASK_VALUE = -0.7f * 3.40282346638528859812e+38f;
+constexpr float LN2 = 0.69314718055994530942f;
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+// P as it enters the P.V product: rounded to the pool dtype.
+__device__ __forceinline__ float round_p(float p, float) { return p; }
+__device__ __forceinline__ float round_p(float p, __nv_bfloat16) {
+  return __bfloat162float(__float2bfloat16_rn(p));
+}
+
+// Eight bf16 (or four float32) values from 16 aligned bytes of shared
+// memory, as float32 (bf16 -> float32 is a 16-bit shift).
+__device__ __forceinline__ void load_vec(const float* p, float (&x)[4]) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  x[0] = v.x;
+  x[1] = v.y;
+  x[2] = v.z;
+  x[3] = v.w;
+}
+__device__ __forceinline__ void load_vec(const __nv_bfloat16* p,
+                                         float (&x)[8]) {
+  const uint4 v = *reinterpret_cast<const uint4*>(p);
+  const unsigned w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    x[2 * i] = __uint_as_float(w[i] << 16);
+    x[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+// 16-byte global -> shared copy that does not hold a register or wait:
+// a tile's copies are all in flight together (cp.async, sm_80+).
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::);
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
+  }
+  return x;
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    x += __shfl_xor_sync(0xffffffffu, x, off);
+  }
+  return x;
+}
+
+// T: pool element type; D: head_dim; TS: slots per shared-memory tile.
+template <typename T, int D, int TS>
+__global__ void __launch_bounds__(NTHREADS)
+paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
+                    const T* __restrict__ v_pool,
+                    const int* __restrict__ pool_pos,
+                    const int* __restrict__ table,
+                    const int* __restrict__ q_pos, float* __restrict__ out,
+                    float* __restrict__ lse, int KVH, int G, int NB, int BLK,
+                    int MB, int layer, float scale_log2) {
+  static_assert(TS <= NTHREADS, "one position per thread");
+  constexpr int VEC = 16 / sizeof(T);      // elements per 16-byte load
+  constexpr int LD = D + VEC;              // padded shared row
+  constexpr int GSTEP = NTHREADS / D;      // threads sharing a column
+  constexpr int NG = (MAXG + GSTEP - 1) / GSTEP;
+  __shared__ __align__(16) float q_s[MAXG * D];
+  // Raw bytes: a __shared__ array of a class type (__nv_bfloat16) would
+  // need a constructor.
+  __shared__ __align__(16) unsigned char k_raw[TS * LD * sizeof(T)];
+  __shared__ __align__(16) unsigned char v_raw[TS * LD * sizeof(T)];
+  T* k_s = reinterpret_cast<T*>(k_raw);
+  T* v_s = reinterpret_cast<T*>(v_raw);
+  __shared__ float p_s[MAXG * TS];
+  __shared__ int pos_s[TS];
+  __shared__ float m_s[MAXG], l_s[MAXG], alpha_s[MAXG];
+  __shared__ int bound_s;
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int dd = tid % D, g0 = tid / D;  // this thread's output column(s)
+  const int qp = q_pos[b];
+  const size_t row = (size_t)b * KVH + h;
+  float* out_row = out + row * G * D;
+  float* lse_row = lse + row * G;
+
+  // Live-block bound over the row's table: 0 for an inactive row.
+  if (tid == 0) bound_s = 0;
+  if (tid < MAXG) {
+    m_s[tid] = -INFINITY;
+    l_s[tid] = 0.f;
+  }
+  for (int i = tid; i < G * D; i += NTHREADS) {
+    q_s[i] = to_f32(q[row * G * D + i]) * scale_log2;
+  }
+  __syncthreads();
+  const int* trow = table + (size_t)b * MB;
+  if (qp >= 0) {
+    int last = -1;
+    for (int i = tid; i < MB * BLK; i += NTHREADS) {
+      const int mb = i / BLK;
+      const int blk = trow[mb];
+      if (blk >= 0 && blk < NB) {
+        const int p = pool_pos[(size_t)blk * BLK + i % BLK];
+        if (p >= 0 && p <= qp) last = mb;
+      }
+    }
+    if (last >= 0) atomicMax(&bound_s, last + 1);
+  }
+  __syncthreads();
+  const int bound = bound_s;
+
+  float acc[NG];
+#pragma unroll
+  for (int i = 0; i < NG; ++i) acc[i] = 0.f;
+
+  for (int mb = 0; mb < bound; ++mb) {
+    const int blk = trow[mb];
+    if (blk < 0 || blk >= NB) continue;  // sentinel entry
+    const size_t block0 = (((size_t)layer * KVH + h) * NB + blk) * BLK;
+    for (int s0 = 0; s0 < BLK; s0 += TS) {
+      const int n = min(TS, BLK - s0);
+      __syncthreads();  // the previous tile's shared reads are done
+      bool live = false;
+      if (tid < n) {
+        int p = pool_pos[(size_t)blk * BLK + s0 + tid];
+        p = p < 0 ? INT_MAX : p;
+        pos_s[tid] = p;
+        live = p <= qp;
+      }
+      if (!__syncthreads_or(live)) continue;  // wholly masked: no K/V read
+
+      const T* ksrc = k_pool + (block0 + s0) * D;
+      const T* vsrc = v_pool + (block0 + s0) * D;
+      for (int c = tid; c < n * (D / VEC); c += NTHREADS) {
+        const int r = c / (D / VEC);
+        const int col = (c % (D / VEC)) * VEC;
+        cp_async16(&k_s[r * LD + col], ksrc + (size_t)r * D + col);
+        cp_async16(&v_s[r * LD + col], vsrc + (size_t)r * D + col);
+      }
+      cp_async_wait_all();
+      __syncthreads();
+
+      // Scores (base 2) for every (query head, slot) pair of the tile.
+      for (int i = tid; i < G * n; i += NTHREADS) {
+        const int g = i / n, j = i % n;
+        float s = -INFINITY;
+        if (pos_s[j] <= qp) {
+          const float* qg = q_s + g * D;
+          const T* kr = k_s + j * LD;
+          float dot = 0.f;
+#pragma unroll
+          for (int c = 0; c < D; c += VEC) {
+            float kx[VEC];
+            load_vec(kr + c, kx);
+#pragma unroll
+            for (int e = 0; e < VEC; ++e) dot += qg[c + e] * kx[e];
+          }
+          s = dot;
+        }
+        p_s[g * TS + j] = s;
+      }
+      __syncthreads();
+
+      // Online softmax update, one warp per query head.  Every head of the
+      // row shares the tile's mask, and the tile holds a live slot, so the
+      // tile maximum is finite.
+      for (int g = warp; g < G; g += NWARPS) {
+        float mx = -INFINITY;
+        for (int j = lane; j < n; j += 32) mx = fmaxf(mx, p_s[g * TS + j]);
+        mx = warp_max(mx);
+        const float m_old = m_s[g];
+        const float m_new = fmaxf(m_old, mx);
+        float sum = 0.f;
+        for (int j = lane; j < n; j += 32) {
+          const float p = exp2f(p_s[g * TS + j] - m_new);
+          sum += p;
+          p_s[g * TS + j] = round_p(p, T());
+        }
+        sum = warp_sum(sum);
+        __syncwarp();
+        if (lane == 0) {
+          const float alpha = exp2f(m_old - m_new);
+          alpha_s[g] = alpha;
+          l_s[g] = l_s[g] * alpha + sum;
+          m_s[g] = m_new;
+        }
+      }
+      __syncthreads();
+
+      // acc = alpha * acc + P V, for this thread's column and heads.
+#pragma unroll
+      for (int i = 0; i < NG; ++i) {
+        const int g = g0 + i * GSTEP;
+        if (g < G) acc[i] *= alpha_s[g];
+      }
+      for (int j = 0; j < n; ++j) {
+        const float v = to_f32(v_s[j * LD + dd]);
+#pragma unroll
+        for (int i = 0; i < NG; ++i) {
+          const int g = g0 + i * GSTEP;
+          if (g < G) acc[i] += p_s[g * TS + j] * v;
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+#pragma unroll
+  for (int i = 0; i < NG; ++i) {
+    const int g = g0 + i * GSTEP;
+    if (g < G) {
+      const float l = l_s[g];
+      out_row[g * D + dd] = acc[i] / (l == 0.f ? 1.f : l);
+    }
+  }
+  if (tid < G) {
+    const float l = l_s[tid];
+    lse_row[tid] = l == 0.f ? MASK_VALUE : m_s[tid] * LN2 + logf(l);
+  }
+}
+
+template <typename T, int TS>
+int launch(const void* q, const void* k, const void* v, const int* pool_pos,
+           const int* table, const int* q_pos, float* out, float* lse, int B,
+           int KVH, int G, int D, int NB, int BLK, int MB, int layer,
+           float scale_log2, cudaStream_t st) {
+  const dim3 grid(KVH, B);
+  const T* qq = static_cast<const T*>(q);
+  const T* kk = static_cast<const T*>(k);
+  const T* vv = static_cast<const T*>(v);
+  if (D == 128) {
+    paged_decode_kernel<T, 128, TS><<<grid, NTHREADS, 0, st>>>(
+        qq, kk, vv, pool_pos, table, q_pos, out, lse, KVH, G, NB, BLK, MB,
+        layer, scale_log2);
+  } else if (D == 64) {
+    paged_decode_kernel<T, 64, TS><<<grid, NTHREADS, 0, st>>>(
+        qq, kk, vv, pool_pos, table, q_pos, out, lse, KVH, G, NB, BLK, MB,
+        layer, scale_log2);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16.  Returns the cudaError_t of the launch
+// (0 on success).  Launches on `stream` and does not synchronise.
+extern "C" int paged_decode(const void* q, const void* k_pool,
+                            const void* v_pool, const int* pool_pos,
+                            const int* table, const int* q_pos, float* out,
+                            float* lse, int B, int KVH, int G, int D, int NB,
+                            int BLK, int MB, int layer, int dtype,
+                            float scale_log2, void* stream) {
+  if (B <= 0 || KVH <= 0 || G <= 0 || G > MAXG || NB <= 0 || BLK <= 0 ||
+      MB <= 0 || layer < 0 || B > 65535 || KVH > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) {
+    return launch<__nv_bfloat16, 64>(q, k_pool, v_pool, pool_pos, table,
+                                     q_pos, out, lse, B, KVH, G, D, NB, BLK,
+                                     MB, layer, scale_log2, st);
+  }
+  if (dtype == 0) {
+    return launch<float, 32>(q, k_pool, v_pool, pool_pos, table, q_pos, out,
+                             lse, B, KVH, G, D, NB, BLK, MB, layer,
+                             scale_log2, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}

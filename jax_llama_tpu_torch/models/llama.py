@@ -30,16 +30,25 @@ The KV cache is updated IN PLACE (its k, v, pos and index): a forward
 with a cache returns the same ``KVCache`` object it was given, so every
 handle to it sees the advanced state.  The JAX package returns a fresh
 buffer; copying a multi-gigabyte cache per decode step is what in-place
-writes save.  Only the scalar cache index (lockstep decode) is ported;
-paged caches, ring attention, int8, dropout, auxiliary outputs, pipeline
-stages and quantized weights raise ``NotImplementedError``.
+writes save.  The cache index is a scalar (lockstep decode) or a [B]
+tensor (one write offset per row, the serving batcher's gathered view,
+xla path and T = 1 only).
+
+A ``PagedKVCache`` (the serving block pool) routes to ``paged_forward``:
+one decode token per row, attention through the hand-written paged
+kernel, and the same in-place contract (pool k, v and pos written, the
+same cache object returned).
+
+Ring attention, int8, dropout, the hidden-state and attention-weight
+outputs, pipeline stages and quantized weights raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -49,6 +58,7 @@ from ..config import LLaMAConfig, torch_dtype
 from ..ops.attention import attention_bias, sdpa, sdpa_cached
 from ..ops.flash_attention import flash_attention
 from ..ops.norm import rms_norm
+from ..ops.paged_attention import paged_decode_attention
 from ..ops.rope import apply_rope, rope_table
 
 Params = Dict[str, Any]
@@ -83,17 +93,125 @@ class KVCache:
 
     k, v:  [L, B, S_max, KVH, head_dim] in the activation dtype.
     pos:   [B, S_max] int32 absolute position of each slot; -1 = invalid.
-    index: next write offset, one for all rows (lockstep decode).
+    index: next write offset: an int, one for all rows (lockstep decode),
+           or a [B] int32 tensor, one per row (continuous batching).
     """
 
     k: torch.Tensor
     v: torch.Tensor
     pos: torch.Tensor
-    index: int = 0
+    index: Union[int, torch.Tensor] = 0
 
     @property
     def max_len(self) -> int:
         return self.k.shape[2]
+
+    @property
+    def per_row_index(self) -> bool:
+        return isinstance(self.index, torch.Tensor)
+
+
+@dataclasses.dataclass
+class PagedKVCache:
+    """Paged (block-table) KV cache: the serving pool as ``paged_forward``
+    reads it, through the paged kernel, with no gathered view.
+
+    k, v:  [L, KVH, NB, BLK, head_dim], KV-head-major, so one (head, block)
+           tile is a contiguous [BLK, head_dim] page.
+    pos:   [NB, BLK] int32 absolute position per slot; -1 invalid.
+    table: [B, MB] int32 physical block ids in sequence order; NB marks an
+           unused entry.
+    fill:  [B] int32 per-row next write offset in tokens (advanced by the
+           caller after each step, as in the JAX package).
+    """
+
+    k: torch.Tensor
+    v: torch.Tensor
+    pos: torch.Tensor
+    table: torch.Tensor
+    fill: torch.Tensor
+
+    @property
+    def n_blocks(self) -> int:
+        return self.k.shape[2]
+
+    @property
+    def block_size(self) -> int:
+        return self.k.shape[3]
+
+
+def paged_write_indices(
+    table: torch.Tensor,
+    fill: torch.Tensor,
+    active: torch.Tensor,
+    T: int,
+    n_blocks: int,
+    block_size: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Physical (block, offset) pairs for landing T new per-row entries.
+
+    Row b's token j goes to block ``table[b, (fill[b]+j) // BLK]`` at
+    offset ``(fill[b]+j) % BLK``; inactive rows and columns past the row's
+    reserved capacity resolve to the sentinel block id ``n_blocks``, which
+    ``paged_pool_write`` drops.  Returns (blk, off, cols), each [B, T]
+    int64: ``cols`` is the clamped view column of each pair.
+    """
+    MB = table.shape[1]
+    cols = fill.long()[:, None] + torch.arange(T, device=fill.device)[None, :]
+    safe = cols.clamp(max=MB * block_size - 1)
+    blk = torch.gather(table.long(), 1, safe // block_size)
+    live = active[:, None] & (cols < MB * block_size)
+    blk = torch.where(live, blk, n_blocks)
+    return blk, safe % block_size, safe
+
+
+def paged_pool_write(
+    plane: torch.Tensor,
+    upd: torch.Tensor,
+    blk: torch.Tensor,
+    off: torch.Tensor,
+) -> torch.Tensor:
+    """Write per-(row, token) updates into a pool plane in place; pairs
+    whose block id is outside [0, NB) (the sentinel) are dropped.
+
+    plane: [L, KVH, NB, BLK, d] payload with upd [L, KVH, B, T, d], or the
+      [NB, BLK] position plane with upd [B, T].
+    blk, off: [B, T] physical coordinates from ``paged_write_indices``.
+
+    The JAX package writes through a chain of dynamic-update-slices only
+    to keep XLA's pool layout; eager PyTorch has no layout to keep, so
+    this is one ``index_put_``.  index_put_ cannot skip a pair and leaves
+    the winner of duplicate targets unspecified, so each dead pair repeats
+    the first live pair (same slot, same value); with no live pair, every
+    pair rewrites its clamped slot's own value.  Returns ``plane``.
+    """
+    payload = plane.dim() == 5
+    NB = plane.shape[2] if payload else plane.shape[0]
+    flat = blk.reshape(-1)
+    live = (flat >= 0) & (flat < NB)
+    any_live = live.any()
+    src = torch.where(live | ~any_live,
+                      torch.arange(live.numel(), device=live.device),
+                      live.int().argmax())
+    b = flat[src].clamp(0, NB - 1)
+    o = off.reshape(-1)[src]
+    if payload:
+        u = upd.reshape(*upd.shape[:2], -1, upd.shape[-1]).to(plane.dtype)
+        plane[:, :, b, o] = torch.where(any_live, u[:, :, src],
+                                        plane[:, :, b, o])
+    else:
+        u = upd.reshape(-1).to(plane.dtype)
+        plane[b, o] = torch.where(any_live, u[src], plane[b, o])
+    return plane
+
+
+@dataclasses.dataclass
+class AuxOutput:
+    """``forward(..., output_last_hidden=True)``'s third output: the
+    post-final-norm hidden states [B, T, D] (feed them to
+    ``lm_head_logits(..., normed=True)``)."""
+
+    last_hidden_state: torch.Tensor
 
 
 def init_cache(
@@ -233,10 +351,14 @@ def _matmul_f32_out(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return x.float() @ w.float()
 
 
-def lm_head_logits(params: Params, x: torch.Tensor, config: LLaMAConfig) -> torch.Tensor:
+def lm_head_logits(
+    params: Params, x: torch.Tensor, config: LLaMAConfig, normed: bool = False
+) -> torch.Tensor:
     """Final RMSNorm + (tied or untied) LM head: [B, T, D] -> [B, T, V]
-    in config.logits_dtype."""
-    x = rms_norm(x, params["final_norm"], config.rms_norm_eps)
+    in config.logits_dtype.  ``normed=True``: x is already the
+    post-final-norm hidden state."""
+    if not normed:
+        x = rms_norm(x, params["final_norm"], config.rms_norm_eps)
     if config.tie_word_embeddings:
         kernel = params["embed"]["embedding"].T
     else:
@@ -261,6 +383,25 @@ def _proj(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out.reshape(N, *lead, k)
 
 
+def _cache_write(
+    cache_layer: torch.Tensor,
+    new: torch.Tensor,
+    index: Union[int, torch.Tensor],
+) -> None:
+    """Write new [B, T, KVH, hd] into one layer's cache [B, S, KVH, hd] at
+    ``index``: a shared int offset, or a [B] tensor of per-row offsets
+    (T == 1; a row whose offset is past the cache keeps its slots)."""
+    if not isinstance(index, torch.Tensor):
+        cache_layer[:, index:index + new.shape[1]] = new.to(cache_layer.dtype)
+        return
+    S = cache_layer.shape[1]
+    rows = torch.arange(new.shape[0], device=new.device)
+    cols = index.long().clamp(max=S - 1)
+    fits = (index < S)[:, None, None]
+    cache_layer[rows, cols] = torch.where(
+        fits, new[:, 0].to(cache_layer.dtype), cache_layer[rows, cols])
+
+
 def _block(
     x: torch.Tensor,
     lp: Dict[str, torch.Tensor],
@@ -270,16 +411,20 @@ def _block(
     config: LLaMAConfig,
     positions: torch.Tensor,
     bias: Optional[torch.Tensor],
-    slot_pos: torch.Tensor,
-    cache_index: Optional[int],
+    slot_pos: Optional[torch.Tensor],
+    cache_index: Optional[Union[int, torch.Tensor]],
     cos: torch.Tensor,
     sin: torch.Tensor,
     bias_new: Optional[torch.Tensor],
     impl: str,
-) -> torch.Tensor:
+    paged: Optional[Tuple["PagedKVCache", torch.Tensor, int]] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One pre-norm transformer block, x: [B, T, D]; ``impl`` is the
     resolved attention path.  Writes this block's new K/V into
-    ``cache_k``/``cache_v`` (views of one layer of the cache) in place."""
+    ``cache_k``/``cache_v`` (views of one layer of the cache) in place.
+    ``impl="paged"`` attends ``paged`` = (pool cache, per-row query
+    position, layer) through the paged kernel and leaves the pool to the
+    caller's write-back.  Returns (x, the block's new K, its new V)."""
     B, T, D = x.shape
     adt = x.dtype
     H, KVH, hd = config.n_heads, config.kv_heads, config.head_dim
@@ -294,19 +439,25 @@ def _block(
     q = apply_rope(q, cos, sin, positions)
     k = apply_rope(k, cos, sin, positions)
 
-    if cache_k is not None and impl == "xla":
+    if impl == "paged":
+        pool, q_pos_row, layer = paged
+        attn = paged_decode_attention(
+            q, k, v, pool.k, pool.v, pool.pos, pool.table, q_pos_row,
+            layer=layer,
+        )
+    elif cache_k is not None and impl == "xla":
         attn = sdpa_cached(
             q, cache_k.to(adt), cache_v.to(adt), k, v, bias, bias_new,
             softmax_dtype=softmax_dtype,
         )
         # Append-free: the step's K/V land after the attention read the
         # cache (the slots they fill were masked from it).
-        cache_k[:, cache_index:cache_index + T] = k.to(cache_k.dtype)
-        cache_v[:, cache_index:cache_index + T] = v.to(cache_v.dtype)
+        _cache_write(cache_k, k, cache_index)
+        _cache_write(cache_v, v, cache_index)
     else:
         if cache_k is not None:
-            cache_k[:, cache_index:cache_index + T] = k.to(cache_k.dtype)
-            cache_v[:, cache_index:cache_index + T] = v.to(cache_v.dtype)
+            _cache_write(cache_k, k, cache_index)
+            _cache_write(cache_v, v, cache_index)
             kk, vv = cache_k.to(adt), cache_v.to(adt)
         else:
             kk, vv = k, v
@@ -322,7 +473,7 @@ def _block(
     gate_up = _proj(h, lp["gate_up"])  # [N, 2, F]
     hidden = F.silu(gate_up[:, 0]) * gate_up[:, 1]
     down = hidden @ lp["down"].to(adt)
-    return x + down.reshape(B, T, D)
+    return x + down.reshape(B, T, D), k, v
 
 
 def forward(
@@ -330,7 +481,7 @@ def forward(
     tokens: torch.Tensor,
     positions: torch.Tensor,
     config: LLaMAConfig,
-    cache: Optional[KVCache] = None,
+    cache: Optional[Union[KVCache, PagedKVCache]] = None,
     attn_mask: Optional[torch.Tensor] = None,
     compute_logits: bool = True,
     dropout_rng=None,
@@ -338,7 +489,7 @@ def forward(
     output_attentions: bool = False,
     output_last_hidden: bool = False,
     chunk_offset: Optional[int] = None,
-) -> Tuple[Optional[torch.Tensor], Optional[KVCache]]:
+):
     """Run the transformer.
 
     Args:
@@ -350,30 +501,40 @@ def forward(
       cache: optional KVCache, updated in place and returned (see module
         docstring): the T tokens are written at ``cache.index``, attention
         runs over the whole cache, and ``cache.index`` advances by T.
-        ``cache.index + T`` must not pass ``cache.max_len``.
+        ``cache.index + T`` must not pass ``cache.max_len`` (a per-row
+        index past it drops that row's write).  A per-row index runs the
+        xla path ("auto" resolves there) with T == 1.  A PagedKVCache runs
+        ``paged_forward``.
       attn_mask: optional [B, T] bool, False for padding; defaults to
         positions >= 0.
-      compute_logits: False skips the final norm and LM head and returns
-        (None, cache), for non-final prefill chunks.
-      dropout_rng, output_hidden_states, output_attentions,
-        output_last_hidden, chunk_offset: the JAX signature's training,
-        auxiliary-output and splash-kernel options; not ported, and any
-        value but the default raises NotImplementedError.
+      compute_logits: False skips the LM head and returns (None, cache),
+        for non-final prefill chunks.
+      output_last_hidden: also return an ``AuxOutput`` with the
+        post-final-norm hidden states: (logits, cache, aux).
+      dropout_rng, output_hidden_states, output_attentions, chunk_offset:
+        the JAX signature's training, auxiliary-output and splash-kernel
+        options; not ported, and any value but the default raises
+        NotImplementedError.
     Returns:
-      (logits [B, T, V] in config.logits_dtype or None, cache or None).
+      (logits [B, T, V] in config.logits_dtype or None, cache or None),
+      plus the AuxOutput when ``output_last_hidden``.
     """
     unported = dict(
         dropout_rng=dropout_rng, output_hidden_states=output_hidden_states,
-        output_attentions=output_attentions,
-        output_last_hidden=output_last_hidden, chunk_offset=chunk_offset,
+        output_attentions=output_attentions, chunk_offset=chunk_offset,
     )
     for name, value in unported.items():
         if value is not None and value is not False:
             raise NotImplementedError(f"forward({name}=...) is not ported")
+    if isinstance(cache, PagedKVCache):
+        if output_last_hidden:
+            raise NotImplementedError(
+                "output_last_hidden is not supported on the paged path")
+        return paged_forward(params, tokens, positions, config, cache,
+                             attn_mask=attn_mask,
+                             compute_logits=compute_logits)
     if cache is not None and not isinstance(cache, KVCache):
-        raise NotImplementedError(
-            f"{type(cache).__name__} is not ported (scalar-index KVCache only)"
-        )
+        raise NotImplementedError(f"{type(cache).__name__} is not ported")
     config.validate()
     device = _params_device(params)
     tokens = tokens.to(device)
@@ -384,7 +545,11 @@ def forward(
         attn_mask = positions >= 0
     attn_mask = attn_mask.to(device=device, dtype=torch.bool)
     q_positions = positions.clamp(min=0).contiguous()
-    if cache is not None and cache.index + T > cache.max_len:
+    per_row = cache is not None and cache.per_row_index
+    if per_row and T != 1:
+        raise NotImplementedError(
+            "a per-row cache index with T > 1 is not ported")
+    if cache is not None and not per_row and cache.index + T > cache.max_len:
         raise ValueError(
             f"cache overflow: index {cache.index} + {T} tokens > "
             f"{cache.max_len} slots"
@@ -401,7 +566,11 @@ def forward(
 
     impl = config.attn_impl
     if impl == "auto":
-        impl = "flash" if T > FLASH_MIN_SEQ else "xla"
+        impl = "flash" if T > FLASH_MIN_SEQ and not per_row else "xla"
+    if per_row and impl != "xla":
+        raise NotImplementedError(
+            "per-row cache indices (continuous batching) run on the xla "
+            "attention path only")
     xla_cached = cache is not None and impl == "xla"
 
     new_slot_pos = torch.where(
@@ -409,7 +578,9 @@ def forward(
     )
     if cache is not None:
         slot_pos = cache.pos.clone()
-        slot_pos[:, cache.index:cache.index + T] = new_slot_pos
+        # the positions plane as a [B, S, 1, 1] "layer"
+        _cache_write(slot_pos[..., None, None], new_slot_pos[..., None, None],
+                     cache.index)
     else:
         slot_pos = new_slot_pos.contiguous()
     bias = bias_new = None
@@ -421,7 +592,7 @@ def forward(
 
     lp = params["layers"]
     for i in range(config.n_layers):
-        x = _block(
+        x, _, _ = _block(
             x, {name: w[i] for name, w in lp.items()},
             cache.k[i] if cache is not None else None,
             cache.v[i] if cache is not None else None,
@@ -431,9 +602,90 @@ def forward(
             cos=cos, sin=sin, bias_new=bias_new, impl=impl,
         )
 
+    if output_last_hidden:
+        h = rms_norm(x, params["final_norm"], config.rms_norm_eps)
+        logits = (lm_head_logits(params, h, config, normed=True)
+                  if compute_logits else None)
+    else:
+        logits = lm_head_logits(params, x, config) if compute_logits else None
+    if cache is not None:
+        cache.pos.copy_(slot_pos)
+        cache.index = cache.index + T
+    if output_last_hidden:
+        return logits, cache, AuxOutput(last_hidden_state=h)
+    return logits, cache
+
+
+def paged_forward(
+    params: Params,
+    tokens: torch.Tensor,
+    positions: torch.Tensor,
+    config: LLaMAConfig,
+    cache: PagedKVCache,
+    attn_mask: Optional[torch.Tensor] = None,
+    compute_logits: bool = True,
+) -> Tuple[Optional[torch.Tensor], PagedKVCache]:
+    """One decode step (T = 1 token per row) over a paged block pool.
+
+    Every layer's attention runs the paged kernel
+    (``ops.paged_attention``), which walks ``cache.table`` itself and
+    reads the layer's plane of the pool once; the step's own K/V merge at
+    the softmax level.  After the last layer the step's K/V and positions
+    land in the pool through ``paged_write_indices``/``paged_pool_write``
+    (the write-back contract the serving gathered view shares).
+
+    The pool is updated IN PLACE (cache.k, cache.v, cache.pos) and the
+    same ``cache`` object is returned; ``cache.fill`` is the caller's to
+    advance.  Rows with ``attn_mask`` False (or position -1) are inactive:
+    they attend nothing, their logits are garbage the caller ignores, and
+    their write-back is dropped.  T > 1 (speculative verify) and int8
+    pools raise NotImplementedError.
+    """
+    B, T = tokens.shape
+    if T != 1:
+        raise NotImplementedError(
+            "paged_forward with T > 1 (speculative verify) is not ported "
+            "(ROADMAP A10)")
+    if not cache.k.is_floating_point():
+        raise NotImplementedError(
+            "int8 paged pools are not ported (ROADMAP A8)")
+    config.validate()
+    device = _params_device(params)
+    tokens = tokens.to(device)
+    positions = positions.to(device=device, dtype=torch.int32)
+    adt = config.activation_dtype
+    if attn_mask is None:
+        attn_mask = positions >= 0
+    attn_mask = attn_mask.to(device=device, dtype=torch.bool)
+    q_positions = positions.clamp(min=0).contiguous()
+    NB, BLK = cache.pos.shape
+    MB = cache.table.shape[1]
+    cos, sin = _rope_tables(
+        config.head_dim, max(2 * config.max_seq_len, MB * BLK),
+        config.rope_theta, config.use_scaled_rope, device,
+    )
+    x = params["embed"]["embedding"][tokens.long()].to(adt)
+    active = attn_mask[:, 0]
+    q_pos_row = torch.where(active, positions[:, 0], -1).to(torch.int32)
+
+    lp = params["layers"]
+    new_k, new_v = [], []
+    for i in range(config.n_layers):
+        x, k, v = _block(
+            x, {name: w[i] for name, w in lp.items()}, None, None,
+            config=config, positions=q_positions, bias=None, slot_pos=None,
+            cache_index=None, cos=cos, sin=sin, bias_new=None, impl="paged",
+            paged=(cache, q_pos_row, i),
+        )
+        new_k.append(k)
+        new_v.append(v)
     logits = lm_head_logits(params, x, config) if compute_logits else None
-    if cache is None:
-        return logits, None
-    cache.pos.copy_(slot_pos)
-    cache.index += T
+
+    blk, off, _ = paged_write_indices(
+        cache.table, cache.fill, active, T, NB, BLK)
+    # [L, B, T, KVH, hd] -> [L, KVH, B, T, hd]
+    paged_pool_write(cache.k, torch.stack(new_k).movedim(3, 1), blk, off)
+    paged_pool_write(cache.v, torch.stack(new_v).movedim(3, 1), blk, off)
+    paged_pool_write(cache.pos, torch.where(active[:, None], positions, -1),
+                     blk, off)
     return logits, cache

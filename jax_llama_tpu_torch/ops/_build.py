@@ -4,7 +4,9 @@ Each source under ``jax_llama_tpu_torch/csrc/`` becomes one shared library
 with a plain C interface, compiled for ``sm_90a`` at first use into
 ``jax_llama_tpu_torch/_build/`` (listed in ``.gitignore``).  The library's
 file name carries a hash of its source and flags, so an edited source is
-rebuilt and an unchanged one is loaded as it is.
+rebuilt and an unchanged one is loaded as it is.  ``build_all`` compiles
+every source at once, one ``nvcc`` process each, so a cold build takes as
+long as the slowest source rather than the sum.
 
 Nothing here runs at import time: the CPU tests import every module on a
 machine with no ``nvcc``.
@@ -19,7 +21,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Iterable, Optional
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -52,26 +54,45 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
 
+def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
+    """Compile each ``csrc/<name>.cu`` (default: every source there) whose
+    library does not exist yet, one ``nvcc`` per source, all started
+    together; return each library's path.  The compiler's output goes
+    beside the library as ``.log``; a failed build raises with that
+    output."""
+    names = (sorted(p.stem for p in CSRC_DIR.glob("*.cu")) if names is None
+             else list(names))
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    started = {}
+    for name in names:
+        if library_path(name).exists():
+            continue
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        proc = subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC_DIR / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        started[name] = (proc, tmp)
+    failed = []
+    for name, (proc, tmp) in started.items():
+        log = proc.communicate()[0]
+        out = library_path(name)
+        out.with_suffix(".log").write_text(log)
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failed.append(f"nvcc failed for csrc/{name}.cu:\n{log}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return {name: library_path(name) for name in names}
+
+
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless its library exists; return the
-    library's path.  The compiler's output goes beside it as ``.log``;
-    a failed build raises with that output."""
-    out = library_path(name)
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC_DIR / f"{name}.cu")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-    )
-    out.with_suffix(".log").write_text(proc.stdout)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{proc.stdout}")
-    os.replace(tmp, out)
-    return out
+    library's path."""
+    return build_all([name])[name]
 
 
 def build_log(name: str) -> str:

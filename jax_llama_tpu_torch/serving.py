@@ -1,0 +1,942 @@
+"""Continuous batching over a paged (block-table) KV cache (port of
+``jax_llama_tpu/serving.py`` at its greedy/sampled core).
+
+Requests enter and leave a fixed set of ``n_slots`` rows independently.
+KV lives in a pool of fixed-size blocks, ``[L, KVH, n_blocks, block_size,
+hd]``; each row holds a block table.  Admission reserves the blocks a
+request can ever need (``ceil((padded prompt + max_new) / block_size)``),
+completion frees them, and a request whose reservation does not fit waits
+in the queue.
+
+* Admission (``_paged_insert``): a burst of queued requests prefills as one
+  right-padded ``[k', P]`` forward (``attn_impl="auto"`` runs the flash
+  kernel) into a fresh scalar-index ``KVCache``, whose blocks are then
+  copied into each row's reserved pool blocks.  The first token is sampled
+  from each row's last real token.
+* Decode (``_chunk_scan``): up to ``decode_chunk`` iterations per
+  ``step()``, a Python loop over device tensors.  Each iteration emits the
+  pending token, detects stop tokens and spent budgets on the device, then
+  runs one ``[n_slots, 1]`` forward over the pool: ``paged_forward``, whose
+  attention is the hand-written paged kernel at any block size, or, only
+  when asked for with ``use_pallas_kernel=False`` /
+  ``decode_kernel="gathered"``, the gathered view (``_gather_cache`` +
+  ``_scatter_back``).  The host fetches the ``[B, K]`` token block once
+  per step.
+* Per-row decode state (table, n_alloc, fill, pos, active, remaining, stop
+  sets, sampling policies) lives on the device.  Admission, frees and
+  cancels mark rows dirty, and one packed upload syncs those rows before
+  the next step, so a steady-state step uploads nothing and fetches once.
+* Sampling: each sampled request owns a ``torch.Generator`` on the
+  batcher's device, seeded with its ``seed`` or ``default_seed(rid)``, and
+  emits what ``engine.generate`` at B=1 with that generator emits.
+
+Not in this slice; each raises ``NotImplementedError`` at construction,
+naming its ROADMAP item: speculative decoding (A10), meshes (A14),
+logprobs (A17), fused prefill-decode (A9), the prefix cache and host tier
+(A11), observability, fault injection and cost models (A7), kernel
+selection other than flash prefill and paged/gathered decode (A15), and
+int8 KV (A8).  Because the prefix cache is out, the port's defaults are
+``prefix_cache=False`` and ``prefix_index="off"``; the JAX package's are
+``True`` and ``"radix"``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from .config import LLaMAConfig
+from .engine import prompt_positions
+from .models.llama import (
+    KVCache,
+    PagedKVCache,
+    _params_device,
+    forward,
+    init_cache,
+    lm_head_logits,
+    paged_pool_write,
+    paged_write_indices,
+    resolve_device,
+)
+from .ops.attention import NEG_INF
+from .ops.sampling import stop_token_hits
+
+# "No token emitted this chunk column" marker in the [B, K] token block
+# (the row was already inactive).  Distinct from the -1 non-finite
+# sentinel: real tokens are never negative.
+_CHUNK_PAD = -2
+
+
+def pow2_bucket(n: int) -> int:
+    """Smallest power of two >= max(n, 1)."""
+    return 1 << max(n - 1, 0).bit_length()
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+# ---------------------------------------------------------------------------
+# Paged KV pool
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class BlockPool:
+    """Paged KV storage shared by all slots.
+
+    k, v: [L, KVH, n_blocks, block_size, hd] in the activation dtype,
+          KV-head-major (the paged kernel's layout).
+    pos:  [n_blocks, block_size] int32 absolute position per slot; -1
+          marks a slot that holds nothing (free block / unwritten).
+    """
+
+    k: torch.Tensor
+    v: torch.Tensor
+    pos: torch.Tensor
+
+    @property
+    def n_blocks(self) -> int:
+        return self.k.shape[2]
+
+    @property
+    def block_size(self) -> int:
+        return self.k.shape[3]
+
+
+def init_pool(
+    config: LLaMAConfig, n_blocks: int, block_size: int, device="cuda"
+) -> BlockPool:
+    config.validate()
+    device = resolve_device(device)
+    shape = (config.n_layers, config.kv_heads, n_blocks, block_size,
+             config.head_dim)
+    dtype = config.activation_dtype
+    return BlockPool(
+        k=torch.zeros(shape, dtype=dtype, device=device),
+        v=torch.zeros(shape, dtype=dtype, device=device),
+        pos=torch.full((n_blocks, block_size), -1, dtype=torch.int32,
+                       device=device),
+    )
+
+
+def _gather_cache(
+    pool: BlockPool,
+    table: torch.Tensor,     # [B, MB] int32 physical block ids (NB = unused)
+    n_alloc: torch.Tensor,   # [B] int32 allocated blocks per row
+    fill: torch.Tensor,      # [B] int32 per-row write offset (tokens)
+) -> KVCache:
+    """Materialize the per-row virtually-contiguous cache view (a copy).
+    Sentinel table entries gather block NB-1; their positions are forced
+    to -1 through n_alloc, so that data is never attended."""
+    L, KVH, NB, BLK, hd = pool.k.shape
+    B, MB = table.shape
+    blk = table.long().clamp(0, NB - 1)
+
+    def g(a):  # [L, KVH, NB, BLK, hd] -> [L, B, MB*BLK, KVH, hd]
+        out = a[:, :, blk].reshape(L, KVH, B, MB * BLK, hd)
+        return out.movedim(1, 3).contiguous()
+
+    valid = torch.arange(MB, device=table.device)[None, :] < n_alloc[:, None]
+    posg = torch.where(valid[:, :, None], pool.pos[blk], -1)
+    return KVCache(k=g(pool.k), v=g(pool.v), pos=posg.reshape(B, MB * BLK),
+                   index=fill)
+
+
+def _scatter_back(
+    pool: BlockPool,
+    view: KVCache,
+    table: torch.Tensor,
+    fill: torch.Tensor,
+    active: torch.Tensor,
+    T: int,
+) -> None:
+    """Write the T new entries per row of the gathered view back into their
+    physical blocks, in place.  Inactive rows and out-of-reservation
+    columns resolve to the sentinel block id and are dropped."""
+    NB, BLK = pool.pos.shape
+    rows = torch.arange(table.shape[0], device=table.device)[:, None]
+    blk, off, cols = paged_write_indices(table, fill, active, T, NB, BLK)
+    # view slices are [L, B, T, KVH, hd]; the pool wants KVH-major.
+    paged_pool_write(pool.k, view.k[:, rows, cols].movedim(3, 1), blk, off)
+    paged_pool_write(pool.v, view.v[:, rows, cols].movedim(3, 1), blk, off)
+    paged_pool_write(pool.pos, view.pos[rows, cols], blk, off)
+
+
+# ---------------------------------------------------------------------------
+# Per-row sampling (per-row policies)
+# ---------------------------------------------------------------------------
+
+def _warp_rows(
+    logits: torch.Tensor,       # [B, V] or [B, T, V]
+    temperature: torch.Tensor,  # [B] float32 (> 0 rows meaningful)
+    top_p: torch.Tensor,        # [B] float32; 1.0 = off
+    top_k: torch.Tensor,        # [B] int32; 0 (or V) = off
+) -> torch.Tensor:
+    """Per-row warped logits: scale by temperature, threshold at the k-th
+    largest, nucleus threshold; row-wise the same as ``ops.sampling``'s
+    static filters."""
+    V = logits.shape[-1]
+    lg = logits.float()
+    bshape = (logits.shape[0],) + (1,) * (lg.dim() - 1)
+    t = temperature.float().clamp(min=1e-6).reshape(bshape)
+    scaled = lg / t
+    sorted_desc = torch.sort(scaled, dim=-1, descending=True).values
+    k = torch.where(top_k <= 0, V, top_k).clamp(1, V).reshape(bshape)
+    kth = torch.gather(
+        sorted_desc, -1, (k - 1).long().expand(lg.shape[:-1] + (1,)))
+    scaled = torch.where(scaled >= kth, scaled, NEG_INF)
+    sorted2 = torch.sort(scaled, dim=-1, descending=True).values
+    probs = torch.softmax(sorted2, dim=-1)
+    cum = torch.cumsum(probs, dim=-1)
+    p = top_p.float().reshape(bshape)
+    keep = (cum - probs) < p
+    thr = torch.where(keep, sorted2, float("inf")).amin(dim=-1, keepdim=True)
+    thr = torch.minimum(thr, scaled.amax(dim=-1, keepdim=True))
+    nucleus = torch.where(p < 1.0, thr, float("-inf"))
+    return torch.where(scaled >= nucleus, scaled, NEG_INF)
+
+
+def sample_rows(
+    generators: Sequence[Optional[torch.Generator]],
+    logits: torch.Tensor,       # [B, V]
+    temperature: torch.Tensor,  # [B] float32; 0 = greedy
+    top_p: torch.Tensor,        # [B] float32
+    top_k: torch.Tensor,        # [B] int32
+) -> torch.Tensor:
+    """Next token per row: argmax for greedy rows, else one draw from the
+    row's warped distribution with the row's own generator (rows without
+    one take the argmax).  A row draws exactly as ``ops.sampling.sample``
+    on its [1, V] logits would with that generator."""
+    greedy_tok = torch.argmax(logits.float(), dim=-1).to(torch.int32)
+    rows = [b for b, g in enumerate(generators) if g is not None]
+    if not rows:
+        return greedy_tok
+    probs = torch.softmax(_warp_rows(logits, temperature, top_p, top_k),
+                          dim=-1)
+    tok = greedy_tok.clone()
+    for b in rows:
+        tok[b] = torch.multinomial(probs[b:b + 1], 1,
+                                   generator=generators[b])[0, 0]
+    return torch.where(temperature <= 0.0, greedy_tok, tok)
+
+
+def _finite_rows(logits: torch.Tensor) -> torch.Tensor:
+    """[B, V] -> [B] bool, True where every logit is finite."""
+    return torch.isfinite(logits).all(dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Step programs
+# ---------------------------------------------------------------------------
+
+def _decode_step_core(
+    params, pool, table, n_alloc, fill, tau, pos, active, generators,
+    temperature, top_p, top_k, *, config, use_kernel,
+):
+    """One [n_slots, 1] decode iteration over the paged pool, updating the
+    pool in place.  Returns the next token [B], -1 for a row whose logits
+    are not finite."""
+    positions = torch.where(active, pos, -1)[:, None]
+    if use_kernel:
+        cache = PagedKVCache(k=pool.k, v=pool.v, pos=pool.pos, table=table,
+                             fill=fill)
+        logits, _ = forward(params, tau[:, None], positions, config,
+                            cache=cache, attn_mask=active[:, None])
+    else:
+        view = _gather_cache(pool, table, n_alloc, fill)
+        logits, view = forward(params, tau[:, None], positions, config,
+                               cache=view, attn_mask=active[:, None])
+        _scatter_back(pool, view, table, fill, active, T=1)
+    last = logits[:, -1]
+    nxt = sample_rows(generators, last, temperature, top_p, top_k)
+    return torch.where(_finite_rows(last), nxt, -1)
+
+
+def _chunk_scan(
+    params, pool, table, n_alloc, fill, tau, pos, active, remaining, stops,
+    generators, temperature, top_p, top_k, *, config, n_iter, use_kernel,
+):
+    """``n_iter`` decode iterations (JAX ``_chunk_scan``, a Python loop over
+    device tensors here).  Each iteration replays the host's one-token
+    contract on the device:
+
+      1. emit the pending token ``tau`` into column i of the token block
+         (-1 for the non-finite sentinel, ``_CHUNK_PAD`` for rows already
+         inactive);
+      2. a row whose emitted token is one of its stops, whose budget is
+         spent, or whose token is the sentinel leaves ``active``: it stops
+         attending and writing for the rest of the chunk;
+      3. one ``_decode_step_core`` iteration for the remaining rows, then
+         fill/pos advance.
+
+    Returns (tokens [B, n_iter] int32, tau, fill, pos, active, remaining).
+    """
+    toks = []
+    for _ in range(n_iter):
+        nonfinite = tau < 0
+        toks.append(torch.where(
+            active, torch.where(nonfinite, -1, tau), _CHUNK_PAD))
+        done = active & (nonfinite | stop_token_hits(tau, stops)
+                         | (remaining <= 1))
+        remaining = remaining - active.to(torch.int32)
+        active = active & ~done
+        nxt = _decode_step_core(
+            params, pool, table, n_alloc, fill, tau, pos, active,
+            generators, temperature, top_p, top_k, config=config,
+            use_kernel=use_kernel,
+        )
+        tau = torch.where(active, nxt, tau)
+        fill = fill + active.to(torch.int32)
+        pos = pos + active.to(torch.int32)
+    return (torch.stack(toks, dim=1).to(torch.int32), tau, fill, pos, active,
+            remaining)
+
+
+def _paged_insert(
+    params, pool, block_ids, prompt_tokens, prompt_mask, generators,
+    temperature, top_p, top_k, *, config, prefill_chunk=None,
+):
+    """Prefill a batch of admitted requests and land their KV in their
+    reserved blocks (in place).
+
+    prompt_tokens/prompt_mask: [k, P] on the device, RIGHT-padded to the
+    group's block-multiple length P.  block_ids: [k, P // block_size]
+    numpy int32, the physical blocks of each row's prompt span; entries
+    equal to n_blocks (past a shorter row's span, or a padding row) are
+    dropped.  Logits are taken at each row's last real token.  Returns the
+    sampled first tokens [k] int32 (-1 where the logits are not finite).
+    """
+    k_rows, P = prompt_tokens.shape
+    L, KVH, NB, BLK, hd = pool.k.shape
+    device = pool.k.device
+    sub = init_cache(config, k_rows, max_len=P, device=device)
+    positions = prompt_positions(prompt_mask)
+    plen = prompt_mask.to(torch.int32).sum(dim=-1)
+    rows = torch.arange(k_rows, device=device)
+    chunk = prefill_chunk if prefill_chunk and prefill_chunk < P else P
+    h_last = None
+    for start in range(0, P, chunk):
+        end = min(start + chunk, P)
+        _, sub, aux = forward(
+            params, prompt_tokens[:, start:end], positions[:, start:end],
+            config, cache=sub, attn_mask=prompt_mask[:, start:end],
+            compute_logits=False, output_last_hidden=True,
+        )
+        idx = plen - 1 - start  # [k] last-token offset in this chunk
+        in_chunk = (idx >= 0) & (idx < end - start)
+        g = aux.last_hidden_state[rows, idx.clamp(0, end - start - 1)]
+        h_last = g if h_last is None else torch.where(
+            in_chunk[:, None], g, h_last)
+    logits_last = lm_head_logits(params, h_last[:, None], config,
+                                 normed=True)[:, 0]
+    tau = sample_rows(generators, logits_last, temperature, top_p, top_k)
+    tau = torch.where(_finite_rows(logits_last), tau, -1)
+
+    r, j = np.nonzero(block_ids < NB)
+    if r.size:
+        idx = torch.from_numpy(
+            np.stack([r, j, block_ids[r, j]]).astype(np.int64)).to(device)
+        r_t, j_t, b_t = idx.unbind(0)
+        # [L, k, P, KVH, hd] -> [L, k, nb, BLK, KVH, hd], then the chosen
+        # (row, block) pairs -> [L, KVH, n, BLK, hd]
+        span = (L, k_rows, P // BLK, BLK, KVH, hd)
+        pool.k[:, :, b_t] = sub.k.reshape(span)[:, r_t, j_t].movedim(3, 1)
+        pool.v[:, :, b_t] = sub.v.reshape(span)[:, r_t, j_t].movedim(3, 1)
+        pool.pos[b_t] = sub.pos.reshape(k_rows, P // BLK, BLK)[r_t, j_t]
+    return tau
+
+
+# ---------------------------------------------------------------------------
+# Host-side batcher
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class _Slot:
+    request_id: int
+    emitted: List[int]
+    max_new: int
+    stop_tokens: frozenset
+    blocks: List[int]
+
+
+@dataclasses.dataclass
+class _Request:
+    rid: int
+    tokens: List[int]
+    max_new: int
+    stops: frozenset
+    temperature: float
+    top_p: float
+    top_k: int
+    seed: Optional[int]
+
+    def blocks_needed(self, block_size: int) -> int:
+        padded = _round_up(len(self.tokens), block_size)
+        return -(-(padded + self.max_new) // block_size)
+
+
+class ContinuousBatcher:
+    """Host-side slot manager around the step programs.
+
+    Usage:
+        cb = ContinuousBatcher(params, config, n_slots=8, max_len=2048)
+        rid = cb.submit([1, 5, 9, ...], max_new_tokens=128)
+        while cb.pending():
+            for request_id, token, done in cb.step():
+                ...
+
+    The signature is the JAX package's, plus ``device`` (default "cuda";
+    the pool is placed where the params are, and a disagreeing ``device``
+    raises).  One difference: the prefix cache is not ported, so
+    ``prefix_cache`` defaults to False and ``prefix_index`` to "off";
+    asking for it raises NotImplementedError (ROADMAP A11).  The other
+    arguments outside this slice raise as the module docstring lists;
+    ``draft_config``, ``n_draft`` and ``spec_rounds`` act only with
+    ``draft_params``, as in the JAX package, so they are accepted as is.
+
+    ``n_blocks`` sizes the KV pool; the default matches contiguous
+    capacity (n_slots × max_len).  A smaller pool overcommits: admission
+    reserves ceil((padded prompt + max_new) / block_size) blocks and
+    requests queue until their reservation fits.  ``decode_chunk`` runs up
+    to that many decode iterations per ``step()`` with one host fetch;
+    output is token-identical to ``decode_chunk=1``.
+    """
+
+    # Chunk clamp while the queue is capacity-blocked (JAX :2765).
+    _QUEUED_CHUNK_CAP = 4
+    _NONFINITE_MSG = (
+        "non-finite logits: the model produced NaN/Inf for this request; "
+        "it was aborted"
+    )
+
+    def __init__(
+        self,
+        params,
+        config: LLaMAConfig,
+        n_slots: int = 8,
+        max_len: Optional[int] = None,
+        stop_tokens: Tuple[int, ...] = (),
+        temperature: float = 0.0,
+        top_p: Optional[float] = None,
+        top_k: Optional[int] = None,
+        prefill_chunk: Optional[int] = None,
+        seed: int = 0,
+        block_size: Optional[int] = None,
+        n_blocks: Optional[int] = None,
+        draft_params=None,
+        draft_config: Optional[LLaMAConfig] = None,
+        n_draft: int = 4,
+        mesh=None,
+        use_pallas_kernel: bool = True,
+        logprobs: bool = False,
+        prefix_cache: bool = False,
+        fault_injector=None,
+        decode_chunk: int = 1,
+        spec_rounds: int = 1,
+        prefill_budget: int = 0,
+        prefix_index: str = "off",
+        host_kv_blocks: int = 0,
+        obs=None,
+        cost_models: bool = False,
+        prefill_kernel: Optional[str] = None,
+        decode_kernel: Optional[str] = None,
+        device="cuda",
+    ):
+        if prefix_index not in ("radix", "exact", "off"):
+            raise ValueError(
+                f"unknown prefix_index {prefix_index!r}; "
+                "have ('radix', 'exact', 'off')"
+            )
+        prefill_kernel = prefill_kernel or config.prefill_kernel
+        decode_kernel = decode_kernel or config.decode_kernel
+        unported = (
+            (draft_params is not None,
+             "draft_params (speculative decoding)", "A10"),
+            (mesh is not None, "mesh (serving-mesh sharding)", "A14"),
+            (logprobs, "logprobs=True", "A17"),
+            (prefill_budget > 0,
+             "prefill_budget > 0 (fused prefill-decode)", "A9"),
+            (host_kv_blocks > 0, "host_kv_blocks > 0 (host KV tier)", "A11"),
+            (prefix_cache and prefix_index != "off",
+             f"the prefix cache (prefix_index={prefix_index!r})", "A11"),
+            (obs is not None, "obs (observability layer)", "A7"),
+            (fault_injector is not None, "fault_injector", "A7"),
+            (cost_models, "cost_models=True", "A7"),
+            (prefill_kernel != "flash",
+             f"prefill_kernel={prefill_kernel!r}", "A15"),
+            (decode_kernel not in ("paged", "gathered"),
+             f"decode_kernel={decode_kernel!r}", "A15"),
+            (config.kv_cache_dtype == "int8", "an int8 KV pool", "A8"),
+        )
+        for bad, what, item in unported:
+            if bad:
+                raise NotImplementedError(
+                    f"ContinuousBatcher: {what} is not ported "
+                    f"(ROADMAP {item})")
+        if config.attn_impl not in ("xla", "auto"):
+            raise ValueError(
+                "continuous batching requires attn_impl 'xla' or 'auto' "
+                "(per-row cache offsets run on the xla path)"
+            )
+        config.validate()
+        device = resolve_device(device)
+        pdev = _params_device(params)
+        if device.type != pdev.type or (
+                device.index is not None and device.index != pdev.index):
+            raise ValueError(
+                f"params live on {pdev}, the batcher was asked to run on "
+                f"{device}")
+        self.device = pdev
+        if decode_kernel == "gathered":
+            use_pallas_kernel = False
+        self.params = params
+        self.config = config
+        self.use_pallas_kernel = use_pallas_kernel
+        self.n_slots = n_slots
+        self.max_len = max_len or config.max_seq_len
+        if block_size is None:
+            # JAX :1946-1961: 128-and-down below 8k, 512 at >= 8k.
+            if self.max_len >= 8192:
+                block_size = 512
+            else:
+                block_size = min(128, max(16, self.max_len // 16))
+        self.block_size = block_size
+        self.blocks_per_slot = -(-self.max_len // self.block_size)
+        self.n_blocks = n_blocks or n_slots * self.blocks_per_slot
+        self.default_stop = frozenset(int(s) for s in stop_tokens)
+        self.temperature = float(temperature)
+        self.top_p = 1.0 if top_p is None else float(top_p)
+        self.top_k = 0 if top_k is None else int(top_k)
+        self.prefill_chunk = prefill_chunk
+        self.seed = seed
+        self.decode_chunk = max(1, int(decode_chunk))
+        self.pool = init_pool(config, self.n_blocks, self.block_size,
+                              device=self.device)
+        self.free_blocks: List[int] = list(range(self.n_blocks))
+        self.failed: List[Tuple[int, str]] = []
+
+        # Host mirrors of the per-slot decode state: the authoritative copy
+        # for host bookkeeping.  The device twins (d_*) are written only for
+        # dirty rows (_sync_device_rows) and advanced on the device by
+        # _chunk_scan.
+        B, MB = n_slots, self.blocks_per_slot
+        self.table = np.full((B, MB), self.n_blocks, np.int32)
+        self.n_alloc = np.zeros((B,), np.int32)
+        self.fill = np.zeros((B,), np.int32)
+        self.pos = np.zeros((B,), np.int32)
+        self.active = np.zeros((B,), bool)
+        self.temp_arr = np.zeros((B,), np.float32)
+        self.top_p_arr = np.ones((B,), np.float32)
+        self.top_k_arr = np.zeros((B,), np.int32)
+        self.remaining = np.zeros((B,), np.int32)
+        self.stop_tab = np.full((B, pow2_bucket(len(self.default_stop))),
+                                -1, np.int32)
+        dev = self.device
+
+        def twin(a):
+            return torch.from_numpy(a.copy()).to(dev)
+
+        self.d_table = twin(self.table)
+        self.d_n_alloc = twin(self.n_alloc)
+        self.d_fill = twin(self.fill)
+        self.d_pos = twin(self.pos)
+        self.d_active = twin(self.active)
+        self.d_temps = twin(self.temp_arr)
+        self.d_top_ps = twin(self.top_p_arr)
+        self.d_top_ks = twin(self.top_k_arr)
+        self.d_remaining = twin(self.remaining)
+        self.d_stops = twin(self.stop_tab)
+        self.tau = torch.zeros((B,), dtype=torch.int32, device=dev)
+        self.generators: List[Optional[torch.Generator]] = [None] * B
+        self._dirty_rows: set = set()
+
+        # Counters, under the JAX package's names.
+        self.emitted_total = 0
+        self.steps_total = 0
+        self.decode_dispatches_total = 0
+        self.decode_chunk_last = 0
+        self.host_syncs_total = 0
+        self.state_uploads_total = 0
+        self.nonfinite_rows_total = 0
+        self._admit_dispatches = 0
+        self._admits_at_last_chunk = 0
+
+        self.slots: Dict[int, Optional[_Slot]] = {
+            b: None for b in range(n_slots)
+        }
+        self.queue: List[_Request] = []
+        self._next_id = 0
+
+    # -- public API ---------------------------------------------------------
+
+    def default_seed(self, rid: int) -> int:
+        """The seed of a request without an explicit one (JAX :2256)."""
+        return (self.seed * 1000003 + rid) & 0x7FFFFFFF
+
+    def submit(
+        self,
+        prompt_tokens: Sequence[int],
+        max_new_tokens: int = 256,
+        stop_tokens: Optional[Tuple[int, ...]] = None,
+        temperature: Optional[float] = None,
+        top_p: Optional[float] = None,
+        top_k: Optional[int] = None,
+        seed: Optional[int] = None,
+    ) -> int:
+        """Queue a request; returns its id.  Tokens only: tokenize first.
+        Admission happens at the next ``step()``."""
+        if not prompt_tokens:
+            raise ValueError("empty prompt")
+        padded = _round_up(len(prompt_tokens), self.block_size)
+        if padded + max_new_tokens > self.max_len:
+            raise ValueError(
+                f"prompt ({len(prompt_tokens)} tokens, padded to {padded} "
+                f"= a multiple of block_size={self.block_size}) + "
+                f"max_new ({max_new_tokens}) exceeds per-request capacity "
+                f"{self.max_len}"
+                + (
+                    "; the unpadded request fits - construct the batcher "
+                    "with a smaller block_size to admit it"
+                    if len(prompt_tokens) + max_new_tokens <= self.max_len
+                    else ""
+                )
+            )
+        rid = self._next_id
+        self._next_id += 1
+        req = _Request(
+            rid=rid,
+            tokens=[int(t) for t in prompt_tokens],
+            max_new=max_new_tokens,
+            stops=(self.default_stop if stop_tokens is None
+                   else frozenset(int(s) for s in stop_tokens)),
+            temperature=(self.temperature if temperature is None
+                         else float(temperature)),
+            top_p=self.top_p if top_p is None else float(top_p),
+            top_k=self.top_k if top_k is None else int(top_k),
+            seed=seed,
+        )
+        if req.blocks_needed(self.block_size) > self.n_blocks:
+            raise ValueError(
+                f"request needs {req.blocks_needed(self.block_size)} "
+                f"blocks; the pool has {self.n_blocks} total"
+            )
+        self.queue.append(req)
+        return rid
+
+    def pending(self) -> bool:
+        return bool(self.queue) or any(
+            s is not None for s in self.slots.values())
+
+    def cancel(self, request_id: int) -> bool:
+        """Dequeue a request, or free its slot and blocks mid-generation.
+        Returns False if the id is unknown (finished or never submitted)."""
+        for i, req in enumerate(self.queue):
+            if req.rid == request_id:
+                del self.queue[i]
+                return True
+        for b, slot in self.slots.items():
+            if slot is not None and slot.request_id == request_id:
+                self._free_slot(b)
+                return True
+        return False
+
+    def pop_failed(self) -> List[Tuple[int, str]]:
+        """Drain (request_id, message) for requests failed by the
+        non-finite guard since the last call."""
+        out, self.failed = self.failed, []
+        return out
+
+    def stats(self) -> Dict[str, float]:
+        """Counters, under the JAX package's ``stats()`` names where it has
+        them (``insert_dispatches_total`` is the port's: prefill
+        dispatches, one per admitted burst)."""
+        return {
+            "emitted_tokens_total": self.emitted_total,
+            "decode_steps_total": self.steps_total,
+            "active_slots": sum(s is not None for s in self.slots.values()),
+            "queued_requests": len(self.queue),
+            "free_blocks": len(self.free_blocks),
+            "total_blocks": self.n_blocks,
+            "nonfinite_rows_total": self.nonfinite_rows_total,
+            "decode_chunk_size": self.decode_chunk_last,
+            "decode_dispatches_total": self.decode_dispatches_total,
+            "insert_dispatches_total": self._admit_dispatches,
+            "host_syncs_total": self.host_syncs_total,
+            "state_uploads_total": self.state_uploads_total,
+            "host_syncs_per_token": (
+                self.host_syncs_total / max(1, self.emitted_total)),
+        }
+
+    @torch.no_grad()
+    def step(self) -> List[Tuple[int, int, bool]]:
+        """Admit what fits, then one chunk of up to K decode iterations for
+        every active slot.  Returns [(request_id, token, done)] for the
+        tokens emitted this call; finished slots free their blocks and
+        queued requests are admitted for the next call."""
+        self._admit()
+        if not any(s is not None for s in self.slots.values()):
+            return []
+        return self._step_chunked()
+
+    def run_to_completion(self) -> Dict[int, List[int]]:
+        """Drain everything; returns {request_id: emitted tokens}."""
+        results: Dict[int, List[int]] = {}
+        while self.pending():
+            for rid, tok, _ in self.step():
+                results.setdefault(rid, []).append(tok)
+        return results
+
+    # -- internals ----------------------------------------------------------
+
+    def _pick_chunk(self, admitted: bool) -> int:
+        """K for the next chunk (JAX :2767): 1 right after an admission,
+        at most _QUEUED_CHUNK_CAP while requests wait, else the largest
+        power of two <= min(decode_chunk, the largest remaining budget)."""
+        cap = self.decode_chunk
+        if cap <= 1 or admitted:
+            return 1
+        rem = max(s.max_new - len(s.emitted)
+                  for s in self.slots.values() if s is not None)
+        k = max(1, min(cap, rem))
+        if self.queue:
+            k = min(k, self._QUEUED_CHUNK_CAP)
+        return 1 << (k.bit_length() - 1)
+
+    def _sync_device_rows(self) -> None:
+        """Flush the dirty rows' host state to the device twins: one packed
+        int32 upload (float policies ride bit-cast), scattered on the
+        device.  No dirty rows (the steady state): no upload."""
+        if not self._dirty_rows:
+            return
+        if self.d_stops.shape != self.stop_tab.shape:
+            # The stop table widened: grow the twin on the device.
+            grown = torch.full(self.stop_tab.shape, -1, dtype=torch.int32,
+                               device=self.device)
+            grown[:, :self.d_stops.shape[1]] = self.d_stops
+            self.d_stops = grown
+        rows = np.asarray(sorted(self._dirty_rows))
+        self._dirty_rows.clear()
+        packed = np.concatenate([
+            rows[:, None], self.table[rows],
+            np.stack([self.n_alloc[rows], self.fill[rows], self.pos[rows],
+                      self.active[rows], self.top_k_arr[rows],
+                      self.remaining[rows],
+                      self.temp_arr[rows].view(np.int32),
+                      self.top_p_arr[rows].view(np.int32)], axis=1),
+            self.stop_tab[rows],
+        ], axis=1).astype(np.int32)
+        up = torch.from_numpy(packed).to(self.device)
+        self.state_uploads_total += 1
+        idx = up[:, 0].long()
+        MB = self.table.shape[1]
+        self.d_table[idx] = up[:, 1:1 + MB]
+        (n_alloc, fill, pos, active, top_k, remaining, temps,
+         top_ps) = up[:, 1 + MB:9 + MB].unbind(1)
+        self.d_n_alloc[idx] = n_alloc
+        self.d_fill[idx] = fill
+        self.d_pos[idx] = pos
+        self.d_active[idx] = active.bool()
+        self.d_top_ks[idx] = top_k
+        self.d_remaining[idx] = remaining
+        self.d_temps[idx] = temps.view(torch.float32)
+        self.d_top_ps[idx] = top_ps.view(torch.float32)
+        self.d_stops[idx] = up[:, 9 + MB:]
+
+    def _step_chunked(self) -> List[Tuple[int, int, bool]]:
+        """One chunk dispatch, one packed fetch, then the host replays the
+        token block to advance its mirrors and emit events (JAX :2851,
+        without the fused-prefill branch)."""
+        admitted = self._admit_dispatches > self._admits_at_last_chunk
+        self._admits_at_last_chunk = self._admit_dispatches
+        K = self._pick_chunk(admitted)
+        self._sync_device_rows()
+        self.steps_total += K
+        self.decode_dispatches_total += 1
+        self.decode_chunk_last = K
+        generators = [
+            self.generators[b] if s is not None and self.temp_arr[b] > 0
+            else None for b, s in self.slots.items()
+        ]
+        (toks, self.tau, self.d_fill, self.d_pos, self.d_active,
+         self.d_remaining) = _chunk_scan(
+            self.params, self.pool, self.d_table, self.d_n_alloc,
+            self.d_fill, self.tau, self.d_pos, self.d_active,
+            self.d_remaining, self.d_stops, generators, self.d_temps,
+            self.d_top_ps, self.d_top_ks, config=self.config, n_iter=K,
+            use_kernel=self.use_pallas_kernel,
+        )
+        # The one device->host sync of the chunk.
+        toks = toks.cpu().numpy()
+        self.host_syncs_total += 1
+
+        out: List[Tuple[int, int, bool]] = []
+        for b, slot in self.slots.items():
+            if slot is None:
+                continue
+            advanced = 0
+            ended = False
+            for i in range(toks.shape[1]):
+                tok = int(toks[b, i])
+                if tok == _CHUNK_PAD:
+                    break
+                if tok < 0:
+                    # The device already folded the row out; fail just this
+                    # request (tokens before the sentinel were emitted).
+                    self.failed.append((slot.request_id,
+                                        self._NONFINITE_MSG))
+                    self.nonfinite_rows_total += 1
+                    self._free_slot(b, device_done=True)
+                    ended = True
+                    break
+                slot.emitted.append(tok)
+                self.emitted_total += 1
+                done = (tok in slot.stop_tokens
+                        or len(slot.emitted) >= slot.max_new)
+                out.append((slot.request_id, tok, done))
+                if done:
+                    # The device made the same call mid-chunk, so the row is
+                    # already inactive there: no deactivation upload owed.
+                    self._free_slot(b, device_done=True)
+                    ended = True
+                    break
+                advanced += 1
+            if not ended:
+                self.fill[b] += advanced
+                self.pos[b] += advanced
+                self.remaining[b] = slot.max_new - len(slot.emitted)
+        self._admit()
+        return out
+
+    def _alloc_blocks(self, n: int) -> List[int]:
+        assert n <= len(self.free_blocks), "allocation past capacity"
+        out, self.free_blocks = self.free_blocks[:n], self.free_blocks[n:]
+        return out
+
+    def _free_slot(self, b: int, device_done: bool = False) -> None:
+        """Free slot ``b``: its blocks return to the free list with their
+        pool positions invalidated (a stale pos >= 0 past a later prompt
+        would be attended).  ``device_done``: the chunk already folded the
+        row out on the device, so no deactivation upload is owed; a
+        host-initiated free (cancel) marks the row dirty."""
+        slot = self.slots[b]
+        assert slot is not None
+        if slot.blocks:
+            ids = torch.as_tensor(slot.blocks, device=self.device)
+            self.pool.pos[ids] = -1
+            self.free_blocks.extend(slot.blocks)
+        self.slots[b] = None
+        self.generators[b] = None
+        self.table[b] = self.n_blocks
+        self.n_alloc[b] = 0
+        self.fill[b] = 0
+        self.active[b] = False
+        self.remaining[b] = 0
+        self.stop_tab[b, :] = -1
+        if not device_done:
+            self._dirty_rows.add(b)
+
+    def _set_stop_row(self, b: int, stops: frozenset) -> None:
+        """Write slot ``b``'s stop set into the stop table's host mirror,
+        widening the table (pow2 width) when needed."""
+        n = max(1, len(stops))
+        if n > self.stop_tab.shape[1]:
+            tab = np.full((self.n_slots, pow2_bucket(n)), -1, np.int32)
+            tab[:, :self.stop_tab.shape[1]] = self.stop_tab
+            self.stop_tab = tab
+        self.stop_tab[b, :] = -1
+        if stops:
+            self.stop_tab[b, :len(stops)] = sorted(stops)
+
+    def _generator(self, req: _Request) -> Optional[torch.Generator]:
+        """The request's own generator (None for a greedy request)."""
+        if req.temperature <= 0.0:
+            return None
+        seed = req.seed if req.seed is not None else self.default_seed(
+            req.rid)
+        return torch.Generator(device=self.device).manual_seed(seed)
+
+    def _admit(self) -> None:
+        """Admit queued requests into free slots (JAX
+        ``_admit_classic_impl`` without prefix hits or restores).  A burst
+        of admissible requests shares ONE [k', P] prefill dispatch (k' = k
+        rounded up to a power of two, P = the group's longest block-padded
+        prompt, its block count rounded up to a power of two); FIFO
+        head-of-line blocking on block reservations."""
+        BLK = self.block_size
+        while True:
+            free_slots = [b for b, s in self.slots.items() if s is None]
+            if not free_slots or not self.queue:
+                return
+            picked: List[_Request] = []
+            budget = len(self.free_blocks)
+            for req in self.queue:
+                if len(picked) >= len(free_slots):
+                    break
+                need = req.blocks_needed(BLK)
+                if need > budget:
+                    break  # head-of-line blocking: wait for capacity
+                budget -= need
+                picked.append(req)
+            if not picked:
+                return
+            del self.queue[:len(picked)]
+            k = len(picked)
+            kb = pow2_bucket(k)
+            nb = min(pow2_bucket(max(_round_up(len(r.tokens), BLK)
+                                     for r in picked) // BLK),
+                     self.blocks_per_slot)
+            P = nb * BLK
+            pt = np.zeros((kb, P), np.int32)
+            pm = np.zeros((kb, P), np.int32)
+            bid = np.full((kb, nb), self.n_blocks, np.int32)
+            pol = np.zeros((kb, 3), np.float32)  # temperature, top_p, top_k
+            pol[:, 1] = 1.0
+            generators: List[Optional[torch.Generator]] = [None] * kb
+            row_blocks = []
+            for i, req in enumerate(picked):
+                blocks = self._alloc_blocks(req.blocks_needed(BLK))
+                row_blocks.append(blocks)
+                n = len(req.tokens)
+                pt[i, :n] = req.tokens
+                pm[i, :n] = 1
+                span = _round_up(n, BLK) // BLK
+                bid[i, :span] = blocks[:span]
+                pol[i] = (req.temperature, req.top_p, req.top_k)
+                generators[i] = self._generator(req)
+            # One upload for the admission: prompts, masks and policies.
+            up = torch.from_numpy(np.concatenate(
+                [pt, pm, pol.view(np.int32)], axis=1)).to(self.device)
+            temps = up[:, 2 * P].view(torch.float32)
+            top_ps = up[:, 2 * P + 1].view(torch.float32)
+            top_ks = up[:, 2 * P + 2].view(torch.float32).to(torch.int32)
+            self._admit_dispatches += 1
+            taus = _paged_insert(
+                self.params, self.pool, bid, up[:, :P], up[:, P:2 * P].bool(),
+                generators, temps, top_ps, top_ks, config=self.config,
+                prefill_chunk=self.prefill_chunk,
+            )
+            slot_ids = free_slots[:k]
+            self.tau[torch.as_tensor(slot_ids, device=self.device)] = taus[:k]
+            for i, req in enumerate(picked):
+                b = slot_ids[i]
+                blocks = row_blocks[i]
+                self.pos[b] = len(req.tokens)
+                self.fill[b] = _round_up(len(req.tokens), BLK)
+                self.active[b] = True
+                self.table[b] = self.n_blocks
+                self.table[b, :len(blocks)] = blocks
+                self.n_alloc[b] = len(blocks)
+                self.temp_arr[b] = req.temperature
+                self.top_p_arr[b] = req.top_p
+                self.top_k_arr[b] = req.top_k
+                self.remaining[b] = req.max_new
+                self._set_stop_row(b, req.stops)
+                self._dirty_rows.add(b)
+                self.generators[b] = generators[i]
+                self.slots[b] = _Slot(
+                    request_id=req.rid, emitted=[], max_new=req.max_new,
+                    stop_tokens=req.stops, blocks=blocks,
+                )

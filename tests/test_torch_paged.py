@@ -1,0 +1,214 @@
+"""The port's paged attention and paged forward held against the JAX
+package on the same numpy inputs (CPU, float32).  The JAX Pallas kernel
+runs in interpret mode, as the JAX package's own tests run it on the CPU;
+the port's wrapper runs its plain version on CPU tensors.
+
+Tolerances: attention out/lse atol 1e-5 (summation order); logits of a
+paged forward step atol 2e-4 (PARITY.md row 2.16, as in
+test_torch_model.py); pool positions after the write-back identical, and
+K/V identical outside the written slots and within 1e-5 in them (two
+matmul libraries produce the written projections).
+
+The CUDA kernel is held against its plain version on a card in
+tests/test_torch_paged_cuda.py.
+"""
+
+import importlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import jax_llama_tpu as jlt
+from jax_llama_tpu.models.llama import PagedKVCache as JPagedKVCache
+from jax_llama_tpu.models.llama import paged_write_indices as jax_write_idx
+from jax_llama_tpu.ops.paged_attention import (
+    paged_decode_attention as jax_decode_attention,
+    paged_pool_attention as jax_pool_attention,
+)
+
+import jax_llama_tpu_torch as ptl
+from jax_llama_tpu_torch.models import llama as pllama
+from paged_inputs import pool_state
+
+pa = importlib.import_module("jax_llama_tpu_torch.ops.paged_attention")
+
+ATOL = 1e-5
+CFG = dict(vocab_size=128, dim=64, n_layers=2, n_heads=4, n_kv_heads=2,
+           multiple_of=32, max_seq_len=128, dtype="float32",
+           param_dtype="float32")
+
+
+# (B, KVH, G, d, BLK, MB, L, layer, fills, inactive): fills cover an
+# empty row (0), a partial block, multi-block rows and an inactive row.
+CASES = {
+    "g2_layer2_of_3": (5, 2, 2, 16, 8, 6, 3, 2, (37, 20, 30, 0, 5), (4,)),
+    "g4_layer0": (4, 2, 4, 32, 16, 5, 1, 0, (40, 50, 16, 0), (1,)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_pool_attention_matches_jax(name):
+    B, KVH, G, d, BLK, MB, L, layer, fills, inactive = CASES[name]
+    k, v, pos, table, q_pos = pool_state(1, B, KVH, d, BLK, MB, L, fills,
+                                         inactive)
+    q = np.random.default_rng(2).standard_normal(
+        (B, KVH, G, d)).astype(np.float32)
+    want_o, want_l = jax_pool_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(pos),
+        jnp.asarray(table), jnp.asarray(q_pos), layer=jnp.int32(layer))
+    got_o, got_l = pa.paged_pool_attention_reference(
+        *(torch.from_numpy(a) for a in (q, k, v, pos, table, q_pos)),
+        layer=layer)
+    assert got_o.dtype == torch.float32 and got_l.shape == (B, KVH, G)
+    np.testing.assert_allclose(got_o.numpy(), np.asarray(want_o), atol=ATOL,
+                               rtol=0)
+    np.testing.assert_allclose(got_l.numpy(), np.asarray(want_l), atol=ATOL,
+                               rtol=1e-6)
+    # the empty and inactive rows attend nothing: out 0, lse MASK_VALUE
+    dead = (q_pos < 0) | (np.asarray(fills) == 0)
+    assert dead.sum() == 2
+    assert (got_l.numpy()[dead] == np.float32(pa.MASK_VALUE)).all()
+    assert (got_o.numpy()[dead] == 0).all()
+
+
+def test_pool_attention_wrapper_runs_plain_version_on_cpu():
+    k, v, pos, table, q_pos = pool_state(3, 3, 2, 64, 8, 4, 2, (9, 0, 20))
+    q = torch.randn(3, 2, 4, 64)
+    args = (q, *(torch.from_numpy(a) for a in (k, v, pos, table, q_pos)))
+    before = pa.paged_pool_attention.launches
+    got = pa.paged_pool_attention(*args, layer=1)
+    want = pa.paged_pool_attention_reference(*args, layer=1)
+    assert pa.paged_pool_attention.launches == before
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=0, rtol=0)
+
+
+def test_decode_attention_matches_jax():
+    B, KVH, G, d, BLK, MB, L = 4, 2, 2, 16, 8, 6, 3
+    k, v, pos, table, q_pos = pool_state(4, B, KVH, d, BLK, MB, L,
+                                         (30, 12, 9, 0), inactive=(1,))
+    rng = np.random.default_rng(5)
+    q = rng.standard_normal((B, 1, KVH * G, d)).astype(np.float32)
+    kn = rng.standard_normal((B, 1, KVH, d)).astype(np.float32)
+    vn = rng.standard_normal((B, 1, KVH, d)).astype(np.float32)
+    want = jax_decode_attention(
+        *(jnp.asarray(a) for a in (q, kn, vn, k, v, pos, table, q_pos)),
+        layer=jnp.int32(1))
+    got = pa.paged_decode_attention(
+        *(torch.from_numpy(a) for a in (q, kn, vn, k, v, pos, table, q_pos)),
+        layer=1)
+    assert got.shape == (B, 1, KVH * G, d)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
+                               rtol=0)
+    with pytest.raises(NotImplementedError, match="A10"):
+        pa.paged_decode_attention(
+            *(torch.from_numpy(np.repeat(a, 2, axis=1))
+              for a in (q, kn, vn)),
+            *(torch.from_numpy(a) for a in (k, v, pos, table, q_pos)))
+
+
+def test_write_indices_match_jax():
+    table = np.array([[3, 1, 4], [0, 5, 6]], np.int32)
+    fill = np.array([7, 23], np.int32)
+    active = np.array([True, True])
+    for act in (active, np.array([True, False])):
+        want = jax_write_idx(jnp.asarray(table), jnp.asarray(fill),
+                             jnp.asarray(act), 3, 8, 8)
+        got = pllama.paged_write_indices(
+            torch.from_numpy(table), torch.from_numpy(fill),
+            torch.from_numpy(act), 3, 8, 8)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def test_pool_write_drops_sentinel_pairs_even_on_shared_targets():
+    """A dead pair must not land: a live pair writing block NB-1 (where a
+    dead pair clamps) keeps its value, and untouched slots keep theirs."""
+    NB, BLK, L, KVH, d = 4, 2, 2, 1, 3
+    plane = torch.arange(L * KVH * NB * BLK * d, dtype=torch.float32
+                         ).reshape(L, KVH, NB, BLK, d)
+    before = plane.clone()
+    blk = torch.tensor([[NB], [NB - 1], [NB], [0]])
+    off = torch.tensor([[1], [1], [0], [0]])
+    upd = -torch.arange(1, 1 + L * KVH * 4 * d, dtype=torch.float32
+                        ).reshape(L, KVH, 4, 1, d)
+    out = pllama.paged_pool_write(plane, upd, blk, off)
+    assert out is plane
+    want = before.clone()
+    want[:, :, NB - 1, 1] = upd[:, :, 1, 0]
+    want[:, :, 0, 0] = upd[:, :, 3, 0]
+    torch.testing.assert_close(plane, want, atol=0, rtol=0)
+    pos = torch.full((NB, BLK), -1, dtype=torch.int32)
+    pllama.paged_pool_write(pos, torch.tensor([[5], [6], [7], [8]]), blk, off)
+    assert pos[NB - 1, 1] == 6 and pos[0, 0] == 8 and (pos >= 0).sum() == 2
+    # every pair dead (all rows inactive): nothing changes
+    pllama.paged_pool_write(plane, upd, torch.full_like(blk, NB), off)
+    torch.testing.assert_close(plane, want, atol=0, rtol=0)
+
+
+@pytest.fixture(scope="module")
+def weights():
+    jc = jlt.get_config("tiny", **CFG)
+    jp = jlt.init_params(jax.random.PRNGKey(0), jc)
+    return jp, ptl.from_jax_params(jax.tree.map(np.asarray, jp),
+                                   device="cpu")
+
+
+def test_paged_forward_step_matches_jax(weights):
+    jp, pp = weights
+    jc, pc = jlt.get_config("tiny", **CFG), ptl.get_config("tiny", **CFG)
+    B, BLK, MB = 4, 16, 4
+    L, KVH, d = CFG["n_layers"], CFG["n_kv_heads"], 16
+    fills = (37, 20, 9, 0)
+    k, v, pos, table, q_pos = pool_state(6, B, KVH, d, BLK, MB, L, fills,
+                                         inactive=(1,))
+    # the step writes at fill (the next free slot), at position fills[b]
+    fill = np.asarray(fills, np.int32)
+    active = q_pos >= 0
+    positions = np.where(active, q_pos, -1)[:, None].astype(np.int32)
+    tokens = np.random.default_rng(7).integers(
+        1, CFG["vocab_size"], (B, 1)).astype(np.int32)
+    jcache = JPagedKVCache(k=jnp.asarray(k), v=jnp.asarray(v),
+                           pos=jnp.asarray(pos), table=jnp.asarray(table),
+                           fill=jnp.asarray(fill))
+    want, jnew = jlt.forward(jp, jnp.asarray(tokens), jnp.asarray(positions),
+                             jc, cache=jcache,
+                             attn_mask=jnp.asarray(active[:, None]))
+    pcache = ptl.PagedKVCache(
+        *(torch.from_numpy(a.copy()) for a in (k, v, pos, table, fill)))
+    ptrs = [t.data_ptr() for t in (pcache.k, pcache.v, pcache.pos)]
+    got, pnew = ptl.forward(pp, torch.from_numpy(tokens),
+                            torch.from_numpy(positions), pc, cache=pcache,
+                            attn_mask=torch.from_numpy(active[:, None]))
+    assert pnew is pcache
+    assert [t.data_ptr() for t in (pnew.k, pnew.v, pnew.pos)] == ptrs
+    live = active
+    np.testing.assert_allclose(got.numpy()[live], np.asarray(want)[live],
+                               atol=2e-4, rtol=0)
+    np.testing.assert_array_equal(pnew.pos.numpy(), np.asarray(jnew.pos))
+    written = np.asarray(jnew.pos) != pos
+    assert written.sum() == active.sum()
+    for got_p, want_p, old in ((pnew.k, jnew.k, k), (pnew.v, jnew.v, v)):
+        got_p, want_p = got_p.numpy(), np.asarray(want_p)
+        np.testing.assert_array_equal(got_p[:, :, ~written],
+                                      old[:, :, ~written])
+        np.testing.assert_allclose(got_p, want_p, atol=ATOL, rtol=0)
+
+
+def test_paged_forward_rejects_unported_shapes(weights):
+    _, pp = weights
+    pc = ptl.get_config("tiny", **CFG)
+    k, v, pos, table, _ = pool_state(8, 2, 2, 16, 8, 3, 2, (5, 9))
+    cache = ptl.PagedKVCache(*(torch.from_numpy(a) for a in (k, v, pos,
+                                                             table)),
+                             fill=torch.tensor([5, 9], dtype=torch.int32))
+    toks = torch.ones((2, 2), dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="T > 1"):
+        ptl.forward(pp, toks, torch.zeros((2, 2), dtype=torch.int32), pc,
+                    cache=cache)
+    with pytest.raises(NotImplementedError, match="output_last_hidden"):
+        ptl.forward(pp, toks[:, :1], torch.zeros((2, 1), dtype=torch.int32),
+                    pc, cache=cache, output_last_hidden=True)

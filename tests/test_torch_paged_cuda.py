@@ -1,0 +1,110 @@
+"""The port's paged decode kernel and its batcher on the card.  Marked
+``cuda``: each test skips on a host without a GPU (the kernel has no CPU
+mode).  Like tests/test_torch_cuda.py, this file imports neither jax nor
+the JAX package, so it runs on a GPU host without them:
+
+    python -m pytest tests/test_torch_paged_cuda.py -m cuda --noconftest -q
+
+Tolerances against the plain version: out atol 1e-2 in bf16 (P rounded to
+bf16 before P.V at a different running max), 1e-5 in float32 (summation
+order); lse atol 1e-4 (float32 from the same inputs).
+"""
+
+import importlib
+
+import numpy as np
+import pytest
+import torch
+
+import jax_llama_tpu_torch as ptl
+from paged_inputs import pool_state
+
+pa = importlib.import_module("jax_llama_tpu_torch.ops.paged_attention")
+
+
+def _card_inputs(dtype, B, KVH, G, d, BLK, MB, L, fills, inactive):
+    k, v, pos, table, q_pos = pool_state(9, B, KVH, d, BLK, MB, L, fills,
+                                         inactive)
+    q = np.random.default_rng(10).standard_normal((B, KVH, G, d))
+    as_dt = [torch.from_numpy(a.astype(np.float32)).cuda().to(dtype)
+             for a in (q, k, v)]
+    return as_dt + [torch.from_numpy(a).cuda() for a in (pos, table, q_pos)]
+
+
+CARD_CASES = {
+    "d128_g4_blk128": (8, 8, 4, 128, 128, 4, 3,
+                       (400, 130, 128, 1, 0, 64, 257, 12), (5,)),
+    "d64_g8_blk24": (3, 2, 8, 64, 24, 5, 2, (100, 30, 5), (1,)),
+    "d64_g1_blk8": (4, 4, 1, 64, 8, 6, 1, (37, 20, 0, 8), ()),
+    # block sizes that are not multiples of 8 (the batcher's default for
+    # max_len 1000 is 62)
+    "d128_g4_blk62": (4, 8, 4, 128, 62, 8, 2, (300, 61, 62, 0), (3,)),
+    "d64_g2_blk20": (3, 2, 2, 64, 20, 5, 2, (70, 19, 41), ()),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [(torch.bfloat16, 1e-2),
+                                        (torch.float32, 1e-5)])
+@pytest.mark.parametrize("name", sorted(CARD_CASES))
+def test_paged_kernel_matches_plain_on_card(name, dtype, atol):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    B, KVH, G, d, BLK, MB, L, fills, inactive = CARD_CASES[name]
+    args = _card_inputs(dtype, B, KVH, G, d, BLK, MB, L, fills, inactive)
+    layer = L - 1
+    before = pa.paged_pool_attention.launches
+    out, lse = pa.paged_pool_attention(*args, layer=layer)
+    torch.cuda.synchronize()
+    assert pa.paged_pool_attention.launches == before + 1
+    ro, rl = pa.paged_pool_attention_reference(*args, layer=layer)
+    torch.testing.assert_close(out, ro, atol=atol, rtol=0)
+    torch.testing.assert_close(lse, rl, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_paged_wrapper_rejects_bad_inputs_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    q, k, v, pos, table, q_pos = _card_inputs(
+        torch.bfloat16, 3, 2, 8, 64, 24, 5, 2, (100, 30, 5), (1,))
+    with pytest.raises(TypeError):
+        pa.paged_pool_attention(q, k, v, pos, table.long(), q_pos)
+    with pytest.raises(ValueError):
+        pa.paged_pool_attention(q, k, v, pos, table, q_pos, layer=2)
+    with pytest.raises(ValueError):
+        pa.paged_pool_attention(q[..., :32].contiguous(), k, v, pos, table,
+                                q_pos)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block_size", [None, 20])
+def test_batcher_runs_the_kernels_on_card(block_size):
+    """float32 at head_dim 64: paged = gathered tokens, and each decode
+    iteration launches the paged kernel once per layer, at the default
+    block size (16) and at one that is not a multiple of 8."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cfg = ptl.get_config("tiny", vocab_size=128, dim=128, n_layers=2,
+                         n_heads=2, n_kv_heads=1, multiple_of=32,
+                         max_seq_len=128, attn_impl="auto")
+    params = ptl.init_params(cfg, seed=0, device="cuda")
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(1, 128, size=rng.randint(3, 40)).tolist()
+               for _ in range(5)]
+    outs = {}
+    for path in ("paged", "gathered"):
+        cb = ptl.ContinuousBatcher(params, cfg, n_slots=3, max_len=128,
+                                   decode_chunk=4, block_size=block_size,
+                                   use_pallas_kernel=path == "paged")
+        rids = [cb.submit(p, max_new_tokens=6 + i)
+                for i, p in enumerate(prompts)]
+        before = pa.paged_pool_attention.launches
+        res = cb.run_to_completion()
+        launched = pa.paged_pool_attention.launches - before
+        outs[path] = [res[r] for r in rids]
+        if path == "paged":
+            assert launched == cfg.n_layers * cb.steps_total
+        else:
+            assert launched == 0
+    assert outs["paged"] == outs["gathered"]
