@@ -16,8 +16,9 @@ raises and exits non-zero:
    T=512 H=32 KVH=8 d=128 with left padding; decode T=1 over a 1024-slot
    cache with unwritten slots; a prefill chunk window at a non-zero base
    with a -1 tail; the serving phase's first insert, 8 right-padded rows
-   at P=1024 with two padding rows), held to a max abs error below
-   ``REL_BOUND`` times the shape's largest output, with its time, the
+   at P=1024 with two padding rows), each packed query row held to a max
+   abs error below ``REL_BOUND`` times that row's largest plain output
+   (``row_rel_err``), with its time, the
    plain version's, one PyTorch library call's
    (``scaled_dot_product_attention`` with the same boolean mask, timed
    here as a yardstick only) and the least time the card could take.
@@ -68,7 +69,48 @@ raises and exits non-zero:
    per request is reported in bf16, where late near-ties flip); one
    decode step's logits, paged vs gathered, rel < 0.02 (bf16, 8 layers)
    and < 1e-3 (float32, 32 layers).
-7. kernels: one JSON object for every kernel of the port.
+   Phase 2 also holds the training kernels (``kernel_check`` shape
+   ``train``): the flash forward with lse and the backward kernels
+   ``flash_bwd_dq`` and ``flash_bwd_dkv`` at the training shape (B=4,
+   T=S=2048, H=32, KVH=8, d=128, bf16, causal positions), without and
+   with dropout (rate 0.1, fixed seed words), against their plain
+   versions, each row against its own scale (out and dq per packed query
+   row, dk and dv per KV slot: the row's max abs error over the row's max
+   |plain|; under the causal mask values shrink along the sequence, so
+   one scale for the whole tensor would hold the late rows loosely)
+   below 1e-2 for out and 2e-2 for dq, dk and dv, and the lse's max abs
+   error below 1e-3; the float32 path below 1e-4 at B=2, T=S=256, H=8,
+   KVH=2.  The dq row of a query that sees one or two slots is held
+   against the tensor's max |plain| (``short_rows``: its exact value is
+   zero, or one difference dP0 - dP1 scales the whole row, so a near tie
+   leaves the plain value at its rounding noise), as is a row whose plain
+   value is all zero.  Each has its
+   cold-L2 time, the plain version's,
+   ``scaled_dot_product_attention``'s forward or its backward through
+   autograd (``is_causal``, ``enable_gqa``; a yardstick only) and its
+   bound: the larger of its bytes (each input read once, each output
+   written once) over 3.35 TB/s and its FLOPs over 989 TFLOP/s, counted
+   per live (packed row, slot) pair as 4*d (forward), 6*d (dQ: S, dP,
+   dS K) and 8*d (dK/dV: S, dP, P^T dO, dS^T Q).
+7. train: ``train_step`` at llama3-8b width cut to 8 layers (a copy of
+   the first 8 layers of phase 3's weights: params, grads and AdamW's
+   two moments in bf16 at 32 layers would be ~64 GB beside the 16 GB of
+   weights), bf16, remat "dots", attn_impl "flash", ``make_optimizer()``
+   defaults, one batch of 4 x 2048 tokens packed by ``data.batches`` from
+   random documents (numpy seed 0).  Launch counts are zeroed just before
+   and read just after 5 steps: every step must launch the flash forward
+   2 x 8 times (once per layer, once more where remat recomputes the
+   block), ``flash_bwd_dq`` 8 and ``flash_bwd_dkv`` 8 times.  The first
+   loss lies within 1.0 of ln(vocab) and the loss falls; step ms (CUDA
+   events, median of the 3 steps after 2 warm), tokens/s, MFU (bench.py's
+   count: 6 x matmul params x tokens + 3 x 2 B T^2 dim L over 989
+   TFLOP/s), peak memory and the device busy share of one more step.
+   Before it, the gradients are held at 2 layers in float32 activations
+   and weights, T=256: ``lm_loss`` through the kernels against the plain
+   xla path, loss rel < 1e-4 and every gradient's max abs error over its
+   max |value| < 1e-3; and one ``train_step`` with attn_pdrop = resid_pdrop
+   = 0.1 runs the dropout branch of all three kernels to a finite loss.
+8. kernels: one JSON object for every kernel of the port.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or outside a checkout of the repository, it exits non-zero before printing
@@ -89,9 +131,10 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # H100 SXM published peaks (dense): bf16 tensor-core FLOP/s, HBM bytes/s.
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
-# Kernel vs plain version in bf16: max abs error over max |plain output|.
-# bf16's relative half-ulp is 2**-9 ~ 2e-3 (output rounding, and P rounded
-# to bf16 for P.V); measured 1.0e-3..3.5e-3 over the flash shapes.
+# Kernel vs plain version in bf16, per row: the row's max abs error over
+# its max |plain output|.  bf16's relative half-ulp is 2**-9 ~ 2e-3
+# (output rounding, and P rounded to bf16 for P.V); one ulp flipped by
+# rounding the output is at most 2**-7 of the row's largest element.
 REL_BOUND = 1e-2
 L2_BYTES = 50 * 2**20
 DECODE_REL = 0.02    # cached decode vs full forward, bf16 (verify recipe)
@@ -116,6 +159,22 @@ INVARIANT_REQUESTS = (1, 3, 4, 7)  # 4 of them, short, for the invariant
 # the last two padding) prefill together at P = 1024.
 INSERT_ROWS = SERVE_PROMPT_TOKENS[:6] + (0, 0)
 FLASH_SHAPES = ("prefill", "decode", "chunk_window", "insert")
+
+# The training kernels: shape, dropout, bounds (TRAIN_ERR_IS).
+TRAIN_SHAPE = dict(B=4, T=2048, H=32, KVH=8, d=128)
+TRAIN_F32_SHAPE = dict(B=2, T=256, H=8, KVH=2, d=128)
+TRAIN_DROPOUT = 0.1
+TRAIN_SEED_WORDS = (0x2545F491, 0x9E3779B9)
+TRAIN_BOUNDS = dict(out=1e-2, lse=1e-3, dq=2e-2, dk=2e-2, dv=2e-2)
+F32_KERNEL_BOUND = 1e-4
+TRAIN_ERR_IS = ("out, dq (per packed query row) and dk, dv (per KV slot): "
+                "the worst row's max abs err over its own max |plain|; "
+                "lse: max abs err")
+TRAIN_LAYERS = 8       # llama3-8b depth cut for params + grads + AdamW
+TRAIN_STEPS = 5        # 2 warm, 3 timed
+GRAD_LAYERS, GRAD_T = 2, 256
+GRAD_LOSS_REL, GRAD_REL = 1e-4, 1e-3
+LLAMA3_EOS = 128001
 
 
 def emit(obj) -> None:
@@ -228,7 +287,7 @@ def check_flash(torch, fa, gen):
         if not bool(torch.isfinite(out).all()):
             raise AssertionError(f"flash {name}: non-finite output")
         err = (out.float() - ref.float()).abs().max().item()
-        rel = err / ref.float().abs().max().item()
+        rel = row_rel_err(torch, out, ref)
         copies = cold_copies(args)
         ms = time_ms(torch, [lambda a=a: fa.flash_attention(*a)
                              for a in copies], iters=4 * len(copies))
@@ -244,7 +303,7 @@ def check_flash(torch, fa, gen):
             phase="kernel_check", kernel="flash_fwd", shape=name,
             B=args[0].shape[0], T=args[0].shape[1], S=args[1].shape[1],
             H=args[0].shape[2], KVH=args[1].shape[2], d=args[0].shape[3],
-            dtype="bfloat16", max_abs_err=err, max_rel_err=rel,
+            dtype="bfloat16", max_abs_err=err, worst_row_rel=rel,
             rel_bound=REL_BOUND, ms=ms, warm_ms=warm_ms, plain_ms=plain_ms,
             library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
             roofline_share=bound_ms / ms,
@@ -252,8 +311,8 @@ def check_flash(torch, fa, gen):
         emit(row)
         if not rel < REL_BOUND:
             raise AssertionError(
-                f"flash {name}: max abs err {err} is {rel} of max |plain|, "
-                f"bound {REL_BOUND}")
+                f"flash {name}: worst packed query row's max abs err is "
+                f"{rel} of its max |plain|, bound {REL_BOUND}")
         results[name] = row
     return results
 
@@ -388,6 +447,354 @@ def check_paged(torch, pa, gen):
     return row
 
 
+def train_kernel_inputs(torch, gen, dtype, B, T, H, KVH, d):
+    """q, k, v, a cotangent g, and causal positions 0..T-1 (no padding)."""
+    shapes = ((B, T, H, d), (B, T, KVH, d), (B, T, KVH, d), (B, T, H, d))
+    q, k, v, g = (torch.randn(sh, device="cuda", generator=gen).to(dtype)
+                  for sh in shapes)
+    pos = torch.arange(T, device="cuda", dtype=torch.int32)[None].repeat(B, 1)
+    return q, k, v, g, pos, pos.clone()
+
+
+def train_kernel_bounds(torch, q, k, q_pos, kv_pos):
+    """Least time (ms) and its bound for the forward, dQ and dK/dV kernels:
+    FLOPs of this data's live (packed row, slot) pairs (4*d, 6*d and 8*d
+    per pair and query head) over the bf16 peak, vs each input read once
+    and each output written once over HBM bandwidth."""
+    B, T, H, d = q.shape
+    kp = kv_pos[:, None, :]
+    live = ((kp >= 0) & (kp <= q_pos[:, :, None])).sum().item() * H
+    esz = q.element_size()
+    qb, kb = q.numel() * esz, k.numel() * esz
+    rows = B * H * T * 4  # one float32 per packed row (lse, delta)
+    pos = (q_pos.numel() + kv_pos.numel()) * 4
+    work = {
+        "flash_fwd": (4 * d, qb + 2 * kb + qb + rows + pos),
+        "flash_bwd_dq": (6 * d, qb + 2 * kb + qb + 2 * rows + pos + qb),
+        "flash_bwd_dkv": (8 * d, qb + 2 * kb + qb + 2 * rows + pos + 2 * kb),
+    }
+    out = {}
+    for name, (per_pair, nbytes) in work.items():
+        t_ops = per_pair * live / PEAK_BF16_FLOPS * 1e3
+        t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+        out[name] = (max(t_ops, t_bytes),
+                     "operations" if t_ops >= t_bytes else "bytes")
+    return out
+
+
+def row_rel_err(torch, got, want, loose=None) -> float:
+    """The worst row's max abs error over that row's own max |plain| (a row
+    is everything but the last axis: a packed query row of out or dq, a KV
+    slot of dk or dv), so a long causal row's small values are not held
+    to the first rows' scale.  A row whose plain value is all zero, or is
+    flagged in ``loose`` (its exact value is zero and the plain version's
+    is rounding noise), is held against the tensor's max |plain|."""
+    err = (got.float() - want.float()).abs().amax(-1)
+    scale = want.float().abs().amax(-1)
+    odd = scale == 0
+    if loose is not None:
+        odd = odd | loose
+    return (err / torch.where(odd, scale.max(), scale)).max().item()
+
+
+def short_rows(q_pos, kv_pos, H):
+    """[B, T, H] True where a query attends fewer than 3 slots.  With one
+    slot P = 1, so dS = P (dP - Delta) and dq are exactly zero; with two,
+    dS = -/+ P0 P1 (dP0 - dP1) and dq = dS (k0 - k1) scale, so one near
+    tie of dP0 and dP1 shrinks the whole row to its rounding noise."""
+    kp = kv_pos[:, None, :]
+    live = ((kp >= 0) & (kp <= q_pos[:, :, None])).sum(-1)
+    return (live < 3)[:, :, None].expand(-1, -1, H)
+
+
+def lse_abs_err(torch, lse, ref):
+    """Max abs error of the row lse; rows with no live slot (+inf in both)
+    count 0."""
+    same_inf = torch.isinf(ref) & (lse == ref)
+    return torch.where(same_inf, 0.0, lse - ref).abs().max().item()
+
+
+def train_kernel_errors(torch, fa, args, rate, seed):
+    """Kernel vs plain for out, lse (forward) and dq, dk, dv (backward on
+    the kernel forward's own out and lse): per row for out, dq, dk and dv
+    (``row_rel_err``), max abs error for lse."""
+    q, k, v, g, q_pos, kv_pos = args
+    out, lse = fa._forward(q, k, v, q_pos, kv_pos, rate, seed, True)
+    ref_out, ref_lse = fa.flash_attention_reference(
+        q, k, v, q_pos, kv_pos, rate, seed, return_lse=True)
+    errs = dict(out=row_rel_err(torch, out, ref_out),
+                lse=lse_abs_err(torch, lse, ref_lse))
+    del ref_out, ref_lse
+    got = fa.flash_backward(q, k, v, q_pos, kv_pos, out, lse, g, rate, seed)
+    want = fa.flash_backward_reference(q, k, v, q_pos, kv_pos, out, lse, g,
+                                       rate, seed)
+    loose = dict(dq=short_rows(q_pos, kv_pos, q.shape[2]))
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        errs[name] = row_rel_err(torch, a, b, loose.get(name))
+    finite = all(bool(t.isfinite().all()) for t in (lse, out, *got))
+    return errs, finite, out, lse
+
+
+def check_train_kernels(torch, fa, gen):
+    """kernel_check at the training shape, without and with dropout, and
+    the float32 path on a smaller shape."""
+    import torch.nn.functional as F
+
+    rows = {}
+    args = train_kernel_inputs(torch, gen, torch.bfloat16, **TRAIN_SHAPE)
+    q, k, v, g, q_pos, kv_pos = args
+    bounds = train_kernel_bounds(torch, q, k, q_pos, kv_pos)
+    for rate in (0.0, TRAIN_DROPOUT):
+        seed = TRAIN_SEED_WORDS if rate else None
+        errs, finite, out, lse = train_kernel_errors(torch, fa, args, rate,
+                                                     seed)
+        torch.cuda.synchronize()
+        delta = fa.flash_delta(out, g, k.shape[2])
+        copies = cold_copies((q, k, v, g, q_pos, kv_pos, out, lse, delta))
+        n = len(copies)
+        ms = {
+            "flash_fwd": time_ms(torch, [
+                lambda a=a: fa._forward(a[0], a[1], a[2], a[4], a[5], rate,
+                                        seed, True) for a in copies],
+                iters=4 * n),
+            "flash_bwd_dq": time_ms(torch, [
+                lambda a=a: fa.flash_bwd_dq(a[0], a[1], a[2], a[4], a[5],
+                                            a[7], a[8], a[3], rate, seed)
+                for a in copies], iters=4 * n),
+            "flash_bwd_dkv": time_ms(torch, [
+                lambda a=a: fa.flash_bwd_dkv(a[0], a[1], a[2], a[4], a[5],
+                                             a[7], a[8], a[3], rate, seed)
+                for a in copies], iters=4 * n),
+        }
+        del copies
+        plain_fwd = time_ms(torch, lambda: fa.flash_attention_reference(
+            q, k, v, q_pos, kv_pos, rate, seed, return_lse=True),
+            iters=2, warmup=1)
+        plain_bwd = time_ms(torch, lambda: fa.flash_backward_reference(
+            q, k, v, q_pos, kv_pos, out, lse, g, rate, seed),
+            iters=2, warmup=1)
+        # Yardstick: SDPA (causal, GQA) forward, and its backward through
+        # autograd (one call computes dq, dk and dv).
+        qt, kt, vt, gt = (x.transpose(1, 2) for x in (q, k, v, g))
+        lib_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True, dropout_p=rate))
+        leaves = [x.detach().clone().requires_grad_() for x in (qt, kt, vt)]
+        lib_out = F.scaled_dot_product_attention(
+            *leaves, is_causal=True, enable_gqa=True, dropout_p=rate)
+        lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
+            lib_out, leaves, gt, retain_graph=True))
+        del lib_out, leaves, out, lse, delta
+        label = "dropout" if rate else "no_dropout"
+        for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            fwd = name == "flash_fwd"
+            keys = ("out", "lse") if fwd else (
+                ("dq",) if name == "flash_bwd_dq" else ("dk", "dv"))
+            row = dict(
+                phase="kernel_check", kernel=name, shape="train",
+                dropout=rate, **TRAIN_SHAPE, dtype="bfloat16",
+                err={key: errs[key] for key in keys},
+                err_is=TRAIN_ERR_IS, bound={key: TRAIN_BOUNDS[key]
+                                            for key in keys},
+                worst_row_rel=max(errs[key] for key in keys
+                                  if key != "lse"),
+                finite=finite, ms=ms[name],
+                plain_ms=plain_fwd if fwd else plain_bwd,
+                plain="flash_attention_reference (lse)" if fwd else
+                "flash_backward_reference (dq, dk and dv in one call)",
+                library_ms=lib_fwd if fwd else lib_bwd,
+                library="scaled_dot_product_attention" + (
+                    "" if fwd else " backward via autograd (dq, dk, dv)"),
+                bound_ms=bounds[name][0], bound_by=bounds[name][1],
+                roofline_share=bounds[name][0] / ms[name],
+            )
+            emit(row)
+            rows[(name, label)] = row
+        bad = [key for key, e in errs.items() if not e < TRAIN_BOUNDS[key]]
+        if bad or not finite:
+            raise AssertionError(
+                f"train kernels ({label}): {errs} against {TRAIN_BOUNDS}, "
+                f"finite {finite}")
+
+    # The float32 path, smaller shape.
+    f32 = {}
+    args = train_kernel_inputs(torch, gen, torch.float32, **TRAIN_F32_SHAPE)
+    for rate in (0.0, TRAIN_DROPOUT):
+        seed = TRAIN_SEED_WORDS if rate else None
+        errs, finite, _, _ = train_kernel_errors(torch, fa, args, rate, seed)
+        f32["dropout" if rate else "no_dropout"] = dict(errs, finite=finite)
+    emit(dict(phase="kernel_check", kernel="flash_fwd+flash_bwd_dq+"
+              "flash_bwd_dkv", shape="train_f32", **TRAIN_F32_SHAPE,
+              dtype="float32", err=f32, err_is=TRAIN_ERR_IS,
+              bound=F32_KERNEL_BOUND))
+    for label, errs in f32.items():
+        if not (errs.pop("finite")
+                and all(e < F32_KERNEL_BOUND for e in errs.values())):
+            raise AssertionError(f"float32 train kernels ({label}): {errs}")
+    return rows
+
+
+def bwd_counts(fa):
+    return {"flash_fwd": fa.flash_attention.launches,
+            "flash_bwd_dq": fa.flash_bwd_dq.launches,
+            "flash_bwd_dkv": fa.flash_bwd_dkv.launches}
+
+
+def zero_counts(fa, pa):
+    fa.flash_attention.launches = 0
+    fa.flash_bwd_dq.launches = 0
+    fa.flash_bwd_dkv.launches = 0
+    pa.paged_pool_attention.launches = 0
+
+
+def layer_copy(torch, params, n_layers, dtype=None):
+    """A copy of the first n_layers of params (all other weights copied
+    too), optionally cast."""
+    def cp(t):
+        return t.detach().to(dtype or t.dtype).clone()
+
+    out = {k: (cp(v) if isinstance(v, torch.Tensor)
+               else {kk: cp(vv) for kk, vv in v.items()})
+           for k, v in params.items() if k != "layers"}
+    out["layers"] = {k: cp(w[:n_layers]) for k, w in params["layers"].items()}
+    return out
+
+
+def train_documents(np, vocab, n_docs=16):
+    """Random documents of 100-3000 token ids, each ending in EOS."""
+    rng = np.random.default_rng(0)
+    return [list(rng.integers(0, vocab, rng.integers(100, 3001)))
+            + [LLAMA3_EOS] for _ in range(n_docs)]
+
+
+def train_grad_check(torch, train, fa, pa, params, cfg, tokens):
+    """Gradients through the kernels against the plain xla path (float32,
+    GRAD_LAYERS layers, T = GRAD_T), and one dropout step."""
+    c = cfg.replace(n_layers=GRAD_LAYERS, dtype="float32",
+                    param_dtype="float32")
+    p32 = layer_copy(torch, params, GRAD_LAYERS, torch.float32)
+    names, leaves = zip(*train.tree_items(p32))
+    for t in leaves:
+        t.requires_grad_(True)
+    toks = tokens[:2, :GRAD_T].contiguous()
+    losses, grads = {}, {}
+    for impl in ("flash", "xla"):
+        loss = train.lm_loss(p32, toks, c.replace(attn_impl=impl))
+        losses[impl] = loss.item()
+        grads[impl] = torch.autograd.grad(loss, leaves)
+    grad_rel = {n: rel_err(a, b) for n, a, b in
+                zip(names, grads["flash"], grads["xla"])}
+    loss_rel = abs(losses["flash"] - losses["xla"]) / abs(losses["xla"])
+    del grads
+    opt = train.make_optimizer()
+    state = train.init_train_state(p32, opt)
+    zero_counts(fa, pa)
+    state, dloss = train.train_step(
+        state, toks, c.replace(attn_impl="flash", attn_pdrop=0.1,
+                               resid_pdrop=0.1), opt, dropout_seed=0)
+    dloss = dloss.item()
+    drop_launches = bwd_counts(fa)
+    del state, p32, leaves
+    row = dict(phase="train_grad_check", config="llama3-8b",
+               n_layers=GRAD_LAYERS, T=GRAD_T, batch=2, dtype="float32",
+               remat=cfg.remat_policy, losses=losses, loss_rel=loss_rel,
+               loss_rel_bound=GRAD_LOSS_REL, grad_rel=grad_rel,
+               grad_rel_bound=GRAD_REL, dropout_step_loss=dloss,
+               dropout_step_launches=drop_launches)
+    emit(row)
+    want = {"flash_fwd": 2 * GRAD_LAYERS, "flash_bwd_dq": GRAD_LAYERS,
+            "flash_bwd_dkv": GRAD_LAYERS}
+    if not (loss_rel < GRAD_LOSS_REL
+            and all(e < GRAD_REL for e in grad_rel.values())
+            and drop_launches == want
+            and bool(torch.isfinite(torch.tensor(dloss)))):
+        raise AssertionError(f"train gradient check failed: {row}")
+    return row
+
+
+def drive_train(torch, np, ptl, fa, pa, params, base_cfg):
+    """Phase 7: train_step at llama3-8b width, TRAIN_LAYERS layers."""
+    import math
+
+    from jax_llama_tpu_torch import data, train
+
+    cfg = base_cfg.replace(n_layers=TRAIN_LAYERS, remat=True,
+                           remat_policy="dots", attn_impl="flash")
+    B, T = 4, 2048
+    batch = next(data.batches(train_documents(np, cfg.vocab_size), B, T))
+    batch = data.to_device(batch, "cuda")
+    grad_row = train_grad_check(torch, train, fa, pa, params, cfg,
+                                batch.tokens)
+
+    tparams = layer_copy(torch, params, TRAIN_LAYERS)
+    opt = train.make_optimizer()
+    state = train.init_train_state(tparams, opt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    L = TRAIN_LAYERS
+    want_step = {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L}
+    losses, step_ms, per_step = [], [], []
+    zero_counts(fa, pa)
+    for _ in range(TRAIN_STEPS):
+        before = bwd_counts(fa)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, loss = train.train_step(state, batch.tokens, cfg, opt,
+                                       loss_mask=batch.loss_mask)
+        end.record()
+        end.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        losses.append(loss.item())
+        after = bwd_counts(fa)
+        per_step.append({k: after[k] - before[k] for k in after})
+    launches = dict(bwd_counts(fa),
+                    paged_decode=pa.paged_pool_attention.launches)
+    peak = torch.cuda.max_memory_allocated()
+
+    def one_step():
+        nonlocal state
+        state, _ = train.train_step(state, batch.tokens, cfg, opt,
+                                    loss_mask=batch.loss_mask)
+
+    profile = device_profile(torch, one_step, top=12, categories={
+        "flash_fwd": ("flash_fwd",), "flash_bwd_dq": ("flash_bwd_dq",),
+        "flash_bwd_dkv": ("flash_bwd_dkv",),
+        "gemm": ("nvjet", "gemm", "sm90_xmma", "cutlass"),
+        "elementwise": ("elementwise", "reduce", "index", "gather",
+                        "scatter", "cat", "copy"),
+    })
+    step = sorted(step_ms[2:])[len(step_ms[2:]) // 2]
+    n_matmul = (ptl.param_count(tparams)
+                - cfg.vocab_size * cfg.dim)  # bench.py: params - embedding
+    flops = 6 * n_matmul * B * T + 3 * (2 * B * T * T * cfg.dim * L)
+    row = dict(
+        phase="train", config="llama3-8b", n_layers=L,
+        reduced=f"depth 32 -> {L} layers (params, grads and AdamW moments "
+        "in bf16 fit one card beside the 16 GB of phase-3 weights)",
+        dim=cfg.dim, dtype="bfloat16", param_dtype="bfloat16",
+        remat="dots", attn_impl="flash", batch=B, seq_len=T,
+        loss_mask_fraction=batch.loss_mask.float().mean().item(),
+        optimizer="make_optimizer() defaults (AdamW lr 3e-4, wd 0.1, "
+        "b1 0.9, b2 0.95, clip 1.0)", losses=losses,
+        ln_vocab=math.log(cfg.vocab_size), step_ms_all=step_ms,
+        step_ms=step, tokens_per_s=B * T / step * 1e3,
+        matmul_params=n_matmul, mfu=flops / (step / 1e3) / PEAK_BF16_FLOPS,
+        peak_memory_bytes=peak, launches=launches,
+        launches_per_step=per_step, profile_1_step=profile,
+        grad_check_loss_rel=grad_row["loss_rel"],
+    )
+    emit(row)
+    ok = (abs(losses[0] - math.log(cfg.vocab_size)) < 1.0
+          and losses[-1] < losses[0]
+          and all(math.isfinite(x) for x in losses)
+          and all(c == want_step for c in per_step)
+          and launches["paged_decode"] == 0)
+    if not ok:
+        raise AssertionError(f"train phase failed: {row}")
+    del state, tparams
+    return row
+
+
 def prompts_for():
     """4 prompts whose BOS-prefixed lengths are 512 - PREFILL_PADS."""
     text = ("The quick brown fox jumps over the lazy dog while the port "
@@ -395,9 +802,11 @@ def prompts_for():
     return [text[:512 - pad - 1] for pad in PREFILL_PADS]
 
 
-def device_profile(torch, fn):
+def device_profile(torch, fn, top=6, categories=None):
     """Device busy share and the top kernels by device time over ``fn()``,
-    from torch.profiler; None where the profiler saw no device time."""
+    from torch.profiler; None where the profiler saw no device time.
+    ``categories`` ({label: name substrings}) adds device ms per label,
+    the first label whose substring a kernel's name holds, else "other"."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -411,15 +820,23 @@ def device_profile(torch, fn):
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
-    return dict(
+    ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)
+    out = dict(
         wall_ms=wall_ms,
         device_ms=device_ms or None,
         device_busy_share=(device_ms / wall_ms) if device_ms else None,
         kernel_launches=sum(e.count for e in kernels),
         top_kernels=[dict(name=e.key[:60], ms=e.self_device_time_total / 1e3,
-                          count=e.count) for e in top],
+                          count=e.count) for e in ranked[:top]],
     )
+    if categories:
+        ms = dict.fromkeys([*categories, "other"], 0.0)
+        for e in kernels:
+            label = next((c for c, subs in categories.items()
+                          if any(sub in e.key for sub in subs)), "other")
+            ms[label] += e.self_device_time_total / 1e3
+        out["by_category_ms"] = ms
+    return out
 
 
 def serve_prompts(tok):
@@ -443,8 +860,7 @@ def drive_serving(torch, ptl, fa, pa, params, cfg, tok):
     results, rids = {}, {}
     steady_ms, steady_iters, steady_tokens = [], 0, 0
     quiet_steps, quiet_bad = 0, []
-    fa.flash_attention.launches = 0
-    pa.paged_pool_attention.launches = 0
+    zero_counts(fa, pa)
     t0 = time.perf_counter()
     for i in range(6):
         rids[cb.submit(prompts[i], max_new_tokens=SERVE_MAX_NEW[i])] = i
@@ -480,8 +896,8 @@ def drive_serving(torch, ptl, fa, pa, params, cfg, tok):
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
     stats = cb.stats()
-    launches = {"flash_fwd": fa.flash_attention.launches,
-                "paged_decode": pa.paged_pool_attention.launches}
+    launches = dict(bwd_counts(fa),
+                    paged_decode=pa.paged_pool_attention.launches)
     lens = {rids[r]: len(t) for r, t in results.items()}
     in_vocab = all(0 <= t < cfg.vocab_size
                    for toks in results.values() for t in toks)
@@ -520,7 +936,8 @@ def drive_serving(torch, ptl, fa, pa, params, cfg, tok):
     )
     emit(row)
     want = {"paged_decode": L * stats["decode_steps_total"],
-            "flash_fwd": L * stats["insert_dispatches_total"]}
+            "flash_fwd": L * stats["insert_dispatches_total"],
+            "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
     if launches != want:
         raise AssertionError(f"serving launches {launches}, expected {want}")
     if not (exact and in_vocab):
@@ -621,6 +1038,7 @@ def rel_err(a, b) -> float:
 
 
 def main() -> int:
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -660,6 +1078,7 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     flash_rows = check_flash(torch, fa, gen)
     paged_row = check_paged(torch, pa, gen)
+    train_rows = check_train_kernels(torch, fa, gen)
 
     # Phase 3: the main path, llama3-8b width, bf16, attn_impl="auto".
     cfg = ptl.get_config("llama3-8b", param_dtype="bfloat16",
@@ -674,14 +1093,13 @@ def main() -> int:
     lens = [len(tok.encode(p, bos=True)) for p in prompts]
     assert all(n > 9 for n in lens), lens
 
-    fa.flash_attention.launches = 0
-    pa.paged_pool_attention.launches = 0
+    zero_counts(fa, pa)
     t0 = time.perf_counter()
     texts = llm.generate_from_str(prompts, max_gen_len=32, temperature=0.0)
     torch.cuda.synchronize()
     generate_s = time.perf_counter() - t0
-    launches = {"flash_fwd": fa.flash_attention.launches,
-                "paged_decode": pa.paged_pool_attention.launches}
+    launches = dict(bwd_counts(fa),
+                    paged_decode=pa.paged_pool_attention.launches)
     if launches["flash_fwd"] != cfg.n_layers:
         raise AssertionError(
             f"flash kernel launched {launches['flash_fwd']} times in the "
@@ -813,34 +1231,57 @@ def main() -> int:
     # Phase 6: paged = gathered = standalone generate.
     paged_invariant(torch, ptl, engine, serving, params, cfg, tok)
 
-    # Phase 7: every kernel of the port.  ``launches`` counts the serving
-    # path's run (this slice's main path); each path's count is beside it.
-    # The flash times are the serving insert's shape, the launches' path.
+    # Phase 7: the training path, counted from zero.
+    train_row = drive_train(torch, np, ptl, fa, pa, params, cfg)
+
+    # Phase 8: every kernel of the port.  ``launches`` counts the run of
+    # the path each kernel serves (train for the flash kernels, this
+    # slice's path; serving for the paged kernel); every path's count is
+    # beside it.  The flash times are the training shape's (forward with
+    # lse, no dropout), the train path's launches.
+    paths = {"generate": launches, "serving": serve_row["launches"],
+             "train": train_row["launches"]}
+
+    def by_path(name):
+        return {path: counts[name] for path, counts in paths.items()}
+
+    def train_kernel(name, replaces):
+        row = train_rows[(name, "no_dropout")]
+        drop = train_rows[(name, "dropout")]
+        return dict(
+            name=name, route="cuda",
+            source="jax_llama_tpu_torch/csrc/" + (
+                "flash_fwd.cu" if name == "flash_fwd" else "flash_bwd.cu"),
+            replaces=replaces, launches=paths["train"][name],
+            launches_by_path=by_path(name), shape="train",
+            max_abs_err=max(row["worst_row_rel"], drop["worst_row_rel"]),
+            max_abs_err_is="the worst row's max abs error over its own "
+            "max |plain| (out, dq: packed query rows; dk, dv: KV slots)",
+            ms=row["ms"], dropout_ms=drop["ms"], plain_ms=row["plain_ms"],
+            bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+            library_ms=row["library_ms"])
+
     pre = flash_rows["insert"]
-    served = serve_row["launches"]
+    fwd = train_kernel("flash_fwd", "jax_llama_tpu/ops/flash_attention.py:868")
+    fwd.update(insert_ms=pre["ms"], insert_bound_ms=pre["bound_ms"],
+               insert_plain_ms=pre["plain_ms"],
+               insert_library_ms=pre["library_ms"])
     emit({"kernels": [
-        dict(name="flash_fwd", route="cuda",
-             source="jax_llama_tpu_torch/csrc/flash_fwd.cu",
-             replaces="jax_llama_tpu/ops/flash_attention.py:868",
-             launches=served["flash_fwd"],
-             launches_by_path={"generate": launches["flash_fwd"],
-                               "serving": served["flash_fwd"]},
-             max_abs_err=max(r["max_abs_err"] for r in flash_rows.values()),
-             shape="insert", ms=pre["ms"], kernel_ms=pre["ms"],
-             plain_ms=pre["plain_ms"],
-             bound_ms=pre["bound_ms"], bound_by=pre["bound_by"],
-             library_ms=pre["library_ms"]),
+        fwd,
         dict(name="paged_decode", route="cuda",
              source="jax_llama_tpu_torch/csrc/paged_decode.cu",
              replaces="jax_llama_tpu/ops/paged_attention.py:371",
-             launches=served["paged_decode"],
-             launches_by_path={"generate": launches["paged_decode"],
-                               "serving": served["paged_decode"]},
+             launches=paths["serving"]["paged_decode"],
+             launches_by_path=by_path("paged_decode"),
              shape="serving", max_abs_err=paged_row["max_abs_err"],
              ms=paged_row["ms"],
              kernel_ms=paged_row["ms"], plain_ms=paged_row["plain_ms"],
              bound_ms=paged_row["bound_ms"], bound_by=paged_row["bound_by"],
              library_ms=paged_row["library_ms"]),
+        train_kernel("flash_bwd_dq",
+                     "jax_llama_tpu/ops/flash_attention.py:1271"),
+        train_kernel("flash_bwd_dkv",
+                     "jax_llama_tpu/ops/flash_attention.py:1301"),
     ]})
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

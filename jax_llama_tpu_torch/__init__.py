@@ -9,9 +9,14 @@ no GPU is present unless the caller passes ``device="cpu"``.
               forward, KVCache, init_cache, PagedKVCache
   Decode:     GenerationConfig, generate, LLaMA
   Serving:    ContinuousBatcher, init_pool (paged KV pool)
+  Training:   train_step (AdamW step over lm_loss; flash forward and
+              backward kernels under attn_impl="flash"), make_optimizer,
+              init_train_state, TrainState, lm_loss; data.batches /
+              data.to_device for packed batches
   Tokenizers: ByteTokenizer
-  Kernels:    ops.flash_attention (hand-written CUDA, csrc/flash_fwd.cu),
-              ops.paged_attention (hand-written CUDA, csrc/paged_decode.cu)
+  Kernels:    ops.flash_attention (hand-written CUDA, csrc/flash_fwd.cu and
+              csrc/flash_bwd.cu), ops.paged_attention (hand-written CUDA,
+              csrc/paged_decode.cu)
 """
 
 from .config import LLaMAConfig, get_config, swiglu_hidden_size
@@ -28,6 +33,13 @@ from .models import (
 )
 from .serving import ContinuousBatcher, init_pool
 from .tokenizers import ByteTokenizer
+from .train import (
+    TrainState,
+    init_train_state,
+    lm_loss,
+    make_optimizer,
+    train_step,
+)
 
 __version__ = "0.1.0"
 
@@ -35,5 +47,7 @@ __all__ = [
     "LLaMAConfig", "get_config", "swiglu_hidden_size", "GenerationConfig",
     "generate", "LLaMA", "ByteTokenizer", "KVCache", "forward",
     "from_jax_params", "init_cache", "init_params", "param_count",
-    "PagedKVCache", "ContinuousBatcher", "init_pool", "__version__",
+    "PagedKVCache", "ContinuousBatcher", "init_pool", "TrainState",
+    "init_train_state", "lm_loss", "make_optimizer", "train_step",
+    "__version__",
 ]

@@ -4,7 +4,7 @@ A copy of ``jax_llama_tpu.config`` (the architecture fields, the SwiGLU
 sizing rule and the published presets) with dtype strings mapped to torch
 dtypes.  The port keeps its own copy because importing the JAX package
 pulls in jax.  Fields the port does not run yet (ring attention, int8 KV,
-dropout, pipeline microbatches, kernel selection) are kept so a config
+pipeline microbatches, kernel selection) are kept so a config
 round-trips between the two packages; ``validate`` rejects the values the
 port cannot honour instead of silently ignoring them.
 """
@@ -117,6 +117,10 @@ class LLaMAConfig:
             raise ValueError(f"unknown attn_impl {self.attn_impl!r}")
         if self.attn_impl == "ring":
             raise NotImplementedError("attn_impl='ring' is not ported yet")
+        if self.remat_policy not in ("dots", "full"):
+            raise ValueError(
+                f"unknown remat_policy {self.remat_policy!r}; expected "
+                "'dots' or 'full'")
         if self.kv_cache_dtype not in ("auto", "int8"):
             raise ValueError(
                 f"unknown kv_cache_dtype {self.kv_cache_dtype!r}; "
@@ -132,8 +136,9 @@ class LLaMAConfig:
                      "logits_dtype"):
             torch_dtype(getattr(self, name))
         # Kernel-selection names: the port runs the flash kernel for every
-        # prefill_kernel and has no decode kernel yet, but a typo must
-        # still fail as it does in the JAX package.
+        # prefill_kernel and the paged kernel for every paged decode_kernel
+        # (no stock/splash slots yet), but a typo must still fail as it
+        # does in the JAX package.
         if self.prefill_kernel not in ("flash", "splash", "auto"):
             raise ValueError(f"unknown prefill_kernel {self.prefill_kernel!r}")
         if self.decode_kernel not in ("paged", "stock-paged", "auto"):

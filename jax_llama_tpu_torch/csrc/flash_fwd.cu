@@ -3,14 +3,25 @@
 // Replaces the TPU kernel `_flash_forward` of
 // jax_llama_tpu/ops/flash_attention.py (pallas_call at :868; bodies
 // `_flash_kernel`, `_flash_tri_tile_update`, `_tri_gate`), reached from
-// `flash_attention` there.  Same function, forward only (no lse, no int8
-// KV, no dropout):
+// `flash_attention` / `_flash_fwd` there.  Same function (no int8 KV):
 //
 //   out[b, t, h] = sum_s softmax_s(q[b,t,h] . k[b,s,h/G] / sqrt(d)) v[b,s,h/G]
 //
 // over the slots s with 0 <= kv_pos[b,s] <= q_pos[b,t] (kv_pos -1 marks a
 // padding or unwritten slot and is treated as +INT_MAX, so one compare
 // masks it).  A query row that sees no live slot writes 0.
+//
+// Two options, each its own template instance so the inference launch
+// (neither) runs the code it always ran:
+//   * lse: the row logsumexp in natural log, float32 [B, KVH, G*T], from
+//     the running base-2 max and sum ((m + log2 l) * ln 2, JAX :505-509);
+//     +inf for a row with no live slot, so the backward's P = exp(s - lse)
+//     is 0 there.  The backward kernels (flash_bwd.cu) rebuild P from it.
+//   * dropout: inverted probability dropout (JAX :453-468).  The
+//     accumulator's P is scaled by keep / (1 - rate) while the
+//     denominator's P is left alone, which is dropout on the normalised
+//     weights.  The keep bit is the hash of flash_common.cuh on the
+//     element's global (packed row, slot), so the backward rebuilds it.
 //
 // Layout: q and out [B, T, H, d], k and v [B, S, KVH, d], all contiguous;
 // q_pos [B, T] and kv_pos [B, S] int32.  GQA is packed into the query rows
@@ -47,81 +58,22 @@
 // The float32 path is a plain CUDA-core kernel (one warp per packed row)
 // kept for callers that run the model in float32; the main path is bf16.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
-#include <climits>
-#include <math.h>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int BM = 64;             // packed query rows per block
-constexpr int BN = 64;             // kv slots per tile
-constexpr int NWARPS = BM / 16;    // 16 rows per warp
-constexpr int NTHREADS = NWARPS * 32;
+using namespace flash;
 
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_raw(uint16_t lo, uint16_t hi) {
-  return static_cast<uint32_t>(lo) | (static_cast<uint32_t>(hi) << 16);
-}
-
-__device__ __forceinline__ uint32_t ld32(const uint16_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// D[16x8] += A[16x16] * B[16x8], bf16 inputs, fp32 accumulate.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ int remap_pos(int p) { return p < 0 ? INT_MAX : p; }
-
-// Block-wide: the largest query position among rows [row0, row0+rows) of
-// the packed plane, and the tile bound 1 + (last kv tile holding a slot
-// with remapped position <= that maximum).  Needs blockDim.x >= rows.
-__device__ __forceinline__ int kv_tile_bound(const int* __restrict__ q_pos,
-                                             const int* __restrict__ kv_pos,
-                                             int b, int T, int S, int R,
-                                             int row0, int rows, int tile,
-                                             int* qmax_s, int* last_s) {
-  const int tid = threadIdx.x;
-  if (tid == 0) {
-    *qmax_s = INT_MIN;
-    *last_s = -1;
-  }
-  __syncthreads();
-  if (tid < rows && row0 + tid < R) {
-    atomicMax(qmax_s, q_pos[b * T + (row0 + tid) % T]);
-  }
-  __syncthreads();
-  const int qmax = *qmax_s;
-  int last = -1;
-  for (int s = tid; s < S; s += blockDim.x) {
-    if (remap_pos(kv_pos[(size_t)b * S + s]) <= qmax) last = s;
-  }
-  if (last >= 0) atomicMax(last_s, last);
-  __syncthreads();
-  return (*last_s + tile) / tile;  // 0 when no slot is live
-}
-
-template <int D>
+template <int D, bool LSE, bool DROP>
 __global__ void __launch_bounds__(NTHREADS)
 flash_fwd_bf16_kernel(const uint16_t* __restrict__ q,
                       const uint16_t* __restrict__ k,
                       const uint16_t* __restrict__ v,
                       const int* __restrict__ q_pos,
                       const int* __restrict__ kv_pos,
-                      uint16_t* __restrict__ out, int T, int S, int H, int KVH,
-                      float scale_log2) {
+                      uint16_t* __restrict__ out, float* __restrict__ lse,
+                      int T, int S, int H, int KVH, float scale_log2,
+                      Dropout drop) {
   static_assert(D % 16 == 0 && D <= 128, "head_dim");
   constexpr int LD = D + 8;  // padded shared row, in bf16 elements
   constexpr int KSTEPS = D / 16;
@@ -156,6 +108,15 @@ flash_fwd_bf16_kernel(const uint16_t* __restrict__ q,
     qp[i] = valid[i] ? q_pos[b * T + t] : -1;  // -1: attends nothing
     orow[i] = ((size_t)(b * T + t) * H + h) * D;
     qrow[i] = q + orow[i];
+  }
+  // Dropout: the hash words of this thread's two packed rows.
+  uint32_t base_lo = 0, base_hi = 0, rw[2] = {0u, 0u};
+  if constexpr (DROP) {
+    drop_bases(drop, b, kvh, base_lo, base_hi);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      rw[i] = row_word(base_lo, row0 + warp * 16 + grp + 8 * i);
+    }
   }
 
   uint32_t qf[KSTEPS][4];
@@ -251,11 +212,21 @@ flash_fwd_bf16_kernel(const uint16_t* __restrict__ q,
     }
 #pragma unroll
     for (int nb = 0; nb < NBLK; ++nb) {
+      uint32_t cw[2] = {0u, 0u};
+      if constexpr (DROP) {
+        cw[0] = col_word(base_hi, s0 + nb * 8 + tig * 2);
+        cw[1] = col_word(base_hi, s0 + nb * 8 + tig * 2 + 1);
+      }
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const float p = exp2f(sc[nb][e] - m_use[e >> 1]);
-        sc[nb][e] = p;
-        l[e >> 1] += p;
+        l[e >> 1] += p;  // the denominator keeps every probability
+        if constexpr (DROP) {
+          sc[nb][e] = keep(rw[e >> 1], cw[e & 1], drop.threshold)
+                          ? p * drop.inv : 0.f;
+        } else {
+          sc[nb][e] = p;
+        }
       }
     }
 
@@ -289,6 +260,13 @@ flash_fwd_bf16_kernel(const uint16_t* __restrict__ q,
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     if (!valid[i]) continue;
+    if constexpr (LSE) {
+      if (tig == 0) {
+        const int r = row0 + warp * 16 + grp + 8 * i;
+        lse[((size_t)b * KVH + kvh) * R + r] =
+            l[i] > 0.f ? (m[i] + log2f(l[i])) * LN2 : INFINITY;
+      }
+    }
     const float den = l[i] == 0.f ? 1.f : l[i];
     uint16_t* orp = out + orow[i];
 #pragma unroll
@@ -309,7 +287,8 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v,
                      const int* __restrict__ q_pos,
                      const int* __restrict__ kv_pos, float* __restrict__ out,
-                     int T, int S, int H, int KVH, float scale_log2) {
+                     float* __restrict__ lse, int T, int S, int H, int KVH,
+                     float scale_log2, bool with_drop, Dropout drop) {
   constexpr int D = 32 * DPL;
   __shared__ float ks[F32_BN * D];
   __shared__ float vs[F32_BN * D];
@@ -338,6 +317,11 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     acc[i] = 0.f;
   }
   float m = -INFINITY, l = 0.f;
+  uint32_t base_lo = 0, base_hi = 0, rw = 0;
+  if (with_drop) {
+    drop_bases(drop, b, kvh, base_lo, base_hi);
+    rw = row_word(base_lo, r);
+  }
 
   for (int tile = 0; tile < n_tiles; ++tile) {
     const int s0 = tile * F32_BN;
@@ -363,18 +347,19 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       float dot = 0.f;
 #pragma unroll
       for (int i = 0; i < DPL; ++i) dot += qv[i] * ks[j * D + lane + 32 * i];
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        dot += __shfl_xor_sync(0xffffffffu, dot, off);
-      }
-      const float s = dot * scale_log2;
+      const float s = warp_sum(dot) * scale_log2;
       const float m_new = fmaxf(m, s);
       const float alpha = exp2f(m - m_new);
       const float p = exp2f(s - m_new);
       l = l * alpha + p;
+      float pa = p;
+      if (with_drop) {
+        pa = keep(rw, col_word(base_hi, s0 + j), drop.threshold)
+                 ? p * drop.inv : 0.f;
+      }
 #pragma unroll
       for (int i = 0; i < DPL; ++i) {
-        acc[i] = acc[i] * alpha + p * vs[j * D + lane + 32 * i];
+        acc[i] = acc[i] * alpha + pa * vs[j * D + lane + 32 * i];
       }
       m = m_new;
     }
@@ -383,35 +368,69 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float den = l == 0.f ? 1.f : l;
 #pragma unroll
     for (int i = 0; i < DPL; ++i) out[orow + lane + 32 * i] = acc[i] / den;
+    if (lse != nullptr && lane == 0) {
+      lse[((size_t)b * KVH + kvh) * R + r] =
+          l > 0.f ? (m + log2f(l)) * LN2 : INFINITY;
+    }
+  }
+}
+
+template <int D, bool LSE, bool DROP>
+void launch_bf16(dim3 grid, cudaStream_t st, const void* q, const void* k,
+                 const void* v, const int* q_pos, const int* kv_pos, void* out,
+                 float* lse, int T, int S, int H, int KVH, float scale_log2,
+                 Dropout drop) {
+  flash_fwd_bf16_kernel<D, LSE, DROP><<<grid, NTHREADS, 0, st>>>(
+      static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
+      static_cast<const uint16_t*>(v), q_pos, kv_pos,
+      static_cast<uint16_t*>(out), lse, T, S, H, KVH, scale_log2, drop);
+}
+
+template <int D>
+void dispatch_bf16(dim3 grid, cudaStream_t st, const void* q, const void* k,
+                   const void* v, const int* q_pos, const int* kv_pos,
+                   void* out, float* lse, int T, int S, int H, int KVH,
+                   float scale_log2, bool with_drop, Dropout drop) {
+  if (with_drop) {
+    launch_bf16<D, true, true>(grid, st, q, k, v, q_pos, kv_pos, out, lse, T,
+                               S, H, KVH, scale_log2, drop);
+  } else if (lse != nullptr) {
+    launch_bf16<D, true, false>(grid, st, q, k, v, q_pos, kv_pos, out, lse, T,
+                                S, H, KVH, scale_log2, drop);
+  } else {
+    launch_bf16<D, false, false>(grid, st, q, k, v, q_pos, kv_pos, out, lse,
+                                 T, S, H, KVH, scale_log2, drop);
   }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns the cudaError_t of the launch
-// (0 on success).  Launches on `stream` and does not synchronise.
+// dtype: 0 = float32, 1 = bfloat16.  lse: NULL, or float32 [B, KVH, G*T].
+// with_drop != 0 applies dropout with the given seed words, threshold and
+// 1 / (1 - rate); the bf16 path then needs lse.  Returns the cudaError_t of
+// the launch (0 on success).  Launches on `stream` and does not synchronise.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          const int* q_pos, const int* kv_pos, void* out,
-                         int B, int T, int S, int H, int KVH, int D, int dtype,
-                         float scale_log2, void* stream) {
+                         float* lse, int B, int T, int S, int H, int KVH, int D,
+                         int dtype, float scale_log2, int with_drop,
+                         unsigned int seed_lo, unsigned int seed_hi,
+                         unsigned int threshold, float inv_keep,
+                         void* stream) {
   if (B <= 0 || T <= 0 || S <= 0 || KVH <= 0 || H % KVH != 0 || B > 65535 ||
-      KVH > 65535) {
+      KVH > 65535 || (with_drop && lse == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long R = (long)(H / KVH) * T;
+  const Dropout drop{seed_lo, seed_hi, threshold, inv_keep};
   if (dtype == 1) {
     dim3 grid((unsigned)((R + BM - 1) / BM), KVH, B);
-    const uint16_t* qq = static_cast<const uint16_t*>(q);
-    const uint16_t* kk = static_cast<const uint16_t*>(k);
-    const uint16_t* vv = static_cast<const uint16_t*>(v);
-    uint16_t* oo = static_cast<uint16_t*>(out);
     if (D == 128) {
-      flash_fwd_bf16_kernel<128><<<grid, NTHREADS, 0, st>>>(
-          qq, kk, vv, q_pos, kv_pos, oo, T, S, H, KVH, scale_log2);
+      dispatch_bf16<128>(grid, st, q, k, v, q_pos, kv_pos, out, lse, T, S, H,
+                         KVH, scale_log2, with_drop != 0, drop);
     } else if (D == 64) {
-      flash_fwd_bf16_kernel<64><<<grid, NTHREADS, 0, st>>>(
-          qq, kk, vv, q_pos, kv_pos, oo, T, S, H, KVH, scale_log2);
+      dispatch_bf16<64>(grid, st, q, k, v, q_pos, kv_pos, out, lse, T, S, H,
+                        KVH, scale_log2, with_drop != 0, drop);
     } else {
       return (int)cudaErrorInvalidValue;
     }
@@ -423,10 +442,12 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
     float* oo = static_cast<float*>(out);
     if (D == 128) {
       flash_fwd_f32_kernel<4><<<grid, F32_ROWS * 32, 0, st>>>(
-          qq, kk, vv, q_pos, kv_pos, oo, T, S, H, KVH, scale_log2);
+          qq, kk, vv, q_pos, kv_pos, oo, lse, T, S, H, KVH, scale_log2,
+          with_drop != 0, drop);
     } else if (D == 64) {
       flash_fwd_f32_kernel<2><<<grid, F32_ROWS * 32, 0, st>>>(
-          qq, kk, vv, q_pos, kv_pos, oo, T, S, H, KVH, scale_log2);
+          qq, kk, vv, q_pos, kv_pos, oo, lse, T, S, H, KVH, scale_log2,
+          with_drop != 0, drop);
     } else {
       return (int)cudaErrorInvalidValue;
     }

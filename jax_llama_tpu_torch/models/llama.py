@@ -39,9 +39,20 @@ one decode token per row, attention through the hand-written paged
 kernel, and the same in-place contract (pool k, v and pos written, the
 same cache object returned).
 
-Ring attention, int8, dropout, the hidden-state and attention-weight
-outputs, pipeline stages and quantized weights raise
-``NotImplementedError``.
+Training (``train.py``): ``forward(dropout_rng=...)`` applies the config's
+embedding, residual and attention dropout, drawn from a ``torch.Generator``
+(or an int seed).  Attention dropout runs inside the flash kernel on the
+flash path (two seed words per layer drawn from the generator, the mask
+hashed in the kernel and rebuilt by the backward kernels) and through
+``sdpa`` on the xla path.  The masks differ from the JAX package's, which
+draws its kernel seed words from threefry keys; parity with JAX holds at
+the op level (the same seed words give the same mask bits) and at the
+model level with dropout off.  ``config.remat`` runs each block under
+``torch.utils.checkpoint``: policy "full" recomputes everything, "dots"
+saves the matmul outputs (JAX's ``dots_with_no_batch_dims_saveable``).
+
+Ring attention, int8, the hidden-state and attention-weight outputs,
+pipeline stages and quantized weights raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -53,10 +64,16 @@ from typing import Any, Dict, Optional, Tuple, Union
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from ..config import LLaMAConfig, torch_dtype
-from ..ops.attention import attention_bias, sdpa, sdpa_cached
+from ..ops.attention import attention_bias, dropout, sdpa, sdpa_cached
 from ..ops.flash_attention import flash_attention
+from ..ops.loss import matmul_f32_out
 from ..ops.norm import rms_norm
 from ..ops.paged_attention import paged_decode_attention
 from ..ops.rope import apply_rope, rope_table
@@ -341,16 +358,6 @@ def _rope_tables(head_dim, max_positions, theta, scaled, device):
     return torch.from_numpy(cos).to(device), torch.from_numpy(sin).to(device)
 
 
-def _matmul_f32_out(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x [N, D] @ w [D, V] with float32 output and float32 accumulation,
-    without widening w (the JAX einsum's preferred_element_type=float32)."""
-    if x.dtype == torch.float32:
-        return x @ w.float()
-    if x.device.type == "cuda":
-        return torch.mm(x, w.to(x.dtype), out_dtype=torch.float32)
-    return x.float() @ w.float()
-
-
 def lm_head_logits(
     params: Params, x: torch.Tensor, config: LLaMAConfig, normed: bool = False
 ) -> torch.Tensor:
@@ -364,7 +371,7 @@ def lm_head_logits(
     else:
         kernel = params["lm_head"]
     B, T, D = x.shape
-    logits = _matmul_f32_out(x.reshape(B * T, D), kernel)
+    logits = matmul_f32_out(x.reshape(B * T, D), kernel)
     return logits.reshape(B, T, -1).to(torch_dtype(config.logits_dtype))
 
 
@@ -402,6 +409,19 @@ def _cache_write(
         fits, new[:, 0].to(cache_layer.dtype), cache_layer[rows, cols])
 
 
+@dataclasses.dataclass(frozen=True)
+class _LayerDropout:
+    """One layer's dropout draw: the flash kernel's two seed words and the
+    seed of the layer's own generator (residual dropout, and attention
+    dropout on the xla path).  Seeds rather than generator state, so a
+    rematerialized block redraws the same masks."""
+
+    attn_seed: Tuple[int, int]
+    seed: int
+    attn_rate: float
+    resid_rate: float
+
+
 def _block(
     x: torch.Tensor,
     lp: Dict[str, torch.Tensor],
@@ -418,18 +438,24 @@ def _block(
     bias_new: Optional[torch.Tensor],
     impl: str,
     paged: Optional[Tuple["PagedKVCache", torch.Tensor, int]] = None,
+    drop: Optional[_LayerDropout] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One pre-norm transformer block, x: [B, T, D]; ``impl`` is the
     resolved attention path.  Writes this block's new K/V into
     ``cache_k``/``cache_v`` (views of one layer of the cache) in place.
     ``impl="paged"`` attends ``paged`` = (pool cache, per-row query
     position, layer) through the paged kernel and leaves the pool to the
-    caller's write-back.  Returns (x, the block's new K, its new V)."""
+    caller's write-back.  ``drop`` (training, cache-free) applies the
+    layer's attention and residual dropout.  Returns (x, the block's new
+    K, its new V)."""
     B, T, D = x.shape
     adt = x.dtype
     H, KVH, hd = config.n_heads, config.kv_heads, config.head_dim
     G = H // KVH
     softmax_dtype = torch_dtype(config.attn_softmax_dtype)
+    gen = None
+    if drop is not None:
+        gen = torch.Generator(device=x.device).manual_seed(drop.seed)
 
     h = rms_norm(x, lp["attn_norm"], config.rms_norm_eps).reshape(B * T, D)
     qkv = _proj(h, lp["qkv"]).reshape(B, T, KVH, G + 2, hd)
@@ -461,19 +487,70 @@ def _block(
             kk, vv = cache_k.to(adt), cache_v.to(adt)
         else:
             kk, vv = k, v
+        attn_rate = drop.attn_rate if drop is not None else 0.0
         if impl == "flash":
-            attn = flash_attention(q, kk, vv, positions, slot_pos)
+            attn = flash_attention(
+                q, kk, vv, positions, slot_pos, dropout_rate=attn_rate,
+                dropout_seed=drop.attn_seed if attn_rate > 0.0 else None)
         else:
-            attn = sdpa(q, kk, vv, bias, softmax_dtype=softmax_dtype)
+            attn = sdpa(q, kk, vv, bias, softmax_dtype=softmax_dtype,
+                        dropout_rate=attn_rate, generator=gen)
 
     attn_out = attn.reshape(B * T, H * hd) @ lp["o"].reshape(H * hd, D).to(adt)
+    if drop is not None and drop.resid_rate > 0.0:
+        attn_out = dropout(attn_out, drop.resid_rate, gen)
     x = x + attn_out.reshape(B, T, D)
 
     h = rms_norm(x, lp["mlp_norm"], config.rms_norm_eps).reshape(B * T, D)
     gate_up = _proj(h, lp["gate_up"])  # [N, 2, F]
     hidden = F.silu(gate_up[:, 0]) * gate_up[:, 1]
     down = hidden @ lp["down"].to(adt)
+    if drop is not None and drop.resid_rate > 0.0:
+        down = dropout(down, drop.resid_rate, gen)
     return x + down.reshape(B, T, D), k, v
+
+
+# The "dots" remat policy: keep the outputs of plain (batch-free) matrix
+# products, recompute everything else in the backward pass.
+_SAVED_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_matmuls(ctx, op, *args, **kwargs):
+    if op in _SAVED_MATMULS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, config: LLaMAConfig):
+    """``fn`` under per-block rematerialization (JAX ``_remat``): "full"
+    recomputes the whole block in the backward pass, "dots" saves the
+    matmul outputs (the QKV, attention-out and MLP projections) and
+    recomputes the elementwise work and the attention kernel."""
+    kw = {}
+    if config.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_matmuls)
+
+    def run(*args):
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
+
+    return run
+
+
+def _layer_dropouts(generator: torch.Generator, config: LLaMAConfig):
+    """Per-layer dropout draws: three uint32 words per layer from the
+    generator (the flash kernel's two seed words and the layer's own
+    seed), fetched in one host copy."""
+    words = torch.randint(0, 2**32, (config.n_layers, 3), generator=generator,
+                          device=generator.device, dtype=torch.int64).tolist()
+    return [_LayerDropout((w[0], w[1]), w[2], config.attn_pdrop,
+                          config.resid_pdrop) for w in words]
+
+
+def _dropout_generator(dropout_rng, device) -> torch.Generator:
+    if isinstance(dropout_rng, torch.Generator):
+        return dropout_rng
+    return torch.Generator(device=device).manual_seed(int(dropout_rng))
 
 
 def forward(
@@ -511,21 +588,32 @@ def forward(
         for non-final prefill chunks.
       output_last_hidden: also return an ``AuxOutput`` with the
         post-final-norm hidden states: (logits, cache, aux).
-      dropout_rng, output_hidden_states, output_attentions, chunk_offset:
-        the JAX signature's training, auxiliary-output and splash-kernel
-        options; not ported, and any value but the default raises
-        NotImplementedError.
+      dropout_rng: a ``torch.Generator`` (on the params' device) or an int
+        seed enabling dropout at the config's embd/resid/attn_pdrop rates
+        (training only: refused with a cache).  All rates zero: ignored.
+      output_hidden_states, output_attentions, chunk_offset: the JAX
+        signature's auxiliary-output and splash-kernel options; not
+        ported, and any value but the default raises NotImplementedError.
     Returns:
       (logits [B, T, V] in config.logits_dtype or None, cache or None),
       plus the AuxOutput when ``output_last_hidden``.
     """
     unported = dict(
-        dropout_rng=dropout_rng, output_hidden_states=output_hidden_states,
+        output_hidden_states=output_hidden_states,
         output_attentions=output_attentions, chunk_offset=chunk_offset,
     )
     for name, value in unported.items():
         if value is not None and value is not False:
             raise NotImplementedError(f"forward({name}=...) is not ported")
+    if dropout_rng is not None and not (
+        config.embd_pdrop > 0.0 or config.resid_pdrop > 0.0
+        or config.attn_pdrop > 0.0
+    ):
+        dropout_rng = None  # all rates zero: the deterministic path
+    if dropout_rng is not None and cache is not None:
+        raise ValueError(
+            "dropout_rng is training-only; cached decode is deterministic "
+            "(pass dropout_rng=None)")
     if isinstance(cache, PagedKVCache):
         if output_last_hidden:
             raise NotImplementedError(
@@ -563,6 +651,13 @@ def forward(
         config.use_scaled_rope, device,
     )
     x = params["embed"]["embedding"][tokens.long()].to(adt)
+    drops = [None] * config.n_layers
+    if dropout_rng is not None:
+        gen = _dropout_generator(dropout_rng, device)
+        if config.embd_pdrop > 0.0:
+            x = dropout(x, config.embd_pdrop, gen)
+        if config.resid_pdrop > 0.0 or config.attn_pdrop > 0.0:
+            drops = _layer_dropouts(gen, config)
 
     impl = config.attn_impl
     if impl == "auto":
@@ -590,15 +685,29 @@ def forward(
     elif impl != "flash":
         bias = attention_bias(q_positions, slot_pos, slot_pos >= 0)
 
+    # unbind, not w[i]: its backward stacks the per-layer gradients once
+    # instead of adding a zero-filled full-stack gradient per layer.
     lp = params["layers"]
-    for i in range(config.n_layers):
+    layers = [dict(zip(lp, ws))
+              for ws in zip(*(w.unbind(0) for w in lp.values()))]
+
+    def block(x, lp_i, drop):
+        return _block(
+            x, lp_i, None, None, config=config, positions=q_positions,
+            bias=bias, slot_pos=slot_pos, cache_index=None, cos=cos, sin=sin,
+            bias_new=bias_new, impl=impl, drop=drop,
+        )[0]
+
+    if config.remat and cache is None and torch.is_grad_enabled():
+        block = _remat(block, config)
+    for i, lp_i in enumerate(layers[:config.n_layers]):
+        if cache is None:
+            x = block(x, lp_i, drops[i])
+            continue
         x, _, _ = _block(
-            x, {name: w[i] for name, w in lp.items()},
-            cache.k[i] if cache is not None else None,
-            cache.v[i] if cache is not None else None,
+            x, lp_i, cache.k[i], cache.v[i],
             config=config, positions=q_positions, bias=bias,
-            slot_pos=slot_pos,
-            cache_index=cache.index if cache is not None else None,
+            slot_pos=slot_pos, cache_index=cache.index,
             cos=cos, sin=sin, bias_new=bias_new, impl=impl,
         )
 

@@ -1,9 +1,17 @@
 """Tensor ops of the port: plain PyTorch, and the hand-written CUDA
-kernels' wrappers: the flash-attention forward (``flash_attention``) and
-the paged-attention decode (``paged_pool_attention``)."""
+kernels' wrappers: flash attention (``flash_attention``, forward and
+backward kernels) and the paged-attention decode
+(``paged_pool_attention``)."""
 
-from .attention import attention_bias, repeat_kv, sdpa, sdpa_cached
-from .flash_attention import flash_attention, flash_attention_reference
+from .attention import attention_bias, dropout, repeat_kv, sdpa, sdpa_cached
+from .flash_attention import (
+    dropout_keep,
+    flash_attention,
+    flash_attention_reference,
+    flash_backward,
+    flash_backward_reference,
+)
+from .loss import chunked_softmax_xent
 from .norm import rms_norm
 from .paged_attention import (
     paged_decode_attention,
@@ -21,8 +29,10 @@ from .sampling import (
 )
 
 __all__ = [
-    "attention_bias", "repeat_kv", "sdpa", "sdpa_cached",
-    "flash_attention", "flash_attention_reference", "rms_norm",
+    "attention_bias", "dropout", "repeat_kv", "sdpa", "sdpa_cached",
+    "dropout_keep", "flash_attention", "flash_attention_reference",
+    "flash_backward", "flash_backward_reference", "chunked_softmax_xent",
+    "rms_norm",
     "paged_decode_attention", "paged_pool_attention",
     "paged_pool_attention_reference",
     "apply_rope", "llama3_scale_inv_freq", "rope_table", "greedy", "sample",

@@ -4,7 +4,8 @@ Each source under ``jax_llama_tpu_torch/csrc/`` becomes one shared library
 with a plain C interface, compiled for ``sm_90a`` at first use into
 ``jax_llama_tpu_torch/_build/`` (listed in ``.gitignore``).  The library's
 file name carries a hash of its source and flags, so an edited source is
-rebuilt and an unchanged one is loaded as it is.  ``build_all`` compiles
+rebuilt and an unchanged one is loaded as it is; the hash covers the
+shared headers (``csrc/*.cuh``) too.  ``build_all`` compiles
 every source at once, one ``nvcc`` process each, so a cold build takes as
 long as the slowest source rather than the sum.
 
@@ -50,6 +51,8 @@ def _nvcc() -> str:
 def library_path(name: str) -> Path:
     """Where the library built from ``csrc/<name>.cu`` lives."""
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        src += header.read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 

@@ -7,6 +7,10 @@ port writes them as tensor code.  Products take their inputs in float32
 with ``preferred_element_type=float32``; the softmax runs in float32; the
 probabilities are cast to the activation dtype before the P·V product,
 as in the JAX package.
+
+Dropout (``dropout``, ``sdpa(dropout_rate=...)``) is inverted dropout drawn
+from an explicit ``torch.Generator``; the global RNG is never used.  Its
+masks are torch's draws, not JAX's threefry bits.
 """
 
 from __future__ import annotations
@@ -16,6 +20,17 @@ from typing import Optional
 import torch
 
 NEG_INF = float(torch.finfo(torch.float32).min)
+
+
+def dropout(
+    x: torch.Tensor, rate: float, generator: torch.Generator
+) -> torch.Tensor:
+    """Inverted dropout (expectation-preserving): each element is kept
+    with probability 1 - rate and scaled by 1 / (1 - rate), drawn from
+    ``generator``.  Shared by the attention probabilities and the model's
+    embedding and residual sites."""
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
 
 
 def repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
@@ -94,15 +109,22 @@ def sdpa(
     v: torch.Tensor,
     bias: Optional[torch.Tensor] = None,
     softmax_dtype: torch.dtype = torch.float32,
+    dropout_rate: float = 0.0,
+    generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
     """Scaled dot-product attention with GQA.
 
     Args:
       q: [B, T, H, D]; k, v: [B, S, KVH, D] with H % KVH == 0.
       bias: optional [B, 1, T, S] additive float32 bias.
+      dropout_rate, generator: attention-probability dropout (training):
+        inverted dropout on the post-softmax weights, drawn from
+        ``generator``, which a rate above 0 requires.
     Returns:
       [B, T, H, D] in q.dtype.
     """
+    if dropout_rate > 0.0 and generator is None:
+        raise ValueError("dropout_rate > 0 requires a generator")
     b, t, h, d = q.shape
     kvh = k.shape[2]
     assert h % kvh == 0, (h, kvh)
@@ -111,4 +133,6 @@ def sdpa(
     if bias is not None:
         scores = scores + bias[:, :, None]
     w = torch.softmax(scores.to(softmax_dtype), dim=-1).to(q.dtype)
+    if dropout_rate > 0.0:
+        w = dropout(w, dropout_rate, generator)
     return _pv(w, v).reshape(b, t, h, d).to(q.dtype)

@@ -1,8 +1,10 @@
-"""Flash-attention forward: the CUDA kernel's wrapper and its plain version.
+"""Flash attention: the CUDA kernels' wrappers and their plain versions.
 
-Port of the forward half of ``jax_llama_tpu/ops/flash_attention.py``
-(``flash_attention`` :539 -> ``_flash_forward`` :746, the Pallas kernel).
-The contract is the JAX one:
+Port of ``jax_llama_tpu/ops/flash_attention.py``: ``flash_attention``
+(:539) with its ``jax.custom_vjp`` (:688-719), the forward ``_flash_forward``
+(:746) with the row logsumexp and in-kernel dropout, and the backward
+``_flash_backward`` (:1178, the dQ and dK/dV Pallas kernels).  The contract
+is the JAX one:
 
 * q ``[B, T, H, d]``, k/v ``[B, S, KVH, d]`` with ``H % KVH == 0``;
 * q_pos ``[B, T]`` int32 absolute query positions (already clamped >= 0),
@@ -13,26 +15,139 @@ The contract is the JAX one:
 * GQA query heads are packed into query rows (row ``r = g*T + t`` of KV
   head ``kvh`` is head ``kvh*G + g``), so each K/V tile is read once per
   KV head;
-* a row that sees no live slot outputs 0;
-* output ``[B, T, H, d]`` in q's dtype.
+* a row that sees no live slot outputs 0, has lse +inf (so P = 0 there)
+  and contributes nothing to any gradient;
+* output ``[B, T, H, d]`` in q's dtype; lse float32 ``[B, KVH, G*T]``.
 
-``flash_attention`` runs the hand-written kernel ``csrc/flash_fwd.cu`` on
-CUDA tensors and the plain version ``flash_attention_reference`` on CPU
-tensors.  A CUDA tensor either reaches the kernel or raises.
+Dropout (training) is inverted dropout on the attention probabilities,
+generated from a counter hash of (two seed words, batch, KV head, packed
+row, slot) -- ``dropout_keep``, bit for bit the JAX ``_dropout_keep`` --
+so the forward and both backward kernels draw the same mask without
+storing it.
+
+``flash_attention`` is differentiable in q, k and v through a
+``torch.autograd.Function`` whose backward is ``flash_backward``.  On CUDA
+tensors the hand-written kernels run (``csrc/flash_fwd.cu``,
+``csrc/flash_bwd.cu``); on CPU tensors their plain versions
+``flash_attention_reference`` and ``flash_backward_reference``.  A CUDA
+tensor either reaches a kernel or raises.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import Optional, Tuple
 
 import torch
 
 from . import _build
 
 KERNEL = "flash_fwd"
+BWD_KERNEL = "flash_bwd"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
+_M32 = 0xFFFFFFFF
+
+
+# ---------------------------------------------------------------------------
+# The dropout hash (JAX :81-145), on int64 tensors holding uint32 values.
+# ---------------------------------------------------------------------------
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x * c) mod 2**32 for x in [0, 2**32), without int64 overflow."""
+    lo = (x & 0xFFFF) * c
+    hi = (((x >> 16) * c) & 0xFFFF) << 16
+    return (lo + hi) & _M32
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """splitmix32 finalizer on uint32 values held in an int64 tensor."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def _threshold(rate: float) -> int:
+    return min(int(rate * 4294967296.0), 4294967295)
+
+
+def _keep(seed: Tuple[int, int], b, h, rows, cols, rate: float):
+    """The keep mask at every broadcast (b, h, row, col): b, h, rows and
+    cols are int64 tensors that broadcast against each other."""
+    seed_lo, seed_hi = seed
+    plane = _mix32((_mul32(b, 0x9E3779B9) + _mul32(h, 0x85EBCA6B) + 1) & _M32)
+    base_lo = _mix32(plane ^ seed_lo)
+    base_hi = _mix32(plane ^ seed_hi ^ 0x85EBCA6B)
+    bits = _mix32(_mix32(base_lo ^ rows)
+                  ^ _mix32(base_hi ^ _mul32(cols, 0x9E3779B9)))
+    return bits >= _threshold(rate)
+
+
+def dropout_keep(seed_lo, seed_hi, b, h, row0, col0, bq, bk,
+                 rate) -> torch.Tensor:
+    """Keep mask [bq, bk] of the tile at global element offset (row0, col0)
+    of plane (b, h): the JAX ``_dropout_keep`` (same arguments), bit for
+    bit.  Element (r, c) keeps with probability 1 - rate."""
+    i64 = dict(dtype=torch.int64)
+    rows = torch.arange(bq, **i64)[:, None] + int(row0)
+    cols = torch.arange(bk, **i64)[None, :] + int(col0)
+    return _keep((int(seed_lo) & _M32, int(seed_hi) & _M32),
+                 torch.tensor(int(b), **i64), torch.tensor(int(h), **i64),
+                 rows & _M32, cols & _M32, rate)
+
+
+def _keep_plane(seed, B, KVH, G, T, S, rate, device) -> torch.Tensor:
+    """The keep mask [B, KVH, G, T, S] in the reference's layout: packed
+    row g*T + t, KV head kvh, slot s."""
+    i64 = dict(dtype=torch.int64, device=device)
+    b = torch.arange(B, **i64)[:, None, None, None, None]
+    h = torch.arange(KVH, **i64)[None, :, None, None, None]
+    rows = (torch.arange(G, **i64)[:, None] * T
+            + torch.arange(T, **i64)[None, :])[None, None, :, :, None]
+    cols = torch.arange(S, **i64)[None, None, None, None, :]
+    return _keep(seed, b, h, rows, cols, rate)
+
+
+def normalize_seed(dropout_seed) -> Tuple[int, int]:
+    """Two uint32 seed words from an int, or 1 or 2 words in a sequence
+    (a list, tuple, 1-D array or tensor); one word is widened with a zero
+    high word (JAX ``_normalize_seed``)."""
+    if isinstance(dropout_seed, int):
+        words = [dropout_seed]
+    else:
+        words = [int(w) for w in dropout_seed]
+    if len(words) == 1:
+        words.append(0)
+    if len(words) != 2:
+        raise ValueError(
+            f"dropout_seed must hold 1 or 2 uint32 words, got {len(words)}")
+    if any(not 0 <= w <= _M32 for w in words):
+        raise ValueError(f"dropout_seed words {words} are not uint32")
+    return words[0], words[1]
+
+
+def _dropout_args(dropout_rate: float, dropout_seed):
+    """Validate the rate (in [0, 1)) and the seed (required above 0)."""
+    rate = float(dropout_rate)
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"dropout_rate={dropout_rate} not in [0, 1)")
+    if rate == 0.0:
+        return 0.0, None
+    if dropout_seed is None:
+        raise ValueError("dropout_rate > 0 requires dropout_seed")
+    return rate, normalize_seed(dropout_seed)
+
+
+# ---------------------------------------------------------------------------
+# Plain versions
+# ---------------------------------------------------------------------------
+
+def _allowed(q_pos, kv_pos) -> torch.Tensor:
+    kp = kv_pos[:, None, :]
+    return (kp >= 0) & (kp <= q_pos[:, :, None])  # [B, T, S]
 
 
 def flash_attention_reference(
@@ -41,33 +156,97 @@ def flash_attention_reference(
     v: torch.Tensor,
     q_pos: torch.Tensor,
     kv_pos: torch.Tensor,
-) -> torch.Tensor:
+    dropout_rate: float = 0.0,
+    dropout_seed=None,
+    return_lse: bool = False,
+):
     """Dense positional-mask softmax attention with the kernel's contract.
 
-    Scores and softmax in float32; the probabilities are rounded to v's
-    dtype before the P.V product and the sum is divided by the float32
-    row sum, as the kernel (and the JAX kernel) do.
+    Scores and softmax in float32; the (dropped) probabilities are rounded
+    to v's dtype before the P.V product and the sum is divided by the
+    float32 row sum of the undropped probabilities, as the kernels (and
+    the JAX kernel) do.  ``return_lse`` also returns the row logsumexp
+    [B, KVH, G*T] (+inf on rows with no live slot).
     """
+    rate, seed = _dropout_args(dropout_rate, dropout_seed)
     B, T, H, d = q.shape
-    KVH = k.shape[2]
+    S, KVH = k.shape[1], k.shape[2]
     assert H % KVH == 0, (H, KVH)
-    qg = q.reshape(B, T, KVH, H // KVH, d)
+    G = H // KVH
+    qg = q.reshape(B, T, KVH, G, d)
     s = torch.einsum("btkgd,bskd->bkgts", qg.float(), k.float())
     s = s * (1.0 / math.sqrt(d))
-    kp = kv_pos[:, None, :]
-    allowed = (kp >= 0) & (kp <= q_pos[:, :, None])  # [B, T, S]
-    s = s.masked_fill(~allowed[:, None, None], float("-inf"))
+    s = s.masked_fill(~_allowed(q_pos, kv_pos)[:, None, None], float("-inf"))
     m = s.amax(dim=-1, keepdim=True)
     m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
     p = torch.exp(s - m)
     l = p.sum(dim=-1)  # [B, KVH, G, T]
+    if rate > 0.0:
+        keep = _keep_plane(seed, B, KVH, G, T, S, rate, q.device)
+        p = torch.where(keep, p, 0.0) * (1.0 / (1.0 - rate))
     o = torch.einsum("bkgts,bskd->btkgd", p.to(v.dtype).float(), v.float())
-    l = l.permute(0, 3, 1, 2)[..., None]  # [B, T, KVH, G, 1]
-    o = torch.where(l > 0, o / torch.where(l > 0, l, torch.ones_like(l)), 0.0)
-    return o.reshape(B, T, H, d).to(q.dtype)
+    lt = l.permute(0, 3, 1, 2)[..., None]  # [B, T, KVH, G, 1]
+    o = torch.where(lt > 0, o / torch.where(lt > 0, lt, torch.ones_like(lt)),
+                    0.0)
+    out = o.reshape(B, T, H, d).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.where(l > 0, m[..., 0] + torch.log(l), float("inf"))
+    return out, lse.reshape(B, KVH, G * T)
 
 
-def _check(q, k, v, q_pos, kv_pos) -> None:
+def flash_backward_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    q_pos: torch.Tensor,
+    kv_pos: torch.Tensor,
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    g: torch.Tensor,
+    dropout_rate: float = 0.0,
+    dropout_seed=None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward kernels' formulas (JAX ``_flash_backward``) in plain
+    torch: P = exp(S*scale - lse) on the attended slots, dP = dO V^T (times
+    the dropout mask / (1 - rate)), Delta = rowsum(dO * O),
+    dS = P * (dP - Delta) * scale; dQ = dS K, dK = dS^T Q,
+    dV = (mask * P)^T dO.  P and dS are rounded to the input dtype before
+    their products, as the kernels round them.  Returns (dq, dk, dv) in
+    the input dtype."""
+    rate, seed = _dropout_args(dropout_rate, dropout_seed)
+    B, T, H, d = q.shape
+    S, KVH = k.shape[1], k.shape[2]
+    G = H // KVH
+    scale = 1.0 / math.sqrt(d)
+    delta = flash_delta(out, g, KVH).reshape(B, KVH, G, T)[..., None]
+    qg = q.reshape(B, T, KVH, G, d).float()
+    gg = g.reshape(B, T, KVH, G, d).float()
+    kf, vf = k.float(), v.float()
+    s = torch.einsum("btkgd,bskd->bkgts", qg, kf) * scale
+    lse5 = lse.reshape(B, KVH, G, T)[..., None]
+    p = torch.where(_allowed(q_pos, kv_pos)[:, None, None],
+                    torch.exp(s - lse5), 0.0)
+    dp = torch.einsum("btkgd,bskd->bkgts", gg, vf)
+    pv = p
+    if rate > 0.0:
+        keep = _keep_plane(seed, B, KVH, G, T, S, rate, q.device)
+        inv = 1.0 / (1.0 - rate)
+        pv = torch.where(keep, p, 0.0) * inv
+        dp = torch.where(keep, dp, 0.0) * inv
+    ds = p * (dp - delta) * scale
+    dv = torch.einsum("bkgts,btkgd->bskd", pv.to(g.dtype).float(), gg)
+    dq = torch.einsum("bkgts,bskd->btkgd", ds.to(k.dtype).float(), kf)
+    dk = torch.einsum("bkgts,btkgd->bskd", ds.to(q.dtype).float(), qg)
+    return (dq.reshape(B, T, H, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _check(q, k, v, q_pos, kv_pos, *extra) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be [B, T, H, d] / [B, S, KVH, d]")
     B, T, H, d = q.shape
@@ -89,7 +268,7 @@ def _check(q, k, v, q_pos, kv_pos) -> None:
     if d not in _HEAD_DIMS:
         raise ValueError(f"head_dim {d} not supported (have {_HEAD_DIMS})")
     for name, t in (("q", q), ("k", k), ("v", v), ("q_pos", q_pos),
-                    ("kv_pos", kv_pos)):
+                    ("kv_pos", kv_pos)) + extra:
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if not t.is_contiguous():
@@ -98,28 +277,163 @@ def _check(q, k, v, q_pos, kv_pos) -> None:
             raise ValueError(f"{name} must be 16-byte aligned")
 
 
-def _launch(q, k, v, q_pos, kv_pos) -> torch.Tensor:
-    lib = _build.load(KERNEL)
-    fn = lib.flash_fwd
+def _drop_ctypes(rate: float, seed) -> list:
+    """(with_drop, seed_lo, seed_hi, threshold, 1 / (1 - rate)) for a C
+    entry point."""
+    if rate == 0.0:
+        return [0, 0, 0, 0, 1.0]
+    return [1, seed[0], seed[1], _threshold(rate), 1.0 / (1.0 - rate)]
+
+
+_DROP_ARGTYPES = [ctypes.c_int, ctypes.c_uint, ctypes.c_uint, ctypes.c_uint,
+                  ctypes.c_float]
+
+
+def _fn(lib_name: str, name: str, n_ptr: int):
+    fn = getattr(_build.load(lib_name), name)
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
-        ctypes.c_float, ctypes.c_void_p,
-    ]
+    fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 7
+                   + [ctypes.c_float] + _DROP_ARGTYPES + [ctypes.c_void_p])
+    return fn
+
+
+def _launch(q, k, v, q_pos, kv_pos, rate, seed, need_lse):
+    fn = _fn(KERNEL, "flash_fwd", 7)
     B, T, H, d = q.shape
     S, KVH = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
+    lse = (torch.empty((B, KVH, (H // KVH) * T), dtype=torch.float32,
+                       device=q.device) if need_lse or rate > 0.0 else None)
     scale_log2 = (1.0 / math.sqrt(d)) * math.log2(math.e)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
-            kv_pos.data_ptr(), out.data_ptr(), B, T, S, H, KVH, d,
-            _DTYPE_CODE[q.dtype], scale_log2, stream,
+            kv_pos.data_ptr(), out.data_ptr(),
+            lse.data_ptr() if lse is not None else None,
+            B, T, S, H, KVH, d, _DTYPE_CODE[q.dtype], scale_log2,
+            *_drop_ctypes(rate, seed), stream,
         )
     if rc != 0:
         raise RuntimeError(f"flash_fwd launch failed: cudaError_t {rc}")
     flash_attention.launches += 1
-    return out
+    return out, lse
+
+
+def _forward(q, k, v, q_pos, kv_pos, rate, seed, need_lse):
+    """(out, lse or None): the kernel on CUDA tensors, the plain version on
+    CPU tensors."""
+    if q.device.type == "cpu":
+        res = flash_attention_reference(q, k, v, q_pos, kv_pos, rate, seed,
+                                        need_lse)
+        return res if need_lse else (res, None)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    _check(q, k, v, q_pos, kv_pos)
+    return _launch(q, k, v, q_pos, kv_pos, rate, seed, need_lse)
+
+
+def _bwd_launch(name, q, k, v, q_pos, kv_pos, lse, delta, g, outs, rate,
+                seed):
+    B, T, H, d = q.shape
+    S, KVH = k.shape[1], k.shape[2]
+    rows = (B, KVH, H // KVH * T) if KVH and H % KVH == 0 else None
+    for label, t in (("lse", lse), ("delta", delta)):
+        if t.dtype != torch.float32 or tuple(t.shape) != rows:
+            raise ValueError(f"{label} must be float32 [B, KVH, G*T], got "
+                             f"{tuple(t.shape)} {t.dtype}")
+    if g.shape != q.shape or g.dtype != q.dtype:
+        raise ValueError(f"g {tuple(g.shape)} {g.dtype} must match q "
+                         f"{tuple(q.shape)} {q.dtype}")
+    _check(q, k, v, q_pos, kv_pos, ("g", g), ("lse", lse), ("delta", delta))
+    fn = _fn(BWD_KERNEL, name, 8 + len(outs))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+            q_pos.data_ptr(), kv_pos.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), *[o.data_ptr() for o in outs],
+            B, T, S, H, KVH, d, _DTYPE_CODE[q.dtype], 1.0 / math.sqrt(d),
+            *_drop_ctypes(rate, seed), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError_t {rc}")
+
+
+def flash_bwd_dq(q, k, v, q_pos, kv_pos, lse, delta, g, rate=0.0,
+                 seed=None) -> torch.Tensor:
+    """dQ [B, T, H, d] through the kernel ``flash_bwd_dq``
+    (``csrc/flash_bwd.cu``), from the forward's lse and Delta =
+    rowsum(dO * O), both float32 [B, KVH, G*T]; CUDA tensors only."""
+    dq = torch.empty_like(q)
+    _bwd_launch("flash_bwd_dq", q, k, v, q_pos, kv_pos, lse, delta, g, [dq],
+                rate, seed)
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, q_pos, kv_pos, lse, delta, g, rate=0.0,
+                  seed=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dK, dV) [B, S, KVH, d] through the kernel ``flash_bwd_dkv``
+    (``csrc/flash_bwd.cu``), inputs as ``flash_bwd_dq``'s; CUDA tensors
+    only."""
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _bwd_launch("flash_bwd_dkv", q, k, v, q_pos, kv_pos, lse, delta, g,
+                [dk, dv], rate, seed)
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+def flash_delta(out: torch.Tensor, g: torch.Tensor,
+                kv_heads: int) -> torch.Tensor:
+    """Delta = rowsum(dO * O), float32 [B, KVH, G*T] in the packed-row
+    layout of lse, from out and its cotangent g [B, T, H, d]: plain torch,
+    as the JAX package computes it outside its kernels."""
+    B, T, H, _ = out.shape
+    delta = (g.float() * out.float()).sum(-1)  # [B, T, H]
+    return (delta.reshape(B, T, kv_heads, H // kv_heads).permute(0, 2, 3, 1)
+            .reshape(B, kv_heads, -1).contiguous())
+
+
+def flash_backward(q, k, v, q_pos, kv_pos, out, lse, g, dropout_rate=0.0,
+                   dropout_seed=None):
+    """(dq, dk, dv) of ``flash_attention`` for the cotangent g: the two
+    backward kernels on CUDA tensors, ``flash_backward_reference`` on CPU
+    tensors; Delta from ``flash_delta``."""
+    rate, seed = _dropout_args(dropout_rate, dropout_seed)
+    if q.device.type == "cpu":
+        return flash_backward_reference(q, k, v, q_pos, kv_pos, out, lse, g,
+                                        rate, seed)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_backward: unsupported device {q.device}")
+    g = g.contiguous()
+    if out.shape != q.shape:
+        raise ValueError(f"out {tuple(out.shape)} must match q "
+                         f"{tuple(q.shape)}")
+    delta = flash_delta(out, g, k.shape[2])
+    dq = flash_bwd_dq(q, k, v, q_pos, kv_pos, lse, delta, g, rate, seed)
+    dk, dv = flash_bwd_dkv(q, k, v, q_pos, kv_pos, lse, delta, g, rate, seed)
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """``flash_attention`` with its VJP (the JAX ``_flash`` custom_vjp):
+    the forward saves out and the row lse, the backward runs
+    ``flash_backward``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, kv_pos, rate, seed):
+        out, lse = _forward(q, k, v, q_pos, kv_pos, rate, seed, True)
+        ctx.save_for_backward(q, k, v, q_pos, kv_pos, out, lse)
+        ctx.rate, ctx.seed = rate, seed
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, q_pos, kv_pos, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_backward(q, k, v, q_pos, kv_pos, out, lse, g,
+                                    ctx.rate, ctx.seed)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(
@@ -128,18 +442,27 @@ def flash_attention(
     v: torch.Tensor,
     q_pos: torch.Tensor,
     kv_pos: torch.Tensor,
+    dropout_rate: float = 0.0,
+    dropout_seed=None,
 ) -> torch.Tensor:
     """Blockwise causal attention with positional masking (see module
-    docstring).  CPU tensors take the plain version; CUDA tensors launch
-    the kernel (bf16 or float32, head_dim 64 or 128) or raise."""
-    if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, q_pos, kv_pos)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
-    _check(q, k, v, q_pos, kv_pos)
-    return _launch(q, k, v, q_pos, kv_pos)
+    docstring), differentiable in q, k and v.  CPU tensors take the plain
+    versions; CUDA tensors launch the kernels (bf16 or float32, head_dim
+    64 or 128) or raise.
+
+    dropout_rate: attention-probability dropout in [0, 1) (training).
+    dropout_seed: required when dropout_rate > 0: two uint32 words (an int
+      or a single word is widened with a zero high word).
+    """
+    rate, seed = _dropout_args(dropout_rate, dropout_seed)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, q_pos, kv_pos, rate, seed)
+    return _forward(q, k, v, q_pos, kv_pos, rate, seed, False)[0]
 
 
-# Launches of the CUDA kernel in this process; the plain version never
-# counts.  Callers reset it by assigning 0.
+# Launches of each CUDA kernel in this process; the plain versions never
+# count.  Callers reset a count by assigning 0.
 flash_attention.launches = 0
+flash_bwd_dq.launches = 0
+flash_bwd_dkv.launches = 0

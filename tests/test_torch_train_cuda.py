@@ -1,0 +1,196 @@
+"""The port's training kernels on the card: the flash forward with lse and
+dropout, and the backward kernels ``flash_bwd_dq`` and ``flash_bwd_dkv``,
+against their plain PyTorch versions; and one training step through the
+kernels against the plain (xla) path.  Marked ``cuda``: each test skips on
+a host without a GPU (the kernels have no CPU mode).  This file imports
+neither jax nor the JAX package, so it runs on a GPU host without them:
+
+    python -m pytest tests/test_torch_train_cuda.py -m cuda --noconftest -q
+
+Bounds hold each row against its own scale: out and dq per packed query
+row, dk and dv per KV slot, the row's max abs error over the row's max
+|plain| (under the causal mask values shrink along the sequence, so one
+scale for the whole tensor would hold the late rows loosely).  A row
+whose plain value is all zero, or a dq row of a query that sees one or
+two slots, is held against the tensor's max |plain|: with one slot dq is
+exactly zero, and with two it is P0 P1 (dP0 - dP1)(k0 - k1) scale, so one
+near tie of dP0 and dP1 leaves the plain value at its rounding noise.  bf16 out 1e-2 and dq/dk/dv 2e-2 (bf16
+rounding of the outputs and of P and dS before their products); float32
+1e-4 (summation order); lse max abs error 1e-3 in bf16 and 1e-4 in
+float32 (float32 from the same inputs).
+"""
+
+import importlib
+
+import numpy as np
+import pytest
+import torch
+
+import jax_llama_tpu_torch as ptl
+from jax_llama_tpu_torch import train as ptrain
+
+fa = importlib.import_module("jax_llama_tpu_torch.ops.flash_attention")
+
+# (B, T, H, KVH, d, left padding of row 1)
+CASES = {
+    "d128_g4_t130": (2, 130, 8, 2, 128, 11),
+    "d64_g2_t67": (2, 67, 4, 2, 64, 5),
+    "d128_g1_t64": (1, 64, 2, 2, 128, 0),
+    "d64_g4_t200": (3, 200, 8, 2, 64, 70),
+}
+SEED = (0x2545F491, 0x9E3779B9)
+BOUND = {torch.bfloat16: (1e-2, 2e-2, 1e-3), torch.float32: (1e-4, 1e-4, 1e-4)}
+
+
+def _inputs(name, dtype, seed=0):
+    B, T, H, KVH, d, pad = CASES[name]
+    rng = np.random.default_rng(seed)
+    q, k, v, g = (rng.standard_normal(shape).astype(np.float32) for shape in
+                  ((B, T, H, d), (B, T, KVH, d), (B, T, KVH, d), (B, T, H, d)))
+    pos = np.tile(np.arange(T, dtype=np.int32), (B, 1))
+    if B > 1:
+        pos[1, :pad] = -1
+        pos[1, pad:] = np.arange(T - pad)
+        g[1, :pad] = 0.0  # padding rows carry no cotangent
+    dev = [torch.from_numpy(a).cuda().to(dtype) for a in (q, k, v, g)]
+    return dev + [torch.from_numpy(np.ascontiguousarray(a)).cuda()
+                  for a in (np.maximum(pos, 0), pos)]
+
+
+def _rel(got, want, loose=None):
+    """The worst row's max abs error over its own max |plain| (see the
+    module docstring)."""
+    err = (got.float() - want.float()).abs().amax(-1)
+    scale = want.float().abs().amax(-1)
+    odd = scale == 0
+    if loose is not None:
+        odd = odd | loose
+    return (err / torch.where(odd, scale.max(), scale)).max().item()
+
+
+def _short_rows(q_pos, kv_pos, H):
+    """[B, T, H] True where a query attends fewer than 3 slots."""
+    kp = kv_pos[:, None, :]
+    live = ((kp >= 0) & (kp <= q_pos[:, :, None])).sum(-1)
+    return (live < 3)[:, :, None].expand(-1, -1, H)
+
+
+def _rel_tensor(got, want):
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max()).item()
+
+
+def _skip_without_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_forward_with_lse_matches_plain(name, dtype, rate):
+    _skip_without_card()
+    q, k, v, _, q_pos, kv_pos = _inputs(name, dtype)
+    seed = SEED if rate else None
+    before = fa.flash_attention.launches
+    out, lse = fa._forward(q, k, v, q_pos, kv_pos, rate, seed, True)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    want, want_lse = fa.flash_attention_reference(
+        q, k, v, q_pos, kv_pos, rate, seed, return_lse=True)
+    out_bound, _, lse_bound = BOUND[dtype]
+    assert _rel(out, want) < out_bound
+    assert (lse - want_lse).abs().max().item() < lse_bound
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_backward_kernels_match_plain(name, dtype, rate):
+    _skip_without_card()
+    q, k, v, g, q_pos, kv_pos = _inputs(name, dtype, seed=1)
+    seed = SEED if rate else None
+    out, lse = fa.flash_attention_reference(q, k, v, q_pos, kv_pos, rate,
+                                            seed, return_lse=True)
+    counts = (fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches)
+    got = fa.flash_backward(q, k, v, q_pos, kv_pos, out, lse, g, rate, seed)
+    torch.cuda.synchronize()
+    assert (fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches) == (
+        counts[0] + 1, counts[1] + 1)
+    want = fa.flash_backward_reference(q, k, v, q_pos, kv_pos, out, lse, g,
+                                       rate, seed)
+    _, bound, _ = BOUND[dtype]
+    loose = _short_rows(q_pos, kv_pos, q.shape[2])
+    for label, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == dtype and a.shape == b.shape
+        rel = _rel(a, b, loose if label == "dq" else None)
+        assert rel < bound, (label, rel)
+
+
+@pytest.mark.cuda
+def test_autograd_through_kernels_matches_plain_autograd():
+    """flash_attention's autograd Function on the card (forward with lse,
+    both backward kernels) against the same Function on CPU tensors."""
+    _skip_without_card()
+    q, k, v, g, q_pos, kv_pos = _inputs("d64_g2_t67", torch.float32, seed=2)
+    dev = [x.clone().requires_grad_() for x in (q, k, v)]
+    cpu = [x.detach().cpu().requires_grad_() for x in (q, k, v)]
+    out = fa.flash_attention(*dev, q_pos, kv_pos, dropout_rate=0.1,
+                             dropout_seed=SEED)
+    got = torch.autograd.grad(out, dev, g)
+    ref = fa.flash_attention(*cpu, q_pos.cpu(), kv_pos.cpu(),
+                             dropout_rate=0.1, dropout_seed=SEED)
+    want = torch.autograd.grad(ref, cpu, g.cpu())
+    assert _rel(out.detach().cpu(), ref.detach()) < 1e-4
+    loose = _short_rows(q_pos, kv_pos, q.shape[2]).cpu()
+    for a, b, rows in zip(got, want, (loose, None, None)):
+        assert _rel(a.cpu(), b, rows) < 1e-4
+
+
+def _small_config(**kw):
+    return ptl.get_config("tiny", vocab_size=512, dim=256, n_layers=2,
+                          n_heads=4, n_kv_heads=2, multiple_of=64,
+                          max_seq_len=256, **kw)
+
+
+@pytest.mark.cuda
+def test_train_step_through_kernels_matches_plain_path():
+    """float32, 2 layers, head_dim 64: lm_loss value and gradients through
+    the kernels (attn_impl flash, remat "dots") against the plain xla path,
+    and one train_step on each with its launch counts."""
+    _skip_without_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(
+        0, 512, (2, 128)).astype(np.int32)).cuda()
+    grads, losses = {}, {}
+    for impl in ("flash", "xla"):
+        cfg = _small_config(attn_impl=impl, remat=True)
+        params = ptl.init_params(cfg, seed=0, device="cuda")
+        leaves = ptrain.tree_leaves(params)
+        for t in leaves:
+            t.requires_grad_(True)
+        loss = ptl.lm_loss(params, tokens, cfg)
+        losses[impl] = loss.item()
+        grads[impl] = torch.autograd.grad(loss, leaves)
+    assert abs(losses["flash"] - losses["xla"]) < 1e-4 * abs(losses["xla"])
+    for a, b in zip(grads["flash"], grads["xla"]):
+        assert _rel_tensor(a, b) < 1e-3
+
+    cfg = _small_config(attn_impl="flash", remat=True)
+    opt = ptl.make_optimizer()
+    state = ptl.init_train_state(ptl.init_params(cfg, seed=0, device="cuda"),
+                                 opt)
+    fa.flash_attention.launches = 0
+    fa.flash_bwd_dq.launches = fa.flash_bwd_dkv.launches = 0
+    state, loss = ptl.train_step(state, tokens, cfg, opt)
+    torch.cuda.synchronize()
+    L = cfg.n_layers
+    assert (fa.flash_attention.launches, fa.flash_bwd_dq.launches,
+            fa.flash_bwd_dkv.launches) == (2 * L, L, L)
+    assert abs(loss.item() - losses["xla"]) < 1e-4 * abs(losses["xla"])
+    state, loss2 = ptl.train_step(state, tokens,
+                                  cfg.replace(attn_pdrop=0.1, resid_pdrop=0.1),
+                                  opt, dropout_seed=1)
+    assert np.isfinite(loss2.item())
