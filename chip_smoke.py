@@ -49,7 +49,14 @@ raises and exits non-zero:
    times from rotating the layer over planes that exceed L2, the warm
    time, the plain time, the bound from the live slots' bytes, and
    ``scaled_dot_product_attention`` over a pre-gathered contiguous view
-   with a boolean mask as the yardstick (the gather is not timed).
+   with a boolean mask as the yardstick (the gather is not timed).  And
+   at the speculative verify shape (``kernel_check`` shape
+   ``spec_verify``): 4 rows, KVH 8, T = 4 tokens (n_draft 3 + 1) x G 4 =
+   16 packed query rows, d 128, blocks of 128, fills 500/516/532/548 in a
+   32-layer pool, in bf16 and in float32: each packed query row held to
+   ``REL_BOUND`` (bf16) or 1e-4 (float32) of its own max |plain|, the lse
+   below 1e-3 abs; the same times, the yardstick with the [T, S]
+   positional mask.
 5. serving: ``ContinuousBatcher`` at llama3-8b width (bf16 weights from
    seed 0, 8 slots, max_len 2048, blocks of 128, decode_chunk 8, greedy):
    12 byte-tokenizer requests of 21-1000 prompt tokens and 16-64 new
@@ -92,7 +99,25 @@ raises and exits non-zero:
    written once) over 3.35 TB/s and its FLOPs over 989 TFLOP/s, counted
    per live (packed row, slot) pair as 4*d (forward), 6*d (dQ: S, dP,
    dS K) and 8*d (dK/dV: S, dP, P^T dO, dS^T Q).
-7. train: ``train_step`` at llama3-8b width cut to 8 layers (a copy of
+7. spec_serving: ``ContinuousBatcher(n_slots=4, max_len=1024,
+   block_size=128, n_draft=3, spec_rounds=8)`` at llama3-8b width and
+   depth (bf16), 4 prompts of 500 random ids (numpy seed 0), 48 new tokens
+   each (the JAX bench's speculative setup).  Self-draft
+   (``draft_params=params``): launch counts zeroed just before and read
+   just after; every round must launch the paged kernel (3 + 1) x 32 + 32
+   = 160 times, all at T = 4, the flash kernel 64 times per admission
+   burst (target and draft prefill); acceptance exactly 1.0 and 48 tokens
+   per request.  Then the target nudged by +-2% relative noise (seeded
+   generator) as the draft, one request sampled (temperature 0.8, top_p
+   0.95, a fixed seed): acceptance below 1.0.  Reported: tokens/s, ms per
+   round, host syncs per token, the busy share of one round
+   (torch.profiler), and the plain batcher's tokens/s on the same prompts.
+   Invariants: the verify's T = 4 logits against four T = 1 paged steps
+   over the same pool, rel < 0.02 in bf16 at 8 layers and < 1e-3 in
+   float32 activations at 32 layers, where the greedy speculative tokens
+   (perturbed draft) must equal the plain batcher's.  The 16 GB draft
+   copy is freed before the next phase.
+8. train: ``train_step`` at llama3-8b width cut to 8 layers (a copy of
    the first 8 layers of phase 3's weights: params, grads and AdamW's
    two moments in bf16 at 32 layers would be ~64 GB beside the 16 GB of
    weights), bf16, remat "dots", attn_impl "flash", ``make_optimizer()``
@@ -110,7 +135,8 @@ raises and exits non-zero:
    xla path, loss rel < 1e-4 and every gradient's max abs error over its
    max |value| < 1e-3; and one ``train_step`` with attn_pdrop = resid_pdrop
    = 0.1 runs the dropout branch of all three kernels to a finite loss.
-8. kernels: one JSON object for every kernel of the port.
+9. kernels: one JSON object for every kernel of the port (the paged
+   kernel's serving and spec_verify shapes in one entry).
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or outside a checkout of the repository, it exits non-zero before printing
@@ -175,6 +201,17 @@ TRAIN_STEPS = 5        # 2 warm, 3 timed
 GRAD_LAYERS, GRAD_T = 2, 256
 GRAD_LOSS_REL, GRAD_REL = 1e-4, 1e-3
 LLAMA3_EOS = 128001
+
+# Speculative serving (the JAX bench's speculative setup, bench.py:1403-
+# 1421): 4 prompts of 500 random ids, 48 new tokens, n_draft 3, up to 8
+# rounds a step; the perturbed draft is the target with +-2% relative
+# noise (bench.py:1381-1401).  The verify kernel check's rows hold the
+# fills such a round meets (500 .. 548).
+SPEC_SLOTS, SPEC_MAX_LEN, SPEC_BLOCK = 4, 1024, 128
+SPEC_PROMPT, SPEC_NEW, SPEC_DRAFT, SPEC_ROUNDS = 500, 48, 3, 8
+SPEC_NOISE = 0.02
+SPEC_SAMPLED = dict(temperature=0.8, top_p=0.95, seed=1234)
+VERIFY_FILLS = (500, 516, 532, 548)
 
 
 def emit(obj) -> None:
@@ -346,28 +383,35 @@ def paged_inputs(torch, gen, B=8, KVH=8, G=4, d=128, BLK=128, MB=16,
             + [t.cuda() for t in (pos, table, q_pos)])
 
 
-def paged_gathered_mask(torch, pos, table, q_pos):
+def paged_gathered_mask(torch, pos, table, q_pos, T=1):
     """Each row's table blocks as one contiguous slot axis: the gather
-    index [B, MB] and the attendable mask [B, MB*BLK]."""
+    index [B, MB] and the attendable mask [B, T, MB*BLK] of the row's T
+    tokens at positions q_pos + t ([B, MB*BLK] at T = 1)."""
     NB, BLK = pos.shape
     blk = table.long().clamp(0, NB - 1)
     dead = (table < 0) | (table >= NB)
     kp = torch.where(dead[:, :, None], -1, pos[blk]).reshape(blk.shape[0], -1)
-    return blk, (kp >= 0) & (kp <= q_pos[:, None])
+    limit = q_pos[:, None] + torch.arange(T, device=q_pos.device)[None]
+    allowed = ((kp[:, None] >= 0) & (kp[:, None] <= limit[:, :, None])
+               & (q_pos >= 0)[:, None, None])
+    return blk, allowed[:, 0] if T == 1 else allowed
 
 
-def paged_bound(torch, q, k, pos, table, q_pos):
-    """Least time (ms): the live slots' K/V (0 <= pos <= q_pos, read once
-    per KV head) plus q, out, lse, table and the position plane over HBM
-    bandwidth, vs the live (query head, slot) pairs' QK and PV FLOPs over
-    the bf16 peak."""
-    _, allowed = paged_gathered_mask(torch, pos, table, q_pos)
-    live = allowed.sum().item()
-    B, KVH, G, d = q.shape
-    nbytes = (2 * live * KVH * d * k.element_size()
-              + q.numel() * q.element_size() + B * KVH * G * (d + 1) * 4
+def paged_bound(torch, q, k, pos, table, q_pos, T=1):
+    """Least time (ms): the K/V of the slots some token of the row may
+    attend (read once per KV head for all T tokens) plus q, out, lse,
+    table and the position plane over HBM bandwidth, vs the live (packed
+    query row, slot) pairs' QK and PV FLOPs over the bf16 peak."""
+    _, allowed = paged_gathered_mask(torch, pos, table, q_pos, T)
+    allowed = allowed.reshape(allowed.shape[0], T, -1)
+    needed = allowed.any(dim=1).sum().item()
+    pairs = allowed.sum().item()  # (token, slot) pairs per query head
+    B, KVH, TG, d = q.shape
+    G = TG // T
+    nbytes = (2 * needed * KVH * d * k.element_size()
+              + q.numel() * q.element_size() + B * KVH * TG * (d + 1) * 4
               + table.numel() * 4 + pos.numel() * 4)
-    flops = 4.0 * d * G * KVH * live
+    flops = 4.0 * d * G * KVH * pairs
     t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
     t_ops = flops / PEAK_BF16_FLOPS * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -445,6 +489,103 @@ def check_paged(torch, pa, gen):
             f"{REL_BOUND}), lse err "
             f"{lse_err} (bound {LSE_BOUND})")
     return row
+
+
+def verify_inputs(torch, gen, dtype, B=4, KVH=8, G=4, d=128, BLK=128, MB=8,
+                  L=32):
+    """Inputs of the paged kernel at the spec_serving phase's verify shape:
+    row b holds VERIFY_FILLS[b] tokens in shuffled physical blocks of a
+    32-layer pool (MB = 1024 / 128 table entries a row, the unused ones
+    the sentinel), and its T = n_draft + 1 queries sit at positions
+    VERIFY_FILLS[b] .. + T - 1, packed r = t*G + g."""
+    T = SPEC_DRAFT + 1
+    NB = B * MB
+    perm = torch.randperm(NB, generator=gen, device="cuda").tolist()
+    table = torch.full((B, MB), NB, dtype=torch.int32)
+    pos = torch.full((NB, BLK), -1, dtype=torch.int32)
+    for b, f in enumerate(VERIFY_FILLS):
+        for j in range(-(-(f + T) // BLK)):
+            blk = perm.pop()
+            table[b, j] = blk
+            m = max(0, min(BLK, f - j * BLK))
+            pos[blk, :m] = torch.arange(j * BLK, j * BLK + m)
+    q_pos = torch.tensor(VERIFY_FILLS, dtype=torch.int32)
+    q = torch.randn(B, KVH, T * G, d, device="cuda", generator=gen)
+    k = torch.randn(L, KVH, NB, BLK, d, device="cuda", generator=gen)
+    v = torch.randn(L, KVH, NB, BLK, d, device="cuda", generator=gen)
+    return ([t.to(dtype) for t in (q, k, v)]
+            + [t.cuda() for t in (pos, table, q_pos)])
+
+
+def check_paged_verify(torch, pa, gen):
+    """paged_decode at the speculative verify shape (T = 4) against its
+    plain version, in bf16 and float32: each packed query row against its
+    own max |plain| (``row_rel_err``), the lse by max abs error; cold-L2,
+    warm, plain and library times (SDPA over a pre-gathered view with the
+    [T, S] positional mask, gather not timed) and the bound."""
+    import torch.nn.functional as F
+
+    T = SPEC_DRAFT + 1
+    rows = {}
+    for dtype, bound in ((torch.bfloat16, REL_BOUND),
+                         (torch.float32, F32_KERNEL_BOUND)):
+        args = verify_inputs(torch, gen, dtype)
+        q, k, v, pos, table, q_pos = args
+        L, KVH, NB, BLK, d = k.shape
+        B, _, TG, _ = q.shape
+        G = TG // T
+        layer = L - 1
+        out, lse = pa.paged_pool_attention(*args, layer=layer, t_tokens=T)
+        torch.cuda.synchronize()
+        ref_out, ref_lse = pa.paged_pool_attention_reference(
+            *args, layer=layer, t_tokens=T)
+        finite = bool(torch.isfinite(out).all() and torch.isfinite(lse).all())
+        rel = row_rel_err(torch, out, ref_out)
+        lse_err = (lse - ref_lse).abs().max().item()
+
+        # Cold: each launch reads another layer's plane.
+        ms = time_ms(torch, [
+            lambda i=i: pa.paged_pool_attention(*args, i, T)
+            for i in range(L)], iters=4 * L)
+        warm_ms = time_ms(torch, lambda: pa.paged_pool_attention(
+            *args, layer, T))
+        plain_ms = time_ms(torch, [
+            lambda i=i: pa.paged_pool_attention_reference(*args, i, T)
+            for i in range(L)], iters=L)
+        blk, allowed = paged_gathered_mask(torch, pos, table, q_pos, T)
+        mask = allowed[:, None]  # [B, 1, T, S]
+        qt = q.reshape(B, KVH, T, G, d).transpose(2, 3).reshape(
+            B, KVH * G, T, d)
+        view_bytes = 2 * KVH * blk.numel() * BLK * d * k.element_size()
+        n_views = max(2, -(-4 * L2_BYTES // view_bytes))
+        views = [tuple(t[i % L][:, blk].reshape(KVH, B, -1, d).transpose(0, 1)
+                       .contiguous() for t in (k, v)) for i in range(n_views)]
+        library_ms = time_ms(torch, [
+            lambda kg=kg, vg=vg: F.scaled_dot_product_attention(
+                qt, kg, vg, attn_mask=mask, enable_gqa=True)
+            for kg, vg in views], iters=4 * n_views)
+        del views
+        bound_ms, bound_by = paged_bound(torch, q, k, pos, table, q_pos, T)
+        name = "bfloat16" if dtype == torch.bfloat16 else "float32"
+        row = dict(
+            phase="kernel_check", kernel="paged_decode", shape="spec_verify",
+            B=B, KVH=KVH, G=G, T=T, d=d, BLK=BLK, MB=table.shape[1], L=L,
+            layer=layer, fills=list(VERIFY_FILLS), dtype=name,
+            worst_row_rel=rel, rel_bound=bound, lse_max_abs_err=lse_err,
+            lse_bound=LSE_BOUND, finite=finite, ms=ms, warm_ms=warm_ms,
+            plain_ms=plain_ms, library_ms=library_ms,
+            library="scaled_dot_product_attention over a pre-gathered "
+            "view, [T, S] positional mask, gather not timed",
+            bound_ms=bound_ms, bound_by=bound_by,
+            roofline_share=bound_ms / ms)
+        emit(row)
+        if not (finite and rel < bound and lse_err < LSE_BOUND):
+            raise AssertionError(
+                f"paged_decode spec_verify ({name}): finite {finite}, worst "
+                f"packed row {rel} of its max |plain| (bound {bound}), lse "
+                f"err {lse_err} (bound {LSE_BOUND})")
+        rows[name] = row
+    return rows
 
 
 def train_kernel_inputs(torch, gen, dtype, B, T, H, KVH, d):
@@ -644,6 +785,7 @@ def zero_counts(fa, pa):
     fa.flash_bwd_dq.launches = 0
     fa.flash_bwd_dkv.launches = 0
     pa.paged_pool_attention.launches = 0
+    pa.paged_pool_attention.launches_by_t = {}
 
 
 def layer_copy(torch, params, n_layers, dtype=None):
@@ -1033,6 +1175,224 @@ def paged_invariant(torch, ptl, engine, serving, params, cfg, tok):
     return row
 
 
+def spec_prompts(np):
+    """The spec_serving phase's prompts: SPEC_PROMPT random ids each
+    (numpy seed 0)."""
+    rng = np.random.default_rng(0)
+    return [rng.integers(1, 128000, SPEC_PROMPT).tolist()
+            for _ in range(SPEC_SLOTS)]
+
+
+def perturbed_copy(torch, params, noise, seed):
+    """A copy of ``params`` with +-``noise`` relative noise per weight from a
+    seeded generator (bench.py's perturbed draft)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def nudge(w):
+        return (w.float() * (1 + noise * torch.randn(
+            w.shape, device="cuda", generator=gen))).to(w.dtype)
+
+    return {k: ({kk: nudge(w) for kk, w in v.items()}
+                if isinstance(v, dict) else nudge(v))
+            for k, v in params.items()}
+
+
+def run_batcher(torch, cb, prompts, per_request=None):
+    """Submit ``prompts`` (SPEC_NEW tokens each; ``per_request`` maps an
+    index to extra submit arguments) and drain the batcher.  Returns the
+    tokens per prompt, the wall seconds of the steps after the admission
+    step (synchronised host clock) and the tokens those steps emitted."""
+    per_request = per_request or {}
+    rids = [cb.submit(p, max_new_tokens=SPEC_NEW, **per_request.get(i, {}))
+            for i, p in enumerate(prompts)]
+    results, wall, tokens, first = {}, 0.0, 0, True
+    while cb.pending():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        events = cb.step()
+        torch.cuda.synchronize()
+        if not first:
+            wall += time.perf_counter() - t
+            tokens += len(events)
+        first = False
+        for rid, tok, _ in events:
+            results.setdefault(rid, []).append(tok)
+    return [results.get(r, []) for r in rids], wall, tokens
+
+
+def verify_vs_steps_rel(torch, ptl, llama, params, cfg, prompts):
+    """The verify's T = n_draft + 1 logits against n_draft + 1 T = 1 paged
+    steps over the same admitted pool (rel: max abs diff over max |T=1|)."""
+    T = SPEC_DRAFT + 1
+    cb = ptl.ContinuousBatcher(params, cfg, n_slots=len(prompts),
+                               max_len=SPEC_MAX_LEN, block_size=SPEC_BLOCK,
+                               device="cuda")
+    for p in prompts:
+        cb.submit(p, max_new_tokens=SPEC_NEW)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    with torch.inference_mode():
+        cb._admit()
+        cb._sync_device_rows()
+        B = len(prompts)
+        block = torch.cat([cb.tau[:, None], torch.randint(
+            1, 128000, (B, T - 1), device="cuda", generator=g,
+            dtype=torch.int32)], dim=1)
+        block_pos = cb.d_pos[:, None] + torch.arange(
+            T, device="cuda", dtype=torch.int32)[None]
+        mask = cb.d_active[:, None].expand(B, T)
+        pool = cb.pool
+        verify = llama.paged_forward(
+            params, block, block_pos, cfg,
+            ptl.PagedKVCache(pool.k, pool.v, pool.pos, cb.d_table,
+                             cb.d_fill), attn_mask=mask, write_back=False)[0]
+        steps = [ptl.forward(
+            params, block[:, t:t + 1], block_pos[:, t:t + 1], cfg,
+            cache=ptl.PagedKVCache(pool.k, pool.v, pool.pos, cb.d_table,
+                                   cb.d_fill + t),
+            attn_mask=mask[:, :1])[0][:, 0] for t in range(T)]
+    del cb
+    return rel_err(verify, torch.stack(steps, dim=1))
+
+
+def drive_spec_serving(torch, np, ptl, llama, fa, pa, params, cfg, smi):
+    """Phase 7: speculative serving at llama3-8b width and depth (bf16):
+    self-draft (counted from zero), the perturbed draft with one sampled
+    request, the plain batcher on the same prompts, and the invariants."""
+    prompts = spec_prompts(np)
+    L = cfg.n_layers
+    T = SPEC_DRAFT + 1
+
+    def spec_batcher(p, c, draft, draft_cfg):
+        return ptl.ContinuousBatcher(
+            p, c, n_slots=SPEC_SLOTS, max_len=SPEC_MAX_LEN,
+            block_size=SPEC_BLOCK, draft_params=draft,
+            draft_config=draft_cfg, n_draft=SPEC_DRAFT,
+            spec_rounds=SPEC_ROUNDS, device="cuda")
+
+    seconds = {}
+    t0 = time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        seconds[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    # Self-draft: the counted run.
+    cb = spec_batcher(params, cfg, params, cfg)
+    zero_counts(fa, pa)
+    toks, wall, n_tok = run_batcher(torch, cb, prompts)
+    launches = dict(bwd_counts(fa),
+                    paged_decode=pa.paged_pool_attention.launches,
+                    paged_decode_by_t=dict(
+                        pa.paged_pool_attention.launches_by_t))
+    stats = cb.stats()
+    rounds = stats["decode_steps_total"]
+    lap("self_draft")
+    # Busy share of one round: re-admit, then the first step runs R = 1.
+    for p in prompts:
+        cb.submit(p, max_new_tokens=SPEC_NEW)
+    cb._admit()
+    profile = device_profile(torch, cb.step, top=8)
+    del cb
+    lap("profile")
+    self_row = dict(
+        acceptance=stats["draft_acceptance_rate"], rounds=rounds,
+        tokens=[len(t) for t in toks], launches=launches,
+        tokens_per_s=n_tok / wall, ms_per_round=wall * 1e3 / max(1, rounds - 1),
+        host_syncs_per_token=stats["host_syncs_per_token"],
+        spec_host_syncs_per_token=stats["spec_host_syncs_per_token"],
+        busy_share=profile["device_busy_share"], profile_1_round=profile,
+        stats=stats)
+    want = {"flash_fwd": 2 * L * stats["insert_dispatches_total"],
+            "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+            "paged_decode": (SPEC_DRAFT + 2) * L * rounds,
+            "paged_decode_by_t": {T: (SPEC_DRAFT + 2) * L * rounds}}
+
+    # The plain batcher on the same prompts.
+    plain = ptl.ContinuousBatcher(params, cfg, n_slots=SPEC_SLOTS,
+                                  max_len=SPEC_MAX_LEN,
+                                  block_size=SPEC_BLOCK, decode_chunk=8,
+                                  device="cuda")
+    plain_toks, plain_wall, plain_n = run_batcher(torch, plain, prompts)
+    del plain
+    lap("plain")
+
+    # The perturbed draft, one request sampled.
+    draft = perturbed_copy(torch, params, SPEC_NOISE, seed=7)
+    cb = spec_batcher(params, cfg, draft, cfg)
+    p_toks, p_wall, p_n = run_batcher(torch, cb, prompts,
+                                      {1: SPEC_SAMPLED})
+    p_stats = cb.stats()
+    del cb
+    lap("perturbed")
+    pert_row = dict(
+        acceptance=p_stats["draft_acceptance_rate"],
+        rounds=p_stats["decode_steps_total"],
+        tokens=[len(t) for t in p_toks], sampled_request=1,
+        sampled=SPEC_SAMPLED, tokens_per_s=p_n / p_wall,
+        ms_per_round=p_wall * 1e3 / max(1, p_stats["decode_steps_total"] - 1),
+        host_syncs_per_token=p_stats["host_syncs_per_token"],
+        greedy_first_divergence_vs_plain=[
+            first_divergence(a, b) for i, (a, b) in
+            enumerate(zip(p_toks, plain_toks)) if i != 1])
+
+    # Invariants: T=4 verify logits vs 4 T=1 steps (bf16 at 8 layers,
+    # float32 activations at 32), and greedy spec tokens = plain tokens in
+    # float32 activations at 32 layers.
+    shallow = dict(params, layers={k: w[:DECODE_DEPTH]
+                                   for k, w in params["layers"].items()})
+    rel_bf16 = verify_vs_steps_rel(torch, ptl, llama, shallow,
+                                   cfg.replace(n_layers=DECODE_DEPTH),
+                                   prompts)
+    c32 = cfg.replace(dtype="float32")
+    rel_f32 = verify_vs_steps_rel(torch, ptl, llama, params, c32, prompts)
+    cb = spec_batcher(params, c32, draft, c32)
+    f32_spec, _, _ = run_batcher(torch, cb, prompts)
+    f32_rate = cb.acceptance_rate()
+    del cb, draft
+    plain = ptl.ContinuousBatcher(params, c32, n_slots=SPEC_SLOTS,
+                                  max_len=SPEC_MAX_LEN,
+                                  block_size=SPEC_BLOCK, decode_chunk=8,
+                                  device="cuda")
+    f32_plain, _, _ = run_batcher(torch, plain, prompts)
+    del plain
+    torch.cuda.empty_cache()
+    lap("invariants")
+    inv = dict(verify_vs_steps_rel_bf16_8_layers=rel_bf16,
+               bf16_bound=DECODE_REL,
+               verify_vs_steps_rel_f32_32_layers=rel_f32, f32_bound=F32_REL,
+               f32_greedy_spec_equals_plain=f32_spec == f32_plain,
+               f32_first_divergence=[first_divergence(a, b) for a, b in
+                                     zip(f32_spec, f32_plain)],
+               f32_acceptance=f32_rate)
+    row = dict(phase="spec_serving", card=smi, config="llama3-8b",
+               n_layers=L, dtype="bfloat16", n_slots=SPEC_SLOTS,
+               max_len=SPEC_MAX_LEN, block_size=SPEC_BLOCK,
+               n_draft=SPEC_DRAFT, spec_rounds=SPEC_ROUNDS,
+               prompt_tokens=SPEC_PROMPT, max_new=SPEC_NEW, seconds=seconds,
+               self_draft=self_row, perturbed_draft=pert_row,
+               plain_tokens_per_s=plain_n / plain_wall,
+               plain_tokens_exact=[len(t) for t in plain_toks] == [SPEC_NEW]
+               * SPEC_SLOTS, invariants=inv)
+    emit(row)
+    exact = [SPEC_NEW] * SPEC_SLOTS
+    problems = []
+    if launches != want:
+        problems.append(f"launches {launches}, expected {want}")
+    if self_row["acceptance"] != 1.0 or self_row["tokens"] != exact:
+        problems.append("self-draft acceptance / token counts")
+    if not (pert_row["acceptance"] < 1.0 and pert_row["tokens"] == exact):
+        problems.append("perturbed draft acceptance / token counts")
+    if not all(0 <= t < cfg.vocab_size for r in toks + p_toks for t in r):
+        problems.append("a token outside the vocabulary")
+    if not (rel_bf16 < DECODE_REL and rel_f32 < F32_REL
+            and inv["f32_greedy_spec_equals_plain"]):
+        problems.append(f"invariants {inv}")
+    if problems:
+        raise AssertionError(f"spec_serving failed: {problems}")
+    return row
+
+
 def rel_err(a, b) -> float:
     return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
 
@@ -1047,6 +1407,7 @@ def main() -> int:
     sys.path.insert(0, HERE)
     import jax_llama_tpu_torch as ptl
     from jax_llama_tpu_torch import engine, serving
+    from jax_llama_tpu_torch.models import llama
     from jax_llama_tpu_torch.ops import _build
 
     fa = importlib.import_module("jax_llama_tpu_torch.ops.flash_attention")
@@ -1078,6 +1439,7 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     flash_rows = check_flash(torch, fa, gen)
     paged_row = check_paged(torch, pa, gen)
+    verify_rows = check_paged_verify(torch, pa, gen)
     train_rows = check_train_kernels(torch, fa, gen)
 
     # Phase 3: the main path, llama3-8b width, bf16, attn_impl="auto".
@@ -1231,16 +1593,23 @@ def main() -> int:
     # Phase 6: paged = gathered = standalone generate.
     paged_invariant(torch, ptl, engine, serving, params, cfg, tok)
 
-    # Phase 7: the training path, counted from zero.
+    # Phase 7: speculative serving, counted from zero.
+    spec_row = drive_spec_serving(torch, np, ptl, llama, fa, pa, params, cfg,
+                                  smi)
+
+    # Phase 8: the training path, counted from zero.
     train_row = drive_train(torch, np, ptl, fa, pa, params, cfg)
 
-    # Phase 8: every kernel of the port.  ``launches`` counts the run of
-    # the path each kernel serves (train for the flash kernels, this
-    # slice's path; serving for the paged kernel); every path's count is
-    # beside it.  The flash times are the training shape's (forward with
-    # lse, no dropout), the train path's launches.
+    # Phase 9: every kernel of the port.  ``launches`` counts the run of
+    # the path each kernel serves (train for the flash kernels; serving
+    # for the paged kernel at T = 1, with its spec_verify shape's own
+    # count from spec_serving beside it); every path's count is beside
+    # it.  The flash times are the training shape's (forward with lse, no
+    # dropout), the train path's launches.
+    spec_launches = dict(spec_row["self_draft"]["launches"])
+    spec_launches.pop("paged_decode_by_t")
     paths = {"generate": launches, "serving": serve_row["launches"],
-             "train": train_row["launches"]}
+             "spec_serving": spec_launches, "train": train_row["launches"]}
 
     def by_path(name):
         return {path: counts[name] for path, counts in paths.items()}
@@ -1277,7 +1646,22 @@ def main() -> int:
              ms=paged_row["ms"],
              kernel_ms=paged_row["ms"], plain_ms=paged_row["plain_ms"],
              bound_ms=paged_row["bound_ms"], bound_by=paged_row["bound_by"],
-             library_ms=paged_row["library_ms"]),
+             library_ms=paged_row["library_ms"],
+             spec_verify=dict(
+                 shape="spec_verify", T=SPEC_DRAFT + 1,
+                 launches=spec_row["self_draft"]["launches"][
+                     "paged_decode_by_t"],
+                 max_abs_err=max(r["worst_row_rel"]
+                                 for r in verify_rows.values()),
+                 max_abs_err_is="the worst packed query row's max abs err "
+                 "over its own max |plain|, bf16 and float32",
+                 ms=verify_rows["bfloat16"]["ms"],
+                 warm_ms=verify_rows["bfloat16"]["warm_ms"],
+                 plain_ms=verify_rows["bfloat16"]["plain_ms"],
+                 bound_ms=verify_rows["bfloat16"]["bound_ms"],
+                 bound_by=verify_rows["bfloat16"]["bound_by"],
+                 library_ms=verify_rows["bfloat16"]["library_ms"],
+                 float32_ms=verify_rows["float32"]["ms"])),
         train_kernel("flash_bwd_dq",
                      "jax_llama_tpu/ops/flash_attention.py:1271"),
         train_kernel("flash_bwd_dkv",

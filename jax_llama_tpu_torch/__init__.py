@@ -8,7 +8,9 @@ no GPU is present unless the caller passes ``device="cpu"``.
   Model:      LLaMAConfig, get_config, init_params, from_jax_params,
               forward, KVCache, init_cache, PagedKVCache
   Decode:     GenerationConfig, generate, LLaMA
-  Serving:    ContinuousBatcher, init_pool (paged KV pool)
+  Serving:    ContinuousBatcher (speculative with draft_params),
+              init_pool (paged KV pool)
+  Speculative: generate_speculative (spec_decode)
   Training:   train_step (AdamW step over lm_loss; flash forward and
               backward kernels under attn_impl="flash"), make_optimizer,
               init_train_state, TrainState, lm_loss; data.batches /
@@ -16,7 +18,7 @@ no GPU is present unless the caller passes ``device="cpu"``.
   Tokenizers: ByteTokenizer
   Kernels:    ops.flash_attention (hand-written CUDA, csrc/flash_fwd.cu and
               csrc/flash_bwd.cu), ops.paged_attention (hand-written CUDA,
-              csrc/paged_decode.cu)
+              csrc/paged_decode.cu, T >= 1 query tokens per row)
 """
 
 from .config import LLaMAConfig, get_config, swiglu_hidden_size
@@ -32,6 +34,7 @@ from .models import (
     param_count,
 )
 from .serving import ContinuousBatcher, init_pool
+from .spec_decode import generate_speculative
 from .tokenizers import ByteTokenizer
 from .train import (
     TrainState,
@@ -47,7 +50,8 @@ __all__ = [
     "LLaMAConfig", "get_config", "swiglu_hidden_size", "GenerationConfig",
     "generate", "LLaMA", "ByteTokenizer", "KVCache", "forward",
     "from_jax_params", "init_cache", "init_params", "param_count",
-    "PagedKVCache", "ContinuousBatcher", "init_pool", "TrainState",
+    "PagedKVCache", "ContinuousBatcher", "init_pool",
+    "generate_speculative", "TrainState",
     "init_train_state", "lm_loss", "make_optimizer", "train_step",
     "__version__",
 ]

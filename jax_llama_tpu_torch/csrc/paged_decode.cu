@@ -3,51 +3,69 @@
 //
 // Replaces the TPU kernel `paged_pool_attention` of
 // jax_llama_tpu/ops/paged_attention.py (pallas_call at :371, body
-// `_paged_kernel` at :79), for one query token per row (t_tokens = 1) and
-// a bf16 or float32 pool (no int8 scales):
+// `_paged_kernel` at :79), for T >= 1 query tokens per row and a bf16 or
+// float32 pool (no int8 scales).  The T queries of a row sit at
+// CONSECUTIVE positions (token t at q_pos[b] + t: one decode token at T=1,
+// the speculative verify block at T = n_draft + 1) and are packed with the
+// G query heads of their KV head as rows r = t*G + g:
 //
-//   out[b, h, g] = sum_s softmax_s(q[b,h,g] . k[layer,h,blk(s),off(s)] / sqrt(d))
+//   out[b, h, r] = sum_s softmax_s(q[b,h,r] . k[layer,h,blk(s),off(s)] / sqrt(d))
 //                  v[layer,h,blk(s),off(s)]
-//   lse[b, h, g] = log sum_s exp(q[b,h,g] . k[...] / sqrt(d))
+//   lse[b, h, r] = log sum_s exp(q[b,h,r] . k[...] / sqrt(d))
 //
 // over the slots s of the blocks that row b's table names, restricted to
-// 0 <= pool_pos[blk, off] <= q_pos[b].  A row with q_pos = -1 is inactive;
-// a row that sees no live slot writes out = 0 and lse = MASK_VALUE (the
-// JAX kernel's finalize), so the caller's merge weight exp(lse - m)
-// underflows to exactly 0.
+// 0 <= pool_pos[blk, off] <= q_pos[b] + r / G.  A row with q_pos = -1 is
+// inactive; a packed row that sees no live slot (token 0 of a row whose
+// pool is still empty, say) writes out = 0 and lse = MASK_VALUE (the JAX
+// kernel's finalize), so the caller's merge weight exp(lse - m) underflows
+// to exactly 0.
 //
-// Layout: q [B, KVH, G, d] in the pool's dtype (query head h_q = kvh*G + g);
-// k_pool, v_pool [L, KVH, NB, BLK, d] contiguous; pool_pos [NB, BLK] int32
-// (-1 = invalid slot); table [B, MB] int32 physical block ids, NB (or any
-// id outside [0, NB)) marks an unused entry; q_pos [B] int32.  out
-// [B, KVH, G, d] and lse [B, KVH, G] are float32, as in the JAX kernel.
-// Any block size works: a K/V row is d * sizeof(T) bytes, a multiple of 16,
-// so every row stays 16-byte aligned (the TPU kernel's multiple-of-8 rule
-// is its sublane tiling and does not carry over).
+// Layout: q [B, KVH, T*G, d] in the pool's dtype (query head h_q = kvh*G +
+// g); k_pool, v_pool [L, KVH, NB, BLK, d] contiguous; pool_pos [NB, BLK]
+// int32 (-1 = invalid slot); table [B, MB] int32 physical block ids, NB
+// (or any id outside [0, NB)) marks an unused entry; q_pos [B] int32, the
+// FIRST token's position.  out [B, KVH, T*G, d] and lse [B, KVH, T*G] are
+// float32, as in the JAX kernel.  Any block size works: a K/V row is d *
+// sizeof(T) bytes, a multiple of 16, so every row stays 16-byte aligned
+// (the TPU kernel's multiple-of-8 rule is its sublane tiling and does not
+// carry over).
 //
-// What bounds it on an H100: memory.  A decode step does ~4·G·d FLOPs per
-// live slot and moves 2·d·bytes(dtype) of K/V per slot and KV head, far
-// below the ~295 FLOP/byte at which the tensor cores would become the
-// limit.  The least time is the live slots' K/V over HBM bandwidth.  What
-// the design does about it:
+// What bounds it on an H100: memory.  A step does ~4·T·G·d FLOPs per live
+// slot and moves 2·d·bytes(dtype) of K/V per slot and KV head: at the
+// verify shape (T*G = 16) still ~10x below the ~295 FLOP/byte at which the
+// tensor cores would become the limit.  The least time is the live slots'
+// K/V over HBM bandwidth.  What the design does about it:
 //   * One block per (row, KV head).  It walks the row's table inside the
 //     kernel and reads each live [BLK, d] K and V tile straight from the
 //     layer's plane of the pool: no gathered view, no per-layer copy.
-//   * The G query heads of a KV head share each K/V tile (GQA packing), so
-//     the pool is read once per KV head, never once per query head.
+//   * All T*G packed rows of a KV head share each K/V tile (GQA and
+//     multi-token packing), so the pool is read once per KV head for all
+//     T tokens, never once per query head or per token.
 //   * A prologue finds the row's live-block bound (1 + the last table
-//     entry holding a slot the query may attend; JAX :313-333).  Table
-//     entries past it, sentinel entries, and 64-slot sub-tiles with no
-//     attendable slot are skipped without loading K or V.  Processing a
-//     wholly masked tile would add exp(MASK - MASK) = 1 of garbage (JAX
-//     :128-141), so skipping is required, not an optimisation.
+//     entry holding a slot the LAST token may attend; JAX :313-333).  Table
+//     entries past it, sentinel entries, and sub-tiles with no slot the
+//     last token may attend are skipped without loading K or V.
+//     Processing a wholly masked tile would add exp(MASK - MASK) = 1 of
+//     garbage (JAX :128-141), so skipping is required, not an
+//     optimisation.
+//   * At T > 1 a tile can be live for a late token and wholly masked for
+//     an early one (the skip is per tile, the mask per packed row).  Each
+//     (row, slot) pair the row may not attend gets p = 0 explicitly, and a
+//     row whose running max is still -inf takes p = 0 and alpha = 1, so no
+//     exp(-inf - -inf) reaches l or acc.
 //   * A tile's K and V rows are copied to shared memory with cp.async, so
 //     all of a tile's loads are in flight at once.
-//   * The online softmax (m, l) per query head runs in float32, in base 2
+//   * The online softmax (m, l) per packed row runs in float32, in base 2
 //     with log2(e) folded into the pre-scaled q; the output accumulator
 //     sits in registers (one feature column per thread).  P is rounded to
 //     the pool dtype before the P.V product, as the JAX kernel does; l sums
 //     the unrounded P.
+//   * Two instances per dtype and head_dim: the T = 1 one (up to 8 query
+//     heads, the first version's code and shared-memory tile: the per-row
+//     limits and the -inf guard compile away) and the multi-token one (up
+//     to MAX_ROWS = 32 packed rows: n_draft up to 7 at G = 4), whose larger
+//     query and score tiles take half the slots per K/V tile to stay inside
+//     the 48 KB of static shared memory.
 // Not done yet (later work): the grid is B*KVH blocks (64 for llama3-8b at
 // 8 slots, on 132 SMs) and each block waits on its own tile loads, so a
 // long row is latency-bound.  A split-KV second pass (flash-decoding) and
@@ -64,7 +82,8 @@ namespace {
 
 constexpr int NTHREADS = 128;
 constexpr int NWARPS = NTHREADS / 32;
-constexpr int MAXG = 8;  // query heads per KV head
+constexpr int MAXG = 8;       // query heads per KV head (the T = 1 rows)
+constexpr int MAX_ROWS = 32;  // packed rows (T*G) of the multi-token one
 constexpr float MASK_VALUE = -0.7f * 3.40282346638528859812e+38f;
 constexpr float LN2 = 0.69314718055994530942f;
 
@@ -126,49 +145,55 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// T: pool element type; D: head_dim; TS: slots per shared-memory tile.
-template <typename T, int D, int TS>
+// T: pool element type; D: head_dim; TS: slots per shared-memory tile;
+// MAXR: packed query rows (T*G) the instance holds; more than MAXG makes
+// the multi-token instance.
+template <typename T, int D, int TS, int MAXR>
 __global__ void __launch_bounds__(NTHREADS)
 paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
                     const T* __restrict__ v_pool,
                     const int* __restrict__ pool_pos,
                     const int* __restrict__ table,
                     const int* __restrict__ q_pos, float* __restrict__ out,
-                    float* __restrict__ lse, int KVH, int G, int NB, int BLK,
-                    int MB, int layer, float scale_log2) {
+                    float* __restrict__ lse, int KVH, int G, int TT, int NB,
+                    int BLK, int MB, int layer, float scale_log2) {
   static_assert(TS <= NTHREADS, "one position per thread");
+  static_assert(MAXR <= NTHREADS, "one lse per thread");
+  constexpr bool MULTI = MAXR > MAXG;      // T > 1 rows: per-row limits
   constexpr int VEC = 16 / sizeof(T);      // elements per 16-byte load
   constexpr int LD = D + VEC;              // padded shared row
   constexpr int GSTEP = NTHREADS / D;      // threads sharing a column
-  constexpr int NG = (MAXG + GSTEP - 1) / GSTEP;
-  __shared__ __align__(16) float q_s[MAXG * D];
+  constexpr int NG = (MAXR + GSTEP - 1) / GSTEP;
+  __shared__ __align__(16) float q_s[MAXR * D];
   // Raw bytes: a __shared__ array of a class type (__nv_bfloat16) would
   // need a constructor.
   __shared__ __align__(16) unsigned char k_raw[TS * LD * sizeof(T)];
   __shared__ __align__(16) unsigned char v_raw[TS * LD * sizeof(T)];
   T* k_s = reinterpret_cast<T*>(k_raw);
   T* v_s = reinterpret_cast<T*>(v_raw);
-  __shared__ float p_s[MAXG * TS];
+  __shared__ float p_s[MAXR * TS];
   __shared__ int pos_s[TS];
-  __shared__ float m_s[MAXG], l_s[MAXG], alpha_s[MAXG];
+  __shared__ float m_s[MAXR], l_s[MAXR], alpha_s[MAXR];
   __shared__ int bound_s;
 
   const int h = blockIdx.x, b = blockIdx.y;
+  const int R = TT * G;                  // packed rows, r = t*G + g
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int dd = tid % D, g0 = tid / D;  // this thread's output column(s)
   const int qp = q_pos[b];
+  const int qp_last = qp + TT - 1;       // the last token's position
   const size_t row = (size_t)b * KVH + h;
-  float* out_row = out + row * G * D;
-  float* lse_row = lse + row * G;
+  float* out_row = out + row * R * D;
+  float* lse_row = lse + row * R;
 
   // Live-block bound over the row's table: 0 for an inactive row.
   if (tid == 0) bound_s = 0;
-  if (tid < MAXG) {
+  if (tid < MAXR) {
     m_s[tid] = -INFINITY;
     l_s[tid] = 0.f;
   }
-  for (int i = tid; i < G * D; i += NTHREADS) {
-    q_s[i] = to_f32(q[row * G * D + i]) * scale_log2;
+  for (int i = tid; i < R * D; i += NTHREADS) {
+    q_s[i] = to_f32(q[row * R * D + i]) * scale_log2;
   }
   __syncthreads();
   const int* trow = table + (size_t)b * MB;
@@ -179,7 +204,7 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
       const int blk = trow[mb];
       if (blk >= 0 && blk < NB) {
         const int p = pool_pos[(size_t)blk * BLK + i % BLK];
-        if (p >= 0 && p <= qp) last = mb;
+        if (p >= 0 && p <= qp_last) last = mb;
       }
     }
     if (last >= 0) atomicMax(&bound_s, last + 1);
@@ -203,9 +228,10 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
         int p = pool_pos[(size_t)blk * BLK + s0 + tid];
         p = p < 0 ? INT_MAX : p;
         pos_s[tid] = p;
-        live = p <= qp;
+        live = p <= qp_last;
       }
-      if (!__syncthreads_or(live)) continue;  // wholly masked: no K/V read
+      // Wholly masked for every token: no K/V read.
+      if (!__syncthreads_or(live)) continue;
 
       const T* ksrc = k_pool + (block0 + s0) * D;
       const T* vsrc = v_pool + (block0 + s0) * D;
@@ -218,12 +244,13 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
       cp_async_wait_all();
       __syncthreads();
 
-      // Scores (base 2) for every (query head, slot) pair of the tile.
-      for (int i = tid; i < G * n; i += NTHREADS) {
-        const int g = i / n, j = i % n;
+      // Scores (base 2) for every (packed row, slot) pair of the tile;
+      // packed row r belongs to token r / G and attends up to its position.
+      for (int i = tid; i < R * n; i += NTHREADS) {
+        const int r = i / n, j = i % n;
         float s = -INFINITY;
-        if (pos_s[j] <= qp) {
-          const float* qg = q_s + g * D;
+        if (pos_s[j] <= (MULTI ? qp + r / G : qp)) {
+          const float* qr = q_s + r * D;
           const T* kr = k_s + j * LD;
           float dot = 0.f;
 #pragma unroll
@@ -231,52 +258,54 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
             float kx[VEC];
             load_vec(kr + c, kx);
 #pragma unroll
-            for (int e = 0; e < VEC; ++e) dot += qg[c + e] * kx[e];
+            for (int e = 0; e < VEC; ++e) dot += qr[c + e] * kx[e];
           }
           s = dot;
         }
-        p_s[g * TS + j] = s;
+        p_s[r * TS + j] = s;
       }
       __syncthreads();
 
-      // Online softmax update, one warp per query head.  Every head of the
-      // row shares the tile's mask, and the tile holds a live slot, so the
-      // tile maximum is finite.
-      for (int g = warp; g < G; g += NWARPS) {
+      // Online softmax update, one warp per packed row.  A row with no
+      // attendable slot so far (max still -inf) keeps p = 0 and alpha = 1:
+      // the tile may be live only for later tokens.
+      for (int r = warp; r < R; r += NWARPS) {
         float mx = -INFINITY;
-        for (int j = lane; j < n; j += 32) mx = fmaxf(mx, p_s[g * TS + j]);
+        for (int j = lane; j < n; j += 32) mx = fmaxf(mx, p_s[r * TS + j]);
         mx = warp_max(mx);
-        const float m_old = m_s[g];
+        const float m_old = m_s[r];
         const float m_new = fmaxf(m_old, mx);
+        const bool none = MULTI && m_new == -INFINITY;
         float sum = 0.f;
         for (int j = lane; j < n; j += 32) {
-          const float p = exp2f(p_s[g * TS + j] - m_new);
+          // exp2(-inf - m_new) = 0 for a masked pair once m_new is finite.
+          const float p = none ? 0.f : exp2f(p_s[r * TS + j] - m_new);
           sum += p;
-          p_s[g * TS + j] = round_p(p, T());
+          p_s[r * TS + j] = round_p(p, T());
         }
         sum = warp_sum(sum);
         __syncwarp();
         if (lane == 0) {
-          const float alpha = exp2f(m_old - m_new);
-          alpha_s[g] = alpha;
-          l_s[g] = l_s[g] * alpha + sum;
-          m_s[g] = m_new;
+          const float alpha = none ? 1.f : exp2f(m_old - m_new);
+          alpha_s[r] = alpha;
+          l_s[r] = l_s[r] * alpha + sum;
+          m_s[r] = m_new;
         }
       }
       __syncthreads();
 
-      // acc = alpha * acc + P V, for this thread's column and heads.
+      // acc = alpha * acc + P V, for this thread's column and rows.
 #pragma unroll
       for (int i = 0; i < NG; ++i) {
-        const int g = g0 + i * GSTEP;
-        if (g < G) acc[i] *= alpha_s[g];
+        const int r = g0 + i * GSTEP;
+        if (r < R) acc[i] *= alpha_s[r];
       }
       for (int j = 0; j < n; ++j) {
         const float v = to_f32(v_s[j * LD + dd]);
 #pragma unroll
         for (int i = 0; i < NG; ++i) {
-          const int g = g0 + i * GSTEP;
-          if (g < G) acc[i] += p_s[g * TS + j] * v;
+          const int r = g0 + i * GSTEP;
+          if (r < R) acc[i] += p_s[r * TS + j] * v;
         }
       }
     }
@@ -285,35 +314,35 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
 
 #pragma unroll
   for (int i = 0; i < NG; ++i) {
-    const int g = g0 + i * GSTEP;
-    if (g < G) {
-      const float l = l_s[g];
-      out_row[g * D + dd] = acc[i] / (l == 0.f ? 1.f : l);
+    const int r = g0 + i * GSTEP;
+    if (r < R) {
+      const float l = l_s[r];
+      out_row[r * D + dd] = acc[i] / (l == 0.f ? 1.f : l);
     }
   }
-  if (tid < G) {
+  if (tid < R) {
     const float l = l_s[tid];
     lse_row[tid] = l == 0.f ? MASK_VALUE : m_s[tid] * LN2 + logf(l);
   }
 }
 
-template <typename T, int TS>
+template <typename T, int TS, int MAXR>
 int launch(const void* q, const void* k, const void* v, const int* pool_pos,
            const int* table, const int* q_pos, float* out, float* lse, int B,
-           int KVH, int G, int D, int NB, int BLK, int MB, int layer,
+           int KVH, int G, int TT, int D, int NB, int BLK, int MB, int layer,
            float scale_log2, cudaStream_t st) {
   const dim3 grid(KVH, B);
   const T* qq = static_cast<const T*>(q);
   const T* kk = static_cast<const T*>(k);
   const T* vv = static_cast<const T*>(v);
   if (D == 128) {
-    paged_decode_kernel<T, 128, TS><<<grid, NTHREADS, 0, st>>>(
-        qq, kk, vv, pool_pos, table, q_pos, out, lse, KVH, G, NB, BLK, MB,
-        layer, scale_log2);
+    paged_decode_kernel<T, 128, TS, MAXR><<<grid, NTHREADS, 0, st>>>(
+        qq, kk, vv, pool_pos, table, q_pos, out, lse, KVH, G, TT, NB, BLK,
+        MB, layer, scale_log2);
   } else if (D == 64) {
-    paged_decode_kernel<T, 64, TS><<<grid, NTHREADS, 0, st>>>(
-        qq, kk, vv, pool_pos, table, q_pos, out, lse, KVH, G, NB, BLK, MB,
-        layer, scale_log2);
+    paged_decode_kernel<T, 64, TS, MAXR><<<grid, NTHREADS, 0, st>>>(
+        qq, kk, vv, pool_pos, table, q_pos, out, lse, KVH, G, TT, NB, BLK,
+        MB, layer, scale_log2);
   } else {
     return (int)cudaErrorInvalidValue;
   }
@@ -322,28 +351,39 @@ int launch(const void* q, const void* k, const void* v, const int* pool_pos,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns the cudaError_t of the launch
-// (0 on success).  Launches on `stream` and does not synchronise.
+// T query tokens per row (t_tokens), G query heads per KV head; T*G packed
+// rows.  dtype: 0 = float32, 1 = bfloat16.  Returns the cudaError_t of the
+// launch (0 on success).  Launches on `stream` and does not synchronise.
 extern "C" int paged_decode(const void* q, const void* k_pool,
                             const void* v_pool, const int* pool_pos,
                             const int* table, const int* q_pos, float* out,
-                            float* lse, int B, int KVH, int G, int D, int NB,
-                            int BLK, int MB, int layer, int dtype,
-                            float scale_log2, void* stream) {
-  if (B <= 0 || KVH <= 0 || G <= 0 || G > MAXG || NB <= 0 || BLK <= 0 ||
-      MB <= 0 || layer < 0 || B > 65535 || KVH > 65535) {
+                            float* lse, int B, int KVH, int G, int t_tokens,
+                            int D, int NB, int BLK, int MB, int layer,
+                            int dtype, float scale_log2, void* stream) {
+  if (B <= 0 || KVH <= 0 || G <= 0 || G > MAXG || t_tokens <= 0 ||
+      G * t_tokens > MAX_ROWS || NB <= 0 || BLK <= 0 || MB <= 0 ||
+      layer < 0 || B > 65535 || KVH > 65535) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool small = t_tokens == 1;
   if (dtype == 1) {
-    return launch<__nv_bfloat16, 64>(q, k_pool, v_pool, pool_pos, table,
-                                     q_pos, out, lse, B, KVH, G, D, NB, BLK,
-                                     MB, layer, scale_log2, st);
+    return small
+        ? launch<__nv_bfloat16, 64, MAXG>(
+              q, k_pool, v_pool, pool_pos, table, q_pos, out, lse, B, KVH, G,
+              t_tokens, D, NB, BLK, MB, layer, scale_log2, st)
+        : launch<__nv_bfloat16, 32, MAX_ROWS>(
+              q, k_pool, v_pool, pool_pos, table, q_pos, out, lse, B, KVH, G,
+              t_tokens, D, NB, BLK, MB, layer, scale_log2, st);
   }
   if (dtype == 0) {
-    return launch<float, 32>(q, k_pool, v_pool, pool_pos, table, q_pos, out,
-                             lse, B, KVH, G, D, NB, BLK, MB, layer,
-                             scale_log2, st);
+    return small
+        ? launch<float, 32, MAXG>(
+              q, k_pool, v_pool, pool_pos, table, q_pos, out, lse, B, KVH, G,
+              t_tokens, D, NB, BLK, MB, layer, scale_log2, st)
+        : launch<float, 16, MAX_ROWS>(
+              q, k_pool, v_pool, pool_pos, table, q_pos, out, lse, B, KVH, G,
+              t_tokens, D, NB, BLK, MB, layer, scale_log2, st);
   }
   return (int)cudaErrorInvalidValue;
 }

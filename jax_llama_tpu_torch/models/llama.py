@@ -32,12 +32,13 @@ handle to it sees the advanced state.  The JAX package returns a fresh
 buffer; copying a multi-gigabyte cache per decode step is what in-place
 writes save.  The cache index is a scalar (lockstep decode) or a [B]
 tensor (one write offset per row, the serving batcher's gathered view,
-xla path and T = 1 only).
+xla path only).
 
 A ``PagedKVCache`` (the serving block pool) routes to ``paged_forward``:
-one decode token per row, attention through the hand-written paged
-kernel, and the same in-place contract (pool k, v and pos written, the
-same cache object returned).
+T >= 1 consecutive tokens per row (a decode token, or the speculative
+verify block), attention through the hand-written paged kernel, and the
+same in-place contract (pool k, v and pos written, the same cache object
+returned).
 
 Training (``train.py``): ``forward(dropout_rng=...)`` applies the config's
 embedding, residual and attention dropout, drawn from a ``torch.Generator``
@@ -397,16 +398,24 @@ def _cache_write(
 ) -> None:
     """Write new [B, T, KVH, hd] into one layer's cache [B, S, KVH, hd] at
     ``index``: a shared int offset, or a [B] tensor of per-row offsets
-    (T == 1; a row whose offset is past the cache keeps its slots)."""
+    (row b's token t lands at index[b] + t; a token past the cache is
+    dropped, as JAX's ``.at[...].set(mode="drop")``)."""
     if not isinstance(index, torch.Tensor):
         cache_layer[:, index:index + new.shape[1]] = new.to(cache_layer.dtype)
         return
+    B, T = new.shape[:2]
     S = cache_layer.shape[1]
-    rows = torch.arange(new.shape[0], device=new.device)
-    cols = index.long().clamp(max=S - 1)
-    fits = (index < S)[:, None, None]
-    cache_layer[rows, cols] = torch.where(
-        fits, new[:, 0].to(cache_layer.dtype), cache_layer[rows, cols])
+    rows = torch.arange(B, device=new.device)[:, None]
+    cols = index.long()[:, None] + torch.arange(T, device=new.device)[None]
+    safe = cols.clamp(max=S - 1)
+    # index_put_ leaves the winner of duplicate targets unspecified, so a
+    # dropped token (clamped onto slot S-1) repeats what that slot gets:
+    # the row's token that lands at S-1, or the slot's own value when the
+    # whole row is past the cache.
+    src = (safe - index.long()[:, None]).clamp(min=0)
+    fits = (index < S)[:, None, None, None]
+    cache_layer[rows, safe] = torch.where(
+        fits, new[rows, src].to(cache_layer.dtype), cache_layer[rows, safe])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -579,8 +588,8 @@ def forward(
         docstring): the T tokens are written at ``cache.index``, attention
         runs over the whole cache, and ``cache.index`` advances by T.
         ``cache.index + T`` must not pass ``cache.max_len`` (a per-row
-        index past it drops that row's write).  A per-row index runs the
-        xla path ("auto" resolves there) with T == 1.  A PagedKVCache runs
+        index past it drops that row's writes).  A per-row index runs the
+        xla path ("auto" resolves there).  A PagedKVCache runs
         ``paged_forward``.
       attn_mask: optional [B, T] bool, False for padding; defaults to
         positions >= 0.
@@ -634,9 +643,6 @@ def forward(
     attn_mask = attn_mask.to(device=device, dtype=torch.bool)
     q_positions = positions.clamp(min=0).contiguous()
     per_row = cache is not None and cache.per_row_index
-    if per_row and T != 1:
-        raise NotImplementedError(
-            "a per-row cache index with T > 1 is not ported")
     if cache is not None and not per_row and cache.index + T > cache.max_len:
         raise ValueError(
             f"cache overflow: index {cache.index} + {T} tokens > "
@@ -733,28 +739,33 @@ def paged_forward(
     cache: PagedKVCache,
     attn_mask: Optional[torch.Tensor] = None,
     compute_logits: bool = True,
+    write_back: bool = True,
 ) -> Tuple[Optional[torch.Tensor], PagedKVCache]:
-    """One decode step (T = 1 token per row) over a paged block pool.
+    """One decode step of T tokens per row over a paged block pool (T = 1
+    is plain decode, T = n_draft + 1 the speculative verify).
 
     Every layer's attention runs the paged kernel
     (``ops.paged_attention``), which walks ``cache.table`` itself and
-    reads the layer's plane of the pool once; the step's own K/V merge at
-    the softmax level.  After the last layer the step's K/V and positions
-    land in the pool through ``paged_write_indices``/``paged_pool_write``
-    (the write-back contract the serving gathered view shares).
+    reads the layer's plane of the pool once for all T tokens of a row;
+    the step's own K/V merge at the softmax level.  After the last layer
+    the step's K/V and positions land in the pool through
+    ``paged_write_indices``/``paged_pool_write`` (the write-back contract
+    the serving gathered view shares).
+
+    Contract for T > 1 (the kernel derives token t's position as
+    ``positions[:, 0] + t``): each active row's positions are consecutive
+    and its mask is the same along T.  A row that breaks either is folded
+    to inactive (JAX :1486-1500), never trusted.
 
     The pool is updated IN PLACE (cache.k, cache.v, cache.pos) and the
     same ``cache`` object is returned; ``cache.fill`` is the caller's to
-    advance.  Rows with ``attn_mask`` False (or position -1) are inactive:
-    they attend nothing, their logits are garbage the caller ignores, and
-    their write-back is dropped.  T > 1 (speculative verify) and int8
-    pools raise NotImplementedError.
+    advance.  ``write_back=False`` leaves the pool untouched (the
+    speculative draft chain, whose JAX twin discards the returned pool).
+    Rows with ``attn_mask`` False (or position -1) are inactive: they
+    attend nothing, their logits are garbage the caller ignores, and
+    their write-back is dropped.  int8 pools raise NotImplementedError.
     """
     B, T = tokens.shape
-    if T != 1:
-        raise NotImplementedError(
-            "paged_forward with T > 1 (speculative verify) is not ported "
-            "(ROADMAP A10)")
     if not cache.k.is_floating_point():
         raise NotImplementedError(
             "int8 paged pools are not ported (ROADMAP A8)")
@@ -775,6 +786,10 @@ def paged_forward(
     )
     x = params["embed"]["embedding"][tokens.long()].to(adt)
     active = attn_mask[:, 0]
+    if T > 1:
+        steps = torch.arange(T, device=device, dtype=torch.int32)
+        active = (active & (attn_mask == attn_mask[:, :1]).all(dim=1)
+                  & (positions == positions[:, :1] + steps).all(dim=1))
     q_pos_row = torch.where(active, positions[:, 0], -1).to(torch.int32)
 
     lp = params["layers"]
@@ -786,9 +801,12 @@ def paged_forward(
             cache_index=None, cos=cos, sin=sin, bias_new=None, impl="paged",
             paged=(cache, q_pos_row, i),
         )
-        new_k.append(k)
-        new_v.append(v)
+        if write_back:
+            new_k.append(k)
+            new_v.append(v)
     logits = lm_head_logits(params, x, config) if compute_logits else None
+    if not write_back:
+        return logits, cache
 
     blk, off, _ = paged_write_indices(
         cache.table, cache.fill, active, T, NB, BLK)

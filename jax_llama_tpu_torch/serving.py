@@ -1,5 +1,6 @@
 """Continuous batching over a paged (block-table) KV cache (port of
-``jax_llama_tpu/serving.py`` at its greedy/sampled core).
+``jax_llama_tpu/serving.py`` at its greedy/sampled core and its
+speculative path).
 
 Requests enter and leave a fixed set of ``n_slots`` rows independently.
 KV lives in a pool of fixed-size blocks, ``[L, KVH, n_blocks, block_size,
@@ -12,7 +13,8 @@ in the queue.
   right-padded ``[k', P]`` forward (``attn_impl="auto"`` runs the flash
   kernel) into a fresh scalar-index ``KVCache``, whose blocks are then
   copied into each row's reserved pool blocks.  The first token is sampled
-  from each row's last real token.
+  from each row's last real token.  With a draft model the draft pool is
+  prefilled over the same blocks (its sampled tokens are discarded).
 * Decode (``_chunk_scan``): up to ``decode_chunk`` iterations per
   ``step()``, a Python loop over device tensors.  Each iteration emits the
   pending token, detects stop tokens and spent budgets on the device, then
@@ -22,26 +24,37 @@ in the queue.
   ``decode_kernel="gathered"``, the gathered view (``_gather_cache`` +
   ``_scatter_back``).  The host fetches the ``[B, K]`` token block once
   per step.
+* Speculative decode (``draft_params``; ``_spec_round_core``): each round
+  the draft proposes ``n_draft`` tokens by replaying the growing block
+  through one ``[n_slots, n_draft + 1]`` forward per token over its pool,
+  one more pass lands the block's draft KV, and the target verifies the
+  block in one forward; every one of these runs the paged kernel at
+  T = n_draft + 1.  Greedy rows accept the matching prefix, sampled rows
+  run Leviathan rejection sampling (``spec_decode``).  ``spec_rounds`` > 1
+  runs up to that many rounds per ``step()`` with one packed fetch
+  (``_spec_rounds_chunk``), token-identical to ``spec_rounds=1``.
 * Per-row decode state (table, n_alloc, fill, pos, active, remaining, stop
   sets, sampling policies) lives on the device.  Admission, frees and
   cancels mark rows dirty, and one packed upload syncs those rows before
   the next step, so a steady-state step uploads nothing and fetches once.
 * Sampling: each sampled request owns a ``torch.Generator`` on the
   batcher's device, seeded with its ``seed`` or ``default_seed(rid)``, and
-  emits what ``engine.generate`` at B=1 with that generator emits.
+  emits what ``engine.generate`` at B=1 with that generator emits; under
+  speculation, what ``spec_decode.generate_speculative`` at B=1 emits.
 
 Not in this slice; each raises ``NotImplementedError`` at construction,
-naming its ROADMAP item: speculative decoding (A10), meshes (A14),
-logprobs (A17), fused prefill-decode (A9), the prefix cache and host tier
-(A11), observability, fault injection and cost models (A7), kernel
-selection other than flash prefill and paged/gathered decode (A15), and
-int8 KV (A8).  Because the prefix cache is out, the port's defaults are
-``prefix_cache=False`` and ``prefix_index="off"``; the JAX package's are
-``True`` and ``"radix"``.
+naming its ROADMAP item: meshes (A14), logprobs (A17), fused
+prefill-decode (A9), the prefix cache and host tier (A11), observability,
+fault injection and cost models (A7), kernel selection other than flash
+prefill and paged/gathered decode (A15), and int8 KV (A8), for the target
+and for the draft.  Because the prefix cache is out, the port's defaults
+are ``prefix_cache=False`` and ``prefix_index="off"``; the JAX package's
+are ``True`` and ``"radix"``.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -53,16 +66,24 @@ from .engine import prompt_positions
 from .models.llama import (
     KVCache,
     PagedKVCache,
+    _cache_write,
     _params_device,
     forward,
     init_cache,
     lm_head_logits,
+    paged_forward,
     paged_pool_write,
     paged_write_indices,
     resolve_device,
 )
 from .ops.attention import NEG_INF
-from .ops.sampling import stop_token_hits
+from .ops.sampling import greedy, stop_token_hits
+from .spec_decode import (
+    accepted_emit_counts,
+    draft_categorical,
+    leviathan_verify,
+    place_extra,
+)
 
 # "No token emitted this chunk column" marker in the [B, K] token block
 # (the row was already inactive).  Distinct from the -1 non-finite
@@ -197,6 +218,19 @@ def _warp_rows(
     thr = torch.minimum(thr, scaled.amax(dim=-1, keepdim=True))
     nucleus = torch.where(p < 1.0, thr, float("-inf"))
     return torch.where(scaled >= nucleus, scaled, NEG_INF)
+
+
+def warped_probs_rows(
+    logits: torch.Tensor,       # [B, V] or [B, T, V]
+    temperature: torch.Tensor,  # [B] float32 (> 0 rows meaningful)
+    top_p: torch.Tensor,        # [B] float32; 1.0 = off
+    top_k: torch.Tensor,        # [B] int32; 0 (or V) = off
+) -> torch.Tensor:
+    """Per-row ``ops.sampling.warped_probs`` with per-row policies (JAX
+    :456): the same warp as ``sample_rows``, returning the whole post-warp
+    distribution, the p and q of speculative accept/resample."""
+    return torch.softmax(_warp_rows(logits, temperature, top_p, top_k),
+                         dim=-1)
 
 
 def sample_rows(
@@ -349,6 +383,181 @@ def _paged_insert(
     return tau
 
 
+def _spec_round_core(
+    t_params, d_params, t_pool, d_pool, table, n_alloc, fill, tau, pos,
+    active, generators, temperature, top_p, top_k, *, t_config, d_config,
+    n_draft, use_kernel,
+):
+    """One speculative round for every active slot (JAX :1146), greedy or
+    sampled verification per row, both pools updated in place.
+
+    1. Draft chain: each of the n_draft steps replays the growing block
+       ``[tau, d_1..d_j, 0..]`` through ONE [B, n_draft+1] draft forward
+       over the base pool, which it does not write; token j's logits are
+       row j of the result (rows past j are causally masked from it).  In
+       self-draft every chain step is then the same function of the same
+       bytes as the verify below, so greedy acceptance is exact (JAX
+       :1217-1245).
+    2. One more draft pass lands the block's KV in the draft pool; one
+       target pass over the same block verifies it and lands its KV.
+    3. Greedy rows accept the matching prefix; sampled rows (a generator
+       and temperature > 0) run ``leviathan_verify``, drawing from their
+       own generator the n_draft draft tokens (in step 1), then n_draft
+       uniforms, then the replacement/bonus token.  A row whose target
+       logits hold NaN/Inf anywhere in the block gets acc = -1.
+    4. Commit: slot j of the block (tau, then d_j) stays valid iff
+       j <= acc; the rest are marked pos -1 in both pools (no rollback;
+       the host advances fill by acc+1, so they are reused).
+
+    With ``use_kernel`` every forward is ``paged_forward`` (the paged
+    kernel at T = n_draft+1); otherwise both pools go through gathered
+    views (the tests' oracle).  Returns (outs [B, G+1] int32: the host
+    emits ``outs[:acc]`` and keeps ``outs[acc]`` as the next pending
+    token; acc [B] int32)."""
+    G = n_draft
+    B = tau.shape[0]
+    dev = tau.device
+    NB, BLK = t_pool.pos.shape
+    jj = torch.arange(G + 1, device=dev, dtype=torch.int32)[None, :]
+    block_pos = torch.where(active[:, None], pos[:, None] + jj, -1)
+    mask = active[:, None].expand(B, G + 1)
+    block = torch.cat(
+        [tau[:, None], torch.zeros((B, G), dtype=torch.int32, device=dev)],
+        dim=1)
+    drawing = [b for b, g in enumerate(generators) if g is not None]
+    if use_kernel:
+        t_cache = PagedKVCache(t_pool.k, t_pool.v, t_pool.pos, table, fill)
+        d_cache = PagedKVCache(d_pool.k, d_pool.v, d_pool.pos, table, fill)
+    else:
+        t_cache = _gather_cache(t_pool, table, n_alloc, fill)
+        d_cache = _gather_cache(d_pool, table, n_alloc, fill)
+
+    def run(params, config, cache, **kw):
+        if use_kernel:
+            return paged_forward(params, block, block_pos, config, cache,
+                                 attn_mask=mask, **kw)[0]
+        return forward(params, block, block_pos, config, cache=cache,
+                       attn_mask=mask, **kw)[0]
+
+    qprobs = []
+    for j in range(G):
+        if use_kernel:
+            lg = run(d_params, d_config, d_cache, write_back=False)
+        else:
+            # The view is a copy: this step's K/V land in slots that the
+            # view's own position plane (untouched: the step writes a
+            # clone) keeps masked, and the landing pass rewrites them.
+            scratch = dataclasses.replace(d_cache, pos=d_cache.pos.clone())
+            lg = run(d_params, d_config, scratch)
+        lg = lg[:, j]
+        nxt = greedy(lg)
+        if drawing:
+            q = warped_probs_rows(lg, temperature, top_p, top_k)
+            drawn = nxt.clone()
+            for b in drawing:
+                drawn[b] = draft_categorical(generators[b], q[b:b + 1])[0]
+            nxt = torch.where(temperature <= 0.0, nxt, drawn)
+            qprobs.append(q)
+        block[:, j + 1] = nxt
+    drafts = block[:, 1:]
+    run(d_params, d_config, d_cache, compute_logits=False)
+    t_logits = run(t_params, t_config, t_cache)
+
+    outs = greedy(t_logits)  # [B, G+1]
+    acc = torch.cumprod((drafts == outs[:, :G]).to(torch.int32), dim=1
+                        ).sum(dim=1, dtype=torch.int32)
+    if drawing:
+        pprobs = warped_probs_rows(t_logits, temperature, top_p, top_k)
+        u = torch.zeros((B, G), dtype=torch.float32, device=dev)
+        for b in drawing:
+            u[b] = torch.rand((1, G), generator=generators[b], device=dev)[0]
+        acc_s, dist = leviathan_verify(pprobs, torch.stack(qprobs, dim=1),
+                                       drafts, u)
+        extra = torch.zeros((B,), dtype=torch.int32, device=dev)
+        for b in drawing:
+            extra[b] = draft_categorical(generators[b], dist[b:b + 1])[0]
+        is_greedy = temperature <= 0.0
+        outs = torch.where(is_greedy[:, None], outs,
+                           place_extra(drafts, acc_s, extra))
+        acc = torch.where(is_greedy, acc, acc_s)
+    acc = torch.where(torch.isfinite(t_logits).all(dim=-1).all(dim=-1),
+                      acc, -1)
+
+    patched = torch.where(jj <= acc[:, None], block_pos, -1)
+    if use_kernel:
+        blk, off, _ = paged_write_indices(table, fill, active, G + 1, NB,
+                                          BLK)
+        paged_pool_write(t_pool.pos, patched, blk, off)
+        paged_pool_write(d_pool.pos, patched, blk, off)
+    else:
+        for pool, view in ((t_pool, t_cache), (d_pool, d_cache)):
+            _cache_write(view.pos[..., None, None], patched[..., None, None],
+                         fill)
+            _scatter_back(pool, view, table, fill, active, T=G + 1)
+    return outs, acc
+
+
+def _spec_rounds_chunk(
+    t_params, d_params, t_pool, d_pool, table, n_alloc, fill, tau, pos,
+    active, remaining, stops, generators, temperature, top_p, top_k, *,
+    t_config, d_config, n_draft, n_rounds, use_kernel,
+):
+    """``n_rounds`` speculative rounds with one packed result (JAX :1434,
+    a Python loop over device tensors here).  Each round replays the
+    host's per-round contract (``_step_spec`` + ``_spec_tail``) on the
+    device:
+
+      1. emit the pending token ``tau`` (-1 for the non-finite sentinel,
+         ``_CHUNK_PAD`` for rows already inactive); a row whose token hits
+         its stops or spends its budget folds out before the round;
+      2. one ``_spec_round_core`` for the remaining rows;
+      3. the accepted-prefix emit (``accepted_emit_counts``): ``outs[:acc]``
+         until a stop token or the budget, fill/pos advance by acc+1 for
+         rows that go on, ``outs[acc]`` becomes the pending token, and a
+         finished or non-finite row folds out for the rest of the chunk.
+
+    Returns (packed [B, R, G+2] int32: each round's G+1 token columns and
+    its acceptance count (-1 non-finite, ``_CHUNK_PAD`` inactive); tau,
+    fill, pos, active, remaining)."""
+    G = n_draft
+    i = torch.arange(G, device=tau.device, dtype=torch.int32)[None, :]
+    rounds = []
+    for _ in range(n_rounds):
+        nonfinite = tau < 0
+        out0 = torch.where(active, torch.where(nonfinite, -1, tau),
+                           _CHUNK_PAD)
+        done0 = active & (nonfinite | stop_token_hits(tau, stops)
+                          | (remaining <= 1))
+        remaining = remaining - active.to(torch.int32)
+        active = active & ~done0
+        outs, acc = _spec_round_core(
+            t_params, d_params, t_pool, d_pool, table, n_alloc, fill, tau,
+            pos, active, generators, temperature, top_p, top_k,
+            t_config=t_config, d_config=d_config, n_draft=G,
+            use_kernel=use_kernel,
+        )
+        verify_nan = active & (acc < 0)
+        acc_c = acc.clamp(0, G)
+        e, any_done = accepted_emit_counts(
+            acc_c, stop_token_hits(outs[:, :G], stops), remaining)
+        emit = (i < e[:, None]) & (active & ~verify_nan)[:, None]
+        out_rest = torch.where(emit, outs[:, :G], _CHUNK_PAD)
+        acc_out = torch.where(active, torch.where(verify_nan, -1, acc_c),
+                              _CHUNK_PAD)
+        cont = active & ~verify_nan & ~any_done
+        adv = torch.where(cont, acc_c + 1, 0)
+        fill = fill + adv
+        pos = pos + adv
+        remaining = remaining - torch.where(active & ~verify_nan, e, 0)
+        new_tau = torch.gather(outs, 1, acc_c.long()[:, None])[:, 0]
+        tau = torch.where(cont, new_tau, tau)
+        active = cont
+        rounds.append(torch.cat([out0[:, None], out_rest, acc_out[:, None]],
+                                dim=1))
+    packed = torch.stack(rounds, dim=1).to(torch.int32)  # [B, R, G+2]
+    return packed, tau, fill, pos, active, remaining
+
+
 # ---------------------------------------------------------------------------
 # Host-side batcher
 # ---------------------------------------------------------------------------
@@ -393,9 +602,15 @@ class ContinuousBatcher:
     raises).  One difference: the prefix cache is not ported, so
     ``prefix_cache`` defaults to False and ``prefix_index`` to "off";
     asking for it raises NotImplementedError (ROADMAP A11).  The other
-    arguments outside this slice raise as the module docstring lists;
-    ``draft_config``, ``n_draft`` and ``spec_rounds`` act only with
-    ``draft_params``, as in the JAX package, so they are accepted as is.
+    arguments outside this slice raise as the module docstring lists.
+
+    ``draft_params`` (with ``draft_config``, sharing the vocabulary)
+    turns on speculative decoding: each step drafts ``n_draft`` tokens
+    per slot and verifies them in one target forward, up to
+    ``spec_rounds`` rounds per step with one fetch (``decode_chunk`` is
+    not used then).  Greedy output is the plain batcher's; a draft the
+    target accepts whole (the target itself) gives
+    ``acceptance_rate() == 1.0``.
 
     ``n_blocks`` sizes the KV pool; the default matches contiguous
     capacity (n_slots × max_len).  A smaller pool overcommits: admission
@@ -450,11 +665,19 @@ class ContinuousBatcher:
                 f"unknown prefix_index {prefix_index!r}; "
                 "have ('radix', 'exact', 'off')"
             )
+        spec = draft_params is not None
+        if spec:
+            if draft_config is None:
+                raise ValueError("draft_params requires draft_config")
+            if draft_config.vocab_size != config.vocab_size:
+                raise ValueError("target and draft must share a vocabulary")
+            if n_draft < 1:
+                raise ValueError("n_draft must be >= 1")
+        draft_decode_kernel = (decode_kernel or draft_config.decode_kernel
+                               if spec else "paged")
         prefill_kernel = prefill_kernel or config.prefill_kernel
         decode_kernel = decode_kernel or config.decode_kernel
         unported = (
-            (draft_params is not None,
-             "draft_params (speculative decoding)", "A10"),
             (mesh is not None, "mesh (serving-mesh sharding)", "A14"),
             (logprobs, "logprobs=True", "A17"),
             (prefill_budget > 0,
@@ -470,18 +693,23 @@ class ContinuousBatcher:
             (decode_kernel not in ("paged", "gathered"),
              f"decode_kernel={decode_kernel!r}", "A15"),
             (config.kv_cache_dtype == "int8", "an int8 KV pool", "A8"),
+            (draft_decode_kernel not in ("paged", "gathered"),
+             f"a draft with decode_kernel={draft_decode_kernel!r}", "A15"),
+            (spec and draft_config.kv_cache_dtype == "int8",
+             "an int8 draft KV pool", "A8"),
         )
         for bad, what, item in unported:
             if bad:
                 raise NotImplementedError(
                     f"ContinuousBatcher: {what} is not ported "
                     f"(ROADMAP {item})")
-        if config.attn_impl not in ("xla", "auto"):
-            raise ValueError(
-                "continuous batching requires attn_impl 'xla' or 'auto' "
-                "(per-row cache offsets run on the xla path)"
-            )
-        config.validate()
+        for c in (config, draft_config) if spec else (config,):
+            if c.attn_impl not in ("xla", "auto"):
+                raise ValueError(
+                    "continuous batching requires attn_impl 'xla' or 'auto' "
+                    "(per-row cache offsets run on the xla path)"
+                )
+            c.validate()
         device = resolve_device(device)
         pdev = _params_device(params)
         if device.type != pdev.type or (
@@ -490,10 +718,19 @@ class ContinuousBatcher:
                 f"params live on {pdev}, the batcher was asked to run on "
                 f"{device}")
         self.device = pdev
+        if spec and _params_device(draft_params) != pdev:
+            raise ValueError(
+                f"draft_params live on {_params_device(draft_params)}, the "
+                f"target's on {pdev}")
         if decode_kernel == "gathered":
             use_pallas_kernel = False
         self.params = params
         self.config = config
+        self.spec = spec
+        self.draft_params = draft_params
+        self.draft_config = draft_config
+        self.n_draft = n_draft
+        self.spec_rounds = max(1, int(spec_rounds))
         self.use_pallas_kernel = use_pallas_kernel
         self.n_slots = n_slots
         self.max_len = max_len or config.max_seq_len
@@ -515,6 +752,9 @@ class ContinuousBatcher:
         self.decode_chunk = max(1, int(decode_chunk))
         self.pool = init_pool(config, self.n_blocks, self.block_size,
                               device=self.device)
+        self.draft_pool = (
+            init_pool(draft_config, self.n_blocks, self.block_size,
+                      device=self.device) if spec else None)
         self.free_blocks: List[int] = list(range(self.n_blocks))
         self.failed: List[Tuple[int, str]] = []
 
@@ -563,6 +803,15 @@ class ContinuousBatcher:
         self.nonfinite_rows_total = 0
         self._admit_dispatches = 0
         self._admits_at_last_chunk = 0
+        # Speculative counters (zero without a draft model).
+        self.drafts_proposed = 0
+        self.drafts_accepted = 0
+        self.spec_rounds_last = 0
+        self.spec_dispatches_total = 0
+        self.spec_host_syncs_total = 0
+        self.spec_emitted_total = 0
+        self._accept_window: collections.deque = collections.deque(
+            maxlen=64)
 
         self.slots: Dict[int, Optional[_Slot]] = {
             b: None for b in range(n_slots)
@@ -649,6 +898,21 @@ class ContinuousBatcher:
         out, self.failed = self.failed, []
         return out
 
+    def acceptance_rate(self) -> float:
+        """Fraction of proposed draft tokens accepted (speculative mode)."""
+        if not self.drafts_proposed:
+            return 0.0
+        return self.drafts_accepted / self.drafts_proposed
+
+    def _window_acceptance(self) -> float:
+        """Acceptance over the recent spec-dispatch window (the last 64
+        dispatches that proposed drafts)."""
+        window = list(self._accept_window)
+        proposed = sum(p for p, _ in window)
+        if not proposed:
+            return 0.0
+        return sum(a for _, a in window) / proposed
+
     def stats(self) -> Dict[str, float]:
         """Counters, under the JAX package's ``stats()`` names where it has
         them (``insert_dispatches_total`` is the port's: prefill
@@ -668,6 +932,15 @@ class ContinuousBatcher:
             "state_uploads_total": self.state_uploads_total,
             "host_syncs_per_token": (
                 self.host_syncs_total / max(1, self.emitted_total)),
+            "drafts_proposed_total": self.drafts_proposed,
+            "drafts_accepted_total": self.drafts_accepted,
+            "draft_acceptance_rate": self.acceptance_rate(),
+            "spec_rounds_per_dispatch": self.spec_rounds_last,
+            "spec_dispatches_total": self.spec_dispatches_total,
+            "spec_host_syncs_per_token": (
+                self.spec_host_syncs_total
+                / max(1, self.spec_emitted_total)),
+            "spec_window_acceptance_rate": self._window_acceptance(),
         }
 
     @torch.no_grad()
@@ -679,6 +952,8 @@ class ContinuousBatcher:
         self._admit()
         if not any(s is not None for s in self.slots.values()):
             return []
+        if self.spec:
+            return self._step_spec()
         return self._step_chunked()
 
     def run_to_completion(self) -> Dict[int, List[int]]:
@@ -691,11 +966,13 @@ class ContinuousBatcher:
 
     # -- internals ----------------------------------------------------------
 
-    def _pick_chunk(self, admitted: bool) -> int:
+    def _pick_chunk(self, admitted: bool, cap: Optional[int] = None) -> int:
         """K for the next chunk (JAX :2767): 1 right after an admission,
         at most _QUEUED_CHUNK_CAP while requests wait, else the largest
-        power of two <= min(decode_chunk, the largest remaining budget)."""
-        cap = self.decode_chunk
+        power of two <= min(cap, the largest remaining budget).  ``cap``
+        defaults to ``decode_chunk``; the speculative path passes
+        ``spec_rounds`` (a round emits at least one token)."""
+        cap = self.decode_chunk if cap is None else cap
         if cap <= 1 or admitted:
             return 1
         rem = max(s.max_new - len(s.emitted)
@@ -756,16 +1033,13 @@ class ContinuousBatcher:
         self.steps_total += K
         self.decode_dispatches_total += 1
         self.decode_chunk_last = K
-        generators = [
-            self.generators[b] if s is not None and self.temp_arr[b] > 0
-            else None for b, s in self.slots.items()
-        ]
         (toks, self.tau, self.d_fill, self.d_pos, self.d_active,
          self.d_remaining) = _chunk_scan(
             self.params, self.pool, self.d_table, self.d_n_alloc,
             self.d_fill, self.tau, self.d_pos, self.d_active,
-            self.d_remaining, self.d_stops, generators, self.d_temps,
-            self.d_top_ps, self.d_top_ks, config=self.config, n_iter=K,
+            self.d_remaining, self.d_stops, self._generators_for_round(),
+            self.d_temps, self.d_top_ps, self.d_top_ks, config=self.config,
+            n_iter=K,
             use_kernel=self.use_pallas_kernel,
         )
         # The one device->host sync of the chunk.
@@ -785,10 +1059,7 @@ class ContinuousBatcher:
                 if tok < 0:
                     # The device already folded the row out; fail just this
                     # request (tokens before the sentinel were emitted).
-                    self.failed.append((slot.request_id,
-                                        self._NONFINITE_MSG))
-                    self.nonfinite_rows_total += 1
-                    self._free_slot(b, device_done=True)
+                    self._fail_slot(b, device_done=True)
                     ended = True
                     break
                 slot.emitted.append(tok)
@@ -810,6 +1081,205 @@ class ContinuousBatcher:
         self._admit()
         return out
 
+    def _generators_for_round(self) -> List[Optional[torch.Generator]]:
+        """Each slot's generator where its request samples, else None (the
+        rows a decode iteration or speculative round draws for)."""
+        return [self.generators[b] if s is not None and self.temp_arr[b] > 0
+                else None for b, s in self.slots.items()]
+
+    def _emit(self, b: int, tok: int, out: List[Tuple[int, int, bool]]
+              ) -> bool:
+        """Deliver one token of slot ``b`` on a speculative step; True when
+        its request is done (a stop token or the budget spent)."""
+        slot = self.slots[b]
+        slot.emitted.append(tok)
+        self.emitted_total += 1
+        self.spec_emitted_total += 1
+        done = tok in slot.stop_tokens or len(slot.emitted) >= slot.max_new
+        out.append((slot.request_id, tok, done))
+        return done
+
+    def _step_spec(self) -> List[Tuple[int, int, bool]]:
+        """Speculative step (JAX :3135).  ``spec_rounds`` > 1 takes the
+        chunked path; ``spec_rounds=1`` is the per-round loop, the oracle
+        the chunked path is held to: emit each slot's pending token, free
+        finished slots before the round (a finishing request does not pay
+        for a draft and a verify whose output it would drop), then one
+        round (``_spec_tail``)."""
+        if self.spec_rounds > 1:
+            return self._step_spec_chunked()
+        out: List[Tuple[int, int, bool]] = []
+        taus = self.tau.cpu().numpy()
+        self.host_syncs_total += 1
+        self.spec_host_syncs_total += 1
+        for b, slot in self.slots.items():
+            if slot is None:
+                continue
+            tok = int(taus[b])
+            if tok < 0:
+                self._fail_slot(b)
+                continue
+            if self._emit(b, tok, out):
+                self._free_slot(b)
+        if any(s is not None for s in self.slots.values()):
+            self.steps_total += 1
+            self.decode_dispatches_total += 1
+            self.spec_dispatches_total += 1
+            self.decode_chunk_last = self.spec_rounds_last = 1
+            self._spec_tail(out)
+        self._admit()
+        return out
+
+    def _spec_tail(self, out: List[Tuple[int, int, bool]]) -> None:
+        """One round of the per-round loop (JAX :3451): upload the host
+        mirrors (one packed copy), draft and verify, fetch outs and acc
+        (one packed copy), emit the accepted prefix, advance fill/pos by
+        acc+1, and keep ``outs[acc]`` as the next pending token."""
+        G = self.n_draft
+        B = self.n_slots
+        MB = self.table.shape[1]
+        packed = np.concatenate([
+            self.table,
+            np.stack([self.n_alloc, self.fill, self.pos, self.active,
+                      self.top_k_arr, self.temp_arr.view(np.int32),
+                      self.top_p_arr.view(np.int32)], axis=1),
+        ], axis=1).astype(np.int32)
+        up = torch.from_numpy(packed).to(self.device)
+        self.state_uploads_total += 1
+        n_alloc, fill, pos, active, top_k, temps, top_ps = up[:, MB:].unbind(1)
+        outs, acc = _spec_round_core(
+            self.params, self.draft_params, self.pool, self.draft_pool,
+            up[:, :MB].contiguous(), n_alloc, fill, self.tau, pos,
+            active.bool(),
+            self._generators_for_round(), temps.view(torch.float32),
+            top_ps.view(torch.float32), top_k, t_config=self.config,
+            d_config=self.draft_config, n_draft=G,
+            use_kernel=self.use_pallas_kernel,
+        )
+        arr = torch.cat([outs, acc[:, None]], dim=1).cpu().numpy()
+        self.host_syncs_total += 1
+        self.spec_host_syncs_total += 1
+        round_proposed = round_accepted = 0
+        new_tau = np.zeros((B,), np.int32)
+        for b, slot in self.slots.items():
+            if slot is None:
+                continue
+            a = int(arr[b, G + 1])
+            if a < 0:
+                # The verify's non-finite sentinel: the round was not
+                # committed (its slots were invalidated); fail the request.
+                self._fail_slot(b)
+                continue
+            self.drafts_proposed += G
+            self.drafts_accepted += a
+            round_proposed += G
+            round_accepted += a
+            done = False
+            for i in range(a):
+                done = self._emit(b, int(arr[b, i]), out)
+                if done:
+                    break
+            if done:
+                self._free_slot(b)
+            else:
+                new_tau[b] = arr[b, a]
+                self.fill[b] += a + 1
+                self.pos[b] += a + 1
+                self.remaining[b] = slot.max_new - len(slot.emitted)
+        if round_proposed:
+            self._accept_window.append((round_proposed, round_accepted))
+        self.tau = torch.from_numpy(new_tau).to(self.device)
+
+    def _step_spec_chunked(self) -> List[Tuple[int, int, bool]]:
+        """Speculative step, fused (JAX :3221): ONE ``_spec_rounds_chunk``
+        runs R rounds with the pending-token emit, the accepted-prefix
+        emit, stop/budget/non-finite folding and the fill advance on the
+        device; the host fetches the packed [B, R, G+2] block once and
+        replays it to advance its mirrors and produce the events, token
+        for token (and acceptance for acceptance) what the per-round loop
+        produces.  State lives in the device twins, synced for dirty rows
+        only, as in ``_step_chunked``."""
+        admitted = self._admit_dispatches > self._admits_at_last_chunk
+        self._admits_at_last_chunk = self._admit_dispatches
+        R = self._pick_chunk(admitted, cap=self.spec_rounds)
+        self._sync_device_rows()
+        self.steps_total += R
+        self.decode_dispatches_total += 1
+        self.spec_dispatches_total += 1
+        self.decode_chunk_last = self.spec_rounds_last = R
+        G = self.n_draft
+        (packed, self.tau, self.d_fill, self.d_pos, self.d_active,
+         self.d_remaining) = _spec_rounds_chunk(
+            self.params, self.draft_params, self.pool, self.draft_pool,
+            self.d_table, self.d_n_alloc, self.d_fill, self.tau, self.d_pos,
+            self.d_active, self.d_remaining, self.d_stops,
+            self._generators_for_round(), self.d_temps, self.d_top_ps,
+            self.d_top_ks, t_config=self.config, d_config=self.draft_config,
+            n_draft=G, n_rounds=R, use_kernel=self.use_pallas_kernel,
+        )
+        # The one device->host sync of the chunk.
+        arr = packed.cpu().numpy()
+        self.host_syncs_total += 1
+        self.spec_host_syncs_total += 1
+
+        out: List[Tuple[int, int, bool]] = []
+        round_proposed = round_accepted = 0
+        for b, slot in self.slots.items():
+            if slot is None:
+                continue
+            fill_adv = 0
+            ended = False
+            for r in range(R):
+                tok0 = int(arr[b, r, 0])
+                if tok0 == _CHUNK_PAD:
+                    break  # folded out before this round
+                if tok0 < 0:
+                    self._fail_slot(b, device_done=True)
+                    ended = True
+                    break
+                if self._emit(b, tok0, out):
+                    # The device made the same call before the round.
+                    self._free_slot(b, device_done=True)
+                    ended = True
+                    break
+                a = int(arr[b, r, G + 1])
+                assert a >= -1, (b, r, a)
+                if a < 0:
+                    # The verify's non-finite sentinel: nothing committed.
+                    self._fail_slot(b, device_done=True)
+                    ended = True
+                    break
+                self.drafts_proposed += G
+                self.drafts_accepted += a
+                round_proposed += G
+                round_accepted += a
+                for i in range(a):
+                    tok = int(arr[b, r, 1 + i])
+                    if tok == _CHUNK_PAD:
+                        break
+                    if self._emit(b, tok, out):
+                        self._free_slot(b, device_done=True)
+                        ended = True
+                        break
+                if ended:
+                    break
+                fill_adv += a + 1
+            if not ended:
+                self.fill[b] += fill_adv
+                self.pos[b] += fill_adv
+                self.remaining[b] = slot.max_new - len(slot.emitted)
+        if round_proposed:
+            self._accept_window.append((round_proposed, round_accepted))
+        self._admit()
+        return out
+
+    def _fail_slot(self, b: int, device_done: bool = False) -> None:
+        """Fail slot ``b``'s request with the non-finite message and free
+        the slot."""
+        self.failed.append((self.slots[b].request_id, self._NONFINITE_MSG))
+        self.nonfinite_rows_total += 1
+        self._free_slot(b, device_done=device_done)
+
     def _alloc_blocks(self, n: int) -> List[int]:
         assert n <= len(self.free_blocks), "allocation past capacity"
         out, self.free_blocks = self.free_blocks[:n], self.free_blocks[n:]
@@ -826,6 +1296,8 @@ class ContinuousBatcher:
         if slot.blocks:
             ids = torch.as_tensor(slot.blocks, device=self.device)
             self.pool.pos[ids] = -1
+            if self.spec:
+                self.draft_pool.pos[ids] = -1
             self.free_blocks.extend(slot.blocks)
         self.slots[b] = None
         self.generators[b] = None
@@ -918,6 +1390,17 @@ class ContinuousBatcher:
                 generators, temps, top_ps, top_ks, config=self.config,
                 prefill_chunk=self.prefill_chunk,
             )
+            if self.spec:
+                # The draft pool over the same blocks; its greedy first
+                # tokens are dropped (the target picks tau, and a sampled
+                # request's generator is drawn by the target insert only).
+                _paged_insert(
+                    self.draft_params, self.draft_pool, bid, up[:, :P],
+                    up[:, P:2 * P].bool(), [None] * kb,
+                    torch.zeros_like(temps), torch.ones_like(top_ps),
+                    torch.zeros_like(top_ks), config=self.draft_config,
+                    prefill_chunk=self.prefill_chunk,
+                )
             slot_ids = free_slots[:k]
             self.tau[torch.as_tensor(slot_ids, device=self.device)] = taus[:k]
             for i, req in enumerate(picked):

@@ -3,6 +3,9 @@ package on the same numpy inputs (CPU, float32).  The JAX Pallas kernel
 runs in interpret mode, as the JAX package's own tests run it on the CPU;
 the port's wrapper runs its plain version on CPU tensors.
 
+Both run at T = 1 (a decode token) and T > 1 (the speculative verify
+block, queries packed r = t*G + g at consecutive positions).
+
 Tolerances: attention out/lse atol 1e-5 (summation order); logits of a
 paged forward step atol 2e-4 (PARITY.md row 2.16, as in
 test_torch_model.py); pool positions after the write-back identical, and
@@ -34,6 +37,16 @@ from jax_llama_tpu_torch.models import llama as pllama
 from paged_inputs import pool_state
 
 pa = importlib.import_module("jax_llama_tpu_torch.ops.paged_attention")
+
+
+def multi_token_q_pos(fills, inactive, T):
+    """First-token positions for T consecutive query tokens per row: the
+    last token sits at the row's fill, so the early tokens miss the row's
+    last T-1 slots (a tile can be live only for the later tokens); a row
+    whose pool is empty starts at 0 (its first token sees no pool slot)
+    and ``inactive`` rows are -1."""
+    return np.asarray([-1 if b in inactive else max(f - (T - 1), 0)
+                       for b, f in enumerate(fills)], np.int32)
 
 ATOL = 1e-5
 CFG = dict(vocab_size=128, dim=64, n_layers=2, n_heads=4, n_kv_heads=2,
@@ -103,11 +116,71 @@ def test_decode_attention_matches_jax():
     assert got.shape == (B, 1, KVH * G, d)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
                                rtol=0)
-    with pytest.raises(NotImplementedError, match="A10"):
-        pa.paged_decode_attention(
-            *(torch.from_numpy(np.repeat(a, 2, axis=1))
-              for a in (q, kn, vn)),
-            *(torch.from_numpy(a) for a in (k, v, pos, table, q_pos)))
+
+
+# T > 1: (B, KVH, G, T, d, BLK, MB, L, layer, fills, inactive).  Each
+# row's last token sits at its fill (``multi_token_q_pos``), so with
+# BLK = 8 a fill of 17 leaves position 16 alone in its block: a tile live
+# only for the last tokens.  A fill of 0 is an active row whose first
+# token sees an empty pool.
+MULTI = {
+    "g2": (5, 2, 2, 16, 8, 6, 3, 2, (37, 20, 17, 0, 30), (4,)),
+    "g4": (4, 2, 4, 32, 8, 6, 1, 0, (40, 0, 17, 9), (1,)),
+}
+
+
+@pytest.mark.parametrize("T", [2, 5])
+@pytest.mark.parametrize("name", sorted(MULTI))
+def test_pool_attention_multi_token_matches_jax(name, T):
+    B, KVH, G, d, BLK, MB, L, layer, fills, inactive = MULTI[name]
+    k, v, pos, table, _ = pool_state(11, B, KVH, d, BLK, MB, L, fills,
+                                     inactive)
+    q_pos = multi_token_q_pos(fills, inactive, T)
+    q = np.random.default_rng(12).standard_normal(
+        (B, KVH, T * G, d)).astype(np.float32)
+    want_o, want_l = jax_pool_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(pos),
+        jnp.asarray(table), jnp.asarray(q_pos), t_tokens=T,
+        layer=jnp.int32(layer))
+    got_o, got_l = pa.paged_pool_attention(
+        *(torch.from_numpy(a) for a in (q, k, v, pos, table, q_pos)),
+        layer=layer, t_tokens=T)
+    assert got_o.shape == (B, KVH, T * G, d)
+    np.testing.assert_allclose(got_o.numpy(), np.asarray(want_o), atol=ATOL,
+                               rtol=0)
+    np.testing.assert_allclose(got_l.numpy(), np.asarray(want_l), atol=ATOL,
+                               rtol=1e-6)
+    lse = got_l.numpy().reshape(B, KVH, T, G)
+    dead = np.float32(pa.MASK_VALUE)
+    # the empty-pool row's tokens and the inactive row see nothing
+    for b, f in enumerate(fills):
+        if f == 0 or b in inactive:
+            assert (lse[b] == dead).all()
+    # the row of fill 17: tokens 0..T-2 miss position 16, the last sees it
+    r17 = fills.index(17)
+    assert q_pos[r17] == 17 - (T - 1)
+    assert (lse[r17] != dead).all()
+
+
+@pytest.mark.parametrize("T", [2, 5])
+def test_decode_attention_multi_token_matches_jax(T):
+    B, KVH, G, d, BLK, MB, L, layer, fills, inactive = MULTI["g2"]
+    k, v, pos, table, _ = pool_state(13, B, KVH, d, BLK, MB, L, fills,
+                                     inactive)
+    q_pos = multi_token_q_pos(fills, inactive, T)
+    rng = np.random.default_rng(14)
+    q = rng.standard_normal((B, T, KVH * G, d)).astype(np.float32)
+    kn = rng.standard_normal((B, T, KVH, d)).astype(np.float32)
+    vn = rng.standard_normal((B, T, KVH, d)).astype(np.float32)
+    want = jax_decode_attention(
+        *(jnp.asarray(a) for a in (q, kn, vn, k, v, pos, table, q_pos)),
+        layer=jnp.int32(layer))
+    got = pa.paged_decode_attention(
+        *(torch.from_numpy(a) for a in (q, kn, vn, k, v, pos, table, q_pos)),
+        layer=layer)
+    assert got.shape == (B, T, KVH * G, d)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
+                               rtol=0)
 
 
 def test_write_indices_match_jax():
@@ -206,9 +279,64 @@ def test_paged_forward_rejects_unported_shapes(weights):
                                                              table)),
                              fill=torch.tensor([5, 9], dtype=torch.int32))
     toks = torch.ones((2, 2), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="T > 1"):
+    int8 = ptl.PagedKVCache(cache.k.to(torch.int8), cache.v.to(torch.int8),
+                            cache.pos, cache.table, cache.fill)
+    with pytest.raises(NotImplementedError, match="A8"):
         ptl.forward(pp, toks, torch.zeros((2, 2), dtype=torch.int32), pc,
-                    cache=cache)
+                    cache=int8)
     with pytest.raises(NotImplementedError, match="output_last_hidden"):
         ptl.forward(pp, toks[:, :1], torch.zeros((2, 1), dtype=torch.int32),
                     pc, cache=cache, output_last_hidden=True)
+
+
+@pytest.mark.parametrize("T", [3, 5])
+def test_paged_forward_multi_token_matches_jax(weights, T):
+    """paged_forward at T > 1 (the verify shape) against JAX's: logits of
+    the active rows, and the pool afterwards.  Row 1 is inactive, row 3
+    has an empty pool, and row 4 breaks the consecutive-positions
+    contract, so both packages fold it to inactive."""
+    jp, pp = weights
+    jc, pc = jlt.get_config("tiny", **CFG), ptl.get_config("tiny", **CFG)
+    B, BLK, MB = 5, 8, 6
+    L, KVH, d = CFG["n_layers"], CFG["n_kv_heads"], 16
+    fills = (30, 20, 9, 0, 12)
+    k, v, pos, table, q_pos = pool_state(15, B, KVH, d, BLK, MB, L, fills,
+                                         inactive=(1,))
+    fill = np.asarray(fills, np.int32)
+    active = q_pos >= 0
+    positions = np.where(active[:, None], q_pos[:, None] + np.arange(T),
+                         -1).astype(np.int32)
+    positions[4, -1] += 1  # not consecutive: folded to inactive
+    tokens = np.random.default_rng(16).integers(
+        1, CFG["vocab_size"], (B, T)).astype(np.int32)
+    mask = np.broadcast_to(active[:, None], (B, T))
+    jcache = JPagedKVCache(k=jnp.asarray(k), v=jnp.asarray(v),
+                           pos=jnp.asarray(pos), table=jnp.asarray(table),
+                           fill=jnp.asarray(fill))
+    want, jnew = jlt.forward(jp, jnp.asarray(tokens), jnp.asarray(positions),
+                             jc, cache=jcache, attn_mask=jnp.asarray(mask))
+    pcache = ptl.PagedKVCache(
+        *(torch.from_numpy(a.copy()) for a in (k, v, pos, table, fill)))
+    got, pnew = ptl.forward(pp, torch.from_numpy(tokens),
+                            torch.from_numpy(positions), pc, cache=pcache,
+                            attn_mask=torch.from_numpy(mask.copy()))
+    assert pnew is pcache and got.shape == (B, T, CFG["vocab_size"])
+    live = np.array([True, False, True, True, False])
+    np.testing.assert_allclose(got.numpy()[live], np.asarray(want)[live],
+                               atol=2e-4, rtol=0)
+    np.testing.assert_array_equal(pnew.pos.numpy(), np.asarray(jnew.pos))
+    written = np.asarray(jnew.pos) != pos
+    assert written.sum() == live.sum() * T
+    for got_p, want_p in ((pnew.k, jnew.k), (pnew.v, jnew.v)):
+        np.testing.assert_allclose(got_p.numpy(), np.asarray(want_p),
+                                   atol=ATOL, rtol=0)
+    # write_back=False: the same logits, the pool untouched
+    again = ptl.PagedKVCache(
+        *(torch.from_numpy(a.copy()) for a in (k, v, pos, table, fill)))
+    lg, _ = pllama.paged_forward(pp, torch.from_numpy(tokens),
+                                 torch.from_numpy(positions), pc, again,
+                                 attn_mask=torch.from_numpy(mask.copy()),
+                                 write_back=False)
+    torch.testing.assert_close(lg, got, atol=0, rtol=0)
+    for t, a in ((again.k, k), (again.v, v), (again.pos, pos)):
+        np.testing.assert_array_equal(t.numpy(), a)

@@ -22,10 +22,22 @@ from paged_inputs import pool_state
 pa = importlib.import_module("jax_llama_tpu_torch.ops.paged_attention")
 
 
-def _card_inputs(dtype, B, KVH, G, d, BLK, MB, L, fills, inactive):
+def multi_token_q_pos(fills, inactive, T):
+    """First-token positions for T consecutive query tokens per row: the
+    last token sits at the row's fill, so the early tokens miss the row's
+    last T-1 slots (a tile can be live only for the later tokens); a row
+    whose pool is empty starts at 0 (its first token sees no pool slot)
+    and ``inactive`` rows are -1."""
+    return np.asarray([-1 if b in inactive else max(f - (T - 1), 0)
+                       for b, f in enumerate(fills)], np.int32)
+
+
+def _card_inputs(dtype, B, KVH, G, d, BLK, MB, L, fills, inactive, T=1):
     k, v, pos, table, q_pos = pool_state(9, B, KVH, d, BLK, MB, L, fills,
                                          inactive)
-    q = np.random.default_rng(10).standard_normal((B, KVH, G, d))
+    if T > 1:
+        q_pos = multi_token_q_pos(fills, inactive, T)
+    q = np.random.default_rng(10).standard_normal((B, KVH, T * G, d))
     as_dt = [torch.from_numpy(a.astype(np.float32)).cuda().to(dtype)
              for a in (q, k, v)]
     return as_dt + [torch.from_numpy(a).cuda() for a in (pos, table, q_pos)]
@@ -60,6 +72,58 @@ def test_paged_kernel_matches_plain_on_card(name, dtype, atol):
     ro, rl = pa.paged_pool_attention_reference(*args, layer=layer)
     torch.testing.assert_close(out, ro, atol=atol, rtol=0)
     torch.testing.assert_close(lse, rl, atol=1e-4, rtol=1e-5)
+
+
+# T > 1 (the speculative verify shape): (B, KVH, G, T, d, BLK, MB, L,
+# fills, inactive).  Each row's last token sits at its fill, so the early
+# tokens miss the last T-1 slots: a row of fill BLK*k + 1 holds one slot
+# in its last block, a tile live only for the later tokens.  A row of
+# fill 0 is active with an empty pool (its first token sees nothing).
+MULTI_CASES = {
+    "d128_g4_t4_blk128": (4, 8, 4, 4, 128, 128, 5, 2,
+                          (500, 129, 0, 548), ()),
+    "d128_g8_t4_blk62": (3, 2, 8, 4, 128, 62, 6, 2, (125, 0, 63), (2,)),
+    "d64_g2_t5_blk20": (4, 2, 2, 5, 64, 20, 5, 2, (41, 0, 70, 21), (3,)),
+    "d64_g4_t8_blk8": (3, 4, 4, 8, 64, 8, 8, 1, (33, 17, 0), ()),
+    "d128_g1_t2_blk8": (2, 4, 1, 2, 128, 8, 6, 1, (9, 40), ()),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [(torch.bfloat16, 1e-2),
+                                        (torch.float32, 1e-5)])
+@pytest.mark.parametrize("name", sorted(MULTI_CASES))
+def test_paged_kernel_multi_token_matches_plain_on_card(name, dtype, atol):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    B, KVH, G, T, d, BLK, MB, L, fills, inactive = MULTI_CASES[name]
+    args = _card_inputs(dtype, B, KVH, G, d, BLK, MB, L, fills, inactive, T)
+    before = dict(pa.paged_pool_attention.launches_by_t)
+    out, lse = pa.paged_pool_attention(*args, layer=L - 1, t_tokens=T)
+    torch.cuda.synchronize()
+    assert pa.paged_pool_attention.launches_by_t[T] == before.get(T, 0) + 1
+    ro, rl = pa.paged_pool_attention_reference(*args, layer=L - 1,
+                                               t_tokens=T)
+    assert out.shape == (B, KVH, T * G, d)
+    torch.testing.assert_close(out, ro, atol=atol, rtol=0)
+    torch.testing.assert_close(lse, rl, atol=1e-4, rtol=1e-5)
+    # the empty-pool row attends nothing at any token
+    for b, f in enumerate(fills):
+        if f == 0 and b not in inactive:
+            assert (lse[b] == pa.MASK_VALUE).all() and (out[b] == 0).all()
+
+
+@pytest.mark.cuda
+def test_paged_wrapper_rejects_rows_past_the_cap_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    q, k, v, pos, table, q_pos = _card_inputs(
+        torch.bfloat16, 3, 2, 8, 64, 24, 5, 2, (100, 30, 5), (1,), T=5)
+    assert q.shape[2] == 40 > pa.MAX_ROWS
+    with pytest.raises(ValueError, match="MAX_ROWS"):
+        pa.paged_pool_attention(q, k, v, pos, table, q_pos, t_tokens=5)
+    with pytest.raises(ValueError, match="t_tokens"):
+        pa.paged_pool_attention(q, k, v, pos, table, q_pos, t_tokens=3)
 
 
 @pytest.mark.cuda

@@ -255,7 +255,6 @@ def test_cancel_frees_the_slot_and_uploads_the_row(model):
 
 
 UNPORTED = [
-    (dict(draft_params={}), "A10"),
     (dict(mesh=object()), "A14"),
     (dict(logprobs=True), "A17"),
     (dict(prefill_budget=32), "A9"),
