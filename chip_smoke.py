@@ -117,7 +117,32 @@ raises and exits non-zero:
    float32 activations at 32 layers, where the greedy speculative tokens
    (perturbed draft) must equal the plain batcher's.  The 16 GB draft
    copy is freed before the next phase.
-8. train: ``train_step`` at llama3-8b width cut to 8 layers (a copy of
+   Phase 2 also holds the int8 kernels: ``flash_fwd_int8`` at the serving
+   insert shape (8 right-padded rows, P = 1024, K/V quantized with
+   ``quantize_kv``) in bf16 and float32 q, and the int8 paged kernel at
+   the serving shape (T = 1), the spec_verify shape (T = 4, bf16 and
+   float32) and a G = 8, T = 5 verify whose 40 packed rows the wrapper
+   runs as launches of 4 + 1 tokens (``launches_by_t`` must say so): each
+   packed row within ``REL_BOUND`` (bf16) or 1e-4 (float32) of its own
+   max |plain|, the lse within 1e-3; cold-L2, warm and plain times, SDPA
+   over a dequantized copy (the dequantize not timed) as the yardstick,
+   and a bound that counts 1 byte per K/V element plus 4 bytes per slot
+   and KV head for each scale plane.
+8. int8: ``quantize_params`` of the phase-3 weights with
+   ``kv_cache_dtype="int8"``.  ``int8_serving`` runs phase 5's 12
+   staggered requests through int8 pools, counted from zero: the int8
+   paged kernel once per layer per decode iteration (all at T = 1), the
+   int8 flash kernel once per layer per insert, no bf16 kernel; every
+   request its exact max_new tokens; the same figures as phase 5, and an
+   ``int8_vs_bf16_serving`` line puts them beside phase 5's with the
+   device ms by kernel group (int8 weights are cast to bf16 per call, so
+   they stream more bytes than bf16 weights in this port).
+   ``int8_paged_decode_invariant``: phase 6's float32 cell with int8
+   weights and pools (paged = gathered = ``engine.generate`` tokens).
+   ``int8_spec_serving``: phase 7's self-draft over int8 target and draft
+   pools: acceptance exactly 1.0, 160 int8 paged launches a round, all at
+   T = 4.  The int8 weights are freed before the next phase.
+9. train: ``train_step`` at llama3-8b width cut to 8 layers (a copy of
    the first 8 layers of phase 3's weights: params, grads and AdamW's
    two moments in bf16 at 32 layers would be ~64 GB beside the 16 GB of
    weights), bf16, remat "dots", attn_impl "flash", ``make_optimizer()``
@@ -135,8 +160,11 @@ raises and exits non-zero:
    xla path, loss rel < 1e-4 and every gradient's max abs error over its
    max |value| < 1e-3; and one ``train_step`` with attn_pdrop = resid_pdrop
    = 0.1 runs the dropout branch of all three kernels to a finite loss.
-9. kernels: one JSON object for every kernel of the port (the paged
-   kernel's serving and spec_verify shapes in one entry).
+10. kernels: one JSON object for every kernel instance of the port
+   (flash_fwd, flash_fwd_int8, paged_decode, paged_decode_int8,
+   flash_bwd_dq, flash_bwd_dkv), each with its launches on every path;
+   the paged entries hold their spec_verify (and, int8, split_verify)
+   shapes.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or outside a checkout of the repository, it exits non-zero before printing
@@ -212,6 +240,9 @@ SPEC_PROMPT, SPEC_NEW, SPEC_DRAFT, SPEC_ROUNDS = 500, 48, 3, 8
 SPEC_NOISE = 0.02
 SPEC_SAMPLED = dict(temperature=0.8, top_p=0.95, seed=1234)
 VERIFY_FILLS = (500, 516, 532, 548)
+# The C1 split check: G = 8 query heads per KV head at T = 5 tokens (40
+# packed rows, past the kernel's 32).
+SPLIT_VERIFY = (8, 5)
 
 
 def emit(obj) -> None:
@@ -283,17 +314,20 @@ def flash_inputs(torch, name, gen):
             kv_pos.to(torch.int32).contiguous())
 
 
-def flash_bound(q, k, v, q_pos, kv_pos):
+def flash_bound(q, k, v, q_pos, kv_pos, scale_planes=0):
     """Least time (ms) the card could take: the bytes this data needs moved
     over HBM bandwidth -- q, the positions and the output once, and only
     the K/V rows some query of the row may attend (0 <= kv_pos <= the
-    row's largest q_pos; padding and unwritten slots are never read) --
-    vs the tensor-core FLOPs that this data's live (query, slot) pairs
-    need (QK and PV, 2*d each, per head) over the bf16 peak."""
+    row's largest q_pos; padding and unwritten slots are never read; an
+    int8 k counts 1 byte an element, plus 4 bytes per slot and KV head for
+    each of its ``scale_planes``) -- vs the tensor-core FLOPs that this
+    data's live (query, slot) pairs need (QK and PV, 2*d each, per head)
+    over the bf16 peak."""
     needed = ((kv_pos >= 0)
               & (kv_pos <= q_pos.max(dim=1, keepdim=True).values)).sum().item()
     kv_row = k.shape[2] * k.shape[3] * k.element_size()
     nbytes = (2 * q.numel() * q.element_size() + 2 * needed * kv_row
+              + scale_planes * needed * k.shape[2] * 4
               + sum(t.numel() * t.element_size() for t in (q_pos, kv_pos)))
     kp = kv_pos[:, None, :]
     live = ((kp >= 0) & (kp <= q_pos[:, :, None])).sum().item()
@@ -397,11 +431,13 @@ def paged_gathered_mask(torch, pos, table, q_pos, T=1):
     return blk, allowed[:, 0] if T == 1 else allowed
 
 
-def paged_bound(torch, q, k, pos, table, q_pos, T=1):
+def paged_bound(torch, q, k, pos, table, q_pos, T=1, scale_planes=0):
     """Least time (ms): the K/V of the slots some token of the row may
-    attend (read once per KV head for all T tokens) plus q, out, lse,
-    table and the position plane over HBM bandwidth, vs the live (packed
-    query row, slot) pairs' QK and PV FLOPs over the bf16 peak."""
+    attend (read once per KV head for all T tokens; an int8 pool 1 byte an
+    element plus 4 bytes per slot and KV head for each of its
+    ``scale_planes``) plus q, out, lse, table and the position plane over
+    HBM bandwidth, vs the live (packed query row, slot) pairs' QK and PV
+    FLOPs over the bf16 peak."""
     _, allowed = paged_gathered_mask(torch, pos, table, q_pos, T)
     allowed = allowed.reshape(allowed.shape[0], T, -1)
     needed = allowed.any(dim=1).sum().item()
@@ -409,6 +445,7 @@ def paged_bound(torch, q, k, pos, table, q_pos, T=1):
     B, KVH, TG, d = q.shape
     G = TG // T
     nbytes = (2 * needed * KVH * d * k.element_size()
+              + scale_planes * needed * KVH * 4
               + q.numel() * q.element_size() + B * KVH * TG * (d + 1) * 4
               + table.numel() * 4 + pos.numel() * 4)
     flops = 4.0 * d * G * KVH * pairs
@@ -492,13 +529,12 @@ def check_paged(torch, pa, gen):
 
 
 def verify_inputs(torch, gen, dtype, B=4, KVH=8, G=4, d=128, BLK=128, MB=8,
-                  L=32):
+                  L=32, T=SPEC_DRAFT + 1):
     """Inputs of the paged kernel at the spec_serving phase's verify shape:
     row b holds VERIFY_FILLS[b] tokens in shuffled physical blocks of a
     32-layer pool (MB = 1024 / 128 table entries a row, the unused ones
     the sentinel), and its T = n_draft + 1 queries sit at positions
     VERIFY_FILLS[b] .. + T - 1, packed r = t*G + g."""
-    T = SPEC_DRAFT + 1
     NB = B * MB
     perm = torch.randperm(NB, generator=gen, device="cuda").tolist()
     table = torch.full((B, MB), NB, dtype=torch.int32)
@@ -585,6 +621,186 @@ def check_paged_verify(torch, pa, gen):
                 f"packed row {rel} of its max |plain| (bound {bound}), lse "
                 f"err {lse_err} (bound {LSE_BOUND})")
         rows[name] = row
+    return rows
+
+
+def int8_pool(quant, k, v):
+    """A pool's K/V as the int8 path stores them: (k, v int8, k_scale,
+    v_scale float32 [..., KVH, NB, BLK] or [B, S, KVH])."""
+    (kq, ks), (vq, vs) = quant.quantize_kv(k), quant.quantize_kv(v)
+    return kq, vq, ks, vs
+
+
+def dequantized(x8, scale, dtype):
+    return (x8.float() * scale[..., None]).to(dtype)
+
+
+def check_flash_int8(torch, fa, quant, gen):
+    """flash_fwd_int8 against its plain version at the serving insert
+    shape (8 right-padded rows, P = 1024, INSERT_ROWS' lengths; K/V
+    quantized as the insert quantizes them), bf16 and float32 q: each
+    packed query row within REL_BOUND (bf16) or F32_KERNEL_BOUND of its
+    own max |plain|.  Each row is timed: cold-L2, warm, plain, and SDPA
+    over a dequantized copy in q's dtype (the dequantize not timed); the
+    bound counts 1 byte per K/V element plus both scale planes."""
+    q, k, v, q_pos, kv_pos = flash_inputs(torch, "insert", gen)
+    kq, vq, ks, vs = int8_pool(quant, k, v)
+    del k, v
+    rows = {}
+    for dtype, bound in ((torch.bfloat16, REL_BOUND),
+                         (torch.float32, F32_KERNEL_BOUND)):
+        name = str(dtype).split(".")[-1]
+        args = (q.to(dtype), kq, vq, ks, vs, q_pos, kv_pos)
+        out = fa.flash_attention_quantized(*args)
+        torch.cuda.synchronize()
+        ref = fa.flash_attention_quantized_reference(*args)
+        finite = bool(torch.isfinite(out).all())
+        rel = row_rel_err(torch, out, ref)
+        del out, ref
+        row = dict(phase="kernel_check", kernel="flash_fwd_int8",
+                   shape="insert", B=q.shape[0], T=q.shape[1],
+                   S=kq.shape[1], H=q.shape[2], KVH=kq.shape[2],
+                   d=q.shape[3], dtype=name, kv="int8 + float32 scales",
+                   worst_row_rel=rel, rel_bound=bound, finite=finite)
+        copies = cold_copies(args)
+        row["ms"] = time_ms(torch, [
+            lambda a=a: fa.flash_attention_quantized(*a)
+            for a in copies], iters=4 * len(copies))
+        row["warm_ms"] = time_ms(
+            torch, lambda: fa.flash_attention_quantized(*args))
+        row["plain_ms"] = time_ms(torch, [
+            lambda a=a: fa.flash_attention_quantized_reference(*a)
+            for a in copies], iters=len(copies))
+        del copies
+        deq = (args[0], dequantized(kq, ks, dtype),
+               dequantized(vq, vs, dtype), q_pos, kv_pos)
+        copies = cold_copies(deq)
+        row["library_ms"] = time_ms(torch, [
+            library_attention(torch, *a) for a in copies],
+            iters=4 * len(copies))
+        row["library"] = ("scaled_dot_product_attention over a dequantized "
+                          "copy, bool mask, the dequantize not timed")
+        del copies, deq
+        row["bound_ms"], row["bound_by"] = flash_bound(
+            args[0], kq, vq, q_pos, kv_pos, scale_planes=2)
+        row["roofline_share"] = row["bound_ms"] / row["ms"]
+        emit(row)
+        if not (finite and rel < bound):
+            raise AssertionError(f"flash_fwd_int8 ({name}): finite {finite}, "
+                                 f"worst packed row {rel}, bound {bound}")
+        rows[name] = row
+    return rows
+
+
+def paged_int8_row(torch, pa, args, scales, T, **extra):
+    """One int8 paged kernel_check row: the kernel (through the wrapper,
+    so a block of more than MAX_ROWS packed rows runs split) against its
+    plain version at the pool's last layer, each packed query row against
+    its own max |plain| (an all-zero row, one that attends nothing,
+    against the tensor's max), the lse on rows with a live slot, dead rows
+    exactly 0 / MASK_VALUE; cold-L2 (each launch another layer's plane),
+    warm and plain times, SDPA over a dequantized gathered view (dequantize
+    and gather not timed) and the bound."""
+    import torch.nn.functional as F
+
+    q, kq, vq, pos, table, q_pos = args
+    L, KVH, NB, BLK, d = kq.shape
+    B, _, TG, _ = q.shape
+    G = TG // T
+    layer = L - 1
+    before = dict(pa.paged_pool_attention.launches_by_t)
+    out, lse = pa.paged_pool_attention(*args, layer=layer, t_tokens=T,
+                                       **scales)
+    torch.cuda.synchronize()
+    after = pa.paged_pool_attention.launches_by_t
+    by_t = {t: n - before.get(t, 0) for t, n in after.items()
+            if n != before.get(t, 0)}
+    ref_out, ref_lse = pa.paged_pool_attention_reference(
+        *args, layer=layer, t_tokens=T, **scales)
+    live = ref_lse > pa.MASK_VALUE / 2
+    finite = bool(torch.isfinite(out).all() and torch.isfinite(lse).all())
+    rel = row_rel_err(torch, out, ref_out)
+    lse_err = (lse - ref_lse)[live].abs().max().item()
+    dead_ok = bool((lse[~live] == pa.MASK_VALUE).all()
+                   and (out[~live] == 0).all())
+    del out, lse, ref_out, ref_lse
+    ms = time_ms(torch, [
+        lambda i=i: pa.paged_pool_attention(*args, i, T, **scales)
+        for i in range(L)], iters=4 * L)
+    warm_ms = time_ms(torch, lambda: pa.paged_pool_attention(
+        *args, layer, T, **scales))
+    plain_ms = time_ms(torch, [
+        lambda i=i: pa.paged_pool_attention_reference(*args, i, T, **scales)
+        for i in range(L)], iters=L)
+    blk, allowed = paged_gathered_mask(torch, pos, table, q_pos, T)
+    mask = allowed.reshape(B, 1, T, -1)
+    qt = q.reshape(B, KVH, T, G, d).transpose(2, 3).reshape(B, KVH * G, T, d)
+    view_bytes = 2 * KVH * blk.numel() * BLK * d * q.element_size()
+    n_views = max(2, -(-4 * L2_BYTES // view_bytes))
+    views = [tuple(
+        dequantized(x[i % L][:, blk], s[i % L][:, blk], q.dtype)
+        .reshape(KVH, B, -1, d).transpose(0, 1).contiguous()
+        for x, s in ((kq, scales["k_scale"]), (vq, scales["v_scale"])))
+        for i in range(n_views)]
+    library_ms = time_ms(torch, [
+        lambda kg=kg, vg=vg: F.scaled_dot_product_attention(
+            qt, kg, vg, attn_mask=mask, enable_gqa=True)
+        for kg, vg in views], iters=4 * n_views)
+    del views
+    bound_ms, bound_by = paged_bound(torch, q, kq, pos, table, q_pos, T,
+                                     scale_planes=2)
+    name = str(q.dtype).split(".")[-1]
+    bound = REL_BOUND if q.dtype == torch.bfloat16 else F32_KERNEL_BOUND
+    row = dict(
+        phase="kernel_check", kernel="paged_decode_int8", **extra, B=B,
+        KVH=KVH, G=G, T=T, d=d, BLK=BLK, MB=table.shape[1], L=L,
+        layer=layer, dtype=name, pool="int8 + float32 scales",
+        launches_by_t=by_t, worst_row_rel=rel, rel_bound=bound,
+        lse_max_abs_err=lse_err, lse_bound=LSE_BOUND, dead_rows_ok=dead_ok,
+        finite=finite, ms=ms, warm_ms=warm_ms, plain_ms=plain_ms,
+        library_ms=library_ms, library="scaled_dot_product_attention over "
+        "a dequantized gathered view, bool mask, dequantize and gather not "
+        "timed", bound_ms=bound_ms, bound_by=bound_by,
+        roofline_share=bound_ms / ms)
+    emit(row)
+    if not (finite and dead_ok and rel < bound and lse_err < LSE_BOUND):
+        raise AssertionError(
+            f"paged_decode_int8 {extra} ({name}): finite {finite}, dead "
+            f"rows {dead_ok}, worst packed row {rel} (bound {bound}), lse "
+            f"err {lse_err} (bound {LSE_BOUND})")
+    return row
+
+
+def check_paged_int8(torch, pa, quant, gen):
+    """The int8 paged kernel at the serving shape (T = 1, bf16), at the
+    spec_verify shape (T = 4, bf16 and float32), and at a G = 8, T = 5
+    verify (40 packed rows: the wrapper's split into launches of 4 + 1
+    tokens, C1), each against its plain version (``paged_int8_row``)."""
+    rows = {}
+
+    def run(key, inputs, T, **extra):
+        q, k, v, pos, table, q_pos = inputs
+        kq, vq, ks, vs = int8_pool(quant, k, v)
+        del k, v
+        rows[key] = paged_int8_row(
+            torch, pa, (q, kq, vq, pos, table, q_pos),
+            dict(k_scale=ks, v_scale=vs), T, **extra)
+
+    run("serving", paged_inputs(torch, gen), 1, shape="serving",
+        fills=list(PAGED_FILLS), inactive=list(PAGED_INACTIVE))
+    for dtype in (torch.bfloat16, torch.float32):
+        run(f"spec_verify_{str(dtype).split('.')[-1]}",
+            verify_inputs(torch, gen, dtype), SPEC_DRAFT + 1,
+            shape="spec_verify", fills=list(VERIFY_FILLS))
+    G, T = SPLIT_VERIFY
+    run("split", verify_inputs(torch, gen, torch.bfloat16, KVH=4, G=G, T=T),
+        T, shape="split_verify", fills=list(VERIFY_FILLS))
+    per = pa.MAX_ROWS // G
+    want = {per: 1, T - per: 1}
+    if rows["split"]["launches_by_t"] != want:
+        raise AssertionError(f"G={G}, T={T}: launches by T "
+                             f"{rows['split']['launches_by_t']}, expected "
+                             f"{want}")
     return rows
 
 
@@ -774,17 +990,35 @@ def check_train_kernels(torch, fa, gen):
     return rows
 
 
+NO_LAUNCHES = dict.fromkeys(("flash_fwd", "flash_fwd_int8", "flash_bwd_dq",
+                            "flash_bwd_dkv", "paged_decode",
+                            "paged_decode_int8"), 0)
+
+
 def bwd_counts(fa):
     return {"flash_fwd": fa.flash_attention.launches,
             "flash_bwd_dq": fa.flash_bwd_dq.launches,
             "flash_bwd_dkv": fa.flash_bwd_dkv.launches}
 
 
+def launch_counts(fa, pa):
+    """Every kernel instance's launches since the last ``zero_counts``;
+    ``paged_decode`` counts the bf16/float32-pool launches,
+    ``paged_decode_int8`` the int8-pool ones."""
+    paged = pa.paged_pool_attention
+    return dict(bwd_counts(fa),
+                flash_fwd_int8=fa.flash_attention_quantized.launches,
+                paged_decode=paged.launches - paged.launches_int8,
+                paged_decode_int8=paged.launches_int8)
+
+
 def zero_counts(fa, pa):
     fa.flash_attention.launches = 0
+    fa.flash_attention_quantized.launches = 0
     fa.flash_bwd_dq.launches = 0
     fa.flash_bwd_dkv.launches = 0
     pa.paged_pool_attention.launches = 0
+    pa.paged_pool_attention.launches_int8 = 0
     pa.paged_pool_attention.launches_by_t = {}
 
 
@@ -889,8 +1123,7 @@ def drive_train(torch, np, ptl, fa, pa, params, base_cfg):
         losses.append(loss.item())
         after = bwd_counts(fa)
         per_step.append({k: after[k] - before[k] for k in after})
-    launches = dict(bwd_counts(fa),
-                    paged_decode=pa.paged_pool_attention.launches)
+    launches = launch_counts(fa, pa)
     peak = torch.cuda.max_memory_allocated()
 
     def one_step():
@@ -930,7 +1163,8 @@ def drive_train(torch, np, ptl, fa, pa, params, base_cfg):
           and losses[-1] < losses[0]
           and all(math.isfinite(x) for x in losses)
           and all(c == want_step for c in per_step)
-          and launches["paged_decode"] == 0)
+          and launches["paged_decode"] == launches["paged_decode_int8"]
+          == launches["flash_fwd_int8"] == 0)
     if not ok:
         raise AssertionError(f"train phase failed: {row}")
     del state, tparams
@@ -989,8 +1223,20 @@ def serve_prompts(tok):
             for i, n in enumerate(SERVE_PROMPT_TOKENS)]
 
 
-def drive_serving(torch, ptl, fa, pa, params, cfg, tok):
-    """Phase 5: the batcher at llama3-8b width, staggered admissions."""
+# The serving profiles' kernel groups (device ms per group).
+SERVE_CATEGORIES = {
+    "paged_decode": ("paged_decode",), "flash_fwd": ("flash_fwd",),
+    "gemm": ("nvjet", "gemm", "sm90_xmma", "cutlass"),
+    "elementwise": ("elementwise", "reduce", "index", "gather", "scatter",
+                    "cat", "copy"),
+}
+
+
+def drive_serving(torch, ptl, fa, pa, params, cfg, tok, phase="serving"):
+    """Phase 5 (and, with int8 weights and an int8 KV config, phase
+    ``int8_serving``): the batcher at llama3-8b width, staggered
+    admissions."""
+    int8 = cfg.kv_cache_dtype == "int8"
     prompts = serve_prompts(tok)
     assert [len(p) for p in prompts] == list(SERVE_PROMPT_TOKENS)
     t0 = time.perf_counter()
@@ -1038,8 +1284,8 @@ def drive_serving(torch, ptl, fa, pa, params, cfg, tok):
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
     stats = cb.stats()
-    launches = dict(bwd_counts(fa),
-                    paged_decode=pa.paged_pool_attention.launches)
+    launches = launch_counts(fa, pa)
+    by_t = dict(pa.paged_pool_attention.launches_by_t)
     lens = {rids[r]: len(t) for r, t in results.items()}
     in_vocab = all(0 <= t < cfg.vocab_size
                    for toks in results.values() for t in toks)
@@ -1054,7 +1300,8 @@ def drive_serving(torch, ptl, fa, pa, params, cfg, tok):
     torch.cuda.synchronize()
     insert_ms = (time.perf_counter() - t) * 1e3
     cb.step()  # the K=1 step after an admission
-    profile = device_profile(torch, lambda: [cb.step() for _ in range(3)])
+    profile = device_profile(torch, lambda: [cb.step() for _ in range(3)],
+                             categories=SERVE_CATEGORIES)
     for b, s in list(cb.slots.items()):
         if s is not None:
             cb.cancel(s.request_id)
@@ -1062,11 +1309,14 @@ def drive_serving(torch, ptl, fa, pa, params, cfg, tok):
 
     wall = sum(steady_ms)
     row = dict(
-        phase="serving", config="llama3-8b", n_layers=L, dtype="bfloat16",
+        phase=phase, config="llama3-8b", n_layers=L, dtype="bfloat16",
+        weights="int8 (quantize_params)" if int8 else "bfloat16",
+        kv_cache_dtype=cfg.kv_cache_dtype,
         n_slots=8, max_len=2048, block_size=128, decode_chunk=8,
         prompt_tokens=list(SERVE_PROMPT_TOKENS),
         max_new=list(SERVE_MAX_NEW), batcher_init_s=build_s,
-        serve_s=serve_s, steps=n_steps, launches=launches, stats=stats,
+        serve_s=serve_s, steps=n_steps, launches=launches,
+        paged_launches_by_t=by_t, stats=stats,
         tokens_exact=exact, tokens_in_vocab=in_vocab,
         quiet_steps=quiet_steps, quiet_steps_with_upload_or_extra_fetch=(
             quiet_bad),
@@ -1074,14 +1324,16 @@ def drive_serving(torch, ptl, fa, pa, params, cfg, tok):
         decode_ms_per_iteration=wall / steady_iters if steady_iters else None,
         tokens_per_s=steady_tokens / wall * 1e3 if wall else None,
         insert_ms=insert_ms, insert_rows=8,
-        profile_3_steps=profile,
+        busy_share=profile["device_busy_share"], profile_3_steps=profile,
     )
     emit(row)
-    want = {"paged_decode": L * stats["decode_steps_total"],
-            "flash_fwd": L * stats["insert_dispatches_total"],
-            "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
-    if launches != want:
-        raise AssertionError(f"serving launches {launches}, expected {want}")
+    suffix = "_int8" if int8 else ""
+    want = dict(NO_LAUNCHES, **{
+        "paged_decode" + suffix: L * stats["decode_steps_total"],
+        "flash_fwd" + suffix: L * stats["insert_dispatches_total"]})
+    if launches != want or by_t != {1: L * stats["decode_steps_total"]}:
+        raise AssertionError(f"{phase} launches {launches} (by T {by_t}), "
+                             f"expected {want}, all at T = 1")
     if not (exact and in_vocab):
         raise AssertionError(f"serving tokens: lengths {lens}, in vocab "
                              f"{in_vocab}")
@@ -1117,14 +1369,16 @@ def step_logits_rel(torch, ptl, serving, params, cfg, prompts):
                                      cb.d_fill)
         want = ptl.forward(params, *args, cache=view, attn_mask=mask)[0]
         del view
-        paged = ptl.PagedKVCache(cb.pool.k, cb.pool.v, cb.pool.pos,
-                                 cb.d_table, cb.d_fill)
+        paged = cb.pool.paged(cb.d_table, cb.d_fill)
         got = ptl.forward(params, *args, cache=paged, attn_mask=mask)[0]
     return rel_err(got[:, 0], want[:, 0])
 
 
-def paged_invariant(torch, ptl, engine, serving, params, cfg, tok):
-    """Phase 6: paged batcher = gathered batcher = engine.generate."""
+def paged_invariant(torch, ptl, engine, serving, params, cfg, tok,
+                    phase="paged_decode_invariant", only_f32=False):
+    """Phase 6: paged batcher = gathered batcher = engine.generate (at 8
+    layers in bf16 and 32 in float32 activations; ``only_f32``: the
+    float32 cell alone, as the int8 phase runs it)."""
     prompts = [serve_prompts(tok)[i] for i in INVARIANT_REQUESTS]
     max_new = [SERVE_MAX_NEW[i] for i in INVARIANT_REQUESTS]
     shallow = dict(params, layers={k: w[:DECODE_DEPTH]
@@ -1133,7 +1387,7 @@ def paged_invariant(torch, ptl, engine, serving, params, cfg, tok):
     for name, p, depth, dtype, bound in (
         ("bf16_8_layers", shallow, DECODE_DEPTH, "bfloat16", DECODE_REL),
         ("f32_32_layers", params, cfg.n_layers, "float32", F32_REL),
-    ):
+    )[only_f32:]:
         c = cfg.replace(n_layers=depth, dtype=dtype)
         toks = {}
         for path in ("paged", "gathered"):
@@ -1162,7 +1416,9 @@ def paged_invariant(torch, ptl, engine, serving, params, cfg, tok):
                 for o in ("gathered", "generate")},
             step_logits_rel=rel, step_logits_bound=bound,
         )
-    row = dict(phase="paged_decode_invariant", config="llama3-8b",
+    row = dict(phase=phase, config="llama3-8b",
+               kv_cache_dtype=cfg.kv_cache_dtype,
+               weights="int8" if ptl.is_quantized(params) else "bfloat16",
                requests=list(INVARIANT_REQUESTS),
                prompt_tokens=[len(p) for p in prompts], max_new=max_new,
                **cells)
@@ -1281,10 +1537,8 @@ def drive_spec_serving(torch, np, ptl, llama, fa, pa, params, cfg, smi):
     cb = spec_batcher(params, cfg, params, cfg)
     zero_counts(fa, pa)
     toks, wall, n_tok = run_batcher(torch, cb, prompts)
-    launches = dict(bwd_counts(fa),
-                    paged_decode=pa.paged_pool_attention.launches,
-                    paged_decode_by_t=dict(
-                        pa.paged_pool_attention.launches_by_t))
+    launches = dict(launch_counts(fa, pa), paged_decode_by_t=dict(
+        pa.paged_pool_attention.launches_by_t))
     stats = cb.stats()
     rounds = stats["decode_steps_total"]
     lap("self_draft")
@@ -1303,10 +1557,10 @@ def drive_spec_serving(torch, np, ptl, llama, fa, pa, params, cfg, smi):
         spec_host_syncs_per_token=stats["spec_host_syncs_per_token"],
         busy_share=profile["device_busy_share"], profile_1_round=profile,
         stats=stats)
-    want = {"flash_fwd": 2 * L * stats["insert_dispatches_total"],
-            "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-            "paged_decode": (SPEC_DRAFT + 2) * L * rounds,
-            "paged_decode_by_t": {T: (SPEC_DRAFT + 2) * L * rounds}}
+    want = dict(NO_LAUNCHES,
+                flash_fwd=2 * L * stats["insert_dispatches_total"],
+                paged_decode=(SPEC_DRAFT + 2) * L * rounds,
+                paged_decode_by_t={T: (SPEC_DRAFT + 2) * L * rounds})
 
     # The plain batcher on the same prompts.
     plain = ptl.ContinuousBatcher(params, cfg, n_slots=SPEC_SLOTS,
@@ -1393,6 +1647,83 @@ def drive_spec_serving(torch, np, ptl, llama, fa, pa, params, cfg, smi):
     return row
 
 
+def drive_int8(torch, np, ptl, engine, serving, fa, pa, params, cfg, tok,
+               serve_row):
+    """Phase 8: int8 weights (``quantize_params`` of the phase-3 weights)
+    and int8 KV pools at llama3-8b width and depth.  ``int8_serving``: the
+    serving phase's 12 staggered requests, counted from zero, beside the
+    bf16 serving phase of this run; the paged invariant in float32
+    activations (int8 paged = int8 gathered = int8 engine.generate); and
+    a self-draft speculative pass over int8 target and draft pools
+    (acceptance exactly 1.0, 160 int8 paged launches per round, all at
+    T = 4).  The int8 weights are freed at the end."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    qparams = ptl.quantize_params(params)
+    torch.cuda.synchronize()
+    quantize_s = time.perf_counter() - t0
+    c8 = cfg.replace(kv_cache_dtype="int8")
+    L = cfg.n_layers
+    row = drive_serving(torch, ptl, fa, pa, qparams, c8, tok,
+                        phase="int8_serving")
+    inv = paged_invariant(torch, ptl, engine, serving, qparams, c8, tok,
+                          phase="int8_paged_decode_invariant", only_f32=True)
+
+    # Self-draft over int8 target and draft pools, counted from zero.
+    T = SPEC_DRAFT + 1
+    cb = ptl.ContinuousBatcher(
+        qparams, c8, n_slots=SPEC_SLOTS, max_len=SPEC_MAX_LEN,
+        block_size=SPEC_BLOCK, draft_params=qparams, draft_config=c8,
+        n_draft=SPEC_DRAFT, spec_rounds=SPEC_ROUNDS, device="cuda")
+    zero_counts(fa, pa)
+    toks, wall, n_tok = run_batcher(torch, cb, spec_prompts(np))
+    launches = dict(launch_counts(fa, pa), paged_decode_by_t=dict(
+        pa.paged_pool_attention.launches_by_t))
+    stats = cb.stats()
+    del cb
+    rounds = stats["decode_steps_total"]
+    spec = dict(
+        phase="int8_spec_serving", config="llama3-8b", n_layers=L,
+        weights="int8", kv_cache_dtype="int8", n_slots=SPEC_SLOTS,
+        n_draft=SPEC_DRAFT, spec_rounds=SPEC_ROUNDS,
+        acceptance=stats["draft_acceptance_rate"], rounds=rounds,
+        tokens=[len(t) for t in toks], launches=launches,
+        tokens_per_s=n_tok / wall,
+        ms_per_round=wall * 1e3 / max(1, rounds - 1),
+        peak_memory_bytes=torch.cuda.max_memory_allocated(),
+        quantize_params_s=quantize_s)
+    emit(spec)
+    del qparams
+    torch.cuda.empty_cache()
+    want = dict(NO_LAUNCHES,
+                flash_fwd_int8=2 * L * stats["insert_dispatches_total"],
+                paged_decode_int8=(SPEC_DRAFT + 2) * L * rounds,
+                paged_decode_by_t={T: (SPEC_DRAFT + 2) * L * rounds})
+    problems = []
+    if launches != want:
+        problems.append(f"launches {launches}, expected {want}")
+    if spec["acceptance"] != 1.0 or spec["tokens"] != [SPEC_NEW] * SPEC_SLOTS:
+        problems.append("self-draft acceptance / token counts")
+    if not all(0 <= t < cfg.vocab_size for r in toks for t in r):
+        problems.append("a token outside the vocabulary")
+    if problems:
+        raise AssertionError(f"int8_spec_serving failed: {problems}")
+
+    bf16 = {k: serve_row[k] for k in ("decode_ms_per_iteration",
+                                       "tokens_per_s", "insert_ms",
+                                       "busy_share")}
+    int8 = {k: row[k] for k in bf16}
+    emit(dict(phase="int8_vs_bf16_serving", bf16=bf16, int8=int8,
+              ratio_int8_over_bf16={
+                  k: (int8[k] / bf16[k] if int8[k] and bf16[k] else None)
+                  for k in bf16},
+              device_ms_by_category_3_steps=dict(
+                  bf16=serve_row["profile_3_steps"].get("by_category_ms"),
+                  int8=row["profile_3_steps"].get("by_category_ms"))))
+    return row, inv, spec
+
+
 def rel_err(a, b) -> float:
     return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
 
@@ -1409,6 +1740,7 @@ def main() -> int:
     from jax_llama_tpu_torch import engine, serving
     from jax_llama_tpu_torch.models import llama
     from jax_llama_tpu_torch.ops import _build
+    from jax_llama_tpu_torch.ops import quant
 
     fa = importlib.import_module("jax_llama_tpu_torch.ops.flash_attention")
     pa = importlib.import_module("jax_llama_tpu_torch.ops.paged_attention")
@@ -1440,6 +1772,8 @@ def main() -> int:
     flash_rows = check_flash(torch, fa, gen)
     paged_row = check_paged(torch, pa, gen)
     verify_rows = check_paged_verify(torch, pa, gen)
+    flash_int8_rows = check_flash_int8(torch, fa, quant, gen)
+    paged_int8_rows = check_paged_int8(torch, pa, quant, gen)
     train_rows = check_train_kernels(torch, fa, gen)
 
     # Phase 3: the main path, llama3-8b width, bf16, attn_impl="auto".
@@ -1460,8 +1794,7 @@ def main() -> int:
     texts = llm.generate_from_str(prompts, max_gen_len=32, temperature=0.0)
     torch.cuda.synchronize()
     generate_s = time.perf_counter() - t0
-    launches = dict(bwd_counts(fa),
-                    paged_decode=pa.paged_pool_attention.launches)
+    launches = launch_counts(fa, pa)
     if launches["flash_fwd"] != cfg.n_layers:
         raise AssertionError(
             f"flash kernel launched {launches['flash_fwd']} times in the "
@@ -1597,19 +1930,29 @@ def main() -> int:
     spec_row = drive_spec_serving(torch, np, ptl, llama, fa, pa, params, cfg,
                                   smi)
 
-    # Phase 8: the training path, counted from zero.
+    # Phase 8: int8 weights and int8 KV pools, counted from zero.
+    int8_row, _, int8_spec = drive_int8(torch, np, ptl, engine, serving, fa,
+                                        pa, params, cfg, tok, serve_row)
+
+    # Phase 9: the training path, counted from zero.
     train_row = drive_train(torch, np, ptl, fa, pa, params, cfg)
 
-    # Phase 9: every kernel of the port.  ``launches`` counts the run of
-    # the path each kernel serves (train for the flash kernels; serving
-    # for the paged kernel at T = 1, with its spec_verify shape's own
-    # count from spec_serving beside it); every path's count is beside
-    # it.  The flash times are the training shape's (forward with lse, no
-    # dropout), the train path's launches.
+    # Phase 10: every kernel of the port.  ``launches`` counts the run of
+    # the path each kernel serves (train for the flash kernels;
+    # int8_serving for the int8 ones; serving for the paged kernel at
+    # T = 1, with its spec_verify shape's own count from spec_serving
+    # beside it); every path's count is beside it.  The flash times are
+    # the training shape's (forward with lse, no dropout), the train
+    # path's launches.
     spec_launches = dict(spec_row["self_draft"]["launches"])
     spec_launches.pop("paged_decode_by_t")
+    int8_spec_launches = dict(int8_spec["launches"])
+    int8_spec_launches.pop("paged_decode_by_t")
     paths = {"generate": launches, "serving": serve_row["launches"],
-             "spec_serving": spec_launches, "train": train_row["launches"]}
+             "spec_serving": spec_launches,
+             "int8_serving": int8_row["launches"],
+             "int8_spec_serving": int8_spec_launches,
+             "train": train_row["launches"]}
 
     def by_path(name):
         return {path: counts[name] for path, counts in paths.items()}
@@ -1635,8 +1978,53 @@ def main() -> int:
     fwd.update(insert_ms=pre["ms"], insert_bound_ms=pre["bound_ms"],
                insert_plain_ms=pre["plain_ms"],
                insert_library_ms=pre["library_ms"])
+    fi8 = flash_int8_rows["bfloat16"]
+    pi8 = paged_int8_rows["serving"]
+
+    def int8_sub(row, **extra):
+        return dict(extra, max_abs_err=row["worst_row_rel"], ms=row["ms"],
+                    warm_ms=row["warm_ms"], plain_ms=row["plain_ms"],
+                    bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+                    library_ms=row["library_ms"])
+
     emit({"kernels": [
         fwd,
+        dict(name="flash_fwd_int8", route="cuda",
+             source="jax_llama_tpu_torch/csrc/flash_fwd.cu",
+             replaces="jax_llama_tpu/ops/flash_attention.py:868 "
+             "(flash_attention_quantized, :629)",
+             launches=paths["int8_serving"]["flash_fwd_int8"],
+             launches_by_path=by_path("flash_fwd_int8"), shape="insert",
+             max_abs_err=max(r["worst_row_rel"]
+                             for r in flash_int8_rows.values()),
+             max_abs_err_is="the worst packed query row's max abs err over "
+             "its own max |plain|, bf16 and float32",
+             ms=fi8["ms"], warm_ms=fi8["warm_ms"], plain_ms=fi8["plain_ms"],
+             bound_ms=fi8["bound_ms"], bound_by=fi8["bound_by"],
+             library_ms=fi8["library_ms"],
+             float32_ms=flash_int8_rows["float32"]["ms"]),
+        dict(name="paged_decode_int8", route="cuda",
+             source="jax_llama_tpu_torch/csrc/paged_decode.cu",
+             replaces="jax_llama_tpu/ops/paged_attention.py:371 "
+             "(int8 branch of _paged_kernel)",
+             launches=paths["int8_serving"]["paged_decode_int8"],
+             launches_by_path=by_path("paged_decode_int8"), shape="serving",
+             max_abs_err=pi8["worst_row_rel"],
+             max_abs_err_is="the worst packed query row's max abs err over "
+             "its own max |plain|",
+             ms=pi8["ms"], warm_ms=pi8["warm_ms"], plain_ms=pi8["plain_ms"],
+             bound_ms=pi8["bound_ms"], bound_by=pi8["bound_by"],
+             library_ms=pi8["library_ms"],
+             spec_verify=int8_sub(
+                 paged_int8_rows["spec_verify_bfloat16"], T=SPEC_DRAFT + 1,
+                 launches=int8_spec["launches"]["paged_decode_by_t"],
+                 float32_ms=paged_int8_rows["spec_verify_float32"]["ms"],
+                 float32_max_abs_err=paged_int8_rows[
+                     "spec_verify_float32"]["worst_row_rel"]),
+             split_verify=int8_sub(
+                 paged_int8_rows["split"], G=SPLIT_VERIFY[0],
+                 T=SPLIT_VERIFY[1],
+                 launches_by_t=paged_int8_rows["split"]["launches_by_t"])),
         dict(name="paged_decode", route="cuda",
              source="jax_llama_tpu_torch/csrc/paged_decode.cu",
              replaces="jax_llama_tpu/ops/paged_attention.py:371",

@@ -11,14 +11,19 @@ no GPU is present unless the caller passes ``device="cpu"``.
   Serving:    ContinuousBatcher (speculative with draft_params),
               init_pool (paged KV pool)
   Speculative: generate_speculative (spec_decode)
+  int8:       QuantizedTensor, quantize_params, is_quantized (int8
+              weights); quantize_kv and config kv_cache_dtype="int8" (int8
+              KV caches and pools, through the engine, the batcher and
+              speculation)
   Training:   train_step (AdamW step over lm_loss; flash forward and
               backward kernels under attn_impl="flash"), make_optimizer,
               init_train_state, TrainState, lm_loss; data.batches /
               data.to_device for packed batches
   Tokenizers: ByteTokenizer
   Kernels:    ops.flash_attention (hand-written CUDA, csrc/flash_fwd.cu and
-              csrc/flash_bwd.cu), ops.paged_attention (hand-written CUDA,
-              csrc/paged_decode.cu, T >= 1 query tokens per row)
+              csrc/flash_bwd.cu; flash_attention_quantized for int8 K/V),
+              ops.paged_attention (hand-written CUDA, csrc/paged_decode.cu,
+              T >= 1 query tokens per row, bf16/float32/int8 pools)
 """
 
 from .config import LLaMAConfig, get_config, swiglu_hidden_size
@@ -32,6 +37,12 @@ from .models import (
     init_cache,
     init_params,
     param_count,
+)
+from .ops.quant import (
+    QuantizedTensor,
+    is_quantized,
+    quantize_kv,
+    quantize_params,
 )
 from .serving import ContinuousBatcher, init_pool
 from .spec_decode import generate_speculative
@@ -51,6 +62,7 @@ __all__ = [
     "generate", "LLaMA", "ByteTokenizer", "KVCache", "forward",
     "from_jax_params", "init_cache", "init_params", "param_count",
     "PagedKVCache", "ContinuousBatcher", "init_pool",
+    "QuantizedTensor", "quantize_params", "is_quantized", "quantize_kv",
     "generate_speculative", "TrainState",
     "init_train_state", "lm_loss", "make_optimizer", "train_step",
     "__version__",

@@ -3,7 +3,7 @@
 A copy of ``jax_llama_tpu.config`` (the architecture fields, the SwiGLU
 sizing rule and the published presets) with dtype strings mapped to torch
 dtypes.  The port keeps its own copy because importing the JAX package
-pulls in jax.  Fields the port does not run yet (ring attention, int8 KV,
+pulls in jax.  Fields the port does not run yet (ring attention,
 pipeline microbatches, kernel selection) are kept so a config
 round-trips between the two packages; ``validate`` rejects the values the
 port cannot honour instead of silently ignoring them.
@@ -126,8 +126,6 @@ class LLaMAConfig:
                 f"unknown kv_cache_dtype {self.kv_cache_dtype!r}; "
                 "expected 'auto' or 'int8'"
             )
-        if self.kv_cache_dtype == "int8":
-            raise NotImplementedError("the int8 KV cache is not ported yet")
         for name in ("resid_pdrop", "embd_pdrop", "attn_pdrop"):
             p = getattr(self, name)
             if not 0.0 <= p < 1.0:

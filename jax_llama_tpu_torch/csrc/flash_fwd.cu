@@ -3,7 +3,10 @@
 // Replaces the TPU kernel `_flash_forward` of
 // jax_llama_tpu/ops/flash_attention.py (pallas_call at :868; bodies
 // `_flash_kernel`, `_flash_tri_tile_update`, `_tri_gate`), reached from
-// `flash_attention` / `_flash_fwd` there.  Same function (no int8 KV):
+// `flash_attention` / `_flash_fwd` there, and its int8 branch
+// (`flash_attention_quantized`, :629; the int8 branches of `_flash_kernel`
+// at :293-294, :400-433, :471-474 and the scale planes at :850-864).  The
+// function:
 //
 //   out[b, t, h] = sum_s softmax_s(q[b,t,h] . k[b,s,h/G] / sqrt(d)) v[b,s,h/G]
 //
@@ -57,6 +60,23 @@
 //
 // The float32 path is a plain CUDA-core kernel (one warp per packed row)
 // kept for callers that run the model in float32; the main path is bf16.
+//
+// int8 KV (`flash_fwd_int8`, the Q8 instances; inference only: no lse, no
+// dropout): k and v are int8 [B, S, KVH, d] with float32 per-slot-per-head
+// scales k_scale, v_scale [B, S, KVH]; the effective keys and values are
+// k * k_scale and v * v_scale.  Each K/V tile is read as int8 (half the
+// bytes of bf16) and converted into the bf16 shared-memory tile that the
+// bf16 instance fills (int8 magnitudes up to 127 are exact in bf16), so
+// the mma.sync fragments and their bank-conflict-free padding are the
+// bf16 instance's; the tile's BN scales per KV head are read at stride
+// KVH into shared memory.  Each score is multiplied by its slot's k_scale
+// before the mask (an unwritten slot has scale 0 and payload 0, and a
+// score of 0 is not -inf, so the mask must come after the fold), and
+// each probability by its slot's v_scale before it is rounded to bf16 for
+// P.V, as the JAX kernel folds them.  The float32 instance converts the
+// int8 tile to float32 and folds the same way.
+
+#include <type_traits>
 
 #include "flash_common.cuh"
 
@@ -64,24 +84,51 @@ namespace {
 
 using namespace flash;
 
-template <int D, bool LSE, bool DROP>
+// Sixteen int8 values from 16 global bytes, as bf16 (exact), into 32
+// bytes of shared memory.
+__device__ __forceinline__ void store_int8_as_bf16(uint16_t* dst, uint4 x) {
+  const unsigned w[4] = {x.x, x.y, x.z, x.w};
+  uint32_t out[8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float b0 = static_cast<float>(static_cast<int8_t>(w[i]));
+    const float b1 = static_cast<float>(static_cast<int8_t>(w[i] >> 8));
+    const float b2 = static_cast<float>(static_cast<int8_t>(w[i] >> 16));
+    const float b3 = static_cast<float>(static_cast<int8_t>(w[i] >> 24));
+    out[2 * i] = pack_bf16x2(b0, b1);
+    out[2 * i + 1] = pack_bf16x2(b2, b3);
+  }
+  uint4* d4 = reinterpret_cast<uint4*>(dst);
+  d4[0] = make_uint4(out[0], out[1], out[2], out[3]);
+  d4[1] = make_uint4(out[4], out[5], out[6], out[7]);
+}
+
+// Q8: k and v are int8 with float32 scales (k_scale, v_scale [B, S, KVH]);
+// otherwise bf16 and the scale pointers are unused.
+template <int D, bool LSE, bool DROP, bool Q8>
 __global__ void __launch_bounds__(NTHREADS)
 flash_fwd_bf16_kernel(const uint16_t* __restrict__ q,
-                      const uint16_t* __restrict__ k,
-                      const uint16_t* __restrict__ v,
+                      const void* __restrict__ k_any,
+                      const void* __restrict__ v_any,
+                      const float* __restrict__ k_scale,
+                      const float* __restrict__ v_scale,
                       const int* __restrict__ q_pos,
                       const int* __restrict__ kv_pos,
                       uint16_t* __restrict__ out, float* __restrict__ lse,
                       int T, int S, int H, int KVH, float scale_log2,
                       Dropout drop) {
   static_assert(D % 16 == 0 && D <= 128, "head_dim");
+  static_assert(!(Q8 && (LSE || DROP)), "the int8 instance is inference-only");
   constexpr int LD = D + 8;  // padded shared row, in bf16 elements
   constexpr int KSTEPS = D / 16;
   constexpr int DBLK = D / 8;
   constexpr int NBLK = BN / 8;
+  const uint16_t* k = static_cast<const uint16_t*>(k_any);
+  const uint16_t* v = static_cast<const uint16_t*>(v_any);
   __shared__ __align__(16) uint16_t ks[BN * LD];
   __shared__ __align__(16) uint16_t vs[BN * LD];
   __shared__ int kps[BN];
+  __shared__ float ksc_s[Q8 ? BN : 1], vsc_s[Q8 ? BN : 1];
   __shared__ int qmax_s, last_s;
 
   const int G = H / KVH;
@@ -149,18 +196,44 @@ flash_fwd_bf16_kernel(const uint16_t* __restrict__ q,
     }
     if (!__syncthreads_or(live)) continue;  // dead tile: no K/V traffic
 
-    for (int c = tid; c < BN * (D / 8); c += NTHREADS) {
-      const int row = c / (D / 8);
-      const int col = (c % (D / 8)) * 8;
-      const int s = s0 + row;
-      uint4 kv4 = make_uint4(0, 0, 0, 0), vv4 = make_uint4(0, 0, 0, 0);
-      if (s < S) {
-        const size_t g = ((size_t)(b * S + s) * KVH + kvh) * D + col;
-        kv4 = *reinterpret_cast<const uint4*>(k + g);
-        vv4 = *reinterpret_cast<const uint4*>(v + g);
+    if constexpr (Q8) {
+      // int8 rows, 16 values a load, widened into the bf16 tile; the
+      // tile's scales of this KV head (stride KVH).
+      const int8_t* k8 = static_cast<const int8_t*>(k_any);
+      const int8_t* v8 = static_cast<const int8_t*>(v_any);
+      for (int c = tid; c < BN * (D / 16); c += NTHREADS) {
+        const int row = c / (D / 16);
+        const int col = (c % (D / 16)) * 16;
+        const int s = s0 + row;
+        uint4 kq = make_uint4(0, 0, 0, 0), vq = make_uint4(0, 0, 0, 0);
+        if (s < S) {
+          const size_t g = ((size_t)(b * S + s) * KVH + kvh) * D + col;
+          kq = *reinterpret_cast<const uint4*>(k8 + g);
+          vq = *reinterpret_cast<const uint4*>(v8 + g);
+        }
+        store_int8_as_bf16(&ks[row * LD + col], kq);
+        store_int8_as_bf16(&vs[row * LD + col], vq);
       }
-      *reinterpret_cast<uint4*>(&ks[row * LD + col]) = kv4;
-      *reinterpret_cast<uint4*>(&vs[row * LD + col]) = vv4;
+      if (tid < BN) {
+        const int s = s0 + tid;
+        const size_t g = (size_t)(b * S + s) * KVH + kvh;
+        ksc_s[tid] = s < S ? k_scale[g] : 0.f;
+        vsc_s[tid] = s < S ? v_scale[g] : 0.f;
+      }
+    } else {
+      for (int c = tid; c < BN * (D / 8); c += NTHREADS) {
+        const int row = c / (D / 8);
+        const int col = (c % (D / 8)) * 8;
+        const int s = s0 + row;
+        uint4 kv4 = make_uint4(0, 0, 0, 0), vv4 = make_uint4(0, 0, 0, 0);
+        if (s < S) {
+          const size_t g = ((size_t)(b * S + s) * KVH + kvh) * D + col;
+          kv4 = *reinterpret_cast<const uint4*>(k + g);
+          vv4 = *reinterpret_cast<const uint4*>(v + g);
+        }
+        *reinterpret_cast<uint4*>(&ks[row * LD + col]) = kv4;
+        *reinterpret_cast<uint4*>(&vs[row * LD + col]) = vv4;
+      }
     }
     __syncthreads();
 
@@ -179,15 +252,19 @@ flash_fwd_bf16_kernel(const uint16_t* __restrict__ q,
       }
     }
 
-    // Scale into the base-2 domain, mask, row max.
+    // Scale into the base-2 domain (int8: times the slot's k_scale), then
+    // mask, row max.
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
     for (int nb = 0; nb < NBLK; ++nb) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int i = e >> 1;
-        const int kp = kps[nb * 8 + tig * 2 + (e & 1)];
-        const float s = kp <= qp[i] ? sc[nb][e] * scale_log2 : -INFINITY;
+        const int col = nb * 8 + tig * 2 + (e & 1);
+        const int kp = kps[col];
+        float s = sc[nb][e] * scale_log2;
+        if constexpr (Q8) s *= ksc_s[col];
+        s = kp <= qp[i] ? s : -INFINITY;
         sc[nb][e] = s;
         mx[i] = fmaxf(mx[i], s);
       }
@@ -224,6 +301,8 @@ flash_fwd_bf16_kernel(const uint16_t* __restrict__ q,
         if constexpr (DROP) {
           sc[nb][e] = keep(rw[e >> 1], cw[e & 1], drop.threshold)
                           ? p * drop.inv : 0.f;
+        } else if constexpr (Q8) {
+          sc[nb][e] = p * vsc_s[nb * 8 + tig * 2 + (e & 1)];
         } else {
           sc[nb][e] = p;
         }
@@ -281,18 +360,27 @@ flash_fwd_bf16_kernel(const uint16_t* __restrict__ q,
 constexpr int F32_ROWS = 8;
 constexpr int F32_BN = 32;
 
-template <int DPL>  // features per lane: head_dim = 32 * DPL
+// DPL: features per lane (head_dim = 32 * DPL).  Q8: k and v are int8
+// with float32 scales [B, S, KVH], folded as the bf16 instance folds them.
+template <int DPL, bool Q8>
 __global__ void __launch_bounds__(F32_ROWS * 32)
-flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v,
+flash_fwd_f32_kernel(const float* __restrict__ q,
+                     const void* __restrict__ k_any,
+                     const void* __restrict__ v_any,
+                     const float* __restrict__ k_scale,
+                     const float* __restrict__ v_scale,
                      const int* __restrict__ q_pos,
                      const int* __restrict__ kv_pos, float* __restrict__ out,
                      float* __restrict__ lse, int T, int S, int H, int KVH,
                      float scale_log2, bool with_drop, Dropout drop) {
   constexpr int D = 32 * DPL;
+  using KV = typename std::conditional<Q8, int8_t, float>::type;
+  const KV* k = static_cast<const KV*>(k_any);
+  const KV* v = static_cast<const KV*>(v_any);
   __shared__ float ks[F32_BN * D];
   __shared__ float vs[F32_BN * D];
   __shared__ int kps[F32_BN];
+  __shared__ float ksc_s[Q8 ? F32_BN : 1], vsc_s[Q8 ? F32_BN : 1];
   __shared__ int qmax_s, last_s;
 
   const int G = H / KVH;
@@ -338,8 +426,16 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int row = c / D, col = c % D;
       const int s = s0 + row;
       const size_t g = ((size_t)(b * S + s) * KVH + kvh) * D + col;
-      ks[c] = s < S ? k[g] : 0.f;
-      vs[c] = s < S ? v[g] : 0.f;
+      ks[c] = s < S ? static_cast<float>(k[g]) : 0.f;
+      vs[c] = s < S ? static_cast<float>(v[g]) : 0.f;
+    }
+    if constexpr (Q8) {
+      if (tid < F32_BN) {
+        const int s = s0 + tid;
+        const size_t g = (size_t)(b * S + s) * KVH + kvh;
+        ksc_s[tid] = s < S ? k_scale[g] : 0.f;
+        vsc_s[tid] = s < S ? v_scale[g] : 0.f;
+      }
     }
     __syncthreads();
     for (int j = 0; j < F32_BN; ++j) {
@@ -347,12 +443,14 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       float dot = 0.f;
 #pragma unroll
       for (int i = 0; i < DPL; ++i) dot += qv[i] * ks[j * D + lane + 32 * i];
-      const float s = warp_sum(dot) * scale_log2;
+      float s = warp_sum(dot) * scale_log2;
+      if constexpr (Q8) s *= ksc_s[j];
       const float m_new = fmaxf(m, s);
       const float alpha = exp2f(m - m_new);
       const float p = exp2f(s - m_new);
       l = l * alpha + p;
       float pa = p;
+      if constexpr (Q8) pa = p * vsc_s[j];
       if (with_drop) {
         pa = keep(rw, col_word(base_hi, s0 + j), drop.threshold)
                  ? p * drop.inv : 0.f;
@@ -375,14 +473,14 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int D, bool LSE, bool DROP>
+template <int D, bool LSE, bool DROP, bool Q8 = false>
 void launch_bf16(dim3 grid, cudaStream_t st, const void* q, const void* k,
                  const void* v, const int* q_pos, const int* kv_pos, void* out,
                  float* lse, int T, int S, int H, int KVH, float scale_log2,
-                 Dropout drop) {
-  flash_fwd_bf16_kernel<D, LSE, DROP><<<grid, NTHREADS, 0, st>>>(
-      static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
-      static_cast<const uint16_t*>(v), q_pos, kv_pos,
+                 Dropout drop, const float* k_scale = nullptr,
+                 const float* v_scale = nullptr) {
+  flash_fwd_bf16_kernel<D, LSE, DROP, Q8><<<grid, NTHREADS, 0, st>>>(
+      static_cast<const uint16_t*>(q), k, v, k_scale, v_scale, q_pos, kv_pos,
       static_cast<uint16_t*>(out), lse, T, S, H, KVH, scale_log2, drop);
 }
 
@@ -441,13 +539,65 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
     const float* vv = static_cast<const float*>(v);
     float* oo = static_cast<float*>(out);
     if (D == 128) {
-      flash_fwd_f32_kernel<4><<<grid, F32_ROWS * 32, 0, st>>>(
-          qq, kk, vv, q_pos, kv_pos, oo, lse, T, S, H, KVH, scale_log2,
-          with_drop != 0, drop);
+      flash_fwd_f32_kernel<4, false><<<grid, F32_ROWS * 32, 0, st>>>(
+          qq, kk, vv, nullptr, nullptr, q_pos, kv_pos, oo, lse, T, S, H, KVH,
+          scale_log2, with_drop != 0, drop);
     } else if (D == 64) {
-      flash_fwd_f32_kernel<2><<<grid, F32_ROWS * 32, 0, st>>>(
-          qq, kk, vv, q_pos, kv_pos, oo, lse, T, S, H, KVH, scale_log2,
-          with_drop != 0, drop);
+      flash_fwd_f32_kernel<2, false><<<grid, F32_ROWS * 32, 0, st>>>(
+          qq, kk, vv, nullptr, nullptr, q_pos, kv_pos, oo, lse, T, S, H, KVH,
+          scale_log2, with_drop != 0, drop);
+    } else {
+      return (int)cudaErrorInvalidValue;
+    }
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// The int8-KV forward: q and out [B, T, H, d] (dtype 0 = float32, 1 =
+// bfloat16), k and v int8 [B, S, KVH, d], k_scale and v_scale float32
+// [B, S, KVH], positions as flash_fwd's.  No lse, no dropout.  Returns the
+// cudaError_t of the launch (0 on success).  Launches on `stream` and does
+// not synchronise.
+extern "C" int flash_fwd_int8(const void* q, const void* k, const void* v,
+                              const float* k_scale, const float* v_scale,
+                              const int* q_pos, const int* kv_pos, void* out,
+                              int B, int T, int S, int H, int KVH, int D,
+                              int dtype, float scale_log2, void* stream) {
+  if (B <= 0 || T <= 0 || S <= 0 || KVH <= 0 || H % KVH != 0 || B > 65535 ||
+      KVH > 65535 || k_scale == nullptr || v_scale == nullptr) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long R = (long)(H / KVH) * T;
+  const Dropout none{0u, 0u, 0u, 1.f};
+  if (dtype == 1) {
+    dim3 grid((unsigned)((R + BM - 1) / BM), KVH, B);
+    if (D == 128) {
+      launch_bf16<128, false, false, true>(grid, st, q, k, v, q_pos, kv_pos,
+                                           out, nullptr, T, S, H, KVH,
+                                           scale_log2, none, k_scale,
+                                           v_scale);
+    } else if (D == 64) {
+      launch_bf16<64, false, false, true>(grid, st, q, k, v, q_pos, kv_pos,
+                                          out, nullptr, T, S, H, KVH,
+                                          scale_log2, none, k_scale, v_scale);
+    } else {
+      return (int)cudaErrorInvalidValue;
+    }
+  } else if (dtype == 0) {
+    dim3 grid((unsigned)((R + F32_ROWS - 1) / F32_ROWS), KVH, B);
+    const float* qq = static_cast<const float*>(q);
+    float* oo = static_cast<float*>(out);
+    if (D == 128) {
+      flash_fwd_f32_kernel<4, true><<<grid, F32_ROWS * 32, 0, st>>>(
+          qq, k, v, k_scale, v_scale, q_pos, kv_pos, oo, nullptr, T, S, H,
+          KVH, scale_log2, false, none);
+    } else if (D == 64) {
+      flash_fwd_f32_kernel<2, true><<<grid, F32_ROWS * 32, 0, st>>>(
+          qq, k, v, k_scale, v_scale, q_pos, kv_pos, oo, nullptr, T, S, H,
+          KVH, scale_log2, false, none);
     } else {
       return (int)cudaErrorInvalidValue;
     }

@@ -3,8 +3,9 @@
 //
 // Replaces the TPU kernel `paged_pool_attention` of
 // jax_llama_tpu/ops/paged_attention.py (pallas_call at :371, body
-// `_paged_kernel` at :79), for T >= 1 query tokens per row and a bf16 or
-// float32 pool (no int8 scales).  The T queries of a row sit at
+// `_paged_kernel` at :79), for T >= 1 query tokens per row and a bf16,
+// float32 or int8 pool (the int8 branch at :110-113, :163-204, scale
+// planes at :355-368).  The T queries of a row sit at
 // CONSECUTIVE positions (token t at q_pos[b] + t: one decode token at T=1,
 // the speculative verify block at T = n_draft + 1) and are packed with the
 // G query heads of their KV head as rows r = t*G + g:
@@ -29,6 +30,19 @@
 // sizeof(T) bytes, a multiple of 16, so every row stays 16-byte aligned
 // (the TPU kernel's multiple-of-8 rule is its sublane tiling and does not
 // carry over).
+//
+// int8 pool: k_pool, v_pool int8 [L, KVH, NB, BLK, d] with float32
+// per-slot-per-head scales k_scale, v_scale [L, KVH, NB, BLK]; q, out and
+// lse as above (q bf16 or float32).  Both scales fold per slot, as the JAX
+// kernel folds them: each score q.k is multiplied by its slot's k_scale
+// BEFORE the mask (an unwritten slot carries scale 0 and payload 0, and a
+// score of 0 is not -inf: the mask must still exclude it), and each
+// probability by its slot's v_scale before it is rounded to q's dtype
+// for the P.V product (l sums the unscaled P).  The layer's planes are
+// reached by pointer offset, never sliced or copied.  The tiles hold the
+// int8 bytes (half a bf16 tile) and convert to float32 in the dot and
+// P.V loops, so the pool is read at one byte per element plus 8 bytes of
+// scales per slot and KV head.
 //
 // What bounds it on an H100: memory.  A step does ~4·T·G·d FLOPs per live
 // slot and moves 2·d·bytes(dtype) of K/V per slot and KV head: at the
@@ -60,12 +74,18 @@
 //     sits in registers (one feature column per thread).  P is rounded to
 //     the pool dtype before the P.V product, as the JAX kernel does; l sums
 //     the unrounded P.
-//   * Two instances per dtype and head_dim: the T = 1 one (up to 8 query
+//   * Two instances per (q dtype, pool dtype) and head_dim: the T = 1 one
+//     (up to 8 query
 //     heads, the first version's code and shared-memory tile: the per-row
 //     limits and the -inf guard compile away) and the multi-token one (up
 //     to MAX_ROWS = 32 packed rows: n_draft up to 7 at G = 4), whose larger
 //     query and score tiles take half the slots per K/V tile to stay inside
-//     the 48 KB of static shared memory.
+//     the 48 KB of static shared memory.  The caller splits a longer
+//     block into launches of at most MAX_ROWS / G tokens
+//     (ops/paged_attention.py split_tokens).  The int8 instances take 64
+//     slots a tile at T = 1 and 32 in the multi-token one (a row of d int8
+//     values is d bytes, a multiple of 16 at d = 64 and 128, so cp.async
+//     keeps its 16-byte alignment at any block size).
 // Not done yet (later work): the grid is B*KVH blocks (64 for llama3-8b at
 // 8 slots, on 132 SMs) and each block waits on its own tile loads, so a
 // long row is latency-bound.  A split-KV second pass (flash-decoding) and
@@ -90,6 +110,9 @@ constexpr float LN2 = 0.69314718055994530942f;
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_f32(int8_t x) {
+  return static_cast<float>(x);
 }
 // P as it enters the P.V product: rounded to the pool dtype.
 __device__ __forceinline__ float round_p(float p, float) { return p; }
@@ -116,12 +139,40 @@ __device__ __forceinline__ void load_vec(const __nv_bfloat16* p,
     x[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
   }
 }
+// Sixteen int8 values, as float32 (exact).  Each byte is biased to an
+// unsigned value u = b + 128 (b ^ 0x80) and placed in the mantissa of
+// 2^23, so float(b) = as_float(0x4B000000 | u) - (2^23 + 128): integer
+// logic and one float add, which issue several times as fast as the
+// int -> float conversion instruction (16 a clock per SM on sm_90).
+// The score loop converts each K value once per packed query row, so
+// this rate weighs on the int8 instances' time.
+__device__ __forceinline__ void load_vec(const int8_t* p, float (&x)[16]) {
+  const uint4 v = *reinterpret_cast<const uint4*>(p);
+  const unsigned w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const unsigned u = w[i] ^ 0x80808080u;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      x[4 * i + j] =
+          __uint_as_float(0x4B000000u | ((u >> (8 * j)) & 0xffu)) -
+          8388736.f;
+    }
+  }
+}
 
 // 16-byte global -> shared copy that does not hold a register or wait:
 // a tile's copies are all in flight together (cp.async, sm_80+).
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(gmem));
+}
+
+// The same for one 4-byte value (a slot's scale).
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
                "l"(gmem));
 }
 
@@ -145,13 +196,15 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// T: pool element type; D: head_dim; TS: slots per shared-memory tile;
-// MAXR: packed query rows (T*G) the instance holds; more than MAXG makes
-// the multi-token instance.
-template <typename T, int D, int TS, int MAXR>
+// TQ: q element type; T: pool element type (TQ, or int8_t with scales);
+// D: head_dim; TS: slots per shared-memory tile; MAXR: packed query rows
+// (T*G) the instance holds; more than MAXG makes the multi-token instance.
+template <typename TQ, typename T, int D, int TS, int MAXR>
 __global__ void __launch_bounds__(NTHREADS)
-paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
+paged_decode_kernel(const TQ* __restrict__ q, const T* __restrict__ k_pool,
                     const T* __restrict__ v_pool,
+                    const float* __restrict__ k_scale,
+                    const float* __restrict__ v_scale,
                     const int* __restrict__ pool_pos,
                     const int* __restrict__ table,
                     const int* __restrict__ q_pos, float* __restrict__ out,
@@ -160,6 +213,7 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   static_assert(TS <= NTHREADS, "one position per thread");
   static_assert(MAXR <= NTHREADS, "one lse per thread");
   constexpr bool MULTI = MAXR > MAXG;      // T > 1 rows: per-row limits
+  constexpr bool Q8 = sizeof(T) == 1;      // int8 pool: fold the scales
   constexpr int VEC = 16 / sizeof(T);      // elements per 16-byte load
   constexpr int LD = D + VEC;              // padded shared row
   constexpr int GSTEP = NTHREADS / D;      // threads sharing a column
@@ -173,6 +227,7 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   T* v_s = reinterpret_cast<T*>(v_raw);
   __shared__ float p_s[MAXR * TS];
   __shared__ int pos_s[TS];
+  __shared__ float ksc_s[Q8 ? TS : 1], vsc_s[Q8 ? TS : 1];
   __shared__ float m_s[MAXR], l_s[MAXR], alpha_s[MAXR];
   __shared__ int bound_s;
 
@@ -233,6 +288,15 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
       // Wholly masked for every token: no K/V read.
       if (!__syncthreads_or(live)) continue;
 
+      if constexpr (Q8) {
+        // The tile's scales travel with its K/V copies (a plain load here
+        // would hold each thread for one memory round trip before it
+        // could issue them).
+        if (tid < n) {
+          cp_async4(&ksc_s[tid], k_scale + block0 + s0 + tid);
+          cp_async4(&vsc_s[tid], v_scale + block0 + s0 + tid);
+        }
+      }
       const T* ksrc = k_pool + (block0 + s0) * D;
       const T* vsrc = v_pool + (block0 + s0) * D;
       for (int c = tid; c < n * (D / VEC); c += NTHREADS) {
@@ -260,7 +324,8 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
 #pragma unroll
             for (int e = 0; e < VEC; ++e) dot += qr[c + e] * kx[e];
           }
-          s = dot;
+          // int8: the slot's K scale, before the mask (this branch).
+          s = Q8 ? dot * ksc_s[j] : dot;
         }
         p_s[r * TS + j] = s;
       }
@@ -281,7 +346,8 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
           // exp2(-inf - m_new) = 0 for a masked pair once m_new is finite.
           const float p = none ? 0.f : exp2f(p_s[r * TS + j] - m_new);
           sum += p;
-          p_s[r * TS + j] = round_p(p, T());
+          // int8: the slot's V scale, then the round to q's dtype.
+          p_s[r * TS + j] = round_p(Q8 ? p * vsc_s[j] : p, TQ());
         }
         sum = warp_sum(sum);
         __syncwarp();
@@ -326,36 +392,57 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   }
 }
 
-template <typename T, int TS, int MAXR>
-int launch(const void* q, const void* k, const void* v, const int* pool_pos,
-           const int* table, const int* q_pos, float* out, float* lse, int B,
-           int KVH, int G, int TT, int D, int NB, int BLK, int MB, int layer,
+template <typename TQ, typename T, int TS, int MAXR>
+int launch(const void* q, const void* k, const void* v, const float* ks,
+           const float* vs, const int* pool_pos, const int* table,
+           const int* q_pos, float* out, float* lse, int B, int KVH, int G,
+           int TT, int D, int NB, int BLK, int MB, int layer,
            float scale_log2, cudaStream_t st) {
   const dim3 grid(KVH, B);
-  const T* qq = static_cast<const T*>(q);
+  const TQ* qq = static_cast<const TQ*>(q);
   const T* kk = static_cast<const T*>(k);
   const T* vv = static_cast<const T*>(v);
   if (D == 128) {
-    paged_decode_kernel<T, 128, TS, MAXR><<<grid, NTHREADS, 0, st>>>(
-        qq, kk, vv, pool_pos, table, q_pos, out, lse, KVH, G, TT, NB, BLK,
-        MB, layer, scale_log2);
+    paged_decode_kernel<TQ, T, 128, TS, MAXR><<<grid, NTHREADS, 0, st>>>(
+        qq, kk, vv, ks, vs, pool_pos, table, q_pos, out, lse, KVH, G, TT,
+        NB, BLK, MB, layer, scale_log2);
   } else if (D == 64) {
-    paged_decode_kernel<T, 64, TS, MAXR><<<grid, NTHREADS, 0, st>>>(
-        qq, kk, vv, pool_pos, table, q_pos, out, lse, KVH, G, TT, NB, BLK,
-        MB, layer, scale_log2);
+    paged_decode_kernel<TQ, T, 64, TS, MAXR><<<grid, NTHREADS, 0, st>>>(
+        qq, kk, vv, ks, vs, pool_pos, table, q_pos, out, lse, KVH, G, TT,
+        NB, BLK, MB, layer, scale_log2);
   } else {
     return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }
 
+// The T = 1 and multi-token instances of one (q dtype, pool dtype) pair,
+// with their tile widths.
+template <typename TQ, typename T, int TS1, int TSM>
+int dispatch(bool small, const void* q, const void* k, const void* v,
+             const float* ks, const float* vs, const int* pool_pos,
+             const int* table, const int* q_pos, float* out, float* lse,
+             int B, int KVH, int G, int TT, int D, int NB, int BLK, int MB,
+             int layer, float scale_log2, cudaStream_t st) {
+  return small
+      ? launch<TQ, T, TS1, MAXG>(q, k, v, ks, vs, pool_pos, table, q_pos,
+                                 out, lse, B, KVH, G, TT, D, NB, BLK, MB,
+                                 layer, scale_log2, st)
+      : launch<TQ, T, TSM, MAX_ROWS>(q, k, v, ks, vs, pool_pos, table, q_pos,
+                                     out, lse, B, KVH, G, TT, D, NB, BLK, MB,
+                                     layer, scale_log2, st);
+}
+
 }  // namespace
 
 // T query tokens per row (t_tokens), G query heads per KV head; T*G packed
-// rows.  dtype: 0 = float32, 1 = bfloat16.  Returns the cudaError_t of the
-// launch (0 on success).  Launches on `stream` and does not synchronise.
+// rows.  dtype (of q): 0 = float32, 1 = bfloat16.  k_scale and v_scale:
+// NULL for a pool of q's dtype, else the float32 scale planes of an int8
+// pool.  Returns the cudaError_t of the launch (0 on success).  Launches
+// on `stream` and does not synchronise.
 extern "C" int paged_decode(const void* q, const void* k_pool,
-                            const void* v_pool, const int* pool_pos,
+                            const void* v_pool, const float* k_scale,
+                            const float* v_scale, const int* pool_pos,
                             const int* table, const int* q_pos, float* out,
                             float* lse, int B, int KVH, int G, int t_tokens,
                             int D, int NB, int BLK, int MB, int layer,
@@ -365,25 +452,33 @@ extern "C" int paged_decode(const void* q, const void* k_pool,
       layer < 0 || B > 65535 || KVH > 65535) {
     return (int)cudaErrorInvalidValue;
   }
+  if ((k_scale == nullptr) != (v_scale == nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool small = t_tokens == 1;
+  const bool int8 = k_scale != nullptr;
   if (dtype == 1) {
-    return small
-        ? launch<__nv_bfloat16, 64, MAXG>(
-              q, k_pool, v_pool, pool_pos, table, q_pos, out, lse, B, KVH, G,
-              t_tokens, D, NB, BLK, MB, layer, scale_log2, st)
-        : launch<__nv_bfloat16, 32, MAX_ROWS>(
-              q, k_pool, v_pool, pool_pos, table, q_pos, out, lse, B, KVH, G,
-              t_tokens, D, NB, BLK, MB, layer, scale_log2, st);
+    return int8
+        ? dispatch<__nv_bfloat16, int8_t, 64, 32>(
+              small, q, k_pool, v_pool, k_scale, v_scale, pool_pos, table,
+              q_pos, out, lse, B, KVH, G, t_tokens, D, NB, BLK, MB, layer,
+              scale_log2, st)
+        : dispatch<__nv_bfloat16, __nv_bfloat16, 64, 32>(
+              small, q, k_pool, v_pool, k_scale, v_scale, pool_pos, table,
+              q_pos, out, lse, B, KVH, G, t_tokens, D, NB, BLK, MB, layer,
+              scale_log2, st);
   }
   if (dtype == 0) {
-    return small
-        ? launch<float, 32, MAXG>(
-              q, k_pool, v_pool, pool_pos, table, q_pos, out, lse, B, KVH, G,
-              t_tokens, D, NB, BLK, MB, layer, scale_log2, st)
-        : launch<float, 16, MAX_ROWS>(
-              q, k_pool, v_pool, pool_pos, table, q_pos, out, lse, B, KVH, G,
-              t_tokens, D, NB, BLK, MB, layer, scale_log2, st);
+    return int8
+        ? dispatch<float, int8_t, 64, 32>(
+              small, q, k_pool, v_pool, k_scale, v_scale, pool_pos, table,
+              q_pos, out, lse, B, KVH, G, t_tokens, D, NB, BLK, MB, layer,
+              scale_log2, st)
+        : dispatch<float, float, 32, 16>(
+              small, q, k_pool, v_pool, k_scale, v_scale, pool_pos, table,
+              q_pos, out, lse, B, KVH, G, t_tokens, D, NB, BLK, MB, layer,
+              scale_log2, st);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -52,8 +52,18 @@ model level with dropout off.  ``config.remat`` runs each block under
 ``torch.utils.checkpoint``: policy "full" recomputes everything, "dots"
 saves the matmul outputs (JAX's ``dots_with_no_batch_dims_saveable``).
 
-Ring attention, int8, the hidden-state and attention-weight outputs,
-pipeline stages and quantized weights raise ``NotImplementedError``.
+int8 (``ops.quant``): a projection held as a ``QuantizedTensor`` (from
+``quantize_params``, or a quantized JAX tree through ``from_jax_params``)
+is multiplied as its int8 payload and rescaled after the product.  With
+``config.kv_cache_dtype == "int8"`` the caches and pools hold int8 K/V
+with float32 per-slot-per-head scales: the xla path folds them in
+``sdpa_cached``, the flash path writes the quantized chunk first and runs
+``flash_attention_quantized``, the paged path folds them in the paged
+kernel; the step's own K/V join at full precision and are quantized only
+for the write.
+
+Ring attention, the hidden-state and attention-weight outputs and
+pipeline stages raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -73,10 +83,11 @@ from torch.utils.checkpoint import (
 
 from ..config import LLaMAConfig, torch_dtype
 from ..ops.attention import attention_bias, dropout, sdpa, sdpa_cached
-from ..ops.flash_attention import flash_attention
+from ..ops.flash_attention import flash_attention, flash_attention_quantized
 from ..ops.loss import matmul_f32_out
 from ..ops.norm import rms_norm
 from ..ops.paged_attention import paged_decode_attention
+from ..ops.quant import QuantizedTensor, matmul, quantize_kv
 from ..ops.rope import apply_rope, rope_table
 
 Params = Dict[str, Any]
@@ -109,20 +120,29 @@ def _params_device(params: Params) -> torch.device:
 class KVCache:
     """Fixed-capacity per-layer KV cache with per-slot absolute positions.
 
-    k, v:  [L, B, S_max, KVH, head_dim] in the activation dtype.
+    k, v:  [L, B, S_max, KVH, head_dim] in the activation dtype, or int8
+           when the cache is quantized (config.kv_cache_dtype == "int8").
     pos:   [B, S_max] int32 absolute position of each slot; -1 = invalid.
     index: next write offset: an int, one for all rows (lockstep decode),
            or a [B] int32 tensor, one per row (continuous batching).
+    k_scale, v_scale: [L, B, S_max, KVH] float32 per-slot-per-head dequant
+           scales (int8 cache only; None otherwise).
     """
 
     k: torch.Tensor
     v: torch.Tensor
     pos: torch.Tensor
     index: Union[int, torch.Tensor] = 0
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
 
     @property
     def max_len(self) -> int:
         return self.k.shape[2]
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
 
     @property
     def per_row_index(self) -> bool:
@@ -135,12 +155,14 @@ class PagedKVCache:
     reads it, through the paged kernel, with no gathered view.
 
     k, v:  [L, KVH, NB, BLK, head_dim], KV-head-major, so one (head, block)
-           tile is a contiguous [BLK, head_dim] page.
+           tile is a contiguous [BLK, head_dim] page; int8 when quantized.
     pos:   [NB, BLK] int32 absolute position per slot; -1 invalid.
     table: [B, MB] int32 physical block ids in sequence order; NB marks an
            unused entry.
     fill:  [B] int32 per-row next write offset in tokens (advanced by the
            caller after each step, as in the JAX package).
+    k_scale, v_scale: [L, KVH, NB, BLK] float32 per-slot-per-head scales
+           (int8 pool only; None otherwise), folded in the paged kernel.
     """
 
     k: torch.Tensor
@@ -148,6 +170,12 @@ class PagedKVCache:
     pos: torch.Tensor
     table: torch.Tensor
     fill: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
 
     @property
     def n_blocks(self) -> int:
@@ -192,7 +220,8 @@ def paged_pool_write(
     """Write per-(row, token) updates into a pool plane in place; pairs
     whose block id is outside [0, NB) (the sentinel) are dropped.
 
-    plane: [L, KVH, NB, BLK, d] payload with upd [L, KVH, B, T, d], or the
+    plane: [L, KVH, NB, BLK, d] payload with upd [L, KVH, B, T, d], an
+      [L, KVH, NB, BLK] scale plane with upd [L, KVH, B, T], or the
       [NB, BLK] position plane with upd [B, T].
     blk, off: [B, T] physical coordinates from ``paged_write_indices``.
 
@@ -203,8 +232,8 @@ def paged_pool_write(
     the first live pair (same slot, same value); with no live pair, every
     pair rewrites its clamped slot's own value.  Returns ``plane``.
     """
-    payload = plane.dim() == 5
-    NB = plane.shape[2] if payload else plane.shape[0]
+    nl = 0 if plane.dim() == 2 else 2  # the leading (L, KVH) axes
+    NB = plane.shape[nl]
     flat = blk.reshape(-1)
     live = (flat >= 0) & (flat < NB)
     any_live = live.any()
@@ -213,13 +242,10 @@ def paged_pool_write(
                       live.int().argmax())
     b = flat[src].clamp(0, NB - 1)
     o = off.reshape(-1)[src]
-    if payload:
-        u = upd.reshape(*upd.shape[:2], -1, upd.shape[-1]).to(plane.dtype)
-        plane[:, :, b, o] = torch.where(any_live, u[:, :, src],
-                                        plane[:, :, b, o])
-    else:
-        u = upd.reshape(-1).to(plane.dtype)
-        plane[b, o] = torch.where(any_live, u[src], plane[b, o])
+    lead = (slice(None),) * nl
+    u = upd.reshape(*upd.shape[:nl], -1, *upd.shape[nl + 2:]).to(plane.dtype)
+    plane[lead + (b, o)] = torch.where(any_live, u[lead + (src,)],
+                                       plane[lead + (b, o)])
     return plane
 
 
@@ -239,17 +265,25 @@ def init_cache(
     dtype: Optional[torch.dtype] = None,
     device="cuda",
 ) -> KVCache:
-    """Allocate an empty cache on ``device``."""
+    """Allocate an empty cache on ``device``: int8 payload with zero
+    scales when ``config.kv_cache_dtype == "int8"`` and no ``dtype`` is
+    given (JAX :434-452)."""
     config.validate()
     device = resolve_device(device)
     max_len = max_len or config.max_seq_len
-    dtype = dtype or config.activation_dtype
+    int8_kv = config.kv_cache_dtype == "int8" and dtype is None
+    dtype = torch.int8 if int8_kv else (dtype or config.activation_dtype)
     shape = (config.n_layers, batch, max_len, config.kv_heads, config.head_dim)
+
+    def scales():
+        return (torch.zeros(shape[:-1], dtype=torch.float32, device=device)
+                if int8_kv else None)
+
     return KVCache(
         k=torch.zeros(shape, dtype=dtype, device=device),
         v=torch.zeros(shape, dtype=dtype, device=device),
         pos=torch.full((batch, max_len), -1, dtype=torch.int32, device=device),
-        index=0,
+        index=0, k_scale=scales(), v_scale=scales(),
     )
 
 
@@ -322,12 +356,18 @@ def _tensor_from_numpy(a, device, dtype):
 def from_jax_params(tree, device="cuda", dtype: Optional[torch.dtype] = None) -> Params:
     """Convert the JAX package's parameter tree (numpy arrays, e.g.
     ``jax.tree.map(np.asarray, params)``) into the port's, same layout,
-    same dtype unless ``dtype`` is given."""
+    same dtype unless ``dtype`` is given.  A quantized tree's weights (any
+    node with ``.q`` and ``.scale``, the JAX ``QuantizedTensor``) become
+    ``QuantizedTensor``s: int8 payload and float32 scales, never cast."""
     device = resolve_device(device)
 
     def conv(node):
         if isinstance(node, dict):
             return {k: conv(v) for k, v in node.items()}
+        if hasattr(node, "q") and hasattr(node, "scale"):
+            return QuantizedTensor(
+                q=_tensor_from_numpy(node.q, device, torch.int8),
+                scale=_tensor_from_numpy(node.scale, device, torch.float32))
         return _tensor_from_numpy(node, device, dtype)
 
     params = conv(tree)
@@ -335,15 +375,19 @@ def from_jax_params(tree, device="cuda", dtype: Optional[torch.dtype] = None) ->
     if set(params["layers"]) != expected:
         raise NotImplementedError(
             f"layer tree {sorted(params['layers'])} is not the fused layout "
-            f"{sorted(expected)} (quantized or legacy trees are not ported)"
+            f"{sorted(expected)} (legacy trees are not ported)"
         )
     return params
 
 
 def param_count(params: Params) -> int:
+    """Elements of every leaf (a quantized weight counts its payload and
+    its scales, as the JAX package's leaf count does)."""
     def count(node):
         if isinstance(node, dict):
             return sum(count(v) for v in node.values())
+        if isinstance(node, QuantizedTensor):
+            return node.q.numel() + node.scale.numel()
         return node.numel()
 
     return count(params)
@@ -372,15 +416,24 @@ def lm_head_logits(
     else:
         kernel = params["lm_head"]
     B, T, D = x.shape
-    logits = matmul_f32_out(x.reshape(B * T, D), kernel)
+    if isinstance(kernel, QuantizedTensor):
+        logits = (matmul_f32_out(x.reshape(B * T, D), kernel.q)
+                  * kernel.scale.reshape(-1))
+    else:
+        logits = matmul_f32_out(x.reshape(B * T, D), kernel)
     return logits.reshape(B, T, -1).to(torch_dtype(config.logits_dtype))
 
 
-def _proj(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def _proj(h: torch.Tensor, w) -> torch.Tensor:
     """h [N, D] against a stack of C [D, k] weights ([..., D, k]) ->
     [N, ..., k].  One of the two operands has to be laid out again for a
     single GEMM; this copies the smaller: h, broadcast over the C weights
-    (N <= k, decode), or the weight, as one [D, C*k] matrix (prefill)."""
+    (N <= k, decode), or the weight, as one [D, C*k] matrix (prefill).  A
+    ``QuantizedTensor`` multiplies its payload and rescales the product
+    per output channel in float32 (JAX ``qeinsum``)."""
+    if isinstance(w, QuantizedTensor):
+        out = _proj(h, w.q).float() * w.scale.reshape(w.shape[:-2] + (-1,))
+        return out.to(h.dtype)
     lead, (D, k) = w.shape[:-2], w.shape[-2:]
     w = w.reshape(-1, D, k).to(h.dtype)
     N = h.shape[0]
@@ -399,7 +452,8 @@ def _cache_write(
     """Write new [B, T, KVH, hd] into one layer's cache [B, S, KVH, hd] at
     ``index``: a shared int offset, or a [B] tensor of per-row offsets
     (row b's token t lands at index[b] + t; a token past the cache is
-    dropped, as JAX's ``.at[...].set(mode="drop")``)."""
+    dropped, as JAX's ``.at[...].set(mode="drop")``).  The same for a
+    layer's [B, S, KVH] scale plane with new [B, T, KVH]."""
     if not isinstance(index, torch.Tensor):
         cache_layer[:, index:index + new.shape[1]] = new.to(cache_layer.dtype)
         return
@@ -413,7 +467,7 @@ def _cache_write(
     # the row's token that lands at S-1, or the slot's own value when the
     # whole row is past the cache.
     src = (safe - index.long()[:, None]).clamp(min=0)
-    fits = (index < S)[:, None, None, None]
+    fits = (index < S).reshape((B,) + (1,) * (new.dim() - 1))
     cache_layer[rows, safe] = torch.where(
         fits, new[rows, src].to(cache_layer.dtype), cache_layer[rows, safe])
 
@@ -448,15 +502,19 @@ def _block(
     impl: str,
     paged: Optional[Tuple["PagedKVCache", torch.Tensor, int]] = None,
     drop: Optional[_LayerDropout] = None,
+    cache_ks: Optional[torch.Tensor] = None,
+    cache_vs: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One pre-norm transformer block, x: [B, T, D]; ``impl`` is the
     resolved attention path.  Writes this block's new K/V into
-    ``cache_k``/``cache_v`` (views of one layer of the cache) in place.
-    ``impl="paged"`` attends ``paged`` = (pool cache, per-row query
-    position, layer) through the paged kernel and leaves the pool to the
-    caller's write-back.  ``drop`` (training, cache-free) applies the
-    layer's attention and residual dropout.  Returns (x, the block's new
-    K, its new V)."""
+    ``cache_k``/``cache_v`` (views of one layer of the cache) in place; an
+    int8 cache passes its scale planes as ``cache_ks``/``cache_vs`` and
+    gets the quantized K/V and their scales.  ``impl="paged"`` attends
+    ``paged`` = (pool cache, per-row query position, layer) through the
+    paged kernel and leaves the pool to the caller's write-back.  ``drop``
+    (training, cache-free) applies the layer's attention and residual
+    dropout.  Returns (x, the block's new K, its new V) at full
+    precision."""
     B, T, D = x.shape
     adt = x.dtype
     H, KVH, hd = config.n_heads, config.kv_heads, config.head_dim
@@ -474,21 +532,37 @@ def _block(
     q = apply_rope(q, cos, sin, positions)
     k = apply_rope(k, cos, sin, positions)
 
+    int8 = cache_ks is not None
     if impl == "paged":
         pool, q_pos_row, layer = paged
         attn = paged_decode_attention(
             q, k, v, pool.k, pool.v, pool.pos, pool.table, q_pos_row,
-            layer=layer,
+            layer=layer, k_scale=pool.k_scale, v_scale=pool.v_scale,
         )
     elif cache_k is not None and impl == "xla":
-        attn = sdpa_cached(
-            q, cache_k.to(adt), cache_v.to(adt), k, v, bias, bias_new,
-            softmax_dtype=softmax_dtype,
-        )
+        if int8:
+            attn = sdpa_cached(
+                q, cache_k, cache_v, k, v, bias, bias_new,
+                softmax_dtype=softmax_dtype, k_scale=cache_ks,
+                v_scale=cache_vs,
+            )
+        else:
+            attn = sdpa_cached(
+                q, cache_k.to(adt), cache_v.to(adt), k, v, bias, bias_new,
+                softmax_dtype=softmax_dtype,
+            )
         # Append-free: the step's K/V land after the attention read the
         # cache (the slots they fill were masked from it).
-        _cache_write(cache_k, k, cache_index)
-        _cache_write(cache_v, v, cache_index)
+        _cache_write_kv(cache_k, cache_v, cache_ks, cache_vs, k, v,
+                        cache_index)
+    elif cache_k is not None and int8:
+        # int8 flash: the chunk's quantized K/V land first, then the
+        # kernel attends the whole cache folding the scales (JAX
+        # :781-803).
+        _cache_write_kv(cache_k, cache_v, cache_ks, cache_vs, k, v,
+                        cache_index)
+        attn = flash_attention_quantized(q, cache_k, cache_v, cache_ks,
+                                         cache_vs, positions, slot_pos)
     else:
         if cache_k is not None:
             _cache_write(cache_k, k, cache_index)
@@ -505,7 +579,7 @@ def _block(
             attn = sdpa(q, kk, vv, bias, softmax_dtype=softmax_dtype,
                         dropout_rate=attn_rate, generator=gen)
 
-    attn_out = attn.reshape(B * T, H * hd) @ lp["o"].reshape(H * hd, D).to(adt)
+    attn_out = matmul(attn.reshape(B * T, H * hd), lp["o"])
     if drop is not None and drop.resid_rate > 0.0:
         attn_out = dropout(attn_out, drop.resid_rate, gen)
     x = x + attn_out.reshape(B, T, D)
@@ -513,10 +587,22 @@ def _block(
     h = rms_norm(x, lp["mlp_norm"], config.rms_norm_eps).reshape(B * T, D)
     gate_up = _proj(h, lp["gate_up"])  # [N, 2, F]
     hidden = F.silu(gate_up[:, 0]) * gate_up[:, 1]
-    down = hidden @ lp["down"].to(adt)
+    down = matmul(hidden, lp["down"])
     if drop is not None and drop.resid_rate > 0.0:
         down = dropout(down, drop.resid_rate, gen)
     return x + down.reshape(B, T, D), k, v
+
+
+def _cache_write_kv(cache_k, cache_v, cache_ks, cache_vs, k, v, index):
+    """Write the step's K/V into one layer of the cache at ``index``;
+    quantized first, with their scales, when the cache is int8."""
+    if cache_ks is not None:
+        k, ks = quantize_kv(k)
+        v, vs = quantize_kv(v)
+        _cache_write(cache_ks, ks, index)
+        _cache_write(cache_vs, vs, index)
+    _cache_write(cache_k, k, index)
+    _cache_write(cache_v, v, index)
 
 
 # The "dots" remat policy: keep the outputs of plain (batch-free) matrix
@@ -715,6 +801,8 @@ def forward(
             config=config, positions=q_positions, bias=bias,
             slot_pos=slot_pos, cache_index=cache.index,
             cos=cos, sin=sin, bias_new=bias_new, impl=impl,
+            cache_ks=cache.k_scale[i] if cache.quantized else None,
+            cache_vs=cache.v_scale[i] if cache.quantized else None,
         )
 
     if output_last_hidden:
@@ -763,12 +851,12 @@ def paged_forward(
     speculative draft chain, whose JAX twin discards the returned pool).
     Rows with ``attn_mask`` False (or position -1) are inactive: they
     attend nothing, their logits are garbage the caller ignores, and
-    their write-back is dropped.  int8 pools raise NotImplementedError.
+    their write-back is dropped.  An int8 pool (``cache.k_scale``) is read
+    through the kernel's scale fold; the step's K/V are quantized for the
+    write-back, their scales landing in the scale planes under the same
+    rule of dropping dead pairs.
     """
     B, T = tokens.shape
-    if not cache.k.is_floating_point():
-        raise NotImplementedError(
-            "int8 paged pools are not ported (ROADMAP A8)")
     config.validate()
     device = _params_device(params)
     tokens = tokens.to(device)
@@ -810,9 +898,16 @@ def paged_forward(
 
     blk, off, _ = paged_write_indices(
         cache.table, cache.fill, active, T, NB, BLK)
+    new_k, new_v = torch.stack(new_k), torch.stack(new_v)
+    if cache.quantized:
+        new_k, k_s = quantize_kv(new_k)
+        new_v, v_s = quantize_kv(new_v)
+        # [L, B, T, KVH] -> [L, KVH, B, T]
+        paged_pool_write(cache.k_scale, k_s.movedim(3, 1), blk, off)
+        paged_pool_write(cache.v_scale, v_s.movedim(3, 1), blk, off)
     # [L, B, T, KVH, hd] -> [L, KVH, B, T, hd]
-    paged_pool_write(cache.k, torch.stack(new_k).movedim(3, 1), blk, off)
-    paged_pool_write(cache.v, torch.stack(new_v).movedim(3, 1), blk, off)
+    paged_pool_write(cache.k, new_k.movedim(3, 1), blk, off)
+    paged_pool_write(cache.v, new_v.movedim(3, 1), blk, off)
     paged_pool_write(cache.pos, torch.where(active[:, None], positions, -1),
                      blk, off)
     return logits, cache

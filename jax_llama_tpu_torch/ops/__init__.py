@@ -1,12 +1,15 @@
 """Tensor ops of the port: plain PyTorch, and the hand-written CUDA
 kernels' wrappers: flash attention (``flash_attention``, forward and
-backward kernels) and the paged-attention decode
-(``paged_pool_attention``)."""
+backward kernels; ``flash_attention_quantized`` over int8 K/V) and the
+paged-attention decode (``paged_pool_attention``); int8 quantization
+(``quant``)."""
 
 from .attention import attention_bias, dropout, repeat_kv, sdpa, sdpa_cached
 from .flash_attention import (
     dropout_keep,
     flash_attention,
+    flash_attention_quantized,
+    flash_attention_quantized_reference,
     flash_attention_reference,
     flash_backward,
     flash_backward_reference,
@@ -31,6 +34,7 @@ from .sampling import (
 __all__ = [
     "attention_bias", "dropout", "repeat_kv", "sdpa", "sdpa_cached",
     "dropout_keep", "flash_attention", "flash_attention_reference",
+    "flash_attention_quantized", "flash_attention_quantized_reference",
     "flash_backward", "flash_backward_reference", "chunked_softmax_xent",
     "rms_norm",
     "paged_decode_attention", "paged_pool_attention",

@@ -77,6 +77,8 @@ def sdpa_cached(
     bias_cache: torch.Tensor,
     bias_new: torch.Tensor,
     softmax_dtype: torch.dtype = torch.float32,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Append-free cached attention: one softmax over the (unchanged) cache
     and the step's new K/V, joined at the scores.
@@ -84,9 +86,13 @@ def sdpa_cached(
     Args:
       q: [B, T, H, D].
       k_cache, v_cache: [B, S, KVH, D]; unwritten slots masked by
-        ``bias_cache``.
+        ``bias_cache``; int8 when ``k_scale``/``v_scale`` are given.
       k_new, v_new: [B, T, KVH, D], this step's projections.
       bias_cache: [B, 1, T, S]; bias_new: [B, 1, T, T].
+      k_scale, v_scale: [B, S, KVH] float32 dequant scales of an int8
+        cache.  Constant along D, they commute with both products: the
+        cache scores are scaled after the dot, and v_scale is folded into
+        the weights before the P.V product (JAX ``sdpa_cached``).
     Returns:
       [B, T, H, D] in q.dtype.
     """
@@ -94,12 +100,19 @@ def sdpa_cached(
     kvh = k_cache.shape[2]
     qg = q.reshape(b, t, kvh, h // kvh, d)
     scale = 1.0 / float(d) ** 0.5
-    s1 = _scores(qg, k_cache, scale) + bias_cache[:, :, None]
+    s1 = _scores(qg, k_cache, scale)
+    if k_scale is not None:
+        s1 = s1 * k_scale.permute(0, 2, 1)[:, :, None, None, :]
+    s1 = s1 + bias_cache[:, :, None]
     s2 = _scores(qg, k_new, scale) + bias_new[:, :, None]
     s = torch.cat([s1, s2], dim=-1).to(softmax_dtype)
     w = torch.softmax(s, dim=-1).to(q.dtype)
     n = s1.shape[-1]
-    out = _pv(w[..., :n], v_cache) + _pv(w[..., n:], v_new)
+    w1 = w[..., :n]
+    if v_scale is not None:
+        w1 = (w1.float() * v_scale.permute(0, 2, 1)[:, :, None, None, :]
+              ).to(q.dtype)
+    out = _pv(w1, v_cache) + _pv(w[..., n:], v_new)
     return out.reshape(b, t, h, d).to(q.dtype)
 
 

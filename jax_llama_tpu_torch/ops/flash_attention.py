@@ -31,6 +31,12 @@ tensors the hand-written kernels run (``csrc/flash_fwd.cu``,
 ``csrc/flash_bwd.cu``); on CPU tensors their plain versions
 ``flash_attention_reference`` and ``flash_backward_reference``.  A CUDA
 tensor either reaches a kernel or raises.
+
+``flash_attention_quantized`` (JAX :629) is the same forward over an int8
+K/V with float32 per-slot-per-head scales [B, S, KVH]: K's scale is folded
+into the scores and V's into the probabilities, so the kernel
+(``flash_fwd_int8`` in ``csrc/flash_fwd.cu``) reads the int8 bytes and no
+dequantized copy exists.  Inference only: no dropout, no VJP.
 """
 
 from __future__ import annotations
@@ -159,6 +165,8 @@ def flash_attention_reference(
     dropout_rate: float = 0.0,
     dropout_seed=None,
     return_lse: bool = False,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
 ):
     """Dense positional-mask softmax attention with the kernel's contract.
 
@@ -166,7 +174,10 @@ def flash_attention_reference(
     to v's dtype before the P.V product and the sum is divided by the
     float32 row sum of the undropped probabilities, as the kernels (and
     the JAX kernel) do.  ``return_lse`` also returns the row logsumexp
-    [B, KVH, G*T] (+inf on rows with no live slot).
+    [B, KVH, G*T] (+inf on rows with no live slot).  With ``k_scale`` and
+    ``v_scale`` ([B, S, KVH] float32) k and v are int8: each score is
+    multiplied by its slot's k_scale before the mask, and each probability
+    by its slot's v_scale before it is rounded to q's dtype for P.V.
     """
     rate, seed = _dropout_args(dropout_rate, dropout_seed)
     B, T, H, d = q.shape
@@ -176,6 +187,8 @@ def flash_attention_reference(
     qg = q.reshape(B, T, KVH, G, d)
     s = torch.einsum("btkgd,bskd->bkgts", qg.float(), k.float())
     s = s * (1.0 / math.sqrt(d))
+    if k_scale is not None:
+        s = s * k_scale.float().permute(0, 2, 1)[:, :, None, None, :]
     s = s.masked_fill(~_allowed(q_pos, kv_pos)[:, None, None], float("-inf"))
     m = s.amax(dim=-1, keepdim=True)
     m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
@@ -184,7 +197,11 @@ def flash_attention_reference(
     if rate > 0.0:
         keep = _keep_plane(seed, B, KVH, G, T, S, rate, q.device)
         p = torch.where(keep, p, 0.0) * (1.0 / (1.0 - rate))
-    o = torch.einsum("bkgts,bskd->btkgd", p.to(v.dtype).float(), v.float())
+    p_dtype = v.dtype
+    if v_scale is not None:
+        p = p * v_scale.float().permute(0, 2, 1)[:, :, None, None, :]
+        p_dtype = q.dtype
+    o = torch.einsum("bkgts,bskd->btkgd", p.to(p_dtype).float(), v.float())
     lt = l.permute(0, 3, 1, 2)[..., None]  # [B, T, KVH, G, 1]
     o = torch.where(lt > 0, o / torch.where(lt > 0, lt, torch.ones_like(lt)),
                     0.0)
@@ -193,6 +210,22 @@ def flash_attention_reference(
         return out
     lse = torch.where(l > 0, m[..., 0] + torch.log(l), float("inf"))
     return out, lse.reshape(B, KVH, G * T)
+
+
+def flash_attention_quantized_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    k_scale: torch.Tensor,
+    v_scale: torch.Tensor,
+    q_pos: torch.Tensor,
+    kv_pos: torch.Tensor,
+) -> torch.Tensor:
+    """The plain version of ``flash_attention_quantized``: the scale fold
+    in float32 from the int8 bytes (``flash_attention_reference`` with
+    scales)."""
+    return flash_attention_reference(q, k, v, q_pos, kv_pos,
+                                     k_scale=k_scale, v_scale=v_scale)
 
 
 def flash_backward_reference(
@@ -246,7 +279,7 @@ def flash_backward_reference(
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _check(q, k, v, q_pos, kv_pos, *extra) -> None:
+def _check(q, k, v, q_pos, kv_pos, *extra, kv_dtype=None) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be [B, T, H, d] / [B, S, KVH, d]")
     B, T, H, d = q.shape
@@ -259,10 +292,11 @@ def _check(q, k, v, q_pos, kv_pos, *extra) -> None:
     if tuple(q_pos.shape) != (B, T) or tuple(kv_pos.shape) != (B, S):
         raise ValueError(f"positions must be [B, T] and [B, S], got "
                          f"{tuple(q_pos.shape)} and {tuple(kv_pos.shape)}")
-    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"q/k/v must share one dtype of "
-                        f"{list(_DTYPE_CODE)}; got {q.dtype}, {k.dtype}, "
-                        f"{v.dtype}")
+    kv_dtype = kv_dtype or q.dtype
+    if q.dtype not in _DTYPE_CODE or k.dtype != kv_dtype \
+            or v.dtype != kv_dtype:
+        raise TypeError(f"q must be one of {list(_DTYPE_CODE)} and k/v "
+                        f"{kv_dtype}; got {q.dtype}, {k.dtype}, {v.dtype}")
     if q_pos.dtype != torch.int32 or kv_pos.dtype != torch.int32:
         raise TypeError("q_pos and kv_pos must be int32")
     if d not in _HEAD_DIMS:
@@ -331,6 +365,66 @@ def _forward(q, k, v, q_pos, kv_pos, rate, seed, need_lse):
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     _check(q, k, v, q_pos, kv_pos)
     return _launch(q, k, v, q_pos, kv_pos, rate, seed, need_lse)
+
+
+def _launch_quantized(q, k, v, k_scale, v_scale, q_pos, kv_pos):
+    fn = getattr(_build.load(KERNEL), "flash_fwd_int8")
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+                   + [ctypes.c_float, ctypes.c_void_p])
+    B, T, H, d = q.shape
+    S, KVH = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    scale_log2 = (1.0 / math.sqrt(d)) * math.log2(math.e)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(),
+            v_scale.data_ptr(), q_pos.data_ptr(), kv_pos.data_ptr(),
+            out.data_ptr(), B, T, S, H, KVH, d, _DTYPE_CODE[q.dtype],
+            scale_log2, stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"flash_fwd_int8 launch failed: cudaError_t {rc}")
+    flash_attention_quantized.launches += 1
+    return out
+
+
+def flash_attention_quantized(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    k_scale: torch.Tensor,
+    v_scale: torch.Tensor,
+    q_pos: torch.Tensor,
+    kv_pos: torch.Tensor,
+) -> torch.Tensor:
+    """Flash attention over an int8 KV cache (JAX :629): the semantics of
+    ``flash_attention`` with ``k * k_scale`` and ``v * v_scale`` as the
+    keys and values, the scales folded inside the kernel.
+
+    q [B, T, H, d] (bf16 or float32); k, v [B, S, KVH, d] int8; k_scale,
+    v_scale [B, S, KVH] float32; positions as ``flash_attention``'s.  CPU
+    tensors take ``flash_attention_quantized_reference``; CUDA tensors
+    launch ``flash_fwd_int8`` or raise.  Inference only: it has no
+    dropout and no gradient."""
+    if torch.is_grad_enabled() and q.requires_grad:
+        raise ValueError("flash_attention_quantized is inference-only "
+                         "(no gradient)")
+    if q.device.type == "cpu":
+        return flash_attention_quantized_reference(q, k, v, k_scale,
+                                                   v_scale, q_pos, kv_pos)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_quantized: unsupported device "
+                         f"{q.device}")
+    _check(q, k, v, q_pos, kv_pos, kv_dtype=torch.int8)
+    for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+        if t.dtype != torch.float32 or t.shape != k.shape[:3] \
+                or t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous float32 "
+                             f"{tuple(k.shape[:3])} on {q.device}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    return _launch_quantized(q, k, v, k_scale, v_scale, q_pos, kv_pos)
 
 
 def _bwd_launch(name, q, k, v, q_pos, kv_pos, lse, delta, g, outs, rate,
@@ -464,5 +558,6 @@ def flash_attention(
 # Launches of each CUDA kernel in this process; the plain versions never
 # count.  Callers reset a count by assigning 0.
 flash_attention.launches = 0
+flash_attention_quantized.launches = 0
 flash_bwd_dq.launches = 0
 flash_bwd_dkv.launches = 0

@@ -2,8 +2,8 @@
 and the merge of the step's own K/V.
 
 Port of ``jax_llama_tpu/ops/paged_attention.py`` for T >= 1 query tokens
-per row (one decode token, or the speculative verify block) and a bf16 or
-float32 pool (no int8 scales):
+per row (one decode token, or the speculative verify block) and a bf16,
+float32 or int8 pool:
 
 * ``paged_pool_attention`` (JAX :232, the Pallas kernel at :371) attends
   each row's table-mapped pool blocks and returns a normalized float32
@@ -20,6 +20,10 @@ Contract (the JAX one):
   head as rows ``r = t*G + g`` (query head ``h_q = kvh*G + g``);
 * k_pool, v_pool ``[L, KVH, NB, BLK, d]``; ``layer`` picks the plane, so
   no per-layer slice is ever copied;
+* an int8 pool comes with k_scale, v_scale ``[L, KVH, NB, BLK]`` float32
+  per-slot-per-head scales, folded per slot in the kernel (K's into the
+  scores before the mask, V's into the probabilities before P.V), so the
+  pool is read at one byte per element and never dequantized into a copy;
 * pool_pos ``[NB, BLK]`` int32 absolute slot positions, -1 for a slot
   that holds nothing;
 * table ``[B, MB]`` int32 physical block ids in sequence order, ``NB``
@@ -30,13 +34,18 @@ Contract (the JAX one):
   ``0 <= pool_pos[s] <= q_pos[b] + r // G`` and ``q_pos[b] >= 0``;
 * a packed row that sees no live slot returns out 0 and lse
   ``MASK_VALUE``, so its merge weight ``exp(lse - m)`` underflows to 0.
+
+The kernel holds at most ``MAX_ROWS`` packed rows per launch;
+``split_tokens`` cuts a longer block of T tokens into consecutive launches
+of at most ``MAX_ROWS // G`` tokens each (rows are independent and the
+pool is only read, so the pieces join to the same out and lse).
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -59,14 +68,19 @@ def paged_pool_attention_reference(
     q_pos: torch.Tensor,
     layer: int = 0,
     t_tokens: int = 1,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Gather each row's table blocks and attend them with the positional
     mask; one float32 softmax over all of a row's slots (what the kernel's
     online softmax computes).  Packed row r = t*G + g attends slots up to
     position ``q_pos + r // G``.  P is rounded to the pool dtype before
     the P.V product and the row sum uses the unrounded P, as in the
-    kernel.  Returns (out [B, KVH, T*G, d] float32, lse [B, KVH, T*G]
-    float32)."""
+    kernel.  An int8 pool's scales fold as the kernel folds them, in
+    float32 from the int8 bytes: each score times its slot's k_scale
+    before the mask, each probability times its slot's v_scale before it
+    is rounded to q's dtype.  Returns (out [B, KVH, T*G, d] float32, lse
+    [B, KVH, T*G] float32)."""
     B, KVH, TG, d = q.shape
     NB, BLK = pool_pos.shape
     MB = table.shape[1]
@@ -81,21 +95,29 @@ def paged_pool_attention_reference(
     allowed = ((kp >= 0) & (kp <= limit[:, :, None])
                & (q_pos >= 0)[:, None, None])                 # [B, TG, S]
     s = torch.einsum("bhrd,hbsd->bhrs", q.float(), k.float()) / math.sqrt(d)
+    if k_scale is not None:
+        s = s * k_scale[layer][:, blk].reshape(KVH, B, 1, MB * BLK
+                                                ).transpose(0, 1)
     s = s.masked_fill(~allowed[:, None], float("-inf"))
     m = s.amax(dim=-1, keepdim=True)
     live = torch.isfinite(m)
     m = torch.where(live, m, torch.zeros_like(m))
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
-    o = torch.einsum("bhrs,hbsd->bhrd", p.to(v.dtype).float(), v.float())
+    pv = p.to(v.dtype)
+    if v_scale is not None:
+        pv = (p * v_scale[layer][:, blk].reshape(KVH, B, 1, MB * BLK
+                                                  ).transpose(0, 1)
+              ).to(q.dtype)
+    o = torch.einsum("bhrs,hbsd->bhrd", pv.float(), v.float())
     out = torch.where(live, o / torch.where(live, l, torch.ones_like(l)), 0.0)
     lse = torch.where(live, m + torch.log(torch.where(live, l, 1.0)),
                       MASK_VALUE)
     return out, lse[..., 0]
 
 
-def _check(q, k_pool, v_pool, pool_pos, table, q_pos, layer,
-           t_tokens) -> None:
+def _check(q, k_pool, v_pool, pool_pos, table, q_pos, layer, t_tokens,
+           k_scale, v_scale) -> None:
     if q.dim() != 4 or k_pool.dim() != 5 or v_pool.shape != k_pool.shape:
         raise ValueError("q must be [B, KVH, T*G, d] and the pools "
                          "[L, KVH, NB, BLK, d]")
@@ -109,11 +131,22 @@ def _check(q, k_pool, v_pool, pool_pos, table, q_pos, layer,
         raise ValueError(f"pool_pos must be [NB, BLK], table [B, MB] and "
                          f"q_pos [B]; got {tuple(pool_pos.shape)}, "
                          f"{tuple(table.shape)}, {tuple(q_pos.shape)}")
-    if q.dtype not in _DTYPE_CODE or k_pool.dtype != q.dtype \
-            or v_pool.dtype != q.dtype:
-        raise TypeError(f"q and the pools must share one dtype of "
-                        f"{list(_DTYPE_CODE)}; got {q.dtype}, "
-                        f"{k_pool.dtype}, {v_pool.dtype}")
+    pool_dtype = q.dtype if k_scale is None else torch.int8
+    if q.dtype not in _DTYPE_CODE or k_pool.dtype != pool_dtype \
+            or v_pool.dtype != pool_dtype:
+        raise TypeError(f"q must be one of {list(_DTYPE_CODE)} and the "
+                        f"pools {pool_dtype} (int8 with scales); got "
+                        f"{q.dtype}, {k_pool.dtype}, {v_pool.dtype}")
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("k_scale and v_scale go together")
+    for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+        if t is not None and (t.dtype != torch.float32
+                              or t.shape != k_pool.shape[:4]
+                              or t.device != q.device
+                              or not t.is_contiguous()):
+            raise ValueError(f"{name} must be contiguous float32 "
+                             f"{tuple(k_pool.shape[:4])} on {q.device}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
     for name, t in (("pool_pos", pool_pos), ("table", table),
                     ("q_pos", q_pos)):
         if t.dtype != torch.int32:
@@ -143,13 +176,15 @@ def _check(q, k_pool, v_pool, pool_pos, table, q_pos, layer,
             raise ValueError(f"{name} must be 16-byte aligned")
 
 
-def _launch(q, k_pool, v_pool, pool_pos, table, q_pos, layer, t_tokens):
+def _launch(q, k_pool, v_pool, pool_pos, table, q_pos, layer, t_tokens,
+            k_scale, v_scale):
     lib = _build.load(KERNEL)
     fn = lib.paged_decode
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 + [
         ctypes.c_float, ctypes.c_void_p,
     ]
+    int8 = k_scale is not None
     B, KVH, TG, d = q.shape
     NB, BLK = pool_pos.shape
     out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
@@ -159,6 +194,8 @@ def _launch(q, k_pool, v_pool, pool_pos, table, q_pos, layer, t_tokens):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            k_scale.data_ptr() if int8 else None,
+            v_scale.data_ptr() if int8 else None,
             pool_pos.data_ptr(), table.data_ptr(), q_pos.data_ptr(),
             out.data_ptr(), lse.data_ptr(), B, KVH, TG // t_tokens,
             t_tokens, d, NB, BLK, table.shape[1], layer,
@@ -167,9 +204,34 @@ def _launch(q, k_pool, v_pool, pool_pos, table, q_pos, layer, t_tokens):
     if rc != 0:
         raise RuntimeError(f"paged_decode launch failed: cudaError_t {rc}")
     paged_pool_attention.launches += 1
+    paged_pool_attention.launches_int8 += int8
     by_t = paged_pool_attention.launches_by_t
     by_t[t_tokens] = by_t.get(t_tokens, 0) + 1
     return out, lse
+
+
+def split_tokens(launch, q: torch.Tensor, q_pos: torch.Tensor,
+                 t_tokens: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``launch(q_piece, q_pos_piece, t_piece) -> (out, lse)`` over
+    consecutive pieces of at most ``MAX_ROWS // G`` of the T tokens (one
+    piece when all T*G packed rows fit).  Piece [t0, t0 + n) takes the
+    packed rows ``t0*G .. (t0+n)*G`` and first position ``q_pos + t0``
+    (an inactive row's -1 stays -1), so its row r' = (t - t0)*G + g
+    attends up to ``q_pos + t`` as in one launch; the pieces' out and lse
+    join along the packed-row axis.  ``launch`` is the kernel's (the
+    tests pass the plain version)."""
+    G = q.shape[2] // t_tokens
+    per = max(1, MAX_ROWS // G)
+    if t_tokens <= per:
+        return launch(q, q_pos, t_tokens)
+    outs, lses = [], []
+    for t0 in range(0, t_tokens, per):
+        n = min(per, t_tokens - t0)
+        qp = torch.where(q_pos >= 0, q_pos + t0, q_pos)
+        o, l = launch(q[:, :, t0 * G:(t0 + n) * G].contiguous(), qp, n)
+        outs.append(o)
+        lses.append(l)
+    return torch.cat(outs, dim=2), torch.cat(lses, dim=2)
 
 
 def paged_pool_attention(
@@ -181,27 +243,42 @@ def paged_pool_attention(
     q_pos: torch.Tensor,
     layer: int = 0,
     t_tokens: int = 1,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Attend each row's table-mapped pool blocks of plane ``layer`` for
     ``t_tokens`` consecutive query tokens per row (see the module
     docstring).  CPU tensors take the plain version; CUDA tensors launch
-    the kernel (bf16 or float32 pool, head_dim 64 or 128, any block size,
-    at most 8 query heads per KV head and ``MAX_ROWS`` packed rows) or
-    raise.  Returns (out [B, KVH, T*G, d] float32, lse [B, KVH, T*G])."""
+    the kernel (bf16 or float32 q; a pool of q's dtype, or int8 with
+    ``k_scale``/``v_scale``; head_dim 64 or 128, any block size, at most
+    ``MAX_GROUP`` query heads per KV head; more than ``MAX_ROWS`` packed
+    rows run as several launches, ``split_tokens``) or raise.  Returns
+    (out [B, KVH, T*G, d] float32, lse [B, KVH, T*G])."""
     if q.device.type == "cpu":
         return paged_pool_attention_reference(
-            q, k_pool, v_pool, pool_pos, table, q_pos, layer, t_tokens)
+            q, k_pool, v_pool, pool_pos, table, q_pos, layer, t_tokens,
+            k_scale, v_scale)
     if q.device.type != "cuda":
         raise ValueError(f"paged_pool_attention: unsupported device "
                          f"{q.device}")
-    _check(q, k_pool, v_pool, pool_pos, table, q_pos, layer, t_tokens)
-    return _launch(q, k_pool, v_pool, pool_pos, table, q_pos, layer,
-                   t_tokens)
+
+    def launch(qq, qp, t):
+        _check(qq, k_pool, v_pool, pool_pos, table, qp, layer, t, k_scale,
+               v_scale)
+        return _launch(qq, k_pool, v_pool, pool_pos, table, qp, layer, t,
+                       k_scale, v_scale)
+
+    if t_tokens < 1 or q.dim() != 4 or q.shape[2] % t_tokens:
+        raise ValueError(f"q {tuple(q.shape)} does not split into "
+                         f"t_tokens={t_tokens} tokens")
+    return split_tokens(launch, q, q_pos, t_tokens)
 
 
-# Launches of the CUDA kernel in this process, in all and by t_tokens; the
-# plain version never counts.  Callers reset them by assigning 0 and {}.
+# Launches of the CUDA kernel in this process: in all, of them over int8
+# pools, and by t_tokens; the plain version never counts.  Callers reset
+# them by assigning 0, 0 and {}.
 paged_pool_attention.launches = 0
+paged_pool_attention.launches_int8 = 0
 paged_pool_attention.launches_by_t = {}
 
 
@@ -215,9 +292,14 @@ def paged_decode_attention(
     table: torch.Tensor,
     q_pos: torch.Tensor,
     layer: int = 0,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """One decode step of attention over (pool blocks ∪ the step's T new
-    slots).  q [B, T, H, d], k_new/v_new [B, T, KVH, d]; returns
+    slots).  An int8 pool passes its scales (``k_scale``, ``v_scale``),
+    which the pool pass folds; the step's own K/V join at full precision
+    (they are quantized only for the write-back, JAX
+    ``models/llama.py:738-780``).  q [B, T, H, d], k_new/v_new [B, T, KVH, d]; returns
     [B, T, H, d] in q's dtype.  Token t sits at position ``q_pos + t``
     (consecutive: the kernel's contract).
 
@@ -233,7 +315,8 @@ def paged_decode_attention(
     q5 = q.reshape(B, T, KVH, G, d)
     qg = q5.transpose(1, 2).reshape(B, KVH, T * G, d)
     out_pool, lse = paged_pool_attention(
-        qg.contiguous(), k_pool, v_pool, pool_pos, table, q_pos, layer, T)
+        qg.contiguous(), k_pool, v_pool, pool_pos, table, q_pos, layer, T,
+        k_scale, v_scale)
     out_pool = out_pool.reshape(B, KVH, T, G, d)
     lse = lse.reshape(B, KVH, T, G)
     s_new = torch.einsum("btkgd,bjkd->bktgj", q5.float(),

@@ -42,12 +42,21 @@ in the queue.
   emits what ``engine.generate`` at B=1 with that generator emits; under
   speculation, what ``spec_decode.generate_speculative`` at B=1 emits.
 
+* int8 (``config.kv_cache_dtype == "int8"``, target and draft alike):
+  the pool holds int8 K/V with float32 per-slot-per-head scale planes,
+  which the inserts fill (``flash_attention_quantized`` in the prefill)
+  and the paged kernel and the gathered view fold; quantized weights
+  (``quantize_params``) need nothing of the batcher.
+* The paged kernel holds up to ``MAX_GROUP`` query heads per KV head; a
+  target or draft with more decodes through the gathered view, decided
+  at construction (the JAX ``_spec_kernel_ok``).
+
 Not in this slice; each raises ``NotImplementedError`` at construction,
 naming its ROADMAP item: meshes (A14), logprobs (A17), fused
 prefill-decode (A9), the prefix cache and host tier (A11), observability,
-fault injection and cost models (A7), kernel selection other than flash
-prefill and paged/gathered decode (A15), and int8 KV (A8), for the target
-and for the draft.  Because the prefix cache is out, the port's defaults
+fault injection and cost models (A7), and kernel selection other than
+flash prefill and paged/gathered decode (A15), for the target and for the
+draft.  Because the prefix cache is out, the port's defaults
 are ``prefix_cache=False`` and ``prefix_index="off"``; the JAX package's
 are ``True`` and ``"radix"``.
 """
@@ -77,6 +86,7 @@ from .models.llama import (
     resolve_device,
 )
 from .ops.attention import NEG_INF
+from .ops.paged_attention import MAX_GROUP
 from .ops.sampling import greedy, stop_token_hits
 from .spec_decode import (
     accepted_emit_counts,
@@ -108,15 +118,19 @@ def _round_up(n: int, m: int) -> int:
 class BlockPool:
     """Paged KV storage shared by all slots.
 
-    k, v: [L, KVH, n_blocks, block_size, hd] in the activation dtype,
-          KV-head-major (the paged kernel's layout).
+    k, v: [L, KVH, n_blocks, block_size, hd] in the activation dtype (or
+          int8), KV-head-major (the paged kernel's layout).
     pos:  [n_blocks, block_size] int32 absolute position per slot; -1
           marks a slot that holds nothing (free block / unwritten).
+    k_scale, v_scale: [L, KVH, n_blocks, block_size] float32 (int8 pool
+          only).
     """
 
     k: torch.Tensor
     v: torch.Tensor
     pos: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
 
     @property
     def n_blocks(self) -> int:
@@ -126,20 +140,38 @@ class BlockPool:
     def block_size(self) -> int:
         return self.k.shape[3]
 
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
+
+    def paged(self, table: torch.Tensor, fill: torch.Tensor) -> PagedKVCache:
+        """The pool as ``paged_forward`` reads it, under a block table."""
+        return PagedKVCache(self.k, self.v, self.pos, table, fill,
+                            self.k_scale, self.v_scale)
+
 
 def init_pool(
     config: LLaMAConfig, n_blocks: int, block_size: int, device="cuda"
 ) -> BlockPool:
+    """An empty pool: int8 payload and zero scale planes when
+    ``config.kv_cache_dtype == "int8"`` (JAX :263-284)."""
     config.validate()
     device = resolve_device(device)
+    int8_kv = config.kv_cache_dtype == "int8"
     shape = (config.n_layers, config.kv_heads, n_blocks, block_size,
              config.head_dim)
-    dtype = config.activation_dtype
+    dtype = torch.int8 if int8_kv else config.activation_dtype
+
+    def scales():
+        return (torch.zeros(shape[:-1], dtype=torch.float32, device=device)
+                if int8_kv else None)
+
     return BlockPool(
         k=torch.zeros(shape, dtype=dtype, device=device),
         v=torch.zeros(shape, dtype=dtype, device=device),
         pos=torch.full((n_blocks, block_size), -1, dtype=torch.int32,
                        device=device),
+        k_scale=scales(), v_scale=scales(),
     )
 
 
@@ -149,21 +181,24 @@ def _gather_cache(
     n_alloc: torch.Tensor,   # [B] int32 allocated blocks per row
     fill: torch.Tensor,      # [B] int32 per-row write offset (tokens)
 ) -> KVCache:
-    """Materialize the per-row virtually-contiguous cache view (a copy).
-    Sentinel table entries gather block NB-1; their positions are forced
-    to -1 through n_alloc, so that data is never attended."""
-    L, KVH, NB, BLK, hd = pool.k.shape
+    """Materialize the per-row virtually-contiguous cache view (a copy),
+    with the scale planes of an int8 pool.  Sentinel table entries gather
+    block NB-1; their positions are forced to -1 through n_alloc, so that
+    data is never attended."""
+    L, KVH, NB, BLK = pool.k.shape[:4]
     B, MB = table.shape
     blk = table.long().clamp(0, NB - 1)
 
-    def g(a):  # [L, KVH, NB, BLK, hd] -> [L, B, MB*BLK, KVH, hd]
-        out = a[:, :, blk].reshape(L, KVH, B, MB * BLK, hd)
+    def g(a):  # [L, KVH, NB, BLK, ...] -> [L, B, MB*BLK, KVH, ...]
+        out = a[:, :, blk].reshape(L, KVH, B, MB * BLK, *a.shape[4:])
         return out.movedim(1, 3).contiguous()
 
     valid = torch.arange(MB, device=table.device)[None, :] < n_alloc[:, None]
     posg = torch.where(valid[:, :, None], pool.pos[blk], -1)
     return KVCache(k=g(pool.k), v=g(pool.v), pos=posg.reshape(B, MB * BLK),
-                   index=fill)
+                   index=fill,
+                   k_scale=g(pool.k_scale) if pool.quantized else None,
+                   v_scale=g(pool.v_scale) if pool.quantized else None)
 
 
 def _scatter_back(
@@ -180,9 +215,12 @@ def _scatter_back(
     NB, BLK = pool.pos.shape
     rows = torch.arange(table.shape[0], device=table.device)[:, None]
     blk, off, cols = paged_write_indices(table, fill, active, T, NB, BLK)
-    # view slices are [L, B, T, KVH, hd]; the pool wants KVH-major.
-    paged_pool_write(pool.k, view.k[:, rows, cols].movedim(3, 1), blk, off)
-    paged_pool_write(pool.v, view.v[:, rows, cols].movedim(3, 1), blk, off)
+    # view slices are [L, B, T, KVH, ...]; the pool wants KVH-major.
+    planes = [(pool.k, view.k), (pool.v, view.v)]
+    if pool.quantized:
+        planes += [(pool.k_scale, view.k_scale), (pool.v_scale, view.v_scale)]
+    for plane, vplane in planes:
+        paged_pool_write(plane, vplane[:, rows, cols].movedim(3, 1), blk, off)
     paged_pool_write(pool.pos, view.pos[rows, cols], blk, off)
 
 
@@ -275,8 +313,7 @@ def _decode_step_core(
     are not finite."""
     positions = torch.where(active, pos, -1)[:, None]
     if use_kernel:
-        cache = PagedKVCache(k=pool.k, v=pool.v, pos=pool.pos, table=table,
-                             fill=fill)
+        cache = pool.paged(table, fill)
         logits, _ = forward(params, tau[:, None], positions, config,
                             cache=cache, attn_mask=active[:, None])
     else:
@@ -344,7 +381,7 @@ def _paged_insert(
     sampled first tokens [k] int32 (-1 where the logits are not finite).
     """
     k_rows, P = prompt_tokens.shape
-    L, KVH, NB, BLK, hd = pool.k.shape
+    L, KVH, NB, BLK = pool.k.shape[:4]
     device = pool.k.device
     sub = init_cache(config, k_rows, max_len=P, device=device)
     positions = prompt_positions(prompt_mask)
@@ -376,9 +413,14 @@ def _paged_insert(
         r_t, j_t, b_t = idx.unbind(0)
         # [L, k, P, KVH, hd] -> [L, k, nb, BLK, KVH, hd], then the chosen
         # (row, block) pairs -> [L, KVH, n, BLK, hd]
-        span = (L, k_rows, P // BLK, BLK, KVH, hd)
-        pool.k[:, :, b_t] = sub.k.reshape(span)[:, r_t, j_t].movedim(3, 1)
-        pool.v[:, :, b_t] = sub.v.reshape(span)[:, r_t, j_t].movedim(3, 1)
+        span = (L, k_rows, P // BLK, BLK, KVH)
+        planes = [(pool.k, sub.k), (pool.v, sub.v)]
+        if pool.quantized:  # the scale planes too (JAX :1023-1031)
+            planes += [(pool.k_scale, sub.k_scale),
+                       (pool.v_scale, sub.v_scale)]
+        for plane, new in planes:
+            plane[:, :, b_t] = new.reshape(span + new.shape[4:])[
+                :, r_t, j_t].movedim(3, 1)
         pool.pos[b_t] = sub.pos.reshape(k_rows, P // BLK, BLK)[r_t, j_t]
     return tau
 
@@ -426,8 +468,8 @@ def _spec_round_core(
         dim=1)
     drawing = [b for b, g in enumerate(generators) if g is not None]
     if use_kernel:
-        t_cache = PagedKVCache(t_pool.k, t_pool.v, t_pool.pos, table, fill)
-        d_cache = PagedKVCache(d_pool.k, d_pool.v, d_pool.pos, table, fill)
+        t_cache = t_pool.paged(table, fill)
+        d_cache = d_pool.paged(table, fill)
     else:
         t_cache = _gather_cache(t_pool, table, n_alloc, fill)
         d_cache = _gather_cache(d_pool, table, n_alloc, fill)
@@ -692,11 +734,8 @@ class ContinuousBatcher:
              f"prefill_kernel={prefill_kernel!r}", "A15"),
             (decode_kernel not in ("paged", "gathered"),
              f"decode_kernel={decode_kernel!r}", "A15"),
-            (config.kv_cache_dtype == "int8", "an int8 KV pool", "A8"),
             (draft_decode_kernel not in ("paged", "gathered"),
              f"a draft with decode_kernel={draft_decode_kernel!r}", "A15"),
-            (spec and draft_config.kv_cache_dtype == "int8",
-             "an int8 draft KV pool", "A8"),
         )
         for bad, what, item in unported:
             if bad:
@@ -722,7 +761,11 @@ class ContinuousBatcher:
             raise ValueError(
                 f"draft_params live on {_params_device(draft_params)}, the "
                 f"target's on {pdev}")
-        if decode_kernel == "gathered":
+        if decode_kernel == "gathered" or not all(
+                c.n_heads // c.kv_heads <= MAX_GROUP
+                for c in ((config, draft_config) if spec else (config,))):
+            # More query heads per KV head than the paged kernel holds:
+            # the gathered view, decided here, never mid-stream.
             use_pallas_kernel = False
         self.params = params
         self.config = config

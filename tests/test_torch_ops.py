@@ -61,8 +61,9 @@ def test_llama3_8b_widths():
 def test_config_rejects_unported_paths():
     with pytest.raises(NotImplementedError):
         pcfg.tiny(attn_impl="ring").validate()
-    with pytest.raises(NotImplementedError):
-        pcfg.tiny(kv_cache_dtype="int8").validate()
+    pcfg.tiny(kv_cache_dtype="int8").validate()  # int8 KV is ported
+    with pytest.raises(ValueError, match="kv_cache_dtype"):
+        pcfg.tiny(kv_cache_dtype="fp8").validate()
     with pytest.raises(ValueError):
         pcfg.tiny(attn_impl="bogus").validate()
 

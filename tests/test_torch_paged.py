@@ -4,7 +4,11 @@ runs in interpret mode, as the JAX package's own tests run it on the CPU;
 the port's wrapper runs its plain version on CPU tensors.
 
 Both run at T = 1 (a decode token) and T > 1 (the speculative verify
-block, queries packed r = t*G + g at consecutive positions).
+block, queries packed r = t*G + g at consecutive positions), over float32
+pools and over int8 pools with their scale planes (the same tolerances:
+the scales fold in float32 in both).  ``split_tokens`` (the launch split
+that keeps T*G packed rows within the kernel's cap) is held against one
+plain call at G = 8, T = 5.
 
 Tolerances: attention out/lse atol 1e-5 (summation order); logits of a
 paged forward step atol 2e-4 (PARITY.md row 2.16, as in
@@ -27,6 +31,8 @@ import torch
 import jax_llama_tpu as jlt
 from jax_llama_tpu.models.llama import PagedKVCache as JPagedKVCache
 from jax_llama_tpu.models.llama import paged_write_indices as jax_write_idx
+from jax_llama_tpu.models.llama import quantize_kv as jax_quantize_kv
+from jax_llama_tpu.ops import quant as jquant
 from jax_llama_tpu.ops.paged_attention import (
     paged_decode_attention as jax_decode_attention,
     paged_pool_attention as jax_pool_attention,
@@ -47,6 +53,21 @@ def multi_token_q_pos(fills, inactive, T):
     and ``inactive`` rows are -1."""
     return np.asarray([-1 if b in inactive else max(f - (T - 1), 0)
                        for b, f in enumerate(fills)], np.int32)
+
+def int8_pool(k, v, pos):
+    """The float pool quantized as the batcher's writes quantize it: int8
+    payload [L, KVH, NB, BLK, d] and scales [L, KVH, NB, BLK]; slots that
+    hold nothing (pos -1) carry payload 0 and scale 0."""
+    held = (pos >= 0)[None, None]
+    out = []
+    for a in (k, v):
+        q, s = (np.array(t) for t in jax.jit(jax_quantize_kv)(
+            jnp.asarray(a)))
+        out += [np.where(held[..., None], q, 0).astype(np.int8),
+                np.where(held, s, 0.0).astype(np.float32)]
+    kq, ks, vq, vs = out
+    return kq, vq, ks, vs
+
 
 ATOL = 1e-5
 CFG = dict(vocab_size=128, dim=64, n_layers=2, n_heads=4, n_kv_heads=2,
@@ -160,6 +181,72 @@ def test_pool_attention_multi_token_matches_jax(name, T):
     r17 = fills.index(17)
     assert q_pos[r17] == 17 - (T - 1)
     assert (lse[r17] != dead).all()
+
+
+@pytest.mark.parametrize("T", [1, 3, 5])
+def test_pool_attention_int8_matches_jax(T):
+    """The int8 branch (scales folded per slot) at T = 1 and the verify
+    shapes, against JAX's kernel in interpret mode."""
+    B, KVH, G, d, BLK, MB, L, layer, fills, inactive = MULTI["g2"]
+    k, v, pos, table, _ = pool_state(17, B, KVH, d, BLK, MB, L, fills,
+                                     inactive)
+    kq, vq, ks, vs = int8_pool(k, v, pos)
+    q_pos = multi_token_q_pos(fills, inactive, T)
+    q = np.random.default_rng(18).standard_normal(
+        (B, KVH, T * G, d)).astype(np.float32)
+    want_o, want_l = jax_pool_attention(
+        *(jnp.asarray(a) for a in (q, kq, vq, pos, table, q_pos)),
+        k_scale=jnp.asarray(ks), v_scale=jnp.asarray(vs), t_tokens=T,
+        layer=jnp.int32(layer))
+    args = [torch.from_numpy(a) for a in (q, kq, vq, pos, table, q_pos)]
+    before = pa.paged_pool_attention.launches
+    got_o, got_l = pa.paged_pool_attention(
+        *args, layer=layer, t_tokens=T, k_scale=torch.from_numpy(ks),
+        v_scale=torch.from_numpy(vs))
+    assert pa.paged_pool_attention.launches == before  # plain on CPU
+    np.testing.assert_allclose(got_o.numpy(), np.asarray(want_o), atol=ATOL,
+                               rtol=0)
+    np.testing.assert_allclose(got_l.numpy(), np.asarray(want_l), atol=ATOL,
+                               rtol=1e-6)
+    lse = got_l.numpy().reshape(B, KVH, T, G)
+    for b, f in enumerate(fills):
+        if f == 0 or b in inactive:
+            assert (lse[b] == np.float32(pa.MASK_VALUE)).all()
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_split_tokens_equals_one_plain_call(int8):
+    """C1: at G = 8 a T = 5 verify block is 40 packed rows, past the
+    kernel's 32; ``split_tokens`` runs it as 4 + 1 tokens.  With the
+    plain version in the kernel's place the pieces join to the unsplit
+    result, inactive rows included."""
+    B, KVH, G, T, d, BLK, MB, L, layer = 4, 2, 8, 5, 16, 8, 6, 2, 1
+    fills, inactive = (40, 17, 0, 23), (3,)
+    k, v, pos, table, _ = pool_state(19, B, KVH, d, BLK, MB, L, fills,
+                                     inactive)
+    scales = {}
+    if int8:
+        k, v, ks, vs = int8_pool(k, v, pos)
+        scales = dict(k_scale=torch.from_numpy(ks),
+                      v_scale=torch.from_numpy(vs))
+    q_pos = torch.from_numpy(multi_token_q_pos(fills, inactive, T))
+    q = torch.from_numpy(np.random.default_rng(20).standard_normal(
+        (B, KVH, T * G, d)).astype(np.float32))
+    pool = [torch.from_numpy(a) for a in (k, v, pos, table)]
+    pieces = []
+
+    def launch(qq, qp, t):
+        pieces.append((t, qp.clone()))
+        return pa.paged_pool_attention_reference(qq, *pool, qp, layer, t,
+                                                 **scales)
+
+    got = pa.split_tokens(launch, q, q_pos, T)
+    want = pa.paged_pool_attention_reference(q, *pool, q_pos, layer, T,
+                                             **scales)
+    assert [t for t, _ in pieces] == [4, 1]
+    assert (pieces[1][1] == torch.where(q_pos >= 0, q_pos + 4, -1)).all()
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=1e-6, rtol=0)
 
 
 @pytest.mark.parametrize("T", [2, 5])
@@ -279,11 +366,17 @@ def test_paged_forward_rejects_unported_shapes(weights):
                                                              table)),
                              fill=torch.tensor([5, 9], dtype=torch.int32))
     toks = torch.ones((2, 2), dtype=torch.int32)
-    int8 = ptl.PagedKVCache(cache.k.to(torch.int8), cache.v.to(torch.int8),
-                            cache.pos, cache.table, cache.fill)
-    with pytest.raises(NotImplementedError, match="A8"):
-        ptl.forward(pp, toks, torch.zeros((2, 2), dtype=torch.int32), pc,
-                    cache=int8)
+    # an int8 pool (with its scale planes) runs; its write-back lands int8
+    # payload and float32 scales
+    kq, vq, ks, vs = (torch.from_numpy(a) for a in int8_pool(k, v, pos))
+    int8 = ptl.PagedKVCache(kq, vq, cache.pos.clone(), cache.table,
+                            cache.fill, ks, vs)
+    lg, out = ptl.forward(pp, toks, torch.tensor([[5, 6], [9, 10]],
+                                                 dtype=torch.int32), pc,
+                          cache=int8)
+    assert out is int8 and bool(torch.isfinite(lg).all())
+    assert int8.k.dtype == torch.int8 and int8.k_scale.dtype == torch.float32
+    assert (int8.pos >= 0).sum() == (pos >= 0).sum() + 4
     with pytest.raises(NotImplementedError, match="output_last_hidden"):
         ptl.forward(pp, toks[:, :1], torch.zeros((2, 1), dtype=torch.int32),
                     pc, cache=cache, output_last_hidden=True)
@@ -340,3 +433,54 @@ def test_paged_forward_multi_token_matches_jax(weights, T):
     torch.testing.assert_close(lg, got, atol=0, rtol=0)
     for t, a in ((again.k, k), (again.v, v), (again.pos, pos)):
         np.testing.assert_array_equal(t.numpy(), a)
+
+
+@pytest.mark.parametrize("T", [1, 3])
+def test_paged_forward_int8_matches_jax(weights, T):
+    """paged_forward over an int8 pool with int8 weights, against JAX's:
+    the pool read through the scale fold, the step's K/V merged at full
+    precision and quantized for the write-back.  Logits atol 2e-4 on the
+    active rows; positions identical; the written payload within one int8
+    step and its scales within 1e-5 relative (the projections come from
+    two matmul libraries, so a value on a rounding edge may land one step
+    apart)."""
+    jp, pp = weights
+    jq = jquant.quantize_params(jp)
+    pq = ptl.quantize_params(pp)
+    kw = dict(CFG, kv_cache_dtype="int8")
+    jc, pc = jlt.get_config("tiny", **kw), ptl.get_config("tiny", **kw)
+    B, BLK, MB = 4, 8, 6
+    L, KVH, d = CFG["n_layers"], CFG["n_kv_heads"], 16
+    fills = (30, 20, 9, 0)
+    k, v, pos, table, q_pos = pool_state(21, B, KVH, d, BLK, MB, L, fills,
+                                         inactive=(1,))
+    kq, vq, ks, vs = int8_pool(k, v, pos)
+    fill = np.asarray(fills, np.int32)
+    active = q_pos >= 0
+    positions = np.where(active[:, None], q_pos[:, None] + np.arange(T),
+                         -1).astype(np.int32)
+    tokens = np.random.default_rng(22).integers(
+        1, CFG["vocab_size"], (B, T)).astype(np.int32)
+    mask = np.broadcast_to(active[:, None], (B, T))
+    state = (kq, vq, pos, table, fill, ks, vs)
+    jcache = JPagedKVCache(*(jnp.asarray(a) for a in state))
+    want, jnew = jlt.forward(jq, jnp.asarray(tokens), jnp.asarray(positions),
+                             jc, cache=jcache, attn_mask=jnp.asarray(mask))
+    pcache = ptl.PagedKVCache(*(torch.from_numpy(a.copy()) for a in state))
+    got, pnew = ptl.forward(pq, torch.from_numpy(tokens),
+                            torch.from_numpy(positions), pc, cache=pcache,
+                            attn_mask=torch.from_numpy(mask.copy()))
+    assert pnew is pcache
+    np.testing.assert_allclose(got.numpy()[active], np.asarray(want)[active],
+                               atol=2e-4, rtol=0)
+    np.testing.assert_array_equal(pnew.pos.numpy(), np.asarray(jnew.pos))
+    assert (np.asarray(jnew.pos) != pos).sum() == active.sum() * T
+    for got_p, want_p in ((pnew.k, jnew.k), (pnew.v, jnew.v)):
+        assert got_p.dtype == torch.int8
+        diff = np.abs(got_p.numpy().astype(np.int32)
+                      - np.asarray(want_p).astype(np.int32))
+        assert diff.max() <= 1
+    for got_s, want_s in ((pnew.k_scale, jnew.k_scale),
+                          (pnew.v_scale, jnew.v_scale)):
+        np.testing.assert_allclose(got_s.numpy(), np.asarray(want_s),
+                                   rtol=1e-5, atol=0)

@@ -115,13 +115,24 @@ def test_paged_kernel_multi_token_matches_plain_on_card(name, dtype, atol):
 
 @pytest.mark.cuda
 def test_paged_wrapper_rejects_rows_past_the_cap_on_card():
+    """More packed rows than the kernel's MAX_ROWS are no longer refused:
+    the wrapper splits the T tokens into launches of at most MAX_ROWS // G
+    (here 4 + 1), which together give the plain version's result.  A T
+    that does not divide the packed rows still raises."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     q, k, v, pos, table, q_pos = _card_inputs(
         torch.bfloat16, 3, 2, 8, 64, 24, 5, 2, (100, 30, 5), (1,), T=5)
     assert q.shape[2] == 40 > pa.MAX_ROWS
-    with pytest.raises(ValueError, match="MAX_ROWS"):
-        pa.paged_pool_attention(q, k, v, pos, table, q_pos, t_tokens=5)
+    pa.paged_pool_attention.launches_by_t = {}
+    out, lse = pa.paged_pool_attention(q, k, v, pos, table, q_pos,
+                                       t_tokens=5)
+    torch.cuda.synchronize()
+    assert pa.paged_pool_attention.launches_by_t == {4: 1, 1: 1}
+    ro, rl = pa.paged_pool_attention_reference(q, k, v, pos, table, q_pos,
+                                               t_tokens=5)
+    torch.testing.assert_close(out, ro, atol=1e-2, rtol=0)
+    torch.testing.assert_close(lse, rl, atol=1e-4, rtol=1e-5)
     with pytest.raises(ValueError, match="t_tokens"):
         pa.paged_pool_attention(q, k, v, pos, table, q_pos, t_tokens=3)
 

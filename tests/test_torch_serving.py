@@ -7,7 +7,11 @@ decode_chunk 1 and 8, on the paged and the gathered-view path; stop
 tokens, capacity errors and an overcommitted pool behave as in the JAX
 package; a sampled request emits what the port's own engine.generate at
 B=1 emits with the same seed; and a steady-state step makes one fetch and
-no uploads.
+no uploads.  With int8 weights and an int8 KV pool (scale planes through
+the inserts, the paged kernel's plain version and the gathered view) the
+greedy tokens are the JAX int8 batcher's, at decode_chunk 1 and 8 on both
+paths.  A model with more query heads per KV head than the paged kernel
+holds decodes through the gathered view, decided at construction.
 """
 
 import dataclasses
@@ -19,6 +23,7 @@ import torch
 
 import jax_llama_tpu as jlt
 from jax_llama_tpu.serving import ContinuousBatcher as JaxBatcher
+from jax_llama_tpu.ops import quant as jquant
 from jax_llama_tpu.serving import _warp_rows as jax_warp_rows
 
 import jax_llama_tpu_torch as ptl
@@ -81,6 +86,62 @@ def test_staggered_requests_match_jax_batcher(model, jax_staggered, path,
     assert len(cb.free_blocks) == cb.n_blocks
     if decode_chunk > 1:
         assert cb.stats()["decode_dispatches_total"] < cb.steps_total
+
+
+@pytest.fixture(scope="module")
+def int8_model(model):
+    """int8 weights (the same bytes in both packages) and int8 KV configs."""
+    jp, _, pp, _ = model
+    kw = dict(CFG, kv_cache_dtype="int8")
+    return (jquant.quantize_params(jp), jlt.get_config("tiny", **kw),
+            ptl.quantize_params(pp), ptl.get_config("tiny", **kw))
+
+
+@pytest.fixture(scope="module")
+def jax_int8_staggered(int8_model):
+    jq, jc, _, _ = int8_model
+    return _staggered(JaxBatcher(jq, jc, n_slots=2, max_len=64,
+                                 prefix_cache=False))
+
+
+@pytest.mark.parametrize("path", ["paged", "gathered"])
+@pytest.mark.parametrize("decode_chunk", [1, 8])
+def test_int8_staggered_requests_match_jax_batcher(
+        int8_model, jax_int8_staggered, path, decode_chunk):
+    _, _, pq, pc = int8_model
+    cb = ptl.ContinuousBatcher(pq, pc, n_slots=2, max_len=64,
+                               decode_chunk=decode_chunk, device="cpu",
+                               use_pallas_kernel=path == "paged")
+    assert cb.pool.quantized and cb.pool.k.dtype == torch.int8
+    got = _staggered(cb)
+    assert got == jax_int8_staggered
+    assert len(cb.free_blocks) == cb.n_blocks
+
+
+def test_more_query_heads_than_the_kernel_holds_take_the_gathered_view():
+    """G = 9 > MAX_GROUP: the batcher builds on the gathered view (it must
+    not raise at the first step on the card), for a target and for a
+    draft, and emits engine.generate's tokens."""
+    wide = dict(CFG, dim=72, n_heads=18, n_kv_heads=2)
+    c9 = ptl.get_config("tiny", **wide)
+    p9 = ptl.init_params(c9, seed=3, device="cpu")
+    cb = ptl.ContinuousBatcher(p9, c9, n_slots=2, max_len=64, device="cpu")
+    assert not cb.use_pallas_kernel
+    prompt = [5, 17, 99, 3]
+    rid = cb.submit(prompt, max_new_tokens=6)
+    want = pengine.generate(
+        p9, torch.tensor([prompt], dtype=torch.int32),
+        torch.ones((1, 4), dtype=torch.bool), config=c9,
+        gen_config=pengine.GenerationConfig(max_new_tokens=6,
+                                            temperature=0.0),
+        device="cpu")[0, 4:].tolist()
+    assert cb.run_to_completion()[rid] == want
+    c8 = ptl.get_config("tiny", **dict(CFG, n_heads=8, n_kv_heads=1))
+    p8 = ptl.init_params(c8, seed=4, device="cpu")
+    assert ptl.ContinuousBatcher(p8, c8, device="cpu").use_pallas_kernel
+    spec = ptl.ContinuousBatcher(p8, c8, draft_params=p9, draft_config=c9,
+                                 device="cpu")
+    assert not spec.use_pallas_kernel
 
 
 @pytest.mark.parametrize("block_size", [20, 12])
@@ -282,9 +343,11 @@ def test_constructor_guards(model):
                               device="cpu")
     with pytest.raises(ValueError, match="prefix_index"):
         ptl.ContinuousBatcher(pp, pc, prefix_index="bogus", device="cpu")
-    with pytest.raises(NotImplementedError, match="A8"):
-        ptl.ContinuousBatcher(pp, pc.replace(kv_cache_dtype="int8"),
-                              device="cpu")
+    # an int8 KV pool builds, with its scale planes
+    cb = ptl.ContinuousBatcher(pp, pc.replace(kv_cache_dtype="int8"),
+                               device="cpu")
+    assert cb.pool.k.dtype == torch.int8
+    assert cb.pool.k_scale.shape == cb.pool.k.shape[:4]
     # prefix_cache=True with the index off is the JAX package's "off" too
     ptl.ContinuousBatcher(pp, pc, prefix_cache=True, device="cpu")
     if not torch.cuda.is_available():

@@ -12,7 +12,9 @@ weights (CPU, float32, tiny configs).
   CPU tensors) and the gathered view, at spec_rounds 1 and 4, with the
   same acceptance.  Self-draft accepts every draft; spec_rounds 1 and 4
   agree for greedy and sampled rows; a stop token inside a chunk and a
-  non-finite row behave as in the plain batcher.
+  non-finite row behave as in the plain batcher.  With int8 weights and
+  int8 target and draft pools, the tokens and acceptance are JAX's int8
+  speculative batcher's at spec_rounds 1 and 4.
 * Sampled: a batcher row emits what a B=1 ``generate_speculative`` with
   the same seed emits (the draws differ from JAX's threefry ones, so the
   sampled path is held by this and by a distribution test: the first
@@ -31,6 +33,7 @@ import torch
 import jax_llama_tpu as jlt
 from jax_llama_tpu import spec_decode as jspec
 from jax_llama_tpu.engine import GenerationConfig as JaxGenConfig
+from jax_llama_tpu.ops import quant as jquant
 from jax_llama_tpu.serving import ContinuousBatcher as JaxBatcher
 from jax_llama_tpu.serving import warped_probs_rows as jax_warped_probs_rows
 
@@ -300,6 +303,42 @@ def test_self_draft_accepts_every_draft(serve_models, path):
     assert cb.drafts_proposed == 9
 
 
+@pytest.fixture(scope="module")
+def jax_int8_spec_staggered(serve_models):
+    """JAX's int8 speculative batcher (int8 weights, int8 target and draft
+    pools) on its gathered view: its kernel path gives the same tokens
+    (``jax_spec_staggered`` holds the two equal) at four times the CPU
+    time in interpret mode, and the int8 kernel itself is held against
+    the interpret-mode Pallas kernel in tests/test_torch_paged.py."""
+    m = serve_models
+    jc = m["jc"].replace(kv_cache_dtype="int8")
+    cb = JaxBatcher(jquant.quantize_params(m["jp"]), jc, n_slots=2,
+                    max_len=64, draft_params=jquant.quantize_params(m["jd"]),
+                    draft_config=jc, n_draft=3, prefix_cache=False,
+                    use_pallas_kernel=False)
+    return _staggered(cb), cb.acceptance_rate()
+
+
+@pytest.mark.parametrize("path,spec_rounds", [("paged", 1), ("paged", 4),
+                                              ("gathered", 4)])
+def test_int8_spec_batcher_matches_jax(serve_models, jax_int8_spec_staggered,
+                                       path, spec_rounds):
+    want, want_rate = jax_int8_spec_staggered
+    m = serve_models
+    pc = m["pc"].replace(kv_cache_dtype="int8")
+    cb = ptl.ContinuousBatcher(
+        ptl.quantize_params(m["pp"]), pc, n_slots=2, max_len=64,
+        draft_params=ptl.quantize_params(m["pd"]), draft_config=pc,
+        n_draft=3, spec_rounds=spec_rounds, device="cpu",
+        use_pallas_kernel=path == "paged")
+    assert cb.pool.quantized and cb.draft_pool.quantized
+    got = _staggered(cb)
+    assert got == want
+    assert cb.acceptance_rate() == want_rate
+    assert 0.0 < want_rate < 1.0
+    assert len(cb.free_blocks) == cb.n_blocks
+
+
 SAMPLED = [dict(temperature=0.9, top_p=0.9, seed=11),
            dict(temperature=0.7, top_k=20, seed=5), {}]
 
@@ -401,11 +440,13 @@ def test_spec_constructor_guards(serve_models):
                               **kw)
     with pytest.raises(ValueError, match="n_draft"):
         ptl.ContinuousBatcher(pp, pc, draft_config=pc, n_draft=0, **kw)
-    for draft_config, item in (
-            (pc.replace(kv_cache_dtype="int8"), "A8"),
-            (pc.replace(decode_kernel="stock-paged"), "A15")):
-        with pytest.raises(NotImplementedError, match=item):
-            ptl.ContinuousBatcher(pp, pc, draft_config=draft_config, **kw)
+    with pytest.raises(NotImplementedError, match="A15"):
+        ptl.ContinuousBatcher(pp, pc, draft_config=pc.replace(
+            decode_kernel="stock-paged"), **kw)
+    # an int8 draft pool builds beside a bf16/float32 target pool
+    cb = ptl.ContinuousBatcher(pp, pc, draft_config=pc.replace(
+        kv_cache_dtype="int8"), **kw)
+    assert cb.draft_pool.quantized and not cb.pool.quantized
     with pytest.raises(NotImplementedError, match="A17"):
         ptl.ContinuousBatcher(pp, pc, draft_config=pc, logprobs=True, **kw)
 
