@@ -162,9 +162,33 @@ raises and exits non-zero:
    = 0.1 runs the dropout branch of all three kernels to a finite loss.
 10. kernels: one JSON object for every kernel instance of the port
    (flash_fwd, flash_fwd_int8, paged_decode, paged_decode_int8,
-   flash_bwd_dq, flash_bwd_dkv), each with its launches on every path;
-   the paged entries hold their spec_verify (and, int8, split_verify)
-   shapes.
+   flash_bwd_dq, flash_bwd_dkv, stock_paged, splash_prefill), each with
+   its launches on every path; the paged entries hold their spec_verify
+   (and, int8, split_verify) shapes.
+
+The kernel-selection layer (``ops/kernels.py``) adds:
+
+* phase 2 ``kernel_check`` rows for the two slots' kernels, each against
+  its plain version in bf16 and float32: ``stock_paged`` at the paged
+  kernel's serving shape (8 rows, KVH 8, G 4, d 128, blocks of 128, 16
+  table entries, PAGED_FILLS, a 32-layer pool read at layer 31, the step's
+  own K/V merged in), cold-L2 over the 32 layers; ``splash_prefill`` at
+  the serving insert (B=8, T=S=1024, offset 0) and at a chunk (T=512,
+  S=1024, offset 512).  Each with its warm, plain and library times
+  (SDPA over a pre-gathered view with the step's own slot appended, or
+  with the boolean causal-offset mask) and its bound;
+* ``selected_serving``: phase 5's 12 requests on a batcher with
+  ``prefill_kernel="splash", decode_kernel="stock-paged"``, counted from
+  zero: the splash kernel once per layer per insert, the stock kernels
+  (split and combine) twice per layer per decode iteration, no flash or
+  paged launch; with phase 5's figures beside (``selected_vs_serving``);
+* ``selected_decode_invariant`` (float32 activations, 32 layers): the
+  splash batcher's greedy tokens equal the flash batcher's, the stock
+  batcher's are identical at decode_chunk 1 and 8, one step's logits
+  under stock against the paged kernel rel < 2e-2, and "auto" on
+  llama3-8b resolves to splash and paged;
+* in ``spec_serving``: a batcher whose draft selects stock-paged runs one
+  round with 160 paged launches at T = 4 and no stock launch.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or outside a checkout of the repository, it exits non-zero before printing
@@ -182,8 +206,10 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM published peaks (dense): bf16 tensor-core FLOP/s, HBM bytes/s.
+# H100 SXM published peaks (dense): bf16 tensor-core FLOP/s, float32
+# outside the tensor cores, HBM bytes/s.
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
 # Kernel vs plain version in bf16, per row: the row's max abs error over
 # its max |plain output|.  bf16's relative half-ulp is 2**-9 ~ 2e-3
@@ -243,6 +269,12 @@ VERIFY_FILLS = (500, 516, 532, 548)
 # The C1 split check: G = 8 query heads per KV head at T = 5 tokens (40
 # packed rows, past the kernel's 32).
 SPLIT_VERIFY = (8, 5)
+# The selection layer's slots as a user selects them, and the splash
+# kernel's checked shapes: (B, T, S, chunk_offset) of the serving phase's
+# first insert (8 rows at P = 1024) and of a chunk at offset 512.
+SELECTED = dict(prefill_kernel="splash", decode_kernel="stock-paged")
+SPLASH_SHAPES = {"insert": (8, 1024, 1024, 0), "chunk": (8, 512, 1024, 512)}
+STEP_STOCK_REL = 2e-2  # one step's logits, stock vs paged kernel, float32
 
 
 def emit(obj) -> None:
@@ -389,8 +421,9 @@ def check_flash(torch, fa, gen):
 
 
 def paged_inputs(torch, gen, B=8, KVH=8, G=4, d=128, BLK=128, MB=16,
-                 L=32):
-    """bf16 inputs of the paged kernel at llama3-8b's serving shape: row b
+                 L=32, dtype=None):
+    """Inputs (bf16 unless ``dtype`` says) of the paged kernel at
+    llama3-8b's serving shape: row b
     holds PAGED_FILLS[b] tokens in shuffled physical blocks of a 32-layer
     pool, with one spare reserved block, and queries at position
     PAGED_FILLS[b] (-1 for the inactive row); row 2's table has a sentinel
@@ -413,7 +446,7 @@ def paged_inputs(torch, gen, B=8, KVH=8, G=4, d=128, BLK=128, MB=16,
     q = torch.randn(B, KVH, G, d, device="cuda", generator=gen)
     k = torch.randn(L, KVH, NB, BLK, d, device="cuda", generator=gen)
     v = torch.randn(L, KVH, NB, BLK, d, device="cuda", generator=gen)
-    return ([t.to(torch.bfloat16) for t in (q, k, v)]
+    return ([t.to(dtype or torch.bfloat16) for t in (q, k, v)]
             + [t.cuda() for t in (pos, table, q_pos)])
 
 
@@ -804,6 +837,220 @@ def check_paged_int8(torch, pa, quant, gen):
     return rows
 
 
+def kernel_device_ms(torch, fns, names):
+    """Device ms per call of ``fns`` (each called once, in turn, after one
+    untimed round) from torch.profiler: the device time of the kernels
+    whose name holds one of ``names``, over the number of calls; None
+    where the profiler saw none.  Where a wrapper's host work outlasts its
+    kernels, CUDA events around back-to-back calls time the host; this
+    times the kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for fn in fns:
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and any(n in e.key for n in names))
+    return total / 1e3 / len(fns) if total else None
+
+
+def stock_attended(torch, table, q_pos, NB, BLK):
+    """[B, MB*BLK] True where the stock kernel's row attends a slot: the
+    first max(q_pos, 0) slots of its table, sentinel entries excluded."""
+    slots = torch.arange(table.shape[1] * BLK, device=table.device)
+    real = ((table >= 0) & (table < NB)).repeat_interleave(BLK, dim=1)
+    return (slots[None] < q_pos.clamp(min=0)[:, None]) & real
+
+
+def stock_bound(torch, q, k, table, q_pos, peak):
+    """Least time (ms) of one stock-paged step: the attended slots' K/V
+    read once per KV head, q, k_new, v_new and the output once, the table
+    and q_pos, over HBM bandwidth, vs the QK and PV FLOPs (4*d per query
+    head) of the attended slots and each row's own slot over ``peak``."""
+    L, KVH, NB, BLK, d = k.shape
+    B, _, H, _ = q.shape
+    live = stock_attended(torch, table, q_pos, NB, BLK).sum().item()
+    nbytes = (2 * live * KVH * d * k.element_size()
+              + 2 * q.numel() * q.element_size()
+              + 2 * B * KVH * d * q.element_size()
+              + table.numel() * 4 + q_pos.numel() * 4)
+    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    t_ops = 4.0 * d * H * (live + B) / peak * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_stock(torch, kn, gen):
+    """stock_paged (split and combine pass) against its plain version at
+    the paged kernel's serving shape, bf16 and float32 (pools and q of one
+    dtype), the step's own K/V merged in: each live row's query heads
+    against their own max |plain| (``row_rel_err``), the inactive row
+    finite; cold-L2 (layer rotated over the 32 planes), warm, plain and
+    library times (SDPA over a pre-gathered view of the attended slots
+    with the step's own slot appended, gather not timed) and the bound."""
+    import torch.nn.functional as F
+
+    rows = {}
+    for dtype, bound, peak in (
+            (torch.bfloat16, REL_BOUND, PEAK_BF16_FLOPS),
+            (torch.float32, F32_KERNEL_BOUND, PEAK_F32_FLOPS)):
+        q, k, v, _, table, q_pos = paged_inputs(torch, gen, dtype=dtype)
+        L, KVH, NB, BLK, d = k.shape
+        B, _, G, _ = q.shape
+        H = KVH * G
+        q = q.reshape(B, 1, H, d)
+        k_new, v_new = (torch.randn(B, 1, KVH, d, device="cuda",
+                                    generator=gen).to(dtype)
+                        for _ in range(2))
+        args = (q, k_new, v_new, k, v, table, q_pos)
+        layer = L - 1
+        out = kn.stock_paged_decode(*args, layer=layer)
+        torch.cuda.synchronize()
+        ref = kn.stock_paged_decode_reference(*args, layer=layer)
+        live = q_pos >= 0
+        finite = bool(torch.isfinite(out).all())
+        rel = row_rel_err(torch, out[live], ref[live])
+
+        cold = [lambda i=i: kn.stock_paged_decode(*args, layer=i)
+                for i in range(L)]
+        ms = time_ms(torch, cold, iters=4 * L)
+        device_ms = kernel_device_ms(torch, cold,
+                                     ("stock_split", "stock_combine"))
+        warm_ms = time_ms(torch, lambda: kn.stock_paged_decode(
+            *args, layer=layer))
+        plain_ms = time_ms(torch, [
+            lambda i=i: kn.stock_paged_decode_reference(*args, layer=i)
+            for i in range(L)], iters=L)
+        blk = table.long().clamp(0, NB - 1)
+        attend = stock_attended(torch, table, q_pos, NB, BLK)
+        mask = torch.cat([attend, torch.ones_like(attend[:, :1])], 1)[
+            :, None, None, :]
+        qt = q.transpose(1, 2)
+        view_bytes = 2 * KVH * B * (blk.numel() * BLK + 1) * d \
+            * k.element_size()
+        n_views = max(2, -(-4 * L2_BYTES // view_bytes))
+        views = [tuple(
+            torch.cat([t[i % L][:, blk].reshape(KVH, B, -1, d)
+                       .transpose(0, 1), new.transpose(1, 2)], dim=2)
+            .contiguous() for t, new in ((k, k_new), (v, v_new)))
+            for i in range(n_views)]
+        library_ms = time_ms(torch, [
+            lambda kg=kg, vg=vg: F.scaled_dot_product_attention(
+                qt, kg, vg, attn_mask=mask, enable_gqa=True)
+            for kg, vg in views], iters=4 * n_views)
+        del views
+        bound_ms, bound_by = stock_bound(torch, q, k, table, q_pos, peak)
+        name = "bfloat16" if dtype == torch.bfloat16 else "float32"
+        row = dict(
+            phase="kernel_check", kernel="stock_paged", shape="serving",
+            B=B, KVH=KVH, G=G, d=d, BLK=BLK, MB=table.shape[1], L=L,
+            layer=layer, fills=list(PAGED_FILLS),
+            inactive=list(PAGED_INACTIVE), dtype=name,
+            launches_per_call=kn.STOCK_KERNELS_PER_CALL,
+            split_slots=kn.STOCK_SPLIT, worst_row_rel=rel, rel_bound=bound,
+            finite=finite, ms=ms, device_ms=device_ms, warm_ms=warm_ms,
+            plain_ms=plain_ms,
+            library_ms=library_ms,
+            library="scaled_dot_product_attention over a pre-gathered "
+            "view with the step's own slot appended, bool mask, gather "
+            "not timed", bound_ms=bound_ms, bound_by=bound_by,
+            roofline_share=bound_ms / ms,
+            device_roofline_share=bound_ms / device_ms if device_ms
+            else None)
+        emit(row)
+        if not (finite and rel < bound):
+            raise AssertionError(
+                f"stock_paged ({name}): finite {finite}, worst live row "
+                f"{rel} of its max |plain| (bound {bound})")
+        rows[name] = row
+    return rows
+
+
+def splash_bound(q, k, offset, peak):
+    """Least time (ms) of one splash call: q and out once and the K/V
+    columns some query attends (min(S, T + offset) per row and KV head)
+    over HBM bandwidth, vs the QK and PV FLOPs (4*d per query head) of
+    the attended (query, column) pairs over ``peak``."""
+    B, T, H, d = q.shape
+    S, KVH = k.shape[1], k.shape[2]
+    cols = min(S, T + offset)
+    pairs = sum(min(S, t + offset + 1) for t in range(T))
+    nbytes = (2 * q.numel() * q.element_size()
+              + 2 * B * cols * KVH * d * k.element_size())
+    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    t_ops = 4.0 * d * H * B * pairs / peak * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_splash(torch, kn, gen):
+    """splash_prefill against its plain version at SPLASH_SHAPES (H=32,
+    KVH=8, d=128), bf16 and float32: each query row against its own max
+    |plain| (``row_rel_err``); cold-L2, warm, plain and library times
+    (SDPA with the boolean causal-offset mask) and the bound (bf16 peak
+    for bf16, the float32 CUDA-core peak for float32)."""
+    import torch.nn.functional as F
+
+    rows = {}
+    H, KVH, d = 32, 8, 128
+    for shape, (B, T, S, off) in SPLASH_SHAPES.items():
+        for dtype, bound, peak in (
+                (torch.bfloat16, REL_BOUND, PEAK_BF16_FLOPS),
+                (torch.float32, F32_KERNEL_BOUND, PEAK_F32_FLOPS)):
+            args = tuple(torch.randn(sh, device="cuda", generator=gen)
+                         .to(dtype) for sh in ((B, T, H, d), (B, S, KVH, d),
+                                               (B, S, KVH, d)))
+            out = kn.splash_prefill(*args, chunk_offset=off)
+            torch.cuda.synchronize()
+            ref = kn.splash_prefill_reference(*args, chunk_offset=off)
+            finite = bool(torch.isfinite(out).all())
+            rel = row_rel_err(torch, out, ref)
+            del ref
+            copies = cold_copies(args)
+            cold = [lambda a=a: kn.splash_prefill(*a, chunk_offset=off)
+                    for a in copies]
+            ms = time_ms(torch, cold, iters=4 * len(copies))
+            device_ms = kernel_device_ms(torch, cold, ("splash_",))
+            warm_ms = time_ms(torch, lambda: kn.splash_prefill(
+                *args, chunk_offset=off))
+            plain_ms = time_ms(torch, [
+                lambda a=a: kn.splash_prefill_reference(
+                    *a, chunk_offset=off) for a in copies],
+                iters=len(copies), warmup=1)
+            mask = (torch.arange(S, device="cuda")[None, :]
+                    <= torch.arange(T, device="cuda")[:, None] + off)
+            library_ms = time_ms(torch, [
+                lambda a=a: F.scaled_dot_product_attention(
+                    *(x.transpose(1, 2) for x in a), attn_mask=mask,
+                    enable_gqa=True) for a in copies],
+                iters=4 * len(copies))
+            del copies
+            bound_ms, bound_by = splash_bound(args[0], args[1], off, peak)
+            name = "bfloat16" if dtype == torch.bfloat16 else "float32"
+            row = dict(
+                phase="kernel_check", kernel="splash_prefill", shape=shape,
+                B=B, T=T, S=S, H=H, KVH=KVH, d=d, chunk_offset=off,
+                dtype=name, worst_row_rel=rel, rel_bound=bound,
+                finite=finite, ms=ms, device_ms=device_ms, warm_ms=warm_ms,
+                plain_ms=plain_ms,
+                library_ms=library_ms,
+                library="scaled_dot_product_attention, bool causal-offset "
+                "mask, enable_gqa", bound_ms=bound_ms, bound_by=bound_by,
+                roofline_share=bound_ms / ms)
+            emit(row)
+            if not (finite and rel < bound):
+                raise AssertionError(
+                    f"splash_prefill {shape} ({name}): finite {finite}, "
+                    f"worst row {rel} of its max |plain| (bound {bound})")
+            rows[f"{shape}_{name}"] = row
+    return rows
+
+
 def train_kernel_inputs(torch, gen, dtype, B, T, H, KVH, d):
     """q, k, v, a cotangent g, and causal positions 0..T-1 (no padding)."""
     shapes = ((B, T, H, d), (B, T, KVH, d), (B, T, KVH, d), (B, T, H, d))
@@ -992,7 +1239,12 @@ def check_train_kernels(torch, fa, gen):
 
 NO_LAUNCHES = dict.fromkeys(("flash_fwd", "flash_fwd_int8", "flash_bwd_dq",
                             "flash_bwd_dkv", "paged_decode",
-                            "paged_decode_int8"), 0)
+                            "paged_decode_int8", "stock_paged",
+                            "splash_prefill"), 0)
+
+
+def selection_kernels():
+    return importlib.import_module("jax_llama_tpu_torch.ops.kernels")
 
 
 def bwd_counts(fa):
@@ -1006,10 +1258,13 @@ def launch_counts(fa, pa):
     ``paged_decode`` counts the bf16/float32-pool launches,
     ``paged_decode_int8`` the int8-pool ones."""
     paged = pa.paged_pool_attention
+    kn = selection_kernels()
     return dict(bwd_counts(fa),
                 flash_fwd_int8=fa.flash_attention_quantized.launches,
                 paged_decode=paged.launches - paged.launches_int8,
-                paged_decode_int8=paged.launches_int8)
+                paged_decode_int8=paged.launches_int8,
+                stock_paged=kn.stock_paged_decode.launches,
+                splash_prefill=kn.splash_prefill.launches)
 
 
 def zero_counts(fa, pa):
@@ -1020,6 +1275,9 @@ def zero_counts(fa, pa):
     pa.paged_pool_attention.launches = 0
     pa.paged_pool_attention.launches_int8 = 0
     pa.paged_pool_attention.launches_by_t = {}
+    kn = selection_kernels()
+    kn.stock_paged_decode.launches = 0
+    kn.splash_prefill.launches = 0
 
 
 def layer_copy(torch, params, n_layers, dtype=None):
@@ -1226,22 +1484,28 @@ def serve_prompts(tok):
 # The serving profiles' kernel groups (device ms per group).
 SERVE_CATEGORIES = {
     "paged_decode": ("paged_decode",), "flash_fwd": ("flash_fwd",),
+    "stock_paged": ("stock_split", "stock_combine"), "splash": ("splash_",),
     "gemm": ("nvjet", "gemm", "sm90_xmma", "cutlass"),
     "elementwise": ("elementwise", "reduce", "index", "gather", "scatter",
                     "cat", "copy"),
 }
 
 
-def drive_serving(torch, ptl, fa, pa, params, cfg, tok, phase="serving"):
+def drive_serving(torch, ptl, fa, pa, params, cfg, tok, phase="serving",
+                  kernels=None):
     """Phase 5 (and, with int8 weights and an int8 KV config, phase
-    ``int8_serving``): the batcher at llama3-8b width, staggered
+    ``int8_serving``; with ``kernels`` = SELECTED, phase
+    ``selected_serving``): the batcher at llama3-8b width, staggered
     admissions."""
     int8 = cfg.kv_cache_dtype == "int8"
+    kernels = kernels or {}
     prompts = serve_prompts(tok)
     assert [len(p) for p in prompts] == list(SERVE_PROMPT_TOKENS)
     t0 = time.perf_counter()
     cb = ptl.ContinuousBatcher(params, cfg, n_slots=8, max_len=2048,
-                               decode_chunk=8, device="cuda")
+                               decode_chunk=8, device="cuda", **kernels)
+    resolved = dict(prefill_kernel=cb.config.prefill_kernel,
+                    decode_kernel=cb.config.decode_kernel)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     L = cfg.n_layers
@@ -1311,7 +1575,7 @@ def drive_serving(torch, ptl, fa, pa, params, cfg, tok, phase="serving"):
     row = dict(
         phase=phase, config="llama3-8b", n_layers=L, dtype="bfloat16",
         weights="int8 (quantize_params)" if int8 else "bfloat16",
-        kv_cache_dtype=cfg.kv_cache_dtype,
+        kv_cache_dtype=cfg.kv_cache_dtype, kernels=resolved,
         n_slots=8, max_len=2048, block_size=128, decode_chunk=8,
         prompt_tokens=list(SERVE_PROMPT_TOKENS),
         max_new=list(SERVE_MAX_NEW), batcher_init_s=build_s,
@@ -1328,12 +1592,25 @@ def drive_serving(torch, ptl, fa, pa, params, cfg, tok, phase="serving"):
     )
     emit(row)
     suffix = "_int8" if int8 else ""
-    want = dict(NO_LAUNCHES, **{
-        "paged_decode" + suffix: L * stats["decode_steps_total"],
-        "flash_fwd" + suffix: L * stats["insert_dispatches_total"]})
-    if launches != want or by_t != {1: L * stats["decode_steps_total"]}:
-        raise AssertionError(f"{phase} launches {launches} (by T {by_t}), "
-                             f"expected {want}, all at T = 1")
+    steps = stats["decode_steps_total"]
+    inserts = stats["insert_dispatches_total"]
+    want, want_by_t = dict(NO_LAUNCHES), {1: L * steps}
+    if resolved["prefill_kernel"] == "splash":
+        want["splash_prefill"] = L * inserts
+    else:
+        want["flash_fwd" + suffix] = L * inserts
+    if resolved["decode_kernel"] == "stock-paged":
+        want["stock_paged"] = (selection_kernels().STOCK_KERNELS_PER_CALL
+                               * L * steps)
+        want_by_t = {}
+    else:
+        want["paged_decode" + suffix] = L * steps
+    if resolved != dict(prefill_kernel=kernels.get("prefill_kernel", "flash"),
+                        decode_kernel=kernels.get("decode_kernel", "paged")):
+        raise AssertionError(f"{phase}: the batcher resolved {resolved}")
+    if launches != want or by_t != want_by_t:
+        raise AssertionError(f"{phase} launches {launches} (paged by T "
+                             f"{by_t}), expected {want} (by T {want_by_t})")
     if not (exact and in_vocab):
         raise AssertionError(f"serving tokens: lengths {lens}, in vocab "
                              f"{in_vocab}")
@@ -1428,6 +1705,84 @@ def paged_invariant(torch, ptl, engine, serving, params, cfg, tok,
                     for n in cells))
     if not held:
         raise AssertionError(f"paged decode invariant failed: {cells}")
+    return row
+
+
+def selected_invariant(torch, ptl, llama, params, cfg, tok):
+    """Phase ``selected_decode_invariant`` (float32 activations, 32
+    layers, 4 of the serving requests): splash tokens = flash tokens,
+    stock tokens identical at decode_chunk 1 and 8, one paged_forward
+    step's logits under stock against the paged kernel on one admitted
+    pool (no write-back), and what "auto" resolves to on llama3-8b."""
+    prompts = [serve_prompts(tok)[i] for i in INVARIANT_REQUESTS]
+    max_new = [SERVE_MAX_NEW[i] for i in INVARIANT_REQUESTS]
+    c32 = cfg.replace(dtype="float32")
+
+    def batcher(**kw):
+        return ptl.ContinuousBatcher(params, c32, n_slots=4, max_len=2048,
+                                     device="cuda", **kw)
+
+    def tokens(**kw):
+        cb = batcher(**kw)
+        rids = [cb.submit(p, max_new_tokens=n)
+                for p, n in zip(prompts, max_new)]
+        res = cb.run_to_completion()
+        return [res[r] for r in rids]
+
+    kn = selection_kernels()
+    before = kn.splash_prefill.launches
+    toks = {"splash": tokens(prefill_kernel="splash", decode_chunk=8)}
+    splash_ran = kn.splash_prefill.launches - before
+    toks["flash"] = tokens(prefill_kernel="flash", decode_chunk=8)
+    before = kn.stock_paged_decode.launches
+    for k in (1, 8):
+        toks[f"stock_k{k}"] = tokens(decode_kernel="stock-paged",
+                                     decode_chunk=k)
+    stock_ran = kn.stock_paged_decode.launches - before
+
+    cb = batcher(decode_kernel="stock-paged")
+    for p in prompts:
+        cb.submit(p, max_new_tokens=8)
+    with torch.inference_mode():
+        cb._admit()
+        cb._sync_device_rows()
+        positions = torch.where(cb.d_active, cb.d_pos, -1)[:, None]
+        logits = {
+            name: llama.paged_forward(
+                params, cb.tau[:, None], positions,
+                c32.replace(decode_kernel=name),
+                cb.pool.paged(cb.d_table, cb.d_fill),
+                attn_mask=cb.d_active[:, None], write_back=False)[0][:, 0]
+            for name in ("paged", "stock-paged")}
+    del cb
+    step_rel = rel_err(logits["stock-paged"], logits["paged"])
+    auto = ptl.ContinuousBatcher(params, cfg, n_slots=1, max_len=256,
+                                 prefill_kernel="auto", decode_kernel="auto",
+                                 device="cuda")
+    auto_names = [auto.config.prefill_kernel, auto.config.decode_kernel]
+    del auto
+    torch.cuda.empty_cache()
+    row = dict(
+        phase="selected_decode_invariant", config="llama3-8b",
+        n_layers=cfg.n_layers, dtype="float32",
+        requests=list(INVARIANT_REQUESTS), max_new=max_new,
+        splash_equals_flash=toks["splash"] == toks["flash"],
+        splash_first_divergence=[first_divergence(a, b) for a, b in
+                                 zip(toks["splash"], toks["flash"])],
+        splash_launches=splash_ran,
+        stock_k1_equals_k8=toks["stock_k1"] == toks["stock_k8"],
+        stock_launches=stock_ran,
+        stock_first_divergence_vs_flash=[
+            first_divergence(a, b)
+            for a, b in zip(toks["stock_k8"], toks["flash"])],
+        step_logits_rel_stock_vs_paged=step_rel, step_bound=STEP_STOCK_REL,
+        auto_resolves_to=auto_names)
+    emit(row)
+    if not (row["splash_equals_flash"] and row["stock_k1_equals_k8"]
+            and splash_ran > 0 and stock_ran > 0
+            and step_rel < STEP_STOCK_REL
+            and auto_names == ["splash", "paged"]):
+        raise AssertionError(f"selected decode invariant failed: {row}")
     return row
 
 
@@ -1562,6 +1917,27 @@ def drive_spec_serving(torch, np, ptl, llama, fa, pa, params, cfg, smi):
                 paged_decode=(SPEC_DRAFT + 2) * L * rounds,
                 paged_decode_by_t={T: (SPEC_DRAFT + 2) * L * rounds})
 
+    # A draft that selects stock-paged: one round, counted from zero.  The
+    # chain replays the block at T = n_draft + 1, so the stock slot never
+    # runs.
+    cb = ptl.ContinuousBatcher(
+        params, cfg, n_slots=SPEC_SLOTS, max_len=SPEC_MAX_LEN,
+        block_size=SPEC_BLOCK, draft_params=params,
+        draft_config=cfg.replace(decode_kernel="stock-paged"),
+        n_draft=SPEC_DRAFT, spec_rounds=1, device="cuda")
+    for p in prompts:
+        cb.submit(p, max_new_tokens=SPEC_NEW)
+    cb._admit()
+    zero_counts(fa, pa)
+    cb.step()
+    stock_draft = dict(
+        draft_decode_kernel=cb.draft_config.decode_kernel,
+        rounds=cb.stats()["decode_steps_total"],
+        launches=dict(launch_counts(fa, pa), paged_decode_by_t=dict(
+            pa.paged_pool_attention.launches_by_t)))
+    del cb
+    lap("stock_draft")
+
     # The plain batcher on the same prompts.
     plain = ptl.ContinuousBatcher(params, cfg, n_slots=SPEC_SLOTS,
                                   max_len=SPEC_MAX_LEN,
@@ -1627,12 +2003,17 @@ def drive_spec_serving(torch, np, ptl, llama, fa, pa, params, cfg, smi):
                self_draft=self_row, perturbed_draft=pert_row,
                plain_tokens_per_s=plain_n / plain_wall,
                plain_tokens_exact=[len(t) for t in plain_toks] == [SPEC_NEW]
-               * SPEC_SLOTS, invariants=inv)
+               * SPEC_SLOTS, stock_draft=stock_draft, invariants=inv)
     emit(row)
     exact = [SPEC_NEW] * SPEC_SLOTS
     problems = []
     if launches != want:
         problems.append(f"launches {launches}, expected {want}")
+    n = stock_draft["rounds"] * (SPEC_DRAFT + 2) * L
+    want_stock = dict(NO_LAUNCHES, paged_decode=n, paged_decode_by_t={T: n})
+    if stock_draft["rounds"] != 1 or stock_draft["launches"] != want_stock:
+        problems.append(f"stock-paged draft {stock_draft}, expected one "
+                        f"round with {want_stock}")
     if self_row["acceptance"] != 1.0 or self_row["tokens"] != exact:
         problems.append("self-draft acceptance / token counts")
     if not (pert_row["acceptance"] < 1.0 and pert_row["tokens"] == exact):
@@ -1774,6 +2155,9 @@ def main() -> int:
     verify_rows = check_paged_verify(torch, pa, gen)
     flash_int8_rows = check_flash_int8(torch, fa, quant, gen)
     paged_int8_rows = check_paged_int8(torch, pa, quant, gen)
+    kn = selection_kernels()
+    stock_rows = check_stock(torch, kn, gen)
+    splash_rows = check_splash(torch, kn, gen)
     train_rows = check_train_kernels(torch, fa, gen)
 
     # Phase 3: the main path, llama3-8b width, bf16, attn_impl="auto".
@@ -1923,8 +2307,28 @@ def main() -> int:
     # Phase 5: the serving path, counted from zero.
     serve_row = drive_serving(torch, ptl, fa, pa, params, cfg, tok)
 
+    # Phase 5b: the same requests on the selected slots (splash prefill,
+    # stock-paged decode), counted from zero, beside phase 5.
+    sel_row = drive_serving(torch, ptl, fa, pa, params, cfg, tok,
+                            phase="selected_serving", kernels=SELECTED)
+    figures = ("decode_ms_per_iteration", "tokens_per_s", "insert_ms",
+               "busy_share")
+    emit(dict(phase="selected_vs_serving",
+              serving={k: serve_row[k] for k in figures},
+              selected={k: sel_row[k] for k in figures},
+              ratio_selected_over_serving={
+                  k: (sel_row[k] / serve_row[k]
+                      if sel_row[k] and serve_row[k] else None)
+                  for k in figures},
+              device_ms_by_category_3_steps=dict(
+                  serving=serve_row["profile_3_steps"].get("by_category_ms"),
+                  selected=sel_row["profile_3_steps"].get(
+                      "by_category_ms"))))
+
     # Phase 6: paged = gathered = standalone generate.
     paged_invariant(torch, ptl, engine, serving, params, cfg, tok)
+    # Phase 6b: the selected slots' invariants in float32 activations.
+    selected_invariant(torch, ptl, llama, params, cfg, tok)
 
     # Phase 7: speculative serving, counted from zero.
     spec_row = drive_spec_serving(torch, np, ptl, llama, fa, pa, params, cfg,
@@ -1941,7 +2345,8 @@ def main() -> int:
     # the path each kernel serves (train for the flash kernels;
     # int8_serving for the int8 ones; serving for the paged kernel at
     # T = 1, with its spec_verify shape's own count from spec_serving
-    # beside it); every path's count is beside it.  The flash times are
+    # beside it; selected_serving for the stock-paged and splash
+    # kernels); every path's count is beside it.  The flash times are
     # the training shape's (forward with lse, no dropout), the train
     # path's launches.
     spec_launches = dict(spec_row["self_draft"]["launches"])
@@ -1949,6 +2354,7 @@ def main() -> int:
     int8_spec_launches = dict(int8_spec["launches"])
     int8_spec_launches.pop("paged_decode_by_t")
     paths = {"generate": launches, "serving": serve_row["launches"],
+             "selected_serving": sel_row["launches"],
              "spec_serving": spec_launches,
              "int8_serving": int8_row["launches"],
              "int8_spec_serving": int8_spec_launches,
@@ -2054,6 +2460,41 @@ def main() -> int:
                      "jax_llama_tpu/ops/flash_attention.py:1271"),
         train_kernel("flash_bwd_dkv",
                      "jax_llama_tpu/ops/flash_attention.py:1301"),
+        dict(name="stock_paged", route="cuda",
+             source="jax_llama_tpu_torch/csrc/stock_paged.cu",
+             replaces="jax_llama_tpu/ops/kernels.py:428 (_stock_launch, "
+             ":361, <- stock_paged_decode, :473)",
+             launches=paths["selected_serving"]["stock_paged"],
+             launches_by_path=by_path("stock_paged"),
+             launches_per_call=kn.STOCK_KERNELS_PER_CALL, shape="serving",
+             max_abs_err=max(r["worst_row_rel"] for r in stock_rows.values()),
+             max_abs_err_is="the worst live row's max abs err over its own "
+             "max |plain|, bf16 and float32",
+             ms=stock_rows["bfloat16"]["device_ms"],
+             ms_is="torch.profiler device time per call (split and "
+             "combine), cold-L2; event_ms times the host-bound wrapper",
+             event_ms=stock_rows["bfloat16"]["ms"],
+             **{k: stock_rows["bfloat16"][k] for k in (
+                 "warm_ms", "plain_ms", "bound_ms", "bound_by",
+                 "library_ms")},
+             float32_ms=stock_rows["float32"]["device_ms"]),
+        dict(name="splash_prefill", route="cuda",
+             source="jax_llama_tpu_torch/csrc/splash_prefill.cu",
+             replaces="jax_llama_tpu/ops/kernels.py:264 (splash_prefill, "
+             ":224)",
+             launches=paths["selected_serving"]["splash_prefill"],
+             launches_by_path=by_path("splash_prefill"), shape="insert",
+             max_abs_err=max(r["worst_row_rel"]
+                             for r in splash_rows.values()),
+             max_abs_err_is="the worst query row's max abs err over its "
+             "own max |plain|, bf16 and float32, insert and chunk",
+             **{k: splash_rows["insert_bfloat16"][k] for k in (
+                 "ms", "device_ms", "warm_ms", "plain_ms", "bound_ms",
+                 "bound_by", "library_ms")},
+             float32_ms=splash_rows["insert_float32"]["ms"],
+             chunk={k: splash_rows["chunk_bfloat16"][k] for k in (
+                 "T", "S", "chunk_offset", "ms", "device_ms", "warm_ms",
+                 "plain_ms", "bound_ms", "bound_by", "library_ms")}),
     ]})
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -24,6 +24,13 @@ no GPU is present unless the caller passes ``device="cpu"``.
               csrc/flash_bwd.cu; flash_attention_quantized for int8 K/V),
               ops.paged_attention (hand-written CUDA, csrc/paged_decode.cu,
               T >= 1 query tokens per row, bf16/float32/int8 pools)
+  Selection:  KernelSpec, PREFILL_KERNELS, DECODE_KERNELS,
+              resolve_prefill_kernel, resolve_decode_kernel,
+              splash_eligible; the splash prefill slot
+              (ops.kernels.splash_prefill, csrc/splash_prefill.cu) and the
+              stock-paged decode slot (ops.kernels.stock_paged_decode,
+              csrc/stock_paged.cu), chosen with
+              ContinuousBatcher(prefill_kernel=..., decode_kernel=...)
 """
 
 from .config import LLaMAConfig, get_config, swiglu_hidden_size
@@ -37,6 +44,14 @@ from .models import (
     init_cache,
     init_params,
     param_count,
+)
+from .ops.kernels import (
+    DECODE_KERNELS,
+    PREFILL_KERNELS,
+    KernelSpec,
+    resolve_decode_kernel,
+    resolve_prefill_kernel,
+    splash_eligible,
 )
 from .ops.quant import (
     QuantizedTensor,
@@ -63,7 +78,9 @@ __all__ = [
     "from_jax_params", "init_cache", "init_params", "param_count",
     "PagedKVCache", "ContinuousBatcher", "init_pool",
     "QuantizedTensor", "quantize_params", "is_quantized", "quantize_kv",
-    "generate_speculative", "TrainState",
+    "generate_speculative", "KernelSpec", "PREFILL_KERNELS",
+    "DECODE_KERNELS", "resolve_prefill_kernel", "resolve_decode_kernel",
+    "splash_eligible", "TrainState",
     "init_train_state", "lm_loss", "make_optimizer", "train_step",
     "__version__",
 ]

@@ -133,14 +133,18 @@ class LLaMAConfig:
         for name in ("dtype", "param_dtype", "attn_softmax_dtype",
                      "logits_dtype"):
             torch_dtype(getattr(self, name))
-        # Kernel-selection names: the port runs the flash kernel for every
-        # prefill_kernel and the paged kernel for every paged decode_kernel
-        # (no stock/splash slots yet), but a typo must still fail as it
-        # does in the JAX package.
+        # A typo'd kernel name would never match the dispatch predicates
+        # and would quietly run the default kernel: fail instead.
         if self.prefill_kernel not in ("flash", "splash", "auto"):
-            raise ValueError(f"unknown prefill_kernel {self.prefill_kernel!r}")
+            raise ValueError(
+                f"unknown prefill_kernel {self.prefill_kernel!r}; "
+                "expected 'flash', 'splash', or 'auto'"
+            )
         if self.decode_kernel not in ("paged", "stock-paged", "auto"):
-            raise ValueError(f"unknown decode_kernel {self.decode_kernel!r}")
+            raise ValueError(
+                f"unknown decode_kernel {self.decode_kernel!r}; "
+                "expected 'paged', 'stock-paged', or 'auto'"
+            )
 
 
 # ---------------------------------------------------------------------------

@@ -23,7 +23,10 @@ Attention per block, after ``attn_impl`` is resolved ("auto" picks
   layer's attention;
 * "flash": the new K/V are written into the cache first, then the
   hand-written flash kernel attends the whole cache (or, without a
-  cache, the block's own K/V);
+  cache, the block's own K/V).  A cached chunk that
+  ``ops.kernels.splash_eligible`` accepts (``config.prefill_kernel ==
+  "splash"``, a static ``chunk_offset``, 128-multiple shapes, a
+  full-precision cache) runs the splash kernel instead;
 * uncached "xla": plain ``sdpa`` with a positional bias.
 
 The KV cache is updated IN PLACE (its k, v, pos and index): a forward
@@ -38,7 +41,9 @@ A ``PagedKVCache`` (the serving block pool) routes to ``paged_forward``:
 T >= 1 consecutive tokens per row (a decode token, or the speculative
 verify block), attention through the hand-written paged kernel, and the
 same in-place contract (pool k, v and pos written, the same cache object
-returned).
+returned).  Under ``config.decode_kernel == "stock-paged"`` a T = 1 step
+over a full-precision pool runs the stock-paged kernel
+(``ops.kernels``) instead; T > 1 and int8 pools keep the paged kernel.
 
 Training (``train.py``): ``forward(dropout_rng=...)`` applies the config's
 embedding, residual and attention dropout, drawn from a ``torch.Generator``
@@ -84,6 +89,11 @@ from torch.utils.checkpoint import (
 from ..config import LLaMAConfig, torch_dtype
 from ..ops.attention import attention_bias, dropout, sdpa, sdpa_cached
 from ..ops.flash_attention import flash_attention, flash_attention_quantized
+from ..ops.kernels import (
+    splash_eligible,
+    splash_prefill_attention,
+    stock_paged_decode_attention,
+)
 from ..ops.loss import matmul_f32_out
 from ..ops.norm import rms_norm
 from ..ops.paged_attention import paged_decode_attention
@@ -504,6 +514,7 @@ def _block(
     drop: Optional[_LayerDropout] = None,
     cache_ks: Optional[torch.Tensor] = None,
     cache_vs: Optional[torch.Tensor] = None,
+    chunk_offset: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One pre-norm transformer block, x: [B, T, D]; ``impl`` is the
     resolved attention path.  Writes this block's new K/V into
@@ -511,9 +522,13 @@ def _block(
     int8 cache passes its scale planes as ``cache_ks``/``cache_vs`` and
     gets the quantized K/V and their scales.  ``impl="paged"`` attends
     ``paged`` = (pool cache, per-row query position, layer) through the
-    paged kernel and leaves the pool to the caller's write-back.  ``drop``
-    (training, cache-free) applies the layer's attention and residual
-    dropout.  Returns (x, the block's new K, its new V) at full
+    paged kernel (the stock-paged kernel under ``decode_kernel ==
+    "stock-paged"`` at T == 1 over a full-precision pool, JAX :750-768)
+    and leaves the pool to the caller's write-back.  ``chunk_offset`` (a
+    static int, the chunk's first position) lets a cached flash chunk run
+    the splash kernel where ``splash_eligible`` holds (JAX :833-855).
+    ``drop`` (training, cache-free) applies the layer's attention and
+    residual dropout.  Returns (x, the block's new K, its new V) at full
     precision."""
     B, T, D = x.shape
     adt = x.dtype
@@ -535,10 +550,15 @@ def _block(
     int8 = cache_ks is not None
     if impl == "paged":
         pool, q_pos_row, layer = paged
-        attn = paged_decode_attention(
-            q, k, v, pool.k, pool.v, pool.pos, pool.table, q_pos_row,
-            layer=layer, k_scale=pool.k_scale, v_scale=pool.v_scale,
-        )
+        if (config.decode_kernel == "stock-paged" and T == 1
+                and not pool.quantized):
+            attn = stock_paged_decode_attention(
+                q, k, v, pool.k, pool.v, pool.table, q_pos_row, layer=layer)
+        else:
+            attn = paged_decode_attention(
+                q, k, v, pool.k, pool.v, pool.pos, pool.table, q_pos_row,
+                layer=layer, k_scale=pool.k_scale, v_scale=pool.v_scale,
+            )
     elif cache_k is not None and impl == "xla":
         if int8:
             attn = sdpa_cached(
@@ -571,7 +591,15 @@ def _block(
         else:
             kk, vv = k, v
         attn_rate = drop.attn_rate if drop is not None else 0.0
-        if impl == "flash":
+        if impl == "flash" and cache_k is not None and splash_eligible(
+                config, batch=B, q_len=T, kv_len=kk.shape[1],
+                chunk_offset=chunk_offset):
+            # The insert's chunk offset is a static int: the chunk's
+            # causal window is a static offset mask (no dropout with a
+            # cache).
+            attn = splash_prefill_attention(q, kk, vv,
+                                            chunk_offset=chunk_offset)
+        elif impl == "flash":
             attn = flash_attention(
                 q, kk, vv, positions, slot_pos, dropout_rate=attn_rate,
                 dropout_seed=drop.attn_seed if attn_rate > 0.0 else None)
@@ -686,16 +714,21 @@ def forward(
       dropout_rng: a ``torch.Generator`` (on the params' device) or an int
         seed enabling dropout at the config's embd/resid/attn_pdrop rates
         (training only: refused with a cache).  All rates zero: ignored.
-      output_hidden_states, output_attentions, chunk_offset: the JAX
-        signature's auxiliary-output and splash-kernel options; not
-        ported, and any value but the default raises NotImplementedError.
+      chunk_offset: the static (Python int) position of this call's first
+        token where the caller knows it (the serving insert's chunk loop).
+        Only the splash prefill kernel reads it: a cached flash chunk
+        runs splash where ``ops.kernels.splash_eligible`` holds.  None
+        (the default) keeps the flash kernel.
+      output_hidden_states, output_attentions: the JAX signature's
+        auxiliary outputs; not ported, and any value but the default
+        raises NotImplementedError.
     Returns:
       (logits [B, T, V] in config.logits_dtype or None, cache or None),
       plus the AuxOutput when ``output_last_hidden``.
     """
     unported = dict(
         output_hidden_states=output_hidden_states,
-        output_attentions=output_attentions, chunk_offset=chunk_offset,
+        output_attentions=output_attentions,
     )
     for name, value in unported.items():
         if value is not None and value is not False:
@@ -803,6 +836,7 @@ def forward(
             cos=cos, sin=sin, bias_new=bias_new, impl=impl,
             cache_ks=cache.k_scale[i] if cache.quantized else None,
             cache_vs=cache.v_scale[i] if cache.quantized else None,
+            chunk_offset=chunk_offset,
         )
 
     if output_last_hidden:

@@ -50,15 +50,22 @@ in the queue.
 * The paged kernel holds up to ``MAX_GROUP`` query heads per KV head; a
   target or draft with more decodes through the gathered view, decided
   at construction (the JAX ``_spec_kernel_ok``).
+* Kernel selection (``ops.kernels``): ``prefill_kernel`` and
+  ``decode_kernel`` (constructor arguments over the config's fields)
+  resolve once, at construction, and the resolved names are baked into
+  ``self.config`` and ``self.draft_config``.  ``"splash"`` runs the
+  splash kernel on every insert chunk that ``splash_eligible`` accepts
+  (the insert passes its chunk offset); ``"stock-paged"`` runs the
+  stock-paged kernel on every T = 1 decode step over a full-precision
+  pool (a speculative round's forwards are T = n_draft + 1, so they keep
+  the paged kernel); ``"gathered"`` is the gathered view.
 
 Not in this slice; each raises ``NotImplementedError`` at construction,
 naming its ROADMAP item: meshes (A14), logprobs (A17), fused
 prefill-decode (A9), the prefix cache and host tier (A11), observability,
-fault injection and cost models (A7), and kernel selection other than
-flash prefill and paged/gathered decode (A15), for the target and for the
-draft.  Because the prefix cache is out, the port's defaults
-are ``prefix_cache=False`` and ``prefix_index="off"``; the JAX package's
-are ``True`` and ``"radix"``.
+fault injection and cost models (A7).  Because the prefix cache is out,
+the port's defaults are ``prefix_cache=False`` and ``prefix_index="off"``;
+the JAX package's are ``True`` and ``"radix"``.
 """
 
 from __future__ import annotations
@@ -86,6 +93,7 @@ from .models.llama import (
     resolve_device,
 )
 from .ops.attention import NEG_INF
+from .ops.kernels import resolve_decode_kernel, resolve_prefill_kernel
 from .ops.paged_attention import MAX_GROUP
 from .ops.sampling import greedy, stop_token_hits
 from .spec_decode import (
@@ -395,6 +403,8 @@ def _paged_insert(
             params, prompt_tokens[:, start:end], positions[:, start:end],
             config, cache=sub, attn_mask=prompt_mask[:, start:end],
             compute_logits=False, output_last_hidden=True,
+            # a static int: the splash kernel's causal offset
+            chunk_offset=start,
         )
         idx = plen - 1 - start  # [k] last-token offset in this chunk
         in_chunk = (idx >= 0) & (idx < end - start)
@@ -715,10 +725,28 @@ class ContinuousBatcher:
                 raise ValueError("target and draft must share a vocabulary")
             if n_draft < 1:
                 raise ValueError("n_draft must be >= 1")
-        draft_decode_kernel = (decode_kernel or draft_config.decode_kernel
-                               if spec else "paged")
-        prefill_kernel = prefill_kernel or config.prefill_kernel
-        decode_kernel = decode_kernel or config.decode_kernel
+        # Kernel selection (JAX :1903-1923): constructor arguments over the
+        # config's fields; "auto" resolves here, once, and the resolved
+        # names are baked into the configs.  "gathered" is the gathered
+        # view of the paged path.
+        if decode_kernel == "gathered":
+            use_pallas_kernel = False
+            decode_kernel = "paged"
+        config = config.replace(
+            prefill_kernel=resolve_prefill_kernel(
+                prefill_kernel or config.prefill_kernel, config),
+            decode_kernel=resolve_decode_kernel(
+                decode_kernel or config.decode_kernel, config),
+        )
+        if draft_config is not None:
+            draft_config = draft_config.replace(
+                prefill_kernel=resolve_prefill_kernel(
+                    prefill_kernel or draft_config.prefill_kernel,
+                    draft_config),
+                decode_kernel=resolve_decode_kernel(
+                    decode_kernel or draft_config.decode_kernel,
+                    draft_config),
+            )
         unported = (
             (mesh is not None, "mesh (serving-mesh sharding)", "A14"),
             (logprobs, "logprobs=True", "A17"),
@@ -730,12 +758,6 @@ class ContinuousBatcher:
             (obs is not None, "obs (observability layer)", "A7"),
             (fault_injector is not None, "fault_injector", "A7"),
             (cost_models, "cost_models=True", "A7"),
-            (prefill_kernel != "flash",
-             f"prefill_kernel={prefill_kernel!r}", "A15"),
-            (decode_kernel not in ("paged", "gathered"),
-             f"decode_kernel={decode_kernel!r}", "A15"),
-            (draft_decode_kernel not in ("paged", "gathered"),
-             f"a draft with decode_kernel={draft_decode_kernel!r}", "A15"),
         )
         for bad, what, item in unported:
             if bad:
@@ -761,7 +783,7 @@ class ContinuousBatcher:
             raise ValueError(
                 f"draft_params live on {_params_device(draft_params)}, the "
                 f"target's on {pdev}")
-        if decode_kernel == "gathered" or not all(
+        if not all(
                 c.n_heads // c.kv_heads <= MAX_GROUP
                 for c in ((config, draft_config) if spec else (config,))):
             # More query heads per KV head than the paged kernel holds:

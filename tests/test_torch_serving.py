@@ -324,8 +324,6 @@ UNPORTED = [
     (dict(obs=object()), "A7"),
     (dict(fault_injector=object()), "A7"),
     (dict(cost_models=True), "A7"),
-    (dict(prefill_kernel="splash"), "A15"),
-    (dict(decode_kernel="stock-paged"), "A15"),
 ]
 
 
@@ -334,6 +332,35 @@ UNPORTED = [
 def test_unported_arguments_raise(model, kw, item):
     with pytest.raises(NotImplementedError, match=item):
         _batcher(model, n_slots=1, max_len=64, **kw)
+
+
+# The kernel-selection arguments (ported with ops/kernels.py): each builds
+# and runs, and the batcher's config carries the resolved names.  At this
+# config's head_dim 16 no insert is splash-eligible, so "splash" emits the
+# flash batcher's tokens; tests/test_torch_kernels.py holds both slots
+# against the JAX package.
+SELECTED = [
+    (dict(prefill_kernel="splash"), ("splash", "paged")),
+    (dict(decode_kernel="stock-paged"), ("flash", "stock-paged")),
+]
+
+
+@pytest.mark.parametrize("kw,resolved", SELECTED,
+                         ids=[next(iter(kw)) for kw, _ in SELECTED])
+def test_kernel_selection_arguments_build_and_run(model, kw, resolved):
+    cb = _batcher(model, n_slots=2, max_len=64, decode_chunk=4, **kw)
+    assert (cb.config.prefill_kernel, cb.config.decode_kernel) == resolved
+    rids = [cb.submit([3, 4, 5], max_new_tokens=6),
+            cb.submit([6, 7], max_new_tokens=4)]
+    out = cb.run_to_completion()
+    assert [len(out[r]) for r in rids] == [6, 4]
+    assert all(0 <= t < 128 for r in rids for t in out[r])
+    if "prefill_kernel" in kw:
+        plain = _batcher(model, n_slots=2, max_len=64, decode_chunk=4)
+        prids = [plain.submit([3, 4, 5], max_new_tokens=6),
+                 plain.submit([6, 7], max_new_tokens=4)]
+        pout = plain.run_to_completion()
+        assert [out[r] for r in rids] == [pout[r] for r in prids]
 
 
 def test_constructor_guards(model):
