@@ -121,8 +121,9 @@ raises and exits non-zero:
    insert shape (8 right-padded rows, P = 1024, K/V quantized with
    ``quantize_kv``) in bf16 and float32 q, and the int8 paged kernel at
    the serving shape (T = 1), the spec_verify shape (T = 4, bf16 and
-   float32) and a G = 8, T = 5 verify whose 40 packed rows the wrapper
-   runs as launches of 4 + 1 tokens (``launches_by_t`` must say so): each
+   float32) and a G = 8, T = 5 verify whose 40 packed rows run as one
+   launch under the kernel's 64-row cap (``launches_by_t`` must be
+   {5: 1}): each
    packed row within ``REL_BOUND`` (bf16) or 1e-4 (float32) of its own
    max |plain|, the lse within 1e-3; cold-L2, warm and plain times, SDPA
    over a dequantized copy (the dequantize not timed) as the yardstick,
@@ -189,6 +190,26 @@ The kernel-selection layer (``ops/kernels.py``) adds:
   llama3-8b resolves to splash and paged;
 * in ``spec_serving``: a batcher whose draft selects stock-paged runs one
   round with 160 paged launches at T = 4 and no stock launch.
+
+The redesigned kernels (split-KV paged decode, the flash forward's
+Hopper instance) add:
+
+* in their ``kernel_check`` rows (flash_fwd, paged_decode,
+  paged_decode_int8): the ``instance`` that ran, read from the wrapper's
+  ``launches_by_instance`` (for flash, checked against the one
+  ``flash_instance`` picks; for paged, the split-pass instance that the
+  C entry point reports), torch.profiler's ``device_ms`` beside the
+  cold-L2 events, and ``earlier_ms``, the replaced design's figure at
+  the same shape (``EARLIER_MS``, from PERF.md's kernel table, printed
+  only in these rows); the paged serving row checks that a launch runs
+  both passes, as the C entry point reports them and as the profiler
+  counts the split and combine kernels over its timed launches;
+* in ``generate``, ``serving`` and ``train``: the flash forward's
+  launches by instance (``instances``): all 32 of generate's prefill,
+  16 a train step and every serving insert on the Hopper ("wgmma")
+  instance; in the serving phases, 2 paged kernels
+  (``paged_pool_attention.kernel_launches``) for every paged wrapper
+  launch.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or outside a checkout of the repository, it exits non-zero before printing
@@ -266,9 +287,35 @@ SPEC_PROMPT, SPEC_NEW, SPEC_DRAFT, SPEC_ROUNDS = 500, 48, 3, 8
 SPEC_NOISE = 0.02
 SPEC_SAMPLED = dict(temperature=0.8, top_p=0.95, seed=1234)
 VERIFY_FILLS = (500, 516, 532, 548)
-# The C1 split check: G = 8 query heads per KV head at T = 5 tokens (40
-# packed rows, past the kernel's 32).
+# The 70b head layout's verify (the C1 shape): G = 8 query heads per KV
+# head at T = 5 tokens, 40 packed rows: one launch under the paged
+# kernel's cap of 64.
 SPLIT_VERIFY = (8, 5)
+# The paged kernel's design, printed beside the split pass's instance
+# that its C entry point reports, and the substrings of its two kernels'
+# names in the profiler.
+PAGED_DESIGN = ("split-KV: a split pass over 256-slot runs of each row's "
+                "table, then a combine pass")
+PAGED_KERNELS = ("paged_decode_split", "paged_decode_combine")
+# The cold-L2 ms of the designs that the split-KV paged kernel and the
+# flash forward's Hopper instance replaced, at the same kernel_check
+# shapes (PERF.md's kernel table: chip_smoke.py kernel_check on an NVIDIA
+# H100 80GB HBM3, 700.00 W), printed beside the new figures as
+# earlier_ms.
+EARLIER_MS = {
+    ("flash_fwd", "prefill"): 0.0879, ("flash_fwd", "insert"): 0.3023,
+    ("flash_fwd", "train"): 1.445, ("flash_fwd", "train_dropout"): 1.283,
+    ("paged_decode", "serving"): 0.1482,
+    ("paged_decode", "spec_verify_bfloat16"): 0.1744,
+    ("paged_decode", "spec_verify_float32"): 0.2304,
+    ("paged_decode_int8", "serving"): 0.1674,
+    ("paged_decode_int8", "spec_verify_bfloat16"): 0.1938,
+    ("paged_decode_int8", "spec_verify_float32"): 0.1932,
+    ("paged_decode_int8", "split_verify"): 0.3643,
+}
+EARLIER_IS = ("cold-L2 ms of the replaced design at this shape (PERF.md "
+              "kernel table; chip_smoke.py kernel_check, NVIDIA H100 80GB "
+              "HBM3, 700.00 W); null where none was recorded")
 # The selection layer's slots as a user selects them, and the splash
 # kernel's checked shapes: (B, T, S, chunk_offset) of the serving phase's
 # first insert (8 rows at P = 1024) and of a chunk at offset 512.
@@ -380,12 +427,24 @@ def library_attention(torch, q, k, v, q_pos, kv_pos):
         qt, kt, vt, attn_mask=mask, enable_gqa=True)
 
 
+def ran_instance(after, before):
+    """The one instance launched since ``before``, a copy of a wrapper's
+    ``launches_by_instance`` (``after``), or what ran if not exactly
+    one."""
+    ran = {k: n - before.get(k, 0) for k, n in after.items()
+           if n != before.get(k, 0)}
+    return next(iter(ran)) if list(ran.values()) == [1] else ran
+
+
 def check_flash(torch, fa, gen):
     results = {}
     for name in FLASH_SHAPES:
         args = flash_inputs(torch, name, gen)
+        before = dict(fa.flash_attention.launches_by_instance)
         out = fa.flash_attention(*args)
         torch.cuda.synchronize()
+        instance = ran_instance(fa.flash_attention.launches_by_instance,
+                                before)
         ref = fa.flash_attention_reference(*args)
         if not bool(torch.isfinite(out).all()):
             raise AssertionError(f"flash {name}: non-finite output")
@@ -400,22 +459,31 @@ def check_flash(torch, fa, gen):
         ], iters=len(copies))
         library_ms = time_ms(torch, [library_attention(torch, *a)
                                      for a in copies], iters=4 * len(copies))
+        device_ms = kernel_device_ms(torch, [
+            lambda a=a: fa.flash_attention(*a) for a in copies],
+            ("flash_fwd",))
         del copies
         bound_ms, bound_by = flash_bound(*args)
+        want = fa.flash_instance(args[0].dtype, args[0].shape[3],
+                                 args[0].shape[1], args[1].shape[1])
         row = dict(
             phase="kernel_check", kernel="flash_fwd", shape=name,
             B=args[0].shape[0], T=args[0].shape[1], S=args[1].shape[1],
             H=args[0].shape[2], KVH=args[1].shape[2], d=args[0].shape[3],
-            dtype="bfloat16", max_abs_err=err, worst_row_rel=rel,
-            rel_bound=REL_BOUND, ms=ms, warm_ms=warm_ms, plain_ms=plain_ms,
+            dtype="bfloat16", instance=instance, max_abs_err=err,
+            worst_row_rel=rel, rel_bound=REL_BOUND, ms=ms,
+            device_ms=device_ms, warm_ms=warm_ms, plain_ms=plain_ms,
             library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
             roofline_share=bound_ms / ms,
+            earlier_ms=EARLIER_MS.get(("flash_fwd", name)),
+            earlier_is=EARLIER_IS,
         )
         emit(row)
-        if not rel < REL_BOUND:
+        if not (rel < REL_BOUND and instance == want):
             raise AssertionError(
                 f"flash {name}: worst packed query row's max abs err is "
-                f"{rel} of its max |plain|, bound {REL_BOUND}")
+                f"{rel} of its max |plain|, bound {REL_BOUND}; instance "
+                f"{instance}, expected {want}")
         results[name] = row
     return results
 
@@ -496,8 +564,13 @@ def check_paged(torch, pa, gen):
     L, KVH, NB, BLK, d = k.shape
     B, _, G, _ = q.shape
     layer = L - 1
+    before = (pa.paged_pool_attention.kernel_launches,
+              dict(pa.paged_pool_attention.launches_by_instance))
     out, lse = pa.paged_pool_attention(*args, layer=layer)
     torch.cuda.synchronize()
+    passes = pa.paged_pool_attention.kernel_launches - before[0]
+    instance = ran_instance(pa.paged_pool_attention.launches_by_instance,
+                            before[1])
     ref_out, ref_lse = pa.paged_pool_attention_reference(*args, layer=layer)
     live = ref_lse > pa.MASK_VALUE / 2
     finite = bool(torch.isfinite(out).all() and torch.isfinite(lse).all())
@@ -518,6 +591,11 @@ def check_paged(torch, pa, gen):
         for i in range(L)], iters=4 * L)
     warm_ms = time_ms(torch, lambda: pa.paged_pool_attention(
         q, k, v, pos, table, q_pos, layer))
+    # The profiler sees each of the L launches run both kernels.
+    profiled = dict.fromkeys(PAGED_KERNELS, 0)
+    device_ms = kernel_device_ms(torch, [
+        lambda i=i: pa.paged_pool_attention(q, k, v, pos, table, q_pos, i)
+        for i in range(L)], ("paged_decode",), profiled)
     plain_ms = time_ms(torch, [
         lambda i=i: pa.paged_pool_attention_reference(
             q, k, v, pos, table, q_pos, i) for i in range(L)], iters=L)
@@ -543,18 +621,25 @@ def check_paged(torch, pa, gen):
         phase="kernel_check", kernel="paged_decode", shape="serving",
         B=B, KVH=KVH, G=G, d=d, BLK=BLK, MB=table.shape[1], L=L,
         layer=layer, fills=list(PAGED_FILLS), inactive=list(PAGED_INACTIVE),
-        dtype="bfloat16", max_abs_err=err, max_rel_err=rel,
+        dtype="bfloat16", design=PAGED_DESIGN, instance=instance,
+        kernels_per_launch=passes, profiled_launches=profiled,
+        profiled_calls=L, max_abs_err=err, max_rel_err=rel,
         rel_err_by_live_row=row_rel.tolist(),
         rel_bound=REL_BOUND, lse_max_abs_err=lse_err, lse_bound=LSE_BOUND,
-        dead_rows_ok=dead_ok, ms=ms, warm_ms=warm_ms, plain_ms=plain_ms,
+        dead_rows_ok=dead_ok, ms=ms, device_ms=device_ms, warm_ms=warm_ms,
+        earlier_ms=EARLIER_MS[("paged_decode", "serving")],
+        earlier_is=EARLIER_IS, plain_ms=plain_ms,
         library_ms=library_ms, library="scaled_dot_product_attention over "
         "a pre-gathered view, bool mask, gather not timed",
         bound_ms=bound_ms, bound_by=bound_by, roofline_share=bound_ms / ms,
     )
     emit(row)
-    if not (finite and dead_ok and rel < REL_BOUND and lse_err < LSE_BOUND):
+    if not (finite and dead_ok and rel < REL_BOUND and lse_err < LSE_BOUND
+            and passes == 2 and set(profiled.values()) == {L}):
         raise AssertionError(
-            f"paged_decode: finite {finite}, dead rows {dead_ok}, max abs "
+            f"paged_decode: kernels a launch {passes} (profiled over {L} "
+            f"launches: {profiled}), finite {finite}, "
+            f"dead rows {dead_ok}, max abs "
             f"err {err} (worst live row: {rel} of its max |plain|, bound "
             f"{REL_BOUND}), lse err "
             f"{lse_err} (bound {LSE_BOUND})")
@@ -604,8 +689,11 @@ def check_paged_verify(torch, pa, gen):
         B, _, TG, _ = q.shape
         G = TG // T
         layer = L - 1
+        before = dict(pa.paged_pool_attention.launches_by_instance)
         out, lse = pa.paged_pool_attention(*args, layer=layer, t_tokens=T)
         torch.cuda.synchronize()
+        instance = ran_instance(pa.paged_pool_attention.launches_by_instance,
+                                before)
         ref_out, ref_lse = pa.paged_pool_attention_reference(
             *args, layer=layer, t_tokens=T)
         finite = bool(torch.isfinite(out).all() and torch.isfinite(lse).all())
@@ -618,6 +706,9 @@ def check_paged_verify(torch, pa, gen):
             for i in range(L)], iters=4 * L)
         warm_ms = time_ms(torch, lambda: pa.paged_pool_attention(
             *args, layer, T))
+        device_ms = kernel_device_ms(torch, [
+            lambda i=i: pa.paged_pool_attention(*args, i, T)
+            for i in range(L)], ("paged_decode",))
         plain_ms = time_ms(torch, [
             lambda i=i: pa.paged_pool_attention_reference(*args, i, T)
             for i in range(L)], iters=L)
@@ -640,9 +731,12 @@ def check_paged_verify(torch, pa, gen):
             phase="kernel_check", kernel="paged_decode", shape="spec_verify",
             B=B, KVH=KVH, G=G, T=T, d=d, BLK=BLK, MB=table.shape[1], L=L,
             layer=layer, fills=list(VERIFY_FILLS), dtype=name,
+            design=PAGED_DESIGN, instance=instance,
             worst_row_rel=rel, rel_bound=bound, lse_max_abs_err=lse_err,
-            lse_bound=LSE_BOUND, finite=finite, ms=ms, warm_ms=warm_ms,
-            plain_ms=plain_ms, library_ms=library_ms,
+            lse_bound=LSE_BOUND, finite=finite, ms=ms, device_ms=device_ms,
+            warm_ms=warm_ms,
+            earlier_ms=EARLIER_MS[("paged_decode", f"spec_verify_{name}")],
+            earlier_is=EARLIER_IS, plain_ms=plain_ms, library_ms=library_ms,
             library="scaled_dot_product_attention over a pre-gathered "
             "view, [T, S] positional mask, gather not timed",
             bound_ms=bound_ms, bound_by=bound_by,
@@ -741,13 +835,16 @@ def paged_int8_row(torch, pa, args, scales, T, **extra):
     B, _, TG, _ = q.shape
     G = TG // T
     layer = L - 1
-    before = dict(pa.paged_pool_attention.launches_by_t)
+    before = (dict(pa.paged_pool_attention.launches_by_t),
+              dict(pa.paged_pool_attention.launches_by_instance))
     out, lse = pa.paged_pool_attention(*args, layer=layer, t_tokens=T,
                                        **scales)
     torch.cuda.synchronize()
     after = pa.paged_pool_attention.launches_by_t
-    by_t = {t: n - before.get(t, 0) for t, n in after.items()
-            if n != before.get(t, 0)}
+    by_t = {t: n - before[0].get(t, 0) for t, n in after.items()
+            if n != before[0].get(t, 0)}
+    instance = ran_instance(pa.paged_pool_attention.launches_by_instance,
+                            before[1])
     ref_out, ref_lse = pa.paged_pool_attention_reference(
         *args, layer=layer, t_tokens=T, **scales)
     live = ref_lse > pa.MASK_VALUE / 2
@@ -762,6 +859,9 @@ def paged_int8_row(torch, pa, args, scales, T, **extra):
         for i in range(L)], iters=4 * L)
     warm_ms = time_ms(torch, lambda: pa.paged_pool_attention(
         *args, layer, T, **scales))
+    device_ms = kernel_device_ms(torch, [
+        lambda i=i: pa.paged_pool_attention(*args, i, T, **scales)
+        for i in range(L)], ("paged_decode",))
     plain_ms = time_ms(torch, [
         lambda i=i: pa.paged_pool_attention_reference(*args, i, T, **scales)
         for i in range(L)], iters=L)
@@ -784,13 +884,20 @@ def paged_int8_row(torch, pa, args, scales, T, **extra):
                                      scale_planes=2)
     name = str(q.dtype).split(".")[-1]
     bound = REL_BOUND if q.dtype == torch.bfloat16 else F32_KERNEL_BOUND
+    key = extra["shape"] if extra["shape"] != "spec_verify" else (
+        f"spec_verify_{name}")
     row = dict(
         phase="kernel_check", kernel="paged_decode_int8", **extra, B=B,
         KVH=KVH, G=G, T=T, d=d, BLK=BLK, MB=table.shape[1], L=L,
         layer=layer, dtype=name, pool="int8 + float32 scales",
+        design=PAGED_DESIGN + (
+            "; int8 tiles widened to bf16" if name == "bfloat16" else
+            "; int8 tiles converted per product"), instance=instance,
         launches_by_t=by_t, worst_row_rel=rel, rel_bound=bound,
         lse_max_abs_err=lse_err, lse_bound=LSE_BOUND, dead_rows_ok=dead_ok,
-        finite=finite, ms=ms, warm_ms=warm_ms, plain_ms=plain_ms,
+        finite=finite, ms=ms, device_ms=device_ms, warm_ms=warm_ms,
+        earlier_ms=EARLIER_MS.get(("paged_decode_int8", key)),
+        earlier_is=EARLIER_IS, plain_ms=plain_ms,
         library_ms=library_ms, library="scaled_dot_product_attention over "
         "a dequantized gathered view, bool mask, dequantize and gather not "
         "timed", bound_ms=bound_ms, bound_by=bound_by,
@@ -807,8 +914,8 @@ def paged_int8_row(torch, pa, args, scales, T, **extra):
 def check_paged_int8(torch, pa, quant, gen):
     """The int8 paged kernel at the serving shape (T = 1, bf16), at the
     spec_verify shape (T = 4, bf16 and float32), and at a G = 8, T = 5
-    verify (40 packed rows: the wrapper's split into launches of 4 + 1
-    tokens, C1), each against its plain version (``paged_int8_row``)."""
+    verify (40 packed rows, the C1 shape: one launch under the 64-row
+    cap), each against its plain version (``paged_int8_row``)."""
     rows = {}
 
     def run(key, inputs, T, **extra):
@@ -828,22 +935,22 @@ def check_paged_int8(torch, pa, quant, gen):
     G, T = SPLIT_VERIFY
     run("split", verify_inputs(torch, gen, torch.bfloat16, KVH=4, G=G, T=T),
         T, shape="split_verify", fills=list(VERIFY_FILLS))
-    per = pa.MAX_ROWS // G
-    want = {per: 1, T - per: 1}
-    if rows["split"]["launches_by_t"] != want:
+    want = {T: 1}  # G*T = 40 packed rows: one launch under MAX_ROWS = 64
+    if G * T > pa.MAX_ROWS or rows["split"]["launches_by_t"] != want:
         raise AssertionError(f"G={G}, T={T}: launches by T "
                              f"{rows['split']['launches_by_t']}, expected "
                              f"{want}")
     return rows
 
 
-def kernel_device_ms(torch, fns, names):
+def kernel_device_ms(torch, fns, names, counts=None):
     """Device ms per call of ``fns`` (each called once, in turn, after one
     untimed round) from torch.profiler: the device time of the kernels
     whose name holds one of ``names``, over the number of calls; None
     where the profiler saw none.  Where a wrapper's host work outlasts its
     kernels, CUDA events around back-to-back calls time the host; this
-    times the kernels."""
+    times the kernels.  ``counts`` ({substring: 0}), where given, gets
+    the profiled launches of the kernels whose name holds each key."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -855,9 +962,12 @@ def kernel_device_ms(torch, fns, names):
         for fn in fns:
             fn()
         torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA
-                and any(n in e.key for n in names))
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    for key in counts or ():
+        counts[key] = sum(e.count for e in kernels if key in e.key)
+    total = sum(e.self_device_time_total for e in kernels
+                if any(n in e.key for n in names))
     return total / 1e3 / len(fns) if total else None
 
 
@@ -1150,9 +1260,12 @@ def check_train_kernels(torch, fa, gen):
     bounds = train_kernel_bounds(torch, q, k, q_pos, kv_pos)
     for rate in (0.0, TRAIN_DROPOUT):
         seed = TRAIN_SEED_WORDS if rate else None
+        before = dict(fa.flash_attention.launches_by_instance)
         errs, finite, out, lse = train_kernel_errors(torch, fa, args, rate,
                                                      seed)
         torch.cuda.synchronize()
+        instance = ran_instance(fa.flash_attention.launches_by_instance,
+                                before)
         delta = fa.flash_delta(out, g, k.shape[2])
         copies = cold_copies((q, k, v, g, q_pos, kv_pos, out, lse, delta))
         n = len(copies)
@@ -1170,6 +1283,9 @@ def check_train_kernels(torch, fa, gen):
                                              a[7], a[8], a[3], rate, seed)
                 for a in copies], iters=4 * n),
         }
+        fwd_device_ms = kernel_device_ms(torch, [
+            lambda a=a: fa._forward(a[0], a[1], a[2], a[4], a[5], rate, seed,
+                                    True) for a in copies], ("flash_fwd",))
         del copies
         plain_fwd = time_ms(torch, lambda: fa.flash_attention_reference(
             q, k, v, q_pos, kv_pos, rate, seed, return_lse=True),
@@ -1211,13 +1327,21 @@ def check_train_kernels(torch, fa, gen):
                 bound_ms=bounds[name][0], bound_by=bounds[name][1],
                 roofline_share=bounds[name][0] / ms[name],
             )
+            if fwd:
+                row.update(
+                    instance=instance, device_ms=fwd_device_ms,
+                    earlier_ms=EARLIER_MS[(
+                        "flash_fwd", "train_dropout" if rate else "train")],
+                    earlier_is=EARLIER_IS)
             emit(row)
             rows[(name, label)] = row
         bad = [key for key, e in errs.items() if not e < TRAIN_BOUNDS[key]]
-        if bad or not finite:
+        want = fa.flash_instance(q.dtype, q.shape[3], q.shape[1], k.shape[1])
+        if bad or not finite or instance != want:
             raise AssertionError(
                 f"train kernels ({label}): {errs} against {TRAIN_BOUNDS}, "
-                f"finite {finite}")
+                f"finite {finite}, forward instance {instance} (expected "
+                f"{want})")
 
     # The float32 path, smaller shape.
     f32 = {}
@@ -1267,14 +1391,28 @@ def launch_counts(fa, pa):
                 splash_prefill=kn.splash_prefill.launches)
 
 
+def instance_counts(fa, pa):
+    """Since the last ``zero_counts``: the flash forward's launches per
+    instance, the paged kernel's per split-pass instance, and the kernels
+    (split and combine passes) its C entry point reports launched."""
+    paged = pa.paged_pool_attention
+    return dict(flash_fwd_by_instance=dict(
+                    fa.flash_attention.launches_by_instance),
+                paged_by_instance=dict(paged.launches_by_instance),
+                paged_kernel_launches=paged.kernel_launches)
+
+
 def zero_counts(fa, pa):
     fa.flash_attention.launches = 0
+    fa.flash_attention.launches_by_instance = {}
     fa.flash_attention_quantized.launches = 0
     fa.flash_bwd_dq.launches = 0
     fa.flash_bwd_dkv.launches = 0
     pa.paged_pool_attention.launches = 0
     pa.paged_pool_attention.launches_int8 = 0
     pa.paged_pool_attention.launches_by_t = {}
+    pa.paged_pool_attention.launches_by_instance = {}
+    pa.paged_pool_attention.kernel_launches = 0
     kn = selection_kernels()
     kn.stock_paged_decode.launches = 0
     kn.splash_prefill.launches = 0
@@ -1382,6 +1520,7 @@ def drive_train(torch, np, ptl, fa, pa, params, base_cfg):
         after = bwd_counts(fa)
         per_step.append({k: after[k] - before[k] for k in after})
     launches = launch_counts(fa, pa)
+    instances = instance_counts(fa, pa)
     peak = torch.cuda.max_memory_allocated()
 
     def one_step():
@@ -1412,7 +1551,7 @@ def drive_train(torch, np, ptl, fa, pa, params, base_cfg):
         ln_vocab=math.log(cfg.vocab_size), step_ms_all=step_ms,
         step_ms=step, tokens_per_s=B * T / step * 1e3,
         matmul_params=n_matmul, mfu=flops / (step / 1e3) / PEAK_BF16_FLOPS,
-        peak_memory_bytes=peak, launches=launches,
+        peak_memory_bytes=peak, launches=launches, instances=instances,
         launches_per_step=per_step, profile_1_step=profile,
         grad_check_loss_rel=grad_row["loss_rel"],
     )
@@ -1421,6 +1560,8 @@ def drive_train(torch, np, ptl, fa, pa, params, base_cfg):
           and losses[-1] < losses[0]
           and all(math.isfinite(x) for x in losses)
           and all(c == want_step for c in per_step)
+          and instances["flash_fwd_by_instance"] == {
+              "wgmma": 2 * L * TRAIN_STEPS}
           and launches["paged_decode"] == launches["paged_decode_int8"]
           == launches["flash_fwd_int8"] == 0)
     if not ok:
@@ -1549,6 +1690,7 @@ def drive_serving(torch, ptl, fa, pa, params, cfg, tok, phase="serving",
     serve_s = time.perf_counter() - t0
     stats = cb.stats()
     launches = launch_counts(fa, pa)
+    instances = instance_counts(fa, pa)
     by_t = dict(pa.paged_pool_attention.launches_by_t)
     lens = {rids[r]: len(t) for r, t in results.items()}
     in_vocab = all(0 <= t < cfg.vocab_size
@@ -1580,7 +1722,7 @@ def drive_serving(torch, ptl, fa, pa, params, cfg, tok, phase="serving",
         prompt_tokens=list(SERVE_PROMPT_TOKENS),
         max_new=list(SERVE_MAX_NEW), batcher_init_s=build_s,
         serve_s=serve_s, steps=n_steps, launches=launches,
-        paged_launches_by_t=by_t, stats=stats,
+        instances=instances, paged_launches_by_t=by_t, stats=stats,
         tokens_exact=exact, tokens_in_vocab=in_vocab,
         quiet_steps=quiet_steps, quiet_steps_with_upload_or_extra_fetch=(
             quiet_bad),
@@ -1611,6 +1753,18 @@ def drive_serving(torch, ptl, fa, pa, params, cfg, tok, phase="serving",
     if launches != want or by_t != want_by_t:
         raise AssertionError(f"{phase} launches {launches} (paged by T "
                              f"{by_t}), expected {want} (by T {want_by_t})")
+    # Every insert ran the flash forward's Hopper instance (blocks of 128
+    # pad each insert to a multiple of 128), and every paged launch both
+    # of its passes, as its C entry point reports them.
+    by_instance = instances["flash_fwd_by_instance"]
+    paged = launches["paged_decode"] + launches["paged_decode_int8"]
+    if (by_instance != ({"wgmma": launches["flash_fwd"]}
+                        if launches["flash_fwd"] else {})
+            or sum(instances["paged_by_instance"].values()) != paged
+            or instances["paged_kernel_launches"] != 2 * paged):
+        raise AssertionError(f"{phase}: flash instances {by_instance}, "
+                             f"paged kernels {instances}, launches "
+                             f"{launches}")
     if not (exact and in_vocab):
         raise AssertionError(f"serving tokens: lengths {lens}, in vocab "
                              f"{in_vocab}")
@@ -2179,10 +2333,14 @@ def main() -> int:
     torch.cuda.synchronize()
     generate_s = time.perf_counter() - t0
     launches = launch_counts(fa, pa)
-    if launches["flash_fwd"] != cfg.n_layers:
+    instances = instance_counts(fa, pa)
+    if (launches["flash_fwd"] != cfg.n_layers
+            or instances["flash_fwd_by_instance"] != {"wgmma": cfg.n_layers}):
         raise AssertionError(
             f"flash kernel launched {launches['flash_fwd']} times in the "
-            f"main path, expected {cfg.n_layers} (one prefill forward)"
+            f"main path ({instances['flash_fwd_by_instance']} by instance), "
+            f"expected {cfg.n_layers} on the Hopper instance (one prefill "
+            f"forward at P = 512)"
         )
 
     # Timing apart from the counted run: prefill alone, and decode per
@@ -2233,7 +2391,7 @@ def main() -> int:
               dim=cfg.dim, dtype="bfloat16", attn_impl="auto", batch=4,
               prompt_tokens=lens, padded_len=P, max_gen_len=32,
               init_params_s=init_s, generate_from_str_s=generate_s,
-              launches=launches, prefill_ms=prefill_ms,
+              launches=launches, instances=instances, prefill_ms=prefill_ms,
               decode_ms_per_token=decode_ms,
               decode_ms_per_token_samples=samples, logits_finite=finite,
               tokens_ok=out_ok, sample=texts[0][:40]))
@@ -2360,6 +2518,10 @@ def main() -> int:
              "int8_spec_serving": int8_spec_launches,
              "train": train_row["launches"]}
 
+    paths_instances = {"generate": instances,
+                       "serving": serve_row["instances"],
+                       "train": train_row["instances"]}
+
     def by_path(name):
         return {path: counts[name] for path, counts in paths.items()}
 
@@ -2381,17 +2543,24 @@ def main() -> int:
 
     pre = flash_rows["insert"]
     fwd = train_kernel("flash_fwd", "jax_llama_tpu/ops/flash_attention.py:868")
-    fwd.update(insert_ms=pre["ms"], insert_bound_ms=pre["bound_ms"],
+    fwd_row = train_rows[("flash_fwd", "no_dropout")]
+    fwd.update(instance=fwd_row["instance"], device_ms=fwd_row["device_ms"],
+               launches_by_instance={
+                   path: paths_instances[path]["flash_fwd_by_instance"]
+                   for path in ("generate", "serving", "train")},
+               insert_ms=pre["ms"], insert_bound_ms=pre["bound_ms"],
                insert_plain_ms=pre["plain_ms"],
-               insert_library_ms=pre["library_ms"])
+               insert_library_ms=pre["library_ms"],
+               insert_instance=pre["instance"])
     fi8 = flash_int8_rows["bfloat16"]
     pi8 = paged_int8_rows["serving"]
 
     def int8_sub(row, **extra):
         return dict(extra, max_abs_err=row["worst_row_rel"], ms=row["ms"],
-                    warm_ms=row["warm_ms"], plain_ms=row["plain_ms"],
-                    bound_ms=row["bound_ms"], bound_by=row["bound_by"],
-                    library_ms=row["library_ms"])
+                    device_ms=row["device_ms"], warm_ms=row["warm_ms"],
+                    plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+                    bound_by=row["bound_by"], library_ms=row["library_ms"],
+                    instance=row["instance"])
 
     emit({"kernels": [
         fwd,
@@ -2420,7 +2589,10 @@ def main() -> int:
              "its own max |plain|",
              ms=pi8["ms"], warm_ms=pi8["warm_ms"], plain_ms=pi8["plain_ms"],
              bound_ms=pi8["bound_ms"], bound_by=pi8["bound_by"],
-             library_ms=pi8["library_ms"],
+             library_ms=pi8["library_ms"], device_ms=pi8["device_ms"],
+             instance=pi8["instance"],
+             kernel_launches_in_serving=int8_row["instances"][
+                 "paged_kernel_launches"],
              spec_verify=int8_sub(
                  paged_int8_rows["spec_verify_bfloat16"], T=SPEC_DRAFT + 1,
                  launches=int8_spec["launches"]["paged_decode_by_t"],
@@ -2441,6 +2613,11 @@ def main() -> int:
              kernel_ms=paged_row["ms"], plain_ms=paged_row["plain_ms"],
              bound_ms=paged_row["bound_ms"], bound_by=paged_row["bound_by"],
              library_ms=paged_row["library_ms"],
+             device_ms=paged_row["device_ms"],
+             instance=paged_row["instance"],
+             kernels_per_launch=paged_row["kernels_per_launch"],
+             kernel_launches_in_serving=serve_row["instances"][
+                 "paged_kernel_launches"],
              spec_verify=dict(
                  shape="spec_verify", T=SPEC_DRAFT + 1,
                  launches=spec_row["self_draft"]["launches"][
@@ -2455,6 +2632,8 @@ def main() -> int:
                  bound_ms=verify_rows["bfloat16"]["bound_ms"],
                  bound_by=verify_rows["bfloat16"]["bound_by"],
                  library_ms=verify_rows["bfloat16"]["library_ms"],
+                 device_ms=verify_rows["bfloat16"]["device_ms"],
+                 instance=verify_rows["bfloat16"]["instance"],
                  float32_ms=verify_rows["float32"]["ms"])),
         train_kernel("flash_bwd_dq",
                      "jax_llama_tpu/ops/flash_attention.py:1271"),

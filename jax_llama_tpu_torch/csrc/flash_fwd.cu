@@ -32,31 +32,50 @@
 // query head h = kvh*G + g at token t.  The packing is done by address
 // arithmetic here, so no packed copy of q or out is made.
 //
-// What bounds it on an H100: memory.  At the main path's prefill shape
-// (B = 4, T = S = 512, H = 32, KVH = 8, d = 128, causal with left
-// padding) the call must move q, k, v and out once, about 40 MB, while
-// the live (query, slot) pairs need only about 4 GFLOP of tensor-core
-// work, so the least time is set by HBM bandwidth; at decode (T = 1 over
-// a long cache) it is streaming K/V once per KV head.  Between the
-// tiles, the exp/max/rescale work runs on the CUDA cores.  What the
-// design does about it:
-//   * bf16 products run on the tensor cores (mma.sync m16n8k16, fp32
-//     accumulate); each warp owns 16 packed query rows and keeps its Q
-//     fragments, scores and output accumulator in registers, so the score
-//     tile never touches shared or device memory.
-//   * GQA packing reads each K/V tile from HBM once per KV head and query
-//     tile, instead of once per query head.
-//   * Dead KV tiles are skipped: the block first finds the last slot that
-//     any of its rows may attend (the per-q-tile bound of the JAX wrapper,
-//     :794-803) and stops there; tiles below it with no live slot (left
-//     padding) are skipped without loading K or V.
-//   * The online softmax runs in base 2 (log2(e) folded into the scale),
-//     in fp32; P is rounded to the input dtype for the P.V product, as in
-//     the JAX kernel.
-// Not done yet (later work): a cp.async or TMA pipeline that overlaps the
-// next tile's loads with this tile's math (each block now waits on every
-// K/V tile load, which is what keeps it well above the memory bound),
-// wgmma, split-KV for decode.
+// What bounds it on an H100.  At the training shape (B = 4, T = S =
+// 2048, H = 32, KVH = 8, d = 128, causal) the live (query, slot) pairs
+// need ~138 GFLOP on the tensor cores against ~170 MB moved: operations
+// bound it (0.139 ms at the bf16 peak, the bytes 0.05 ms).  At the prefill shape (B = 4,
+// T = S = 512, left padding) and the serving insert (B = 8, T = S =
+// 1024) the bytes (q, k, v and out once) and the FLOPs are within a few
+// times of each other; at decode (T = 1 over a long cache) it is
+// streaming K/V once per KV head.  Between the tiles, the exp/max/rescale
+// work runs on the CUDA cores.  Two bf16 instances:
+//   * The Hopper instance (flash_fwd_wgmma; bf16, d = 128, T a multiple
+//     of 128: training, prefill, the serving inserts), one block per (128
+//     packed rows of one query head, KV head, batch), 288 threads:
+//     - a producer warp loads the block's Q tile once and keeps NST = 2
+//       stages of 128-slot K/V tiles in flight with TMA (4-D tensor maps
+//       over [B, T, H, d] and [B, S, KVH, d], 128-byte swizzle: a d = 128
+//       row is two 64-element boxes), completion signalled on mbarriers;
+//       it also copies each tile's kv_pos (and, with dropout, the tile's
+//       column hash words) into the stage, skips tiles that no row of the
+//       block may attend, and marks a tile that every row may attend in
+//       full, which then takes no compare;
+//     - two consumer warpgroups of 64 rows each run S = Q K^T as wgmma
+//       m64n128k16 with both operands in shared memory (K-major), the
+//       online softmax in registers in base 2, and O += P V as wgmma with
+//       P from registers (rounded to bf16) and V from shared memory as an
+//       MN-major operand; a consumer releases a stage on its mbarrier
+//       only after the wgmma reading it has completed;
+//     - the wgmma accumulator maps thread (warp w, lane) to rows 16 w +
+//       lane/4 (+8) and columns 8 i + 2 (lane % 4) (+1) of the 64-row
+//       slab: the dropout hash and the lse take each element's global
+//       (packed row, slot) from that, so the bits are the plain version's.
+//     Grid rows run the late query tiles (the most K/V under a causal
+//     mask) first.  The tensor maps are encoded per call on the host
+//     (hopper_common.cuh).
+//   * The mma.sync instance (every other bf16 call: T = 1 decode, ragged
+//     T, d = 64; and the int8 cache below): one block per (batch, KV
+//     head, 64 packed rows), four warps of 16 rows; Q fragments, scores
+//     and the output accumulator in registers; K/V tiles copied through
+//     registers into padded shared memory, one tile at a time.
+//   Both pack GQA so each K/V tile is read once per KV head and query
+//   tile, skip dead KV tiles (the block's last live slot bounds the walk,
+//   the JAX wrapper's per-q-tile bound :794-803; tiles below it with no
+//   live slot are never loaded), run the online softmax in base 2
+//   (log2(e) folded into the scale) in fp32, and round P to the input
+//   dtype for P.V as the JAX kernel does.
 //
 // The float32 path is a plain CUDA-core kernel (one warp per packed row)
 // kept for callers that run the model in float32; the main path is bf16.
@@ -79,6 +98,7 @@
 #include <type_traits>
 
 #include "flash_common.cuh"
+#include "hopper_common.cuh"
 
 namespace {
 
@@ -501,6 +521,331 @@ void dispatch_bf16(dim3 grid, cudaStream_t st, const void* q, const void* k,
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// The Hopper instance: bf16, d = 128, T a multiple of 128 (the training
+// shape, the prefill and the serving inserts).  One block per (128 packed
+// rows of one query head, KV head, batch): a producer warp keeps NST K/V
+// stages in flight with TMA and two consumer warpgroups of 64 rows each
+// run S = Q K^T and O += P V on wgmma (see the file's header).
+// ---------------------------------------------------------------------------
+
+namespace wg {
+
+constexpr int D = 128;
+constexpr int BM = 128;              // packed rows per block
+constexpr int BN = 128;              // kv slots per tile
+constexpr int NST = 2;               // K/V stages
+constexpr int NCONS = 256;           // two consumer warpgroups
+constexpr int NTHREADS = NCONS + 32; // and one producer warp
+constexpr int ROW = 128;             // bytes per swizzled row (64 bf16)
+constexpr int Q_BYTES = BM * D * 2;
+constexpr int KV_BYTES = BN * D * 2; // one K or V tile: two 64-column boxes
+constexpr int OFF_Q = 0;
+constexpr int OFF_K = OFF_Q + Q_BYTES;
+constexpr int OFF_V = OFF_K + NST * KV_BYTES;
+constexpr int OFF_KP = OFF_V + NST * KV_BYTES;   // int kv_pos [NST][BN]
+constexpr int OFF_CW = OFF_KP + NST * BN * 4;    // dropout col words
+constexpr int OFF_META = OFF_CW + NST * BN * 4;  // tile, full [NST]; 3 ints
+constexpr int OFF_BAR = OFF_META + 64;           // q, full[NST], empty[NST]
+constexpr int BYTES = OFF_BAR + (1 + 2 * NST) * 8;
+constexpr int SMEM = BYTES + 1024;               // + slack to align to 1024
+
+}  // namespace wg
+
+template <bool LSE, bool DROP>
+__global__ void __launch_bounds__(wg::NTHREADS, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       const int* __restrict__ q_pos,
+                       const int* __restrict__ kv_pos,
+                       uint16_t* __restrict__ out, float* __restrict__ lse,
+                       int T, int S, int H, int KVH, float scale_log2,
+                       Dropout drop) {
+  using namespace wg;
+  using namespace hopper;
+  extern __shared__ unsigned char smem_raw[];
+  // TMA boxes and swizzle atoms want 1024-byte alignment.
+  const uint32_t raw_addr = smem_addr(smem_raw);
+  const uint32_t base = (raw_addr + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw_addr);
+  int* kp_s = reinterpret_cast<int*>(smem + OFF_KP);
+  uint32_t* cw_s = reinterpret_cast<uint32_t*>(smem + OFF_CW);
+  int* tile_s = reinterpret_cast<int*>(smem + OFF_META);
+  int* full_s = tile_s + NST;
+  int* red_s = full_s + NST;  // the block's max and min q_pos, last slot
+  const uint32_t bar_q = base + OFF_BAR;
+  auto bar_full = [&](int s) { return bar_q + 8u * (1 + s); };
+  auto bar_empty = [&](int s) { return bar_q + 8u * (1 + NST + s); };
+
+  const int G = H / KVH;
+  const int R = G * T;
+  // Late query tiles (the most live K/V under a causal mask) first.
+  const int t0 = (T / BM - 1 - (int)blockIdx.y) * BM;
+  int x = blockIdx.x;
+  const int g = x % G;
+  x /= G;
+  const int kvh = x % KVH, b = x / KVH;
+  const int h = kvh * G + g;
+  const int row0 = g * T + t0;  // the block's first packed row
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    red_s[0] = INT_MIN;
+    red_s[1] = INT_MAX;
+    red_s[2] = -1;
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < NST; ++s) {
+      mbar_init(bar_full(s), 32);      // the producer warp's lanes
+      mbar_init(bar_empty(s), NCONS);  // every consumer thread
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  // The block's query positions and the last slot any of them may attend
+  // (kv_tile_bound's bound, over the whole block).
+  if (tid < BM) {
+    const int p = q_pos[(size_t)b * T + t0 + tid];
+    atomicMax(&red_s[0], p);
+    atomicMin(&red_s[1], p);
+  }
+  __syncthreads();
+  const int qmax = red_s[0], qmin = red_s[1];
+  {
+    int last = -1;
+    for (int s = tid; s < S; s += NTHREADS) {
+      if (remap_pos(kv_pos[(size_t)b * S + s]) <= qmax) last = s;
+    }
+    if (last >= 0) atomicMax(&red_s[2], last);
+  }
+  __syncthreads();
+  const int n_tiles = (red_s[2] + BN) / BN;
+
+  const int warp = tid >> 5, lane = tid & 31;
+  uint32_t base_lo = 0, base_hi = 0;
+  if constexpr (DROP) drop_bases(drop, b, kvh, base_lo, base_hi);
+  if (warp == NCONS / 32) {
+    // Producer: Q once, then each live tile's K, V (TMA), positions (plain
+    // loads) and, with dropout, the hash words of its BN slots into the
+    // next free stage; a tile no row may attend is skipped, and a stage
+    // whose tile is -1 ends the walk.
+    if (lane == 0) {
+      mbar_arrive_tx(bar_q, Q_BYTES);
+      tma_load_4d(base + OFF_Q, &tq, bar_q, 0, h, t0, b);
+      tma_load_4d(base + OFF_Q + BM * ROW, &tq, bar_q, 64, h, t0, b);
+    }
+    const int* kvrow = kv_pos + (size_t)b * S;
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int tile = 0; tile < n_tiles; ++tile) {
+      const int s0 = tile * BN;
+      int kp[BN / 32];
+      bool live = false, full = true;
+#pragma unroll
+      for (int i = 0; i < BN / 32; ++i) {
+        const int s = s0 + lane + 32 * i;
+        kp[i] = s < S ? remap_pos(kvrow[s]) : INT_MAX;
+        live |= kp[i] <= qmax;
+        full &= kp[i] <= qmin;
+      }
+      if (!__any_sync(0xffffffffu, live)) continue;
+      full = __all_sync(0xffffffffu, full);
+      mbar_wait(bar_empty(stage), phase ^ 1u);
+#pragma unroll
+      for (int i = 0; i < BN / 32; ++i) {
+        kp_s[stage * BN + lane + 32 * i] = kp[i];
+        if constexpr (DROP) {
+          cw_s[stage * BN + lane + 32 * i] =
+              col_word(base_hi, s0 + lane + 32 * i);
+        }
+      }
+      if (lane == 0) {
+        tile_s[stage] = tile;
+        full_s[stage] = full;
+        const uint32_t kd = base + OFF_K + stage * KV_BYTES;
+        const uint32_t vd = base + OFF_V + stage * KV_BYTES;
+        mbar_arrive_tx(bar_full(stage), 2 * KV_BYTES);
+        tma_load_4d(kd, &tk, bar_full(stage), 0, kvh, s0, b);
+        tma_load_4d(kd + BN * ROW, &tk, bar_full(stage), 64, kvh, s0, b);
+        tma_load_4d(vd, &tv, bar_full(stage), 0, kvh, s0, b);
+        tma_load_4d(vd + BN * ROW, &tv, bar_full(stage), 64, kvh, s0, b);
+      } else {
+        mbar_arrive(bar_full(stage));
+      }
+      if (++stage == NST) {
+        stage = 0;
+        phase ^= 1u;
+      }
+    }
+    mbar_wait(bar_empty(stage), phase ^ 1u);
+    if (lane == 0) tile_s[stage] = -1;
+    mbar_arrive(bar_full(stage));
+    return;
+  }
+
+  // Consumers: warpgroup wgi owns the block's rows [64 wgi, 64 wgi + 64);
+  // in the wgmma accumulator, warp wl's lane holds rows 16 wl + lane/4
+  // (+8) and columns 8 i + 2 (lane % 4) (+1) of chunk i.
+  const int wgi = tid >> 7, wl = warp & 3;
+  const int grp = lane >> 2, tig = lane & 3;
+  int qp[2], rloc[2];
+  uint32_t rw[2] = {0u, 0u};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    rloc[i] = 64 * wgi + 16 * wl + grp + 8 * i;
+    qp[i] = q_pos[(size_t)b * T + t0 + rloc[i]];
+    if constexpr (DROP) rw[i] = row_word(base_lo, row0 + rloc[i]);
+  }
+  float o[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) o[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};  // partial row sums over this thread's columns
+  const uint32_t qa = base + OFF_Q + wgi * 64 * ROW;
+
+  mbar_wait(bar_q, 0);
+  int stage = 0;
+  uint32_t phase = 0;
+  while (true) {
+    mbar_wait(bar_full(stage), phase);
+    const int tile = tile_s[stage];
+    if (tile < 0) break;
+    const bool full = full_s[stage] != 0;
+    const int* kp = kp_s + stage * BN;
+    const uint32_t* cws = cw_s + stage * BN;
+    const uint32_t kb = base + OFF_K + stage * KV_BYTES;
+    const uint32_t vb = base + OFF_V + stage * KV_BYTES;
+
+    // S = Q K^T: 8 k-steps of 16, four in each 64-column box; within a
+    // swizzled row a k-step is 32 bytes on from the last.
+    float sc[64];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk & 3) * 32;
+      wgmma_m64n128_ss(
+          sc, sw128_desc(qa + (kk >> 2) * BM * ROW + off, 16, 1024),
+          sw128_desc(kb + (kk >> 2) * BN * ROW + off, 16, 1024), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    reg_fence(sc);
+
+    // Base-2 scores; the per-element mask only on a tile that some row
+    // may not attend in full; row max over the quad.
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float s = sc[4 * i + e] * scale_log2;
+        if (!full && kp[8 * i + 2 * tig + (e & 1)] > qp[e >> 1]) s = -INFINITY;
+        sc[4 * i + e] = s;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s);
+      }
+    }
+    float m_use[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      m_use[r] = m_new == -INFINITY ? 0.f : m_new;
+      const float alpha = exp2f(m[r] - m_use[r]);
+      m[r] = m_new;
+      l[r] *= alpha;
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        o[4 * i + 2 * r] *= alpha;
+        o[4 * i + 2 * r + 1] *= alpha;
+      }
+    }
+    // P (dropped where the hash says, times 1 / (1 - rate)), rounded to
+    // bf16 into the A fragments: chunks 2j, 2j+1 are k-step j.
+    uint32_t pa[8][4];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      uint2 cw = make_uint2(0u, 0u);
+      if constexpr (DROP) {
+        cw = *reinterpret_cast<const uint2*>(cws + 8 * i + 2 * tig);
+      }
+      float p[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float pe = exp2f(sc[4 * i + e] - m_use[e >> 1]);
+        l[e >> 1] += pe;  // the denominator keeps every probability
+        if constexpr (DROP) {
+          p[e] = keep(rw[e >> 1], (e & 1) ? cw.y : cw.x, drop.threshold)
+                     ? pe * drop.inv
+                     : 0.f;
+        } else {
+          p[e] = pe;
+        }
+      }
+      pa[i >> 1][2 * (i & 1)] = pack_bf16x2(p[0], p[1]);
+      pa[i >> 1][2 * (i & 1) + 1] = pack_bf16x2(p[2], p[3]);
+    }
+
+    // O += P V: V is the MN-major B operand (d contiguous): 8 slots of
+    // 128 bytes per swizzle atom (stride 1024 bytes along k), the second
+    // 64 columns one box (BN rows) on; k-step j starts 16 rows on.
+    reg_fence(o);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < BN / 16; ++j) {
+      wgmma_m64n128_rs(o, pa[j], sw128_desc(vb + j * 16 * ROW, BN * ROW, 1024));
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    reg_fence(o);
+    mbar_arrive(bar_empty(stage));
+    if (++stage == NST) {
+      stage = 0;
+      phase ^= 1u;
+    }
+  }
+
+  // Normalise and store; a row that saw no live slot (l == 0) writes 0.
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if constexpr (LSE) {
+      if (tig == 0) {
+        lse[((size_t)b * KVH + kvh) * R + row0 + rloc[r]] =
+            l[r] > 0.f ? (m[r] + log2f(l[r])) * LN2 : INFINITY;
+      }
+    }
+    const float den = l[r] == 0.f ? 1.f : l[r];
+    uint16_t* orow = out + ((size_t)(b * T + t0 + rloc[r]) * H + h) * D;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      *reinterpret_cast<uint32_t*>(orow + 8 * i + 2 * tig) =
+          pack_bf16x2(o[4 * i + 2 * r] / den, o[4 * i + 2 * r + 1] / den);
+    }
+  }
+}
+
+template <bool LSE, bool DROP>
+int launch_wgmma(const CUtensorMap& tq, const CUtensorMap& tk,
+                 const CUtensorMap& tv, const int* q_pos, const int* kv_pos,
+                 void* out, float* lse, int B, int T, int S, int H, int KVH,
+                 float scale_log2, Dropout drop, cudaStream_t st) {
+  auto kernel = flash_fwd_wgmma_kernel<LSE, DROP>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, wg::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)(B * KVH * (H / KVH)), (unsigned)(T / wg::BM));
+  kernel<<<grid, wg::NTHREADS, wg::SMEM, st>>>(
+      tq, tk, tv, q_pos, kv_pos, static_cast<uint16_t*>(out), lse, T, S, H,
+      KVH, scale_log2, drop);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  lse: NULL, or float32 [B, KVH, G*T].
@@ -605,4 +950,41 @@ extern "C" int flash_fwd_int8(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+// The Hopper instance (TMA + wgmma): bf16 q, k, v with D = 128 and T a
+// multiple of 128; arguments as flash_fwd's.  Encodes the three tensor
+// maps (they hold the base pointers) for this call.  Returns the
+// cudaError_t of the launch (0 on success), cudaErrorInvalidValue for a
+// shape it does not take or a tensor map the encoder refuses.
+extern "C" int flash_fwd_wgmma(const void* q, const void* k, const void* v,
+                               const int* q_pos, const int* kv_pos, void* out,
+                               float* lse, int B, int T, int S, int H,
+                               int KVH, int D, int dtype, float scale_log2,
+                               int with_drop, unsigned int seed_lo,
+                               unsigned int seed_hi, unsigned int threshold,
+                               float inv_keep, void* stream) {
+  if (B <= 0 || T <= 0 || T % wg::BM != 0 || T / wg::BM > 65535 || S <= 0 ||
+      KVH <= 0 || H % KVH != 0 || D != wg::D || dtype != 1 ||
+      (with_drop && lse == nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  CUtensorMap tq, tk, tv;
+  if (!hopper::encode_bf16_4d(&tq, q, D, H, T, B, wg::BM) ||
+      !hopper::encode_bf16_4d(&tk, k, D, KVH, S, B, wg::BN) ||
+      !hopper::encode_bf16_4d(&tv, v, D, KVH, S, B, wg::BN)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Dropout drop{seed_lo, seed_hi, threshold, inv_keep};
+  if (with_drop) {
+    return launch_wgmma<true, true>(tq, tk, tv, q_pos, kv_pos, out, lse, B, T,
+                                    S, H, KVH, scale_log2, drop, st);
+  }
+  if (lse != nullptr) {
+    return launch_wgmma<true, false>(tq, tk, tv, q_pos, kv_pos, out, lse, B,
+                                     T, S, H, KVH, scale_log2, drop, st);
+  }
+  return launch_wgmma<false, false>(tq, tk, tv, q_pos, kv_pos, out, lse, B, T,
+                                    S, H, KVH, scale_log2, drop, st);
 }

@@ -37,13 +37,14 @@
 // head, live slot) and reads 2*d*bytes(pool) per (KV head, live slot): at
 // G = 4 about 4 FLOP per byte, far below the ~295 at which the tensor
 // cores would be the limit.  The least time is the live slots' K/V over
-// HBM bandwidth.  The design is written apart from the paged kernel
-// (paged_decode.cu, which runs one block per (row, KV head) and waits on
-// each of its tile loads in turn), as split-KV flash-decoding:
+// HBM bandwidth.  The design is split-KV flash-decoding, as the paged
+// kernel's (paged_decode.cu, which keeps the positional mask, T > 1 and
+// int8 pools that this slot does not take):
 //   * Split pass: one block per (split of `split` slots, KV head, row).
 //     At llama3-8b's serving shape (8 rows, 8 KV heads, 2048-slot rows)
-//     that is up to 8 x 64 = 512 blocks on 132 SMs, where the paged
-//     kernel has 64: more of the row's K/V is in flight at once.  A block
+//     that is up to 8 x 64 = 512 blocks on 132 SMs, against 64 for one
+//     block per (row, KV head): more of the row's K/V is in flight at
+//     once.  A block
 //     whose split starts at or past the row's length returns at once.
 //     Each block walks its slots in tiles (64 bf16 or 32 float32 slots of
 //     d values), copied into shared memory with cp.async, 16 bytes a copy;

@@ -25,6 +25,13 @@ row, slot) -- ``dropout_keep``, bit for bit the JAX ``_dropout_keep`` --
 so the forward and both backward kernels draw the same mask without
 storing it.
 
+The forward has three instances, picked per call by ``flash_instance``
+from the dtype, head_dim and the query and KV lengths: ``"wgmma"`` (bf16,
+d = 128, T a multiple of 128: the training shape, prefill and the serving
+inserts; TMA loads and wgmma on Hopper), ``"mma_sync"`` (every other bf16
+call: decode at T = 1, ragged T, d = 64) and ``"float32"`` (CUDA cores).
+``flash_attention.launches_by_instance`` counts each.
+
 ``flash_attention`` is differentiable in q, k and v through a
 ``torch.autograd.Function`` whose backward is ``flash_backward``.  On CUDA
 tensors the hand-written kernels run (``csrc/flash_fwd.cu``,
@@ -54,6 +61,27 @@ BWD_KERNEL = "flash_bwd"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
 _M32 = 0xFFFFFFFF
+# The Hopper instance's tile: 128 packed query rows of one query head, so
+# T must be a multiple of it; head_dim 128 (two 64-column TMA boxes).
+WGMMA_ROWS = 128
+WGMMA_HEAD_DIM = 128
+# The C entry point of each forward instance.
+_ENTRY = {"wgmma": "flash_fwd_wgmma", "mma_sync": "flash_fwd",
+          "float32": "flash_fwd"}
+
+
+def flash_instance(dtype: torch.dtype, head_dim: int, q_len: int,
+                   kv_len: int) -> str:
+    """The forward instance a CUDA call of these shapes runs: "wgmma" for
+    bf16 at head_dim 128 with T (``q_len``) a positive multiple of 128 and
+    a non-empty cache (S = ``kv_len``); "mma_sync" for every other bf16
+    call; "float32" for float32."""
+    if dtype == torch.float32:
+        return "float32"
+    if (dtype == torch.bfloat16 and head_dim == WGMMA_HEAD_DIM
+            and q_len > 0 and q_len % WGMMA_ROWS == 0 and kv_len > 0):
+        return "wgmma"
+    return "mma_sync"
 
 
 # ---------------------------------------------------------------------------
@@ -332,9 +360,10 @@ def _fn(lib_name: str, name: str, n_ptr: int):
 
 
 def _launch(q, k, v, q_pos, kv_pos, rate, seed, need_lse):
-    fn = _fn(KERNEL, "flash_fwd", 7)
     B, T, H, d = q.shape
     S, KVH = k.shape[1], k.shape[2]
+    instance = flash_instance(q.dtype, d, T, S)
+    fn = _fn(KERNEL, _ENTRY[instance], 7)
     out = torch.empty_like(q)
     lse = (torch.empty((B, KVH, (H // KVH) * T), dtype=torch.float32,
                        device=q.device) if need_lse or rate > 0.0 else None)
@@ -349,8 +378,11 @@ def _launch(q, k, v, q_pos, kv_pos, rate, seed, need_lse):
             *_drop_ctypes(rate, seed), stream,
         )
     if rc != 0:
-        raise RuntimeError(f"flash_fwd launch failed: cudaError_t {rc}")
+        raise RuntimeError(f"{_ENTRY[instance]} launch failed: cudaError_t "
+                           f"{rc}")
     flash_attention.launches += 1
+    by = flash_attention.launches_by_instance
+    by[instance] = by.get(instance, 0) + 1
     return out, lse
 
 
@@ -556,8 +588,11 @@ def flash_attention(
 
 
 # Launches of each CUDA kernel in this process; the plain versions never
-# count.  Callers reset a count by assigning 0.
+# count.  Callers reset a count by assigning 0 (and
+# ``launches_by_instance``, the forward's launches per ``flash_instance``,
+# by assigning {}).
 flash_attention.launches = 0
+flash_attention.launches_by_instance = {}
 flash_attention_quantized.launches = 0
 flash_bwd_dq.launches = 0
 flash_bwd_dkv.launches = 0

@@ -35,10 +35,14 @@ Contract (the JAX one):
 * a packed row that sees no live slot returns out 0 and lse
   ``MASK_VALUE``, so its merge weight ``exp(lse - m)`` underflows to 0.
 
-The kernel holds at most ``MAX_ROWS`` packed rows per launch;
-``split_tokens`` cuts a longer block of T tokens into consecutive launches
-of at most ``MAX_ROWS // G`` tokens each (rows are independent and the
-pool is only read, so the pieces join to the same out and lse).
+The kernel is split-KV flash-decoding: a split pass over fixed runs of
+``SPLIT_SLOTS`` slots of each row's table writes partial (out, max, sum)
+into float32 scratch that the wrapper allocates, and a combine pass joins
+a row's splits into out and lse; each wrapper launch runs both passes.
+It holds at most ``MAX_ROWS`` packed rows per launch; ``split_tokens``
+cuts a longer block of T tokens into consecutive launches of at most
+``MAX_ROWS // G`` tokens each (rows are independent and the pool is only
+read, so the pieces join to the same out and lse).
 """
 
 from __future__ import annotations
@@ -54,7 +58,10 @@ from . import _build
 KERNEL = "paged_decode"
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 MAX_GROUP = 8  # query heads per KV head the kernel holds
-MAX_ROWS = 32  # packed query rows (t_tokens x heads per KV head)
+MAX_ROWS = 64  # packed query rows (t_tokens x heads per KV head)
+# Slots per split of the split pass: csrc/paged_decode.cu SPLIT (the C
+# entry point rejects an n_split computed from another value).
+SPLIT_SLOTS = 256
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
 
@@ -176,20 +183,43 @@ def _check(q, k_pool, v_pool, pool_pos, table, q_pos, layer, t_tokens,
             raise ValueError(f"{name} must be 16-byte aligned")
 
 
+_FN = {}
+
+
+def _kernel_fn():
+    """The C entry point, its argument types set once per process."""
+    if "paged_decode" not in _FN:
+        fn = _build.load(KERNEL).paged_decode
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 11 + [
+            ctypes.c_float, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int),
+            ctypes.POINTER(ctypes.c_int),
+        ]
+        _FN["paged_decode"] = fn
+    return _FN["paged_decode"]
+
+
+def n_splits(table: torch.Tensor, block_size: int) -> int:
+    """Splits of the kernel's split pass per (row, KV head): the table's
+    MB * BLK slots in runs of ``SPLIT_SLOTS``."""
+    return -(-table.shape[1] * block_size // SPLIT_SLOTS)
+
+
 def _launch(q, k_pool, v_pool, pool_pos, table, q_pos, layer, t_tokens,
             k_scale, v_scale):
-    lib = _build.load(KERNEL)
-    fn = lib.paged_decode
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 + [
-        ctypes.c_float, ctypes.c_void_p,
-    ]
+    fn = _kernel_fn()
     int8 = k_scale is not None
     B, KVH, TG, d = q.shape
     NB, BLK = pool_pos.shape
+    ns = n_splits(table, BLK)
     out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     lse = torch.empty((B, KVH, TG), dtype=torch.float32, device=q.device)
+    # The split pass's partials: o [B, KVH, ns, TG, d], then m and l
+    # [B, KVH, ns, TG].
+    partials = torch.empty(B * KVH * ns * TG * (d + 2), dtype=torch.float32,
+                           device=q.device)
     scale_log2 = (1.0 / math.sqrt(d)) * math.log2(math.e)
+    kernels, instance = ctypes.c_int(0), ctypes.c_int(0)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(
@@ -197,17 +227,30 @@ def _launch(q, k_pool, v_pool, pool_pos, table, q_pos, layer, t_tokens,
             k_scale.data_ptr() if int8 else None,
             v_scale.data_ptr() if int8 else None,
             pool_pos.data_ptr(), table.data_ptr(), q_pos.data_ptr(),
-            out.data_ptr(), lse.data_ptr(), B, KVH, TG // t_tokens,
-            t_tokens, d, NB, BLK, table.shape[1], layer,
-            _DTYPE_CODE[q.dtype], scale_log2, stream,
+            out.data_ptr(), lse.data_ptr(), partials.data_ptr(), B, KVH,
+            TG // t_tokens, t_tokens, d, NB, BLK, table.shape[1], layer,
+            _DTYPE_CODE[q.dtype], ns, scale_log2, stream,
+            ctypes.byref(kernels), ctypes.byref(instance),
         )
+    paged_pool_attention.kernel_launches += kernels.value
     if rc != 0:
         raise RuntimeError(f"paged_decode launch failed: cudaError_t {rc}")
     paged_pool_attention.launches += 1
     paged_pool_attention.launches_int8 += int8
     by_t = paged_pool_attention.launches_by_t
     by_t[t_tokens] = by_t.get(t_tokens, 0) + 1
+    name = split_instance_name(instance.value)
+    by = paged_pool_attention.launches_by_instance
+    by[name] = by.get(name, 0) + 1
     return out, lse
+
+
+def split_instance_name(code: int) -> str:
+    """The split pass's instance from the C entry point's code: +16,
+    +32, +64 for the tensor-core kernel with 1, 2 or 4 m-tiles of 16
+    packed rows ("mma_sync_m16" ...), -16 or -64 for the CUDA-core
+    kernel holding that many rows ("cuda_cores_r16", "cuda_cores_r64")."""
+    return f"mma_sync_m{code}" if code > 0 else f"cuda_cores_r{-code}"
 
 
 def split_tokens(launch, q: torch.Tensor, q_pos: torch.Tensor,
@@ -274,12 +317,18 @@ def paged_pool_attention(
     return split_tokens(launch, q, q_pos, t_tokens)
 
 
-# Launches of the CUDA kernel in this process: in all, of them over int8
-# pools, and by t_tokens; the plain version never counts.  Callers reset
-# them by assigning 0, 0 and {}.
+# Launches of the CUDA kernel in this process: wrapper launches in all
+# (one per piece of ``split_tokens``), of them over int8 pools, by
+# t_tokens and by the split pass's instance (``split_instance_name``);
+# ``kernel_launches`` counts the kernels the C entry point reports it
+# launched (the split pass and the combine pass: 2 a wrapper launch).
+# The plain version never counts.  Callers reset them by assigning 0, 0,
+# {}, {} and 0.
 paged_pool_attention.launches = 0
 paged_pool_attention.launches_int8 = 0
 paged_pool_attention.launches_by_t = {}
+paged_pool_attention.launches_by_instance = {}
+paged_pool_attention.kernel_launches = 0
 
 
 def paged_decode_attention(

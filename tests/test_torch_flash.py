@@ -134,3 +134,43 @@ def test_wrapper_rejects_other_devices():
     with pytest.raises(ValueError):
         flash_attention(q, q, q, torch.zeros(1, 2, dtype=torch.int32),
                         torch.zeros(1, 2, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("dtype,d,T,S,want", [
+    (torch.bfloat16, 128, 2048, 2048, "wgmma"),   # training shape
+    (torch.bfloat16, 128, 512, 512, "wgmma"),     # generate's prefill
+    (torch.bfloat16, 128, 1024, 1024, "wgmma"),   # serving insert
+    (torch.bfloat16, 128, 256, 1024, "wgmma"),    # a prefill chunk window
+    (torch.bfloat16, 128, 128, 1, "wgmma"),
+    (torch.bfloat16, 128, 1, 1024, "mma_sync"),   # cached decode, T = 1
+    (torch.bfloat16, 128, 64, 64, "mma_sync"),    # T not a multiple of 128
+    (torch.bfloat16, 128, 200, 200, "mma_sync"),  # ragged T
+    (torch.bfloat16, 64, 512, 512, "mma_sync"),   # head_dim 64
+    (torch.bfloat16, 128, 0, 16, "mma_sync"),
+    (torch.bfloat16, 128, 128, 0, "mma_sync"),
+    (torch.float32, 128, 2048, 2048, "float32"),
+    (torch.float32, 64, 1, 16, "float32"),
+])
+def test_flash_instance_dispatch(dtype, d, T, S, want):
+    """The forward instance a CUDA call runs: the Hopper (TMA + wgmma) one
+    only for bf16 at head_dim 128 with T a positive multiple of its 128-row
+    tile, every other bf16 call on the mma.sync one, float32 on its own."""
+    assert fa_module.flash_instance(dtype, d, T, S) == want
+
+
+def test_cpu_calls_count_no_instance():
+    """The plain version runs on CPU tensors and counts no instance, even
+    at a shape the Hopper instance would take."""
+    rng = np.random.default_rng(3)
+    q = torch.from_numpy(rng.standard_normal((1, 128, 2, 128)).astype(
+        np.float32)).to(torch.bfloat16)
+    k = torch.from_numpy(rng.standard_normal((1, 128, 1, 128)).astype(
+        np.float32)).to(torch.bfloat16)
+    pos = torch.arange(128, dtype=torch.int32)[None]
+    assert fa_module.flash_instance(q.dtype, 128, 128, 128) == "wgmma"
+    before = (flash_attention.launches,
+              dict(flash_attention.launches_by_instance))
+    out = flash_attention(q, k, k, pos, pos)
+    assert out.shape == q.shape
+    assert (flash_attention.launches,
+            flash_attention.launches_by_instance) == before

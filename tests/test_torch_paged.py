@@ -7,8 +7,8 @@ Both run at T = 1 (a decode token) and T > 1 (the speculative verify
 block, queries packed r = t*G + g at consecutive positions), over float32
 pools and over int8 pools with their scale planes (the same tolerances:
 the scales fold in float32 in both).  ``split_tokens`` (the launch split
-that keeps T*G packed rows within the kernel's cap) is held against one
-plain call at G = 8, T = 5.
+that keeps T*G packed rows within the kernel's cap of 64) is held against
+one plain call at G = 8, T = 9.
 
 Tolerances: attention out/lse atol 1e-5 (summation order); logits of a
 paged forward step atol 2e-4 (PARITY.md row 2.16, as in
@@ -216,11 +216,11 @@ def test_pool_attention_int8_matches_jax(T):
 
 @pytest.mark.parametrize("int8", [False, True])
 def test_split_tokens_equals_one_plain_call(int8):
-    """C1: at G = 8 a T = 5 verify block is 40 packed rows, past the
-    kernel's 32; ``split_tokens`` runs it as 4 + 1 tokens.  With the
+    """C1: at G = 8 a T = 9 verify block is 72 packed rows, past the
+    kernel's 64; ``split_tokens`` runs it as 8 + 1 tokens.  With the
     plain version in the kernel's place the pieces join to the unsplit
     result, inactive rows included."""
-    B, KVH, G, T, d, BLK, MB, L, layer = 4, 2, 8, 5, 16, 8, 6, 2, 1
+    B, KVH, G, T, d, BLK, MB, L, layer = 4, 2, 8, 9, 16, 8, 6, 2, 1
     fills, inactive = (40, 17, 0, 23), (3,)
     k, v, pos, table, _ = pool_state(19, B, KVH, d, BLK, MB, L, fills,
                                      inactive)
@@ -240,13 +240,81 @@ def test_split_tokens_equals_one_plain_call(int8):
         return pa.paged_pool_attention_reference(qq, *pool, qp, layer, t,
                                                  **scales)
 
+    assert T * G > pa.MAX_ROWS
     got = pa.split_tokens(launch, q, q_pos, T)
     want = pa.paged_pool_attention_reference(q, *pool, q_pos, layer, T,
                                              **scales)
-    assert [t for t, _ in pieces] == [4, 1]
-    assert (pieces[1][1] == torch.where(q_pos >= 0, q_pos + 4, -1)).all()
+    assert [t for t, _ in pieces] == [8, 1]
+    assert (pieces[1][1] == torch.where(q_pos >= 0, q_pos + 8, -1)).all()
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("G,T,pieces", [
+    (8, 5, [5]),        # the 70b head layout's n_draft 4 verify: one launch
+    (8, 8, [8]),        # 64 packed rows: exactly the cap
+    (8, 9, [8, 1]),
+    (4, 16, [16]),
+    (4, 17, [16, 1]),
+    (1, 64, [64]),
+    (1, 130, [64, 64, 2]),
+])
+def test_split_tokens_cuts_at_the_64_row_cap(G, T, pieces):
+    """``split_tokens`` launches once while T*G fits MAX_ROWS = 64 packed
+    rows and cuts a longer block into pieces of MAX_ROWS // G tokens."""
+    assert pa.MAX_ROWS == 64
+    q = torch.zeros((1, 1, T * G, 4))
+    q_pos = torch.tensor([3], dtype=torch.int32)
+    seen = []
+
+    def launch(qq, qp, t):
+        seen.append((t, int(qp[0])))
+        return (torch.zeros(qq.shape), torch.zeros(qq.shape[:3]))
+
+    out, lse = pa.split_tokens(launch, q, q_pos, T)
+    assert [t for t, _ in seen] == pieces
+    assert [p for _, p in seen] == [3 + sum(pieces[:i])
+                                    for i in range(len(pieces))]
+    assert out.shape == q.shape and lse.shape == q.shape[:3]
+
+
+@pytest.mark.parametrize("MB,BLK,want", [
+    (16, 128, 8), (8, 128, 4), (5, 62, 2), (6, 8, 1), (2, 129, 2),
+    (1, 256, 1), (1, 257, 2),
+])
+def test_split_pass_covers_the_table_in_runs_of_256_slots(MB, BLK, want):
+    """The kernel's split pass cuts each row's MB*BLK table slots into
+    runs of SPLIT_SLOTS = 256 in table order, whatever the block size;
+    the wrapper sizes its scratch by that count."""
+    assert pa.SPLIT_SLOTS == 256
+    table = torch.zeros((3, MB), dtype=torch.int32)
+    assert pa.n_splits(table, BLK) == want
+
+
+@pytest.mark.parametrize("code,name", [
+    (16, "mma_sync_m16"), (32, "mma_sync_m32"), (64, "mma_sync_m64"),
+    (-16, "cuda_cores_r16"), (-64, "cuda_cores_r64"),
+])
+def test_split_instance_name(code, name):
+    """The C entry point's instance code names the split pass's kernel:
+    + for the tensor-core kernel, - for the CUDA-core one, with the
+    packed rows it holds."""
+    assert pa.split_instance_name(code) == name
+
+
+def test_cpu_calls_count_no_paged_launch():
+    """The plain version, which CPU tensors take, adds to none of the
+    kernel's counters."""
+    k, v, pos, table, q_pos = pool_state(5, 2, 1, 64, 8, 4, 1, (9, 20),
+                                         ())
+    q = torch.zeros((2, 1, 4, 64))
+    counters = ("launches", "launches_int8", "launches_by_t",
+                "launches_by_instance", "kernel_launches")
+    before = [getattr(pa.paged_pool_attention, c) for c in counters]
+    before = [dict(c) if isinstance(c, dict) else c for c in before]
+    pa.paged_pool_attention(q, *(torch.as_tensor(a) for a in (
+        k, v, pos, table, q_pos)))
+    assert [getattr(pa.paged_pool_attention, c) for c in counters] == before
 
 
 @pytest.mark.parametrize("T", [2, 5])

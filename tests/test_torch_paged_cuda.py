@@ -117,24 +117,84 @@ def test_paged_kernel_multi_token_matches_plain_on_card(name, dtype, atol):
 def test_paged_wrapper_rejects_rows_past_the_cap_on_card():
     """More packed rows than the kernel's MAX_ROWS are no longer refused:
     the wrapper splits the T tokens into launches of at most MAX_ROWS // G
-    (here 4 + 1), which together give the plain version's result.  A T
-    that does not divide the packed rows still raises."""
+    (here 8 + 1 at G = 8, T = 9), which together give the plain version's
+    result.  A T that does not divide the packed rows still raises."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     q, k, v, pos, table, q_pos = _card_inputs(
-        torch.bfloat16, 3, 2, 8, 64, 24, 5, 2, (100, 30, 5), (1,), T=5)
-    assert q.shape[2] == 40 > pa.MAX_ROWS
+        torch.bfloat16, 3, 2, 8, 64, 24, 5, 2, (100, 30, 5), (1,), T=9)
+    assert q.shape[2] == 72 > pa.MAX_ROWS
     pa.paged_pool_attention.launches_by_t = {}
     out, lse = pa.paged_pool_attention(q, k, v, pos, table, q_pos,
-                                       t_tokens=5)
+                                       t_tokens=9)
     torch.cuda.synchronize()
-    assert pa.paged_pool_attention.launches_by_t == {4: 1, 1: 1}
+    assert pa.paged_pool_attention.launches_by_t == {8: 1, 1: 1}
     ro, rl = pa.paged_pool_attention_reference(q, k, v, pos, table, q_pos,
-                                               t_tokens=5)
+                                               t_tokens=9)
     torch.testing.assert_close(out, ro, atol=1e-2, rtol=0)
     torch.testing.assert_close(lse, rl, atol=1e-4, rtol=1e-5)
     with pytest.raises(ValueError, match="t_tokens"):
-        pa.paged_pool_attention(q, k, v, pos, table, q_pos, t_tokens=3)
+        pa.paged_pool_attention(q, k, v, pos, table, q_pos, t_tokens=5)
+
+
+# The split-KV kernel's cases: (B, KVH, d, BLK, MB, L, fills, inactive) at
+# BLK = 64, MB = 20 (1280 slots a row, 5 splits of 256): row 0 spans four
+# splits, row 1 one (with an all -1 block inside it), row 2 three with a
+# sentinel entry inside, row 3 is active over an empty pool (its token 0
+# sees nothing: lse MASK_VALUE), row 4 is inactive and row 5's live bound
+# ends inside its second split.
+SPLIT_POOL = (6, 2, 128, 64, 20, 2, (1000, 200, 513, 0, 700, 300), (4,))
+
+
+def _split_instance(dtype, rows):
+    """The split pass's instance the C entry point picks for ``rows``
+    packed rows: bf16 q on 1, 2 or 4 tensor-core m-tiles of 16 rows,
+    float32 q on the CUDA-core kernel holding 16 or 64 rows."""
+    if dtype == torch.bfloat16:
+        return f"mma_sync_m{16 if rows <= 16 else 32 if rows <= 32 else 64}"
+    return f"cuda_cores_r{16 if rows <= 16 else 64}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [(torch.bfloat16, 1e-2),
+                                        (torch.float32, 1e-5)])
+@pytest.mark.parametrize("G,T", [(4, 1), (8, 1), (4, 4), (8, 4), (4, 5),
+                                 (8, 5), (4, 8), (8, 8)])
+def test_split_kv_kernel_matches_plain_on_card(G, T, dtype, atol):
+    """The split pass and the combine pass against the plain version at
+    T = 1, 4, 5 and 8 tokens and G = 4 and 8 (up to 64 packed rows, one
+    launch each): one split, many splits, a bound inside a split, an
+    inactive row, a sentinel entry and an empty pool; two calls on the
+    same inputs are bit-identical, and each launches both passes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    B, KVH, d, BLK, MB, L, fills, inactive = SPLIT_POOL
+    args = _card_inputs(dtype, B, KVH, G, d, BLK, MB, L, fills, inactive, T)
+    assert pa.n_splits(args[4], BLK) == 5
+    before = (pa.paged_pool_attention.launches,
+              pa.paged_pool_attention.kernel_launches,
+              dict(pa.paged_pool_attention.launches_by_t),
+              dict(pa.paged_pool_attention.launches_by_instance))
+    out, lse = pa.paged_pool_attention(*args, layer=L - 1, t_tokens=T)
+    again = pa.paged_pool_attention(*args, layer=L - 1, t_tokens=T)
+    torch.cuda.synchronize()
+    assert pa.paged_pool_attention.launches == before[0] + 2
+    # Two calls, each reported by the C entry point as a split pass and
+    # a combine pass, both on the split instance these rows take.
+    assert pa.paged_pool_attention.kernel_launches == before[1] + 4
+    want = _split_instance(dtype, G * T)
+    assert pa.paged_pool_attention.launches_by_instance.get(want) == (
+        before[-1].get(want, 0) + 2)
+    assert pa.paged_pool_attention.launches_by_t[T] == (
+        before[2].get(T, 0) + 2)
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    ro, rl = pa.paged_pool_attention_reference(*args, layer=L - 1,
+                                               t_tokens=T)
+    torch.testing.assert_close(out, ro, atol=atol, rtol=0)
+    torch.testing.assert_close(lse, rl, atol=1e-4, rtol=1e-5)
+    for b, f in enumerate(fills):
+        if f == 0 or b in inactive:  # attends nothing at any token
+            assert (lse[b] == pa.MASK_VALUE).all() and (out[b] == 0).all()
 
 
 @pytest.mark.cuda

@@ -13,8 +13,11 @@ jax nor the JAX package:
   (paged: float32 output, P rounded to bf16); float32 atol 1e-4 (flash)
   and 1e-5 (paged), summation order; lse atol 1e-4.
 * The wrappers raise on what the kernels do not take.
-* C1: a G = 8 model at n_draft = 4 (40 packed rows a verify, past the
-  kernel's 32) runs the kernel in launches of 4 + 1 tokens and emits the
+* The split-KV kernel over an int8 pool at T = 1, 4, 5 and 8, G = 4
+  and 8: one launch of up to 64 packed rows, bit-identical over two
+  calls, both passes counted.
+* C1: a G = 8 model at n_draft = 8 (72 packed rows a verify, past the
+  kernel's 64) runs the kernel in launches of 8 + 1 tokens and emits the
   gathered view's tokens (float32, no TF32).
 """
 
@@ -170,6 +173,62 @@ def test_paged_int8_kernel_matches_plain(name, dtype, atol):
             assert (lse[b] == pa.MASK_VALUE).all() and (out[b] == 0).all()
 
 
+# The split-KV kernel's pool (see tests/test_torch_paged_cuda.py
+# SPLIT_POOL): BLK = 64, MB = 20, 5 splits of 256 slots a row; one row
+# over four splits, one in one, a sentinel entry, an empty pool, an
+# inactive row and a bound inside a split.
+SPLIT_POOL = (6, 2, 128, 64, 20, 2, (1000, 200, 513, 0, 700, 300), (4,))
+
+
+def _split_instance(dtype, rows):
+    """The split pass's instance the C entry point picks for ``rows``
+    packed rows: bf16 q on 1, 2 or 4 tensor-core m-tiles of 16 rows,
+    float32 q on the CUDA-core kernel holding 16 or 64 rows."""
+    if dtype == torch.bfloat16:
+        return f"mma_sync_m{16 if rows <= 16 else 32 if rows <= 32 else 64}"
+    return f"cuda_cores_r{16 if rows <= 16 else 64}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [(torch.bfloat16, 1e-2),
+                                        (torch.float32, 1e-5)])
+@pytest.mark.parametrize("G,T", [(4, 1), (8, 1), (4, 4), (8, 4), (4, 5),
+                                 (8, 5), (4, 8), (8, 8)])
+def test_split_kv_int8_kernel_matches_plain(G, T, dtype, atol):
+    """The int8 split pass (each tile widened once into bf16 for the
+    tensor cores at bf16 q; the CUDA-core loop at float32 q) and the
+    combine pass against the plain version, at T = 1, 4, 5 and 8 and
+    G = 4 and 8 (one launch each, up to 64 packed rows); bit-identical
+    over two calls; both passes launched."""
+    _needs_card()
+    B, KVH, d, BLK, MB, L, fills, inactive = SPLIT_POOL
+    args, scales = _paged_inputs(dtype, B, KVH, G, d, BLK, MB, L, fills,
+                                 inactive, T)
+    before = (pa.paged_pool_attention.launches_int8,
+              pa.paged_pool_attention.kernel_launches,
+              dict(pa.paged_pool_attention.launches_by_instance))
+    out, lse = pa.paged_pool_attention(*args, layer=L - 1, t_tokens=T,
+                                       **scales)
+    again = pa.paged_pool_attention(*args, layer=L - 1, t_tokens=T,
+                                    **scales)
+    torch.cuda.synchronize()
+    assert pa.paged_pool_attention.launches_int8 == before[0] + 2
+    # Two calls, each reported by the C entry point as a split pass and
+    # a combine pass, both on the split instance these rows take.
+    assert pa.paged_pool_attention.kernel_launches == before[1] + 4
+    want = _split_instance(dtype, G * T)
+    assert pa.paged_pool_attention.launches_by_instance.get(want) == (
+        before[-1].get(want, 0) + 2)
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    ro, rl = pa.paged_pool_attention_reference(*args, layer=L - 1,
+                                               t_tokens=T, **scales)
+    torch.testing.assert_close(out, ro, atol=atol, rtol=0)
+    torch.testing.assert_close(lse, rl, atol=1e-4, rtol=1e-5)
+    for b, f in enumerate(fills):
+        if f == 0 or b in inactive:
+            assert (lse[b] == pa.MASK_VALUE).all() and (out[b] == 0).all()
+
+
 @pytest.mark.cuda
 def test_paged_int8_wrapper_rejects_bad_inputs():
     _needs_card()
@@ -191,9 +250,10 @@ def test_paged_int8_wrapper_rejects_bad_inputs():
 
 @pytest.mark.cuda
 def test_tiny_g8_batcher_splits_the_verify_on_card():
-    """C1: G = 8 at n_draft = 4 is 40 packed rows a verify; the kernel
-    runs it as launches of 4 + 1 tokens, (n_draft + 2) * n_layers * 2 per
-    round, and the tokens are the gathered view's."""
+    """C1: G = 8 at n_draft = 8 is 72 packed rows a verify, past the
+    kernel's 64; the kernel runs it as launches of 8 + 1 tokens,
+    (n_draft + 2) * n_layers * 2 per round, and the tokens are the
+    gathered view's."""
     _needs_card()
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = ptl.get_config("tiny", vocab_size=128, dim=512, n_layers=2,
@@ -203,7 +263,7 @@ def test_tiny_g8_batcher_splits_the_verify_on_card():
     rng = np.random.RandomState(0)
     prompts = [rng.randint(1, 128, size=rng.randint(3, 40)).tolist()
                for _ in range(4)]
-    n_draft = 4
+    n_draft = 8
     outs = {}
     for path in ("paged", "gathered"):
         cb = ptl.ContinuousBatcher(params, cfg, n_slots=2, max_len=128,
@@ -220,7 +280,7 @@ def test_tiny_g8_batcher_splits_the_verify_on_card():
         rounds = (n_draft + 2) * cfg.n_layers * cb.steps_total
         if path == "paged":
             assert cb.use_pallas_kernel
-            assert by_t == {4: rounds, 1: rounds}
+            assert by_t == {8: rounds, 1: rounds}
         else:
             assert by_t == {}
     assert outs["paged"] == outs["gathered"]

@@ -7,6 +7,11 @@ neither jax nor the JAX package, so it runs on a GPU host without them:
 
     python -m pytest tests/test_torch_train_cuda.py -m cuda --noconftest -q
 
+The flash forward's Hopper instance (TMA + wgmma: bf16, d = 128, T a
+multiple of 128) is held at T = 128, 512 and 2048 in the left-padded,
+cache and chunk-window layouts, with lse and dropout; its dropout keep
+bits must equal the plain version's exactly.
+
 Bounds hold each row against its own scale: out and dq per packed query
 row, dk and dv per KV slot, the row's max abs error over the row's max
 |plain| (under the causal mask values shrink along the sequence, so one
@@ -102,6 +107,97 @@ def test_forward_with_lse_matches_plain(name, dtype, rate):
     out_bound, _, lse_bound = BOUND[dtype]
     assert _rel(out, want) < out_bound
     assert (lse - want_lse).abs().max().item() < lse_bound
+
+
+# The Hopper (TMA + wgmma) forward instance: bf16, d = 128, T a multiple
+# of 128.  (B, T, S, H, KVH, layout): left padding (S = T, rows padded by
+# 0 and 37), a cache whose queries sit on its last T written slots (rows
+# filled to S and S - 100, a -1 tail), and a chunk window at base 300
+# with a -1 tail; S = 1000 and 1300 end inside a 128-slot tile.
+WGMMA_CASES = {
+    "t128_left_pad": (2, 128, 128, 8, 2, "left_pad"),
+    "t512_cache": (2, 512, 1000, 8, 2, "cache"),
+    "t512_chunk": (1, 512, 1300, 4, 1, "chunk"),
+    "t2048_left_pad": (2, 2048, 2048, 4, 1, "left_pad"),
+}
+
+
+def _wgmma_inputs(name, seed=2):
+    B, T, S, H, KVH, layout = WGMMA_CASES[name]
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.standard_normal(shape).astype(np.float32) for shape in
+               ((B, T, H, 128), (B, S, KVH, 128), (B, S, KVH, 128)))
+    slots = np.tile(np.arange(S, dtype=np.int32), (B, 1))
+    if layout == "left_pad":
+        pads = (np.arange(B) * 37)[:, None]
+        kv_pos = np.where(slots >= pads, slots - pads, -1)
+        q_pos = np.maximum(kv_pos[:, :T], 0)
+    elif layout == "cache":
+        fill = (S - 100 * np.arange(B))[:, None]
+        kv_pos = np.where(slots < fill, slots, -1)
+        q_pos = fill - T + np.arange(T)[None]
+    else:
+        kv_pos = np.where(slots < 300 + T, slots, -1)
+        q_pos = np.tile(np.arange(300, 300 + T), (B, 1))
+    dev = [torch.from_numpy(a).cuda().to(torch.bfloat16) for a in (q, k, v)]
+    return dev + [torch.from_numpy(np.ascontiguousarray(a, np.int32)).cuda()
+                  for a in (q_pos, kv_pos)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("name", sorted(WGMMA_CASES))
+def test_wgmma_forward_matches_plain(name, rate):
+    """The Hopper instance (each call counted under "wgmma") against the
+    plain version: out per packed query row < 1e-2 of its own max
+    |plain|, lse < 1e-3 abs, with and without dropout; the inference
+    launch (no lse) gives the same out."""
+    _skip_without_card()
+    q, k, v, q_pos, kv_pos = _wgmma_inputs(name)
+    assert fa.flash_instance(q.dtype, 128, q.shape[1], k.shape[1]) == "wgmma"
+    seed = SEED if rate else None
+    before = fa.flash_attention.launches_by_instance.get("wgmma", 0)
+    out, lse = fa._forward(q, k, v, q_pos, kv_pos, rate, seed, True)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches_by_instance["wgmma"] == before + 1
+    want, want_lse = fa.flash_attention_reference(
+        q, k, v, q_pos, kv_pos, rate, seed, return_lse=True)
+    assert torch.isfinite(out.float()).all()
+    assert _rel(out, want) < 1e-2
+    assert torch.isfinite(want_lse).all()
+    assert (lse - want_lse).abs().max().item() < 1e-3
+    if rate == 0.0:
+        plain_out = fa.flash_attention(q, k, v, q_pos, kv_pos)
+        assert _rel(plain_out, want) < 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [128, 512, 2048])
+def test_wgmma_dropout_keep_bits_match_plain(T):
+    """The Hopper instance drops exactly the (packed row, slot) pairs the
+    plain version drops.  With V one-hot over one 128-slot window (v[s] =
+    e_(s - 128 j) for the window's slots, 0 elsewhere), column c of a
+    query row's output is non-zero iff slot 128 j + c is attended and
+    kept; every window is checked, causal positions."""
+    _skip_without_card()
+    B, H, KVH, d, rate = 1, 2, 1, 128, 0.1
+    rng = np.random.default_rng(5)
+    q = torch.from_numpy(rng.standard_normal((B, T, H, d)).astype(
+        np.float32)).cuda().to(torch.bfloat16)
+    k = torch.from_numpy(rng.standard_normal((B, T, KVH, d)).astype(
+        np.float32)).cuda().to(torch.bfloat16)
+    pos = torch.arange(T, dtype=torch.int32, device="cuda")[None]
+    keep = fa._keep_plane(SEED, B, KVH, H // KVH, T, T, rate, "cuda")[0, 0]
+    allowed = pos[0][None, :] <= pos[0][:, None]  # [T (query), S]
+    eye = torch.eye(128, dtype=torch.bfloat16, device="cuda")
+    for j in range(T // 128):
+        v = torch.zeros((B, T, KVH, d), dtype=torch.bfloat16, device="cuda")
+        v[0, 128 * j:128 * (j + 1), 0] = eye
+        out, _ = fa._forward(q, k, v, pos, pos, rate, SEED, True)
+        got = (out[0].float() != 0).permute(1, 0, 2)  # [H = G, T, 128]
+        window = slice(128 * j, 128 * (j + 1))
+        want = keep[:, :, window] & allowed[None, :, window]
+        assert torch.equal(got, want), j
 
 
 @pytest.mark.cuda
