@@ -16,8 +16,10 @@ raises and exits non-zero:
    T=512 H=32 KVH=8 d=128 with left padding; decode T=1 over a 1024-slot
    cache with unwritten slots; a prefill chunk window at a non-zero base
    with a -1 tail; the serving phase's first insert, 8 right-padded rows
-   at P=1024 with two padding rows), each packed query row held to a max
-   abs error below ``REL_BOUND`` times that row's largest plain output
+   at P=1024 with two padding rows; and in float32 the cached_decode
+   phase's step, 2 rows at T=1 over a 1024-slot cache with 8 written),
+   each packed query row held to a max abs error below ``REL_BOUND``
+   (float32: 1e-4) times that row's largest plain output
    (``row_rel_err``), with its time, the
    plain version's, one PyTorch library call's
    (``scaled_dot_product_attention`` with the same boolean mask, timed
@@ -191,23 +193,26 @@ The kernel-selection layer (``ops/kernels.py``) adds:
 * in ``spec_serving``: a batcher whose draft selects stock-paged runs one
   round with 160 paged launches at T = 4 and no stock launch.
 
-The redesigned kernels (split-KV paged decode, the flash forward's
-Hopper instance) add:
+The redesigned kernels (split-KV paged decode, the Hopper instances of
+the flash forward and of the backward pair) add:
 
-* in their ``kernel_check`` rows (flash_fwd, paged_decode,
-  paged_decode_int8): the ``instance`` that ran, read from the wrapper's
-  ``launches_by_instance`` (for flash, checked against the one
-  ``flash_instance`` picks; for paged, the split-pass instance that the
-  C entry point reports), torch.profiler's ``device_ms`` beside the
+* in their ``kernel_check`` rows (flash_fwd, flash_bwd_dq, flash_bwd_dkv,
+  paged_decode, paged_decode_int8): the ``instance`` that ran, read from
+  the wrapper's ``launches_by_instance`` (for flash, checked against the
+  one ``flash_instance`` or ``flash_bwd_instance`` picks; for the
+  backward pair and paged, the instance that the C entry point reports),
+  torch.profiler's ``device_ms`` beside the
   cold-L2 events, and ``earlier_ms``, the replaced design's figure at
   the same shape (``EARLIER_MS``, from PERF.md's kernel table, printed
   only in these rows); the paged serving row checks that a launch runs
   both passes, as the C entry point reports them and as the profiler
   counts the split and combine kernels over its timed launches;
-* in ``generate``, ``serving`` and ``train``: the flash forward's
+* in ``generate``, ``serving`` and ``train``: the flash kernels'
   launches by instance (``instances``): all 32 of generate's prefill,
-  16 a train step and every serving insert on the Hopper ("wgmma")
-  instance; in the serving phases, 2 paged kernels
+  16 forwards and 8 + 8 backward launches a train step and every
+  serving insert on the Hopper ("wgmma") instances, and the float32
+  instances in ``train_grad_check``'s dropout step; in the serving
+  phases, 2 paged kernels
   (``paged_pool_attention.kernel_launches``) for every paged wrapper
   launch.
 
@@ -259,7 +264,11 @@ INVARIANT_REQUESTS = (1, 3, 4, 7)  # 4 of them, short, for the invariant
 # The first admission of the serving phase: requests 0-5 (kb = 8 rows,
 # the last two padding) prefill together at P = 1024.
 INSERT_ROWS = SERVE_PROMPT_TOKENS[:6] + (0, 0)
-FLASH_SHAPES = ("prefill", "decode", "chunk_window", "insert")
+FLASH_SHAPES = ("prefill", "decode", "chunk_window", "insert",
+                "cached_decode")
+# The cached_decode phase's float32 flash step: 2 rows, T = 1 over a
+# 1024-slot cache, the 8th token (8 slots written).
+CACHED_DECODE_FILL = 8
 
 # The training kernels: shape, dropout, bounds (TRAIN_ERR_IS).
 TRAIN_SHAPE = dict(B=4, T=2048, H=32, KVH=8, d=128)
@@ -298,13 +307,17 @@ PAGED_DESIGN = ("split-KV: a split pass over 256-slot runs of each row's "
                 "table, then a combine pass")
 PAGED_KERNELS = ("paged_decode_split", "paged_decode_combine")
 # The cold-L2 ms of the designs that the split-KV paged kernel and the
-# flash forward's Hopper instance replaced, at the same kernel_check
-# shapes (PERF.md's kernel table: chip_smoke.py kernel_check on an NVIDIA
-# H100 80GB HBM3, 700.00 W), printed beside the new figures as
-# earlier_ms.
+# Hopper instances of the flash forward and backward replaced, at the same
+# kernel_check shapes (PERF.md's kernel table: chip_smoke.py kernel_check
+# on an NVIDIA H100 80GB HBM3, 700.00 W), printed beside the new figures
+# as earlier_ms.
 EARLIER_MS = {
     ("flash_fwd", "prefill"): 0.0879, ("flash_fwd", "insert"): 0.3023,
     ("flash_fwd", "train"): 1.445, ("flash_fwd", "train_dropout"): 1.283,
+    ("flash_bwd_dq", "train"): 1.311,
+    ("flash_bwd_dq", "train_dropout"): 1.493,
+    ("flash_bwd_dkv", "train"): 3.182,
+    ("flash_bwd_dkv", "train_dropout"): 3.330,
     ("paged_decode", "serving"): 0.1482,
     ("paged_decode", "spec_verify_bfloat16"): 0.1744,
     ("paged_decode", "spec_verify_float32"): 0.2304,
@@ -354,7 +367,8 @@ def cold_copies(args):
 
 
 def flash_inputs(torch, name, gen):
-    """bf16 inputs of the flash kernel at one main-path shape."""
+    """Inputs of the flash kernel at one main-path shape: bf16, float32 at
+    the cached_decode phase's float32 step."""
     B, H, KVH, d = 4, 32, 8, 128
     dev = "cuda"
     if name == "insert":
@@ -384,16 +398,23 @@ def flash_inputs(torch, name, gen):
         slots = torch.arange(S, device=dev)[None, :].expand(B, S)
         kv_pos = torch.where(slots < base + T, slots, -1)
         q_pos = (base + torch.arange(T, device=dev))[None, :].expand(B, T)
+    elif name == "cached_decode":
+        B, T, S = 2, 1, 1024
+        slots = torch.arange(S, device=dev)[None, :].expand(B, S)
+        kv_pos = torch.where(slots < CACHED_DECODE_FILL, slots, -1)
+        q_pos = torch.full((B, T), CACHED_DECODE_FILL - 1, device=dev)
     else:
         raise KeyError(name)
-    q = torch.randn(B, T, H, d, device=dev, generator=gen).to(torch.bfloat16)
-    k = torch.randn(B, S, KVH, d, device=dev, generator=gen).to(torch.bfloat16)
-    v = torch.randn(B, S, KVH, d, device=dev, generator=gen).to(torch.bfloat16)
+    dtype = torch.float32 if name == "cached_decode" else torch.bfloat16
+    q = torch.randn(B, T, H, d, device=dev, generator=gen).to(dtype)
+    k = torch.randn(B, S, KVH, d, device=dev, generator=gen).to(dtype)
+    v = torch.randn(B, S, KVH, d, device=dev, generator=gen).to(dtype)
     return (q, k, v, q_pos.to(torch.int32).contiguous(),
             kv_pos.to(torch.int32).contiguous())
 
 
-def flash_bound(q, k, v, q_pos, kv_pos, scale_planes=0):
+def flash_bound(q, k, v, q_pos, kv_pos, scale_planes=0,
+                peak=PEAK_BF16_FLOPS):
     """Least time (ms) the card could take: the bytes this data needs moved
     over HBM bandwidth -- q, the positions and the output once, and only
     the K/V rows some query of the row may attend (0 <= kv_pos <= the
@@ -401,7 +422,7 @@ def flash_bound(q, k, v, q_pos, kv_pos, scale_planes=0):
     int8 k counts 1 byte an element, plus 4 bytes per slot and KV head for
     each of its ``scale_planes``) -- vs the tensor-core FLOPs that this
     data's live (query, slot) pairs need (QK and PV, 2*d each, per head)
-    over the bf16 peak."""
+    over ``peak`` (the bf16 tensor-core rate unless given)."""
     needed = ((kv_pos >= 0)
               & (kv_pos <= q_pos.max(dim=1, keepdim=True).values)).sum().item()
     kv_row = k.shape[2] * k.shape[3] * k.element_size()
@@ -412,7 +433,7 @@ def flash_bound(q, k, v, q_pos, kv_pos, scale_planes=0):
     live = ((kp >= 0) & (kp <= q_pos[:, :, None])).sum().item()
     flops = 4.0 * q.shape[-1] * q.shape[2] * live
     t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -463,15 +484,19 @@ def check_flash(torch, fa, gen):
             lambda a=a: fa.flash_attention(*a) for a in copies],
             ("flash_fwd",))
         del copies
-        bound_ms, bound_by = flash_bound(*args)
+        f32 = args[0].dtype == torch.float32
+        # float32 runs on the CUDA cores.
+        bound_ms, bound_by = flash_bound(
+            *args, peak=PEAK_F32_FLOPS if f32 else PEAK_BF16_FLOPS)
+        rel_bound = F32_KERNEL_BOUND if f32 else REL_BOUND
         want = fa.flash_instance(args[0].dtype, args[0].shape[3],
                                  args[0].shape[1], args[1].shape[1])
         row = dict(
             phase="kernel_check", kernel="flash_fwd", shape=name,
             B=args[0].shape[0], T=args[0].shape[1], S=args[1].shape[1],
             H=args[0].shape[2], KVH=args[1].shape[2], d=args[0].shape[3],
-            dtype="bfloat16", instance=instance, max_abs_err=err,
-            worst_row_rel=rel, rel_bound=REL_BOUND, ms=ms,
+            dtype=str(args[0].dtype).split(".")[-1], instance=instance,
+            max_abs_err=err, worst_row_rel=rel, rel_bound=rel_bound, ms=ms,
             device_ms=device_ms, warm_ms=warm_ms, plain_ms=plain_ms,
             library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
             roofline_share=bound_ms / ms,
@@ -479,10 +504,10 @@ def check_flash(torch, fa, gen):
             earlier_is=EARLIER_IS,
         )
         emit(row)
-        if not (rel < REL_BOUND and instance == want):
+        if not (rel < rel_bound and instance == want):
             raise AssertionError(
                 f"flash {name}: worst packed query row's max abs err is "
-                f"{rel} of its max |plain|, bound {REL_BOUND}; instance "
+                f"{rel} of its max |plain|, bound {rel_bound}; instance "
                 f"{instance}, expected {want}")
         results[name] = row
     return results
@@ -1258,14 +1283,20 @@ def check_train_kernels(torch, fa, gen):
     args = train_kernel_inputs(torch, gen, torch.bfloat16, **TRAIN_SHAPE)
     q, k, v, g, q_pos, kv_pos = args
     bounds = train_kernel_bounds(torch, q, k, q_pos, kv_pos)
+    wrappers = {"flash_fwd": fa.flash_attention,
+                "flash_bwd_dq": fa.flash_bwd_dq,
+                "flash_bwd_dkv": fa.flash_bwd_dkv}
     for rate in (0.0, TRAIN_DROPOUT):
         seed = TRAIN_SEED_WORDS if rate else None
-        before = dict(fa.flash_attention.launches_by_instance)
+        before = {name: dict(w.launches_by_instance)
+                  for name, w in wrappers.items()}
         errs, finite, out, lse = train_kernel_errors(torch, fa, args, rate,
                                                      seed)
         torch.cuda.synchronize()
-        instance = ran_instance(fa.flash_attention.launches_by_instance,
-                                before)
+        # The instance each wrapper counted in that one call (observed:
+        # the backward kernels' C entry points report what they ran).
+        instance = {name: ran_instance(w.launches_by_instance, before[name])
+                    for name, w in wrappers.items()}
         delta = fa.flash_delta(out, g, k.shape[2])
         copies = cold_copies((q, k, v, g, q_pos, kv_pos, out, lse, delta))
         n = len(copies)
@@ -1283,9 +1314,20 @@ def check_train_kernels(torch, fa, gen):
                                              a[7], a[8], a[3], rate, seed)
                 for a in copies], iters=4 * n),
         }
-        fwd_device_ms = kernel_device_ms(torch, [
-            lambda a=a: fa._forward(a[0], a[1], a[2], a[4], a[5], rate, seed,
-                                    True) for a in copies], ("flash_fwd",))
+        device_ms = {
+            "flash_fwd": kernel_device_ms(torch, [
+                lambda a=a: fa._forward(a[0], a[1], a[2], a[4], a[5], rate,
+                                        seed, True) for a in copies],
+                ("flash_fwd",)),
+            "flash_bwd_dq": kernel_device_ms(torch, [
+                lambda a=a: fa.flash_bwd_dq(a[0], a[1], a[2], a[4], a[5],
+                                            a[7], a[8], a[3], rate, seed)
+                for a in copies], ("flash_bwd_dq",)),
+            "flash_bwd_dkv": kernel_device_ms(torch, [
+                lambda a=a: fa.flash_bwd_dkv(a[0], a[1], a[2], a[4], a[5],
+                                             a[7], a[8], a[3], rate, seed)
+                for a in copies], ("flash_bwd_dkv",)),
+        }
         del copies
         plain_fwd = time_ms(torch, lambda: fa.flash_attention_reference(
             q, k, v, q_pos, kv_pos, rate, seed, return_lse=True),
@@ -1326,22 +1368,24 @@ def check_train_kernels(torch, fa, gen):
                     "" if fwd else " backward via autograd (dq, dk, dv)"),
                 bound_ms=bounds[name][0], bound_by=bounds[name][1],
                 roofline_share=bounds[name][0] / ms[name],
+                instance=instance[name], device_ms=device_ms[name],
+                device_roofline_share=(bounds[name][0] / device_ms[name]
+                                       if device_ms[name] else None),
+                earlier_ms=EARLIER_MS[(
+                    name, "train_dropout" if rate else "train")],
+                earlier_is=EARLIER_IS,
             )
-            if fwd:
-                row.update(
-                    instance=instance, device_ms=fwd_device_ms,
-                    earlier_ms=EARLIER_MS[(
-                        "flash_fwd", "train_dropout" if rate else "train")],
-                    earlier_is=EARLIER_IS)
             emit(row)
             rows[(name, label)] = row
         bad = [key for key, e in errs.items() if not e < TRAIN_BOUNDS[key]]
-        want = fa.flash_instance(q.dtype, q.shape[3], q.shape[1], k.shape[1])
+        want = {"flash_fwd": fa.flash_instance(q.dtype, q.shape[3],
+                                               q.shape[1], k.shape[1])}
+        want["flash_bwd_dq"] = want["flash_bwd_dkv"] = fa.flash_bwd_instance(
+            q.dtype, q.shape[3], q.shape[1], k.shape[1])
         if bad or not finite or instance != want:
             raise AssertionError(
                 f"train kernels ({label}): {errs} against {TRAIN_BOUNDS}, "
-                f"finite {finite}, forward instance {instance} (expected "
-                f"{want})")
+                f"finite {finite}, instances {instance} (expected {want})")
 
     # The float32 path, smaller shape.
     f32 = {}
@@ -1393,11 +1437,16 @@ def launch_counts(fa, pa):
 
 def instance_counts(fa, pa):
     """Since the last ``zero_counts``: the flash forward's launches per
-    instance, the paged kernel's per split-pass instance, and the kernels
+    instance, the backward kernels' per instance their C entry points
+    report, the paged kernel's per split-pass instance, and the kernels
     (split and combine passes) its C entry point reports launched."""
     paged = pa.paged_pool_attention
     return dict(flash_fwd_by_instance=dict(
                     fa.flash_attention.launches_by_instance),
+                flash_bwd_dq_by_instance=dict(
+                    fa.flash_bwd_dq.launches_by_instance),
+                flash_bwd_dkv_by_instance=dict(
+                    fa.flash_bwd_dkv.launches_by_instance),
                 paged_by_instance=dict(paged.launches_by_instance),
                 paged_kernel_launches=paged.kernel_launches)
 
@@ -1407,7 +1456,9 @@ def zero_counts(fa, pa):
     fa.flash_attention.launches_by_instance = {}
     fa.flash_attention_quantized.launches = 0
     fa.flash_bwd_dq.launches = 0
+    fa.flash_bwd_dq.launches_by_instance = {}
     fa.flash_bwd_dkv.launches = 0
+    fa.flash_bwd_dkv.launches_by_instance = {}
     pa.paged_pool_attention.launches = 0
     pa.paged_pool_attention.launches_int8 = 0
     pa.paged_pool_attention.launches_by_t = {}
@@ -1465,19 +1516,27 @@ def train_grad_check(torch, train, fa, pa, params, cfg, tokens):
                                resid_pdrop=0.1), opt, dropout_seed=0)
     dloss = dloss.item()
     drop_launches = bwd_counts(fa)
+    drop_instances = instance_counts(fa, pa)
+    drop_instances = {k: drop_instances[k] for k in (
+        "flash_fwd_by_instance", "flash_bwd_dq_by_instance",
+        "flash_bwd_dkv_by_instance")}
     del state, p32, leaves
     row = dict(phase="train_grad_check", config="llama3-8b",
                n_layers=GRAD_LAYERS, T=GRAD_T, batch=2, dtype="float32",
                remat=cfg.remat_policy, losses=losses, loss_rel=loss_rel,
                loss_rel_bound=GRAD_LOSS_REL, grad_rel=grad_rel,
                grad_rel_bound=GRAD_REL, dropout_step_loss=dloss,
-               dropout_step_launches=drop_launches)
+               dropout_step_launches=drop_launches,
+               dropout_step_instances=drop_instances)
     emit(row)
     want = {"flash_fwd": 2 * GRAD_LAYERS, "flash_bwd_dq": GRAD_LAYERS,
             "flash_bwd_dkv": GRAD_LAYERS}
+    want_instances = {f"{name}_by_instance": {"float32": n}
+                      for name, n in want.items()}
     if not (loss_rel < GRAD_LOSS_REL
             and all(e < GRAD_REL for e in grad_rel.values())
             and drop_launches == want
+            and drop_instances == want_instances
             and bool(torch.isfinite(torch.tensor(dloss)))):
         raise AssertionError(f"train gradient check failed: {row}")
     return row
@@ -1562,6 +1621,10 @@ def drive_train(torch, np, ptl, fa, pa, params, base_cfg):
           and all(c == want_step for c in per_step)
           and instances["flash_fwd_by_instance"] == {
               "wgmma": 2 * L * TRAIN_STEPS}
+          and instances["flash_bwd_dq_by_instance"] == {
+              "wgmma": L * TRAIN_STEPS}
+          and instances["flash_bwd_dkv_by_instance"] == {
+              "wgmma": L * TRAIN_STEPS}
           and launches["paged_decode"] == launches["paged_decode_int8"]
           == launches["flash_fwd_int8"] == 0)
     if not ok:
@@ -2537,21 +2600,29 @@ def main() -> int:
             max_abs_err=max(row["worst_row_rel"], drop["worst_row_rel"]),
             max_abs_err_is="the worst row's max abs error over its own "
             "max |plain| (out, dq: packed query rows; dk, dv: KV slots)",
-            ms=row["ms"], dropout_ms=drop["ms"], plain_ms=row["plain_ms"],
+            ms=row["ms"], device_ms=row["device_ms"], dropout_ms=drop["ms"],
+            dropout_device_ms=drop["device_ms"], instance=row["instance"],
+            launches_by_instance={
+                path: inst[f"{name}_by_instance"]
+                for path, inst in paths_instances.items()},
+            plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"], bound_by=row["bound_by"],
             library_ms=row["library_ms"])
 
+    def flash_sub(name):
+        row = flash_rows[name]
+        return {k: row[k] for k in (
+            "T", "S", "dtype", "instance", "ms", "device_ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms")}
+
     pre = flash_rows["insert"]
     fwd = train_kernel("flash_fwd", "jax_llama_tpu/ops/flash_attention.py:868")
-    fwd_row = train_rows[("flash_fwd", "no_dropout")]
-    fwd.update(instance=fwd_row["instance"], device_ms=fwd_row["device_ms"],
-               launches_by_instance={
-                   path: paths_instances[path]["flash_fwd_by_instance"]
-                   for path in ("generate", "serving", "train")},
-               insert_ms=pre["ms"], insert_bound_ms=pre["bound_ms"],
+    fwd.update(insert_ms=pre["ms"], insert_bound_ms=pre["bound_ms"],
                insert_plain_ms=pre["plain_ms"],
                insert_library_ms=pre["library_ms"],
-               insert_instance=pre["instance"])
+               insert_instance=pre["instance"],
+               decode=flash_sub("decode"),
+               cached_decode=flash_sub("cached_decode"))
     fi8 = flash_int8_rows["bfloat16"]
     pi8 = paged_int8_rows["serving"]
 

@@ -1,10 +1,11 @@
 // Hopper (sm_90a) building blocks for the port's TMA + wgmma kernels
-// (flash_fwd.cu's Hopper instance): shared-memory addresses, mbarriers,
-// 4-D TMA tile loads, wgmma shared-memory descriptors and the wgmma
-// instructions, in raw PTX so the build needs no headers beyond the CUDA
-// toolkit's; and, on the host, the 4-D bf16 tensor map of a TMA load,
-// encoded by cuTensorMapEncodeTiled, whose address the CUDA runtime hands
-// out (cudaGetDriverEntryPoint), so the library needs no -lcuda.
+// (the Hopper instances of flash_fwd.cu and flash_bwd.cu): shared-memory
+// addresses, mbarriers, 4-D TMA tile loads and 1-D bulk copies, wgmma
+// shared-memory descriptors and the wgmma instructions, in raw PTX so the
+// build needs no headers beyond the CUDA toolkit's; and, on the host,
+// the 4-D bf16 tensor map of a TMA load, encoded by
+// cuTensorMapEncodeTiled, whose address the CUDA runtime hands out
+// (cudaGetDriverEntryPoint), so the library needs no -lcuda.
 
 #pragma once
 
@@ -80,6 +81,18 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// One bulk copy of `bytes` (a multiple of 16; both addresses 16-byte
+// aligned) from global memory into shared address dst; completion counts
+// on barrier `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
 // A wgmma shared-memory matrix descriptor for a 128-byte-swizzled operand
 // whose swizzle atoms (8 rows of 128 bytes) start 1024-byte aligned:
 // start address, leading and stride byte offsets (16-byte units), layout
@@ -146,6 +159,31 @@ __device__ __forceinline__ void wgmma_m64n128_ss(float (&d)[64], uint64_t da,
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D[64x64] (+)= A[64x16] B[16x64], A and B from shared memory (K-major,
+// 128-byte swizzle), bf16 in, float32 accumulate; scale_d 0 overwrites D.
+__device__ __forceinline__ void wgmma_m64n64_ss(float (&d)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(scale_d));
 }
 

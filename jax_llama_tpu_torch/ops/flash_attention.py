@@ -30,7 +30,12 @@ from the dtype, head_dim and the query and KV lengths: ``"wgmma"`` (bf16,
 d = 128, T a multiple of 128: the training shape, prefill and the serving
 inserts; TMA loads and wgmma on Hopper), ``"mma_sync"`` (every other bf16
 call: decode at T = 1, ragged T, d = 64) and ``"float32"`` (CUDA cores).
-``flash_attention.launches_by_instance`` counts each.
+``flash_attention.launches_by_instance`` counts each.  The backward
+kernels have the same three instances, picked by ``flash_bwd_instance``
+(the same rule: ``"wgmma"`` is the Hopper TMA + wgmma pair at the training
+shape); ``flash_bwd_dq.launches_by_instance`` and
+``flash_bwd_dkv.launches_by_instance`` count the instance each C entry
+point reports it launched.
 
 ``flash_attention`` is differentiable in q, k and v through a
 ``torch.autograd.Function`` whose backward is ``flash_backward``.  On CUDA
@@ -65,9 +70,14 @@ _M32 = 0xFFFFFFFF
 # T must be a multiple of it; head_dim 128 (two 64-column TMA boxes).
 WGMMA_ROWS = 128
 WGMMA_HEAD_DIM = 128
+# The backward's Hopper dK/dV kernel keeps each 64-token tile's smallest
+# and largest q_pos in shared memory, 1024 tiles at most.
+WGMMA_BWD_MAX_T = 65536
 # The C entry point of each forward instance.
 _ENTRY = {"wgmma": "flash_fwd_wgmma", "mma_sync": "flash_fwd",
           "float32": "flash_fwd"}
+# What the backward kernels' C entry points report they launched.
+_BWD_INSTANCES = {1: "float32", 2: "mma_sync", 3: "wgmma"}
 
 
 def flash_instance(dtype: torch.dtype, head_dim: int, q_len: int,
@@ -82,6 +92,18 @@ def flash_instance(dtype: torch.dtype, head_dim: int, q_len: int,
             and q_len > 0 and q_len % WGMMA_ROWS == 0 and kv_len > 0):
         return "wgmma"
     return "mma_sync"
+
+
+def flash_bwd_instance(dtype: torch.dtype, head_dim: int, q_len: int,
+                       kv_len: int) -> str:
+    """The backward instance (both ``flash_bwd_dq`` and ``flash_bwd_dkv``)
+    a CUDA call of these shapes runs, by the forward's rule: "wgmma" (the
+    Hopper pair: TMA rings and wgmma) for bf16 at head_dim 128 with T a
+    positive multiple of 128, at most ``WGMMA_BWD_MAX_T``, and S > 0;
+    "mma_sync" for every other bf16 call; "float32" for float32."""
+    if q_len > WGMMA_BWD_MAX_T:
+        return "float32" if dtype == torch.float32 else "mma_sync"
+    return flash_instance(dtype, head_dim, q_len, kv_len)
 
 
 # ---------------------------------------------------------------------------
@@ -276,11 +298,18 @@ def flash_backward_reference(
     their products, as the kernels round them.  Returns (dq, dk, dv) in
     the input dtype."""
     rate, seed = _dropout_args(dropout_rate, dropout_seed)
+    delta = flash_delta(out, g, k.shape[2])
+    return _backward_plain(q, k, v, q_pos, kv_pos, lse, delta, g, rate, seed)
+
+
+def _backward_plain(q, k, v, q_pos, kv_pos, lse, delta, g, rate, seed):
+    """(dq, dk, dv) from the forward's lse and Delta, both float32 [B, KVH,
+    G*T]: the function of the two backward kernels, in plain torch."""
     B, T, H, d = q.shape
     S, KVH = k.shape[1], k.shape[2]
     G = H // KVH
     scale = 1.0 / math.sqrt(d)
-    delta = flash_delta(out, g, KVH).reshape(B, KVH, G, T)[..., None]
+    delta = delta.reshape(B, KVH, G, T)[..., None]
     qg = q.reshape(B, T, KVH, G, d).float()
     gg = g.reshape(B, T, KVH, G, d).float()
     kf, vf = k.float(), v.float()
@@ -351,12 +380,23 @@ _DROP_ARGTYPES = [ctypes.c_int, ctypes.c_uint, ctypes.c_uint, ctypes.c_uint,
                   ctypes.c_float]
 
 
-def _fn(lib_name: str, name: str, n_ptr: int):
+def _fn(lib_name: str, name: str, n_ptr: int, report: bool = False):
+    """C entry point ``name``: n_ptr pointers, seven ints, the scale, the
+    dropout words and the stream; with ``report``, an ``int*`` after them
+    that receives the instance launched."""
     fn = getattr(_build.load(lib_name), name)
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 7
-                   + [ctypes.c_float] + _DROP_ARGTYPES + [ctypes.c_void_p])
+                   + [ctypes.c_float] + _DROP_ARGTYPES + [ctypes.c_void_p]
+                   + ([ctypes.POINTER(ctypes.c_int)] if report else []))
     return fn
+
+
+def _count(wrapper, instance: str) -> None:
+    """One launch of ``wrapper``'s kernel, of ``instance``."""
+    wrapper.launches += 1
+    by = wrapper.launches_by_instance
+    by[instance] = by.get(instance, 0) + 1
 
 
 def _launch(q, k, v, q_pos, kv_pos, rate, seed, need_lse):
@@ -380,9 +420,7 @@ def _launch(q, k, v, q_pos, kv_pos, rate, seed, need_lse):
     if rc != 0:
         raise RuntimeError(f"{_ENTRY[instance]} launch failed: cudaError_t "
                            f"{rc}")
-    flash_attention.launches += 1
-    by = flash_attention.launches_by_instance
-    by[instance] = by.get(instance, 0) + 1
+    _count(flash_attention, instance)
     return out, lse
 
 
@@ -460,7 +498,11 @@ def flash_attention_quantized(
 
 
 def _bwd_launch(name, q, k, v, q_pos, kv_pos, lse, delta, g, outs, rate,
-                seed):
+                seed) -> str:
+    """Launch backward kernel ``name`` through the C entry point of the
+    instance ``flash_bwd_instance`` picks; return the instance that entry
+    point reports it launched.  A failed launch raises with its
+    cudaError_t; nothing retries on another instance."""
     B, T, H, d = q.shape
     S, KVH = k.shape[1], k.shape[2]
     rows = (B, KVH, H // KVH * T) if KVH and H % KVH == 0 else None
@@ -472,7 +514,10 @@ def _bwd_launch(name, q, k, v, q_pos, kv_pos, lse, delta, g, outs, rate,
         raise ValueError(f"g {tuple(g.shape)} {g.dtype} must match q "
                          f"{tuple(q.shape)} {q.dtype}")
     _check(q, k, v, q_pos, kv_pos, ("g", g), ("lse", lse), ("delta", delta))
-    fn = _fn(BWD_KERNEL, name, 8 + len(outs))
+    entry = name + ("_wgmma" if flash_bwd_instance(q.dtype, d, T, S)
+                    == "wgmma" else "")
+    fn = _fn(BWD_KERNEL, entry, 8 + len(outs), report=True)
+    code = ctypes.c_int(0)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(
@@ -480,33 +525,40 @@ def _bwd_launch(name, q, k, v, q_pos, kv_pos, lse, delta, g, outs, rate,
             q_pos.data_ptr(), kv_pos.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), *[o.data_ptr() for o in outs],
             B, T, S, H, KVH, d, _DTYPE_CODE[q.dtype], 1.0 / math.sqrt(d),
-            *_drop_ctypes(rate, seed), stream,
+            *_drop_ctypes(rate, seed), stream, ctypes.byref(code),
         )
     if rc != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError_t {rc}")
+        raise RuntimeError(f"{entry} launch failed: cudaError_t {rc}")
+    return _BWD_INSTANCES[code.value]
 
 
 def flash_bwd_dq(q, k, v, q_pos, kv_pos, lse, delta, g, rate=0.0,
                  seed=None) -> torch.Tensor:
     """dQ [B, T, H, d] through the kernel ``flash_bwd_dq``
-    (``csrc/flash_bwd.cu``), from the forward's lse and Delta =
-    rowsum(dO * O), both float32 [B, KVH, G*T]; CUDA tensors only."""
+    (``csrc/flash_bwd.cu``; the instance ``flash_bwd_instance`` picks),
+    from the forward's lse and Delta = rowsum(dO * O), both float32
+    [B, KVH, G*T].  CPU tensors take the plain version."""
+    if q.device.type == "cpu":
+        return _backward_plain(q, k, v, q_pos, kv_pos, lse, delta, g, rate,
+                               seed)[0]
     dq = torch.empty_like(q)
-    _bwd_launch("flash_bwd_dq", q, k, v, q_pos, kv_pos, lse, delta, g, [dq],
-                rate, seed)
-    flash_bwd_dq.launches += 1
+    _count(flash_bwd_dq, _bwd_launch("flash_bwd_dq", q, k, v, q_pos, kv_pos,
+                                     lse, delta, g, [dq], rate, seed))
     return dq
 
 
 def flash_bwd_dkv(q, k, v, q_pos, kv_pos, lse, delta, g, rate=0.0,
                   seed=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dK, dV) [B, S, KVH, d] through the kernel ``flash_bwd_dkv``
-    (``csrc/flash_bwd.cu``), inputs as ``flash_bwd_dq``'s; CUDA tensors
-    only."""
+    (``csrc/flash_bwd.cu``), inputs as ``flash_bwd_dq``'s.  CPU tensors
+    take the plain version."""
+    if q.device.type == "cpu":
+        return _backward_plain(q, k, v, q_pos, kv_pos, lse, delta, g, rate,
+                               seed)[1:]
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _bwd_launch("flash_bwd_dkv", q, k, v, q_pos, kv_pos, lse, delta, g,
-                [dk, dv], rate, seed)
-    flash_bwd_dkv.launches += 1
+    _count(flash_bwd_dkv, _bwd_launch("flash_bwd_dkv", q, k, v, q_pos,
+                                      kv_pos, lse, delta, g, [dk, dv], rate,
+                                      seed))
     return dk, dv
 
 
@@ -589,10 +641,13 @@ def flash_attention(
 
 # Launches of each CUDA kernel in this process; the plain versions never
 # count.  Callers reset a count by assigning 0 (and
-# ``launches_by_instance``, the forward's launches per ``flash_instance``,
-# by assigning {}).
+# ``launches_by_instance`` by assigning {}: the forward's launches per
+# ``flash_instance``, the backward kernels' per instance their C entry
+# points report).
 flash_attention.launches = 0
 flash_attention.launches_by_instance = {}
 flash_attention_quantized.launches = 0
 flash_bwd_dq.launches = 0
+flash_bwd_dq.launches_by_instance = {}
 flash_bwd_dkv.launches = 0
+flash_bwd_dkv.launches_by_instance = {}

@@ -1,10 +1,11 @@
 """The port's flash attention with lse, dropout and its backward, held
 against the JAX package on the CPU: the dropout hash bit for bit, the
 plain forward (out and lse) and the plain backward against the JAX Pallas
-kernels run in interpret mode on the same numpy inputs and seed words,
-and the chunked cross-entropy against JAX's.  Tolerances: forward atol
-1e-5, backward atol 1e-4 (float32; the two sides sum in other orders),
-loss rel 1e-6.
+kernels run in interpret mode on the same numpy inputs and seed words
+(also at a shape the backward's Hopper instance takes: d = 128, T = S =
+128, G = 4), the backward's instance table, and the chunked cross-entropy
+against JAX's.  Tolerances: forward atol 1e-5, backward atol 1e-4
+(float32; the two sides sum in other orders), loss rel 1e-6.
 """
 
 import importlib
@@ -163,13 +164,77 @@ def test_plain_backward_matches_jax_vjp(rate):
         torch.testing.assert_close(a, b, atol=0, rtol=0)
 
 
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_plain_backward_matches_jax_vjp_at_hopper_shape(rate):
+    """d = 128, T = S = 128, G = 4 (one KV head), one batch row, causal:
+    a shape the Hopper backward instance takes; the wrappers' CPU path
+    (``flash_bwd_dq``, ``flash_bwd_dkv`` from lse and Delta) is the same
+    plain function."""
+    assert pfa.flash_bwd_instance(torch.bfloat16, 128, 128, 128) == "wgmma"
+    rng = np.random.default_rng(4)
+    q, k, v = (rng.standard_normal(shape).astype(np.float32) for shape in
+               ((1, 128, 4, 128), (1, 128, 1, 128), (1, 128, 1, 128)))
+    qp = pos = np.arange(128, dtype=np.int32)[None]
+    seed = [0x2545F491, 0x9E3779B9]
+    g = np.random.default_rng(5).standard_normal(q.shape).astype(np.float32)
+
+    def jfn(a, b, c):
+        return jfa.flash_attention(
+            a, b, c, jnp.asarray(qp), jnp.asarray(pos), block_q=64,
+            block_k=64, dropout_rate=rate,
+            dropout_seed=jnp.asarray(seed, jnp.uint32))
+
+    _, vjp = jax.vjp(jfn, *map(jnp.asarray, (q, k, v)))
+    want = [np.asarray(x) for x in vjp(jnp.asarray(g))]
+    tq, tk, tv, tqp, tpos, tg = _t(q, k, v, qp, pos, g)
+    out, lse = pfa.flash_attention_reference(tq, tk, tv, tqp, tpos, rate,
+                                             seed, return_lse=True)
+    got = pfa.flash_backward_reference(tq, tk, tv, tqp, tpos, out, lse, tg,
+                                       rate, seed)
+    for name, a, b in zip("qkv", got, want):
+        np.testing.assert_allclose(a.numpy(), b, atol=1e-4, rtol=0,
+                                   err_msg=f"d{name}")
+    words = pfa.normalize_seed(seed) if rate else None
+    delta = pfa.flash_delta(out, tg, 1)
+    args = (tq, tk, tv, tqp, tpos, lse, delta, tg, rate, words)
+    dk, dv = pfa.flash_bwd_dkv(*args)
+    for a, b in zip((pfa.flash_bwd_dq(*args), dk, dv), got):
+        torch.testing.assert_close(a, b, atol=0, rtol=0)
+
+
+def _bwd_instance_rule(dtype, d, T, S):
+    """The backward instance table, spelled out."""
+    if dtype == torch.float32:
+        return "float32"
+    if d == 128 and T > 0 and T % 128 == 0 and T <= 65536 and S > 0:
+        return "wgmma"
+    return "mma_sync"
+
+
+@pytest.mark.parametrize("S", [0, 300])
+@pytest.mark.parametrize("T", [1, 67, 128, 256, 65536 + 128])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_bwd_instance_table(dtype, d, T, S):
+    assert pfa.flash_bwd_instance(dtype, d, T, S) == _bwd_instance_rule(
+        dtype, d, T, S)
+
+
 def test_flash_attention_argument_checks():
     q, k, v, qp, pos = _t(*_inputs(T=8))
     with pytest.raises(ValueError, match="dropout_seed"):
         pfa.flash_attention(q, k, v, qp, pos, dropout_rate=0.1)
     with pytest.raises(ValueError, match="not in"):
         pfa.flash_attention(q, k, v, qp, pos, dropout_rate=1.0)
-    assert pfa.flash_attention.launches == 0  # the plain version never counts
+    # The plain versions never count, forward or backward.
+    tq, tk, tv = (x.requires_grad_() for x in (q, k, v))
+    out = pfa.flash_attention(tq, tk, tv, qp, pos)
+    torch.autograd.grad(out.sum(), (tq, tk, tv))
+    assert pfa.flash_attention.launches == 0
+    assert pfa.flash_attention.launches_by_instance == {}
+    for wrapper in (pfa.flash_bwd_dq, pfa.flash_bwd_dkv):
+        assert wrapper.launches == 0
+        assert wrapper.launches_by_instance == {}
 
 
 def test_chunked_xent_matches_jax_tied_head_several_chunks():

@@ -10,7 +10,13 @@ neither jax nor the JAX package, so it runs on a GPU host without them:
 The flash forward's Hopper instance (TMA + wgmma: bf16, d = 128, T a
 multiple of 128) is held at T = 128, 512 and 2048 in the left-padded,
 cache and chunk-window layouts, with lse and dropout; its dropout keep
-bits must equal the plain version's exactly.
+bits must equal the plain version's exactly.  The backward's Hopper pair
+(``flash_bwd_dq`` and ``flash_bwd_dkv`` where ``flash_bwd_instance`` says
+"wgmma") is held at T = S = 128 and 384 and at T = 256 over S = 600, with
+G = 1, 4 and 8, left padding, empty (-1) slots and query rows that see no
+slot (lse = +inf), with and without dropout; the dK/dV kernel's keep bits
+are read back exactly from dV under a one-hot dO; two calls give the same
+bits; each wrapper counts the instance its C entry point reports.
 
 Bounds hold each row against its own scale: out and dq per packed query
 row, dk and dv per KV slot, the row's max abs error over the row's max
@@ -223,6 +229,159 @@ def test_backward_kernels_match_plain(name, dtype, rate):
         assert a.dtype == dtype and a.shape == b.shape
         rel = _rel(a, b, loose if label == "dq" else None)
         assert rel < bound, (label, rel)
+
+
+# The Hopper (TMA + wgmma) backward instances: bf16, d = 128, T a multiple
+# of 128.  (B, T, S, H, KVH, layout): "left_pad" pads row b by 37 b slots
+# (S = T); "dead" empties slots 0-4 of row 0 (queries 0-4 there see no
+# slot: lse = +inf) and slots 40-49 of every row; "cache" puts the queries
+# on the last T written slots of rows filled to S and S - 100, a -1 tail
+# (S = 600 ends inside a 64- and a 128-slot tile).
+BWD_WGMMA_CASES = {
+    "t128_g1_dead": (2, 128, 128, 2, 2, "dead"),
+    "t384_g4_left_pad": (2, 384, 384, 8, 2, "left_pad"),
+    "t384_g8_dead": (1, 384, 384, 8, 1, "dead"),
+    "t256_s600_g4_cache": (2, 256, 600, 8, 2, "cache"),
+}
+BWD_BOUND = 2e-2  # bf16 dq, dk, dv per row (TRAIN_BOUNDS in chip_smoke.py)
+
+
+def _bwd_wgmma_inputs(name, seed=3):
+    B, T, S, H, KVH, layout = BWD_WGMMA_CASES[name]
+    rng = np.random.default_rng(seed)
+    q, k, v, g = (rng.standard_normal(shape).astype(np.float32) for shape in
+                  ((B, T, H, 128), (B, S, KVH, 128), (B, S, KVH, 128),
+                   (B, T, H, 128)))
+    slots = np.tile(np.arange(S, dtype=np.int32), (B, 1))
+    if layout == "left_pad":
+        pads = (np.arange(B) * 37)[:, None]
+        kv_pos = np.where(slots >= pads, slots - pads, -1)
+        q_pos = np.maximum(kv_pos[:, :T], 0)
+    elif layout == "dead":
+        kv_pos = slots.copy()
+        kv_pos[0, :5] = -1
+        kv_pos[:, 40:50] = -1
+        q_pos = np.tile(np.arange(T, dtype=np.int32), (B, 1))
+    else:
+        fill = (S - 100 * np.arange(B))[:, None]
+        kv_pos = np.where(slots < fill, slots, -1)
+        q_pos = fill - T + np.arange(T)[None]
+    dev = [torch.from_numpy(a).cuda().to(torch.bfloat16) for a in (q, k, v, g)]
+    return dev + [torch.from_numpy(np.ascontiguousarray(a, np.int32)).cuda()
+                  for a in (q_pos, kv_pos)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("name", sorted(BWD_WGMMA_CASES))
+def test_wgmma_backward_matches_plain(name, rate):
+    """The Hopper pair against ``flash_backward_reference`` on the plain
+    forward's out and lse: dq per packed query row, dk and dv per KV slot,
+    each < 2e-2 of its own max |plain|, all finite; each wrapper counts
+    one launch under "wgmma"."""
+    _skip_without_card()
+    q, k, v, g, q_pos, kv_pos = _bwd_wgmma_inputs(name)
+    assert fa.flash_bwd_instance(q.dtype, 128, q.shape[1],
+                                 k.shape[1]) == "wgmma"
+    seed = SEED if rate else None
+    out, lse = fa.flash_attention_reference(q, k, v, q_pos, kv_pos, rate,
+                                            seed, return_lse=True)
+    if BWD_WGMMA_CASES[name][5] == "dead":
+        assert torch.isinf(lse).any()
+    before = [dict(w.launches_by_instance)
+              for w in (fa.flash_bwd_dq, fa.flash_bwd_dkv)]
+    got = fa.flash_backward(q, k, v, q_pos, kv_pos, out, lse, g, rate, seed)
+    torch.cuda.synchronize()
+    for w, b in zip((fa.flash_bwd_dq, fa.flash_bwd_dkv), before):
+        assert w.launches_by_instance["wgmma"] == b.get("wgmma", 0) + 1
+    want = fa.flash_backward_reference(q, k, v, q_pos, kv_pos, out, lse, g,
+                                       rate, seed)
+    loose = _short_rows(q_pos, kv_pos, q.shape[2])
+    for label, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == torch.bfloat16 and a.shape == b.shape
+        assert torch.isfinite(a.float()).all(), label
+        rel = _rel(a, b, loose if label == "dq" else None)
+        assert rel < BWD_BOUND, (label, rel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [128, 384])
+def test_wgmma_backward_dropout_keep_bits_from_dv(T):
+    """The dK/dV kernel drops exactly the (packed row, slot) pairs the
+    plain version drops, read from its transposed accumulator.  With dO
+    one-hot over one 128-row window of one query head (dO[r] = e_(r - w)
+    for the window's rows, 0 elsewhere), dV[s, c] is non-zero iff packed
+    row w + c attends slot s and keeps it; every window of both heads is
+    checked, causal positions."""
+    _skip_without_card()
+    B, H, KVH, d, rate = 1, 2, 1, 128, 0.1
+    G = H // KVH
+    rng = np.random.default_rng(6)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).cuda().to(torch.bfloat16) for shape in
+        ((B, T, H, d), (B, T, KVH, d), (B, T, KVH, d)))
+    pos = torch.arange(T, dtype=torch.int32, device="cuda")[None]
+    out, lse = fa.flash_attention_reference(q, k, v, pos, pos, rate, SEED,
+                                            return_lse=True)
+    keep = fa._keep_plane(SEED, B, KVH, G, T, T, rate, "cuda")[0, 0]
+    allowed = pos[0][None, :] <= pos[0][:, None]  # [T (query), S]
+    eye = torch.eye(128, dtype=torch.bfloat16, device="cuda")
+    for g in range(G):
+        for j in range(T // 128):
+            window = slice(128 * j, 128 * (j + 1))
+            do = torch.zeros((B, T, H, d), dtype=torch.bfloat16,
+                             device="cuda")
+            do[0, window, g] = eye
+            delta = fa.flash_delta(out, do, KVH)
+            _, dv = fa.flash_bwd_dkv(q, k, v, pos, pos, lse, delta, do, rate,
+                                     SEED)
+            got = dv[0, :, 0].float() != 0  # [S, 128]
+            want = (keep[g, window] & allowed[window]).T
+            assert torch.equal(got, want), (g, j)
+
+
+@pytest.mark.cuda
+def test_wgmma_backward_two_calls_bit_identical():
+    """No atomics: the same inputs give the same bits, with dropout."""
+    _skip_without_card()
+    q, k, v, g, q_pos, kv_pos = _bwd_wgmma_inputs("t384_g4_left_pad")
+    out, lse = fa.flash_attention_reference(q, k, v, q_pos, kv_pos, 0.1,
+                                            SEED, return_lse=True)
+    delta = fa.flash_delta(out, g, k.shape[2])
+    args = (q, k, v, q_pos, kv_pos, lse, delta, g, 0.1, SEED)
+    dq = [fa.flash_bwd_dq(*args) for _ in range(2)]
+    dkv = [fa.flash_bwd_dkv(*args) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(dq[0], dq[1])
+    assert torch.equal(dkv[0][0], dkv[1][0])
+    assert torch.equal(dkv[0][1], dkv[1][1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,dtype,want", [
+    ("t128_g1_dead", torch.bfloat16, "wgmma"),
+    ("d64_g2_t67", torch.bfloat16, "mma_sync"),
+    ("d128_g4_t130", torch.bfloat16, "mma_sync"),
+    ("d128_g1_t64", torch.float32, "float32"),
+])
+def test_backward_launches_by_instance(case, dtype, want):
+    """Each wrapper counts one launch, under the instance its C entry
+    point reports, which is the one ``flash_bwd_instance`` picks."""
+    _skip_without_card()
+    if case in BWD_WGMMA_CASES:
+        q, k, v, g, q_pos, kv_pos = _bwd_wgmma_inputs(case)
+    else:
+        q, k, v, g, q_pos, kv_pos = _inputs(case, dtype)
+    assert fa.flash_bwd_instance(dtype, q.shape[3], q.shape[1],
+                                 k.shape[1]) == want
+    out, lse = fa.flash_attention_reference(q, k, v, q_pos, kv_pos,
+                                            return_lse=True)
+    for w in (fa.flash_bwd_dq, fa.flash_bwd_dkv):
+        w.launches, w.launches_by_instance = 0, {}
+    fa.flash_backward(q, k, v, q_pos, kv_pos, out, lse, g)
+    torch.cuda.synchronize()
+    for w in (fa.flash_bwd_dq, fa.flash_bwd_dkv):
+        assert (w.launches, w.launches_by_instance) == (1, {want: 1})
 
 
 @pytest.mark.cuda
