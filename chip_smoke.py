@@ -216,6 +216,27 @@ the flash forward and of the backward pair) add:
   (``paged_pool_attention.kernel_launches``) for every paged wrapper
   launch.
 
+The selection layer's redesigned kernels (splash's TMA + wgmma instance,
+stock-paged's split pass on the tensor cores) add:
+
+* in ``build``: ptxas's registers and spill bytes by kernel (``ptxas``);
+  the run fails if ``splash_wgmma_kernel`` or ``stock_split_kernel``
+  spills;
+* in their ``kernel_check`` rows: the ``instance`` that ran (from the
+  wrappers' ``launches_by_instance``, which count the instance each C
+  entry point reports it launched, checked against ``splash_instance``
+  and ``stock_instance``), ``bit_identical`` (two calls on the same
+  inputs, required), ``earlier_ms`` and ``earlier_device_ms`` (the
+  replaced design's events and device ms, from PERF.md), device ms
+  over the launches the profiler saw (``profiled_calls``); for stock the
+  wrapper's host ms per call and a ``split_sweep`` over ``STOCK_SPLITS``
+  through ``stock_paged_launch`` (each split's output held to the same
+  bound; the record behind ``STOCK_SPLIT``);
+* in ``selected_serving``: splash and stock launches by instance (every
+  call on the bf16 instance), and in each serving row one insert's
+  device ms by kernel group (``profile_insert``), which
+  ``selected_vs_serving`` puts side by side.
+
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or outside a checkout of the repository, it exits non-zero before printing
 any result.
@@ -325,10 +346,28 @@ EARLIER_MS = {
     ("paged_decode_int8", "spec_verify_bfloat16"): 0.1938,
     ("paged_decode_int8", "spec_verify_float32"): 0.1932,
     ("paged_decode_int8", "split_verify"): 0.3643,
+    ("stock_paged", "serving_bfloat16"): 0.0772,
+    ("stock_paged", "serving_float32"): 0.0659,
+    ("splash_prefill", "insert_bfloat16"): 0.5057,
+    ("splash_prefill", "chunk_bfloat16"): 0.3654,
 }
 EARLIER_IS = ("cold-L2 ms of the replaced design at this shape (PERF.md "
               "kernel table; chip_smoke.py kernel_check, NVIDIA H100 80GB "
               "HBM3, 700.00 W); null where none was recorded")
+# The same designs' torch.profiler device ms, where recorded (the selection
+# layer's kernels: PERF.md's record of this script on the same card).
+EARLIER_DEVICE_MS = {
+    ("stock_paged", "serving_bfloat16"): 0.03810,
+    ("stock_paged", "serving_float32"): 0.04673,
+    ("splash_prefill", "insert_bfloat16"): 0.4926,
+    ("splash_prefill", "chunk_bfloat16"): 0.3552,
+}
+# The selection layer's kernels, which must compile without spills
+# (substrings of their mangled names in ptxas's report).
+NO_SPILL_KERNELS = ("splash_wgmma_kernel", "stock_split_kernel")
+# Split sizes (slots per block of the stock kernel's split pass) timed at
+# the serving shape beside the wrapper's own (STOCK_SPLIT).
+STOCK_SPLITS = (128, 256, 512)
 # The selection layer's slots as a user selects them, and the splash
 # kernel's checked shapes: (B, T, S, chunk_offset) of the serving phase's
 # first insert (8 rows at P = 1024) and of a chunk at offset 512.
@@ -968,6 +1007,19 @@ def check_paged_int8(torch, pa, quant, gen):
     return rows
 
 
+def device_ms_per_launch(torch, fns, names, key):
+    """Device ms per call of ``fns`` (``kernel_device_ms``) over the calls
+    the profiler saw: each call launches one kernel whose name holds
+    ``key``, and a trace that dropped some events is scaled to the
+    launches it holds.  At least 16 calls are profiled.  Returns (ms,
+    [launches the profiler saw, calls profiled])."""
+    fns = list(fns) * max(1, -(-16 // len(fns)))
+    counts = {key: 0}
+    ms = kernel_device_ms(torch, fns, names, counts)
+    seen = counts[key]
+    return (ms * len(fns) / seen if ms and seen else None), [seen, len(fns)]
+
+
 def kernel_device_ms(torch, fns, names, counts=None):
     """Device ms per call of ``fns`` (each called once, in turn, after one
     untimed round) from torch.profiler: the device time of the kernels
@@ -1045,8 +1097,15 @@ def check_stock(torch, kn, gen):
                         for _ in range(2))
         args = (q, k_new, v_new, k, v, table, q_pos)
         layer = L - 1
+        name = "bfloat16" if dtype == torch.bfloat16 else "float32"
+        before = dict(kn.stock_paged_decode.launches_by_instance)
         out = kn.stock_paged_decode(*args, layer=layer)
         torch.cuda.synchronize()
+        instance = ran_instance(kn.stock_paged_decode.launches_by_instance,
+                                before)
+        again = kn.stock_paged_decode(*args, layer=layer)
+        torch.cuda.synchronize()
+        identical = bool(torch.equal(out, again))
         ref = kn.stock_paged_decode_reference(*args, layer=layer)
         live = q_pos >= 0
         finite = bool(torch.isfinite(out).all())
@@ -1055,10 +1114,32 @@ def check_stock(torch, kn, gen):
         cold = [lambda i=i: kn.stock_paged_decode(*args, layer=i)
                 for i in range(L)]
         ms = time_ms(torch, cold, iters=4 * L)
-        device_ms = kernel_device_ms(torch, cold,
-                                     ("stock_split", "stock_combine"))
+        stock_names = ("stock_split", "stock_combine")
+        device_ms, profiled = device_ms_per_launch(torch, cold, stock_names,
+                                                   "stock_split")
         warm_ms = time_ms(torch, lambda: kn.stock_paged_decode(
             *args, layer=layer))
+        # The wrapper's host time per call: back-to-back calls on the host
+        # clock, ended by one synchronise (the kernels finish sooner).
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for i in range(4 * L):
+            cold[i % L]()
+        host_ms = (time.perf_counter() - t) * 1e3 / (4 * L)
+        torch.cuda.synchronize()
+        # The split size, by measurement: each candidate's output held to
+        # the same bound, its device and event ms.
+        sweep = {}
+        for split in STOCK_SPLITS:
+            runs = [lambda i=i, split=split: kn.stock_paged_launch(
+                *args, layer=i, split=split) for i in range(L)]
+            got = runs[layer]()
+            torch.cuda.synchronize()
+            sweep[split] = dict(
+                worst_row_rel=row_rel_err(torch, got[live], ref[live]),
+                device_ms=device_ms_per_launch(torch, runs, stock_names,
+                                               "stock_split")[0],
+                ms=time_ms(torch, runs, iters=4 * L))
         plain_ms = time_ms(torch, [
             lambda i=i: kn.stock_paged_decode_reference(*args, layer=i)
             for i in range(L)], iters=L)
@@ -1081,15 +1162,20 @@ def check_stock(torch, kn, gen):
             for kg, vg in views], iters=4 * n_views)
         del views
         bound_ms, bound_by = stock_bound(torch, q, k, table, q_pos, peak)
-        name = "bfloat16" if dtype == torch.bfloat16 else "float32"
+        key = ("stock_paged", f"serving_{name}")
         row = dict(
             phase="kernel_check", kernel="stock_paged", shape="serving",
             B=B, KVH=KVH, G=G, d=d, BLK=BLK, MB=table.shape[1], L=L,
             layer=layer, fills=list(PAGED_FILLS),
-            inactive=list(PAGED_INACTIVE), dtype=name,
+            inactive=list(PAGED_INACTIVE), dtype=name, instance=instance,
             launches_per_call=kn.STOCK_KERNELS_PER_CALL,
-            split_slots=kn.STOCK_SPLIT, worst_row_rel=rel, rel_bound=bound,
-            finite=finite, ms=ms, device_ms=device_ms, warm_ms=warm_ms,
+            split_slots=kn.STOCK_SPLIT, split_sweep=sweep,
+            worst_row_rel=rel, rel_bound=bound, finite=finite,
+            bit_identical=identical, ms=ms, device_ms=device_ms,
+            profiled_calls=profiled, host_ms=host_ms,
+            warm_ms=warm_ms,
+            earlier_ms=EARLIER_MS[key],
+            earlier_device_ms=EARLIER_DEVICE_MS[key], earlier_is=EARLIER_IS,
             plain_ms=plain_ms,
             library_ms=library_ms,
             library="scaled_dot_product_attention over a pre-gathered "
@@ -1099,10 +1185,14 @@ def check_stock(torch, kn, gen):
             device_roofline_share=bound_ms / device_ms if device_ms
             else None)
         emit(row)
-        if not (finite and rel < bound):
+        want = kn.stock_instance(dtype, dtype)
+        if not (finite and rel < bound and identical and instance == want
+                and all(r["worst_row_rel"] < bound for r in sweep.values())):
             raise AssertionError(
                 f"stock_paged ({name}): finite {finite}, worst live row "
-                f"{rel} of its max |plain| (bound {bound})")
+                f"{rel} of its max |plain| (bound {bound}), bit-identical "
+                f"{identical}, instance {instance} (expected {want}), "
+                f"splits {sweep}")
         rows[name] = row
     return rows
 
@@ -1123,12 +1213,15 @@ def splash_bound(q, k, offset, peak):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def check_splash(torch, kn, gen):
+def check_splash(torch, kn, fa, gen):
     """splash_prefill against its plain version at SPLASH_SHAPES (H=32,
     KVH=8, d=128), bf16 and float32: each query row against its own max
     |plain| (``row_rel_err``); cold-L2, warm, plain and library times
     (SDPA with the boolean causal-offset mask) and the bound (bf16 peak
-    for bf16, the float32 CUDA-core peak for float32)."""
+    for bf16, the float32 CUDA-core peak for float32).  In bf16 also the
+    port's flash forward on the same inputs and the same causal window
+    (query t at position offset + t, every slot written), its device ms
+    beside splash's: the same work through the positional kernel."""
     import torch.nn.functional as F
 
     rows = {}
@@ -1140,8 +1233,13 @@ def check_splash(torch, kn, gen):
             args = tuple(torch.randn(sh, device="cuda", generator=gen)
                          .to(dtype) for sh in ((B, T, H, d), (B, S, KVH, d),
                                                (B, S, KVH, d)))
+            before = dict(kn.splash_prefill.launches_by_instance)
             out = kn.splash_prefill(*args, chunk_offset=off)
             torch.cuda.synchronize()
+            instance = ran_instance(kn.splash_prefill.launches_by_instance,
+                                    before)
+            identical = bool(torch.equal(
+                out, kn.splash_prefill(*args, chunk_offset=off)))
             ref = kn.splash_prefill_reference(*args, chunk_offset=off)
             finite = bool(torch.isfinite(out).all())
             rel = row_rel_err(torch, out, ref)
@@ -1150,13 +1248,26 @@ def check_splash(torch, kn, gen):
             cold = [lambda a=a: kn.splash_prefill(*a, chunk_offset=off)
                     for a in copies]
             ms = time_ms(torch, cold, iters=4 * len(copies))
-            device_ms = kernel_device_ms(torch, cold, ("splash_",))
+            device_ms, profiled = device_ms_per_launch(
+                torch, cold, ("splash_",), "splash_")
             warm_ms = time_ms(torch, lambda: kn.splash_prefill(
                 *args, chunk_offset=off))
             plain_ms = time_ms(torch, [
                 lambda a=a: kn.splash_prefill_reference(
                     *a, chunk_offset=off) for a in copies],
                 iters=len(copies), warmup=1)
+            flash = {}
+            if dtype == torch.bfloat16:
+                i32 = dict(device="cuda", dtype=torch.int32)
+                q_pos = (off + torch.arange(T, **i32))[None].expand(
+                    B, T).contiguous()
+                kv_pos = torch.arange(S, **i32)[None].expand(B, S).contiguous()
+                flash_ms, flash_seen = device_ms_per_launch(torch, [
+                    lambda a=a: fa.flash_attention(*a, q_pos, kv_pos)
+                    for a in copies], ("flash_fwd",), "flash_fwd")
+                flash = dict(flash_same_work_device_ms=flash_ms,
+                             flash_instance=fa.flash_instance(dtype, d, T, S),
+                             flash_profiled_calls=flash_seen)
             mask = (torch.arange(S, device="cuda")[None, :]
                     <= torch.arange(T, device="cuda")[:, None] + off)
             library_ms = time_ms(torch, [
@@ -1167,21 +1278,30 @@ def check_splash(torch, kn, gen):
             del copies
             bound_ms, bound_by = splash_bound(args[0], args[1], off, peak)
             name = "bfloat16" if dtype == torch.bfloat16 else "float32"
+            key = ("splash_prefill", f"{shape}_{name}")
             row = dict(
                 phase="kernel_check", kernel="splash_prefill", shape=shape,
                 B=B, T=T, S=S, H=H, KVH=KVH, d=d, chunk_offset=off,
-                dtype=name, worst_row_rel=rel, rel_bound=bound,
-                finite=finite, ms=ms, device_ms=device_ms, warm_ms=warm_ms,
-                plain_ms=plain_ms,
+                dtype=name, instance=instance, worst_row_rel=rel,
+                rel_bound=bound, finite=finite, bit_identical=identical,
+                ms=ms, device_ms=device_ms,
+                profiled_calls=profiled, warm_ms=warm_ms,
+                earlier_ms=EARLIER_MS.get(key),
+                earlier_device_ms=EARLIER_DEVICE_MS.get(key),
+                earlier_is=EARLIER_IS, plain_ms=plain_ms, **flash,
                 library_ms=library_ms,
                 library="scaled_dot_product_attention, bool causal-offset "
                 "mask, enable_gqa", bound_ms=bound_ms, bound_by=bound_by,
                 roofline_share=bound_ms / ms)
             emit(row)
-            if not (finite and rel < bound):
+            want = kn.splash_instance(dtype)
+            if not (finite and rel < bound and identical
+                    and instance == want):
                 raise AssertionError(
                     f"splash_prefill {shape} ({name}): finite {finite}, "
-                    f"worst row {rel} of its max |plain| (bound {bound})")
+                    f"worst row {rel} of its max |plain| (bound {bound}), "
+                    f"bit-identical {identical}, instance {instance} "
+                    f"(expected {want})")
             rows[f"{shape}_{name}"] = row
     return rows
 
@@ -1438,10 +1558,16 @@ def launch_counts(fa, pa):
 def instance_counts(fa, pa):
     """Since the last ``zero_counts``: the flash forward's launches per
     instance, the backward kernels' per instance their C entry points
-    report, the paged kernel's per split-pass instance, and the kernels
-    (split and combine passes) its C entry point reports launched."""
+    report, the paged kernel's per split-pass instance, the kernels
+    (split and combine passes) its C entry point reports launched, and
+    the selection layer's wrapper calls per instance."""
     paged = pa.paged_pool_attention
-    return dict(flash_fwd_by_instance=dict(
+    kn = selection_kernels()
+    return dict(splash_by_instance=dict(
+                    kn.splash_prefill.launches_by_instance),
+                stock_by_instance=dict(
+                    kn.stock_paged_decode.launches_by_instance),
+                flash_fwd_by_instance=dict(
                     fa.flash_attention.launches_by_instance),
                 flash_bwd_dq_by_instance=dict(
                     fa.flash_bwd_dq.launches_by_instance),
@@ -1466,7 +1592,35 @@ def zero_counts(fa, pa):
     pa.paged_pool_attention.kernel_launches = 0
     kn = selection_kernels()
     kn.stock_paged_decode.launches = 0
+    kn.stock_paged_decode.launches_by_instance = {}
     kn.splash_prefill.launches = 0
+    kn.splash_prefill.launches_by_instance = {}
+
+
+def ptxas_report(log):
+    """Each kernel's registers and spill bytes from ``nvcc -Xptxas -v``'s
+    output: {mangled name: {"registers": n, "spill_stores": bytes,
+    "spill_loads": bytes}}."""
+    import re
+
+    report, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            report[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            report[name].update(spill_stores=int(m.group(1)),
+                                spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            report[name]["registers"] = int(m.group(1))
+    return report
 
 
 def layer_copy(torch, params, n_layers, dtype=None):
@@ -1771,9 +1925,20 @@ def drive_serving(torch, ptl, fa, pa, params, cfg, tok, phase="serving",
     cb.step()  # the K=1 step after an admission
     profile = device_profile(torch, lambda: [cb.step() for _ in range(3)],
                              categories=SERVE_CATEGORIES)
-    for b, s in list(cb.slots.items()):
-        if s is not None:
-            cb.cancel(s.request_id)
+
+    def free_all():
+        for s in list(cb.slots.values()):
+            if s is not None:
+                cb.cancel(s.request_id)
+
+    # One insert's device time by kernel group: the same 8 requests
+    # admitted again into the emptied batcher, under the profiler.
+    free_all()
+    for i in range(8):
+        cb.submit(prompts[i], max_new_tokens=SERVE_MAX_NEW[i])
+    insert_profile = device_profile(torch, cb._admit,
+                                    categories=SERVE_CATEGORIES)
+    free_all()
     del cb
 
     wall = sum(steady_ms)
@@ -1794,6 +1959,7 @@ def drive_serving(torch, ptl, fa, pa, params, cfg, tok, phase="serving",
         tokens_per_s=steady_tokens / wall * 1e3 if wall else None,
         insert_ms=insert_ms, insert_rows=8,
         busy_share=profile["device_busy_share"], profile_3_steps=profile,
+        profile_insert=insert_profile,
     )
     emit(row)
     suffix = "_int8" if int8 else ""
@@ -1810,6 +1976,19 @@ def drive_serving(torch, ptl, fa, pa, params, cfg, tok, phase="serving",
         want_by_t = {}
     else:
         want["paged_decode" + suffix] = L * steps
+    # The selection layer's kernels ran their bf16 instances throughout.
+    kn = selection_kernels()
+    want_inst = dict(
+        splash_by_instance={kn.splash_instance(torch.bfloat16):
+                            want["splash_prefill"]}
+        if want["splash_prefill"] else {},
+        stock_by_instance={kn.stock_instance(torch.bfloat16, torch.bfloat16):
+                           want["stock_paged"] // kn.STOCK_KERNELS_PER_CALL}
+        if want["stock_paged"] else {})
+    got_inst = {k: instances[k] for k in want_inst}
+    if got_inst != want_inst:
+        raise AssertionError(f"{phase}: selection-layer instances "
+                             f"{got_inst}, expected {want_inst}")
     if resolved != dict(prefill_kernel=kernels.get("prefill_kernel", "flash"),
                         decode_kernel=kernels.get("decode_kernel", "paged")):
         raise AssertionError(f"{phase}: the batcher resolved {resolved}")
@@ -2361,11 +2540,16 @@ def main() -> int:
     # check each against its plain version.
     t0 = time.perf_counter()
     libs = _build.build_all()
-    ptxas = {name: [ln.strip() for ln in _build.build_log(name).splitlines()
-                    if "registers" in ln or "spill" in ln] for name in libs}
+    ptxas = {name: ptxas_report(_build.build_log(name)) for name in libs}
+    spilled = {fn: r for rep in ptxas.values() for fn, r in rep.items()
+               if any(k in fn for k in NO_SPILL_KERNELS)
+               and (r.get("spill_stores") or r.get("spill_loads"))}
     emit(dict(phase="build", seconds=time.perf_counter() - t0,
               libraries=[os.path.relpath(p, HERE) for p in libs.values()],
-              ptxas=ptxas))
+              ptxas=ptxas, no_spill_kernels=list(NO_SPILL_KERNELS),
+              spilled=spilled))
+    if spilled:
+        raise AssertionError(f"ptxas spilled in {sorted(spilled)}")
     gen = torch.Generator(device="cuda").manual_seed(0)
     flash_rows = check_flash(torch, fa, gen)
     paged_row = check_paged(torch, pa, gen)
@@ -2374,7 +2558,7 @@ def main() -> int:
     paged_int8_rows = check_paged_int8(torch, pa, quant, gen)
     kn = selection_kernels()
     stock_rows = check_stock(torch, kn, gen)
-    splash_rows = check_splash(torch, kn, gen)
+    splash_rows = check_splash(torch, kn, fa, gen)
     train_rows = check_train_kernels(torch, fa, gen)
 
     # Phase 3: the main path, llama3-8b width, bf16, attn_impl="auto".
@@ -2544,7 +2728,13 @@ def main() -> int:
               device_ms_by_category_3_steps=dict(
                   serving=serve_row["profile_3_steps"].get("by_category_ms"),
                   selected=sel_row["profile_3_steps"].get(
-                      "by_category_ms"))))
+                      "by_category_ms")),
+              device_ms_by_category_insert=dict(
+                  serving=serve_row["profile_insert"].get("by_category_ms"),
+                  selected=sel_row["profile_insert"].get("by_category_ms")),
+              insert_device_ms=dict(
+                  serving=serve_row["profile_insert"]["device_ms"],
+                  selected=sel_row["profile_insert"]["device_ms"])))
 
     # Phase 6: paged = gathered = standalone generate.
     paged_invariant(torch, ptl, engine, serving, params, cfg, tok)
@@ -2715,8 +2905,7 @@ def main() -> int:
              replaces="jax_llama_tpu/ops/kernels.py:428 (_stock_launch, "
              ":361, <- stock_paged_decode, :473)",
              launches=paths["selected_serving"]["stock_paged"],
-             launches_by_path=by_path("stock_paged"),
-             launches_per_call=kn.STOCK_KERNELS_PER_CALL, shape="serving",
+             launches_by_path=by_path("stock_paged"), shape="serving",
              max_abs_err=max(r["worst_row_rel"] for r in stock_rows.values()),
              max_abs_err_is="the worst live row's max abs err over its own "
              "max |plain|, bf16 and float32",
@@ -2725,9 +2914,11 @@ def main() -> int:
              "combine), cold-L2; event_ms times the host-bound wrapper",
              event_ms=stock_rows["bfloat16"]["ms"],
              **{k: stock_rows["bfloat16"][k] for k in (
-                 "warm_ms", "plain_ms", "bound_ms", "bound_by",
-                 "library_ms")},
-             float32_ms=stock_rows["float32"]["device_ms"]),
+                 "host_ms", "warm_ms", "plain_ms", "bound_ms", "bound_by",
+                 "library_ms", "instance")},
+             launches_by_instance=sel_row["instances"]["stock_by_instance"],
+             float32_ms=stock_rows["float32"]["device_ms"],
+             float32_instance=stock_rows["float32"]["instance"]),
         dict(name="splash_prefill", route="cuda",
              source="jax_llama_tpu_torch/csrc/splash_prefill.cu",
              replaces="jax_llama_tpu/ops/kernels.py:264 (splash_prefill, "
@@ -2740,11 +2931,13 @@ def main() -> int:
              "own max |plain|, bf16 and float32, insert and chunk",
              **{k: splash_rows["insert_bfloat16"][k] for k in (
                  "ms", "device_ms", "warm_ms", "plain_ms", "bound_ms",
-                 "bound_by", "library_ms")},
+                 "bound_by", "library_ms", "instance")},
+             launches_by_instance=sel_row["instances"]["splash_by_instance"],
              float32_ms=splash_rows["insert_float32"]["ms"],
              chunk={k: splash_rows["chunk_bfloat16"][k] for k in (
                  "T", "S", "chunk_offset", "ms", "device_ms", "warm_ms",
-                 "plain_ms", "bound_ms", "bound_by", "library_ms")}),
+                 "plain_ms", "bound_ms", "bound_by", "library_ms",
+                 "instance")}),
     ]})
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

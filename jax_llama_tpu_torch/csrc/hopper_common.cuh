@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks for the port's TMA + wgmma kernels
-// (the Hopper instances of flash_fwd.cu and flash_bwd.cu): shared-memory
-// addresses, mbarriers, 4-D TMA tile loads and 1-D bulk copies, wgmma
+// (the Hopper instances of flash_fwd.cu, flash_bwd.cu and
+// splash_prefill.cu): shared-memory addresses, mbarriers, the async-proxy
+// fence and named barriers, 4-D TMA tile loads and 1-D bulk copies, wgmma
 // shared-memory descriptors and the wgmma instructions, in raw PTX so the
 // build needs no headers beyond the CUDA toolkit's; and, on the host,
 // the 4-D bf16 tensor map of a TMA load, encoded by
@@ -66,6 +67,23 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
 // The barriers' initialisation made visible to the async proxy (TMA).
 __device__ __forceinline__ void mbar_init_fence() {
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// This thread's generic-proxy writes to shared memory made visible to the
+// async proxy (wgmma operand reads, TMA), ahead of a barrier that hands
+// the tile on.
+__device__ __forceinline__ void fence_proxy_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Named barrier `id` (1..15; 0 is __syncthreads') over `count` threads, a
+// multiple of 32: wait for the others, or arrive without waiting.
+__device__ __forceinline__ void named_bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void named_bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
 // One TMA tile load of a 4-D tensor map at coordinates (c0 innermost ..

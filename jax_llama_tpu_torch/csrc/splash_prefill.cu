@@ -18,66 +18,63 @@
 //
 // Layout: q and out [B, T, H, d], k and v [B, S, KVH, d], contiguous; GQA
 // is native (query head h reads KV head h / G).  d = 128; T and S are
-// multiples of 64 here (the wrapper asks 128, as `splash_eligible` does).
+// multiples of 128 (the wrapper's rule, as `splash_eligible`'s).
 //
 // What bounds it on an H100: at the serving insert (B = 8, T = S = 1024,
 // H = 32, d = 128, offset 0) the live (query, column) pairs need ~69
 // GFLOP of tensor-core work, ~0.07 ms at the bf16 peak, against ~67 MB
-// of q, k, v and out, ~0.02 ms of HBM: operations bound it.  The design
-// is written apart from the flash kernel (flash_fwd.cu, which packs the G
-// heads of a KV head into one block's rows and masks every tile from
-// position arrays):
-//   * One block per (64-query tile, query head, row), 4 warps of 16 rows.
-//     The mask is the static offset alone: the K/V loop stops at
-//     min(S, tile end + offset), so tiles wholly above the diagonal are
-//     never loaded, and only tiles that reach past the tile's first
-//     row's limit apply a mask.
-//   * K/V tiles of 64 columns are double-buffered in dynamic shared
-//     memory: the next tile's cp.async copies are in flight while this
-//     tile's products run.
-//   * K is scaled by d^-0.25 and rounded to bf16 once per tile in shared
-//     memory; q once into the warps' registers.
-//   * bf16 products on the tensor cores (mma.sync m16n8k16, float32
-//     accumulate); scores, the online softmax (base 2) and the output
-//     accumulator stay in registers; P is rounded to bf16 for the P.V
-//     product (upstream splash keeps P in float32: a difference of at
-//     most one bf16 rounding per term).
-//   * A 64-query tile, not 128: at ~170 registers a thread, 8 warps of a
-//     128-query tile would fit one block per SM; three 4-warp blocks fit.
+// of q, k, v and out, ~0.02 ms of HBM: operations bound it.  The bf16
+// instance is the flash forward's Hopper design (flash_fwd.cu, namespace
+// wg) without position arrays, lse or dropout:
+//   * A persistent grid: one block per SM walks the work items (128 query
+//     rows of one query head of one row) i = blockIdx.x, + gridDim.x, ...,
+//     late query tiles first (they hold the most live columns), so the
+//     next item's Q and first K/V tiles load under the current item's
+//     last tiles and stores.  384 threads: a producer warpgroup and two
+//     consumer warpgroups of 64 rows.
+//   * The producer keeps NST = 3 K/V stages in flight with TMA, issued by
+//     one thread whose cursor runs ahead across items (4-D tensor maps
+//     over [B, S, KVH, d], two 64-column boxes of 128 slots per tile,
+//     128-byte swizzle); an item's Q lands once both consumer warpgroups
+//     have issued their last product on the previous item's Q.  The mask
+//     is the static offset alone: an item's walk ends at min(S, t0 + 128
+//     + offset), so tiles wholly above the diagonal are never loaded.
+//   * The two roundings, in shared memory.  TMA lands K unscaled; the
+//     producer's four warps (one on each SM sub-partition) scale each
+//     stage in place to k' = round(k d^-0.25) (elementwise, so the
+//     swizzle does not matter), make their writes visible to the async
+//     proxy (fence.proxy.async) and only then release the stage to the
+//     consumers, whose wgmma reads it.  They scale tile t while the
+//     consumers run tile t - 1, and the stage of t - 1 is refilled once
+//     the consumers release it.  One producer warp scaling alone was
+//     slower (PERF.md).  Each consumer warpgroup scales its own 64
+//     rows of Q once the same way, then syncs on a named barrier of its
+//     128 threads.
+//   * S = Q'K'^T by wgmma m64n128k16 from shared memory; base-2 online
+//     softmax in registers; the per-element mask only on a tile that
+//     crosses a row's limit (column <= t + offset); O += P V by wgmma
+//     with P from registers, rounded to bf16 (upstream splash keeps P in
+//     float32: a difference of at most one bf16 rounding per term).
+//   * Ping-pong between the two consumer warpgroups (FA3's schedule): two
+//     named barriers make their S products alternate, so one warpgroup's
+//     softmax overlaps the other's tensor-core work (PERF.md).
+//   * 168 registers a thread at most (384 threads).
 // The float32 instance (float32 activations) runs on the CUDA cores: one
 // warp per query row, 32-column tiles.
-// Not done yet (later work): wgmma and TMA, a persistent schedule that
-// balances the causal triangle's uneven tiles.
+// Not done yet (later work): a schedule that balances the causal
+// triangle's uneven items across SMs by their cost (today: round robin,
+// longest first), and overlap of one warpgroup's softmax with its own
+// next S (registers: 168 a thread at most).
 
 #include "flash_common.cuh"
+#include "hopper_common.cuh"
 
 namespace {
 
-using flash::ld32;
-using flash::mma_bf16;
 using flash::pack_bf16x2;
-using flash::pack_raw;
 using flash::warp_sum;
 
-constexpr int SBM = 64;            // query rows per block
-constexpr int SBN = 64;            // cache columns per K/V tile
-constexpr int SWARPS = SBM / 16;   // 16 rows per warp
-constexpr int STHREADS = SWARPS * 32;
 constexpr float LOG2E = 1.4426950408889634f;
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
-               "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::);
-}
 
 // Two bf16 values (one 32-bit word) times `s`, each rounded to bf16.
 __device__ __forceinline__ uint32_t scale_word(uint32_t w, float s) {
@@ -85,199 +82,299 @@ __device__ __forceinline__ uint32_t scale_word(uint32_t w, float s) {
                      __uint_as_float(w & 0xffff0000u) * s);
 }
 
-template <int D>
-constexpr int smem_bytes() {
-  return 2 * 2 * SBN * (D + 8) * 2;  // 2 stages x (K, V) x padded tile
+// 16 bytes of bf16 in shared memory scaled in place.
+__device__ __forceinline__ void scale_16b(unsigned char* p, float s) {
+  uint4* v = reinterpret_cast<uint4*>(p);
+  uint4 x = *v;
+  x.x = scale_word(x.x, s);
+  x.y = scale_word(x.y, s);
+  x.z = scale_word(x.z, s);
+  x.w = scale_word(x.w, s);
+  *v = x;
 }
 
-template <int D>
-__global__ void __launch_bounds__(STHREADS)
-splash_bf16_kernel(const uint16_t* __restrict__ q,
-                   const uint16_t* __restrict__ k,
-                   const uint16_t* __restrict__ v, uint16_t* __restrict__ out,
-                   int T, int S, int H, int KVH, int offset, float scale) {
-  static_assert(D % 16 == 0 && D <= 128, "head_dim");
-  constexpr int LD = D + 8;  // padded shared row, in bf16 elements
-  constexpr int KSTEPS = D / 16;
-  constexpr int DBLK = D / 8;
-  constexpr int NBLK = SBN / 8;
-  constexpr int TILE = SBN * LD;
-  extern __shared__ __align__(16) uint16_t smem[];  // [stage][K, V][TILE]
+namespace sw {
+
+constexpr int D = 128;
+constexpr int BM = 128;               // query rows per block
+constexpr int BN = 128;               // columns per K/V tile
+constexpr int NST = 3;                // K/V stages
+constexpr int NCONS = 256;             // two consumer warpgroups
+constexpr int NPROD = 128;             // four producer warps
+constexpr int NTHREADS = NCONS + NPROD;
+constexpr int ROW = 128;              // bytes per swizzled row (64 bf16)
+constexpr int Q_BYTES = BM * D * 2;
+constexpr int KV_BYTES = BN * D * 2;  // one K or V tile: two 64-column boxes
+constexpr int OFF_Q = 0;
+constexpr int OFF_K = OFF_Q + Q_BYTES;
+constexpr int OFF_V = OFF_K + NST * KV_BYTES;
+// Barriers: Q landed, Q free, then load, full and empty per stage.
+constexpr int OFF_BAR = OFF_V + NST * KV_BYTES;
+constexpr int BYTES = OFF_BAR + (2 + 3 * NST) * 8;
+constexpr int SMEM = BYTES + 1024;               // + slack to align to 1024
+static_assert(SMEM <= 232448, "shared memory of one block");
+
+// The producer's TMA loads of K/V tile (s0 .. s0 + BN) into stage s,
+// counted on that stage's load barrier (the producer's first thread).
+__device__ __forceinline__ void issue_kv(const CUtensorMap* tk,
+                                         const CUtensorMap* tv, uint32_t base,
+                                         int s, int s0, int kvh, int b) {
+  using namespace hopper;
+  const uint32_t bar = base + OFF_BAR + 8u * (2 + s);
+  const uint32_t kd = base + OFF_K + s * KV_BYTES;
+  const uint32_t vd = base + OFF_V + s * KV_BYTES;
+  mbar_arrive_tx(bar, 2 * KV_BYTES);
+  tma_load_4d(kd, tk, bar, 0, kvh, s0, b);
+  tma_load_4d(kd + BN * ROW, tk, bar, 64, kvh, s0, b);
+  tma_load_4d(vd, tv, bar, 0, kvh, s0, b);
+  tma_load_4d(vd + BN * ROW, tv, bar, 64, kvh, s0, b);
+}
+
+// Work item i: 128 query rows (from t0) of query head h of row b, late
+// query tiles first, and its K/V tile count.
+struct Item {
+  int t0, h, b, kvh, n;
+  __device__ Item(int i, int B, int T, int S, int H, int G, int offset) {
+    const int x = i % (B * H), y = i / (B * H);
+    t0 = (T / BM - 1 - y) * BM;
+    h = x % H;
+    b = x / H;
+    kvh = h / G;
+    n = (min(S, t0 + BM + offset) + BN - 1) / BN;
+  }
+};
+
+}  // namespace sw
+
+__global__ void __launch_bounds__(sw::NTHREADS, 1)
+splash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv,
+                    uint16_t* __restrict__ out, int B, int T, int S, int H,
+                    int KVH, int offset, float scale) {
+  using namespace sw;
+  using namespace hopper;
+  extern __shared__ unsigned char smem_raw[];
+  // TMA boxes and swizzle atoms want 1024-byte alignment.
+  const uint32_t raw_addr = smem_addr(smem_raw);
+  const uint32_t base = (raw_addr + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw_addr);
+  const uint32_t bar_q = base + OFF_BAR;          // Q landed
+  const uint32_t bar_q_free = bar_q + 8u;         // Q read by both groups
+  auto bar_load = [&](int s) { return bar_q + 8u * (2 + s); };
+  auto bar_full = [&](int s) { return bar_q + 8u * (2 + NST + s); };
+  auto bar_empty = [&](int s) { return bar_q + 8u * (2 + 2 * NST + s); };
 
   const int G = H / KVH;
-  const int q0 = blockIdx.x * SBM, h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / G;
+  const int n_items = B * H * (T / BM);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int grp = lane >> 2, tig = lane & 3;
-  // The block's last row attends up to column q0 + SBM - 1 + offset.
-  const int n_cols = min(S, q0 + SBM + offset);
-  const int n_tiles = (n_cols + SBN - 1) / SBN;
 
-  auto load_tile = [&](int tile, int stage) {
-    uint16_t* ks = smem + stage * 2 * TILE;
-    uint16_t* vs = ks + TILE;
-    const int s0 = tile * SBN;
-    for (int c = tid; c < SBN * (D / 8); c += STHREADS) {
-      const int row = c / (D / 8);
-      const int col = (c % (D / 8)) * 8;
-      const int s = s0 + row;
-      if (s < S) {
-        const size_t g = ((size_t)(b * S + s) * KVH + kvh) * D + col;
-        cp_async16(&ks[row * LD + col], k + g);
-        cp_async16(&vs[row * LD + col], v + g);
-      } else {
-        *reinterpret_cast<uint4*>(&ks[row * LD + col]) = make_uint4(0, 0, 0, 0);
-        *reinterpret_cast<uint4*>(&vs[row * LD + col]) = make_uint4(0, 0, 0, 0);
+  if (tid == 0) {
+    mbar_init(bar_q, 1);
+    mbar_init(bar_q_free, NCONS);
+    for (int s = 0; s < NST; ++s) {
+      mbar_init(bar_load(s), 1);
+      mbar_init(bar_full(s), NPROD);
+      mbar_init(bar_empty(s), NCONS);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp >= NCONS / 32) {
+    // Producer.  The first warp waits for released stages and its first
+    // thread issues; the issue cursor (item ii, tile it) runs NST tiles
+    // ahead of the scaling walk, across this block's items.  For each
+    // tile g of the walk: wait for its bytes, scale K in place (all four
+    // warps), release it to the consumers, and refill the stage of g - 1
+    // with the cursor's next tile once the consumers have released g - 1.
+    const int ptid = tid - NCONS;
+    const bool issuer = ptid == 0, waiter = warp == NCONS / 32;
+    int ii = blockIdx.x, it = 0, issued = 0;
+    Item cur(ii < n_items ? ii : 0, B, T, S, H, G, offset);
+    auto issue_next = [&]() {
+      if (issuer) {
+        issue_kv(&tk, &tv, base, issued % NST, it * BN, cur.kvh, cur.b);
       }
-    }
-    cp_async_commit();
-  };
-  load_tile(0, 0);
-
-  // This thread's two query rows (grp and grp + 8 of the warp's 16), their
-  // column limits, and their scaled q fragments.
-  int limit[2];
-  size_t orow[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int t = q0 + warp * 16 + grp + 8 * i;
-    limit[i] = t + offset;
-    orow[i] = ((size_t)(b * T + t) * H + h) * D;
-  }
-  uint32_t qf[KSTEPS][4];
-#pragma unroll
-  for (int kk = 0; kk < KSTEPS; ++kk) {
-    const int c = kk * 16 + tig * 2;
-    qf[kk][0] = scale_word(ld32(q + orow[0] + c), scale);
-    qf[kk][1] = scale_word(ld32(q + orow[1] + c), scale);
-    qf[kk][2] = scale_word(ld32(q + orow[0] + c + 8), scale);
-    qf[kk][3] = scale_word(ld32(q + orow[1] + c + 8), scale);
-  }
-
-  float m[2] = {-INFINITY, -INFINITY};
-  float l[2] = {0.f, 0.f};  // partial row sums over this thread's columns
-  float o[DBLK][4];
-#pragma unroll
-  for (int nb = 0; nb < DBLK; ++nb) {
-    o[nb][0] = o[nb][1] = o[nb][2] = o[nb][3] = 0.f;
-  }
-
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    const int stage = tile & 1;
-    uint16_t* ks = smem + stage * 2 * TILE;
-    const uint16_t* vs = ks + TILE;
-    const int s0 = tile * SBN;
-    cp_async_wait_all();
-    __syncthreads();  // this tile has landed; the other stage is free
-    // k' = round(k * d^-0.25), once per tile.
-    for (int c = tid; c < SBN * (D / 8); c += STHREADS) {
-      uint4* p = reinterpret_cast<uint4*>(
-          &ks[(c / (D / 8)) * LD + (c % (D / 8)) * 8]);
-      uint4 x = *p;
-      x.x = scale_word(x.x, scale);
-      x.y = scale_word(x.y, scale);
-      x.z = scale_word(x.z, scale);
-      x.w = scale_word(x.w, scale);
-      *p = x;
-    }
-    __syncthreads();
-    if (tile + 1 < n_tiles) load_tile(tile + 1, stage ^ 1);
-
-    // S = Q' K'^T for this warp's 16 rows x SBN columns.
-    float sc[NBLK][4];
-#pragma unroll
-    for (int nb = 0; nb < NBLK; ++nb) {
-      sc[nb][0] = sc[nb][1] = sc[nb][2] = sc[nb][3] = 0.f;
-    }
-#pragma unroll
-    for (int kk = 0; kk < KSTEPS; ++kk) {
-#pragma unroll
-      for (int nb = 0; nb < NBLK; ++nb) {
-        const uint16_t* kr = &ks[(nb * 8 + grp) * LD + kk * 16 + tig * 2];
-        mma_bf16(sc[nb], qf[kk], ld32(kr), ld32(kr + 8));
+      ++issued;
+      if (++it == cur.n) {
+        it = 0;
+        ii += gridDim.x;
+        if (ii < n_items) cur = Item(ii, B, T, S, H, G, offset);
       }
-    }
-
-    // Base 2; the causal-offset mask only where the tile reaches past the
-    // block's first row's limit.
-    const bool diag = s0 + SBN - 1 > q0 + offset;
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int nb = 0; nb < NBLK; ++nb) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e >> 1;
-        float s = sc[nb][e] * LOG2E;
-        if (diag && s0 + nb * 8 + tig * 2 + (e & 1) > limit[i]) {
-          s = -INFINITY;
+    };
+    for (int k = 0; k < NST && ii < n_items; ++k) issue_next();
+    int g = 0;
+    int k = 0;
+    for (int i = blockIdx.x; i < n_items; i += gridDim.x, ++k) {
+      const Item item(i, B, T, S, H, G, offset);
+      if (issuer) {
+        if (k > 0) mbar_wait(bar_q_free, (k - 1) & 1u);
+        mbar_arrive_tx(bar_q, Q_BYTES);
+        tma_load_4d(base + OFF_Q, &tq, bar_q, 0, item.h, item.t0, item.b);
+        tma_load_4d(base + OFF_Q + BM * ROW, &tq, bar_q, 64, item.h, item.t0,
+                    item.b);
+      }
+      for (int t = 0; t < item.n; ++t, ++g) {
+        const int s = g % NST;
+        mbar_wait(bar_load(s), (g / NST) & 1u);
+        unsigned char* kt = smem + OFF_K + s * KV_BYTES;
+#pragma unroll 8
+        for (int j = ptid; j < KV_BYTES / 16; j += NPROD) {
+          scale_16b(kt + 16 * j, scale);
         }
-        sc[nb][e] = s;
-        mx[i] = fmaxf(mx[i], s);
+        fence_proxy_async_shared();
+        mbar_arrive(bar_full(s));
+        const int u = g - 1;  // the tile whose stage is refilled next
+        if (waiter && u >= 0 && ii < n_items) {
+          mbar_wait(bar_empty(u % NST), (u / NST) & 1u);
+          issue_next();
+        }
       }
     }
-    float alpha[2], m_use[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      const float m_new = fmaxf(m[i], mx[i]);
-      m_use[i] = m_new == -INFINITY ? 0.f : m_new;
-      alpha[i] = exp2f(m[i] - m_use[i]);
-      m[i] = m_new;
-      l[i] *= alpha[i];
-    }
-#pragma unroll
-    for (int nb = 0; nb < DBLK; ++nb) {
-      o[nb][0] *= alpha[0];
-      o[nb][1] *= alpha[0];
-      o[nb][2] *= alpha[1];
-      o[nb][3] *= alpha[1];
-    }
-#pragma unroll
-    for (int nb = 0; nb < NBLK; ++nb) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = exp2f(sc[nb][e] - m_use[e >> 1]);
-        l[e >> 1] += p;
-        sc[nb][e] = p;
-      }
-    }
-
-    // O += P V: the score accumulators of n-blocks 2j, 2j+1 are the A
-    // fragment of k-step j; P is rounded to bf16 here.
-#pragma unroll
-    for (int j = 0; j < SBN / 16; ++j) {
-      uint32_t a[4];
-      a[0] = pack_bf16x2(sc[2 * j][0], sc[2 * j][1]);
-      a[1] = pack_bf16x2(sc[2 * j][2], sc[2 * j][3]);
-      a[2] = pack_bf16x2(sc[2 * j + 1][0], sc[2 * j + 1][1]);
-      a[3] = pack_bf16x2(sc[2 * j + 1][2], sc[2 * j + 1][3]);
-      const int r0 = j * 16 + tig * 2;
-#pragma unroll
-      for (int nb = 0; nb < DBLK; ++nb) {
-        const int col = nb * 8 + grp;
-        const uint32_t b0 =
-            pack_raw(vs[r0 * LD + col], vs[(r0 + 1) * LD + col]);
-        const uint32_t b1 =
-            pack_raw(vs[(r0 + 8) * LD + col], vs[(r0 + 9) * LD + col]);
-        mma_bf16(o[nb], a, b0, b1);
-      }
-    }
+    return;
   }
 
-  // Normalise and store (every row attended column 0, so l > 0).
+  // Consumers: warpgroup wgi owns the item's rows [64 wgi, 64 wgi + 64);
+  // in the wgmma accumulator, warp wl's lane holds rows 16 wl + lane/4
+  // (+8) and columns 8 i + 2 (lane % 4) (+1) of chunk i.
+  const int wgi = tid >> 7, wl = warp & 3;
+  const int grp = lane >> 2, tig = lane & 3;
+  const uint32_t qa = base + OFF_Q + wgi * 64 * ROW;
+  int g = 0, k = 0;
+  for (int i = blockIdx.x; i < n_items; i += gridDim.x, ++k) {
+    const Item item(i, B, T, S, H, G, offset);
+    const int r_first = item.t0 + 64 * wgi;
+    int limit[2];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-  }
+    for (int r = 0; r < 2; ++r) {
+      limit[r] = r_first + 16 * wl + grp + 8 * r + offset;
+    }
+    float o[64];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    uint16_t* orp = out + orow[i];
+    for (int j = 0; j < 64; ++j) o[j] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY};
+    float l[2] = {0.f, 0.f};
+
+    // q' = round(q d^-0.25) for this warpgroup's 64 rows (both boxes).
+    mbar_wait(bar_q, k & 1u);
+    for (int j = tid & 127; j < 2 * 64 * ROW / 16; j += 128) {
+      const int box = j / (64 * ROW / 16), c = j % (64 * ROW / 16);
+      scale_16b(smem + OFF_Q + box * BM * ROW + wgi * 64 * ROW + 16 * c,
+                scale);
+    }
+    fence_proxy_async_shared();
+    named_bar_sync(1 + wgi, 128);
+
+    // Ping-pong: warpgroup w issues its S products only after the other
+    // has issued its own (named barrier 3 + w, which the other arrives
+    // at), so one warpgroup's softmax runs under the other's products.
+    // Both walk every tile (a tile past all of warpgroup 0's rows is
+    // masked whole), so each barrier sees item.n syncs and item.n
+    // arrivals an item: warpgroup 1 arrives once ahead and skips its last.
+    if (wgi == 1) named_bar_arrive(3, NCONS);
+    for (int t = 0; t < item.n; ++t, ++g) {
+      const int s = g % NST, s0 = t * BN;
+      mbar_wait(bar_full(s), (g / NST) & 1u);
+      const bool full = s0 + BN - 1 <= r_first + offset;
+      const uint32_t kb = base + OFF_K + s * KV_BYTES;
+      const uint32_t vb = base + OFF_V + s * KV_BYTES;
+      // S = Q'K'^T: 8 k-steps of 16, four in each 64-column box; within a
+      // swizzled row a k-step is 32 bytes on from the last.
+      float sc[64];
+      named_bar_sync(3 + wgi, NCONS);
+      wgmma_fence();
 #pragma unroll
-    for (int nb = 0; nb < DBLK; ++nb) {
-      *reinterpret_cast<uint32_t*>(orp + nb * 8 + tig * 2) =
-          pack_bf16x2(o[nb][2 * i] / l[i], o[nb][2 * i + 1] / l[i]);
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk & 3) * 32;
+        wgmma_m64n128_ss(
+            sc, sw128_desc(qa + (kk >> 2) * BM * ROW + off, 16, 1024),
+            sw128_desc(kb + (kk >> 2) * BN * ROW + off, 16, 1024), kk > 0);
+      }
+      wgmma_commit();
+      if (!(wgi == 1 && t == item.n - 1)) named_bar_arrive(4 - wgi, NCONS);
+      wgmma_wait_all();
+      reg_fence(sc);
+      if (t == item.n - 1) mbar_arrive(bar_q_free);  // the item's Q is read
+
+      // Base-2 scores; the offset mask only where the tile crosses a row's
+      // limit; row max over the quad.  Every row attended column 0 in tile
+      // 0, so the running max is finite from then on, and a tile masked
+      // whole adds p = 0 with alpha = 1.
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = sc[4 * j + e] * LOG2E;
+          if (!full && s0 + 8 * j + 2 * tig + (e & 1) > limit[e >> 1]) {
+            x = -INFINITY;
+          }
+          sc[4 * j + e] = x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+      }
+      float m_use[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m[r], mx[r]);
+        m_use[r] = m_new == -INFINITY ? 0.f : m_new;
+        const float alpha = exp2f(m[r] - m_use[r]);
+        m[r] = m_new;
+        l[r] *= alpha;
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          o[4 * j + 2 * r] *= alpha;
+          o[4 * j + 2 * r + 1] *= alpha;
+        }
+      }
+      // P rounded to bf16 into the A fragments: chunks 2j, 2j+1 are k-step
+      // j.
+      uint32_t pa[8][4];
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        float p[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          p[e] = exp2f(sc[4 * j + e] - m_use[e >> 1]);
+          l[e >> 1] += p[e];
+        }
+        pa[j >> 1][2 * (j & 1)] = pack_bf16x2(p[0], p[1]);
+        pa[j >> 1][2 * (j & 1) + 1] = pack_bf16x2(p[2], p[3]);
+      }
+      // O += P V: V is the MN-major B operand (d contiguous): 8 slots of
+      // 128 bytes per swizzle atom (stride 1024 bytes along k), the second
+      // 64 columns one box (BN rows) on; k-step j starts 16 rows on.
+      reg_fence(o);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < BN / 16; ++j) {
+        wgmma_m64n128_rs(o, pa[j],
+                         sw128_desc(vb + j * 16 * ROW, BN * ROW, 1024));
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      reg_fence(o);
+      mbar_arrive(bar_empty(s));
+    }
+
+    // Normalise and store (every row attended column 0, so l > 0).
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int t = r_first + 16 * wl + grp + 8 * r;
+      uint16_t* orow = out + ((size_t)(item.b * T + t) * H + item.h) * D;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * tig) =
+            pack_bf16x2(o[4 * j + 2 * r] / l[r], o[4 * j + 2 * r + 1] / l[r]);
+      }
     }
   }
 }
@@ -341,43 +438,75 @@ splash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int i = 0; i < DPL; ++i) out[orow + lane + 32 * i] = acc[i] / l;
 }
 
+// The instance, as the C entry point reports it; the wrapper names it
+// (``splash_instance_name``).
+constexpr int INSTANCE_WGMMA = 1;
+constexpr int INSTANCE_FLOAT32 = 2;
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and out alike).  scale =
-// d^-0.25.  Returns the cudaError_t of the launch (0 on success).
-// Launches on `stream` and does not synchronise.
+// d^-0.25.  bf16 runs the Hopper instance: it encodes the three tensor
+// maps (they hold the base pointers) for this call.  Returns the
+// cudaError_t of the launch (0 on success), cudaErrorInvalidValue for a
+// shape it does not take or a tensor map the encoder refuses.  Launches
+// on `stream` and does not synchronise.  *instance is the instance
+// launched once its launch succeeds (INSTANCE_WGMMA, INSTANCE_FLOAT32),
+// 0 if none did.
 extern "C" int splash_prefill(const void* q, const void* k, const void* v,
                               void* out, int B, int T, int S, int H, int KVH,
                               int D, int offset, int dtype, float scale,
-                              void* stream) {
-  if (B <= 0 || T <= 0 || S <= 0 || KVH <= 0 || H % KVH != 0 || B > 65535 ||
-      H > 65535 || offset < 0 || T % SBM != 0 || S % SBN != 0 || D != 128) {
+                              void* stream, int* instance) {
+  *instance = 0;
+  if (B <= 0 || T <= 0 || S <= 0 || KVH <= 0 || H % KVH != 0 ||
+      offset < 0 || T % sw::BM != 0 || S % sw::BN != 0 || D != sw::D ||
+      (long)B * H * (T / sw::BM) > 2147483647L) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
-    constexpr int bytes = smem_bytes<128>();
-    static bool opted_in = false;  // above 48 KB: dynamic shared memory
-    if (!opted_in) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          splash_bf16_kernel<128>,
-          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-      if (err != cudaSuccess) return (int)err;
-      opted_in = true;
+    CUtensorMap tq, tk, tv;
+    if (!hopper::encode_bf16_4d(&tq, q, D, H, T, B, sw::BM) ||
+        !hopper::encode_bf16_4d(&tk, k, D, KVH, S, B, sw::BN) ||
+        !hopper::encode_bf16_4d(&tv, v, D, KVH, S, B, sw::BN)) {
+      return (int)cudaErrorInvalidValue;
     }
-    const dim3 grid(T / SBM, H, B);
-    splash_bf16_kernel<128><<<grid, STHREADS, bytes, st>>>(
-        static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
-        static_cast<const uint16_t*>(v), static_cast<uint16_t*>(out), T, S,
-        H, KVH, offset, scale);
+    // Once per device: the opt-in above 48 KB of dynamic shared memory,
+    // and the SM count that sizes the persistent grid (one block per SM,
+    // or one per item).
+    static int cached_device = -1, n_sm = 0;
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return (int)err;
+    if (dev != cached_device) {
+      err = cudaFuncSetAttribute(splash_wgmma_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 sw::SMEM);
+      if (err == cudaSuccess) {
+        err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount,
+                                     dev);
+      }
+      if (err != cudaSuccess) return (int)err;
+      cached_device = dev;
+    }
+    const long n_items = (long)B * H * (T / sw::BM);
+    const unsigned grid = (unsigned)(n_items < n_sm ? n_items : n_sm);
+    splash_wgmma_kernel<<<grid, sw::NTHREADS, sw::SMEM, st>>>(
+        tq, tk, tv, static_cast<uint16_t*>(out), B, T, S, H, KVH, offset,
+        scale);
+    err = cudaGetLastError();
+    if (err == cudaSuccess) *instance = INSTANCE_WGMMA;
+    return (int)err;
   } else if (dtype == 0) {
+    if (B > 65535 || H > 65535) return (int)cudaErrorInvalidValue;
     const dim3 grid(T / F32_ROWS, H, B);
     splash_f32_kernel<4><<<grid, F32_ROWS * 32, 0, st>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(out), T, S, H, KVH,
         offset, scale);
-  } else {
-    return (int)cudaErrorInvalidValue;
+    const cudaError_t err = cudaGetLastError();
+    if (err == cudaSuccess) *instance = INSTANCE_FLOAT32;
+    return (int)err;
   }
-  return (int)cudaGetLastError();
+  return (int)cudaErrorInvalidValue;
 }

@@ -37,43 +37,71 @@
 // head, live slot) and reads 2*d*bytes(pool) per (KV head, live slot): at
 // G = 4 about 4 FLOP per byte, far below the ~295 at which the tensor
 // cores would be the limit.  The least time is the live slots' K/V over
-// HBM bandwidth.  The design is split-KV flash-decoding, as the paged
+// HBM bandwidth, and what keeps a kernel from it is how much of that K/V
+// is in flight at once and how many round trips to memory each block
+// waits for in turn.  The design is split-KV flash-decoding, as the paged
 // kernel's (paged_decode.cu, which keeps the positional mask, T > 1 and
 // int8 pools that this slot does not take):
-//   * Split pass: one block per (split of `split` slots, KV head, row).
-//     At llama3-8b's serving shape (8 rows, 8 KV heads, 2048-slot rows)
-//     that is up to 8 x 64 = 512 blocks on 132 SMs, against 64 for one
-//     block per (row, KV head): more of the row's K/V is in flight at
-//     once.  A block
-//     whose split starts at or past the row's length returns at once.
-//     Each block walks its slots in tiles (64 bf16 or 32 float32 slots of
-//     d values), copied into shared memory with cp.async, 16 bytes a copy;
-//     each slot's row address comes from the table, so any block size
-//     works.  Scores: each slot's dot products for all G query heads are
-//     taken by 2 (bf16) or 4 (float32) threads over interleaved 16-byte
-//     chunks of the row, the K tile padded so that no two threads of a
-//     quarter-warp hit one bank, then joined by shuffles.  The online
-//     softmax (m, l) runs per query head in float32, one warp each; the
-//     output accumulator holds one feature column per thread.  The block
-//     writes its unnormalised partial (o, m, l).
+//   * Split pass: one block per (split of `split` slots, KV head, row),
+//     four warps.  A block whose split starts at or past the row's length
+//     returns at once.  The block first lists its split's source rows in
+//     shared memory (the flat slot, -2 for a sentinel entry, -1 past the
+//     row's length; any block size works, and a run of 16 slots may
+//     cross a page).  Then each warp runs on its own, with no block-wide
+//     barrier: it takes the split's 16-slot chunks w, w + 4, w + 8, ...
+//     and keeps NST = 2 of them in flight in its own ring of shared
+//     memory (cp.async, 16 bytes a copy; a sentinel or a slot past the
+//     length is zero-filled by the copy itself and never read).  The
+//     split size is the wrapper's (STOCK_SPLIT, 512 slots): measured at
+//     the serving shape against 128 and 256, it gave the fewest partials
+//     for the combine pass to read and the least device time (PERF.md).
+//   * Tensor cores for every dtype: S = q3 K^T and O += P V by mma.sync
+//     m16n8k16 (bf16 in, float32 accumulate), the G <= 8 query heads of
+//     the KV head as the rows of one m-tile (rows G..15 are zero).  K and
+//     V are bf16 values whatever the pool: a bf16 pool's tile is the
+//     operand as it lies, a float32 pool's values are rounded to bf16 as
+//     each fragment is read (the function rounds K/V to bf16 anyway).
+//     The stock body keeps q3 and P in float32, so the kernel hands the
+//     tensor cores float32 values split into bf16 terms: a float32 q3
+//     and every P as hi + mid + lo (three products; each term the rounded
+//     remainder of the ones before it, so the three carry the float32
+//     value); a bf16 q3 is one term.  The products are exact and the sums
+//     float32, so the result is the CUDA-core arithmetic's up to
+//     summation order.  A float32 q thus runs on the tensor cores too,
+//     not on the CUDA cores: one body for every dtype, its loads and
+//     pipeline shared, at the price of three products where one would do.
+//   * The online softmax per warp in float32, natural base (expf), as the
+//     stock body; sentinel slots score MASK_VALUE, slots past the length
+//     -inf.  Each warp keeps its own (m, l, acc) in registers; the four
+//     are joined in shared memory at the end into the split's
+//     unnormalised partial (o, m, l), in a fixed order.
 //   * Combine pass: one block per (KV head, row) reads the row's live
 //     splits only, rescales them to the common max (out, m, l), and folds
 //     in the step's own slot (the merge above), so the model receives the
 //     layer's attention output from two launches and no torch arithmetic.
-// Not done yet (later work): double-buffered tiles within a split, the
-// tensor cores for the q.k products at G = 8, and a grid sized from the
-// rows' lengths instead of the table's capacity.
+//   * No atomics and a fixed order of every sum: identical inputs give
+//     bit-identical outputs.
+// Not done yet (later work): a grid sized from the rows' lengths instead
+// of the table's capacity (the lengths live on the card), and the combine
+// folded into the split pass's last block.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
-#include <math.h>
+#include "flash_common.cuh"
 
 namespace {
 
+using flash::ld32;
+using flash::mma_bf16;
+using flash::pack_bf16x2;
+using flash::pack_raw;
+using flash::warp_sum;
+
 constexpr int NTHREADS = 128;
 constexpr int NWARPS = NTHREADS / 32;
-constexpr int MAXG = 8;  // query heads per KV head
+constexpr int MAXG = 8;         // query heads per KV head
+constexpr int CS = 16;          // slots per chunk: one P.V k-step
+constexpr int NST = 2;          // chunks in flight per warp
+constexpr int NP = 3;           // bf16 terms of P
+constexpr int MAX_SPLIT = 512;  // slots per split the block lists
 constexpr float MASK_VALUE = -0.7f * 3.40282346638528859812e+38f;
 
 __device__ __forceinline__ float bf16_bits_to_f32(uint16_t x) {
@@ -83,6 +111,14 @@ __device__ __forceinline__ float bf16_bits_to_f32(uint16_t x) {
 // Round a float32 to bf16 and back (the stock body's in-kernel K/V cast).
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// The two bf16 values of a packed word, as float32.
+__device__ __forceinline__ float lo_f32(uint32_t w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float hi_f32(uint32_t w) {
+  return __uint_as_float(w & 0xffff0000u);
 }
 
 // One element of a bf16 (is_bf16) or float32 array, as float32.
@@ -101,227 +137,332 @@ __device__ __forceinline__ void store_any(void* p, size_t i, float x,
   }
 }
 
-// 16 bytes of a K/V row in shared memory as float32 values of bf16 (a
-// bf16 pool: exact; a float32 pool: rounded to bf16 here).
-__device__ __forceinline__ void load_chunk(const __nv_bfloat16* p,
-                                           float (&x)[8]) {
-  const uint4 v = *reinterpret_cast<const uint4*>(p);
-  const unsigned w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    x[2 * i] = __uint_as_float(w[i] << 16);
-    x[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
-}
-__device__ __forceinline__ void load_chunk(const float* p, float (&x)[4]) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  x[0] = round_bf16(v.x);
-  x[1] = round_bf16(v.y);
-  x[2] = round_bf16(v.z);
-  x[3] = round_bf16(v.w);
-}
-
-__device__ __forceinline__ float value_bf16(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ float value_bf16(float x) { return round_bf16(x); }
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+// 16 bytes global -> shared; src_bytes 0 fills zeros and reads nothing.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           int src_bytes) {
   const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
-               "l"(gmem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(gmem), "r"(src_bytes));
 }
 
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::);
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
 }
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  }
-  return x;
+// Wait until at most N of this thread's copy groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  }
-  return x;
-}
-
-// TP: pool element type (__nv_bfloat16 or float); D: head_dim.
+// A warp's ring of NST chunk stages: K rows then V rows of CS slots each,
+// row strides padded so that the fragment reads below hit distinct banks
+// (bf16: 4 bytes a lane at stride D + 8; float32 K: 8 bytes a lane at
+// stride D + 8, float32 V: 4 bytes a lane at stride D + 4).  Ahead of the
+// rings, the split's source rows (int [MAX_SPLIT]).  TP: the pool's
+// element (uint16_t for bf16, float).
 template <typename TP, int D>
+struct Ring {
+  static constexpr bool F32 = sizeof(TP) == 4;
+  static constexpr int VEC = 16 / sizeof(TP);  // elements per copy
+  static constexpr int LDK = D + 8;
+  static constexpr int LDV = F32 ? D + 4 : D + 8;
+  static constexpr int K_BYTES = CS * LDK * (int)sizeof(TP);
+  static constexpr int STAGE = K_BYTES + CS * LDV * (int)sizeof(TP);
+  static constexpr int WARP_BYTES = NST * STAGE;
+  static constexpr int RING0 = MAX_SPLIT * 4;
+  static constexpr int BYTES = RING0 + NWARPS * WARP_BYTES;
+  static_assert(BYTES <= 232448, "shared memory of one block");
+  // The join area (per warp: MAXG rows of acc, m, l) reuses the rings.
+  static_assert((MAXG * D + 2 * MAXG) * 4 <= WARP_BYTES, "join area");
+  static_assert(STAGE % 16 == 0 && (LDK * sizeof(TP)) % 16 == 0 &&
+                    (LDV * sizeof(TP)) % 16 == 0,
+                "16-byte copies");
+};
+
+// Start the copies of one chunk (CS source rows `src`) into `stage`, each
+// lane a share of the rows' 16-byte pieces.
+template <typename TP, int D>
+__device__ __forceinline__ void copy_chunk(unsigned char* stage,
+                                           const TP* __restrict__ kplane,
+                                           const TP* __restrict__ vplane,
+                                           const int* src, int lane) {
+  using R = Ring<TP, D>;
+  constexpr int CH = D / R::VEC;  // copies per row
+#pragma unroll
+  for (int c = lane; c < CS * CH; c += 32) {
+    const int j = c / CH, col = (c % CH) * R::VEC;
+    const int flat = src[j];
+    const size_t off = (size_t)(flat < 0 ? 0 : flat) * D + col;
+    const int bytes = flat < 0 ? 0 : 16;
+    cp_async16(stage + (j * R::LDK + col) * sizeof(TP), kplane + off, bytes);
+    cp_async16(stage + R::K_BYTES + (j * R::LDV + col) * sizeof(TP),
+               vplane + off, bytes);
+  }
+}
+
+// Two adjacent K elements of a row (the mma B fragment along d) as a
+// bf16 pair; a float32 pool's values are rounded here.
+__device__ __forceinline__ uint32_t k_pair(const uint16_t* p) {
+  return ld32(p);
+}
+__device__ __forceinline__ uint32_t k_pair(const float* p) {
+  const float2 x = *reinterpret_cast<const float2*>(p);
+  return pack_bf16x2(x.x, x.y);
+}
+
+// V at rows r and r + 1 of column col (the mma B fragment along the
+// slots) as a bf16 pair.
+__device__ __forceinline__ uint32_t v_pair(const uint16_t* v, int ld, int r,
+                                           int col) {
+  return pack_raw(v[r * ld + col], v[(r + 1) * ld + col]);
+}
+__device__ __forceinline__ uint32_t v_pair(const float* v, int ld, int r,
+                                           int col) {
+  return pack_bf16x2(v[r * ld + col], v[(r + 1) * ld + col]);
+}
+
+// The split pass's instance, as the C entry point reports it: 1 + 2*QF32
+// + (float32 pool); the wrapper names it (``stock_instance_name``).
+template <typename TP, bool QF32>
+constexpr int instance_code() {
+  return 1 + 2 * QF32 + (sizeof(TP) == 4);
+}
+
+// The split pass.  TP: pool element (uint16_t bf16 or float); D:
+// head_dim; QF32: q is float32 (q3 in three bf16 terms), else bf16.
+template <typename TP, int D, bool QF32>
 __global__ void __launch_bounds__(NTHREADS)
-stock_split_kernel(const void* __restrict__ q, int q_bf16,
-                   const TP* __restrict__ k_pool,
+stock_split_kernel(const void* __restrict__ q, const TP* __restrict__ k_pool,
                    const TP* __restrict__ v_pool,
                    const int* __restrict__ table,
                    const int* __restrict__ q_pos, float* __restrict__ o_part,
                    float* __restrict__ m_part, float* __restrict__ l_part,
                    int KVH, int G, int NB, int BLK, int MB, int layer,
                    int split, float scale) {
-  constexpr int TILE = sizeof(TP) == 2 ? 64 : 32;  // slots per tile
-  constexpr int TPS = NTHREADS / TILE;   // threads per slot in the scores
-  constexpr int VEC = 16 / sizeof(TP);   // elements per 16-byte chunk
-  constexpr int CHUNKS = D / VEC;        // chunks per K/V row
-  static_assert(CHUNKS % TPS == 0, "chunks split evenly over a slot");
-  // TPS chunks of padding: a quarter-warp's 16-byte reads of K rows land
-  // in distinct banks.
-  constexpr int LD = D + TPS * VEC;
-  constexpr int GSTEP = NTHREADS / D;    // threads sharing an output column
-  constexpr int NG = (MAXG + GSTEP - 1) / GSTEP;
-  __shared__ __align__(16) float q_s[MAXG * D];
-  // Raw bytes: a __shared__ array of __nv_bfloat16 would need a
-  // constructor.
-  __shared__ __align__(16) unsigned char k_raw[TILE * LD * sizeof(TP)];
-  __shared__ __align__(16) unsigned char v_raw[TILE * LD * sizeof(TP)];
-  TP* k_s = reinterpret_cast<TP*>(k_raw);
-  TP* v_s = reinterpret_cast<TP*>(v_raw);
-  __shared__ float p_s[MAXG * TILE];
-  __shared__ float m_s[MAXG], l_s[MAXG], alpha_s[MAXG];
-  __shared__ bool real_s[TILE];
+  using R = Ring<TP, D>;
+  constexpr int KSTEPS = D / 16, DBLK = D / 8;
+  constexpr int NQ = QF32 ? 3 : 1;  // bf16 terms of q3
+  extern __shared__ __align__(128) unsigned char smem[];
+  int* src_s = reinterpret_cast<int*>(smem);
 
   const int sp = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int n_split = gridDim.x;
   const int length = min(max(q_pos[b], 0), MB * BLK);
   const int start = sp * split;
   if (start >= length) return;  // the combine pass reads live splits only
   const int end = min(start + split, length);
+  const int nch = (end - start + CS - 1) / CS;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int H = KVH * G;
+  const int grp = lane >> 2, tig = lane & 3;
 
-  for (int i = tid; i < G * D; i += NTHREADS) {
-    // The scaled query, rounded to q's dtype (JAX :528).
-    const float x = load_any(q, ((size_t)b * H + h * G) * D + i, q_bf16) *
-                    scale;
-    q_s[i] = q_bf16 ? round_bf16(x) : x;
-  }
-  if (tid < MAXG) {
-    m_s[tid] = -INFINITY;
-    l_s[tid] = 0.f;
-  }
   const int* trow = table + (size_t)b * MB;
-  const size_t plane = ((size_t)layer * KVH + h) * NB;
-  const int dd = tid % D, g0 = tid / D;  // this thread's output column(s)
-  float acc[NG];
-#pragma unroll
-  for (int i = 0; i < NG; ++i) acc[i] = 0.f;
-
-  for (int s0 = start; s0 < end; s0 += TILE) {
-    const int n = min(TILE, end - s0);
-    __syncthreads();  // the previous tile's shared reads are done
-    for (int c = tid; c < n * CHUNKS; c += NTHREADS) {
-      const int j = c / CHUNKS;
-      const int col = (c % CHUNKS) * VEC;
-      const int slot = s0 + j;
+  for (int i = tid; i < nch * CS; i += NTHREADS) {
+    const int slot = start + i;
+    int flat = -1;  // past the row's length
+    if (slot < end) {
       const int blk = trow[slot / BLK];
-      if (blk >= 0 && blk < NB) {
-        const size_t src = ((plane + blk) * BLK + slot % BLK) * D + col;
-        cp_async16(&k_s[j * LD + col], k_pool + src);
-        cp_async16(&v_s[j * LD + col], v_pool + src);
-      } else {  // sentinel: never read; zero values
-        *reinterpret_cast<uint4*>(&k_s[j * LD + col]) = make_uint4(0, 0, 0, 0);
-        *reinterpret_cast<uint4*>(&v_s[j * LD + col]) = make_uint4(0, 0, 0, 0);
-      }
-      if (col == 0) real_s[j] = blk >= 0 && blk < NB;
+      flat = blk >= 0 && blk < NB ? blk * BLK + slot % BLK : -2;
     }
-    cp_async_wait_all();
-    __syncthreads();
-
-    // Scores: slot j = tid / TPS over chunks part, part + TPS, ...
-    {
-      const int j = tid / TPS, part = tid % TPS;
-      float dot[MAXG];
-#pragma unroll
-      for (int g = 0; g < MAXG; ++g) dot[g] = 0.f;
-      if (j < n) {
-        const TP* kr = k_s + j * LD;
-#pragma unroll
-        for (int i = 0; i < CHUNKS / TPS; ++i) {
-          const int col = (i * TPS + part) * VEC;
-          float kx[VEC];
-          load_chunk(kr + col, kx);
-#pragma unroll
-          for (int g = 0; g < MAXG; ++g) {
-            if (g < G) {
-              const float* qr = q_s + g * D + col;
-#pragma unroll
-              for (int e = 0; e < VEC; ++e) dot[g] += qr[e] * kx[e];
-            }
-          }
-        }
-      }
-#pragma unroll
-      for (int g = 0; g < MAXG; ++g) {
-#pragma unroll
-        for (int off = 1; off < TPS; off <<= 1) {
-          dot[g] += __shfl_xor_sync(0xffffffffu, dot[g], off);
-        }
-      }
-      if (j < n && part == 0) {
-        const bool real = real_s[j];
-#pragma unroll
-        for (int g = 0; g < MAXG; ++g) {
-          if (g < G) p_s[g * TILE + j] = real ? dot[g] : MASK_VALUE;
-        }
-      }
-    }
-    __syncthreads();
-
-    // Online softmax update, one warp per query head.  Every score is
-    // finite (a real dot product or MASK_VALUE), so after the first tile
-    // m is finite and exp(m_old - m_new) is exact 0 on the first update.
-    for (int g = warp; g < G; g += NWARPS) {
-      float mx = -INFINITY;
-      for (int j = lane; j < n; j += 32) mx = fmaxf(mx, p_s[g * TILE + j]);
-      mx = warp_max(mx);
-      const float m_old = m_s[g];
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.f;
-      for (int j = lane; j < n; j += 32) {
-        const float p = expf(p_s[g * TILE + j] - m_new);
-        sum += p;
-        p_s[g * TILE + j] = p;  // P stays float32, as in the stock body
-      }
-      sum = warp_sum(sum);
-      __syncwarp();
-      if (lane == 0) {
-        const float alpha = expf(m_old - m_new);
-        alpha_s[g] = alpha;
-        l_s[g] = l_s[g] * alpha + sum;
-        m_s[g] = m_new;
-      }
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int i = 0; i < NG; ++i) {
-      const int g = g0 + i * GSTEP;
-      if (g < G) acc[i] *= alpha_s[g];
-    }
-    for (int j = 0; j < n; ++j) {
-      const float v = value_bf16(v_s[j * LD + dd]);
-#pragma unroll
-      for (int i = 0; i < NG; ++i) {
-        const int g = g0 + i * GSTEP;
-        if (g < G) acc[i] += p_s[g * TILE + j] * v;
-      }
-    }
+    src_s[i] = flat;
   }
   __syncthreads();
 
-  const size_t part0 = ((size_t)b * KVH + h) * n_split + sp;
+  // From here each warp runs alone over chunks warp, warp + NWARPS, ...
+  const size_t plane = ((size_t)layer * KVH + h) * NB * BLK;  // in slots
+  const TP* kplane = k_pool + plane * D;
+  const TP* vplane = v_pool + plane * D;
+  unsigned char* ring = smem + R::RING0 + warp * R::WARP_BYTES;
+  const int n_mine = nch > warp ? (nch - warp + NWARPS - 1) / NWARPS : 0;
 #pragma unroll
-  for (int i = 0; i < NG; ++i) {
-    const int g = g0 + i * GSTEP;
-    if (g < G) o_part[(part0 * G + g) * D + dd] = acc[i];
+  for (int s = 0; s < NST; ++s) {
+    if (s < n_mine) {
+      copy_chunk<TP, D>(ring + s * R::STAGE, kplane, vplane,
+                        src_s + (warp + NWARPS * s) * CS, lane);
+    }
+    cp_async_commit();
   }
-  if (tid < G) {
-    m_part[part0 * G + tid] = m_s[tid];
-    l_part[part0 * G + tid] = l_s[tid];
+
+  // q3's A fragments for row grp (rows >= G, and rows 8..15, are zero):
+  // features kk*16 + 2*tig (+1) and +8 (+9); a float32 q3 as three bf16
+  // terms, each the rounded remainder of the ones before it.
+  uint32_t qa[NQ][KSTEPS][2];
+  {
+    const bool live = grp < G;
+    const size_t qrow = ((size_t)(b * KVH + h) * G + (live ? grp : 0)) * D;
+#pragma unroll
+    for (int kk = 0; kk < KSTEPS; ++kk) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int c = kk * 16 + tig * 2 + 8 * half;
+        float x0 = 0.f, x1 = 0.f;
+        if (live) {
+          if constexpr (QF32) {
+            const float2 v =
+                *reinterpret_cast<const float2*>(static_cast<const float*>(q) +
+                                                 qrow + c);
+            x0 = v.x * scale;
+            x1 = v.y * scale;
+          } else {
+            const uint32_t w =
+                ld32(static_cast<const uint16_t*>(q) + qrow + c);
+            x0 = lo_f32(w) * scale;
+            x1 = hi_f32(w) * scale;
+          }
+        }
+#pragma unroll
+        for (int t = 0; t < NQ; ++t) {
+          const uint32_t p = pack_bf16x2(x0, x1);  // rounds: q3 in bf16
+          qa[t][kk][half] = p;
+          x0 -= lo_f32(p);
+          x1 -= hi_f32(p);
+        }
+      }
+    }
+  }
+
+  float m_run = -INFINITY, l_run = 0.f;  // row grp; l over this lane's slots
+  float o[DBLK][4];
+#pragma unroll
+  for (int nb = 0; nb < DBLK; ++nb) {
+    o[nb][0] = o[nb][1] = o[nb][2] = o[nb][3] = 0.f;
+  }
+
+  for (int i = 0; i < n_mine; ++i) {
+    unsigned char* stage = ring + (i % NST) * R::STAGE;
+    const TP* kt = reinterpret_cast<const TP*>(stage);
+    const TP* vt = reinterpret_cast<const TP*>(stage + R::K_BYTES);
+    const int* src = src_s + (warp + NWARPS * i) * CS;
+    cp_async_wait<NST - 1>();
+    __syncwarp();  // the chunk's copies, by every lane, have landed
+
+    // S = q3 K^T: 16 rows x 16 slots, two n-blocks of 8 slots.
+    float sc[2][4];
+#pragma unroll
+    for (int nb = 0; nb < 2; ++nb) {
+      sc[nb][0] = sc[nb][1] = sc[nb][2] = sc[nb][3] = 0.f;
+    }
+#pragma unroll
+    for (int kk = 0; kk < KSTEPS; ++kk) {
+#pragma unroll
+      for (int nb = 0; nb < 2; ++nb) {
+        const TP* kr = kt + (nb * 8 + grp) * R::LDK + kk * 16 + tig * 2;
+        const uint32_t b0 = k_pair(kr), b1 = k_pair(kr + 8);
+#pragma unroll
+        for (int t = 0; t < NQ; ++t) {
+          const uint32_t a[4] = {qa[t][kk][0], 0u, qa[t][kk][1], 0u};
+          mma_bf16(sc[nb], a, b0, b1);
+        }
+      }
+    }
+
+    // Row grp's scores: a sentinel slot MASK_VALUE, a slot past the
+    // length -inf; the online softmax.  The chunk's first slot lies
+    // within the length, so the running max is finite after it.
+    float mx = -INFINITY;
+#pragma unroll
+    for (int nb = 0; nb < 2; ++nb) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int flat = src[nb * 8 + tig * 2 + e];
+        const float s =
+            flat >= 0 ? sc[nb][e] : (flat == -2 ? MASK_VALUE : -INFINITY);
+        sc[nb][e] = s;
+        mx = fmaxf(mx, s);
+      }
+    }
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m_run, mx);
+    const float alpha = expf(m_run - m_new);
+    m_run = m_new;
+    l_run *= alpha;
+#pragma unroll
+    for (int nb = 0; nb < DBLK; ++nb) {
+      o[nb][0] *= alpha;
+      o[nb][1] *= alpha;
+    }
+#pragma unroll
+    for (int nb = 0; nb < 2; ++nb) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float p = expf(sc[nb][e] - m_new);
+        l_run += p;
+        sc[nb][e] = p;
+      }
+    }
+
+    // O += P V with P as NP bf16 terms, as q3 above: slots 2 tig (+1)
+    // from n-block 0, 2 tig + 8 (+9) from n-block 1 (rows 8..15 zero).
+    uint32_t pa[NP][4];
+#pragma unroll
+    for (int nb = 0; nb < 2; ++nb) {
+      float x0 = sc[nb][0], x1 = sc[nb][1];
+#pragma unroll
+      for (int t = 0; t < NP; ++t) {
+        const uint32_t w = pack_bf16x2(x0, x1);
+        pa[t][2 * nb] = w;
+        pa[t][2 * nb + 1] = 0u;
+        x0 -= lo_f32(w);
+        x1 -= hi_f32(w);
+      }
+    }
+#pragma unroll
+    for (int nb = 0; nb < DBLK; ++nb) {
+      const int col = nb * 8 + grp;
+      const uint32_t b0 = v_pair(vt, R::LDV, tig * 2, col);
+      const uint32_t b1 = v_pair(vt, R::LDV, tig * 2 + 8, col);
+#pragma unroll
+      for (int t = 0; t < NP; ++t) mma_bf16(o[nb], pa[t], b0, b1);
+    }
+    __syncwarp();  // every lane has read the stage: refill it
+    if (i + NST < n_mine) {
+      copy_chunk<TP, D>(stage, kplane, vplane,
+                        src_s + (warp + NWARPS * (i + NST)) * CS, lane);
+    }
+    cp_async_commit();
+  }
+
+  // Join the warps: acc, m and l per warp into shared memory (over the
+  // rings), then the split's partial, summed over the warps in order.
+  l_run += __shfl_xor_sync(0xffffffffu, l_run, 1);
+  l_run += __shfl_xor_sync(0xffffffffu, l_run, 2);
+  cp_async_wait<0>();
+  __syncthreads();
+  float* jo = reinterpret_cast<float*>(smem + R::RING0);  // [4][MAXG][D]
+  float* jm = jo + NWARPS * MAXG * D;                     // [4][MAXG]
+  float* jl = jm + NWARPS * MAXG;                         // [4][MAXG]
+  if (grp < G) {
+    float* orow = jo + (warp * MAXG + grp) * D;
+#pragma unroll
+    for (int nb = 0; nb < DBLK; ++nb) {
+      *reinterpret_cast<float2*>(orow + nb * 8 + tig * 2) =
+          make_float2(o[nb][0], o[nb][1]);
+    }
+    if (tig == 0) {
+      jm[warp * MAXG + grp] = m_run;
+      jl[warp * MAXG + grp] = l_run;
+    }
+  }
+  __syncthreads();
+  const size_t part = ((size_t)b * KVH + h) * gridDim.x + sp;
+  for (int idx = tid; idx < G * D; idx += NTHREADS) {
+    const int g = idx / D, c = idx % D;
+    float M = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < NWARPS; ++w) M = fmaxf(M, jm[w * MAXG + g]);
+    float acc = 0.f, lsum = 0.f;
+#pragma unroll
+    for (int w = 0; w < NWARPS; ++w) {
+      const float mw = jm[w * MAXG + g];  // -inf: the warp had no chunk
+      const float wt = mw == -INFINITY ? 0.f : expf(mw - M);
+      acc += wt * jo[(w * MAXG + g) * D + c];
+      lsum += wt * jl[w * MAXG + g];
+    }
+    o_part[(part * G + g) * D + c] = acc;
+    if (c == 0) {
+      m_part[part * G + g] = M;
+      l_part[part * G + g] = lsum;
+    }
   }
 }
 
@@ -407,19 +548,56 @@ stock_combine_kernel(const void* __restrict__ q,
   }
 }
 
-template <typename TP, int D>
+// The split pass's launch: its dynamic shared memory (above 48 KB) is
+// opted into once per device; *instance is set once the launch succeeds.
+template <typename TP, int D, bool QF32>
+cudaError_t launch_split(dim3 grid, cudaStream_t st, const void* q,
+                         const void* k_pool, const void* v_pool,
+                         const int* table, const int* q_pos, float* o_part,
+                         float* m_part, float* l_part, int KVH, int G, int NB,
+                         int BLK, int MB, int layer, int split, float scale,
+                         int* instance) {
+  constexpr int bytes = Ring<TP, D>::BYTES;
+  auto kernel = stock_split_kernel<TP, D, QF32>;
+  static int opted_device = -1;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev != opted_device) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return err;
+    opted_device = dev;
+  }
+  kernel<<<grid, NTHREADS, bytes, st>>>(
+      q, static_cast<const TP*>(k_pool), static_cast<const TP*>(v_pool),
+      table, q_pos, o_part, m_part, l_part, KVH, G, NB, BLK, MB, layer,
+      split, scale);
+  err = cudaGetLastError();
+  if (err == cudaSuccess) *instance = instance_code<TP, QF32>();
+  return err;
+}
+
+template <int D>
 int launch(const void* q, const void* k_new, const void* v_new,
            const void* k_pool, const void* v_pool, const int* table,
            const int* q_pos, float* o_part, float* m_part, float* l_part,
            void* out, int B, int KVH, int G, int NB, int BLK, int MB,
-           int layer, int q_bf16, int split, int n_split, float scale,
-           cudaStream_t st) {
-  const dim3 grid_split(n_split, KVH, B);
-  stock_split_kernel<TP, D><<<grid_split, NTHREADS, 0, st>>>(
-      q, q_bf16, static_cast<const TP*>(k_pool),
-      static_cast<const TP*>(v_pool), table, q_pos, o_part, m_part, l_part,
-      KVH, G, NB, BLK, MB, layer, split, scale);
-  cudaError_t err = cudaGetLastError();
+           int layer, int q_bf16, int pool_bf16, int split, int n_split,
+           float scale, cudaStream_t st, int* instance) {
+  const dim3 grid(n_split, KVH, B);
+  cudaError_t err;
+#define STOCK_SPLIT_ARGS                                                   \
+  grid, st, q, k_pool, v_pool, table, q_pos, o_part, m_part, l_part, KVH, \
+      G, NB, BLK, MB, layer, split, scale, instance
+  if (pool_bf16) {
+    err = q_bf16 ? launch_split<uint16_t, D, false>(STOCK_SPLIT_ARGS)
+                 : launch_split<uint16_t, D, true>(STOCK_SPLIT_ARGS);
+  } else {
+    err = q_bf16 ? launch_split<float, D, false>(STOCK_SPLIT_ARGS)
+                 : launch_split<float, D, true>(STOCK_SPLIT_ARGS);
+  }
+#undef STOCK_SPLIT_ARGS
   if (err != cudaSuccess) return (int)err;
   // JAX stores the pool output in q's dtype when G % 8 == 0 (float32
   // otherwise): a bf16 q rounds it once here.
@@ -430,34 +608,17 @@ int launch(const void* q, const void* k_new, const void* v_new,
   return (int)cudaGetLastError();
 }
 
-template <typename TP>
-int dispatch_d(int D, const void* q, const void* k_new, const void* v_new,
-               const void* k_pool, const void* v_pool, const int* table,
-               const int* q_pos, float* o_part, float* m_part, float* l_part,
-               void* out, int B, int KVH, int G, int NB, int BLK, int MB,
-               int layer, int q_bf16, int split, int n_split, float scale,
-               cudaStream_t st) {
-  if (D == 128) {
-    return launch<TP, 128>(q, k_new, v_new, k_pool, v_pool, table, q_pos,
-                           o_part, m_part, l_part, out, B, KVH, G, NB, BLK,
-                           MB, layer, q_bf16, split, n_split, scale, st);
-  }
-  if (D == 64) {
-    return launch<TP, 64>(q, k_new, v_new, k_pool, v_pool, table, q_pos,
-                          o_part, m_part, l_part, out, B, KVH, G, NB, BLK,
-                          MB, layer, q_bf16, split, n_split, scale, st);
-  }
-  return (int)cudaErrorInvalidValue;
-}
-
 }  // namespace
 
 // q_dtype (q, k_new, v_new, out) and pool_dtype: 0 = float32, 1 =
-// bfloat16.  split: slots per block of the split pass (a multiple of 64);
-// n_split = ceil(MB*BLK / split), the scratch's split axis.  scale =
-// 1/sqrt(d).  Launches the split pass and the combine pass on `stream`
-// and does not synchronise.  Returns the first launch's cudaError_t (0 on
-// success).
+// bfloat16.  split: slots per block of the split pass (a multiple of 16,
+// at most 512); n_split = ceil(MB*BLK / split), the scratch's split axis.
+// scale = 1/sqrt(d).  Launches the split pass and the combine pass on
+// `stream` and does not synchronise.  Returns the first failing launch's
+// cudaError_t (0 on success); *instance is the split pass's instance once
+// its launch succeeds (instance_code: 1 bf16 q and pool, 2 bf16 q and a
+// float32 pool, 3 float32 q and a bf16 pool, 4 float32 q and pool), 0
+// if it did not launch.
 extern "C" int stock_paged_decode(const void* q, const void* k_new,
                                   const void* v_new, const void* k_pool,
                                   const void* v_pool, const int* table,
@@ -466,25 +627,28 @@ extern "C" int stock_paged_decode(const void* q, const void* k_new,
                                   int B, int KVH, int G, int D, int NB,
                                   int BLK, int MB, int layer, int q_dtype,
                                   int pool_dtype, int split, int n_split,
-                                  float scale, void* stream) {
+                                  float scale, void* stream,
+                                  int* instance) {
+  *instance = 0;
   if (B <= 0 || KVH <= 0 || G <= 0 || G > MAXG || NB <= 0 || BLK <= 0 ||
       MB <= 0 || layer < 0 || B > 65535 || KVH > 65535 || split <= 0 ||
-      split % 64 != 0 || n_split <= 0 ||
-      (long)n_split * split < (long)MB * BLK || q_dtype < 0 || q_dtype > 1) {
+      split % CS != 0 || split > MAX_SPLIT || n_split <= 0 ||
+      (long)n_split * split < (long)MB * BLK || (long)NB * BLK > INT_MAX ||
+      q_dtype < 0 || q_dtype > 1 || pool_dtype < 0 || pool_dtype > 1) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (pool_dtype == 1) {
-    return dispatch_d<__nv_bfloat16>(D, q, k_new, v_new, k_pool, v_pool,
-                                     table, q_pos, o_part, m_part, l_part,
-                                     out, B, KVH, G, NB, BLK, MB, layer,
-                                     q_dtype, split, n_split, scale, st);
+  if (D == 128) {
+    return launch<128>(q, k_new, v_new, k_pool, v_pool, table, q_pos, o_part,
+                       m_part, l_part, out, B, KVH, G, NB, BLK, MB, layer,
+                       q_dtype, pool_dtype, split, n_split, scale, st,
+                       instance);
   }
-  if (pool_dtype == 0) {
-    return dispatch_d<float>(D, q, k_new, v_new, k_pool, v_pool, table,
-                             q_pos, o_part, m_part, l_part, out, B, KVH, G,
-                             NB, BLK, MB, layer, q_dtype, split, n_split,
-                             scale, st);
+  if (D == 64) {
+    return launch<64>(q, k_new, v_new, k_pool, v_pool, table, q_pos, o_part,
+                      m_part, l_part, out, B, KVH, G, NB, BLK, MB, layer,
+                      q_dtype, pool_dtype, split, n_split, scale, st,
+                      instance);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -28,8 +28,11 @@ to build or launch raises; nothing falls back to another kernel.
 Each kernel has a plain PyTorch version beside its wrapper
 (``splash_prefill_reference``, ``stock_paged_decode_reference``).  A CPU
 tensor runs the plain version; a CUDA tensor launches the hand-written
-kernel (``csrc/splash_prefill.cu``, ``csrc/stock_paged.cu``) or raises.
-Each wrapper counts its kernel launches (``fn.launches``).
+kernel (``csrc/splash_prefill.cu``: TMA + wgmma in bf16;
+``csrc/stock_paged.cu``: split-KV on the tensor cores) or raises.  Each
+wrapper counts its kernel launches (``fn.launches``) and its calls by
+instance, as the C entry point reports it (``fn.launches_by_instance``:
+``splash_instance_name``, ``stock_instance_name``).
 
 Not ported: the mesh branches (ROADMAP A14), the TPU tilings
 ``_splash_block_sizes`` and ``_pages_per_compute_block``, and the fault
@@ -170,6 +173,27 @@ def _lib_fn(name: str, symbol: str, argtypes):
     return _FNS[symbol]
 
 
+def _launch(device: torch.device, fn, *args) -> Tuple[int, int]:
+    """Call the C entry point ``fn(*args, stream, &instance)`` on
+    ``device``'s current stream, with ``device`` the current CUDA device
+    for the call; returns its cudaError_t and the instance code it
+    reported (0 when nothing launched)."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    code = ctypes.c_int(0)
+    if device.index == torch.cuda.current_device():
+        return fn(*args, stream, ctypes.byref(code)), code.value
+    with torch.cuda.device(device):
+        return fn(*args, stream, ctypes.byref(code)), code.value
+
+
+def _count(wrapper, instance: str, launches: int) -> None:
+    """``launches`` kernel launches of one ``wrapper`` call, of
+    ``instance``."""
+    wrapper.launches += launches
+    by = wrapper.launches_by_instance
+    by[instance] = by.get(instance, 0) + 1
+
+
 def _on_card(name: str, tensors) -> None:
     """Device, contiguity and alignment of a kernel's tensor arguments."""
     dev = tensors[0][1].device
@@ -283,22 +307,46 @@ def splash_prefill(
     _on_card("splash_prefill", [("q", q), ("k", k), ("v", v)])
     fn = _lib_fn(SPLASH_KERNEL, "splash_prefill",
                  [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
-                 + [ctypes.c_float, ctypes.c_void_p])
+                 + [ctypes.c_float, ctypes.c_void_p,
+                    ctypes.POINTER(ctypes.c_int)])
     out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                B, T, S, H, KVH, d, chunk_offset, _DTYPE_CODE[q.dtype],
-                d ** -0.25, stream)
+    rc, code = _launch(q.device, fn, q.data_ptr(), k.data_ptr(),
+                       v.data_ptr(), out.data_ptr(), B, T, S, H, KVH, d,
+                       chunk_offset, _DTYPE_CODE[q.dtype], d ** -0.25)
     if rc != 0:
         raise RuntimeError(f"splash_prefill launch failed: cudaError_t {rc}")
-    splash_prefill.launches += 1
+    _count(splash_prefill, splash_instance_name(code), 1)
     return out
 
 
 # Launches of the CUDA kernel in this process (the plain version never
-# counts); callers reset it by assigning 0.
+# counts), in all and by the instance the C entry point reports it
+# launched (``splash_instance_name``); callers reset them by assigning 0
+# and {}.
 splash_prefill.launches = 0
+splash_prefill.launches_by_instance = {}
+
+_SPLASH_INSTANCES = {1: "wgmma", 2: "float32"}
+
+
+def splash_instance_name(code: int) -> str:
+    """The instance ``csrc/splash_prefill.cu``'s entry point reports it
+    launched: 1 "wgmma" (bf16: a persistent grid, a producer warpgroup's
+    TMA ring and two consumer warpgroups on wgmma), 2 "float32" (CUDA
+    cores)."""
+    if code not in _SPLASH_INSTANCES:
+        raise RuntimeError(f"splash_prefill: no instance has code {code}")
+    return _SPLASH_INSTANCES[code]
+
+
+def splash_instance(dtype: torch.dtype) -> str:
+    """The instance a card call in ``dtype`` is expected to run (what
+    ``splash_instance_name`` of the reported code should say)."""
+    if dtype == torch.bfloat16:
+        return "wgmma"
+    if dtype == torch.float32:
+        return "float32"
+    raise TypeError(f"splash_prefill: no instance for {dtype}")
 
 
 def splash_prefill_attention(
@@ -321,7 +369,10 @@ def splash_prefill_attention(
 STOCK_KERNEL = "stock_paged"
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 STOCK_MAX_GROUP = 8      # query heads per KV head the kernel holds
-STOCK_SPLIT = 256        # slots of a row per block of the split pass
+# Slots of a row per block of the split pass: 512 measured fastest of 128,
+# 256 and 512 at the serving shape (chip_smoke.py kernel_check's
+# split_sweep, through stock_paged_launch), bf16 and float32 pools.
+STOCK_SPLIT = 512
 STOCK_KERNELS_PER_CALL = 2   # the split pass and the combine pass
 _STOCK_HEAD_DIMS = (64, 128)
 
@@ -519,39 +570,108 @@ def stock_paged_decode(
     if q.device.type != "cuda":
         raise ValueError(f"stock_paged_decode: unsupported device "
                          f"{q.device}")
+    return stock_paged_launch(q, k_new, v_new, k_pool, v_pool, table, q_pos,
+                              layer, STOCK_SPLIT)
+
+
+def stock_paged_launch(
+    q: torch.Tensor,
+    k_new: torch.Tensor,
+    v_new: torch.Tensor,
+    k_pool: torch.Tensor,
+    v_pool: torch.Tensor,
+    table: torch.Tensor,
+    q_pos: torch.Tensor,
+    layer: int,
+    split: int,
+) -> torch.Tensor:
+    """``stock_paged_decode``'s card launch with ``split`` slots of a row
+    per block of the split pass (a multiple of 16, at most 512; the
+    wrapper passes ``STOCK_SPLIT``, and the card tests and
+    ``chip_smoke.py`` other sizes): the wrapper's checks, then the split
+    and the combine pass, counted on ``stock_paged_decode``.  It has no
+    plain version: tensors off the card raise."""
+    if split <= 0 or split % 16 or split > 512:
+        raise ValueError(f"stock_paged_decode: split {split} is not a "
+                         f"multiple of 16 in 16..512")
+    if q.device.type != "cuda":
+        raise ValueError(f"stock_paged_launch: needs CUDA tensors, got "
+                         f"{q.device}")
+    k_pool, v_pool, layer = _stock_args(q, k_pool, v_pool, layer)
     _stock_check(q, k_new, v_new, k_pool, v_pool, table, q_pos)
     B, _, H, d = q.shape
     L, KVH, NB, BLK, _ = k_pool.shape
     MB = table.shape[1]
     G = H // KVH
-    n_split = -(-(MB * BLK) // STOCK_SPLIT)
-    f32 = dict(dtype=torch.float32, device=q.device)
-    o_part = torch.empty((B, KVH, n_split, G, d), **f32)
-    m_part = torch.empty((B, KVH, n_split, G), **f32)
-    l_part = torch.empty((B, KVH, n_split, G), **f32)
+    n_split = -(-(MB * BLK) // split)
+    o_ptr, m_ptr, l_ptr, _scratch = stock_scratch(B, KVH, n_split, G, d,
+                                                  q.device)
     out = torch.empty_like(q)
     fn = _lib_fn(STOCK_KERNEL, "stock_paged_decode",
                  [ctypes.c_void_p] * 11 + [ctypes.c_int] * 12
-                 + [ctypes.c_float, ctypes.c_void_p])
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
-                k_pool.data_ptr(), v_pool.data_ptr(), table.data_ptr(),
-                q_pos.data_ptr(), o_part.data_ptr(), m_part.data_ptr(),
-                l_part.data_ptr(), out.data_ptr(), B, KVH, G, d, NB, BLK, MB,
-                layer, _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_pool.dtype],
-                STOCK_SPLIT, n_split, 1.0 / math.sqrt(d), stream)
+                 + [ctypes.c_float, ctypes.c_void_p,
+                    ctypes.POINTER(ctypes.c_int)])
+    rc, code = _launch(q.device, fn, q.data_ptr(), k_new.data_ptr(),
+                       v_new.data_ptr(), k_pool.data_ptr(),
+                       v_pool.data_ptr(), table.data_ptr(), q_pos.data_ptr(),
+                       o_ptr, m_ptr, l_ptr, out.data_ptr(), B, KVH, G, d, NB,
+                       BLK, MB, layer, _DTYPE_CODE[q.dtype],
+                       _DTYPE_CODE[k_pool.dtype], split, n_split,
+                       1.0 / math.sqrt(d))
     if rc != 0:
         raise RuntimeError(f"stock_paged_decode launch failed: cudaError_t "
                            f"{rc}")
-    stock_paged_decode.launches += STOCK_KERNELS_PER_CALL
+    _count(stock_paged_decode, stock_instance_name(code),
+           STOCK_KERNELS_PER_CALL)
     return out
 
 
 # Launches of the CUDA kernels in this process, the split and the combine
-# pass each counted (the plain version never counts); callers reset it by
-# assigning 0.
+# pass each counted (the plain version never counts), and wrapper calls
+# by the split pass's instance as the C entry point reports it
+# (``stock_instance_name``); callers reset them by assigning 0 and {}.
 stock_paged_decode.launches = 0
+stock_paged_decode.launches_by_instance = {}
+
+
+def _stock_name(q_f32: bool, pool_f32: bool) -> str:
+    return (f"mma_sync_q_{'f32x3' if q_f32 else 'bf16'}"
+            f"_pool_{'f32' if pool_f32 else 'bf16'}")
+
+
+def stock_instance_name(code: int) -> str:
+    """The split-pass instance ``csrc/stock_paged.cu``'s entry point
+    reports it launched, code 1 + 2*(float32 q) + (float32 pool).  Every
+    instance puts q.k and P.v on the tensor cores (``mma.sync``); a
+    float32 q enters them as three bf16 terms ("f32x3"), a bf16 q as one;
+    a float32 pool's K/V are rounded to bf16 as they are read."""
+    if not 1 <= code <= 4:
+        raise RuntimeError(f"stock_paged_decode: no instance has code "
+                           f"{code}")
+    return _stock_name(bool((code - 1) & 2), bool((code - 1) & 1))
+
+
+def stock_instance(q_dtype: torch.dtype, pool_dtype: torch.dtype) -> str:
+    """The split-pass instance a card call with these dtypes is expected
+    to run (what ``stock_instance_name`` of the reported code should
+    say)."""
+    if q_dtype not in _DTYPE_CODE or pool_dtype not in _DTYPE_CODE:
+        raise TypeError(f"stock_paged_decode: no instance for q {q_dtype}, "
+                        f"pool {pool_dtype}")
+    return _stock_name(q_dtype == torch.float32, pool_dtype == torch.float32)
+
+
+def stock_scratch(B: int, KVH: int, n_split: int, G: int, d: int,
+                  device) -> Tuple[int, int, int, torch.Tensor]:
+    """The split pass's float32 partials as three pieces of one
+    allocation: o_part [B, KVH, n_split, G, d], then m_part and l_part
+    [B, KVH, n_split, G].  Returns their addresses and the allocation
+    (which the caller keeps alive until the launches are enqueued)."""
+    n = B * KVH * n_split * G
+    scratch = torch.empty(n * (d + 2), dtype=torch.float32, device=device)
+    o_ptr = scratch.data_ptr()
+    m_ptr = o_ptr + n * d * 4
+    return o_ptr, m_ptr, m_ptr + n * 4, scratch
 
 
 def stock_paged_decode_attention(

@@ -371,6 +371,99 @@ def test_stock_pool_pass_keeps_jax_output_dtype(G):
     assert torch.isfinite(m[1]).all() and (l[1] >= 1).all()
 
 
+@pytest.mark.parametrize("B,KVH,n_split,G,d", [(8, 8, 16, 4, 128),
+                                                (3, 2, 7, 8, 64),
+                                                (1, 1, 1, 1, 64)])
+def test_stock_scratch_is_three_pieces_of_one_allocation(B, KVH, n_split, G,
+                                                         d):
+    """The split pass's partials: o_part [B, KVH, NS, G, d], then m_part
+    and l_part [B, KVH, NS, G], back to back in one float32 allocation,
+    each 16-byte aligned."""
+    o_ptr, m_ptr, l_ptr, scratch = pk.stock_scratch(B, KVH, n_split, G, d,
+                                                    "cpu")
+    n = B * KVH * n_split * G
+    assert scratch.dtype == torch.float32 and scratch.numel() == n * (d + 2)
+    assert o_ptr == scratch.data_ptr()
+    assert m_ptr - o_ptr == n * d * 4 and l_ptr - m_ptr == n * 4
+    assert l_ptr + n * 4 == scratch.data_ptr() + scratch.numel() * 4
+    assert o_ptr % 16 == 0 and m_ptr % 16 == 0
+
+
+def test_selection_kernel_instances():
+    """The card instances each dtype runs: splash "wgmma" in bf16,
+    "float32" in float32; stock on the tensor cores for every q and pool
+    dtype (float32 q in three bf16 terms); anything else raises."""
+    assert pk.splash_instance(torch.bfloat16) == "wgmma"
+    assert pk.splash_instance(torch.float32) == "float32"
+    names = {(q, p): pk.stock_instance(q, p)
+             for q in (torch.bfloat16, torch.float32)
+             for p in (torch.bfloat16, torch.float32)}
+    assert names[torch.bfloat16, torch.bfloat16] == \
+        "mma_sync_q_bf16_pool_bf16"
+    assert names[torch.float32, torch.float32] == "mma_sync_q_f32x3_pool_f32"
+    assert len(set(names.values())) == 4
+    with pytest.raises(TypeError):
+        pk.splash_instance(torch.float16)
+    with pytest.raises(TypeError):
+        pk.stock_instance(torch.bfloat16, torch.int8)
+
+
+def test_selection_kernel_instance_codes():
+    """The codes the C entry points report name the instances the dtypes
+    expect (splash 1 wgmma, 2 float32; stock 1 + 2*(float32 q) + (float32
+    pool)); a code no instance has (0: nothing launched) raises."""
+    assert pk.splash_instance_name(1) == pk.splash_instance(torch.bfloat16)
+    assert pk.splash_instance_name(2) == pk.splash_instance(torch.float32)
+    for q in (torch.bfloat16, torch.float32):
+        for p in (torch.bfloat16, torch.float32):
+            code = 1 + 2 * (q == torch.float32) + (p == torch.float32)
+            assert pk.stock_instance_name(code) == pk.stock_instance(q, p)
+    for bad in (0, 3, -1):
+        with pytest.raises(RuntimeError):
+            pk.splash_instance_name(bad)
+    for bad in (0, 5):
+        with pytest.raises(RuntimeError):
+            pk.stock_instance_name(bad)
+
+
+def test_stock_split_fits_the_kernel():
+    """STOCK_SPLIT is what the C entry point takes: a multiple of its
+    16-slot chunk, at most the 512 slots a block lists."""
+    assert pk.STOCK_SPLIT % 16 == 0 and 0 < pk.STOCK_SPLIT <= 512
+
+
+def test_stock_paged_launch_refuses_before_any_launch():
+    """The explicit-split launch takes multiples of 16 in 16..512 and
+    card tensors only; a refusal launches and counts nothing."""
+    q, kn, vn, kp, vp, _, table, qpos = _stock_case()
+    t = [torch.from_numpy(np.array(a))
+         for a in (q, kn, vn, kp, vp, table, qpos)]
+    before = (pk.stock_paged_decode.launches,
+              dict(pk.stock_paged_decode.launches_by_instance))
+    for split in (0, 8, 24, 528, 1024, 128):
+        with pytest.raises(ValueError):
+            pk.stock_paged_launch(*t, layer=1, split=split)
+    assert before == (pk.stock_paged_decode.launches,
+                      pk.stock_paged_decode.launches_by_instance)
+
+
+def test_plain_versions_count_no_instance():
+    """CPU tensors run the plain versions: no launch and no instance is
+    counted."""
+    q, kn, vn, kp, vp, _, table, qpos = _stock_case()
+    before = (pk.stock_paged_decode.launches,
+              dict(pk.stock_paged_decode.launches_by_instance),
+              pk.splash_prefill.launches,
+              dict(pk.splash_prefill.launches_by_instance))
+    _stock(q, kn, vn, kp, vp, table, qpos, layer=1)
+    z = torch.zeros(1, 128, 2, 128)
+    pk.splash_prefill(z, z[:, :, :1], z[:, :, :1], chunk_offset=0)
+    assert before == (pk.stock_paged_decode.launches,
+                      pk.stock_paged_decode.launches_by_instance,
+                      pk.splash_prefill.launches,
+                      pk.splash_prefill.launches_by_instance)
+
+
 # ---------------------------------------------------------------------------
 # JAX's stock path with the stand-in launch
 # ---------------------------------------------------------------------------
