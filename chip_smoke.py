@@ -237,6 +237,32 @@ stock-paged's split pass on the tensor cores) add:
   device ms by kernel group (``profile_insert``), which
   ``selected_vs_serving`` puts side by side.
 
+The last two kernel cells' redesigns (the flash forward's split-KV
+instance for T = 1 decode, the int8 forward's TMA + wgmma instance) add:
+
+* in ``build``: the spill check covers ``flash_fwd_split_kernel``,
+  ``flash_fwd_combine_kernel`` and ``flash_fwd_int8_wgmma_kernel``;
+* every flash forward launch (``flash_attention``,
+  ``flash_attention_quantized``) counted by the instance its C entry
+  point reports; ``kernel_check``'s flash rows check it against
+  ``flash_instance`` (the ``decode`` row: "split_kv") and
+  ``flash_int8_instance`` (the bf16 int8 row: "wgmma");
+* in the ``decode`` row: the profiler's device ms of both passes over the
+  calls the trace saw (``profiled_calls``; each pass's profiled launches
+  apart), the kernels a call ran, the lse against the plain version's
+  (< 1e-3), ``bit_identical``, the plain split-and-combine version's
+  error (``flash_split_reference``), a ``split_sweep`` over
+  ``FLASH_SPLITS`` through ``flash_attention_launch`` (the record behind
+  ``FLASH_SPLIT``), and the replaced mma.sync design's device ms on the
+  same inputs in this run (``replaced_device_ms``);
+* in the int8 rows: ``instance``, ``launches_by_instance``, ``device_ms``,
+  ``bit_identical``, and for bf16 the replaced mma.sync design's events
+  and device ms on the same inputs in this run;
+* in ``cached_decode``: the flash kernel's launches by instance per cell,
+  every bf16 ``flash`` cell on "split_kv" and the float32 cell on
+  "float32", as the C entry point reports them; ``int8_serving`` and
+  ``int8_spec_serving``: every int8 flash launch on "wgmma".
+
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or outside a checkout of the repository, it exits non-zero before printing
 any result.
@@ -339,6 +365,7 @@ EARLIER_MS = {
     ("flash_bwd_dq", "train_dropout"): 1.493,
     ("flash_bwd_dkv", "train"): 3.182,
     ("flash_bwd_dkv", "train_dropout"): 3.330,
+    ("flash_fwd", "decode"): 0.0915, ("flash_fwd_int8", "insert"): 0.2988,
     ("paged_decode", "serving"): 0.1482,
     ("paged_decode", "spec_verify_bfloat16"): 0.1744,
     ("paged_decode", "spec_verify_float32"): 0.2304,
@@ -357,14 +384,21 @@ EARLIER_IS = ("cold-L2 ms of the replaced design at this shape (PERF.md "
 # The same designs' torch.profiler device ms, where recorded (the selection
 # layer's kernels: PERF.md's record of this script on the same card).
 EARLIER_DEVICE_MS = {
+    ("flash_fwd", "decode"): 0.0897,
     ("stock_paged", "serving_bfloat16"): 0.03810,
     ("stock_paged", "serving_float32"): 0.04673,
     ("splash_prefill", "insert_bfloat16"): 0.4926,
     ("splash_prefill", "chunk_bfloat16"): 0.3552,
 }
-# The selection layer's kernels, which must compile without spills
-# (substrings of their mangled names in ptxas's report).
-NO_SPILL_KERNELS = ("splash_wgmma_kernel", "stock_split_kernel")
+# The redesigned kernels, which must compile without spills (substrings of
+# their mangled names in ptxas's report).
+NO_SPILL_KERNELS = ("splash_wgmma_kernel", "stock_split_kernel",
+                    "flash_fwd_split_kernel", "flash_fwd_combine_kernel",
+                    "flash_fwd_int8_wgmma_kernel")
+# Run lengths of the flash forward's split-KV instance timed at the decode
+# shape beside the wrapper's own (FLASH_SPLIT).
+FLASH_SPLITS = (128, 256, 512)
+FLASH_SPLIT_KERNELS = ("flash_fwd_split", "flash_fwd_combine")
 # Split sizes (slots per block of the stock kernel's split pass) timed at
 # the serving shape beside the wrapper's own (STOCK_SPLIT).
 STOCK_SPLITS = (128, 256, 512)
@@ -496,10 +530,74 @@ def ran_instance(after, before):
     return next(iter(ran)) if list(ran.values()) == [1] else ran
 
 
+def split_device_ms(torch, fns):
+    """Device ms per call of split-KV launches ``fns`` (both passes) over
+    the calls the profiler saw (at least 16 profiled), and each pass's
+    profiled launches: (ms, {kernel: launches}, calls profiled)."""
+    fns = list(fns) * max(1, -(-16 // len(fns)))
+    counts = dict.fromkeys(FLASH_SPLIT_KERNELS, 0)
+    ms = kernel_device_ms(torch, fns, ("flash_fwd",), counts)
+    seen = counts[FLASH_SPLIT_KERNELS[0]]
+    return (ms * len(fns) / seen if ms and seen else None), counts, len(fns)
+
+
+def check_split_kv(torch, fa, args, ref, copies):
+    """The decode row's extras for the split-KV instance: the lse (with
+    lse, as a training forward asks), bit-identical calls, the plain
+    split-and-combine version, both passes' device ms, the run-length
+    sweep and the replaced mma.sync design on the same inputs."""
+    before = fa.flash_attention.kernel_launches
+    out, lse = fa._forward(*args, 0.0, None, True)
+    torch.cuda.synchronize()
+    kernels = fa.flash_attention.kernel_launches - before
+    again, lse2 = fa._forward(*args, 0.0, None, True)
+    ref_out, ref_lse = fa.flash_attention_reference(*args, return_lse=True)
+    extra = dict(
+        kernels_per_call=kernels,
+        bit_identical=bool(torch.equal(out, again) and torch.equal(lse, lse2)),
+        lse_max_abs_err=lse_abs_err(torch, lse, ref_lse), lse_bound=LSE_BOUND,
+        with_lse_worst_row_rel=row_rel_err(torch, out, ref_out),
+        split_reference_worst_row_rel=row_rel_err(
+            torch, fa.flash_split_reference(*args), ref),
+        split_slots=fa.FLASH_SPLIT)
+    cold = [lambda a=a: fa.flash_attention(*a) for a in copies]
+    (extra["device_ms"], extra["profiled_launches"],
+     extra["profiled_calls"]) = split_device_ms(torch, cold)
+    sweep = {}
+    for split in FLASH_SPLITS:
+        runs = [lambda a=a, split=split: fa.flash_attention_launch(
+            *a, "split_kv", split=split) for a in copies]
+        got = fa.flash_attention_launch(*args, "split_kv", split=split)
+        torch.cuda.synchronize()
+        sweep[split] = dict(worst_row_rel=row_rel_err(torch, got, ref),
+                            device_ms=split_device_ms(torch, runs)[0],
+                            ms=time_ms(torch, runs, iters=4 * len(runs)))
+    extra["split_sweep"] = sweep
+    old = [lambda a=a: fa.flash_attention_launch(*a, "mma_sync")
+           for a in copies]
+    extra.update(
+        replaced="mma_sync",
+        replaced_worst_row_rel=row_rel_err(
+            torch, fa.flash_attention_launch(*args, "mma_sync"), ref),
+        replaced_ms=time_ms(torch, old, iters=4 * len(old)),
+        replaced_device_ms=device_ms_per_launch(
+            torch, old, ("flash_fwd",), "flash_fwd")[0])
+    ok = (extra["bit_identical"] and kernels == 2
+          and extra["lse_max_abs_err"] < LSE_BOUND
+          and extra["with_lse_worst_row_rel"] < REL_BOUND
+          and extra["split_reference_worst_row_rel"] < REL_BOUND
+          and extra["replaced_worst_row_rel"] < REL_BOUND
+          and all(r["worst_row_rel"] < REL_BOUND for r in sweep.values()))
+    return extra, ok
+
+
 def check_flash(torch, fa, gen):
     results = {}
     for name in FLASH_SHAPES:
         args = flash_inputs(torch, name, gen)
+        q, k = args[0], args[1]
+        want = fa.flash_instance(q.dtype, q.shape[3], q.shape[1], k.shape[1],
+                                 q.shape[2] // k.shape[2])
         before = dict(fa.flash_attention.launches_by_instance)
         out = fa.flash_attention(*args)
         torch.cuda.synchronize()
@@ -519,17 +617,20 @@ def check_flash(torch, fa, gen):
         ], iters=len(copies))
         library_ms = time_ms(torch, [library_attention(torch, *a)
                                      for a in copies], iters=4 * len(copies))
-        device_ms = kernel_device_ms(torch, [
-            lambda a=a: fa.flash_attention(*a) for a in copies],
-            ("flash_fwd",))
+        extra, extra_ok = {}, True
+        if want == "split_kv":
+            extra, extra_ok = check_split_kv(torch, fa, args, ref, copies)
+            device_ms = extra.pop("device_ms")
+        else:
+            device_ms = kernel_device_ms(torch, [
+                lambda a=a: fa.flash_attention(*a) for a in copies],
+                ("flash_fwd",))
         del copies
         f32 = args[0].dtype == torch.float32
         # float32 runs on the CUDA cores.
         bound_ms, bound_by = flash_bound(
             *args, peak=PEAK_F32_FLOPS if f32 else PEAK_BF16_FLOPS)
         rel_bound = F32_KERNEL_BOUND if f32 else REL_BOUND
-        want = fa.flash_instance(args[0].dtype, args[0].shape[3],
-                                 args[0].shape[1], args[1].shape[1])
         row = dict(
             phase="kernel_check", kernel="flash_fwd", shape=name,
             B=args[0].shape[0], T=args[0].shape[1], S=args[1].shape[1],
@@ -539,15 +640,17 @@ def check_flash(torch, fa, gen):
             device_ms=device_ms, warm_ms=warm_ms, plain_ms=plain_ms,
             library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
             roofline_share=bound_ms / ms,
+            device_roofline_share=bound_ms / device_ms if device_ms else None,
             earlier_ms=EARLIER_MS.get(("flash_fwd", name)),
-            earlier_is=EARLIER_IS,
+            earlier_device_ms=EARLIER_DEVICE_MS.get(("flash_fwd", name)),
+            earlier_is=EARLIER_IS, **extra,
         )
         emit(row)
-        if not (rel < rel_bound and instance == want):
+        if not (rel < rel_bound and instance == want and extra_ok):
             raise AssertionError(
                 f"flash {name}: worst packed query row's max abs err is "
                 f"{rel} of its max |plain|, bound {rel_bound}; instance "
-                f"{instance}, expected {want}")
+                f"{instance}, expected {want}; split-KV checks {extra}")
         results[name] = row
     return results
 
@@ -838,25 +941,52 @@ def check_flash_int8(torch, fa, quant, gen):
     kq, vq, ks, vs = int8_pool(quant, k, v)
     del k, v
     rows = {}
+    w = fa.flash_attention_quantized
     for dtype, bound in ((torch.bfloat16, REL_BOUND),
                          (torch.float32, F32_KERNEL_BOUND)):
         name = str(dtype).split(".")[-1]
         args = (q.to(dtype), kq, vq, ks, vs, q_pos, kv_pos)
-        out = fa.flash_attention_quantized(*args)
+        want = fa.flash_int8_instance(dtype, q.shape[3], q.shape[1],
+                                      kq.shape[1])
+        before = dict(w.launches_by_instance)
+        out = w(*args)
         torch.cuda.synchronize()
+        by_instance = {key: n - before.get(key, 0)
+                       for key, n in w.launches_by_instance.items()
+                       if n != before.get(key, 0)}
+        instance = ran_instance(w.launches_by_instance, before)
+        identical = bool(torch.equal(out, w(*args)))
         ref = fa.flash_attention_quantized_reference(*args)
         finite = bool(torch.isfinite(out).all())
         rel = row_rel_err(torch, out, ref)
-        del out, ref
         row = dict(phase="kernel_check", kernel="flash_fwd_int8",
                    shape="insert", B=q.shape[0], T=q.shape[1],
                    S=kq.shape[1], H=q.shape[2], KVH=kq.shape[2],
                    d=q.shape[3], dtype=name, kv="int8 + float32 scales",
-                   worst_row_rel=rel, rel_bound=bound, finite=finite)
+                   instance=instance, launches_by_instance=by_instance,
+                   worst_row_rel=rel, rel_bound=bound, finite=finite,
+                   bit_identical=identical)
         copies = cold_copies(args)
-        row["ms"] = time_ms(torch, [
-            lambda a=a: fa.flash_attention_quantized(*a)
-            for a in copies], iters=4 * len(copies))
+        cold = [lambda a=a: w(*a) for a in copies]
+        row["ms"] = time_ms(torch, cold, iters=4 * len(copies))
+        row["device_ms"], row["profiled_calls"] = device_ms_per_launch(
+            torch, cold, ("flash_fwd",), "flash_fwd")
+        if want == "wgmma":
+            # The replaced design (mma.sync, one tile at a time) on the
+            # same inputs in this run.
+            old = [lambda a=a: fa.flash_attention_quantized_launch(
+                *a, "mma_sync") for a in copies]
+            row.update(
+                replaced="mma_sync",
+                replaced_worst_row_rel=row_rel_err(
+                    torch, fa.flash_attention_quantized_launch(
+                        *args, "mma_sync"), ref),
+                replaced_ms=time_ms(torch, old, iters=4 * len(copies)),
+                replaced_device_ms=device_ms_per_launch(
+                    torch, old, ("flash_fwd",), "flash_fwd")[0],
+                earlier_ms=EARLIER_MS[("flash_fwd_int8", "insert")],
+                earlier_is=EARLIER_IS)
+        del out, ref
         row["warm_ms"] = time_ms(
             torch, lambda: fa.flash_attention_quantized(*args))
         row["plain_ms"] = time_ms(torch, [
@@ -875,10 +1005,15 @@ def check_flash_int8(torch, fa, quant, gen):
         row["bound_ms"], row["bound_by"] = flash_bound(
             args[0], kq, vq, q_pos, kv_pos, scale_planes=2)
         row["roofline_share"] = row["bound_ms"] / row["ms"]
+        if row["device_ms"]:
+            row["device_roofline_share"] = row["bound_ms"] / row["device_ms"]
         emit(row)
-        if not (finite and rel < bound):
+        if not (finite and rel < bound and identical and instance == want
+                and row.get("replaced_worst_row_rel", 0.0) < bound):
             raise AssertionError(f"flash_fwd_int8 ({name}): finite {finite}, "
-                                 f"worst packed row {rel}, bound {bound}")
+                                 f"worst packed row {rel}, bound {bound}, "
+                                 f"bit-identical {identical}, instance "
+                                 f"{instance} (expected {want})")
         rows[name] = row
     return rows
 
@@ -1556,9 +1691,10 @@ def launch_counts(fa, pa):
 
 
 def instance_counts(fa, pa):
-    """Since the last ``zero_counts``: the flash forward's launches per
-    instance, the backward kernels' per instance their C entry points
-    report, the paged kernel's per split-pass instance, the kernels
+    """Since the last ``zero_counts``: the flash forward's (bf16/float32
+    and int8) and the backward kernels' launches per instance their C
+    entry points report (and the forward's kernels: two a split-KV call),
+    the paged kernel's per split-pass instance, the kernels
     (split and combine passes) its C entry point reports launched, and
     the selection layer's wrapper calls per instance."""
     paged = pa.paged_pool_attention
@@ -1569,6 +1705,9 @@ def instance_counts(fa, pa):
                     kn.stock_paged_decode.launches_by_instance),
                 flash_fwd_by_instance=dict(
                     fa.flash_attention.launches_by_instance),
+                flash_fwd_kernel_launches=fa.flash_attention.kernel_launches,
+                flash_fwd_int8_by_instance=dict(
+                    fa.flash_attention_quantized.launches_by_instance),
                 flash_bwd_dq_by_instance=dict(
                     fa.flash_bwd_dq.launches_by_instance),
                 flash_bwd_dkv_by_instance=dict(
@@ -1578,13 +1717,11 @@ def instance_counts(fa, pa):
 
 
 def zero_counts(fa, pa):
-    fa.flash_attention.launches = 0
-    fa.flash_attention.launches_by_instance = {}
-    fa.flash_attention_quantized.launches = 0
-    fa.flash_bwd_dq.launches = 0
-    fa.flash_bwd_dq.launches_by_instance = {}
-    fa.flash_bwd_dkv.launches = 0
-    fa.flash_bwd_dkv.launches_by_instance = {}
+    for w in (fa.flash_attention, fa.flash_attention_quantized,
+              fa.flash_bwd_dq, fa.flash_bwd_dkv):
+        w.launches = 0
+        w.kernel_launches = 0
+        w.launches_by_instance = {}
     pa.paged_pool_attention.launches = 0
     pa.paged_pool_attention.launches_int8 = 0
     pa.paged_pool_attention.launches_by_t = {}
@@ -1999,14 +2136,17 @@ def drive_serving(torch, ptl, fa, pa, params, cfg, tok, phase="serving",
     # pad each insert to a multiple of 128), and every paged launch both
     # of its passes, as its C entry point reports them.
     by_instance = instances["flash_fwd_by_instance"]
+    by_instance_int8 = instances["flash_fwd_int8_by_instance"]
     paged = launches["paged_decode"] + launches["paged_decode_int8"]
     if (by_instance != ({"wgmma": launches["flash_fwd"]}
                         if launches["flash_fwd"] else {})
+            or by_instance_int8 != ({"wgmma": launches["flash_fwd_int8"]}
+                                    if launches["flash_fwd_int8"] else {})
             or sum(instances["paged_by_instance"].values()) != paged
             or instances["paged_kernel_launches"] != 2 * paged):
         raise AssertionError(f"{phase}: flash instances {by_instance}, "
-                             f"paged kernels {instances}, launches "
-                             f"{launches}")
+                             f"int8 {by_instance_int8}, paged kernels "
+                             f"{instances}, launches {launches}")
     if not (exact and in_vocab):
         raise AssertionError(f"serving tokens: lengths {lens}, in vocab "
                              f"{in_vocab}")
@@ -2457,6 +2597,7 @@ def drive_int8(torch, np, ptl, engine, serving, fa, pa, params, cfg, tok,
     toks, wall, n_tok = run_batcher(torch, cb, spec_prompts(np))
     launches = dict(launch_counts(fa, pa), paged_decode_by_t=dict(
         pa.paged_pool_attention.launches_by_t))
+    int8_by_instance = dict(fa.flash_attention_quantized.launches_by_instance)
     stats = cb.stats()
     del cb
     rounds = stats["decode_steps_total"]
@@ -2466,6 +2607,7 @@ def drive_int8(torch, np, ptl, engine, serving, fa, pa, params, cfg, tok,
         n_draft=SPEC_DRAFT, spec_rounds=SPEC_ROUNDS,
         acceptance=stats["draft_acceptance_rate"], rounds=rounds,
         tokens=[len(t) for t in toks], launches=launches,
+        flash_fwd_int8_by_instance=int8_by_instance,
         tokens_per_s=n_tok / wall,
         ms_per_round=wall * 1e3 / max(1, rounds - 1),
         peak_memory_bytes=torch.cuda.max_memory_allocated(),
@@ -2480,6 +2622,9 @@ def drive_int8(torch, np, ptl, engine, serving, fa, pa, params, cfg, tok,
     problems = []
     if launches != want:
         problems.append(f"launches {launches}, expected {want}")
+    if int8_by_instance != {"wgmma": want["flash_fwd_int8"]}:
+        problems.append(f"int8 flash launches by instance "
+                        f"{int8_by_instance}, expected all on wgmma")
     if spec["acceptance"] != 1.0 or spec["tokens"] != [SPEC_NEW] * SPEC_SLOTS:
         problems.append("self-draft acceptance / token counts")
     if not all(0 <= t < cfg.vocab_size for r in toks for t in r):
@@ -2678,6 +2823,7 @@ def main() -> int:
                 full = ptl.forward(p, toks[:, :8], pos[:, :8], c)[0]
                 cache = ptl.init_cache(c, 2, max_len=1024, device="cuda")
                 before = fa.flash_attention.launches
+                by_before = dict(fa.flash_attention.launches_by_instance)
                 outs = []
                 for i in range(8):
                     lg, cache = ptl.forward(p, toks[:, i:i + 1],
@@ -2687,6 +2833,10 @@ def main() -> int:
                                                       full)
                 cells[f"{impl}_{name}_decode_launches"] = (
                     fa.flash_attention.launches - before)
+                cells[f"{impl}_{name}_decode_by_instance"] = {
+                    key: n - by_before.get(key, 0) for key, n in
+                    fa.flash_attention.launches_by_instance.items()
+                    if n != by_before.get(key, 0)}
                 del full, cache, outs
         for dtype in ("float32", "bfloat16"):
             full = {
@@ -2708,6 +2858,18 @@ def main() -> int:
         raise AssertionError(f"cached decode invariant failed: {cells}")
     if cells["flash_f32_32_layers_decode_launches"] != 8 * cfg.n_layers:
         raise AssertionError("flash decode did not run the kernel each step")
+    # Every T = 1 step of a flash cell on the instance its rule picks, as
+    # the C entry point reports it: bf16 on split-KV, float32 on float32;
+    # the auto cells run the plain path.
+    want_by = {"flash_bf16_8_layers": {"split_kv": 8 * DECODE_DEPTH},
+               "flash_bf16_32_layers": {"split_kv": 8 * cfg.n_layers},
+               "flash_f32_32_layers": {"float32": 8 * cfg.n_layers},
+               "auto_bf16_8_layers": {}, "auto_bf16_32_layers": {},
+               "auto_f32_32_layers": {}}
+    got_by = {k: cells[f"{k}_decode_by_instance"] for k in want_by}
+    if got_by != want_by:
+        raise AssertionError(f"cached decode launches by instance {got_by}, "
+                             f"expected {want_by}")
 
     # Phase 5: the serving path, counted from zero.
     serve_row = drive_serving(torch, ptl, fa, pa, params, cfg, tok)
@@ -2811,7 +2973,8 @@ def main() -> int:
                insert_plain_ms=pre["plain_ms"],
                insert_library_ms=pre["library_ms"],
                insert_instance=pre["instance"],
-               decode=flash_sub("decode"),
+               decode=dict(flash_sub("decode"), replaced_device_ms=flash_rows[
+                   "decode"]["replaced_device_ms"]),
                cached_decode=flash_sub("cached_decode"))
     fi8 = flash_int8_rows["bfloat16"]
     pi8 = paged_int8_rows["serving"]
@@ -2835,10 +2998,18 @@ def main() -> int:
                              for r in flash_int8_rows.values()),
              max_abs_err_is="the worst packed query row's max abs err over "
              "its own max |plain|, bf16 and float32",
-             ms=fi8["ms"], warm_ms=fi8["warm_ms"], plain_ms=fi8["plain_ms"],
-             bound_ms=fi8["bound_ms"], bound_by=fi8["bound_by"],
-             library_ms=fi8["library_ms"],
-             float32_ms=flash_int8_rows["float32"]["ms"]),
+             ms=fi8["ms"], device_ms=fi8["device_ms"], warm_ms=fi8["warm_ms"],
+             plain_ms=fi8["plain_ms"], bound_ms=fi8["bound_ms"],
+             bound_by=fi8["bound_by"], library_ms=fi8["library_ms"],
+             instance=fi8["instance"],
+             replaced_device_ms=fi8["replaced_device_ms"],
+             launches_by_instance={
+                 "int8_serving": int8_row["instances"][
+                     "flash_fwd_int8_by_instance"],
+                 "int8_spec_serving": int8_spec[
+                     "flash_fwd_int8_by_instance"]},
+             float32_ms=flash_int8_rows["float32"]["ms"],
+             float32_device_ms=flash_int8_rows["float32"]["device_ms"]),
         dict(name="paged_decode_int8", route="cuda",
              source="jax_llama_tpu_torch/csrc/paged_decode.cu",
              replaces="jax_llama_tpu/ops/paged_attention.py:371 "

@@ -4,7 +4,7 @@
 // fence and named barriers, 4-D TMA tile loads and 1-D bulk copies, wgmma
 // shared-memory descriptors and the wgmma instructions, in raw PTX so the
 // build needs no headers beyond the CUDA toolkit's; and, on the host,
-// the 4-D bf16 tensor map of a TMA load, encoded by
+// the 4-D bf16 and int8 tensor maps of a TMA load, encoded by
 // cuTensorMapEncodeTiled, whose address the CUDA runtime hands out
 // (cudaGetDriverEntryPoint), so the library needs no -lcuda.
 
@@ -288,6 +288,25 @@ inline bool encode_bf16_4d(CUtensorMap* map, const void* base, uint64_t n0,
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The map of a contiguous int8 tensor [n3, n2, n1, n0] with n0 = 128
+// (one 128-byte row) read in boxes of (128, 1, rows, 1), stored as they
+// lie (no swizzle): box row r at byte 128 r.  Reads past the tensor fill
+// zeros.  Returns false if the encoder refuses it.
+inline bool encode_int8_4d(CUtensorMap* map, const void* base, uint64_t n0,
+                           uint64_t n1, uint64_t n2, uint64_t n3,
+                           uint32_t rows) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr || n0 != 128) return false;
+  const cuuint64_t dims[4] = {n0, n1, n2, n3};
+  const cuuint64_t strides[3] = {n0, n0 * n1, n0 * n1 * n2};
+  const cuuint32_t box[4] = {128, 1, rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, const_cast<void*>(base),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

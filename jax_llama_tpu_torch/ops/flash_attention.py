@@ -25,15 +25,21 @@ row, slot) -- ``dropout_keep``, bit for bit the JAX ``_dropout_keep`` --
 so the forward and both backward kernels draw the same mask without
 storing it.
 
-The forward has three instances, picked per call by ``flash_instance``
-from the dtype, head_dim and the query and KV lengths: ``"wgmma"`` (bf16,
-d = 128, T a multiple of 128: the training shape, prefill and the serving
-inserts; TMA loads and wgmma on Hopper), ``"mma_sync"`` (every other bf16
-call: decode at T = 1, ragged T, d = 64) and ``"float32"`` (CUDA cores).
-``flash_attention.launches_by_instance`` counts each.  The backward
-kernels have the same three instances, picked by ``flash_bwd_instance``
-(the same rule: ``"wgmma"`` is the Hopper TMA + wgmma pair at the training
-shape); ``flash_bwd_dq.launches_by_instance`` and
+The forward has four instances, picked per call by ``flash_instance``
+from the dtype, head_dim, the query and KV lengths, the query heads per KV
+head and dropout: ``"wgmma"`` (bf16, d = 128, T a multiple of 128: the
+training shape, prefill and the serving inserts; TMA loads and wgmma on
+Hopper), ``"split_kv"`` (bf16, at most ``SPLIT_MAX_ROWS`` packed rows G*T
+and no dropout: decode at T = 1; a split pass over runs of
+``FLASH_SPLIT`` slots and a combine pass, two kernels a call),
+``"mma_sync"`` (every other bf16 call: ragged T, d = 64, dropout or more
+rows at small T) and ``"float32"`` (CUDA cores).  Each C entry point
+reports the instance it launched, and
+``flash_attention.launches_by_instance`` counts those reports
+(``flash_attention.kernel_launches`` the kernels).  The backward kernels
+have three instances, picked by ``flash_bwd_instance`` (``"wgmma"`` is the
+Hopper TMA + wgmma pair at the training shape, then ``"mma_sync"`` and
+``"float32"``); ``flash_bwd_dq.launches_by_instance`` and
 ``flash_bwd_dkv.launches_by_instance`` count the instance each C entry
 point reports it launched.
 
@@ -48,12 +54,18 @@ tensor either reaches a kernel or raises.
 K/V with float32 per-slot-per-head scales [B, S, KVH]: K's scale is folded
 into the scores and V's into the probabilities, so the kernel
 (``flash_fwd_int8`` in ``csrc/flash_fwd.cu``) reads the int8 bytes and no
-dequantized copy exists.  Inference only: no dropout, no VJP.
+dequantized copy exists.  Inference only: no dropout, no VJP.  Its
+instances, picked by ``flash_int8_instance``: ``"wgmma"`` (bf16 q, d =
+128, T a multiple of 128: every int8 insert and prefill; int8 tiles
+landed by TMA and widened in shared memory for wgmma), ``"mma_sync"``
+and ``"float32"``; ``flash_attention_quantized.launches_by_instance``
+counts what its C entry points report.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -73,37 +85,72 @@ WGMMA_HEAD_DIM = 128
 # The backward's Hopper dK/dV kernel keeps each 64-token tile's smallest
 # and largest q_pos in shared memory, 1024 tiles at most.
 WGMMA_BWD_MAX_T = 65536
-# The C entry point of each forward instance.
-_ENTRY = {"wgmma": "flash_fwd_wgmma", "mma_sync": "flash_fwd",
-          "float32": "flash_fwd"}
-# What the backward kernels' C entry points report they launched.
-_BWD_INSTANCES = {1: "float32", 2: "mma_sync", 3: "wgmma"}
+# The split-KV instance: at most this many packed rows G*T (one m16 tile
+# of mma.sync), and runs of FLASH_SPLIT slots per block of its split pass:
+# csrc/flash_fwd.cu sk::SPLIT (the C entry point rejects a run count
+# computed from another value).
+SPLIT_MAX_ROWS = 16
+FLASH_SPLIT = 256
+# The C entry point of each forward instance, and of each int8 instance.
+_ENTRY = {"wgmma": "flash_fwd_wgmma", "split_kv": "flash_fwd_split",
+          "mma_sync": "flash_fwd", "float32": "flash_fwd"}
+_INT8_ENTRY = {"wgmma": "flash_fwd_int8_wgmma", "mma_sync": "flash_fwd_int8",
+               "float32": "flash_fwd_int8"}
+# What the C entry points (forward, int8 and backward) report they
+# launched.
+_INSTANCES = {1: "float32", 2: "mma_sync", 3: "wgmma", 4: "split_kv"}
+
+
+def _hopper_shape(dtype, head_dim, q_len, kv_len) -> bool:
+    """bf16 at head_dim 128, T a positive multiple of 128, S > 0: the
+    shapes of the TMA + wgmma instances."""
+    return (dtype == torch.bfloat16 and head_dim == WGMMA_HEAD_DIM
+            and q_len > 0 and q_len % WGMMA_ROWS == 0 and kv_len > 0)
 
 
 def flash_instance(dtype: torch.dtype, head_dim: int, q_len: int,
-                   kv_len: int) -> str:
+                   kv_len: int, group: int = 1,
+                   dropout: bool = False) -> str:
     """The forward instance a CUDA call of these shapes runs: "wgmma" for
     bf16 at head_dim 128 with T (``q_len``) a positive multiple of 128 and
-    a non-empty cache (S = ``kv_len``); "mma_sync" for every other bf16
-    call; "float32" for float32."""
+    a non-empty cache (S = ``kv_len``); "split_kv" for bf16 at head_dim
+    64 or 128 with at most ``SPLIT_MAX_ROWS`` packed rows (``group`` query
+    heads per KV head times T), S > 0 and no ``dropout``; "mma_sync" for
+    every other bf16 call; "float32" for float32."""
     if dtype == torch.float32:
         return "float32"
-    if (dtype == torch.bfloat16 and head_dim == WGMMA_HEAD_DIM
-            and q_len > 0 and q_len % WGMMA_ROWS == 0 and kv_len > 0):
+    if _hopper_shape(dtype, head_dim, q_len, kv_len):
         return "wgmma"
+    if (dtype == torch.bfloat16 and head_dim in _HEAD_DIMS
+            and 0 < group * q_len <= SPLIT_MAX_ROWS and kv_len > 0
+            and not dropout):
+        return "split_kv"
     return "mma_sync"
+
+
+def flash_int8_instance(dtype: torch.dtype, head_dim: int, q_len: int,
+                        kv_len: int) -> str:
+    """The instance a CUDA call of ``flash_attention_quantized`` runs:
+    "wgmma" for bf16 q at head_dim 128 with T a positive multiple of 128
+    and S > 0 (every int8 insert and prefill); "mma_sync" for every other
+    bf16 call; "float32" for float32 q."""
+    if dtype == torch.float32:
+        return "float32"
+    return ("wgmma" if _hopper_shape(dtype, head_dim, q_len, kv_len)
+            else "mma_sync")
 
 
 def flash_bwd_instance(dtype: torch.dtype, head_dim: int, q_len: int,
                        kv_len: int) -> str:
     """The backward instance (both ``flash_bwd_dq`` and ``flash_bwd_dkv``)
-    a CUDA call of these shapes runs, by the forward's rule: "wgmma" (the
-    Hopper pair: TMA rings and wgmma) for bf16 at head_dim 128 with T a
-    positive multiple of 128, at most ``WGMMA_BWD_MAX_T``, and S > 0;
-    "mma_sync" for every other bf16 call; "float32" for float32."""
-    if q_len > WGMMA_BWD_MAX_T:
-        return "float32" if dtype == torch.float32 else "mma_sync"
-    return flash_instance(dtype, head_dim, q_len, kv_len)
+    a CUDA call of these shapes runs: "wgmma" (the Hopper pair: TMA rings
+    and wgmma) for bf16 at head_dim 128 with T a positive multiple of 128,
+    at most ``WGMMA_BWD_MAX_T``, and S > 0; "mma_sync" for every other
+    bf16 call; "float32" for float32."""
+    if dtype == torch.float32:
+        return "float32"
+    return ("wgmma" if q_len <= WGMMA_BWD_MAX_T
+            and _hopper_shape(dtype, head_dim, q_len, kv_len) else "mma_sync")
 
 
 # ---------------------------------------------------------------------------
@@ -278,6 +325,55 @@ def flash_attention_quantized_reference(
                                      k_scale=k_scale, v_scale=v_scale)
 
 
+def flash_split_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    q_pos: torch.Tensor,
+    kv_pos: torch.Tensor,
+    split: int = FLASH_SPLIT,
+    return_lse: bool = False,
+):
+    """The split-KV instance's function in plain torch (for the tests and
+    ``chip_smoke.py``; the wrapper's CPU path is
+    ``flash_attention_reference``): the slots cut into runs of ``split``,
+    each run's base-2 max m, sum l and output o (P rounded to v's dtype
+    before P.V) in float32, then the runs merged by their maxes: a run
+    with no live slot for a row (m = -inf) adds nothing.  A row with no
+    live slot gets out 0 and lse +inf.  Returns out [B, T, H, d] in q's
+    dtype, and with ``return_lse`` the natural-log lse [B, KVH, G*T]."""
+    B, T, H, d = q.shape
+    S, KVH = k.shape[1], k.shape[2]
+    G = H // KVH
+    n = -(-S // split)
+    pad = n * split - S
+    qg = q.reshape(B, T, KVH, G, d).float()
+    s = torch.einsum("btkgd,bskd->bkgts", qg, k.float())
+    s = s * ((1.0 / math.sqrt(d)) * math.log2(math.e))
+    s = s.masked_fill(~_allowed(q_pos, kv_pos)[:, None, None], float("-inf"))
+    s = torch.nn.functional.pad(s, (0, pad), value=float("-inf"))
+    s = s.reshape(B, KVH, G, T, n, split)
+    vv = torch.nn.functional.pad(v.float(), (0, 0, 0, 0, 0, pad))
+    vv = vv.reshape(B, n, split, KVH, d)
+    m = s.amax(dim=-1)  # [B, KVH, G, T, n]
+    live = torch.isfinite(m)
+    p = torch.exp2(s - torch.where(live, m, 0.0)[..., None])
+    l = p.sum(dim=-1)
+    o = torch.einsum("bkgtns,bnskd->bkgtnd", p.to(v.dtype).float(), vv)
+    M = m.amax(dim=-1, keepdim=True)
+    w = torch.where(live, torch.exp2(m - torch.where(live, M, 0.0)), 0.0)
+    L = (w * l).sum(dim=-1)  # [B, KVH, G, T]
+    O = (w[..., None] * o).sum(dim=-2)
+    Lt = L[..., None]
+    O = torch.where(Lt > 0, O / torch.where(Lt > 0, Lt, 1.0), 0.0)
+    out = O.permute(0, 3, 1, 2, 4).reshape(B, T, H, d).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.where(L > 0, (M[..., 0] + torch.log2(torch.where(
+        L > 0, L, 1.0))) * math.log(2.0), float("inf"))
+    return out, lse.reshape(B, KVH, G * T)
+
+
 def flash_backward_reference(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -380,48 +476,92 @@ _DROP_ARGTYPES = [ctypes.c_int, ctypes.c_uint, ctypes.c_uint, ctypes.c_uint,
                   ctypes.c_float]
 
 
-def _fn(lib_name: str, name: str, n_ptr: int, report: bool = False):
-    """C entry point ``name``: n_ptr pointers, seven ints, the scale, the
-    dropout words and the stream; with ``report``, an ``int*`` after them
-    that receives the instance launched."""
+@functools.lru_cache(maxsize=None)
+def _fn(lib_name: str, name: str, n_ptr: int, n_int: int = 7,
+        n_report: int = 1):
+    """C entry point ``name``: n_ptr pointers, n_int ints, the scale, the
+    dropout words and the stream, then n_report ``int*`` that receive what
+    it launched (the instance, then, for the split-KV entry points, the
+    kernels).  Bound once per process (a decode step calls it per layer)."""
     fn = getattr(_build.load(lib_name), name)
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 7
+    fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
                    + [ctypes.c_float] + _DROP_ARGTYPES + [ctypes.c_void_p]
-                   + ([ctypes.POINTER(ctypes.c_int)] if report else []))
+                   + [ctypes.POINTER(ctypes.c_int)] * n_report)
     return fn
 
 
-def _count(wrapper, instance: str) -> None:
-    """One launch of ``wrapper``'s kernel, of ``instance``."""
+def _count(wrapper, code: int, kernels: int = 1) -> None:
+    """One launch of ``wrapper``, of the instance its C entry point
+    reported (``code``), which ran ``kernels`` kernels."""
+    instance = _INSTANCES[code]
     wrapper.launches += 1
+    wrapper.kernel_launches += kernels
     by = wrapper.launches_by_instance
     by[instance] = by.get(instance, 0) + 1
 
 
-def _launch(q, k, v, q_pos, kv_pos, rate, seed, need_lse):
+def _launch(q, k, v, q_pos, kv_pos, rate, seed, need_lse, instance=None,
+            split=FLASH_SPLIT):
+    """Launch ``instance`` (default: the one ``flash_instance`` picks)
+    through its C entry point and count the instance that entry point
+    reports; the split-KV instance runs ``split`` slots a run of its split
+    pass, in float32 scratch allocated here."""
     B, T, H, d = q.shape
     S, KVH = k.shape[1], k.shape[2]
-    instance = flash_instance(q.dtype, d, T, S)
-    fn = _fn(KERNEL, _ENTRY[instance], 7)
+    G = H // KVH
+    instance = instance or flash_instance(q.dtype, d, T, S, G, rate > 0.0)
+    entry = _ENTRY[instance]
     out = torch.empty_like(q)
-    lse = (torch.empty((B, KVH, (H // KVH) * T), dtype=torch.float32,
+    lse = (torch.empty((B, KVH, G * T), dtype=torch.float32,
                        device=q.device) if need_lse or rate > 0.0 else None)
     scale_log2 = (1.0 / math.sqrt(d)) * math.log2(math.e)
+    code, kernels = ctypes.c_int(0), ctypes.c_int(1)
+    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
+            kv_pos.data_ptr(), out.data_ptr(),
+            lse.data_ptr() if lse is not None else None]
+    ints = [B, T, S, H, KVH, d, _DTYPE_CODE[q.dtype]]
+    tail = [scale_log2, *_drop_ctypes(rate, seed)]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
-            kv_pos.data_ptr(), out.data_ptr(),
-            lse.data_ptr() if lse is not None else None,
-            B, T, S, H, KVH, d, _DTYPE_CODE[q.dtype], scale_log2,
-            *_drop_ctypes(rate, seed), stream,
-        )
+        if instance == "split_kv":
+            n_split = -(-S // split)
+            partials = torch.empty(B * KVH * n_split * G * T * (d + 2),
+                                   dtype=torch.float32, device=q.device)
+            if split != FLASH_SPLIT:
+                entry, ints = "flash_fwd_split_at", ints + [split]
+            fn = _fn(KERNEL, entry, 8, len(ints) + 1, 2)
+            rc = fn(*ptrs, partials.data_ptr(), *ints, n_split, *tail, stream,
+                    ctypes.byref(code), ctypes.byref(kernels))
+        else:
+            fn = _fn(KERNEL, entry, 7)
+            rc = fn(*ptrs, *ints, *tail, stream, ctypes.byref(code))
     if rc != 0:
-        raise RuntimeError(f"{_ENTRY[instance]} launch failed: cudaError_t "
-                           f"{rc}")
-    _count(flash_attention, instance)
+        raise RuntimeError(f"{entry} launch failed: cudaError_t {rc}")
+    _count(flash_attention, code.value, kernels.value)
     return out, lse
+
+
+def flash_attention_launch(q, k, v, q_pos, kv_pos, instance: str,
+                           split: int = FLASH_SPLIT) -> torch.Tensor:
+    """``flash_attention``'s card launch (no dropout, no gradient) of a
+    named ``instance`` whose C entry point takes these shapes, and for
+    "split_kv" of ``split`` slots a run (a multiple of 16 in 16..512):
+    the wrapper's checks, then the launch, counted on
+    ``flash_attention`` by what the entry point reports.  For the card
+    tests and ``chip_smoke.py``, which time an instance beside the one
+    the wrapper picks; it has no plain version: tensors off the card
+    raise."""
+    if instance not in _ENTRY:
+        raise ValueError(f"unknown flash instance {instance!r}")
+    if split <= 0 or split % 16 or split > 512:
+        raise ValueError(f"split {split} is not a multiple of 16 in 16..512")
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_launch: needs CUDA tensors, got "
+                         f"{q.device}")
+    _check(q, k, v, q_pos, kv_pos)
+    return _launch(q, k, v, q_pos, kv_pos, 0.0, None, False, instance,
+                   split)[0]
 
 
 def _forward(q, k, v, q_pos, kv_pos, rate, seed, need_lse):
@@ -437,27 +577,69 @@ def _forward(q, k, v, q_pos, kv_pos, rate, seed, need_lse):
     return _launch(q, k, v, q_pos, kv_pos, rate, seed, need_lse)
 
 
-def _launch_quantized(q, k, v, k_scale, v_scale, q_pos, kv_pos):
-    fn = getattr(_build.load(KERNEL), "flash_fwd_int8")
+@functools.lru_cache(maxsize=None)
+def _int8_fn(name: str):
+    """An int8 C entry point: eight pointers, seven ints, the scale, the
+    stream and the ``int*`` that receives the instance launched."""
+    fn = getattr(_build.load(KERNEL), name)
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
-                   + [ctypes.c_float, ctypes.c_void_p])
+                   + [ctypes.c_float, ctypes.c_void_p,
+                      ctypes.POINTER(ctypes.c_int)])
+    return fn
+
+
+def _launch_quantized(q, k, v, k_scale, v_scale, q_pos, kv_pos,
+                      instance=None):
+    """Launch ``instance`` (default: the one ``flash_int8_instance``
+    picks) through its C entry point and count the instance that entry
+    point reports."""
     B, T, H, d = q.shape
     S, KVH = k.shape[1], k.shape[2]
+    entry = _INT8_ENTRY[instance or flash_int8_instance(q.dtype, d, T, S)]
+    fn = _int8_fn(entry)
     out = torch.empty_like(q)
     scale_log2 = (1.0 / math.sqrt(d)) * math.log2(math.e)
+    code = ctypes.c_int(0)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(),
             v_scale.data_ptr(), q_pos.data_ptr(), kv_pos.data_ptr(),
             out.data_ptr(), B, T, S, H, KVH, d, _DTYPE_CODE[q.dtype],
-            scale_log2, stream,
+            scale_log2, stream, ctypes.byref(code),
         )
     if rc != 0:
-        raise RuntimeError(f"flash_fwd_int8 launch failed: cudaError_t {rc}")
-    flash_attention_quantized.launches += 1
+        raise RuntimeError(f"{entry} launch failed: cudaError_t {rc}")
+    _count(flash_attention_quantized, code.value)
     return out
+
+
+def _check_quantized(q, k, v, k_scale, v_scale, q_pos, kv_pos) -> None:
+    _check(q, k, v, q_pos, kv_pos, kv_dtype=torch.int8)
+    for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+        if t.dtype != torch.float32 or t.shape != k.shape[:3] \
+                or t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous float32 "
+                             f"{tuple(k.shape[:3])} on {q.device}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def flash_attention_quantized_launch(q, k, v, k_scale, v_scale, q_pos,
+                                     kv_pos, instance: str) -> torch.Tensor:
+    """``flash_attention_quantized``'s card launch of a named
+    ``instance`` whose C entry point takes these shapes, counted by what
+    the entry point reports: for the card tests and ``chip_smoke.py``,
+    which time the replaced design beside the one the wrapper picks.
+    Tensors off the card raise."""
+    if instance not in _INT8_ENTRY:
+        raise ValueError(f"unknown int8 flash instance {instance!r}")
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_quantized_launch: needs CUDA "
+                         f"tensors, got {q.device}")
+    _check_quantized(q, k, v, k_scale, v_scale, q_pos, kv_pos)
+    return _launch_quantized(q, k, v, k_scale, v_scale, q_pos, kv_pos,
+                             instance)
 
 
 def flash_attention_quantized(
@@ -476,7 +658,7 @@ def flash_attention_quantized(
     q [B, T, H, d] (bf16 or float32); k, v [B, S, KVH, d] int8; k_scale,
     v_scale [B, S, KVH] float32; positions as ``flash_attention``'s.  CPU
     tensors take ``flash_attention_quantized_reference``; CUDA tensors
-    launch ``flash_fwd_int8`` or raise.  Inference only: it has no
+    launch the instance ``flash_int8_instance`` picks or raise.  Inference only: it has no
     dropout and no gradient."""
     if torch.is_grad_enabled() and q.requires_grad:
         raise ValueError("flash_attention_quantized is inference-only "
@@ -487,21 +669,15 @@ def flash_attention_quantized(
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_quantized: unsupported device "
                          f"{q.device}")
-    _check(q, k, v, q_pos, kv_pos, kv_dtype=torch.int8)
-    for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
-        if t.dtype != torch.float32 or t.shape != k.shape[:3] \
-                or t.device != q.device or not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous float32 "
-                             f"{tuple(k.shape[:3])} on {q.device}, got "
-                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    _check_quantized(q, k, v, k_scale, v_scale, q_pos, kv_pos)
     return _launch_quantized(q, k, v, k_scale, v_scale, q_pos, kv_pos)
 
 
 def _bwd_launch(name, q, k, v, q_pos, kv_pos, lse, delta, g, outs, rate,
-                seed) -> str:
+                seed) -> int:
     """Launch backward kernel ``name`` through the C entry point of the
-    instance ``flash_bwd_instance`` picks; return the instance that entry
-    point reports it launched.  A failed launch raises with its
+    instance ``flash_bwd_instance`` picks; return the code of the instance
+    that entry point reports it launched.  A failed launch raises with its
     cudaError_t; nothing retries on another instance."""
     B, T, H, d = q.shape
     S, KVH = k.shape[1], k.shape[2]
@@ -516,7 +692,7 @@ def _bwd_launch(name, q, k, v, q_pos, kv_pos, lse, delta, g, outs, rate,
     _check(q, k, v, q_pos, kv_pos, ("g", g), ("lse", lse), ("delta", delta))
     entry = name + ("_wgmma" if flash_bwd_instance(q.dtype, d, T, S)
                     == "wgmma" else "")
-    fn = _fn(BWD_KERNEL, entry, 8 + len(outs), report=True)
+    fn = _fn(BWD_KERNEL, entry, 8 + len(outs))
     code = ctypes.c_int(0)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -529,7 +705,7 @@ def _bwd_launch(name, q, k, v, q_pos, kv_pos, lse, delta, g, outs, rate,
         )
     if rc != 0:
         raise RuntimeError(f"{entry} launch failed: cudaError_t {rc}")
-    return _BWD_INSTANCES[code.value]
+    return code.value
 
 
 def flash_bwd_dq(q, k, v, q_pos, kv_pos, lse, delta, g, rate=0.0,
@@ -639,15 +815,15 @@ def flash_attention(
     return _forward(q, k, v, q_pos, kv_pos, rate, seed, False)[0]
 
 
-# Launches of each CUDA kernel in this process; the plain versions never
-# count.  Callers reset a count by assigning 0 (and
-# ``launches_by_instance`` by assigning {}: the forward's launches per
-# ``flash_instance``, the backward kernels' per instance their C entry
-# points report).
-flash_attention.launches = 0
-flash_attention.launches_by_instance = {}
-flash_attention_quantized.launches = 0
-flash_bwd_dq.launches = 0
-flash_bwd_dq.launches_by_instance = {}
-flash_bwd_dkv.launches = 0
-flash_bwd_dkv.launches_by_instance = {}
+# Launches of each wrapper's CUDA kernels in this process; the plain
+# versions never count.  ``launches`` counts calls, ``kernel_launches``
+# the kernels they ran (two for a split-KV call: the split and the combine
+# pass) and ``launches_by_instance`` the calls per instance as each C
+# entry point reports it launched.  Callers reset them by assigning 0 and
+# {}.
+for _wrapper in (flash_attention, flash_attention_quantized, flash_bwd_dq,
+                 flash_bwd_dkv):
+    _wrapper.launches = 0
+    _wrapper.kernel_launches = 0
+    _wrapper.launches_by_instance = {}
+del _wrapper

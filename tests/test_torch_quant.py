@@ -10,7 +10,8 @@ inputs (CPU, float32, tiny configs).
   2.16, as in tests/test_torch_model.py).
 * ``flash_attention_quantized``'s plain version against JAX's Pallas
   kernel in interpret mode, and ``sdpa_cached`` with scales against
-  JAX's: atol 1e-5 (summation order).
+  JAX's: atol 1e-5 (summation order).  The int8 forward's instance rule
+  (``flash_int8_instance``), and its CPU calls counting no instance.
 * int8 ``engine.generate`` (int8 weights and an int8 KV cache) on the xla
   and the flash path: greedy tokens identical to JAX's.
 
@@ -170,6 +171,43 @@ def test_flash_attention_quantized_plain_matches_jax(name):
                                rtol=0)
     with pytest.raises(ValueError, match="inference-only"):
         fa.flash_attention_quantized(args[0].requires_grad_(), *args[1:])
+
+
+@pytest.mark.parametrize("dtype,d,T,S,want", [
+    (torch.bfloat16, 128, 1024, 1024, "wgmma"),   # the int8 serving insert
+    (torch.bfloat16, 128, 128, 2048, "wgmma"),    # a chunk into a cache
+    (torch.bfloat16, 128, 512, 512, "wgmma"),     # generate's prefill
+    (torch.bfloat16, 128, 1, 1024, "mma_sync"),   # T = 1 decode
+    (torch.bfloat16, 128, 200, 200, "mma_sync"),  # ragged T
+    (torch.bfloat16, 64, 512, 512, "mma_sync"),   # head_dim 64
+    (torch.bfloat16, 128, 128, 0, "mma_sync"),
+    (torch.float32, 128, 1024, 1024, "float32"),
+    (torch.float32, 64, 1, 16, "float32"),
+])
+def test_flash_int8_instance_dispatch(dtype, d, T, S, want):
+    """The int8 forward's instance: its Hopper one (int8 tiles widened in
+    shared memory for wgmma) for bf16 q at head_dim 128 with T a positive
+    multiple of 128 and S > 0, mma.sync for every other bf16 call, float32
+    q on its own."""
+    assert fa.flash_int8_instance(dtype, d, T, S) == want
+
+
+def test_cpu_quantized_calls_count_no_instance():
+    """The int8 forward's plain version runs on CPU tensors and counts
+    nothing, even at a shape its Hopper instance would take."""
+    rng = np.random.default_rng(4)
+    q = torch.from_numpy(rng.standard_normal((1, 128, 2, 128)).astype(
+        np.float32)).to(torch.bfloat16)
+    kq = torch.from_numpy(rng.integers(-127, 128, (1, 128, 1, 128)).astype(
+        np.int8))
+    sc = torch.full((1, 128, 1), 0.01)
+    pos = torch.arange(128, dtype=torch.int32)[None]
+    assert fa.flash_int8_instance(q.dtype, 128, 128, 128) == "wgmma"
+    w = fa.flash_attention_quantized
+    before = (w.launches, w.kernel_launches, dict(w.launches_by_instance))
+    out = w(q, kq, kq, sc, sc, pos, pos)
+    assert out.shape == q.shape and out.dtype == q.dtype
+    assert (w.launches, w.kernel_launches, w.launches_by_instance) == before
 
 
 def test_sdpa_cached_with_scales_matches_jax():

@@ -6,7 +6,11 @@ jax nor the JAX package:
     python -m pytest tests/test_torch_quant_cuda.py -m cuda --noconftest -q
 
 * ``flash_fwd_int8`` and the int8 paged kernel against their plain
-  versions, at head_dim 64 and 128, bf16 and float32 q; the paged kernel
+  versions, at head_dim 64 and 128, bf16 and float32 q; the int8 flash
+  forward's Hopper instance at T = 128 and 256 (left padding, a chunk
+  window at a non-zero base with a -1 tail, a cache ending inside a TMA
+  box), with its reported instance, bit-identical calls and the replaced
+  mma.sync design beside it; the paged kernel
   at block sizes 128, 62 and 20, at T = 1 and T > 1 with a block that only
   the later tokens see and an active row whose pool is empty.  Tolerances:
   bf16 atol 2e-2 (flash: output rounding plus P rounded to bf16) and 1e-2
@@ -54,8 +58,8 @@ FLASH_CASES = {
 }
 
 
-def _flash_inputs(name, dtype, seed=0):
-    B, T, S, H, KVH, d, base, layout = FLASH_CASES[name]
+def _flash_inputs(name, dtype, seed=0, cases=FLASH_CASES):
+    B, T, S, H, KVH, d, base, layout = cases[name]
     rng = np.random.default_rng(seed)
     q, k, v = (rng.standard_normal(shape).astype(np.float32) for shape in
                ((B, T, H, d), (B, S, KVH, d), (B, S, KVH, d)))
@@ -94,6 +98,47 @@ def test_flash_int8_kernel_matches_plain(name, dtype, atol):
     assert out.dtype == dtype and out.shape == args[0].shape
     want = fa.flash_attention_quantized_reference(*args)
     torch.testing.assert_close(out.float(), want.float(), atol=atol, rtol=0)
+
+
+# The int8 forward's Hopper instance: bf16 q, d = 128, T a multiple of
+# 128.  (B, T, S, H, KVH, d, query base, kv layout): left padding at
+# T = 128 and 256 (G = 4), a chunk window at base 200 with a -1 tail, and
+# one whose cache (S = 300) ends inside a landing stage.
+WGMMA_CASES = {
+    "t128_left_padded": (2, 128, 128, 8, 2, 128, 0, "left_pad"),
+    "t256_left_padded": (2, 256, 256, 16, 4, 128, 0, "left_pad"),
+    "t128_window_base200": (2, 128, 512, 8, 2, 128, 200, "tail"),
+    "t128_window_s300": (1, 128, 300, 8, 1, 128, 100, "tail"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(WGMMA_CASES))
+def test_flash_int8_wgmma_matches_plain(name):
+    """The int8 Hopper instance (TMA landing ring, int8 widened in shared
+    memory, wgmma) against the plain version (atol 2e-2) and against the
+    replaced mma.sync design on the same inputs; its C entry point
+    reports "wgmma" as ``flash_int8_instance`` predicts; a second call
+    is bit-identical."""
+    _needs_card()
+    args = _flash_inputs(name, torch.bfloat16, cases=WGMMA_CASES)
+    q, kq = args[0], args[1]
+    assert fa.flash_int8_instance(q.dtype, q.shape[3], q.shape[1],
+                                  kq.shape[1]) == "wgmma"
+    w = fa.flash_attention_quantized
+    before = (w.launches, dict(w.launches_by_instance))
+    out = fa.flash_attention_quantized(*args)
+    again = fa.flash_attention_quantized(*args)
+    old = fa.flash_attention_quantized_launch(*args, "mma_sync")
+    torch.cuda.synchronize()
+    assert w.launches == before[0] + 3
+    by = w.launches_by_instance
+    assert by["wgmma"] == before[1].get("wgmma", 0) + 2
+    assert by["mma_sync"] == before[1].get("mma_sync", 0) + 1
+    assert torch.equal(out, again)
+    want = fa.flash_attention_quantized_reference(*args)
+    torch.testing.assert_close(out.float(), want.float(), atol=2e-2, rtol=0)
+    torch.testing.assert_close(out.float(), old.float(), atol=2e-2, rtol=0)
 
 
 @pytest.mark.cuda
