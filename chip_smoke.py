@@ -263,6 +263,42 @@ instance for T = 1 decode, the int8 forward's TMA + wgmma instance) add:
   "float32", as the C entry point reports them; ``int8_serving`` and
   ``int8_spec_serving``: every int8 flash launch on "wgmma".
 
+Checkpoint load, the tokenizers and ``run.py`` (ROADMAP A5) add the
+phase ``checkpoint``, after ``cached_decode``, on that phase's 8-layer
+tree (llama3-8b at full width, bf16, one shard, as Meta publishes it):
+
+* the tree written as a Meta checkpoint (``consolidated.00.pth`` under
+  Meta's names through ``split_qkv``, ``params.json`` with llama3-8b's
+  published keys, ``n_layers`` 8) in a temporary directory, converted by
+  ``convert_meta_checkpoint(device="cuda")`` (every leaf bit-identical to
+  the tree, the config llama3-8b's cut to 8 layers), saved by
+  ``save_checkpoint`` and loaded by ``load_checkpoint(device="cuda")``
+  (bit-identical), ``verify_manifest`` passing and refusing a copy of the
+  manifest that records one wrong byte count;
+* ``jax_llama_tpu_torch.run.main()`` in this process on the saved
+  directory (argv patched, stdin and stdout captured, ``--byte-tokenizer
+  --temperature 0``): one-shot with ``prompts_for()``'s 4 prompts and 32
+  new tokens, first without ``--attn`` (the converter's ``attn_impl``
+  "xla": plain attention, which must launch no kernel), then with
+  ``--attn auto`` (as every later run), then with ``--quantize``, each
+  against
+  ``LLaMA(...).generate_from_str`` on the same tree (or
+  ``quantize_params`` of it); ``--serve`` with 4 of the serving phase's
+  prompts on stdin (4 slots, 32 new tokens), at the defaults and with
+  ``--prefill-kernel splash --decode-kernel stock-paged``, each against a
+  ``ContinuousBatcher`` with the arguments run.py gives it.  Printed
+  completions and the ids the byte tokenizer decoded must be equal, and
+  the launches exact, counted from zero around each run: none in the
+  run without ``--attn``, the flash forward 8 times on "wgmma" in each
+  other one-shot run; per serve run the flash
+  (splash) kernel 8 times per insert and the paged (stock, split and
+  combine) kernel 8 (16) times per decode iteration, as the reference
+  batcher's stats and its own counts say;
+* reported: the free bytes of the temporary directory, bytes written,
+  seconds and GB/s to write, convert, save, hash and load, run.py's load
+  and wall seconds per run, the launches, and the card; the directory is
+  removed at the end of the phase.
+
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or outside a checkout of the repository, it exits non-zero before printing
 any result.
@@ -408,6 +444,16 @@ STOCK_SPLITS = (128, 256, 512)
 SELECTED = dict(prefill_kernel="splash", decode_kernel="stock-paged")
 SPLASH_SHAPES = {"insert": (8, 1024, 1024, 0), "chunk": (8, 512, 1024, 512)}
 STEP_STOCK_REL = 2e-2  # one step's logits, stock vs paged kernel, float32
+# The checkpoint phase: llama3-8b's published params.json (n_layers cut to
+# DECODE_DEPTH), the converted context length, run.py's --serve slots and
+# the requests fed on its stdin, and the new tokens of every run.
+LLAMA3_8B_PARAMS_JSON = dict(dim=4096, n_layers=32, n_heads=32, n_kv_heads=8,
+                             vocab_size=128256, multiple_of=1024,
+                             ffn_dim_multiplier=1.3, norm_eps=1e-05,
+                             rope_theta=500000.0)
+CKPT_MAX_SEQ = 2048
+CKPT_SLOTS = 4
+CKPT_GEN = 32
 
 
 def emit(obj) -> None:
@@ -1968,12 +2014,17 @@ def device_profile(torch, fn, top=6, categories=None):
     return out
 
 
-def serve_prompts(tok):
-    """The serving phase's 12 byte-tokenizer prompts (BOS included)."""
+def serve_texts():
+    """The text of the serving phase's 12 prompts (no newline in any)."""
     text = ("The quick brown fox jumps over the lazy dog while the port "
             "serves a continuous batch from its paged pool on the card. ") * 24
-    return [tok.encode(text[7 * i:7 * i + n - 1], bos=True)
+    return [text[7 * i:7 * i + n - 1]
             for i, n in enumerate(SERVE_PROMPT_TOKENS)]
+
+
+def serve_prompts(tok):
+    """The serving phase's 12 byte-tokenizer prompts (BOS included)."""
+    return [tok.encode(t, bos=True) for t in serve_texts()]
 
 
 # The serving profiles' kernel groups (device ms per group).
@@ -2646,6 +2697,359 @@ def drive_int8(torch, np, ptl, engine, serving, fa, pa, params, cfg, tok,
     return row, inv, spec
 
 
+def write_meta_checkpoint(torch, params, cfg, path):
+    """``params`` (the port's layout, ``cfg.n_layers`` layers) written as a
+    Meta checkpoint: ``consolidated.00.pth`` under Meta's [out, in] names
+    (``split_qkv`` unpacks the fused qkv and undoes the RoPE feature
+    permutation) and ``params.json`` with llama3-8b's published keys.
+    Returns the tensor bytes written."""
+    from jax_llama_tpu_torch.models.llama import split_qkv
+
+    D, H, KVH, hd = cfg.dim, cfg.n_heads, cfg.kv_heads, cfg.head_dim
+    lp = params["layers"]
+
+    def host(t):  # a compact host copy: torch.save writes whole storages
+        return t.contiguous().cpu()
+
+    sd = {"tok_embeddings.weight": host(params["embed"]["embedding"]),
+          "norm.weight": host(params["final_norm"]),
+          "output.weight": host(params["lm_head"].T)}
+    for i in range(cfg.n_layers):
+        pre = f"layers.{i}."
+        q, k, v = split_qkv(lp["qkv"][i])
+        sd[pre + "attention.wq.weight"] = host(q.reshape(D, H * hd).T)
+        sd[pre + "attention.wk.weight"] = host(k.reshape(D, KVH * hd).T)
+        sd[pre + "attention.wv.weight"] = host(v.reshape(D, KVH * hd).T)
+        sd[pre + "attention.wo.weight"] = host(
+            lp["o"][i].reshape(H * hd, D).T)
+        sd[pre + "feed_forward.w1.weight"] = host(lp["gate_up"][i, 0].T)
+        sd[pre + "feed_forward.w3.weight"] = host(lp["gate_up"][i, 1].T)
+        sd[pre + "feed_forward.w2.weight"] = host(lp["down"][i].T)
+        sd[pre + "attention_norm.weight"] = host(lp["attn_norm"][i])
+        sd[pre + "ffn_norm.weight"] = host(lp["mlp_norm"][i])
+    torch.save(sd, path / "consolidated.00.pth")
+    with open(path / "params.json", "w") as f:
+        json.dump(dict(LLAMA3_8B_PARAMS_JSON, n_layers=cfg.n_layers), f)
+    return sum(t.numel() * t.element_size() for t in sd.values())
+
+
+def flat_tree(tree, prefix=""):
+    """{"a/b": tensor} of a parameter dictionary (a QuantizedTensor as its
+    payload and scale)."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flat_tree(v, f"{prefix}{k}/"))
+        elif hasattr(v, "scale"):
+            out[f"{prefix}{k}/q"], out[f"{prefix}{k}/scale"] = v.q, v.scale
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def trees_equal(torch, a, b) -> bool:
+    """Same leaves, dtypes, shapes and bits."""
+    fa, fb = flat_tree(a), flat_tree(b)
+    return sorted(fa) == sorted(fb) and all(
+        fa[k].dtype == fb[k].dtype and torch.equal(fa[k], fb[k]) for k in fa)
+
+
+class recorded_decode:
+    """Within the block, every ``ByteTokenizer.decode`` call also records
+    the ids it was given (``.ids``): the byte tokenizer decodes only ids
+    below 256, so two runs are compared by these ids as well as by text."""
+
+    def __enter__(self):
+        from jax_llama_tpu_torch.tokenizers.bytes import ByteTokenizer
+
+        self.cls, self.orig, self.ids = ByteTokenizer, ByteTokenizer.decode, []
+        orig, ids = self.orig, self.ids
+
+        def decode(tok, seq):
+            ids.append(list(seq))
+            return orig(tok, seq)
+
+        ByteTokenizer.decode = decode
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.decode = self.orig
+
+
+def run_cli(torch, argv, stdin=""):
+    """``jax_llama_tpu_torch.run.main()`` in this process, as
+    ``python -m jax_llama_tpu_torch.run *argv`` would run it with
+    ``stdin``: (its stdout, the ids its tokenizer decoded, wall s)."""
+    import contextlib
+    import gc
+    import io
+
+    from jax_llama_tpu_torch import run as prun
+
+    saved = sys.argv, sys.stdin
+    out = io.StringIO()
+    sys.argv, sys.stdin = ["run", *argv], io.StringIO(stdin)
+    t = time.perf_counter()
+    try:
+        with recorded_decode() as rec, contextlib.redirect_stdout(out):
+            prun.main()
+        torch.cuda.synchronize()
+    finally:
+        sys.argv, sys.stdin = saved
+    wall = time.perf_counter() - t
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out.getvalue(), rec.ids, wall
+
+
+def cli_blocks(out, end):
+    """run.py's '=== prompt' blocks (each ``repr(prompt)\\ncompletion``, the
+    newline its print ends with dropped), up to the line starting with
+    ``end``."""
+    body = out[out.index("\n=== "):out.rindex("\n" + end)]
+    return [b[:-1] for b in body.split("\n=== ")[1:]]
+
+
+def cli_seconds(out):
+    """The load seconds of run.py's checkpoint_restored log line."""
+    line = next(ln for ln in out.splitlines()
+                if ln.startswith("checkpoint_restored"))
+    return float(line.split("seconds=")[1].split()[0])
+
+
+def serve_reference(torch, ptl, params, cfg, texts, kernels):
+    """What ``run.py --serve`` computes for ``texts`` on its stdin, with
+    the batcher arguments its defaults give (greedy, CKPT_SLOTS slots,
+    decode_chunk 8): (the printed blocks, the decoded ids, stats)."""
+    tok = ptl.ByteTokenizer()
+    stops = (tok.eos_id,)
+    cb = ptl.ContinuousBatcher(
+        params, cfg, n_slots=CKPT_SLOTS, max_len=cfg.max_seq_len,
+        stop_tokens=stops, temperature=0.0, top_p=0.95, seed=0,
+        prefix_cache=False, decode_chunk=8, n_draft=4, spec_rounds=8,
+        prefill_budget=0, prefix_index="off", device="cuda", **kernels)
+    rid_text = {cb.submit(tok.encode(t, bos=True), max_new_tokens=CKPT_GEN): t
+                for t in texts}
+    emitted, blocks = {}, []
+    with recorded_decode() as rec:
+        while cb.pending():
+            for rid, t, done in cb.step():
+                emitted.setdefault(rid, []).append(t)
+                if done:
+                    toks = emitted[rid]
+                    if toks and toks[-1] in stops:
+                        toks = toks[:-1]
+                    blocks.append(f"{rid_text[rid]!r}\n{tok.decode(toks)}")
+    stats = cb.stats()
+    del cb
+    return blocks, rec.ids, stats
+
+
+def drive_checkpoint(torch, ptl, fa, pa, shallow, cfg, smi):
+    """Phase ``checkpoint``: the first DECODE_DEPTH layers of the seed-0
+    weights written as a Meta checkpoint, converted, saved, loaded, and
+    completed through ``run.py`` (one-shot, ``--serve`` twice,
+    ``--quantize``), each held to the in-process path on the same tree."""
+    import gc
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from jax_llama_tpu_torch.convert import (
+        convert_meta_checkpoint,
+        load_checkpoint,
+        save_checkpoint,
+        verify_manifest,
+    )
+    from jax_llama_tpu_torch.convert.checkpoint import (
+        MANIFEST_NAME,
+        PARAMS_NAME,
+    )
+
+    L = DECODE_DEPTH
+    kn = selection_kernels()
+    cfg8 = cfg.replace(n_layers=L, max_seq_len=CKPT_MAX_SEQ)
+    tok = ptl.ByteTokenizer()
+    row = dict(phase="checkpoint", card=smi, config="llama3-8b", n_layers=L,
+               dtype="bfloat16", shards=1, max_seq_len=CKPT_MAX_SEQ)
+    failures = []
+
+    def check(ok, what):
+        if not ok:
+            failures.append(what)
+
+    def sync_s(t):
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
+        tmp = Path(tmp)
+        row["disk_free_bytes"] = shutil.disk_usage(tmp).free
+        meta = tmp / "meta"
+        meta.mkdir()
+        t = time.perf_counter()
+        row["meta_tensor_bytes"] = write_meta_checkpoint(torch, shallow, cfg8,
+                                                         meta)
+        row["write_s"] = time.perf_counter() - t
+        row["meta_file_bytes"] = (meta / "consolidated.00.pth").stat().st_size
+
+        t = time.perf_counter()
+        converted, conv_cfg = convert_meta_checkpoint(
+            meta, vocab_size=cfg.vocab_size, max_seq_len=CKPT_MAX_SEQ,
+            dtype="bfloat16", device="cuda")
+        row["convert_s"] = sync_s(t)
+        shutil.rmtree(meta)
+        check(conv_cfg == cfg8.replace(attn_impl="xla"),
+              f"converted config {conv_cfg}")
+        row["converted_bit_identical"] = trees_equal(torch, converted,
+                                                     shallow)
+        check(row["converted_bit_identical"], "converted tree")
+
+        saved = tmp / "saved"
+        t = time.perf_counter()
+        save_checkpoint(saved, converted, conv_cfg)
+        row["save_s"] = time.perf_counter() - t
+        row["params_file_bytes"] = (saved / PARAMS_NAME).stat().st_size
+        t = time.perf_counter()
+        check(verify_manifest(saved) is True, "verify_manifest")
+        row["hash_s"] = time.perf_counter() - t
+        # A copy of the manifest that records one wrong byte count, beside
+        # hard links to the same files.
+        bad = tmp / "bad"
+        bad.mkdir()
+        for name in (PARAMS_NAME, "config.json"):
+            os.link(saved / name, bad / name)
+        manifest = json.loads((saved / MANIFEST_NAME).read_text())
+        manifest["files"][PARAMS_NAME]["bytes"] += 1
+        (bad / MANIFEST_NAME).write_text(json.dumps(manifest))
+        try:
+            verify_manifest(bad)
+            row["bad_manifest_refused"] = False
+        except ValueError as e:
+            row["bad_manifest_refused"] = "truncated/resized" in str(e)
+        check(row["bad_manifest_refused"], "a wrong byte count passed")
+
+        t = time.perf_counter()
+        loaded, load_cfg = load_checkpoint(saved, device="cuda")
+        row["load_s"] = sync_s(t)
+        row["loaded_bit_identical"] = (load_cfg == conv_cfg and trees_equal(
+            torch, loaded, converted))
+        check(row["loaded_bit_identical"], "loaded tree")
+        del converted, loaded
+        gc.collect()
+        torch.cuda.empty_cache()
+        nbytes = row["params_file_bytes"]
+        row["gb_per_s"] = dict(
+            write=row["meta_file_bytes"] / row["write_s"] / 1e9,
+            convert=row["meta_file_bytes"] / row["convert_s"] / 1e9,
+            save=nbytes / row["save_s"] / 1e9,
+            hash=nbytes / row["hash_s"] / 1e9,
+            load=nbytes / row["load_s"] / 1e9)
+
+        # run.py, one-shot: as the converter's config has it (attn_impl
+        # "xla": plain attention, no kernel launch), with --attn auto
+        # (flash prefill at P = 512), then with --quantize.
+        auto = conv_cfg.replace(attn_impl="auto")
+        prompts = prompts_for()
+        default = ["--ckpt-dir", str(saved), "--byte-tokenizer",
+                   *[a for p in prompts for a in ("--prompt", p)],
+                   "--max-gen-len", str(CKPT_GEN), "--temperature", "0"]
+        one_shot = default + ["--attn", "auto"]
+        flash = (dict(NO_LAUNCHES, flash_fwd=L), {"wgmma": L})
+        for name, argv, weights, run_cfg, (want_launches, want_inst) in (
+                ("one_shot_default", default, shallow, conv_cfg,
+                 (dict(NO_LAUNCHES), {})),
+                ("one_shot", one_shot, shallow, auto, flash),
+                ("quantize", one_shot + ["--quantize"], None, auto, flash)):
+            if weights is None:
+                weights = ptl.quantize_params(shallow)
+            with recorded_decode() as rec:
+                texts = ptl.LLaMA(weights, run_cfg, tok, device="cuda"
+                                  ).generate_from_str(prompts, CKPT_GEN,
+                                                      temperature=0.0)
+            del weights
+            want = [f"{p!r}\n{o}" for p, o in zip(prompts, texts)]
+            zero_counts(fa, pa)
+            out, ids, wall = run_cli(torch, argv)
+            launches = launch_counts(fa, pa)
+            instances = instance_counts(fa, pa)
+            got = cli_blocks(out, "[")
+            runs[name] = dict(
+                completions_equal=got == want, ids_equal=ids == rec.ids,
+                decoded_tokens=sum(len(i) for i in ids), launches=launches,
+                flash_by_instance=instances["flash_fwd_by_instance"],
+                load_s=cli_seconds(out), wall_s=wall,
+                summary=out.strip().splitlines()[-1])
+            check(got == want and ids == rec.ids and len(ids) == len(prompts),
+                  f"{name} completions")
+            check(launches == want_launches
+                  and instances["flash_fwd_by_instance"] == want_inst,
+                  f"{name} launches {launches} {instances}, expected "
+                  f"{want_launches} {want_inst}")
+
+        # run.py --serve over stdin, at the defaults and on the selected
+        # slots, against the batcher with the same arguments.
+        texts = [serve_texts()[i] for i in INVARIANT_REQUESTS]
+        stdin = "".join(t + "\n" for t in texts)
+        serve = ["--ckpt-dir", str(saved), "--byte-tokenizer", "--serve",
+                 "--slots", str(CKPT_SLOTS), "--max-gen-len", str(CKPT_GEN),
+                 "--temperature", "0", "--attn", "auto"]
+        for name, kernels in (("serve", {}), ("serve_selected", SELECTED)):
+            zero_counts(fa, pa)
+            want, want_ids, stats = serve_reference(torch, ptl, shallow, auto,
+                                                    texts, kernels)
+            ref_launches = launch_counts(fa, pa)
+            flags = [a for k, v in kernels.items()
+                     for a in ("--" + k.replace("_", "-"), v)]
+            zero_counts(fa, pa)
+            out, ids, wall = run_cli(torch, serve + flags, stdin)
+            launches = launch_counts(fa, pa)
+            instances = instance_counts(fa, pa)
+            steps = stats["decode_steps_total"]
+            inserts = stats["insert_dispatches_total"]
+            expect = dict(NO_LAUNCHES)
+            if kernels:
+                expect.update(splash_prefill=L * inserts, stock_paged=(
+                    kn.STOCK_KERNELS_PER_CALL * L * steps))
+                want_inst = dict(
+                    splash_by_instance={kn.splash_instance(torch.bfloat16):
+                                        L * inserts},
+                    stock_by_instance={kn.stock_instance(
+                        torch.bfloat16, torch.bfloat16): L * steps})
+            else:
+                expect.update(flash_fwd=L * inserts, paged_decode=L * steps)
+                want_inst = dict(flash_fwd_by_instance={"wgmma": L * inserts})
+            got = cli_blocks(out, "served")
+            runs[name] = dict(
+                completions_equal=sorted(got) == sorted(want),
+                ids_equal=sorted(ids) == sorted(want_ids),
+                decoded_tokens=sum(len(i) for i in ids),
+                decode_iterations=steps, inserts=inserts, launches=launches,
+                reference_launches=ref_launches,
+                instances={k: instances[k] for k in want_inst},
+                load_s=cli_seconds(out), wall_s=wall,
+                not_ported_note=any(ln.startswith("serve_options_not_ported")
+                                    for ln in out.splitlines()),
+                summary=out.strip().splitlines()[-1])
+            check(sorted(got) == sorted(want) and len(got) == len(texts)
+                  and sorted(ids) == sorted(want_ids), f"{name} completions")
+            check(launches == ref_launches == expect,
+                  f"{name} launches {launches}, reference {ref_launches}, "
+                  f"expected {expect}")
+            check(runs[name]["instances"] == want_inst,
+                  f"{name} instances {instances}, expected {want_inst}")
+            check(steps > 0 and inserts > 0, f"{name} stats {stats}")
+    row["runs"] = runs
+    row["launches"] = {k: sum(r["launches"][k] for r in runs.values())
+                       for k in NO_LAUNCHES}
+    row["failures"] = failures
+    emit(row)
+    if failures:
+        raise AssertionError(f"checkpoint phase failed: {failures}")
+    return row
+
+
 def rel_err(a, b) -> float:
     return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
 
@@ -2871,6 +3275,10 @@ def main() -> int:
         raise AssertionError(f"cached decode launches by instance {got_by}, "
                              f"expected {want_by}")
 
+    # Phase 4b: checkpoint load and run.py over the 8-layer tree.
+    ckpt_row = drive_checkpoint(torch, ptl, fa, pa, shallow, cfg, smi)
+    del shallow
+
     # Phase 5: the serving path, counted from zero.
     serve_row = drive_serving(torch, ptl, fa, pa, params, cfg, tok)
 
@@ -2931,7 +3339,8 @@ def main() -> int:
              "spec_serving": spec_launches,
              "int8_serving": int8_row["launches"],
              "int8_spec_serving": int8_spec_launches,
-             "train": train_row["launches"]}
+             "train": train_row["launches"],
+             "checkpoint": ckpt_row["launches"]}
 
     paths_instances = {"generate": instances,
                        "serving": serve_row["instances"],

@@ -19,7 +19,16 @@ no GPU is present unless the caller passes ``device="cpu"``.
               backward kernels under attn_impl="flash"), make_optimizer,
               init_train_state, TrainState, lm_loss; data.batches /
               data.to_device for packed batches
-  Tokenizers: ByteTokenizer
+  Tokenizers: ByteTokenizer (the Llama-2 and Llama-3 tokenizers and
+              ChatFormat in jax_llama_tpu_torch.tokenizers)
+  Weights:    convert_meta_checkpoint, save_checkpoint, load_checkpoint,
+              save_train_state, load_train_state
+              (jax_llama_tpu_torch.convert; CLI: python -m
+              jax_llama_tpu_torch.convert); the layout helpers
+              rope_permute, fuse_qkv, split_qkv, fuse_params
+              (jax_llama_tpu_torch.models)
+  CLI:        python -m jax_llama_tpu_torch.run (one-shot completion and
+              --serve over stdin); jax_llama_tpu_torch.download
   Kernels:    ops.flash_attention (hand-written CUDA, csrc/flash_fwd.cu and
               csrc/flash_bwd.cu; flash_attention_quantized for int8 K/V),
               ops.paged_attention (hand-written CUDA, csrc/paged_decode.cu,

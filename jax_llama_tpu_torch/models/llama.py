@@ -67,8 +67,14 @@ with float32 per-slot-per-head scales: the xla path folds them in
 kernel; the step's own K/V join at full precision and are quantized only
 for the write.
 
-Ring attention, the hidden-state and attention-weight outputs and
-pipeline stages raise ``NotImplementedError``.
+Ring attention, the hidden-state and attention-weight outputs (ROADMAP
+A17) and pipeline stages raise ``NotImplementedError``.
+
+Layout helpers (JAX :499-:580): ``rope_permute`` moves q/k features
+between Meta's interleaved RoPE order and the half-split order,
+``fuse_qkv``/``split_qkv`` pack and unpack the fused qkv slots,
+``permute_d_axis`` and ``fuse_params`` bring older layer trees (separate
+q/k/v and gate/up, or D-first) to this layout.
 """
 
 from __future__ import annotations
@@ -363,12 +369,105 @@ def _tensor_from_numpy(a, device, dtype):
     return t.to(device=device, dtype=dtype or t.dtype).contiguous()
 
 
+def rope_permute(w: torch.Tensor, inverse: bool = False) -> torch.Tensor:
+    """Permute a projection weight's trailing head_dim axis between Meta's
+    interleaved RoPE feature order and the runtime half-split order
+    (``ops.rope``): forward maps Meta feature 2i -> i and 2i+1 -> i + hd/2,
+    ``inverse`` undoes it (JAX ``models/llama.py:499``).  Exact: it only
+    moves elements."""
+    *lead, hd = w.shape
+    if inverse:
+        return w.reshape(*lead, 2, hd // 2).transpose(-1, -2).reshape(w.shape)
+    return w.reshape(*lead, hd // 2, 2).transpose(-1, -2).reshape(w.shape)
+
+
+def fuse_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Pack separate projection weights q [..., D, H, hd] and k, v
+    [..., D, KVH, hd] (Meta interleaved-RoPE feature order) into the fused
+    [..., KVH, G+2, D, hd] layout: slots [q_0..q_{G-1}, k, v] per KV head
+    (query head h = kvh*G + g), q/k features in the half-split order, v
+    as it was (JAX :513)."""
+    *lead, D, H, hd = q.shape
+    KVH = k.shape[-2]
+    G = H // KVH
+    qg = torch.movedim(
+        rope_permute(q).reshape(*lead, D, KVH, G, hd), -4, -2)
+    kk = rope_permute(k).transpose(-3, -2).unsqueeze(-3)
+    vv = v.transpose(-3, -2).unsqueeze(-3)
+    return torch.cat([qg, kk, vv], dim=-3)
+
+
+def split_qkv(qkv: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor,
+                                           torch.Tensor]:
+    """Inverse of ``fuse_qkv``: (q [..., D, H, hd], k, v [..., D, KVH, hd])
+    in Meta interleaved-RoPE feature order (JAX :536)."""
+    *lead, KVH, g2, D, hd = qkv.shape
+    G = g2 - 2
+    q = torch.movedim(qkv[..., :G, :, :], -2, -4).reshape(
+        *lead, D, KVH * G, hd)
+    return (
+        rope_permute(q, inverse=True),
+        rope_permute(qkv[..., G, :, :].transpose(-3, -2), inverse=True),
+        qkv[..., G + 1, :, :].transpose(-3, -2).contiguous(),
+    )
+
+
+def permute_d_axis(lp: Dict[str, Any], to_d_first: bool) -> Dict[str, Any]:
+    """Move the contracted D axis of the layer tree's qkv (between -2 and
+    -4) and gate_up (between -2 and -3): the current layout <-> the older
+    D-first fused layout (JAX :553).  A ``QuantizedTensor`` moves its
+    payload and its scale together (the scale keeps size-1 contracted
+    dims in the same positions), so int8 trees move exactly."""
+    def mv(x, src, dst):
+        if isinstance(x, QuantizedTensor):
+            return QuantizedTensor(q=torch.movedim(x.q, src, dst).contiguous(),
+                                   scale=torch.movedim(x.scale, src,
+                                                       dst).contiguous())
+        return torch.movedim(x, src, dst).contiguous()
+
+    lp = dict(lp)
+    if to_d_first:
+        lp["qkv"] = mv(lp["qkv"], -2, -4)
+        lp["gate_up"] = mv(lp["gate_up"], -2, -3)
+    else:
+        lp["qkv"] = mv(lp["qkv"], -4, -2)
+        lp["gate_up"] = mv(lp["gate_up"], -3, -2)
+    return lp
+
+
+def fuse_params(params: Params) -> Params:
+    """An older layer tree in the current fused layout (JAX :580):
+    separate q/k/v + gate/up are fused (``fuse_qkv``), the D-first fused
+    layout (qkv [L, D, KVH, G+2, hd], gate_up [L, D, 2, F]) has its D
+    axis moved; a current tree is returned as it is.  A quantized tree in
+    the separate layout is refused: its scales do not concatenate."""
+    lp = dict(params["layers"])
+    if "qkv" in lp:
+        d_model = lp["attn_norm"].shape[-1]
+        if (lp["qkv"].shape[-4] == d_model
+                and lp["gate_up"].shape[-3] == d_model):
+            # D == KVH cannot alias: KVH is a head count, D the model dim.
+            return dict(params, layers=permute_d_axis(lp, to_d_first=False))
+        return params
+    if any(isinstance(lp.get(k), QuantizedTensor)
+           for k in ("q", "k", "v", "gate", "up")):
+        raise NotImplementedError(
+            "an int8-quantized layer tree in the separate q/k/v layout "
+            "cannot be fused (its scales do not concatenate); quantize the "
+            "full-precision tree with quantize_params instead")
+    lp["qkv"] = fuse_qkv(lp.pop("q"), lp.pop("k"), lp.pop("v"))
+    lp["gate_up"] = torch.stack([lp.pop("gate"), lp.pop("up")], dim=-3)
+    return dict(params, layers=lp)
+
+
 def from_jax_params(tree, device="cuda", dtype: Optional[torch.dtype] = None) -> Params:
     """Convert the JAX package's parameter tree (numpy arrays, e.g.
-    ``jax.tree.map(np.asarray, params)``) into the port's, same layout,
-    same dtype unless ``dtype`` is given.  A quantized tree's weights (any
-    node with ``.q`` and ``.scale``, the JAX ``QuantizedTensor``) become
-    ``QuantizedTensor``s: int8 payload and float32 scales, never cast."""
+    ``jax.tree.map(np.asarray, params)``) into the port's, same dtype
+    unless ``dtype`` is given.  A quantized tree's weights (any node with
+    ``.q`` and ``.scale``, the JAX ``QuantizedTensor``) become
+    ``QuantizedTensor``s: int8 payload and float32 scales, never cast.
+    An older layer tree (separate q/k/v and gate/up, or D-first) is
+    brought to the fused layout by ``fuse_params``."""
     device = resolve_device(device)
 
     def conv(node):
@@ -380,13 +479,12 @@ def from_jax_params(tree, device="cuda", dtype: Optional[torch.dtype] = None) ->
                 scale=_tensor_from_numpy(node.scale, device, torch.float32))
         return _tensor_from_numpy(node, device, dtype)
 
-    params = conv(tree)
+    params = fuse_params(conv(tree))
     expected = {"attn_norm", "qkv", "o", "mlp_norm", "gate_up", "down"}
     if set(params["layers"]) != expected:
-        raise NotImplementedError(
-            f"layer tree {sorted(params['layers'])} is not the fused layout "
-            f"{sorted(expected)} (legacy trees are not ported)"
-        )
+        raise ValueError(
+            f"layer tree {sorted(params['layers'])} is neither the fused "
+            f"layout {sorted(expected)} nor an older one fuse_params knows")
     return params
 
 
@@ -720,8 +818,8 @@ def forward(
         runs splash where ``ops.kernels.splash_eligible`` holds.  None
         (the default) keeps the flash kernel.
       output_hidden_states, output_attentions: the JAX signature's
-        auxiliary outputs; not ported, and any value but the default
-        raises NotImplementedError.
+        auxiliary outputs; not ported (ROADMAP A17), and any value but the
+        default raises NotImplementedError.
     Returns:
       (logits [B, T, V] in config.logits_dtype or None, cache or None),
       plus the AuxOutput when ``output_last_hidden``.
@@ -732,7 +830,8 @@ def forward(
     )
     for name, value in unported.items():
         if value is not None and value is not False:
-            raise NotImplementedError(f"forward({name}=...) is not ported")
+            raise NotImplementedError(
+                f"forward({name}=...) is not ported (ROADMAP A17)")
     if dropout_rng is not None and not (
         config.embd_pdrop > 0.0 or config.resid_pdrop > 0.0
         or config.attn_pdrop > 0.0
