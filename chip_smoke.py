@@ -293,11 +293,59 @@ tree (llama3-8b at full width, bf16, one shard, as Meta publishes it):
   other one-shot run; per serve run the flash
   (splash) kernel 8 times per insert and the paged (stock, split and
   combine) kernel 8 (16) times per decode iteration, as the reference
-  batcher's stats and its own counts say;
+  batcher's stats and its own counts say; ``--http 0`` with the same 4
+  prompts POSTed one at a time as text from run.py's test hook, each
+  reply's tokens against a batcher with the same arguments serving that
+  prompt alone (or a bf16 near-tie below DECODE_REL), the flash forward
+  8 times per insert and the paged kernel 8 times per decode iteration by
+  the server's /metrics, no recovery and no quarantine;
 * reported: the free bytes of the temporary directory, bytes written,
   seconds and GB/s to write, convert, save, hash and load, run.py's load
   and wall seconds per run, the launches, and the card; the directory is
   removed at the end of the phase.
+
+The HTTP server and its host layers (ROADMAP A7) add two phases after
+``selected_serving``:
+
+* ``http_serving``: ``LLMServer`` on 127.0.0.1 (an ephemeral port) over a
+  batcher of the serving phase's geometry at llama3-8b's full width (32
+  layers, bf16, the phase-3 weights, ``cost_models=True``, priority
+  classes on, the byte tokenizer); the serving phase's 12 requests POSTed
+  to /generate from client threads, 6 blocking and 6 NDJSON streams, all
+  sent before the first completes.  Every reply 200; each stream's tokens
+  equal its final record; each request's greedy tokens equal the serving
+  phase's for it, or the first divergence is a bf16 near-tie (logit gap
+  over the row's max |logit| below DECODE_REL); the flash forward
+  launched n_layers times per insert on "wgmma" and the paged kernel
+  n_layers times per decode iteration, by /metrics'
+  ``insert_dispatches_total`` and ``decode_steps_total``; no recovery and
+  no quarantine; /healthz ok, /metrics parses as Prometheus text with no
+  unregistered series, /debug/bundle parses.  Reported: requests/s, TTFT
+  and ITL p50/p95 from the server's histograms, the analytic cost model's
+  utilization gauges, the loop's and the batcher's ms per decode
+  iteration beside the serving phase's, and the card.  Each insert is
+  timed on the device (CUDA events, recorded after the next fetch): its
+  wall time is at least the cost model's roofline time for it, and the
+  overload controller's prefill rate is what those records give.
+* ``http_drill``: the server at DECODE_DEPTH layers in float32
+  activations, a ``FaultInjector`` from ``FaultSpec`` and the degrade
+  manager's clock injected.  A ``step`` fault mid-decode: one recovery,
+  tokens equal to the fault-free run.  ``splash_kernel`` (with
+  ``prefill_kernel="splash"``) and ``stock_paged_kernel`` (with
+  ``decode_kernel="stock-paged"``) faulted twice each: the feature is
+  quarantined, every request completes on the fallback kernel (flash,
+  paged) with the fallback's fault-free tokens and none of the faulted
+  kernel's launches; past the cooldown on the injected clock a probe
+  restores it, its launches resume and the tokens are the kernel path's
+  fault-free ones; /debug/decisions reads recovery, quarantine, recovery,
+  probe and the annotations quarantined, probing, healthy.  A differing
+  token must be a near-tie below DRILL_TIE.  Then faults at ``step``,
+  ``paged_kernel`` and ``flash_kernel`` on every call, past
+  ``max_recoveries``: no quarantine (on the card the flash and paged
+  kernels have no kernel to fall back to, and plain PyTorch is not one),
+  the breaker trips, every client 503, a later one 503 with Retry-After,
+  /healthz 503.  Every drill's launches are exactly those its dispatch
+  records imply, and none is plain attention or the gathered view.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or outside a checkout of the repository, it exits non-zero before printing
@@ -2038,11 +2086,12 @@ SERVE_CATEGORIES = {
 
 
 def drive_serving(torch, ptl, fa, pa, params, cfg, tok, phase="serving",
-                  kernels=None):
+                  kernels=None, tokens_out=None):
     """Phase 5 (and, with int8 weights and an int8 KV config, phase
     ``int8_serving``; with ``kernels`` = SELECTED, phase
     ``selected_serving``): the batcher at llama3-8b width, staggered
-    admissions."""
+    admissions.  ``tokens_out``, when given, receives each request's
+    tokens by its index in ``SERVE_PROMPT_TOKENS``."""
     int8 = cfg.kv_cache_dtype == "int8"
     kernels = kernels or {}
     prompts = serve_prompts(tok)
@@ -2101,6 +2150,8 @@ def drive_serving(torch, ptl, fa, pa, params, cfg, tok, phase="serving",
     in_vocab = all(0 <= t < cfg.vocab_size
                    for toks in results.values() for t in toks)
     exact = lens == {i: SERVE_MAX_NEW[i] for i in range(12)}
+    if tokens_out is not None:
+        tokens_out.update({rids[r]: t for r, t in results.items()})
 
     # Insert time: 8 of the requests admitted into the idle batcher.
     for i in range(8):
@@ -2209,6 +2260,564 @@ def drive_serving(torch, ptl, fa, pa, params, cfg, tok, phase="serving",
     if stats["insert_dispatches_total"] < 2:
         raise AssertionError("no admission landed between decode steps")
     return row
+
+
+# The HTTP phases: the port's LLMServer in this process, its requests
+# from client threads over 127.0.0.1.
+HTTP_STREAMS = tuple(range(1, 12, 2))  # 6 of the 12 requests stream
+# The histogram families whose quantiles http_serving reports.
+HTTP_QUANTILES = (0.5, 0.95)
+# Series that /metrics must carry (the JAX package's names; every other
+# scalar is checked against the port's registry, obs.METRICS).
+HTTP_SERIES = (
+    "llm_emitted_tokens_total", "llm_decode_steps_total",
+    "llm_insert_dispatches_total", "llm_server_recoveries_total",
+    "llm_quarantine_rebuilds_total", "llm_slo_attainment",
+    "llm_goodput_tokens_total", "llm_overload_rung",
+    "llm_ttft_ms_bucket", "llm_itl_ms_bucket", "llm_dispatch_ms_bucket",
+    "llm_mxu_utilization", "llm_hbm_utilization", "llm_host_overhead_ratio",
+    "llm_jit_cache_entries", "llm_feature_quarantined_paged_kernel",
+)
+# http_drill: 4 of the serving phase's requests at DECODE_DEPTH layers in
+# float32 activations; a feature quarantines after 2 attributed failures
+# and is probed 30 s (of the injected clock) later; a token that differs
+# from the fault-free run must be a near-tie: its logit gap, over the
+# row's max |logit| in a plain float32 forward, below DRILL_TIE.
+DRILL_SLOTS, DRILL_THRESHOLD, DRILL_COOLDOWN_S = 4, 2, 30.0
+DRILL_TIE = 1e-4
+# (feature, fault site, the batcher's arguments, the fallback's): each
+# quarantine drill's faults are the site's first two calls.
+DRILLS = (
+    ("splash_prefill", "splash_kernel", dict(prefill_kernel="splash"),
+     dict(prefill_kernel="flash")),
+    ("stock_paged", "stock_paged_kernel", dict(decode_kernel="stock-paged"),
+     dict(decode_kernel="paged")),
+)
+# The breaker drills' sites, each faulted on every call: the generic step
+# and the two kernels whose only fallback would be plain PyTorch.
+BREAKER_SITES = (("step", None), ("paged_kernel", "paged_kernel"),
+                 ("flash_kernel", "flash_attention"))
+
+
+def http_request(url, path, payload=None, timeout=900):
+    """(status, headers, body bytes) of one request; an HTTP error status
+    is an answer too."""
+    import urllib.error
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(url + path, data=data)
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, dict(r.headers), r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), e.read()
+
+
+def http_json(url, path):
+    status, _, body = http_request(url, path)
+    return status, json.loads(body)
+
+
+def http_tokens(reply):
+    """(status, tokens) of a /generate reply, blocking or NDJSON; a stream
+    must end in a record whose tokens are the ones it streamed."""
+    status, headers, body = reply
+    if status != 200:
+        return status, None
+    if "ndjson" not in headers.get("Content-Type", ""):
+        return status, json.loads(body)["tokens"]
+    lines = [json.loads(x) for x in body.splitlines()]
+    final = lines[-1]
+    streamed = [ln["token"] for ln in lines[:-1]]
+    if not final.get("done") or streamed != final["tokens"]:
+        raise AssertionError(f"stream {streamed} ends in {final}")
+    return status, streamed
+
+
+def prometheus_samples(text):
+    """{sample line's name and labels: value} of a Prometheus text
+    exposition; raises on a line that does not parse, an unregistered
+    metric's help line, or a sample of a family without a TYPE line."""
+    import re
+
+    sample = re.compile(r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{[^}]*\})? (\S+)$')
+    typed, out = set(), {}
+    for line in text.splitlines():
+        if line.startswith("# HELP"):
+            if "UNREGISTERED" in line:
+                raise AssertionError(f"/metrics: {line}")
+            continue
+        if line.startswith("# TYPE"):
+            typed.add(line.split()[2])
+            continue
+        m = sample.match(line)
+        if not m:
+            raise AssertionError(f"/metrics line does not parse: {line!r}")
+        name = m.group(1)
+        family = re.sub(r"_(bucket|sum|count)$", "", name)
+        if name not in typed and family not in typed:
+            raise AssertionError(f"/metrics sample without a TYPE: {line}")
+        out[name + (m.group(2) or "")] = float(m.group(3))
+    return out
+
+
+def histogram_quantile(samples, family, q):
+    """Prometheus' histogram_quantile: the q-quantile of ``family``'s
+    cumulative buckets, linear inside the bucket that holds it."""
+    import re
+
+    buckets = sorted(
+        (float(re.search(r'le="([^"]+)"', k).group(1)), v)
+        for k, v in samples.items()
+        if k.startswith(f"llm_{family}_bucket{{"))
+    total = buckets[-1][1]
+    if not total:
+        return None
+    rank, lo, below = q * total, 0.0, 0.0
+    for le, cum in buckets:
+        if cum >= rank:
+            if le == float("inf"):
+                return lo
+            return lo + (le - lo) * (rank - below) / max(cum - below, 1e-12)
+        lo, below = le, cum
+    return lo
+
+
+def logit_gap(torch, ptl, params, cfg, prompt, prefix, a, b):
+    """|logit a - logit b| over the max |logit| at the position after
+    ``prompt + prefix``, in a plain forward of ``cfg``."""
+    ids = torch.tensor([list(prompt) + list(prefix)], device="cuda",
+                       dtype=torch.int32)
+    pos = torch.arange(ids.shape[1], device="cuda",
+                       dtype=torch.int32)[None]
+    with torch.inference_mode():
+        lg = ptl.forward(params, ids, pos, cfg.replace(attn_impl="xla"))[0]
+    lg = lg[0, -1].float()
+    return ((lg[a] - lg[b]).abs() / lg.abs().max()).item()
+
+
+def token_divergences(torch, ptl, params, cfg, prompts, got, want, tie):
+    """Each request whose tokens differ from ``want``: its first
+    divergence and the logit gap there; raises unless every gap is a
+    near-tie (below ``tie``)."""
+    out = []
+    for i, (g, w) in enumerate(zip(got, want)):
+        j = first_divergence(g, w)
+        if j is None:
+            continue
+        if j >= min(len(g), len(w)):
+            raise AssertionError(f"request {i}: {len(g)} tokens, "
+                                 f"expected {len(w)}")
+        gap = logit_gap(torch, ptl, params, cfg, prompts[i], w[:j], g[j],
+                        w[j])
+        out.append(dict(request=i, at=j, got=g[j], want=w[j],
+                        logit_gap_rel=gap))
+        if gap >= tie:
+            raise AssertionError(
+                f"request {i} diverges at token {j} ({g[j]} vs {w[j]}) "
+                f"with a logit gap of {gap} (bound {tie})")
+    return out
+
+
+def drive_http_serving(torch, ptl, fa, pa, params, cfg, tok, smi, serve_row,
+                       serve_tokens):
+    """Phase ``http_serving``: the serving phase's 12 requests through
+    ``LLMServer`` (POST /generate from client threads, 6 blocking and 6
+    NDJSON streams, all sent before the first completes) over a batcher
+    of the serving phase's geometry with cost models on."""
+    import threading
+
+    from jax_llama_tpu_torch.server import LLMServer
+
+    prompts = serve_prompts(tok)
+    L = cfg.n_layers
+    cb = ptl.ContinuousBatcher(params, cfg, n_slots=8, max_len=2048,
+                               decode_chunk=8, device="cuda",
+                               cost_models=True)
+    replies, sent, done = [None] * 12, [None] * 12, [None] * 12
+
+    def call(i):
+        payload = {"prompt": prompts[i], "max_new_tokens": SERVE_MAX_NEW[i]}
+        if i in HTTP_STREAMS:
+            payload["stream"] = True
+        sent[i] = time.perf_counter()
+        replies[i] = http_request(srv.address, "/generate", payload)
+        done[i] = time.perf_counter()
+
+    with LLMServer(cb, tokenizer=tok) as srv:
+        zero_counts(fa, pa)
+        threads = [threading.Thread(target=call, args=(i,))
+                   for i in range(12)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+        launches = launch_counts(fa, pa)
+        instances = instance_counts(fa, pa)
+        if any(t.is_alive() for t in threads):
+            raise AssertionError("http_serving: a client never returned")
+        metrics_status, _, metrics_body = http_request(srv.address,
+                                                       "/metrics")
+        health_status, health = http_json(srv.address, "/healthz")
+        bundle_status, bundle = http_json(srv.address, "/debug/bundle")
+        _, dispatches = http_json(srv.address, "/debug/dispatches?n=4096")
+    samples = prometheus_samples(metrics_body.decode())
+    missing = [n for n in HTTP_SERIES
+               if not any(k == n or k.startswith(n + "{") for k in samples)]
+    got = [http_tokens(r) for r in replies]
+    statuses = [s for s, _ in got]
+    tokens = [t for _, t in got]
+    steps = int(samples["llm_decode_steps_total"])
+    inserts = int(samples["llm_insert_dispatches_total"])
+    want = dict(NO_LAUNCHES, flash_fwd=L * inserts, paged_decode=L * steps)
+    divergences = (token_divergences(
+        torch, ptl, params, cfg, prompts, tokens,
+        [serve_tokens[i] for i in range(12)], DECODE_REL)
+        if statuses == [200] * 12 else None)
+
+    # The loop's period per decode iteration (dispatch start to the next
+    # one's, over its K) at 8 busy slots, beside the batcher's own wall
+    # time per iteration (dispatch and fetch).
+    recs = dispatches["dispatches"]
+    own, period = [], []
+    for a, b in zip(recs, recs[1:]):
+        if (a["kind"] == "decode" and a["occupancy"] == 8
+                and b["seq"] == a["seq"] + 1):
+            own.append(a["wall_ms"] / a["k"])
+            period.append((b["start_ms"] - a["start_ms"]) / a["k"])
+    # Each insert's record: its device time between CUDA events, which
+    # the roofline time of its analytic cost bounds from below.
+    ins = [r for r in recs if r["kind"] == "insert"]
+    ins_ms = sum(r["wall_ms"] for r in ins)
+    util = {k[len("llm_"):]: v for k, v in samples.items()
+            if k.split("{")[0] in ("llm_mxu_utilization",
+                                   "llm_hbm_utilization",
+                                   "llm_host_overhead_ratio")}
+    span = max(done) - min(sent)
+    row = dict(
+        phase="http_serving", card=smi, config="llama3-8b", n_layers=L,
+        dtype="bfloat16", n_slots=8, max_len=2048, decode_chunk=8,
+        cost_models=True, requests=12, streams=len(HTTP_STREAMS),
+        statuses=statuses, all_sent_before_first_done=max(sent) < min(done),
+        launches=launches, instances=instances, expected_launches=want,
+        decode_steps=steps, insert_dispatches=inserts,
+        recoveries=samples["llm_server_recoveries_total"],
+        quarantine_rebuilds=samples["llm_quarantine_rebuilds_total"],
+        compiles=samples["llm_compiles_total"],
+        divergences_from_serving=divergences,
+        requests_per_s=12 / span, wall_s=span,
+        ttft_ms={q: histogram_quantile(samples, "ttft_ms", q)
+                 for q in HTTP_QUANTILES},
+        itl_ms={q: histogram_quantile(samples, "itl_ms", q)
+                for q in HTTP_QUANTILES},
+        quantiles_from="the server's /metrics histograms (Prometheus "
+        "histogram_quantile, linear within a bucket)",
+        utilization=util, peaks=dict(flops=srv.obs.peak_flops,
+                                     bytes_per_s=srv.obs.peak_bytes_per_s),
+        utilization_is="obs.CostModel's FLOPs and bytes over dispatch "
+        "wall time: a decode dispatch's ends in its packed fetch; an "
+        "insert's is its device time between CUDA events",
+        insert_records=len(ins),
+        insert_device_ms=[r["wall_ms"] for r in ins],
+        insert_roofline_ms=[r.get("device_est_ms") for r in ins],
+        insert_tokens_per_device_s=(
+            sum(r["prefill_tokens"] for r in ins) / (ins_ms / 1000.0)
+            if ins_ms else None),
+        prefill_tokens_per_s_ewma=samples["llm_prefill_tokens_per_s_ewma"],
+        batcher_ms_per_iteration=(sorted(own)[len(own) // 2]
+                                  if own else None),
+        loop_ms_per_iteration=(sorted(period)[len(period) // 2]
+                               if period else None),
+        steady_iterations_seen=len(period),
+        serving_decode_ms_per_iteration=serve_row["decode_ms_per_iteration"],
+        metrics_series=len(samples), missing_series=missing,
+        healthz=dict(status=health_status, ok=health["ok"],
+                     quarantined=health["quarantined"]),
+        bundle_keys=sorted(bundle), http_status=dict(
+            metrics=metrics_status, bundle=bundle_status),
+    )
+    emit(row)
+    if statuses != [200] * 12 or not row["all_sent_before_first_done"]:
+        raise AssertionError(f"http_serving: statuses {statuses}, all sent "
+                             f"first: {row['all_sent_before_first_done']}")
+    if launches != want or instances["flash_fwd_by_instance"] != (
+            {"wgmma": want["flash_fwd"]}) or (
+            instances["paged_kernel_launches"] != 2 * want["paged_decode"]):
+        raise AssertionError(f"http_serving launches {launches}, "
+                             f"{instances}, expected {want}")
+    if row["recoveries"] or row["quarantine_rebuilds"]:
+        raise AssertionError("http_serving recovered or quarantined")
+    if len(ins) != inserts or not all(
+            r.get("device_est_ms") and r["wall_ms"] >= r["device_est_ms"]
+            for r in ins):
+        raise AssertionError(
+            f"http_serving: {len(ins)} insert records for {inserts} "
+            f"inserts, device ms {row['insert_device_ms']} against the "
+            f"roofline {row['insert_roofline_ms']}")
+    if (health_status != 200 or not health["ok"] or missing
+            or metrics_status != 200 or bundle_status != 200
+            or "trace" not in bundle):
+        raise AssertionError(f"http_serving surfaces: {row['healthz']}, "
+                             f"missing {missing}")
+    return row
+
+
+class DrillClock:
+    """The degrade manager's clock in http_drill: seconds that pass only
+    when the drill says so."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self):
+        return self.t
+
+
+def drive_http_drill(torch, ptl, fa, pa, params, cfg, tok, smi):
+    """Phase ``http_drill``: LLMServer at DECODE_DEPTH layers in float32
+    activations with a fault injector armed through FaultSpec and the
+    degrade manager's clock injected.  A ``step`` fault mid-decode
+    recovers; the splash and stock kernels' sites faulted twice
+    quarantine their feature onto the fallback kernel and a probe (after
+    the clock passes the cooldown) restores it, with the launches
+    switching; faults at the step, paged and flash sites past
+    ``max_recoveries`` trip the breaker without a quarantine.  Tokens
+    are held against fault-free runs of the path that served them."""
+    import threading
+
+    from jax_llama_tpu_torch.degrade import DegradeManager
+    from jax_llama_tpu_torch.faults import FaultInjector, FaultSpec
+    from jax_llama_tpu_torch.server import LLMServer
+
+    L = DECODE_DEPTH
+    shallow = dict(params, layers={k: w[:L]
+                                   for k, w in params["layers"].items()})
+    dcfg = cfg.replace(n_layers=L, dtype="float32")
+    prompts = [serve_prompts(tok)[i] for i in INVARIANT_REQUESTS]
+    max_new = [SERVE_MAX_NEW[i] for i in INVARIANT_REQUESTS]
+
+    def batcher(kw, injector=None):
+        return ptl.ContinuousBatcher(
+            shallow, dcfg, n_slots=DRILL_SLOTS, max_len=2048, decode_chunk=8,
+            device="cuda", fault_injector=injector, **kw)
+
+    def fault_free(kw, together):
+        """Greedy tokens of the drill's requests: all admitted together,
+        or each alone (as the drill's phases send them)."""
+        cb = batcher(kw)
+        if together:
+            rids = [cb.submit(p, max_new_tokens=n)
+                    for p, n in zip(prompts, max_new)]
+            out = cb.run_to_completion()
+            return [out[r] for r in rids]
+        res = []
+        for p, n in zip(prompts, max_new):
+            rid = cb.submit(p, max_new_tokens=n)
+            res.append(cb.run_to_completion()[rid])
+        return res
+
+    def send(srv, together):
+        def call(i, out):
+            out[i] = http_request(srv.address, "/generate", {
+                "prompt": prompts[i], "max_new_tokens": max_new[i]})
+
+        out = [None] * len(prompts)
+        if together:
+            threads = [threading.Thread(target=call, args=(i, out))
+                       for i in range(len(prompts))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=900)
+        else:
+            for i in range(len(prompts)):
+                call(i, out)
+        return out
+
+    def server(spec, kw, **srv_kw):
+        clock = DrillClock()
+        degrade = DegradeManager(threshold=DRILL_THRESHOLD, window_s=600.0,
+                                 cooldown_s=DRILL_COOLDOWN_S, clock=clock)
+        inj = FaultInjector(FaultSpec.parse(spec))
+        return LLMServer(batcher(kw, inj), tokenizer=tok, degrade=degrade,
+                         **srv_kw), clock, inj
+
+    def expected(recs):
+        """The launches the dispatch records imply: an insert runs the
+        flash (or splash) kernel once per layer, a decode iteration the
+        paged kernel (or the stock kernel's two passes) once per layer."""
+        want = dict(NO_LAUNCHES)
+        for r in recs:
+            if r["kind"] == "insert:splash":
+                want["splash_prefill"] += L
+            elif r["kind"] == "insert":
+                want["flash_fwd"] += L
+            elif r["kind"] == "decode:stock-paged":
+                want["stock_paged"] += 2 * L * r["k"]
+            elif r["kind"] == "decode":
+                want["paged_decode"] += L * r["k"]
+        return {k: v for k, v in want.items() if v}
+
+    def window(srv, seq0, before):
+        """The dispatch records since ``seq0`` and the kernels launched
+        since ``before`` (those launched at all)."""
+        _, d = http_json(srv.address, "/debug/dispatches?n=4096")
+        after = launch_counts(fa, pa)
+        return ([r for r in d["dispatches"] if r["seq"] >= seq0],
+                {k: after[k] - before[k] for k in after
+                 if after[k] != before[k]})
+
+    def check(name, cond, detail):
+        if not cond:
+            raise AssertionError(f"http_drill {name}: {detail}")
+
+    zero_counts(fa, pa)
+    t_start = time.perf_counter()
+    drills = []
+
+    # 1. A step fault mid-decode: one recovery, the replay token-identical.
+    want = fault_free({}, together=True)
+    srv, _, inj = server("step@3:error", {})
+    with srv:
+        before = launch_counts(fa, pa)
+        got = [http_tokens(r) for r in send(srv, together=True)]
+        recs, launched = window(srv, 0, before)
+        _, health = http_json(srv.address, "/healthz")
+        _, dec = http_json(srv.address, "/debug/decisions")
+    toks = [t for _, t in got]
+    row = dict(drill="step", spec="step@3:error",
+               statuses=[s for s, _ in got],
+               recoveries=health["recoveries_total"],
+               quarantined=health["quarantined"],
+               decisions=[d["kind"] for d in dec["decisions"]],
+               launches=launched, expected_launches=expected(recs))
+    drills.append(row)
+    check("step", row["statuses"] == [200] * 4, row)
+    row["divergences"] = token_divergences(torch, ptl, shallow, dcfg,
+                                           prompts, toks, want, DRILL_TIE)
+    check("step", row["recoveries"] == 1 and row["decisions"] == ["recovery"]
+          and not row["quarantined"] and inj.injected_total == 1, row)
+    check("step", launched == row["expected_launches"], row)
+
+    # 2-3. The splash and stock kernels' sites faulted twice: quarantine
+    # onto the fallback kernel, then a probe restores the kernel.
+    for feature, site, kernel_kw, fallback_kw in DRILLS:
+        spec = f"{site}@0:error,{site}@1:error"
+        want_fallback = fault_free(dict(kernel_kw, **fallback_kw),
+                                   together=False)
+        want_kernel = fault_free(kernel_kw, together=False)
+        srv, clock, inj = server(spec, kernel_kw)
+        row = dict(drill=feature, spec=spec, kernels=kernel_kw,
+                   fallback=fallback_kw)
+        with srv:
+            before = launch_counts(fa, pa)
+            got = [http_tokens(r) for r in send(srv, together=False)]
+            recs, launched = window(srv, 0, before)
+            _, health = http_json(srv.address, "/healthz")
+            row["quarantined"] = dict(
+                statuses=[s for s, _ in got], launches=launched,
+                expected_launches=expected(recs),
+                healthz_quarantined=health["quarantined"],
+                state=health["features"][feature]["state"])
+            check(feature, row["quarantined"]["statuses"] == [200] * 4, row)
+            row["quarantined"]["divergences"] = token_divergences(
+                torch, ptl, shallow, dcfg, prompts, [t for _, t in got],
+                want_fallback, DRILL_TIE)
+            seq0 = recs[-1]["seq"] + 1
+            clock.t += DRILL_COOLDOWN_S + 1.0
+            deadline = time.monotonic() + 120
+            while (srv.probe_rebuilds_total < 1
+                   and time.monotonic() < deadline):
+                time.sleep(0.01)
+            before = launch_counts(fa, pa)
+            got = [http_tokens(r) for r in send(srv, together=False)]
+            recs, launched = window(srv, seq0, before)
+            _, health = http_json(srv.address, "/healthz")
+            _, dec = http_json(srv.address, "/debug/decisions")
+            _, bundle = http_json(srv.address, "/debug/bundle?trace=0")
+            row["probed"] = dict(
+                statuses=[s for s, _ in got], launches=launched,
+                expected_launches=expected(recs),
+                probe_rebuilds=srv.probe_rebuilds_total,
+                state=health["features"][feature]["state"],
+                healthz_quarantined=health["quarantined"])
+            row["decisions"] = [d["kind"] for d in dec["decisions"]]
+            row["transitions"] = [
+                a["fields"].get("state") for a in bundle["annotations"]
+                if a["name"] == "quarantine_transition"
+                and a["fields"].get("feature") == feature]
+            row["injected"] = inj.injected_total
+        drills.append(row)
+        q, p = row["quarantined"], row["probed"]
+        check(feature, q["healthz_quarantined"] == [feature]
+              and q["state"] == "quarantined", row)
+        check(feature, q["launches"] == q["expected_launches"], row)
+        check(feature, p["statuses"] == [200] * 4, row)
+        p["divergences"] = token_divergences(
+            torch, ptl, shallow, dcfg, prompts, [t for _, t in got],
+            want_kernel, DRILL_TIE)
+        check(feature, p["launches"] == p["expected_launches"], row)
+        check(feature, p["state"] == "healthy" and p["probe_rebuilds"] == 1
+              and not p["healthz_quarantined"] and row["injected"] == 2, row)
+        check(feature, row["decisions"] == [
+            "recovery", "quarantine", "recovery", "probe"], row)
+        check(feature, row["transitions"] == [
+            "quarantined", "probing", "healthy"], row)
+        fallback = "flash_fwd" if feature == "splash_prefill" else (
+            "paged_decode")
+        check(feature, feature not in q["launches"]
+              and feature in p["launches"] and fallback in q["launches"],
+              row)
+
+    # 4-6. Faults on every call of the step, paged and flash sites, past
+    # max_recoveries: no quarantine (plain PyTorch is no kernel's fallback
+    # on the card), the breaker trips, every client gets 503, a later
+    # client 503 with Retry-After.
+    for site, feature in BREAKER_SITES:
+        spec = f"{site}~1.0:error"
+        srv, _, _ = server(spec, {}, max_recoveries=2)
+        with srv:
+            before = launch_counts(fa, pa)
+            replies = send(srv, together=True)
+            drained = srv.wait_drained(120)
+            late = http_request(srv.address, "/generate",
+                                {"prompt": prompts[0], "max_new_tokens": 4})
+            recs, launched = window(srv, 0, before)
+            h_status, health = http_json(srv.address, "/healthz")
+            _, dec = http_json(srv.address, "/debug/decisions")
+        name = f"breaker:{site}"
+        row = dict(drill=name, spec=spec, max_recoveries=2,
+                   statuses=[r[0] for r in replies], drained=drained,
+                   late_status=late[0],
+                   late_retry_after=late[1].get("Retry-After"),
+                   healthz_status=h_status, loop_alive=health["loop_alive"],
+                   recoveries=health["recoveries_total"],
+                   quarantined=health["quarantined"],
+                   quarantine_rebuilds=srv.quarantine_rebuilds_total,
+                   feature_state=(health["features"][feature]["state"]
+                                  if feature else None),
+                   decisions=[d["kind"] for d in dec["decisions"]],
+                   launches=launched, expected_launches=expected(recs))
+        drills.append(row)
+        check(name, row["statuses"] == [503] * 4 and drained
+              and row["late_status"] == 503 and row["late_retry_after"]
+              and h_status == 503 and not row["loop_alive"], row)
+        check(name, row["decisions"] == [
+            "recovery", "recovery", "recovery_breaker_tripped"], row)
+        check(name, not row["quarantined"] and not row["quarantine_rebuilds"]
+              and row["feature_state"] in (None, "healthy"), row)
+        check(name, launched == row["expected_launches"], row)
+
+    launches = launch_counts(fa, pa)
+    out = dict(phase="http_drill", card=smi, config="llama3-8b", n_layers=L,
+               dtype="float32 activations, bf16 weights",
+               n_slots=DRILL_SLOTS, quarantine_threshold=DRILL_THRESHOLD,
+               cooldown_s=DRILL_COOLDOWN_S, tie_bound=DRILL_TIE,
+               drills=drills, launches=launches,
+               seconds=time.perf_counter() - t_start)
+    emit(out)
+    return out
 
 
 def first_divergence(a, b):
@@ -2817,17 +3426,25 @@ def cli_seconds(out):
     return float(line.split("seconds=")[1].split()[0])
 
 
+def cli_batcher(ptl, params, cfg, kernels):
+    """The batcher ``run.py --serve`` and ``--http`` build at the flags
+    the checkpoint phase gives them (greedy, CKPT_SLOTS slots,
+    decode_chunk 8, the byte tokenizer's stop token)."""
+    return ptl.ContinuousBatcher(
+        params, cfg, n_slots=CKPT_SLOTS, max_len=cfg.max_seq_len,
+        stop_tokens=(ptl.ByteTokenizer().eos_id,), temperature=0.0,
+        top_p=0.95, seed=0, prefix_cache=False, decode_chunk=8, n_draft=4,
+        spec_rounds=8, prefill_budget=0, prefix_index="off", device="cuda",
+        **kernels)
+
+
 def serve_reference(torch, ptl, params, cfg, texts, kernels):
     """What ``run.py --serve`` computes for ``texts`` on its stdin, with
-    the batcher arguments its defaults give (greedy, CKPT_SLOTS slots,
-    decode_chunk 8): (the printed blocks, the decoded ids, stats)."""
+    the batcher arguments its defaults give: (the printed blocks, the
+    decoded ids, stats)."""
     tok = ptl.ByteTokenizer()
     stops = (tok.eos_id,)
-    cb = ptl.ContinuousBatcher(
-        params, cfg, n_slots=CKPT_SLOTS, max_len=cfg.max_seq_len,
-        stop_tokens=stops, temperature=0.0, top_p=0.95, seed=0,
-        prefix_cache=False, decode_chunk=8, n_draft=4, spec_rounds=8,
-        prefill_budget=0, prefix_index="off", device="cuda", **kernels)
+    cb = cli_batcher(ptl, params, cfg, kernels)
     rid_text = {cb.submit(tok.encode(t, bos=True), max_new_tokens=CKPT_GEN): t
                 for t in texts}
     emitted, blocks = {}, []
@@ -2843,6 +3460,33 @@ def serve_reference(torch, ptl, params, cfg, texts, kernels):
     stats = cb.stats()
     del cb
     return blocks, rec.ids, stats
+
+
+def run_http_cli(torch, argv, texts):
+    """``run.main()`` with ``--http``, as ``run_cli`` runs it: run.py's
+    test hook POSTs each of ``texts`` to /generate in turn, then reads
+    /metrics and /healthz, and the server shuts down.  Returns (the
+    replies, the metrics samples, the health reply, stdout, wall s)."""
+    from jax_llama_tpu_torch import run as prun
+
+    got = {}
+
+    def hook(srv):
+        got["replies"] = [
+            http_request(srv.address, "/generate",
+                         {"text": t, "max_new_tokens": CKPT_GEN})
+            for t in texts]
+        got["metrics"] = http_request(srv.address, "/metrics")[2].decode()
+        got["health"] = http_json(srv.address, "/healthz")
+
+    orig = prun._serve_http
+    prun._serve_http = lambda *a, **kw: orig(*a, _test_hook=hook, **kw)
+    try:
+        out, _, wall = run_cli(torch, argv)
+    finally:
+        prun._serve_http = orig
+    return (got["replies"], prometheus_samples(got["metrics"]),
+            got["health"], out, wall)
 
 
 def drive_checkpoint(torch, ptl, fa, pa, shallow, cfg, smi):
@@ -3040,6 +3684,50 @@ def drive_checkpoint(torch, ptl, fa, pa, shallow, cfg, smi):
             check(runs[name]["instances"] == want_inst,
                   f"{name} instances {instances}, expected {want_inst}")
             check(steps > 0 and inserts > 0, f"{name} stats {stats}")
+
+        # run.py --http, the command a user serves with: the same texts
+        # POSTed one at a time, each held to the batcher with the same
+        # arguments serving it alone.
+        want = []
+        for t in texts:
+            cb = cli_batcher(ptl, shallow, auto, {})
+            rid = cb.submit(tok.encode(t, bos=True), max_new_tokens=CKPT_GEN)
+            want.append(cb.run_to_completion()[rid])
+            del cb
+        http_argv = serve[:serve.index("--serve")] + ["--http", "0"] + (
+            serve[serve.index("--serve") + 1:])
+        zero_counts(fa, pa)
+        replies, samples, (h_status, health), out, wall = run_http_cli(
+            torch, http_argv, texts)
+        launches = launch_counts(fa, pa)
+        instances = instance_counts(fa, pa)
+        got = [http_tokens(r) for r in replies]
+        steps = int(samples["llm_decode_steps_total"])
+        inserts = int(samples["llm_insert_dispatches_total"])
+        expect = dict(NO_LAUNCHES, flash_fwd=L * inserts,
+                      paged_decode=L * steps)
+        statuses = [st for st, _ in got]
+        runs["http"] = dict(
+            statuses=statuses, decode_iterations=steps, inserts=inserts,
+            launches=launches, expected_launches=expect,
+            flash_by_instance=instances["flash_fwd_by_instance"],
+            recoveries=samples["llm_server_recoveries_total"],
+            quarantine_rebuilds=samples["llm_quarantine_rebuilds_total"],
+            healthz=dict(status=h_status, ok=health["ok"]),
+            decoded_tokens=sum(len(t or ()) for _, t in got),
+            load_s=cli_seconds(out), wall_s=wall)
+        check(statuses == [200] * len(texts), f"http statuses {statuses}")
+        if statuses == [200] * len(texts):
+            runs["http"]["divergences"] = token_divergences(
+                torch, ptl, shallow, auto, [tok.encode(t, bos=True)
+                                            for t in texts],
+                [t for _, t in got], want, DECODE_REL)
+        check(launches == expect and inserts == len(texts) and steps > 0,
+              f"http launches {launches}, expected {expect}")
+        check(not runs["http"]["recoveries"]
+              and not runs["http"]["quarantine_rebuilds"]
+              and h_status == 200 and health["ok"],
+              f"http server {runs['http']}")
     row["runs"] = runs
     row["launches"] = {k: sum(r["launches"][k] for r in runs.values())
                        for k in NO_LAUNCHES}
@@ -3280,7 +3968,9 @@ def main() -> int:
     del shallow
 
     # Phase 5: the serving path, counted from zero.
-    serve_row = drive_serving(torch, ptl, fa, pa, params, cfg, tok)
+    serve_tokens = {}
+    serve_row = drive_serving(torch, ptl, fa, pa, params, cfg, tok,
+                              tokens_out=serve_tokens)
 
     # Phase 5b: the same requests on the selected slots (splash prefill,
     # stock-paged decode), counted from zero, beside phase 5.
@@ -3305,6 +3995,12 @@ def main() -> int:
               insert_device_ms=dict(
                   serving=serve_row["profile_insert"]["device_ms"],
                   selected=sel_row["profile_insert"]["device_ms"])))
+
+    # Phase 5c: the same requests over HTTP (LLMServer), counted from
+    # zero; then the recovery and quarantine drill on 8 layers.
+    http_row = drive_http_serving(torch, ptl, fa, pa, params, cfg, tok, smi,
+                                  serve_row, serve_tokens)
+    drill_row = drive_http_drill(torch, ptl, fa, pa, params, cfg, tok, smi)
 
     # Phase 6: paged = gathered = standalone generate.
     paged_invariant(torch, ptl, engine, serving, params, cfg, tok)
@@ -3340,10 +4036,13 @@ def main() -> int:
              "int8_serving": int8_row["launches"],
              "int8_spec_serving": int8_spec_launches,
              "train": train_row["launches"],
-             "checkpoint": ckpt_row["launches"]}
+             "checkpoint": ckpt_row["launches"],
+             "http_serving": http_row["launches"],
+             "http_drill": drill_row["launches"]}
 
     paths_instances = {"generate": instances,
                        "serving": serve_row["instances"],
+                       "http_serving": http_row["instances"],
                        "train": train_row["instances"]}
 
     def by_path(name):

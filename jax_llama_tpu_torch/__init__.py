@@ -9,7 +9,9 @@ no GPU is present unless the caller passes ``device="cpu"``.
               forward, KVCache, init_cache, PagedKVCache
   Decode:     GenerationConfig, generate, LLaMA
   Serving:    ContinuousBatcher (speculative with draft_params),
-              init_pool (paged KV pool)
+              init_pool (paged KV pool); LLMServer (the HTTP front-end:
+              /generate, /chat, /metrics, /healthz, /debug/*) over the
+              host layers faults, degrade, overload and obs
   Speculative: generate_speculative (spec_decode)
   int8:       QuantizedTensor, quantize_params, is_quantized (int8
               weights); quantize_kv and config kv_cache_dtype="int8" (int8
@@ -27,8 +29,8 @@ no GPU is present unless the caller passes ``device="cpu"``.
               jax_llama_tpu_torch.convert); the layout helpers
               rope_permute, fuse_qkv, split_qkv, fuse_params
               (jax_llama_tpu_torch.models)
-  CLI:        python -m jax_llama_tpu_torch.run (one-shot completion and
-              --serve over stdin); jax_llama_tpu_torch.download
+  CLI:        python -m jax_llama_tpu_torch.run (one-shot completion,
+              --serve over stdin, --http PORT); jax_llama_tpu_torch.download
   Kernels:    ops.flash_attention (hand-written CUDA, csrc/flash_fwd.cu and
               csrc/flash_bwd.cu; flash_attention_quantized for int8 K/V),
               ops.paged_attention (hand-written CUDA, csrc/paged_decode.cu,
@@ -68,6 +70,7 @@ from .ops.quant import (
     quantize_kv,
     quantize_params,
 )
+from .server import LLMServer
 from .serving import ContinuousBatcher, init_pool
 from .spec_decode import generate_speculative
 from .tokenizers import ByteTokenizer
@@ -85,7 +88,7 @@ __all__ = [
     "LLaMAConfig", "get_config", "swiglu_hidden_size", "GenerationConfig",
     "generate", "LLaMA", "ByteTokenizer", "KVCache", "forward",
     "from_jax_params", "init_cache", "init_params", "param_count",
-    "PagedKVCache", "ContinuousBatcher", "init_pool",
+    "PagedKVCache", "ContinuousBatcher", "init_pool", "LLMServer",
     "QuantizedTensor", "quantize_params", "is_quantized", "quantize_kv",
     "generate_speculative", "KernelSpec", "PREFILL_KERNELS",
     "DECODE_KERNELS", "resolve_prefill_kernel", "resolve_decode_kernel",

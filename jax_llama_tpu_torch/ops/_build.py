@@ -9,6 +9,12 @@ shared headers (``csrc/*.cuh``) too.  ``build_all`` compiles
 every source at once, one ``nvcc`` process each, so a cold build takes as
 long as the slowest source rather than the sum.
 
+Each successful build is reported to ``BUILD_LISTENERS`` as (source,
+seconds): ``obs.install_compile_listener`` books it onto the serving
+dispatch that triggered it.  The first ``load`` of a serving kernel's
+library fires its fault-injection site (``faults.fire_trace``), the moment
+a failed build would surface.
+
 Nothing here runs at import time: the CPU tests import every module on a
 machine with no ``nvcc``.
 """
@@ -21,8 +27,11 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Callable, Dict, Iterable, List, Optional
+
+from ..faults import fire_trace
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -33,6 +42,8 @@ NVCC_FLAGS = (
 )
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
+# Called as fn(source, seconds) after each successful build.
+BUILD_LISTENERS: List[Callable[[str, float], None]] = []
 
 
 def _nvcc() -> str:
@@ -76,10 +87,14 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
             [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC_DIR / f"{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
-        started[name] = (proc, tmp)
+        started[name] = (proc, tmp, time.perf_counter())
     failed = []
-    for name, (proc, tmp) in started.items():
+    for name, (proc, tmp, t0) in started.items():
         log = proc.communicate()[0]
+        # From its start until its compiler was seen to exit (exact for a
+        # single source; the builds run together, and are waited on in
+        # order).
+        seconds = time.perf_counter() - t0
         out = library_path(name)
         out.with_suffix(".log").write_text(log)
         if proc.returncode != 0:
@@ -87,6 +102,8 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
             failed.append(f"nvcc failed for csrc/{name}.cu:\n{log}")
         else:
             os.replace(tmp, out)
+            for fn in list(BUILD_LISTENERS):
+                fn(name, seconds)
     if failed:
         raise RuntimeError("\n".join(failed))
     return {name: library_path(name) for name in names}
@@ -107,7 +124,21 @@ def build_log(name: str) -> str:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """Build ``csrc/<name>.cu`` if needed and load it (once per process)."""
+    """Build ``csrc/<name>.cu`` if needed and load it (once per process);
+    the first load of a serving kernel fires its fault-injection site."""
     if name not in _LOADED:
+        # kernels imports this module: its table is read at call time.
+        from .kernels import fault_site_of_source
+
+        site = fault_site_of_source(name)
+        if site is not None:
+            fire_trace(site)
         _LOADED[name] = ctypes.CDLL(str(build(name)))
     return _LOADED[name]
+
+
+def loaded() -> Dict[str, int]:
+    """{source: 1 if its library is loaded in this process, else 0} for
+    every source under ``csrc/``."""
+    return {p.stem: int(p.stem in _LOADED)
+            for p in sorted(CSRC_DIR.glob("*.cu"))}

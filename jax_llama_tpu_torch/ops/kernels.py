@@ -19,11 +19,16 @@ Roles and their kernels:
   kernel, decided per call), or ``gathered`` (not a kernel: the batcher's
   gathered view, ``use_pallas_kernel=False``).
 
-``KernelSpec.fallback``, ``feature`` and ``fault_site`` name the JAX
-package's quarantine ladders (splash -> flash, stock-paged -> paged) and
-their degrade and fault sites.  Here they are data that nothing acts on:
-the degrade layer comes with the server (ROADMAP A7).  A kernel that fails
-to build or launch raises; nothing falls back to another kernel.
+``KernelSpec.fallback``, ``feature`` and ``fault_site`` own the
+quarantine ladder between kernels (splash -> flash, stock-paged -> paged)
+and each kernel's degrade feature and fault site; ``KERNEL_SOURCES`` names
+the ``csrc/`` source each kernel is built from.  The server
+(``server.LLMServer``) and the batcher's dispatch records read them from
+here.  A kernel that fails to build or launch raises.  On the card only
+the server's degrade layer acts on that error, and only by rebuilding onto
+another hand-written kernel (the ``fallback`` above); a failure of the
+baseline kernels (flash, paged) goes to the crash-recovery budget and its
+breaker, never to plain PyTorch.
 
 Each kernel has a plain PyTorch version beside its wrapper
 (``splash_prefill_reference``, ``stock_paged_decode_reference``).  A CPU
@@ -34,9 +39,10 @@ wrapper counts its kernel launches (``fn.launches``) and its calls by
 instance, as the C entry point reports it (``fn.launches_by_instance``:
 ``splash_instance_name``, ``stock_instance_name``).
 
-Not ported: the mesh branches (ROADMAP A14), the TPU tilings
-``_splash_block_sizes`` and ``_pages_per_compute_block``, and the fault
-hooks (A7).
+Not ported: the mesh branches (ROADMAP A14) and the TPU tilings
+``_splash_block_sizes`` and ``_pages_per_compute_block``.  The JAX
+package's trace-time fault hooks fire here at a library's first load
+(``ops._build.load``) and at each dispatch (the batcher's ``_fault``).
 """
 
 from __future__ import annotations
@@ -59,10 +65,9 @@ from . import _build
 class KernelSpec:
     """One selectable attention kernel.
 
-    ``fallback`` is the kernel the JAX package's quarantine rebuilds select
-    (None: this is the baseline of its role); ``feature`` / ``fault_site``
-    are the JAX package's degrade.py and faults.py names for it.  The port
-    keeps them as data until its degrade layer exists (ROADMAP A7).
+    ``fallback`` is the kernel a quarantine rebuild selects (None: this is
+    the baseline of its role, and has no kernel to fall back to);
+    ``feature`` / ``fault_site`` are its degrade.py and faults.py names.
     """
 
     name: str
@@ -95,6 +100,30 @@ DECODE_KERNELS = {
     # Not a kernel: the batcher's gathered view (use_pallas_kernel=False).
     "gathered": KernelSpec("gathered", "decode"),
 }
+
+# The csrc/ source each selectable kernel is built from (ops/_build.py).
+KERNEL_SOURCES = {
+    "flash": "flash_fwd", "splash": "splash_prefill",
+    "paged": "paged_decode", "stock-paged": "stock_paged",
+}
+
+
+def kernel_specs() -> Tuple[KernelSpec, ...]:
+    """Every selectable kernel with a degrade feature, the opt-in kernels
+    (those with a kernel ``fallback``) first: the order a failure that
+    names several features is attributed in, one rung at a time."""
+    specs = [s for t in (PREFILL_KERNELS, DECODE_KERNELS)
+             for s in t.values() if s.feature]
+    return tuple(sorted(specs, key=lambda s: s.fallback is None))
+
+
+def fault_site_of_source(source: str) -> Optional[str]:
+    """The fault site of the kernel built from ``csrc/<source>.cu``."""
+    for name, src in KERNEL_SOURCES.items():
+        if src == source:
+            spec = PREFILL_KERNELS.get(name) or DECODE_KERNELS[name]
+            return spec.fault_site
+    return None
 
 
 def resolve_prefill_kernel(name: Optional[str], config) -> str:

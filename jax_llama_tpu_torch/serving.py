@@ -60,26 +60,46 @@ in the queue.
   pool (a speculative round's forwards are T = n_draft + 1, so they keep
   the paged kernel); ``"gathered"`` is the gathered view.
 
+* The serving layers (``server.LLMServer`` reads them): every batcher
+  owns an ``obs.Observability`` sink (built here unless one is passed,
+  and handed on through ``rebuild()``), which records each request's
+  spans and each dispatch (kind, K, occupancy, wall and fetch ms, and
+  with ``cost_models=True`` its ``obs.CostModel`` FLOPs and bytes; an
+  insert on the card, which no fetch ends, is timed between CUDA events
+  and recorded after the next fetch).  A
+  ``faults.FaultInjector`` fires its sites just before the operation
+  they name (``_fault``); ``last_dispatch_features`` names the
+  degradable features (``degrade.FEATURES``) the most recent dispatch
+  runs, so the server can attribute a failure, and
+  ``last_step_features`` the union over one ``step()``.  A request whose
+  logits come back non-finite is failed alone through ``pop_failed``;
+  an armed ``nan`` fault poisons the first active row the same way.
+
 Not in this slice; each raises ``NotImplementedError`` at construction,
 naming its ROADMAP item: meshes (A14), logprobs (A17), fused
-prefill-decode (A9), the prefix cache and host tier (A11), observability,
-fault injection and cost models (A7).  Because the prefix cache is out,
-the port's defaults are ``prefix_cache=False`` and ``prefix_index="off"``;
-the JAX package's are ``True`` and ``"radix"``.
+prefill-decode (A9), the prefix cache and host tier (A11).  Because the
+prefix cache is out, the port's defaults are ``prefix_cache=False`` and
+``prefix_index="off"``; the JAX package's are ``True`` and ``"radix"``.
+``stats()`` reports those features' counters at the values the JAX
+package reports with them off.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Tuple
+import time
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from . import obs as _obs_mod
 from .config import LLaMAConfig
 from .engine import prompt_positions
+from .faults import FaultInjector
 from .models.llama import (
+    FLASH_MIN_SEQ,
     KVCache,
     PagedKVCache,
     _cache_write,
@@ -93,7 +113,15 @@ from .models.llama import (
     resolve_device,
 )
 from .ops.attention import NEG_INF
-from .ops.kernels import resolve_decode_kernel, resolve_prefill_kernel
+from .obs import CostModel, Observability
+from .ops.kernels import (
+    DECODE_KERNELS,
+    PREFILL_KERNELS,
+    KernelSpec,
+    resolve_decode_kernel,
+    resolve_prefill_kernel,
+    splash_eligible,
+)
 from .ops.paged_attention import MAX_GROUP
 from .ops.sampling import greedy, stop_token_hits
 from .spec_decode import (
@@ -107,6 +135,12 @@ from .spec_decode import (
 # (the row was already inactive).  Distinct from the -1 non-finite
 # sentinel: real tokens are never negative.
 _CHUNK_PAD = -2
+
+
+# The serving mesh's shape as the JAX package reports an unsharded batcher
+# (``parallel.serve_mesh.mesh_shape(None)``); the port has no mesh until
+# ROADMAP A14.
+SERVE_MESH = {"data": 1, "tensor": 1, "devices": 1}
 
 
 def pow2_bucket(n: int) -> int:
@@ -675,8 +709,8 @@ class ContinuousBatcher:
     # Chunk clamp while the queue is capacity-blocked (JAX :2765).
     _QUEUED_CHUNK_CAP = 4
     _NONFINITE_MSG = (
-        "non-finite logits: the model produced NaN/Inf for this request; "
-        "it was aborted"
+        "non-finite logits: the model produced NaN/Inf for "
+        "this request; it was aborted (server healthy)"
     )
 
     def __init__(
@@ -700,18 +734,37 @@ class ContinuousBatcher:
         use_pallas_kernel: bool = True,
         logprobs: bool = False,
         prefix_cache: bool = False,
-        fault_injector=None,
+        fault_injector: Optional[FaultInjector] = None,
         decode_chunk: int = 1,
         spec_rounds: int = 1,
         prefill_budget: int = 0,
         prefix_index: str = "off",
         host_kv_blocks: int = 0,
-        obs=None,
+        obs: Optional[Observability] = None,
         cost_models: bool = False,
         prefill_kernel: Optional[str] = None,
         decode_kernel: Optional[str] = None,
         device="cuda",
     ):
+        # The raw construction arguments, captured before any derivation
+        # so ``rebuild()`` (crash recovery) reproduces this batcher: a
+        # fresh pool and host state, the same geometry and policies.  The
+        # injector and the obs sink are shared across rebuilds, so call
+        # counters index the process's dispatches and the trace stays one.
+        self._ctor_kwargs = dict(
+            n_slots=n_slots, max_len=max_len, stop_tokens=stop_tokens,
+            temperature=temperature, top_p=top_p, top_k=top_k,
+            prefill_chunk=prefill_chunk, seed=seed, block_size=block_size,
+            n_blocks=n_blocks, draft_params=draft_params,
+            draft_config=draft_config, n_draft=n_draft, mesh=mesh,
+            use_pallas_kernel=use_pallas_kernel, logprobs=logprobs,
+            prefix_cache=prefix_cache, fault_injector=fault_injector,
+            decode_chunk=decode_chunk, spec_rounds=spec_rounds,
+            prefill_budget=prefill_budget, prefix_index=prefix_index,
+            host_kv_blocks=host_kv_blocks, obs=obs,
+            cost_models=cost_models, prefill_kernel=prefill_kernel,
+            decode_kernel=decode_kernel, device=device,
+        )
         if prefix_index not in ("radix", "exact", "off"):
             raise ValueError(
                 f"unknown prefix_index {prefix_index!r}; "
@@ -755,9 +808,6 @@ class ContinuousBatcher:
             (host_kv_blocks > 0, "host_kv_blocks > 0 (host KV tier)", "A11"),
             (prefix_cache and prefix_index != "off",
              f"the prefix cache (prefix_index={prefix_index!r})", "A11"),
-            (obs is not None, "obs (observability layer)", "A7"),
-            (fault_injector is not None, "fault_injector", "A7"),
-            (cost_models, "cost_models=True", "A7"),
         )
         for bad, what, item in unported:
             if bad:
@@ -779,6 +829,18 @@ class ContinuousBatcher:
                 f"params live on {pdev}, the batcher was asked to run on "
                 f"{device}")
         self.device = pdev
+        # Kernel builds during a dispatch are booked onto the program that
+        # triggered them (obs.attribute_compiles); always on, two
+        # thread-local writes per dispatch.
+        _obs_mod.install_compile_listener()
+        self.obs = obs if obs is not None else Observability()
+        self._ctor_kwargs["obs"] = self.obs
+        self.fault_injector = fault_injector
+        if fault_injector is not None and fault_injector.trace_sink is None:
+            # Injections land in the trace's annotation ring, next to the
+            # dispatch spans they killed.
+            fault_injector.trace_sink = self.obs.annotate
+        self.cost_models = bool(cost_models)
         if spec and _params_device(draft_params) != pdev:
             raise ValueError(
                 f"draft_params live on {_params_device(draft_params)}, the "
@@ -820,8 +882,33 @@ class ContinuousBatcher:
         self.draft_pool = (
             init_pool(draft_config, self.n_blocks, self.block_size,
                       device=self.device) if spec else None)
+        # Bytes one pool block occupies (k, v, pos and an int8 pool's
+        # scales; the draft pool's too).
+        self.block_bytes = sum(
+            t.nbytes // self.n_blocks
+            for pl in (self.pool, self.draft_pool) if pl is not None
+            for t in (pl.k, pl.v, pl.pos, pl.k_scale, pl.v_scale)
+            if t is not None)
+        # Features of the ctor whose ROADMAP item is not ported, at the
+        # values the constructor admits (anything else raised above).
+        self.logprobs = False
+        self.prefill_budget = 0
+        self.prefix_index = "off"
+        self.host_kv_blocks = 0
+        self._cost = CostModel(config, params) if self.cost_models else None
+        self._draft_cost = (CostModel(draft_config, draft_params)
+                            if self.cost_models and spec else None)
         self.free_blocks: List[int] = list(range(self.n_blocks))
         self.failed: List[Tuple[int, str]] = []
+        # The degradable features (degrade.FEATURES) the most recent
+        # dispatch runs, and the union over the current step(): the
+        # server attributes a dispatch exception by the former and
+        # credits probe successes by the latter.
+        self.last_dispatch_features: Tuple[str, ...] = ()
+        self.last_step_features: set = set()
+        # Inserts timed on the card and not yet recorded: (record, start
+        # ms on the obs clock, CUDA events around it).
+        self._unsettled: List[tuple] = []
 
         # Host mirrors of the per-slot decode state: the authoritative copy
         # for host bookkeeping.  The device twins (d_*) are written only for
@@ -866,6 +953,7 @@ class ContinuousBatcher:
         self.host_syncs_total = 0
         self.state_uploads_total = 0
         self.nonfinite_rows_total = 0
+        self.prompt_tokens_total = 0
         self._admit_dispatches = 0
         self._admits_at_last_chunk = 0
         # Speculative counters (zero without a draft model).
@@ -886,9 +974,73 @@ class ContinuousBatcher:
 
     # -- public API ---------------------------------------------------------
 
+    def rebuild(self) -> "ContinuousBatcher":
+        """A fresh batcher with this one's construction: a new KV pool and
+        host state over the same params (JAX :2241).  The crash-recovery
+        path: after a dispatch exception the old instance's device state
+        is suspect; callers resubmit every in-flight request (prompt +
+        delivered tokens) against the new one and drop this one.
+        ``LLMServer`` rebuilds through here when the degrade state is the
+        one this batcher was built for; a quarantine or a probe rebuilds
+        from the server's copy of the original construction instead
+        (``LLMServer._build_batcher``)."""
+        return ContinuousBatcher(self.params, self.config,
+                                 **self._ctor_kwargs)
+
     def default_seed(self, rid: int) -> int:
         """The seed of a request without an explicit one (JAX :2256)."""
         return (self.seed * 1000003 + rid) & 0x7FFFFFFF
+
+    def _fault(self, site: str) -> None:
+        """Named fault-injection hook (no-op without an injector)."""
+        if self.fault_injector is not None:
+            self.fault_injector.fire(site)
+
+    def _open_dispatch(self, site: str, kernels: Sequence[KernelSpec],
+                       extra: Sequence[str] = ()) -> None:
+        """Name the degradable features the NEXT dispatch runs (``extra``,
+        then each kernel's ``KernelSpec.feature``), then fire its fault
+        sites: the generic ``site``, ``extra`` (each is its own site), and
+        each kernel's ``fault_site``.  Named before the sites fire, so an
+        exception out of a site or the dispatch is attributable."""
+        feats = (*extra, *(k.feature for k in kernels))
+        self.last_dispatch_features = feats
+        self.last_step_features.update(feats)
+        self._fault(site)
+        for f in extra:
+            self._fault(f)
+        for k in kernels:
+            self._fault(k.fault_site)
+
+    def _settle_inserts(self, wait: bool) -> None:
+        """Record the inserts timed on the card whose end event has
+        passed (``wait``: all of them, right after a fetch, which passed
+        them, or after a failed step), with their device time between
+        the events as ``wall_ms``."""
+        while self._unsettled:
+            rec, start, ev0, ev1 = self._unsettled[0]
+            if not (wait or ev1.query()):
+                return
+            ev1.synchronize()
+            del self._unsettled[0]
+            self.obs.record_dispatch(wall_ms=ev0.elapsed_time(ev1),
+                                     start_ms=start, **rec)
+
+    def _dispatch_cost(self, program: str, count
+                       ) -> Tuple[Optional[float], Optional[float]]:
+        """Per-dispatch attribution, right before ``program`` runs: name it
+        as this thread's build attribution, and with cost models on return
+        ``count()``'s (FLOPs, bytes) (``obs.CostModel``; host arithmetic,
+        no device work)."""
+        _obs_mod.attribute_compiles(self.obs, program)
+        if not self.cost_models:
+            return None, None
+        return count()
+
+    def _take_nan(self) -> bool:
+        """Consume an armed ``nan`` fault (no-op without an injector)."""
+        return (self.fault_injector is not None
+                and self.fault_injector.take_nan())
 
     def submit(
         self,
@@ -938,22 +1090,30 @@ class ContinuousBatcher:
                 f"blocks; the pool has {self.n_blocks} total"
             )
         self.queue.append(req)
+        self.obs.request_queued(rid, len(req.tokens))
         return rid
 
     def pending(self) -> bool:
         return bool(self.queue) or any(
             s is not None for s in self.slots.values())
 
-    def cancel(self, request_id: int) -> bool:
+    def cancel(self, request_id: int, outcome: str = "cancelled",
+               error: Optional[str] = None) -> bool:
         """Dequeue a request, or free its slot and blocks mid-generation.
-        Returns False if the id is unknown (finished or never submitted)."""
+        Returns False if the id is unknown (finished or never submitted).
+        ``outcome`` is the terminal state its timeline records:
+        "cancelled" (a client disconnect, an explicit cancel) or "failed"
+        (the server's deadline reaper).  Called from the thread that owns
+        the batcher (the serving loop) only."""
         for i, req in enumerate(self.queue):
             if req.rid == request_id:
                 del self.queue[i]
+                self.obs.request_end(request_id, outcome, error)
                 return True
         for b, slot in self.slots.items():
             if slot is not None and slot.request_id == request_id:
                 self._free_slot(b)
+                self.obs.request_end(request_id, outcome, error)
                 return True
         return False
 
@@ -971,24 +1131,89 @@ class ContinuousBatcher:
 
     def _window_acceptance(self) -> float:
         """Acceptance over the recent spec-dispatch window (the last 64
-        dispatches that proposed drafts)."""
+        dispatches that proposed drafts); an atomic ``list()`` snapshot,
+        since /metrics reads it while the loop appends."""
         window = list(self._accept_window)
         proposed = sum(p for p, _ in window)
         if not proposed:
             return 0.0
         return sum(a for _, a in window) / proposed
 
-    def stats(self) -> Dict[str, float]:
-        """Counters, under the JAX package's ``stats()`` names where it has
-        them (``insert_dispatches_total`` is the port's: prefill
-        dispatches, one per admitted burst)."""
+    def describe(self) -> Dict[str, Any]:
+        """Construction-time configuration (the ``config`` section of the
+        server's ``/debug/bundle``), JAX :2467; safe from any thread."""
+        kw = self._ctor_kwargs
         return {
+            "n_slots": self.n_slots,
+            "max_len": self.max_len,
+            "block_size": self.block_size,
+            "n_blocks": self.n_blocks,
+            "block_bytes": self.block_bytes,
+            "decode_chunk": int(kw["decode_chunk"]),
+            "spec_rounds": int(kw["spec_rounds"]),
+            "speculative": self.spec,
+            "n_draft": self.n_draft if self.spec else 0,
+            "prefill_budget": int(kw["prefill_budget"]),
+            "prefix_index": self.prefix_index,
+            "host_kv_blocks": self.host_kv_blocks,
+            "logprobs": self.logprobs,
+            "use_pallas_kernel": bool(kw["use_pallas_kernel"]),
+            "cost_models": self.cost_models,
+            "serve_mesh": dict(SERVE_MESH),
+        }
+
+    def stats(self) -> Dict[str, float]:
+        """Counters, under the JAX package's ``stats()`` names
+        (``insert_dispatches_total`` is the port's: prefill dispatches,
+        one per admitted burst).  The prefix cache and host tier (A11),
+        fused prefill (A9) and the serving mesh (A14) report the values
+        the JAX package reports with them off.  Read by HTTP handler
+        threads while the serving loop owns the batcher: each value is a
+        point-in-time read of single-writer host state, never a device
+        read."""
+        out: Dict[str, float] = {} if self.fault_injector is None else (
+            dict(self.fault_injector.stats()))
+        out.update({
             "emitted_tokens_total": self.emitted_total,
             "decode_steps_total": self.steps_total,
             "active_slots": sum(s is not None for s in self.slots.values()),
             "queued_requests": len(self.queue),
             "free_blocks": len(self.free_blocks),
             "total_blocks": self.n_blocks,
+            "drafts_proposed_total": self.drafts_proposed,
+            "drafts_accepted_total": self.drafts_accepted,
+            "draft_acceptance_rate": self.acceptance_rate(),
+            # A11: the prefix cache, its chain digest and the host tier.
+            "prefix_cached_blocks": 0,
+            "prefix_requests_hit_total": 0,
+            "prefix_blocks_reused_total": 0,
+            "radix_nodes_total": 0,
+            "prefix_hit_tokens_ratio": 0.0,
+            "host_kv_blocks": self.host_kv_blocks,
+            "host_tier_blocks": 0,
+            "swap_queue_depth": 0,
+            "swap_ins_total": 0,
+            "swap_in_blocks_total": 0,
+            "swap_out_blocks_total": 0,
+            "swap_in_ms_total": 0.0,
+            "swap_failures_total": 0,
+            "kv_digest_version": 0,
+            "kv_digest_loss_version": 0,
+            "kv_publish_events_total": 0,
+            "kv_evict_events_total": 0,
+            "kv_demote_events_total": 0,
+            "kv_restore_events_total": 0,
+            "kv_host_evict_events_total": 0,
+            "kv_block_bytes": self.block_bytes,
+            "kv_export_blocks_total": 0,
+            "kv_import_blocks_total": 0,
+            "kv_export_events_total": 0,
+            "kv_import_events_total": 0,
+            "kv_handoff_aborted_total": 0,
+            "kv_export_demoted_blocks_total": 0,
+            # A14: no serving mesh.
+            "serve_mesh_data": 1,
+            "serve_mesh_tensor": 1,
             "nonfinite_rows_total": self.nonfinite_rows_total,
             "decode_chunk_size": self.decode_chunk_last,
             "decode_dispatches_total": self.decode_dispatches_total,
@@ -997,16 +1222,20 @@ class ContinuousBatcher:
             "state_uploads_total": self.state_uploads_total,
             "host_syncs_per_token": (
                 self.host_syncs_total / max(1, self.emitted_total)),
-            "drafts_proposed_total": self.drafts_proposed,
-            "drafts_accepted_total": self.drafts_accepted,
-            "draft_acceptance_rate": self.acceptance_rate(),
             "spec_rounds_per_dispatch": self.spec_rounds_last,
             "spec_dispatches_total": self.spec_dispatches_total,
             "spec_host_syncs_per_token": (
                 self.spec_host_syncs_total
                 / max(1, self.spec_emitted_total)),
             "spec_window_acceptance_rate": self._window_acceptance(),
-        }
+            # A9: fused prefill-decode scheduling.
+            "prefill_budget": self.prefill_budget,
+            "prefill_tokens_inflight": 0,
+            "prefill_chunks_total": 0,
+            "fused_admissions_total": 0,
+            "decode_stall_ms_total": 0.0,
+        })
+        return out
 
     @torch.no_grad()
     def step(self) -> List[Tuple[int, int, bool]]:
@@ -1014,12 +1243,21 @@ class ContinuousBatcher:
         every active slot.  Returns [(request_id, token, done)] for the
         tokens emitted this call; finished slots free their blocks and
         queued requests are admitted for the next call."""
-        self._admit()
-        if not any(s is not None for s in self.slots.values()):
-            return []
-        if self.spec:
-            return self._step_spec()
-        return self._step_chunked()
+        self.last_step_features = set()
+        try:
+            self._settle_inserts(wait=False)
+            self._admit()
+            if not any(s is not None for s in self.slots.values()):
+                return []
+            if self.spec:
+                return self._step_spec()
+            return self._step_chunked()
+        except BaseException:
+            # The inserts enqueued before the failure ran (a fault site
+            # fires before its own dispatch enqueues anything): record
+            # them before the caller drops this batcher.
+            self._settle_inserts(wait=True)
+            raise
 
     def run_to_completion(self) -> Dict[int, List[int]]:
         """Drain everything; returns {request_id: emitted tokens}."""
@@ -1095,9 +1333,29 @@ class ContinuousBatcher:
         self._admits_at_last_chunk = self._admit_dispatches
         K = self._pick_chunk(admitted)
         self._sync_device_rows()
+        # The fault sites fire once per chunk dispatch, before it: an
+        # exception reaches the caller with nothing emitted, so recovery
+        # replays from the tokens the caller was given.  The stock kernel
+        # serves the chunk's T = 1 steps over a full-precision pool; its
+        # quarantine falls back to the paged kernel.
+        kernels: List[KernelSpec] = []
+        if self.use_pallas_kernel:
+            kernels.append(DECODE_KERNELS["paged"])
+            if (self.config.decode_kernel == "stock-paged"
+                    and not self.pool.quantized):
+                kernels.append(DECODE_KERNELS["stock-paged"])
+        self._open_dispatch("step", kernels)
+        stock = len(kernels) == 2
         self.steps_total += K
         self.decode_dispatches_total += 1
         self.decode_chunk_last = K
+        live = [(b, s) for b, s in self.slots.items() if s is not None]
+        obs_rids = [s.request_id for _, s in live]
+        cost_fl, cost_by = self._dispatch_cost(
+            "_chunk_scan", lambda: self._cost.decode(
+                [(int(self.pos[b]), min(K, s.max_new - len(s.emitted)))
+                 for b, s in live]))
+        t0_obs = time.monotonic()
         (toks, self.tau, self.d_fill, self.d_pos, self.d_active,
          self.d_remaining) = _chunk_scan(
             self.params, self.pool, self.d_table, self.d_n_alloc,
@@ -1108,12 +1366,30 @@ class ContinuousBatcher:
             use_kernel=self.use_pallas_kernel,
         )
         # The one device->host sync of the chunk.
+        tf_obs = time.monotonic()
         toks = toks.cpu().numpy()
         self.host_syncs_total += 1
+        now_obs = time.monotonic()
+        self._settle_inserts(wait=True)
+        self.obs.record_dispatch(
+            kind="decode:stock-paged" if stock else "decode",
+            k=K, occupancy=len(obs_rids),
+            wall_ms=(now_obs - t0_obs) * 1000.0,
+            fetch_ms=(now_obs - tf_obs) * 1000.0, rids=obs_rids,
+            program="_chunk_scan", flops=cost_fl, bytes_accessed=cost_by,
+        )
 
         out: List[Tuple[int, int, bool]] = []
+        forced_nan = self._take_nan()
         for b, slot in self.slots.items():
             if slot is None:
+                continue
+            if forced_nan:
+                # An armed ``nan`` fault poisons the first active row: its
+                # chunk tokens are dropped and the request fails through
+                # the non-finite guard.
+                forced_nan = False
+                self._fail_slot(b)
                 continue
             advanced = 0
             ended = False
@@ -1135,6 +1411,7 @@ class ContinuousBatcher:
                 if done:
                     # The device made the same call mid-chunk, so the row is
                     # already inactive there: no deactivation upload owed.
+                    self.obs.request_end(slot.request_id, "finished")
                     self._free_slot(b, device_done=True)
                     ended = True
                     break
@@ -1162,7 +1439,26 @@ class ContinuousBatcher:
         self.spec_emitted_total += 1
         done = tok in slot.stop_tokens or len(slot.emitted) >= slot.max_new
         out.append((slot.request_id, tok, done))
+        if done:
+            self.obs.request_end(slot.request_id, "finished")
         return done
+
+    def _spec_dispatch(self) -> None:
+        """Record the features of a speculative dispatch and fire its
+        sites (JAX :3196-3213): ``spec_decode``, and ``paged_kernel`` when
+        its forwards run the paged kernel (every forward of a round is
+        T = n_draft + 1, so the stock kernel never serves one)."""
+        self._open_dispatch(
+            "step", [DECODE_KERNELS["paged"]] if self.use_pallas_kernel
+            else [], extra=("spec_decode",))
+
+    def _spec_cost(self, rounds: int
+                   ) -> Tuple[Optional[float], Optional[float]]:
+        program = ("_spec_rounds_chunk" if self.spec_rounds > 1
+                   else "_spec_round_core")
+        return self._dispatch_cost(program, lambda: self._cost.spec(
+            [int(self.pos[b]) for b, s in self.slots.items()
+             if s is not None], self.n_draft, rounds, self._draft_cost))
 
     def _step_spec(self) -> List[Tuple[int, int, bool]]:
         """Speculative step (JAX :3135).  ``spec_rounds`` > 1 takes the
@@ -1177,16 +1473,23 @@ class ContinuousBatcher:
         taus = self.tau.cpu().numpy()
         self.host_syncs_total += 1
         self.spec_host_syncs_total += 1
+        forced_nan = self._take_nan()
         for b, slot in self.slots.items():
             if slot is None:
                 continue
             tok = int(taus[b])
-            if tok < 0:
+            if tok < 0 or forced_nan:
+                forced_nan = False
                 self._fail_slot(b)
                 continue
             if self._emit(b, tok, out):
                 self._free_slot(b)
         if any(s is not None for s in self.slots.values()):
+            # The sites fire after the emit scan, where a real round's
+            # failure lands: this step's tokens are in slot.emitted but
+            # never returned, so recovery replays from what the caller
+            # was given.
+            self._spec_dispatch()
             self.steps_total += 1
             self.decode_dispatches_total += 1
             self.spec_dispatches_total += 1
@@ -1209,6 +1512,9 @@ class ContinuousBatcher:
                       self.top_k_arr, self.temp_arr.view(np.int32),
                       self.top_p_arr.view(np.int32)], axis=1),
         ], axis=1).astype(np.int32)
+        live = [s.request_id for s in self.slots.values() if s is not None]
+        cost_fl, cost_by = self._spec_cost(1)
+        t0_obs = time.monotonic()
         up = torch.from_numpy(packed).to(self.device)
         self.state_uploads_total += 1
         n_alloc, fill, pos, active, top_k, temps, top_ps = up[:, MB:].unbind(1)
@@ -1221,9 +1527,19 @@ class ContinuousBatcher:
             d_config=self.draft_config, n_draft=G,
             use_kernel=self.use_pallas_kernel,
         )
+        tf_obs = time.monotonic()
         arr = torch.cat([outs, acc[:, None]], dim=1).cpu().numpy()
         self.host_syncs_total += 1
         self.spec_host_syncs_total += 1
+        now_obs = time.monotonic()
+        self._settle_inserts(wait=True)
+        self.obs.record_dispatch(
+            kind="spec", k=1, occupancy=len(live),
+            wall_ms=(now_obs - t0_obs) * 1000.0,
+            fetch_ms=(now_obs - tf_obs) * 1000.0, rids=live,
+            program="_spec_round_core", flops=cost_fl,
+            bytes_accessed=cost_by,
+        )
         round_proposed = round_accepted = 0
         new_tau = np.zeros((B,), np.int32)
         for b, slot in self.slots.items():
@@ -1268,11 +1584,15 @@ class ContinuousBatcher:
         self._admits_at_last_chunk = self._admit_dispatches
         R = self._pick_chunk(admitted, cap=self.spec_rounds)
         self._sync_device_rows()
+        self._spec_dispatch()
         self.steps_total += R
         self.decode_dispatches_total += 1
         self.spec_dispatches_total += 1
         self.decode_chunk_last = self.spec_rounds_last = R
         G = self.n_draft
+        live = [s.request_id for s in self.slots.values() if s is not None]
+        cost_fl, cost_by = self._spec_cost(R)
+        t0_obs = time.monotonic()
         (packed, self.tau, self.d_fill, self.d_pos, self.d_active,
          self.d_remaining) = _spec_rounds_chunk(
             self.params, self.draft_params, self.pool, self.draft_pool,
@@ -1283,14 +1603,31 @@ class ContinuousBatcher:
             n_draft=G, n_rounds=R, use_kernel=self.use_pallas_kernel,
         )
         # The one device->host sync of the chunk.
+        tf_obs = time.monotonic()
         arr = packed.cpu().numpy()
         self.host_syncs_total += 1
         self.spec_host_syncs_total += 1
+        now_obs = time.monotonic()
+        self._settle_inserts(wait=True)
+        self.obs.record_dispatch(
+            kind="spec", k=R, occupancy=len(live),
+            wall_ms=(now_obs - t0_obs) * 1000.0,
+            fetch_ms=(now_obs - tf_obs) * 1000.0, rids=live,
+            program="_spec_rounds_chunk", flops=cost_fl,
+            bytes_accessed=cost_by,
+        )
 
         out: List[Tuple[int, int, bool]] = []
         round_proposed = round_accepted = 0
+        forced_nan = self._take_nan()
         for b, slot in self.slots.items():
             if slot is None:
+                continue
+            if forced_nan:
+                # An armed ``nan`` fault poisons the first active row, as
+                # in the per-round loop; its chunk tokens are dropped.
+                forced_nan = False
+                self._fail_slot(b)
                 continue
             fill_adv = 0
             ended = False
@@ -1341,11 +1678,14 @@ class ContinuousBatcher:
     def _fail_slot(self, b: int, device_done: bool = False) -> None:
         """Fail slot ``b``'s request with the non-finite message and free
         the slot."""
-        self.failed.append((self.slots[b].request_id, self._NONFINITE_MSG))
+        rid = self.slots[b].request_id
+        self.failed.append((rid, self._NONFINITE_MSG))
         self.nonfinite_rows_total += 1
+        self.obs.request_end(rid, "failed", self._NONFINITE_MSG)
         self._free_slot(b, device_done=device_done)
 
     def _alloc_blocks(self, n: int) -> List[int]:
+        self._fault("alloc")
         assert n <= len(self.free_blocks), "allocation past capacity"
         out, self.free_blocks = self.free_blocks[:n], self.free_blocks[n:]
         return out
@@ -1437,6 +1777,7 @@ class ContinuousBatcher:
                 blocks = self._alloc_blocks(req.blocks_needed(BLK))
                 row_blocks.append(blocks)
                 n = len(req.tokens)
+                self.prompt_tokens_total += n
                 pt[i, :n] = req.tokens
                 pm[i, :n] = 1
                 span = _round_up(n, BLK) // BLK
@@ -1449,7 +1790,33 @@ class ContinuousBatcher:
             temps = up[:, 2 * P].view(torch.float32)
             top_ps = up[:, 2 * P + 1].view(torch.float32)
             top_ks = up[:, 2 * P + 2].view(torch.float32).to(torch.int32)
+            # Host mirror of the insert's attention choice (the model's
+            # "auto" rule per chunk, and splash_eligible over the chunk
+            # geometry): the features and sites of this dispatch.
+            chunk = (self.prefill_chunk if self.prefill_chunk
+                     and self.prefill_chunk < P else P)
+            impl = self.config.attn_impl
+            flash = impl == "flash" or (impl == "auto"
+                                        and chunk > FLASH_MIN_SEQ)
+            splash_used = flash and splash_eligible(
+                self.config, batch=kb, q_len=chunk, kv_len=P,
+                chunk_offset=0, quantized=self.pool.quantized)
+            kernels = [PREFILL_KERNELS["flash"]] if flash else []
+            if splash_used:
+                kernels.append(PREFILL_KERNELS["splash"])
+            for req in picked:
+                self.obs.begin_span(req.rid, "prefilling")
+            cost_fl, cost_by = self._dispatch_cost(
+                "_paged_insert", lambda: self._cost.insert(
+                    [len(r.tokens) for r in picked], self.prefill_chunk))
+            t0_obs = time.monotonic()
+            start_obs = self.obs.now_ms()
+            self._open_dispatch("insert", kernels)
             self._admit_dispatches += 1
+            timed = self.device.type == "cuda"
+            if timed:
+                ev0 = torch.cuda.Event(enable_timing=True)
+                ev0.record()
             taus = _paged_insert(
                 self.params, self.pool, bid, up[:, :P], up[:, P:2 * P].bool(),
                 generators, temps, top_ps, top_ks, config=self.config,
@@ -1468,6 +1835,28 @@ class ContinuousBatcher:
                 )
             slot_ids = free_slots[:k]
             self.tau[torch.as_tensor(slot_ids, device=self.device)] = taus[:k]
+            # No fetch ends the insert (JAX fetches its prompt lengths
+            # here): its first tokens stay on the device for the next
+            # chunk, whose launches the host enqueues while the insert
+            # runs.  So on the card the insert is timed between CUDA
+            # events and recorded once the next fetch has passed it
+            # (_settle_inserts); on the CPU it ran as it was called.  A
+            # launch error is raised by the launch itself, while
+            # ``last_dispatch_features`` names the insert.
+            rec = dict(
+                kind="insert:splash" if splash_used else "insert", k=k,
+                occupancy=sum(s is not None for s in self.slots.values()),
+                prefill_tokens=sum(len(r.tokens) for r in picked),
+                rids=[r.rid for r in picked], program="_paged_insert",
+                flops=cost_fl, bytes_accessed=cost_by,
+            )
+            if timed:
+                ev1 = torch.cuda.Event(enable_timing=True)
+                ev1.record()
+                self._unsettled.append((rec, start_obs, ev0, ev1))
+            else:
+                self.obs.record_dispatch(
+                    wall_ms=(time.monotonic() - t0_obs) * 1000.0, **rec)
             for i, req in enumerate(picked):
                 b = slot_ids[i]
                 blocks = row_blocks[i]
@@ -1488,3 +1877,4 @@ class ContinuousBatcher:
                     request_id=req.rid, emitted=[], max_new=req.max_new,
                     stop_tokens=req.stops, blocks=blocks,
                 )
+                self.obs.begin_span(req.rid, "decoding")

@@ -4,11 +4,14 @@ to its own format, and the two ``run.main()`` print identical greedy
 completions, one-shot (byte tokenizer, and a Llama-3 tokenizer on a rank
 table trained here) and under ``--serve`` over the same stdin lines.  The
 byte tokenizer drops ids past 255 when it decodes, so the ids each CLI
-handed to ``decode`` are compared too.  Flags whose feature is not ported
-exit naming their ROADMAP item."""
+handed to ``decode`` are compared too.  Under ``--http 0`` both CLIs serve
+one request from the same checkpoint with the same greedy tokens, and shut
+down.  Flags whose feature is not ported exit naming their ROADMAP item."""
 
 import io
+import json
 import sys
+import urllib.request
 
 import pytest
 import torch
@@ -157,9 +160,70 @@ def test_missing_tokenizer_exits(tmp_path, monkeypatch):
         prun.main()
 
 
+def _http_generate(main, module, argv, monkeypatch, capsys, payload):
+    """Run ``main`` with ``--http 0``; once its server is up, POST
+    ``payload`` to /generate and read /healthz, then let it shut down.
+    Returns (the reply, /healthz, the CLI's output)."""
+    got = {}
+
+    def hook(srv):
+        req = urllib.request.Request(srv.address + "/generate",
+                                     data=json.dumps(payload).encode())
+        with urllib.request.urlopen(req, timeout=120) as r:
+            got["reply"] = (r.status, json.loads(r.read()))
+        with urllib.request.urlopen(srv.address + "/healthz",
+                                    timeout=60) as r:
+            got["health"] = json.loads(r.read())
+
+    orig = module._serve_http
+    monkeypatch.setattr(module, "_serve_http",
+                        lambda *a, **kw: orig(*a, **kw, _test_hook=hook))
+    try:
+        out = _run(main, argv, monkeypatch, capsys)
+    finally:
+        monkeypatch.setattr(module, "_serve_http", orig)
+    return got["reply"], got["health"], out
+
+
+def test_http_serves_one_request_like_jax(ckpts, monkeypatch, capsys):
+    jdir, pdir, _, _, _ = ckpts
+    argv = ["--byte-tokenizer", "--http", "0", "--slots", "2", *GREEDY]
+    payload = {"text": "hello world", "max_new_tokens": 8,
+               "temperature": 0}
+    want, _, _ = _http_generate(jrun.main, jrun, ["--ckpt-dir", str(jdir),
+                                                  *argv],
+                                monkeypatch, capsys, payload)
+    got, health, out = _http_generate(
+        prun.main, prun, ["--ckpt-dir", str(pdir), *argv, "--device", "cpu"],
+        monkeypatch, capsys, payload)
+    assert got[0] == want[0] == 200
+    assert got[1]["tokens"] == want[1]["tokens"]
+    assert len(got[1]["tokens"]) == 8 and got[1]["text"] == want[1]["text"]
+    assert health["ok"] is True and health["quarantined"] == []
+    assert "serving address=http://127.0.0.1:" in out
+
+
+def test_http_fault_flag_reaches_the_server(ckpts, monkeypatch, capsys):
+    """--inject-faults arms the server's injector: the first decode step
+    dies, the server recovers and the reply is the fault-free one."""
+    _, pdir, _, _, _ = ckpts
+    argv = ["--ckpt-dir", str(pdir), "--byte-tokenizer", "--http", "0",
+            "--slots", "2", *GREEDY, "--device", "cpu"]
+    payload = {"prompt": [1, 7, 9], "max_new_tokens": 6}
+    clean, _, _ = _http_generate(prun.main, prun, argv, monkeypatch, capsys,
+                                 payload)
+    got, health, out = _http_generate(
+        prun.main, prun, argv + ["--inject-faults", "step@0:error",
+                                 "--log-json"],
+        monkeypatch, capsys, payload)
+    assert got == (200, dict(clean[1], request_id=got[1]["request_id"]))
+    assert health["recoveries_total"] == 1
+    events = [json.loads(ln)["event"] for ln in out.splitlines()
+              if ln.startswith("{")]
+    assert "faults_armed" in events and "crash_recovery" in events
+
+
 @pytest.mark.parametrize("argv,item", [
-    (["--http", "0"], "A7"),
-    (["--inject-faults", "step@1:error"], "A7"),
     (["--logprobs"], "A17"),
     (["--replicas", "2"], "A12"),
     (["--autoscale"], "A12"),
@@ -168,7 +232,7 @@ def test_missing_tokenizer_exits(tmp_path, monkeypatch):
     (["--tensor", "2"], "A14"),
     (["--data", "2", "--tensor", "1"], "A14"),
     (["--host-kv-blocks", "1"], "A11"),
-], ids=["http", "faults", "logprobs", "replicas", "autoscale", "roles",
+], ids=["logprobs", "replicas", "autoscale", "roles",
         "serve_mesh", "tensor", "data", "host_kv"])
 def test_unported_flags_exit_naming_their_item(tmp_path, monkeypatch, argv,
                                                item):
@@ -179,10 +243,18 @@ def test_unported_flags_exit_naming_their_item(tmp_path, monkeypatch, argv,
 
 
 def test_fault_env_var_exits_naming_a7(tmp_path, monkeypatch):
+    """JLT_FAULTS (the A7 fault drill) applies to --http only: without it
+    the CLI refuses, as JAX's does, and a bad spec is refused before any
+    load."""
     monkeypatch.setenv("JLT_FAULTS", "step@1:error")
     monkeypatch.setattr(sys, "argv", ["run", "--ckpt-dir", str(tmp_path),
                                       "--byte-tokenizer"])
-    with pytest.raises(SystemExit, match="ROADMAP A7"):
+    with pytest.raises(SystemExit, match="only apply to the HTTP server"):
+        prun.main()
+    monkeypatch.setenv("JLT_FAULTS", "nowhere@1:error")
+    monkeypatch.setattr(sys, "argv", ["run", "--ckpt-dir", str(tmp_path),
+                                      "--byte-tokenizer", "--http", "0"])
+    with pytest.raises(SystemExit, match="bad fault spec"):
         prun.main()
 
 
@@ -198,7 +270,9 @@ def test_run_defaults_to_the_card(ckpts, monkeypatch):
 def test_argument_surfaces_match():
     """Every flag of JAX's CLI parses in the port's, with the same
     option strings, default, type, choices and action; the port adds only
-    --device."""
+    --device.  The two deliberate differences: --peak-tflops and
+    --peak-hbm-gbps default to the H100 SXM's peaks (989.4 TFLOP/s dense
+    bf16, 3350 GB/s HBM3) where JAX's name a TPU's."""
     import argparse
 
     def parser_of(main):
@@ -222,4 +296,8 @@ def test_argument_surfaces_match():
 
     jflags, pflags = parser_of(jrun.main), parser_of(prun.main)
     assert set(pflags) - set(jflags) == {"device"}
+    peaks = {"peak_tflops": 989.4, "peak_hbm_gbps": 3350.0}
+    for dest, default in peaks.items():
+        assert pflags[dest][1] == default
+        pflags[dest] = pflags[dest][:1] + jflags[dest][1:2] + pflags[dest][2:]
     assert {k: pflags[k] for k in jflags} == jflags

@@ -321,9 +321,6 @@ UNPORTED = [
     (dict(prefill_budget=32), "A9"),
     (dict(host_kv_blocks=4), "A11"),
     (dict(prefix_cache=True, prefix_index="radix"), "A11"),
-    (dict(obs=object()), "A7"),
-    (dict(fault_injector=object()), "A7"),
-    (dict(cost_models=True), "A7"),
 ]
 
 
