@@ -347,6 +347,59 @@ The HTTP server and its host layers (ROADMAP A7) add two phases after
   /healthz 503.  Every drill's launches are exactly those its dispatch
   records imply, and none is plain attention or the gathered view.
 
+The prefix cache, the host tier and prefix export/import (ROADMAP A11)
+are on by default (``prefix_index="radix"``), so every batcher above runs
+with them: each phase whose prompts share no block (``serve_texts()``
+starts its 12 prompts 7 characters apart, the speculative prompts are
+random ids) checks ``prefix_requests_hit_total`` == 0 and keeps its exact
+counts; ``serving``'s insert timings run on a ``rebuild()`` (an empty
+store), and ``checkpoint`` and ``http_drill`` count the flash forward
+from their ``insert`` dispatch records (a ``suffix_insert`` launches no
+kernel).  Two phases after ``http_drill``:
+
+* ``prefix_serving``: llama3-8b at full width (32 layers, bf16, the
+  phase-3 weights), 8 slots, max_len 2048, blocks of 128, decode_chunk 8,
+  ``prefix_index="radix"``, ``host_kv_blocks`` 32 (~0.54 GB of pinned
+  slabs, allocated once).  A chat with one shared system prompt of 1024
+  byte-tokenizer tokens (8 blocks): one warm request, then 15 with
+  distinct user turns of 64-159 tokens, 32 new tokens each; 8 second
+  turns (a first-turn prompt, its completion and a new 64-token turn, so
+  the hit reaches past the system prompt); then, with 4 unrelated rows
+  decoding, 4 requests on the system prompt, each after ``demote_idle``
+  has moved it into the tier, each held ``swap_poll_min`` 4 polls in
+  ``restoring`` while its slabs copy on the side stream.  Checks: hits,
+  reused blocks and hit tokens exactly as ``chain_keys`` predicts on the
+  host; the flash forward 32 times per ``insert`` record and the paged
+  kernel 32 times per decode iteration, no other launch; a hit's suffix
+  insert 0 flash launches, a miss insert of the same prompt 32; each
+  swap-in 8 blocks, >= 2 decode chunks dispatched while it is in flight
+  with one host sync each (the chunk's fetch) and none added; the swap
+  ledger (4 swap-ins, 32 blocks in, every demoted block out); every
+  completion equal to a ``prefix_cache=False`` batcher's on the same
+  prompts, or a bf16 near-tie below DECODE_REL.  Reported: hit rate and
+  prefill tokens saved, device ms of the hit's suffix insert and of the
+  miss insert, TTFT p50 of hits (this batcher) and misses (the no-cache
+  batcher), each demotion sweep's host ms and GB/s, the 8-block D2H and
+  H2D copies alone between CUDA events (GB/s), each adopt's device ms,
+  the chunks dispatched during each swap-in, and ms per decode
+  iteration and busy share beside ``serving``'s.
+* ``prefix_invariant``: DECODE_DEPTH layers in float32 activations
+  (bf16 weights), a 384-token system prompt; tokens exactly identical
+  for a hit against a cold batcher; a demote -> restore -> hit against
+  cold, with the adopted blocks' k, v and pos bit-identical to the
+  demoted ones; 3 sessions revisited on a pool that holds 2, completed
+  through the tier; ``export_prefix`` from one batcher and
+  ``import_prefix`` into another (a hit at full depth); int8 pools (rows
+  2 and 4-int8): a hit over restored blocks against one over blocks
+  never demoted, scale planes bit-identical; a self-draft speculative
+  batcher's tier round trip (``d_`` twins in the slabs, acceptance
+  exactly 1.0); a ``kv_swap`` fault that fails only its request; and
+  ``suffix_insert`` faulted twice through ``LLMServer``, which
+  quarantines ``prefix_cache`` onto the flash insert (cache off) with
+  the cold tokens (``server._attribute`` maps ``suffix_insert`` to
+  ``prefix_cache`` on the card; ``kv_swap`` never leaves the batcher).
+  Launches exactly as every batcher's dispatch records imply.
+
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or outside a checkout of the repository, it exits non-zero before printing
 any result.
@@ -2153,7 +2206,11 @@ def drive_serving(torch, ptl, fa, pa, params, cfg, tok, phase="serving",
     if tokens_out is not None:
         tokens_out.update({rids[r]: t for r, t in results.items()})
 
-    # Insert time: 8 of the requests admitted into the idle batcher.
+    # Insert time: 8 of the requests admitted into an idle batcher.  Its
+    # prefix store must be empty, or the requests served above would hit
+    # their cached chains and the suffix insert would be timed: a rebuild
+    # (the same construction, a fresh pool and store) each time.
+    cb = cb.rebuild()
     for i in range(8):
         cb.submit(prompts[i], max_new_tokens=SERVE_MAX_NEW[i])
     torch.cuda.synchronize()
@@ -2171,8 +2228,9 @@ def drive_serving(torch, ptl, fa, pa, params, cfg, tok, phase="serving",
                 cb.cancel(s.request_id)
 
     # One insert's device time by kernel group: the same 8 requests
-    # admitted again into the emptied batcher, under the profiler.
+    # admitted again into an emptied batcher, under the profiler.
     free_all()
+    cb = cb.rebuild()
     for i in range(8):
         cb.submit(prompts[i], max_new_tokens=SERVE_MAX_NEW[i])
     insert_profile = device_profile(torch, cb._admit,
@@ -2193,6 +2251,7 @@ def drive_serving(torch, ptl, fa, pa, params, cfg, tok, phase="serving",
         tokens_exact=exact, tokens_in_vocab=in_vocab,
         quiet_steps=quiet_steps, quiet_steps_with_upload_or_extra_fetch=(
             quiet_bad),
+        prefix_hits=stats["prefix_requests_hit_total"],
         steady_steps=len(steady_ms), steady_iterations=steady_iters,
         decode_ms_per_iteration=wall / steady_iters if steady_iters else None,
         tokens_per_s=steady_tokens / wall * 1e3 if wall else None,
@@ -2259,6 +2318,11 @@ def drive_serving(torch, ptl, fa, pa, params, cfg, tok, phase="serving",
             f"busy slots")
     if stats["insert_dispatches_total"] < 2:
         raise AssertionError("no admission landed between decode steps")
+    # The 12 prompts share no 128-token block: with the prefix cache on
+    # (the default), no request hits, and every count above is unchanged.
+    if stats["prefix_requests_hit_total"] != 0:
+        raise AssertionError(f"{phase}: {stats['prefix_requests_hit_total']}"
+                             f" prefix hits, expected none")
     return row
 
 
@@ -2505,6 +2569,7 @@ def drive_http_serving(torch, ptl, fa, pa, params, cfg, tok, smi, serve_row,
         recoveries=samples["llm_server_recoveries_total"],
         quarantine_rebuilds=samples["llm_quarantine_rebuilds_total"],
         compiles=samples["llm_compiles_total"],
+        prefix_hits=samples["llm_prefix_requests_hit_total"],
         divergences_from_serving=divergences,
         requests_per_s=12 / span, wall_s=span,
         ttft_ms={q: histogram_quantile(samples, "ttft_ms", q)
@@ -2548,6 +2613,8 @@ def drive_http_serving(torch, ptl, fa, pa, params, cfg, tok, smi, serve_row,
                              f"{instances}, expected {want}")
     if row["recoveries"] or row["quarantine_rebuilds"]:
         raise AssertionError("http_serving recovered or quarantined")
+    if row["prefix_hits"]:
+        raise AssertionError("http_serving: a prefix hit, expected none")
     if len(ins) != inserts or not all(
             r.get("device_est_ms") and r["wall_ms"] >= r["device_est_ms"]
             for r in ins):
@@ -3212,6 +3279,9 @@ def drive_spec_serving(torch, np, ptl, llama, fa, pa, params, cfg, smi):
                         f"round with {want_stock}")
     if self_row["acceptance"] != 1.0 or self_row["tokens"] != exact:
         problems.append("self-draft acceptance / token counts")
+    if stats["prefix_requests_hit_total"] or p_stats[
+            "prefix_requests_hit_total"]:
+        problems.append("a prefix hit among the random-id prompts")
     if not (pert_row["acceptance"] < 1.0 and pert_row["tokens"] == exact):
         problems.append("perturbed draft acceptance / token counts")
     if not all(0 <= t < cfg.vocab_size for r in toks + p_toks for t in r):
@@ -3287,6 +3357,8 @@ def drive_int8(torch, np, ptl, engine, serving, fa, pa, params, cfg, tok,
                         f"{int8_by_instance}, expected all on wgmma")
     if spec["acceptance"] != 1.0 or spec["tokens"] != [SPEC_NEW] * SPEC_SLOTS:
         problems.append("self-draft acceptance / token counts")
+    if stats["prefix_requests_hit_total"]:
+        problems.append("a prefix hit among the random-id prompts")
     if not all(0 <= t < cfg.vocab_size for r in toks for t in r):
         problems.append("a token outside the vocabulary")
     if problems:
@@ -3429,13 +3501,14 @@ def cli_seconds(out):
 def cli_batcher(ptl, params, cfg, kernels):
     """The batcher ``run.py --serve`` and ``--http`` build at the flags
     the checkpoint phase gives them (greedy, CKPT_SLOTS slots,
-    decode_chunk 8, the byte tokenizer's stop token)."""
+    decode_chunk 8, the byte tokenizer's stop token, the radix prefix
+    cache without a host tier)."""
     return ptl.ContinuousBatcher(
         params, cfg, n_slots=CKPT_SLOTS, max_len=cfg.max_seq_len,
         stop_tokens=(ptl.ByteTokenizer().eos_id,), temperature=0.0,
-        top_p=0.95, seed=0, prefix_cache=False, decode_chunk=8, n_draft=4,
-        spec_rounds=8, prefill_budget=0, prefix_index="off", device="cuda",
-        **kernels)
+        top_p=0.95, seed=0, prefix_cache=True, decode_chunk=8, n_draft=4,
+        spec_rounds=8, prefill_budget=0, prefix_index="radix",
+        host_kv_blocks=0, device="cuda", **kernels)
 
 
 def serve_reference(torch, ptl, params, cfg, texts, kernels):
@@ -3457,7 +3530,10 @@ def serve_reference(torch, ptl, params, cfg, texts, kernels):
                     if toks and toks[-1] in stops:
                         toks = toks[:-1]
                     blocks.append(f"{rid_text[rid]!r}\n{tok.decode(toks)}")
-    stats = cb.stats()
+    # Full inserts launch the prefill kernel; a prefix hit's suffix insert
+    # launches none.
+    stats = dict(cb.stats(), full_inserts=len(records(
+        cb, ("insert", "insert:splash"))))
     del cb
     return blocks, rec.ids, stats
 
@@ -3478,6 +3554,8 @@ def run_http_cli(torch, argv, texts):
             for t in texts]
         got["metrics"] = http_request(srv.address, "/metrics")[2].decode()
         got["health"] = http_json(srv.address, "/healthz")
+        got["dispatches"] = http_json(
+            srv.address, "/debug/dispatches?n=4096")[1]["dispatches"]
 
     orig = prun._serve_http
     prun._serve_http = lambda *a, **kw: orig(*a, _test_hook=hook, **kw)
@@ -3486,7 +3564,7 @@ def run_http_cli(torch, argv, texts):
     finally:
         prun._serve_http = orig
     return (got["replies"], prometheus_samples(got["metrics"]),
-            got["health"], out, wall)
+            got["health"], got["dispatches"], out, wall)
 
 
 def drive_checkpoint(torch, ptl, fa, pa, shallow, cfg, smi):
@@ -3651,7 +3729,7 @@ def drive_checkpoint(torch, ptl, fa, pa, shallow, cfg, smi):
             launches = launch_counts(fa, pa)
             instances = instance_counts(fa, pa)
             steps = stats["decode_steps_total"]
-            inserts = stats["insert_dispatches_total"]
+            inserts = stats["full_inserts"]
             expect = dict(NO_LAUNCHES)
             if kernels:
                 expect.update(splash_prefill=L * inserts, stock_paged=(
@@ -3697,18 +3775,21 @@ def drive_checkpoint(torch, ptl, fa, pa, shallow, cfg, smi):
         http_argv = serve[:serve.index("--serve")] + ["--http", "0"] + (
             serve[serve.index("--serve") + 1:])
         zero_counts(fa, pa)
-        replies, samples, (h_status, health), out, wall = run_http_cli(
+        replies, samples, (h_status, health), recs, out, wall = run_http_cli(
             torch, http_argv, texts)
         launches = launch_counts(fa, pa)
         instances = instance_counts(fa, pa)
         got = [http_tokens(r) for r in replies]
         steps = int(samples["llm_decode_steps_total"])
         inserts = int(samples["llm_insert_dispatches_total"])
-        expect = dict(NO_LAUNCHES, flash_fwd=L * inserts,
+        full = sum(r["kind"] == "insert" for r in recs)
+        expect = dict(NO_LAUNCHES, flash_fwd=L * full,
                       paged_decode=L * steps)
         statuses = [st for st, _ in got]
         runs["http"] = dict(
             statuses=statuses, decode_iterations=steps, inserts=inserts,
+            full_inserts=full,
+            prefix_hits=samples["llm_prefix_requests_hit_total"],
             launches=launches, expected_launches=expect,
             flash_by_instance=instances["flash_fwd_by_instance"],
             recoveries=samples["llm_server_recoveries_total"],
@@ -3735,6 +3816,604 @@ def drive_checkpoint(torch, ptl, fa, pa, shallow, cfg, smi):
     emit(row)
     if failures:
         raise AssertionError(f"checkpoint phase failed: {failures}")
+    return row
+
+
+# The prefix cache (ROADMAP A11): prefix_serving at llama3-8b's full width,
+# prefix_invariant at DECODE_DEPTH layers in float32 activations.
+PREFIX_SYSTEM = 1024     # the shared system prompt's tokens, BOS included
+PREFIX_TURNS = 16        # wave 1: one warm request, then 15
+PREFIX_SECOND = 8        # wave 2: second turns of the first 8
+PREFIX_RESTORES = 4      # requests on a demoted system prompt
+PREFIX_NEW = 32          # new tokens per request
+PREFIX_TIER = 32         # host_kv_blocks
+PREFIX_POLL_MIN = 4      # swap_poll_min: polls a ready swap-in is held
+PREFIX_BUSY = (0, 2, 5, 9)  # serving prompts that keep rows decoding
+PREFIX_BUSY_NEW = 400
+
+
+def prefix_texts(np):
+    """The prefix phases' byte texts (numpy seed 0): the system prompt
+    (PREFIX_SYSTEM - 1 characters, so that with BOS it fills 8 blocks of
+    128), wave 1's user turns (the first 8, which wave 2 extends, of
+    129-159 characters: their prompts key 9 blocks, and a second turn's
+    prompt keys the same 9; the rest of 64-128), wave 2's 64-character
+    turns, and the restore wave's turns (64-128)."""
+    rng = np.random.default_rng(0)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz      .,"))
+
+    def text(n):
+        return "".join(rng.choice(letters, size=int(n)))
+
+    system = text(PREFIX_SYSTEM - 1)
+    turns = [text(rng.integers(129, 160) if i < PREFIX_SECOND
+                  else rng.integers(64, 129)) for i in range(PREFIX_TURNS)]
+    second = [text(64) for _ in range(PREFIX_SECOND)]
+    restore = [text(rng.integers(64, 129)) for _ in range(PREFIX_RESTORES)]
+    return system, turns, second, restore
+
+
+def predicted_hits(kvcache, groups, block_size):
+    """Each prompt's hit depth in blocks as ``chain_keys`` predicts it on
+    the host: the leading keys published by earlier admission groups (a
+    group's own chains are published as it is admitted)."""
+    published, depths = set(), []
+    for group in groups:
+        for p in group:
+            keys = kvcache.chain_keys(p, block_size)
+            d = 0
+            while d < len(keys) and keys[d] in published:
+                d += 1
+            depths.append(d)
+        for p in group:
+            published.update(kvcache.chain_keys(p, block_size))
+    return depths
+
+
+def records(cb, kinds=None):
+    recs = cb.obs.dispatches_json(1 << 16)["dispatches"]
+    return [r for r in recs if kinds is None or r["kind"] in kinds]
+
+
+def record_launches(recs, L, int8=False, n_draft=None):
+    """The kernel launches a batcher's dispatch records imply: an insert
+    runs the flash forward once per layer (twice under speculation: target
+    and draft), a decode iteration the paged kernel once per layer, a
+    speculative round it n_draft + 2 times per layer; a suffix insert and
+    an adopt launch no kernel."""
+    sfx = "_int8" if int8 else ""
+    want = dict(NO_LAUNCHES)
+    for r in recs:
+        if r["kind"] == "insert":
+            want["flash_fwd" + sfx] += L * (2 if n_draft else 1)
+        elif r["kind"] == "decode":
+            want["paged_decode" + sfx] += L * r["k"]
+        elif r["kind"] == "spec":
+            want["paged_decode" + sfx] += (n_draft + 2) * L * r["k"]
+    return want
+
+
+def serve_wave(torch, cb, prompts, max_new, log, on_busy=None):
+    """Submit ``prompts`` together and step until they are done.  ``log``
+    collects tokens, each request's TTFT (host clock from submit to the
+    step that emitted its first token, the device synchronised), and the
+    wall ms and iterations of steady steps at 8 busy slots (no admission,
+    nothing queued).  ``on_busy``, once, when all 8 slots are busy and
+    the step owes nothing: a callable given a step function."""
+    t_sub = time.perf_counter()
+    rids = [cb.submit(p, max_new_tokens=max_new) for p in prompts]
+    want = set(rids)
+
+    def one_step():
+        free = any(s is None for s in cb.slots.values())
+        quiet = not cb._dirty_rows and not (cb.queue and free)
+        ins0 = cb.stats()["insert_dispatches_total"]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        evs = cb.step()
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        if (quiet and not free
+                and cb.stats()["insert_dispatches_total"] == ins0):
+            log["steady_ms"].append((now - t) * 1e3)
+            log["steady_iters"] += cb.decode_chunk_last
+        for rid, tok_id, done in evs:
+            log["tokens"].setdefault(rid, []).append(tok_id)
+            log["ttft_ms"].setdefault(rid, (now - t_sub) * 1e3)
+            if done:
+                want.discard(rid)
+        return evs
+
+    while want:
+        if (on_busy is not None and not cb.queue and not cb._dirty_rows
+                and all(s is not None for s in cb.slots.values())):
+            on_busy(one_step)
+            on_busy = None
+            continue
+        one_step()
+    return [log["tokens"][r] for r in rids], rids
+
+
+def drive_prefix_serving(torch, np, ptl, fa, pa, params, cfg, tok, smi,
+                         serve_row):
+    """Phase ``prefix_serving``: a chat with one shared 1024-token system
+    prompt through the radix prefix cache and the host tier at
+    llama3-8b's full width (32 layers, bf16, the phase-3 weights)."""
+    from jax_llama_tpu_torch import kvcache
+
+    L, BLK = cfg.n_layers, 128
+    system, turns, second, restore = prefix_texts(np)
+    sys_ids = tok.encode(system, bos=True)
+    assert len(sys_ids) == PREFIX_SYSTEM
+
+    def batcher(**kw):
+        return ptl.ContinuousBatcher(
+            params, cfg, n_slots=8, max_len=2048, block_size=BLK,
+            decode_chunk=8, device="cuda", **kw)
+
+    t_phase = time.perf_counter()
+    cb = batcher(prefix_index="radix", host_kv_blocks=PREFIX_TIER)
+    log = dict(tokens={}, ttft_ms={}, steady_ms=[], steady_iters=0)
+    wave1 = [sys_ids + tok.encode(t) for t in turns]
+    profile = {}
+
+    def busy_profile(step):
+        profile.update(device_profile(
+            torch, lambda: [step() for _ in range(3)],
+            categories=SERVE_CATEGORIES))
+
+    zero_counts(fa, pa)
+    t0 = time.perf_counter()
+    toks, rids = serve_wave(torch, cb, wave1[:1], PREFIX_NEW, log)
+    more, more_rids = serve_wave(torch, cb, wave1[1:], PREFIX_NEW, log)
+    toks, rids = toks + more, rids + more_rids
+    wave2 = [wave1[i] + toks[i] + tok.encode(second[i])
+             for i in range(PREFIX_SECOND)]
+    # Wave 2 fills the 8 slots: three of its steady steps are profiled.
+    more, more_rids = serve_wave(torch, cb, wave2, PREFIX_NEW, log,
+                                 on_busy=busy_profile)
+    toks, rids = toks + more, rids + more_rids
+    waves_s = time.perf_counter() - t0
+    st_waves = cb.stats()
+
+    # The restore wave: rows kept busy decoding unrelated prompts; each
+    # request on the system prompt comes after a demotion sweep, parks in
+    # ``restoring`` while its slabs copy on the side stream, and is held
+    # PREFIX_POLL_MIN polls while decode chunks go on.
+    busy = [cb.submit(serve_prompts(tok)[i], max_new_tokens=PREFIX_BUSY_NEW)
+            for i in PREFIX_BUSY]
+    cb.step()
+    cb.step()
+    cb.swap_poll_min = PREFIX_POLL_MIN
+    restores, restore_prompts, restore_rids = [], [], []
+    for j, text in enumerate(restore):
+        idle = cb.stats()["prefix_cached_blocks"]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        demoted = cb.demote_idle(idle)
+        demote_ms = (time.perf_counter() - t) * 1e3
+        prompt = sys_ids + tok.encode(text)
+        restore_prompts.append(prompt)
+        s0 = cb.stats()
+        rid = cb.submit(prompt, max_new_tokens=PREFIX_NEW)
+        restore_rids.append(rid)
+        inflight_steps, extra_syncs, pending_at_first = 0, 0, None
+        out = []
+        while len(out) < PREFIX_NEW:
+            syncs = cb.host_syncs_total
+            seq0 = max((r["seq"] for r in records(cb)), default=-1)
+            evs = cb.step()
+            if pending_at_first is None and cb._restoring:
+                pending_at_first = not kvcache.restore_ready(
+                    cb._restoring[0].staged)
+            dec = [r for r in records(cb, ("decode",)) if r["seq"] > seq0]
+            if dec and dec[-1]["swap_inflight"]:
+                inflight_steps += 1
+                extra_syncs += cb.host_syncs_total - syncs - 1
+            out += [t for r, t, _ in evs if r == rid]
+        log["tokens"][rid] = out
+        s1 = cb.stats()
+        adopt = records(cb, ("adopt",))[-1]
+        restores.append(dict(
+            demoted_blocks=demoted, idle_before=idle, demote_ms=demote_ms,
+            demote_gb_per_s=demoted * cb.block_bytes / demote_ms / 1e6,
+            swap_in_blocks=s1["swap_in_blocks_total"]
+            - s0["swap_in_blocks_total"],
+            decode_steps_during_swap_in=inflight_steps,
+            extra_host_syncs_during_swap_in=extra_syncs,
+            copy_pending_after_begin=pending_at_first,
+            adopt_blocks=adopt["k"], adopt_device_ms=adopt["wall_ms"],
+            swap_in_host_ms=s1["swap_in_ms_total"] - s0["swap_in_ms_total"]))
+    for r in busy:
+        cb.cancel(r)
+    st = cb.stats()
+    hit_tokens, prompt_tokens = (cb.prefix_hit_tokens_total,
+                                 cb.prompt_tokens_total)
+    launches = launch_counts(fa, pa)
+    instances = instance_counts(fa, pa)
+    want_launches = record_launches(records(cb), L)
+
+    # The swap path's copies alone, on the batcher's own stream and arena:
+    # 8 blocks (the system prompt's chain) D2H into pinned slabs on the
+    # main stream, H2D into staging on the side stream, between CUDA
+    # events.
+    chain = cb._match_prefix(cb._chain_keys(restore_prompts[0], BLK)).blocks
+    side = cb._side_stream()
+    slabs = [cb._arena.take() for _ in chain]
+    e = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    torch.cuda.synchronize()
+    e[0].record()
+    for blk, slab in zip(chain, slabs):
+        kvcache.fetch_slab(cb.pool, blk, into=slab)
+    e[1].record()
+    torch.cuda.synchronize()
+    e[2].record(side)
+    staged = kvcache.stage_restore(slabs, cb.free_blocks[:len(chain)],
+                                   cb.n_blocks, device="cuda", stream=side)
+    e[3].record(side)
+    e[3].synchronize()
+    nbytes = len(chain) * kvcache.pool_block_bytes(cb.pool)
+    copies = dict(blocks=len(chain), bytes=nbytes,
+                  d2h_ms=e[0].elapsed_time(e[1]),
+                  h2d_ms=e[2].elapsed_time(e[3]))
+    copies.update(d2h_gb_per_s=nbytes / copies["d2h_ms"] / 1e6,
+                  h2d_gb_per_s=nbytes / copies["h2d_ms"] / 1e6)
+    del slabs, staged
+
+    # A hit's suffix insert and a miss insert of the same prompt (k = 1),
+    # device ms between CUDA events, each counted from zero.
+    probe = wave1[PREFIX_TURNS - 1]
+    nc = batcher(prefix_cache=False)
+
+    def one_insert(b, kind):
+        zero_counts(fa, pa)
+        rid = b.submit(probe, max_new_tokens=2)
+        b._admit()
+        flash = launch_counts(fa, pa)["flash_fwd"]
+        while b.pending():
+            b.step()
+        rec = records(b, (kind,))[-1]
+        assert rec["rids"] == [rid], rec
+        return dict(device_ms=rec["wall_ms"], flash_launches=flash,
+                    prefill_tokens=rec["prefill_tokens"])
+
+    hit_insert = one_insert(cb, "suffix_insert")
+    miss_insert = one_insert(nc, "insert")
+
+    # The same traffic on a batcher without the prefix cache (every
+    # request a miss): the reference each completion is held to, and the
+    # misses' TTFT.
+    nlog = dict(tokens={}, ttft_ms={}, steady_ms=[], steady_iters=0)
+    ntoks = []
+    for group in (wave1[:1], wave1[1:], wave2):
+        ntoks += serve_wave(torch, nc, group, PREFIX_NEW, nlog)[0]
+    for p in restore_prompts:
+        ntoks += serve_wave(torch, nc, [p], PREFIX_NEW, nlog)[0]
+    del nc
+    got = toks + [log["tokens"][r] for r in restore_rids]
+    prompts_all = wave1 + wave2 + restore_prompts
+    divergences = token_divergences(torch, ptl, params, cfg, prompts_all,
+                                    got, ntoks, DECODE_REL)
+
+    depths = predicted_hits(kvcache, [wave1[:1], wave1[1:], wave2]
+                            + [[p] for p in restore_prompts], BLK)
+    predicted = dict(
+        prefix_requests_hit_total=sum(d > 0 for d in depths),
+        prefix_blocks_reused_total=sum(depths),
+        prefix_hit_tokens=BLK * sum(depths))
+    measured = dict(
+        prefix_requests_hit_total=st["prefix_requests_hit_total"],
+        prefix_blocks_reused_total=st["prefix_blocks_reused_total"],
+        prefix_hit_tokens=hit_tokens)
+    hit_ttft = [log["ttft_ms"][r] for r, d in zip(rids, depths) if d]
+    miss_ttft = list(nlog["ttft_ms"].values())
+    wall = sum(log["steady_ms"])
+    row = dict(
+        phase="prefix_serving", card=smi, config="llama3-8b", n_layers=L,
+        dtype="bfloat16", n_slots=8, max_len=2048, block_size=BLK,
+        decode_chunk=8, prefix_index="radix", host_kv_blocks=PREFIX_TIER,
+        swap_poll_min=PREFIX_POLL_MIN, block_bytes=cb.block_bytes,
+        system_tokens=PREFIX_SYSTEM,
+        prompt_tokens=[len(p) for p in prompts_all], max_new=PREFIX_NEW,
+        requests=len(prompts_all), waves_s=waves_s,
+        seconds=time.perf_counter() - t_phase,
+        hit_depth_blocks=depths, predicted=predicted, measured=measured,
+        hit_rate=st["prefix_requests_hit_total"] / len(prompts_all),
+        prefill_tokens_saved=hit_tokens, prompt_tokens_total=prompt_tokens,
+        hit_tokens_ratio=st["prefix_hit_tokens_ratio"],
+        launches=launches, expected_launches=want_launches,
+        flash_by_instance=instances["flash_fwd_by_instance"],
+        decode_iterations=st["decode_steps_total"],
+        insert_records=len(records(cb, ("insert",))),
+        suffix_insert_records=len(records(cb, ("suffix_insert",))),
+        suffix_insert_device_ms=[(r["k"], r["prefill_tokens"], r["wall_ms"])
+                                 for r in records(cb, ("suffix_insert",))],
+        hit_insert=hit_insert, miss_insert=miss_insert,
+        ttft_ms_p50=dict(hits=float(np.median(hit_ttft)),
+                         misses=float(np.median(miss_ttft))),
+        ttft_is="host clock from submit to the step that emitted the first "
+        "token (device synchronised), hits from this batcher, misses from "
+        "the prefix_cache=False batcher on the same traffic",
+        restores=restores, copies=copies,
+        swap=dict(ins=st["swap_ins_total"],
+                  in_blocks=st["swap_in_blocks_total"],
+                  out_blocks=st["swap_out_blocks_total"],
+                  failures=st["swap_failures_total"],
+                  host_tier_blocks=st["host_tier_blocks"],
+                  arena_overflow=cb._arena.overflow_total),
+        decode_ms_per_iteration=wall / log["steady_iters"]
+        if log["steady_iters"] else None,
+        serving_decode_ms_per_iteration=serve_row["decode_ms_per_iteration"],
+        busy_share=profile.get("device_busy_share"),
+        serving_busy_share=serve_row["busy_share"], profile_3_steps=profile,
+        divergences_from_no_cache=divergences,
+        stats_after_waves={k: st_waves[k] for k in (
+            "prefix_requests_hit_total", "prefix_blocks_reused_total",
+            "radix_nodes_total", "prefix_cached_blocks")})
+    emit(row)
+    del cb
+    torch.cuda.empty_cache()
+    problems = []
+    if measured != predicted:
+        problems.append(f"hits {measured}, chain_keys predict {predicted}")
+    if launches != want_launches:
+        problems.append(f"launches {launches}, records imply {want_launches}")
+    if (hit_insert["flash_launches"] != 0
+            or miss_insert["flash_launches"] != L):
+        problems.append(f"hit/miss flash launches {hit_insert} {miss_insert}")
+    if instances["flash_fwd_by_instance"] != (
+            {"wgmma": launches["flash_fwd"]}):
+        problems.append(f"flash instances {instances}")
+    if instances["paged_kernel_launches"] != 2 * launches["paged_decode"]:
+        problems.append(f"paged kernels {instances}")
+    demoted_total = sum(r["demoted_blocks"] for r in restores)
+    if not (st["swap_ins_total"] == PREFIX_RESTORES
+            and st["swap_in_blocks_total"] == PREFIX_RESTORES * 8
+            and st["swap_out_blocks_total"] == demoted_total
+            and st["swap_failures_total"] == 0):
+        problems.append(f"swap ledger {row['swap']}, demoted {demoted_total}")
+    if not all(r["decode_steps_during_swap_in"] >= 2
+               and r["extra_host_syncs_during_swap_in"] == 0
+               and r["swap_in_blocks"] == 8 for r in restores):
+        problems.append(f"restores {restores}")
+    if [len(t) for t in got] != [PREFIX_NEW] * len(prompts_all):
+        problems.append("a request did not end with its max_new tokens")
+    if problems:
+        raise AssertionError(f"prefix_serving failed: {problems}")
+    return row
+
+
+def drive_prefix_invariant(torch, np, ptl, fa, pa, params, cfg, tok, smi):
+    """Phase ``prefix_invariant``: DECODE_DEPTH layers in float32
+    activations (bf16 weights), exact token identity through every path
+    of the prefix cache and the host tier, and its two fault drills."""
+    from jax_llama_tpu_torch import kvcache
+    from jax_llama_tpu_torch.degrade import DegradeManager
+    from jax_llama_tpu_torch.faults import (FaultInjector, FaultSpec,
+                                            InjectedFault)
+    from jax_llama_tpu_torch.server import LLMServer
+
+    L, BLK = DECODE_DEPTH, 128
+    shallow = dict(params, layers={k: w[:L]
+                                   for k, w in params["layers"].items()})
+    dcfg = cfg.replace(n_layers=L, dtype="float32")
+    c8 = dcfg.replace(kv_cache_dtype="int8")
+    system, turns, _, _ = prefix_texts(np)
+    S = tok.encode(system[:383], bos=True)   # 3 blocks
+    P = [S + tok.encode(t) for t in turns[:4]]
+    other = serve_prompts(tok)[3]
+    made = []
+
+    def batcher(c=dcfg, **kw):
+        kw = dict(dict(n_slots=4, max_len=1024, block_size=BLK,
+                       decode_chunk=8, device="cuda"), **kw)
+        cb = ptl.ContinuousBatcher(shallow, c, **kw)
+        made.append((cb, c, kw.get("draft_params") is not None))
+        return cb
+
+    def run(cb, prompts, n=PREFIX_NEW):
+        rids = [cb.submit(p, max_new_tokens=n) for p in prompts]
+        res = cb.run_to_completion()
+        return [res[r] for r in rids]
+
+    def chain(cb, prompt):
+        blocks = cb._match_prefix(cb._chain_keys(prompt, BLK)).blocks
+        names = ("k", "v", "pos", "k_scale", "v_scale")
+        return blocks, {n: (getattr(cb.pool, n)[blocks] if n == "pos" else
+                            getattr(cb.pool, n)[:, :, blocks]).clone()
+                        for n in names if getattr(cb.pool, n) is not None}
+
+    def same_bytes(a, b):
+        return sorted(a) == sorted(b) and all(
+            torch.equal(a[n], b[n]) for n in a)
+
+    zero_counts(fa, pa)
+    t0 = time.perf_counter()
+    cells, problems = {}, []
+    cold = [run(batcher(prefix_cache=False), [p])[0] for p in P]
+
+    # hit vs cold; then demote -> restore -> hit vs cold with a busy row
+    # decoding, the adopted blocks bit-identical to the demoted ones.
+    A = batcher(host_kv_blocks=8)
+    run(A, [P[0]])
+    hit = run(A, [P[1]])[0]
+    blocks0, before = chain(A, P[2])
+    demoted = A.demote_idle(A.stats()["prefix_cached_blocks"])
+    busy = A.submit(other, max_new_tokens=200)
+    A.step()
+    A.swap_poll_min = 2
+    rid = A.submit(P[2], max_new_tokens=PREFIX_NEW)
+    restored = []
+    while len(restored) < PREFIX_NEW:
+        restored += [t for r, t, _ in A.step() if r == rid]
+    A.cancel(busy)
+    blocks1, after = chain(A, P[2])
+    k = len(blocks0)
+    cells["hit"] = dict(equal_cold=hit == cold[1])
+    cells["restore"] = dict(
+        equal_cold=restored == cold[2], demoted=demoted,
+        blocks_before=blocks0, blocks_after=blocks1[:k],
+        bit_identical=same_bytes(
+            before, {n: (t[:k] if n == "pos" else t[:, :, :k])
+                     for n, t in after.items()}),
+        swap_ins=A.stats()["swap_ins_total"])
+
+    # export from A, import into B: a hit at full depth.
+    keys, slabs = A.export_prefix(P[3])
+    B = batcher()
+    landed = B.import_prefix(keys, slabs)
+    imported = run(B, [P[3]])[0]
+    cells["export_import"] = dict(
+        keys=len(keys), landed=landed, equal_cold=imported == cold[3],
+        reused=B.stats()["prefix_blocks_reused_total"])
+
+    # pressure: 3 sessions of 3 keyed blocks, a pool of 10 blocks (each
+    # reservation is 5), a tier of 12: revisits come back through it.
+    sessions = [tok.encode((t * 8)[:399], bos=True) for t in turns[8:11]]
+    C = batcher(n_slots=1, max_len=640, n_blocks=10, host_kv_blocks=12)
+    Cc = batcher(n_slots=1, max_len=640, prefix_cache=False)
+    pressure = [run(C, [s], 16)[0] == run(Cc, [s], 16)[0]
+                for _ in range(2) for s in sessions]
+    cst = C.stats()
+    cells["pressure"] = dict(
+        all_equal_cold=all(pressure), hits=cst["prefix_requests_hit_total"],
+        swap_ins=cst["swap_ins_total"], swap_out=cst["swap_out_blocks_total"])
+
+    # int8 pools: a hit over restored blocks against the same hit over
+    # blocks never demoted, token- and bit-identical (scale planes too).
+    E2 = batcher(c8)
+    run(E2, [P[0]])
+    hit8 = run(E2, [P[1]])[0]
+    E = batcher(c8, host_kv_blocks=8)
+    run(E, [P[0]])
+    b8, before8 = chain(E, P[1])
+    E.demote_idle(E.stats()["prefix_cached_blocks"])
+    again8 = run(E, [P[1]])[0]
+    b8b, after8 = chain(E, P[1])
+    k8 = len(b8)
+    cells["int8"] = dict(
+        equal=hit8 == again8, swap_ins=E.stats()["swap_ins_total"],
+        bit_identical=same_bytes(
+            before8, {n: (t[:k8] if n == "pos" else t[:, :, :k8])
+                      for n, t in after8.items()}))
+
+    # a self-draft speculative batcher: the draft's twins ride in the
+    # slabs; acceptance exactly 1.0, tokens the cold speculative ones.
+    spec_kw = dict(draft_params=shallow, draft_config=dcfg, n_draft=3,
+                   spec_rounds=4)
+    F = batcher(host_kv_blocks=8, **spec_kw)
+    run(F, [P[0]])
+    F.demote_idle(F.stats()["prefix_cached_blocks"])
+    twins = sorted(F._store.tier._slabs[next(iter(F._store.tier._slabs))])
+    spec_hit = run(F, [P[1]])[0]
+    spec_cold = run(batcher(prefix_cache=False, **spec_kw), [P[1]])[0]
+    cells["spec"] = dict(equal_cold=spec_hit == spec_cold,
+                         acceptance=F.acceptance_rate(),
+                         swap_ins=F.stats()["swap_ins_total"],
+                         slab_fields=twins)
+
+    # kv_swap fault: only its request fails; the slabs stay and the next
+    # try restores.
+    G = batcher(host_kv_blocks=8,
+                fault_injector=FaultInjector("kv_swap@0:error"))
+    run(G, [P[0]])
+    G.demote_idle(G.stats()["prefix_cached_blocks"])
+    r1 = G.submit(P[1], max_new_tokens=PREFIX_NEW)
+    r2 = G.submit(other, max_new_tokens=8)
+    res = G.run_to_completion()
+    failed = G.pop_failed()
+    retry = run(G, [P[1]])[0]
+    cells["kv_swap_fault"] = dict(
+        failed=[f[0] for f in failed] == [r1], other_done=list(res) == [r2],
+        swap_failures=G.stats()["swap_failures_total"],
+        retry_equal_cold=retry == cold[1],
+        swap_ins=G.stats()["swap_ins_total"])
+
+    # suffix_insert faulted twice: prefix_cache quarantines onto the flash
+    # insert (cache off), and every request completes with the cold
+    # tokens; kv_swap never leaves the batcher.
+    clock = DrillClock()
+    degrade = DegradeManager(threshold=2, window_s=600.0,
+                             cooldown_s=DRILL_COOLDOWN_S, clock=clock)
+    inj = FaultInjector(FaultSpec.parse(
+        "suffix_insert@0:error,suffix_insert@1:error"))
+    srv = LLMServer(batcher(fault_injector=inj), tokenizer=tok,
+                    degrade=degrade)
+    attributed = {s: srv._attribute(InjectedFault("probe", site=s))
+                  for s in ("suffix_insert", "kv_swap")}
+    with srv:
+        replies = [http_request(srv.address, "/generate", {
+            "prompt": p, "max_new_tokens": PREFIX_NEW}) for p in P]
+        _, health = http_json(srv.address, "/healthz")
+        _, dec = http_json(srv.address, "/debug/decisions")
+        _, kv = http_json(srv.address, "/debug/kv")
+        recs = http_json(srv.address, "/debug/dispatches?n=4096")[1][
+            "dispatches"]
+    got = [http_tokens(r) for r in replies]
+    cells["suffix_insert_fault"] = dict(
+        statuses=[s for s, _ in got], attributed=attributed,
+        quarantined=health["quarantined"],
+        prefix_index_after=health["kv"]["prefix_index"],
+        decisions=[d["kind"] for d in dec["decisions"]],
+        injected=inj.injected_total, kv_nodes_after=len(kv["nodes"]),
+        suffix_inserts=sum(r["kind"] == "suffix_insert" for r in recs),
+        divergences=token_divergences(
+            torch, ptl, shallow, dcfg, P, [t for _, t in got], cold,
+            DRILL_TIE) if [s for s, _ in got] == [200] * 4 else None)
+    launches = launch_counts(fa, pa)
+    want = dict(NO_LAUNCHES)
+    for cb, c, spec in made[:-1]:
+        for key, n in record_launches(
+                records(cb), L, int8=c.kv_cache_dtype == "int8",
+                n_draft=3 if spec else None).items():
+            want[key] += n
+    for key, n in record_launches(recs, L).items():
+        want[key] += n
+    row = dict(phase="prefix_invariant", card=smi, config="llama3-8b",
+               n_layers=L, dtype="float32 activations, bf16 weights",
+               block_size=BLK, system_tokens=len(S), cells=cells,
+               launches=launches, expected_launches=want,
+               seconds=time.perf_counter() - t0)
+    emit(row)
+    q = cells["suffix_insert_fault"]
+    checks = {
+        "hit": cells["hit"]["equal_cold"],
+        "restore": cells["restore"]["equal_cold"]
+        and cells["restore"]["bit_identical"]
+        and cells["restore"]["swap_ins"] == 1,
+        "export_import": cells["export_import"]["equal_cold"]
+        and cells["export_import"]["landed"] == len(keys) == 3
+        and cells["export_import"]["reused"] == 3,
+        "pressure": cells["pressure"]["all_equal_cold"]
+        and cells["pressure"]["hits"] == 3
+        and cells["pressure"]["swap_ins"] >= 1,
+        "int8": cells["int8"]["equal"] and cells["int8"]["bit_identical"]
+        and cells["int8"]["swap_ins"] == 1
+        and launches["flash_fwd_int8"] > 0
+        and launches["paged_decode_int8"] > 0,
+        "spec": cells["spec"]["equal_cold"]
+        and cells["spec"]["acceptance"] == 1.0
+        and cells["spec"]["swap_ins"] == 1
+        and "d_k" in cells["spec"]["slab_fields"],
+        "kv_swap_fault": cells["kv_swap_fault"]["failed"]
+        and cells["kv_swap_fault"]["other_done"]
+        and cells["kv_swap_fault"]["swap_failures"] == 1
+        and cells["kv_swap_fault"]["retry_equal_cold"],
+        "suffix_insert_fault": q["statuses"] == [200] * 4
+        and q["attributed"] == {"suffix_insert": "prefix_cache",
+                                "kv_swap": None}
+        and q["quarantined"] == ["prefix_cache"]
+        and q["prefix_index_after"] == "off" and q["injected"] == 2
+        and "quarantine" in q["decisions"],
+        "launches": launches == want,
+    }
+    for name, ok in checks.items():
+        if not ok:
+            problems.append(name)
+    del made
+    torch.cuda.empty_cache()
+    if problems:
+        raise AssertionError(f"prefix_invariant failed: {problems}: {cells}")
     return row
 
 
@@ -4002,6 +4681,13 @@ def main() -> int:
                                   serve_row, serve_tokens)
     drill_row = drive_http_drill(torch, ptl, fa, pa, params, cfg, tok, smi)
 
+    # Phase 5d: the prefix cache and the host tier (ROADMAP A11): a shared
+    # system prompt at full width, then the exact invariants at 8 layers.
+    prefix_row = drive_prefix_serving(torch, np, ptl, fa, pa, params, cfg,
+                                      tok, smi, serve_row)
+    prefix_inv = drive_prefix_invariant(torch, np, ptl, fa, pa, params, cfg,
+                                        tok, smi)
+
     # Phase 6: paged = gathered = standalone generate.
     paged_invariant(torch, ptl, engine, serving, params, cfg, tok)
     # Phase 6b: the selected slots' invariants in float32 activations.
@@ -4038,7 +4724,9 @@ def main() -> int:
              "train": train_row["launches"],
              "checkpoint": ckpt_row["launches"],
              "http_serving": http_row["launches"],
-             "http_drill": drill_row["launches"]}
+             "http_drill": drill_row["launches"],
+             "prefix_serving": prefix_row["launches"],
+             "prefix_invariant": prefix_inv["launches"]}
 
     paths_instances = {"generate": instances,
                        "serving": serve_row["instances"],

@@ -15,8 +15,8 @@ accelerated feature it runs (``serving.py``):
   paged_kernel        the gathered view, plain attention
                       (``use_pallas_kernel=False``; on the CPU only)
   spec_decode         plain non-speculative decode (no draft model)
-  prefix_cache        cold full prefill (``prefix_cache=False``; the
-                      port has no prefix cache until ROADMAP A11)
+  prefix_cache        cold full prefill (``prefix_cache=False``: the
+                      flash insert kernel, on the card too)
   ==================  =============================================
 
 Quarantine swaps ONLY the failing feature: a ``spec_decode`` fallback

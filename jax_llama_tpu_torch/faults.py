@@ -24,11 +24,13 @@ dispatch it has:
                      single dispatch, so ``@N`` indices count chunks,
                      not tokens or rounds
   ``insert``         a batched full-prompt prefill (``_paged_insert``)
-  ``suffix_insert``  a prefix-cache-hit suffix prefill (ROADMAP A11)
+  ``suffix_insert``  a prefix-cache-hit suffix prefill
+                     (``_paged_suffix_insert``)
   ``prefill_chunk``  a chunk dispatch CARRYING a fused prefill lane
                      (fused prefill-decode scheduling, ROADMAP A9)
   ``alloc``          a block-pool allocation (``_alloc_blocks``)
-  ``kv_swap``        a host-tier swap-in begin (ROADMAP A11)
+  ``kv_swap``        a host-tier swap-in begin (``_begin_restore``:
+                     an injected fault fails only that request)
   ``flash_kernel``   an insert whose prefill runs the flash kernel
                      (fired by the batcher per dispatch, AND by
                      ``ops._build.load`` when the kernel's library is

@@ -7,7 +7,7 @@ The sensor layer of the serving stack (``server.LLMServer`` over
   * **Event timeline** (:class:`Observability`).  Every request owns a
     bounded span timeline through the admission state machine —
     ``queued -> prefilling -> decoding -> finished/failed/cancelled``
-    (``restoring`` is the host tier's state, ROADMAP A11) — and every
+    (``restoring``, a host-tier swap-in, between them) — and every
     serving dispatch gets a span in a bounded ring recording its kind
     (``decode`` / ``spec`` / ``insert`` and the per-kernel splits),
     effective K/R, slot occupancy, prompt tokens advanced, packed-fetch

@@ -27,10 +27,12 @@ never falls back to the CPU.  A flag whose feature is not ported exits
 with a message that names its ROADMAP item: ``--logprobs`` (A17),
 ``--replicas`` > 1, ``--autoscale``, ``--replica-roles`` (A12),
 ``--serve-mesh`` and a ``--data``/``--fsdp``/``--tensor`` mesh of more
-than one device (A14), ``--host-kv-blocks`` > 0 (A11).  ``--serve`` and
-``--http`` run without the prefix cache (A11) and with classic
-whole-prompt admission (A9), and say so in one log line when the flags
-ask for either (their defaults do).  ``--log-json`` formats the log lines.
+than one device (A14).  ``--serve`` and ``--http`` run the prefix cache
+as the JAX CLI does (``--prefix-index radix`` by default, ``exact``,
+``off``; ``--no-prefix-cache``; ``--host-kv-blocks`` > 0 attaches the
+host tier, radix only), with classic whole-prompt admission (A9), and
+say so in one log line when the flags ask for fused prefill (its
+default does).  ``--log-json`` formats the log lines.
 The flags that only configure the replica fleet (routing, canaries,
 autoscale bounds: A12) are parsed from one table, ``_FLEET_FLAGS``, and
 have nothing to configure until their item.
@@ -153,17 +155,26 @@ def main() -> None:
                          "GET /metrics, /healthz, /debug/*) instead of "
                          "the stdin loop; 0 picks a free port")
     ap.add_argument("--no-prefix-cache", action="store_true",
-                    help="the prefix cache is ROADMAP A11: --serve always "
-                         "runs without it, so this flag changes nothing "
-                         "but the log line")
+                    help="disable prompt prefix caching in the serving "
+                         "pool (on by default; equivalent to "
+                         "--prefix-index off)")
     ap.add_argument("--prefix-index", default="radix",
                     choices=["radix", "exact", "off"],
-                    help="prefix-cache index (ROADMAP A11): --serve runs "
-                         "with 'off' whatever this says, and logs one "
-                         "line when it asks for another")
+                    help="prefix-cache index for --serve / --http: "
+                         "'radix' (default) shares partial prompt "
+                         "prefixes across all cached chains through a "
+                         "block-granular radix tree; 'exact' keeps the "
+                         "flat exact-chain map (the behavioural oracle, "
+                         "no host tier); 'off' disables matching and "
+                         "retention")
     ap.add_argument("--host-kv-blocks", type=int, default=0,
-                    help="host-DRAM KV block tier (> 0 is ROADMAP A11; "
-                         "refused)")
+                    help="host KV block tier capacity for --serve / "
+                         "--http (requires --prefix-index radix): cold "
+                         "prefix-cache blocks demote into pinned host "
+                         "memory instead of being freed, and sessions "
+                         "whose cached prefix was demoted swap it back "
+                         "in on a side stream while rows decode; 0 "
+                         "(default) disables the tier")
     ap.add_argument("--logprobs", action="store_true",
                     help="per-token logprobs (ROADMAP A17; refused)")
     _add_http_flags(ap)
@@ -349,9 +360,9 @@ def _add_http_flags(ap) -> None:
                     help="batch-class max_new_tokens cap applied at "
                          "brownout-1 (halves again at deeper rungs)")
     ap.add_argument("--brownout-demote-blocks", type=int, default=32,
-                    help="idle KV blocks demoted to the host tier on "
-                         "entering brownout-1 and deeper (the host tier "
-                         "is ROADMAP A11: no-op until then)")
+                    help="idle KV blocks proactively demoted to the "
+                         "host tier on entering brownout-1 and deeper "
+                         "(no-op without --host-kv-blocks)")
     ap.add_argument("--peak-tflops", type=float, default=989.4,
                     help="peak TFLOP/s for the /metrics "
                          "llm_mxu_utilization and "
@@ -387,12 +398,19 @@ def _refuse_unported(args) -> None:
          "A14"),
         (mesh > 1, f"a device mesh of {mesh} (--data {args.data} --fsdp "
          f"{args.fsdp} --tensor {args.tensor})", "A14"),
-        (args.host_kv_blocks > 0, "--host-kv-blocks > 0 (the host KV tier)",
-         "A11"),
     )
     for bad, what, item in unported:
         if bad:
             raise SystemExit(f"{what} is not ported (ROADMAP {item})")
+    if args.host_kv_blocks > 0 and (
+            args.prefix_index != "radix" or args.no_prefix_cache):
+        # The tier hangs off radix-node residency: refused here rather
+        # than left silently inert (the batcher tolerates the pair only
+        # for the prefix-cache quarantine's rebuild).
+        raise SystemExit(
+            "--host-kv-blocks requires --prefix-index radix with the "
+            "prefix cache enabled (the host tier hangs off radix-node "
+            "residency)")
     # The env var is checked too: a JLT_FAULTS drill that the chosen mode
     # cannot honor must refuse, not run fault-free while the operator
     # believes injection was armed.
@@ -449,25 +467,24 @@ def _stops(tokenizer):
 
 def _batcher_kwargs(args, draft_params, log) -> dict:
     """The batcher arguments that ``--serve`` and ``--http`` take from the
-    flags.  The prefix cache (A11) and fused prefill (A9) are not ported:
-    the batcher runs without them, and one log line says so when the
-    flags ask for either (the JAX CLI's defaults do)."""
-    prefix_cache = not args.no_prefix_cache and args.prefix_index != "off"
-    fused = args.prefill_budget > 0 and draft_params is None
-    if prefix_cache or fused:
+    flags, the prefix cache's as the JAX CLI passes them.  Fused prefill
+    (A9) is not ported: the batcher runs without it, and one log line
+    says so when the flags ask for it (the JAX CLI's default does)."""
+    if args.prefill_budget > 0 and draft_params is None:
         log.log(
             "serve_options_not_ported",
-            "serving with prefix_cache=False, prefix_index='off', "
-            "prefill_budget=0: the prefix cache is ROADMAP A11, fused "
-            "prefill-decode ROADMAP A9",
-            prefix_index=args.prefix_index if prefix_cache else None,
-            prefill_budget=args.prefill_budget if fused else None,
+            "serving with prefill_budget=0: fused prefill-decode is "
+            "ROADMAP A9",
+            prefill_budget=args.prefill_budget,
         )
     return dict(
         n_slots=args.slots, max_len=None, temperature=args.temperature,
-        top_p=args.top_p, seed=args.seed, prefix_cache=False,
+        top_p=args.top_p, seed=args.seed,
+        prefix_cache=not args.no_prefix_cache,
         decode_chunk=args.decode_chunk, n_draft=args.n_draft,
-        spec_rounds=args.spec_rounds, prefill_budget=0, prefix_index="off",
+        spec_rounds=args.spec_rounds, prefill_budget=0,
+        prefix_index=args.prefix_index,
+        host_kv_blocks=args.host_kv_blocks,
         prefill_kernel=args.prefill_kernel,
         decode_kernel=args.decode_kernel,
     )

@@ -54,8 +54,8 @@ Design constraints, in order:
 ``ok``, ``stalled``, ``loop_alive``, ``last_step_age_s``,
 ``recoveries_total``, ``watchdog_stalls_total``, ``draining``,
 ``drain_remaining_s``, ``degraded``, ``quarantined``, ``kv`` (the prefix
-cache and host tier; ROADMAP A11 — the port reports the values the JAX
-package reports with both off), ``overload`` (``overload.py``),
+store, its host tier and the compact summary of its chain digest,
+``kvcache.KvDigest``), ``overload`` (``overload.py``),
 ``replica`` (``serve_mesh`` is 1 x 1 until A14) and ``features`` (one
 entry per degradable feature).
 
@@ -83,8 +83,11 @@ Endpoints:
   GET  /debug/trace             Chrome/Perfetto trace_event JSON.
   GET  /debug/decisions         control-plane decision audit log.
   GET  /debug/bundle            flight-recorder postmortem artifact.
-  GET  /debug/kv                501: its payload is the prefix store's
-                                chain digest (ROADMAP A11).
+  GET  /debug/kv[?depth=&n=&since=]   the prefix store's chain digest
+                                (``ContinuousBatcher.kv_debug_json``):
+                                the bounded node walk, or with
+                                ``since`` the journaled events past
+                                that version.
   POST /debug/profiler,
   GET  /debug/profile/summary   501: a profiler session over live traffic
                                 and its attribution are ROADMAP A16
@@ -151,17 +154,6 @@ _PLAIN_RUNGS = {
 _KERNEL_ERROR_MARKERS = ("launch failed: cudaerror_t", "nvcc")
 
 _DONE = object()  # stream sentinel
-
-# ROADMAP A11: the chain digest of an empty prefix store (the JAX
-# package's ``kvcache.KvDigest.summary()`` with the cache off), reported
-# under /healthz ``kv.digest`` until the store is ported.
-_IDLE_DIGEST = {
-    "version": 0, "loss_version": 0, "hash": format(0, "016x"),
-    "nodes": 0, "hbm_blocks": 0, "host_blocks": 0, "idle_blocks": 0,
-    "depth_max": 0, "publishes_total": 0, "evictions_total": 0,
-    "demotions_total": 0, "restores_total": 0, "host_evictions_total": 0,
-}
-
 
 def _not_ported(what: str, item: str):
     """(status, body) of an endpoint whose feature is a later ROADMAP
@@ -401,9 +393,6 @@ class LLMServer:
         )
         # The degrade state the current batcher was built for.
         self._built_disabled: frozenset = frozenset()
-        # The digest epoch /healthz reports (the JAX store's is a fresh
-        # hex id per store; ROADMAP A11).
-        self._kv_epoch = uuid.uuid4().hex[:16]
         self.quarantine_rebuilds_total = 0
         self.probe_rebuilds_total = 0
         self.nonfinite_failed_total = 0
@@ -547,9 +536,16 @@ class LLMServer:
                         server.bundle_json(trace=qint("trace", 1) > 0),
                     )
                 elif route == "/debug/kv":
-                    self._reply_json(*_not_ported(
-                        "GET /debug/kv (the prefix store's chain digest)",
-                        "A11"))
+                    # The chain digest's walk (depth-capped, node-
+                    # bounded), or with ?since=V its journaled events:
+                    # reads only the lock-guarded digest, never the
+                    # loop-owned store.
+                    depth = qint("depth", 0)
+                    since = qint("since", -1)
+                    self._reply_json(200, server.batcher.kv_debug_json(
+                        depth=depth if depth > 0 else None,
+                        max_nodes=qint("n", 2048),
+                        since=since if since >= 0 else None))
                 elif route == "/debug/trace":
                     window_ms = None
                     if "window_s" in query:
@@ -1166,8 +1162,8 @@ class LLMServer:
             self.batcher.prefill_budget = max(
                 1, int(base * kn.prefill_budget_scale)
             )
-        # The rung's one-shot host-tier demotion sweep (demote_idle)
-        # has no tier to demote into until ROADMAP A11.
+        if entering and kn.demote_blocks > 0:
+            self.batcher.demote_idle(kn.demote_blocks)
 
     def __enter__(self) -> "LLMServer":
         return self.start()
@@ -1400,6 +1396,9 @@ class LLMServer:
         disabled = self._disabled_features()
         if disabled == self._built_disabled:
             return self.batcher.rebuild()
+        # The batcher this one replaces is dropped: its swap-in copies
+        # must land before their staging memory goes.
+        self.batcher._quiesce_restores()
         params, config, kwargs = self._base_ctor
         kw = dict(kwargs)
         # Kernel-selection rungs: each falls back to another custom
@@ -1614,22 +1613,20 @@ class LLMServer:
             "degraded": self.degrade.degraded(),
             "quarantined": list(self.degrade.quarantined()),
             "kv": {
-                # ROADMAP A11: the prefix store, its chain digest and the
-                # host tier are not ported; these are the values the JAX
-                # package reports with the prefix cache and the tier off
-                # (an empty store's digest).
                 # audit: racy-read(point-in-time /healthz snapshot of
-                # loop-owned batcher state; a scrape may be one step
-                # stale)
+                # loop-owned batcher state: len()/count reads; a scrape
+                # may be one step stale)
                 "prefix_index": self.batcher.prefix_index,
                 "host_kv_blocks": self.batcher.host_kv_blocks,
-                "host_tier_blocks": 0,
-                "swap_queue_depth": 0,
-                "restored_waiting": 0,
-                "digest": dict(_IDLE_DIGEST, epoch=self._kv_epoch),
+                "host_tier_blocks": self.batcher._store.host_blocks(),
+                "swap_queue_depth": len(self.batcher._restoring),
+                "restored_waiting": len(self.batcher._restored_ready),
+                # The chain digest's summary, under its own lock.
+                "digest": self.batcher.kv_digest.summary(),
                 "block_bytes": self.batcher.block_bytes,
                 "total_blocks": self.batcher.n_blocks,
-                "prefix_hit_tokens_total": 0,
+                "prefix_hit_tokens_total": (
+                    self.batcher.prefix_hit_tokens_total),
                 "prompt_tokens_total": self.batcher.prompt_tokens_total,
             },
             "overload": self.overload.health(),
@@ -1729,12 +1726,14 @@ class LLMServer:
                 if due:
                     for f in due:
                         self.degrade.start_probe(f)
-                    self.probe_rebuilds_total += 1
                     self._log("probe_rebuild", features=",".join(due))
                     self.obs.decisions.record(
                         "probe", features=",".join(due)
                     )
                     self._rebuild_and_replay()
+                    # Counted once the probed batcher is in place: a
+                    # reader that sees the count sees that batcher.
+                    self.probe_rebuilds_total += 1
                 # Drain the inbox into the controller's per-class
                 # queues (strict interactive-first ordering lives
                 # there); block briefly when fully idle so shutdown

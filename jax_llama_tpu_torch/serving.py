@@ -75,13 +75,28 @@ in the queue.
   logits come back non-finite is failed alone through ``pop_failed``;
   an armed ``nan`` fault poisons the first active row the same way.
 
+* The prefix cache and the host tier (``kvcache.py``; ``prefix_index``
+  "radix" by default, "exact", "off" = ``prefix_cache=False``): full
+  prompt blocks are keyed by ``kvcache.chain_keys``; an admission claims
+  the longest cached chain prefix (refcounted blocks) and prefills only
+  its suffix (``_paged_suffix_insert``, through the rows' gathered
+  views at per-row ``fill0``: per-row cache offsets run the xla
+  attention path, as in the JAX package, so a hit's suffix launches no
+  attention kernel), and finished requests retain their keyed blocks in
+  the store's idle LRU until allocation pressure evicts them.  With
+  ``host_kv_blocks`` > 0 cold blocks demote into a bounded host tier of
+  pinned slabs (one D2H sweep, one host sync per sweep, counted in
+  ``swap_out_blocks_total`` and never in ``host_syncs_total``); a
+  request whose matched prefix was demoted parks in ``restoring`` while
+  its slabs copy to staging tensors on a side CUDA stream, decode chunks
+  dispatching meanwhile, and one scatter adopts them into the pool when
+  the copy's event has passed.  ``export_prefix`` / ``import_prefix``
+  move a chain's blocks between batchers through the same primitives.
+
 Not in this slice; each raises ``NotImplementedError`` at construction,
 naming its ROADMAP item: meshes (A14), logprobs (A17), fused
-prefill-decode (A9), the prefix cache and host tier (A11).  Because the
-prefix cache is out, the port's defaults are ``prefix_cache=False`` and
-``prefix_index="off"``; the JAX package's are ``True`` and ``"radix"``.
-``stats()`` reports those features' counters at the values the JAX
-package reports with them off.
+prefill-decode (A9).  ``stats()`` reports those features' counters at
+the values the JAX package reports with them off.
 """
 
 from __future__ import annotations
@@ -97,7 +112,21 @@ import torch
 from . import obs as _obs_mod
 from .config import LLaMAConfig
 from .engine import prompt_positions
-from .faults import FaultInjector
+from .faults import FaultInjector, InjectedFault
+from .kvcache import (
+    MatchResult,
+    SlabArena,
+    Staged,
+    adopt_into_pool,
+    chain_keys,
+    fetch_slab,
+    make_prefix_store,
+    pool_block_bytes,
+    pow2_bucket,
+    restore_ready,
+    stage_restore,
+    wait_restore,
+)
 from .models.llama import (
     FLASH_MIN_SEQ,
     KVCache,
@@ -141,11 +170,6 @@ _CHUNK_PAD = -2
 # (``parallel.serve_mesh.mesh_shape(None)``); the port has no mesh until
 # ROADMAP A14.
 SERVE_MESH = {"data": 1, "tensor": 1, "devices": 1}
-
-
-def pow2_bucket(n: int) -> int:
-    """Smallest power of two >= max(n, 1)."""
-    return 1 << max(n - 1, 0).bit_length()
 
 
 def _round_up(n: int, m: int) -> int:
@@ -469,6 +493,58 @@ def _paged_insert(
     return tau
 
 
+def _paged_suffix_insert(
+    params, pool, table_rows, n_alloc_rows, fill0, suffix_tokens,
+    suffix_mask, generators, temperature, top_p, top_k, *, config,
+    prefill_chunk=None,
+):
+    """Prefill k requests' prompt SUFFIXES over the paged pool (JAX
+    :1050), in place: the prefix-cache admission path.  The leading
+    ``fill0[i]`` positions of each row's table already hold a reused
+    cached prefix, so only the suffixes run through the model, attending
+    the prefix KV through the rows' gathered views; the view's per-row
+    index runs the xla attention path (``forward``'s per-row rule, the
+    JAX package's must-xla), so no attention kernel is launched.  The
+    new entries land back in the rows' own blocks (``_scatter_back``:
+    columns past a row's reservation resolve to the sentinel and drop;
+    ``fill0`` is block-aligned, so no reused block is written).
+
+    table_rows: [k, MB] int32; n_alloc_rows, fill0: [k] int32 (fill0 =
+    the shared prefix length in tokens, a block multiple);
+    suffix_tokens/mask: [k, T] right-padded to a block multiple.
+    Returns the sampled first tokens [k] int32 (-1 where the logits are
+    not finite)."""
+    k_rows, T = suffix_tokens.shape
+    device = suffix_tokens.device
+    view = _gather_cache(pool, table_rows, n_alloc_rows, fill0)
+    mask_i = suffix_mask.to(torch.int32)
+    slen = mask_i.sum(dim=1)
+    positions = torch.where(
+        suffix_mask, fill0[:, None] + torch.cumsum(mask_i, dim=1) - 1, -1
+    ).to(torch.int32)
+    rows = torch.arange(k_rows, device=device)
+    chunk = prefill_chunk if prefill_chunk and prefill_chunk < T else T
+    h_last = None
+    for start in range(0, T, chunk):
+        end = min(start + chunk, T)
+        _, view, aux = forward(
+            params, suffix_tokens[:, start:end], positions[:, start:end],
+            config, cache=view, attn_mask=suffix_mask[:, start:end],
+            compute_logits=False, output_last_hidden=True,
+        )
+        idx = slen - 1 - start
+        in_chunk = (idx >= 0) & (idx < end - start)
+        g = aux.last_hidden_state[rows, idx.clamp(0, end - start - 1)]
+        h_last = g if h_last is None else torch.where(
+            in_chunk[:, None], g, h_last)
+    logits_last = lm_head_logits(params, h_last[:, None], config,
+                                 normed=True)[:, 0]
+    _scatter_back(pool, view, table_rows, fill0,
+                  torch.ones((k_rows,), dtype=torch.bool, device=device), T)
+    tau = sample_rows(generators, logits_last, temperature, top_p, top_k)
+    return torch.where(_finite_rows(logits_last), tau, -1)
+
+
 def _spec_round_core(
     t_params, d_params, t_pool, d_pool, table, n_alloc, fill, tau, pos,
     active, generators, temperature, top_p, top_k, *, t_config, d_config,
@@ -655,6 +731,34 @@ class _Slot:
     max_new: int
     stop_tokens: frozenset
     blocks: List[int]
+    # Leading blocks[:shared] were REUSED prefix-cache hits (KV written by
+    # earlier healthy dispatches); blocks[shared:] are this request's own
+    # writes, the ones the non-finite guard unpublishes.
+    shared: int = 0
+
+
+@dataclasses.dataclass
+class _Restore:
+    """Host view of one in-flight swap-in (the ``restoring`` admission
+    state; JAX :1707): the request left the queue, its matched path's
+    resident blocks are claimed, its demoted nodes are pinned in the host
+    tier, fresh pool blocks are allocated and claimed, and the slabs are
+    copying into ``staged`` on the side stream.  ``_poll_restores``
+    adopts the blocks once the copy's event has passed and hands the
+    request on to ``_restored_ready``; decode chunks keep dispatching the
+    whole time."""
+
+    req: "_Request"
+    chain: List[bytes]
+    path: List[Any]          # kvcache.RadixNode path (resident + demoted)
+    restore: List[Any]       # the demoted nodes being swapped in
+    resident: List[int]      # the path's resident blocks, claimed at
+    #                          begin, by id (a concurrent non-finite
+    #                          subtree drop may null node.block)
+    fresh: List[int]         # their freshly allocated pool blocks
+    staged: Staged           # kvcache.stage_restore's copies in flight
+    t0: float
+    polls: int = 0
 
 
 @dataclasses.dataclass
@@ -683,12 +787,19 @@ class ContinuousBatcher:
             for request_id, token, done in cb.step():
                 ...
 
-    The signature is the JAX package's, plus ``device`` (default "cuda";
-    the pool is placed where the params are, and a disagreeing ``device``
-    raises).  One difference: the prefix cache is not ported, so
-    ``prefix_cache`` defaults to False and ``prefix_index`` to "off";
-    asking for it raises NotImplementedError (ROADMAP A11).  The other
-    arguments outside this slice raise as the module docstring lists.
+    The signature and defaults are the JAX package's, plus ``device``
+    (default "cuda"; the pool is placed where the params are, and a
+    disagreeing ``device`` raises).  The arguments outside this slice
+    raise as the module docstring lists.
+
+    ``prefix_index`` picks the prefix cache's index: "radix" (default)
+    shares partial prefixes across all cached chains, "exact" keeps the
+    flat chain map as the oracle, "off" is ``prefix_cache=False``.
+    ``host_kv_blocks`` > 0 (radix only) attaches the host tier: cold
+    blocks demote into it instead of being freed, and admissions whose
+    matched prefix was demoted swap it back in asynchronously through the
+    ``restoring`` state.  ``swap_poll_min`` (an attribute, 0) holds a
+    ready swap-in for that many polls, so drills can see the window.
 
     ``draft_params`` (with ``draft_config``, sharing the vocabulary)
     turns on speculative decoding: each step drafts ``n_draft`` tokens
@@ -733,12 +844,12 @@ class ContinuousBatcher:
         mesh=None,
         use_pallas_kernel: bool = True,
         logprobs: bool = False,
-        prefix_cache: bool = False,
+        prefix_cache: bool = True,
         fault_injector: Optional[FaultInjector] = None,
         decode_chunk: int = 1,
         spec_rounds: int = 1,
         prefill_budget: int = 0,
-        prefix_index: str = "off",
+        prefix_index: str = "radix",
         host_kv_blocks: int = 0,
         obs: Optional[Observability] = None,
         cost_models: bool = False,
@@ -805,9 +916,6 @@ class ContinuousBatcher:
             (logprobs, "logprobs=True", "A17"),
             (prefill_budget > 0,
              "prefill_budget > 0 (fused prefill-decode)", "A9"),
-            (host_kv_blocks > 0, "host_kv_blocks > 0 (host KV tier)", "A11"),
-            (prefix_cache and prefix_index != "off",
-             f"the prefix cache (prefix_index={prefix_index!r})", "A11"),
         )
         for bad, what, item in unported:
             if bad:
@@ -882,19 +990,51 @@ class ContinuousBatcher:
         self.draft_pool = (
             init_pool(draft_config, self.n_blocks, self.block_size,
                       device=self.device) if spec else None)
-        # Bytes one pool block occupies (k, v, pos and an int8 pool's
-        # scales; the draft pool's too).
-        self.block_bytes = sum(
-            t.nbytes // self.n_blocks
-            for pl in (self.pool, self.draft_pool) if pl is not None
-            for t in (pl.k, pl.v, pl.pos, pl.k_scale, pl.v_scale)
-            if t is not None)
         # Features of the ctor whose ROADMAP item is not ported, at the
         # values the constructor admits (anything else raised above).
         self.logprobs = False
         self.prefill_budget = 0
-        self.prefix_index = "off"
-        self.host_kv_blocks = 0
+        # The prefix cache (JAX :2034-2072): the index behind it lives in
+        # kvcache.py; ``host_kv_blocks`` > 0 attaches the host tier
+        # (radix only, inert elsewhere: the prefix-cache quarantine
+        # rebuilds with the cache off and must not trip over the flag).
+        if not prefix_cache:
+            prefix_index = "off"
+        self.prefix_index = prefix_index
+        self.host_kv_blocks = max(0, int(host_kv_blocks))
+        self.prefix_cache_enabled = prefix_index != "off"
+        self._store = make_prefix_store(
+            prefix_index, host_blocks=self.host_kv_blocks,
+            on_event=self.obs.annotate)
+        # The store's chain digest: its own lock makes it the one piece of
+        # KV state that HTTP handler threads read (/debug/kv, /healthz).
+        self.kv_digest = self._store.digest
+        # Bytes one pool block occupies (k, v, pos and an int8 pool's
+        # scales; the draft pool's too).
+        self.block_bytes = pool_block_bytes(self.pool) + (
+            pool_block_bytes(self.draft_pool) if spec else 0)
+        self._block_refs: Dict[int, int] = {}   # block -> active users
+        # The host tier's slabs, allocated once (pinned on the card) and
+        # reused; one slot more than the tier holds covers the demotion
+        # that lands before put() evicts its victim.
+        self._arena = (
+            SlabArena([("", self.pool)]
+                      + ([("d_", self.draft_pool)] if spec else []),
+                      self.host_kv_blocks + 1,
+                      pin=self.device.type == "cuda")
+            if getattr(self._store, "tier", None) is not None else None)
+        # In-flight swap-ins and completed ones awaiting a slot; the side
+        # stream their copies run on is made on first use, by the thread
+        # that owns the batcher.  ``swap_poll_min`` holds a READY swap-in
+        # for at least that many polls (a drill's lever; 0 = adopt as
+        # soon as the copy has landed).
+        self._restoring: List[_Restore] = []
+        self._restored_ready: List[Tuple[_Request, List[bytes],
+                                         List[int]]] = []
+        self.swap_poll_min = 0
+        self._swap_stream = None
+        # Demotion copies enqueued since the last sweep's sync.
+        self._demotions_unsynced = False
         self._cost = CostModel(config, params) if self.cost_models else None
         self._draft_cost = (CostModel(draft_config, draft_params)
                             if self.cost_models and spec else None)
@@ -954,6 +1094,23 @@ class ContinuousBatcher:
         self.state_uploads_total = 0
         self.nonfinite_rows_total = 0
         self.prompt_tokens_total = 0
+        # The prefix cache's and the host tier's counters (JAX
+        # :2091-2118): hits, prompt tokens served from cached blocks, the
+        # swap ledger and the export/import handoff ledger.
+        self.prefix_requests_hit = 0
+        self.prefix_blocks_reused = 0
+        self.prefix_hit_tokens_total = 0
+        self.swap_out_blocks_total = 0
+        self.swap_in_blocks_total = 0
+        self.swap_ins_total = 0
+        self.swap_in_ms_total = 0.0
+        self.swap_failures_total = 0
+        self.kv_export_blocks_total = 0
+        self.kv_import_blocks_total = 0
+        self.kv_export_events_total = 0
+        self.kv_import_events_total = 0
+        self.kv_handoff_aborted_total = 0
+        self.kv_export_demoted_blocks_total = 0
         self._admit_dispatches = 0
         self._admits_at_last_chunk = 0
         # Speculative counters (zero without a draft model).
@@ -983,9 +1140,18 @@ class ContinuousBatcher:
         ``LLMServer`` rebuilds through here when the degrade state is the
         one this batcher was built for; a quarantine or a probe rebuilds
         from the server's copy of the original construction instead
-        (``LLMServer._build_batcher``)."""
+        (``LLMServer._build_batcher``).  Swap-ins still copying are waited
+        for first: their staging memory must outlive the copies."""
+        self._quiesce_restores()
         return ContinuousBatcher(self.params, self.config,
                                  **self._ctor_kwargs)
+
+    def _quiesce_restores(self) -> None:
+        """Wait for every swap-in copy in flight, so that this batcher's
+        staging and pinned memory may be let go (a rebuild, a quarantine
+        rebuild that drops this batcher)."""
+        for r in self._restoring:
+            wait_restore(r.staged)
 
     def default_seed(self, rid: int) -> int:
         """The seed of a request without an explicit one (JAX :2256)."""
@@ -1094,8 +1260,9 @@ class ContinuousBatcher:
         return rid
 
     def pending(self) -> bool:
-        return bool(self.queue) or any(
-            s is not None for s in self.slots.values())
+        return (bool(self.queue) or bool(self._restoring)
+                or bool(self._restored_ready)
+                or any(s is not None for s in self.slots.values()))
 
     def cancel(self, request_id: int, outcome: str = "cancelled",
                error: Optional[str] = None) -> bool:
@@ -1108,6 +1275,23 @@ class ContinuousBatcher:
         for i, req in enumerate(self.queue):
             if req.rid == request_id:
                 del self.queue[i]
+                self.obs.request_end(request_id, outcome, error)
+                return True
+        for r in self._restoring:
+            if r.req.rid == request_id:
+                # Mid-swap cancel: nothing was scattered into the pool
+                # yet; the claims are released and the nodes fall back to
+                # host residency (the slabs were read, not moved).
+                self._restoring.remove(r)
+                self._abort_restore(r)
+                self.obs.request_end(request_id, outcome, error)
+                return True
+        for i, (req, chain, hits) in enumerate(self._restored_ready):
+            if req.rid == request_id:
+                # Restored but not admitted: the adopted blocks are
+                # claimed; unclaim them back into the idle LRU.
+                del self._restored_ready[i]
+                self._unclaim_blocks(hits)
                 self.obs.request_end(request_id, outcome, error)
                 return True
         for b, slot in self.slots.items():
@@ -1163,14 +1347,14 @@ class ContinuousBatcher:
         }
 
     def stats(self) -> Dict[str, float]:
-        """Counters, under the JAX package's ``stats()`` names
+        """Counters, under the JAX package's ``stats()`` names and values
         (``insert_dispatches_total`` is the port's: prefill dispatches,
-        one per admitted burst).  The prefix cache and host tier (A11),
-        fused prefill (A9) and the serving mesh (A14) report the values
-        the JAX package reports with them off.  Read by HTTP handler
-        threads while the serving loop owns the batcher: each value is a
-        point-in-time read of single-writer host state, never a device
-        read."""
+        full and suffix).  Fused prefill (A9) and the serving mesh (A14)
+        report the values the JAX package reports with them off.  Read
+        by HTTP handler threads while the serving loop owns the batcher:
+        each value is a point-in-time read of single-writer host state
+        (the digest under its own lock), never a device read."""
+        dg = self.kv_digest.summary()
         out: Dict[str, float] = {} if self.fault_injector is None else (
             dict(self.fault_injector.stats()))
         out.update({
@@ -1183,34 +1367,40 @@ class ContinuousBatcher:
             "drafts_proposed_total": self.drafts_proposed,
             "drafts_accepted_total": self.drafts_accepted,
             "draft_acceptance_rate": self.acceptance_rate(),
-            # A11: the prefix cache, its chain digest and the host tier.
-            "prefix_cached_blocks": 0,
-            "prefix_requests_hit_total": 0,
-            "prefix_blocks_reused_total": 0,
-            "radix_nodes_total": 0,
-            "prefix_hit_tokens_ratio": 0.0,
+            # The prefix cache (kvcache.py): the store's idle resident
+            # blocks, hits, the radix index's size, the share of admitted
+            # prompt tokens served from cached blocks, the host tier's
+            # swap ledger and the chain digest's event ledger.
+            "prefix_cached_blocks": self._store.cached_blocks(),
+            "prefix_requests_hit_total": self.prefix_requests_hit,
+            "prefix_blocks_reused_total": self.prefix_blocks_reused,
+            "radix_nodes_total": self._store.nodes_total(),
+            "prefix_hit_tokens_ratio": (
+                self.prefix_hit_tokens_total
+                / max(1, self.prompt_tokens_total)),
             "host_kv_blocks": self.host_kv_blocks,
-            "host_tier_blocks": 0,
-            "swap_queue_depth": 0,
-            "swap_ins_total": 0,
-            "swap_in_blocks_total": 0,
-            "swap_out_blocks_total": 0,
-            "swap_in_ms_total": 0.0,
-            "swap_failures_total": 0,
-            "kv_digest_version": 0,
-            "kv_digest_loss_version": 0,
-            "kv_publish_events_total": 0,
-            "kv_evict_events_total": 0,
-            "kv_demote_events_total": 0,
-            "kv_restore_events_total": 0,
-            "kv_host_evict_events_total": 0,
+            "host_tier_blocks": self._store.host_blocks(),
+            "swap_queue_depth": len(self._restoring),
+            "swap_ins_total": self.swap_ins_total,
+            "swap_in_blocks_total": self.swap_in_blocks_total,
+            "swap_out_blocks_total": self.swap_out_blocks_total,
+            "swap_in_ms_total": round(self.swap_in_ms_total, 3),
+            "swap_failures_total": self.swap_failures_total,
+            "kv_digest_version": dg["version"],
+            "kv_digest_loss_version": dg["loss_version"],
+            "kv_publish_events_total": dg["publishes_total"],
+            "kv_evict_events_total": dg["evictions_total"],
+            "kv_demote_events_total": dg["demotions_total"],
+            "kv_restore_events_total": dg["restores_total"],
+            "kv_host_evict_events_total": dg["host_evictions_total"],
             "kv_block_bytes": self.block_bytes,
-            "kv_export_blocks_total": 0,
-            "kv_import_blocks_total": 0,
-            "kv_export_events_total": 0,
-            "kv_import_events_total": 0,
-            "kv_handoff_aborted_total": 0,
-            "kv_export_demoted_blocks_total": 0,
+            "kv_export_blocks_total": self.kv_export_blocks_total,
+            "kv_import_blocks_total": self.kv_import_blocks_total,
+            "kv_export_events_total": self.kv_export_events_total,
+            "kv_import_events_total": self.kv_import_events_total,
+            "kv_handoff_aborted_total": self.kv_handoff_aborted_total,
+            "kv_export_demoted_blocks_total": (
+                self.kv_export_demoted_blocks_total),
             # A14: no serving mesh.
             "serve_mesh_data": 1,
             "serve_mesh_tensor": 1,
@@ -1236,6 +1426,43 @@ class ContinuousBatcher:
             "decode_stall_ms_total": 0.0,
         })
         return out
+
+    def kv_debug_json(self, depth: Optional[int] = None,
+                      max_nodes: int = 2048,
+                      since: Optional[int] = None) -> Dict[str, Any]:
+        """The ``GET /debug/kv[?since=V]`` payload (JAX :2640): the chain
+        digest's bounded tree walk plus its summary with this batcher's
+        cache geometry; with ``since``, the digest's journaled events past
+        version V, or the full walk tagged ``"resync": true`` when the
+        journal cannot prove completeness.  Safe from HTTP handler
+        threads: it reads the lock-guarded digest, construction-time
+        geometry and two single-writer token counters."""
+        if since is not None:
+            got = self.kv_digest.events_since(since)
+            if got is not None:
+                events, version = got
+                return {"version": version, "since": since,
+                        "events": events, "summary": self._kv_summary()}
+        out = self.kv_digest.nodes_json(depth=depth, max_nodes=max_nodes)
+        if since is not None:
+            out["resync"] = True
+        out["summary"] = self._kv_summary()
+        return out
+
+    def _kv_summary(self) -> Dict[str, Any]:
+        """The /debug/kv ``summary`` section: the digest's aggregates plus
+        the cache geometry (JAX :2674)."""
+        summary = self.kv_digest.summary()
+        summary.update({
+            "prefix_index": self.prefix_index,
+            "block_size": self.block_size,
+            "block_bytes": self.block_bytes,
+            "total_blocks": self.n_blocks,
+            "host_kv_blocks": self.host_kv_blocks,
+            "prefix_hit_tokens_total": self.prefix_hit_tokens_total,
+            "prompt_tokens_total": self.prompt_tokens_total,
+        })
+        return summary
 
     @torch.no_grad()
     def step(self) -> List[Tuple[int, int, bool]]:
@@ -1375,7 +1602,8 @@ class ContinuousBatcher:
             kind="decode:stock-paged" if stock else "decode",
             k=K, occupancy=len(obs_rids),
             wall_ms=(now_obs - t0_obs) * 1000.0,
-            fetch_ms=(now_obs - tf_obs) * 1000.0, rids=obs_rids,
+            fetch_ms=(now_obs - tf_obs) * 1000.0,
+            swap_inflight=len(self._restoring), rids=obs_rids,
             program="_chunk_scan", flops=cost_fl, bytes_accessed=cost_by,
         )
 
@@ -1536,7 +1764,8 @@ class ContinuousBatcher:
         self.obs.record_dispatch(
             kind="spec", k=1, occupancy=len(live),
             wall_ms=(now_obs - t0_obs) * 1000.0,
-            fetch_ms=(now_obs - tf_obs) * 1000.0, rids=live,
+            fetch_ms=(now_obs - tf_obs) * 1000.0,
+            swap_inflight=len(self._restoring), rids=live,
             program="_spec_round_core", flops=cost_fl,
             bytes_accessed=cost_by,
         )
@@ -1612,7 +1841,8 @@ class ContinuousBatcher:
         self.obs.record_dispatch(
             kind="spec", k=R, occupancy=len(live),
             wall_ms=(now_obs - t0_obs) * 1000.0,
-            fetch_ms=(now_obs - tf_obs) * 1000.0, rids=live,
+            fetch_ms=(now_obs - tf_obs) * 1000.0,
+            swap_inflight=len(self._restoring), rids=live,
             program="_spec_rounds_chunk", flops=cost_fl,
             bytes_accessed=cost_by,
         )
@@ -1677,33 +1907,347 @@ class ContinuousBatcher:
 
     def _fail_slot(self, b: int, device_done: bool = False) -> None:
         """Fail slot ``b``'s request with the non-finite message and free
-        the slot."""
-        rid = self.slots[b].request_id
-        self.failed.append((rid, self._NONFINITE_MSG))
+        the slot.  The request's own prompt blocks are UNPUBLISHED first
+        (JAX :2311): KV written by a dispatch whose logits came back
+        non-finite must never be hit.  Reused hit blocks (the leading
+        ``slot.shared``) hold earlier healthy dispatches' KV and stay
+        published."""
+        slot = self.slots[b]
+        stranded: List[int] = []
+        for blk in slot.blocks[slot.shared:]:
+            stranded.extend(self._store.unpublish(blk))
+        # A radix unpublish drops the node's subtree too; idle retained
+        # blocks stranded by that go back to the free list.
+        self._invalidate_and_free(stranded)
+        self.failed.append((slot.request_id, self._NONFINITE_MSG))
         self.nonfinite_rows_total += 1
-        self.obs.request_end(rid, "failed", self._NONFINITE_MSG)
+        self.obs.request_end(slot.request_id, "failed", self._NONFINITE_MSG)
         self._free_slot(b, device_done=device_done)
 
+    # -- block allocation, retention and the host tier ----------------------
+
+    def _capacity(self) -> int:
+        """Allocatable blocks: truly free + evictable cached prefixes."""
+        return len(self.free_blocks) + self._store.evictable()
+
+    def _demote_block(self, blk: int) -> Dict[str, torch.Tensor]:
+        """Host-tier demotion: copy block ``blk``'s KV (and the draft
+        pool's twin) into an arena slab BEFORE the allocator invalidates
+        its positions (stream order keeps the copy first).  The sweep's
+        one host sync follows (``_sync_demotions``)."""
+        slab = self._arena.take()
+        fetch_slab(self.pool, blk, into=slab)
+        if self.spec:
+            fetch_slab(self.draft_pool, blk, prefix="d_", into=slab)
+        self.swap_out_blocks_total += 1
+        self._demotions_unsynced = True
+        return slab
+
+    def _sync_demotions(self) -> None:
+        """The one host sync of a demotion sweep: the slabs' copies have
+        landed before a swap-in on the side stream (or anyone) reads
+        them.  Counted in ``swap_out_blocks_total`` (per block), never in
+        ``host_syncs_total`` (the decode loop's contract)."""
+        if self._demotions_unsynced and self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        self._demotions_unsynced = False
+
     def _alloc_blocks(self, n: int) -> List[int]:
+        """Pop n blocks, evicting LRU cached-prefix blocks when the free
+        list runs dry (JAX :3601): into the host tier when one is
+        attached (the block's KV demotes and its radix node stays
+        matchable), dropped outright otherwise.  Evicted blocks' positions
+        are invalidated here, after any demotion copy: a block re-purposed
+        for a decode reservation is overwritten only up to the prompt
+        span, and a stale pos >= 0 past it would be attended."""
         self._fault("alloc")
-        assert n <= len(self.free_blocks), "allocation past capacity"
-        out, self.free_blocks = self.free_blocks[:n], self.free_blocks[n:]
+        out: List[int] = []
+        evicted: List[int] = []
+        for _ in range(n):
+            if self.free_blocks:
+                out.append(self.free_blocks.pop(0))
+                continue
+            blk, extra = self._store.pop_evictable(self._demote_block)
+            assert blk is not None, "allocation past capacity"
+            evicted.append(blk)
+            out.append(blk)
+            if extra:
+                # A forced subtree drop (host-LRU victim, stranded
+                # suffix) orphaned more idle blocks: back to the free
+                # list, positions invalidated.
+                self._invalidate_and_free(extra)
+        if evicted:
+            self._invalidate_evicted(evicted)
+        self._sync_demotions()
         return out
 
+    def _invalidate_evicted(self, evicted: List[int]) -> None:
+        """Invalidate re-purposed blocks' pool positions in one write (and
+        the draft pool's), after any demotion copy, which needs them
+        live."""
+        ids = torch.as_tensor(evicted, device=self.device)
+        self.pool.pos[ids] = -1
+        if self.spec:
+            self.draft_pool.pos[ids] = -1
+
+    def demote_idle(self, n: int) -> int:
+        """Demote up to ``n`` idle cached-prefix blocks into the host tier,
+        freeing pool blocks without dropping cache content (JAX :3664):
+        the pressure path does the same lazily in ``_alloc_blocks``; this
+        is the operational lever (the brownout rung's sweep) and the
+        deterministic one for drills.  No-op without a tier; returns the
+        number of blocks demoted."""
+        if self.host_kv_blocks <= 0 or self._store.kind != "radix":
+            return 0
+        count = 0
+        drained: List[int] = []
+        for _ in range(n):
+            if not self._store.evictable():
+                break
+            blk, extra = self._store.pop_evictable(self._demote_block)
+            if blk is None:
+                break
+            drained.append(blk)
+            drained.extend(extra)
+            count += 1
+        # One invalidation and one sync for the whole sweep.
+        self._invalidate_and_free(drained)
+        self._sync_demotions()
+        return count
+
+    def _invalidate_and_free(self, blocks: List[int]) -> None:
+        """Return blocks to the free list with their pool positions
+        invalidated."""
+        if not blocks:
+            return
+        self._invalidate_evicted(blocks)
+        self.free_blocks.extend(blocks)
+
+    # -- prefix export / import ---------------------------------------------
+
+    def resident_chain_keys(self) -> List[List[bytes]]:
+        """Every maximal pool-resident cached chain, as ordered key lists
+        in the ``chain_keys`` schema (JAX :3701): what a drain exports.
+        Host bookkeeping only, on the thread that owns the batcher."""
+        if not self.prefix_cache_enabled:
+            return []
+        return self._store.resident_chains()
+
+    def export_prefix(
+        self, tokens: Optional[Sequence[int]] = None,
+        request_id: Optional[str] = None,
+        *,
+        keys: Optional[Sequence[bytes]] = None,
+        max_bytes: Optional[int] = None,
+        demote_after_export: bool = False,
+    ) -> Tuple[List[bytes], List[Dict[str, torch.Tensor]]]:
+        """The longest pool-resident cached chain prefix of ``tokens`` (or
+        of the chain ``keys``) as host slabs (JAX :3713; the draft pool's
+        twins ride along under speculation), for another batcher's
+        ``import_prefix``.  ``max_bytes`` truncates block-aligned from the
+        root; ``demote_after_export`` demotes the exported chain's idle
+        blocks (``demote_exported``).  Returns ``(chain keys, slabs)``,
+        empty with the prefix cache off or nothing resident.  A blocking
+        copy, on the thread that owns the batcher."""
+        if not self.prefix_cache_enabled:
+            return [], []
+        if keys is None:
+            assert tokens is not None, "export_prefix needs tokens or keys"
+            keys = self._chain_keys(tokens, self.block_size)
+        else:
+            keys = list(keys)
+        blocks = self._match_prefix(keys).blocks
+        if max_bytes is not None and self.block_bytes > 0:
+            blocks = blocks[: max(0, max_bytes // self.block_bytes)]
+        slabs: List[Dict[str, torch.Tensor]] = []
+        for blk in blocks:
+            slab = fetch_slab(self.pool, blk)
+            if self.spec:
+                slab.update(fetch_slab(self.draft_pool, blk, prefix="d_"))
+            slabs.append(slab)
+        self.kv_export_blocks_total += len(slabs)
+        if slabs:
+            self.kv_export_events_total += 1
+        if demote_after_export and slabs:
+            self.demote_exported(keys[: len(slabs)], slabs,
+                                 request_id=request_id)
+        self.obs.annotate("prefix_export", blocks=len(slabs),
+                          request_id=request_id)
+        return list(keys[: len(slabs)]), slabs
+
+    def demote_exported(
+        self, keys: Sequence[bytes],
+        slabs: Optional[Sequence[Dict[str, torch.Tensor]]] = None,
+        request_id: Optional[str] = None,
+    ) -> int:
+        """Demote an exported chain's IDLE blocks to the host tier (or
+        drop idle leaf blocks with no tier) so that a handoff does not
+        leave a second copy in this pool (JAX :3780).  ``slabs``, the
+        export's copies, go into the tier instead of a second copy of the
+        same blocks.  Radix only; claimed blocks never move.  Returns the
+        number of blocks that left the pool."""
+        if not self.prefix_cache_enabled or self._store.kind != "radix":
+            return 0
+        keys = list(keys)
+        slab_by_key = dict(zip(keys, slabs)) if slabs else {}
+
+        def fetch(blk: int) -> Dict[str, torch.Tensor]:
+            node = self._store._by_block.get(blk)
+            slab = slab_by_key.get(node.key) if node is not None else None
+            if slab is not None:
+                self.swap_out_blocks_total += 1
+                return slab
+            return self._demote_block(blk)
+
+        freed = self._store.demote_keys(
+            keys, fetch if self.host_kv_blocks > 0 else None)
+        self.kv_export_demoted_blocks_total += len(freed)
+        self._invalidate_and_free(freed)
+        self._sync_demotions()
+        if freed:
+            self.obs.annotate("prefix_demote_after_export",
+                              blocks=len(freed), request_id=request_id)
+        return len(freed)
+
+    def import_prefix(
+        self, keys: Sequence[bytes],
+        slabs: Sequence[Dict[str, torch.Tensor]],
+        request_id: Optional[str] = None,
+        *,
+        max_bytes: Optional[int] = None,
+        timeout_s: Optional[float] = None,
+    ) -> int:
+        """Land exported slabs in this batcher's pool and publish the
+        chain, so the next admission of those tokens is a prefix hit (JAX
+        :3825): alloc, ``stage_restore`` on the side stream,
+        ``adopt_into_pool``.  Blocks already resident are skipped; the
+        landing truncates to capacity (and ``max_bytes``), block-aligned
+        from the root.  Synchronous; returns the number of blocks landed.
+        Past ``timeout_s`` on the staged copies the import unwinds (fresh
+        blocks freed, nothing published), counts
+        ``kv_handoff_aborted_total`` and raises TimeoutError."""
+        if not self.prefix_cache_enabled or not slabs:
+            return 0
+        keys = list(keys)[: len(slabs)]
+        have = self._store.match(keys).blocks
+        todo = list(slabs)[len(have):len(keys)]
+        if max_bytes is not None and self.block_bytes > 0:
+            todo = todo[: max(0, max_bytes // self.block_bytes)]
+        if not todo:
+            return 0
+        # Claim the matched resident blocks BEFORE allocating: idle
+        # matched blocks are what _alloc_blocks evicts first, and an
+        # evicted-then-republished id would bind the old key to another
+        # chain's KV.
+        self._claim_blocks(have)
+        try:
+            cap = self._capacity()
+            if len(todo) > cap:
+                todo = todo[:cap]
+            if not todo:
+                return 0
+            fresh = self._alloc_blocks(len(todo))
+            staged = stage_restore(todo, fresh, self.n_blocks,
+                                   device=self.device,
+                                   stream=self._side_stream())
+            if timeout_s is not None:
+                deadline = time.monotonic() + timeout_s
+                while not restore_ready(staged):
+                    if time.monotonic() >= deadline:
+                        # The staging tensors belong to the side stream:
+                        # the allocator hands their memory only to later
+                        # work on that stream, behind these copies.
+                        self.kv_handoff_aborted_total += 1
+                        self._invalidate_and_free(fresh)
+                        self.obs.annotate(
+                            "prefix_import_aborted", blocks=len(todo),
+                            request_id=request_id, timeout_s=timeout_s)
+                        raise TimeoutError(
+                            f"prefix import: staged transfer of "
+                            f"{len(todo)} block(s) not ready within "
+                            f"{timeout_s}s (unwound cleanly)")
+                    time.sleep(0.001)
+            wait_restore(staged)
+            adopt_into_pool(self.pool, staged)
+            if self.spec:
+                adopt_into_pool(self.draft_pool, staged, prefix="d_")
+            self._store.publish(keys[: len(have) + len(todo)], have + fresh)
+            # A node mid-swap-in refuses the published copy: its fresh
+            # block stays unkeyed, so free it instead of leaking it.
+            adopted = [b for b in fresh if self._store.is_keyed(b)]
+            self._store.retain(adopted)
+            self._invalidate_and_free([b for b in fresh if b not in adopted])
+            self.kv_import_blocks_total += len(adopted)
+            if adopted:
+                self.kv_import_events_total += 1
+            self.obs.annotate("prefix_import", blocks=len(adopted),
+                              request_id=request_id)
+            return len(adopted)
+        finally:
+            # The matched blocks return to the idle LRU: the claim only
+            # protected them from this call's own allocation.
+            self._unclaim_blocks(have)
+
+    # -- the prefix index's refcount boundary -------------------------------
+
+    # Chain hash per full prompt block, the shared key schema.
+    _chain_keys = staticmethod(chain_keys)
+
+    def _match_prefix(self, keys: List[bytes]) -> MatchResult:
+        """Longest cached chain prefix across all cached chains:
+        ``.blocks`` are the resident hits, a nonempty ``.restore`` names
+        demoted nodes a swap-in could bring back."""
+        return self._store.match(keys)
+
+    def _claim_blocks(self, blocks: List[int]) -> None:
+        self._store.on_claim(blocks)
+        for blk in blocks:
+            self._block_refs[blk] = self._block_refs.get(blk, 0) + 1
+
+    def _unclaim_blocks(self, blocks: List[int]) -> None:
+        """Reverse of ``_claim_blocks`` (a freed slot, an aborted or
+        cancelled swap-in): drop one reference from each block; keyed
+        blocks whose last user this was are retained in the idle LRU (in
+        chain order: the store reverses, so chains evict leaves first),
+        the rest return to the free list with their positions
+        invalidated."""
+        retained: List[int] = []
+        plain: List[int] = []
+        for blk in blocks:
+            refs = self._block_refs.get(blk, 1) - 1
+            if refs > 0:
+                self._block_refs[blk] = refs
+                continue
+            self._block_refs.pop(blk, None)
+            if self.prefix_cache_enabled and self._store.is_keyed(blk):
+                retained.append(blk)
+            else:
+                plain.append(blk)
+        self._store.retain(retained)
+        self._invalidate_and_free(plain)
+
+    def _register_chain(self, blocks: List[int], keys: List[bytes]) -> None:
+        """Publish a request's freshly prefilled full prompt blocks into
+        the prefix index (radix: duplicates keep the existing node's
+        block; exact: a duplicate supersedes, and the old idle blocks are
+        freed here in one batch)."""
+        if not self.prefix_cache_enabled:
+            return
+        self._invalidate_and_free(self._store.publish(keys, blocks))
+
     def _free_slot(self, b: int, device_done: bool = False) -> None:
-        """Free slot ``b``: its blocks return to the free list with their
-        pool positions invalidated (a stale pos >= 0 past a later prompt
-        would be attended).  ``device_done``: the chunk already folded the
-        row out on the device, so no deactivation upload is owed; a
-        host-initiated free (cancel) marks the row dirty."""
+        """Free slot ``b``: keyed blocks with no remaining users are
+        RETAINED for future hits (their positions stay valid), the rest
+        return to the free list with their positions invalidated (a stale
+        pos >= 0 past a later prompt would be attended).  ``device_done``:
+        the chunk already folded the row out on the device, so no
+        deactivation upload is owed; a host-initiated free (cancel) marks
+        the row dirty."""
         slot = self.slots[b]
         assert slot is not None
-        if slot.blocks:
-            ids = torch.as_tensor(slot.blocks, device=self.device)
-            self.pool.pos[ids] = -1
-            if self.spec:
-                self.draft_pool.pos[ids] = -1
-            self.free_blocks.extend(slot.blocks)
+        self._unclaim_blocks(slot.blocks)
+        # Session KV footprint at teardown.
+        self.obs.observe_kv(session_blocks=len(slot.blocks))
         self.slots[b] = None
         self.generators[b] = None
         self.table[b] = self.n_blocks
@@ -1714,6 +2258,20 @@ class ContinuousBatcher:
         self.stop_tab[b, :] = -1
         if not device_done:
             self._dirty_rows.add(b)
+
+    def _suffix_pad(self, n_suffix_tokens: int, n_share: int) -> int:
+        """Padded suffix length for the grouped suffix insert (JAX
+        :4043): round to a block multiple, then bucket the block count to
+        a power of two.  The padding is masked compute, and pool write
+        columns past a row's reservation drop.  The hard bound is the
+        gathered VIEW: its width is blocks_per_slot x block_size and the
+        in-forward cache write starts at fill0 = n_share blocks, so the
+        bucket is clamped to the columns the row has (admissibility
+        guarantees the un-bucketed count fits)."""
+        nb = max(1, -(-n_suffix_tokens // self.block_size))
+        nb_b = pow2_bucket(nb)
+        cap = self.blocks_per_slot - n_share
+        return (min(nb_b, cap) if cap >= nb else nb) * self.block_size
 
     def _set_stop_row(self, b: int, stops: frozenset) -> None:
         """Write slot ``b``'s stop set into the stop table's host mirror,
@@ -1735,20 +2293,104 @@ class ContinuousBatcher:
             req.rid)
         return torch.Generator(device=self.device).manual_seed(seed)
 
+    def _side_stream(self):
+        """The CUDA stream swap-in copies run on (None on the CPU), made
+        on first use by the thread that owns the batcher."""
+        if self.device.type != "cuda":
+            return None
+        if self._swap_stream is None:
+            self._swap_stream = torch.cuda.Stream(device=self.device)
+        return self._swap_stream
+
+    def _start_timer(self):
+        """(host clock, obs clock, start event on the card or None) of a
+        dispatch that no fetch ends (an insert, a suffix insert, an
+        adopt)."""
+        ev0 = None
+        if self.device.type == "cuda":
+            ev0 = torch.cuda.Event(enable_timing=True)
+            ev0.record()
+        return time.monotonic(), self.obs.now_ms(), ev0
+
+    def _record_timed(self, timer, rec: Dict[str, Any]) -> None:
+        """Record a dispatch started under ``timer``: on the card its
+        device time between CUDA events, once the next fetch has passed
+        them (``_settle_inserts``); on the CPU, where it ran as it was
+        called, its wall time now."""
+        t0, start, ev0 = timer
+        if ev0 is None:
+            self.obs.record_dispatch(
+                wall_ms=(time.monotonic() - t0) * 1000.0, **rec)
+            return
+        ev1 = torch.cuda.Event(enable_timing=True)
+        ev1.record()
+        self._unsettled.append((rec, start, ev0, ev1))
+
+    def _install_row(self, b: int, req: _Request, blocks: List[int],
+                     generator, shared: int = 0) -> None:
+        """Slot ``b``'s host mirrors for an admitted request (its prompt
+        prefilled, its first token pending on the device)."""
+        self.pos[b] = len(req.tokens)
+        self.fill[b] = _round_up(len(req.tokens), self.block_size)
+        self.active[b] = True
+        self.table[b] = self.n_blocks
+        self.table[b, :len(blocks)] = blocks
+        self.n_alloc[b] = len(blocks)
+        self.temp_arr[b] = req.temperature
+        self.top_p_arr[b] = req.top_p
+        self.top_k_arr[b] = req.top_k
+        self.remaining[b] = req.max_new
+        self._set_stop_row(b, req.stops)
+        self._dirty_rows.add(b)
+        self.generators[b] = generator
+        self.slots[b] = _Slot(
+            request_id=req.rid, emitted=[], max_new=req.max_new,
+            stop_tokens=req.stops, blocks=blocks, shared=shared,
+        )
+
     def _admit(self) -> None:
+        """Admit queued requests (JAX ``_admit`` without the fused
+        path): in-flight swap-ins are polled (never blocking while a row
+        decodes) and completed ones admitted first, FIFO; then the classic
+        admission of the queue."""
+        self._poll_restores()
+        self._admit_restored_ready()
+        self._admit_classic()
+
+    def _admit_classic(self) -> None:
         """Admit queued requests into free slots (JAX
-        ``_admit_classic_impl`` without prefix hits or restores).  A burst
-        of admissible requests shares ONE [k', P] prefill dispatch (k' = k
-        rounded up to a power of two, P = the group's longest block-padded
-        prompt, its block count rounded up to a power of two); FIFO
-        head-of-line blocking on block reservations."""
+        ``_admit_classic_impl``).  A burst of admissible requests without
+        a prefix hit shares ONE [k', P] prefill dispatch
+        (``_insert_batch``); requests whose leading full blocks hit the
+        prefix cache are admitted through ``_paged_suffix_insert``, grouped
+        by padded suffix length, one dispatch a group.  A queue HEAD whose
+        matched prefix includes host-tier blocks parks in ``restoring``
+        instead, while later entries keep admitting.  FIFO head-of-line
+        blocking on block reservations (the budget is the full
+        reservation, hits included)."""
         BLK = self.block_size
         while True:
             free_slots = [b for b, s in self.slots.items() if s is None]
             if not free_slots or not self.queue:
                 return
-            picked: List[_Request] = []
-            budget = len(self.free_blocks)
+            # Only a radix store with a tier can report demoted hits; the
+            # head's (chain, hits) carries into the pick loop.
+            head_match = None
+            if self.host_kv_blocks > 0 and self._store.kind == "radix":
+                while self.queue:
+                    req = self.queue[0]
+                    chain0 = (self._chain_keys(req.tokens, BLK)
+                              if self.prefix_cache_enabled else [])
+                    m0 = self._match_prefix(chain0)
+                    if not m0.restore:
+                        head_match = (req.rid, chain0, m0.blocks)
+                        break
+                    if req.blocks_needed(BLK) > self._capacity():
+                        return  # FIFO: wait for capacity
+                    del self.queue[0]
+                    self._begin_restore(req, chain0, m0)
+            picked: List[Tuple[_Request, List[bytes], List[int]]] = []
+            budget = self._capacity()
             for req in self.queue:
                 if len(picked) >= len(free_slots):
                     break
@@ -1756,125 +2398,375 @@ class ContinuousBatcher:
                 if need > budget:
                     break  # head-of-line blocking: wait for capacity
                 budget -= need
-                picked.append(req)
+                if head_match is not None and head_match[0] == req.rid:
+                    chain, hits = head_match[1], head_match[2]
+                else:
+                    chain = (self._chain_keys(req.tokens, BLK)
+                             if self.prefix_cache_enabled else [])
+                    hits = self._match_prefix(chain).blocks
+                # Claim hits at selection: a later allocation of this
+                # round must not evict them.
+                self._claim_blocks(hits)
+                picked.append((req, chain, hits))
             if not picked:
                 return
             del self.queue[:len(picked)]
-            k = len(picked)
-            kb = pow2_bucket(k)
-            nb = min(pow2_bucket(max(_round_up(len(r.tokens), BLK)
-                                     for r in picked) // BLK),
-                     self.blocks_per_slot)
-            P = nb * BLK
-            pt = np.zeros((kb, P), np.int32)
-            pm = np.zeros((kb, P), np.int32)
-            bid = np.full((kb, nb), self.n_blocks, np.int32)
-            pol = np.zeros((kb, 3), np.float32)  # temperature, top_p, top_k
-            pol[:, 1] = 1.0
-            generators: List[Optional[torch.Generator]] = [None] * kb
-            row_blocks = []
-            for i, req in enumerate(picked):
-                blocks = self._alloc_blocks(req.blocks_needed(BLK))
-                row_blocks.append(blocks)
-                n = len(req.tokens)
-                self.prompt_tokens_total += n
-                pt[i, :n] = req.tokens
-                pm[i, :n] = 1
-                span = _round_up(n, BLK) // BLK
-                bid[i, :span] = blocks[:span]
-                pol[i] = (req.temperature, req.top_p, req.top_k)
-                generators[i] = self._generator(req)
-            # One upload for the admission: prompts, masks and policies.
-            up = torch.from_numpy(np.concatenate(
-                [pt, pm, pol.view(np.int32)], axis=1)).to(self.device)
-            temps = up[:, 2 * P].view(torch.float32)
-            top_ps = up[:, 2 * P + 1].view(torch.float32)
-            top_ks = up[:, 2 * P + 2].view(torch.float32).to(torch.int32)
-            # Host mirror of the insert's attention choice (the model's
-            # "auto" rule per chunk, and splash_eligible over the chunk
-            # geometry): the features and sites of this dispatch.
-            chunk = (self.prefill_chunk if self.prefill_chunk
-                     and self.prefill_chunk < P else P)
-            impl = self.config.attn_impl
-            flash = impl == "flash" or (impl == "auto"
-                                        and chunk > FLASH_MIN_SEQ)
-            splash_used = flash and splash_eligible(
-                self.config, batch=kb, q_len=chunk, kv_len=P,
-                chunk_offset=0, quantized=self.pool.quantized)
-            kernels = [PREFILL_KERNELS["flash"]] if flash else []
-            if splash_used:
-                kernels.append(PREFILL_KERNELS["splash"])
-            for req in picked:
-                self.obs.begin_span(req.rid, "prefilling")
-            cost_fl, cost_by = self._dispatch_cost(
-                "_paged_insert", lambda: self._cost.insert(
-                    [len(r.tokens) for r in picked], self.prefill_chunk))
-            t0_obs = time.monotonic()
-            start_obs = self.obs.now_ms()
-            self._open_dispatch("insert", kernels)
-            self._admit_dispatches += 1
-            timed = self.device.type == "cuda"
-            if timed:
-                ev0 = torch.cuda.Event(enable_timing=True)
-                ev0.record()
-            taus = _paged_insert(
-                self.params, self.pool, bid, up[:, :P], up[:, P:2 * P].bool(),
-                generators, temps, top_ps, top_ks, config=self.config,
+            slot_iter = iter(free_slots)
+            groups: Dict[int, List[Tuple[_Request, List[bytes],
+                                         List[int]]]] = {}
+            for req, chain, hits in picked:
+                if hits:
+                    T = self._suffix_pad(len(req.tokens) - len(hits) * BLK,
+                                         len(hits))
+                    groups.setdefault(T, []).append((req, chain, hits))
+            for grp in groups.values():
+                self._admit_shared_group(grp, [next(slot_iter) for _ in grp])
+            batch = [(r, c) for r, c, h in picked if not h]
+            if batch:
+                self._insert_batch(batch, [next(slot_iter) for _ in batch])
+
+    def _insert_batch(self, batch: List[Tuple[_Request, List[bytes]]],
+                      slot_ids: List[int]) -> None:
+        """One cold [k', P] prefill for requests without a prefix hit (k'
+        = k rounded up to a power of two, P = the group's longest
+        block-padded prompt, its block count rounded up to a power of
+        two); their full prompt blocks join the prefix index."""
+        BLK = self.block_size
+        k = len(batch)
+        kb = pow2_bucket(k)
+        nb = min(pow2_bucket(max(_round_up(len(r.tokens), BLK)
+                                 for r, _ in batch) // BLK),
+                 self.blocks_per_slot)
+        P = nb * BLK
+        pt = np.zeros((kb, P), np.int32)
+        pm = np.zeros((kb, P), np.int32)
+        bid = np.full((kb, nb), self.n_blocks, np.int32)
+        pol = np.zeros((kb, 3), np.float32)  # temperature, top_p, top_k
+        pol[:, 1] = 1.0
+        generators: List[Optional[torch.Generator]] = [None] * kb
+        row_blocks = []
+        for i, (req, _) in enumerate(batch):
+            need = req.blocks_needed(BLK)
+            blocks = self._alloc_blocks(need)
+            row_blocks.append(blocks)
+            n = len(req.tokens)
+            self.prompt_tokens_total += n
+            self.obs.request_kv(req.rid, blocks_held=need,
+                                prefix_hit_tokens=0)
+            self.obs.observe_kv(hit_depth_tokens=0)
+            pt[i, :n] = req.tokens
+            pm[i, :n] = 1
+            span = _round_up(n, BLK) // BLK
+            bid[i, :span] = blocks[:span]
+            pol[i] = (req.temperature, req.top_p, req.top_k)
+            generators[i] = self._generator(req)
+        # One upload for the admission: prompts, masks and policies.
+        up = torch.from_numpy(np.concatenate(
+            [pt, pm, pol.view(np.int32)], axis=1)).to(self.device)
+        temps = up[:, 2 * P].view(torch.float32)
+        top_ps = up[:, 2 * P + 1].view(torch.float32)
+        top_ks = up[:, 2 * P + 2].view(torch.float32).to(torch.int32)
+        # Host mirror of the insert's attention choice (the model's
+        # "auto" rule per chunk, and splash_eligible over the chunk
+        # geometry): the features and sites of this dispatch.
+        chunk = (self.prefill_chunk if self.prefill_chunk
+                 and self.prefill_chunk < P else P)
+        impl = self.config.attn_impl
+        flash = impl == "flash" or (impl == "auto"
+                                    and chunk > FLASH_MIN_SEQ)
+        splash_used = flash and splash_eligible(
+            self.config, batch=kb, q_len=chunk, kv_len=P,
+            chunk_offset=0, quantized=self.pool.quantized)
+        kernels = [PREFILL_KERNELS["flash"]] if flash else []
+        if splash_used:
+            kernels.append(PREFILL_KERNELS["splash"])
+        for req, _ in batch:
+            self.obs.begin_span(req.rid, "prefilling")
+        cost_fl, cost_by = self._dispatch_cost(
+            "_paged_insert", lambda: self._cost.insert(
+                [len(r.tokens) for r, _ in batch], self.prefill_chunk))
+        timer = self._start_timer()
+        self._open_dispatch("insert", kernels)
+        self._admit_dispatches += 1
+        taus = _paged_insert(
+            self.params, self.pool, bid, up[:, :P], up[:, P:2 * P].bool(),
+            generators, temps, top_ps, top_ks, config=self.config,
+            prefill_chunk=self.prefill_chunk,
+        )
+        if self.spec:
+            # The draft pool over the same blocks; its greedy first
+            # tokens are dropped (the target picks tau, and a sampled
+            # request's generator is drawn by the target insert only).
+            _paged_insert(
+                self.draft_params, self.draft_pool, bid, up[:, :P],
+                up[:, P:2 * P].bool(), [None] * kb,
+                torch.zeros_like(temps), torch.ones_like(top_ps),
+                torch.zeros_like(top_ks), config=self.draft_config,
                 prefill_chunk=self.prefill_chunk,
             )
-            if self.spec:
-                # The draft pool over the same blocks; its greedy first
-                # tokens are dropped (the target picks tau, and a sampled
-                # request's generator is drawn by the target insert only).
-                _paged_insert(
-                    self.draft_params, self.draft_pool, bid, up[:, :P],
-                    up[:, P:2 * P].bool(), [None] * kb,
-                    torch.zeros_like(temps), torch.ones_like(top_ps),
-                    torch.zeros_like(top_ks), config=self.draft_config,
-                    prefill_chunk=self.prefill_chunk,
-                )
-            slot_ids = free_slots[:k]
-            self.tau[torch.as_tensor(slot_ids, device=self.device)] = taus[:k]
-            # No fetch ends the insert (JAX fetches its prompt lengths
-            # here): its first tokens stay on the device for the next
-            # chunk, whose launches the host enqueues while the insert
-            # runs.  So on the card the insert is timed between CUDA
-            # events and recorded once the next fetch has passed it
-            # (_settle_inserts); on the CPU it ran as it was called.  A
-            # launch error is raised by the launch itself, while
-            # ``last_dispatch_features`` names the insert.
-            rec = dict(
-                kind="insert:splash" if splash_used else "insert", k=k,
-                occupancy=sum(s is not None for s in self.slots.values()),
-                prefill_tokens=sum(len(r.tokens) for r in picked),
-                rids=[r.rid for r in picked], program="_paged_insert",
-                flops=cost_fl, bytes_accessed=cost_by,
+        self.tau[torch.as_tensor(slot_ids, device=self.device)] = taus[:k]
+        # No fetch ends the insert (JAX fetches its prompt lengths here):
+        # its first tokens stay on the device for the next chunk, whose
+        # launches the host enqueues while the insert runs.  A launch
+        # error is raised by the launch itself, while
+        # ``last_dispatch_features`` names the insert.
+        self._record_timed(timer, dict(
+            kind="insert:splash" if splash_used else "insert", k=k,
+            occupancy=sum(s is not None for s in self.slots.values()),
+            prefill_tokens=sum(len(r.tokens) for r, _ in batch),
+            swap_inflight=len(self._restoring),
+            rids=[r.rid for r, _ in batch], program="_paged_insert",
+            flops=cost_fl, bytes_accessed=cost_by,
+        ))
+        for i, (req, chain) in enumerate(batch):
+            b = slot_ids[i]
+            blocks = row_blocks[i]
+            self._install_row(b, req, blocks, generators[i])
+            # Every block now has a user; the freshly prefilled full
+            # prompt blocks join the prefix index.
+            self._claim_blocks(blocks)
+            self._register_chain(blocks[:len(chain)], chain)
+            self.obs.begin_span(req.rid, "decoding")
+
+    def _admit_shared_group(
+        self,
+        grp: List[Tuple[_Request, List[bytes], List[int]]],
+        slots: List[int],
+    ) -> None:
+        """Admit a group of prefix-cache-hit requests sharing one padded
+        suffix length (JAX :4126): reuse the cached blocks (claimed by
+        the caller) and prefill only the suffixes, one dispatch for the
+        group (per-row ``fill0`` offsets differ freely).  Each request's
+        own full prompt blocks extend the published chain, so a follow-up
+        with a longer shared prefix hits deeper."""
+        bs = self.block_size
+        k = len(grp)
+        kb = pow2_bucket(k)
+        T = self._suffix_pad(len(grp[0][0].tokens) - len(grp[0][2]) * bs,
+                             len(grp[0][2]))
+        st = np.zeros((kb, T), np.int32)
+        sm = np.zeros((kb, T), np.int32)
+        table_rows = np.full((kb, self.blocks_per_slot), self.n_blocks,
+                             np.int32)
+        n_alloc_arr = np.zeros((kb,), np.int32)
+        fill0s = np.zeros((kb,), np.int32)
+        pol = np.zeros((kb, 3), np.float32)  # temperature, top_p, top_k
+        pol[:, 1] = 1.0
+        generators: List[Optional[torch.Generator]] = [None] * kb
+        row_blocks: List[List[int]] = []
+        row_fresh: List[List[int]] = []
+        for i, (req, chain, hits) in enumerate(grp):
+            n_share = len(hits)
+            L0 = n_share * bs
+            fresh = self._alloc_blocks(req.blocks_needed(bs) - n_share)
+            blocks = hits + fresh
+            row_blocks.append(blocks)
+            row_fresh.append(fresh)
+            suffix = req.tokens[L0:]
+            st[i, :len(suffix)] = suffix
+            sm[i, :len(suffix)] = 1
+            table_rows[i, :len(blocks)] = blocks
+            n_alloc_arr[i] = len(blocks)
+            fill0s[i] = L0
+            pol[i] = (req.temperature, req.top_p, req.top_k)
+            generators[i] = self._generator(req)
+        # One upload: the suffixes, masks, tables, offsets and policies.
+        MB = self.blocks_per_slot
+        up = torch.from_numpy(np.concatenate(
+            [st, sm, table_rows, n_alloc_arr[:, None], fill0s[:, None],
+             pol.view(np.int32)], axis=1)).to(self.device)
+        o = 2 * T + MB
+        tables, n_alloc_t, fill0_t = up[:, 2 * T:o], up[:, o], up[:, o + 1]
+        temps = up[:, o + 2].view(torch.float32)
+        top_ps = up[:, o + 3].view(torch.float32)
+        top_ks = up[:, o + 4].view(torch.float32).to(torch.int32)
+        # No attention kernel here whatever T is: the gathered view
+        # carries PER-ROW cache offsets, which runs forward()'s xla path
+        # (JAX :4167).  Claiming flash would fire the wrong fault site
+        # and credit a probing kernel with a success it never ran.
+        for req, _, _ in grp:
+            self.obs.begin_span(req.rid, "prefilling")
+        cost_fl, cost_by = self._dispatch_cost(
+            "_paged_suffix_insert", lambda: self._cost.forward(
+                [(len(h) * bs, len(r.tokens) - len(h) * bs)
+                 for r, _, h in grp], k))
+        timer = self._start_timer()
+        self.last_dispatch_features = ("prefix_cache",)
+        self.last_step_features.add("prefix_cache")
+        self._fault("suffix_insert")
+        self._admit_dispatches += 1
+        suffix, mask = up[:, :T], up[:, T:2 * T].bool()
+        taus = _paged_suffix_insert(
+            self.params, self.pool, tables, n_alloc_t, fill0_t, suffix, mask,
+            generators, temps, top_ps, top_ks, config=self.config,
+            prefill_chunk=self.prefill_chunk,
+        )
+        if self.spec:
+            # The draft pool: the shared blocks hold the DRAFT model's KV
+            # for the same tokens, so only the suffixes run here too; its
+            # sampled tokens are dropped.
+            _paged_suffix_insert(
+                self.draft_params, self.draft_pool, tables, n_alloc_t,
+                fill0_t, suffix, mask, [None] * kb, torch.zeros_like(temps),
+                torch.ones_like(top_ps), torch.zeros_like(top_ks),
+                config=self.draft_config, prefill_chunk=self.prefill_chunk,
             )
-            if timed:
-                ev1 = torch.cuda.Event(enable_timing=True)
-                ev1.record()
-                self._unsettled.append((rec, start_obs, ev0, ev1))
-            else:
-                self.obs.record_dispatch(
-                    wall_ms=(time.monotonic() - t0_obs) * 1000.0, **rec)
-            for i, req in enumerate(picked):
-                b = slot_ids[i]
-                blocks = row_blocks[i]
-                self.pos[b] = len(req.tokens)
-                self.fill[b] = _round_up(len(req.tokens), BLK)
-                self.active[b] = True
-                self.table[b] = self.n_blocks
-                self.table[b, :len(blocks)] = blocks
-                self.n_alloc[b] = len(blocks)
-                self.temp_arr[b] = req.temperature
-                self.top_p_arr[b] = req.top_p
-                self.top_k_arr[b] = req.top_k
-                self.remaining[b] = req.max_new
-                self._set_stop_row(b, req.stops)
-                self._dirty_rows.add(b)
-                self.generators[b] = generators[i]
-                self.slots[b] = _Slot(
-                    request_id=req.rid, emitted=[], max_new=req.max_new,
-                    stop_tokens=req.stops, blocks=blocks,
-                )
-                self.obs.begin_span(req.rid, "decoding")
+        self.tau[torch.as_tensor(slots, device=self.device)] = taus[:k]
+        self._record_timed(timer, dict(
+            kind="suffix_insert", k=k,
+            occupancy=sum(s is not None for s in self.slots.values()),
+            prefill_tokens=sum(len(r.tokens) - len(h) * bs
+                               for r, _, h in grp),
+            swap_inflight=len(self._restoring),
+            rids=[r.rid for r, _, _ in grp],
+            program="_paged_suffix_insert", flops=cost_fl,
+            bytes_accessed=cost_by,
+        ))
+        for i, (req, chain, hits) in enumerate(grp):
+            b = slots[i]
+            blocks = row_blocks[i]
+            n_share = len(hits)
+            self._install_row(b, req, blocks, generators[i], shared=n_share)
+            self._claim_blocks(row_fresh[i])
+            # Publish the FULL chain: the hit prefix re-publishes as a
+            # no-op and parents the fresh nodes correctly.
+            self._register_chain(blocks[:len(chain)], chain)
+            self.prefix_requests_hit += 1
+            self.prefix_blocks_reused += n_share
+            self.prompt_tokens_total += len(req.tokens)
+            self.prefix_hit_tokens_total += n_share * bs
+            self.obs.begin_span(req.rid, "decoding")
+            self.obs.request_kv(req.rid, blocks_held=len(blocks),
+                                prefix_hit_tokens=n_share * bs)
+            self.obs.observe_kv(hit_depth_tokens=n_share * bs)
+
+    # -- host-tier swap-ins (the ``restoring`` admission state) -------------
+
+    def _begin_restore(self, req: _Request, chain: List[bytes],
+                       match: MatchResult) -> bool:
+        """Start an async swap-in for a request whose matched prefix
+        includes demoted blocks (JAX :4336): claim the path's resident
+        blocks, pin the demoted nodes, allocate their fresh pool blocks,
+        and copy the slabs into staging tensors on the side stream; park
+        the request in ``restoring``.  Nothing touches the pool here, so
+        decode chunks dispatched while the copies fly never wait on them.
+
+        Fault site ``kv_swap`` fires before the copy; an injected fault
+        (or injected allocation OOM) fails ONLY this request (claims
+        released, fresh blocks returned, nodes unpinned and host-resident
+        again) and returns False."""
+        resident = [n.block for n in match.path if n.block is not None]
+        self._claim_blocks(resident)
+        self._store.pin_restoring(match.restore)
+        fresh: List[int] = []
+        try:
+            self._fault("kv_swap")
+            fresh = self._alloc_blocks(len(match.restore))
+            staged = stage_restore(
+                [n.host for n in match.restore], fresh, self.n_blocks,
+                device=self.device, stream=self._side_stream())
+        except InjectedFault as e:
+            self._store.unpin_restoring(match.restore)
+            self._unclaim_blocks(resident)
+            if fresh:
+                self._invalidate_and_free(fresh)
+            msg = (f"kv swap-in failed: {e} (request aborted; host-tier "
+                   f"blocks unpinned, server healthy)")
+            self.failed.append((req.rid, msg))
+            self.swap_failures_total += 1
+            self.obs.request_end(req.rid, "failed", msg)
+            return False
+        self._claim_blocks(fresh)
+        self._restoring.append(_Restore(
+            req=req, chain=chain, path=match.path, restore=match.restore,
+            resident=resident, fresh=fresh, staged=staged,
+            t0=time.monotonic(),
+        ))
+        self.swap_ins_total += 1
+        self.obs.begin_span(req.rid, "restoring")
+        self.obs.request_kv(req.rid, evictions_suffered=len(match.restore))
+        return True
+
+    def _abort_restore(self, r: _Restore) -> None:
+        """Unwind an in-flight swap-in (cancel, broken path): wait for its
+        copies (their staging and pinned memory must outlive them), then
+        release every claim (the resident hits and the fresh blocks), and
+        the nodes fall back to host residency; nothing reached the
+        pool."""
+        wait_restore(r.staged)
+        self._store.unpin_restoring(r.restore)
+        self._unclaim_blocks(r.resident)
+        self._unclaim_blocks(r.fresh)
+
+    def _poll_restores(self) -> None:
+        """Advance in-flight swap-ins without stalling decode (JAX
+        :4408): readiness is the copy event's non-blocking query; only
+        when no row is decoding (nobody to stall) does the poll wait for
+        the copy.  A ready swap-in pays ONE adoption scatter on the main
+        stream (both pools under speculation) and moves the request to
+        ``_restored_ready``."""
+        if not self._restoring:
+            return
+        idle = not bool(np.any(self.active))
+        for r in list(self._restoring):
+            r.polls += 1
+            # A concurrent non-finite subtree drop may have severed the
+            # matched path while the copies flew: its KV is suspect.
+            # Unwind and requeue the request at the head: it re-admits
+            # through a clean cold prefill.
+            broken = any(
+                (not n.restoring) if n in r.restore else (n.block is None)
+                for n in r.path)
+            if broken:
+                self._restoring.remove(r)
+                self._abort_restore(r)
+                self.queue.insert(0, r.req)
+                self.obs.begin_span(r.req.rid, "queued", note="swap aborted")
+                continue
+            ready = restore_ready(r.staged)
+            if not ready and idle:
+                wait_restore(r.staged)
+                ready = True
+            if not ready or r.polls <= self.swap_poll_min:
+                continue
+            # A device-to-device scatter: it reads the staging tensors and
+            # writes as many bytes into the pool.
+            cost_fl, cost_by = self._dispatch_cost(
+                "_adopt", lambda: (0.0, 2.0 * r.staged.nbytes))
+            timer = self._start_timer()
+            adopt_into_pool(self.pool, r.staged)
+            if self.spec:
+                adopt_into_pool(self.draft_pool, r.staged, prefix="d_")
+            self._store.complete_restore(r.restore, r.fresh)
+            self.swap_in_blocks_total += len(r.fresh)
+            swap_ms = (time.monotonic() - r.t0) * 1000.0
+            self.swap_in_ms_total += swap_ms
+            self._restoring.remove(r)
+            self._restored_ready.append(
+                (r.req, r.chain, [n.block for n in r.path]))
+            self.obs.record_swap_in(swap_ms, len(r.fresh))
+            self.obs.request_kv(r.req.rid, swap_in_bytes=r.staged.nbytes)
+            self._record_timed(timer, dict(
+                kind="adopt", k=len(r.fresh),
+                occupancy=sum(s is not None for s in self.slots.values()),
+                swap_inflight=len(self._restoring), rids=[r.req.rid],
+                program="_adopt",
+                flops=cost_fl, bytes_accessed=cost_by,
+            ))
+            self.obs.begin_span(r.req.rid, "queued", note="restored")
+
+    def _admit_restored_ready(self) -> None:
+        """Admit completed swap-ins as plain prefix hits (their path
+        blocks are already claimed), one suffix-insert dispatch each,
+        FIFO; each still needs a free slot and capacity for the rest of
+        its reservation."""
+        while self._restored_ready:
+            req, chain, hits = self._restored_ready[0]
+            free = [b for b, s in self.slots.items() if s is None]
+            if not free:
+                return
+            if (req.blocks_needed(self.block_size) - len(hits)
+                    > self._capacity()):
+                return
+            self._restored_ready.pop(0)
+            self._admit_shared_group([(req, chain, hits)], [free[0]])

@@ -130,11 +130,12 @@ def test_serve_matches_jax(ckpts, monkeypatch, capsys):
                 capsys, stdin)
     got = _run(prun.main, ["--ckpt-dir", str(pdir), *argv, "--device",
                            "cpu"], monkeypatch, capsys, stdin)
-    # JAX's defaults ask for the prefix cache and fused prefill: one line
-    # says the port serves without them.
+    # JAX's defaults ask for the prefix cache and fused prefill: the port
+    # serves with the prefix cache, and one line says it serves without
+    # fused prefill.
     notes = [ln for ln in got.splitlines()
              if ln.startswith("serve_options_not_ported")]
-    assert len(notes) == 1 and "A11" in notes[0] and "A9" in notes[0]
+    assert len(notes) == 1 and "A11" not in notes[0] and "A9" in notes[0]
     assert sorted(_completions(got, "served")) == sorted(
         _completions(want, "served"))
     assert sorted(pseen) == sorted(jseen) and len(pseen) == len(PROMPTS)
@@ -231,15 +232,22 @@ def test_http_fault_flag_reaches_the_server(ckpts, monkeypatch, capsys):
     (["--serve-mesh", "1,2"], "A14"),
     (["--tensor", "2"], "A14"),
     (["--data", "2", "--tensor", "1"], "A14"),
-    (["--host-kv-blocks", "1"], "A11"),
+    # The host tier is ported (ROADMAP A11): the flag is refused only
+    # off the radix index, with the JAX CLI's message.
+    (["--host-kv-blocks", "1", "--prefix-index", "exact"], None),
 ], ids=["logprobs", "replicas", "autoscale", "roles",
         "serve_mesh", "tensor", "data", "host_kv"])
 def test_unported_flags_exit_naming_their_item(tmp_path, monkeypatch, argv,
                                                item):
     monkeypatch.setattr(sys, "argv", ["run", "--ckpt-dir", str(tmp_path),
                                       "--byte-tokenizer", *argv])
-    with pytest.raises(SystemExit, match=f"not ported \\(ROADMAP {item}\\)"):
+    match = (f"not ported \\(ROADMAP {item}\\)" if item is not None
+             else "--host-kv-blocks requires --prefix-index radix")
+    with pytest.raises(SystemExit, match=match):
         prun.main()
+    if item is None:  # JAX's CLI refuses the same argv the same way
+        with pytest.raises(SystemExit, match=match):
+            jrun.main()
 
 
 def test_fault_env_var_exits_naming_a7(tmp_path, monkeypatch):

@@ -96,8 +96,7 @@ def _batcher(stack, pkg, **kw):
     kw = dict(dict(n_slots=2, max_len=64, decode_chunk=4), **kw)
     stops = tuple(sorted(stack.tok[pkg].stop_tokens))
     if pkg == "jax":
-        return JBatcher(stack.jp, stack.jc, prefix_cache=False,
-                        stop_tokens=stops, **kw)
+        return JBatcher(stack.jp, stack.jc, stop_tokens=stops, **kw)
     config = kw.pop("config", stack.pc)
     return ptl.ContinuousBatcher(stack.pp, config, device="cpu",
                                  stop_tokens=stops, **kw)
@@ -223,7 +222,7 @@ def test_healthz_keys_match_jax(served):
                                served["port"]["health"])
     assert js == ps == 200 and ph["ok"] is True
     assert keys(ph) == keys(jh)
-    assert ph["kv"]["prefix_index"] == "off"
+    assert ph["kv"]["prefix_index"] == jh["kv"]["prefix_index"] == "radix"
     assert ph["replica"]["serve_mesh"] == jh["replica"]["serve_mesh"]
     assert ph["features"].keys() == jh["features"].keys()
 
@@ -324,8 +323,7 @@ def test_refusal_statuses(stack, pkg):
 
 def test_unported_debug_endpoints_answer_501(stack):
     with _server(stack, "port") as srv:
-        for method, path, item in (("GET", "/debug/kv", "A11"),
-                                   ("POST", "/debug/profiler", "A16"),
+        for method, path, item in (("POST", "/debug/profiler", "A16"),
                                    ("GET", "/debug/profile/summary",
                                     "A16")):
             status, body, _ = _request(
@@ -333,6 +331,13 @@ def test_unported_debug_endpoints_answer_501(stack):
                 {"action": "start"} if method == "POST" else None)
             assert status == 501, path
             assert f"not ported (ROADMAP {item})" in body["error"]
+        # /debug/kv is ported (ROADMAP A11): an idle store's digest walk,
+        # and with ?since= its (empty) journal.
+        status, body, _ = _request(srv.address, "/debug/kv")
+        assert status == 200 and body["nodes"] == []
+        assert body["summary"]["prefix_index"] == "radix"
+        status, body, _ = _request(srv.address, "/debug/kv?since=0")
+        assert status == 200 and body["events"] == []
 
 
 # ---------------------------------------------------------------------------

@@ -319,16 +319,36 @@ UNPORTED = [
     (dict(mesh=object()), "A14"),
     (dict(logprobs=True), "A17"),
     (dict(prefill_budget=32), "A9"),
-    (dict(host_kv_blocks=4), "A11"),
-    (dict(prefix_cache=True, prefix_index="radix"), "A11"),
+    # Ported with the prefix cache and the host tier (ROADMAP A11): None
+    # marks a case that builds and serves.
+    (dict(host_kv_blocks=4), None),
+    (dict(prefix_cache=True, prefix_index="radix"), None),
 ]
 
 
 @pytest.mark.parametrize("kw,item", UNPORTED,
                          ids=[next(iter(kw)) for kw, _ in UNPORTED])
 def test_unported_arguments_raise(model, kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        _batcher(model, n_slots=1, max_len=64, **kw)
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=item):
+            _batcher(model, n_slots=1, max_len=64, **kw)
+        return
+    # The same prompt twice: the second admission hits the cached chain
+    # (2 full blocks of 4) and emits the same tokens; with a tier, the
+    # chain demoted in between comes back through a swap-in first.
+    tier = bool(kw.get("host_kv_blocks"))
+    cb = _batcher(model, n_slots=1, max_len=64, block_size=4, **kw)
+    prompt = list(range(3, 13))
+    cb.submit(prompt, max_new_tokens=6)
+    cold = cb.run_to_completion()
+    assert cb.demote_idle(8) == (2 if tier else 0)
+    cb.submit(prompt, max_new_tokens=6)
+    hit = cb.run_to_completion()
+    st = cb.stats()
+    assert list(hit.values()) == list(cold.values())
+    assert st["prefix_requests_hit_total"] == 1
+    assert st["prefix_blocks_reused_total"] == 2
+    assert st["swap_ins_total"] == (1 if tier else 0)
 
 
 # The kernel-selection arguments (ported with ops/kernels.py): each builds
