@@ -400,6 +400,61 @@ kernel).  Two phases after ``http_drill``:
   ``prefix_cache`` on the card; ``kv_swap`` never leaves the batcher).
   Launches exactly as every batcher's dispatch records imply.
 
+Fused prefill-decode scheduling and logprobs (ROADMAP A9, A17) add a
+``kernel_check`` cell to each flash forward row and two phases after
+``prefix_invariant``:
+
+* ``kernel_check`` shape ``fused_chunk``: the fused lane's flash call,
+  one row (B = 1), a 512-token chunk (T = 512, the budget) at base 1024
+  of a 2048-slot view (S = 2048), H 32, KVH 8, d 128, bf16, live slots up
+  to the chunk's end and a -1 tail: instance "wgmma", each query row
+  within REL_BOUND of its own max |plain|, the lse within LSE_BOUND, with
+  its times, bound and SDPA's bool-mask time; and the same cell of
+  ``flash_fwd_int8`` over int8 K/V.
+* ``fused_serving``: llama3-8b at full width (32 layers, bf16), the
+  serving phase's geometry with ``prefill_budget`` 512 and ``logprobs``:
+  its 12 requests, 4 into the cold pool, the other 8 submitted while
+  those rows decode, so that the fused lane carries them one at a time
+  (what a ``run.py --http`` user gets by default).  The same arrivals
+  through a classic batcher (budget 0) and through the fused batcher
+  without logprobs (the run profiled).  Checks: 8 fused admissions and
+  as many prefill
+  chunks as ``_pf_chunk`` predicts for the 8 prompts; the flash forward
+  32 times per chunk and per classic insert, all "wgmma", the paged
+  kernel 32 times per decode iteration (two kernels a launch); the
+  stall-free property (every row decoding when a fused admission began
+  emits in every dispatch of it, until it finishes) and no decode stall
+  booked; one fetch a dispatch in all three runs, and the logprobs
+  change neither the tokens nor the host syncs per token; every request
+  its max_new tokens, equal to the classic run's or a bf16 near-tie
+  below DECODE_REL.  Reported: the decode stall of both runs, wall ms
+  per dispatch and per iteration of fused, decode and insert
+  dispatches, device ms of one fused and one plain decode dispatch
+  (torch.profiler), TTFT and ITL p50/p95 of both runs, and each emitted
+  token's logprob against ``engine.score`` of the finished sequence.
+* ``fused_invariant``: DECODE_DEPTH layers in float32 activations, exact:
+  fused against classic admission, greedy and sampled, at budgets of one
+  block, two blocks and 4096: tokens identical, logprobs within 1e-5 abs
+  of the classic insert at the same prefill chunking and within the JAX
+  package's fused-oracle tolerance (rtol 1e-5, atol 1e-6) of the
+  single-shot insert; a prefix hit whose walk starts at fill0 (against
+  the classic hit's xla suffix, JAX's tolerance); a swap-in landing in
+  the fused lane while a row decodes; int8 pools against the classic
+  path at the same prefill chunking (JAX's oracle and tolerance there);
+  self-draft speculation's logprobs at 4 rounds a
+  dispatch against the per-round loop (a budget keeps its admission
+  classic); a cancel mid-prefill that frees every block; the brownout-2
+  rung's budget shrink (512 -> 128: 1 -> 3 chunks, the same tokens); a
+  ``prefill_chunk`` fault mid-prefill through ``LLMServer``, recovered
+  once with the delivered tokens replayed; ``engine.score`` against a
+  plain forward's log-softmax (1e-4) on the flash path, and
+  ``forward(output_hidden_states=True)`` on the flash path (8 launches)
+  and ``output_attentions=True`` with no kernel launch.
+
+The checkpoint phase's ``--serve`` and ``--http`` runs take run.py's
+default ``--prefill-budget 512`` (their requests come into an idle pool,
+so ``fused_admissions_total`` stays 0 there, checked).
+
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or outside a checkout of the repository, it exits non-zero before printing
 any result.
@@ -449,7 +504,12 @@ INVARIANT_REQUESTS = (1, 3, 4, 7)  # 4 of them, short, for the invariant
 # the last two padding) prefill together at P = 1024.
 INSERT_ROWS = SERVE_PROMPT_TOKENS[:6] + (0, 0)
 FLASH_SHAPES = ("prefill", "decode", "chunk_window", "insert",
-                "cached_decode")
+                "cached_decode", "fused_chunk")
+# The fused prefill lane's flash cell (fused_serving's chunks): one row, a
+# FUSED_BUDGET-token chunk at base 1024 of a 2048-slot view, live slots up
+# to the chunk's end and a -1 tail past it.
+FUSED_BUDGET = 512
+FUSED_CHUNK = dict(T=FUSED_BUDGET, S=2048, base=1024)
 # The cached_decode phase's float32 flash step: 2 rows, T = 1 over a
 # 1024-slot cache, the 8th token (8 slots written).
 CACHED_DECODE_FILL = 8
@@ -618,6 +678,12 @@ def flash_inputs(torch, name, gen):
         slots = torch.arange(S, device=dev)[None, :].expand(B, S)
         kv_pos = torch.where(slots < base + T, slots, -1)
         q_pos = (base + torch.arange(T, device=dev))[None, :].expand(B, T)
+    elif name == "fused_chunk":
+        B, T, S, base = 1, FUSED_CHUNK["T"], FUSED_CHUNK["S"], FUSED_CHUNK[
+            "base"]
+        slots = torch.arange(S, device=dev)[None, :]
+        kv_pos = torch.where(slots < base + T, slots, -1)
+        q_pos = (base + torch.arange(T, device=dev))[None, :]
     elif name == "cached_decode":
         B, T, S = 2, 1, 1024
         slots = torch.arange(S, device=dev)[None, :].expand(B, S)
@@ -765,6 +831,17 @@ def check_flash(torch, fa, gen):
         library_ms = time_ms(torch, [library_attention(torch, *a)
                                      for a in copies], iters=4 * len(copies))
         extra, extra_ok = {}, True
+        if name == "fused_chunk":
+            # Every query row sees slots 0 .. its own position, across the
+            # tiles before the chunk's own: its lse as a training forward
+            # asks for it, against the plain version's.
+            _, lse = fa._forward(*args, 0.0, None, True)
+            _, ref_lse = fa.flash_attention_reference(*args,
+                                                      return_lse=True)
+            extra = dict(base=FUSED_CHUNK["base"],
+                         lse_max_abs_err=lse_abs_err(torch, lse, ref_lse),
+                         lse_bound=LSE_BOUND)
+            extra_ok = extra["lse_max_abs_err"] < LSE_BOUND
         if want == "split_kv":
             extra, extra_ok = check_split_kv(torch, fa, args, ref, copies)
             device_ms = extra.pop("device_ms")
@@ -1079,19 +1156,24 @@ def dequantized(x8, scale, dtype):
 def check_flash_int8(torch, fa, quant, gen):
     """flash_fwd_int8 against its plain version at the serving insert
     shape (8 right-padded rows, P = 1024, INSERT_ROWS' lengths; K/V
-    quantized as the insert quantizes them), bf16 and float32 q: each
-    packed query row within REL_BOUND (bf16) or F32_KERNEL_BOUND of its
-    own max |plain|.  Each row is timed: cold-L2, warm, plain, and SDPA
-    over a dequantized copy in q's dtype (the dequantize not timed); the
-    bound counts 1 byte per K/V element plus both scale planes."""
-    q, k, v, q_pos, kv_pos = flash_inputs(torch, "insert", gen)
-    kq, vq, ks, vs = int8_pool(quant, k, v)
-    del k, v
+    quantized as the insert quantizes them), bf16 and float32 q, and at
+    the fused prefill lane's chunk (``fused_chunk``, bf16; the key
+    "fused_chunk"): each packed query row within REL_BOUND (bf16) or
+    F32_KERNEL_BOUND of its own max |plain|.  Each row is timed: cold-L2,
+    warm, plain, and SDPA over a dequantized copy in q's dtype (the
+    dequantize not timed); the bound counts 1 byte per K/V element plus
+    both scale planes."""
     rows = {}
     w = fa.flash_attention_quantized
-    for dtype, bound in ((torch.bfloat16, REL_BOUND),
-                         (torch.float32, F32_KERNEL_BOUND)):
-        name = str(dtype).split(".")[-1]
+    for shape, dtype, bound in (
+            ("insert", torch.bfloat16, REL_BOUND),
+            ("insert", torch.float32, F32_KERNEL_BOUND),
+            ("fused_chunk", torch.bfloat16, REL_BOUND)):
+        q, k, v, q_pos, kv_pos = flash_inputs(torch, shape, gen)
+        kq, vq, ks, vs = int8_pool(quant, k, v)
+        del k, v
+        name = (str(dtype).split(".")[-1] if shape == "insert"
+                else shape)
         args = (q.to(dtype), kq, vq, ks, vs, q_pos, kv_pos)
         want = fa.flash_int8_instance(dtype, q.shape[3], q.shape[1],
                                       kq.shape[1])
@@ -1107,9 +1189,10 @@ def check_flash_int8(torch, fa, quant, gen):
         finite = bool(torch.isfinite(out).all())
         rel = row_rel_err(torch, out, ref)
         row = dict(phase="kernel_check", kernel="flash_fwd_int8",
-                   shape="insert", B=q.shape[0], T=q.shape[1],
+                   shape=shape, B=q.shape[0], T=q.shape[1],
                    S=kq.shape[1], H=q.shape[2], KVH=kq.shape[2],
-                   d=q.shape[3], dtype=name, kv="int8 + float32 scales",
+                   d=q.shape[3], dtype=str(dtype).split(".")[-1],
+                   kv="int8 + float32 scales",
                    instance=instance, launches_by_instance=by_instance,
                    worst_row_rel=rel, rel_bound=bound, finite=finite,
                    bit_identical=identical)
@@ -1118,7 +1201,7 @@ def check_flash_int8(torch, fa, quant, gen):
         row["ms"] = time_ms(torch, cold, iters=4 * len(copies))
         row["device_ms"], row["profiled_calls"] = device_ms_per_launch(
             torch, cold, ("flash_fwd",), "flash_fwd")
-        if want == "wgmma":
+        if want == "wgmma" and shape == "insert":
             # The replaced design (mma.sync, one tile at a time) on the
             # same inputs in this run.
             old = [lambda a=a: fa.flash_attention_quantized_launch(
@@ -3502,12 +3585,14 @@ def cli_batcher(ptl, params, cfg, kernels):
     """The batcher ``run.py --serve`` and ``--http`` build at the flags
     the checkpoint phase gives them (greedy, CKPT_SLOTS slots,
     decode_chunk 8, the byte tokenizer's stop token, the radix prefix
-    cache without a host tier)."""
+    cache without a host tier, fused prefill at the JAX CLI's default
+    budget: the phase's requests come into an idle pool, so they admit
+    classically)."""
     return ptl.ContinuousBatcher(
         params, cfg, n_slots=CKPT_SLOTS, max_len=cfg.max_seq_len,
         stop_tokens=(ptl.ByteTokenizer().eos_id,), temperature=0.0,
         top_p=0.95, seed=0, prefix_cache=True, decode_chunk=8, n_draft=4,
-        spec_rounds=8, prefill_budget=0, prefix_index="radix",
+        spec_rounds=8, prefill_budget=FUSED_BUDGET, prefix_index="radix",
         host_kv_blocks=0, device="cuda", **kernels)
 
 
@@ -3751,8 +3836,6 @@ def drive_checkpoint(torch, ptl, fa, pa, shallow, cfg, smi):
                 reference_launches=ref_launches,
                 instances={k: instances[k] for k in want_inst},
                 load_s=cli_seconds(out), wall_s=wall,
-                not_ported_note=any(ln.startswith("serve_options_not_ported")
-                                    for ln in out.splitlines()),
                 summary=out.strip().splitlines()[-1])
             check(sorted(got) == sorted(want) and len(got) == len(texts)
                   and sorted(ids) == sorted(want_ids), f"{name} completions")
@@ -3762,6 +3845,9 @@ def drive_checkpoint(torch, ptl, fa, pa, shallow, cfg, smi):
             check(runs[name]["instances"] == want_inst,
                   f"{name} instances {instances}, expected {want_inst}")
             check(steps > 0 and inserts > 0, f"{name} stats {stats}")
+            runs[name]["fused_admissions"] = stats["fused_admissions_total"]
+            check(stats["fused_admissions_total"] == 0,
+                  f"{name} admitted through the fused lane")
 
         # run.py --http, the command a user serves with: the same texts
         # POSTed one at a time, each held to the batcher with the same
@@ -3789,6 +3875,7 @@ def drive_checkpoint(torch, ptl, fa, pa, shallow, cfg, smi):
         runs["http"] = dict(
             statuses=statuses, decode_iterations=steps, inserts=inserts,
             full_inserts=full,
+            fused_admissions=samples["llm_fused_admissions_total"],
             prefix_hits=samples["llm_prefix_requests_hit_total"],
             launches=launches, expected_launches=expect,
             flash_by_instance=instances["flash_fwd_by_instance"],
@@ -3805,6 +3892,8 @@ def drive_checkpoint(torch, ptl, fa, pa, shallow, cfg, smi):
                 [t for _, t in got], want, DECODE_REL)
         check(launches == expect and inserts == len(texts) and steps > 0,
               f"http launches {launches}, expected {expect}")
+        check(not runs["http"]["fused_admissions"],
+              "http admitted through the fused lane")
         check(not runs["http"]["recoveries"]
               and not runs["http"]["quarantine_rebuilds"]
               and h_status == 200 and health["ok"],
@@ -4417,6 +4506,553 @@ def drive_prefix_invariant(torch, np, ptl, fa, pa, params, cfg, tok, smi):
     return row
 
 
+# Fused prefill-decode scheduling (ROADMAP A9) with logprobs (A17):
+# fused_serving at llama3-8b's full width, fused_invariant at DECODE_DEPTH
+# layers in float32 activations.
+FUSED_COLD = 4           # fused_serving: requests admitted into a cold pool
+# Fused against classic logprobs in float32 activations: 1e-5 abs against
+# the classic path at the same prefill chunking (the same GEMM shapes);
+# against another chunking or attention path (the single-shot insert, a
+# hit's xla suffix), and on int8 pools (JAX's oracle), the JAX package's
+# own tolerance for its fused oracle (tests/test_serving_fused.py),
+# relative: the chunks' KV sum in another order (|logprob| ~ 10).
+FUSED_LP_ATOL = 1e-5
+JAX_LP_TOL = dict(rtol=1e-5, atol=1e-6)
+SCORE_ATOL = 1e-4        # score vs a plain forward's log-softmax, float32
+# fused_invariant: budgets of one block, two blocks and "infinity"; a
+# decoding row and a 2.3-block prompt submitted while it decodes (numpy
+# seed 11), a 2-block shared prefix for the hit cell.
+INV_BUDGETS = (128, 256, 4096)
+INV_PROMPTS = dict(r0=40, r1=300, shared=256)
+INV_SAMPLED = (dict(temperature=0.8, seed=7),
+               dict(temperature=0.7, top_p=0.9, seed=12))
+
+
+def quantiles(xs):
+    """p50 and p95 of ``xs`` (None when empty)."""
+    import numpy as np
+
+    if not xs:
+        return dict(p50=None, p95=None)
+    return dict(p50=float(np.percentile(xs, 50)),
+                p95=float(np.percentile(xs, 95)))
+
+
+def fused_arrivals(torch, cb, prompts, max_new, profile=False):
+    """The fused phases' traffic on ``cb``: requests 0 .. FUSED_COLD-1 into
+    the cold pool, the rest submitted after the first step, while those
+    rows decode.  Every step is timed on the host clock (the step ends in
+    its fetch) and classed by what it dispatched: "fused" (it advanced a
+    prefill chunk), "insert" (a classic admission) or "decode".  Each
+    token's arrival gives TTFT (from submit) and ITL (the gap to the
+    request's previous token; tokens of one chunk arrive together, as a
+    client sees them).  The stall-free check: in every fused dispatch,
+    each row that was decoding when its admission's first chunk ran, and
+    has not finished, emits.  With ``profile``, the first fused dispatch
+    with a decoding row and the first quiet decode dispatch at 4 or more
+    busy rows run under torch.profiler.  Returns a dict."""
+    rids, sub_t, last_t = {}, {}, {}
+    toks, lps, ttft, itl = {}, {}, {}, []
+    steps, misses = [], []
+    current, finished = None, set()
+    profiles = {}
+
+    def submit(i):
+        rid = cb.submit(prompts[i], max_new_tokens=max_new[i])
+        rids[rid] = i
+        sub_t[rid] = time.perf_counter()
+
+    for i in range(FUSED_COLD):
+        submit(i)
+    n_steps = 0
+    t0 = time.perf_counter()
+    while cb.pending():
+        if n_steps == 1:
+            for i in range(FUSED_COLD, len(prompts)):
+                submit(i)
+        if cb._pf is None:
+            current = None  # no admission in flight
+        decoding = {s.request_id for b, s in cb.slots.items()
+                    if s is not None and cb.active[b]}
+        quiet = (cb._pf is None and not cb.queue and not cb._dirty_rows
+                 and not cb._restoring)
+        ins0, ch0 = cb._admit_dispatches, cb.prefill_chunks_total
+        prof = None
+        if (profile and decoding and cb._pf is not None
+                and "fused" not in profiles):
+            prof = "fused"
+        elif (profile and quiet and len(decoding) >= 4
+              and "decode" not in profiles and n_steps > 1):
+            prof = "decode"
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        if prof:
+            box = {}
+            profiles[prof] = device_profile(
+                torch, lambda: box.setdefault("ev", cb.step()),
+                categories=SERVE_CATEGORIES)
+            profiles[prof]["k"] = cb.decode_chunk_last
+            evs = box["ev"]
+        else:
+            evs = cb.step()
+        now = time.perf_counter()
+        n_steps += 1
+        fused = cb.prefill_chunks_total > ch0
+        kind = ("fused" if fused else
+                "insert" if cb._admit_dispatches > ins0 else "decode")
+        steps.append(dict(kind=kind, k=cb.decode_chunk_last,
+                          wall_ms=(now - t) * 1e3, profiled=bool(prof)))
+        emitted, done = set(), set()
+        for ev in evs:
+            rid, tok_id, is_done = ev[0], ev[1], ev[2]
+            i = rids[rid]
+            if i not in toks:
+                ttft[i] = (now - sub_t[rid]) * 1e3
+            else:
+                itl.append((now - last_t[i]) * 1e3)
+            last_t[i] = now
+            toks.setdefault(i, []).append(tok_id)
+            if len(ev) > 3:
+                lps.setdefault(i, []).append(ev[3])
+            emitted.add(rid)
+            if is_done:
+                done.add(rid)
+        if fused:
+            if current is None:
+                current = decoding
+            misses += [dict(step=n_steps, request=rids[r])
+                       for r in sorted(current - finished - emitted)]
+        finished |= done
+    torch.cuda.synchronize()
+    return dict(tokens=toks, logprobs=lps, ttft_ms=ttft, itl_ms=itl,
+                steps=steps, stall_misses=misses, profiles=profiles,
+                serve_s=time.perf_counter() - t0)
+
+
+def step_means(steps):
+    """Mean wall ms per dispatch and per decode iteration of each dispatch
+    kind, the profiled steps left out."""
+    out = {}
+    for kind in ("fused", "decode", "insert"):
+        sel = [s for s in steps if s["kind"] == kind and not s["profiled"]]
+        if sel:
+            wall = sum(s["wall_ms"] for s in sel)
+            out[kind] = dict(dispatches=len(sel),
+                             ms_per_dispatch=wall / len(sel),
+                             ms_per_iteration=wall / sum(s["k"] for s in sel))
+    return out
+
+
+def drive_fused_serving(torch, ptl, engine, fa, pa, params, cfg, tok, smi):
+    """Phase ``fused_serving``: the serving phase's 12 requests at
+    llama3-8b's full width through a batcher of its geometry with
+    ``prefill_budget=FUSED_BUDGET`` and ``logprobs=True`` (what a ``run.py
+    --http`` user gets by default): FUSED_COLD admitted into the cold pool,
+    the other 8 submitted while those rows decode, so the fused lane
+    carries them one at a time.  The same arrivals through a classic
+    batcher (budget 0), and through the fused batcher without logprobs,
+    whose run is also the one profiled (the profiler changes neither its
+    tokens nor its fetches, and stays out of the timed runs' walls)."""
+    L = cfg.n_layers
+    prompts = serve_prompts(tok)
+    kw = dict(n_slots=8, max_len=2048, decode_chunk=8, device="cuda")
+    cb = ptl.ContinuousBatcher(params, cfg, prefill_budget=FUSED_BUDGET,
+                               logprobs=True, **kw)
+    chunks = {i: -(-n // cb._pf_chunk(n, 0))
+              for i, n in enumerate(SERVE_PROMPT_TOKENS) if i >= FUSED_COLD}
+    zero_counts(fa, pa)
+    fused = fused_arrivals(torch, cb, prompts, SERVE_MAX_NEW)
+    stats = cb.stats()
+    launches = launch_counts(fa, pa)
+    instances = instance_counts(fa, pa)
+    del cb
+    runs = {}
+    for name, budget, lp in (("classic", 0, True), ("fused_no_logprobs",
+                                                   FUSED_BUDGET, False)):
+        cb = ptl.ContinuousBatcher(params, cfg, prefill_budget=budget,
+                                   logprobs=lp, **kw)
+        runs[name] = fused_arrivals(torch, cb, prompts, SERVE_MAX_NEW,
+                                    profile=not lp)
+        runs[name]["stats"] = cb.stats()
+        del cb
+    classic, plain = runs["classic"], runs["fused_no_logprobs"]
+    got = [fused["tokens"][i] for i in range(12)]
+    want = [classic["tokens"][i] for i in range(12)]
+    divergences = token_divergences(torch, ptl, params, cfg, prompts, got,
+                                    want, DECODE_REL)
+    # Each emitted token's logprob against engine.score of the finished
+    # sequence (one flash forward of prompt + completion).
+    score_err = []
+    for i in range(12):
+        seq = torch.tensor([prompts[i] + got[i]], dtype=torch.int32,
+                           device="cuda")
+        ref = engine.score(params, seq, config=cfg)[0, len(prompts[i]) - 1:]
+        score_err.append((torch.tensor(fused["logprobs"][i], device="cuda")
+                          - ref).abs().max().item())
+    inserts = stats["insert_dispatches_total"]
+    chunk_sum = sum(chunks.values())
+    flash = L * (chunk_sum + inserts)
+    want_launches = dict(NO_LAUNCHES, flash_fwd=flash,
+                         paged_decode=L * stats["decode_steps_total"])
+    paged = launches["paged_decode"]
+    lens_ok = all(len(fused["tokens"][i]) == SERVE_MAX_NEW[i]
+                  for i in range(12))
+    in_vocab = all(0 <= t < cfg.vocab_size for ts in got for t in ts)
+    syncs = {name: dict(host_syncs_total=r["host_syncs_total"],
+                        decode_dispatches_total=r["decode_dispatches_total"],
+                        host_syncs_per_token=r["host_syncs_per_token"])
+             for name, r in (("fused", stats), ("classic", classic["stats"]),
+                             ("fused_no_logprobs", plain["stats"]))}
+    row = dict(
+        phase="fused_serving", card=smi, config="llama3-8b", n_layers=L,
+        dtype="bfloat16", n_slots=8, max_len=2048, block_size=128,
+        decode_chunk=8, prefill_budget=FUSED_BUDGET, logprobs=True,
+        cold_requests=FUSED_COLD, prompt_tokens=list(SERVE_PROMPT_TOKENS),
+        max_new=list(SERVE_MAX_NEW),
+        fused_admissions=stats["fused_admissions_total"],
+        prefill_chunks=stats["prefill_chunks_total"],
+        predicted_chunks=chunks, inserts=inserts,
+        decode_iterations=stats["decode_steps_total"],
+        launches=launches, expected_launches=want_launches,
+        instances={k: instances[k] for k in (
+            "flash_fwd_by_instance", "paged_by_instance",
+            "paged_kernel_launches")},
+        stall_free=not fused["stall_misses"],
+        stall_misses=fused["stall_misses"][:8],
+        decode_stall_ms_total=dict(
+            fused=stats["decode_stall_ms_total"],
+            classic=classic["stats"]["decode_stall_ms_total"]),
+        dispatch_wall=dict(fused=step_means(fused["steps"]),
+                           classic=step_means(classic["steps"])),
+        dispatch_device={k: dict(device_ms=p["device_ms"], wall_ms=p[
+            "wall_ms"], k=p["k"], busy=p["device_busy_share"],
+            by_category_ms=p.get("by_category_ms"))
+            for k, p in runs["fused_no_logprobs"]["profiles"].items()},
+        ttft_ms=dict(fused=quantiles(list(fused["ttft_ms"].values())),
+                     classic=quantiles(list(classic["ttft_ms"].values()))),
+        itl_ms=dict(fused=dict(quantiles(fused["itl_ms"]),
+                               max=max(fused["itl_ms"])),
+                    classic=dict(quantiles(classic["itl_ms"]),
+                                 max=max(classic["itl_ms"]))),
+        serve_s=dict(fused=fused["serve_s"], classic=classic["serve_s"],
+                     fused_no_logprobs=plain["serve_s"]),
+        token_divergences=divergences,
+        logprob_vs_score_worst_abs=max(score_err),
+        logprob_vs_score_per_request=score_err,
+        syncs=syncs, prefix_hits=stats["prefix_requests_hit_total"],
+        tokens_exact=lens_ok, tokens_in_vocab=in_vocab)
+    emit(row)
+    fails = []
+    if stats["fused_admissions_total"] != len(prompts) - FUSED_COLD:
+        fails.append("fused admissions")
+    if stats["prefill_chunks_total"] != chunk_sum:
+        fails.append("prefill chunks")
+    if launches != want_launches:
+        fails.append("launches")
+    if (instances["flash_fwd_by_instance"] != {"wgmma": flash}
+            or instances["paged_kernel_launches"] != 2 * paged):
+        fails.append("instances")
+    if fused["stall_misses"] or stats["decode_stall_ms_total"] != 0.0:
+        fails.append("stall-free")
+    if classic["stats"]["fused_admissions_total"] != 0:
+        fails.append("the classic run admitted fused")
+    if plain["tokens"] != fused["tokens"] or (
+            syncs["fused"]["host_syncs_per_token"]
+            != syncs["fused_no_logprobs"]["host_syncs_per_token"]):
+        fails.append("logprobs changed the tokens or the fetches")
+    if any(s["host_syncs_total"] != s["decode_dispatches_total"]
+           for s in syncs.values()):
+        fails.append("a fetch beside the chunk's")
+    if not (lens_ok and in_vocab and stats["prefix_requests_hit_total"] == 0
+            and all(e == e for e in score_err)):
+        fails.append("tokens")
+    if fails:
+        raise AssertionError(f"fused_serving: {fails}")
+    return row
+
+
+def drive_fused_invariant(torch, np, ptl, engine, fa, pa, params, cfg, tok,
+                          smi):
+    """Phase ``fused_invariant``: DECODE_DEPTH layers in float32
+    activations (the phase-3 weights), exact checks of fused admission
+    against classic admission, of logprobs, ``score`` and the forward's
+    auxiliary outputs (whose launches are checked exactly); the phase's
+    launches go to the ``kernels`` line."""
+    import threading
+
+    from jax_llama_tpu_torch.faults import FaultInjector
+    from jax_llama_tpu_torch.server import LLMServer
+
+    L = DECODE_DEPTH
+    shallow = dict(params, layers={k: w[:L]
+                                   for k, w in params["layers"].items()})
+    dcfg = cfg.replace(n_layers=L, dtype="float32")
+    rng = np.random.RandomState(11)
+    ids = {k: rng.randint(10, cfg.vocab_size, n).tolist()
+           for k, n in INV_PROMPTS.items()}
+    r1_prompt = ids["shared"] + ids["r1"][:INV_PROMPTS["r1"]
+                                          - INV_PROMPTS["shared"]]
+    row = dict(phase="fused_invariant", card=smi, config="llama3-8b",
+               n_layers=L, dtype="float32 activations", cells={})
+    fails = []
+    t_start = time.perf_counter()
+    zero_counts(fa, pa)
+
+    def batcher(c=dcfg, **kw):
+        kw = dict(dict(n_slots=2, max_len=1024, block_size=128,
+                       decode_chunk=8, logprobs=True, device="cuda"), **kw)
+        return ptl.ContinuousBatcher(shallow, c, **kw)
+
+    def scenario(cb, sampled=False, prefix=False):
+        """r0 decodes (a cold pool admits it classically), then r1 is
+        submitted mid-decode; ``prefix``: a sharer of the first 256
+        tokens warms the cache first.  Returns (tokens, logprobs) of
+        (r0, r1) and the batcher's stats."""
+        toks, lps = {}, {}
+
+        def pump(n=None):
+            k = 0
+            while cb.pending() and (n is None or k < n):
+                k += 1
+                for ev in cb.step():
+                    toks.setdefault(ev[0], []).append(ev[1])
+                    lps.setdefault(ev[0], []).append(ev[3])
+
+        if prefix:
+            cb.submit(ids["shared"] + [7], max_new_tokens=2)
+            pump()
+        p0, p1 = INV_SAMPLED if sampled else ({}, {})
+        r0 = cb.submit(ids["r0"], max_new_tokens=40, **p0)
+        pump(2)
+        r1 = cb.submit(r1_prompt, max_new_tokens=24, **p1)
+        pump()
+        return (toks[r0], toks[r1]), (lps[r0], lps[r1]), cb.stats()
+
+    def compare(got, want, tol):
+        """(tokens equal, max |logprob diff|, within ``tol``: FUSED_LP_ATOL
+        abs when None, else numpy's allclose arguments)."""
+        (gt, gl, _), (wt, wl, _) = got[:3], want[:3]
+        pairs = [(a, b) for x, y in zip(gl, wl) for a, b in zip(x, y)]
+        err = max(abs(a - b) for a, b in pairs)
+        close = (err <= FUSED_LP_ATOL if tol is None else all(
+            abs(a - b) <= tol["atol"] + tol["rtol"] * abs(b)
+            for a, b in pairs))
+        return gt == wt, err, close
+
+    def same(name, got, want, tol=None, single=None, **extra):
+        """Tokens identical and logprobs within ``tol`` (``compare``);
+        ``single``, a second oracle held to JAX_LP_TOL (the single-shot
+        classic insert)."""
+        equal, err, close = compare(got, want, tol)
+        gs = got[2]
+        cell = dict(tokens_equal=equal, logprob_max_abs_diff=err,
+                    logprob_tolerance=tol or dict(atol=FUSED_LP_ATOL),
+                    fused_admissions=gs["fused_admissions_total"],
+                    prefill_chunks=gs["prefill_chunks_total"], **extra)
+        if single is not None:
+            s_equal, s_err, s_close = compare(got, single, JAX_LP_TOL)
+            cell["vs_single_shot"] = dict(
+                tokens_equal=s_equal, logprob_max_abs_diff=s_err,
+                logprob_tolerance=JAX_LP_TOL)
+            close = close and s_equal and s_close
+        row["cells"][name] = cell
+        if not (equal and close):
+            fails.append(name)
+        return cell
+
+    # 1. fused vs classic, greedy and sampled, at each budget: against
+    # the classic insert at the same chunking, and the single-shot one.
+    for sampled in (False, True):
+        single = scenario(batcher(), sampled=sampled)
+        for budget in INV_BUDGETS:
+            cb = batcher(prefill_budget=budget)
+            chunk = cb._pf_chunk(len(r1_prompt), 0)
+            want = scenario(batcher(prefill_chunk=chunk), sampled=sampled)
+            cell = same(f"{'sampled' if sampled else 'greedy'}_{budget}",
+                        scenario(cb, sampled=sampled), want, single=single,
+                        chunk=chunk)
+            if cell["fused_admissions"] != 1 or cell["prefill_chunks"] != (
+                    -(-len(r1_prompt) // cell["chunk"])):
+                fails.append(f"chunks at {budget}")
+    # 2. a prefix hit: the fused walk starts at fill0 = 256.
+    want = scenario(batcher(), prefix=True)
+    cb = batcher(prefill_budget=128)
+    cell = same("prefix_hit", scenario(cb, prefix=True), want,
+                tol=JAX_LP_TOL, hits=cb.prefix_requests_hit,
+                chunk=cb._pf_chunk(
+                    len(r1_prompt) - INV_PROMPTS["shared"], 2))
+    if cell["hits"] != 1 or cell["prefill_chunks"] != 1:
+        fails.append("prefix_hit walk")
+    # 3. a swap-in that lands in the fused lane.
+    session = ids["shared"] + ids["r0"]
+    cold = batcher(prefix_cache=False)
+    rc = cold.submit(session, max_new_tokens=8)
+    want_s = cold.run_to_completion()[rc]
+    cb = batcher(prefill_budget=128, host_kv_blocks=8, n_blocks=12)
+    cb.submit(session, max_new_tokens=8)
+    cb.run_to_completion()
+    demoted = cb.demote_idle(2)
+    r0 = cb.submit(ids["r0"], max_new_tokens=60)
+    cb.step()
+    cb.step()
+    cb.swap_poll_min = 2
+    rid = cb.submit(session, max_new_tokens=8)
+    got_s, kept_decoding = [], True
+    while cb.pending():
+        busy = bool(cb._restoring or cb._pf is not None)
+        evs = cb.step()
+        if busy and not any(ev[0] == r0 for ev in evs):
+            kept_decoding = False
+        got_s += [ev[1] for ev in evs if ev[0] == rid]
+    st = cb.stats()
+    row["cells"]["swap_in_fused"] = dict(
+        tokens_equal=got_s == want_s, demoted=demoted,
+        swap_ins=st["swap_ins_total"], fused=st["fused_admissions_total"],
+        prefill_chunks=st["prefill_chunks_total"],
+        decoding_row_emitted_throughout=kept_decoding)
+    if not (got_s == want_s and demoted == 2 and st["swap_ins_total"] == 1
+            and st["fused_admissions_total"] == 1 and kept_decoding):
+        fails.append("swap_in_fused")
+    # 4. int8 pools against the classic path at the same chunking (JAX's
+    # oracle there: where the chunks fall decides where KV quantizes).
+    qcfg = dcfg.replace(kv_cache_dtype="int8")
+    same("int8_256", scenario(batcher(qcfg, prefill_budget=256), sampled=True),
+         scenario(batcher(qcfg, prefill_chunk=256), sampled=True),
+         tol=JAX_LP_TOL)
+    # 5. speculation with logprobs: R rounds a dispatch against the
+    # per-round loop; a budget leaves its admission classic.
+    spec = {}
+    for r in (4, 1):
+        cb = batcher(draft_params=shallow, draft_config=dcfg, n_draft=3,
+                     spec_rounds=r, prefill_budget=128)
+        spec[r] = scenario(cb) + (cb.acceptance_rate(),)
+    cell = same("spec_logprobs", spec[4][:3], spec[1][:3],
+                acceptance=spec[4][3])
+    if cell["fused_admissions"] != 0 or spec[4][3] != 1.0:
+        fails.append("spec classic admission")
+    # 6. cancel mid-prefill frees every block.
+    cb = batcher(prefill_budget=128, prefix_cache=False)
+    r0 = cb.submit(ids["r0"], max_new_tokens=24)
+    cb.step()
+    cb.step()
+    r1 = cb.submit(r1_prompt, max_new_tokens=24)
+    cb.step()
+    mid = cb._pf is not None and cb._pf.req.rid == r1
+    free0 = len(cb.free_blocks)
+    cb.cancel(r1)
+    freed = len(cb.free_blocks) - free0
+    out = cb.run_to_completion()
+    row["cells"]["cancel_mid_prefill"] = dict(
+        was_mid_prefill=mid, blocks_freed=freed,
+        free_at_end=len(cb.free_blocks), n_blocks=cb.n_blocks)
+    if not (mid and cb._pf is None and freed > 0 and r1 not in out
+            and len(cb.free_blocks) == cb.n_blocks):
+        fails.append("cancel_mid_prefill")
+    # 7. the brownout rung's budget shrink: the server's ladder at
+    # brownout-2 (a quarter of the budget) adds chunks, same tokens.
+    walks = {}
+    for rung in ("normal", "brownout-2"):
+        cb = batcher(prefill_budget=512, prefix_cache=False)
+        srv = LLMServer(cb, tokenizer=tok)
+        srv.overload.force_rung(rung)
+        srv._apply_overload_knobs()
+        walks[rung] = scenario(cb) + (cb.prefill_budget,)
+        del srv
+    cell = same("brownout_shrink", walks["brownout-2"][:3],
+                walks["normal"][:3], tol=JAX_LP_TOL,
+                budgets=[walks[r][3] for r in walks],
+                chunks=[walks[r][2]["prefill_chunks_total"] for r in walks])
+    if cell["chunks"] != [1, 3] or cell["budgets"] != [512, 128]:
+        fails.append("brownout_shrink")
+    # 8. a prefill_chunk fault mid-prefill: the server recovers and
+    # replays the delivered tokens.
+    want_f = []
+    for p, n in ((ids["r0"], 48), (r1_prompt, 16)):
+        cb = batcher(logprobs=False)
+        r = cb.submit(p, max_new_tokens=n)
+        want_f.append(cb.run_to_completion()[r])
+    inj = FaultInjector("prefill_chunk@1:error")
+    srv = LLMServer(batcher(prefill_budget=128, fault_injector=inj,
+                            logprobs=False), tokenizer=tok)
+    replies = [None, None]
+
+    def call(i, prompt, n):
+        replies[i] = http_request(srv.address, "/generate",
+                                  {"prompt": prompt, "max_new_tokens": n})
+
+    with srv:
+        a = threading.Thread(target=call, args=(0, ids["r0"], 48))
+        a.start()
+        deadline = time.monotonic() + 300
+        while (srv.batcher.decode_dispatches_total < 2
+               and time.monotonic() < deadline):
+            time.sleep(0.005)
+        call(1, r1_prompt, 16)
+        a.join(timeout=600)
+        _, health = http_json(srv.address, "/healthz")
+    got_f = [http_tokens(r) for r in replies]
+    cell = dict(statuses=[s for s, _ in got_f],
+                recoveries=health["recoveries_total"],
+                injected=inj.injected["prefill_chunk"],
+                prefill_chunk_calls=inj.calls["prefill_chunk"])
+    row["cells"]["prefill_chunk_fault"] = cell
+    if cell["statuses"] == [200, 200]:
+        cell["divergences"] = token_divergences(
+            torch, ptl, shallow, dcfg, [ids["r0"], r1_prompt],
+            [t for _, t in got_f], want_f, DRILL_TIE)
+    if not (cell["statuses"] == [200, 200] and cell["recoveries"] == 1
+            and cell["injected"] == 1):
+        fails.append("prefill_chunk_fault")
+    launches = launch_counts(fa, pa)
+    # 9. score against a plain forward's log-softmax, and the forward's
+    # auxiliary outputs: hidden states on the flash path, attention
+    # probabilities with no kernel launch.
+    seq = torch.tensor([r1_prompt], dtype=torch.int32, device="cuda")
+    pos = torch.arange(seq.shape[1], device="cuda", dtype=torch.int32)[None]
+    before = fa.flash_attention.launches
+    got_sc = engine.score(shallow, seq, config=dcfg.replace(attn_impl="auto"))
+    score_flash = fa.flash_attention.launches - before
+    with torch.inference_mode():
+        lg = ptl.forward(shallow, seq, pos, dcfg.replace(attn_impl="xla"))[0]
+        ref_sc = torch.log_softmax(lg[:, :-1].float(), -1).gather(
+            -1, seq[:, 1:, None].long())[..., 0]
+        before = dict(launch_counts(fa, pa))
+        aux_h = ptl.forward(shallow, seq, pos, dcfg.replace(
+            attn_impl="auto"), output_hidden_states=True)[2]
+        mid_counts = launch_counts(fa, pa)
+        aux_a = ptl.forward(shallow, seq, pos, dcfg.replace(
+            attn_impl="auto"), output_attentions=True)[2]
+        after = launch_counts(fa, pa)
+    hs_flash = mid_counts["flash_fwd"] - before["flash_fwd"]
+    attn_launches = {k: after[k] - mid_counts[k] for k in after
+                     if after[k] != mid_counts[k]}
+    sums = aux_a.attentions.float().sum(-1)
+    row["cells"]["score"] = dict(
+        max_abs_err=(got_sc - ref_sc).abs().max().item(), bound=SCORE_ATOL,
+        flash_launches=score_flash)
+    row["cells"]["aux_outputs"] = dict(
+        hidden_states_shape=list(aux_h.hidden_states.shape),
+        hidden_last_is_final=bool(torch.equal(aux_h.hidden_states[-1],
+                                              aux_h.last_hidden_state)),
+        hidden_flash_launches=hs_flash,
+        attentions_shape=list(aux_a.attentions.shape),
+        attentions_rows_sum_to_one=(sums - 1).abs().max().item(),
+        attentions_kernel_launches=attn_launches)
+    if not (row["cells"]["score"]["max_abs_err"] < SCORE_ATOL
+            and score_flash == L and hs_flash == L and not attn_launches
+            and row["cells"]["aux_outputs"]["hidden_last_is_final"]
+            and row["cells"]["aux_outputs"][
+                "attentions_rows_sum_to_one"] < 1e-4):
+        fails.append("score / aux outputs")
+    row["launches"] = launches
+    row["seconds"] = time.perf_counter() - t_start
+    row["failures"] = fails
+    emit(row)
+    if fails:
+        raise AssertionError(f"fused_invariant failed: {fails}")
+    return row
+
+
 def rel_err(a, b) -> float:
     return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
 
@@ -4688,6 +5324,14 @@ def main() -> int:
     prefix_inv = drive_prefix_invariant(torch, np, ptl, fa, pa, params, cfg,
                                         tok, smi)
 
+    # Phase 5e: fused prefill-decode scheduling with logprobs (ROADMAP A9,
+    # A17): the serving traffic at full width, then the exact invariants,
+    # score and the forward's auxiliary outputs at 8 layers.
+    fused_row = drive_fused_serving(torch, ptl, engine, fa, pa, params, cfg,
+                                    tok, smi)
+    fused_inv = drive_fused_invariant(torch, np, ptl, engine, fa, pa, params,
+                                      cfg, tok, smi)
+
     # Phase 6: paged = gathered = standalone generate.
     paged_invariant(torch, ptl, engine, serving, params, cfg, tok)
     # Phase 6b: the selected slots' invariants in float32 activations.
@@ -4726,11 +5370,14 @@ def main() -> int:
              "http_serving": http_row["launches"],
              "http_drill": drill_row["launches"],
              "prefix_serving": prefix_row["launches"],
-             "prefix_invariant": prefix_inv["launches"]}
+             "prefix_invariant": prefix_inv["launches"],
+             "fused_serving": fused_row["launches"],
+             "fused_invariant": fused_inv["launches"]}
 
     paths_instances = {"generate": instances,
                        "serving": serve_row["instances"],
                        "http_serving": http_row["instances"],
+                       "fused_serving": fused_row["instances"],
                        "train": train_row["instances"]}
 
     def by_path(name):
@@ -4752,16 +5399,18 @@ def main() -> int:
             dropout_device_ms=drop["device_ms"], instance=row["instance"],
             launches_by_instance={
                 path: inst[f"{name}_by_instance"]
-                for path, inst in paths_instances.items()},
+                for path, inst in paths_instances.items()
+                if f"{name}_by_instance" in inst},
             plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"], bound_by=row["bound_by"],
             library_ms=row["library_ms"])
 
-    def flash_sub(name):
+    def flash_sub(name, extra=()):
         row = flash_rows[name]
         return {k: row[k] for k in (
-            "T", "S", "dtype", "instance", "ms", "device_ms", "plain_ms",
-            "bound_ms", "bound_by", "library_ms")}
+            "B", "T", "S", "dtype", "instance", "ms", "device_ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "worst_row_rel", *extra)}
 
     pre = flash_rows["insert"]
     fwd = train_kernel("flash_fwd", "jax_llama_tpu/ops/flash_attention.py:868")
@@ -4771,7 +5420,9 @@ def main() -> int:
                insert_instance=pre["instance"],
                decode=dict(flash_sub("decode"), replaced_device_ms=flash_rows[
                    "decode"]["replaced_device_ms"]),
-               cached_decode=flash_sub("cached_decode"))
+               cached_decode=flash_sub("cached_decode"),
+               fused_chunk=flash_sub("fused_chunk", ("base",
+                                                     "lse_max_abs_err")))
     fi8 = flash_int8_rows["bfloat16"]
     pi8 = paged_int8_rows["serving"]
 
@@ -4805,7 +5456,10 @@ def main() -> int:
                  "int8_spec_serving": int8_spec[
                      "flash_fwd_int8_by_instance"]},
              float32_ms=flash_int8_rows["float32"]["ms"],
-             float32_device_ms=flash_int8_rows["float32"]["device_ms"]),
+             float32_device_ms=flash_int8_rows["float32"]["device_ms"],
+             fused_chunk=int8_sub(flash_int8_rows["fused_chunk"],
+                                  T=FUSED_CHUNK["T"], S=FUSED_CHUNK["S"],
+                                  base=FUSED_CHUNK["base"])),
         dict(name="paged_decode_int8", route="cuda",
              source="jax_llama_tpu_torch/csrc/paged_decode.cu",
              replaces="jax_llama_tpu/ops/paged_attention.py:371 "

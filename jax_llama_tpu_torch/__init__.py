@@ -6,8 +6,9 @@ package.  Entry points run on the card (``device="cuda"``) and raise when
 no GPU is present unless the caller passes ``device="cpu"``.
 
   Model:      LLaMAConfig, get_config, init_params, from_jax_params,
-              forward, KVCache, init_cache, PagedKVCache
-  Decode:     GenerationConfig, generate, LLaMA
+              forward (AuxOutput: hidden states, attention
+              probabilities), KVCache, init_cache, PagedKVCache
+  Decode:     GenerationConfig, generate, score, LLaMA
   Serving:    ContinuousBatcher (speculative with draft_params),
               init_pool (paged KV pool); LLMServer (the HTTP front-end:
               /generate, /chat, /metrics, /healthz, /debug/*) over the
@@ -45,9 +46,10 @@ no GPU is present unless the caller passes ``device="cpu"``.
 """
 
 from .config import LLaMAConfig, get_config, swiglu_hidden_size
-from .engine import GenerationConfig, generate
+from .engine import GenerationConfig, generate, score
 from .generation import LLaMA
 from .models import (
+    AuxOutput,
     KVCache,
     PagedKVCache,
     forward,
@@ -86,7 +88,8 @@ __version__ = "0.1.0"
 
 __all__ = [
     "LLaMAConfig", "get_config", "swiglu_hidden_size", "GenerationConfig",
-    "generate", "LLaMA", "ByteTokenizer", "KVCache", "forward",
+    "generate", "score", "LLaMA", "AuxOutput", "ByteTokenizer", "KVCache",
+    "forward",
     "from_jax_params", "init_cache", "init_params", "param_count",
     "PagedKVCache", "ContinuousBatcher", "init_pool", "LLMServer",
     "QuantizedTensor", "quantize_params", "is_quantized", "quantize_kv",

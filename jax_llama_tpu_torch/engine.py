@@ -8,6 +8,10 @@ exit: after ``max_new_tokens`` steps, or as soon as every row has emitted
 a stop token.  A stop token is written to the buffer, then the row emits
 ``pad_id``.  As in the JAX engine, the last step's forward runs even
 though its token is discarded.
+
+``score`` gives per-token log-probabilities of given sequences, and
+``window_positions`` the positions of one window of a chunked prefill
+(the serving batcher's fused prefill lane).
 """
 
 from __future__ import annotations
@@ -46,6 +50,56 @@ def prompt_positions(prompt_mask: torch.Tensor) -> torch.Tensor:
     -1 on padding."""
     pos = torch.cumsum(prompt_mask.to(torch.int32), dim=-1, dtype=torch.int32) - 1
     return torch.where(prompt_mask, pos, torch.full_like(pos, -1))
+
+
+def window_positions(base, offset, width: int, length, device=None):
+    """Positions and mask of one window of a chunked prefill (JAX
+    :122), the fused prefill-decode scheduler's walk: tokens ``[offset,
+    offset + width)`` of a ``length``-token suffix whose row KV begins at
+    absolute position ``base`` (non-zero for a prefix-cache hit, which
+    starts its walk at fill0).  ``base``, ``offset`` and ``length`` are
+    ints or int32 scalars; with ints the result is made on ``device``
+    (no host copy).  Returns ([1, width] int32 positions, -1 on
+    padding; [1, width] bool mask), the ``prompt_positions`` contract for
+    a window of a longer right-padded prompt."""
+    if isinstance(base, torch.Tensor):
+        device = base.device
+    j = torch.arange(width, dtype=torch.int32, device=device)[None, :]
+    real = (offset + j) < length
+    pos = torch.where(real, base + offset + j, -1).to(torch.int32)
+    return pos, real
+
+
+@torch.inference_mode()
+def score(params, tokens: torch.Tensor,
+          attn_mask: Optional[torch.Tensor] = None, *,
+          config: LLaMAConfig) -> torch.Tensor:
+    """Per-token log-probabilities of given sequences (evals, perplexity;
+    JAX :60).
+
+    Args:
+      params: model params; the forward runs where they live.
+      tokens: [B, T] integer; position t is scored against tokens[t+1].
+      attn_mask: optional [B, T] bool, False on (left) padding.
+    Returns:
+      [B, T-1] float32: logp[b, t] = log p(tokens[b, t+1] | tokens[b,
+      :t+1]) from a float32 log-softmax of the forward's logits; 0 where
+      the query or the target is padding.  The forward resolves
+      ``config.attn_impl`` as any forward does ("auto": the flash kernel
+      at T > 8)."""
+    device = _params_device(params)
+    tokens = tokens.to(device=device, dtype=torch.int32)
+    B, T = tokens.shape
+    if attn_mask is None:
+        attn_mask = torch.ones((B, T), dtype=torch.bool, device=device)
+    attn_mask = attn_mask.to(device=device, dtype=torch.bool)
+    positions = prompt_positions(attn_mask)
+    logits, _ = forward(params, tokens, positions, config,
+                        attn_mask=attn_mask)
+    logp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
+    out = torch.gather(logp, -1, tokens[:, 1:, None].long())[..., 0]
+    valid = attn_mask[:, :-1] & attn_mask[:, 1:]
+    return torch.where(valid, out, 0.0)
 
 
 def _is_stop(tokens: torch.Tensor, stop_tokens: Tuple[int, ...]) -> torch.Tensor:

@@ -27,7 +27,8 @@ dispatch it has:
   ``suffix_insert``  a prefix-cache-hit suffix prefill
                      (``_paged_suffix_insert``)
   ``prefill_chunk``  a chunk dispatch CARRYING a fused prefill lane
-                     (fused prefill-decode scheduling, ROADMAP A9)
+                     (``prefill_budget`` > 0); plain decode chunks do
+                     not advance its counter
   ``alloc``          a block-pool allocation (``_alloc_blocks``)
   ``kv_swap``        a host-tier swap-in begin (``_begin_restore``:
                      an injected fault fails only that request)

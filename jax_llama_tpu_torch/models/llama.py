@@ -67,8 +67,11 @@ with float32 per-slot-per-head scales: the xla path folds them in
 kernel; the step's own K/V join at full precision and are quantized only
 for the write.
 
-Ring attention, the hidden-state and attention-weight outputs (ROADMAP
-A17) and pipeline stages raise ``NotImplementedError``.
+``forward(output_hidden_states=True)`` returns every block's input and
+the final hidden state on whichever attention path the config resolves;
+``output_attentions=True`` forces the xla path, the only one that
+materializes the probabilities.  Ring attention and pipeline stages
+raise ``NotImplementedError``.
 
 Layout helpers (JAX :499-:580): ``rope_permute`` moves q/k features
 between Meta's interleaved RoPE order and the half-split order,
@@ -267,11 +270,23 @@ def paged_pool_write(
 
 @dataclasses.dataclass
 class AuxOutput:
-    """``forward(..., output_last_hidden=True)``'s third output: the
-    post-final-norm hidden states [B, T, D] (feed them to
-    ``lm_head_logits(..., normed=True)``)."""
+    """``forward``'s third output when any of ``output_last_hidden``,
+    ``output_hidden_states`` or ``output_attentions`` is set (JAX
+    :912-940, the reference model's own outputs).
+
+    hidden_states: [L+1, B, T, D] or None: entries 0..L-1 are each
+      block's input (entry 0 the embedding output), entry L the
+      post-final-norm hidden state.
+    last_hidden_state: [B, T, D] post-final-norm hidden state (feed it
+      to ``lm_head_logits(..., normed=True)``); always present.
+    attentions: [L, B, H, T, S] post-softmax attention probabilities or
+      None; on the cached path S spans the cache slots, then the step's
+      new tokens.
+    """
 
     last_hidden_state: torch.Tensor
+    hidden_states: Optional[torch.Tensor] = None
+    attentions: Optional[torch.Tensor] = None
 
 
 def init_cache(
@@ -613,6 +628,7 @@ def _block(
     cache_ks: Optional[torch.Tensor] = None,
     cache_vs: Optional[torch.Tensor] = None,
     chunk_offset: Optional[int] = None,
+    weights_out: Optional[list] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One pre-norm transformer block, x: [B, T, D]; ``impl`` is the
     resolved attention path.  Writes this block's new K/V into
@@ -626,8 +642,9 @@ def _block(
     static int, the chunk's first position) lets a cached flash chunk run
     the splash kernel where ``splash_eligible`` holds (JAX :833-855).
     ``drop`` (training, cache-free) applies the layer's attention and
-    residual dropout.  Returns (x, the block's new K, its new V) at full
-    precision."""
+    residual dropout.  ``weights_out`` (a list; the xla path only)
+    receives the block's attention probabilities.  Returns (x, the
+    block's new K, its new V) at full precision."""
     B, T, D = x.shape
     adt = x.dtype
     H, KVH, hd = config.n_heads, config.kv_heads, config.head_dim
@@ -646,6 +663,7 @@ def _block(
     k = apply_rope(k, cos, sin, positions)
 
     int8 = cache_ks is not None
+    want_w = weights_out is not None
     if impl == "paged":
         pool, q_pos_row, layer = paged
         if (config.decode_kernel == "stock-paged" and T == 1
@@ -662,13 +680,16 @@ def _block(
             attn = sdpa_cached(
                 q, cache_k, cache_v, k, v, bias, bias_new,
                 softmax_dtype=softmax_dtype, k_scale=cache_ks,
-                v_scale=cache_vs,
+                v_scale=cache_vs, return_weights=want_w,
             )
         else:
             attn = sdpa_cached(
                 q, cache_k.to(adt), cache_v.to(adt), k, v, bias, bias_new,
-                softmax_dtype=softmax_dtype,
+                softmax_dtype=softmax_dtype, return_weights=want_w,
             )
+        if want_w:
+            attn, w = attn
+            weights_out.append(w)
         # Append-free: the step's K/V land after the attention read the
         # cache (the slots they fill were masked from it).
         _cache_write_kv(cache_k, cache_v, cache_ks, cache_vs, k, v,
@@ -703,7 +724,11 @@ def _block(
                 dropout_seed=drop.attn_seed if attn_rate > 0.0 else None)
         else:
             attn = sdpa(q, kk, vv, bias, softmax_dtype=softmax_dtype,
-                        dropout_rate=attn_rate, generator=gen)
+                        dropout_rate=attn_rate, generator=gen,
+                        return_weights=want_w)
+            if want_w:
+                attn, w = attn
+                weights_out.append(w)
 
     attn_out = matmul(attn.reshape(B * T, H * hd), lp["o"])
     if drop is not None and drop.resid_rate > 0.0:
@@ -809,6 +834,14 @@ def forward(
         for non-final prefill chunks.
       output_last_hidden: also return an ``AuxOutput`` with the
         post-final-norm hidden states: (logits, cache, aux).
+      output_hidden_states: the ``AuxOutput`` also carries every block's
+        input and the final hidden state, [L+1, B, T, D]; the attention
+        path stays the resolved one (the flash kernel at T > 8 under
+        "auto").
+      output_attentions: the ``AuxOutput`` also carries each block's
+        post-softmax probabilities [L, B, H, T, S]; the xla path is
+        forced, the only one that materializes them (no kernel runs).
+        Neither flag is taken on the paged path.
       dropout_rng: a ``torch.Generator`` (on the params' device) or an int
         seed enabling dropout at the config's embd/resid/attn_pdrop rates
         (training only: refused with a cache).  All rates zero: ignored.
@@ -817,21 +850,12 @@ def forward(
         Only the splash prefill kernel reads it: a cached flash chunk
         runs splash where ``ops.kernels.splash_eligible`` holds.  None
         (the default) keeps the flash kernel.
-      output_hidden_states, output_attentions: the JAX signature's
-        auxiliary outputs; not ported (ROADMAP A17), and any value but the
-        default raises NotImplementedError.
     Returns:
       (logits [B, T, V] in config.logits_dtype or None, cache or None),
-      plus the AuxOutput when ``output_last_hidden``.
+      plus the AuxOutput when any output flag is set (JAX :1013-1025,
+      :1080-1088, :1323-1330, :1400-1405).
     """
-    unported = dict(
-        output_hidden_states=output_hidden_states,
-        output_attentions=output_attentions,
-    )
-    for name, value in unported.items():
-        if value is not None and value is not False:
-            raise NotImplementedError(
-                f"forward({name}=...) is not ported (ROADMAP A17)")
+    collect = bool(output_hidden_states or output_attentions)
     if dropout_rng is not None and not (
         config.embd_pdrop > 0.0 or config.resid_pdrop > 0.0
         or config.attn_pdrop > 0.0
@@ -842,9 +866,11 @@ def forward(
             "dropout_rng is training-only; cached decode is deterministic "
             "(pass dropout_rng=None)")
     if isinstance(cache, PagedKVCache):
-        if output_last_hidden:
+        if collect or output_last_hidden:
             raise NotImplementedError(
-                "output_last_hidden is not supported on the paged path")
+                "output_hidden_states/output_attentions/output_last_hidden "
+                "are not supported on the paged (serving) path; use a "
+                "plain KVCache or a cache-free forward")
         return paged_forward(params, tokens, positions, config, cache,
                              attn_mask=attn_mask,
                              compute_logits=compute_logits)
@@ -886,6 +912,8 @@ def forward(
     impl = config.attn_impl
     if impl == "auto":
         impl = "flash" if T > FLASH_MIN_SEQ and not per_row else "xla"
+    if output_attentions:
+        impl = "xla"  # the only path that materializes [B, H, T, S]
     if per_row and impl != "xla":
         raise NotImplementedError(
             "per-row cache indices (continuous batching) run on the xla "
@@ -915,16 +943,22 @@ def forward(
     layers = [dict(zip(lp, ws))
               for ws in zip(*(w.unbind(0) for w in lp.values()))]
 
+    hs: list = []      # each block's input (output_hidden_states)
+    attns = [] if output_attentions else None
+
     def block(x, lp_i, drop):
         return _block(
             x, lp_i, None, None, config=config, positions=q_positions,
             bias=bias, slot_pos=slot_pos, cache_index=None, cos=cos, sin=sin,
-            bias_new=bias_new, impl=impl, drop=drop,
+            bias_new=bias_new, impl=impl, drop=drop, weights_out=attns,
         )[0]
 
-    if config.remat and cache is None and torch.is_grad_enabled():
+    if (config.remat and cache is None and torch.is_grad_enabled()
+            and not output_attentions):
         block = _remat(block, config)
     for i, lp_i in enumerate(layers[:config.n_layers]):
+        if output_hidden_states:
+            hs.append(x)
         if cache is None:
             x = block(x, lp_i, drops[i])
             continue
@@ -935,10 +969,11 @@ def forward(
             cos=cos, sin=sin, bias_new=bias_new, impl=impl,
             cache_ks=cache.k_scale[i] if cache.quantized else None,
             cache_vs=cache.v_scale[i] if cache.quantized else None,
-            chunk_offset=chunk_offset,
+            chunk_offset=chunk_offset, weights_out=attns,
         )
 
-    if output_last_hidden:
+    with_aux = collect or output_last_hidden
+    if with_aux:
         h = rms_norm(x, params["final_norm"], config.rms_norm_eps)
         logits = (lm_head_logits(params, h, config, normed=True)
                   if compute_logits else None)
@@ -947,8 +982,12 @@ def forward(
     if cache is not None:
         cache.pos.copy_(slot_pos)
         cache.index = cache.index + T
-    if output_last_hidden:
-        return logits, cache, AuxOutput(last_hidden_state=h)
+    if with_aux:
+        return logits, cache, AuxOutput(
+            last_hidden_state=h,
+            hidden_states=(torch.stack(hs + [h]) if output_hidden_states
+                           else None),
+            attentions=torch.stack(attns) if output_attentions else None)
     return logits, cache
 
 

@@ -79,7 +79,8 @@ def sdpa_cached(
     softmax_dtype: torch.dtype = torch.float32,
     k_scale: Optional[torch.Tensor] = None,
     v_scale: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
+    return_weights: bool = False,
+):
     """Append-free cached attention: one softmax over the (unchanged) cache
     and the step's new K/V, joined at the scores.
 
@@ -93,8 +94,12 @@ def sdpa_cached(
         cache.  Constant along D, they commute with both products: the
         cache scores are scaled after the dot, and v_scale is folded into
         the weights before the P.V product (JAX ``sdpa_cached``).
+      return_weights: also return the post-softmax probabilities
+        [B, H, T, S + T] in q.dtype (columns: the cache slots, then the
+        step's new tokens; before the v_scale fold), the reference
+        model's ``output_attentions`` (JAX :79, :104-109).
     Returns:
-      [B, T, H, D] in q.dtype.
+      [B, T, H, D] in q.dtype; ``(out, weights)`` with return_weights.
     """
     b, t, h, d = q.shape
     kvh = k_cache.shape[2]
@@ -113,7 +118,10 @@ def sdpa_cached(
         w1 = (w1.float() * v_scale.permute(0, 2, 1)[:, :, None, None, :]
               ).to(q.dtype)
     out = _pv(w1, v_cache) + _pv(w[..., n:], v_new)
-    return out.reshape(b, t, h, d).to(q.dtype)
+    out = out.reshape(b, t, h, d).to(q.dtype)
+    if return_weights:
+        return out, w.reshape(b, h, t, w.shape[-1])
+    return out
 
 
 def sdpa(
@@ -124,7 +132,8 @@ def sdpa(
     softmax_dtype: torch.dtype = torch.float32,
     dropout_rate: float = 0.0,
     generator: Optional[torch.Generator] = None,
-) -> torch.Tensor:
+    return_weights: bool = False,
+):
     """Scaled dot-product attention with GQA.
 
     Args:
@@ -133,8 +142,10 @@ def sdpa(
       dropout_rate, generator: attention-probability dropout (training):
         inverted dropout on the post-softmax weights, drawn from
         ``generator``, which a rate above 0 requires.
+      return_weights: also return the post-softmax, pre-dropout
+        probabilities [B, H, T, S] in q.dtype (JAX :143, :156, :199).
     Returns:
-      [B, T, H, D] in q.dtype.
+      [B, T, H, D] in q.dtype; ``(out, weights)`` with return_weights.
     """
     if dropout_rate > 0.0 and generator is None:
         raise ValueError("dropout_rate > 0 requires a generator")
@@ -145,7 +156,11 @@ def sdpa(
     scores = _scores(qg, k, 1.0 / float(d) ** 0.5)
     if bias is not None:
         scores = scores + bias[:, :, None]
-    w = torch.softmax(scores.to(softmax_dtype), dim=-1).to(q.dtype)
+    probs = torch.softmax(scores.to(softmax_dtype), dim=-1).to(q.dtype)
+    w = probs
     if dropout_rate > 0.0:
         w = dropout(w, dropout_rate, generator)
-    return _pv(w, v).reshape(b, t, h, d).to(q.dtype)
+    out = _pv(w, v).reshape(b, t, h, d).to(q.dtype)
+    if return_weights:
+        return out, probs.reshape(b, h, t, probs.shape[-1])
+    return out

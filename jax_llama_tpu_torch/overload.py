@@ -1,9 +1,9 @@
 """Overload control: deadline-aware admission, priority shedding, and
 an SLO-driven brownout ladder (a copy of ``jax_llama_tpu/overload.py``;
-it imports nothing of the package).  The brownout rungs' fused-prefill
-budget shrink needs ROADMAP A9 in the port's batcher; until then the
-server applies it as a no-op.  Their host-tier demotion sweep runs
-(``ContinuousBatcher.demote_idle``).
+it imports nothing of the package).  The brownout rungs shrink the
+batcher's live fused-prefill budget (``ContinuousBatcher.prefill_budget``,
+read by ``_pf_chunk`` at each fused admission) and run the host-tier
+demotion sweep (``ContinuousBatcher.demote_idle``).
 
 A static FIFO depth count (``LLMServer.max_queue`` -> bare 503) alone
 would give a 32k-token prompt and a 16-token ping the same admission

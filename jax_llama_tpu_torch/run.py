@@ -24,15 +24,18 @@ so an argv that one accepts the other does too, plus ``--device`` (default
 (``server.LLMServer``: POST /generate and /chat, GET /metrics, /healthz,
 /debug/*) run on the card, or on the CPU with ``--device cpu``; ``--http``
 never falls back to the CPU.  A flag whose feature is not ported exits
-with a message that names its ROADMAP item: ``--logprobs`` (A17),
-``--replicas`` > 1, ``--autoscale``, ``--replica-roles`` (A12),
-``--serve-mesh`` and a ``--data``/``--fsdp``/``--tensor`` mesh of more
-than one device (A14).  ``--serve`` and ``--http`` run the prefix cache
-as the JAX CLI does (``--prefix-index radix`` by default, ``exact``,
-``off``; ``--no-prefix-cache``; ``--host-kv-blocks`` > 0 attaches the
-host tier, radix only), with classic whole-prompt admission (A9), and
-say so in one log line when the flags ask for fused prefill (its
-default does).  ``--log-json`` formats the log lines.
+with a message that names its ROADMAP item: ``--replicas`` > 1,
+``--autoscale``, ``--replica-roles`` (A12), ``--serve-mesh`` and a
+``--data``/``--fsdp``/``--tensor`` mesh of more than one device (A14).
+``--serve`` and ``--http`` run as the JAX CLI does: the prefix cache
+(``--prefix-index radix`` by default, ``exact``, ``off``;
+``--no-prefix-cache``; ``--host-kv-blocks`` > 0 attaches the host tier,
+radix only) and fused prefill-decode scheduling
+(``--prefill-budget 512`` by default: a prompt that arrives while rows
+decode is prefilled in chunks of at most that many tokens inside the
+decode dispatches; 0 admits whole prompts).  ``--logprobs`` (``--http``
+only, as in the JAX CLI) lets a request ask for each token's logprob
+(``"logprobs": true``).  ``--log-json`` formats the log lines.
 The flags that only configure the replica fleet (routing, canaries,
 autoscale bounds: A12) are parsed from one table, ``_FLEET_FLAGS``, and
 have nothing to configure until their item.
@@ -135,9 +138,13 @@ def main() -> None:
                          "restores the per-token loop; speculative "
                          "serving chunks by --spec-rounds instead)")
     ap.add_argument("--prefill-budget", type=int, default=512,
-                    help="fused prefill-decode scheduling (ROADMAP A9): "
-                         "--serve admits whole prompts (budget 0) and "
-                         "logs one line when this asks for more")
+                    help="fused prefill-decode scheduling for --serve / "
+                         "--http: a prompt that arrives while rows "
+                         "decode is prefilled in chunks of at most this "
+                         "many tokens inside the decode dispatches, so "
+                         "no decoding row stalls; 0 admits whole "
+                         "prompts at step boundaries (speculative "
+                         "serving always does)")
     ap.add_argument("--draft-ckpt-dir", default=None,
                     help="checkpoint dir of a draft model for speculative "
                          "--serve (must share the target's vocabulary; "
@@ -176,7 +183,8 @@ def main() -> None:
                          "in on a side stream while rows decode; 0 "
                          "(default) disables the tier")
     ap.add_argument("--logprobs", action="store_true",
-                    help="per-token logprobs (ROADMAP A17; refused)")
+                    help="compute per-token model logprobs so HTTP "
+                         "requests may ask for them (\"logprobs\": true)")
     _add_http_flags(ap)
     for flag, kind, default, choices in _FLEET_FLAGS:
         ap.add_argument(flag, type=kind, default=default, choices=choices,
@@ -236,7 +244,7 @@ def main() -> None:
         _serve_http(params, config, tokenizer, device, args, logger=log)
         return
     if args.serve:
-        _serve(params, config, tokenizer, device, args, log)
+        _serve(params, config, tokenizer, device, args)
         return
 
     model = LLaMA(params=params, config=config, tokenizer=tokenizer,
@@ -389,7 +397,6 @@ def _refuse_unported(args) -> None:
     tensor = args.tensor or 1  # 0 = every local device: the one card
     mesh = args.data * args.fsdp * tensor
     unported = (
-        (args.logprobs, "--logprobs (per-token logprobs)", "A17"),
         (args.replicas > 1, "--replicas > 1 (the replica router)", "A12"),
         (args.autoscale, "--autoscale (the fleet controller)", "A12"),
         (args.replica_roles is not None,
@@ -411,6 +418,10 @@ def _refuse_unported(args) -> None:
             "--host-kv-blocks requires --prefix-index radix with the "
             "prefix cache enabled (the host tier hangs off radix-node "
             "residency)")
+    if args.logprobs and args.http is None:
+        raise SystemExit(
+            "--logprobs only applies to the HTTP server (--http PORT); "
+            "the stdin/--serve and one-shot modes have no logprobs output")
     # The env var is checked too: a JLT_FAULTS drill that the chosen mode
     # cannot honor must refuse, not run fault-free while the operator
     # believes injection was armed.
@@ -465,24 +476,15 @@ def _stops(tokenizer):
     )
 
 
-def _batcher_kwargs(args, draft_params, log) -> dict:
+def _batcher_kwargs(args) -> dict:
     """The batcher arguments that ``--serve`` and ``--http`` take from the
-    flags, the prefix cache's as the JAX CLI passes them.  Fused prefill
-    (A9) is not ported: the batcher runs without it, and one log line
-    says so when the flags ask for it (the JAX CLI's default does)."""
-    if args.prefill_budget > 0 and draft_params is None:
-        log.log(
-            "serve_options_not_ported",
-            "serving with prefill_budget=0: fused prefill-decode is "
-            "ROADMAP A9",
-            prefill_budget=args.prefill_budget,
-        )
+    flags, as the JAX CLI passes them (JAX :664-671)."""
     return dict(
         n_slots=args.slots, max_len=None, temperature=args.temperature,
-        top_p=args.top_p, seed=args.seed,
+        top_p=args.top_p, seed=args.seed, logprobs=args.logprobs,
         prefix_cache=not args.no_prefix_cache,
         decode_chunk=args.decode_chunk, n_draft=args.n_draft,
-        spec_rounds=args.spec_rounds, prefill_budget=0,
+        spec_rounds=args.spec_rounds, prefill_budget=args.prefill_budget,
         prefix_index=args.prefix_index,
         host_kv_blocks=args.host_kv_blocks,
         prefill_kernel=args.prefill_kernel,
@@ -490,7 +492,7 @@ def _batcher_kwargs(args, draft_params, log) -> dict:
     )
 
 
-def _serve(params, config, tokenizer, device, args, log) -> None:
+def _serve(params, config, tokenizer, device, args) -> None:
     """Continuous-batching loop over stdin prompts (one per line)."""
     import sys
 
@@ -499,7 +501,7 @@ def _serve(params, config, tokenizer, device, args, log) -> None:
     stops = _stops(tokenizer)
     draft_params, draft_config = _load_draft(args, device)
     cb = ContinuousBatcher(
-        params, config, **_batcher_kwargs(args, draft_params, log),
+        params, config, **_batcher_kwargs(args),
         stop_tokens=stops, draft_params=draft_params,
         draft_config=draft_config, device=device,
     )
@@ -567,7 +569,7 @@ def _serve_http(params, config, tokenizer, device, args, _test_hook=None,
         peak_bytes_per_s=args.peak_hbm_gbps * 1e9,
     )
     cb = ContinuousBatcher(
-        params, config, **_batcher_kwargs(args, draft_params, logger),
+        params, config, **_batcher_kwargs(args),
         stop_tokens=_stops(tokenizer), draft_params=draft_params,
         draft_config=draft_config, fault_injector=injector, obs=obs,
         cost_models=not args.no_cost_models, device=device,

@@ -93,10 +93,28 @@ in the queue.
   the copy's event has passed.  ``export_prefix`` / ``import_prefix``
   move a chain's blocks between batchers through the same primitives.
 
-Not in this slice; each raises ``NotImplementedError`` at construction,
-naming its ROADMAP item: meshes (A14), logprobs (A17), fused
-prefill-decode (A9).  ``stats()`` reports those features' counters at
-the values the JAX package reports with them off.
+* Fused prefill-decode scheduling (``prefill_budget`` > 0, JAX
+  :89-116): while any row decodes, an admission moves queued ->
+  prefilling(offset) -> decoding.  The queue head's blocks are reserved
+  and its suffix uploaded once (``_setup_fused_prefill``); each later
+  chunk dispatch is ``_fused_chunk``: up to ``_pf_chunk`` prompt tokens
+  through the row's gathered view at a scalar write index (the flash
+  kernel over a chunk of more than 8 tokens; a prefix hit walks from
+  fill0), then the unchanged decode scan, with one fetch.  The dispatch
+  that lands the last chunk samples the first token with the row's own
+  generator and folds the row into the decode state on the device, so
+  that dispatch emits it.  One admission at a time; a cold pool and a
+  speculative batcher admit classically, and a classic admission made
+  while a row decodes books its insert time in
+  ``decode_stall_ms_total``.
+* Logprobs (``logprobs=True``, JAX :907): every dispatch carries each
+  emitted token's float32 log-probability under the raw logits beside
+  the token (``_token_logprob``), bit-cast into the same packed fetch,
+  and ``step()`` yields it as a 4th element.
+
+Not in this slice: a serving mesh raises ``NotImplementedError`` at
+construction, naming ROADMAP A14; ``stats()`` reports its counters at
+the values the JAX package reports without one.
 """
 
 from __future__ import annotations
@@ -111,7 +129,7 @@ import torch
 
 from . import obs as _obs_mod
 from .config import LLaMAConfig
-from .engine import prompt_positions
+from .engine import prompt_positions, window_positions
 from .faults import FaultInjector, InjectedFault
 from .kvcache import (
     MatchResult,
@@ -366,17 +384,39 @@ def _finite_rows(logits: torch.Tensor) -> torch.Tensor:
     return torch.isfinite(logits).all(dim=-1)
 
 
+def _token_logprob(logits: torch.Tensor, tok: torch.Tensor) -> torch.Tensor:
+    """Model log-probability of ``tok`` under a float32 log-softmax of
+    the RAW logits (JAX :907): independent of temperature, top-p and
+    top-k, and what ``engine.score`` reports for the same position.
+    logits [B, V], tok [B] -> [B] float32."""
+    lg = logits.float()
+    picked = torch.gather(lg, 1, tok.long().clamp(min=0)[:, None])[:, 0]
+    return picked - torch.logsumexp(lg, dim=-1)
+
+
+def _pack_logprobs(toks: torch.Tensor, lps: Optional[torch.Tensor]
+                   ) -> torch.Tensor:
+    """[1 or 2, ...] int32: the token block, and under logprobs the float32
+    logprobs bit-cast to int32 beside it (JAX :744-760), so that a chunk
+    still pays ONE device->host fetch."""
+    toks = toks.to(torch.int32)
+    if lps is None:
+        return toks[None]
+    return torch.stack([toks, lps.float().contiguous().view(torch.int32)])
+
+
 # ---------------------------------------------------------------------------
 # Step programs
 # ---------------------------------------------------------------------------
 
 def _decode_step_core(
     params, pool, table, n_alloc, fill, tau, pos, active, generators,
-    temperature, top_p, top_k, *, config, use_kernel,
+    temperature, top_p, top_k, *, config, use_kernel, with_logprobs=False,
 ):
     """One [n_slots, 1] decode iteration over the paged pool, updating the
-    pool in place.  Returns the next token [B], -1 for a row whose logits
-    are not finite."""
+    pool in place.  Returns (the next token [B], -1 for a row whose logits
+    are not finite; its logprob [B] under ``with_logprobs``, else
+    None)."""
     positions = torch.where(active, pos, -1)[:, None]
     if use_kernel:
         cache = pool.paged(table, fill)
@@ -389,12 +429,14 @@ def _decode_step_core(
         _scatter_back(pool, view, table, fill, active, T=1)
     last = logits[:, -1]
     nxt = sample_rows(generators, last, temperature, top_p, top_k)
-    return torch.where(_finite_rows(last), nxt, -1)
+    lp = _token_logprob(last, nxt) if with_logprobs else None
+    return torch.where(_finite_rows(last), nxt, -1), lp
 
 
 def _chunk_scan(
-    params, pool, table, n_alloc, fill, tau, pos, active, remaining, stops,
-    generators, temperature, top_p, top_k, *, config, n_iter, use_kernel,
+    params, pool, table, n_alloc, fill, tau, tau_lp, pos, active, remaining,
+    stops, generators, temperature, top_p, top_k, *, config, n_iter,
+    use_kernel, with_logprobs=False,
 ):
     """``n_iter`` decode iterations (JAX ``_chunk_scan``, a Python loop over
     device tensors here).  Each iteration replays the host's one-token
@@ -402,39 +444,122 @@ def _chunk_scan(
 
       1. emit the pending token ``tau`` into column i of the token block
          (-1 for the non-finite sentinel, ``_CHUNK_PAD`` for rows already
-         inactive);
+         inactive), and its logprob ``tau_lp`` beside it;
       2. a row whose emitted token is one of its stops, whose budget is
          spent, or whose token is the sentinel leaves ``active``: it stops
          attending and writing for the rest of the chunk;
       3. one ``_decode_step_core`` iteration for the remaining rows, then
          fill/pos advance.
 
-    Returns (tokens [B, n_iter] int32, tau, fill, pos, active, remaining).
+    Returns (packed [1 or 2, B, n_iter] int32: the token block, and under
+    ``with_logprobs`` the float32 logprobs bit-cast beside it; tau,
+    tau_lp, fill, pos, active, remaining).  The decode half of
+    ``_fused_chunk`` too.
     """
-    toks = []
+    toks, lps = [], []
     for _ in range(n_iter):
         nonfinite = tau < 0
         toks.append(torch.where(
             active, torch.where(nonfinite, -1, tau), _CHUNK_PAD))
+        lps.append(tau_lp)
         done = active & (nonfinite | stop_token_hits(tau, stops)
                          | (remaining <= 1))
         remaining = remaining - active.to(torch.int32)
         active = active & ~done
-        nxt = _decode_step_core(
+        nxt, lp = _decode_step_core(
             params, pool, table, n_alloc, fill, tau, pos, active,
             generators, temperature, top_p, top_k, config=config,
-            use_kernel=use_kernel,
+            use_kernel=use_kernel, with_logprobs=with_logprobs,
         )
         tau = torch.where(active, nxt, tau)
+        if with_logprobs:
+            tau_lp = torch.where(active, lp, tau_lp)
         fill = fill + active.to(torch.int32)
         pos = pos + active.to(torch.int32)
-    return (torch.stack(toks, dim=1).to(torch.int32), tau, fill, pos, active,
-            remaining)
+    packed = _pack_logprobs(torch.stack(toks, dim=1),
+                            torch.stack(lps, dim=1) if with_logprobs
+                            else None)
+    return packed, tau, tau_lp, fill, pos, active, remaining
+
+
+def _fused_chunk(
+    params, pool, table, n_alloc, fill, tau, tau_lp, pos, active, remaining,
+    stops, generators, temperature, top_p, top_k, pf_toks, *, config,
+    n_iter, use_kernel, with_logprobs, pf_row, pf_base, pf_off, pf_len,
+    pf_chunk, pf_generator,
+):
+    """The fused prefill-decode dispatch (JAX :770): one bounded prefill
+    chunk of the single in-flight admission, then the unchanged
+    ``_chunk_scan``, so admissions never stall the decoding rows.
+
+    Prefill half: row ``pf_row``'s gathered view (``_gather_cache`` of
+    its table row) with the SCALAR write index ``pf_base + pf_off``, so
+    the forward's "auto" rule runs the flash kernel over a chunk of more
+    than ``FLASH_MIN_SEQ`` tokens (a per-row index would force the xla
+    path); a prefix-hit row starts its walk at ``pf_base`` = fill0 and
+    attends the reused KV through the same view.  ``pf_toks`` is the
+    suffix, uploaded once at admission; the window's positions are made
+    on the device from host ints (``window_positions``), so no chunk
+    copies anything to the card.  Only the chunk's own window is written
+    back (``_scatter_back(T=C)``); the host's ``_pf_chunk`` clamp keeps
+    ``pf_base + pf_off + C`` inside the view.
+
+    On the chunk that lands the last prompt token (the host knows which)
+    the first token is sampled from that token's logits with the row's
+    own policy and generator ``pf_generator`` (one draw, the classic
+    insert's), under the non-finite guard, and the row folds into the
+    decode state on the device (active, tau, tau_lp, fill, pos): the scan
+    below emits its first token from this dispatch.  A non-final chunk
+    draws nothing.  The prefilling row rides the scan masked until then.
+
+    Returns ``_chunk_scan``'s tuple."""
+    C = pf_chunk
+    dev = tau.device
+    write_at = pf_base + pf_off
+    table_r = table[pf_row:pf_row + 1]
+    at = torch.full((1,), write_at, dtype=torch.int32, device=dev)
+    view = _gather_cache(pool, table_r, n_alloc[pf_row:pf_row + 1], at)
+    view.index = write_at
+    positions, real = window_positions(pf_base, pf_off, C, pf_len,
+                                       device=dev)
+    _, view, aux = forward(
+        params, pf_toks[pf_off:pf_off + C][None], positions, config,
+        cache=view, attn_mask=real, compute_logits=False,
+        output_last_hidden=True,
+    )
+    _scatter_back(pool, view, table_r, at,
+                  torch.ones((1,), dtype=torch.bool, device=dev), T=C)
+    idx = pf_len - 1 - pf_off
+    if 0 <= idx < C:
+        logits = lm_head_logits(
+            params, aux.last_hidden_state[:, idx:idx + 1], config,
+            normed=True)[:, 0]
+        r = slice(pf_row, pf_row + 1)
+        first = sample_rows([pf_generator], logits, temperature[r],
+                            top_p[r], top_k[r])
+        if with_logprobs:
+            tau_lp = torch.where(
+                torch.arange(tau.shape[0], device=dev) == pf_row,
+                _token_logprob(logits, first)[0], tau_lp)
+        first = torch.where(_finite_rows(logits), first, -1)
+        fold = torch.arange(tau.shape[0], device=dev) == pf_row
+        active = active | fold
+        tau = torch.where(fold, first[0], tau)
+        fill = torch.where(
+            fold, _round_up(pf_base + pf_len, pool.block_size), fill)
+        pos = torch.where(fold, pf_base + pf_len, pos)
+    return _chunk_scan(
+        params, pool, table, n_alloc, fill, tau, tau_lp, pos, active,
+        remaining, stops, generators, temperature, top_p, top_k,
+        config=config, n_iter=n_iter, use_kernel=use_kernel,
+        with_logprobs=with_logprobs,
+    )
 
 
 def _paged_insert(
     params, pool, block_ids, prompt_tokens, prompt_mask, generators,
     temperature, top_p, top_k, *, config, prefill_chunk=None,
+    with_logprobs=False,
 ):
     """Prefill a batch of admitted requests and land their KV in their
     reserved blocks (in place).
@@ -443,8 +568,9 @@ def _paged_insert(
     group's block-multiple length P.  block_ids: [k, P // block_size]
     numpy int32, the physical blocks of each row's prompt span; entries
     equal to n_blocks (past a shorter row's span, or a padding row) are
-    dropped.  Logits are taken at each row's last real token.  Returns the
-    sampled first tokens [k] int32 (-1 where the logits are not finite).
+    dropped.  Logits are taken at each row's last real token.  Returns
+    (the sampled first tokens [k] int32, -1 where the logits are not
+    finite; their logprobs [k] under ``with_logprobs``, else None).
     """
     k_rows, P = prompt_tokens.shape
     L, KVH, NB, BLK = pool.k.shape[:4]
@@ -472,6 +598,7 @@ def _paged_insert(
     logits_last = lm_head_logits(params, h_last[:, None], config,
                                  normed=True)[:, 0]
     tau = sample_rows(generators, logits_last, temperature, top_p, top_k)
+    lp = _token_logprob(logits_last, tau) if with_logprobs else None
     tau = torch.where(_finite_rows(logits_last), tau, -1)
 
     r, j = np.nonzero(block_ids < NB)
@@ -490,13 +617,13 @@ def _paged_insert(
             plane[:, :, b_t] = new.reshape(span + new.shape[4:])[
                 :, r_t, j_t].movedim(3, 1)
         pool.pos[b_t] = sub.pos.reshape(k_rows, P // BLK, BLK)[r_t, j_t]
-    return tau
+    return tau, lp
 
 
 def _paged_suffix_insert(
     params, pool, table_rows, n_alloc_rows, fill0, suffix_tokens,
     suffix_mask, generators, temperature, top_p, top_k, *, config,
-    prefill_chunk=None,
+    prefill_chunk=None, with_logprobs=False,
 ):
     """Prefill k requests' prompt SUFFIXES over the paged pool (JAX
     :1050), in place: the prefix-cache admission path.  The leading
@@ -512,8 +639,7 @@ def _paged_suffix_insert(
     table_rows: [k, MB] int32; n_alloc_rows, fill0: [k] int32 (fill0 =
     the shared prefix length in tokens, a block multiple);
     suffix_tokens/mask: [k, T] right-padded to a block multiple.
-    Returns the sampled first tokens [k] int32 (-1 where the logits are
-    not finite)."""
+    Returns ``_paged_insert``'s (first tokens, logprobs or None)."""
     k_rows, T = suffix_tokens.shape
     device = suffix_tokens.device
     view = _gather_cache(pool, table_rows, n_alloc_rows, fill0)
@@ -542,13 +668,14 @@ def _paged_suffix_insert(
     _scatter_back(pool, view, table_rows, fill0,
                   torch.ones((k_rows,), dtype=torch.bool, device=device), T)
     tau = sample_rows(generators, logits_last, temperature, top_p, top_k)
-    return torch.where(_finite_rows(logits_last), tau, -1)
+    lp = _token_logprob(logits_last, tau) if with_logprobs else None
+    return torch.where(_finite_rows(logits_last), tau, -1), lp
 
 
 def _spec_round_core(
     t_params, d_params, t_pool, d_pool, table, n_alloc, fill, tau, pos,
     active, generators, temperature, top_p, top_k, *, t_config, d_config,
-    n_draft, use_kernel,
+    n_draft, use_kernel, with_logprobs=False,
 ):
     """One speculative round for every active slot (JAX :1146), greedy or
     sampled verification per row, both pools updated in place.
@@ -575,7 +702,9 @@ def _spec_round_core(
     kernel at T = n_draft+1); otherwise both pools go through gathered
     views (the tests' oracle).  Returns (outs [B, G+1] int32: the host
     emits ``outs[:acc]`` and keeps ``outs[acc]`` as the next pending
-    token; acc [B] int32)."""
+    token; acc [B] int32; under ``with_logprobs`` the target's logprob of
+    ``outs[:, j]`` at each offset j [B, G+1] float32 (JAX :1345-1350),
+    else None)."""
     G = n_draft
     B = tau.shape[0]
     dev = tau.device
@@ -644,6 +773,13 @@ def _spec_round_core(
         acc = torch.where(is_greedy, acc, acc_s)
     acc = torch.where(torch.isfinite(t_logits).all(dim=-1).all(dim=-1),
                       acc, -1)
+    lps = None
+    if with_logprobs:
+        # t_logits[:, j] is the raw distribution the token emitted at
+        # offset j was drawn or verified from.
+        V = t_logits.shape[-1]
+        lps = _token_logprob(t_logits.reshape(B * (G + 1), V),
+                             outs.reshape(-1)).reshape(B, G + 1)
 
     patched = torch.where(jj <= acc[:, None], block_pos, -1)
     if use_kernel:
@@ -656,13 +792,14 @@ def _spec_round_core(
             _cache_write(view.pos[..., None, None], patched[..., None, None],
                          fill)
             _scatter_back(pool, view, table, fill, active, T=G + 1)
-    return outs, acc
+    return outs, acc, lps
 
 
 def _spec_rounds_chunk(
-    t_params, d_params, t_pool, d_pool, table, n_alloc, fill, tau, pos,
-    active, remaining, stops, generators, temperature, top_p, top_k, *,
-    t_config, d_config, n_draft, n_rounds, use_kernel,
+    t_params, d_params, t_pool, d_pool, table, n_alloc, fill, tau, tau_lp,
+    pos, active, remaining, stops, generators, temperature, top_p, top_k,
+    *, t_config, d_config, n_draft, n_rounds, use_kernel,
+    with_logprobs=False,
 ):
     """``n_rounds`` speculative rounds with one packed result (JAX :1434,
     a Python loop over device tensors here).  Each round replays the
@@ -679,8 +816,10 @@ def _spec_rounds_chunk(
          finished or non-finite row folds out for the rest of the chunk.
 
     Returns (packed [B, R, G+2] int32: each round's G+1 token columns and
-    its acceptance count (-1 non-finite, ``_CHUNK_PAD`` inactive); tau,
-    fill, pos, active, remaining)."""
+    its acceptance count (-1 non-finite, ``_CHUNK_PAD`` inactive), and
+    under ``with_logprobs`` the G+1 columns' float32 logprobs bit-cast
+    after them ([B, R, 2G+3], JAX :1576-1580); tau, tau_lp, fill, pos,
+    active, remaining)."""
     G = n_draft
     i = torch.arange(G, device=tau.device, dtype=torch.int32)[None, :]
     rounds = []
@@ -692,11 +831,12 @@ def _spec_rounds_chunk(
                           | (remaining <= 1))
         remaining = remaining - active.to(torch.int32)
         active = active & ~done0
-        outs, acc = _spec_round_core(
+        out0_lp = tau_lp
+        outs, acc, lps_r = _spec_round_core(
             t_params, d_params, t_pool, d_pool, table, n_alloc, fill, tau,
             pos, active, generators, temperature, top_p, top_k,
             t_config=t_config, d_config=d_config, n_draft=G,
-            use_kernel=use_kernel,
+            use_kernel=use_kernel, with_logprobs=with_logprobs,
         )
         verify_nan = active & (acc < 0)
         acc_c = acc.clamp(0, G)
@@ -714,10 +854,16 @@ def _spec_rounds_chunk(
         new_tau = torch.gather(outs, 1, acc_c.long()[:, None])[:, 0]
         tau = torch.where(cont, new_tau, tau)
         active = cont
-        rounds.append(torch.cat([out0[:, None], out_rest, acc_out[:, None]],
-                                dim=1))
-    packed = torch.stack(rounds, dim=1).to(torch.int32)  # [B, R, G+2]
-    return packed, tau, fill, pos, active, remaining
+        cols = [out0[:, None], out_rest, acc_out[:, None]]
+        if with_logprobs:
+            new_lp = torch.gather(lps_r, 1, acc_c.long()[:, None])[:, 0]
+            tau_lp = torch.where(cont, new_lp, tau_lp)
+            cols.append(torch.cat([out0_lp[:, None], lps_r[:, :G]], dim=1
+                                  ).float().contiguous().view(torch.int32))
+        rounds.append(torch.cat([c.to(torch.int32) for c in cols], dim=1))
+    # [B, R, G+2], or [B, R, 2G+3] with the logprobs' bits.
+    packed = torch.stack(rounds, dim=1)
+    return packed, tau, tau_lp, fill, pos, active, remaining
 
 
 # ---------------------------------------------------------------------------
@@ -735,6 +881,37 @@ class _Slot:
     # earlier healthy dispatches); blocks[shared:] are this request's own
     # writes, the ones the non-finite guard unpublishes.
     shared: int = 0
+
+
+@dataclasses.dataclass
+class _Prefill:
+    """Host view of the single in-flight fused admission (queued ->
+    prefilling(off) -> decoding; JAX :1667).  The suffix tokens are
+    uploaded once, at admission (``d_toks``); ``off`` advances by
+    ``chunk`` per fused dispatch on the host, which therefore knows
+    without a fetch which dispatch lands the last chunk."""
+
+    slot: int
+    req: "_Request"
+    chain: List[bytes]
+    n_share: int          # leading prefix-cache-hit blocks
+    base: int             # fill0 in tokens (a block multiple)
+    suffix_len: int       # real suffix tokens to prefill
+    chunk: int            # C: prompt tokens advanced per dispatch
+    off: int = 0          # suffix tokens already dispatched
+    d_toks: Any = None    # [n_chunks * C] int32 on the device
+
+    @property
+    def remaining_tokens(self) -> int:
+        return max(0, self.suffix_len - self.off)
+
+    @property
+    def flash(self) -> bool:
+        """Host mirror of the prefill half's "auto" rule: the chunk runs
+        the flash kernel iff it is longer than ``FLASH_MIN_SEQ`` tokens
+        (the view's write index is a scalar, so the per-row rule never
+        forces the xla path here)."""
+        return self.chunk > FLASH_MIN_SEQ
 
 
 @dataclasses.dataclass
@@ -815,6 +992,16 @@ class ContinuousBatcher:
     requests queue until their reservation fits.  ``decode_chunk`` runs up
     to that many decode iterations per ``step()`` with one host fetch;
     output is token-identical to ``decode_chunk=1``.
+
+    ``prefill_budget`` > 0 turns on fused prefill-decode scheduling
+    (JAX :89-116): while any row decodes, the queue head is prefilled in
+    chunks of at most that many prompt tokens (``_pf_chunk``) inside the
+    decode dispatches (``_fused_chunk``), one admission at a time, so no
+    decoding row stalls; a cold pool, and a speculative batcher, admit
+    classically.  ``logprobs=True`` makes every ``step()`` event a 4-tuple
+    whose last element is the token's float32 log-probability under the
+    raw logits (``engine.score``'s value for that position), carried in
+    the same one fetch per chunk.
     """
 
     # Chunk clamp while the queue is capacity-blocked (JAX :2765).
@@ -911,17 +1098,10 @@ class ContinuousBatcher:
                     decode_kernel or draft_config.decode_kernel,
                     draft_config),
             )
-        unported = (
-            (mesh is not None, "mesh (serving-mesh sharding)", "A14"),
-            (logprobs, "logprobs=True", "A17"),
-            (prefill_budget > 0,
-             "prefill_budget > 0 (fused prefill-decode)", "A9"),
-        )
-        for bad, what, item in unported:
-            if bad:
-                raise NotImplementedError(
-                    f"ContinuousBatcher: {what} is not ported "
-                    f"(ROADMAP {item})")
+        if mesh is not None:
+            raise NotImplementedError(
+                "ContinuousBatcher: mesh (serving-mesh sharding) is not "
+                "ported (ROADMAP A14)")
         for c in (config, draft_config) if spec else (config,):
             if c.attn_impl not in ("xla", "auto"):
                 raise ValueError(
@@ -990,10 +1170,15 @@ class ContinuousBatcher:
         self.draft_pool = (
             init_pool(draft_config, self.n_blocks, self.block_size,
                       device=self.device) if spec else None)
-        # Features of the ctor whose ROADMAP item is not ported, at the
-        # values the constructor admits (anything else raised above).
-        self.logprobs = False
-        self.prefill_budget = 0
+        self.logprobs = bool(logprobs)
+        # Fused prefill-decode scheduling (JAX :1926-1932): the live
+        # budget, which the server's brownout rung shrinks in place.
+        self.prefill_budget = max(0, int(prefill_budget))
+        # The single in-flight fused admission (None: none).
+        self._pf: Optional[_Prefill] = None
+        # Set while _admit_classic runs with a row decoding: the inserts
+        # recorded meanwhile stalled decode (``decode_stall_ms_total``).
+        self._stalling = False
         # The prefix cache (JAX :2034-2072): the index behind it lives in
         # kvcache.py; ``host_kv_blocks`` > 0 attaches the host tier
         # (radix only, inert elsewhere: the prefix-cache quarantine
@@ -1082,6 +1267,8 @@ class ContinuousBatcher:
         self.d_remaining = twin(self.remaining)
         self.d_stops = twin(self.stop_tab)
         self.tau = torch.zeros((B,), dtype=torch.int32, device=dev)
+        # The model logprob of each row's pending tau (logprobs=True).
+        self.d_tau_lp = torch.zeros((B,), dtype=torch.float32, device=dev)
         self.generators: List[Optional[torch.Generator]] = [None] * B
         self._dirty_rows: set = set()
 
@@ -1122,6 +1309,10 @@ class ContinuousBatcher:
         self.spec_emitted_total = 0
         self._accept_window: collections.deque = collections.deque(
             maxlen=64)
+        # Fused prefill-decode counters (JAX :2119-2123).
+        self.prefill_chunks_total = 0
+        self.fused_admissions_total = 0
+        self.decode_stall_ms_total = 0.0
 
         self.slots: Dict[int, Optional[_Slot]] = {
             b: None for b in range(n_slots)
@@ -1163,17 +1354,19 @@ class ContinuousBatcher:
             self.fault_injector.fire(site)
 
     def _open_dispatch(self, site: str, kernels: Sequence[KernelSpec],
-                       extra: Sequence[str] = ()) -> None:
+                       extra: Sequence[str] = (),
+                       sites: Sequence[str] = ()) -> None:
         """Name the degradable features the NEXT dispatch runs (``extra``,
         then each kernel's ``KernelSpec.feature``), then fire its fault
-        sites: the generic ``site``, ``extra`` (each is its own site), and
-        each kernel's ``fault_site``.  Named before the sites fire, so an
-        exception out of a site or the dispatch is attributable."""
+        sites: the generic ``site``, ``extra`` (each is its own site),
+        ``sites`` (sites that name no feature), and each kernel's
+        ``fault_site``.  Named before the sites fire, so an exception out
+        of a site or the dispatch is attributable."""
         feats = (*extra, *(k.feature for k in kernels))
         self.last_dispatch_features = feats
         self.last_step_features.update(feats)
         self._fault(site)
-        for f in extra:
+        for f in (*extra, *sites):
             self._fault(f)
         for k in kernels:
             self._fault(k.fault_site)
@@ -1189,8 +1382,10 @@ class ContinuousBatcher:
                 return
             ev1.synchronize()
             del self._unsettled[0]
-            self.obs.record_dispatch(wall_ms=ev0.elapsed_time(ev1),
-                                     start_ms=start, **rec)
+            ms = ev0.elapsed_time(ev1)
+            if rec.pop("stalled", False):
+                self.decode_stall_ms_total += ms
+            self.obs.record_dispatch(wall_ms=ms, start_ms=start, **rec)
 
     def _dispatch_cost(self, program: str, count
                        ) -> Tuple[Optional[float], Optional[float]]:
@@ -1337,7 +1532,8 @@ class ContinuousBatcher:
             "spec_rounds": int(kw["spec_rounds"]),
             "speculative": self.spec,
             "n_draft": self.n_draft if self.spec else 0,
-            "prefill_budget": int(kw["prefill_budget"]),
+            # The live budget: a brownout rung shrinks it in place.
+            "prefill_budget": int(self.prefill_budget),
             "prefix_index": self.prefix_index,
             "host_kv_blocks": self.host_kv_blocks,
             "logprobs": self.logprobs,
@@ -1349,11 +1545,13 @@ class ContinuousBatcher:
     def stats(self) -> Dict[str, float]:
         """Counters, under the JAX package's ``stats()`` names and values
         (``insert_dispatches_total`` is the port's: prefill dispatches,
-        full and suffix).  Fused prefill (A9) and the serving mesh (A14)
-        report the values the JAX package reports with them off.  Read
-        by HTTP handler threads while the serving loop owns the batcher:
-        each value is a point-in-time read of single-writer host state
-        (the digest under its own lock), never a device read."""
+        full and suffix; a fused prefill chunk is not one).  The serving
+        mesh (A14) reports the values the JAX package reports without
+        one.  Read by HTTP handler threads while the serving loop owns
+        the batcher: each value is a point-in-time read of single-writer
+        host state (the digest under its own lock; ``_pf`` snapshotted
+        first, the loop may null it), never a device read."""
+        pf = self._pf
         dg = self.kv_digest.summary()
         out: Dict[str, float] = {} if self.fault_injector is None else (
             dict(self.fault_injector.stats()))
@@ -1418,12 +1616,16 @@ class ContinuousBatcher:
                 self.spec_host_syncs_total
                 / max(1, self.spec_emitted_total)),
             "spec_window_acceptance_rate": self._window_acceptance(),
-            # A9: fused prefill-decode scheduling.
+            # Fused prefill-decode scheduling: prompt tokens of the
+            # in-flight admission still to prefill, dispatches that
+            # carried a prefill chunk, admissions through the fused lane,
+            # and the decode stall that classic admissions cost.
             "prefill_budget": self.prefill_budget,
-            "prefill_tokens_inflight": 0,
-            "prefill_chunks_total": 0,
-            "fused_admissions_total": 0,
-            "decode_stall_ms_total": 0.0,
+            "prefill_tokens_inflight": (
+                pf.remaining_tokens if pf is not None else 0),
+            "prefill_chunks_total": self.prefill_chunks_total,
+            "fused_admissions_total": self.fused_admissions_total,
+            "decode_stall_ms_total": round(self.decode_stall_ms_total, 3),
         })
         return out
 
@@ -1465,11 +1667,14 @@ class ContinuousBatcher:
         return summary
 
     @torch.no_grad()
-    def step(self) -> List[Tuple[int, int, bool]]:
+    def step(self) -> List[Tuple]:
         """Admit what fits, then one chunk of up to K decode iterations for
-        every active slot.  Returns [(request_id, token, done)] for the
-        tokens emitted this call; finished slots free their blocks and
-        queued requests are admitted for the next call."""
+        every active slot (with a fused prefill chunk riding along while
+        an admission is in flight).  Returns [(request_id, token, done)]
+        for the tokens emitted this call, each with a 4th element, the
+        token's logprob, when ``logprobs=True`` (JAX :2693-2700);
+        finished slots free their blocks and queued requests are admitted
+        for the next call."""
         self.last_step_features = set()
         try:
             self._settle_inserts(wait=False)
@@ -1490,7 +1695,7 @@ class ContinuousBatcher:
         """Drain everything; returns {request_id: emitted tokens}."""
         results: Dict[int, List[int]] = {}
         while self.pending():
-            for rid, tok, _ in self.step():
+            for rid, tok, *_ in self.step():
                 results.setdefault(rid, []).append(tok)
         return results
 
@@ -1552,62 +1757,135 @@ class ContinuousBatcher:
         self.d_top_ps[idx] = top_ps.view(torch.float32)
         self.d_stops[idx] = up[:, 9 + MB:]
 
-    def _step_chunked(self) -> List[Tuple[int, int, bool]]:
+    def _step_chunked(self) -> List[Tuple]:
         """One chunk dispatch, one packed fetch, then the host replays the
-        token block to advance its mirrors and emit events (JAX :2851,
-        without the fused-prefill branch)."""
+        token block to advance its mirrors and emit events (JAX :2851).
+        While an admission is mid-prefill (``self._pf``) the dispatch is
+        ``_fused_chunk``: the same K decode iterations plus one bounded
+        prefill chunk and the same one fetch, so the decoding rows keep
+        emitting while the prompt lands, and K does not collapse to 1 (a
+        fused admission is no insert dispatch)."""
         admitted = self._admit_dispatches > self._admits_at_last_chunk
         self._admits_at_last_chunk = self._admit_dispatches
-        K = self._pick_chunk(admitted)
+        pf = self._pf
+        if pf is not None and not bool(np.any(self.active)):
+            # Nothing decodes: keep the masked scan minimal while the
+            # prefill advances.
+            K = 1
+        else:
+            K = self._pick_chunk(admitted)
         self._sync_device_rows()
         # The fault sites fire once per chunk dispatch, before it: an
         # exception reaches the caller with nothing emitted, so recovery
-        # replays from the tokens the caller was given.  The stock kernel
-        # serves the chunk's T = 1 steps over a full-precision pool; its
-        # quarantine falls back to the paged kernel.
+        # replays from the tokens the caller was given (a mid-prefill
+        # request from its prompt and delivered tokens, like any other).
+        # ``prefill_chunk`` counts prefill-carrying dispatches only; the
+        # flash site fires when the chunk runs the flash kernel.  The
+        # stock kernel serves the chunk's T = 1 steps over a
+        # full-precision pool; its quarantine falls back to the paged
+        # kernel.
         kernels: List[KernelSpec] = []
+        if pf is not None and pf.flash and self.config.attn_impl in (
+                "auto", "flash"):
+            kernels.append(PREFILL_KERNELS["flash"])
         if self.use_pallas_kernel:
             kernels.append(DECODE_KERNELS["paged"])
             if (self.config.decode_kernel == "stock-paged"
                     and not self.pool.quantized):
                 kernels.append(DECODE_KERNELS["stock-paged"])
-        self._open_dispatch("step", kernels)
-        stock = len(kernels) == 2
+        self._open_dispatch("step", kernels,
+                            sites=("prefill_chunk",) if pf else ())
+        stock = DECODE_KERNELS["stock-paged"] in kernels
         self.steps_total += K
         self.decode_dispatches_total += 1
         self.decode_chunk_last = K
         live = [(b, s) for b, s in self.slots.items() if s is not None]
         obs_rids = [s.request_id for _, s in live]
-        cost_fl, cost_by = self._dispatch_cost(
-            "_chunk_scan", lambda: self._cost.decode(
-                [(int(self.pos[b]), min(K, s.max_new - len(s.emitted)))
-                 for b, s in live]))
+        pf_adv = 0 if pf is None else min(pf.chunk, pf.remaining_tokens)
+        final = pf is not None and pf.off + pf.chunk >= pf.suffix_len
+        decoding = [(int(self.pos[b]), min(K, s.max_new - len(s.emitted)))
+                    for b, s in live if self.active[b]]
+        if final:
+            decoding.append((len(pf.req.tokens), min(K, pf.req.max_new)))
+
+        def cost():
+            fl, by = self._cost.decode(decoding)
+            if pf is not None:
+                f2, b2 = self._cost.forward(
+                    [(pf.base + pf.off, pf_adv)], 1 if final else 0)
+                fl, by = fl + f2, by + b2
+            return fl, by
+
+        prog = "_chunk_scan" if pf is None else "_fused_chunk"
+        cost_fl, cost_by = self._dispatch_cost(prog, cost)
+        generators = self._generators_for_round()
+        pf_done_rid: Optional[int] = None
         t0_obs = time.monotonic()
-        (toks, self.tau, self.d_fill, self.d_pos, self.d_active,
-         self.d_remaining) = _chunk_scan(
-            self.params, self.pool, self.d_table, self.d_n_alloc,
-            self.d_fill, self.tau, self.d_pos, self.d_active,
-            self.d_remaining, self.d_stops, self._generators_for_round(),
-            self.d_temps, self.d_top_ps, self.d_top_ks, config=self.config,
-            n_iter=K,
-            use_kernel=self.use_pallas_kernel,
-        )
-        # The one device->host sync of the chunk.
+        state = (self.params, self.pool, self.d_table, self.d_n_alloc,
+                 self.d_fill, self.tau, self.d_tau_lp, self.d_pos,
+                 self.d_active, self.d_remaining, self.d_stops)
+        policies = (self.d_temps, self.d_top_ps, self.d_top_ks)
+        if pf is None:
+            out = _chunk_scan(
+                *state, generators, *policies, config=self.config,
+                n_iter=K, use_kernel=self.use_pallas_kernel,
+                with_logprobs=self.logprobs)
+        else:
+            b = pf.slot
+            pf_generator = generators[b] if final else None
+            # The prefilling row draws nothing until its first token (the
+            # classic insert's draw, made inside the final dispatch).
+            if not final:
+                generators[b] = None
+            out = _fused_chunk(
+                *state, generators, *policies, pf.d_toks, config=self.config,
+                n_iter=K, use_kernel=self.use_pallas_kernel,
+                with_logprobs=self.logprobs, pf_row=b, pf_base=pf.base,
+                pf_off=pf.off, pf_len=pf.suffix_len, pf_chunk=pf.chunk,
+                pf_generator=pf_generator)
+            self.prefill_chunks_total += 1
+            pf.off += pf.chunk
+            if final:
+                # The device folded the row into the decode state and
+                # the scan emitted its first token: catch the host
+                # mirrors up (no dirty marking) and publish the full
+                # chain, whose blocks hold all of its KV only now.
+                self.fill[b] = _round_up(len(pf.req.tokens), self.block_size)
+                self.pos[b] = len(pf.req.tokens)
+                self.active[b] = True
+                self._register_chain(self.slots[b].blocks[:len(pf.chain)],
+                                     pf.chain)
+                pf_done_rid = pf.req.rid
+                self._pf = None
+        (packed, self.tau, self.d_tau_lp, self.d_fill, self.d_pos,
+         self.d_active, self.d_remaining) = out
+        # The one device->host sync of the chunk: the tokens and, bit-cast
+        # beside them, their logprobs.
         tf_obs = time.monotonic()
-        toks = toks.cpu().numpy()
+        arr = packed.cpu().numpy()
         self.host_syncs_total += 1
         now_obs = time.monotonic()
         self._settle_inserts(wait=True)
         self.obs.record_dispatch(
-            kind="decode:stock-paged" if stock else "decode",
-            k=K, occupancy=len(obs_rids),
+            # A fused chunk keeps one kind: its work mixes prefill and
+            # decode.  Its wall time runs to its own fetch, which is what
+            # the prefill_chunk_ms histogram books.
+            kind=(("decode:stock-paged" if stock else "decode")
+                  if pf_adv == 0 else "fused"),
+            k=K, occupancy=len(obs_rids), prefill_tokens=pf_adv,
             wall_ms=(now_obs - t0_obs) * 1000.0,
             fetch_ms=(now_obs - tf_obs) * 1000.0,
             swap_inflight=len(self._restoring), rids=obs_rids,
-            program="_chunk_scan", flops=cost_fl, bytes_accessed=cost_by,
+            program=prog, flops=cost_fl, bytes_accessed=cost_by,
         )
+        if pf_done_rid is not None:
+            # The first token the last chunk sampled opens the decoding
+            # span.
+            self.obs.begin_span(pf_done_rid, "decoding")
+        toks = arr[0]
+        lps = arr[1].view(np.float32) if self.logprobs else None
 
-        out: List[Tuple[int, int, bool]] = []
+        out_ev: List[Tuple] = []
         forced_nan = self._take_nan()
         for b, slot in self.slots.items():
             if slot is None:
@@ -1635,7 +1913,9 @@ class ContinuousBatcher:
                 self.emitted_total += 1
                 done = (tok in slot.stop_tokens
                         or len(slot.emitted) >= slot.max_new)
-                out.append((slot.request_id, tok, done))
+                out_ev.append(
+                    (slot.request_id, tok, done, float(lps[b, i]))
+                    if self.logprobs else (slot.request_id, tok, done))
                 if done:
                     # The device made the same call mid-chunk, so the row is
                     # already inactive there: no deactivation upload owed.
@@ -1649,7 +1929,7 @@ class ContinuousBatcher:
                 self.pos[b] += advanced
                 self.remaining[b] = slot.max_new - len(slot.emitted)
         self._admit()
-        return out
+        return out_ev
 
     def _generators_for_round(self) -> List[Optional[torch.Generator]]:
         """Each slot's generator where its request samples, else None (the
@@ -1657,16 +1937,17 @@ class ContinuousBatcher:
         return [self.generators[b] if s is not None and self.temp_arr[b] > 0
                 else None for b, s in self.slots.items()]
 
-    def _emit(self, b: int, tok: int, out: List[Tuple[int, int, bool]]
-              ) -> bool:
-        """Deliver one token of slot ``b`` on a speculative step; True when
-        its request is done (a stop token or the budget spent)."""
+    def _emit(self, b: int, tok: int, out: List[Tuple], lp=None) -> bool:
+        """Deliver one token of slot ``b`` on a speculative step (with its
+        logprob ``lp`` under logprobs=True); True when its request is done
+        (a stop token or the budget spent)."""
         slot = self.slots[b]
         slot.emitted.append(tok)
         self.emitted_total += 1
         self.spec_emitted_total += 1
         done = tok in slot.stop_tokens or len(slot.emitted) >= slot.max_new
-        out.append((slot.request_id, tok, done))
+        out.append((slot.request_id, tok, done, float(lp))
+                   if self.logprobs else (slot.request_id, tok, done))
         if done:
             self.obs.request_end(slot.request_id, "finished")
         return done
@@ -1688,7 +1969,7 @@ class ContinuousBatcher:
             [int(self.pos[b]) for b, s in self.slots.items()
              if s is not None], self.n_draft, rounds, self._draft_cost))
 
-    def _step_spec(self) -> List[Tuple[int, int, bool]]:
+    def _step_spec(self) -> List[Tuple]:
         """Speculative step (JAX :3135).  ``spec_rounds`` > 1 takes the
         chunked path; ``spec_rounds=1`` is the per-round loop, the oracle
         the chunked path is held to: emit each slot's pending token, free
@@ -1697,8 +1978,13 @@ class ContinuousBatcher:
         round (``_spec_tail``)."""
         if self.spec_rounds > 1:
             return self._step_spec_chunked()
-        out: List[Tuple[int, int, bool]] = []
-        taus = self.tau.cpu().numpy()
+        out: List[Tuple] = []
+        # The pending tokens and, bit-cast beside them, their logprobs:
+        # one fetch.
+        got = _pack_logprobs(self.tau, self.d_tau_lp if self.logprobs
+                             else None).cpu().numpy()
+        taus = got[0]
+        tau_lps = got[1].view(np.float32) if self.logprobs else None
         self.host_syncs_total += 1
         self.spec_host_syncs_total += 1
         forced_nan = self._take_nan()
@@ -1710,7 +1996,8 @@ class ContinuousBatcher:
                 forced_nan = False
                 self._fail_slot(b)
                 continue
-            if self._emit(b, tok, out):
+            if self._emit(b, tok, out,
+                          tau_lps[b] if self.logprobs else None):
                 self._free_slot(b)
         if any(s is not None for s in self.slots.values()):
             # The sites fire after the emit scan, where a real round's
@@ -1726,11 +2013,12 @@ class ContinuousBatcher:
         self._admit()
         return out
 
-    def _spec_tail(self, out: List[Tuple[int, int, bool]]) -> None:
+    def _spec_tail(self, out: List[Tuple]) -> None:
         """One round of the per-round loop (JAX :3451): upload the host
-        mirrors (one packed copy), draft and verify, fetch outs and acc
-        (one packed copy), emit the accepted prefix, advance fill/pos by
-        acc+1, and keep ``outs[acc]`` as the next pending token."""
+        mirrors (one packed copy), draft and verify, fetch outs, acc and
+        under logprobs the target's logprobs (one packed copy), emit the
+        accepted prefix, advance fill/pos by acc+1, and keep ``outs[acc]``
+        (and its logprob) as the next pending token."""
         G = self.n_draft
         B = self.n_slots
         MB = self.table.shape[1]
@@ -1746,17 +2034,21 @@ class ContinuousBatcher:
         up = torch.from_numpy(packed).to(self.device)
         self.state_uploads_total += 1
         n_alloc, fill, pos, active, top_k, temps, top_ps = up[:, MB:].unbind(1)
-        outs, acc = _spec_round_core(
+        outs, acc, lps = _spec_round_core(
             self.params, self.draft_params, self.pool, self.draft_pool,
             up[:, :MB].contiguous(), n_alloc, fill, self.tau, pos,
             active.bool(),
             self._generators_for_round(), temps.view(torch.float32),
             top_ps.view(torch.float32), top_k, t_config=self.config,
             d_config=self.draft_config, n_draft=G,
-            use_kernel=self.use_pallas_kernel,
+            use_kernel=self.use_pallas_kernel, with_logprobs=self.logprobs,
         )
         tf_obs = time.monotonic()
-        arr = torch.cat([outs, acc[:, None]], dim=1).cpu().numpy()
+        cols = [outs, acc[:, None]]
+        if self.logprobs:
+            cols.append(lps.float().contiguous().view(torch.int32))
+        arr = torch.cat(cols, dim=1).cpu().numpy()
+        lps = arr[:, G + 2:].view(np.float32) if self.logprobs else None
         self.host_syncs_total += 1
         self.spec_host_syncs_total += 1
         now_obs = time.monotonic()
@@ -1771,6 +2063,7 @@ class ContinuousBatcher:
         )
         round_proposed = round_accepted = 0
         new_tau = np.zeros((B,), np.int32)
+        new_lp = np.zeros((B,), np.float32)
         for b, slot in self.slots.items():
             if slot is None:
                 continue
@@ -1786,21 +2079,30 @@ class ContinuousBatcher:
             round_accepted += a
             done = False
             for i in range(a):
-                done = self._emit(b, int(arr[b, i]), out)
+                done = self._emit(b, int(arr[b, i]), out,
+                                  lps[b, i] if self.logprobs else None)
                 if done:
                     break
             if done:
                 self._free_slot(b)
             else:
                 new_tau[b] = arr[b, a]
+                if self.logprobs:
+                    # The pending token's logprob travels with it.
+                    new_lp[b] = lps[b, a]
                 self.fill[b] += a + 1
                 self.pos[b] += a + 1
                 self.remaining[b] = slot.max_new - len(slot.emitted)
         if round_proposed:
             self._accept_window.append((round_proposed, round_accepted))
-        self.tau = torch.from_numpy(new_tau).to(self.device)
+        if self.logprobs:
+            up = torch.from_numpy(np.stack([new_tau, new_lp.view(np.int32)])
+                                  ).to(self.device)
+            self.tau, self.d_tau_lp = up[0], up[1].view(torch.float32)
+        else:
+            self.tau = torch.from_numpy(new_tau).to(self.device)
 
-    def _step_spec_chunked(self) -> List[Tuple[int, int, bool]]:
+    def _step_spec_chunked(self) -> List[Tuple]:
         """Speculative step, fused (JAX :3221): ONE ``_spec_rounds_chunk``
         runs R rounds with the pending-token emit, the accepted-prefix
         emit, stop/budget/non-finite folding and the fill advance on the
@@ -1822,14 +2124,15 @@ class ContinuousBatcher:
         live = [s.request_id for s in self.slots.values() if s is not None]
         cost_fl, cost_by = self._spec_cost(R)
         t0_obs = time.monotonic()
-        (packed, self.tau, self.d_fill, self.d_pos, self.d_active,
-         self.d_remaining) = _spec_rounds_chunk(
+        (packed, self.tau, self.d_tau_lp, self.d_fill, self.d_pos,
+         self.d_active, self.d_remaining) = _spec_rounds_chunk(
             self.params, self.draft_params, self.pool, self.draft_pool,
-            self.d_table, self.d_n_alloc, self.d_fill, self.tau, self.d_pos,
-            self.d_active, self.d_remaining, self.d_stops,
-            self._generators_for_round(), self.d_temps, self.d_top_ps,
-            self.d_top_ks, t_config=self.config, d_config=self.draft_config,
-            n_draft=G, n_rounds=R, use_kernel=self.use_pallas_kernel,
+            self.d_table, self.d_n_alloc, self.d_fill, self.tau,
+            self.d_tau_lp, self.d_pos, self.d_active, self.d_remaining,
+            self.d_stops, self._generators_for_round(), self.d_temps,
+            self.d_top_ps, self.d_top_ks, t_config=self.config,
+            d_config=self.draft_config, n_draft=G, n_rounds=R,
+            use_kernel=self.use_pallas_kernel, with_logprobs=self.logprobs,
         )
         # The one device->host sync of the chunk.
         tf_obs = time.monotonic()
@@ -1847,7 +2150,8 @@ class ContinuousBatcher:
             bytes_accessed=cost_by,
         )
 
-        out: List[Tuple[int, int, bool]] = []
+        lps = arr[:, :, G + 2:].view(np.float32) if self.logprobs else None
+        out: List[Tuple] = []
         round_proposed = round_accepted = 0
         forced_nan = self._take_nan()
         for b, slot in self.slots.items():
@@ -1869,7 +2173,8 @@ class ContinuousBatcher:
                     self._fail_slot(b, device_done=True)
                     ended = True
                     break
-                if self._emit(b, tok0, out):
+                if self._emit(b, tok0, out,
+                              lps[b, r, 0] if self.logprobs else None):
                     # The device made the same call before the round.
                     self._free_slot(b, device_done=True)
                     ended = True
@@ -1889,7 +2194,8 @@ class ContinuousBatcher:
                     tok = int(arr[b, r, 1 + i])
                     if tok == _CHUNK_PAD:
                         break
-                    if self._emit(b, tok, out):
+                    if self._emit(b, tok, out, lps[b, r, 1 + i]
+                                  if self.logprobs else None):
                         self._free_slot(b, device_done=True)
                         ended = True
                         break
@@ -2245,6 +2551,12 @@ class ContinuousBatcher:
         the row dirty."""
         slot = self.slots[b]
         assert slot is not None
+        if self._pf is not None and self._pf.slot == b:
+            # Mid-prefill free (cancel, a failed row): drop the in-flight
+            # admission (JAX :4004-4012).  No later dispatch names it, and
+            # stream order lands its enqueued chunk writes before any
+            # reuse of its blocks; its chain was never published.
+            self._pf = None
         self._unclaim_blocks(slot.blocks)
         # Session KV footprint at teardown.
         self.obs.observe_kv(session_blocks=len(slot.blocks))
@@ -2316,15 +2628,22 @@ class ContinuousBatcher:
         """Record a dispatch started under ``timer``: on the card its
         device time between CUDA events, once the next fetch has passed
         them (``_settle_inserts``); on the CPU, where it ran as it was
-        called, its wall time now."""
+        called, its wall time now.  A classic admission's dispatch made
+        while a row decodes (``_stalling``) adds that time to
+        ``decode_stall_ms_total`` (JAX :4651-4668 clocks the host around
+        the admission, which there blocks on the insert; here the insert
+        is asynchronous, so its own time is the stall)."""
         t0, start, ev0 = timer
         if ev0 is None:
-            self.obs.record_dispatch(
-                wall_ms=(time.monotonic() - t0) * 1000.0, **rec)
+            ms = (time.monotonic() - t0) * 1000.0
+            if self._stalling:
+                self.decode_stall_ms_total += ms
+            self.obs.record_dispatch(wall_ms=ms, **rec)
             return
         ev1 = torch.cuda.Event(enable_timing=True)
         ev1.record()
-        self._unsettled.append((rec, start, ev0, ev1))
+        self._unsettled.append(
+            (dict(rec, stalled=self._stalling), start, ev0, ev1))
 
     def _install_row(self, b: int, req: _Request, blocks: List[int],
                      generator, shared: int = 0) -> None:
@@ -2348,16 +2667,43 @@ class ContinuousBatcher:
             stop_tokens=req.stops, blocks=blocks, shared=shared,
         )
 
+    def _fused_scheduling(self) -> bool:
+        """Fused prefill-decode scheduling is in force (JAX :4296): a
+        budget, and no draft model (a speculative round has no prefill
+        lane)."""
+        return self.prefill_budget > 0 and not self.spec
+
     def _admit(self) -> None:
-        """Admit queued requests (JAX ``_admit`` without the fused
-        path): in-flight swap-ins are polled (never blocking while a row
-        decodes) and completed ones admitted first, FIFO; then the classic
-        admission of the queue."""
+        """Admit queued requests (JAX :4303).  In-flight swap-ins are
+        polled (never blocking while a row decodes) and completed ones
+        admitted first, FIFO.  Under fused scheduling while a row decodes,
+        the queue head moves to ``prefilling`` (``_begin_fused_prefill``)
+        and its prompt advances inside the next chunk dispatches, one
+        admission at a time; otherwise (budget 0, a draft model, a cold
+        pool) the classic admission of the queue."""
         self._poll_restores()
         self._admit_restored_ready()
+        if self._fused_scheduling():
+            if self._pf is not None:
+                return  # one in-flight admission at a time
+            if bool(np.any(self.active)):
+                if self.queue:
+                    self._begin_fused_prefill()
+                return
+            # A cold pool: nobody to stall, classic batched admission.
         self._admit_classic()
 
     def _admit_classic(self) -> None:
+        """The classic admission with the decode-stall clock around it
+        (JAX :4651): inserts dispatched while a row decodes stall it, and
+        their time adds to ``decode_stall_ms_total`` (``_record_timed``)."""
+        self._stalling = bool(np.any(self.active))
+        try:
+            self._admit_classic_impl()
+        finally:
+            self._stalling = False
+
+    def _admit_classic_impl(self) -> None:
         """Admit queued requests into free slots (JAX
         ``_admit_classic_impl``).  A burst of admissible requests without
         a prefix hit shares ONE [k', P] prefill dispatch
@@ -2488,10 +2834,10 @@ class ContinuousBatcher:
         timer = self._start_timer()
         self._open_dispatch("insert", kernels)
         self._admit_dispatches += 1
-        taus = _paged_insert(
+        taus, lps = _paged_insert(
             self.params, self.pool, bid, up[:, :P], up[:, P:2 * P].bool(),
             generators, temps, top_ps, top_ks, config=self.config,
-            prefill_chunk=self.prefill_chunk,
+            prefill_chunk=self.prefill_chunk, with_logprobs=self.logprobs,
         )
         if self.spec:
             # The draft pool over the same blocks; its greedy first
@@ -2504,7 +2850,10 @@ class ContinuousBatcher:
                 torch.zeros_like(top_ks), config=self.draft_config,
                 prefill_chunk=self.prefill_chunk,
             )
-        self.tau[torch.as_tensor(slot_ids, device=self.device)] = taus[:k]
+        idx = torch.as_tensor(slot_ids, device=self.device)
+        self.tau[idx] = taus[:k]
+        if self.logprobs:
+            self.d_tau_lp[idx] = lps[:k]
         # No fetch ends the insert (JAX fetches its prompt lengths here):
         # its first tokens stay on the device for the next chunk, whose
         # launches the host enqueues while the insert runs.  A launch
@@ -2596,10 +2945,10 @@ class ContinuousBatcher:
         self._fault("suffix_insert")
         self._admit_dispatches += 1
         suffix, mask = up[:, :T], up[:, T:2 * T].bool()
-        taus = _paged_suffix_insert(
+        taus, lps = _paged_suffix_insert(
             self.params, self.pool, tables, n_alloc_t, fill0_t, suffix, mask,
             generators, temps, top_ps, top_ks, config=self.config,
-            prefill_chunk=self.prefill_chunk,
+            prefill_chunk=self.prefill_chunk, with_logprobs=self.logprobs,
         )
         if self.spec:
             # The draft pool: the shared blocks hold the DRAFT model's KV
@@ -2611,7 +2960,10 @@ class ContinuousBatcher:
                 torch.ones_like(top_ps), torch.zeros_like(top_ks),
                 config=self.draft_config, prefill_chunk=self.prefill_chunk,
             )
-        self.tau[torch.as_tensor(slots, device=self.device)] = taus[:k]
+        idx = torch.as_tensor(slots, device=self.device)
+        self.tau[idx] = taus[:k]
+        if self.logprobs:
+            self.d_tau_lp[idx] = lps[:k]
         self._record_timed(timer, dict(
             kind="suffix_insert", k=k,
             occupancy=sum(s is not None for s in self.slots.values()),
@@ -2707,7 +3059,8 @@ class ContinuousBatcher:
         ``_restored_ready``."""
         if not self._restoring:
             return
-        idle = not bool(np.any(self.active))
+        # Nobody to stall: no row decoding and no prefill in flight.
+        idle = not bool(np.any(self.active)) and self._pf is None
         for r in list(self._restoring):
             r.polls += 1
             # A concurrent non-finite subtree drop may have severed the
@@ -2757,9 +3110,10 @@ class ContinuousBatcher:
 
     def _admit_restored_ready(self) -> None:
         """Admit completed swap-ins as plain prefix hits (their path
-        blocks are already claimed), one suffix-insert dispatch each,
-        FIFO; each still needs a free slot and capacity for the rest of
-        its reservation."""
+        blocks are already claimed; JAX :4496): through the fused prefill
+        lane while rows decode (the walk starts at the matched depth), one
+        suffix-insert dispatch each otherwise; FIFO, and each still needs
+        a free slot and capacity for the rest of its reservation."""
         while self._restored_ready:
             req, chain, hits = self._restored_ready[0]
             free = [b for b, s in self.slots.items() if s is None]
@@ -2768,5 +3122,99 @@ class ContinuousBatcher:
             if (req.blocks_needed(self.block_size) - len(hits)
                     > self._capacity()):
                 return
-            self._restored_ready.pop(0)
-            self._admit_shared_group([(req, chain, hits)], [free[0]])
+            if self._fused_scheduling() and bool(np.any(self.active)):
+                if self._pf is not None:
+                    return
+                self._restored_ready.pop(0)
+                self._setup_fused_prefill(req, chain, hits, claimed=True)
+            else:
+                self._restored_ready.pop(0)
+                self._admit_shared_group([(req, chain, hits)], [free[0]])
+
+    # -- fused prefill-decode admission --------------------------------------
+
+    def _pf_chunk(self, suffix_len: int, n_share: int) -> int:
+        """Prompt tokens per fused dispatch (JAX :4522): the budget rounded
+        DOWN to a power-of-two block count (the budget stays an upper
+        bound; one block at least), clamped to the suffix's own pow2
+        bucket, then halved until the last chunk's window fits the row's
+        remaining view columns.  Without that clamp a prefix-hit row's
+        last window would run past its view (``forward`` raises on a cache
+        overflow).  At one block, admissibility guarantees the fit."""
+        bs = self.block_size
+        nbb = max(1, self.prefill_budget // bs)
+        nbb = 1 << (nbb.bit_length() - 1)
+        nbs = pow2_bucket(max(1, -(-suffix_len // bs)))
+        c_blocks = min(nbb, nbs)
+        view_blocks = self.blocks_per_slot - n_share
+        while c_blocks > 1 and (
+                -(-suffix_len // (c_blocks * bs)) * c_blocks > view_blocks):
+            c_blocks //= 2
+        return c_blocks * bs
+
+    def _begin_fused_prefill(self) -> None:
+        """Move the queue head into ``prefilling`` (JAX :4547): reserve
+        its blocks (claiming prefix hits, whose walk starts at fill0),
+        set its row up visible but inactive, and upload its suffix once
+        (``_setup_fused_prefill``); no model dispatch here.  A head whose
+        matched prefix includes host-tier blocks moves to ``restoring``
+        instead, and the next head gets the lane."""
+        if not any(s is None for s in self.slots.values()):
+            return
+        while self.queue:
+            req = self.queue[0]
+            if req.blocks_needed(self.block_size) > self._capacity():
+                return  # head-of-line blocking (FIFO): wait
+            chain = (self._chain_keys(req.tokens, self.block_size)
+                     if self.prefix_cache_enabled else [])
+            m = self._match_prefix(chain)
+            del self.queue[0]
+            if m.restore:
+                # Restoring (or failed cleanly on an injected swap fault):
+                # the lane is still open for the next head.
+                self._begin_restore(req, chain, m)
+                continue
+            self._setup_fused_prefill(req, chain, m.blocks, claimed=False)
+            return
+
+    def _setup_fused_prefill(self, req: _Request, chain: List[bytes],
+                             hits: List[int], claimed: bool) -> None:
+        """The ``prefilling`` setup of a fresh admission or a completed
+        swap-in (``claimed``: its hits were claimed when the restore
+        began; JAX :4583).  The row's host mirrors hold its whole
+        reservation with the row inactive; the next dirty-row sync is the
+        one state upload the prefill pays, beside the suffix's upload
+        here."""
+        if not claimed:
+            self._claim_blocks(hits)
+        b = next(b for b, s in self.slots.items() if s is None)
+        n_share = len(hits)
+        base = n_share * self.block_size
+        fresh = self._alloc_blocks(req.blocks_needed(self.block_size)
+                                   - n_share)
+        self._claim_blocks(fresh)
+        blocks = hits + fresh
+        suffix = req.tokens[base:]
+        C = self._pf_chunk(len(suffix), n_share)
+        # Whole chunks; trailing zeros are masked and never dispatched.
+        toks = np.zeros((-(-len(suffix) // C) * C,), np.int32)
+        toks[:len(suffix)] = suffix
+        self._install_row(b, req, blocks, self._generator(req),
+                          shared=n_share)
+        self.fill[b] = 0
+        self.pos[b] = 0
+        self.active[b] = False
+        self._pf = _Prefill(
+            slot=b, req=req, chain=chain, n_share=n_share, base=base,
+            suffix_len=len(suffix), chunk=C,
+            d_toks=torch.from_numpy(toks).to(self.device))
+        self.fused_admissions_total += 1
+        self.prompt_tokens_total += len(req.tokens)
+        self.obs.begin_span(req.rid, "prefilling")
+        if n_share:
+            self.prefix_requests_hit += 1
+            self.prefix_blocks_reused += n_share
+            self.prefix_hit_tokens_total += base
+        self.obs.request_kv(req.rid, blocks_held=len(blocks),
+                            prefix_hit_tokens=base)
+        self.obs.observe_kv(hit_depth_tokens=base)

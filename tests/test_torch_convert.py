@@ -337,13 +337,23 @@ def test_from_jax_params_quantized_layouts(jax_tiny):
 
 
 def test_forward_aux_outputs_name_their_item(jax_tiny):
+    """The auxiliary outputs (ROADMAP A17, once refused naming it) on the
+    converted tree: JAX's hidden states and attention probabilities."""
+    jcfg = jcfg_lib.tiny()
     cfg = ptl.get_config("tiny")
     params = ptl.from_jax_params(jax_tiny, device="cpu")
-    tokens = torch.zeros((1, 4), dtype=torch.int32)
+    tokens = np.arange(4, dtype=np.int32)[None] + 3
+    pos = np.arange(4, dtype=np.int32)[None]
     for kw in (dict(output_hidden_states=True),
                dict(output_attentions=True)):
-        with pytest.raises(NotImplementedError, match="A17"):
-            ptl.forward(params, tokens, torch.arange(4)[None], cfg, **kw)
+        _, _, got = ptl.forward(params, torch.from_numpy(tokens),
+                                torch.from_numpy(pos), cfg, **kw)
+        _, _, want = jllama.forward(jax_tiny, tokens, pos, jcfg, **kw)
+        name = "hidden_states" if "output_hidden_states" in kw else (
+            "attentions")
+        np.testing.assert_allclose(getattr(got, name).numpy(),
+                                   np.asarray(getattr(want, name)),
+                                   atol=1e-5, rtol=0)
 
 
 # ---------------------------------------------------------------------------

@@ -219,3 +219,62 @@ def test_every_flash_entry_point_reports_its_instance():
     fa.flash_attention(*args)
     torch.cuda.synchronize()
     assert w.launches_by_instance["wgmma"] == before.get("wgmma", 0) + 1
+
+
+@pytest.mark.cuda
+def test_fused_chunk_cell_on_the_hopper_instance():
+    """The fused prefill lane's flash call (one row, a 512-token chunk at
+    base 1024 of a 2048-slot view, a -1 tail past it) runs the "wgmma"
+    instance; out and lse match the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    T, S, base, H, KVH, d = 512, 2048, 1024, 32, 8, 128
+    g = torch.Generator(device="cuda").manual_seed(3)
+    q = torch.randn(1, T, H, d, device="cuda", generator=g).bfloat16()
+    k, v = (torch.randn(1, S, KVH, d, device="cuda", generator=g).bfloat16()
+            for _ in range(2))
+    slots = torch.arange(S, device="cuda", dtype=torch.int32)[None]
+    kv_pos = torch.where(slots < base + T, slots, -1).int().contiguous()
+    q_pos = (base + torch.arange(T, device="cuda", dtype=torch.int32))[None]
+    args = (q, k, v, q_pos.contiguous(), kv_pos)
+    assert fa.flash_instance(torch.bfloat16, d, T, S, H // KVH) == "wgmma"
+    before = dict(fa.flash_attention.launches_by_instance)
+    out, lse = fa._forward(*args, 0.0, None, True)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention.launches_by_instance["wgmma"]
+            == before.get("wgmma", 0) + 1)
+    want, want_lse = fa.flash_attention_reference(*args, return_lse=True)
+    torch.testing.assert_close(out.float(), want.float(), atol=2e-2, rtol=0)
+    torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=0)
+
+
+@pytest.mark.cuda
+def test_score_on_the_card_matches_a_plain_forward():
+    """``engine.score`` on the card (the flash kernel at T > 8 under
+    "auto") against the xla forward's float32 log-softmax, left padding
+    scoring 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import jax_llama_tpu_torch as ptl
+
+    cfg = ptl.get_config("tiny", vocab_size=256, dim=256, n_layers=2,
+                         n_heads=2, n_kv_heads=2, multiple_of=64,
+                         max_seq_len=256, dtype="float32",
+                         param_dtype="float32", attn_impl="auto")
+    params = ptl.init_params(cfg, seed=0, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    tokens = torch.randint(0, 256, (2, 128), device="cuda", generator=g,
+                           dtype=torch.int32)
+    mask = torch.ones_like(tokens, dtype=torch.bool)
+    mask[1, :5] = False
+    before = fa.flash_attention.launches
+    got = ptl.score(params, tokens, mask, config=cfg)
+    assert fa.flash_attention.launches == before + cfg.n_layers
+    pos = torch.where(mask, mask.int().cumsum(-1) - 1, -1).int()
+    lg = ptl.forward(params, tokens, pos, cfg.replace(attn_impl="xla"),
+                     attn_mask=mask)[0]
+    want = torch.log_softmax(lg[:, :-1].float(), -1).gather(
+        -1, tokens[:, 1:, None].long())[..., 0]
+    want = torch.where(mask[:, :-1] & mask[:, 1:], want, 0.0)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+    assert not got[1, :5].any()

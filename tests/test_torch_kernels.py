@@ -585,10 +585,18 @@ def test_forward_accepts_chunk_offset_only(model):
     pos = torch.arange(3)[None]
     cache = ptl.init_cache(pc, 1, max_len=8, device="cpu")
     ptl.forward(pp, toks, pos, pc, cache=cache, chunk_offset=0)
-    for kw in (dict(output_hidden_states=True),
-               dict(output_attentions=True)):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            ptl.forward(pp, toks, pos, pc, **kw)
+    # The auxiliary outputs (ROADMAP A17) run beside it; the paged path
+    # refuses them with the JAX package's message.
+    _, _, aux = ptl.forward(pp, toks, pos, pc, output_hidden_states=True,
+                            output_attentions=True)
+    assert aux.hidden_states.shape == (pc.n_layers + 1, 1, 3, pc.dim)
+    assert aux.attentions.shape == (pc.n_layers, 1, pc.n_heads, 3, 3)
+    pool = ptl.init_pool(pc, 4, 8, device="cpu")
+    paged = pool.paged(torch.zeros((1, 1), dtype=torch.int32),
+                       torch.zeros((1,), dtype=torch.int32))
+    with pytest.raises(NotImplementedError, match="paged"):
+        ptl.forward(pp, toks[:, :1], pos[:, :1], pc, cache=paged,
+                    output_attentions=True)
 
 
 # ---------------------------------------------------------------------------

@@ -195,8 +195,11 @@ def test_unported_options_raise(weights):
     _, pp = weights
     _, pc = _configs()
     t = torch.zeros(1, 2, dtype=torch.int32)
-    with pytest.raises(NotImplementedError):
-        ptl.forward(pp, t, t, pc, output_attentions=True)
+    # output_attentions is ported (ROADMAP A17): the xla path's
+    # probabilities, one row per query, summing to 1.
+    aux = ptl.forward(pp, t, t, pc, output_attentions=True)[2]
+    torch.testing.assert_close(aux.attentions.sum(-1),
+                               torch.ones_like(aux.attentions.sum(-1)))
     with pytest.raises(NotImplementedError):
         ptl.forward(pp, t, t, pc.replace(attn_impl="ring"))
     with pytest.raises(ValueError):

@@ -6,7 +6,9 @@ table trained here) and under ``--serve`` over the same stdin lines.  The
 byte tokenizer drops ids past 255 when it decodes, so the ids each CLI
 handed to ``decode`` are compared too.  Under ``--http 0`` both CLIs serve
 one request from the same checkpoint with the same greedy tokens, and shut
-down.  Flags whose feature is not ported exit naming their ROADMAP item."""
+down, and with ``--logprobs`` both return the same per-token logprobs;
+``--serve`` passes ``--prefill-budget`` (default 512) to its batcher.
+Flags whose feature is not ported exit naming their ROADMAP item."""
 
 import io
 import json
@@ -130,12 +132,10 @@ def test_serve_matches_jax(ckpts, monkeypatch, capsys):
                 capsys, stdin)
     got = _run(prun.main, ["--ckpt-dir", str(pdir), *argv, "--device",
                            "cpu"], monkeypatch, capsys, stdin)
-    # JAX's defaults ask for the prefix cache and fused prefill: the port
-    # serves with the prefix cache, and one line says it serves without
-    # fused prefill.
-    notes = [ln for ln in got.splitlines()
-             if ln.startswith("serve_options_not_ported")]
-    assert len(notes) == 1 and "A11" not in notes[0] and "A9" in notes[0]
+    # JAX's defaults (the prefix cache, fused prefill at budget 512) are
+    # the port's: no line says an option is not served.
+    assert not [ln for ln in got.splitlines()
+                if ln.startswith("serve_options_not_ported")]
     assert sorted(_completions(got, "served")) == sorted(
         _completions(want, "served"))
     assert sorted(pseen) == sorted(jseen) and len(pseen) == len(PROMPTS)
@@ -204,6 +204,50 @@ def test_http_serves_one_request_like_jax(ckpts, monkeypatch, capsys):
     assert "serving address=http://127.0.0.1:" in out
 
 
+def test_http_logprobs_like_jax(ckpts, monkeypatch, capsys):
+    """--logprobs builds the batcher with logprobs (ROADMAP A17): a
+    request that asks for them gets JAX's per-token logprobs."""
+    jdir, pdir, _, _, _ = ckpts
+    argv = ["--byte-tokenizer", "--http", "0", "--slots", "2", "--logprobs",
+            *GREEDY]
+    payload = {"text": "hello world", "max_new_tokens": 8,
+               "temperature": 0, "logprobs": True}
+    want, _, _ = _http_generate(jrun.main, jrun, ["--ckpt-dir", str(jdir),
+                                                  *argv],
+                                monkeypatch, capsys, payload)
+    got, _, _ = _http_generate(
+        prun.main, prun, ["--ckpt-dir", str(pdir), *argv, "--device", "cpu"],
+        monkeypatch, capsys, payload)
+    assert got[0] == want[0] == 200
+    assert got[1]["tokens"] == want[1]["tokens"]
+    assert len(got[1]["logprobs"]) == 8
+    assert all(abs(a - b) < 1e-5
+               for a, b in zip(got[1]["logprobs"], want[1]["logprobs"]))
+
+
+def test_serve_passes_the_prefill_budget(ckpts, monkeypatch, capsys):
+    """--serve builds its batcher with --prefill-budget, JAX's default
+    512 when the flag is absent, and without logprobs."""
+    from jax_llama_tpu_torch import serving as pserving
+
+    _, pdir, _, _, _ = ckpts
+    built = []
+
+    class Recording(pserving.ContinuousBatcher):
+        def __init__(self, *a, **kw):
+            built.append(kw)
+            super().__init__(*a, **kw)
+
+    monkeypatch.setattr(pserving, "ContinuousBatcher", Recording)
+    base = ["--ckpt-dir", str(pdir), "--byte-tokenizer", "--serve",
+            *GREEDY, "--device", "cpu"]
+    for extra, budget in (([], 512), (["--prefill-budget", "32"], 32)):
+        out = _run(prun.main, base + extra, monkeypatch, capsys, "hello\n")
+        assert out.splitlines()[-1] == "served 1 request(s) on 4 slot(s)"
+        assert built[-1]["prefill_budget"] == budget
+        assert built[-1]["logprobs"] is False
+
+
 def test_http_fault_flag_reaches_the_server(ckpts, monkeypatch, capsys):
     """--inject-faults arms the server's injector: the first decode step
     dies, the server recovers and the reply is the fault-free one."""
@@ -225,7 +269,9 @@ def test_http_fault_flag_reaches_the_server(ckpts, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--logprobs"], "A17"),
+    # Ported (ROADMAP A17): refused outside --http with the JAX CLI's
+    # message.
+    (["--logprobs"], "--http"),
     (["--replicas", "2"], "A12"),
     (["--autoscale"], "A12"),
     (["--replica-roles", "prefill,decode"], "A12"),
@@ -241,11 +287,13 @@ def test_unported_flags_exit_naming_their_item(tmp_path, monkeypatch, argv,
                                                item):
     monkeypatch.setattr(sys, "argv", ["run", "--ckpt-dir", str(tmp_path),
                                       "--byte-tokenizer", *argv])
-    match = (f"not ported \\(ROADMAP {item}\\)" if item is not None
-             else "--host-kv-blocks requires --prefix-index radix")
+    match = ("--host-kv-blocks requires --prefix-index radix"
+             if item is None else
+             "--logprobs only applies to the HTTP server" if item == "--http"
+             else f"not ported \\(ROADMAP {item}\\)")
     with pytest.raises(SystemExit, match=match):
         prun.main()
-    if item is None:  # JAX's CLI refuses the same argv the same way
+    if item in (None, "--http"):  # JAX's CLI refuses the same argv so
         with pytest.raises(SystemExit, match=match):
             jrun.main()
 

@@ -317,10 +317,11 @@ def test_cancel_frees_the_slot_and_uploads_the_row(model):
 
 UNPORTED = [
     (dict(mesh=object()), "A14"),
-    (dict(logprobs=True), "A17"),
-    (dict(prefill_budget=32), "A9"),
-    # Ported with the prefix cache and the host tier (ROADMAP A11): None
-    # marks a case that builds and serves.
+    # Ported with logprobs (A17), fused prefill-decode (A9), the prefix
+    # cache and the host tier (A11): None marks a case that builds and
+    # serves.
+    (dict(logprobs=True), None),
+    (dict(prefill_budget=32), None),
     (dict(host_kv_blocks=4), None),
     (dict(prefix_cache=True, prefix_index="radix"), None),
 ]
@@ -349,6 +350,13 @@ def test_unported_arguments_raise(model, kw, item):
     assert st["prefix_requests_hit_total"] == 1
     assert st["prefix_blocks_reused_total"] == 2
     assert st["swap_ins_total"] == (1 if tier else 0)
+    # One slot: nothing decodes while a request admits, so a budget
+    # keeps classic admission; logprobs ride every event.
+    assert st["prefill_budget"] == kw.get("prefill_budget", 0)
+    assert st["fused_admissions_total"] == 0
+    cb.submit(prompt, max_new_tokens=2)
+    events = cb.step() + cb.step()
+    assert {len(ev) for ev in events} == {4 if kw.get("logprobs") else 3}
 
 
 # The kernel-selection arguments (ported with ops/kernels.py): each builds

@@ -449,8 +449,11 @@ def test_spec_constructor_guards(serve_models):
     cb = ptl.ContinuousBatcher(pp, pc, draft_config=pc.replace(
         kv_cache_dtype="int8"), **kw)
     assert cb.draft_pool.quantized and not cb.pool.quantized
-    with pytest.raises(NotImplementedError, match="A17"):
-        ptl.ContinuousBatcher(pp, pc, draft_config=pc, logprobs=True, **kw)
+    # logprobs (ROADMAP A17) build on a speculative batcher too, which
+    # keeps classic admission under a prefill budget.
+    cb = ptl.ContinuousBatcher(pp, pc, draft_config=pc, logprobs=True,
+                               prefill_budget=32, **kw)
+    assert cb.logprobs and not cb._fused_scheduling()
 
 
 # ---------------------------------------------------------------------------
