@@ -455,7 +455,63 @@ The checkpoint phase's ``--serve`` and ``--http`` runs take run.py's
 default ``--prefill-budget 512`` (their requests come into an idle pool,
 so ``fused_admissions_total`` stays 0 there, checked).
 
-The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
+The replica router (ROADMAP A12 part 1) adds two phases after
+``fused_invariant``, a router run to ``checkpoint`` and a check to
+``http_serving``:
+
+* ``http_serving`` also replays its dispatch records through a fresh
+  ``OverloadController`` (the records the server's controller took): the
+  decode record right after each classic insert must have a wall per
+  iteration within C2_RATIO times the median of the steady decode
+  records (it carried the insert's device time before the repair), and
+  the decode-rate EWMA just before and just after each admission is
+  printed; and ``c2_cell`` (one row decoding, then 7 prompts of 1900
+  tokens in one classic insert whose device time outlasts the host's
+  enqueue of it and of the next chunk): the decode record after it
+  within C2_RATIO, beside a batcher whose decode records keep the host
+  wall (the fault unrepaired), for comparison.
+* ``checkpoint``: after its ``--http 0`` run, ``run.main()`` with
+  ``--replicas 2 --route cache-aware --http 0``: two replicas on the one
+  loaded tree, two /generate replies equal to the single server's, one on
+  each replica, launches as their dispatch records imply.
+* ``router_serving``: llama3-8b at full width (32 layers, bf16, the
+  phase-3 weights), two ``LLMServer`` replicas on the one weight copy
+  (8 slots, max_len 2048, blocks of 128, the ``run.py --http`` defaults:
+  prefill budget 512, radix prefix cache) behind
+  ``ReplicaRouter(policy="cache-aware")`` with manual health polls and
+  canaries.  Two tenants, each a 1024-token system prompt (8 blocks) and
+  user turns of 20-120 tokens, 32 new tokens: one cold request each; a
+  health poll; 6 concurrent revisits, each routed to its tenant's holder
+  with hit depth 8; then one holder filled with 8 long generations
+  (ROUTER_LONG_NEW tokens, prompts that share no block) and the other
+  kept decoding two more, so that a revisit spills to the other replica
+  and schedules one handoff of its chain, which lands there before the
+  spilled request's own fused prefill publishes it; after a health poll a
+  last revisit hits at the handoff's destination.  Checks: every reply
+  the tokens of one ``ContinuousBatcher`` of the same geometry, or a bf16
+  near-tie below DECODE_REL; one handoff completed, none aborted; no
+  duplicate block in ``/debug/kv/fleet``; the flash forward once per
+  layer per insert and per fused chunk, all "wgmma", the paged kernel
+  once per layer per decode iteration (split-KV: two kernels a launch),
+  summed over both replicas; both batchers hold the same embedding
+  tensor and the phase's peak memory holds no second weight copy.
+  Reported: the route decision's ms, the relay's TTFT overhead, the
+  handoff's bytes, ms and GB/s, the phase's wall time and tokens/s.
+* ``router_drill``: DECODE_DEPTH layers in float32 activations, two
+  replicas and the router on one fault injector: a ``router_replica``
+  fault on the first forward marks replica 0 unhealthy and the request
+  re-routes to replica 1 with the reference tokens (``/debug/decisions``
+  joins route, reroute, route by request id); a handoff whose import
+  outlasts an injected ``handoff_timeout_s`` unwinds (counted aborted,
+  the destination's digest version unchanged, the source still serving
+  the chain as a hit); a completed handoff shows in ``/debug/trace`` as
+  the router's span and both replicas' export/import instants under one
+  request id; the canary oracle pins, one replica's front door dies, its
+  canaries fail, its verdict flips and the anomaly counter fires; and
+  ``/debug/bundle`` parses.  Launches exactly as the records imply.
+
+A ``total`` line gives the script's seconds so far, before the
+``kernels`` line.  The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or outside a checkout of the repository, it exits non-zero before printing
 any result.
 """
@@ -2414,6 +2470,12 @@ def drive_serving(torch, ptl, fa, pa, params, cfg, tok, phase="serving",
 HTTP_STREAMS = tuple(range(1, 12, 2))  # 6 of the 12 requests stream
 # The histogram families whose quantiles http_serving reports.
 HTTP_QUANTILES = (0.5, 0.95)
+# The decode record after a classic insert, per iteration, over the steady
+# decode records' median (ROADMAP C2: it carried the insert's device time).
+# c2_cell's long insert while a row decodes: rows, prompt tokens, and the
+# decoding row's new tokens.
+C2_RATIO = 1.5
+C2_ROWS, C2_PROMPT_TOKENS, C2_DECODE_NEW = 7, 1900, 64
 # Series that /metrics must carry (the JAX package's names; every other
 # scalar is checked against the port's registry, obs.METRICS).
 HTTP_SERIES = (
@@ -2446,14 +2508,15 @@ BREAKER_SITES = (("step", None), ("paged_kernel", "paged_kernel"),
                  ("flash_kernel", "flash_attention"))
 
 
-def http_request(url, path, payload=None, timeout=900):
+def http_request(url, path, payload=None, timeout=900, headers=None):
     """(status, headers, body bytes) of one request; an HTTP error status
     is an answer too."""
     import urllib.error
     import urllib.request
 
     data = None if payload is None else json.dumps(payload).encode()
-    req = urllib.request.Request(url + path, data=data)
+    req = urllib.request.Request(url + path, data=data,
+                                 headers=headers or {})
     try:
         with urllib.request.urlopen(req, timeout=timeout) as r:
             return r.status, dict(r.headers), r.read()
@@ -2567,6 +2630,79 @@ def token_divergences(torch, ptl, params, cfg, prompts, got, want, tie):
     return out
 
 
+def insert_timing(recs):
+    """The decode records whose fetch waited for a classic insert (the
+    record right after each insert's: an insert is recorded when the next
+    fetch settles it) beside the other decode records, per iteration, and
+    the decode-rate EWMA of a fresh ``OverloadController`` fed the records
+    in order, just before each such insert and just after its decode
+    record."""
+    import numpy as np
+
+    from jax_llama_tpu_torch.overload import OverloadController
+
+    oc = OverloadController()
+    waited, steady, ewma = [], [], []
+    pre = None
+    for i, r in enumerate(recs):
+        if r["kind"] == "insert":
+            pre = oc.stats()["decode_tokens_per_s_ewma"]
+        oc.on_dispatch(r)
+        if r["kind"] != "decode":
+            continue
+        if i and recs[i - 1]["kind"] == "insert":
+            waited.append(dict(seq=r["seq"], k=r["k"], wall_ms=r["wall_ms"],
+                               ms_per_iteration=r["wall_ms"] / r["k"],
+                               insert_device_ms=recs[i - 1]["wall_ms"],
+                               occupancy=r["occupancy"]))
+            ewma.append(dict(before_admission=pre, after_admission=oc.stats()[
+                "decode_tokens_per_s_ewma"]))
+        else:
+            steady.append(r["wall_ms"] / r["k"])
+    median = float(np.median(steady)) if steady else None
+    for w in waited:
+        w["ratio_to_steady_median"] = (w["ms_per_iteration"] / median
+                                       if median else None)
+    return dict(steady_ms_per_iteration_median=median,
+                steady_records=len(steady), waited=waited,
+                decode_tokens_per_s_ewma=ewma)
+
+
+def c2_cell(torch, ptl, params, cfg, tok):
+    """ROADMAP C2 at its largest: one row decoding, then C2_ROWS prompts
+    of C2_PROMPT_TOKENS tokens admitted in one classic insert, whose
+    device time outlasts the host's enqueue of it and of the next chunk;
+    the decode record right after it (``insert_timing``) on a batcher as
+    it is ("repaired") and on one whose decode records keep the host wall
+    ("unrepaired").  The admitted rows' upload before that decode
+    dispatch is a pageable copy, which waits for the insert, so the two
+    read alike while that upload stays blocking."""
+    import numpy as np
+
+    rng = np.random.default_rng(3)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz      .,"))
+    longs = [tok.encode("".join(rng.choice(letters, size=C2_PROMPT_TOKENS
+                                           - 1)), bos=True)
+             for _ in range(C2_ROWS)]
+    out = {}
+    for variant in ("repaired", "unrepaired"):
+        cb = ptl.ContinuousBatcher(params, cfg, n_slots=8, max_len=2048,
+                                   decode_chunk=8, device="cuda")
+        if variant == "unrepaired":
+            cb._wall_past_inserts = lambda wall_ms, fetched: wall_ms
+        cb.submit(serve_prompts(tok)[1], max_new_tokens=C2_DECODE_NEW)
+        for _ in range(3):
+            cb.step()
+        for p in longs:
+            cb.submit(p, max_new_tokens=4)
+        while cb.pending():
+            cb.step()
+        out[variant] = insert_timing(records(cb))
+        del cb
+    torch.cuda.empty_cache()
+    return out
+
+
 def drive_http_serving(torch, ptl, fa, pa, params, cfg, tok, smi, serve_row,
                        serve_tokens):
     """Phase ``http_serving``: the serving phase's 12 requests through
@@ -2627,6 +2763,7 @@ def drive_http_serving(torch, ptl, fa, pa, params, cfg, tok, smi, serve_row,
     # one's, over its K) at 8 busy slots, beside the batcher's own wall
     # time per iteration (dispatch and fetch).
     recs = dispatches["dispatches"]
+    c2 = insert_timing(recs)
     own, period = [], []
     for a, b in zip(recs, recs[1:]):
         if (a["kind"] == "decode" and a["occupancy"] == 8
@@ -2679,6 +2816,8 @@ def drive_http_serving(torch, ptl, fa, pa, params, cfg, tok, smi, serve_row,
                                if period else None),
         steady_iterations_seen=len(period),
         serving_decode_ms_per_iteration=serve_row["decode_ms_per_iteration"],
+        insert_timing=c2, insert_timing_bound=C2_RATIO,
+        c2_cell=c2_cell(torch, ptl, params, cfg, tok),
         metrics_series=len(samples), missing_series=missing,
         healthz=dict(status=health_status, ok=health["ok"],
                      quarantined=health["quarantined"]),
@@ -2710,6 +2849,11 @@ def drive_http_serving(torch, ptl, fa, pa, params, cfg, tok, smi, serve_row,
             or "trace" not in bundle):
         raise AssertionError(f"http_serving surfaces: {row['healthz']}, "
                              f"missing {missing}")
+    waited = c2["waited"] + row["c2_cell"]["repaired"]["waited"]
+    if not c2["waited"] or not row["c2_cell"]["repaired"]["waited"] or any(
+            w["ratio_to_steady_median"] > C2_RATIO for w in waited):
+        raise AssertionError(f"http_serving: the decode records after a "
+                             f"classic insert {c2}, {row['c2_cell']}")
     return row
 
 
@@ -3652,6 +3796,36 @@ def run_http_cli(torch, argv, texts):
             got["health"], got["dispatches"], out, wall)
 
 
+def run_router_cli(torch, argv, texts):
+    """``run.main()`` with ``--http`` and ``--replicas``, as
+    ``run_http_cli`` runs it: run.py's test hook POSTs each of ``texts``
+    to the router's /generate in turn, then reads the router's health,
+    each replica's dispatch records and the embedding tensor each batcher
+    holds.  Returns (that dict, stdout, wall s)."""
+    from jax_llama_tpu_torch import run as prun
+
+    got = {}
+
+    def hook(router, servers):
+        got["replies"] = [
+            http_request(router.address, "/generate",
+                         {"text": t, "max_new_tokens": CKPT_GEN})
+            for t in texts]
+        got["health"] = router.health()
+        got["records"] = [records(s.batcher) for s in servers]
+        got["embeds"] = [s.batcher.params["embed"]["embedding"].data_ptr()
+                         for s in servers]
+
+    orig = prun._serve_router
+    prun._serve_router = lambda *a, **kw: orig(*a, **dict(kw,
+                                                         _test_hook=hook))
+    try:
+        out, _, wall = run_cli(torch, argv)
+    finally:
+        prun._serve_router = orig
+    return got, out, wall
+
+
 def drive_checkpoint(torch, ptl, fa, pa, shallow, cfg, smi):
     """Phase ``checkpoint``: the first DECODE_DEPTH layers of the seed-0
     weights written as a Meta checkpoint, converted, saved, loaded, and
@@ -3898,6 +4072,40 @@ def drive_checkpoint(torch, ptl, fa, pa, shallow, cfg, smi):
               and not runs["http"]["quarantine_rebuilds"]
               and h_status == 200 and health["ok"],
               f"http server {runs['http']}")
+
+        # run.py --http --replicas 2 --route cache-aware: the router over
+        # two replicas of the one loaded tree (canaries manual, so that
+        # only the two requests run); the first two texts, one on each
+        # replica (least-loaded: they share no block), give the single
+        # server's replies.
+        single = [t for _, t in got[:2]]
+        zero_counts(fa, pa)
+        routed, out, wall = run_router_cli(
+            torch, http_argv + ["--replicas", "2", "--route", "cache-aware",
+                                "--canary-interval-s", "0"], texts[:2])
+        launches = launch_counts(fa, pa)
+        instances = instance_counts(fa, pa)
+        got = [http_tokens(r) for r in routed["replies"]]
+        expect = record_launches(
+            [r for rs in routed["records"] for r in rs], L)
+        runs["http_router"] = dict(
+            statuses=[st for st, _ in got],
+            replicas=[r[1].get("X-Replica-Id") for r in routed["replies"]],
+            equal_to_single=[t for _, t in got] == single,
+            launches=launches, expected_launches=expect,
+            flash_by_instance=instances["flash_fwd_by_instance"],
+            policy=routed["health"]["policy"],
+            routed_ok=routed["health"]["ok"],
+            one_weight_copy=len(set(routed["embeds"])) == 1,
+            load_s=cli_seconds(out), wall_s=wall)
+        rr = runs["http_router"]
+        check(rr["statuses"] == [200, 200] and rr["equal_to_single"],
+              f"http_router replies {got}, single server {single}")
+        check(sorted(rr["replicas"]) == ["0", "1"]
+              and rr["policy"] == "cache-aware" and rr["one_weight_copy"],
+              f"http_router {rr}")
+        check(launches == expect and expect["flash_fwd"] == 2 * L,
+              f"http_router launches {launches}, expected {expect}")
     row["runs"] = runs
     row["launches"] = {k: sum(r["launches"][k] for r in runs.values())
                        for k in NO_LAUNCHES}
@@ -3921,14 +4129,14 @@ PREFIX_BUSY = (0, 2, 5, 9)  # serving prompts that keep rows decoding
 PREFIX_BUSY_NEW = 400
 
 
-def prefix_texts(np):
-    """The prefix phases' byte texts (numpy seed 0): the system prompt
+def prefix_texts(np, seed=0):
+    """The prefix phases' byte texts (numpy ``seed``): the system prompt
     (PREFIX_SYSTEM - 1 characters, so that with BOS it fills 8 blocks of
     128), wave 1's user turns (the first 8, which wave 2 extends, of
     129-159 characters: their prompts key 9 blocks, and a second turn's
     prompt keys the same 9; the rest of 64-128), wave 2's 64-character
     turns, and the restore wave's turns (64-128)."""
-    rng = np.random.default_rng(0)
+    rng = np.random.default_rng(seed)
     letters = np.array(list("abcdefghijklmnopqrstuvwxyz      .,"))
 
     def text(n):
@@ -3967,7 +4175,8 @@ def records(cb, kinds=None):
 def record_launches(recs, L, int8=False, n_draft=None):
     """The kernel launches a batcher's dispatch records imply: an insert
     runs the flash forward once per layer (twice under speculation: target
-    and draft), a decode iteration the paged kernel once per layer, a
+    and draft), a fused prefill chunk once per layer, a decode iteration
+    (of a decode or a fused dispatch) the paged kernel once per layer, a
     speculative round it n_draft + 2 times per layer; a suffix insert and
     an adopt launch no kernel."""
     sfx = "_int8" if int8 else ""
@@ -3975,7 +4184,9 @@ def record_launches(recs, L, int8=False, n_draft=None):
     for r in recs:
         if r["kind"] == "insert":
             want["flash_fwd" + sfx] += L * (2 if n_draft else 1)
-        elif r["kind"] == "decode":
+        if r["kind"] == "fused":
+            want["flash_fwd" + sfx] += L
+        if r["kind"] in ("decode", "fused"):
             want["paged_decode" + sfx] += L * r["k"]
         elif r["kind"] == "spec":
             want["paged_decode" + sfx] += (n_draft + 2) * L * r["k"]
@@ -5053,6 +5264,565 @@ def drive_fused_invariant(torch, np, ptl, engine, fa, pa, params, cfg, tok,
     return row
 
 
+# The replica router (ROADMAP A12 part 1): router_serving at llama3-8b's
+# full width, router_drill at DECODE_DEPTH layers in float32 activations.
+ROUTER_SLOTS = 8         # slots of each replica
+ROUTER_NEW = 32          # new tokens per tenant request
+ROUTER_REVISITS = 3      # wave 2: concurrent revisits per tenant
+ROUTER_LONG = 8          # long generations that fill the spilling holder
+ROUTER_BUSY = 2          # long generations that keep the spill target busy
+ROUTER_LONG_NEW = 256
+ROUTER_TURN_CHARS = (20, 121)    # user turns: a prompt keys 8 blocks
+ROUTER_LONG_CHARS = (160, 201)
+ROUTER_WAIT_S = 300.0
+DRILL_NEW = 16
+DRILL_HANDOFF_TIMEOUT_S = 0.5
+
+
+def router_texts(np):
+    """The router phases' byte texts: the two tenants' system prompts
+    (``prefix_texts`` at numpy seeds 0 and 1: 1024 tokens with BOS, 8
+    blocks of 128), and from numpy seed 2 six user turns per tenant of
+    20-120 characters (so that a tenant's prompt keys its 8 blocks and no
+    more) and the long generations' prompts of 160-200 characters (no two
+    prompts share a block)."""
+    systems = [prefix_texts(np, seed)[0] for seed in (0, 1)]
+    rng = np.random.default_rng(2)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz      .,"))
+
+    def text(lo, hi):
+        return "".join(rng.choice(letters, size=int(rng.integers(lo, hi))))
+
+    turns = [[text(*ROUTER_TURN_CHARS) for _ in range(6)] for _ in systems]
+    longs = [text(*ROUTER_LONG_CHARS)
+             for _ in range(ROUTER_LONG + ROUTER_BUSY)]
+    return systems, turns, longs
+
+
+def router_stream(url, payload, rid, out):
+    """POST /generate as an NDJSON stream under X-Request-Id ``rid``;
+    ``out[rid]`` (filled as the stream arrives) gets the status, the
+    serving replica, the tokens, the client's TTFT (send to the first
+    token line) and the request's ms."""
+    import urllib.request
+
+    rec = out[rid] = dict(tokens=[], ttft_ms=None)
+    req = urllib.request.Request(
+        url + "/generate", data=json.dumps(dict(payload, stream=True)).encode(),
+        headers={"Content-Type": "application/json", "X-Request-Id": rid})
+    t = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=900) as r:
+            rec["status"] = r.status
+            rec["replica"] = int(r.headers["X-Replica-Id"])
+            for line in r:
+                obj = json.loads(line)
+                if obj.get("done"):
+                    rec["final"] = obj.get("tokens")
+                elif "token" in obj:
+                    if rec["ttft_ms"] is None:
+                        rec["ttft_ms"] = (time.perf_counter() - t) * 1e3
+                    rec["tokens"].append(obj["token"])
+    except Exception as e:  # the phase's checks report it
+        rec["error"] = repr(e)
+    rec["ms"] = (time.perf_counter() - t) * 1e3
+
+
+def wait_until(cond, what, timeout_s=ROUTER_WAIT_S):
+    deadline = time.perf_counter() + timeout_s
+    while not cond():
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"timed out waiting for {what}")
+        time.sleep(0.01)
+
+
+def route_decision(router, rid):
+    """The last route decision of request ``rid`` (``/debug/decisions``)."""
+    _, doc = http_json(router.address, f"/debug/decisions?request_id={rid}")
+    routes = [d for d in doc["decisions"] if d["kind"] == "route"]
+    return routes[-1] if routes else None
+
+
+def replica_times_ms(router, rid):
+    """The serving replica's own TTFT and end-to-end ms of ``rid`` from its
+    timeline (``/debug/requests/<id>`` through the routing record), from
+    its first span's start: to the end of the dispatch that emitted its
+    first token (a fused admission's last chunk, else the first dispatch
+    of its decoding span; a record ends at its fetch), and to its last
+    span's end."""
+    _, tl = http_json(router.address, f"/debug/requests/{rid}")
+    by_seq = {d["seq"]: d for d in tl["dispatch_spans"]}
+    spans = {sp["state"]: sp for sp in tl["spans"]}
+    fused = [q for q in spans["prefilling"]["dispatches"]
+             if by_seq[q]["kind"] == "fused"]
+    first = by_seq[fused[-1] if fused else spans["decoding"]["dispatches"][0]]
+    t0 = tl["spans"][0]["start_ms"]
+    return (first["start_ms"] + first["wall_ms"] - t0,
+            tl["spans"][-1]["end_ms"] - t0)
+
+
+def drive_router_serving(torch, np, ptl, fa, pa, params, cfg, tok, smi):
+    """Phase ``router_serving``: two replicas of llama3-8b at full width
+    (32 layers, bf16, the phase-3 weights, one copy on the card) behind
+    the cache-aware router, serving two tenants' chats (module
+    docstring)."""
+    import threading
+
+    from jax_llama_tpu_torch import kvcache
+    from jax_llama_tpu_torch.router import ReplicaRouter
+    from jax_llama_tpu_torch.server import LLMServer
+
+    L, BLK = cfg.n_layers, 128
+    systems, turns, longs = router_texts(np)
+    sys_ids = [tok.encode(t, bos=True) for t in systems]
+    assert all(len(x) == PREFIX_SYSTEM for x in sys_ids)
+    kw = dict(n_slots=ROUTER_SLOTS, max_len=2048, block_size=BLK,
+              decode_chunk=8, prefill_budget=FUSED_BUDGET, device="cuda")
+    param_bytes = sum(t.numel() * t.element_size()
+                      for t in flat_tree(params).values())
+    prompts, out, threads = {}, {}, []
+
+    def add(rid, ids, max_new):
+        prompts[rid] = (ids, max_new)
+        return rid
+
+    def send(rids, wait=True):
+        ts = [threading.Thread(target=router_stream, args=(
+            router.address, {"prompt": prompts[r][0],
+                             "max_new_tokens": prompts[r][1]}, r, out))
+              for r in rids]
+        for t in ts:
+            t.start()
+        if wait:
+            for t in ts:
+                t.join(timeout=900)
+        threads.extend(ts)
+
+    torch.cuda.synchronize()
+    base_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    servers = [LLMServer(ptl.ContinuousBatcher(params, cfg, seed=i, **kw),
+                         tokenizer=tok, replica_id=i).start()
+               for i in range(2)]
+    router = ReplicaRouter(servers, policy="cache-aware",
+                           health_interval_s=0, canary_interval_s=0,
+                           tokenizer=tok, block_size=BLK).start()
+    try:
+        zero_counts(fa, pa)
+        t_phase = time.perf_counter()
+        # Wave 1: one cold request per tenant, one on each replica.
+        cold = [add(f"t{t}-cold", sys_ids[t] + tok.encode(turns[t][0]),
+                    ROUTER_NEW) for t in (0, 1)]
+        send(cold)
+        holder = [out[r].get("replica") for r in cold]
+        router.check_health_now()
+        # Wave 2: each tenant's revisits, together.
+        revisits = [add(f"t{t}-rev{j}",
+                        sys_ids[t] + tok.encode(turns[t][1 + j]), ROUTER_NEW)
+                    for j in range(ROUTER_REVISITS) for t in (0, 1)]
+        send(revisits)
+        # Wave 3: tenant 0's holder filled with long generations (the other
+        # replica retired from picks meanwhile), two more on the other
+        # replica, which keep it decoding: the spilled revisit is then a
+        # fused admission, whose chain is published after its last chunk,
+        # so the handoff's import lands first.
+        ha, hb = holder
+        long_a = [add(f"long-a{j}", tok.encode(longs[j], bos=True),
+                      ROUTER_LONG_NEW) for j in range(ROUTER_LONG)]
+        long_b = [add(f"long-b{j}", tok.encode(longs[ROUTER_LONG + j],
+                                               bos=True), ROUTER_LONG_NEW)
+                  for j in range(ROUTER_BUSY)]
+        for rids, on, off in ((long_a, ha, hb), (long_b, hb, ha)):
+            router.set_retiring(off)
+            send(rids, wait=False)
+            wait_until(lambda: router.health()["replicas"][on]["inflight"]
+                       >= len(rids), f"{len(rids)} long requests on {on}")
+            router.set_retiring(off, False)
+        wait_until(lambda: all(out[r]["ttft_ms"] is not None
+                               for r in long_a + long_b),
+                   "the long generations' first tokens")
+        router.check_health_now()
+        spill = add("t0-spill", sys_ids[0] + tok.encode(turns[0][4]),
+                    ROUTER_NEW)
+        send([spill])
+        handoffs_idle = router.wait_handoffs(120.0)
+        router.check_health_now()
+        last = add("t0-last", sys_ids[0] + tok.encode(turns[0][5]),
+                   ROUTER_NEW)
+        send([last])
+        _, fleet_kv = http_json(router.address, "/debug/kv/fleet")
+        for t in threads:
+            t.join(timeout=900)
+        phase_s = time.perf_counter() - t_phase
+        launches = launch_counts(fa, pa)
+        instances = instance_counts(fa, pa)
+        recs = [records(s.batcher) for s in servers]
+        stats = [s.batcher.stats() for s in servers]
+        health = router.health()
+        samples = prometheus_samples(router.metrics_text())
+        _, trace = http_json(router.address, "/debug/trace")
+        decisions = {r: route_decision(router, r) for r in prompts}
+        fwd_ms = {e["args"]["request_id"]: e["dur"] / 1e3
+                  for e in trace["traceEvents"]
+                  if e.get("pid") == 0 and e.get("name") == "forward"}
+        own = {r: replica_times_ms(router, r)
+               for r in cold + revisits + [spill, last]}
+        relay = {r: out[r]["ttft_ms"] - own[r][0] for r in own}
+        relay_e2e = {r: fwd_ms[r] - own[r][1] for r in own}
+        embeds = [s.batcher.params["embed"]["embedding"].data_ptr()
+                  for s in servers]
+        torch.cuda.synchronize()
+        peak_extra = torch.cuda.max_memory_allocated() - base_bytes
+    finally:
+        router.stop()
+        for s in servers:
+            s.stop()
+    # The handoff's copies alone, on the stopped replicas' batchers: the
+    # chain exported from its new home and imported back into its first,
+    # synchronised (the handoff span also waits for each serving loop's
+    # step to end).
+    chain = kvcache.chain_keys(prompts[spill][0], BLK)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    keys_out, slabs = servers[hb].batcher.export_prefix(keys=chain)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    landed = servers[ha].batcher.import_prefix(keys_out, slabs)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    copies = dict(blocks=len(slabs), landed=landed,
+                  bytes=len(slabs) * servers[hb].batcher.block_bytes,
+                  export_ms=(t1 - t) * 1e3, import_ms=(t2 - t1) * 1e3)
+    copies["gb_per_s"] = copies["bytes"] / ((t2 - t) * 1e3) / 1e6
+    del servers, slabs
+    torch.cuda.empty_cache()
+
+    # The reference: one batcher of the same geometry, but with a slot for
+    # each request of the largest wave, on the same waves.
+    ref = ptl.ContinuousBatcher(params, cfg, **dict(
+        kw, n_slots=2 * ROUTER_SLOTS))
+    want = {}
+    for group in (cold, revisits, long_a + long_b + [spill], [last]):
+        rids = {ref.submit(prompts[r][0], max_new_tokens=prompts[r][1]): r
+                for r in group}
+        done = ref.run_to_completion()
+        want.update({rids[x]: done[x] for x in rids})
+    del ref
+    torch.cuda.empty_cache()
+    order = list(prompts)
+    got = [out[r]["tokens"] for r in order]
+    divergences = token_divergences(
+        torch, ptl, params, cfg, [prompts[r][0] for r in order], got,
+        [want[r] for r in order], DECODE_REL)
+
+    router_x = [e for e in trace["traceEvents"]
+                if e.get("pid") == 0 and e.get("ph") == "X"]
+    route_ms = [e["dur"] / 1e3 for e in router_x if e["name"] == "route"]
+    hand_ms = [e["dur"] / 1e3 for e in router_x
+               if e["name"] == "handoff_exec"]
+    hand_bytes = health["handoff"]["bytes_total"]
+    tokens_total = sum(len(t) for t in got)
+    all_recs = [r for rs in recs for r in rs]
+    want_launches = record_launches(all_recs, L)
+    row = dict(
+        phase="router_serving", card=smi, config="llama3-8b", n_layers=L,
+        dtype="bfloat16", replicas=2, n_slots=ROUTER_SLOTS, max_len=2048,
+        block_size=BLK, decode_chunk=8, prefill_budget=FUSED_BUDGET,
+        policy="cache-aware", system_tokens=PREFIX_SYSTEM,
+        requests=len(order), max_new=dict(tenant=ROUTER_NEW,
+                                          long=ROUTER_LONG_NEW),
+        holders=holder,
+        replica_of={r: out[r].get("replica") for r in order},
+        statuses={r: out[r].get("status") for r in order},
+        errors={r: out[r]["error"] for r in order if "error" in out[r]},
+        hit_depth={r: (decisions[r] or {}).get("hit_depth") for r in order},
+        policy_of={r: (decisions[r] or {}).get("policy") for r in order},
+        spill_decision=decisions[spill],
+        handoff=health["handoff"], handoffs_idle=handoffs_idle,
+        handoffs_completed=samples["llm_router_handoffs_completed_total"],
+        handoffs_aborted=samples["llm_router_handoffs_aborted_total"],
+        handoff_bytes=hand_bytes, handoff_ms=hand_ms,
+        handoff_gb_per_s=(hand_bytes / hand_ms[0] / 1e6
+                          if hand_ms and hand_ms[0] else None),
+        handoff_is="the router's handoff_exec span: export on the source's "
+        "serving loop, import on the destination's, the residency probe "
+        "and the source's demotion, each waiting for that loop's step to "
+        "end",
+        handoff_copies=copies,
+        fleet_kv=fleet_kv["fleet"],
+        route_decision_ms=dict(p50=float(np.median(route_ms)),
+                               max=max(route_ms), n=len(route_ms)),
+        relay_ttft_overhead_ms=dict(
+            p50=float(np.median(list(relay.values()))),
+            max=max(relay.values()), per_request=relay),
+        relay_e2e_overhead_ms=dict(
+            p50=float(np.median(list(relay_e2e.values()))),
+            max=max(relay_e2e.values()), per_request=relay_e2e),
+        relay_is="ttft: the client's TTFT through the router (send to the "
+        "first NDJSON token line) minus the serving replica's own (its "
+        "timeline: first span's start to the end of the dispatch that "
+        "emitted the first token); e2e: the router's forward span minus the "
+        "replica's timeline from its first span's start to its last's end; "
+        "both include the replica server's wait from the request's arrival "
+        "to its loop's next step (the timeline starts at the batcher's "
+        "submit), nil for wave 1's requests into idle replicas",
+        prefix_hits=[s["prefix_requests_hit_total"] for s in stats],
+        fused_admissions=[s["fused_admissions_total"] for s in stats],
+        launches=launches, expected_launches=want_launches,
+        instances={k: instances[k] for k in (
+            "flash_fwd_by_instance", "paged_by_instance",
+            "paged_kernel_launches")},
+        one_weight_copy=len(set(embeds)) == 1, param_bytes=param_bytes,
+        peak_bytes_over_weights=peak_extra,
+        wall_s=phase_s, tokens=tokens_total,
+        tokens_per_s=tokens_total / phase_s,
+        divergences_from_one_batcher=divergences)
+    emit(row)
+    fails = []
+    if row["errors"] or set(row["statuses"].values()) != {200}:
+        fails.append("statuses")
+    if any(len(out[r]["tokens"]) != prompts[r][1]
+           or out[r].get("final") != out[r]["tokens"] for r in order):
+        fails.append("a stream did not end with its max_new tokens")
+    if sorted(holder) != [0, 1]:
+        fails.append("the two tenants' cold requests on one replica")
+    for r in revisits:
+        t = int(r[1])
+        if (out[r]["replica"] != holder[t]
+                or row["policy_of"][r] != "cache-aware"
+                or row["hit_depth"][r] != 8):
+            fails.append(f"{r} not an 8-block hit on its holder")
+    if any(out[r]["replica"] != ha for r in long_a) or any(
+            out[r]["replica"] != hb for r in long_b):
+        fails.append("the long generations' replicas")
+    sd = decisions[spill] or {}
+    if not (out[spill]["replica"] == hb and sd.get("policy") == "spill"
+            and sd.get("spill_from") == ha and sd.get("hit_depth") == 8):
+        fails.append("the spill")
+    if not (handoffs_idle and health["handoff"]["scheduled_total"] == 1
+            and row["handoffs_completed"] == 1
+            and row["handoffs_aborted"] == 0
+            and health["handoff"]["blocks_total"] == 8):
+        fails.append("one completed handoff of 8 blocks")
+    if not (out[last]["replica"] == hb
+            and row["policy_of"][last] == "cache-aware"
+            and row["hit_depth"][last] == 8):
+        fails.append("the last revisit is not a hit at the destination")
+    if fleet_kv["fleet"]["duplicate_kv_blocks"] != 0:
+        fails.append("duplicate fleet blocks")
+    if launches != want_launches or instances["flash_fwd_by_instance"] != (
+            {"wgmma": launches["flash_fwd"]}) or (
+            instances["paged_kernel_launches"]
+            != 2 * launches["paged_decode"]):
+        fails.append("launches")
+    if not row["one_weight_copy"] or peak_extra >= param_bytes:
+        fails.append("a second weight copy")
+    if copies["blocks"] != 8 or copies["landed"] != 8:
+        fails.append(f"the handoff's copies {copies}")
+    if fails:
+        raise AssertionError(f"router_serving: {fails}")
+    return row
+
+
+def drive_router_drill(torch, np, ptl, fa, pa, params, cfg, tok, smi):
+    """Phase ``router_drill``: two replicas at DECODE_DEPTH layers in
+    float32 activations behind the cache-aware router, one fault injector
+    for the router and both replicas (module docstring)."""
+    from jax_llama_tpu_torch import kvcache, serving
+    from jax_llama_tpu_torch.faults import FaultInjector, FaultSpec
+    from jax_llama_tpu_torch.router import ReplicaRouter
+    from jax_llama_tpu_torch.server import LLMServer
+
+    L, BLK = DECODE_DEPTH, 128
+    shallow = dict(params, layers={k: w[:L]
+                                   for k, w in params["layers"].items()})
+    dcfg = cfg.replace(n_layers=L, dtype="float32")
+    kw = dict(n_slots=DRILL_SLOTS, max_len=2048, block_size=BLK,
+              decode_chunk=8, prefill_budget=FUSED_BUDGET, device="cuda")
+    systems, turns, _ = router_texts(np)
+    sys_ids = tok.encode(systems[0], bos=True)
+    prompts = {"drill-reroute": serve_prompts(tok)[INVARIANT_REQUESTS[0]],
+               "drill-chain": sys_ids + tok.encode(turns[0][0]),
+               "drill-revisit": sys_ids + tok.encode(turns[0][1])}
+    ref = ptl.ContinuousBatcher(shallow, dcfg, **kw)
+    want = {}
+    for rid, p in prompts.items():  # one at a time, as the drill sends them
+        x = ref.submit(p, max_new_tokens=DRILL_NEW)
+        want[rid] = ref.run_to_completion()[x]
+    del ref
+
+    inj = FaultInjector(FaultSpec.parse("router_replica@0:error"))
+    servers = [LLMServer(ptl.ContinuousBatcher(
+        shallow, dcfg, seed=i, fault_injector=inj, **kw), tokenizer=tok,
+        replica_id=i).start() for i in range(2)]
+    router = ReplicaRouter(servers, policy="cache-aware",
+                           health_interval_s=0, canary_interval_s=0,
+                           fault_injector=inj, tokenizer=tok,
+                           block_size=BLK).start()
+    got, cells, fails = {}, {}, []
+
+    def post(rid):
+        st, hdrs, body = http_request(
+            router.address, "/generate",
+            {"prompt": prompts[rid], "max_new_tokens": DRILL_NEW},
+            headers={"X-Request-Id": rid})
+        got[rid] = json.loads(body)["tokens"] if st == 200 else None
+        return st, int(hdrs.get("X-Replica-Id", -1))
+
+    try:
+        zero_counts(fa, pa)
+        router.check_health_now()
+        router.run_canaries_now()
+        _, fleet0 = http_json(router.address, "/debug/fleet")
+        oracle = fleet0["canary"]["oracle_tokens"]
+
+        # 1. The router_replica fault on the first forward (replica 0):
+        # replica 0 marked unhealthy, the request re-routed to replica 1.
+        st, rep = post("drill-reroute")
+        healthy = [r["healthy"] for r in router.health()["replicas"]]
+        _, doc = http_json(router.address,
+                           "/debug/decisions?request_id=drill-reroute")
+        trail = [(d["kind"], d.get("replica", d.get("failed_replica")))
+                 for d in doc["decisions"]]
+        cells["reroute"] = dict(status=st, replica=rep,
+                                healthy_after=healthy, trail=trail,
+                                reroutes=router.reroutes_total)
+        if not (st == 200 and rep == 1 and healthy == [False, True]
+                and trail == [("route", 0), ("reroute", 0), ("route", 1)]
+                and router.reroutes_total == 1):
+            fails.append("reroute")
+        router.check_health_now()
+
+        # 2. A chain on one replica, then a handoff whose import outlasts
+        # the timeout (its staged copies never report ready): aborted, the
+        # destination unchanged, the source still serving the chain.
+        st, src = post("drill-chain")
+        dst = 1 - src
+        router.check_health_now()
+        keys_hex = [k.hex() for k in kvcache.chain_keys(
+            prompts["drill-chain"], BLK)]
+        dst_cb, src_cb = servers[dst].batcher, servers[src].batcher
+        dst_version = dst_cb.kv_digest.summary()["version"]
+        src_hbm = src_cb.kv_digest.summary()["hbm_blocks"]
+        ready, timeout = serving.restore_ready, router.handoff_timeout_s
+        serving.restore_ready = lambda staged: False
+        router.handoff_timeout_s = DRILL_HANDOFF_TIMEOUT_S
+        try:
+            router.migrate_chain(keys_hex, src, dst, request_id="drill-abort")
+            idle = router.wait_handoffs(60.0)
+        finally:
+            serving.restore_ready = ready
+            router.handoff_timeout_s = timeout
+        h = router.health()["handoff"]
+        st2, rep2 = post("drill-revisit")
+        dec = route_decision(router, "drill-revisit") or {}
+        cells["handoff_abort"] = dict(
+            chain_status=st, src=src, dst=dst, keys=len(keys_hex),
+            idle=idle, handoff=h,
+            dst_aborts=dst_cb.kv_handoff_aborted_total,
+            dst_version=(dst_version, dst_cb.kv_digest.summary()["version"]),
+            src_hbm=(src_hbm, src_cb.kv_digest.summary()["hbm_blocks"]),
+            revisit=dict(status=st2, replica=rep2,
+                         policy=dec.get("policy"),
+                         hit_depth=dec.get("hit_depth")))
+        if not (st == 200 and idle and len(keys_hex) == 8
+                and h["aborted_total"] == 1 and h["completed_total"] == 0
+                and dst_cb.kv_handoff_aborted_total == 1
+                and cells["handoff_abort"]["dst_version"][0]
+                == cells["handoff_abort"]["dst_version"][1]
+                and src_hbm == cells["handoff_abort"]["src_hbm"][1]
+                and st2 == 200 and rep2 == src
+                and dec.get("policy") == "cache-aware"
+                and dec.get("hit_depth") == 8):
+            fails.append("handoff abort")
+
+        # 3. The same chain's handoff completes; the fleet trace links the
+        # router's handoff span and both replicas' export/import instants
+        # by request id.
+        router.migrate_chain(keys_hex, src, dst, request_id="drill-handoff")
+        idle = router.wait_handoffs(60.0)
+        _, trace = http_json(router.address, "/debug/trace")
+        evs = trace["traceEvents"]
+        procs = sorted(e["args"]["name"] for e in evs
+                       if e.get("ph") == "M" and e.get("name")
+                       == "process_name")
+        hand = [e["args"] for e in evs if e.get("pid") == 0
+                and e.get("name") == "handoff"]
+        linked = {(e["name"], e["pid"]) for e in evs
+                  if e.get("name") in ("prefix_export", "prefix_import")
+                  and (e.get("args") or {}).get("request_id")
+                  == "drill-handoff"}
+        cells["handoff_trace"] = dict(
+            idle=idle, completed=router.health()["handoff"][
+                "completed_total"], processes=procs, handoff_span=hand,
+            linked=sorted(linked))
+        if not (idle and cells["handoff_trace"]["completed"] == 1
+                and {"router", "replica-0", "replica-1"} <= set(procs)
+                and any(a.get("request_id") == "drill-handoff"
+                        and a.get("blocks") == 8 for a in hand)
+                and linked == {("prefix_export", 1 + src),
+                               ("prefix_import", 1 + dst)}):
+            fails.append("handoff trace")
+
+        # 4. The canary drill: replica 1's front door dies (its loop
+        # lives on); its canaries fail, its verdict flips, the anomaly
+        # counter fires; the postmortem bundle parses.
+        servers[1].httpd.shutdown()
+        servers[1].httpd.server_close()
+        for _ in range(3):
+            router.run_canaries_now()
+        router.check_health_now()
+        _, fleet = http_json(router.address, "/debug/fleet")
+        by = {r["replica"]: r for r in fleet["replicas"]}
+        samples = prometheus_samples(router.metrics_text())
+        st_b, bundle = http_json(router.address, "/debug/bundle")
+        cells["canary"] = dict(
+            oracle=oracle, verdicts=[by[i]["verdict"] for i in (0, 1)],
+            score_1=by[1]["score"], anomalies=fleet["anomalies_total"],
+            failures=router.canary_failures_total,
+            anomaly_counter=samples.get(
+                'llm_router_anomalies_total{signal="canary"}'),
+            bundle=dict(status=st_b, kind=bundle.get("kind"),
+                        replicas=[b["replica"] for b in bundle.get(
+                            "replicas", [])]))
+        if not (oracle and by[0]["verdict"] == "healthy"
+                and by[1]["verdict"] in ("suspect", "critical")
+                and "canary" in by[1]["anomalous"]
+                and (cells["canary"]["anomaly_counter"] or 0) >= 1
+                and router.canary_failures_total >= 3):
+            fails.append("canary")
+        if not (st_b == 200 and bundle.get("kind") == "router_bundle"
+                and cells["canary"]["bundle"]["replicas"] == [0]):
+            fails.append("bundle")
+        launches = launch_counts(fa, pa)
+        recs = [r for s in servers for r in records(s.batcher)]
+    finally:
+        router.stop()
+        for s in servers:
+            s.stop()
+    del servers
+    torch.cuda.empty_cache()
+    want_launches = record_launches(recs, L)
+    order = list(prompts)
+    divergences = token_divergences(
+        torch, ptl, shallow, dcfg, [prompts[r] for r in order],
+        [got[r] or [] for r in order], [want[r] for r in order], DRILL_TIE)
+    row = dict(phase="router_drill", card=smi, config="llama3-8b",
+               n_layers=L, dtype="float32", replicas=2,
+               n_slots=DRILL_SLOTS, block_size=BLK, fault="router_replica@0",
+               handoff_timeout_s=DRILL_HANDOFF_TIMEOUT_S, **cells,
+               launches=launches, expected_launches=want_launches,
+               divergences=divergences)
+    emit(row)
+    if launches != want_launches:
+        fails.append("launches")
+    if any(got[r] is None or len(got[r]) != DRILL_NEW for r in order):
+        fails.append("tokens")
+    if fails:
+        raise AssertionError(f"router_drill: {fails}")
+    return row
+
+
 def rel_err(a, b) -> float:
     return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
 
@@ -5064,6 +5834,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     sys.path.insert(0, HERE)
     import jax_llama_tpu_torch as ptl
     from jax_llama_tpu_torch import engine, serving
@@ -5332,6 +6103,14 @@ def main() -> int:
     fused_inv = drive_fused_invariant(torch, np, ptl, engine, fa, pa, params,
                                       cfg, tok, smi)
 
+    # Phase 5f: the replica router (ROADMAP A12 part 1): two replicas on
+    # the one weight copy at full width, then the control-plane drill at
+    # 8 layers.
+    router_row = drive_router_serving(torch, np, ptl, fa, pa, params, cfg,
+                                      tok, smi)
+    router_drill = drive_router_drill(torch, np, ptl, fa, pa, params, cfg,
+                                      tok, smi)
+
     # Phase 6: paged = gathered = standalone generate.
     paged_invariant(torch, ptl, engine, serving, params, cfg, tok)
     # Phase 6b: the selected slots' invariants in float32 activations.
@@ -5372,12 +6151,15 @@ def main() -> int:
              "prefix_serving": prefix_row["launches"],
              "prefix_invariant": prefix_inv["launches"],
              "fused_serving": fused_row["launches"],
-             "fused_invariant": fused_inv["launches"]}
+             "fused_invariant": fused_inv["launches"],
+             "router_serving": router_row["launches"],
+             "router_drill": router_drill["launches"]}
 
     paths_instances = {"generate": instances,
                        "serving": serve_row["instances"],
                        "http_serving": http_row["instances"],
                        "fused_serving": fused_row["instances"],
+                       "router_serving": router_row["instances"],
                        "train": train_row["instances"]}
 
     def by_path(name):
@@ -5433,6 +6215,8 @@ def main() -> int:
                     bound_by=row["bound_by"], library_ms=row["library_ms"],
                     instance=row["instance"])
 
+    emit(dict(phase="total", seconds=time.perf_counter() - t_start,
+              card=smi))
     emit({"kernels": [
         fwd,
         dict(name="flash_fwd_int8", route="cuda",

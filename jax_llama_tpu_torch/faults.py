@@ -99,8 +99,7 @@ SITES = (
     # paged_kernel still fires for the dispatch it rides).
     "kv_swap", "flash_kernel", "paged_kernel", "splash_kernel",
     "stock_paged_kernel", "spec_decode",
-    # Router-side site (the JAX package's router.ReplicaRouter.forward;
-    # ROADMAP A12 for the port): an injected
+    # Router-side site (router.ReplicaRouter's forward): an injected
     # fault here simulates the chosen replica dying at dispatch time —
     # the router marks it unhealthy and re-routes the request to a
     # surviving replica (CONTAINED: requests that have not streamed a
@@ -108,12 +107,13 @@ SITES = (
     # crashed replica replay through that replica's own crash-recovery
     # path).
     "router_replica",
-    # Controller-side sites (router.FleetController, ROADMAP A12).  ``session_migrate``
-    # fires once per live session at the start of its drain migration —
-    # an injected fault aborts THAT session's move only: the source copy
-    # is untouched (export never demotes before destination residency is
-    # proven), the session keeps serving from the source, and the drain
-    # reports the failure instead of dropping anyone.  ``scale_event``
+    # Controller-side sites (the fleet controller, ROADMAP A12 part 2).
+    # ``session_migrate`` fires once per live session at the start of its
+    # drain migration — an injected fault aborts THAT session's move
+    # only: the source copy is untouched (export never demotes before
+    # destination residency is proven), the session keeps serving from
+    # the source, and the drain reports the failure instead of dropping
+    # anyone.  ``scale_event``
     # fires at the start of each scale-up / scale-down / rollout-rung
     # action — an injected fault aborts the whole action cleanly (fleet
     # membership unchanged, decision record explains the abort).

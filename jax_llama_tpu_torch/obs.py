@@ -65,8 +65,8 @@ The sensor layer of the serving stack (``server.LLMServer`` over
     :class:`StructuredLogger` tail, exported by ``GET /debug/bundle`` as
     one artifact.
   * **Anomaly detection building block** (:class:`EwmaDetector`), pure
-    host math, kept with the JAX package's layer (its reader, the
-    replica router's health sentinel, is ROADMAP A12).
+    host math, kept with the JAX package's layer (its reader is the
+    replica router's health sentinel, ``router.HealthSentinel``).
 
 Overhead contract: everything here is HOST-side bookkeeping recorded at
 boundaries the serving loop already crosses (admission, the one packed

@@ -27,6 +27,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 from typing import Callable, Dict, Iterable, List, Optional
@@ -42,6 +43,12 @@ NVCC_FLAGS = (
 )
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
+# ``load`` runs on every serving loop thread of a process (one per replica
+# behind a router): it loads each library, and fires its fault site, once.
+_LOAD_LOCK = threading.Lock()
+# The wrappers' launch counters are read-modify-writes shared by those
+# threads; each wrapper updates its counts under this lock.
+COUNT_LOCK = threading.Lock()
 # Called as fn(source, seconds) after each successful build.
 BUILD_LISTENERS: List[Callable[[str, float], None]] = []
 
@@ -126,15 +133,16 @@ def build_log(name: str) -> str:
 def load(name: str) -> ctypes.CDLL:
     """Build ``csrc/<name>.cu`` if needed and load it (once per process);
     the first load of a serving kernel fires its fault-injection site."""
-    if name not in _LOADED:
-        # kernels imports this module: its table is read at call time.
-        from .kernels import fault_site_of_source
+    with _LOAD_LOCK:
+        if name not in _LOADED:
+            # kernels imports this module: its table is read at call time.
+            from .kernels import fault_site_of_source
 
-        site = fault_site_of_source(name)
-        if site is not None:
-            fire_trace(site)
-        _LOADED[name] = ctypes.CDLL(str(build(name)))
-    return _LOADED[name]
+            site = fault_site_of_source(name)
+            if site is not None:
+                fire_trace(site)
+            _LOADED[name] = ctypes.CDLL(str(build(name)))
+        return _LOADED[name]
 
 
 def loaded() -> Dict[str, int]:

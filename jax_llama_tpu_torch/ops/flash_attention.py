@@ -495,10 +495,11 @@ def _count(wrapper, code: int, kernels: int = 1) -> None:
     """One launch of ``wrapper``, of the instance its C entry point
     reported (``code``), which ran ``kernels`` kernels."""
     instance = _INSTANCES[code]
-    wrapper.launches += 1
-    wrapper.kernel_launches += kernels
-    by = wrapper.launches_by_instance
-    by[instance] = by.get(instance, 0) + 1
+    with _build.COUNT_LOCK:
+        wrapper.launches += 1
+        wrapper.kernel_launches += kernels
+        by = wrapper.launches_by_instance
+        by[instance] = by.get(instance, 0) + 1
 
 
 def _launch(q, k, v, q_pos, kv_pos, rate, seed, need_lse, instance=None,

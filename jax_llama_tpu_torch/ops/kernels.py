@@ -218,9 +218,10 @@ def _launch(device: torch.device, fn, *args) -> Tuple[int, int]:
 def _count(wrapper, instance: str, launches: int) -> None:
     """``launches`` kernel launches of one ``wrapper`` call, of
     ``instance``."""
-    wrapper.launches += launches
-    by = wrapper.launches_by_instance
-    by[instance] = by.get(instance, 0) + 1
+    with _build.COUNT_LOCK:
+        wrapper.launches += launches
+        by = wrapper.launches_by_instance
+        by[instance] = by.get(instance, 0) + 1
 
 
 def _on_card(name: str, tensors) -> None:

@@ -15,6 +15,10 @@
     python -m jax_llama_tpu_torch.run --ckpt-dir ... --http 8000 \
         [--slots 4] [--slo-ttft-ms 500] [--inject-faults SPEC] ...
 
+    python -m jax_llama_tpu_torch.run --ckpt-dir ... --http 8000 \
+        --replicas 2 [--route cache-aware] [--replica-roles prefill,decode] \
+        [--canary-interval-s 10] ...
+
 The checkpoint is the port's (``python -m jax_llama_tpu_torch.convert``
 writes one from Meta's files).  The argument parser is the JAX package's,
 so an argv that one accepts the other does too, plus ``--device`` (default
@@ -24,9 +28,11 @@ so an argv that one accepts the other does too, plus ``--device`` (default
 (``server.LLMServer``: POST /generate and /chat, GET /metrics, /healthz,
 /debug/*) run on the card, or on the CPU with ``--device cpu``; ``--http``
 never falls back to the CPU.  A flag whose feature is not ported exits
-with a message that names its ROADMAP item: ``--replicas`` > 1,
-``--autoscale``, ``--replica-roles`` (A12), ``--serve-mesh`` and a
-``--data``/``--fsdp``/``--tensor`` mesh of more than one device (A14).
+with a message that names its ROADMAP item: ``--autoscale`` (A12),
+``--serve-mesh`` and a ``--data``/``--fsdp``/``--tensor`` mesh of more
+than one device (A14).  ``--http`` with ``--replicas`` > 1 serves N
+replicas on the one device behind ``router.ReplicaRouter`` (``--route``,
+``--replica-roles``, ``--canary-interval-s``), as the JAX CLI does.
 ``--serve`` and ``--http`` run as the JAX CLI does: the prefix cache
 (``--prefix-index radix`` by default, ``exact``, ``off``;
 ``--no-prefix-cache``; ``--host-kv-blocks`` > 0 attaches the host tier,
@@ -36,9 +42,8 @@ decode is prefilled in chunks of at most that many tokens inside the
 decode dispatches; 0 admits whole prompts).  ``--logprobs`` (``--http``
 only, as in the JAX CLI) lets a request ask for each token's logprob
 (``"logprobs": true``).  ``--log-json`` formats the log lines.
-The flags that only configure the replica fleet (routing, canaries,
-autoscale bounds: A12) are parsed from one table, ``_FLEET_FLAGS``, and
-have nothing to configure until their item.
+The router's flags and the fleet controller's (its autoscale bounds,
+A12) are parsed from one table, ``_FLEET_FLAGS``.
 """
 
 from __future__ import annotations
@@ -52,10 +57,11 @@ DEFAULT_PROMPTS = [
 ]
 
 
-# Flags that only configure the replica fleet (ROADMAP A12), as (flag,
-# type (None: a string), default, choices): registered with the JAX CLI's
-# names, types and defaults so that one argv parses in both packages.
-# Until A12 they have nothing to configure.
+# Flags that configure the replica fleet, as (flag, type (None: a
+# string), default, choices): registered with the JAX CLI's names, types
+# and defaults so that one argv parses in both packages.  The router reads
+# --route and --canary-interval-s; the autoscale bounds wait for the fleet
+# controller (ROADMAP A12).
 _FLEET_FLAGS = (
     ("--route", None, "least-loaded",
      ("least-loaded", "affinity", "cache-aware")),
@@ -125,13 +131,14 @@ def main() -> None:
     ap.add_argument("--serve-mesh", default=None, metavar="DP,TP",
                     help="serving-mesh geometry (ROADMAP A14; refused)")
     ap.add_argument("--replicas", type=int, default=1, metavar="N",
-                    help="serving replicas behind one HTTP door (> 1 is "
-                         "ROADMAP A12; refused)")
+                    help="serving replicas behind one HTTP door "
+                         "(router.ReplicaRouter; needs --http)")
     ap.add_argument("--autoscale", action="store_true",
-                    help="elastic replica fleet (ROADMAP A12; refused)")
+                    help="elastic replica fleet (the fleet controller, "
+                         "ROADMAP A12 part 2; refused)")
     ap.add_argument("--replica-roles", default=None, metavar="R,R,...",
-                    help="prefill/decode disaggregation (ROADMAP A12; "
-                         "refused)")
+                    help="prefill/decode disaggregation: one role "
+                         "per replica (needs --route cache-aware)")
     ap.add_argument("--decode-chunk", type=int, default=8,
                     help="fuse up to this many decode iterations per "
                          "step() in --serve (token-identical to 1; 1 "
@@ -188,8 +195,7 @@ def main() -> None:
     _add_http_flags(ap)
     for flag, kind, default, choices in _FLEET_FLAGS:
         ap.add_argument(flag, type=kind, default=default, choices=choices,
-                        help="replica fleet flag, ROADMAP A12; parsed for "
-                             "argv compatibility")
+                        help="replica fleet flag (--replicas > 1)")
     ap.add_argument("--log-json", action="store_true",
                     help="one JSON object per operational log line "
                          "instead of 'event k=v' text")
@@ -391,16 +397,19 @@ def _add_http_flags(ap) -> None:
 
 def _refuse_unported(args) -> None:
     """Exit, naming the ROADMAP item, on a mode or flag value whose feature
-    the port does not have yet; validate the rest as the JAX CLI does."""
+    the port does not have yet; validate the rest as the JAX CLI does
+    (JAX :414-470)."""
     if args.replicas < 1:
         raise SystemExit("--replicas must be >= 1")
+    if args.replicas > 1 and args.http is None:
+        raise SystemExit(
+            "--replicas > 1 needs the HTTP front-end (--http PORT): "
+            "the ReplicaRouter speaks HTTP to its replicas"
+        )
     tensor = args.tensor or 1  # 0 = every local device: the one card
     mesh = args.data * args.fsdp * tensor
     unported = (
-        (args.replicas > 1, "--replicas > 1 (the replica router)", "A12"),
         (args.autoscale, "--autoscale (the fleet controller)", "A12"),
-        (args.replica_roles is not None,
-         "--replica-roles (prefill/decode disaggregation)", "A12"),
         (args.serve_mesh is not None, "--serve-mesh (the serving mesh)",
          "A14"),
         (mesh > 1, f"a device mesh of {mesh} (--data {args.data} --fsdp "
@@ -409,6 +418,38 @@ def _refuse_unported(args) -> None:
     for bad, what, item in unported:
         if bad:
             raise SystemExit(f"{what} is not ported (ROADMAP {item})")
+    if args.replica_roles is not None:
+        roles = tuple(
+            r.strip() for r in args.replica_roles.split(",") if r.strip()
+        )
+        if args.replicas < 2:
+            raise SystemExit(
+                "--replica-roles needs --replicas >= 2 (one prefill "
+                "and one decode replica at minimum)"
+            )
+        if len(roles) != args.replicas:
+            raise SystemExit(
+                f"--replica-roles names {len(roles)} roles for "
+                f"--replicas {args.replicas}; give one role per replica"
+            )
+        bad = sorted(set(roles) - {"prefill", "decode"})
+        if bad:
+            raise SystemExit(
+                f"--replica-roles: unknown role(s) {bad}; valid roles "
+                "are 'prefill' and 'decode'"
+            )
+        if not ("prefill" in roles and "decode" in roles):
+            raise SystemExit(
+                "--replica-roles needs at least one replica of EACH "
+                "role (prefill and decode)"
+            )
+        if args.route != "cache-aware":
+            raise SystemExit(
+                "--replica-roles requires --route cache-aware (the "
+                "disaggregation scheduler routes off the router's "
+                "global radix index)"
+            )
+        args.replica_roles = roles
     if args.host_kv_blocks > 0 and (
             args.prefix_index != "radix" or args.no_prefix_cache):
         # The tier hangs off radix-node residency: refused here rather
@@ -536,9 +577,9 @@ def _serve(params, config, tokenizer, device, args) -> None:
 def _serve_http(params, config, tokenizer, device, args, _test_hook=None,
                 logger=None) -> None:
     """HTTP front-end: ``LLMServer`` over the batcher until interrupted
-    (JAX ``run._serve_http``).  ``_test_hook(srv)``, when given, runs once
-    the server is up, and then the function returns instead of
-    blocking."""
+    (JAX ``run._serve_http``); ``--replicas`` > 1 serves through
+    ``_serve_router``.  ``_test_hook(srv)``, when given, runs once the
+    server is up, and then the function returns instead of blocking."""
     import signal
     import time
 
@@ -549,6 +590,10 @@ def _serve_http(params, config, tokenizer, device, args, _test_hook=None,
 
     if logger is None:
         logger = StructuredLogger(json_mode=args.log_json)
+    if args.replicas > 1:
+        _serve_router(params, config, tokenizer, device, args,
+                      _test_hook=_test_hook, logger=logger)
+        return
     # --inject-faults wins over the JLT_FAULTS env var; with neither, no
     # injector is built.
     fault_spec = args.inject_faults or os.environ.get("JLT_FAULTS")
@@ -648,6 +693,128 @@ def _serve_http(params, config, tokenizer, device, args, _test_hook=None,
         if injector is not None:
             # The hook is a module global: clear it so an embedding
             # process does not keep firing a dead drill's injector.
+            install_trace_hook(None)
+
+
+def _serve_router(params, config, tokenizer, device, args, _test_hook=None,
+                  logger=None) -> None:
+    """``--replicas N`` mode (JAX ``run._serve_router``): N independent
+    batcher + server replicas behind one ``router.ReplicaRouter`` speaking
+    the standard protocol on the ``--http`` port.  The replicas share the
+    one copy of the weights on ``device``, as the JAX package's share
+    ``params`` without a serving mesh; each owns its pool, queue, prefix
+    index and serving-loop thread.  One fault injector serves the router
+    site and every replica's sites, so ``site@N`` counts the process's
+    dispatches.  ``_test_hook(router, servers)``, when given, runs once
+    everything is up, and then the function returns instead of
+    blocking."""
+    import signal
+    import time
+
+    from .faults import FaultInjector, install_trace_hook
+    from .obs import Observability, StructuredLogger
+    from .router import ReplicaRouter
+    from .server import LLMServer
+    from .serving import ContinuousBatcher
+
+    if logger is None:
+        logger = StructuredLogger(json_mode=args.log_json)
+    fault_spec = args.inject_faults or os.environ.get("JLT_FAULTS")
+    injector = None
+    if fault_spec:
+        injector = FaultInjector(fault_spec, seed=args.fault_seed)
+        install_trace_hook(injector.fire)
+        logger.log("faults_armed", spec=fault_spec)
+    draft_params, draft_config = _load_draft(args, device)
+
+    def make_replica(i):
+        """Build and start replica ``i``: the flags' batcher with its own
+        sampling seed, and the server the JAX CLI builds per replica."""
+        obs = Observability(
+            slo_ttft_ms=args.slo_ttft_ms or None,
+            slo_itl_ms=args.slo_itl_ms or None,
+            peak_flops=args.peak_tflops * 1e12,
+            peak_bytes_per_s=args.peak_hbm_gbps * 1e9,
+        )
+        cb = ContinuousBatcher(
+            params, config, **dict(_batcher_kwargs(args), seed=args.seed + i),
+            stop_tokens=_stops(tokenizer), draft_params=draft_params,
+            draft_config=draft_config, fault_injector=injector, obs=obs,
+            cost_models=not args.no_cost_models, device=device,
+        )
+        srv = LLMServer(
+            cb, tokenizer=tokenizer, host=args.host, port=0, replica_id=i,
+            max_recoveries=args.max_recoveries,
+            recovery_window_s=args.recovery_window_s,
+            watchdog_deadline_s=(args.watchdog_s if args.watchdog_s > 0
+                                 else None),
+            drain_timeout_s=args.drain_timeout_s,
+            logger=logger,
+            max_queue=args.max_queue,
+            priority_classes=args.priority_classes == "on",
+        )
+        return srv.start()
+
+    servers = []
+    try:
+        for i in range(args.replicas):
+            servers.append(make_replica(i))
+        # Cache-aware routing speaks the replicas' chain-key schema: the
+        # tokenizer and chat format mirror each replica's own encoding,
+        # block_size is the key granularity (one config, so one size).
+        router = ReplicaRouter(
+            servers, host=args.host, port=args.http, policy=args.route,
+            fault_injector=injector, logger=logger, tokenizer=tokenizer,
+            block_size=servers[0].batcher.block_size,
+            chat_format=_chat_format_for(tokenizer),
+            roles=args.replica_roles,
+            canary_interval_s=args.canary_interval_s,
+        ).start()
+        try:
+            logger.log("serving_replicas", address=router.address,
+                       replicas=args.replicas, policy=args.route,
+                       device=str(device))
+            if _test_hook is not None:
+                _test_hook(router, servers)
+                return
+            state = {"signaled": False}
+
+            def _on_signal(signum, frame):
+                state["signaled"] = True
+                signal.signal(signal.SIGINT, signal.default_int_handler)
+
+            previous = []
+            try:
+                for sig in (signal.SIGTERM, signal.SIGINT):
+                    previous.append((sig, signal.signal(sig, _on_signal)))
+            except ValueError:
+                previous = []
+            try:
+                while not state["signaled"]:
+                    time.sleep(0.2)
+                logger.log("drain_begin", "all replicas draining",
+                           timeout_s=args.drain_timeout_s)
+                for srv in servers:
+                    srv.begin_drain()
+                for srv in servers:
+                    srv.wait_drained(args.drain_timeout_s + 10)
+                logger.log("drained", "shutting down")
+            except KeyboardInterrupt:
+                for srv in servers:
+                    srv.begin_drain(timeout_s=0.0)
+                logger.log("hard_shutdown", "second interrupt")
+            finally:
+                for sig, old in previous:
+                    try:
+                        signal.signal(sig, old)
+                    except (ValueError, TypeError):
+                        pass
+        finally:
+            router.stop()
+    finally:
+        for srv in servers:
+            srv.stop()
+        if injector is not None:
             install_trace_hook(None)
 
 

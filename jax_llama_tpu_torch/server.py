@@ -1630,9 +1630,9 @@ class LLMServer:
                 "prompt_tokens_total": self.batcher.prompt_tokens_total,
             },
             "overload": self.overload.health(),
-            # The replica's occupancy (what the JAX package's
-            # ReplicaRouter reads; the router is ROADMAP A12, the serving
-            # mesh A14, so the mesh is 1 x 1 and unplaced).
+            # The replica's occupancy (what router.ReplicaRouter reads;
+            # the serving mesh is ROADMAP A14, so the mesh is 1 x 1 and
+            # unplaced).
             "replica": {
                 "id": self.replica_id,
                 # audit: racy-read(point-in-time /healthz snapshot of

@@ -194,6 +194,12 @@ def _round_up(n: int, m: int) -> int:
     return -(-n // m) * m
 
 
+def _timing_event() -> "torch.cuda.Event":
+    """A CUDA event that records time (around an insert on the card, and
+    before a fetch that waits for one)."""
+    return torch.cuda.Event(enable_timing=True)
+
+
 # ---------------------------------------------------------------------------
 # Paged KV pool
 # ---------------------------------------------------------------------------
@@ -1387,6 +1393,31 @@ class ContinuousBatcher:
                 self.decode_stall_ms_total += ms
             self.obs.record_dispatch(wall_ms=ms, start_ms=start, **rec)
 
+    def _fetch_mark(self):
+        """A CUDA event recorded right before a fetch that waits for the
+        inserts still unsettled (None off the card, or with no classic
+        insert since the last fetch)."""
+        if not self._unsettled or self.device.type != "cuda":
+            return None
+        ev = _timing_event()
+        ev.record()
+        return ev
+
+    def _wall_past_inserts(self, wall_ms: float, fetched) -> float:
+        """The wall of a dispatch whose fetch just returned, started no
+        earlier than the end of the inserts enqueued before it.  Unlike
+        JAX's, the port's insert fetches nothing, so this fetch waited for
+        the inserts still unsettled, whose device time their own records
+        carry (``_settle_inserts``).  The host and device clocks share no
+        epoch, so the record is measured on the device: from the last
+        insert's end event to ``fetched`` (``_fetch_mark``, before the
+        fetch; both have passed once it returned).  The host wall stays
+        when it is shorter (the insert ended before this dispatch
+        began)."""
+        if fetched is None:
+            return wall_ms
+        return min(wall_ms, self._unsettled[-1][3].elapsed_time(fetched))
+
     def _dispatch_cost(self, program: str, count
                        ) -> Tuple[Optional[float], Optional[float]]:
         """Per-dispatch attribution, right before ``program`` runs: name it
@@ -1862,9 +1893,14 @@ class ContinuousBatcher:
         # The one device->host sync of the chunk: the tokens and, bit-cast
         # beside them, their logprobs.
         tf_obs = time.monotonic()
+        # A decode chunk's record starts where the classic inserts before
+        # it ended (their own records carry their time).
+        fetched = self._fetch_mark() if pf_adv == 0 else None
         arr = packed.cpu().numpy()
         self.host_syncs_total += 1
         now_obs = time.monotonic()
+        wall_ms = self._wall_past_inserts((now_obs - t0_obs) * 1000.0,
+                                          fetched)
         self._settle_inserts(wait=True)
         self.obs.record_dispatch(
             # A fused chunk keeps one kind: its work mixes prefill and
@@ -1873,7 +1909,7 @@ class ContinuousBatcher:
             kind=(("decode:stock-paged" if stock else "decode")
                   if pf_adv == 0 else "fused"),
             k=K, occupancy=len(obs_rids), prefill_tokens=pf_adv,
-            wall_ms=(now_obs - t0_obs) * 1000.0,
+            wall_ms=wall_ms,
             fetch_ms=(now_obs - tf_obs) * 1000.0,
             swap_inflight=len(self._restoring), rids=obs_rids,
             program=prog, flops=cost_fl, bytes_accessed=cost_by,
@@ -2047,15 +2083,19 @@ class ContinuousBatcher:
         cols = [outs, acc[:, None]]
         if self.logprobs:
             cols.append(lps.float().contiguous().view(torch.int32))
-        arr = torch.cat(cols, dim=1).cpu().numpy()
+        cols = torch.cat(cols, dim=1)
+        fetched = self._fetch_mark()
+        arr = cols.cpu().numpy()
         lps = arr[:, G + 2:].view(np.float32) if self.logprobs else None
         self.host_syncs_total += 1
         self.spec_host_syncs_total += 1
         now_obs = time.monotonic()
+        wall_ms = self._wall_past_inserts((now_obs - t0_obs) * 1000.0,
+                                          fetched)
         self._settle_inserts(wait=True)
         self.obs.record_dispatch(
             kind="spec", k=1, occupancy=len(live),
-            wall_ms=(now_obs - t0_obs) * 1000.0,
+            wall_ms=wall_ms,
             fetch_ms=(now_obs - tf_obs) * 1000.0,
             swap_inflight=len(self._restoring), rids=live,
             program="_spec_round_core", flops=cost_fl,
@@ -2136,14 +2176,17 @@ class ContinuousBatcher:
         )
         # The one device->host sync of the chunk.
         tf_obs = time.monotonic()
+        fetched = self._fetch_mark()
         arr = packed.cpu().numpy()
         self.host_syncs_total += 1
         self.spec_host_syncs_total += 1
         now_obs = time.monotonic()
+        wall_ms = self._wall_past_inserts((now_obs - t0_obs) * 1000.0,
+                                          fetched)
         self._settle_inserts(wait=True)
         self.obs.record_dispatch(
             kind="spec", k=R, occupancy=len(live),
-            wall_ms=(now_obs - t0_obs) * 1000.0,
+            wall_ms=wall_ms,
             fetch_ms=(now_obs - tf_obs) * 1000.0,
             swap_inflight=len(self._restoring), rids=live,
             program="_spec_rounds_chunk", flops=cost_fl,
@@ -2620,7 +2663,7 @@ class ContinuousBatcher:
         adopt)."""
         ev0 = None
         if self.device.type == "cuda":
-            ev0 = torch.cuda.Event(enable_timing=True)
+            ev0 = _timing_event()
             ev0.record()
         return time.monotonic(), self.obs.now_ms(), ev0
 
@@ -2640,7 +2683,7 @@ class ContinuousBatcher:
                 self.decode_stall_ms_total += ms
             self.obs.record_dispatch(wall_ms=ms, **rec)
             return
-        ev1 = torch.cuda.Event(enable_timing=True)
+        ev1 = _timing_event()
         ev1.record()
         self._unsettled.append(
             (dict(rec, stalled=self._stalling), start, ev0, ev1))

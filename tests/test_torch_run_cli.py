@@ -8,7 +8,10 @@ handed to ``decode`` are compared too.  Under ``--http 0`` both CLIs serve
 one request from the same checkpoint with the same greedy tokens, and shut
 down, and with ``--logprobs`` both return the same per-token logprobs;
 ``--serve`` passes ``--prefill-budget`` (default 512) to its batcher.
-Flags whose feature is not ported exit naming their ROADMAP item."""
+``--http 0 --replicas 2 --route cache-aware`` serves through the replica
+router with the single server's replies.  Flags whose feature is not
+ported exit naming their ROADMAP item; the router's flags are refused as
+the JAX CLI refuses them, with its messages."""
 
 import io
 import json
@@ -268,13 +271,71 @@ def test_http_fault_flag_reaches_the_server(ckpts, monkeypatch, capsys):
     assert "faults_armed" in events and "crash_recovery" in events
 
 
+def test_http_replicas_route_like_one_server(ckpts, monkeypatch, capsys):
+    """``--replicas 2 --http 0 --route cache-aware`` serves through the
+    router (JAX tests/test_run_cli.py drives its CLI the same way): the
+    routed replies are the single server's, a session's revisit routes
+    to the replica holding its chain, and both replicas served."""
+    _, pdir, _, _, _ = ckpts
+    session = "the quick brown fox jumps over the lazy d"
+    payloads = [{"text": session, "max_new_tokens": 4, "temperature": 0},
+                {"text": "pack my box", "max_new_tokens": 4,
+                 "temperature": 0},
+                {"text": session + " next!",
+                 "max_new_tokens": 4, "temperature": 0}]
+
+    def post(url, payload):
+        req = urllib.request.Request(url + "/generate",
+                                     data=json.dumps(payload).encode())
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return json.loads(r.read())["tokens"], r.headers["X-Replica-Id"]
+
+    single = []
+    orig_http = prun._serve_http
+    monkeypatch.setattr(prun, "_serve_http", lambda *a, **kw: orig_http(
+        *a, **kw, _test_hook=lambda srv: single.extend(
+            post(srv.address, p)[0] for p in payloads)))
+    argv = ["--ckpt-dir", str(pdir), "--byte-tokenizer", "--http", "0",
+            "--slots", "2", *GREEDY, "--device", "cpu"]
+    _run(prun.main, argv, monkeypatch, capsys)
+    monkeypatch.setattr(prun, "_serve_http", orig_http)
+
+    routed = {}
+
+    def hook(router, servers):
+        routed["replies"] = [post(router.address, payloads[0])]
+        router.check_health_now()
+        routed["replies"] += [post(router.address, p) for p in payloads[1:]]
+        routed["health"] = router.health()
+        routed["seeds"] = [s.batcher.seed for s in servers]
+
+    orig = prun._serve_router
+    monkeypatch.setattr(prun, "_serve_router", lambda *a, **kw: orig(
+        *a, **dict(kw, _test_hook=hook)))
+    out = _run(prun.main, argv + ["--replicas", "2", "--route",
+                                  "cache-aware"], monkeypatch, capsys)
+    tokens = [t for t, _ in routed["replies"]]
+    reps = [r for _, r in routed["replies"]]
+    assert tokens == single and all(len(t) == 4 for t in tokens)
+    assert reps[2] == reps[0] != reps[1]  # the revisit hit, the other spread
+    h = routed["health"]
+    assert h["policy"] == "cache-aware" and len(h["replicas"]) == 2
+    assert h["cache_index"]["hit_depth_blocks_total"] >= 2
+    assert routed["seeds"] == [0, 1]
+    assert "serving_replicas address=http://127.0.0.1:" in out
+
+
 @pytest.mark.parametrize("argv,item", [
     # Ported (ROADMAP A17): refused outside --http with the JAX CLI's
     # message.
     (["--logprobs"], "--http"),
-    (["--replicas", "2"], "A12"),
+    # The router is ported (ROADMAP A12 part 1): --replicas > 1 is
+    # refused without --http, and --replica-roles with one replica, each
+    # with the JAX CLI's message.
+    (["--replicas", "2"], "--replicas > 1 needs the HTTP front-end"),
     (["--autoscale"], "A12"),
-    (["--replica-roles", "prefill,decode"], "A12"),
+    (["--replica-roles", "prefill,decode"],
+     "--replica-roles needs --replicas >= 2"),
     (["--serve-mesh", "1,2"], "A14"),
     (["--tensor", "2"], "A14"),
     (["--data", "2", "--tensor", "1"], "A14"),
@@ -287,15 +348,36 @@ def test_unported_flags_exit_naming_their_item(tmp_path, monkeypatch, argv,
                                                item):
     monkeypatch.setattr(sys, "argv", ["run", "--ckpt-dir", str(tmp_path),
                                       "--byte-tokenizer", *argv])
+    ported = item is None or item.startswith("--")
     match = ("--host-kv-blocks requires --prefix-index radix"
              if item is None else
              "--logprobs only applies to the HTTP server" if item == "--http"
+             else item if ported
              else f"not ported \\(ROADMAP {item}\\)")
     with pytest.raises(SystemExit, match=match):
         prun.main()
-    if item in (None, "--http"):  # JAX's CLI refuses the same argv so
+    if ported:  # JAX's CLI refuses the same argv so
         with pytest.raises(SystemExit, match=match):
             jrun.main()
+
+
+@pytest.mark.parametrize("roles,route,match", [
+    ("prefill", "least-loaded", "one role per replica"),
+    ("prefill,cook", "least-loaded", "unknown role"),
+    ("prefill,prefill", "cache-aware", "EACH role"),
+    ("prefill,decode", "least-loaded", "requires --route cache-aware"),
+], ids=["count", "unknown", "each_role", "route"])
+def test_replica_roles_refused_as_jax_refuses_them(tmp_path, monkeypatch,
+                                                   roles, route, match):
+    """``--replica-roles`` with two replicas is validated before any load,
+    with the JAX CLI's messages, and the JAX CLI refuses the same argv."""
+    monkeypatch.setattr(sys, "argv", [
+        "run", "--ckpt-dir", str(tmp_path), "--byte-tokenizer", "--http",
+        "0", "--replicas", "2", "--replica-roles", roles, "--route", route,
+        "--tensor", "1"])
+    for main in (prun.main, jrun.main):
+        with pytest.raises(SystemExit, match=match):
+            main()
 
 
 def test_fault_env_var_exits_naming_a7(tmp_path, monkeypatch):
