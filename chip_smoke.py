@@ -510,6 +510,64 @@ The replica router (ROADMAP A12 part 1) adds two phases after
   canaries fail, its verdict flips and the anomaly counter fires; and
   ``/debug/bundle`` parses.  Launches exactly as the records imply.
 
+The fleet controller (ROADMAP A12 part 2) and the live profiler (A16
+part 1) add two phases after ``router_drill``, a check to
+``http_serving`` and a flag to ``checkpoint``'s router run; and each
+flash ``kernel_check`` row names the kernels one call of its library
+yardstick ran (``library_kernels``, through
+``utils.profiling.device_op_times``), which says which SDPA backend
+``library_ms`` times:
+
+* ``http_serving``, after its measured part: POST /debug/profiler
+  brackets PROFILE_REQUESTS more requests on the live server (the
+  session starts and stops on the serving loop), GET
+  /debug/profile/summary must give ``_paged_decode_chunk`` and
+  ``_paged_insert`` device ms > 0, its ``total_device_ms`` must equal the
+  trace's summed kernel time within PROFILE_TOTAL_REL, and the paged
+  wrapper's count of the kernels it launched over the bracket must equal
+  the trace's split and combine events.
+* ``checkpoint``: the ``--replicas 2`` run adds ``--autoscale`` (floor 2,
+  ceiling 3, a 0.05 s period): /debug/fleet shows the armed controller
+  with those bounds, which scaled nothing.
+* ``fleet_serving``: router_serving's geometry (llama3-8b at full width,
+  the phase-3 weights, two replicas) with a ``FleetController``
+  (``interval_s=0``, driven by ``tick()``; floor 2, ceiling 3; dwell and
+  cooldown 0; ``queue_wait_high_ms`` FLEET_QUEUE_WAIT_HIGH_MS).  Two
+  tenants' 24 chats arrive together (16 slots) and, while they are
+  served, a health poll and a tick run every FLEET_TICK_S until the
+  queued admissions' wait p90 is pressure and a tick grows a third
+  replica through the factory, which shares the embedding tensor; two
+  new tenants' sessions and a hit each are then routed to it (the seeds
+  retiring meanwhile).  Once the burst's waits have aged out of the
+  signal window the fleet is calm and one tick scales down: the victim
+  must be the grown replica with a healthy sentinel verdict, the drain
+  must migrate every chain ``resident_chain_keys`` listed, and the
+  card's allocated memory must be back within FLEET_MEMORY_SLACK of its
+  level before the burst (two idle replicas, each of which has served
+  one short request, so that its loop's cuBLAS workspace is in the
+  baseline; the scale-up came within the burst), having freed at least
+  the grown replica's pool.  Each
+  session's revisit then hits its migration destination at its full 8
+  blocks, with its first turn's tokens (or a bf16 near-tie below
+  DECODE_REL).  Reported: the tick decision ms, the factory's ms, the
+  drain's ms, the sessions, blocks and bytes migrated, the migration
+  copies' GB/s (on the stopped survivors), the revisits' TTFT before and
+  after the drain; launches exactly as every replica's records imply.
+* ``fleet_drill``: DECODE_DEPTH layers in float32 activations, two
+  replicas and a controller driven by hand: ``scale_event`` faults abort
+  a scale-up and a scale-down with the membership unchanged;
+  ``session_migrate`` fails the one session's move, the drain reports
+  ``migration-failures``, the source resumes and the revisit hits there;
+  a rollout on the same weights passes both rungs (``oracle-pinned``,
+  ``oracle-match``); a rollout to a tree whose final norm carries seeded
+  noise (every other tensor shared), gated on the old canary tokens,
+  fails rung 0 (``oracle-mismatch``) and rolls back, after which every
+  canary gives the old tokens; with replica 0 made non-healthy (three
+  failed canaries fed to the sentinel) a scale-down picks another victim;
+  and a drain with no survivor fails cleanly.  Every reply has the
+  reference batcher's tokens (DRILL_TIE) and launches are exactly what
+  every instance's records imply.
+
 A ``total`` line gives the script's seconds so far, before the
 ``kernels`` line.  The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or outside a checkout of the repository, it exits non-zero before printing
@@ -790,6 +848,18 @@ def library_attention(torch, q, k, v, q_pos, kv_pos):
         qt, kt, vt, attn_mask=mask, enable_gqa=True)
 
 
+def library_kernels(fn, top=3):
+    """The kernels of one call of ``fn`` by device time
+    (``utils.profiling.device_op_times``, after one warm call): they name
+    the backend a library call ran."""
+    from jax_llama_tpu_torch.utils.profiling import device_op_times
+
+    fn()
+    ps = device_op_times(fn)
+    return [dict(name=k[:96], device_us=v / 1e6)
+            for k, v in sorted(ps.items(), key=lambda kv: -kv[1])[:top]]
+
+
 def ran_instance(after, before):
     """The one instance launched since ``before``, a copy of a wrapper's
     ``launches_by_instance`` (``after``), or what ran if not exactly
@@ -886,6 +956,7 @@ def check_flash(torch, fa, gen):
         ], iters=len(copies))
         library_ms = time_ms(torch, [library_attention(torch, *a)
                                      for a in copies], iters=4 * len(copies))
+        lib_kernels = library_kernels(library_attention(torch, *args))
         extra, extra_ok = {}, True
         if name == "fused_chunk":
             # Every query row sees slots 0 .. its own position, across the
@@ -918,7 +989,8 @@ def check_flash(torch, fa, gen):
             dtype=str(args[0].dtype).split(".")[-1], instance=instance,
             max_abs_err=err, worst_row_rel=rel, rel_bound=rel_bound, ms=ms,
             device_ms=device_ms, warm_ms=warm_ms, plain_ms=plain_ms,
-            library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=library_ms, library_kernels=lib_kernels,
+            bound_ms=bound_ms, bound_by=bound_by,
             roofline_share=bound_ms / ms,
             device_roofline_share=bound_ms / device_ms if device_ms else None,
             earlier_ms=EARLIER_MS.get(("flash_fwd", name)),
@@ -1886,6 +1958,12 @@ def check_train_kernels(torch, fa, gen):
             *leaves, is_causal=True, enable_gqa=True, dropout_p=rate)
         lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
             lib_out, leaves, gt, retain_graph=True))
+        lib_kernels = dict(
+            fwd=library_kernels(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True,
+                dropout_p=rate)),
+            bwd=library_kernels(lambda: torch.autograd.grad(
+                lib_out, leaves, gt, retain_graph=True)))
         del lib_out, leaves, out, lse, delta
         label = "dropout" if rate else "no_dropout"
         for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
@@ -1907,6 +1985,7 @@ def check_train_kernels(torch, fa, gen):
                 library_ms=lib_fwd if fwd else lib_bwd,
                 library="scaled_dot_product_attention" + (
                     "" if fwd else " backward via autograd (dq, dk, dv)"),
+                library_kernels=lib_kernels["fwd" if fwd else "bwd"],
                 bound_ms=bounds[name][0], bound_by=bounds[name][1],
                 roofline_share=bounds[name][0] / ms[name],
                 instance=instance[name], device_ms=device_ms[name],
@@ -2221,12 +2300,14 @@ def device_profile(torch, fn, top=6, categories=None):
     """Device busy share and the top kernels by device time over ``fn()``,
     from torch.profiler; None where the profiler saw no device time.
     ``categories`` ({label: name substrings}) adds device ms per label,
-    the first label whose substring a kernel's name holds, else "other"."""
+    the first label whose substring a kernel's name holds, else "other".
+    Only CUDA activity is recorded: every figure here sums device events,
+    and the host ops of a full-width step (tens of thousands) cost the
+    profiler's processing far more time than the step itself."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t = time.perf_counter()
         fn()
@@ -2745,6 +2826,9 @@ def drive_http_serving(torch, ptl, fa, pa, params, cfg, tok, smi, serve_row,
         health_status, health = http_json(srv.address, "/healthz")
         bundle_status, bundle = http_json(srv.address, "/debug/bundle")
         _, dispatches = http_json(srv.address, "/debug/dispatches?n=4096")
+        # After the measured part: the live profiler over three more
+        # requests (its launches are not in this phase's counts).
+        profile = profiler_bracket(torch, pa, srv, prompts)
     samples = prometheus_samples(metrics_body.decode())
     missing = [n for n in HTTP_SERIES
                if not any(k == n or k.startswith(n + "{") for k in samples)]
@@ -2823,6 +2907,7 @@ def drive_http_serving(torch, ptl, fa, pa, params, cfg, tok, smi, serve_row,
                      quarantined=health["quarantined"]),
         bundle_keys=sorted(bundle), http_status=dict(
             metrics=metrics_status, bundle=bundle_status),
+        profiler=profile,
     )
     emit(row)
     if statuses != [200] * 12 or not row["all_sent_before_first_done"]:
@@ -2854,7 +2939,83 @@ def drive_http_serving(torch, ptl, fa, pa, params, cfg, tok, smi, serve_row,
             w["ratio_to_steady_median"] > C2_RATIO for w in waited):
         raise AssertionError(f"http_serving: the decode records after a "
                              f"classic insert {c2}, {row['c2_cell']}")
+    if not profile["ok"]:
+        raise AssertionError(f"http_serving: the profiler cross-check "
+                             f"{profile}")
     return row
+
+
+PROFILE_REQUESTS = 3     # http_serving's profiled bracket, after its checks
+PROFILE_NEW = 8
+PROFILE_TOTAL_REL = 0.01  # the summary's device ms against the trace's
+
+
+def profiler_bracket(torch, pa, srv, prompts):
+    """``http_serving``'s profiler cross-check on its live server: POST
+    /debug/profiler brackets PROFILE_REQUESTS requests, GET
+    /debug/profile/summary splits the capture by serving program, and the
+    trace file itself gives the kernels' summed time and the paged
+    kernel's events (split and combine), held against the wrapper's
+    count of the kernels it launched over the bracket."""
+    import shutil
+    import tempfile
+    import threading
+
+    paged = pa.paged_pool_attention
+    log_dir = tempfile.mkdtemp(prefix="chip_smoke_profile_")
+    replies = [None] * PROFILE_REQUESTS
+
+    def call(i):
+        replies[i] = http_request(srv.address, "/generate", {
+            "prompt": prompts[i], "max_new_tokens": PROFILE_NEW})
+
+    try:
+        k0, l0 = paged.kernel_launches, paged.launches
+        st_start, _, body = http_request(srv.address, "/debug/profiler", {
+            "action": "start", "log_dir": log_dir})
+        threads = [threading.Thread(target=call, args=(i,))
+                   for i in range(PROFILE_REQUESTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+        st_stop, _, _ = http_request(srv.address, "/debug/profiler",
+                                     {"action": "stop"})
+        kernel_launches = paged.kernel_launches - k0
+        wrapper_launches = paged.launches - l0
+        st_sum, summary = http_json(srv.address, "/debug/profile/summary")
+        with open(summary["trace"]) as f:
+            events = json.load(f)["traceEvents"]
+        trace_bytes = os.path.getsize(summary["trace"])
+    finally:
+        shutil.rmtree(log_dir, ignore_errors=True)
+    kernels = [e for e in events
+               if e.get("ph") == "X" and e.get("cat") == "kernel"]
+    kernel_ms = sum(float(e["dur"]) for e in kernels) / 1e3
+    paged_events = sum(1 for e in kernels
+                       if any(n in e["name"] for n in PAGED_KERNELS))
+    progs = summary.get("programs", {})
+    total = summary.get("total_device_ms") or 0.0
+    out = dict(
+        statuses=dict(start=st_start, stop=st_stop, summary=st_sum,
+                      requests=[r[0] for r in replies]),
+        requests=PROFILE_REQUESTS, max_new=PROFILE_NEW, programs=progs,
+        total_device_ms=total, total_host_ms=summary.get("total_host_ms"),
+        trace_kernel_ms=kernel_ms, trace_kernel_events=len(kernels),
+        attributed_share=total / kernel_ms if kernel_ms else None,
+        paged_kernel_events=paged_events,
+        paged_kernel_launches=kernel_launches,
+        paged_wrapper_launches=wrapper_launches, trace_bytes=trace_bytes,
+        bound=PROFILE_TOTAL_REL)
+    out["ok"] = bool(
+        (st_start, st_stop, st_sum) == (200, 200, 200)
+        and all(r[0] == 200 for r in replies)
+        and progs.get("_paged_decode_chunk", {}).get("device_ms", 0) > 0
+        and progs.get("_paged_insert", {}).get("device_ms", 0) > 0
+        and kernel_ms > 0
+        and abs(total - kernel_ms) <= PROFILE_TOTAL_REL * kernel_ms
+        and paged_events == kernel_launches > 0)
+    return out
 
 
 class DrillClock:
@@ -3800,8 +3961,9 @@ def run_router_cli(torch, argv, texts):
     """``run.main()`` with ``--http`` and ``--replicas``, as
     ``run_http_cli`` runs it: run.py's test hook POSTs each of ``texts``
     to the router's /generate in turn, then reads the router's health,
-    each replica's dispatch records and the embedding tensor each batcher
-    holds.  Returns (that dict, stdout, wall s)."""
+    each replica's dispatch records, the router's /debug/fleet and the
+    embedding tensor each batcher holds.  Returns (that dict, stdout, wall
+    s)."""
     from jax_llama_tpu_torch import run as prun
 
     got = {}
@@ -3812,6 +3974,7 @@ def run_router_cli(torch, argv, texts):
                          {"text": t, "max_new_tokens": CKPT_GEN})
             for t in texts]
         got["health"] = router.health()
+        got["fleet"] = http_json(router.address, "/debug/fleet")[1]
         got["records"] = [records(s.batcher) for s in servers]
         got["embeds"] = [s.batcher.params["embed"]["embedding"].data_ptr()
                          for s in servers]
@@ -4073,16 +4236,21 @@ def drive_checkpoint(torch, ptl, fa, pa, shallow, cfg, smi):
               and h_status == 200 and health["ok"],
               f"http server {runs['http']}")
 
-        # run.py --http --replicas 2 --route cache-aware: the router over
-        # two replicas of the one loaded tree (canaries manual, so that
-        # only the two requests run); the first two texts, one on each
+        # run.py --http --replicas 2 --route cache-aware --autoscale: the
+        # router over two replicas of the one loaded tree (canaries
+        # manual, so that only the two requests run) with the fleet
+        # controller armed (its floor the two replicas, so that its loop
+        # defers and acts on nothing); the first two texts, one on each
         # replica (least-loaded: they share no block), give the single
         # server's replies.
         single = [t for _, t in got[:2]]
         zero_counts(fa, pa)
         routed, out, wall = run_router_cli(
             torch, http_argv + ["--replicas", "2", "--route", "cache-aware",
-                                "--canary-interval-s", "0"], texts[:2])
+                                "--canary-interval-s", "0", "--autoscale",
+                                "--autoscale-min", "2", "--autoscale-max",
+                                "3", "--autoscale-interval-s", "0.05"],
+            texts[:2])
         launches = launch_counts(fa, pa)
         instances = instance_counts(fa, pa)
         got = [http_tokens(r) for r in routed["replies"]]
@@ -4097,8 +4265,18 @@ def drive_checkpoint(torch, ptl, fa, pa, shallow, cfg, smi):
             policy=routed["health"]["policy"],
             routed_ok=routed["health"]["ok"],
             one_weight_copy=len(set(routed["embeds"])) == 1,
+            controller=routed["fleet"].get("controller"),
+            autoscale_armed="autoscale_armed" in out,
             load_s=cli_seconds(out), wall_s=wall)
         rr = runs["http_router"]
+        ctl = rr["controller"] or {}
+        check(rr["autoscale_armed"] and (
+            ctl.get("min_replicas"), ctl.get("max_replicas"),
+            ctl.get("interval_s")) == (2, 3, 0.05)
+            and (ctl.get("scale_events") or {}).get("up") == 0
+            and ctl["scale_events"]["down"] == 0
+            and ctl.get("last_signals") is not None,
+            f"http_router --autoscale controller {ctl}")
         check(rr["statuses"] == [200, 200] and rr["equal_to_single"],
               f"http_router replies {got}, single server {single}")
         check(sorted(rr["replicas"]) == ["0", "1"]
@@ -5823,6 +6001,536 @@ def drive_router_drill(torch, np, ptl, fa, pa, params, cfg, tok, smi):
     return row
 
 
+# The fleet controller (ROADMAP A12 part 2): fleet_serving at llama3-8b's
+# full width, fleet_drill at DECODE_DEPTH layers in float32 activations.
+FLEET_BURST = 12          # wave 1: requests per tenant, all together
+FLEET_QUEUE_WAIT_HIGH_MS = 250.0  # a replica's queue-wait p90 above it
+FLEET_SESSIONS = 2        # wave 2: sessions per new tenant, grown replica
+FLEET_CALM_S = 60.0       # the longest wait for the burst's waits to age
+FLEET_MEMORY_SLACK = 64 << 20
+FLEET_TICK_S = 0.25       # the phase's control period during the burst
+FLEET_PERTURB = 0.5       # the rollout drill's final-norm noise, relative
+
+
+def fleet_send(router, prompts, out, rids, wait=True):
+    """``router_stream`` each of ``rids`` together; wait for them, or
+    return their threads."""
+    import threading
+
+    ts = [threading.Thread(target=router_stream, args=(
+        router.address, {"prompt": prompts[r][0],
+                         "max_new_tokens": prompts[r][1]}, r, out))
+          for r in rids]
+    for t in ts:
+        t.start()
+    if wait:
+        for t in ts:
+            t.join(timeout=900)
+    return ts
+
+
+def timed(fn):
+    t = time.perf_counter()
+    res = fn()
+    return res, (time.perf_counter() - t) * 1e3
+
+
+def drive_fleet_serving(torch, np, ptl, fa, pa, params, cfg, tok, smi):
+    """Phase ``fleet_serving``: two replicas of llama3-8b at full width
+    (the phase-3 weights, one copy on the card) at router_serving's
+    geometry behind the cache-aware router, with a ``FleetController``
+    driven by ``tick()`` (module docstring)."""
+    import gc
+
+    from jax_llama_tpu_torch import kvcache
+    from jax_llama_tpu_torch.router import FleetController, ReplicaRouter
+    from jax_llama_tpu_torch.server import LLMServer
+
+    L, BLK = cfg.n_layers, 128
+    systems, turns, _ = router_texts(np)
+    systems += [prefix_texts(np, seed)[0] for seed in (2, 3)]
+    sys_ids = [tok.encode(t, bos=True) for t in systems]
+    assert all(len(x) == PREFIX_SYSTEM for x in sys_ids)
+    kw = dict(n_slots=ROUTER_SLOTS, max_len=2048, block_size=BLK,
+              decode_chunk=8, prefill_budget=FUSED_BUDGET, device="cuda")
+    obs_of, embeds, built_ms, pool_bytes = {}, {}, {}, {}
+
+    def make_replica(i):
+        t = time.perf_counter()
+        cb = ptl.ContinuousBatcher(params, cfg, seed=i, **kw)
+        obs_of[i] = cb.obs
+        embeds[i] = cb.params["embed"]["embedding"].data_ptr()
+        pool_bytes[i] = cb.block_bytes * cb.n_blocks
+        srv = LLMServer(cb, tokenizer=tok, replica_id=i).start()
+        built_ms[i] = (time.perf_counter() - t) * 1e3
+        return srv
+
+    prompts, out = {}, {}
+
+    def add(rid, ids):
+        prompts[rid] = (ids, ROUTER_NEW)
+        return rid
+
+    servers = {i: make_replica(i) for i in range(2)}
+    router = ReplicaRouter(list(servers.values()), policy="cache-aware",
+                           health_interval_s=0, canary_interval_s=0,
+                           tokenizer=tok, block_size=BLK).start()
+    ctrl = FleetController(
+        router, replica_factory=make_replica, min_replicas=2,
+        max_replicas=3, interval_s=0, dwell_s=0.0, cooldown_s=0.0,
+        queue_wait_high_ms=FLEET_QUEUE_WAIT_HIGH_MS)
+    fails, cells = [], {}
+    try:
+        # One short request straight to each seed first: a serving loop's
+        # first GEMM allocates its thread's cuBLAS workspace, which the
+        # baseline must hold.
+        for srv in servers.values():
+            http_request(srv.address, "/generate",
+                         {"prompt": [1, 2, 3], "max_new_tokens": 4})
+        seq0 = {i: max(r["seq"] for r in obs_of[i].dispatches_json(
+            1 << 16)["dispatches"]) for i in servers}
+        torch.cuda.synchronize()
+        gc.collect()
+        mem_before_up = torch.cuda.memory_allocated()
+        zero_counts(fa, pa)
+        t_phase = time.perf_counter()
+        # 1. Pressure: the two tenants' burst, more requests than slots,
+        # with a health poll and a tick every FLEET_TICK_S until one
+        # scales up (the waits of the burst's queued admissions are the
+        # pressure; they age out of a replica's 10 s signal window).
+        burst = [add(f"burst-{t}-{j}",
+                     sys_ids[t] + tok.encode(turns[t][j % len(turns[t])]))
+                 for j in range(FLEET_BURST) for t in (0, 1)]
+        burst_threads = fleet_send(router, prompts, out, burst, wait=False)
+        hold_ms, up = [], {}
+        while True:
+            router.check_health_now()
+            up, up_ms = timed(ctrl.tick)
+            if up.get("action") != "hold":
+                break
+            hold_ms.append(up_ms)
+            if not any(t.is_alive() for t in burst_threads):
+                break
+            time.sleep(FLEET_TICK_S)
+        grown = up.get("replica")
+        if grown is not None:
+            # The rest of the burst stays on the seeds (no late pick, no
+            # spill's handoff onto the grown replica): its chains are the
+            # sessions' below, so the drain moves each of them.
+            router.set_retiring(grown)
+        for t in burst_threads:
+            t.join(timeout=900)
+        if grown is not None:
+            router.set_retiring(grown, False)
+        cells["scale_up"] = dict(
+            action=up.get("action"), reason=up.get("reason"),
+            replica=grown, signals=up.get("signals"), tick_ms=up_ms,
+            holds_before=len(hold_ms),
+            factory_ms=built_ms.get(grown),
+            shares_embedding=embeds.get(grown) == embeds[0],
+            replicas=len(router.health()["replicas"]))
+        if not (up.get("action") == "up" and grown == 2
+                and cells["scale_up"]["shares_embedding"]
+                and router.health()["replicas"][2]["healthy"]):
+            raise AssertionError(f"fleet_serving: no scale-up {cells}")
+
+        # 2. Live sessions on the grown replica (the seeds retired from
+        # picks meanwhile): two new tenants' sessions, then one hit each
+        # on the holder.
+        for i in servers:
+            router.set_retiring(i)
+        sessions = [add(f"session-{t}-{j}", sys_ids[2 + t]
+                        + tok.encode(turns[t][j]))
+                    for t in (0, 1) for j in range(FLEET_SESSIONS)]
+        fleet_send(router, prompts, out, sessions)
+        router.check_health_now()
+        holder = [add(f"holder-{t}", prompts[f"session-{t}-0"][0])
+                  for t in (0, 1)]
+        fleet_send(router, prompts, out, holder)
+        for i in servers:
+            router.set_retiring(i, False)
+        torch.cuda.synchronize()
+        gc.collect()
+        mem_three = torch.cuda.memory_allocated()
+        # Calm: the burst's queue waits age out of the replicas' signal
+        # windows.
+        t_calm = time.perf_counter()
+        while True:
+            router.check_health_now()
+            sig = ctrl.signals()
+            qw = sig["queue_wait_ms_p90_max"]
+            if ((qw is None or qw <= ctrl.queue_wait_high_ms)
+                    and sig["occupancy_max"] is not None
+                    and sig["occupancy_max"] <= ctrl.occupancy_low):
+                break
+            if time.perf_counter() - t_calm > FLEET_CALM_S:
+                raise AssertionError(f"fleet_serving: never calm {sig}")
+            time.sleep(0.25)
+        calm_wait_s = time.perf_counter() - t_calm
+        chains = {rep.index: rep.server.call_on_loop(
+            lambda b: b.resident_chain_keys())
+            for rep in router._replicas if not rep.retired}
+        down, down_ms = timed(ctrl.tick)
+        victim = down.get("replica")
+        drain = down.get("drain") or {}
+        _, scale_decs = http_json(router.address,
+                                  "/debug/decisions?kind=scale")
+        verdicts = [d.get("sentinel") for d in scale_decs["decisions"]
+                    if d.get("action") == "down"]
+        cells["scale_down"] = dict(
+            action=down.get("action"), reason=down.get("reason"),
+            replica=victim, victim_verdict=verdicts[-1] if verdicts else None,
+            verdicts={i: router.sentinel.verdict(i) for i in chains},
+            signals=down.get("signals"), tick_ms=down_ms,
+            calm_wait_s=calm_wait_s,
+            chains={i: len(c) for i, c in chains.items()}, drain=drain)
+        if not (down.get("action") == "down" and victim == grown
+                and cells["scale_down"]["victim_verdict"] == "healthy"
+                and drain.get("ok")
+                and drain.get("migrated") == len(chains[victim])
+                and drain.get("skipped") == 0):
+            raise AssertionError(f"fleet_serving: scale-down {cells}")
+        gc.collect()
+        torch.cuda.synchronize()
+        mem_after = torch.cuda.memory_allocated()
+        # 3. Each session's revisit on its new home.
+        router.check_health_now()
+        revisits = [add(f"revisit-{t}", prompts[f"session-{t}-0"][0])
+                    for t in (0, 1)]
+        fleet_send(router, prompts, out, revisits)
+        phase_s = time.perf_counter() - t_phase
+        launches = launch_counts(fa, pa)
+        instances = instance_counts(fa, pa)
+        decisions = {r: route_decision(router, r) for r in holder + revisits}
+        stats = {i: s.batcher.stats() for i, s in servers.items()}
+        health = router.health()
+        samples = prometheus_samples(router.metrics_text())
+        recs = [r for i, o in obs_of.items()
+                for r in o.dispatches_json(1 << 16)["dispatches"]
+                if r["seq"] > seq0.get(i, -1)]
+    finally:
+        ctrl.close(stop_owned=True)
+        router.stop()
+        for s in servers.values():
+            s.stop()
+    # The migration's copies alone, on the stopped survivors: a migrated
+    # chain exported from its new home and imported into the other.
+    home = out["revisit-0"].get("replica")
+    other = next(i for i in servers if i != home)
+    chain = kvcache.chain_keys(prompts["revisit-0"][0], BLK)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    keys_out, slabs = servers[home].batcher.export_prefix(keys=chain)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    landed = servers[other].batcher.import_prefix(keys_out, slabs)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    block_bytes = servers[home].batcher.block_bytes
+    copies = dict(blocks=len(slabs), landed=landed,
+                  bytes=len(slabs) * block_bytes,
+                  export_ms=(t1 - t) * 1e3, import_ms=(t2 - t1) * 1e3,
+                  gb_per_s=len(slabs) * block_bytes / ((t2 - t) * 1e3) / 1e6)
+    del servers, slabs
+    torch.cuda.empty_cache()
+
+    order = list(prompts)
+    got = {r: out[r]["tokens"] for r in order}
+    first = {f"holder-{t}": f"session-{t}-0" for t in (0, 1)}
+    first.update({f"revisit-{t}": f"session-{t}-0" for t in (0, 1)})
+    divergences = token_divergences(
+        torch, ptl, params, cfg, [prompts[r][0] for r in first],
+        [got[r] for r in first], [got[first[r]] for r in first], DECODE_REL)
+    want_launches = record_launches(recs, L)
+    migrated = drain.get("migrated") or 0
+    row = dict(
+        phase="fleet_serving", card=smi, config="llama3-8b", n_layers=L,
+        dtype="bfloat16", replicas=dict(seed=2, min=2, max=3),
+        n_slots=ROUTER_SLOTS, max_len=2048, block_size=BLK, decode_chunk=8,
+        prefill_budget=FUSED_BUDGET, policy="cache-aware",
+        queue_wait_high_ms=FLEET_QUEUE_WAIT_HIGH_MS, dwell_s=0.0,
+        cooldown_s=0.0, burst=len(burst), sessions=len(sessions), **cells,
+        hold_tick_ms=dict(p50=float(np.median(hold_ms)) if hold_ms
+                          else None, max=max(hold_ms, default=None),
+                          n=len(hold_ms)),
+        factory_ms=built_ms.get(grown),
+        drain_ms=drain.get("dur_ms"), sessions_migrated=migrated,
+        blocks_migrated=drain.get("blocks"),
+        bytes_migrated=(drain.get("blocks") or 0) * block_bytes,
+        destinations=drain.get("destinations"),
+        migration_copies=copies,
+        replica_of={r: out[r].get("replica") for r in order},
+        statuses={r: out[r].get("status") for r in order},
+        errors={r: out[r]["error"] for r in order if "error" in out[r]},
+        hit_depth={r: (decisions[r] or {}).get("hit_depth")
+                   for r in decisions},
+        revisit_ttft_ms={r: out[r]["ttft_ms"] for r in holder + revisits},
+        revisit_ttft_is="the client's TTFT through the router: holder-* "
+        "hit the grown replica before the drain, revisit-* the same "
+        "prompts on their new homes after it",
+        memory_bytes=dict(before_burst=mem_before_up,
+                          three_replicas=mem_three, after_retire=mem_after,
+                          difference=mem_after - mem_before_up,
+                          freed=mem_three - mem_after,
+                          grown_pool=pool_bytes.get(grown)),
+        prefix_hits={i: s["prefix_requests_hit_total"]
+                     for i, s in stats.items()},
+        scale_events={k: samples.get(
+            f'llm_fleet_scale_events_total{{action="{k}"}}')
+            for k in ("up", "down", "deferred", "aborted")},
+        sessions_migrated_metric=samples.get("llm_sessions_migrated_total"),
+        launches=launches, expected_launches=want_launches,
+        instances={k: instances[k] for k in (
+            "flash_fwd_by_instance", "paged_by_instance",
+            "paged_kernel_launches")},
+        replicas_served=sorted(obs_of), wall_s=phase_s,
+        divergences_from_first_turn=divergences)
+    emit(row)
+    if row["errors"] or set(row["statuses"].values()) != {200}:
+        fails.append("statuses")
+    if any(len(out[r]["tokens"]) != prompts[r][1]
+           or out[r].get("final") != out[r]["tokens"] for r in order):
+        fails.append("a stream did not end with its max_new tokens")
+    if any(out[r]["replica"] != grown for r in sessions + holder):
+        fails.append("the sessions did not reach the grown replica")
+    dests = {int(k) for k in (drain.get("destinations") or {})}
+    for r in holder + revisits:
+        home_r = out[r]["replica"]
+        if r in revisits and home_r not in dests:
+            fails.append(f"{r} not on a migration destination")
+        if row["hit_depth"][r] != len(chain):
+            fails.append(f"{r} not a {len(chain)}-block hit")
+    if abs(row["memory_bytes"]["difference"]) > FLEET_MEMORY_SLACK:
+        fails.append("memory not back after the retire")
+    if row["memory_bytes"]["freed"] < pool_bytes[grown]:
+        fails.append("the retired replica's pool not freed")
+    if launches != want_launches or instances["flash_fwd_by_instance"] != (
+            {"wgmma": launches["flash_fwd"]}) or (
+            instances["paged_kernel_launches"]
+            != 2 * launches["paged_decode"]):
+        fails.append("launches")
+    if not any(r["kind"] in ("decode", "fused") for r in
+               obs_of[grown].dispatches_json(1 << 16)["dispatches"]):
+        fails.append("the grown replica launched no kernel")
+    if copies["blocks"] != len(chain) or copies["landed"] != len(chain):
+        fails.append(f"the migration's copies {copies}")
+    if fails:
+        raise AssertionError(f"fleet_serving: {fails}")
+    return row
+
+
+def drive_fleet_drill(torch, np, ptl, fa, pa, params, cfg, tok, smi):
+    """Phase ``fleet_drill``: a fleet at DECODE_DEPTH layers in float32
+    activations behind the cache-aware router with a ``FleetController``
+    driven by hand (module docstring)."""
+    from jax_llama_tpu_torch.faults import FaultInjector
+    from jax_llama_tpu_torch.router import FleetController, ReplicaRouter
+    from jax_llama_tpu_torch.server import LLMServer
+
+    L, BLK = DECODE_DEPTH, 128
+    shallow = dict(params, layers={k: w[:L]
+                                   for k, w in params["layers"].items()})
+    dcfg = cfg.replace(n_layers=L, dtype="float32")
+    kw = dict(n_slots=DRILL_SLOTS, max_len=2048, block_size=BLK,
+              decode_chunk=8, prefill_budget=FUSED_BUDGET, device="cuda")
+    # New weights for the bad rollout: every tensor shared with the served
+    # tree but the final norm's weight, under seeded relative noise (a
+    # uniform scale would keep every argmax).
+    g = torch.Generator(device="cuda").manual_seed(7)
+    w = shallow["final_norm"]
+    noise = torch.randn(w.shape, generator=g, device="cuda")
+    perturbed = dict(shallow, final_norm=(w.float() * (
+        1 + FLEET_PERTURB * noise)).to(w.dtype))
+    systems, turns, _ = router_texts(np)
+    sys_ids = [tok.encode(s, bos=True) for s in systems]
+    prompts = {"session": sys_ids[0] + tok.encode(turns[0][0]),
+               "other": sys_ids[1] + tok.encode(turns[1][0])}
+    ref = ptl.ContinuousBatcher(shallow, dcfg, **kw)
+    want = {}
+    for name, p in prompts.items():
+        x = ref.submit(p, max_new_tokens=DRILL_NEW)
+        want[name] = ref.run_to_completion()[x]
+    del ref
+    made, obs_all = [], []
+
+    def make(i, p=shallow):
+        cb = ptl.ContinuousBatcher(p, dcfg, seed=i, **kw)
+        obs_all.append(cb.obs)
+        srv = LLMServer(cb, tokenizer=tok, replica_id=i).start()
+        made.append(srv)
+        return srv
+
+    servers = [make(i) for i in range(2)]
+    router = ReplicaRouter(servers, policy="cache-aware",
+                           health_interval_s=0, canary_interval_s=0,
+                           tokenizer=tok, block_size=BLK).start()
+    ctrl = FleetController(router, replica_factory=make, min_replicas=1,
+                           max_replicas=3, interval_s=0)
+    got, sent, cells, fails = {}, [], {}, []
+
+    def post(rid, name):
+        st, hdrs, body = http_request(
+            router.address, "/generate",
+            {"prompt": prompts[name], "max_new_tokens": DRILL_NEW},
+            headers={"X-Request-Id": rid})
+        got[rid] = json.loads(body)["tokens"] if st == 200 else None
+        sent.append((rid, name))
+        dec = route_decision(router, rid) or {}
+        return dict(status=st, replica=int(hdrs.get("X-Replica-Id", -1)),
+                    hit_depth=dec.get("hit_depth"))
+
+    def membership():
+        return [(r.index, id(r.server) if r.server else None, r.retired,
+                 r.retiring) for r in router._replicas]
+
+    try:
+        zero_counts(fa, pa)
+        router.check_health_now()
+        # 1. scale_event aborts a scale-up (call 0) and a scale-down (call
+        # 1): membership unchanged, nothing built.
+        before, n_made = membership(), len(made)
+        ctrl.fault_injector = FaultInjector(
+            "scale_event@0:error,scale_event@1:error")
+        up, down = ctrl.scale_up(), ctrl.scale_down()
+        ctrl.fault_injector = None
+        cells["scale_event"] = dict(up=up, down=down,
+                                    unchanged=membership() == before,
+                                    built=len(made) - n_made)
+        if not (up["ok"] is False and down["ok"] is False
+                and "injected" in up["reason"]
+                and "injected" in down["reason"]
+                and membership() == before and len(made) == n_made):
+            fails.append("scale_event")
+
+        # 2. session_migrate fails the one session's move: the drain
+        # reports it, the source resumes and the revisit hits there.
+        first = post("migrate-first", "session")
+        src = first["replica"]
+        router.check_health_now()
+        chains = servers[src].call_on_loop(lambda b: b.resident_chain_keys())
+        ctrl.fault_injector = FaultInjector("session_migrate@0:error")
+        rep = ctrl.drain_replica(src)
+        ctrl.fault_injector = None
+        snap = router.health()["replicas"][src]
+        revisit = post("migrate-revisit", "session")
+        cells["session_migrate"] = dict(
+            first=first, chains=len(chains), drain=rep, revisit=revisit,
+            resumed=not snap["retiring"] and not snap["retired"])
+        if not (rep["ok"] is False and rep["reason"] == "migration-failures"
+                and rep["failed"] == 1 and rep["migrated"] == 0
+                and len(chains) == 1
+                and cells["session_migrate"]["resumed"]
+                and revisit["replica"] == src
+                and revisit["hit_depth"] == len(chains[0])):
+            fails.append("session_migrate")
+
+        # 3. A rollout on the same weights: every rung passes its gate,
+        # the final sweep is clean.
+        router.run_canaries_now()
+        _, fleet = http_json(router.address, "/debug/fleet")
+        oracle = fleet["canary"]["oracle_tokens"]
+        same, same_ms = timed(lambda: ctrl.rollout(make))
+        _, rungs = http_json(router.address,
+                             "/debug/decisions?kind=rollout_rung")
+        gates = [d.get("gate") for d in rungs["decisions"]]
+        after_same = post("after-rollout", "session")
+        cells["rollout_same"] = dict(result=same, ms=same_ms, gates=gates,
+                                     after=after_same)
+        if not (same["ok"] and same["planned"] == 2
+                and gates == ["oracle-pinned", "oracle-match"]
+                and after_same["status"] == 200):
+            fails.append("rollout_same")
+
+        # 4. A rollout to the perturbed tree, gated on the old canary
+        # tokens: rung 0 fails its gate and rolls back; the fleet then
+        # serves the old weights' tokens.
+        n_rungs = len(rungs["decisions"])
+        bad, bad_ms = timed(lambda: ctrl.rollout(
+            lambda i: make(i, perturbed), rollback_factory=make,
+            expect_tokens=oracle))
+        _, rungs = http_json(router.address,
+                             "/debug/decisions?kind=rollout_rung")
+        bad_rungs = rungs["decisions"][n_rungs:]
+        sweep = dict(router.run_canaries_now())
+        after_bad = [post(f"after-rollback-{j}", "session") for j in (0, 1)]
+        cells["rollout_bad"] = dict(
+            result=bad, ms=bad_ms, rungs=bad_rungs,
+            canary_tokens={i: r.get("tokens") for i, r in sweep.items()},
+            oracle=oracle, after=after_bad,
+            rollbacks=ctrl.state_json()["rollbacks_total"])
+        if not (bad["ok"] is False and len(bad["rungs"]) == 1
+                and bad["rungs"][0].get("rollback") == "rolled-back"
+                and "oracle-mismatch" in (bad_rungs[-1].get("reason") or "")
+                and all(r.get("tokens") == oracle for r in sweep.values())
+                and all(a["status"] == 200 for a in after_bad)):
+            fails.append("rollout_bad")
+
+        # 5. A replica made non-healthy (three failed canaries fed to the
+        # sentinel) is not the victim of a scale-down.
+        grow = ctrl.scale_up()
+        for _ in range(3):
+            router.sentinel.observe_canary(0, ok=False, error="fleet_drill")
+        sick = router.sentinel.verdict(0)
+        down = ctrl.scale_down()
+        router.sentinel.forget(0)
+        router.check_health_now()
+        cells["victim"] = dict(grew=grow.get("replica"), sick_verdict=sick,
+                               result={k: down.get(k) for k in (
+                                   "ok", "replica", "reason")},
+                               drain=down.get("drain"))
+        if not (grow["ok"] and sick != "healthy" and down["ok"]
+                and down["replica"] != 0):
+            fails.append("victim")
+
+        # 6. A drain with no survivor (the other replica retiring) fails
+        # cleanly: the replica resumes and its session still hits there.
+        router.set_retiring(1)
+        held = post("no-survivor-first", "other")
+        router.check_health_now()
+        lone = ctrl.drain_replica(held["replica"])
+        router.set_retiring(1, False)
+        snap = router.health()["replicas"][held["replica"]]
+        again = post("no-survivor-revisit", "other")
+        cells["no_survivor"] = dict(first=held, drain=lone, revisit=again,
+                                    resumed=not snap["retiring"])
+        if not (lone["ok"] is False and lone["reason"] == "no-survivor"
+                and cells["no_survivor"]["resumed"]
+                and again["replica"] == held["replica"]
+                and again["hit_depth"] == len(chains[0])):
+            fails.append("no_survivor")
+        launches = launch_counts(fa, pa)
+        recs = [r for o in obs_all
+                for r in o.dispatches_json(1 << 16)["dispatches"]]
+        state = ctrl.state_json()
+    finally:
+        ctrl.close(stop_owned=True)
+        router.stop()
+        for s in made:
+            s.stop()
+    del made, servers
+    torch.cuda.empty_cache()
+    want_launches = record_launches(recs, L)
+    order = [rid for rid, _ in sent]
+    divergences = token_divergences(
+        torch, ptl, shallow, dcfg, [prompts[n] for _, n in sent],
+        [got[rid] or [] for rid in order], [want[n] for _, n in sent],
+        DRILL_TIE)
+    row = dict(phase="fleet_drill", card=smi, config="llama3-8b",
+               n_layers=L, dtype="float32", replicas=2,
+               n_slots=DRILL_SLOTS, block_size=BLK, **cells,
+               controller=state, instances_built=len(obs_all),
+               launches=launches, expected_launches=want_launches,
+               divergences=divergences)
+    emit(row)
+    if launches != want_launches:
+        fails.append("launches")
+    if any(got[rid] is None or len(got[rid]) != DRILL_NEW for rid in order):
+        fails.append("a session dropped")
+    if fails:
+        raise AssertionError(f"fleet_drill: {fails}")
+    return row
+
+
 def rel_err(a, b) -> float:
     return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
 
@@ -6111,6 +6819,14 @@ def main() -> int:
     router_drill = drive_router_drill(torch, np, ptl, fa, pa, params, cfg,
                                       tok, smi)
 
+    # Phase 5g: the fleet controller (ROADMAP A12 part 2): a scale-up and a
+    # drain by migration at full width, then the controller's drills at 8
+    # layers.
+    fleet_row = drive_fleet_serving(torch, np, ptl, fa, pa, params, cfg,
+                                    tok, smi)
+    fleet_drill = drive_fleet_drill(torch, np, ptl, fa, pa, params, cfg,
+                                    tok, smi)
+
     # Phase 6: paged = gathered = standalone generate.
     paged_invariant(torch, ptl, engine, serving, params, cfg, tok)
     # Phase 6b: the selected slots' invariants in float32 activations.
@@ -6153,13 +6869,16 @@ def main() -> int:
              "fused_serving": fused_row["launches"],
              "fused_invariant": fused_inv["launches"],
              "router_serving": router_row["launches"],
-             "router_drill": router_drill["launches"]}
+             "router_drill": router_drill["launches"],
+             "fleet_serving": fleet_row["launches"],
+             "fleet_drill": fleet_drill["launches"]}
 
     paths_instances = {"generate": instances,
                        "serving": serve_row["instances"],
                        "http_serving": http_row["instances"],
                        "fused_serving": fused_row["instances"],
                        "router_serving": router_row["instances"],
+                       "fleet_serving": fleet_row["instances"],
                        "train": train_row["instances"]}
 
     def by_path(name):

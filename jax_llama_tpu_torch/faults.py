@@ -107,7 +107,7 @@ SITES = (
     # crashed replica replay through that replica's own crash-recovery
     # path).
     "router_replica",
-    # Controller-side sites (the fleet controller, ROADMAP A12 part 2).
+    # Controller-side sites: ``router.FleetController`` fires them.
     # ``session_migrate`` fires once per live session at the start of its
     # drain migration — an injected fault aborts THAT session's move
     # only: the source copy is untouched (export never demotes before

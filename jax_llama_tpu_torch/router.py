@@ -215,19 +215,61 @@ still routes there, but as a counted, logged stale event
 observed version so one loss event counts once) instead of a silent
 cache miss.
 
-**Elastic fleet**: the JAX package's ``FleetController`` (scale up,
-scale down with drain-by-migration, rollouts) is not in this module
-yet (ROADMAP A12 part 2).  The methods it calls live on the router
-class and are here: ``attach_controller``, ``add_replica``,
-``swap_replica``, ``set_retiring``, ``retire_replica``,
-``repin_routes`` and ``_execute_migration``.
+**Elastic fleet** (:class:`FleetController`): the control loop that
+scales, drains and rolls the fleet with no session dropped on any
+planned event.  Three actuators, every action a ``kind="scale"`` /
+``"drain"`` / ``"rollout"`` decision record carrying the signals that
+drove it:
+
+  * **autoscaler** (``tick()``; periodic when ``interval_s > 0``):
+    pressure -- the worst interactive attainment below
+    ``attainment_floor`` or the worst queue-wait p90 above
+    ``queue_wait_high_ms`` -- must hold for ``dwell_s`` before a
+    scale-up, calm (no pressure, occupancy at or below
+    ``occupancy_low``) must hold for ``dwell_s`` before a scale-down,
+    and every action starts a ``cooldown_s`` refractory window (the
+    brownout ladder's hysteresis, fleet-sized).  A scale-down victim
+    must carry a ``healthy`` sentinel verdict: a suspect or critical
+    replica defers the action into a recorded ``deferred`` decision.
+  * **live session migration** (``drain_replica(idx)``, also the
+    operator entry): the victim stops admitting (the router-side
+    ``retiring`` flag), in-flight requests finish, then every
+    HBM-resident chain (``resident_chain_keys`` on the victim's loop)
+    moves to a survivor through the export -> import -> residency-probe
+    path the handoff scheduler uses (``_execute_migration``, demote
+    suppressed: the source's copies die with it), and routing records
+    and affinity pins re-point, so revisits continue token-identically
+    on the destination.  A failed drain resumes the victim.
+  * **zero-downtime rollout** (``rollout(factory)``): replica by
+    replica, drain, swap in the factory's server (``swap_replica``),
+    then the rung gate: ``reset_canary_oracle()`` + a full canary sweep,
+    and the restarted replica's probe must be transport-clean and match
+    the rollout oracle (pinned from the first rung's probe, or from
+    ``expect_tokens``).  A failed gate rolls the rung back onto
+    ``rollback_factory``'s server and aborts; after the last rung one
+    more reset + sweep must be unanimously clean.
+
+Fault sites ``scale_event`` (fired at each action start: an injected
+fault aborts the whole action, fleet membership unchanged) and
+``session_migrate`` (fired per migrating session: an injected fault
+aborts that session's move only; the session keeps serving at the
+source).  ``/metrics`` carries
+``llm_fleet_scale_events_total{action=up|down|deferred|aborted}``,
+``llm_sessions_migrated_total`` and ``llm_rollout_rung`` (-1 idle);
+``GET /debug/fleet`` gains a ``controller`` section when a controller
+is attached.  A grown replica on the card comes from the caller's
+``replica_factory`` (run.py's ``make_replica``, which shares the one
+weight copy), so it launches the same flash and paged kernels.
 
 Thread discipline: handler threads (forward), the health poller, and
 the handoff worker share the replica table, counters, routing record,
 trace ring, the handoff scheduler's dedup/bounds state, and the
 cached fleet cache view — every access goes under ``_lock``.  The
 global radix index keeps its own leaf lock (lock order router ->
-index, never inverted).  The router holds no device state at all; it is pure host-side
+index, never inverted).  The fleet controller keeps its own leaf lock
+over its counters and hysteresis state and never holds it while
+calling into the router or a replica (compute under the lock, act
+outside it).  The router holds no device state at all; it is pure host-side
 HTTP — batcher work it schedules runs on the replicas' own
 serving-loop threads via ``LLMServer.call_on_loop``."""
 
@@ -671,9 +713,10 @@ class HealthSentinel:
     counted event on the healthy -> anomalous transition (plus a
     cleared event on recovery), never one per poll — the counters
     count incidents, not samples.  The sentinel never ACTS: it is the
-    trustworthy sensor layer the fleet controller (ROADMAP A12 part 2)
-    reads via ``GET /debug/fleet`` before it is allowed to kill or
-    drain a replica; routing keeps its own health/quarantine rules.
+    trustworthy sensor layer the fleet controller
+    (:class:`FleetController`) reads via ``GET /debug/fleet`` before it
+    is allowed to kill or drain a replica; routing keeps its own
+    health/quarantine rules.
 
     Thread discipline: observe_* are called by the canary prober and
     the health poller while handler threads read fleet_json — every
@@ -2418,6 +2461,10 @@ class ReplicaRouter:
             rep.retired = True
             rep.retiring = False
             rep.healthy = False
+            # The slot keeps no reference to its instance: once its owner
+            # stops it, its batcher's pool (gigabytes on the card) is
+            # freed with it.
+            rep.server = None
         self.sentinel.forget(index)
         self.index.drop_replica(index)
         self._log("router_replica_retired", replica=index)
@@ -3613,6 +3660,829 @@ class ReplicaRouter:
             })
         if dst is not None:
             self._note_route(request_id, dst)
+
+
+class FleetController:
+    """The elastic-fleet control loop: autoscaling, drain-by-migration
+    and zero-downtime rollouts over one :class:`ReplicaRouter`.
+
+    Three actuators, one invariant — **no session is dropped on any
+    planned fleet event**:
+
+    - :meth:`tick` (or the background loop when ``interval_s > 0``)
+      scales the fleet against windowed interactive attainment and
+      queue-wait pressure, with dwell/cooldown hysteresis exactly like
+      the brownout ladder: pressure (attainment below
+      ``attainment_floor`` or queue-wait p90 above
+      ``queue_wait_high_ms``) sustained for ``dwell_s`` scales up;
+      calm (no pressure, occupancy at or below ``occupancy_low``)
+      sustained for ``dwell_s`` scales down; ``cooldown_s`` separates
+      consecutive actions.  Every action lands in the decision log
+      (``kind="scale"``) with the driving signals, and scale-down is
+      gated on the health sentinel: a victim whose verdict is not
+      ``"healthy"`` is never killed (the controller must not destroy
+      the evidence of an anomaly it cannot explain) — the deferral is
+      itself a recorded decision.
+
+    - :meth:`drain_replica` is the drain primitive every removal goes
+      through: stop admission (``retiring``), wait for in-flight
+      streams and the serving loop to settle, enumerate every live
+      session's chain (``resident_chain_keys``), and move each chain
+      to a survivor through the same export→import→residency-proof
+      path the handoff scheduler uses (``_execute_migration``, demote
+      suppressed — the source's copies die with it).  Routing records
+      re-pin to the receiving survivor so the next turn of every
+      session lands where its KV now lives.  Any failure — injected
+      fault at ``session_migrate``, export/import error, no surviving
+      destination — resumes the source untouched and reports instead
+      of dropping anyone.
+
+    - :meth:`rollout` restarts the fleet replica-by-replica onto new
+      weights: per rung, drain → swap the slot to the new instance →
+      ``reset_canary_oracle()`` → full canary sweep, gated on the
+      restarted replica's own probe matching the rollout oracle (the
+      rung-0 probe pins it, or pass ``expect_tokens`` to pin it
+      externally — mid-rollout the FLEET majority still runs old
+      weights, so the fleet oracle would misjudge the new output).  A
+      failed gate auto-rolls the rung back (``rollback_factory``) and
+      aborts; after the last rung a final reset + sweep must be
+      unanimously clean.
+
+    Thread discipline: own leaf lock guarding only the controller's
+    counters/hysteresis state — compute under it, act outside it.
+    Controller methods take ``router._lock`` for snapshots and call
+    router actuators (which take it internally), but NEVER while
+    holding the controller lock, so the two locks never nest and no
+    ordering constraint exists.  Fault sites: ``scale_event`` fires at
+    the start of every scale-up/scale-down/rollout-rung (an injected
+    fault aborts the whole action cleanly — fleet membership
+    unchanged); ``session_migrate`` fires once per live session at the
+    start of its drain migration (aborts that session's move only).
+    """
+
+    def __init__(
+        self,
+        router: ReplicaRouter,
+        replica_factory: Optional[Any] = None,
+        *,
+        min_replicas: int = 1,
+        max_replicas: int = 8,
+        interval_s: float = 0.0,   # <= 0: manual (tests) — drive tick()
+        attainment_floor: float = 0.9,
+        queue_wait_high_ms: float = 500.0,
+        occupancy_low: float = 0.25,
+        dwell_s: float = 0.0,
+        cooldown_s: float = 0.0,
+        drain_timeout_s: float = 30.0,
+        migrate_timeout_s: Optional[float] = None,
+        fault_injector: Optional[FaultInjector] = None,
+    ):
+        self.router = router
+        # ``replica_factory(index_hint)`` returns a started in-process
+        # LLMServer (or a "host:port" string) for scale-up / rollouts.
+        self.replica_factory = replica_factory
+        self.min_replicas = int(min_replicas)
+        self.max_replicas = int(max_replicas)
+        self.interval_s = float(interval_s)
+        self.attainment_floor = float(attainment_floor)
+        self.queue_wait_high_ms = float(queue_wait_high_ms)
+        self.occupancy_low = float(occupancy_low)
+        self.dwell_s = float(dwell_s)
+        self.cooldown_s = float(cooldown_s)
+        self.drain_timeout_s = float(drain_timeout_s)
+        self.migrate_timeout_s = migrate_timeout_s
+        self.fault_injector = (
+            fault_injector if fault_injector is not None
+            else router.fault_injector
+        )
+        self._lock = threading.Lock()
+        self._scale_events: Dict[str, int] = {
+            "up": 0, "down": 0, "deferred": 0, "aborted": 0,
+        }
+        self.sessions_migrated_total = 0
+        self.sessions_migrate_failed_total = 0
+        self.drains_total = 0
+        self.drains_failed_total = 0
+        self.rollouts_total = 0
+        self.rollbacks_total = 0
+        self.rollout_rung = -1
+        self._pressure_since: Optional[float] = None
+        self._calm_since: Optional[float] = None
+        self._last_action_t = float("-inf")
+        self._busy = False
+        self._last_signals: Optional[Dict[str, Any]] = None
+        # In-process servers the controller created (scale-up /
+        # rollout swaps): the controller stops these on removal; all
+        # other instances' lifecycles stay with their creator.
+        self._owned: Dict[int, Any] = {}
+        self._rollout_oracle: Optional[List[int]] = None
+        self._closed = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        router.attach_controller(self)
+        if self.interval_s > 0:
+            self._thread = threading.Thread(
+                target=self._loop, daemon=True, name="fleet-controller",
+            )
+            self._thread.start()
+
+    # -- lifecycle -----------------------------------------------------------
+
+    def _loop(self) -> None:
+        while not self._closed.is_set():
+            try:
+                self.tick()
+            except Exception as e:  # keep the loop alive; surface it
+                self.router._log("fleet_tick_error", error=str(e))
+            self._closed.wait(self.interval_s)
+
+    def close(self, stop_owned: bool = False) -> None:
+        """Stop the background loop; with ``stop_owned`` also stop
+        every in-process server the controller created."""
+        self._closed.set()
+        if self._thread is not None:
+            self._thread.join(timeout=5.0)
+        if stop_owned:
+            with self._lock:
+                owned = list(self._owned.values())
+            for srv in owned:
+                self._stop_server(srv)
+
+    # -- signals + decision --------------------------------------------------
+
+    def signals(self) -> Dict[str, Any]:
+        """One snapshot of the scaling inputs, from the last health
+        scrapes (no network): worst interactive attainment and worst
+        queue-wait p90 across healthy active replicas, worst slot
+        occupancy, and fleet-wide in-flight."""
+        r = self.router
+        with r._lock:
+            active = [
+                x for x in r._replicas
+                if not x.retired and not x.retiring
+            ]
+            healthy = [x for x in active if x.healthy]
+            att: List[float] = []
+            qw: List[float] = []
+            occ: List[float] = []
+            for x in healthy:
+                ov = (x.last_health or {}).get("overload") or {}
+                a = ov.get("interactive_attainment")
+                if a is not None:
+                    att.append(float(a))
+                q = ov.get("queue_wait_ms_p90")
+                if q is not None:
+                    qw.append(float(q))
+                occ.append(r._occupancy_locked(x))
+            inflight = sum(x.inflight for x in active)
+        return {
+            "replicas_active": len(active),
+            "replicas_healthy": len(healthy),
+            "inflight": inflight,
+            "attainment_min": round(min(att), 4) if att else None,
+            "queue_wait_ms_p90_max": round(max(qw), 3) if qw else None,
+            "occupancy_max": round(max(occ), 4) if occ else None,
+        }
+
+    def _decide_locked(
+        self, now: float, sig: Dict[str, Any],
+    ) -> Tuple[str, str]:
+        """Hysteresis state machine (holds ``self._lock``): returns
+        ``("up"|"down"|"hold", reason)``.  Pressure and calm must each
+        be SUSTAINED for ``dwell_s`` (a single hot scrape scales
+        nothing), and ``cooldown_s`` must have passed since the last
+        action — the same shape as the brownout ladder, so the two
+        controllers don't fight over transients."""
+        if self._busy:
+            return "hold", "action-in-progress"
+        att = sig.get("attainment_min")
+        qw = sig.get("queue_wait_ms_p90_max")
+        occ = sig.get("occupancy_max")
+        pressure = (
+            (att is not None and att < self.attainment_floor)
+            or (qw is not None and qw > self.queue_wait_high_ms)
+        )
+        calm = (
+            not pressure
+            and occ is not None and occ <= self.occupancy_low
+        )
+        if pressure:
+            self._calm_since = None
+            if self._pressure_since is None:
+                self._pressure_since = now
+        else:
+            self._pressure_since = None
+            if calm:
+                if self._calm_since is None:
+                    self._calm_since = now
+            else:
+                self._calm_since = None
+        if not pressure and not calm:
+            return "hold", "steady"
+        if now - self._last_action_t < self.cooldown_s:
+            return "hold", "cooldown"
+        if pressure:
+            if now - self._pressure_since < self.dwell_s:
+                return "hold", "dwell"
+            if sig["replicas_active"] >= self.max_replicas:
+                return "hold", "at-max-replicas"
+            if self.replica_factory is None:
+                return "hold", "no-replica-factory"
+            return "up", "pressure"
+        if now - self._calm_since < self.dwell_s:
+            return "hold", "dwell"
+        if sig["replicas_active"] <= self.min_replicas:
+            return "hold", "at-min-replicas"
+        return "down", "calm"
+
+    def tick(self) -> Dict[str, Any]:
+        """One control-loop step: snapshot signals, run the hysteresis
+        decision, act.  Gated deferrals (at-max/at-min/no-factory) are
+        recorded decisions; dwell/cooldown/steady holds are silent
+        (their state is visible in /debug/fleet's ``last_signals``)."""
+        now = time.monotonic()
+        sig = self.signals()
+        with self._lock:
+            action, reason = self._decide_locked(now, sig)
+            self._last_signals = dict(sig, action=action, reason=reason)
+        if action == "up":
+            return self.scale_up(signals=sig)
+        if action == "down":
+            return self.scale_down(signals=sig)
+        if reason in (
+            "at-max-replicas", "at-min-replicas", "no-replica-factory",
+        ):
+            with self._lock:
+                self._scale_events["deferred"] += 1
+            self.router.decisions.record(
+                "scale", action="deferred", reason=reason, signals=sig,
+            )
+        return {"ok": True, "action": "hold", "reason": reason,
+                "signals": sig}
+
+    # -- shared plumbing -----------------------------------------------------
+
+    def _fire(self, site: str) -> Optional[str]:
+        """Fire a controller fault site; returns the injected-fault
+        message (action must abort) or None (proceed)."""
+        fi = self.fault_injector
+        if fi is None:
+            return None
+        try:
+            fi.fire(site)
+        except InjectedFault as e:
+            return str(e) or f"injected fault at {site}"
+        return None
+
+    def _begin_action(self) -> bool:
+        with self._lock:
+            if self._busy:
+                return False
+            self._busy = True
+            return True
+
+    def _end_action(self, acted: bool) -> None:
+        with self._lock:
+            self._busy = False
+            if acted:
+                self._last_action_t = time.monotonic()
+
+    @staticmethod
+    def _stop_server(server: Any) -> None:
+        if server is None or isinstance(server, str):
+            return
+        try:
+            server.shutdown_for_restart(grace_s=2.0)
+        except Exception:
+            pass
+
+    def _pick_destination(self, src: int) -> Optional[int]:
+        """Least-loaded active healthy survivor (never the source)."""
+        r = self.router
+        with r._lock:
+            cands = [
+                x for x in r._replicas
+                if x.index != src and x.healthy
+                and not x.retiring and not x.retired
+            ]
+            if not cands:
+                return None
+            best = min(
+                cands,
+                key=lambda x: (r._occupancy_locked(x), x.inflight,
+                               x.index),
+            )
+            return best.index
+
+    def _pick_victim(
+        self, explicit: Optional[int] = None,
+    ) -> Tuple[Optional[int], Dict[int, str]]:
+        """Scale-down victim, sentinel-gated: only a replica whose
+        health-sentinel verdict is ``"healthy"`` may be killed —
+        never destroy the evidence of an anomaly the sentinel cannot
+        explain.  Among eligible victims, least in-flight wins."""
+        r = self.router
+        with r._lock:
+            cands = [
+                (x.index, x.inflight, x.routed_total)
+                for x in r._replicas
+                if not x.retired and not x.retiring and x.healthy
+            ]
+        verdicts = {i: r.sentinel.verdict(i) for i, _, _ in cands}
+        if explicit is not None:
+            v = verdicts.get(explicit) or r.sentinel.verdict(explicit)
+            verdicts[explicit] = v
+            return (explicit if v == "healthy" else None), verdicts
+        ok = [c for c in cands if verdicts[c[0]] == "healthy"]
+        if not ok:
+            return None, verdicts
+        return min(ok, key=lambda c: (c[1], c[2]))[0], verdicts
+
+    # -- actuators -----------------------------------------------------------
+
+    def scale_up(
+        self, signals: Optional[Dict[str, Any]] = None,
+        role: Optional[str] = None,
+    ) -> Dict[str, Any]:
+        """Add one replica through ``replica_factory``.  Fires
+        ``scale_event`` first — an injected fault aborts with the
+        fleet unchanged."""
+        r = self.router
+        sig = signals if signals is not None else self.signals()
+        if not self._begin_action():
+            return {"ok": False, "action": "up",
+                    "reason": "action-in-progress"}
+        acted = False
+        try:
+            err = self._fire("scale_event")
+            if err is not None:
+                with self._lock:
+                    self._scale_events["aborted"] += 1
+                r.decisions.record("scale", action="aborted", op="up",
+                                   reason=err, signals=sig)
+                return {"ok": False, "action": "up", "reason": err}
+            if self.replica_factory is None:
+                with self._lock:
+                    self._scale_events["deferred"] += 1
+                r.decisions.record(
+                    "scale", action="deferred", op="up",
+                    reason="no-replica-factory", signals=sig,
+                )
+                return {"ok": False, "action": "up",
+                        "reason": "no-replica-factory"}
+            with r._lock:
+                hint = len(r._replicas)
+            try:
+                server = self.replica_factory(hint)
+            except Exception as e:
+                with self._lock:
+                    self._scale_events["aborted"] += 1
+                r.decisions.record(
+                    "scale", action="aborted", op="up",
+                    reason=f"replica-factory: {e}", signals=sig,
+                )
+                return {"ok": False, "action": "up",
+                        "reason": f"replica-factory: {e}"}
+            idx = r.add_replica(server, role=role)
+            with self._lock:
+                if not isinstance(server, str):
+                    self._owned[idx] = server
+                self._scale_events["up"] += 1
+            if r.health_interval_s <= 0:
+                r.check_health_now()
+            r.decisions.record(
+                "scale", action="up", replica=idx,
+                sentinel=r.sentinel.verdict(idx), signals=sig,
+            )
+            acted = True
+            return {"ok": True, "action": "up", "replica": idx,
+                    "signals": sig}
+        finally:
+            self._end_action(acted)
+
+    def scale_down(
+        self, victim: Optional[int] = None,
+        signals: Optional[Dict[str, Any]] = None,
+    ) -> Dict[str, Any]:
+        """Remove one replica: sentinel-gated victim pick, drain (live
+        sessions migrate to survivors), then retire.  Fires
+        ``scale_event`` first; any failure aborts with the fleet
+        unchanged and every session still served."""
+        r = self.router
+        sig = signals if signals is not None else self.signals()
+        if not self._begin_action():
+            return {"ok": False, "action": "down",
+                    "reason": "action-in-progress"}
+        acted = False
+        try:
+            err = self._fire("scale_event")
+            if err is not None:
+                with self._lock:
+                    self._scale_events["aborted"] += 1
+                r.decisions.record("scale", action="aborted", op="down",
+                                   reason=err, signals=sig)
+                return {"ok": False, "action": "down", "reason": err}
+            pick, verdicts = self._pick_victim(victim)
+            if pick is None:
+                with self._lock:
+                    self._scale_events["deferred"] += 1
+                r.decisions.record(
+                    "scale", action="deferred", op="down",
+                    reason="sentinel-cannot-explain",
+                    sentinel=verdicts, signals=sig,
+                )
+                return {"ok": False, "action": "down",
+                        "reason": "sentinel-cannot-explain",
+                        "sentinel": verdicts}
+            report = self.drain_replica(pick)
+            if not report.get("ok"):
+                # drain_replica already resumed admission: abort with
+                # the fleet exactly as it was.
+                with self._lock:
+                    self._scale_events["aborted"] += 1
+                r.decisions.record(
+                    "scale", action="aborted", op="down", replica=pick,
+                    reason=f"drain: {report.get('reason')}",
+                    signals=sig,
+                )
+                return {"ok": False, "action": "down", "replica": pick,
+                        "reason": f"drain: {report.get('reason')}",
+                        "drain": report}
+            with r._lock:
+                server = r._replicas[pick].server
+            r.retire_replica(pick)
+            with self._lock:
+                owned = self._owned.pop(pick, None)
+                self._scale_events["down"] += 1
+            if owned is not None and owned is server:
+                self._stop_server(server)
+            r.decisions.record(
+                "scale", action="down", replica=pick,
+                sentinel=verdicts.get(pick),
+                migrated=report.get("migrated"),
+                blocks=report.get("blocks"), signals=sig,
+            )
+            acted = True
+            return {"ok": True, "action": "down", "replica": pick,
+                    "drain": report, "signals": sig}
+        finally:
+            self._end_action(acted)
+
+    def drain_replica(
+        self, index: int, timeout_s: Optional[float] = None,
+    ) -> Dict[str, Any]:
+        """THE drain primitive (also the operator entry): stop
+        admission, wait for in-flight streams + the serving loop to
+        settle, migrate every live session's chain to a survivor, and
+        re-pin routing records.  On success the replica is left
+        ``retiring`` (the caller retires/swaps it, or resumes with
+        ``set_retiring(index, False)`` to cancel).  On ANY failure the
+        replica RESUMES admission untouched — no session is ever
+        stranded halfway."""
+        r = self.router
+        budget = (
+            self.drain_timeout_s if timeout_s is None
+            else float(timeout_s)
+        )
+        with r._lock:
+            rep = r._replicas[index]
+            already_retired = rep.retired
+            server = rep.server
+        if already_retired:
+            return {"ok": False, "replica": index,
+                    "reason": "already-retired"}
+        if server is None:
+            return {"ok": False, "replica": index,
+                    "reason": "not-in-process"}
+        t_wall = time.monotonic()
+        r.set_retiring(index, True)
+        deadline = t_wall + budget
+
+        def _fail(reason: str, **extra: Any) -> Dict[str, Any]:
+            r.set_retiring(index, False)
+            with self._lock:
+                self.drains_total += 1
+                self.drains_failed_total += 1
+            rec = {"ok": False, "replica": index, "reason": reason}
+            rec.update(extra)
+            r.decisions.record("drain", **rec)
+            return rec
+
+        # 1. In-flight streams finish on the source (admission is
+        #    already off, so the count only falls).
+        while True:
+            with r._lock:
+                infl = r._replicas[index].inflight
+            if infl == 0:
+                break
+            if time.monotonic() >= deadline:
+                return _fail("inflight-timeout", inflight=infl)
+            time.sleep(0.01)
+        # 2. The serving loop settles (work admitted before retiring).
+        if not server.wait_idle(
+            timeout_s=max(0.1, deadline - time.monotonic()),
+        ):
+            return _fail("serving-loop-busy")
+        # 3. Enumerate every live session's chain.
+        try:
+            chains = server.call_on_loop(
+                lambda b: b.resident_chain_keys(),
+                timeout_s=max(0.1, deadline - time.monotonic()),
+            )
+        except (TimeoutError, RuntimeError, OSError) as e:
+            return _fail(f"enumerate: {e}")
+        # Deepest-first is deterministic and moves whole sessions
+        # before their prefix-sharing shorter siblings.
+        chains = sorted(chains, key=lambda c: (-len(c), c))
+        mig_budget = (
+            r.handoff_timeout_s if self.migrate_timeout_s is None
+            else float(self.migrate_timeout_s)
+        )
+        migrated = skipped = failed = blocks = 0
+        dst_counts: Dict[int, int] = {}
+        failures: List[Dict[str, Any]] = []
+        for i, chain in enumerate(chains):
+            rid = f"drain-{index}-{i}"
+            err = self._fire("session_migrate")
+            if err is not None:
+                # This session's move aborts; its copy stays on the
+                # source, which resumes below — nobody is dropped.
+                failed += 1
+                failures.append(
+                    {"chain": chain[0].hex()[:16], "reason": err},
+                )
+                continue
+            dst = self._pick_destination(index)
+            if dst is None:
+                return _fail(
+                    "no-survivor", sessions=len(chains),
+                    migrated=migrated, failed=failed,
+                )
+            try:
+                n, outcome = r._execute_migration(
+                    index, dst, chain, request_id=rid,
+                    timeout_s=mig_budget, demote=False,
+                )
+            except (TimeoutError, RuntimeError, OSError,
+                    InjectedFault) as e:
+                failed += 1
+                failures.append({
+                    "chain": chain[0].hex()[:16], "dst": dst,
+                    "reason": str(e) or type(e).__name__,
+                })
+                continue
+            if outcome == "completed":
+                migrated += 1
+                blocks += n
+                dst_counts[dst] = dst_counts.get(dst, 0) + 1
+            else:
+                skipped += 1  # nothing-resident / already at dst
+        with self._lock:
+            self.sessions_migrated_total += migrated
+            self.sessions_migrate_failed_total += failed
+        if failed:
+            return _fail(
+                "migration-failures", sessions=len(chains),
+                migrated=migrated, failed=failed, skipped=skipped,
+                failures=failures[:8],
+            )
+        # 4. Re-pin routing records + affinity to the survivor that
+        #    received the most sessions (cache-aware routing finds
+        #    per-chain placements through the index regardless).
+        repin_dst = (
+            max(dst_counts, key=lambda k: dst_counts[k])
+            if dst_counts else None
+        )
+        repinned = (
+            r.repin_routes(index, repin_dst)
+            if repin_dst is not None else 0
+        )
+        with self._lock:
+            self.drains_total += 1
+        rec = {
+            "ok": True, "replica": index, "sessions": len(chains),
+            "migrated": migrated, "skipped": skipped, "blocks": blocks,
+            "destinations": {str(k): v for k, v in dst_counts.items()},
+            "repinned": repinned,
+            "dur_ms": round((time.monotonic() - t_wall) * 1000.0, 3),
+        }
+        r.decisions.record("drain", **rec)
+        return rec
+
+    def rollout(
+        self, factory: Any, rollback_factory: Optional[Any] = None,
+        expect_tokens: Optional[Sequence[int]] = None,
+    ) -> Dict[str, Any]:
+        """Zero-downtime rollout: replica-by-replica drain → swap to
+        ``factory(index)``'s instance → canary gate.  Per rung the
+        canary oracle is reset and a full sweep runs; the gate is the
+        restarted replica's own probe — transport-clean AND its tokens
+        matching the rollout oracle (pinned from the rung-0 probe, or
+        from ``expect_tokens`` when the operator knows the new
+        weights' expected canary output).  A failed gate auto-rolls
+        the rung back through ``rollback_factory`` (without one the
+        rung's replica is retired) and aborts the rollout.  After the
+        last rung a final reset + sweep must be unanimously clean.
+        Sessions are migrated off each rung before its restart, so no
+        session is dropped even by a failed rung."""
+        r = self.router
+        if not self._begin_action():
+            return {"ok": False, "reason": "action-in-progress"}
+        with self._lock:
+            self.rollouts_total += 1
+            self._rollout_oracle = (
+                list(expect_tokens) if expect_tokens is not None
+                else None
+            )
+        with r._lock:
+            plan = [x.index for x in r._replicas if not x.retired]
+        results: List[Dict[str, Any]] = []
+        ok_all = True
+        reason: Optional[str] = None
+        try:
+            for rung, idx in enumerate(plan):
+                with self._lock:
+                    self.rollout_rung = rung
+                err = self._fire("scale_event")
+                if err is not None:
+                    with self._lock:
+                        self._scale_events["aborted"] += 1
+                    r.decisions.record(
+                        "rollout_rung", rung=rung, replica=idx,
+                        ok=False, reason=err,
+                    )
+                    ok_all, reason = False, err
+                    break
+                report = self.drain_replica(idx)
+                if not report.get("ok"):
+                    r.decisions.record(
+                        "rollout_rung", rung=rung, replica=idx,
+                        ok=False,
+                        reason=f"drain: {report.get('reason')}",
+                    )
+                    ok_all = False
+                    reason = f"drain: {report.get('reason')}"
+                    break
+                with r._lock:
+                    old = r._replicas[idx].server
+                try:
+                    fresh = factory(idx)
+                except Exception as e:
+                    r.set_retiring(idx, False)
+                    r.decisions.record(
+                        "rollout_rung", rung=rung, replica=idx,
+                        ok=False, reason=f"factory: {e}",
+                    )
+                    ok_all, reason = False, f"factory: {e}"
+                    break
+                r.swap_replica(idx, fresh)
+                with self._lock:
+                    if not isinstance(fresh, str):
+                        self._owned[idx] = fresh
+                    else:
+                        self._owned.pop(idx, None)
+                self._stop_server(old)
+                if r.health_interval_s <= 0:
+                    r.check_health_now()
+                gate_ok, why = self._rung_gate(idx)
+                if gate_ok:
+                    r.decisions.record(
+                        "rollout_rung", rung=rung, replica=idx,
+                        ok=True, gate=why,
+                        migrated=report.get("migrated"),
+                    )
+                    results.append(
+                        {"rung": rung, "replica": idx, "ok": True},
+                    )
+                    continue
+                rb = self._rollback_rung(idx, fresh, rollback_factory)
+                with self._lock:
+                    self.rollbacks_total += 1
+                r.decisions.record(
+                    "rollout_rung", rung=rung, replica=idx, ok=False,
+                    reason=f"canary-gate: {why}", rollback=rb,
+                )
+                results.append({
+                    "rung": rung, "replica": idx, "ok": False,
+                    "reason": why, "rollback": rb,
+                })
+                ok_all, reason = False, f"canary-gate: {why}"
+                break
+            if ok_all:
+                r.reset_canary_oracle()
+                sweep = r.run_canaries_now()
+                bad = [i for i, res in sweep if not res.get("ok")]
+                if bad:
+                    ok_all = False
+                    reason = f"final-sweep-unclean: {bad}"
+            r.decisions.record(
+                "rollout", ok=ok_all, rungs_done=len(results),
+                planned=len(plan), reason=reason,
+            )
+            return {"ok": ok_all, "rungs": results,
+                    "planned": len(plan), "reason": reason}
+        finally:
+            with self._lock:
+                self.rollout_rung = -1
+                self._rollout_oracle = None
+            self._end_action(True)
+
+    def _rung_gate(self, idx: int) -> Tuple[bool, str]:
+        """One rung's canary gate: reset the fleet oracle, sweep, and
+        judge the restarted replica by its OWN probe against the
+        rollout oracle — mid-rollout the fleet majority still runs old
+        weights, so the sweep's plurality oracle cannot be trusted to
+        judge the new output."""
+        r = self.router
+        r.reset_canary_oracle()
+        sweep = dict(r.run_canaries_now())
+        res = sweep.get(idx)
+        if res is None:
+            return False, "no-canary-result"
+        tokens = res.get("tokens")
+        if res.get("error") is not None or not tokens:
+            return False, (
+                f"probe-failed: {res.get('error') or 'no-tokens'}"
+            )
+        with self._lock:
+            oracle = self._rollout_oracle
+            if oracle is None:
+                self._rollout_oracle = list(tokens)
+                return True, "oracle-pinned"
+        if list(tokens) == list(oracle):
+            return True, "oracle-match"
+        return False, "oracle-mismatch"
+
+    def _rollback_rung(
+        self, idx: int, bad_server: Any, rollback_factory: Optional[Any],
+    ) -> str:
+        """Undo one failed rung: swap the slot back to a
+        ``rollback_factory(index)`` instance (old weights) — or,
+        without one, retire the slot (its sessions already live on
+        survivors).  The bad instance is stopped either way."""
+        r = self.router
+        if rollback_factory is None:
+            r.retire_replica(idx)
+            with self._lock:
+                self._owned.pop(idx, None)
+            self._stop_server(bad_server)
+            return "retired"
+        try:
+            prev = rollback_factory(idx)
+        except Exception as e:
+            r.retire_replica(idx)
+            with self._lock:
+                self._owned.pop(idx, None)
+            self._stop_server(bad_server)
+            return f"retired (rollback factory failed: {e})"
+        r.swap_replica(idx, prev)
+        with self._lock:
+            if not isinstance(prev, str):
+                self._owned[idx] = prev
+            else:
+                self._owned.pop(idx, None)
+        self._stop_server(bad_server)
+        if r.health_interval_s <= 0:
+            r.check_health_now()
+        return "rolled-back"
+
+    # -- introspection -------------------------------------------------------
+
+    def state_json(self) -> Dict[str, Any]:
+        """/debug/fleet's ``controller`` block."""
+        with self._lock:
+            return {
+                "min_replicas": self.min_replicas,
+                "max_replicas": self.max_replicas,
+                "interval_s": self.interval_s,
+                "attainment_floor": self.attainment_floor,
+                "queue_wait_high_ms": self.queue_wait_high_ms,
+                "occupancy_low": self.occupancy_low,
+                "dwell_s": self.dwell_s,
+                "cooldown_s": self.cooldown_s,
+                "busy": self._busy,
+                "rollout_rung": self.rollout_rung,
+                "scale_events": dict(self._scale_events),
+                "sessions_migrated_total": self.sessions_migrated_total,
+                "sessions_migrate_failed_total":
+                    self.sessions_migrate_failed_total,
+                "drains_total": self.drains_total,
+                "drains_failed_total": self.drains_failed_total,
+                "rollouts_total": self.rollouts_total,
+                "rollbacks_total": self.rollbacks_total,
+                "last_signals": (
+                    dict(self._last_signals)
+                    if self._last_signals else None
+                ),
+            }
+
+    def metrics_snapshot(self) -> Dict[str, Any]:
+        """The /metrics families the router exposition renders."""
+        with self._lock:
+            return {
+                "scale_events": dict(self._scale_events),
+                "sessions_migrated": self.sessions_migrated_total,
+                "rollout_rung": self.rollout_rung,
+            }
 
 
 def handoff_prefix(

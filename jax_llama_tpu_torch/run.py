@@ -17,7 +17,7 @@
 
     python -m jax_llama_tpu_torch.run --ckpt-dir ... --http 8000 \
         --replicas 2 [--route cache-aware] [--replica-roles prefill,decode] \
-        [--canary-interval-s 10] ...
+        [--canary-interval-s 10] [--autoscale --autoscale-max 4] ...
 
 The checkpoint is the port's (``python -m jax_llama_tpu_torch.convert``
 writes one from Meta's files).  The argument parser is the JAX package's,
@@ -28,11 +28,14 @@ so an argv that one accepts the other does too, plus ``--device`` (default
 (``server.LLMServer``: POST /generate and /chat, GET /metrics, /healthz,
 /debug/*) run on the card, or on the CPU with ``--device cpu``; ``--http``
 never falls back to the CPU.  A flag whose feature is not ported exits
-with a message that names its ROADMAP item: ``--autoscale`` (A12),
-``--serve-mesh`` and a ``--data``/``--fsdp``/``--tensor`` mesh of more
-than one device (A14).  ``--http`` with ``--replicas`` > 1 serves N
-replicas on the one device behind ``router.ReplicaRouter`` (``--route``,
-``--replica-roles``, ``--canary-interval-s``), as the JAX CLI does.
+with a message that names its ROADMAP item: ``--serve-mesh`` and a
+``--data``/``--fsdp``/``--tensor`` mesh of more than one device (A14).
+``--http`` with ``--replicas`` > 1 serves N replicas on the one device
+behind ``router.ReplicaRouter`` (``--route``, ``--replica-roles``,
+``--canary-interval-s``), as the JAX CLI does; ``--autoscale`` adds a
+``router.FleetController`` over them (``--autoscale-min``,
+``--autoscale-max``, ``--autoscale-interval-s``), whose grown replicas
+share the one weight copy.
 ``--serve`` and ``--http`` run as the JAX CLI does: the prefix cache
 (``--prefix-index radix`` by default, ``exact``, ``off``;
 ``--no-prefix-cache``; ``--host-kv-blocks`` > 0 attaches the host tier,
@@ -42,8 +45,8 @@ decode is prefilled in chunks of at most that many tokens inside the
 decode dispatches; 0 admits whole prompts).  ``--logprobs`` (``--http``
 only, as in the JAX CLI) lets a request ask for each token's logprob
 (``"logprobs": true``).  ``--log-json`` formats the log lines.
-The router's flags and the fleet controller's (its autoscale bounds,
-A12) are parsed from one table, ``_FLEET_FLAGS``.
+The router's flags and the fleet controller's (its autoscale bounds)
+are parsed from one table, ``_FLEET_FLAGS``.
 """
 
 from __future__ import annotations
@@ -60,8 +63,8 @@ DEFAULT_PROMPTS = [
 # Flags that configure the replica fleet, as (flag, type (None: a
 # string), default, choices): registered with the JAX CLI's names, types
 # and defaults so that one argv parses in both packages.  The router reads
-# --route and --canary-interval-s; the autoscale bounds wait for the fleet
-# controller (ROADMAP A12).
+# --route and --canary-interval-s, the fleet controller (--autoscale) the
+# autoscale bounds and period.
 _FLEET_FLAGS = (
     ("--route", None, "least-loaded",
      ("least-loaded", "affinity", "cache-aware")),
@@ -134,8 +137,14 @@ def main() -> None:
                     help="serving replicas behind one HTTP door "
                          "(router.ReplicaRouter; needs --http)")
     ap.add_argument("--autoscale", action="store_true",
-                    help="elastic replica fleet (the fleet controller, "
-                         "ROADMAP A12 part 2; refused)")
+                    help="elastic fleet for --replicas N: a "
+                         "FleetController scales up under sustained "
+                         "interactive-attainment / queue-wait pressure "
+                         "and scales down (sentinel-gated, live "
+                         "sessions migrated) when calm; every action "
+                         "is a recorded decision (GET "
+                         "/debug/decisions?kind=scale).  Grown replicas "
+                         "share the seed replicas' weight copy")
     ap.add_argument("--replica-roles", default=None, metavar="R,R,...",
                     help="prefill/decode disaggregation: one role "
                          "per replica (needs --route cache-aware)")
@@ -406,10 +415,28 @@ def _refuse_unported(args) -> None:
             "--replicas > 1 needs the HTTP front-end (--http PORT): "
             "the ReplicaRouter speaks HTTP to its replicas"
         )
+    if args.autoscale:
+        if args.replicas < 2 or args.http is None:
+            raise SystemExit(
+                "--autoscale needs router mode (--replicas >= 2 with "
+                "--http PORT): the FleetController scales the "
+                "ReplicaRouter's fleet"
+            )
+        if args.replica_roles is not None:
+            raise SystemExit(
+                "--autoscale does not compose with --replica-roles: "
+                "role disaggregation pins fleet membership (at least "
+                "one replica of each role)"
+            )
+        if not (1 <= args.autoscale_min <= args.replicas
+                <= args.autoscale_max):
+            raise SystemExit(
+                "--autoscale needs 1 <= --autoscale-min <= --replicas "
+                "<= --autoscale-max"
+            )
     tensor = args.tensor or 1  # 0 = every local device: the one card
     mesh = args.data * args.fsdp * tensor
     unported = (
-        (args.autoscale, "--autoscale (the fleet controller)", "A12"),
         (args.serve_mesh is not None, "--serve-mesh (the serving mesh)",
          "A14"),
         (mesh > 1, f"a device mesh of {mesh} (--data {args.data} --fsdp "
@@ -705,15 +732,17 @@ def _serve_router(params, config, tokenizer, device, args, _test_hook=None,
     ``params`` without a serving mesh; each owns its pool, queue, prefix
     index and serving-loop thread.  One fault injector serves the router
     site and every replica's sites, so ``site@N`` counts the process's
-    dispatches.  ``_test_hook(router, servers)``, when given, runs once
-    everything is up, and then the function returns instead of
-    blocking."""
+    dispatches.  With ``--autoscale`` a ``router.FleetController`` grows
+    the fleet through ``make_replica`` (the same weight copy) and, when
+    the router shuts down, stops the replicas it grew.
+    ``_test_hook(router, servers)``, when given, runs once everything is
+    up, and then the function returns instead of blocking."""
     import signal
     import time
 
     from .faults import FaultInjector, install_trace_hook
     from .obs import Observability, StructuredLogger
-    from .router import ReplicaRouter
+    from .router import FleetController, ReplicaRouter
     from .server import LLMServer
     from .serving import ContinuousBatcher
 
@@ -770,6 +799,20 @@ def _serve_router(params, config, tokenizer, device, args, _test_hook=None,
             roles=args.replica_roles,
             canary_interval_s=args.canary_interval_s,
         ).start()
+        controller = None
+        if args.autoscale:
+            # Grown replicas come from make_replica, so they share the
+            # one weight copy; the controller stops them on close.
+            controller = FleetController(
+                router, replica_factory=make_replica,
+                min_replicas=args.autoscale_min,
+                max_replicas=args.autoscale_max,
+                interval_s=args.autoscale_interval_s,
+                drain_timeout_s=args.drain_timeout_s,
+            )
+            logger.log("autoscale_armed", min=args.autoscale_min,
+                       max=args.autoscale_max,
+                       interval_s=args.autoscale_interval_s)
         try:
             logger.log("serving_replicas", address=router.address,
                        replicas=args.replicas, policy=args.route,
@@ -810,6 +853,8 @@ def _serve_router(params, config, tokenizer, device, args, _test_hook=None,
                     except (ValueError, TypeError):
                         pass
         finally:
+            if controller is not None:
+                controller.close(stop_owned=True)
             router.stop()
     finally:
         for srv in servers:

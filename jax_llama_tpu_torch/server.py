@@ -88,10 +88,16 @@ Endpoints:
                                 the bounded node walk, or with
                                 ``since`` the journaled events past
                                 that version.
-  POST /debug/profiler,
-  GET  /debug/profile/summary   501: a profiler session over live traffic
-                                and its attribution are ROADMAP A16
-                                (``torch.profiler``).
+  POST /debug/profiler          ``{"action": "start", "log_dir": D}`` /
+                                ``{"action": "stop"}``: a torch.profiler
+                                session over live traffic, started and
+                                stopped on the serving loop, its Chrome
+                                trace written under D (one session per
+                                process: a second start answers 500).
+  GET  /debug/profile/summary   the last completed session's time by
+                                serving program
+                                (``utils.profiling.summarize_trace``:
+                                device and host ms per dispatch label).
 
 Every reply carries the end-to-end request id (the client's
 ``X-Request-Id`` or a generated one) in its body and an ``X-Request-Id``
@@ -127,6 +133,7 @@ from .ops import _build
 from .ops.kernels import kernel_specs
 from .overload import CANARY, PRIORITIES, RUNG_INDEX, OverloadController
 from .serving import SERVE_MESH, ContinuousBatcher, _round_up
+from .utils.profiling import ProfilerSession, summarize_trace
 
 # Injection-site -> degradable-feature attribution for dispatch
 # exceptions that carry a site name (InjectedFault.site; the generic
@@ -154,11 +161,6 @@ _PLAIN_RUNGS = {
 _KERNEL_ERROR_MARKERS = ("launch failed: cudaerror_t", "nvcc")
 
 _DONE = object()  # stream sentinel
-
-def _not_ported(what: str, item: str):
-    """(status, body) of an endpoint whose feature is a later ROADMAP
-    item."""
-    return 501, {"error": f"{what} is not ported (ROADMAP {item})"}
 
 # The batcher's own default generation budget — read from the signature
 # so the recovery snapshot can never drift from what submit() reserved.
@@ -442,6 +444,16 @@ class LLMServer:
         # batcher work (handoff export/import) the loop executes
         # between steps — see call_on_loop.
         self._control: "queue.Queue[_ControlCall]" = queue.Queue()
+        # On-demand profiler session (POST /debug/profiler): the active
+        # session's log_dir (None when idle) and the session itself,
+        # started and stopped on the serving loop (torch.profiler records
+        # the ranges of the thread that starts it); _profiler_last_dir
+        # remembers the most recently COMPLETED session so GET
+        # /debug/profile/summary can attribute it without a log_dir.
+        self._profiler_dir: Optional[str] = None
+        self._profiler: Optional[ProfilerSession] = None
+        self._profiler_last_dir: Optional[str] = None
+        self._profiler_lock = threading.Lock()
         self._active: Dict[int, _Pending] = {}
         self._stop = threading.Event()
         self._closed = threading.Event()  # set once the loop has drained
@@ -562,19 +574,14 @@ class LLMServer:
                         200, server.obs.trace_json(window_ms)
                     )
                 elif route == "/debug/profile/summary":
-                    self._reply_json(*_not_ported(
-                        "GET /debug/profile/summary (profiler "
-                        "attribution)", "A16"))
+                    self._reply_json(*server._profile_summary(query))
                 else:
                     self._reply_json(404, {"error": "not found"})
 
             def do_POST(self):
-                if self.path == "/debug/profiler":
-                    self._reply_json(*_not_ported(
-                        "POST /debug/profiler (a profiler session over "
-                        "live traffic)", "A16"))
-                    return
-                if self.path not in ("/generate", "/chat"):
+                if self.path not in (
+                    "/generate", "/chat", "/debug/profiler"
+                ):
                     self._reply_json(404, {"error": "not found"})
                     return
                 # End-to-end request id: honor the client's
@@ -587,7 +594,10 @@ class LLMServer:
                 # Every refusal below carries the id as a header too —
                 # proxies correlate on headers, not 4xx/5xx bodies.
                 rid_hdr = {"X-Request-Id": ext_id}
-                if server._draining.is_set() or server._closed.is_set():
+                is_debug = self.path == "/debug/profiler"
+                if not is_debug and (
+                    server._draining.is_set() or server._closed.is_set()
+                ):
                     # Drain mode / shutdown: refuse BEFORE reading the
                     # body, with Retry-After so well-behaved clients back
                     # off until a replacement instance is routable.
@@ -658,6 +668,9 @@ class LLMServer:
                                        "object", "request_id": ext_id},
                         headers=rid_hdr,
                     )
+                    return
+                if is_debug:
+                    self._reply_json(*server._handle_profiler(payload))
                     return
                 # Priority class (overload.py): optional "priority"
                 # field, strictly validated — junk is the client's
@@ -1663,6 +1676,112 @@ class LLMServer:
             "features": features,
         }
 
+    def _handle_profiler(self, payload: Dict[str, Any]):
+        """POST /debug/profiler: an on-demand ``torch.profiler`` session
+        (``utils.profiling.trace`` unrolled into two HTTP calls so it can
+        bracket LIVE traffic, JAX :1971): ``{"action": "start",
+        "log_dir": DIR}`` begins a capture, ``{"action": "stop"}`` ends it
+        and writes a Chrome trace under DIR.  The session starts and
+        stops on the serving loop (``call_on_loop``), whose thread is the
+        one whose dispatch ranges it must record; the trace file is
+        written here on the handler thread, so the loop never waits for
+        it.  One session per process (CUPTI's rule): a start while
+        another server of the process traces answers 500.  Returns
+        ``(status_code, body)`` for the handler's ``_reply_json``."""
+        action = payload.get("action")
+        if action == "start":
+            log_dir = payload.get("log_dir")
+            if not isinstance(log_dir, str) or not log_dir:
+                return 400, {"error": 'start needs a "log_dir" string'}
+            # Serialized: two concurrent starts racing the None check
+            # would both reach the profiler (handler threads).
+            with self._profiler_lock:
+                if self._profiler_dir is not None:
+                    return 409, {"error": (
+                        f"profiler already tracing into "
+                        f"{self._profiler_dir!r}; stop it first"
+                    )}
+                session = ProfilerSession(
+                    owner=f"server {self.address}, log_dir {log_dir!r}")
+                try:
+                    self.call_on_loop(lambda b: session.start())
+                except Exception as e:  # surface, never crash the server
+                    return 500, {"error": f"profiler start failed: {e}"}
+                self._profiler_dir = log_dir
+                self._profiler = session
+            self.obs.annotate("profiler_start", log_dir=log_dir)
+            self._log("profiler_start", log_dir=log_dir)
+            return 200, {"ok": True, "log_dir": log_dir}
+        if action == "stop":
+            with self._profiler_lock:
+                if self._profiler_dir is None:
+                    return 409, {"error": "no profiler session active"}
+                log_dir = self._profiler_dir
+                session = self._profiler
+                try:
+                    self.call_on_loop(lambda b: session.stop())
+                    session.export(log_dir)
+                except Exception as e:
+                    # The session stays recorded: a stop that did not
+                    # reach the loop can be retried (stop and export are
+                    # idempotent), as JAX keeps its session for a retry.
+                    return 500, {"error": f"profiler stop failed: {e}"}
+                self._profiler_dir = None
+                self._profiler = None
+                self._profiler_last_dir = log_dir
+            self.obs.annotate("profiler_stop", log_dir=log_dir)
+            self._log("profiler_stop", log_dir=log_dir)
+            return 200, {"ok": True, "log_dir": log_dir}
+        return 400, {"error": 'action must be "start" or "stop"'}
+
+    def _close_profiler_on_loop(self) -> None:
+        """Loop thread, on its way out: a session still open is stopped
+        here (the thread that started it) and its trace written, so that
+        the process's one profiler claim is freed for other servers."""
+        with self._profiler_lock:
+            session, log_dir = self._profiler, self._profiler_dir
+            if session is None:
+                return
+            try:
+                session.stop()
+                session.export(log_dir)
+                self._profiler_last_dir = log_dir
+            except Exception as e:
+                self._log("profiler_stop_failed", error=str(e))
+            self._profiler_dir = None
+            self._profiler = None
+
+    def _profile_summary(self, query: Dict[str, List[str]]):
+        """GET /debug/profile/summary[?log_dir=DIR]: the most recently
+        completed session's capture split by serving program
+        (``utils.profiling.summarize_trace``; JAX :2028).  Pure file
+        parsing on the handler thread: no device work, and the serving
+        loop is never touched.  Returns ``(status_code, body)``."""
+        log_dir = (query.get("log_dir") or [None])[0]
+        with self._profiler_lock:
+            active = self._profiler_dir
+            if log_dir is None:
+                log_dir = self._profiler_last_dir
+        if log_dir is None:
+            return 404, {"error": (
+                "no completed profiler session; bracket traffic with "
+                'POST /debug/profiler {"action": "start"/"stop"} '
+                "first, or pass ?log_dir="
+            )}
+        if active is not None and log_dir == active:
+            return 409, {"error": (
+                f"profiler session into {log_dir!r} still active; "
+                "stop it before summarizing"
+            )}
+        try:
+            summary = summarize_trace(log_dir)
+        except FileNotFoundError as e:
+            return 404, {"error": str(e)}
+        except Exception as e:  # surface a parse failure, never crash
+            return 500, {"error": f"trace parse failed: {e}"}
+        summary["log_dir"] = log_dir
+        return 200, summary
+
     def _loop(self) -> None:
         # The finally-drain guarantees no client blocks forever: whether
         # the loop exits via stop() or an unexpected device/runtime error,
@@ -1949,6 +2068,9 @@ class LLMServer:
                     break
                 call.error = RuntimeError(reason)
                 call.done.set()
+            # Last: a profiler stop waiting on the control path above has
+            # been answered, so it no longer holds the profiler lock.
+            self._close_profiler_on_loop()
 
     # -- flight recorder / decision audit (GET /debug/bundle, /debug/decisions)
 

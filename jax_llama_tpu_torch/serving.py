@@ -111,6 +111,19 @@ in the queue.
   emitted token's float32 log-probability under the raw logits beside
   the token (``_token_logprob``), bit-cast into the same packed fetch,
   and ``step()`` yields it as a 4th element.
+* Profiler labels: each host dispatch runs inside one
+  ``torch.profiler.record_function`` range named after the JAX package's
+  program (``utils.profiling.PROGRAMS``; JAX :1606-1620), never one per
+  layer, so that ``utils.profiling.summarize_trace`` splits device and
+  host time by program as JAX's ``summarize_xplane`` does.  The port's
+  decode scan ``_chunk_scan`` is labelled ``_paged_decode_chunk``;
+  ``_fused_chunk``, ``_spec_rounds_chunk`` and one round of the
+  per-round loop (``_spec_round``) keep their names; the cold insert is
+  ``_paged_insert`` and the prefix-hit insert ``_paged_suffix_insert``;
+  the dirty-row upload is ``_scatter_rows``, the invalidation of
+  re-purposed blocks' positions ``_release_blocks``, and a swap-in's or
+  an import's adoption scatter ``_adopt_jit``.  With no profiler
+  session a range records nothing.
 
 Not in this slice: a serving mesh raises ``NotImplementedError`` at
 construction, naming ROADMAP A14; ``stats()`` reports its counters at
@@ -171,6 +184,7 @@ from .ops.kernels import (
 )
 from .ops.paged_attention import MAX_GROUP
 from .ops.sampling import greedy, stop_token_hits
+from .utils.profiling import program_range
 from .spec_decode import (
     accepted_emit_counts,
     draft_categorical,
@@ -1754,6 +1768,10 @@ class ContinuousBatcher:
         device.  No dirty rows (the steady state): no upload."""
         if not self._dirty_rows:
             return
+        with program_range("_scatter_rows"):
+            self._upload_dirty_rows()
+
+    def _upload_dirty_rows(self) -> None:
         if self.d_stops.shape != self.stop_tab.shape:
             # The stop table widened: grow the twin on the device.
             grown = torch.full(self.stop_tab.shape, -1, dtype=torch.int32,
@@ -1857,10 +1875,11 @@ class ContinuousBatcher:
                  self.d_active, self.d_remaining, self.d_stops)
         policies = (self.d_temps, self.d_top_ps, self.d_top_ks)
         if pf is None:
-            out = _chunk_scan(
-                *state, generators, *policies, config=self.config,
-                n_iter=K, use_kernel=self.use_pallas_kernel,
-                with_logprobs=self.logprobs)
+            with program_range("_paged_decode_chunk"):
+                out = _chunk_scan(
+                    *state, generators, *policies, config=self.config,
+                    n_iter=K, use_kernel=self.use_pallas_kernel,
+                    with_logprobs=self.logprobs)
         else:
             b = pf.slot
             pf_generator = generators[b] if final else None
@@ -1868,12 +1887,14 @@ class ContinuousBatcher:
             # classic insert's draw, made inside the final dispatch).
             if not final:
                 generators[b] = None
-            out = _fused_chunk(
-                *state, generators, *policies, pf.d_toks, config=self.config,
-                n_iter=K, use_kernel=self.use_pallas_kernel,
-                with_logprobs=self.logprobs, pf_row=b, pf_base=pf.base,
-                pf_off=pf.off, pf_len=pf.suffix_len, pf_chunk=pf.chunk,
-                pf_generator=pf_generator)
+            with program_range("_fused_chunk"):
+                out = _fused_chunk(
+                    *state, generators, *policies, pf.d_toks,
+                    config=self.config, n_iter=K,
+                    use_kernel=self.use_pallas_kernel,
+                    with_logprobs=self.logprobs, pf_row=b, pf_base=pf.base,
+                    pf_off=pf.off, pf_len=pf.suffix_len, pf_chunk=pf.chunk,
+                    pf_generator=pf_generator)
             self.prefill_chunks_total += 1
             pf.off += pf.chunk
             if final:
@@ -2045,7 +2066,8 @@ class ContinuousBatcher:
             self.decode_dispatches_total += 1
             self.spec_dispatches_total += 1
             self.decode_chunk_last = self.spec_rounds_last = 1
-            self._spec_tail(out)
+            with program_range("_spec_round"):
+                self._spec_tail(out)
         self._admit()
         return out
 
@@ -2164,16 +2186,18 @@ class ContinuousBatcher:
         live = [s.request_id for s in self.slots.values() if s is not None]
         cost_fl, cost_by = self._spec_cost(R)
         t0_obs = time.monotonic()
-        (packed, self.tau, self.d_tau_lp, self.d_fill, self.d_pos,
-         self.d_active, self.d_remaining) = _spec_rounds_chunk(
-            self.params, self.draft_params, self.pool, self.draft_pool,
-            self.d_table, self.d_n_alloc, self.d_fill, self.tau,
-            self.d_tau_lp, self.d_pos, self.d_active, self.d_remaining,
-            self.d_stops, self._generators_for_round(), self.d_temps,
-            self.d_top_ps, self.d_top_ks, t_config=self.config,
-            d_config=self.draft_config, n_draft=G, n_rounds=R,
-            use_kernel=self.use_pallas_kernel, with_logprobs=self.logprobs,
-        )
+        with program_range("_spec_rounds_chunk"):
+            (packed, self.tau, self.d_tau_lp, self.d_fill, self.d_pos,
+             self.d_active, self.d_remaining) = _spec_rounds_chunk(
+                self.params, self.draft_params, self.pool, self.draft_pool,
+                self.d_table, self.d_n_alloc, self.d_fill, self.tau,
+                self.d_tau_lp, self.d_pos, self.d_active, self.d_remaining,
+                self.d_stops, self._generators_for_round(), self.d_temps,
+                self.d_top_ps, self.d_top_ks, t_config=self.config,
+                d_config=self.draft_config, n_draft=G, n_rounds=R,
+                use_kernel=self.use_pallas_kernel,
+                with_logprobs=self.logprobs,
+            )
         # The one device->host sync of the chunk.
         tf_obs = time.monotonic()
         fetched = self._fetch_mark()
@@ -2334,10 +2358,11 @@ class ContinuousBatcher:
         """Invalidate re-purposed blocks' pool positions in one write (and
         the draft pool's), after any demotion copy, which needs them
         live."""
-        ids = torch.as_tensor(evicted, device=self.device)
-        self.pool.pos[ids] = -1
-        if self.spec:
-            self.draft_pool.pos[ids] = -1
+        with program_range("_release_blocks"):
+            ids = torch.as_tensor(evicted, device=self.device)
+            self.pool.pos[ids] = -1
+            if self.spec:
+                self.draft_pool.pos[ids] = -1
 
     def demote_idle(self, n: int) -> int:
         """Demote up to ``n`` idle cached-prefix blocks into the host tier,
@@ -2517,9 +2542,10 @@ class ContinuousBatcher:
                             f"{timeout_s}s (unwound cleanly)")
                     time.sleep(0.001)
             wait_restore(staged)
-            adopt_into_pool(self.pool, staged)
-            if self.spec:
-                adopt_into_pool(self.draft_pool, staged, prefix="d_")
+            with program_range("_adopt_jit"):
+                adopt_into_pool(self.pool, staged)
+                if self.spec:
+                    adopt_into_pool(self.draft_pool, staged, prefix="d_")
             self._store.publish(keys[: len(have) + len(todo)], have + fresh)
             # A node mid-swap-in refuses the published copy: its fresh
             # block stays unkeyed, so free it instead of leaking it.
@@ -2809,10 +2835,14 @@ class ContinuousBatcher:
                                          len(hits))
                     groups.setdefault(T, []).append((req, chain, hits))
             for grp in groups.values():
-                self._admit_shared_group(grp, [next(slot_iter) for _ in grp])
+                with program_range("_paged_suffix_insert"):
+                    self._admit_shared_group(
+                        grp, [next(slot_iter) for _ in grp])
             batch = [(r, c) for r, c, h in picked if not h]
             if batch:
-                self._insert_batch(batch, [next(slot_iter) for _ in batch])
+                with program_range("_paged_insert"):
+                    self._insert_batch(
+                        batch, [next(slot_iter) for _ in batch])
 
     def _insert_batch(self, batch: List[Tuple[_Request, List[bytes]]],
                       slot_ids: List[int]) -> None:
@@ -3130,9 +3160,10 @@ class ContinuousBatcher:
             cost_fl, cost_by = self._dispatch_cost(
                 "_adopt", lambda: (0.0, 2.0 * r.staged.nbytes))
             timer = self._start_timer()
-            adopt_into_pool(self.pool, r.staged)
-            if self.spec:
-                adopt_into_pool(self.draft_pool, r.staged, prefix="d_")
+            with program_range("_adopt_jit"):
+                adopt_into_pool(self.pool, r.staged)
+                if self.spec:
+                    adopt_into_pool(self.draft_pool, r.staged, prefix="d_")
             self._store.complete_restore(r.restore, r.fresh)
             self.swap_in_blocks_total += len(r.fresh)
             swap_ms = (time.monotonic() - r.t0) * 1000.0
@@ -3172,7 +3203,8 @@ class ContinuousBatcher:
                 self._setup_fused_prefill(req, chain, hits, claimed=True)
             else:
                 self._restored_ready.pop(0)
-                self._admit_shared_group([(req, chain, hits)], [free[0]])
+                with program_range("_paged_suffix_insert"):
+                    self._admit_shared_group([(req, chain, hits)], [free[0]])
 
     # -- fused prefill-decode admission --------------------------------------
 

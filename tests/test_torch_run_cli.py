@@ -9,9 +9,10 @@ one request from the same checkpoint with the same greedy tokens, and shut
 down, and with ``--logprobs`` both return the same per-token logprobs;
 ``--serve`` passes ``--prefill-budget`` (default 512) to its batcher.
 ``--http 0 --replicas 2 --route cache-aware`` serves through the replica
-router with the single server's replies.  Flags whose feature is not
-ported exit naming their ROADMAP item; the router's flags are refused as
-the JAX CLI refuses them, with its messages."""
+router with the single server's replies, and with ``--autoscale`` a fleet
+controller whose ``/debug/fleet`` block has the JAX CLI's keys.  Flags
+whose feature is not ported exit naming their ROADMAP item; the router's
+flags are refused as the JAX CLI refuses them, with its messages."""
 
 import io
 import json
@@ -325,6 +326,62 @@ def test_http_replicas_route_like_one_server(ckpts, monkeypatch, capsys):
     assert "serving_replicas address=http://127.0.0.1:" in out
 
 
+def _fleet_view(main, module, argv, monkeypatch, capsys):
+    """Run ``main`` in router mode to its test hook: the router's
+    ``/debug/fleet`` once the controller's loop has judged a scraped
+    fleet (or after 30 s), and the number of replicas."""
+    seen = {}
+
+    def hook(router, servers):
+        import time
+
+        deadline = time.monotonic() + 30.0
+        while True:
+            with urllib.request.urlopen(router.address + "/debug/fleet",
+                                        timeout=60) as r:
+                seen["fleet"] = json.loads(r.read())
+            sig = (seen["fleet"].get("controller") or {}).get(
+                "last_signals") or {}
+            if (sig.get("reason") == "at-min-replicas"
+                    or time.monotonic() > deadline):
+                break
+            time.sleep(0.05)
+        seen["replicas"] = len(router.health()["replicas"])
+
+    orig = module._serve_router
+    monkeypatch.setattr(module, "_serve_router", lambda *a, **kw: orig(
+        *a, **dict(kw, _test_hook=hook)))
+    seen["out"] = _run(main, argv, monkeypatch, capsys)
+    return seen
+
+
+def test_http_replicas_autoscale_arms_the_controller(ckpts, monkeypatch,
+                                                     capsys):
+    """``--http 0 --replicas 2 --autoscale`` starts a FleetController as
+    the JAX CLI does: /debug/fleet carries its block with the flag bounds
+    and period, with the JAX CLI's keys on the same argv, and the log says
+    ``autoscale_armed``.  The idle fleet is calm at its floor, so the
+    background loop defers (at-min-replicas) and grows nothing."""
+    jdir, pdir, _, _, _ = ckpts
+    flags = ["--byte-tokenizer", "--http", "0", "--slots", "2",
+             "--replicas", "2", "--autoscale", "--autoscale-min", "2",
+             "--autoscale-max", "3", "--autoscale-interval-s", "0.05",
+             "--canary-interval-s", "0", *GREEDY]
+    port = _fleet_view(prun.main, prun, ["--ckpt-dir", str(pdir), *flags,
+                                         "--device", "cpu"],
+                       monkeypatch, capsys)
+    jax_view = _fleet_view(jrun.main, jrun, ["--ckpt-dir", str(jdir),
+                                             *flags], monkeypatch, capsys)
+    ctrl = port["fleet"]["controller"]
+    assert (ctrl["min_replicas"], ctrl["max_replicas"],
+            ctrl["interval_s"]) == (2, 3, 0.05)
+    assert ctrl["last_signals"]["reason"] == "at-min-replicas"
+    assert ctrl["scale_events"]["up"] == 0 and port["replicas"] == 2
+    assert set(ctrl) == set(jax_view["fleet"]["controller"])
+    assert set(port["fleet"]) == set(jax_view["fleet"])
+    assert "autoscale_armed" in port["out"]
+
+
 @pytest.mark.parametrize("argv,item", [
     # Ported (ROADMAP A17): refused outside --http with the JAX CLI's
     # message.
@@ -333,7 +390,9 @@ def test_http_replicas_route_like_one_server(ckpts, monkeypatch, capsys):
     # refused without --http, and --replica-roles with one replica, each
     # with the JAX CLI's message.
     (["--replicas", "2"], "--replicas > 1 needs the HTTP front-end"),
-    (["--autoscale"], "A12"),
+    # The fleet controller is ported (ROADMAP A12 part 2): --autoscale
+    # outside router mode is refused with the JAX CLI's message.
+    (["--autoscale"], "--autoscale needs router mode"),
     (["--replica-roles", "prefill,decode"],
      "--replica-roles needs --replicas >= 2"),
     (["--serve-mesh", "1,2"], "A14"),

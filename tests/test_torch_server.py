@@ -18,6 +18,7 @@ points (on the CPU each runs its kernel's plain version)."""
 
 import http.client
 import json
+import os
 import re
 import threading
 import time
@@ -321,16 +322,50 @@ def test_refusal_statuses(stack, pkg):
         assert "overloaded" in body["error"]
 
 
-def test_unported_debug_endpoints_answer_501(stack):
+# The profiler endpoints' error paths, in order: (method, path, payload,
+# status), with {dir} the session's log_dir.  (A summary of a directory
+# with no capture is tested on the port alone: JAX's imports the xplane
+# protos first, which costs seconds.)
+PROFILER_STEPS = (
+    ("POST", "/debug/profiler", {"action": "bogus"}, 400),
+    ("POST", "/debug/profiler", {"action": "stop"}, 409),
+    ("GET", "/debug/profile/summary", None, 404),
+    ("POST", "/debug/profiler", {"action": "start"}, 400),
+    ("POST", "/debug/profiler", {"action": "start", "log_dir": "{dir}"}, 200),
+    ("POST", "/debug/profiler", {"action": "start", "log_dir": "{dir}"}, 409),
+    ("GET", "/debug/profile/summary?log_dir={dir}", None, 409),
+    ("POST", "/debug/profiler", {"action": "stop"}, 200),
+    ("POST", "/debug/profiler", {"action": "stop"}, 409),
+)
+
+
+def _profiler_codes(srv, log_dir):
+    codes = []
+    for method, path, payload, _ in PROFILER_STEPS:
+        if payload is not None:
+            payload = {k: v.format(dir=log_dir) for k, v in payload.items()}
+        status, body, _ = _request(
+            srv.address, path.format(dir=urllib.parse.quote(log_dir)),
+            payload)
+        codes.append(status)
+        if status >= 400:
+            assert body["error"]
+    return codes
+
+
+def test_profiler_endpoints_error_paths_match_jax(stack, tmp_path):
+    """POST /debug/profiler and GET /debug/profile/summary are ported
+    (ROADMAP A16 part 1): each step of the session lifecycle answers with
+    the JAX server's status code (a bad action 400, a stray stop 409, a
+    summary before any session 404, a second start and a summary of the
+    active session 409), and no port endpoint answers 501."""
+    codes = {}
+    for pkg in ("jax", "port"):
+        with _server(stack, pkg) as srv:
+            codes[pkg] = _profiler_codes(srv, str(tmp_path / pkg))
+    assert codes["port"] == codes["jax"] == [
+        step[3] for step in PROFILER_STEPS]
     with _server(stack, "port") as srv:
-        for method, path, item in (("POST", "/debug/profiler", "A16"),
-                                   ("GET", "/debug/profile/summary",
-                                    "A16")):
-            status, body, _ = _request(
-                srv.address, path,
-                {"action": "start"} if method == "POST" else None)
-            assert status == 501, path
-            assert f"not ported (ROADMAP {item})" in body["error"]
         # /debug/kv is ported (ROADMAP A11): an idle store's digest walk,
         # and with ?since= its (empty) journal.
         status, body, _ = _request(srv.address, "/debug/kv")
@@ -338,6 +373,81 @@ def test_unported_debug_endpoints_answer_501(stack):
         assert body["summary"]["prefix_index"] == "radix"
         status, body, _ = _request(srv.address, "/debug/kv?since=0")
         assert status == 200 and body["events"] == []
+        for path in ("/healthz", "/metrics", "/debug/requests",
+                     "/debug/dispatches", "/debug/trace", "/debug/decisions",
+                     "/debug/bundle", "/debug/profile/summary"):
+            assert _request(srv.address, path)[0] != 501, path
+
+
+def test_debug_profiler_endpoint(stack, tmp_path):
+    """JAX's test_debug_profiler_endpoint on the port: POST /debug/profiler
+    brackets a torch.profiler session that writes a Chrome trace under
+    log_dir, and GET /debug/profile/summary attributes the bracketed
+    request's decode chunks to ``_paged_decode_chunk`` with host ms > 0
+    (the session runs on the serving loop's thread, whose dispatch ranges
+    it records; a CPU capture has no device time).  A second server of the
+    process cannot start a session while the first traces (500, JAX's
+    answer), and the first session is unharmed."""
+    log_dir = str(tmp_path / "trace")
+    other_dir = str(tmp_path / "other")
+    with _server(stack, "port") as srv, _server(stack, "port") as srv2:
+        status, body, _ = _request(srv.address, "/debug/profiler",
+                                   {"action": "start", "log_dir": log_dir})
+        assert status == 200 and body == {"ok": True, "log_dir": log_dir}
+        status, body, _ = _request(srv2.address, "/debug/profiler",
+                                   {"action": "start",
+                                    "log_dir": other_dir})
+        assert status == 500
+        assert body["error"].startswith("profiler start failed")
+        assert "already active" in body["error"]
+        status, body, _ = _request(srv.address, "/generate",
+                                   {"prompt": [3, 4, 5], "max_new_tokens": 6})
+        assert status == 200 and len(body["tokens"]) == 6
+        status, body, _ = _request(srv.address, "/debug/profiler",
+                                   {"action": "stop"})
+        assert status == 200 and body["log_dir"] == log_dir
+        status, summary, _ = _request(srv.address, "/debug/profile/summary")
+        assert status == 200 and summary["log_dir"] == log_dir
+        assert set(summary) == {"trace", "programs", "total_device_ms",
+                                "total_host_ms", "log_dir"}
+        assert summary["trace"].startswith(log_dir)
+        progs = summary["programs"]
+        assert progs["_paged_decode_chunk"]["host_ms"] > 0
+        assert progs["_paged_insert"]["host_ms"] > 0
+        assert summary["total_device_ms"] == 0
+        assert summary["total_host_ms"] >= sum(
+            p["host_ms"] for p in progs.values()) - 1e-2
+        # The claim is free again: the second server traces now.
+        status, _, _ = _request(srv2.address, "/debug/profiler",
+                                {"action": "start", "log_dir": other_dir})
+        assert status == 200
+        status, _, _ = _request(srv2.address, "/debug/profiler",
+                                {"action": "stop"})
+        assert status == 200
+        status, body, _ = _request(
+            srv.address, "/debug/profile/summary?log_dir="
+            + urllib.parse.quote(str(tmp_path)) + "/nothing")
+        assert status == 404 and "capture" in body["error"]
+    assert any(f.endswith(".pt.trace.json")
+               for _, _, fs in os.walk(log_dir) for f in fs)
+
+
+def test_server_stop_closes_an_open_profiler_session(stack, tmp_path):
+    """A server stopped mid-session closes it on its loop thread and
+    writes the capture, so that the process's one profiler claim is free
+    for the next server."""
+    log_dir = str(tmp_path / "left-open")
+    with _server(stack, "port") as srv:
+        assert _request(srv.address, "/debug/profiler",
+                        {"action": "start", "log_dir": log_dir})[0] == 200
+    assert any(f.endswith(".pt.trace.json")
+               for _, _, fs in os.walk(log_dir) for f in fs)
+    with _server(stack, "port") as srv:
+        assert _request(srv.address, "/debug/profiler",
+                        {"action": "start",
+                         "log_dir": str(tmp_path / "next")})[0] == 200
+        assert _request(srv.address, "/debug/profiler",
+                        {"action": "stop"})[0] == 200
 
 
 # ---------------------------------------------------------------------------
