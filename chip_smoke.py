@@ -568,6 +568,29 @@ yardstick ran (``library_kernels``, through
   reference batcher's tokens (DRILL_TIE) and launches are exactly what
   every instance's records imply.
 
+Tensor and data parallelism (ROADMAP A14 part 1): ``kernel_check`` rows
+``tp2_insert`` / ``tp2_serving`` hold the flash forward, the paged
+decode, stock-paged and splash at a tensor = 2 rank's heads (H = 16, KVH
+= 4, d = 128, bf16) against their plain versions, with their times and
+bounds.  Right after ``generate_profile``, ``mesh_generate`` and
+``mesh_serving`` spawn two ranks once on cuda:0 over gloo (NCCL refuses
+two ranks on one device; the ranks prove the sharded path, not a
+parallel speed; ``drive_mesh``): the generate phase's prompts at full
+width and 32 layers on a tensor = 2 mesh, with each rank's weights drawn
+as its half of the seed-0 tree (tokens the unsharded run's or a near-tie
+below DECODE_REL; 32 flash launches a rank, "wgmma", at H = 16), then
+the serving phase's first 6 requests at 8 layers on ``--serve-mesh 1,2``
+against the unsharded batcher (the same tokens or a near-tie, block
+tables, free list and radix digest identical on both ranks, the
+unsharded batcher's launches on each), the same in float32 activations
+with tokens identical (no near-tie allowed), and a data = 2 cell
+(``--serve-mesh 2,1``) whose prefix hit reads blocks the other data rank
+computed.  ``checkpoint`` adds ``run.py --tensor 2`` under ``python -m
+torch.distributed.run --nproc-per-node 2`` (its completions the
+single-rank one-shot's, or a near-tie; each rank counts its own
+launches: 8 flash on "wgmma").  The ``kernels`` line gives each
+on-path kernel's ``tp2`` cell and launches per rank on the mesh paths.
+
 A ``total`` line gives the script's seconds so far, before the
 ``kernels`` line.  The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or outside a checkout of the repository, it exits non-zero before printing
@@ -760,10 +783,11 @@ def cold_copies(args):
     return [args] + [tuple(t.clone() for t in args) for _ in range(n - 1)]
 
 
-def flash_inputs(torch, name, gen):
+def flash_inputs(torch, name, gen, H=32, KVH=8):
     """Inputs of the flash kernel at one main-path shape: bf16, float32 at
-    the cached_decode phase's float32 step."""
-    B, H, KVH, d = 4, 32, 8, 128
+    the cached_decode phase's float32 step; ``H``/``KVH`` a rank's heads
+    under tensor parallelism (``check_shard_kernels``)."""
+    B, d = 4, 128
     dev = "cuda"
     if name == "insert":
         # The serving phase's first admission as _paged_insert builds it:
@@ -1152,11 +1176,17 @@ def check_paged(torch, pa, gen):
         "a pre-gathered view, bool mask, gather not timed",
         bound_ms=bound_ms, bound_by=bound_by, roofline_share=bound_ms / ms,
     )
+    # csrc/paged_decode.cu launch_split: bf16 q at T = 1 packs G rows
+    # into 16-row m-tiles.
+    want_inst = pa.split_instance_name(16 if G <= 16 else 32 if G <= 32
+                                       else 64)
     emit(row)
     if not (finite and dead_ok and rel < REL_BOUND and lse_err < LSE_BOUND
-            and passes == 2 and set(profiled.values()) == {L}):
+            and passes == 2 and set(profiled.values()) == {L}
+            and instance == want_inst):
         raise AssertionError(
-            f"paged_decode: kernels a launch {passes} (profiled over {L} "
+            f"paged_decode: instance {instance} (expected {want_inst}), "
+            f"kernels a launch {passes} (profiled over {L} "
             f"launches: {profiled}), finite {finite}, "
             f"dead rows {dead_ok}, max abs "
             f"err {err} (worst live row: {rel} of its max |plain|, bound "
@@ -4101,6 +4131,7 @@ def drive_checkpoint(torch, ptl, fa, pa, shallow, cfg, smi):
                    "--max-gen-len", str(CKPT_GEN), "--temperature", "0"]
         one_shot = default + ["--attn", "auto"]
         flash = (dict(NO_LAUNCHES, flash_fwd=L), {"wgmma": L})
+        wants = {}
         for name, argv, weights, run_cfg, (want_launches, want_inst) in (
                 ("one_shot_default", default, shallow, conv_cfg,
                  (dict(NO_LAUNCHES), {})),
@@ -4114,6 +4145,7 @@ def drive_checkpoint(torch, ptl, fa, pa, shallow, cfg, smi):
                                                       temperature=0.0)
             del weights
             want = [f"{p!r}\n{o}" for p, o in zip(prompts, texts)]
+            wants[name] = (want, texts)
             zero_counts(fa, pa)
             out, ids, wall = run_cli(torch, argv)
             launches = launch_counts(fa, pa)
@@ -4131,6 +4163,47 @@ def drive_checkpoint(torch, ptl, fa, pa, shallow, cfg, smi):
                   and instances["flash_fwd_by_instance"] == want_inst,
                   f"{name} launches {launches} {instances}, expected "
                   f"{want_launches} {want_inst}")
+
+        # run.py one-shot under torchrun (ROADMAP A14 part 1): --tensor 2
+        # over two ranks on the one card (gloo: NCCL refuses two ranks on
+        # one device), each loading only its shard; only rank 0 prints.
+        # Each rank counts its own launches from zero: L flash launches
+        # on "wgmma" at H = 16, as the unsharded one-shot's at H = 32.
+        rc, out, err, wall, ranks = torchrun_one_shot(
+            one_shot + ["--tensor", str(MESH_RANKS)])
+        got = cli_blocks(out, "[") if rc == 0 else []
+        want, texts = wants["one_shot"]
+        run = dict(rc=rc, ranks=MESH_RANKS, tensor=MESH_RANKS,
+                   backend="gloo", completions_equal=got == want,
+                   wall_s=wall,
+                   launches=(ranks[0]["launches"] if ranks[0]
+                             else dict(NO_LAUNCHES)),
+                   launches_per_rank=[r and r["launches"] for r in ranks],
+                   flash_by_instance_per_rank=[
+                       r and r["flash_by_instance"] for r in ranks],
+                   stderr_tail=err if rc else None)
+        check(rc == 0 and len(got) == len(prompts),
+              f"torchrun one-shot rc {rc}: {err}")
+        for i, r in enumerate(ranks):
+            check(r is not None and r["launches"] == flash[0]
+                  and r["flash_by_instance"] == flash[1],
+                  f"torchrun one-shot rank {i} launches {r}, expected "
+                  f"{flash}")
+        if rc == 0 and got != want:
+            # A bf16 near-tie at 8 layers: the completions' byte tokens
+            # against the unsharded run's, gap bounded by DECODE_REL.
+            try:
+                run["divergences"] = token_divergences(
+                    torch, ptl, shallow, auto,
+                    [tok.encode(p, bos=True) for p in prompts],
+                    [tok.encode(b.split("\n", 1)[1], bos=False)
+                     for b in got],
+                    [tok.encode(t, bos=False) for t in texts], DECODE_REL)
+            except AssertionError as e:
+                check(False, f"torchrun one-shot completions: {e}")
+        if rc == 0:
+            run["summary"] = out.strip().splitlines()[-1]
+        runs["one_shot_tensor2"] = run
 
         # run.py --serve over stdin, at the defaults and on the selected
         # slots, against the batcher with the same arguments.
@@ -6531,6 +6604,730 @@ def drive_fleet_drill(torch, np, ptl, fa, pa, params, cfg, tok, smi):
     return row
 
 
+# ---------------------------------------------------------------------------
+# Tensor and data parallelism (ROADMAP A14 part 1)
+# ---------------------------------------------------------------------------
+
+# At tensor = 2 a llama3-8b rank's kernels see half the heads: H = 16 over
+# KVH = 4 (G = 4 as unsharded).
+SHARD_TP = 2
+SHARD_H, SHARD_KVH = 32 // SHARD_TP, 8 // SHARD_TP
+# The mesh phases: MESH_RANKS ranks spawned once on cuda:0 over gloo (NCCL
+# refuses two ranks on one device); mesh_serving runs the serving phase's
+# first MESH_SERVE requests at DECODE_DEPTH layers; its data cell serves
+# two prompts in one insert, then a prompt on the second one's first
+# MESH_HIT_BLOCKS blocks.
+MESH_RANKS = 2
+MESH_SERVE = 6
+MESH_PREFIX_TOKENS = 300
+MESH_HIT_BLOCKS = 2
+MESH_NEW = 16
+MESH_WAIT_S = 300
+
+
+def shard_kernel_row(torch, kernel, shape, args_desc, out, ref, instance,
+                     want, cold, plain, library, bound, device_ms, extra):
+    """One ``kernel_check`` row at a tensor = 2 rank's shape (emitted);
+    raises unless the worst row is within REL_BOUND and the instance is
+    the expected one."""
+    rel = row_rel_err(torch, out, ref)
+    ms = time_ms(torch, cold, iters=4 * len(cold))
+    plain_ms = time_ms(torch, plain, iters=len(plain), warmup=1)
+    library_ms = time_ms(torch, library, iters=4 * len(library))
+    bound_ms, bound_by = bound
+    row = dict(phase="kernel_check", kernel=kernel, shape=shape,
+               tensor=SHARD_TP, **args_desc, dtype="bfloat16",
+               instance=instance, worst_row_rel=rel, rel_bound=REL_BOUND,
+               ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+               library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+               roofline_share=bound_ms / ms,
+               device_roofline_share=(bound_ms / device_ms if device_ms
+                                      else None), **extra)
+    emit(row)
+    if not (rel < REL_BOUND and instance == want
+            and bool(torch.isfinite(out).all())):
+        raise AssertionError(
+            f"{kernel} at tensor={SHARD_TP} ({shape}): worst row {rel} of "
+            f"its max |plain| (bound {REL_BOUND}), instance {instance} "
+            f"(expected {want})")
+    return row
+
+
+def paged_library(torch, q, k, v, pos, table, q_pos, k_new=None, v_new=None):
+    """SDPA over views of the attended slots gathered beforehand (the
+    gather not timed; the step's own slot appended for stock-paged),
+    enough layers that the views exceed L2 four times."""
+    import torch.nn.functional as F
+
+    L, KVH, NB, BLK, d = k.shape
+    B = q.shape[0]
+    if k_new is None:
+        blk, allowed = paged_gathered_mask(torch, pos, table, q_pos)
+        qt = q.reshape(B, -1, 1, d)
+    else:
+        blk = table.long().clamp(0, NB - 1)
+        allowed = stock_attended(torch, table, q_pos, NB, BLK)
+        allowed = torch.cat([allowed, torch.ones_like(allowed[:, :1])], 1)
+        qt = q.transpose(1, 2)
+    mask = allowed[:, None, None, :]
+    view_bytes = 2 * KVH * (blk.numel() * BLK + B) * d * k.element_size()
+    n_views = max(2, -(-4 * L2_BYTES // view_bytes))
+    views = []
+    for i in range(n_views):
+        kv = []
+        for t, new in ((k, k_new), (v, v_new)):
+            g = t[i % L][:, blk].reshape(KVH, B, -1, d).transpose(0, 1)
+            if new is not None:
+                g = torch.cat([g, new.transpose(1, 2)], dim=2)
+            kv.append(g.contiguous())
+        views.append(tuple(kv))
+    return [lambda kg=kg, vg=vg: F.scaled_dot_product_attention(
+        qt, kg, vg, attn_mask=mask, enable_gqa=True) for kg, vg in views]
+
+
+def check_shard_kernels(torch, fa, pa, kn, gen, paged_instance):
+    """``kernel_check`` cells at a tensor = 2 rank's shapes (H = 16, KVH =
+    4, d = 128, bf16), each held against its plain version: the flash
+    forward at the serving insert (8 rows, T = S = 1024), the paged
+    decode at the serving shape (8 rows, T = 1), stock-paged at the same
+    shape with the step's own slot, splash at the insert (B = 8, T = S =
+    1024, offset 0); each with its cold-L2 time, device time, plain and
+    library times and bound.  The paged decode must run the instance the
+    full-shape check ran (``paged_instance``: the same G and T)."""
+    rows = {}
+    bf16 = torch.bfloat16
+
+    # Row 1: the flash forward.
+    args = flash_inputs(torch, "insert", gen, H=SHARD_H, KVH=SHARD_KVH)
+    q, k = args[0], args[1]
+    want = fa.flash_instance(q.dtype, q.shape[3], q.shape[1], k.shape[1],
+                             q.shape[2] // k.shape[2])
+    before = dict(fa.flash_attention.launches_by_instance)
+    out = fa.flash_attention(*args)
+    torch.cuda.synchronize()
+    inst = ran_instance(fa.flash_attention.launches_by_instance, before)
+    copies = cold_copies(args)
+    cold = [lambda a=a: fa.flash_attention(*a) for a in copies]
+    rows["flash_fwd"] = shard_kernel_row(
+        torch, "flash_fwd", "tp2_insert",
+        dict(B=q.shape[0], T=q.shape[1], S=k.shape[1], H=q.shape[2],
+             KVH=k.shape[2], d=q.shape[3]),
+        out, fa.flash_attention_reference(*args), inst, want, cold,
+        [lambda a=a: fa.flash_attention_reference(*a) for a in copies],
+        [library_attention(torch, *a) for a in copies], flash_bound(*args),
+        kernel_device_ms(torch, cold, ("flash_fwd",)), {})
+    del copies, cold
+
+    # Row 4: the paged decode.
+    args = paged_inputs(torch, gen, KVH=SHARD_KVH)
+    q, k, v, pos, table, q_pos = args
+    L = k.shape[0]
+    before = dict(pa.paged_pool_attention.launches_by_instance)
+    out, lse = pa.paged_pool_attention(*args, layer=L - 1)
+    torch.cuda.synchronize()
+    inst = ran_instance(pa.paged_pool_attention.launches_by_instance, before)
+    ref, ref_lse = pa.paged_pool_attention_reference(*args, layer=L - 1)
+    live = (ref_lse > pa.MASK_VALUE / 2).all(dim=(1, 2))
+    cold = [lambda i=i: pa.paged_pool_attention(*args, layer=i)
+            for i in range(L)]
+    rows["paged_decode"] = shard_kernel_row(
+        torch, "paged_decode", "tp2_serving",
+        dict(B=q.shape[0], KVH=q.shape[1], G=q.shape[2], d=q.shape[3],
+             L=L, fills=list(PAGED_FILLS)),
+        out[live], ref[live], inst, paged_instance,
+        cold, [lambda i=i: pa.paged_pool_attention_reference(
+            *args, layer=i) for i in range(L)],
+        paged_library(torch, *args), paged_bound(torch, q, k, pos, table,
+                                                  q_pos),
+        kernel_device_ms(torch, cold, ("paged_decode",)),
+        dict(lse_max_abs_err=(lse - ref_lse)[
+            ref_lse > pa.MASK_VALUE / 2].abs().max().item()))
+    del cold
+
+    # Row 5: stock-paged, the step's own K/V merged in.
+    B, KVH, G, d = q.shape
+    qs = q.reshape(B, 1, KVH * G, d)
+    k_new, v_new = (torch.randn(B, 1, KVH, d, device="cuda", generator=gen)
+                    .to(bf16) for _ in range(2))
+    sargs = (qs, k_new, v_new, k, v, table, q_pos)
+    before = dict(kn.stock_paged_decode.launches_by_instance)
+    out = kn.stock_paged_decode(*sargs, layer=L - 1)
+    torch.cuda.synchronize()
+    inst = ran_instance(kn.stock_paged_decode.launches_by_instance, before)
+    ref = kn.stock_paged_decode_reference(*sargs, layer=L - 1)
+    live = q_pos >= 0
+    cold = [lambda i=i: kn.stock_paged_decode(*sargs, layer=i)
+            for i in range(L)]
+    rows["stock_paged"] = shard_kernel_row(
+        torch, "stock_paged", "tp2_serving",
+        dict(B=B, KVH=KVH, G=G, d=d, L=L), out[live], ref[live], inst,
+        kn.stock_instance(bf16, bf16), cold,
+        [lambda i=i: kn.stock_paged_decode_reference(*sargs, layer=i)
+         for i in range(L)],
+        paged_library(torch, qs, k, v, pos, table, q_pos, k_new, v_new),
+        stock_bound(torch, qs, k, table, q_pos, PEAK_BF16_FLOPS),
+        device_ms_per_launch(torch, cold, ("stock_split", "stock_combine"),
+                             "stock_split")[0], {})
+    del cold, args, sargs, k, v
+
+    # Row 6: splash at the insert.
+    import torch.nn.functional as F
+
+    B, T, S, off = SPLASH_SHAPES["insert"]
+    args = tuple(torch.randn(sh, device="cuda", generator=gen).to(bf16)
+                 for sh in ((B, T, SHARD_H, 128), (B, S, SHARD_KVH, 128),
+                            (B, S, SHARD_KVH, 128)))
+    before = dict(kn.splash_prefill.launches_by_instance)
+    out = kn.splash_prefill(*args, chunk_offset=off)
+    torch.cuda.synchronize()
+    inst = ran_instance(kn.splash_prefill.launches_by_instance, before)
+    copies = cold_copies(args)
+    cold = [lambda a=a: kn.splash_prefill(*a, chunk_offset=off)
+            for a in copies]
+    mask = (torch.arange(S, device="cuda")[None, :]
+            <= torch.arange(T, device="cuda")[:, None] + off)
+    rows["splash_prefill"] = shard_kernel_row(
+        torch, "splash_prefill", "tp2_insert",
+        dict(B=B, T=T, S=S, H=SHARD_H, KVH=SHARD_KVH, d=128,
+             chunk_offset=off),
+        out, kn.splash_prefill_reference(*args, chunk_offset=off), inst,
+        kn.splash_instance(bf16), cold,
+        [lambda a=a: kn.splash_prefill_reference(*a, chunk_offset=off)
+         for a in copies],
+        [lambda a=a: F.scaled_dot_product_attention(
+            *(x.transpose(1, 2) for x in a), attn_mask=mask,
+            enable_gqa=True) for a in copies],
+        splash_bound(args[0], args[1], off, PEAK_BF16_FLOPS),
+        device_ms_per_launch(torch, cold, ("splash_",), "splash_")[0], {})
+    return rows
+
+
+def tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+def mesh_collectives(mesh):
+    return {"/".join((kind,) + axes): n
+            for (kind, axes), n in sorted(mesh.collectives.items())}
+
+
+def mesh_serve(torch, ptl, fa, pa, params, cfg, mesh, prompts, max_new):
+    """The serving phase's batcher (8 slots, max_len 2048, decode_chunk
+    8) over ``mesh`` (None: unsharded), the first half of ``prompts``
+    submitted at once and the rest after two steps; counted from zero."""
+    cb = ptl.ContinuousBatcher(params, cfg, n_slots=8, max_len=2048,
+                               decode_chunk=8, device="cuda", mesh=mesh)
+    return mesh_traffic(torch, fa, pa, cb, mesh,
+                        [list(zip(prompts, max_new))[:len(prompts) // 2],
+                         list(zip(prompts, max_new))[len(prompts) // 2:]],
+                        at_step=2)
+
+
+def mesh_traffic(torch, fa, pa, cb, mesh, waves, at_step=None):
+    """Serve ``waves`` of (prompt, max_new): the second wave after
+    ``at_step`` steps, or once the first has drained.  Returns the tokens
+    in submission order and the host state every rank must share."""
+    zero_counts(fa, pa)
+    if mesh is not None:
+        mesh.collectives.clear()
+    order, out = [], {}
+    for p, n in waves[0]:
+        order.append(cb.submit(p, max_new_tokens=n))
+    pending = list(waves[1:])
+    steps = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    while cb.pending() or pending:
+        if pending and (steps == at_step if at_step is not None
+                        else not cb.pending()):
+            for p, n in pending.pop(0):
+                order.append(cb.submit(p, max_new_tokens=n))
+        for rid, tok_id, *_ in cb.step():
+            out.setdefault(rid, []).append(tok_id)
+        steps += 1
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t
+    digest = cb.kv_digest.summary()
+    digest.pop("epoch")  # a per-store random token
+    st = cb.stats()
+    return dict(tokens=[out.get(r, []) for r in order],
+                launches=launch_counts(fa, pa),
+                flash_by_instance=dict(
+                    fa.flash_attention.launches_by_instance),
+                table=cb.table.tolist(), free=sorted(cb.free_blocks),
+                digest=digest, steps=steps, serve_s=serve_s,
+                pool_k=list(cb.pool.k.shape),
+                prefix_hits=st["prefix_requests_hit_total"],
+                prefix_blocks_reused=cb.prefix_blocks_reused,
+                inserts=st["insert_dispatches_total"],
+                serve_mesh=cb.describe()["serve_mesh"],
+                collectives=mesh_collectives(mesh) if mesh is not None
+                else {})
+
+
+def mesh_prefix_waves(tok):
+    """The data cell's traffic: two MESH_PREFIX_TOKENS-token prompts in
+    one insert (each data rank computes one row), then a prompt on the
+    second one's first MESH_HIT_BLOCKS blocks."""
+    texts = serve_texts()
+    a = tok.encode(texts[2], bos=True)[:MESH_PREFIX_TOKENS]
+    b = tok.encode(texts[6], bos=True)[:MESH_PREFIX_TOKENS]
+    hit = b[:MESH_HIT_BLOCKS * 128] + a[1:41]
+    return [[(a, MESH_NEW), (b, MESH_NEW)], [(hit, MESH_NEW)]]
+
+
+def mesh_cell_generate(torch, state, tokens, mask, max_new):
+    """mesh_generate on one rank: the seed-0 llama3-8b tree drawn as this
+    rank's tensor = 2 shard, then ``engine.generate`` on the mesh."""
+    import jax_llama_tpu_torch as ptl
+    from jax_llama_tpu_torch import engine
+    from jax_llama_tpu_torch.parallel import make_mesh
+
+    fa, pa = state["fa"], state["pa"]
+    mesh = make_mesh(tensor=MESH_RANKS, devices=["cuda:0"] * MESH_RANKS)
+    cfg = ptl.get_config("llama3-8b", param_dtype="bfloat16",
+                         dtype="bfloat16", attn_impl="auto")
+    t = time.perf_counter()
+    params = ptl.init_params(cfg, seed=0, device="cuda", mesh=mesh)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    state.update(mesh=mesh, params=params, cfg=cfg)
+    gc = engine.GenerationConfig(max_new_tokens=max_new, temperature=0.0)
+    zero_counts(fa, pa)
+    mesh.collectives.clear()
+    t = time.perf_counter()
+    out = engine.generate(params, tokens.cuda(), mask.cuda(), config=cfg,
+                          gen_config=gc, device="cuda", mesh=mesh)
+    torch.cuda.synchronize()
+    return dict(tokens=out.cpu().tolist(), init_s=init_s,
+                generate_s=time.perf_counter() - t,
+                launches=launch_counts(fa, pa),
+                flash_by_instance=dict(
+                    fa.flash_attention.launches_by_instance),
+                collectives=mesh_collectives(mesh),
+                weight_bytes=tree_bytes(params),
+                qkv=list(params["layers"]["qkv"].shape),
+                device=str(mesh.device), rank=mesh.rank)
+
+
+def mesh_cell_serve_tp(torch, state, prompts, max_new, dtype):
+    """mesh_serving's tensor = 2 cells on one rank: the first DECODE_DEPTH
+    layers of this rank's shard, in ``dtype`` activations."""
+    import jax_llama_tpu_torch as ptl
+
+    p = state["params"]
+    p8 = dict(p, layers={k: w[:DECODE_DEPTH] for k, w in p["layers"].items()})
+    return mesh_serve(torch, ptl, state["fa"], state["pa"], p8,
+                      state["cfg"].replace(n_layers=DECODE_DEPTH,
+                                          dtype=dtype),
+                      state["mesh"], prompts, max_new)
+
+
+def mesh_cell_serve_dp(torch, state, waves):
+    """mesh_serving's data = 2 cell on one rank: the DECODE_DEPTH-layer
+    seed-0 tree whole on each rank (tensor = 1), rows split over data."""
+    import gc
+
+    import jax_llama_tpu_torch as ptl
+    from jax_llama_tpu_torch.parallel import make_mesh
+
+    state.pop("params", None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh = make_mesh(data=MESH_RANKS, devices=["cuda:0"] * MESH_RANKS)
+    cfg8 = ptl.get_config("llama3-8b", param_dtype="bfloat16",
+                          dtype="bfloat16", attn_impl="auto",
+                          n_layers=DECODE_DEPTH)
+    params = ptl.init_params(cfg8, seed=0, device="cuda", mesh=mesh)
+    cb = ptl.ContinuousBatcher(params, cfg8, n_slots=2, max_len=2048,
+                               decode_chunk=8, device="cuda", mesh=mesh)
+    return dict(mesh_traffic(torch, state["fa"], state["pa"], cb, mesh,
+                             waves), rank=mesh.rank,
+                data_index=mesh.axis_index("data"))
+
+
+MESH_CELLS = {"generate": mesh_cell_generate, "serve_tp": mesh_cell_serve_tp,
+              "serve_dp": mesh_cell_serve_dp}
+
+
+def mesh_rank(rank, port, cmd, res):
+    """One rank of the mesh phases (spawned): it brings up the gloo group
+    on cuda:0 and runs the ``MESH_CELLS`` the parent sends, each on its
+    own shard, until the parent sends None."""
+    import faulthandler
+    import traceback
+
+    import torch
+
+    sys.path.insert(0, HERE)
+    from jax_llama_tpu_torch.parallel import distributed
+
+    torch.cuda.set_device(0)
+    distributed.initialize(f"localhost:{port}", MESH_RANKS, rank,
+                           backend="gloo")
+    state = dict(
+        fa=importlib.import_module("jax_llama_tpu_torch.ops.flash_attention"),
+        pa=importlib.import_module("jax_llama_tpu_torch.ops.paged_attention"))
+    try:
+        while True:
+            item = cmd.get()
+            if item is None:
+                break
+            name, kw = item
+            # A cell that hangs (a collective some rank never joins)
+            # leaves each rank's stacks on stderr before the parent
+            # gives up on it.
+            faulthandler.dump_traceback_later(MESH_WAIT_S - 30)
+            try:
+                res.put((rank, True, MESH_CELLS[name](torch, state, **kw)))
+            except BaseException:
+                res.put((rank, False, traceback.format_exc()))
+            faulthandler.cancel_dump_traceback_later()
+    finally:
+        distributed.shutdown()
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+class MeshRanks:
+    """MESH_RANKS spawned ranks (``mesh_rank``), asked cell by cell."""
+
+    def __init__(self):
+        import multiprocessing as mp
+
+        ctx = mp.get_context("spawn")
+        port = free_port()
+        self.cmd = [ctx.Queue() for _ in range(MESH_RANKS)]
+        self.res = ctx.Queue()
+        self.procs = [ctx.Process(target=mesh_rank, daemon=True,
+                                  args=(r, port, self.cmd[r], self.res))
+                      for r in range(MESH_RANKS)]
+        for p in self.procs:
+            p.start()
+
+    def ask(self, name, **kw):
+        import queue
+
+        for q in self.cmd:
+            q.put((name, kw))
+        out, errors = [None] * MESH_RANKS, []
+        deadline = time.monotonic() + MESH_WAIT_S
+        got = 0
+        while got < MESH_RANKS:
+            try:
+                rank, ok, value = self.res.get(timeout=5)
+            except queue.Empty:
+                dead = [p.exitcode for p in self.procs if not p.is_alive()]
+                if dead or time.monotonic() > deadline:
+                    raise AssertionError(
+                        f"mesh cell {name}: ranks exited {dead} or timed "
+                        f"out; errors so far: {errors}")
+                continue
+            got += 1
+            if ok:
+                out[rank] = value
+            else:
+                errors.append(f"rank {rank}: {value}")
+                # The other ranks now wait in a collective this one left.
+                deadline = min(deadline, time.monotonic() + 30)
+        if errors:
+            raise AssertionError(f"mesh cell {name} failed:\n" +
+                                 "\n".join(errors))
+        return out
+
+    def close(self):
+        for q in self.cmd:
+            q.put(None)
+        for p in self.procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=10)
+
+
+def mesh_matches_reference(check, cell, r, ref):
+    """A rank's flash and paged launches, block tables and radix digest
+    against the unsharded batcher's on the same traffic."""
+    for key in ("flash_fwd", "paged_decode"):
+        check(r["launches"][key] == ref["launches"][key],
+              f"mesh_serving {cell} {key} {r['launches'][key]}, "
+              f"unsharded {ref['launches'][key]}")
+    check(r["table"] == ref["table"] and r["digest"] == ref["digest"],
+          f"mesh_serving {cell}: host state differs from the unsharded "
+          f"batcher's")
+
+
+def same_across_ranks(rows, keys):
+    """The keys whose values differ between ranks."""
+    return [k for k in keys if any(r[k] != rows[0][k] for r in rows[1:])]
+
+
+def drive_mesh(torch, ptl, fa, pa, params, cfg, tok, smi, gen_tokens,
+               gen_mask, gen_out, prompt_ids):
+    """Phases ``mesh_generate`` and ``mesh_serving`` (ROADMAP A14 part 1):
+    two ranks spawned once on cuda:0 over gloo.
+
+    mesh_generate: each rank draws the seed-0 llama3-8b tree (full width,
+    32 layers, bf16) as its tensor = 2 shard and runs ``engine.generate``
+    on the generate phase's 4 prompts (padded to 512) for 32 new tokens:
+    tokens equal to the unsharded generate phase's, or the first
+    divergence a bf16 near-tie below DECODE_REL; each rank launches the
+    flash kernel once per layer of the one prefill, on "wgmma", at H = 16.
+
+    mesh_serving: the serving phase's first MESH_SERVE requests at
+    DECODE_DEPTH layers on the tensor = 2 mesh (``--serve-mesh 1,2``) and
+    on the unsharded batcher over the same weights: tokens equal (or a
+    near-tie), block tables, free list and radix digest identical on both
+    ranks, each rank's flash and paged launches the unsharded batcher's;
+    then the same in float32 activations, tokens identical.  Then the
+    data = 2 cell (``--serve-mesh 2,1``): two prompts in one
+    insert, each data rank computing one row, then a prompt that hits
+    MESH_HIT_BLOCKS blocks of the second, which data rank 1 computed and
+    data rank 0 landed from the gather."""
+    import gc
+
+    failures = []
+
+    def check(ok, what):
+        if not ok:
+            failures.append(what)
+
+    t0 = time.perf_counter()
+    ranks = MeshRanks()
+    try:
+        g = ranks.ask("generate", tokens=gen_tokens.cpu(),
+                      mask=gen_mask.cpu(), max_new=32)
+        P = gen_tokens.shape[1]
+        want = [row[P:] for row in gen_out.cpu().tolist()]
+        got = [row[P:] for row in g[0]["tokens"]]
+        check(not same_across_ranks(g, ["tokens"]), "ranks' tokens differ")
+        divergences = []
+        try:
+            divergences = token_divergences(torch, ptl, params, cfg,
+                                            prompt_ids, got, want,
+                                            DECODE_REL)
+        except AssertionError as e:
+            failures.append(f"mesh_generate: {e}")
+        L = cfg.n_layers
+        for r in g:
+            check(r["launches"]["flash_fwd"] == L
+                  and r["flash_by_instance"] == {"wgmma": L}
+                  and r["launches"]["paged_decode"] == 0,
+                  f"rank {r['rank']} launches {r['launches']} "
+                  f"{r['flash_by_instance']}")
+            check(r["qkv"][1] == SHARD_KVH, f"rank shard {r['qkv']}")
+        new_tokens = len(want[0])
+        gen_row = dict(
+            phase="mesh_generate", card=smi, ranks=MESH_RANKS,
+            backend="gloo", devices=[r["device"] for r in g],
+            config="llama3-8b", n_layers=L, dim=cfg.dim, dtype="bfloat16",
+            tensor=MESH_RANKS, heads_per_rank=(
+                g[0]["qkv"][1] * (cfg.n_heads // cfg.kv_heads)),
+            kv_heads_per_rank=g[0]["qkv"][1], batch=len(want),
+            padded_len=P, max_gen_len=new_tokens,
+            tokens_equal=got == want, divergences=divergences,
+            weight_bytes_per_rank=[r["weight_bytes"] for r in g],
+            init_params_s=[r["init_s"] for r in g],
+            generate_s=[r["generate_s"] for r in g],
+            launches_per_rank=[r["launches"] for r in g],
+            flash_by_instance_per_rank=[r["flash_by_instance"] for r in g],
+            collectives_per_rank=g[0]["collectives"],
+            collectives_per_token={k: v / new_tokens for k, v in
+                                   g[0]["collectives"].items()},
+            spawn_to_result_s=time.perf_counter() - t0)
+        emit(gen_row)
+
+        # mesh_serving, tensor = 2: the unsharded reference first.
+        L8 = DECODE_DEPTH
+        cfg8 = cfg.replace(n_layers=L8)
+        shallow = dict(params, layers={k: w[:L8]
+                                       for k, w in params["layers"].items()})
+        prompts = serve_prompts(tok)[:MESH_SERVE]
+        max_new = list(SERVE_MAX_NEW[:MESH_SERVE])
+        ref = mesh_serve(torch, ptl, fa, pa, shallow, cfg8, None, prompts,
+                         max_new)
+        tp = ranks.ask("serve_tp", prompts=prompts, max_new=max_new,
+                       dtype="bfloat16")
+        differ = same_across_ranks(tp, ["tokens", "table", "free",
+                                        "digest"])
+        check(not differ, f"mesh_serving tp ranks differ in {differ}")
+        tp_div = []
+        try:
+            tp_div = token_divergences(torch, ptl, shallow, cfg8, prompts,
+                                       tp[0]["tokens"], ref["tokens"],
+                                       DECODE_REL)
+        except AssertionError as e:
+            failures.append(f"mesh_serving tp: {e}")
+        # No request stops early (no stop tokens), so a near-tie changes
+        # neither the iterations nor the prompt chains: launches, tables
+        # and the digest must be the unsharded batcher's whatever it is.
+        for r in tp:
+            check(r["pool_k"][1] == SHARD_KVH, f"pool {r['pool_k']}")
+            mesh_matches_reference(check, "tp", r, ref)
+
+        # The same traffic in float32 activations (bf16 weights), where
+        # the sharded sums' rounding is far below any logit gap: tokens
+        # identical to the unsharded batcher's, no near-tie allowed.
+        cfg8_f32 = cfg8.replace(dtype="float32")
+        ref32 = mesh_serve(torch, ptl, fa, pa, shallow, cfg8_f32, None,
+                           prompts, max_new)
+        tp32 = ranks.ask("serve_tp", prompts=prompts, max_new=max_new,
+                         dtype="float32")
+        differ = same_across_ranks(tp32, ["tokens", "table", "free",
+                                          "digest"])
+        check(not differ, f"mesh_serving tp f32 ranks differ in {differ}")
+        check(tp32[0]["tokens"] == ref32["tokens"],
+              "mesh_serving tp f32: tokens differ from the unsharded "
+              "batcher's")
+        for r in tp32:
+            mesh_matches_reference(check, "tp f32", r, ref32)
+        del shallow
+
+        # The data = 2 cell: the unsharded reference on the same tree.
+        waves = mesh_prefix_waves(tok)
+        p8 = ptl.init_params(cfg8, seed=0, device="cuda")
+        cb = ptl.ContinuousBatcher(p8, cfg8, n_slots=2, max_len=2048,
+                                   decode_chunk=8, device="cuda")
+        dref = mesh_traffic(torch, fa, pa, cb, None, waves)
+        del cb
+        dp = ranks.ask("serve_dp", waves=waves)
+        differ = same_across_ranks(dp, ["tokens", "table", "free",
+                                        "digest"])
+        check(not differ, f"mesh_serving dp ranks differ in {differ}")
+        dp_div = []
+        try:
+            dp_div = token_divergences(
+                torch, ptl, p8, cfg8, [p for w in waves for p, _ in w],
+                dp[0]["tokens"], dref["tokens"], DECODE_REL)
+        except AssertionError as e:
+            failures.append(f"mesh_serving dp: {e}")
+        for r in dp + [dref]:
+            check(r["prefix_hits"] == 1
+                  and r["prefix_blocks_reused"] == MESH_HIT_BLOCKS,
+                  f"dp prefix hits {r['prefix_hits']} reused "
+                  f"{r['prefix_blocks_reused']}")
+        for r in dp:
+            mesh_matches_reference(check, "dp", r, dref)
+        del p8
+        gc.collect()
+        torch.cuda.empty_cache()
+        serve_row = dict(
+            phase="mesh_serving", card=smi, ranks=MESH_RANKS,
+            backend="gloo", n_layers=L8, config="llama3-8b",
+            dtype="bfloat16",
+            tensor2=dict(
+                serve_mesh=tp[0]["serve_mesh"], requests=MESH_SERVE,
+                max_new=max_new, tokens_equal=tp[0]["tokens"]
+                == ref["tokens"], divergences=tp_div,
+                host_state_identical=not same_across_ranks(
+                    tp, ["table", "free", "digest"]),
+                digest=tp[0]["digest"], pool_k_per_rank=tp[0]["pool_k"],
+                launches_per_rank=[r["launches"] for r in tp],
+                unsharded_launches=ref["launches"],
+                flash_by_instance_per_rank=[r["flash_by_instance"]
+                                            for r in tp],
+                steps=tp[0]["steps"], unsharded_steps=ref["steps"],
+                serve_s=[r["serve_s"] for r in tp],
+                unsharded_serve_s=ref["serve_s"],
+                collectives_per_rank=tp[0]["collectives"]),
+            tensor2_f32=dict(
+                dtype="float32 activations, bf16 weights",
+                tokens_equal=tp32[0]["tokens"] == ref32["tokens"],
+                host_state_identical=not same_across_ranks(
+                    tp32, ["table", "free", "digest"]),
+                launches_per_rank=[r["launches"] for r in tp32],
+                unsharded_launches=ref32["launches"],
+                serve_s=[r["serve_s"] for r in tp32],
+                unsharded_serve_s=ref32["serve_s"]),
+            data2=dict(
+                serve_mesh=dp[0]["serve_mesh"],
+                prompt_tokens=[len(p) for w in waves for p, _ in w],
+                tokens_equal=dp[0]["tokens"] == dref["tokens"],
+                divergences=dp_div,
+                host_state_identical=not same_across_ranks(
+                    dp, ["table", "free", "digest"]),
+                prefix_hits=[r["prefix_hits"] for r in dp],
+                prefix_blocks_reused=[r["prefix_blocks_reused"]
+                                      for r in dp],
+                hit_blocks_computed_by_data_rank=1,
+                data_index_per_rank=[r["data_index"] for r in dp],
+                inserts=dp[0]["inserts"],
+                launches_per_rank=[r["launches"] for r in dp],
+                unsharded_launches=dref["launches"],
+                serve_s=[r["serve_s"] for r in dp],
+                collectives_per_rank=dp[0]["collectives"]),
+            seconds=time.perf_counter() - t0, failures=failures)
+        emit(serve_row)
+    finally:
+        ranks.close()
+    if failures:
+        raise AssertionError(f"mesh phases failed: {failures}")
+    return gen_row, serve_row
+
+
+RANK_FLAG = "--torchrun-rank"
+
+
+def torchrun_rank(out_dir, argv):
+    """One rank of ``torchrun_one_shot``: ``jax_llama_tpu_torch.run``'s
+    ``main`` on ``argv``, as ``python -m jax_llama_tpu_torch.run`` runs
+    it, with the kernels' counts zeroed just before it; then this rank's
+    launches and flash instances go to ``out_dir/rank<RANK>.json``."""
+    sys.path.insert(0, HERE)
+    from jax_llama_tpu_torch import run
+
+    fa = importlib.import_module("jax_llama_tpu_torch.ops.flash_attention")
+    pa = importlib.import_module("jax_llama_tpu_torch.ops.paged_attention")
+    sys.argv = ["jax_llama_tpu_torch.run", *argv]
+    zero_counts(fa, pa)
+    run.main()
+    counts = dict(launches=launch_counts(fa, pa), flash_by_instance=dict(
+        fa.flash_attention.launches_by_instance))
+    with open(os.path.join(out_dir, f"rank{os.environ['RANK']}.json"),
+              "w") as f:
+        json.dump(counts, f)
+
+
+def torchrun_one_shot(argv, timeout_s=300):
+    """``python -m torch.distributed.run --nproc-per-node MESH_RANKS``
+    over ``torchrun_rank`` (``jax_llama_tpu_torch.run`` on ``argv``) from
+    the checkout: (rc, stdout, stderr's tail, wall s, each rank's counts
+    or None where a rank wrote none)."""
+    import shutil
+    import tempfile
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = HERE + (os.pathsep + env["PYTHONPATH"]
+                                if env.get("PYTHONPATH") else "")
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
+    t = time.perf_counter()
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run",
+             "--nproc-per-node", str(MESH_RANKS), "--master-port",
+             str(free_port()), os.path.abspath(__file__), RANK_FLAG,
+             out_dir, "--", *argv],
+            cwd=HERE, env=env, capture_output=True, text=True,
+            timeout=timeout_s)
+        wall = time.perf_counter() - t
+        counts = []
+        for r in range(MESH_RANKS):
+            path = os.path.join(out_dir, f"rank{r}.json")
+            counts.append(json.load(open(path)) if os.path.exists(path)
+                          else None)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    return proc.returncode, proc.stdout, proc.stderr[-2000:], wall, counts
+
+
 def rel_err(a, b) -> float:
     return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
 
@@ -6591,6 +7388,8 @@ def main() -> int:
     stock_rows = check_stock(torch, kn, gen)
     splash_rows = check_splash(torch, kn, fa, gen)
     train_rows = check_train_kernels(torch, fa, gen)
+    shard_rows = check_shard_kernels(torch, fa, pa, kn, gen,
+                                     paged_row["instance"])
 
     # Phase 3: the main path, llama3-8b width, bf16, attn_impl="auto".
     cfg = ptl.get_config("llama3-8b", param_dtype="bfloat16",
@@ -6680,6 +7479,13 @@ def main() -> int:
     profile = device_profile(torch, lambda: engine.generate(
         params, tokens, mask, config=cfg, gen_config=gc, device="cuda"))
     emit(dict(phase="generate_profile", max_new_tokens=32, **profile))
+
+    # Phase 3b: tensor and data parallelism (ROADMAP A14 part 1): two
+    # ranks on the one card, the generate phase's prompts at full width
+    # on a tensor = 2 mesh, then the serving mesh at 8 layers.
+    mesh_gen, mesh_serve_row = drive_mesh(
+        torch, ptl, fa, pa, params, cfg, tok, smi, tokens, mask, out,
+        [tok.encode(p, bos=True) for p in prompts])
 
     # Phase 4: the verify recipe's invariant -- 8 tokens decoded one at a
     # time over a 1024-slot cache give the full forward's logits -- under
@@ -6871,7 +7677,29 @@ def main() -> int:
              "router_serving": router_row["launches"],
              "router_drill": router_drill["launches"],
              "fleet_serving": fleet_row["launches"],
-             "fleet_drill": fleet_drill["launches"]}
+             "fleet_drill": fleet_drill["launches"],
+             "mesh_generate": mesh_gen["launches_per_rank"][0],
+             "mesh_serving": mesh_serve_row["tensor2"][
+                 "launches_per_rank"][0]}
+    # Each rank's launches on the mesh paths (every rank launches the
+    # same kernels on its own heads and rows).
+    mesh_paths = {
+        "mesh_generate": mesh_gen["launches_per_rank"],
+        "mesh_serving": mesh_serve_row["tensor2"]["launches_per_rank"],
+        "mesh_serving_data2": mesh_serve_row["data2"]["launches_per_rank"],
+        "checkpoint_tensor2": ckpt_row["runs"]["one_shot_tensor2"][
+            "launches_per_rank"]}
+
+    def shard_sub(name):
+        """The kernel at a tensor = 2 rank's shape (its kernel_check
+        cell) and its launches per rank on the mesh paths."""
+        row = shard_rows[name]
+        return dict({k: row[k] for k in (
+            "shape", "B", "T", "S", "H", "KVH", "G", "instance",
+            "worst_row_rel", "ms", "device_ms", "plain_ms", "library_ms",
+            "bound_ms", "bound_by") if k in row},
+            launches_per_rank={path: [r[name] for r in rows]
+                               for path, rows in mesh_paths.items()})
 
     paths_instances = {"generate": instances,
                        "serving": serve_row["instances"],
@@ -6923,7 +7751,8 @@ def main() -> int:
                    "decode"]["replaced_device_ms"]),
                cached_decode=flash_sub("cached_decode"),
                fused_chunk=flash_sub("fused_chunk", ("base",
-                                                     "lse_max_abs_err")))
+                                                     "lse_max_abs_err")),
+               tp2=shard_sub("flash_fwd"))
     fi8 = flash_int8_rows["bfloat16"]
     pi8 = paged_int8_rows["serving"]
 
@@ -7019,7 +7848,8 @@ def main() -> int:
                  library_ms=verify_rows["bfloat16"]["library_ms"],
                  device_ms=verify_rows["bfloat16"]["device_ms"],
                  instance=verify_rows["bfloat16"]["instance"],
-                 float32_ms=verify_rows["float32"]["ms"])),
+                 float32_ms=verify_rows["float32"]["ms"]),
+             tp2=shard_sub("paged_decode")),
         train_kernel("flash_bwd_dq",
                      "jax_llama_tpu/ops/flash_attention.py:1271"),
         train_kernel("flash_bwd_dkv",
@@ -7042,7 +7872,8 @@ def main() -> int:
                  "library_ms", "instance")},
              launches_by_instance=sel_row["instances"]["stock_by_instance"],
              float32_ms=stock_rows["float32"]["device_ms"],
-             float32_instance=stock_rows["float32"]["instance"]),
+             float32_instance=stock_rows["float32"]["instance"],
+             tp2=shard_sub("stock_paged")),
         dict(name="splash_prefill", route="cuda",
              source="jax_llama_tpu_torch/csrc/splash_prefill.cu",
              replaces="jax_llama_tpu/ops/kernels.py:264 (splash_prefill, "
@@ -7061,7 +7892,8 @@ def main() -> int:
              chunk={k: splash_rows["chunk_bfloat16"][k] for k in (
                  "T", "S", "chunk_offset", "ms", "device_ms", "warm_ms",
                  "plain_ms", "bound_ms", "bound_by", "library_ms",
-                 "instance")}),
+                 "instance")},
+             tp2=shard_sub("splash_prefill")),
     ]})
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
@@ -7070,4 +7902,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == [RANK_FLAG]:
+        torchrun_rank(sys.argv[2], sys.argv[4:])
+        sys.exit(0)
     sys.exit(main())

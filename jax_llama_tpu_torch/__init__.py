@@ -36,6 +36,12 @@ no GPU is present unless the caller passes ``device="cpu"``.
               csrc/flash_bwd.cu; flash_attention_quantized for int8 K/V),
               ops.paged_attention (hand-written CUDA, csrc/paged_decode.cu,
               T >= 1 query tokens per row, bf16/float32/int8 pools)
+  Parallel:   make_mesh, auto_mesh, use_mesh, constrain
+              (jax_llama_tpu_torch.parallel: one process per rank over
+              torch.distributed, weights sharded by slicing with
+              shard_params, explicit collectives; forward, generate,
+              score, LLaMA, generate_speculative and ContinuousBatcher
+              take mesh=; the serving mesh in parallel.serve_mesh)
   Selection:  KernelSpec, PREFILL_KERNELS, DECODE_KERNELS,
               resolve_prefill_kernel, resolve_decode_kernel,
               splash_eligible; the splash prefill slot
@@ -72,6 +78,7 @@ from .ops.quant import (
     quantize_kv,
     quantize_params,
 )
+from .parallel import auto_mesh, constrain, make_mesh, use_mesh
 from .server import LLMServer
 from .serving import ContinuousBatcher, init_pool
 from .spec_decode import generate_speculative
@@ -95,7 +102,8 @@ __all__ = [
     "QuantizedTensor", "quantize_params", "is_quantized", "quantize_kv",
     "generate_speculative", "KernelSpec", "PREFILL_KERNELS",
     "DECODE_KERNELS", "resolve_prefill_kernel", "resolve_decode_kernel",
-    "splash_eligible", "TrainState",
+    "splash_eligible", "make_mesh", "auto_mesh", "use_mesh", "constrain",
+    "TrainState",
     "init_train_state", "lm_loss", "make_optimizer", "train_step",
     "__version__",
 ]

@@ -116,7 +116,8 @@ class LLaMAConfig:
         if self.attn_impl not in ("xla", "flash", "ring", "auto"):
             raise ValueError(f"unknown attn_impl {self.attn_impl!r}")
         if self.attn_impl == "ring":
-            raise NotImplementedError("attn_impl='ring' is not ported yet")
+            raise NotImplementedError(
+                "attn_impl='ring' is not ported (ROADMAP A14 part 2)")
         if self.remat_policy not in ("dots", "full"):
             raise ValueError(
                 f"unknown remat_policy {self.remat_policy!r}; expected "

@@ -20,8 +20,12 @@ Saves are atomic: the checkpoint is assembled in a temp sibling
 directory, hashed, and renamed into place (a pre-existing checkpoint is
 swapped aside and removed only after the new tree has landed).  Load
 verifies every listed file's size and sha256 first, so a truncated or
-flipped shard fails before its weights are used.  Only the single-process
-save is ported; a multi-process save belongs with the mesh (ROADMAP A14).
+flipped shard fails before its weights are used.
+
+On a mesh (``load_checkpoint(..., mesh=)``) every rank maps ``params.pt``
+into memory and copies out only its own shard (``parallel.partition``'s
+specs), so no rank holds the full tree on its device.  Saving from a mesh
+(gathering the shards) is ROADMAP A14 part 2 and raises.
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ import torch
 from ..config import LLaMAConfig
 from ..models.llama import resolve_device
 from ..ops.quant import QuantizedTensor, is_quantized
+from ..parallel.partition import sharded_leaf_index, validate_tp
 
 MANIFEST_NAME = "manifest.json"
 PARAMS_NAME = "params.pt"
@@ -171,6 +176,28 @@ def _restore(tree, device: torch.device, quantized: bool):
     return tree
 
 
+def _restore_shard(tree, device: torch.device, quantized: bool, mesh,
+                   config: LLaMAConfig, path: Tuple[str, ...] = ()):
+    """``_restore`` of this rank's shard only: each leaf of the (memory-
+    mapped) saved tree is sliced by its partition spec before the copy."""
+    if isinstance(tree, dict):
+        if quantized and set(tree) == {"q", "scale"}:
+            q = tree["q"]
+            return QuantizedTensor(
+                q=q[sharded_leaf_index(mesh, config, path, q.shape)].to(
+                    device, copy=True).contiguous(),
+                scale=tree["scale"][sharded_leaf_index(
+                    mesh, config, path, tree["scale"].shape,
+                    scale_of=q.shape)].to(device, copy=True).contiguous())
+        return {k: _restore_shard(v, device, quantized, mesh, config,
+                                  path + (k,))
+                for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        idx = sharded_leaf_index(mesh, config, path, tree.shape)
+        return tree[idx].to(device, copy=True).contiguous()
+    return tree
+
+
 def _load_file(path: Path):
     try:
         return torch.load(path, map_location="cpu", mmap=True,
@@ -183,7 +210,16 @@ def save_checkpoint(path: str, params: Any, config: LLaMAConfig) -> None:
     """Write params + config to ``path``, atomically, with an integrity
     manifest (module docstring).  A quantized tree (``quantize_params``)
     round-trips: config.json's ``_quantized`` marker tells
-    ``load_checkpoint`` to rebuild its ``QuantizedTensor``s."""
+    ``load_checkpoint`` to rebuild its ``QuantizedTensor``s.  A
+    tensor-parallel shard raises: saving from a mesh (gathering the
+    shards) is ROADMAP A14 part 2."""
+    layers = params.get("layers", {}) if isinstance(params, dict) else {}
+    if "qkv" in layers and layers["qkv"].shape[-4] != config.kv_heads:
+        raise NotImplementedError(
+            f"save_checkpoint: the weights hold {layers['qkv'].shape[-4]} "
+            f"of {config.kv_heads} KV heads (a tensor-parallel shard); "
+            "saving from a mesh (gathering the shards) is not ported "
+            "(ROADMAP A14 part 2)")
     final = Path(path).absolute()
     meta = dict(dataclasses.asdict(config), _quantized=is_quantized(params))
 
@@ -226,9 +262,11 @@ def _payload(path: Path, name: str, orbax_item: str) -> Path:
 
 def load_checkpoint(
     path: str,
-    device="cuda",
+    device=None,
     *,
     verify: bool = True,
+    mesh=None,
+    fsdp: bool = False,
 ) -> Tuple[Any, LLaMAConfig]:
     """Restore (params, config) onto ``device`` ("cuda" by default; it
     raises when no GPU is present unless ``device="cpu"``).
@@ -237,7 +275,17 @@ def load_checkpoint(
     every byte of the checkpoint to hash it; ``verify=False`` skips that
     where the storage layer already guarantees integrity.  A directory
     without a manifest loads unverified.
+
+    ``mesh``: this rank's shard of the params (``parallel.shard_params``'
+    result, read leaf by leaf from the memory-mapped file) on the mesh
+    device unless ``device`` says otherwise.  ``fsdp`` sharding is
+    ROADMAP A14 part 2 and raises.
     """
+    if fsdp:
+        raise NotImplementedError(
+            "an fsdp-sharded load is not ported (ROADMAP A14 part 2)")
+    if device is None:
+        device = mesh.device if mesh is not None else "cuda"
     device = resolve_device(device)
     path = Path(path).absolute()
     if verify:
@@ -250,6 +298,9 @@ def load_checkpoint(
             "with save_checkpoint(state.params, ...)"
         )
     saved = _load_file(_payload(path, PARAMS_NAME, "params"))
+    if mesh is not None:
+        validate_tp(config, mesh)
+        return _restore_shard(saved, device, quantized, mesh, config), config
     return _restore(saved, device, quantized), config
 
 

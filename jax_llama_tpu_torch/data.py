@@ -5,7 +5,7 @@ Fixed-size [B, T] batches, greedy document packing with EOS separators
 (no padding waste) and a loss mask that excludes padding targets, as
 numpy; the behaviour, the shuffle's draws included, is the JAX
 package's.  ``to_device`` takes the place of ``shard_batch``: one card
-holds the whole batch, and meshes wait for ROADMAP A14.
+holds the whole batch; `shard_batch` over a mesh is ROADMAP A14 part 2.
 
     docs = (tok.encode(line, bos=True, eos=True) for line in corpus)
     for batch in batches(docs, batch_size=8, seq_len=2048, pad_id=0):
@@ -128,7 +128,8 @@ def to_device(batch: Batch, device="cuda", mesh: Any = None) -> Batch:
     """Copy a host batch onto ``device`` (tokens int32, loss_mask bool).
     A mesh (the JAX package's ``shard_batch``) is not ported."""
     if mesh is not None:
-        raise NotImplementedError("ROADMAP A14")
+        raise NotImplementedError(
+            "shard_batch over a mesh is not ported (ROADMAP A14 part 2)")
     device = resolve_device(device)
     return Batch(
         tokens=torch.as_tensor(batch.tokens, dtype=torch.int32, device=device),

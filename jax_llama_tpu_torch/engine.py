@@ -12,6 +12,12 @@ though its token is discarded.
 ``score`` gives per-token log-probabilities of given sequences, and
 ``window_positions`` the positions of one window of a chunked prefill
 (the serving batcher's fused prefill lane).
+
+``generate`` and ``score`` take ``mesh=`` (a ``parallel.Mesh``): every
+rank passes the same global prompts with its own weight shard and gets
+the same global result.  An ambient ``parallel.use_mesh`` without
+``mesh=`` is refused, as in the JAX package, so that a call never runs on
+a mesh it was not given.
 """
 
 from __future__ import annotations
@@ -24,6 +30,17 @@ import torch
 from .config import LLaMAConfig
 from .models.llama import _params_device, forward, init_cache, resolve_device
 from .ops.sampling import sample
+from .parallel.mesh import current_mesh, use_mesh
+
+
+def _mesh_scope(fn_name: str, mesh):
+    """``use_mesh(mesh)``, refusing an ambient mesh that the call was not
+    given (JAX ``engine.py:79-83``, ``:193-201``)."""
+    if mesh is None and current_mesh() is not None:
+        raise ValueError(
+            f"{fn_name}: pass mesh= explicitly; an ambient use_mesh(...) "
+            "context is not taken as the call's mesh")
+    return use_mesh(mesh)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,7 +90,7 @@ def window_positions(base, offset, width: int, length, device=None):
 @torch.inference_mode()
 def score(params, tokens: torch.Tensor,
           attn_mask: Optional[torch.Tensor] = None, *,
-          config: LLaMAConfig) -> torch.Tensor:
+          config: LLaMAConfig, mesh=None) -> torch.Tensor:
     """Per-token log-probabilities of given sequences (evals, perplexity;
     JAX :60).
 
@@ -87,6 +104,11 @@ def score(params, tokens: torch.Tensor,
       the query or the target is padding.  The forward resolves
       ``config.attn_impl`` as any forward does ("auto": the flash kernel
       at T > 8)."""
+    with _mesh_scope("score", mesh):
+        return _score(params, tokens, attn_mask, config)
+
+
+def _score(params, tokens, attn_mask, config):
     device = _params_device(params)
     tokens = tokens.to(device=device, dtype=torch.int32)
     B, T = tokens.shape
@@ -119,6 +141,7 @@ def generate(
     config: LLaMAConfig,
     gen_config: GenerationConfig,
     device="cuda",
+    mesh=None,
 ) -> torch.Tensor:
     """Generate up to ``max_new_tokens`` per row.
 
@@ -129,10 +152,20 @@ def generate(
       generator: torch.Generator on ``device``; required unless greedy.
       device: where the model runs; "cuda" (the default) raises when no
         GPU is present.
+      mesh: a ``parallel.Mesh`` when ``params`` is this rank's shard
+        (``parallel.shard_params``); every rank passes the same prompts
+        and generator seed and gets the same tokens.
     Returns:
       [B, P + max_new_tokens] int32 on ``device``: the prompt (padding
       kept) then the generated tokens; pad_id after a row's stop token.
     """
+    with _mesh_scope("generate", mesh):
+        return _generate(params, prompt_tokens, prompt_mask, generator,
+                         config, gen_config, device)
+
+
+def _generate(params, prompt_tokens, prompt_mask, generator, config,
+              gen_config, device):
     device = resolve_device(device)
     if _params_device(params).type != device.type:
         raise ValueError(

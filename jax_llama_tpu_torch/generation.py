@@ -5,7 +5,7 @@ padding and cut at the first stop token."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, List, Sequence
+from typing import Any, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -18,12 +18,15 @@ from .models.llama import resolve_device
 @dataclasses.dataclass
 class LLaMA:
     """Params + config + tokenizer, on ``device`` ("cuda" by default; it
-    raises when no GPU is present unless ``device="cpu"``)."""
+    raises when no GPU is present unless ``device="cpu"``).  ``mesh``: a
+    ``parallel.Mesh`` when ``params`` is this rank's shard; every rank
+    then calls the same methods with the same arguments (JAX :40)."""
 
     params: Any
     config: LLaMAConfig
     tokenizer: Any
     device: Any = "cuda"
+    mesh: Optional[Any] = None
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -66,6 +69,7 @@ class LLaMA:
             config=self.config,
             gen_config=gen_config,
             device=self.device,
+            mesh=self.mesh,
         )
         return out.cpu().numpy()
 

@@ -1129,6 +1129,7 @@ def stage_restore(
     sentinel: int,
     device="cpu",
     stream=None,
+    shardings: Optional[Dict[str, Any]] = None,
 ) -> Staged:
     """Swap-in H2D: copy the slabs into STAGING tensors on ``device``,
     one block-major plane per slab field, with ``copy_(non_blocking=
@@ -1141,20 +1142,29 @@ def stage_restore(
     ``block_ids`` are the fresh pool blocks the adoption lands in,
     padded to a pow2 bucket with ``sentinel`` (an out-of-range id: the
     adoption drops pad rows), as the JAX package pads them for its jit
-    cache.  Without a stream (a CPU pool) the copies run as called."""
+    cache.  Without a stream (a CPU pool) the copies run as called.
+
+    ``shardings`` (``parallel.serve_mesh.staging_shardings``; a serving
+    mesh) places each plane, and ``ids``, on its rank's device: each rank
+    stages its own KV-head slice of the slabs, which its own pool
+    demoted, so the adoption lands shard-local."""
     n = len(slabs)
     nb = pow2_bucket(n)
     ids = np.full((nb,), sentinel, np.int32)
     ids[:n] = list(block_ids)
     device = torch.device(device)
+
+    def where(name):
+        return device if shardings is None else shardings[name].device
+
     planes: Dict[str, torch.Tensor] = {}
     with (torch.cuda.stream(stream) if stream is not None
           else contextlib.nullcontext()):
-        ids_t = torch.from_numpy(ids).to(device)
+        ids_t = torch.from_numpy(ids).to(where("ids"))
         for name in slabs[0]:
             first = slabs[0][name]
             buf = torch.empty((nb,) + tuple(first.shape), dtype=first.dtype,
-                              device=device)
+                              device=where(name))
             for i, s in enumerate(slabs):
                 buf[i].copy_(s[name], non_blocking=stream is not None)
             planes[name] = buf
@@ -1185,7 +1195,8 @@ def adopt_into_pool(pool, staged: Staged, prefix: str = ""):
     were allocated on the side stream and are read here on the main
     one, so each is marked used by the main stream (``record_stream``):
     the caching allocator then does not hand its memory out again before
-    this scatter has run.  Returns the pool."""
+    this scatter has run.  A staged plane of another head count than the
+    pool's (a slab of another tensor width) raises.  Returns the pool."""
     main = None
     if staged.event is not None:
         main = torch.cuda.current_stream(pool.k.device)
@@ -1201,5 +1212,9 @@ def adopt_into_pool(pool, staged: Staged, prefix: str = ""):
         if name == "pos":      # [NB, BLK] <- [n, BLK]
             a[ids] = s
         else:                  # [L, KVH, NB, ...] <- [n, L, KVH, ...]
+            if s.shape[2] != a.shape[1]:
+                raise ValueError(
+                    f"adopt_into_pool: a staged {prefix + name} plane holds "
+                    f"{s.shape[2]} KV heads, the pool {a.shape[1]}")
             a[:, :, ids] = s.movedim(0, 2)
     return pool

@@ -71,7 +71,25 @@ for the write.
 the final hidden state on whichever attention path the config resolves;
 ``output_attentions=True`` forces the xla path, the only one that
 materializes the probabilities.  Ring attention and pipeline stages
-raise ``NotImplementedError``.
+raise ``NotImplementedError`` (ROADMAP A14 part 2).
+
+Tensor and data parallelism (``parallel``; one process per rank): under
+``parallel.use_mesh(mesh)`` every rank calls ``forward`` with the GLOBAL
+tokens and positions and its own shard of the weights
+(``parallel.shard_params``), and gets the GLOBAL outputs back.  Over
+``tensor`` the qkv projection is column-parallel over KV heads (each rank
+attends its H/tp query heads and KVH/tp KV heads through the same
+kernels), ``o`` and ``down`` are row-parallel and followed by an
+``all_reduce``, the embedding is vocab-sharded (a masked gather and an
+``all_reduce``) and the LM head column-parallel (an ``all_gather`` of the
+logits).  Over the row axes (``data`` x ``fsdp``) a rank runs its own
+rows when the row count divides them, and runs every row otherwise (a
+single fused-chunk row, B = 1); the outputs are all-gathered over the
+rows.  KV caches and the paged pool hold this rank's KV-head slice and
+every row, as the JAX package's pool replicates over ``data``: the new
+K/V of a row-split step are all-gathered over the rows before they land,
+so every data rank holds every row's KV.  A sharded tree without a mesh,
+or a mesh whose tensor axis does not match the tree, raises.
 
 Layout helpers (JAX :499-:580): ``rope_permute`` moves q/k features
 between Meta's interleaved RoPE order and the half-split order,
@@ -108,6 +126,14 @@ from ..ops.norm import rms_norm
 from ..ops.paged_attention import paged_decode_attention
 from ..ops.quant import QuantizedTensor, matmul, quantize_kv
 from ..ops.rope import apply_rope, rope_table
+from ..parallel.mesh import ROWS, constrain, current_mesh, local_size
+from ..parallel.partition import (
+    local_shape,
+    param_partition_specs,
+    shard_index,
+    validate_tp,
+)
+from ..parallel.serve_mesh import constrain_pool, constrain_view, fits
 
 Params = Dict[str, Any]
 
@@ -298,13 +324,15 @@ def init_cache(
 ) -> KVCache:
     """Allocate an empty cache on ``device``: int8 payload with zero
     scales when ``config.kv_cache_dtype == "int8"`` and no ``dtype`` is
-    given (JAX :434-452)."""
+    given (JAX :434-452).  Under an active mesh the cache holds this
+    rank's KV-head slice (KVH/tp heads) and every row."""
     config.validate()
     device = resolve_device(device)
     max_len = max_len or config.max_seq_len
     int8_kv = config.kv_cache_dtype == "int8" and dtype is None
     dtype = torch.int8 if int8_kv else (dtype or config.activation_dtype)
-    shape = (config.n_layers, batch, max_len, config.kv_heads, config.head_dim)
+    kvh = local_size(current_mesh(), config.kv_heads, "tensor")
+    shape = (config.n_layers, batch, max_len, kvh, config.head_dim)
 
     def scales():
         return (torch.zeros(shape[:-1], dtype=torch.float32, device=device)
@@ -327,15 +355,24 @@ def init_params(
     generator: Optional[torch.Generator] = None,
     seed: int = 0,
     device="cuda",
+    mesh=None,
 ) -> Params:
     """Random weights drawn on ``device`` from ``generator`` (or a fresh
     one seeded with ``seed``): normal with std 0.02 for the embedding and
     fan-in scaling for the projections, norms at 1 — the JAX package's
     scheme, though not its numbers (threefry and torch's generator
     differ).  Stacked weights are drawn one layer at a time, so the
-    float32 scratch stays one layer's size."""
+    float32 scratch stays one layer's size.
+
+    With ``mesh`` the result is this rank's shard (``shard_params``) of
+    the very tree drawn without one: every rank draws every slice in the
+    same order and keeps the part its shard holds, so no rank ever holds
+    the full tree."""
     config.validate()
     device = resolve_device(device)
+    if mesh is not None:
+        validate_tp(config, mesh)
+    specs = param_partition_specs(config)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(seed)
     D, H, KVH, hd, F_, V, L = (
@@ -345,33 +382,52 @@ def init_params(
     G = H // KVH
     wd = config.weight_dtype
 
-    def dense(shape, std):
-        out = torch.empty(shape, dtype=wd, device=device)
-        flat = out.view(-1, *shape[-2:]) if len(shape) > 2 else out[None]
-        for i in range(flat.shape[0]):
-            flat[i].copy_(torch.randn(
-                flat.shape[1:], generator=generator, device=device,
-                dtype=torch.float32,
-            ) * std)
+    def dense(shape, std, spec):
+        if mesh is None:
+            out = torch.empty(shape, dtype=wd, device=device)
+            flat = out.view(-1, *shape[-2:]) if len(shape) > 2 else out[None]
+            for i in range(flat.shape[0]):
+                flat[i].copy_(torch.randn(
+                    flat.shape[1:], generator=generator, device=device,
+                    dtype=torch.float32,
+                ) * std)
+            return out
+        # The same draws in the same order; each lands only where this
+        # rank's shard holds it.
+        idx = shard_index(mesh, spec, shape)
+        out = torch.empty(local_shape(mesh, spec, shape), dtype=wd,
+                          device=device)
+        lead, tail = shape[:-2], shape[-2:]
+        for mi in np.ndindex(*lead):
+            draw = torch.randn(tail, generator=generator, device=device,
+                               dtype=torch.float32)
+            if all(s.start is None or s.start <= i < s.stop
+                   for i, s in zip(mi, idx)):
+                at = tuple(i - (s.start or 0) for i, s in zip(mi, idx))
+                out[at].copy_(draw[idx[len(lead):]] * std)
         return out
 
-    def ones(shape):
+    def ones(shape, spec):
+        if mesh is not None:
+            shape = local_shape(mesh, spec, shape)
         return torch.ones(shape, dtype=wd, device=device)
 
+    ls = specs["layers"]
     params: Params = {
-        "embed": {"embedding": dense((V, D), 0.02)},
+        "embed": {"embedding": dense((V, D), 0.02,
+                                     specs["embed"]["embedding"])},
         "layers": {
-            "attn_norm": ones((L, D)),
-            "qkv": dense((L, KVH, G + 2, D, hd), D ** -0.5),
-            "o": dense((L, H, hd, D), D ** -0.5),
-            "mlp_norm": ones((L, D)),
-            "gate_up": dense((L, 2, D, F_), D ** -0.5),
-            "down": dense((L, F_, D), F_ ** -0.5),
+            "attn_norm": ones((L, D), ls["attn_norm"]),
+            "qkv": dense((L, KVH, G + 2, D, hd), D ** -0.5, ls["qkv"]),
+            "o": dense((L, H, hd, D), D ** -0.5, ls["o"]),
+            "mlp_norm": ones((L, D), ls["mlp_norm"]),
+            "gate_up": dense((L, 2, D, F_), D ** -0.5, ls["gate_up"]),
+            "down": dense((L, F_, D), F_ ** -0.5, ls["down"]),
         },
-        "final_norm": ones((D,)),
+        "final_norm": ones((D,), specs["final_norm"]),
     }
     if not config.tie_word_embeddings:
-        params["lm_head"] = dense((D, V), D ** -0.5)
+        params["lm_head"] = dense((D, V), D ** -0.5, specs["lm_head"])
     return params
 
 
@@ -544,7 +600,87 @@ def lm_head_logits(
                   * kernel.scale.reshape(-1))
     else:
         logits = matmul_f32_out(x.reshape(B * T, D), kernel)
-    return logits.reshape(B, T, -1).to(torch_dtype(config.logits_dtype))
+    logits = logits.reshape(B, T, -1).to(torch_dtype(config.logits_dtype))
+    mesh = current_mesh()
+    if mesh is not None:
+        # Column-parallel head: each tensor rank holds V/tp logits.
+        constrain(logits, None, None, "tensor",
+                  full=(None, None, config.vocab_size))
+        logits = mesh.all_gather(logits, "tensor", dim=-1)
+    return logits
+
+
+def _embed(params: Params, tokens: torch.Tensor, config: LLaMAConfig,
+           dtype: torch.dtype) -> torch.Tensor:
+    """The token embedding; over a vocab-sharded table (tensor > 1) a
+    masked gather of this rank's rows and an ``all_reduce``, which is
+    exact (one rank contributes each row, the others zeros)."""
+    table = params["embed"]["embedding"]
+    mesh = current_mesh()
+    if mesh is None or mesh.axis_size("tensor") == 1:
+        return table[tokens.long()].to(dtype)
+    constrain(table, "tensor", None, full=(config.vocab_size, None))
+    n = table.shape[0]
+    local = tokens.long() - mesh.axis_index("tensor") * n
+    hit = (local >= 0) & (local < n)
+    x = torch.where(hit[..., None], table[local.clamp(0, n - 1)].to(dtype),
+                    torch.zeros((), dtype=dtype, device=table.device))
+    return mesh.all_reduce(x, "tensor")
+
+
+@dataclasses.dataclass(frozen=True)
+class _Shard:
+    """How one forward call splits over the active mesh: ``rows`` is
+    this rank's slice of the rows when they split over the row axes
+    (None: every row runs here)."""
+
+    mesh: Any
+    rows: Optional[slice]
+
+    def take(self, t):
+        """This rank's rows of a per-row input (identity off-split).  A
+        slice that does not start on a 16-byte boundary is copied: the
+        kernels read their position and table arrays with aligned vector
+        loads and refuse a misaligned pointer."""
+        if self.rows is None or not isinstance(t, torch.Tensor):
+            return t
+        part = t[self.rows]
+        return part if part.data_ptr() % 16 == 0 else part.clone()
+
+    def view(self, t):
+        """This rank's rows of a cache plane, as a view written in place
+        (identity off-split)."""
+        if self.rows is None or t is None:
+            return t
+        return t[self.rows]
+
+    def gather(self, t: Optional[torch.Tensor], dim: int = 0):
+        """Every row's value of a per-row output (identity off-split)."""
+        if self.rows is None or t is None:
+            return t
+        return self.mesh.all_gather(t, ROWS, dim=dim)
+
+
+def _shard_ctx(params: Params, config: LLaMAConfig, n_rows: int) -> _Shard:
+    """Check the weights against the active mesh (a shard without one,
+    or a shard of another tensor width, raises) and split the rows."""
+    mesh = current_mesh()
+    kvh = params["layers"]["qkv"].shape[-4]
+    if mesh is None:
+        if kvh != config.kv_heads:
+            raise ValueError(
+                f"the weights hold {kvh} of {config.kv_heads} KV heads (a "
+                "tensor-parallel shard); run under the mesh they were "
+                "sharded for (parallel.use_mesh, or mesh=)")
+        return _Shard(None, None)
+    constrain(params["layers"]["qkv"], None, "tensor",
+              full=(None, config.kv_heads))
+    rows = mesh.axis_size(ROWS)
+    if rows > 1 and fits(mesh, config.kv_heads, n_rows):
+        b = n_rows // rows
+        i = mesh.axis_index(ROWS)
+        return _Shard(mesh, slice(i * b, (i + 1) * b))
+    return _Shard(mesh, None)
 
 
 def _proj(h: torch.Tensor, w) -> torch.Tensor:
@@ -629,6 +765,7 @@ def _block(
     cache_vs: Optional[torch.Tensor] = None,
     chunk_offset: Optional[int] = None,
     weights_out: Optional[list] = None,
+    splash: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One pre-norm transformer block, x: [B, T, D]; ``impl`` is the
     resolved attention path.  Writes this block's new K/V into
@@ -639,16 +776,23 @@ def _block(
     paged kernel (the stock-paged kernel under ``decode_kernel ==
     "stock-paged"`` at T == 1 over a full-precision pool, JAX :750-768)
     and leaves the pool to the caller's write-back.  ``chunk_offset`` (a
-    static int, the chunk's first position) lets a cached flash chunk run
-    the splash kernel where ``splash_eligible`` holds (JAX :833-855).
+    static int, the chunk's first position) is the splash kernel's causal
+    offset: a cached flash chunk runs splash when the caller found it
+    ``splash_eligible`` (``splash``; JAX :833-855).  Head counts are read
+    from the weights, so a tensor-parallel shard attends its own H/tp
+    query and KVH/tp KV heads; its ``o`` and ``down`` partial products
+    are summed over ``tensor`` (``all_reduce``).
     ``drop`` (training, cache-free) applies the layer's attention and
     residual dropout.  ``weights_out`` (a list; the xla path only)
     receives the block's attention probabilities.  Returns (x, the
     block's new K, its new V) at full precision."""
     B, T, D = x.shape
     adt = x.dtype
-    H, KVH, hd = config.n_heads, config.kv_heads, config.head_dim
-    G = H // KVH
+    hd = config.head_dim
+    G = config.n_heads // config.kv_heads
+    KVH = lp["qkv"].shape[-4]       # this rank's KV heads
+    H = KVH * G
+    mesh = current_mesh()
     softmax_dtype = torch_dtype(config.attn_softmax_dtype)
     gen = None
     if drop is not None:
@@ -710,9 +854,7 @@ def _block(
         else:
             kk, vv = k, v
         attn_rate = drop.attn_rate if drop is not None else 0.0
-        if impl == "flash" and cache_k is not None and splash_eligible(
-                config, batch=B, q_len=T, kv_len=kk.shape[1],
-                chunk_offset=chunk_offset):
+        if impl == "flash" and cache_k is not None and splash:
             # The insert's chunk offset is a static int: the chunk's
             # causal window is a static offset mask (no dropout with a
             # cache).
@@ -731,6 +873,8 @@ def _block(
                 weights_out.append(w)
 
     attn_out = matmul(attn.reshape(B * T, H * hd), lp["o"])
+    if mesh is not None:
+        mesh.all_reduce(attn_out, "tensor")   # row-parallel o
     if drop is not None and drop.resid_rate > 0.0:
         attn_out = dropout(attn_out, drop.resid_rate, gen)
     x = x + attn_out.reshape(B, T, D)
@@ -739,6 +883,8 @@ def _block(
     gate_up = _proj(h, lp["gate_up"])  # [N, 2, F]
     hidden = F.silu(gate_up[:, 0]) * gate_up[:, 1]
     down = matmul(hidden, lp["down"])
+    if mesh is not None:
+        mesh.all_reduce(down, "tensor")       # row-parallel down
     if drop is not None and drop.resid_rate > 0.0:
         down = dropout(down, drop.resid_rate, gen)
     return x + down.reshape(B, T, D), k, v
@@ -865,6 +1011,10 @@ def forward(
         raise ValueError(
             "dropout_rng is training-only; cached decode is deterministic "
             "(pass dropout_rng=None)")
+    if dropout_rng is not None and current_mesh() is not None:
+        raise NotImplementedError(
+            "training on a mesh (dropout_rng under a mesh) is not ported "
+            "(ROADMAP A14 part 2)")
     if isinstance(cache, PagedKVCache):
         if collect or output_last_hidden:
             raise NotImplementedError(
@@ -887,6 +1037,9 @@ def forward(
     attn_mask = attn_mask.to(device=device, dtype=torch.bool)
     q_positions = positions.clamp(min=0).contiguous()
     per_row = cache is not None and cache.per_row_index
+    sh = _shard_ctx(params, config, B)
+    if cache is not None:
+        constrain_view(cache, config.kv_heads)
     if cache is not None and not per_row and cache.index + T > cache.max_len:
         raise ValueError(
             f"cache overflow: index {cache.index} + {T} tokens > "
@@ -900,7 +1053,7 @@ def forward(
         config.head_dim, max_positions, config.rope_theta,
         config.use_scaled_rope, device,
     )
-    x = params["embed"]["embedding"][tokens.long()].to(adt)
+    x = _embed(params, sh.take(tokens), config, adt)
     drops = [None] * config.n_layers
     if dropout_rng is not None:
         gen = _dropout_generator(dropout_rng, device)
@@ -936,6 +1089,15 @@ def forward(
         bias_new = attention_bias(q_positions, new_slot_pos, attn_mask)
     elif impl != "flash":
         bias = attention_bias(q_positions, slot_pos, slot_pos >= 0)
+    splash = (impl == "flash" and cache is not None and splash_eligible(
+        config, batch=B, q_len=T, kv_len=cache.max_len,
+        chunk_offset=chunk_offset, quantized=cache.quantized))
+    # This rank's rows (all of them unless they split over the row axes);
+    # the cache writes of a row-split call land after the loop.
+    l_pos, l_bias, l_bias_new = (sh.take(q_positions), sh.take(bias),
+                                 sh.take(bias_new))
+    l_slot_pos = sh.take(slot_pos)
+    l_index = sh.take(cache.index) if cache is not None else None
 
     # unbind, not w[i]: its backward stacks the per-layer gradients once
     # instead of adding a zero-filled full-stack gradient per layer.
@@ -948,30 +1110,46 @@ def forward(
 
     def block(x, lp_i, drop):
         return _block(
-            x, lp_i, None, None, config=config, positions=q_positions,
-            bias=bias, slot_pos=slot_pos, cache_index=None, cos=cos, sin=sin,
-            bias_new=bias_new, impl=impl, drop=drop, weights_out=attns,
+            x, lp_i, None, None, config=config, positions=l_pos,
+            bias=l_bias, slot_pos=l_slot_pos, cache_index=None, cos=cos,
+            sin=sin, bias_new=l_bias_new, impl=impl, drop=drop,
+            weights_out=attns,
         )[0]
 
     if (config.remat and cache is None and torch.is_grad_enabled()
             and not output_attentions):
         block = _remat(block, config)
+    new_kv = []        # a row-split cached call's K/V, landed below
     for i, lp_i in enumerate(layers[:config.n_layers]):
         if output_hidden_states:
             hs.append(x)
         if cache is None:
             x = block(x, lp_i, drops[i])
             continue
-        x, _, _ = _block(
-            x, lp_i, cache.k[i], cache.v[i],
-            config=config, positions=q_positions, bias=bias,
-            slot_pos=slot_pos, cache_index=cache.index,
-            cos=cos, sin=sin, bias_new=bias_new, impl=impl,
-            cache_ks=cache.k_scale[i] if cache.quantized else None,
-            cache_vs=cache.v_scale[i] if cache.quantized else None,
-            chunk_offset=chunk_offset, weights_out=attns,
+        x, k, v = _block(
+            x, lp_i, sh.view(cache.k[i]), sh.view(cache.v[i]),
+            config=config, positions=l_pos, bias=l_bias,
+            slot_pos=l_slot_pos, cache_index=l_index,
+            cos=cos, sin=sin, bias_new=l_bias_new, impl=impl,
+            cache_ks=sh.view(cache.k_scale[i]) if cache.quantized else None,
+            cache_vs=sh.view(cache.v_scale[i]) if cache.quantized else None,
+            chunk_offset=chunk_offset, weights_out=attns, splash=splash,
         )
+        if sh.rows is not None:
+            new_kv.append((k, v))
 
+    if new_kv:
+        # Every data rank holds every row's KV: gather this step's K/V
+        # over the rows and land all of them (this rank's own rows are
+        # rewritten with the same values).
+        ks = sh.gather(torch.stack([k for k, _ in new_kv]), dim=1)
+        vs = sh.gather(torch.stack([v for _, v in new_kv]), dim=1)
+        for i in range(config.n_layers):
+            _cache_write_kv(
+                cache.k[i], cache.v[i],
+                cache.k_scale[i] if cache.quantized else None,
+                cache.v_scale[i] if cache.quantized else None,
+                ks[i], vs[i], cache.index)
     with_aux = collect or output_last_hidden
     if with_aux:
         h = rms_norm(x, params["final_norm"], config.rms_norm_eps)
@@ -979,16 +1157,38 @@ def forward(
                   if compute_logits else None)
     else:
         logits = lm_head_logits(params, x, config) if compute_logits else None
+    logits = sh.gather(logits)
     if cache is not None:
         cache.pos.copy_(slot_pos)
         cache.index = cache.index + T
     if with_aux:
+        attentions = None
+        if output_attentions:
+            attentions = torch.stack(attns)  # [L, B, H, T, S]
+            if sh.mesh is not None:
+                attentions = sh.mesh.all_gather(attentions, "tensor", dim=2)
+            attentions = sh.gather(attentions, dim=1)
         return logits, cache, AuxOutput(
-            last_hidden_state=h,
-            hidden_states=(torch.stack(hs + [h]) if output_hidden_states
-                           else None),
-            attentions=torch.stack(attns) if output_attentions else None)
+            last_hidden_state=sh.gather(h),
+            hidden_states=(sh.gather(torch.stack(hs + [h]), dim=1)
+                           if output_hidden_states else None),
+            attentions=attentions)
     return logits, cache
+
+
+def _paged_shard_check(mesh, kv_heads: int, n_rows: int) -> None:
+    """The paged and stock-paged kernels' per-shard clause (JAX
+    ``ops/paged_attention.py:451-470``, ``ops/kernels.py:614-635``): KV
+    heads divide ``tensor`` and rows divide the row axes, or the call
+    raises (a batcher's mesh is validated to fit when it is built)."""
+    if not fits(mesh, kv_heads, n_rows):
+        tp, rp = mesh.axis_size("tensor"), mesh.axis_size(ROWS)
+        raise NotImplementedError(
+            f"paged kernel sharding needs kv_heads % tensor == 0 "
+            f"and n_slots % (data*fsdp) == 0 (got KVH={kv_heads}, "
+            f"tp={tp}, B={n_rows}, rows={rp}); use a compatible mesh "
+            f"or the gathered-view path"
+        )
 
 
 def paged_forward(
@@ -1044,33 +1244,45 @@ def paged_forward(
         config.head_dim, max(2 * config.max_seq_len, MB * BLK),
         config.rope_theta, config.use_scaled_rope, device,
     )
-    x = params["embed"]["embedding"][tokens.long()].to(adt)
+    sh = _shard_ctx(params, config, B)
+    x = _embed(params, sh.take(tokens), config, adt)
     active = attn_mask[:, 0]
     if T > 1:
         steps = torch.arange(T, device=device, dtype=torch.int32)
         active = (active & (attn_mask == attn_mask[:, :1]).all(dim=1)
                   & (positions == positions[:, :1] + steps).all(dim=1))
     q_pos_row = torch.where(active, positions[:, 0], -1).to(torch.int32)
+    if sh.mesh is not None:
+        constrain_pool(cache, config.kv_heads)
+        _paged_shard_check(sh.mesh, config.kv_heads, B)
+    # This rank's rows of the table (all of them off-split).
+    local = dataclasses.replace(cache, table=sh.take(cache.table),
+                                fill=sh.take(cache.fill))
+    l_pos, l_q_pos_row = sh.take(q_positions), sh.take(q_pos_row)
 
     lp = params["layers"]
     new_k, new_v = [], []
     for i in range(config.n_layers):
         x, k, v = _block(
             x, {name: w[i] for name, w in lp.items()}, None, None,
-            config=config, positions=q_positions, bias=None, slot_pos=None,
+            config=config, positions=l_pos, bias=None, slot_pos=None,
             cache_index=None, cos=cos, sin=sin, bias_new=None, impl="paged",
-            paged=(cache, q_pos_row, i),
+            paged=(local, l_q_pos_row, i),
         )
         if write_back:
             new_k.append(k)
             new_v.append(v)
     logits = lm_head_logits(params, x, config) if compute_logits else None
+    logits = sh.gather(logits)
     if not write_back:
         return logits, cache
 
     blk, off, _ = paged_write_indices(
         cache.table, cache.fill, active, T, NB, BLK)
-    new_k, new_v = torch.stack(new_k), torch.stack(new_v)
+    # Every data rank lands every row's K/V (the pool replicates over
+    # the rows), so gather them before the write.
+    new_k = sh.gather(torch.stack(new_k), dim=1)
+    new_v = sh.gather(torch.stack(new_v), dim=1)
     if cache.quantized:
         new_k, k_s = quantize_kv(new_k)
         new_v, v_s = quantize_kv(new_v)

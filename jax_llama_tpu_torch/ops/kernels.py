@@ -39,7 +39,10 @@ wrapper counts its kernel launches (``fn.launches``) and its calls by
 instance, as the C entry point reports it (``fn.launches_by_instance``:
 ``splash_instance_name``, ``stock_instance_name``).
 
-Not ported: the mesh branches (ROADMAP A14) and the TPU tilings
+Under a mesh the kernels run per rank on that rank's heads and rows
+(the JAX package's ``shard_map`` bodies): ``splash_eligible`` carries the
+JAX mesh clauses, and the stock and paged kernels' per-shard clause is
+``models.llama._paged_shard_check``.  Not ported: the TPU tilings
 ``_splash_block_sizes`` and ``_pages_per_compute_block``.  The JAX
 package's trace-time fault hooks fire here at a library's first load
 (``ops._build.load``) and at each dispatch (the batcher's ``_fault``).
@@ -175,17 +178,22 @@ def splash_eligible(
     from the config, the shapes and the chunk's Python-int offset: the
     config selects splash, the offset is known, the cache is full
     precision, and head_dim, q_len and kv_len are multiples of 128.
-    ``batch`` is the JAX signature's (its mesh clauses use it).  The port
-    has no mesh yet: a mesh raises."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "splash_eligible under a mesh is not ported (ROADMAP A14)")
+    Under a mesh (``mesh``, else the active one) the JAX clauses hold
+    too (JAX :177-190): no seq/stage axes, ``tensor`` divides the KV
+    heads and the row axes divide ``batch`` (the global row count);
+    the kernel then runs each rank's own heads and rows."""
     if config.prefill_kernel != "splash":
         return False
     if chunk_offset is None or quantized:
         return False
     d = config.head_dim
-    return d % 128 == 0 and q_len % 128 == 0 and kv_len % 128 == 0
+    if d % 128 != 0 or q_len % 128 != 0 or kv_len % 128 != 0:
+        return False
+    from ..parallel.mesh import current_mesh
+    from ..parallel.serve_mesh import fits
+
+    return fits(mesh if mesh is not None else current_mesh(),
+                config.kv_heads, batch)
 
 
 _FNS = {}
@@ -387,8 +395,8 @@ def splash_prefill_attention(
     chunk_offset: int,
 ) -> torch.Tensor:
     """The model's entry point for the splash slot (JAX :277): the kernel
-    on one device.  The JAX package's per-shard branch under a mesh
-    comes with ROADMAP A14."""
+    on this rank's heads and rows (under a mesh, ``forward`` hands it
+    the rank's own slices: JAX's per-shard branch)."""
     return splash_prefill(q, k, v, chunk_offset=chunk_offset)
 
 
@@ -716,7 +724,8 @@ def stock_paged_decode_attention(
 ) -> torch.Tensor:
     """The model's entry point for the stock-paged slot (JAX :592), the
     drop-in twin of ``paged_decode_attention`` at T == 1 over a
-    full-precision pool: the kernel on one device.  The JAX package's
-    per-shard branch under a mesh comes with ROADMAP A14."""
+    full-precision pool: the kernel on this rank's heads and rows (under
+    a mesh, ``paged_forward`` hands it the rank's own slices, after
+    ``models.llama._paged_shard_check``: JAX's per-shard branch)."""
     return stock_paged_decode(q, k_new, v_new, k_pool, v_pool, table, q_pos,
                               layer)

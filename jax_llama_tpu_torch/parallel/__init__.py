@@ -1,0 +1,39 @@
+"""Tensor and data parallelism over ``torch.distributed`` (port of
+``jax_llama_tpu/parallel``): one process per rank, local weight shards,
+explicit collectives.  See ``mesh`` for the design; ring attention,
+pipeline stages and sharded training are ROADMAP A14 part 2."""
+
+from . import distributed, serve_mesh
+from .mesh import (
+    AXES,
+    Mesh,
+    auto_mesh,
+    constrain,
+    current_mesh,
+    logical_to_spec,
+    make_mesh,
+    use_mesh,
+)
+from .partition import (
+    param_partition_specs,
+    shard_abstract,
+    shard_params,
+    validate_tp,
+)
+
+__all__ = [
+    "distributed",
+    "serve_mesh",
+    "shard_abstract",
+    "AXES",
+    "Mesh",
+    "auto_mesh",
+    "constrain",
+    "current_mesh",
+    "logical_to_spec",
+    "make_mesh",
+    "use_mesh",
+    "param_partition_specs",
+    "shard_params",
+    "validate_tp",
+]

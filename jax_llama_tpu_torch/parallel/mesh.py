@@ -1,0 +1,315 @@
+"""Device mesh and activation-shape checks (port of
+``jax_llama_tpu/parallel/mesh.py``).
+
+The JAX package's mesh is one array of devices under a single controller;
+GSPMD turns ``constrain`` calls into collectives.  PyTorch has no GSPMD,
+so here a mesh is this PROCESS's view of a group of ranks, one rank per
+device, laid out over the same five axes:
+
+    data    data parallel (rows)
+    stage   pipeline parallel (ROADMAP A14 part 2: refused here)
+    fsdp    ZeRO-style parameter sharding (a second row axis while
+            serving; sharded training is A14 part 2)
+    seq     sequence parallel, ring attention (A14 part 2: refused here)
+    tensor  Megatron-style tensor parallel, innermost
+
+Rank r sits at ``np.arange(n).reshape(data, stage, fsdp, seq, tensor)``,
+so ``tensor`` is innermost as in the JAX layout.  Each axis of size > 1
+owns one ``torch.distributed`` process group (the ranks that differ only
+along it), the row axes ``data`` x ``fsdp`` share one more, and a gloo
+group over every rank carries host objects and host decisions.  The
+collectives the port uses are methods here: ``all_reduce`` and
+``all_gather`` of tensors (gloo has no ``reduce_scatter`` on CUDA
+tensors), ``broadcast_object`` of host objects and ``agree`` on a host
+decision; each call is counted in ``collectives`` by kind and axis.
+
+``constrain`` translates logical names as the JAX one does, but nothing
+is resharded implicitly: it checks that a local tensor has the shape the
+logical spec implies for the given global shape, and returns it.
+"""
+
+from __future__ import annotations
+
+import collections
+import contextlib
+import threading
+from typing import Any, Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from . import distributed
+
+AXES = ("data", "stage", "fsdp", "seq", "tensor")
+
+# Logical-name -> mesh-axis translation (JAX :37): the batch dimension
+# splits over both row axes.
+LOGICAL_RULES = {
+    "data": ("data", "fsdp"),
+    "fsdp": "fsdp",
+    "seq": "seq",
+    "tensor": "tensor",
+    None: None,
+}
+
+# The row axes as one group name: rows split over data x fsdp.
+ROWS = ("data", "fsdp")
+
+_local = threading.local()
+
+
+def _axes(axis) -> Tuple[str, ...]:
+    if axis is None:
+        return ()
+    return (axis,) if isinstance(axis, str) else tuple(axis)
+
+
+class Mesh:
+    """One rank's view of a ``data x stage x fsdp x seq x tensor`` mesh.
+
+    ``shape`` maps every axis in ``AXES`` to its size, ``devices[i]`` is
+    rank i's torch device and ``device`` this rank's, ``coords`` this
+    rank's index along each axis.  Built by ``make_mesh``."""
+
+    axis_names = AXES
+
+    def __init__(self, shape: Dict[str, int], devices: Sequence[torch.device],
+                 rank: int, groups: Dict[Tuple[str, ...], Any],
+                 cpu_group: Any):
+        self.shape = {a: int(shape.get(a, 1)) for a in AXES}
+        self.devices = [torch.device(d) for d in devices]
+        self.rank = int(rank)
+        self.device = self.devices[self.rank]
+        grid = np.arange(len(self.devices)).reshape(
+            [self.shape[a] for a in AXES])
+        where = np.argwhere(grid == self.rank)[0]
+        self.coords = {a: int(i) for a, i in zip(AXES, where)}
+        self._groups = groups
+        self.cpu_group = cpu_group
+        self.collectives: collections.Counter = collections.Counter()
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+    def axis_size(self, axis) -> int:
+        return int(np.prod([self.shape[a] for a in _axes(axis)] or [1]))
+
+    def axis_index(self, axis) -> int:
+        """This rank's index along ``axis`` (a name or a tuple of names,
+        the later name fastest)."""
+        idx = 0
+        for a in _axes(axis):
+            idx = idx * self.shape[a] + self.coords[a]
+        return idx
+
+    def group(self, axis):
+        key = tuple(a for a in _axes(axis) if self.shape[a] > 1)
+        return self._groups.get(key)
+
+    def __repr__(self) -> str:
+        dims = "x".join(str(self.shape[a]) for a in AXES)
+        return f"Mesh({dims}, rank={self.rank}, device={self.device})"
+
+    # -- collectives over one axis (identity where the axis is 1) ----------
+
+    def all_reduce(self, x: torch.Tensor, axis="tensor") -> torch.Tensor:
+        """Sum ``x`` over ``axis`` in place; returns it."""
+        g = self.group(axis)
+        if g is None:
+            return x
+        self.collectives[("all_reduce", _axes(axis))] += 1
+        dist.all_reduce(x, group=g)
+        return x
+
+    def all_gather(self, x: torch.Tensor, axis="tensor",
+                   dim: int = 0) -> torch.Tensor:
+        """Concatenate every rank's ``x`` along ``dim``, in the axis'
+        rank order."""
+        g = self.group(axis)
+        if g is None:
+            return x
+        self.collectives[("all_gather", _axes(axis))] += 1
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(self.axis_size(axis))]
+        dist.all_gather(parts, x, group=g)
+        return torch.cat(parts, dim=dim)
+
+    # -- host objects and host decisions (the gloo CPU group) --------------
+
+    def broadcast_object(self, obj: Any, src: int = 0) -> Any:
+        """Rank ``src``'s picklable ``obj`` on every rank."""
+        if self.size == 1:
+            return obj
+        self.collectives[("broadcast_object", AXES)] += 1
+        box = [obj]
+        dist.broadcast_object_list(box, src=src, group=self.cpu_group)
+        return box[0]
+
+    def agree(self, flag: bool) -> bool:
+        """True on every rank iff ``flag`` is true on every rank: a host
+        decision that reads a clock or a CUDA event is agreed through
+        this before it changes state that must stay identical."""
+        if self.size == 1:
+            return bool(flag)
+        self.collectives[("agree", AXES)] += 1
+        t = torch.tensor([1 if flag else 0], dtype=torch.int32)
+        dist.all_reduce(t, op=dist.ReduceOp.MIN, group=self.cpu_group)
+        return bool(t.item())
+
+    def barrier(self) -> None:
+        if self.size > 1:
+            dist.barrier(group=self.cpu_group)
+
+
+def _rank_sets(shape: Dict[str, int], axes: Tuple[str, ...]):
+    """Every set of ranks that differ only along ``axes``, in a fixed
+    order (all ranks must create the same groups in the same order)."""
+    grid = np.arange(int(np.prod([shape[a] for a in AXES]))).reshape(
+        [shape[a] for a in AXES])
+    moving = [AXES.index(a) for a in axes]
+    fixed = [i for i in range(len(AXES)) if i not in moving]
+    perm = grid.transpose(fixed + moving).reshape(
+        -1, int(np.prod([shape[a] for a in axes])))
+    return [row.tolist() for row in perm]
+
+
+def make_mesh(
+    data: int = 1,
+    stage: int = 1,
+    fsdp: int = 1,
+    seq: int = 1,
+    tensor: int = 1,
+    devices: Optional[Sequence[Any]] = None,
+) -> Mesh:
+    """Build this rank's view of a 5-axis mesh (JAX :78).  The axis
+    product must equal the number of processes in the default group
+    (``distributed.initialize``; 1 without one).  ``devices`` maps rank i
+    to a torch device: by default rank i runs on ``cuda:(i % n_gpus)``,
+    and two ranks may share one device (``["cuda:0", "cuda:0"]``), which
+    needs the gloo backend; this rank's device becomes its current CUDA
+    device.  The CPU is used only when ``devices`` names it.  ``seq > 1`` and ``stage > 1`` raise: ring attention and pipeline
+    stages are ROADMAP A14 part 2."""
+    if seq > 1 or stage > 1:
+        raise NotImplementedError(
+            f"a mesh with seq={seq} or stage={stage} > 1 (ring attention, "
+            "pipeline stages) is not ported (ROADMAP A14 part 2)")
+    shape = dict(zip(AXES, (data, stage, fsdp, seq, tensor)))
+    want = data * stage * fsdp * seq * tensor
+    world = distributed.process_count()
+    if want != world:
+        raise ValueError(
+            f"mesh {data}x{stage}x{fsdp}x{seq}x{tensor}={want} "
+            f"!= {world} processes")
+    if devices is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "make_mesh: no CUDA device is available; pass devices= "
+                "(e.g. ['cpu'] * n) to build a mesh on the CPU")
+        n_gpu = torch.cuda.device_count()
+        devices = [f"cuda:{i % n_gpu}" for i in range(want)]
+    devices = [torch.device(d) for d in devices]
+    if len(devices) != want:
+        raise ValueError(
+            f"mesh {data}x{stage}x{fsdp}x{seq}x{tensor}={want} "
+            f"!= {len(devices)} devices")
+    for d in devices:
+        if d.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                f"make_mesh: device {d} asked for, but no CUDA device is "
+                "available")
+    groups: Dict[Tuple[str, ...], Any] = {}
+    cpu_group = None
+    if want > 1:
+        if not dist.is_initialized():
+            raise RuntimeError(
+                "make_mesh: a mesh of more than one rank needs the process "
+                "group; call parallel.distributed.initialize() first")
+        live = [a for a in AXES if shape[a] > 1]
+        # One group per axis, plus the row axes together; the same calls
+        # in the same order on every rank.
+        keys = [(a,) for a in live]
+        if shape["data"] > 1 and shape["fsdp"] > 1:
+            keys.append(("data", "fsdp"))
+        for key in keys:
+            for ranks in _rank_sets(shape, key):
+                g = dist.new_group(ranks)
+                if dist.get_rank() in ranks:
+                    groups[key] = g
+        cpu_group = dist.new_group(list(range(want)), backend="gloo")
+    rank = dist.get_rank() if want > 1 else 0
+    if devices[rank].type == "cuda":
+        # The rank's device is its current one: NCCL binds a group's
+        # communicator to it.
+        torch.cuda.set_device(devices[rank])
+    return Mesh(shape, devices, rank, groups, cpu_group)
+
+
+def auto_mesh(tensor: Optional[int] = None,
+              devices: Optional[Sequence[Any]] = None) -> Mesh:
+    """Every process on the tensor axis unless told otherwise (JAX
+    :104); the rest go to ``data``."""
+    n = distributed.process_count()
+    tensor = tensor or n
+    return make_mesh(data=n // tensor, tensor=tensor, devices=devices)
+
+
+@contextlib.contextmanager
+def use_mesh(mesh: Optional[Mesh]):
+    """Activate a mesh for ``forward``, ``constrain`` and the kernels'
+    mesh clauses in this thread."""
+    prev = getattr(_local, "mesh", None)
+    _local.mesh = mesh
+    try:
+        yield mesh
+    finally:
+        _local.mesh = prev
+
+
+def current_mesh() -> Optional[Mesh]:
+    return getattr(_local, "mesh", None)
+
+
+def logical_to_spec(*logical) -> Tuple:
+    """Translate logical axis names to a spec: a tuple with one entry
+    per dimension, each None, an axis name or a tuple of axis names."""
+    return tuple(LOGICAL_RULES.get(name, name) for name in logical)
+
+
+def local_size(mesh: Optional[Mesh], full: int, axis) -> int:
+    """The local extent of a dimension of global size ``full`` sharded
+    over ``axis``; a dimension the axis does not divide replicates (the
+    serving mesh's rule for rows, JAX ``serve_mesh.constraints_apply``)."""
+    n = mesh.axis_size(axis) if mesh is not None else 1
+    return full // n if full % n == 0 else full
+
+
+def constrain(x: torch.Tensor, *logical, full: Optional[Sequence] = None
+              ) -> torch.Tensor:
+    """The JAX ``constrain`` (:132) as a check: with an active mesh and
+    ``full`` (the global shape; None entries are not checked), raise
+    unless each dimension of ``x`` has the local extent that its logical
+    axis implies; return ``x`` unchanged.  No mesh: returns ``x``."""
+    mesh = current_mesh()
+    if mesh is None or x is None or full is None:
+        return x
+    spec = logical_to_spec(*logical)
+    spec = spec + (None,) * (x.dim() - len(spec))
+    for d, (n, axis) in enumerate(zip(full, spec)):
+        if n is None:
+            continue
+        want = local_size(mesh, int(n), axis)
+        if x.shape[d] != want:
+            raise ValueError(
+                f"constrain: dimension {d} of a {tuple(x.shape)} tensor is "
+                f"{x.shape[d]}, but a global {int(n)} over {axis!r} on "
+                f"{mesh!r} is {want} locally")
+    return x
+
+
+__all__ = [
+    "AXES", "LOGICAL_RULES", "ROWS", "Mesh", "make_mesh", "auto_mesh",
+    "use_mesh", "current_mesh", "logical_to_spec", "local_size",
+    "constrain",
+]

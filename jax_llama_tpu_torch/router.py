@@ -2,8 +2,8 @@
 (port of ``jax_llama_tpu/router.py``; the JAX names are kept, so each
 part is found in both files by name).
 
-The scale-out serving subsystem's outermost layer (the in-replica
-serving mesh is ROADMAP A14): a :class:`ReplicaRouter` fronts N
+The scale-out serving subsystem's outermost layer (a replica over a
+serving mesh is ROADMAP A14 part 2): a :class:`ReplicaRouter` fronts N
 **independent** serving replicas — each an ``LLMServer`` with its own
 ``ContinuousBatcher``, KV pool and radix prefix index — and routes each
 POST to one of them:

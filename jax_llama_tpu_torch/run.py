@@ -19,6 +19,11 @@
         --replicas 2 [--route cache-aware] [--replica-roles prefill,decode] \
         [--canary-interval-s 10] [--autoscale --autoscale-max 4] ...
 
+    torchrun --nproc-per-node 2 -m jax_llama_tpu_torch.run \
+        --ckpt-dir ... --tensor 2 [--data 1] ...
+    torchrun --nproc-per-node 2 -m jax_llama_tpu_torch.run \
+        --ckpt-dir ... --serve --serve-mesh 1,2 < prompts.txt
+
 The checkpoint is the port's (``python -m jax_llama_tpu_torch.convert``
 writes one from Meta's files).  The argument parser is the JAX package's,
 so an argv that one accepts the other does too, plus ``--device`` (default
@@ -28,8 +33,21 @@ so an argv that one accepts the other does too, plus ``--device`` (default
 (``server.LLMServer``: POST /generate and /chat, GET /metrics, /healthz,
 /debug/*) run on the card, or on the CPU with ``--device cpu``; ``--http``
 never falls back to the CPU.  A flag whose feature is not ported exits
-with a message that names its ROADMAP item: ``--serve-mesh`` and a
-``--data``/``--fsdp``/``--tensor`` mesh of more than one device (A14).
+with a message that names its ROADMAP item: ``--fsdp`` > 1, and
+``--http`` or ``--replicas`` over a mesh of more than one rank (A14 part
+2).
+
+Tensor and data parallelism run one process per rank, as ``torchrun``
+starts them (``parallel.distributed.initialize`` reads its environment):
+``--tensor N`` / ``--data N`` shard the one-shot completion, and
+``--serve --serve-mesh dp,tp`` the batcher, over ``dp * tp`` ranks
+(``--tensor 0``, the default, is every rank the data axis leaves).  Each
+rank loads only its shard of the checkpoint.  Rank 0 reads stdin and
+broadcasts the prompts; only rank 0 prints.  The process group's backend
+is nccl with one rank per GPU and gloo with ``--device cpu``, and gloo
+where the ranks share the one GPU of a single-GPU host (NCCL refuses two
+ranks on one device); more ranks than GPUs on a host with several exit.
+``checkpoint_restored`` logs the backend and each rank's device.
 ``--http`` with ``--replicas`` > 1 serves N replicas on the one device
 behind ``router.ReplicaRouter`` (``--route``, ``--replica-roles``,
 ``--canary-interval-s``), as the JAX CLI does; ``--autoscale`` adds a
@@ -86,12 +104,13 @@ def main() -> None:
     ap.add_argument("--byte-tokenizer", action="store_true",
                     help="vocab-file-free byte tokenizer (smoke tests)")
     ap.add_argument("--tensor", type=int, default=0,
-                    help="tensor-parallel degree (0 = every local device, "
-                         "here the one card; > 1 is ROADMAP A14)")
+                    help="tensor-parallel degree (0 = every rank the "
+                         "data axis leaves; one rank per process, e.g. "
+                         "under torchrun)")
     ap.add_argument("--data", type=int, default=1,
-                    help="data-parallel degree (> 1 is ROADMAP A14)")
+                    help="data-parallel degree (ranks splitting the rows)")
     ap.add_argument("--fsdp", type=int, default=1,
-                    help="FSDP degree (> 1 is ROADMAP A14)")
+                    help="FSDP degree (> 1 is ROADMAP A14 part 2)")
     ap.add_argument("--prompt", action="append", default=None)
     ap.add_argument("--max-gen-len", type=int, default=256)
     ap.add_argument("--temperature", type=float, default=0.8)
@@ -132,7 +151,8 @@ def main() -> None:
     ap.add_argument("--slots", type=int, default=4,
                     help="slot-pool size for --serve")
     ap.add_argument("--serve-mesh", default=None, metavar="DP,TP",
-                    help="serving-mesh geometry (ROADMAP A14; refused)")
+                    help="serving-mesh geometry for --serve: dp x tp "
+                         "ranks (a bare TP is 1,TP); one process per rank")
     ap.add_argument("--replicas", type=int, default=1, metavar="N",
                     help="serving replicas behind one HTTP door "
                          "(router.ReplicaRouter; needs --http)")
@@ -220,12 +240,31 @@ def main() -> None:
     log = StructuredLogger(json_mode=args.log_json)
     _refuse_unported(args)
 
+    from .models.llama import resolve_device
+
+    from .parallel import distributed
+
+    ranks = _mesh_ranks(args)
+    device = resolve_device(args.device)
+    owned = not distributed.is_initialized()
+    mesh = _mesh_for(args, device, ranks)
+    if mesh is not None:
+        device = mesh.device
+    try:
+        _run(args, log, device, mesh)
+    finally:
+        if mesh is not None and owned:
+            distributed.shutdown()
+
+
+def _run(args, log, device, mesh) -> None:
+    """Everything after the mesh: load, then one-shot, ``--serve`` or
+    ``--http``; under a mesh only rank 0 prints."""
     from .convert.checkpoint import load_checkpoint
     from .generation import LLaMA
-    from .models.llama import resolve_device
     from .utils.profiling import DecodeStats, Timer
 
-    device = resolve_device(args.device)
+    rank0 = mesh is None or mesh.rank == 0
     if args.byte_tokenizer:
         from .tokenizers import ByteTokenizer
 
@@ -242,28 +281,40 @@ def main() -> None:
         tokenizer = LLaMA3Tokenizer(args.tokenizer)
 
     with Timer() as load_t:
-        params, config = load_checkpoint(args.ckpt_dir, device=device)
+        params, config = load_checkpoint(args.ckpt_dir, device=device,
+                                         mesh=mesh)
     if args.attn:
         config = config.replace(attn_impl=args.attn)
+    if args.serve_mesh is not None and mesh is not None:
+        # A clear refusal at startup beats a silently unplaced mesh.
+        from .parallel.serve_mesh import validate_serve_mesh
+
+        try:
+            validate_serve_mesh(config, mesh, args.slots)
+        except ValueError as e:
+            raise SystemExit(str(e))
     if args.quantize:
         from .ops.quant import is_quantized, quantize_params
 
         if not is_quantized(params):
             params = quantize_params(params)
-    log.log(
-        "checkpoint_restored", ckpt_dir=args.ckpt_dir, device=str(device),
-        seconds=round(load_t.elapsed_s, 1),
-    )
+    if rank0:
+        log.log(
+            "checkpoint_restored", ckpt_dir=args.ckpt_dir,
+            device=str(device), seconds=round(load_t.elapsed_s, 1),
+            mesh=str(dict(mesh.shape)) if mesh is not None else None,
+            **(_mesh_placement(mesh) if mesh is not None else {}),
+        )
 
     if args.http is not None:
         _serve_http(params, config, tokenizer, device, args, logger=log)
         return
     if args.serve:
-        _serve(params, config, tokenizer, device, args)
+        _serve(params, config, tokenizer, device, args, mesh=mesh)
         return
 
     model = LLaMA(params=params, config=config, tokenizer=tokenizer,
-                  device=device)
+                  device=device, mesh=mesh)
     prompts = args.prompt or DEFAULT_PROMPTS
 
     with Timer() as gen_t:
@@ -278,6 +329,8 @@ def main() -> None:
         prefill_s=0.0,
         decode_s=gen_t.elapsed_s,
     )
+    if not rank0:
+        return
     for p, o in zip(prompts, outs):
         print(f"\n=== {p!r}\n{o}")
     print(f"\n[{stats.summary()}] (incl. compile)")
@@ -434,13 +487,21 @@ def _refuse_unported(args) -> None:
                 "--autoscale needs 1 <= --autoscale-min <= --replicas "
                 "<= --autoscale-max"
             )
-    tensor = args.tensor or 1  # 0 = every local device: the one card
-    mesh = args.data * args.fsdp * tensor
+    if args.serve_mesh is not None and args.http is None and not args.serve:
+        raise SystemExit(
+            "--serve-mesh applies to the serving modes "
+            "(--serve / --http PORT)"
+        )
+    mesh = args.data * args.fsdp * max(1, args.tensor)
+    multi = mesh > 1 or (args.serve_mesh is not None
+                         and _serve_spec(args).n_devices > 1)
     unported = (
-        (args.serve_mesh is not None, "--serve-mesh (the serving mesh)",
-         "A14"),
-        (mesh > 1, f"a device mesh of {mesh} (--data {args.data} --fsdp "
-         f"{args.fsdp} --tensor {args.tensor})", "A14"),
+        (args.fsdp > 1, f"--fsdp {args.fsdp} (sharded training layouts)",
+         "A14 part 2"),
+        (multi and args.http is not None,
+         "--http over a mesh of more than one rank", "A14 part 2"),
+        (multi and args.replicas > 1,
+         "--replicas over a mesh of more than one rank", "A14 part 2"),
     )
     for bad, what, item in unported:
         if bad:
@@ -510,6 +571,74 @@ def _refuse_unported(args) -> None:
             raise SystemExit(f"bad fault spec: {e}")
 
 
+def _serve_spec(args):
+    from .parallel.serve_mesh import parse_serve_mesh
+
+    try:
+        return parse_serve_mesh(args.serve_mesh)
+    except ValueError as e:
+        raise SystemExit(str(e))
+
+
+def _mesh_ranks(args) -> int:
+    """The ranks the mesh flags ask for, checked against this run's
+    processes (torchrun's ``WORLD_SIZE``) before anything is loaded."""
+    world = int(os.environ.get("WORLD_SIZE",
+                               os.environ.get("JAX_NUM_PROCESSES", "1")))
+    spec = _serve_spec(args) if args.serve_mesh is not None else None
+    want = (spec.n_devices if spec is not None
+            else args.data * (args.tensor or max(1, world // args.data)))
+    if want != world:
+        raise SystemExit(
+            f"a mesh of {want} ranks needs {want} processes, this run has "
+            f"{world} (start one per rank, e.g. torchrun "
+            f"--nproc-per-node {want})")
+    return want
+
+
+def _mesh_for(args, device, ranks: int):
+    """The run's mesh (JAX :402-411, :472-500): ``--serve-mesh`` or the
+    ``--data`` x ``--tensor`` axes over the ``ranks`` processes, whose
+    group is brought up here; None for a single rank.  The backend is
+    nccl with one rank per GPU, and gloo on the CPU and where every rank
+    of this host shares its one GPU (NCCL refuses two ranks on one
+    device); more ranks than GPUs on a host with several is refused."""
+    if ranks == 1:
+        return None
+    import torch
+
+    from .parallel import distributed
+    from .parallel.mesh import make_mesh
+    from .parallel.serve_mesh import build_serve_mesh
+
+    devices = None
+    if device.type == "cpu":
+        devices = ["cpu"] * ranks
+    else:
+        local = int(os.environ.get("LOCAL_WORLD_SIZE", ranks))
+        n_gpu = torch.cuda.device_count()
+        if local > n_gpu > 1:
+            raise SystemExit(
+                f"{local} ranks on a host with {n_gpu} GPUs: run one rank "
+                "per GPU, or every rank on the one GPU of a single-GPU host")
+        if local > n_gpu:
+            devices = ["cuda:0"] * ranks
+    distributed.initialize(backend="gloo" if devices else None,
+                           device=str(device))
+    if args.serve_mesh is not None:
+        return build_serve_mesh(_serve_spec(args), devices=devices)
+    return make_mesh(data=args.data, tensor=ranks // args.data,
+                     devices=devices)
+
+
+def _mesh_placement(mesh) -> dict:
+    """The process group's backend and each rank's device, for the log."""
+    import torch.distributed as dist
+
+    return dict(backend=dist.get_backend(),
+                rank_devices=[str(d) for d in mesh.devices])
+
+
 def _chat_format_for(tokenizer):
     """The one 'is this a llama-3 chat tokenizer' test: a tokenizer with
     special tokens and an end-of-turn id gets the Llama-3 ``ChatFormat``,
@@ -523,16 +652,18 @@ def _chat_format_for(tokenizer):
     return None
 
 
-def _load_draft(args, device):
+def _load_draft(args, device, mesh=None):
     """Optional speculative-serving draft model (--draft-ckpt-dir):
-    (draft_params, draft_config) or (None, None); attn_impl follows the
-    --attn override, so both models resolve the same attention paths."""
+    (draft_params, draft_config) or (None, None), sharded over ``mesh``
+    like the target; attn_impl follows the --attn override, so both
+    models resolve the same attention paths."""
     ckpt = getattr(args, "draft_ckpt_dir", None)
     if not ckpt:
         return None, None
     from .convert.checkpoint import load_checkpoint
 
-    draft_params, draft_config = load_checkpoint(ckpt, device=device)
+    draft_params, draft_config = load_checkpoint(ckpt, device=device,
+                                                 mesh=mesh)
     if args.attn:
         draft_config = draft_config.replace(attn_impl=args.attn)
     return draft_params, draft_config
@@ -560,22 +691,28 @@ def _batcher_kwargs(args) -> dict:
     )
 
 
-def _serve(params, config, tokenizer, device, args) -> None:
-    """Continuous-batching loop over stdin prompts (one per line)."""
+def _serve(params, config, tokenizer, device, args, mesh=None) -> None:
+    """Continuous-batching loop over stdin prompts (one per line).  Under
+    a serving mesh every rank runs the same batcher: rank 0 reads stdin
+    and broadcasts the prompts, and only rank 0 prints."""
     import sys
 
     from .serving import ContinuousBatcher
 
+    rank0 = mesh is None or mesh.rank == 0
     stops = _stops(tokenizer)
-    draft_params, draft_config = _load_draft(args, device)
+    draft_params, draft_config = _load_draft(args, device, mesh)
     cb = ContinuousBatcher(
         params, config, **_batcher_kwargs(args),
         stop_tokens=stops, draft_params=draft_params,
-        draft_config=draft_config, device=device,
+        draft_config=draft_config, device=device, mesh=mesh,
     )
     rid_prompt: dict = {}
     emitted: dict = {}
-    lines = [ln.rstrip("\n") for ln in sys.stdin if ln.strip()]
+    lines = ([ln.rstrip("\n") for ln in sys.stdin if ln.strip()]
+             if rank0 else None)
+    if mesh is not None:
+        lines = mesh.broadcast_object(lines, src=0)
     for line in lines:
         try:
             rid = cb.submit(
@@ -584,13 +721,14 @@ def _serve(params, config, tokenizer, device, args) -> None:
             )
         except ValueError as e:
             # One over-long prompt must not take down the whole serve loop.
-            print(f"\n=== {line!r}\n[rejected: {e}]", flush=True)
+            if rank0:
+                print(f"\n=== {line!r}\n[rejected: {e}]", flush=True)
             continue
         rid_prompt[rid] = line
     while cb.pending():
         for rid, tok, done in cb.step():
             emitted.setdefault(rid, []).append(tok)
-            if done:
+            if done and rank0:
                 toks = emitted[rid]
                 # The batcher finishes a request at its first stop token,
                 # so a stop id can only be the terminal element.
@@ -598,7 +736,9 @@ def _serve(params, config, tokenizer, device, args) -> None:
                     toks = toks[:-1]
                 print(f"\n=== {rid_prompt[rid]!r}\n{tokenizer.decode(toks)}",
                       flush=True)
-    print(f"\nserved {len(rid_prompt)} request(s) on {args.slots} slot(s)")
+    if rank0:
+        print(f"\nserved {len(rid_prompt)} request(s) on {args.slots} "
+              f"slot(s)")
 
 
 def _serve_http(params, config, tokenizer, device, args, _test_hook=None,

@@ -56,7 +56,7 @@ Design constraints, in order:
 ``drain_remaining_s``, ``degraded``, ``quarantined``, ``kv`` (the prefix
 store, its host tier and the compact summary of its chain digest,
 ``kvcache.KvDigest``), ``overload`` (``overload.py``),
-``replica`` (``serve_mesh`` is 1 x 1 until A14) and ``features`` (one
+``replica`` (``serve_mesh``, 1 x 1 off-mesh) and ``features`` (one
 entry per degradable feature).
 
 Endpoints:
@@ -132,7 +132,8 @@ from .obs import Observability, StructuredLogger, metric_meta
 from .ops import _build
 from .ops.kernels import kernel_specs
 from .overload import CANARY, PRIORITIES, RUNG_INDEX, OverloadController
-from .serving import SERVE_MESH, ContinuousBatcher, _round_up
+from .parallel.serve_mesh import mesh_shape
+from .serving import ContinuousBatcher, _round_up
 from .utils.profiling import ProfilerSession, summarize_trace
 
 # Injection-site -> degradable-feature attribution for dispatch
@@ -1643,16 +1644,18 @@ class LLMServer:
                 "prompt_tokens_total": self.batcher.prompt_tokens_total,
             },
             "overload": self.overload.health(),
-            # The replica's occupancy (what router.ReplicaRouter reads;
-            # the serving mesh is ROADMAP A14, so the mesh is 1 x 1 and
-            # unplaced).
+            # The replica's occupancy (what router.ReplicaRouter reads);
+            # the server runs an unsharded batcher (the server over a
+            # serving mesh is ROADMAP A14 part 2), so the mesh is 1 x 1.
             "replica": {
                 "id": self.replica_id,
                 # audit: racy-read(point-in-time /healthz snapshot of
                 # loop-owned batcher occupancy; len()/sum reads are
                 # GIL-atomic, a scrape may be one step stale)
-                "serve_mesh": dict(SERVE_MESH),
-                "serve_mesh_placed": False,
+                "serve_mesh": mesh_shape(getattr(self.batcher, "mesh",
+                                                 None)),
+                "serve_mesh_placed": bool(getattr(
+                    self.batcher, "_mesh_placed", False)),
                 "active_slots": sum(
                     s is not None for s in self.batcher.slots.values()
                 ),

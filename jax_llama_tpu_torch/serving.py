@@ -125,9 +125,20 @@ in the queue.
   an import's adoption scatter ``_adopt_jit``.  With no profiler
   session a range records nothing.
 
-Not in this slice: a serving mesh raises ``NotImplementedError`` at
-construction, naming ROADMAP A14; ``stats()`` reports its counters at
-the values the JAX package reports without one.
+* The serving mesh (``mesh=``, a ``data x tensor`` ``parallel.Mesh``;
+  ``parallel.serve_mesh``): every rank builds the same batcher over its
+  own weight shard and calls the same methods with the same requests.
+  The host state (block tables, the free list, the radix index, the host
+  tier) stays identical on every rank, because every decision reads the
+  same fetched tokens, and the ones that read a CUDA event (a swap-in's
+  readiness, an import's deadline) are agreed over the mesh's CPU group
+  first.  The pools hold this rank's KV-head slice (``init_pool`` under
+  the mesh); the per-slot device twins replicate.  Each dispatch runs
+  under ``use_mesh``, so the forward splits heads over ``tensor`` and
+  rows over ``data`` and returns global outputs; every data rank lands
+  every row's K/V, so a prefix hit reads blocks another data rank
+  computed.  A mesh the kernels cannot cover is refused when the batcher
+  is built (``serve_mesh.validate_serve_mesh``).
 """
 
 from __future__ import annotations
@@ -174,6 +185,8 @@ from .models.llama import (
 )
 from .ops.attention import NEG_INF
 from .obs import CostModel, Observability
+from .parallel import serve_mesh as _smesh
+from .parallel.mesh import current_mesh, local_size, use_mesh
 from .ops.kernels import (
     DECODE_KERNELS,
     PREFILL_KERNELS,
@@ -196,12 +209,6 @@ from .spec_decode import (
 # (the row was already inactive).  Distinct from the -1 non-finite
 # sentinel: real tokens are never negative.
 _CHUNK_PAD = -2
-
-
-# The serving mesh's shape as the JAX package reports an unsharded batcher
-# (``parallel.serve_mesh.mesh_shape(None)``); the port has no mesh until
-# ROADMAP A14.
-SERVE_MESH = {"data": 1, "tensor": 1, "devices": 1}
 
 
 def _round_up(n: int, m: int) -> int:
@@ -255,15 +262,19 @@ class BlockPool:
 
 
 def init_pool(
-    config: LLaMAConfig, n_blocks: int, block_size: int, device="cuda"
+    config: LLaMAConfig, n_blocks: int, block_size: int, device="cuda",
+    mesh=None,
 ) -> BlockPool:
     """An empty pool: int8 payload and zero scale planes when
-    ``config.kv_cache_dtype == "int8"`` (JAX :263-284)."""
+    ``config.kv_cache_dtype == "int8"`` (JAX :263-284).  Under ``mesh``
+    (or the active one) it holds this rank's KV-head slice, the
+    placement ``serve_mesh.shard_pool`` gives a whole pool."""
     config.validate()
     device = resolve_device(device)
     int8_kv = config.kv_cache_dtype == "int8"
-    shape = (config.n_layers, config.kv_heads, n_blocks, block_size,
-             config.head_dim)
+    kvh = local_size(mesh if mesh is not None else current_mesh(),
+                     config.kv_heads, "tensor")
+    shape = (config.n_layers, kvh, n_blocks, block_size, config.head_dim)
     dtype = torch.int8 if int8_kv else config.activation_dtype
 
     def scales():
@@ -1119,9 +1130,8 @@ class ContinuousBatcher:
                     draft_config),
             )
         if mesh is not None:
-            raise NotImplementedError(
-                "ContinuousBatcher: mesh (serving-mesh sharding) is not "
-                "ported (ROADMAP A14)")
+            _smesh.validate_serve_mesh(config, mesh, n_slots,
+                                       draft_config=draft_config)
         for c in (config, draft_config) if spec else (config,):
             if c.attn_impl not in ("xla", "auto"):
                 raise ValueError(
@@ -1136,7 +1146,17 @@ class ContinuousBatcher:
             raise ValueError(
                 f"params live on {pdev}, the batcher was asked to run on "
                 f"{device}")
+        if mesh is not None and (mesh.device.type != pdev.type or (
+                mesh.device.index is not None
+                and mesh.device.index != pdev.index)):
+            raise ValueError(
+                f"params live on {pdev}, the mesh places this rank on "
+                f"{mesh.device}")
         self.device = pdev
+        self.mesh = mesh
+        # The canonical placement holds (validated above): pools on this
+        # rank's head slice, state rows replicated.
+        self._mesh_placed = mesh is not None
         # Kernel builds during a dispatch are booked onto the program that
         # triggered them (obs.attribute_compiles); always on, two
         # thread-local writes per dispatch.
@@ -1185,11 +1205,12 @@ class ContinuousBatcher:
         self.prefill_chunk = prefill_chunk
         self.seed = seed
         self.decode_chunk = max(1, int(decode_chunk))
-        self.pool = init_pool(config, self.n_blocks, self.block_size,
-                              device=self.device)
+        self.pool = _smesh.constrain_pool(
+            init_pool(config, self.n_blocks, self.block_size,
+                      device=self.device, mesh=mesh), config.kv_heads)
         self.draft_pool = (
             init_pool(draft_config, self.n_blocks, self.block_size,
-                      device=self.device) if spec else None)
+                      device=self.device, mesh=mesh) if spec else None)
         self.logprobs = bool(logprobs)
         # Fused prefill-decode scheduling (JAX :1926-1932): the live
         # budget, which the server's brownout rung shrinks in place.
@@ -1274,7 +1295,7 @@ class ContinuousBatcher:
         dev = self.device
 
         def twin(a):
-            return torch.from_numpy(a.copy()).to(dev)
+            return _smesh.place_rows(mesh, a.copy(), dev)
 
         self.d_table = twin(self.table)
         self.d_n_alloc = twin(self.n_alloc)
@@ -1584,19 +1605,19 @@ class ContinuousBatcher:
             "logprobs": self.logprobs,
             "use_pallas_kernel": bool(kw["use_pallas_kernel"]),
             "cost_models": self.cost_models,
-            "serve_mesh": dict(SERVE_MESH),
+            "serve_mesh": _smesh.mesh_shape(self.mesh),
         }
 
     def stats(self) -> Dict[str, float]:
         """Counters, under the JAX package's ``stats()`` names and values
         (``insert_dispatches_total`` is the port's: prefill dispatches,
-        full and suffix; a fused prefill chunk is not one).  The serving
-        mesh (A14) reports the values the JAX package reports without
-        one.  Read by HTTP handler threads while the serving loop owns
-        the batcher: each value is a point-in-time read of single-writer
-        host state (the digest under its own lock; ``_pf`` snapshotted
-        first, the loop may null it), never a device read."""
+        full and suffix; a fused prefill chunk is not one). Read by
+        HTTP handler threads while the serving loop owns the batcher:
+        each value is a point-in-time read of single-writer host state
+        (the digest under its own lock; ``_pf`` snapshotted first, the
+        loop may null it), never a device read."""
         pf = self._pf
+        shape = _smesh.mesh_shape(self.mesh)
         dg = self.kv_digest.summary()
         out: Dict[str, float] = {} if self.fault_injector is None else (
             dict(self.fault_injector.stats()))
@@ -1644,9 +1665,8 @@ class ContinuousBatcher:
             "kv_handoff_aborted_total": self.kv_handoff_aborted_total,
             "kv_export_demoted_blocks_total": (
                 self.kv_export_demoted_blocks_total),
-            # A14: no serving mesh.
-            "serve_mesh_data": 1,
-            "serve_mesh_tensor": 1,
+            "serve_mesh_data": shape["data"],
+            "serve_mesh_tensor": shape["tensor"],
             "nonfinite_rows_total": self.nonfinite_rows_total,
             "decode_chunk_size": self.decode_chunk_last,
             "decode_dispatches_total": self.decode_dispatches_total,
@@ -1722,13 +1742,14 @@ class ContinuousBatcher:
         for the next call."""
         self.last_step_features = set()
         try:
-            self._settle_inserts(wait=False)
-            self._admit()
-            if not any(s is not None for s in self.slots.values()):
-                return []
-            if self.spec:
-                return self._step_spec()
-            return self._step_chunked()
+            with use_mesh(self.mesh):
+                self._settle_inserts(wait=False)
+                self._admit()
+                if not any(s is not None for s in self.slots.values()):
+                    return []
+                if self.spec:
+                    return self._step_spec()
+                return self._step_chunked()
         except BaseException:
             # The inserts enqueued before the failure ran (a fault site
             # fires before its own dispatch enqueues anything): record
@@ -2523,11 +2544,13 @@ class ContinuousBatcher:
             fresh = self._alloc_blocks(len(todo))
             staged = stage_restore(todo, fresh, self.n_blocks,
                                    device=self.device,
-                                   stream=self._side_stream())
+                                   stream=self._side_stream(),
+                                   shardings=self._staging(todo[0]))
             if timeout_s is not None:
                 deadline = time.monotonic() + timeout_s
-                while not restore_ready(staged):
-                    if time.monotonic() >= deadline:
+                while not self._agree(restore_ready(staged)):
+                    # Any rank past the deadline aborts on every rank.
+                    if not self._agree(time.monotonic() < deadline):
                         # The staging tensors belong to the side stream:
                         # the allocator hands their memory only to later
                         # work on that stream, behind these copies.
@@ -3089,7 +3112,8 @@ class ContinuousBatcher:
             fresh = self._alloc_blocks(len(match.restore))
             staged = stage_restore(
                 [n.host for n in match.restore], fresh, self.n_blocks,
-                device=self.device, stream=self._side_stream())
+                device=self.device, stream=self._side_stream(),
+                shardings=self._staging(match.restore[0].host))
         except InjectedFault as e:
             self._store.unpin_restoring(match.restore)
             self._unclaim_blocks(resident)
@@ -3149,7 +3173,7 @@ class ContinuousBatcher:
                 self.queue.insert(0, r.req)
                 self.obs.begin_span(r.req.rid, "queued", note="swap aborted")
                 continue
-            ready = restore_ready(r.staged)
+            ready = self._agree(restore_ready(r.staged))
             if not ready and idle:
                 wait_restore(r.staged)
                 ready = True
@@ -3181,6 +3205,19 @@ class ContinuousBatcher:
                 flops=cost_fl, bytes_accessed=cost_by,
             ))
             self.obs.begin_span(r.req.rid, "queued", note="restored")
+
+    def _staging(self, slab) -> Optional[Dict[str, Any]]:
+        """Placements of a swap-in's staging planes under the mesh (each
+        rank stages its own head slice; None off-mesh)."""
+        return _smesh.staging_shardings(self.mesh, list(slab))
+
+    def _agree(self, flag: bool) -> bool:
+        """A host decision read from a clock or a CUDA event, made the
+        same on every rank of the mesh (true iff true everywhere), so the
+        host state stays identical; itself without a mesh."""
+        if self.mesh is None:
+            return bool(flag)
+        return self.mesh.agree(flag)
 
     def _admit_restored_ready(self) -> None:
         """Admit completed swap-ins as plain prefix hits (their path

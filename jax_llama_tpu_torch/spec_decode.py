@@ -133,6 +133,7 @@ def generate_speculative(
     gen_config: GenerationConfig,
     n_draft: int = 4,
     device="cuda",
+    mesh=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Speculative decode, greedy or sampled verification (JAX :64).
 
@@ -154,6 +155,9 @@ def generate_speculative(
       n_draft: draft tokens proposed per round (>= 1).
       device: where the models run; "cuda" (the default) raises when no
         GPU is present.
+      mesh: a ``parallel.Mesh`` when both trees are this rank's shards
+        (``engine.generate``'s contract; an ambient mesh without
+        ``mesh=`` is refused, JAX :111-124).
     Returns:
       (tokens [B, P + max_new_tokens] int32, the prompt then the generated
        tokens, pad_id after a row's stop token; accept_counts [B] int32,
@@ -175,11 +179,14 @@ def generate_speculative(
         raise ValueError("n_draft must be >= 1")
     if target_config.vocab_size != draft_config.vocab_size:
         raise ValueError("target and draft must share a vocabulary")
-    return _spec_impl(
-        target_params, draft_params,
-        prompt_tokens.to(device=device, dtype=torch.int32),
-        prompt_mask.to(device=device, dtype=torch.bool), generator,
-        target_config, draft_config, gc, n_draft)
+    from .engine import _mesh_scope
+
+    with _mesh_scope("generate_speculative", mesh):
+        return _spec_impl(
+            target_params, draft_params,
+            prompt_tokens.to(device=device, dtype=torch.int32),
+            prompt_mask.to(device=device, dtype=torch.bool), generator,
+            target_config, draft_config, gc, n_draft)
 
 
 def _spec_impl(tp, dp, prompt_tokens, prompt_mask, generator, tc, dc, gc, G):

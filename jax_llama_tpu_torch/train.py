@@ -243,7 +243,8 @@ def train_step(
     step).  A ``mesh`` (data/FSDP/tensor sharding) is not ported.
     """
     if mesh is not None:
-        raise NotImplementedError("ROADMAP A14")
+        raise NotImplementedError(
+            "training on a mesh is not ported (ROADMAP A14 part 2)")
     device = state.params["embed"]["embedding"].device
     gen = (step_generator(dropout_seed, state.step, device)
            if dropout_seed is not None else None)

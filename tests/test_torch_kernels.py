@@ -155,10 +155,31 @@ def test_splash_eligible_matches_jax(head_dim, prefill_kernel):
 
 
 def test_splash_eligible_under_a_mesh_raises(splash_model):
+    """The mesh refusal is lifted (A14 part 1): under a mesh the port
+    decides as JAX's mesh clauses do, geometry by geometry, and a mesh it
+    cannot cover (seq/stage, tensor not dividing the KV heads, rows not
+    dividing the batch) is refused by returning False, not by raising."""
+    from jax.sharding import Mesh as JMesh
+
+    from jax_llama_tpu_torch.parallel.mesh import AXES, Mesh
+
+    jc = splash_model[1].replace(prefill_kernel="splash")
     pc = splash_model[3].replace(prefill_kernel="splash")
-    with pytest.raises(NotImplementedError, match="A14"):
-        pk.splash_eligible(pc, batch=1, q_len=128, kv_len=128,
-                           chunk_offset=0, mesh=object())
+    devs = np.asarray(jax.devices()[:8])
+    seen = set()
+    for axes in (dict(tensor=2), dict(data=2, tensor=2), dict(tensor=8),
+                 dict(data=4), dict(seq=2, tensor=2)):
+        shape = {a: axes.get(a, 1) for a in AXES}
+        n = int(np.prod(list(shape.values())))
+        jmesh = JMesh(devs[:n].reshape([shape[a] for a in AXES]), AXES)
+        pmesh = Mesh(shape, ["cpu"] * n, 0, {}, None)
+        for batch in (1, 2, 4, 8):
+            kw = dict(batch=batch, q_len=128, kv_len=256, chunk_offset=0)
+            want = jk.splash_eligible(jc, mesh=jmesh, **kw)
+            assert pk.splash_eligible(pc, mesh=pmesh, **kw) == want, (
+                axes, batch)
+            seen.add(want)
+    assert seen == {True, False}
 
 
 @pytest.mark.parametrize("field,value", [("prefill_kernel", "nosuch"),

@@ -395,14 +395,22 @@ def test_http_replicas_autoscale_arms_the_controller(ckpts, monkeypatch,
     (["--autoscale"], "--autoscale needs router mode"),
     (["--replica-roles", "prefill,decode"],
      "--replica-roles needs --replicas >= 2"),
-    (["--serve-mesh", "1,2"], "A14"),
-    (["--tensor", "2"], "A14"),
-    (["--data", "2", "--tensor", "1"], "A14"),
+    # The serving mesh is ported (ROADMAP A14 part 1): --serve-mesh
+    # outside the serving modes is refused with the JAX CLI's message, and
+    # a mesh wider than this run's processes (one per rank, e.g. under
+    # torchrun) is refused before any load ("=" marks a port-only message:
+    # the JAX CLI builds such a mesh over its 8 virtual devices).
+    (["--serve-mesh", "1,2"], "--serve-mesh applies to the serving modes"),
+    (["--tensor", "2"], "=a mesh of 2 ranks needs 2 processes"),
+    (["--data", "2", "--tensor", "1"], "=a mesh of 2 ranks needs 2 processes"),
+    # What stays refused names A14 part 2.
+    (["--fsdp", "2"], "A14 part 2"),
+    (["--serve-mesh", "1,2", "--http", "0"], "A14 part 2"),
     # The host tier is ported (ROADMAP A11): the flag is refused only
     # off the radix index, with the JAX CLI's message.
     (["--host-kv-blocks", "1", "--prefix-index", "exact"], None),
 ], ids=["logprobs", "replicas", "autoscale", "roles",
-        "serve_mesh", "tensor", "data", "host_kv"])
+        "serve_mesh", "tensor", "data", "fsdp", "http_mesh", "host_kv"])
 def test_unported_flags_exit_naming_their_item(tmp_path, monkeypatch, argv,
                                                item):
     monkeypatch.setattr(sys, "argv", ["run", "--ckpt-dir", str(tmp_path),
@@ -412,12 +420,88 @@ def test_unported_flags_exit_naming_their_item(tmp_path, monkeypatch, argv,
              if item is None else
              "--logprobs only applies to the HTTP server" if item == "--http"
              else item if ported
+             else item[1:] if item.startswith("=")
              else f"not ported \\(ROADMAP {item}\\)")
     with pytest.raises(SystemExit, match=match):
         prun.main()
     if ported:  # JAX's CLI refuses the same argv so
         with pytest.raises(SystemExit, match=match):
             jrun.main()
+
+
+@pytest.fixture(scope="module")
+def ranks2():
+    from torch_mesh_worker import MeshPool
+
+    pool = MeshPool(2)
+    yield pool
+    pool.close()
+
+
+MESH_GREEDY = ["--max-gen-len", "8", "--temperature", "0",
+               "--byte-tokenizer", "--device", "cpu"]
+
+
+@pytest.mark.parametrize("mesh", [["--tensor", "2"],
+                                  ["--data", "2", "--tensor", "1"]],
+                         ids=["tensor", "data"])
+def test_one_shot_on_a_mesh_matches_jax_and_one_rank(
+        ckpts, monkeypatch, capsys, ranks2, mesh):
+    """run.py one-shot over two ranks (one process each, as torchrun
+    starts them): rank 0 prints the completions of the single-rank run
+    and of JAX's CLI on the same mesh over its virtual devices; rank 1
+    prints nothing."""
+    jdir, pdir, _, _, _ = ckpts
+    prompts = [a for p in PROMPTS for a in ("--prompt", p)]
+    argv = ["--ckpt-dir", str(pdir), *prompts, *MESH_GREEDY[:-2]]
+    want = _run(jrun.main, ["--ckpt-dir", str(jdir), *prompts,
+                            *MESH_GREEDY[:-2], *mesh], monkeypatch, capsys)
+    single = _run(prun.main, argv + ["--device", "cpu", "--tensor", "1"],
+                  monkeypatch, capsys)
+    out = ranks2.run("run_cli", argv=argv + ["--device", "cpu", *mesh])
+    assert out[1] == ""
+    assert "checkpoint_restored" in out[0] and "mesh=" in out[0]
+    assert ("backend=gloo rank_devices=['cpu', 'cpu']" in out[0])
+    assert _completions(out[0], "[") == _completions(single, "[") == (
+        _completions(want, "["))
+
+
+def test_serve_on_a_serving_mesh_matches_one_rank(ckpts, monkeypatch,
+                                                  capsys, ranks2):
+    """``--serve --serve-mesh 1,2``: rank 0 reads stdin and broadcasts the
+    prompts, both ranks serve them on their shards, only rank 0 prints;
+    the completions are the single-rank batcher's."""
+    _, pdir, _, _, _ = ckpts
+    stdin = "".join(p + "\n" for p in PROMPTS)
+    argv = ["--ckpt-dir", str(pdir), "--serve", "--slots", "2",
+            *MESH_GREEDY]
+    single = _run(prun.main, argv, monkeypatch, capsys, stdin)
+    out = ranks2.run("run_cli", argv=argv + ["--serve-mesh", "1,2"],
+                     stdin=stdin)
+    assert out[1] == ""
+    assert sorted(_completions(out[0], "served")) == sorted(
+        _completions(single, "served"))
+    assert out[0].splitlines()[-1] == "served 3 request(s) on 2 slot(s)"
+
+
+def test_serve_mesh_that_does_not_fit_exits(ckpts, ranks2):
+    """``--serve-mesh 2,1`` over an odd slot count exits with the
+    validation's message on every rank."""
+    _, pdir, _, _, _ = ckpts
+    with pytest.raises(AssertionError, match="must divide n_slots=3"):
+        ranks2.run("run_cli", argv=["--ckpt-dir", str(pdir), "--serve",
+                                    "--slots", "3", "--serve-mesh", "2,1",
+                                    *MESH_GREEDY])
+
+
+def test_more_ranks_than_the_gpus_of_a_multi_gpu_host_exit(monkeypatch):
+    """Ranks that outnumber a host's several GPUs are refused before the
+    process group comes up, not stacked two to a GPU; only a single-GPU
+    host shares its GPU between ranks (over gloo)."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.setenv("LOCAL_WORLD_SIZE", "4")
+    with pytest.raises(SystemExit, match="4 ranks on a host with 2 GPUs"):
+        prun._mesh_for(None, torch.device("cuda"), 4)
 
 
 @pytest.mark.parametrize("roles,route,match", [

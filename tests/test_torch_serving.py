@@ -29,6 +29,7 @@ from jax_llama_tpu.serving import _warp_rows as jax_warp_rows
 import jax_llama_tpu_torch as ptl
 from jax_llama_tpu_torch import engine as pengine
 from jax_llama_tpu_torch import serving as pserving
+from jax_llama_tpu_torch.parallel import make_mesh
 
 CFG = dict(vocab_size=128, dim=64, n_layers=2, n_heads=4, n_kv_heads=2,
            multiple_of=32, max_seq_len=128, dtype="float32",
@@ -316,10 +317,11 @@ def test_cancel_frees_the_slot_and_uploads_the_row(model):
 
 
 UNPORTED = [
-    (dict(mesh=object()), "A14"),
-    # Ported with logprobs (A17), fused prefill-decode (A9), the prefix
-    # cache and the host tier (A11): None marks a case that builds and
-    # serves.
+    # Ported with the serving mesh (A14 part 1; the sharded cases are in
+    # test_torch_serve_mesh.py), logprobs (A17), fused prefill-decode
+    # (A9), the prefix cache and the host tier (A11): None marks a case
+    # that builds and serves.  A one-rank mesh serves as no mesh does.
+    (dict(mesh=make_mesh(devices=["cpu"])), None),
     (dict(logprobs=True), None),
     (dict(prefill_budget=32), None),
     (dict(host_kv_blocks=4), None),

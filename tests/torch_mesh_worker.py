@@ -1,0 +1,578 @@
+"""Ranks for the port's mesh tests: a pool of CPU processes joined by a
+gloo process group, each running the port (never jax) on its own shard.
+
+``MeshPool(world)`` spawns ``world`` ranks once; ``pool.run(case,
+**kwargs)`` runs the function ``case`` of this module on every rank with
+the same keyword arguments (numpy arrays and plain values) and returns
+the ranks' results in rank order, raising with a rank's traceback if one
+failed.  A case builds its mesh with ``_mesh(axes)``.  This module imports
+no jax and no test module, so that the spawned ranks do not either; each
+rank checks that at start.
+"""
+
+from __future__ import annotations
+
+import os
+import socket
+import sys
+import traceback
+from typing import Any, Dict, List
+
+import numpy as np
+
+_STATE: Dict[str, Any] = {}
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+class MeshPool:
+    """``world`` spawned ranks on one gloo process group (CPU)."""
+
+    def __init__(self, world: int, timeout_s: float = 600.0):
+        import multiprocessing as mp
+
+        ctx = mp.get_context("spawn")
+        self.world = world
+        self.timeout_s = timeout_s
+        self._cmd = [ctx.Queue() for _ in range(world)]
+        self._res = ctx.Queue()
+        port = free_port()
+        self._procs = [
+            ctx.Process(target=_worker, daemon=True,
+                        args=(r, world, port, self._cmd[r], self._res))
+            for r in range(world)]
+        for p in self._procs:
+            p.start()
+        self.run("_ready")
+
+    def run(self, case: str, **kwargs) -> List[Any]:
+        import queue
+        import time
+
+        for q in self._cmd:
+            q.put((case, kwargs))
+        out: List[Any] = [None] * self.world
+        errors: List[str] = []
+        deadline = time.monotonic() + self.timeout_s
+        got = 0
+        while got < self.world:
+            try:
+                rank, ok, value = self._res.get(timeout=2)
+            except queue.Empty:
+                dead = [p.exitcode for p in self._procs if not p.is_alive()]
+                if dead or time.monotonic() > deadline:
+                    raise AssertionError(
+                        f"{case}: ranks exited {dead} or timed out; "
+                        f"errors so far: {errors}")
+                continue
+            got += 1
+            if ok:
+                out[rank] = value
+            else:
+                errors.append(f"rank {rank}:\n{value}")
+                # The other ranks may wait in a collective this one left.
+                deadline = min(deadline, time.monotonic() + 20)
+        if errors:
+            raise AssertionError("\n".join(errors))
+        return out
+
+    def close(self) -> None:
+        for q in self._cmd:
+            q.put(None)
+        for p in self._procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=10)
+
+
+def _worker(rank: int, world: int, port: int, cmd, res) -> None:
+    import torch
+
+    torch.set_num_threads(1)
+    from jax_llama_tpu_torch.parallel import distributed
+
+    distributed.initialize(f"localhost:{port}", world, rank, backend="gloo")
+    try:
+        while True:
+            item = cmd.get()
+            if item is None:
+                break
+            case, kwargs = item
+            try:
+                res.put((rank, True, globals()[case](**kwargs)))
+            except BaseException:
+                res.put((rank, False, traceback.format_exc()))
+    finally:
+        distributed.shutdown()
+
+
+# ---------------------------------------------------------------------------
+# Helpers run on the ranks
+# ---------------------------------------------------------------------------
+
+def _ready() -> Dict[str, Any]:
+    from jax_llama_tpu_torch.parallel import distributed
+
+    assert "jax" not in sys.modules, "a rank imported jax"
+    return dict(jax_loaded="jax" in sys.modules,
+                jax_package_loaded=any(m.startswith("jax_llama_tpu.")
+                                       or m == "jax_llama_tpu"
+                                       for m in sys.modules),
+                rank=distributed.process_index(),
+                world=distributed.process_count(), pid=os.getpid())
+
+
+def _mesh(axes: Dict[str, int], device: str = "cpu"):
+    """This rank's mesh of ``axes``, every rank on ``device`` (cached:
+    groups are made once per geometry, by every rank in the same
+    order)."""
+    from jax_llama_tpu_torch.parallel import make_mesh
+
+    key = (tuple(sorted(axes.items())), device)
+    if key not in _STATE:
+        n = int(np.prod(list(axes.values()) or [1]))
+        _STATE[key] = make_mesh(**axes, devices=[device] * n)
+    return _STATE[key]
+
+
+def _model(cfg: Dict[str, Any], tree):
+    import jax_llama_tpu_torch as ptl
+
+    config = ptl.get_config("tiny", **cfg)
+    return ptl.from_jax_params(tree, device="cpu"), config
+
+
+def _sharded(params, config, mesh):
+    from jax_llama_tpu_torch.parallel import shard_params
+
+    return shard_params(params, mesh, config)
+
+
+def forward(cfg, tree, axes, tokens, positions, **fw) -> Dict[str, Any]:
+    """Sharded and unsharded ``forward`` logits (and the aux outputs a
+    flag asks for) of the same inputs; the local qkv shape."""
+    import torch
+
+    import jax_llama_tpu_torch as ptl
+    from jax_llama_tpu_torch.parallel import use_mesh
+
+    params, config = _model(cfg, tree)
+    config = config.replace(**fw.pop("config", {}))
+    mesh = _mesh(axes)
+    sp = _sharded(params, config, mesh)
+    t = torch.from_numpy(tokens)
+    pos = torch.from_numpy(positions)
+    with torch.inference_mode():
+        want = ptl.forward(params, t, pos, config, **fw)
+        mesh.collectives.clear()
+        with use_mesh(mesh):
+            got = ptl.forward(sp, t, pos, config, **fw)
+    out = dict(logits=got[0].numpy(), unsharded=want[0].numpy(),
+               qkv_shape=tuple(sp["layers"]["qkv"].shape),
+               collectives={"/".join((k[0],) + k[1]): v
+                            for k, v in mesh.collectives.items()})
+    if len(got) == 3:
+        aux, waux = got[2], want[2]
+        for name in ("last_hidden_state", "hidden_states", "attentions"):
+            a, w = getattr(aux, name), getattr(waux, name)
+            if a is not None:
+                out[name] = a.numpy()
+                out[name + "_unsharded"] = w.numpy()
+    return out
+
+
+def cached_forward(cfg, tree, axes, tokens, positions, chunk) -> Dict:
+    """A prefill in chunks through a KV cache, then one decode step: the
+    sharded run's logits and its cache's local shape."""
+    import torch
+
+    import jax_llama_tpu_torch as ptl
+    from jax_llama_tpu_torch.parallel import use_mesh
+
+    params, config = _model(cfg, tree)
+    mesh = _mesh(axes)
+    sp = _sharded(params, config, mesh)
+    t = torch.from_numpy(tokens)
+    pos = torch.from_numpy(positions)
+    B, T = t.shape
+
+    def run(p, m):
+        with torch.inference_mode(), use_mesh(m):
+            cache = ptl.init_cache(config, B, max_len=T + 4, device="cpu")
+            outs = []
+            for s in range(0, T, chunk):
+                lg, cache = ptl.forward(p, t[:, s:s + chunk],
+                                        pos[:, s:s + chunk], config,
+                                        cache=cache)
+                outs.append(lg)
+            nxt = outs[-1][:, -1].argmax(-1)
+            lg, cache = ptl.forward(p, nxt[:, None].int(),
+                                    pos[:, -1:] + 1, config, cache=cache)
+            outs.append(lg)
+            return torch.cat(outs, 1).numpy(), tuple(cache.k.shape)
+
+    got, shape = run(sp, mesh)
+    want, _ = run(params, None)
+    return dict(logits=got, unsharded=want, cache_shape=shape)
+
+
+def generate(cfg, tree, axes, prompt, mask, max_new, spec=False,
+             n_draft=2) -> Dict[str, Any]:
+    """Greedy ``engine.generate`` (or ``generate_speculative`` with the
+    target as its own draft) with and without the mesh, and through
+    ``LLaMA(mesh=)``."""
+    import torch
+
+    import jax_llama_tpu_torch as ptl
+    from jax_llama_tpu_torch.engine import GenerationConfig, generate as gen
+
+    params, config = _model(cfg, tree)
+    mesh = _mesh(axes)
+    sp = _sharded(params, config, mesh)
+    gc = GenerationConfig(max_new_tokens=max_new, temperature=0.0)
+    t = torch.from_numpy(prompt)
+    m = torch.from_numpy(mask)
+    if spec:
+        def run(p, mm):
+            return ptl.generate_speculative(
+                p, p, t, m, target_config=config, draft_config=config,
+                gen_config=gc, n_draft=n_draft, device="cpu", mesh=mm)[0]
+    else:
+        def run(p, mm):
+            return gen(p, t, m, config=config, gen_config=gc, device="cpu",
+                       mesh=mm)
+    got, want = run(sp, mesh).numpy(), run(params, None).numpy()
+    llm = ptl.LLaMA(sp, config, ptl.ByteTokenizer(), device="cpu",
+                    mesh=mesh)
+    via_llama = llm.generate(prompt, mask, max_new, temperature=0.0)
+    score = ptl.score(sp, t, m, config=config, mesh=mesh).numpy()
+    return dict(tokens=got, unsharded=want, via_llama=via_llama,
+                score=score,
+                score_unsharded=ptl.score(params, t, m,
+                                          config=config).numpy())
+
+
+def ambient_mesh_refused(axes) -> str:
+    """``generate`` under an ambient ``use_mesh`` without ``mesh=``."""
+    import torch
+
+    from jax_llama_tpu_torch import get_config, init_params
+    from jax_llama_tpu_torch.engine import GenerationConfig, generate as gen
+    from jax_llama_tpu_torch.parallel import use_mesh
+
+    config = get_config("tiny", vocab_size=64, dim=32, n_layers=1,
+                        n_heads=4, n_kv_heads=2, multiple_of=32,
+                        max_seq_len=32, dtype="float32",
+                        param_dtype="float32")
+    mesh = _mesh(axes)
+    params = init_params(config, seed=0, device="cpu", mesh=mesh)
+    t = torch.ones((2, 3), dtype=torch.int32)
+    try:
+        with use_mesh(mesh):
+            gen(params, t, t > 0, config=config,
+                gen_config=GenerationConfig(max_new_tokens=2,
+                                            temperature=0.0), device="cpu")
+    except ValueError as e:
+        return str(e)
+    return ""
+
+
+def init_params_shard(cfg, axes, seed) -> bool:
+    """``init_params(mesh=)`` equals ``shard_params`` of the tree drawn
+    without a mesh, leaf for leaf."""
+    import torch
+
+    import jax_llama_tpu_torch as ptl
+
+    config = ptl.get_config("tiny", **cfg)
+    mesh = _mesh(axes)
+    full = ptl.init_params(config, seed=seed, device="cpu")
+    a = _sharded(full, config, mesh)
+    b = ptl.init_params(config, seed=seed, device="cpu", mesh=mesh)
+
+    def leaves(t):
+        return ([x for v in t.values() for x in leaves(v)]
+                if isinstance(t, dict) else [t])
+
+    return all(torch.equal(x, y) for x, y in zip(leaves(a), leaves(b)))
+
+
+def load_checkpoint_shard(cfg, tree, axes, path) -> Dict[str, Any]:
+    """Rank 0 saves the full tree; every rank loads its shard from the
+    file and checks it against ``shard_params``; saving a tensor-parallel
+    shard is refused."""
+    import torch
+
+    from jax_llama_tpu_torch.convert import load_checkpoint, save_checkpoint
+
+    params, config = _model(cfg, tree)
+    mesh = _mesh(axes)
+    if mesh.rank == 0:
+        save_checkpoint(path, params, config)
+    mesh.barrier()
+    got, _ = load_checkpoint(path, mesh=mesh)
+    want = _sharded(params, config, mesh)
+
+    def leaves(t):
+        return ([x for v in t.values() for x in leaves(v)]
+                if isinstance(t, dict) else [t])
+
+    same = all(torch.equal(x, y) for x, y in zip(leaves(got), leaves(want)))
+    try:
+        save_checkpoint(path + "_again", got, config)
+        refused = ""
+    except NotImplementedError as e:
+        refused = str(e)
+    mesh.barrier()
+    return dict(same=same, refused=refused,
+                qkv=tuple(got["layers"]["qkv"].shape))
+
+
+def serve(cfg, tree, axes, scenario, **cb_kw) -> Dict[str, Any]:
+    """A serving scenario (``SCENARIOS``) on this rank's shard under the
+    mesh (``axes``; {} for the unsharded batcher), with the host state a
+    rank must share: block tables, the free list, the radix digest."""
+    params, config = _model(cfg, tree)
+    mesh = _mesh(axes) if axes else None
+    p = _sharded(params, config, mesh) if mesh is not None else params
+    spec = cb_kw.pop("self_draft", False)
+    if spec:
+        cb_kw.update(draft_params=p, draft_config=config)
+    return SCENARIOS[scenario](p, config, mesh, **cb_kw)
+
+
+def _batcher(params, config, mesh, **kw):
+    from jax_llama_tpu_torch.serving import ContinuousBatcher
+
+    return ContinuousBatcher(params, config, mesh=mesh, device="cpu", **kw)
+
+
+def _host_state(cb) -> Dict[str, Any]:
+    # The digest's epoch is a per-store random token; the rest (the
+    # chains' hash, node and block counts, versions) must agree.
+    digest = (cb.kv_digest.summary() if cb.kv_digest is not None
+              else {})
+    digest.pop("epoch", None)
+    return dict(table=cb.table.tolist(), free=sorted(cb.free_blocks),
+                digest=digest, stats={k: v for k, v in cb.stats().items()
+                                      if not k.endswith("_ms")
+                                      and "ms_" not in k},
+                pool_k=tuple(cb.pool.k.shape),
+                placed=bool(getattr(cb, "_mesh_placed", False)),
+                describe_mesh=cb.describe()["serve_mesh"])
+
+
+def _drain(cb, rids, logprobs, steps=None):
+    toks: Dict[int, List[int]] = {}
+    lps: Dict[int, List[float]] = {}
+    n = 0
+    while cb.pending() and (steps is None or n < steps):
+        n += 1
+        assert n < 500
+        for ev in cb.step():
+            toks.setdefault(ev[0], []).append(ev[1])
+            if logprobs:
+                lps.setdefault(ev[0], []).append(ev[3])
+    return toks, lps
+
+
+def _scenario_chunks(params, config, mesh, prefill_budget=0,
+                     logprobs=False, fused_admission=False, **kw):
+    """The JAX ``test_serve_mesh._serve`` mix: a greedy request stopping
+    mid-chunk and a seeded sampled one, 2 slots, decode_chunk 2, then a
+    40-token prompt admitted mid-decode (the fused lane at a prefill
+    budget, a classic insert without)."""
+    rng = np.random.RandomState(7)
+    prompts = [rng.randint(1, 128, size=n).tolist() for n in (5, 9)]
+    policies = [dict(max_new_tokens=4),
+                dict(max_new_tokens=6, temperature=0.9, seed=11)]
+    cb = _batcher(params, config, mesh, n_slots=2, max_len=128,
+                  decode_chunk=2, prefill_budget=prefill_budget,
+                  logprobs=logprobs, **kw)
+    rids = [cb.submit(p, **pol) for p, pol in zip(prompts, policies)]
+    toks, lps = _drain(cb, rids, logprobs, steps=2)
+    if fused_admission:
+        long = rng.randint(1, 128, size=40).tolist()
+        rids.append(cb.submit(long, max_new_tokens=3, seed=99))
+    more_t, more_l = _drain(cb, rids, logprobs)
+    for r, t in more_t.items():
+        toks.setdefault(r, []).extend(t)
+    for r, lp in more_l.items():
+        lps.setdefault(r, []).extend(lp)
+    return dict(tokens=[toks[r] for r in rids],
+                logprobs=[lps.get(r) for r in rids],
+                fused=cb.fused_admissions_total,
+                prefill_chunks=cb.prefill_chunks_total,
+                decode_dispatches=cb.decode_dispatches_total,
+                **_host_state(cb))
+
+
+def _scenario_spec(params, config, mesh, **kw):
+    """The JAX ``test_sharded_spec_chunk_parity`` mix: 4 slots, 2 spec
+    rounds a step, n_draft 2, a greedy and a sampled request."""
+    cb = _batcher(params, config, mesh, n_slots=4, max_len=128,
+                  decode_chunk=1, spec_rounds=2, n_draft=2, **kw)
+    rids = [cb.submit([5, 17, 99, 3, 42], max_new_tokens=6),
+            cb.submit([7, 8, 9], max_new_tokens=5, temperature=0.8,
+                      seed=13)]
+    toks, _ = _drain(cb, rids, False)
+    return dict(tokens=[toks[r] for r in rids],
+                acceptance=cb.acceptance_rate(), **_host_state(cb))
+
+
+def _scenario_host_tier(params, config, mesh, **kw):
+    """The JAX ``test_sharded_host_tier_restore_on_mesh`` drill: serve,
+    demote the chain into the host tier, serve the same prompt again
+    (the swap-in restores through the staging planes)."""
+    prompt = np.random.RandomState(5).randint(1, 128, 50).tolist()
+    cb = _batcher(params, config, mesh, n_slots=4, max_len=128,
+                  block_size=16, decode_chunk=4, host_kv_blocks=16, **kw)
+
+    def once():
+        r = cb.submit(prompt, max_new_tokens=5, seed=7)
+        return _drain(cb, [r], False)[0][r]
+
+    first = once()
+    demoted = cb.demote_idle(8)
+    host = cb._store.host_blocks()
+    second = once()
+    return dict(tokens=[first, second], demoted=demoted, host=host,
+                swap_in_blocks=cb.swap_in_blocks_total, **_host_state(cb))
+
+
+def _scenario_prefix(params, config, mesh, **kw):
+    """Two prompts admitted together (one insert of 2 rows: under data = 2
+    each data rank computes one row), then a prompt that extends the
+    second: a prefix hit on blocks the other data rank computed."""
+    rng = np.random.RandomState(3)
+    a = rng.randint(1, 128, 40).tolist()
+    b = rng.randint(1, 128, 40).tolist()
+    cb = _batcher(params, config, mesh, n_slots=2, max_len=128,
+                  block_size=16, decode_chunk=2, **kw)
+    first = [cb.submit(a, max_new_tokens=4), cb.submit(b, max_new_tokens=4)]
+    toks, _ = _drain(cb, first, False)
+    r = cb.submit(b[:32] + rng.randint(1, 128, 9).tolist(), max_new_tokens=5)
+    more, _ = _drain(cb, [r], False)
+    toks.update(more)
+    return dict(tokens=[toks[x] for x in first + [r]],
+                hits=cb.prefix_requests_hit,
+                reused=cb.prefix_blocks_reused, **_host_state(cb))
+
+
+def _scenario_placement(params, config, mesh, **kw):
+    """Pool and state shapes before and after dispatches (the port's
+    placement: the pool's local head slice, replicated state rows)."""
+    cb = _batcher(params, config, mesh, n_slots=2, max_len=128,
+                  decode_chunk=2, **kw)
+
+    def shapes():
+        return dict(k=(tuple(cb.pool.k.shape), str(cb.pool.k.device)),
+                    pos=tuple(cb.pool.pos.shape),
+                    fill=tuple(cb.d_fill.shape),
+                    table=tuple(cb.d_table.shape), tau=tuple(cb.tau.shape))
+
+    cb.submit([5, 17, 99, 3, 42], max_new_tokens=6)
+    cb.step()
+    first = shapes()
+    while cb.pending():
+        cb.step()
+    return dict(first=first, after=shapes(), **_host_state(cb))
+
+
+SCENARIOS = {
+    "chunks": _scenario_chunks,
+    "spec": _scenario_spec,
+    "host_tier": _scenario_host_tier,
+    "prefix": _scenario_prefix,
+    "placement": _scenario_placement,
+}
+
+
+def forward_on_card(cfg, axes, seed, B, T) -> Dict[str, Any]:
+    """Every rank on cuda:0 (gloo): the seed's tree drawn as this rank's
+    shard and whole, then the same prompts through the sharded and the
+    unsharded forward (flash prefill) and greedy generate, with the flash
+    kernel's launches of the sharded run."""
+    import importlib
+
+    import torch
+
+    import jax_llama_tpu_torch as ptl
+    from jax_llama_tpu_torch.engine import GenerationConfig, generate as gen
+    from jax_llama_tpu_torch.parallel import use_mesh
+
+    torch.cuda.set_device(0)
+    fa = importlib.import_module("jax_llama_tpu_torch.ops.flash_attention")
+    config = ptl.get_config("tiny", **cfg)
+    mesh = _mesh(axes, "cuda:0")
+    full = ptl.init_params(config, seed=seed, device="cuda")
+    sp = ptl.init_params(config, seed=seed, device="cuda", mesh=mesh)
+    rng = np.random.RandomState(seed)
+    t = torch.from_numpy(rng.randint(0, config.vocab_size, (B, T))).cuda()
+    pos = torch.arange(T, device="cuda", dtype=torch.int32)[None].repeat(
+        B, 1)
+    with torch.inference_mode():
+        want = ptl.forward(full, t, pos, config)[0].float()
+        fa.flash_attention.launches = 0
+        with use_mesh(mesh):
+            got = ptl.forward(sp, t, pos, config)[0].float()
+        launches = fa.flash_attention.launches
+    gc = GenerationConfig(max_new_tokens=8, temperature=0.0)
+    mask = torch.ones_like(t, dtype=torch.bool)
+    return dict(
+        rel=((got - want).abs().max() / want.abs().max()).item(),
+        launches=launches, kvh=int(sp["layers"]["qkv"].shape[1]),
+        tokens=gen(sp, t, mask, config=config, gen_config=gc,
+                   device="cuda", mesh=mesh).cpu().numpy(),
+        unsharded=gen(full, t, mask, config=config, gen_config=gc,
+                      device="cuda").cpu().numpy())
+
+
+def run_cli(argv, stdin="") -> str:
+    """``python -m jax_llama_tpu_torch.run *argv`` on this rank, as
+    torchrun would start it (``WORLD_SIZE`` set; the process group is
+    this pool's): what the rank printed to stdout."""
+    import contextlib
+    import io
+
+    from jax_llama_tpu_torch import run as prun
+    from jax_llama_tpu_torch.parallel import distributed
+
+    saved = sys.argv, sys.stdin, os.environ.get("WORLD_SIZE")
+    out = io.StringIO()
+    os.environ["WORLD_SIZE"] = str(distributed.process_count())
+    sys.argv, sys.stdin = ["run", *argv], io.StringIO(stdin)
+    try:
+        with contextlib.redirect_stdout(out):
+            prun.main()
+    finally:
+        sys.argv, sys.stdin = saved[:2]
+        os.environ.pop("WORLD_SIZE")
+        if saved[2] is not None:
+            os.environ["WORLD_SIZE"] = saved[2]
+    return out.getvalue()
+
+
+def serve_mesh_checks(cfg, axes) -> Dict[str, Any]:
+    """``build_serve_mesh`` over the pool's ranks and the refusals a
+    batcher gives a mesh it cannot serve."""
+    import jax_llama_tpu_torch as ptl
+    from jax_llama_tpu_torch.parallel import serve_mesh as smesh
+
+    config = ptl.get_config("tiny", **cfg)
+    spec = smesh.ServeMeshSpec(axes.get("data", 1), axes.get("tensor", 1))
+    mesh = smesh.build_serve_mesh(spec, devices=["cpu"] * spec.n_devices)
+    out = dict(shape=smesh.mesh_shape(mesh),
+               placement_ok=smesh.placement_ok(config, mesh, 4))
+    params = ptl.init_params(config, seed=0, device="cpu", mesh=mesh)
+    try:
+        _batcher(params, config, mesh, n_slots=3, max_len=64)
+        out["odd_slots"] = ""
+    except ValueError as e:
+        out["odd_slots"] = str(e)
+    return out
