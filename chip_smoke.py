@@ -474,8 +474,9 @@ The replica router (ROADMAP A12 part 1) adds two phases after
   ``--replicas 2 --route cache-aware --http 0``: two replicas on the one
   loaded tree, two /generate replies equal to the single server's, one on
   each replica, launches as their dispatch records imply.
-* ``router_serving``: llama3-8b at full width (32 layers, bf16, the
-  phase-3 weights), two ``LLMServer`` replicas on the one weight copy
+* ``router_serving``: llama3-8b at full width (FLEET_LAYERS = 16 of the
+  phase-3 weights' layers, bf16), two ``LLMServer`` replicas on the one
+  weight copy
   (8 slots, max_len 2048, blocks of 128, the ``run.py --http`` defaults:
   prefill budget 512, radix prefix cache) behind
   ``ReplicaRouter(policy="cache-aware")`` with manual health polls and
@@ -530,7 +531,7 @@ yardstick ran (``library_kernels``, through
   ceiling 3, a 0.05 s period): /debug/fleet shows the armed controller
   with those bounds, which scaled nothing.
 * ``fleet_serving``: router_serving's geometry (llama3-8b at full width,
-  the phase-3 weights, two replicas) with a ``FleetController``
+  FLEET_LAYERS deep, two replicas) with a ``FleetController``
   (``interval_s=0``, driven by ``tick()``; floor 2, ceiling 3; dwell and
   cooldown 0; ``queue_wait_high_ms`` FLEET_QUEUE_WAIT_HIGH_MS).  Two
   tenants' 24 chats arrive together (16 slots) and, while they are
@@ -1917,13 +1918,15 @@ def train_kernel_errors(torch, fa, args, rate, seed):
     return errs, finite, out, lse
 
 
-def check_train_kernels(torch, fa, gen):
-    """kernel_check at the training shape, without and with dropout, and
-    the float32 path on a smaller shape."""
+def check_train_kernels(torch, fa, gen, shape_name="train",
+                        shape=TRAIN_SHAPE, f32=True):
+    """kernel_check at the training shape (``shape_name``: "train", or
+    "tp2_train", a tensor = 2 rank's heads), without and with dropout,
+    and (``f32``) the float32 path on a smaller shape."""
     import torch.nn.functional as F
 
     rows = {}
-    args = train_kernel_inputs(torch, gen, torch.bfloat16, **TRAIN_SHAPE)
+    args = train_kernel_inputs(torch, gen, torch.bfloat16, **shape)
     q, k, v, g, q_pos, kv_pos = args
     bounds = train_kernel_bounds(torch, q, k, q_pos, kv_pos)
     wrappers = {"flash_fwd": fa.flash_attention,
@@ -2001,8 +2004,8 @@ def check_train_kernels(torch, fa, gen):
             keys = ("out", "lse") if fwd else (
                 ("dq",) if name == "flash_bwd_dq" else ("dk", "dv"))
             row = dict(
-                phase="kernel_check", kernel=name, shape="train",
-                dropout=rate, **TRAIN_SHAPE, dtype="bfloat16",
+                phase="kernel_check", kernel=name, shape=shape_name,
+                dropout=rate, **shape, dtype="bfloat16",
                 err={key: errs[key] for key in keys},
                 err_is=TRAIN_ERR_IS, bound={key: TRAIN_BOUNDS[key]
                                             for key in keys},
@@ -2021,8 +2024,8 @@ def check_train_kernels(torch, fa, gen):
                 instance=instance[name], device_ms=device_ms[name],
                 device_roofline_share=(bounds[name][0] / device_ms[name]
                                        if device_ms[name] else None),
-                earlier_ms=EARLIER_MS[(
-                    name, "train_dropout" if rate else "train")],
+                earlier_ms=EARLIER_MS.get((
+                    name, f"{shape_name}_dropout" if rate else shape_name)),
                 earlier_is=EARLIER_IS,
             )
             emit(row)
@@ -2034,21 +2037,24 @@ def check_train_kernels(torch, fa, gen):
             q.dtype, q.shape[3], q.shape[1], k.shape[1])
         if bad or not finite or instance != want:
             raise AssertionError(
-                f"train kernels ({label}): {errs} against {TRAIN_BOUNDS}, "
-                f"finite {finite}, instances {instance} (expected {want})")
+                f"{shape_name} kernels ({label}): {errs} against "
+                f"{TRAIN_BOUNDS}, finite {finite}, instances {instance} "
+                f"(expected {want})")
+    if not f32:
+        return rows
 
     # The float32 path, smaller shape.
-    f32 = {}
+    f32_errs = {}
     args = train_kernel_inputs(torch, gen, torch.float32, **TRAIN_F32_SHAPE)
     for rate in (0.0, TRAIN_DROPOUT):
         seed = TRAIN_SEED_WORDS if rate else None
         errs, finite, _, _ = train_kernel_errors(torch, fa, args, rate, seed)
-        f32["dropout" if rate else "no_dropout"] = dict(errs, finite=finite)
+        f32_errs["dropout" if rate else "no_dropout"] = dict(errs, finite=finite)
     emit(dict(phase="kernel_check", kernel="flash_fwd+flash_bwd_dq+"
               "flash_bwd_dkv", shape="train_f32", **TRAIN_F32_SHAPE,
-              dtype="float32", err=f32, err_is=TRAIN_ERR_IS,
+              dtype="float32", err=f32_errs, err_is=TRAIN_ERR_IS,
               bound=F32_KERNEL_BOUND))
-    for label, errs in f32.items():
+    for label, errs in f32_errs.items():
         if not (errs.pop("finite")
                 and all(e < F32_KERNEL_BOUND for e in errs.values())):
             raise AssertionError(f"float32 train kernels ({label}): {errs}")
@@ -5518,6 +5524,10 @@ def drive_fused_invariant(torch, np, ptl, engine, fa, pa, params, cfg, tok,
 # The replica router (ROADMAP A12 part 1): router_serving at llama3-8b's
 # full width, router_drill at DECODE_DEPTH layers in float32 activations.
 ROUTER_SLOTS = 8         # slots of each replica
+# router_serving's and fleet_serving's depth: full width, half the
+# layers (their host-bound decode scales with the layers; 32 took
+# 79-125 s in router_serving alone, on the run's time limit).
+FLEET_LAYERS = 16
 ROUTER_NEW = 32          # new tokens per tenant request
 ROUTER_REVISITS = 3      # wave 2: concurrent revisits per tenant
 ROUTER_LONG = 8          # long generations that fill the spilling holder
@@ -5614,7 +5624,8 @@ def replica_times_ms(router, rid):
 
 def drive_router_serving(torch, np, ptl, fa, pa, params, cfg, tok, smi):
     """Phase ``router_serving``: two replicas of llama3-8b at full width
-    (32 layers, bf16, the phase-3 weights, one copy on the card) behind
+    (``cfg.n_layers`` deep, bf16, the phase-3 weights, one copy on the
+    card) behind
     the cache-aware router, serving two tenants' chats (module
     docstring)."""
     import threading
@@ -6110,7 +6121,8 @@ def timed(fn):
 
 def drive_fleet_serving(torch, np, ptl, fa, pa, params, cfg, tok, smi):
     """Phase ``fleet_serving``: two replicas of llama3-8b at full width
-    (the phase-3 weights, one copy on the card) at router_serving's
+    (``cfg.n_layers`` deep, the phase-3 weights, one copy on the card) at
+    router_serving's
     geometry behind the cache-aware router, with a ``FleetController``
     driven by ``tick()`` (module docstring)."""
     import gc
@@ -6948,8 +6960,21 @@ def mesh_cell_serve_dp(torch, state, waves):
                 data_index=mesh.axis_index("data"))
 
 
+def mesh_cell_release(torch, state):
+    """Between phases: drop what the earlier cells kept and give the
+    allocator's cached blocks back to the card, which the main process
+    shares with the ranks."""
+    import gc
+
+    for key in ("params", "mesh", "cfg"):
+        state.pop(key, None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(reserved=torch.cuda.memory_reserved())
+
+
 MESH_CELLS = {"generate": mesh_cell_generate, "serve_tp": mesh_cell_serve_tp,
-              "serve_dp": mesh_cell_serve_dp}
+              "serve_dp": mesh_cell_serve_dp, "release": mesh_cell_release}
 
 
 def mesh_rank(rank, port, cmd, res):
@@ -7071,9 +7096,9 @@ def same_across_ranks(rows, keys):
 
 
 def drive_mesh(torch, ptl, fa, pa, params, cfg, tok, smi, gen_tokens,
-               gen_mask, gen_out, prompt_ids):
+               gen_mask, gen_out, prompt_ids, ranks):
     """Phases ``mesh_generate`` and ``mesh_serving`` (ROADMAP A14 part 1):
-    two ranks spawned once on cuda:0 over gloo.
+    two ranks (``ranks``, spawned once on cuda:0 over gloo).
 
     mesh_generate: each rank draws the seed-0 llama3-8b tree (full width,
     32 layers, bf16) as its tensor = 2 shard and runs ``engine.generate``
@@ -7101,176 +7126,698 @@ def drive_mesh(torch, ptl, fa, pa, params, cfg, tok, smi, gen_tokens,
             failures.append(what)
 
     t0 = time.perf_counter()
-    ranks = MeshRanks()
+    g = ranks.ask("generate", tokens=gen_tokens.cpu(),
+                  mask=gen_mask.cpu(), max_new=32)
+    P = gen_tokens.shape[1]
+    want = [row[P:] for row in gen_out.cpu().tolist()]
+    got = [row[P:] for row in g[0]["tokens"]]
+    check(not same_across_ranks(g, ["tokens"]), "ranks' tokens differ")
+    divergences = []
     try:
-        g = ranks.ask("generate", tokens=gen_tokens.cpu(),
-                      mask=gen_mask.cpu(), max_new=32)
-        P = gen_tokens.shape[1]
-        want = [row[P:] for row in gen_out.cpu().tolist()]
-        got = [row[P:] for row in g[0]["tokens"]]
-        check(not same_across_ranks(g, ["tokens"]), "ranks' tokens differ")
-        divergences = []
-        try:
-            divergences = token_divergences(torch, ptl, params, cfg,
-                                            prompt_ids, got, want,
-                                            DECODE_REL)
-        except AssertionError as e:
-            failures.append(f"mesh_generate: {e}")
-        L = cfg.n_layers
-        for r in g:
-            check(r["launches"]["flash_fwd"] == L
-                  and r["flash_by_instance"] == {"wgmma": L}
-                  and r["launches"]["paged_decode"] == 0,
-                  f"rank {r['rank']} launches {r['launches']} "
-                  f"{r['flash_by_instance']}")
-            check(r["qkv"][1] == SHARD_KVH, f"rank shard {r['qkv']}")
-        new_tokens = len(want[0])
-        gen_row = dict(
-            phase="mesh_generate", card=smi, ranks=MESH_RANKS,
-            backend="gloo", devices=[r["device"] for r in g],
-            config="llama3-8b", n_layers=L, dim=cfg.dim, dtype="bfloat16",
-            tensor=MESH_RANKS, heads_per_rank=(
-                g[0]["qkv"][1] * (cfg.n_heads // cfg.kv_heads)),
-            kv_heads_per_rank=g[0]["qkv"][1], batch=len(want),
-            padded_len=P, max_gen_len=new_tokens,
-            tokens_equal=got == want, divergences=divergences,
-            weight_bytes_per_rank=[r["weight_bytes"] for r in g],
-            init_params_s=[r["init_s"] for r in g],
-            generate_s=[r["generate_s"] for r in g],
-            launches_per_rank=[r["launches"] for r in g],
-            flash_by_instance_per_rank=[r["flash_by_instance"] for r in g],
-            collectives_per_rank=g[0]["collectives"],
-            collectives_per_token={k: v / new_tokens for k, v in
-                                   g[0]["collectives"].items()},
-            spawn_to_result_s=time.perf_counter() - t0)
-        emit(gen_row)
+        divergences = token_divergences(torch, ptl, params, cfg,
+                                        prompt_ids, got, want,
+                                        DECODE_REL)
+    except AssertionError as e:
+        failures.append(f"mesh_generate: {e}")
+    L = cfg.n_layers
+    for r in g:
+        check(r["launches"]["flash_fwd"] == L
+              and r["flash_by_instance"] == {"wgmma": L}
+              and r["launches"]["paged_decode"] == 0,
+              f"rank {r['rank']} launches {r['launches']} "
+              f"{r['flash_by_instance']}")
+        check(r["qkv"][1] == SHARD_KVH, f"rank shard {r['qkv']}")
+    new_tokens = len(want[0])
+    gen_row = dict(
+        phase="mesh_generate", card=smi, ranks=MESH_RANKS,
+        backend="gloo", devices=[r["device"] for r in g],
+        config="llama3-8b", n_layers=L, dim=cfg.dim, dtype="bfloat16",
+        tensor=MESH_RANKS, heads_per_rank=(
+            g[0]["qkv"][1] * (cfg.n_heads // cfg.kv_heads)),
+        kv_heads_per_rank=g[0]["qkv"][1], batch=len(want),
+        padded_len=P, max_gen_len=new_tokens,
+        tokens_equal=got == want, divergences=divergences,
+        weight_bytes_per_rank=[r["weight_bytes"] for r in g],
+        init_params_s=[r["init_s"] for r in g],
+        generate_s=[r["generate_s"] for r in g],
+        launches_per_rank=[r["launches"] for r in g],
+        flash_by_instance_per_rank=[r["flash_by_instance"] for r in g],
+        collectives_per_rank=g[0]["collectives"],
+        collectives_per_token={k: v / new_tokens for k, v in
+                               g[0]["collectives"].items()},
+        spawn_to_result_s=time.perf_counter() - t0)
+    emit(gen_row)
 
-        # mesh_serving, tensor = 2: the unsharded reference first.
-        L8 = DECODE_DEPTH
-        cfg8 = cfg.replace(n_layers=L8)
-        shallow = dict(params, layers={k: w[:L8]
-                                       for k, w in params["layers"].items()})
-        prompts = serve_prompts(tok)[:MESH_SERVE]
-        max_new = list(SERVE_MAX_NEW[:MESH_SERVE])
-        ref = mesh_serve(torch, ptl, fa, pa, shallow, cfg8, None, prompts,
-                         max_new)
-        tp = ranks.ask("serve_tp", prompts=prompts, max_new=max_new,
-                       dtype="bfloat16")
-        differ = same_across_ranks(tp, ["tokens", "table", "free",
-                                        "digest"])
-        check(not differ, f"mesh_serving tp ranks differ in {differ}")
-        tp_div = []
-        try:
-            tp_div = token_divergences(torch, ptl, shallow, cfg8, prompts,
-                                       tp[0]["tokens"], ref["tokens"],
-                                       DECODE_REL)
-        except AssertionError as e:
-            failures.append(f"mesh_serving tp: {e}")
-        # No request stops early (no stop tokens), so a near-tie changes
-        # neither the iterations nor the prompt chains: launches, tables
-        # and the digest must be the unsharded batcher's whatever it is.
-        for r in tp:
-            check(r["pool_k"][1] == SHARD_KVH, f"pool {r['pool_k']}")
-            mesh_matches_reference(check, "tp", r, ref)
+    # mesh_serving, tensor = 2: the unsharded reference first.
+    L8 = DECODE_DEPTH
+    cfg8 = cfg.replace(n_layers=L8)
+    shallow = dict(params, layers={k: w[:L8]
+                                   for k, w in params["layers"].items()})
+    prompts = serve_prompts(tok)[:MESH_SERVE]
+    max_new = list(SERVE_MAX_NEW[:MESH_SERVE])
+    ref = mesh_serve(torch, ptl, fa, pa, shallow, cfg8, None, prompts,
+                     max_new)
+    tp = ranks.ask("serve_tp", prompts=prompts, max_new=max_new,
+                   dtype="bfloat16")
+    differ = same_across_ranks(tp, ["tokens", "table", "free",
+                                    "digest"])
+    check(not differ, f"mesh_serving tp ranks differ in {differ}")
+    tp_div = []
+    try:
+        tp_div = token_divergences(torch, ptl, shallow, cfg8, prompts,
+                                   tp[0]["tokens"], ref["tokens"],
+                                   DECODE_REL)
+    except AssertionError as e:
+        failures.append(f"mesh_serving tp: {e}")
+    # No request stops early (no stop tokens), so a near-tie changes
+    # neither the iterations nor the prompt chains: launches, tables
+    # and the digest must be the unsharded batcher's whatever it is.
+    for r in tp:
+        check(r["pool_k"][1] == SHARD_KVH, f"pool {r['pool_k']}")
+        mesh_matches_reference(check, "tp", r, ref)
 
-        # The same traffic in float32 activations (bf16 weights), where
-        # the sharded sums' rounding is far below any logit gap: tokens
-        # identical to the unsharded batcher's, no near-tie allowed.
-        cfg8_f32 = cfg8.replace(dtype="float32")
-        ref32 = mesh_serve(torch, ptl, fa, pa, shallow, cfg8_f32, None,
-                           prompts, max_new)
-        tp32 = ranks.ask("serve_tp", prompts=prompts, max_new=max_new,
-                         dtype="float32")
-        differ = same_across_ranks(tp32, ["tokens", "table", "free",
-                                          "digest"])
-        check(not differ, f"mesh_serving tp f32 ranks differ in {differ}")
-        check(tp32[0]["tokens"] == ref32["tokens"],
-              "mesh_serving tp f32: tokens differ from the unsharded "
-              "batcher's")
-        for r in tp32:
-            mesh_matches_reference(check, "tp f32", r, ref32)
-        del shallow
+    # The same traffic in float32 activations (bf16 weights), where
+    # the sharded sums' rounding is far below any logit gap: tokens
+    # identical to the unsharded batcher's, no near-tie allowed.
+    cfg8_f32 = cfg8.replace(dtype="float32")
+    ref32 = mesh_serve(torch, ptl, fa, pa, shallow, cfg8_f32, None,
+                       prompts, max_new)
+    tp32 = ranks.ask("serve_tp", prompts=prompts, max_new=max_new,
+                     dtype="float32")
+    differ = same_across_ranks(tp32, ["tokens", "table", "free",
+                                      "digest"])
+    check(not differ, f"mesh_serving tp f32 ranks differ in {differ}")
+    check(tp32[0]["tokens"] == ref32["tokens"],
+          "mesh_serving tp f32: tokens differ from the unsharded "
+          "batcher's")
+    for r in tp32:
+        mesh_matches_reference(check, "tp f32", r, ref32)
+    del shallow
 
-        # The data = 2 cell: the unsharded reference on the same tree.
-        waves = mesh_prefix_waves(tok)
-        p8 = ptl.init_params(cfg8, seed=0, device="cuda")
-        cb = ptl.ContinuousBatcher(p8, cfg8, n_slots=2, max_len=2048,
-                                   decode_chunk=8, device="cuda")
-        dref = mesh_traffic(torch, fa, pa, cb, None, waves)
-        del cb
-        dp = ranks.ask("serve_dp", waves=waves)
-        differ = same_across_ranks(dp, ["tokens", "table", "free",
-                                        "digest"])
-        check(not differ, f"mesh_serving dp ranks differ in {differ}")
-        dp_div = []
-        try:
-            dp_div = token_divergences(
-                torch, ptl, p8, cfg8, [p for w in waves for p, _ in w],
-                dp[0]["tokens"], dref["tokens"], DECODE_REL)
-        except AssertionError as e:
-            failures.append(f"mesh_serving dp: {e}")
-        for r in dp + [dref]:
-            check(r["prefix_hits"] == 1
-                  and r["prefix_blocks_reused"] == MESH_HIT_BLOCKS,
-                  f"dp prefix hits {r['prefix_hits']} reused "
-                  f"{r['prefix_blocks_reused']}")
-        for r in dp:
-            mesh_matches_reference(check, "dp", r, dref)
-        del p8
-        gc.collect()
-        torch.cuda.empty_cache()
-        serve_row = dict(
-            phase="mesh_serving", card=smi, ranks=MESH_RANKS,
-            backend="gloo", n_layers=L8, config="llama3-8b",
-            dtype="bfloat16",
-            tensor2=dict(
-                serve_mesh=tp[0]["serve_mesh"], requests=MESH_SERVE,
-                max_new=max_new, tokens_equal=tp[0]["tokens"]
-                == ref["tokens"], divergences=tp_div,
-                host_state_identical=not same_across_ranks(
-                    tp, ["table", "free", "digest"]),
-                digest=tp[0]["digest"], pool_k_per_rank=tp[0]["pool_k"],
-                launches_per_rank=[r["launches"] for r in tp],
-                unsharded_launches=ref["launches"],
-                flash_by_instance_per_rank=[r["flash_by_instance"]
-                                            for r in tp],
-                steps=tp[0]["steps"], unsharded_steps=ref["steps"],
-                serve_s=[r["serve_s"] for r in tp],
-                unsharded_serve_s=ref["serve_s"],
-                collectives_per_rank=tp[0]["collectives"]),
-            tensor2_f32=dict(
-                dtype="float32 activations, bf16 weights",
-                tokens_equal=tp32[0]["tokens"] == ref32["tokens"],
-                host_state_identical=not same_across_ranks(
-                    tp32, ["table", "free", "digest"]),
-                launches_per_rank=[r["launches"] for r in tp32],
-                unsharded_launches=ref32["launches"],
-                serve_s=[r["serve_s"] for r in tp32],
-                unsharded_serve_s=ref32["serve_s"]),
-            data2=dict(
-                serve_mesh=dp[0]["serve_mesh"],
-                prompt_tokens=[len(p) for w in waves for p, _ in w],
-                tokens_equal=dp[0]["tokens"] == dref["tokens"],
-                divergences=dp_div,
-                host_state_identical=not same_across_ranks(
-                    dp, ["table", "free", "digest"]),
-                prefix_hits=[r["prefix_hits"] for r in dp],
-                prefix_blocks_reused=[r["prefix_blocks_reused"]
-                                      for r in dp],
-                hit_blocks_computed_by_data_rank=1,
-                data_index_per_rank=[r["data_index"] for r in dp],
-                inserts=dp[0]["inserts"],
-                launches_per_rank=[r["launches"] for r in dp],
-                unsharded_launches=dref["launches"],
-                serve_s=[r["serve_s"] for r in dp],
-                collectives_per_rank=dp[0]["collectives"]),
-            seconds=time.perf_counter() - t0, failures=failures)
-        emit(serve_row)
-    finally:
-        ranks.close()
+    # The data = 2 cell: the unsharded reference on the same tree.
+    waves = mesh_prefix_waves(tok)
+    p8 = ptl.init_params(cfg8, seed=0, device="cuda")
+    cb = ptl.ContinuousBatcher(p8, cfg8, n_slots=2, max_len=2048,
+                               decode_chunk=8, device="cuda")
+    dref = mesh_traffic(torch, fa, pa, cb, None, waves)
+    del cb
+    dp = ranks.ask("serve_dp", waves=waves)
+    differ = same_across_ranks(dp, ["tokens", "table", "free",
+                                    "digest"])
+    check(not differ, f"mesh_serving dp ranks differ in {differ}")
+    dp_div = []
+    try:
+        dp_div = token_divergences(
+            torch, ptl, p8, cfg8, [p for w in waves for p, _ in w],
+            dp[0]["tokens"], dref["tokens"], DECODE_REL)
+    except AssertionError as e:
+        failures.append(f"mesh_serving dp: {e}")
+    for r in dp + [dref]:
+        check(r["prefix_hits"] == 1
+              and r["prefix_blocks_reused"] == MESH_HIT_BLOCKS,
+              f"dp prefix hits {r['prefix_hits']} reused "
+              f"{r['prefix_blocks_reused']}")
+    for r in dp:
+        mesh_matches_reference(check, "dp", r, dref)
+    del p8
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve_row = dict(
+        phase="mesh_serving", card=smi, ranks=MESH_RANKS,
+        backend="gloo", n_layers=L8, config="llama3-8b",
+        dtype="bfloat16",
+        tensor2=dict(
+            serve_mesh=tp[0]["serve_mesh"], requests=MESH_SERVE,
+            max_new=max_new, tokens_equal=tp[0]["tokens"]
+            == ref["tokens"], divergences=tp_div,
+            host_state_identical=not same_across_ranks(
+                tp, ["table", "free", "digest"]),
+            digest=tp[0]["digest"], pool_k_per_rank=tp[0]["pool_k"],
+            launches_per_rank=[r["launches"] for r in tp],
+            unsharded_launches=ref["launches"],
+            flash_by_instance_per_rank=[r["flash_by_instance"]
+                                        for r in tp],
+            steps=tp[0]["steps"], unsharded_steps=ref["steps"],
+            serve_s=[r["serve_s"] for r in tp],
+            unsharded_serve_s=ref["serve_s"],
+            collectives_per_rank=tp[0]["collectives"]),
+        tensor2_f32=dict(
+            dtype="float32 activations, bf16 weights",
+            tokens_equal=tp32[0]["tokens"] == ref32["tokens"],
+            host_state_identical=not same_across_ranks(
+                tp32, ["table", "free", "digest"]),
+            launches_per_rank=[r["launches"] for r in tp32],
+            unsharded_launches=ref32["launches"],
+            serve_s=[r["serve_s"] for r in tp32],
+            unsharded_serve_s=ref32["serve_s"]),
+        data2=dict(
+            serve_mesh=dp[0]["serve_mesh"],
+            prompt_tokens=[len(p) for w in waves for p, _ in w],
+            tokens_equal=dp[0]["tokens"] == dref["tokens"],
+            divergences=dp_div,
+            host_state_identical=not same_across_ranks(
+                dp, ["table", "free", "digest"]),
+            prefix_hits=[r["prefix_hits"] for r in dp],
+            prefix_blocks_reused=[r["prefix_blocks_reused"]
+                                  for r in dp],
+            hit_blocks_computed_by_data_rank=1,
+            data_index_per_rank=[r["data_index"] for r in dp],
+            inserts=dp[0]["inserts"],
+            launches_per_rank=[r["launches"] for r in dp],
+            unsharded_launches=dref["launches"],
+            serve_s=[r["serve_s"] for r in dp],
+            collectives_per_rank=dp[0]["collectives"]),
+        seconds=time.perf_counter() - t0, failures=failures)
+    emit(serve_row)
+    # The ranks stay up for phase 9b: hand their cached memory back.
+    ranks.ask("release")
     if failures:
         raise AssertionError(f"mesh phases failed: {failures}")
     return gen_row, serve_row
+
+
+# ---------------------------------------------------------------------------
+# Sharded training, ring attention and pipeline stages (ROADMAP A14 part 2)
+# ---------------------------------------------------------------------------
+
+TP2_TRAIN_SHAPE = dict(B=4, T=2048, H=16, KVH=4, d=128)
+MT_LAYERS, MT_STEPS, MT_B, MT_T = 2, 3, 4, 2048
+PIPE_LAYERS, PIPE_STEPS, PIPE_MICRO = 4, 2, 4
+MT_LOSS_REL = 1e-2
+MT_BOUND_IS = ("per leaf, max |sharded - unsharded| over every element, "
+               "bound 2 x steps x lr (Adam moves an entry at most lr a step "
+               "either way) + 2**-7 x the leaf's max |value| (one bf16 ulp "
+               "at its largest value)")
+RING_SHAPE = dict(B=1, T=8192, H=32, KVH=8, d=128)
+RING_SEED_WORDS = (0x2545F491, 0x9E3779B9)
+RING_PROMPT, RING_NEW, RING_PREFILL_CHUNK = 4096, 16, 1024
+
+
+def mesh_train_config(ptl, n_layers, **kw):
+    """The mesh training cells' model: llama3-8b width, ``n_layers``
+    deep, bf16, remat "dots", the flash kernels."""
+    return ptl.get_config("llama3-8b", param_dtype="bfloat16",
+                          dtype="bfloat16", n_layers=n_layers, remat=True,
+                          remat_policy="dots", attn_impl="flash", **kw)
+
+
+def mesh_train_batch(np, data, vocab):
+    """The train phase's first B = 4 x 2048 batch (``data.batches``)."""
+    return next(data.batches(train_documents(np, vocab), MT_B, MT_T))
+
+
+def leaf_diffs(torch, got, ref, steps, lr):
+    """Per leaf: max |got - ref| and its bound (``MT_BOUND_IS``); ``ref``
+    maps names to (memory-mapped) host tensors."""
+    out = {}
+    for name, t in flat_tree(got).items():
+        r = ref[name].to(t.device)
+        diff = (t.float() - r.float()).abs().max().item()
+        bound = 2 * steps * lr + 2.0 ** -7 * r.float().abs().max().item()
+        out[name] = dict(max_abs=diff, bound=bound)
+    return out
+
+
+def mesh_cell_train(torch, state, axes, fsdp, n_layers, steps, ref_path,
+                    micro=None):
+    """One rank of mesh_train / pipeline_train: the seed-0 tree of
+    ``n_layers`` drawn whole and sharded (``fsdp``: ZeRO-3), the train
+    phase's batch split by ``shard_batch``, ``steps`` train_steps on the
+    mesh, counted from zero; then the params gathered and held (rank 0)
+    against the unsharded run's at ``ref_path``."""
+    import numpy as np
+
+    import jax_llama_tpu_torch as ptl
+    from jax_llama_tpu_torch import data, train
+    from jax_llama_tpu_torch.parallel import make_mesh
+    from jax_llama_tpu_torch.parallel.partition import (gather_params,
+                                                        shard_params)
+
+    fa, pa = state["fa"], state["pa"]
+    mesh = make_mesh(**axes, devices=["cuda:0"] * MESH_RANKS)
+    cfg = mesh_train_config(ptl, n_layers, pp_microbatches=micro)
+    full = ptl.init_params(cfg, seed=0, device="cuda")
+    params = shard_params(full, mesh, cfg, fsdp=fsdp)
+    del full
+    batch = data.shard_batch(mesh_train_batch(np, data, cfg.vocab_size),
+                             mesh)
+    opt = train.make_optimizer()
+    st = train.init_train_state(params, opt)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(fa, pa)
+    mesh.collectives.clear()
+    losses, step_ms, per_step = [], [], []
+    for _ in range(steps):
+        before = bwd_counts(fa)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        st, loss = train.train_step(st, batch.tokens, cfg, opt,
+                                    loss_mask=batch.loss_mask, mesh=mesh)
+        losses.append(loss.item())
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        after = bwd_counts(fa)
+        per_step.append({k: after[k] - before[k] for k in after})
+    inst = instance_counts(fa, pa)
+    out = dict(rank=mesh.rank, losses=losses, step_ms=step_ms,
+               launches=launch_counts(fa, pa), launches_per_step=per_step,
+               instances={k: inst[k] for k in (
+                   "flash_fwd_by_instance", "flash_bwd_dq_by_instance",
+                   "flash_bwd_dkv_by_instance")},
+               peak_memory_bytes=torch.cuda.max_memory_allocated(),
+               collectives=mesh_collectives(mesh),
+               routes=dict(mesh.routes), backend=mesh.backend,
+               local_rows=int(batch.tokens.shape[0]),
+               local_qkv=list(st.params["layers"]["qkv"].shape))
+    gathered = gather_params(st.params, mesh, cfg, fsdp=fsdp)
+    del st, params
+    if mesh.rank == 0:
+        ref = torch.load(ref_path, map_location="cpu", mmap=True,
+                         weights_only=True)
+        out["diffs"] = leaf_diffs(torch, gathered, ref, steps,
+                                  opt.learning_rate)
+    del gathered
+    torch.cuda.empty_cache()
+    return out
+
+
+def ring_inputs(torch, sl=slice(None)):
+    """q, k, v and a cotangent g at RING_SHAPE (bf16, from a seed, the
+    same in every process on the card), positions 0..T-1, sliced to
+    ``sl`` along T."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    B, T, H, KVH, d = (RING_SHAPE[k] for k in ("B", "T", "H", "KVH", "d"))
+    shapes = ((B, T, H, d), (B, T, KVH, d), (B, T, KVH, d), (B, T, H, d))
+    q, k, v, g = (torch.randn(sh, device="cuda", generator=gen)
+                  .to(torch.bfloat16)[:, sl].contiguous() for sh in shapes)
+    pos = torch.arange(T, device="cuda", dtype=torch.int32)[None][:, sl]
+    return q, k, v, g, pos.contiguous()
+
+
+def mesh_cell_ring(torch, state, rate):
+    """One rank of the ring phase: ``ring_sdpa`` forward and backward on
+    its 4096 of RING_SHAPE's 8192 tokens over a seq = 2 mesh; its out, dq,
+    dk, dv on the host, and the ms of one more forward + backward."""
+    from jax_llama_tpu_torch.parallel import make_mesh, ring, use_mesh
+
+    mesh = make_mesh(seq=MESH_RANKS, devices=["cuda:0"] * MESH_RANKS)
+    n = RING_SHAPE["T"] // MESH_RANKS
+    i = mesh.axis_index("seq")
+    q, k, v, g, pos = ring_inputs(torch, slice(i * n, (i + 1) * n))
+
+    def run():
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        with use_mesh(mesh):
+            out = ring.ring_sdpa(*leaves, pos, pos,
+                                 dropout_rng=RING_SEED_WORDS if rate
+                                 else None, dropout_rate=rate)
+            out.backward(g)
+        return out.detach(), [x.grad for x in leaves]
+
+    mesh.collectives.clear()
+    out, grads = run()
+    collectives = mesh_collectives(mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    return dict(rank=mesh.rank, seq_index=i, out=out.cpu(),
+                dq=grads[0].cpu(), dk=grads[1].cpu(), dv=grads[2].cpu(),
+                ms=ms, peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                collectives=collectives, routes=dict(mesh.routes))
+
+
+def mesh_cell_ring_generate(torch, state, tokens, max_new):
+    """One rank of the ring phase's cached generate: the MT_LAYERS-deep
+    seed-0 tree whole on each rank, ``attn_impl="ring"`` on a seq = 2
+    mesh, so the lockstep cache holds this rank's half of the slots and
+    every step runs ``ring_decode``."""
+    import jax_llama_tpu_torch as ptl
+    from jax_llama_tpu_torch import engine
+    from jax_llama_tpu_torch.parallel import make_mesh
+
+    fa, pa = state["fa"], state["pa"]
+    mesh = make_mesh(seq=MESH_RANKS, devices=["cuda:0"] * MESH_RANKS)
+    cfg = mesh_train_config(ptl, MT_LAYERS).replace(attn_impl="ring",
+                                                   remat=False)
+    params = ptl.init_params(cfg, seed=0, device="cuda")
+    gc = engine.GenerationConfig(max_new_tokens=max_new, temperature=0.0,
+                                 prefill_chunk=RING_PREFILL_CHUNK)
+    zero_counts(fa, pa)
+    mesh.collectives.clear()
+    t = time.perf_counter()
+    out = engine.generate(params, tokens.cuda(), torch.ones_like(
+        tokens, dtype=torch.bool).cuda(), config=cfg, gen_config=gc,
+        device="cuda", mesh=mesh)
+    torch.cuda.synchronize()
+    return dict(rank=mesh.rank, tokens=out.cpu().tolist(),
+                generate_s=time.perf_counter() - t,
+                launches=launch_counts(fa, pa),
+                collectives=mesh_collectives(mesh))
+
+
+def mesh_cell_checkpoint(torch, state, path):
+    """One rank of the checkpoint phase's mesh part: the saved tree
+    loaded as a tensor = 2 shard and saved from that mesh (gathered, rank
+    0 writes); then loaded with fsdp = 2 and held against
+    ``shard_params(fsdp=True)`` of the whole file."""
+    import json
+
+    from jax_llama_tpu_torch.convert import load_checkpoint, save_checkpoint
+    from jax_llama_tpu_torch.parallel import make_mesh, use_mesh
+    from jax_llama_tpu_torch.parallel.partition import shard_params
+
+    tp = make_mesh(tensor=MESH_RANKS, devices=["cuda:0"] * MESH_RANKS)
+    t = time.perf_counter()
+    shard, cfg = load_checkpoint(path, mesh=tp, verify=False)
+    with use_mesh(tp):
+        save_checkpoint(path + "_tensor2", shard, cfg)
+    save_s = time.perf_counter() - t
+    del shard
+    fs = make_mesh(fsdp=MESH_RANKS, devices=["cuda:0"] * MESH_RANKS)
+    got, _ = load_checkpoint(path, mesh=fs, fsdp=True, verify=False)
+    full, _ = load_checkpoint(path, device="cpu", verify=False)
+    want = shard_params(full, fs, cfg, fsdp=True)
+    same = all(torch.equal(a, b) for a, b in zip(
+        flat_tree(got).values(), flat_tree(want).values()))
+    out = dict(rank=fs.rank, fsdp_same=same,
+               fsdp_qkv=list(got["layers"]["qkv"].shape), save_s=save_s)
+    if tp.rank == 0:
+        out["manifests"] = [json.load(open(f"{p}/manifest.json"))
+                            for p in (path, path + "_tensor2")]
+    del got, full, want
+    torch.cuda.empty_cache()
+    return out
+
+
+MESH_CELLS.update(train=mesh_cell_train, ring=mesh_cell_ring,
+                  ring_generate=mesh_cell_ring_generate,
+                  checkpoint=mesh_cell_checkpoint)
+
+
+def plain_attention_grads(torch, fa, q, k, v, g, pos, rate):
+    """The unsharded plain attention's out, dq, dk, dv (float32, through
+    autograd), one KV head's query group at a time so that no [H, T, T]
+    score tensor exists at once; with ``rate`` the probabilities dropped
+    under the ring's hash mask (``ring.dropout_keep``)."""
+    from jax_llama_tpu_torch.parallel import ring
+
+    B, T, H, d = q.shape
+    KVH = k.shape[2]
+    G = H // KVH
+    outs, dqs, dks, dvs = [], [], [], []
+    allowed = (pos[:, None, :] <= pos[:, :, None])[:, None]
+    base = (ring.dropout_base(RING_SEED_WORDS, B, H, device=q.device)
+            if rate else None)
+    for h in range(KVH):
+        hs = slice(h * G, (h + 1) * G)
+        qq = q[:, :, hs].float().requires_grad_()
+        kk = k[:, :, h:h + 1].float().requires_grad_()
+        vv = v[:, :, h:h + 1].float().requires_grad_()
+        s = torch.einsum("bthd,bskd->bhts", qq, kk) / d ** 0.5
+        p = torch.softmax(s.masked_fill(~allowed, float("-inf")), -1)
+        if rate:
+            keep = ring.dropout_keep(base[:, :, hs], pos, pos, rate)
+            p = torch.where(keep, p / (1.0 - rate), 0.0)
+        o = torch.einsum("bhts,bskd->bthd", p, vv)
+        dq, dk, dv = torch.autograd.grad(o, (qq, kk, vv), g[:, :, hs].float())
+        outs.append(o.detach())
+        dqs.append(dq)
+        dks.append(dk)
+        dvs.append(dv)
+        del s, p, o
+    return (torch.cat(outs, 2), torch.cat(dqs, 2), torch.cat(dks, 2),
+            torch.cat(dvs, 2))
+
+
+def unsharded_train(torch, np, ptl, fa, pa, n_layers, steps, ref_path,
+                    micro=None):
+    """The mesh cells' unsharded run in this process: the same seed-0
+    tree and batch, ``steps`` train_steps; the updated params written to
+    ``ref_path`` for the ranks to hold theirs against."""
+    from jax_llama_tpu_torch import data, train
+
+    cfg = mesh_train_config(ptl, n_layers, pp_microbatches=micro)
+    params = ptl.init_params(cfg, seed=0, device="cuda")
+    batch = data.to_device(mesh_train_batch(np, data, cfg.vocab_size),
+                           "cuda")
+    opt = train.make_optimizer()
+    st = train.init_train_state(params, opt)
+    losses, step_ms = [], []
+    zero_counts(fa, pa)
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        st, loss = train.train_step(st, batch.tokens, cfg, opt,
+                                    loss_mask=batch.loss_mask)
+        losses.append(loss.item())
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    launches = bwd_counts(fa)
+    torch.save({n: t.detach().cpu() for n, t in
+                flat_tree(st.params).items()}, ref_path)
+    del st, params
+    torch.cuda.empty_cache()
+    return dict(losses=losses, step_ms=step_ms, launches=launches)
+
+
+def check_mesh_train_cell(check, name, rows, ref, L, steps, per_mb=1):
+    """A mesh training cell's rows against the unsharded run: losses,
+    every gathered leaf within its bound, and per rank and step the
+    flash launches a layer owes (times ``per_mb`` microbatches), all on
+    the Hopper instance."""
+    want_step = {"flash_fwd": 2 * L * per_mb, "flash_bwd_dq": L * per_mb,
+                 "flash_bwd_dkv": L * per_mb}
+    for r in rows:
+        check(all(abs(a - b) <= MT_LOSS_REL * abs(b)
+                  for a, b in zip(r["losses"], ref["losses"])),
+              f"{name} rank {r['rank']} losses {r['losses']}, unsharded "
+              f"{ref['losses']}")
+        check(all(c == want_step for c in r["launches_per_step"]),
+              f"{name} rank {r['rank']} launches per step "
+              f"{r['launches_per_step']}, expected {want_step}")
+        check(r["instances"] == {
+            f"{k}_by_instance": {"wgmma": n * steps}
+            for k, n in want_step.items()},
+            f"{name} rank {r['rank']} instances {r['instances']}")
+    over = {n: d for n, d in rows[0]["diffs"].items()
+            if not d["max_abs"] <= d["bound"]}
+    check(not over, f"{name}: leaves past their bound {over}")
+
+
+def drive_mesh_training(torch, np, ptl, fa, pa, smi, ranks):
+    """Phases ``mesh_train``, ``ring``, ``pipeline_train`` and
+    ``checkpoint_mesh`` (ROADMAP A14 part 2): the two ranks of
+    ``drive_mesh`` on cuda:0 over gloo, so every number is the ranks'
+    time-shared run (correctness and per-rank kernel shapes, never a
+    parallel speed).
+
+    mesh_train: MT_LAYERS layers at llama3-8b width, B = 4 x 2048, remat
+    "dots", flash, bf16; MT_STEPS steps on tensor = 2 and on fsdp = 2
+    (ZeRO-3) against the same steps unsharded in this process.
+    ring: ``ring_sdpa`` forward and backward at RING_SHAPE on seq = 2,
+    without and with dropout 0.1, against the unsharded plain attention;
+    then a ``ring_decode`` generate of RING_NEW greedy tokens over a
+    seq-sharded cache holding a RING_PROMPT-token prompt.
+    pipeline_train: stage = 2, PIPE_LAYERS layers, PIPE_MICRO
+    microbatches of one row, PIPE_STEPS steps.
+    checkpoint_mesh: a save from the tensor = 2 ranks whose manifest is
+    the unsharded save's, and a load with fsdp = 2."""
+    import shutil
+    import tempfile
+
+    from jax_llama_tpu_torch.convert import save_checkpoint
+
+    failures = []
+
+    def check(ok, what):
+        if not ok:
+            failures.append(what)
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        rows = {}
+        # mesh_train
+        t0 = time.perf_counter()
+        ref_path = os.path.join(tmp, "ref.pt")
+        ref = unsharded_train(torch, np, ptl, fa, pa, MT_LAYERS, MT_STEPS,
+                              ref_path)
+        cells = {}
+        for cell, axes, fsdp in (("tensor2", dict(tensor=2), False),
+                                 ("fsdp2", dict(fsdp=2), True)):
+            got = ranks.ask("train", axes=axes, fsdp=fsdp,
+                            n_layers=MT_LAYERS, steps=MT_STEPS,
+                            ref_path=ref_path)
+            check_mesh_train_cell(check, f"mesh_train {cell}", got, ref,
+                                  MT_LAYERS, MT_STEPS)
+            cells[cell] = dict(
+                axes=axes, fsdp=fsdp, losses=got[0]["losses"],
+                step_ms_per_rank=[r["step_ms"] for r in got],
+                launches_per_rank=[r["launches"] for r in got],
+                launches_per_step=got[0]["launches_per_step"][0],
+                instances_per_rank=[r["instances"] for r in got],
+                peak_memory_bytes_per_rank=[r["peak_memory_bytes"]
+                                            for r in got],
+                collectives=got[0]["collectives"], routes=got[0]["routes"],
+                backend=got[0]["backend"],
+                local_rows=got[0]["local_rows"],
+                local_qkv=got[0]["local_qkv"],
+                max_leaf_diff=max(d["max_abs"]
+                                  for d in got[0]["diffs"].values()),
+                leaf_diffs=got[0]["diffs"])
+        rows["mesh_train"] = dict(
+            phase="mesh_train", card=smi, ranks=MESH_RANKS,
+            devices="cuda:0 x 2 (gloo)", config="llama3-8b",
+            n_layers=MT_LAYERS, reduced=f"depth 32 -> {MT_LAYERS} layers",
+            dim=4096, dtype="bfloat16", remat="dots", attn_impl="flash",
+            batch=MT_B, seq_len=MT_T, steps=MT_STEPS,
+            step_ms_is="host clock around each train_step (its loss read "
+            "syncs), two ranks time-sharing one card: not a parallel speed",
+            unsharded=ref, loss_rel_bound=MT_LOSS_REL,
+            leaf_bound_is=MT_BOUND_IS, cells=cells,
+            seconds=time.perf_counter() - t0)
+        emit(rows["mesh_train"])
+
+        # ring
+        t0 = time.perf_counter()
+        q, k, v, g, pos = ring_inputs(torch)
+        ring_cells = {}
+        for rate in (0.0, TRAIN_DROPOUT):
+            got = ranks.ask("ring", rate=rate)
+            got.sort(key=lambda r: r["seq_index"])
+            want = plain_attention_grads(torch, fa, q, k, v, g, pos, rate)
+            errs = {}
+            for name, w in zip(("out", "dq", "dk", "dv"), want):
+                full = torch.cat([r[name] for r in got], 1).cuda()
+                errs[name] = row_rel_err(
+                    torch, full, w,
+                    short_rows(pos, pos, RING_SHAPE["H"])
+                    if name == "dq" else None)
+            del want
+            label = "dropout" if rate else "no_dropout"
+            ring_cells[label] = dict(
+                dropout=rate, err=errs, bound={n: TRAIN_BOUNDS[n]
+                                               for n in errs},
+                ms_per_rank=[r["ms"] for r in got],
+                peak_memory_bytes_per_rank=[r["peak_memory_bytes"]
+                                            for r in got],
+                collectives=got[0]["collectives"], routes=got[0]["routes"])
+            check(all(e < TRAIN_BOUNDS[n] for n, e in errs.items()),
+                  f"ring ({label}): {errs} against {TRAIN_BOUNDS}")
+        del q, k, v, g, pos
+        # the seq-sharded cached generate, against the unsharded run
+        from jax_llama_tpu_torch import engine
+
+        gen = torch.Generator(device="cuda").manual_seed(11)
+        prompt = torch.randint(0, 128000, (1, RING_PROMPT), device="cuda",
+                               generator=gen, dtype=torch.int32)
+        rcfg = mesh_train_config(ptl, MT_LAYERS).replace(attn_impl="ring",
+                                                        remat=False)
+        rparams = ptl.init_params(rcfg, seed=0, device="cuda")
+        gc = engine.GenerationConfig(max_new_tokens=RING_NEW,
+                                     temperature=0.0,
+                                     prefill_chunk=RING_PREFILL_CHUNK)
+        want = engine.generate(rparams, prompt, torch.ones_like(
+            prompt, dtype=torch.bool), config=rcfg, gen_config=gc,
+            device="cuda")[0, RING_PROMPT:].tolist()
+        got = ranks.ask("ring_generate", tokens=prompt.cpu(),
+                        max_new=RING_NEW)
+        check(not same_across_ranks(got, ["tokens"]), "ring ranks differ")
+        divergences = []
+        try:
+            divergences = token_divergences(
+                torch, ptl, rparams, rcfg, [prompt[0].tolist()],
+                [got[0]["tokens"][0][RING_PROMPT:]], [want], DECODE_REL)
+        except AssertionError as e:
+            failures.append(f"ring generate: {e}")
+        del rparams
+        torch.cuda.empty_cache()
+        L = MT_LAYERS
+        n_steps = RING_NEW  # the prefill's chunks and the decode steps
+        rows["ring"] = dict(
+            phase="ring", card=smi, ranks=MESH_RANKS, seq=MESH_RANKS,
+            shape=RING_SHAPE, tokens_per_rank=RING_SHAPE["T"] // MESH_RANKS,
+            dtype="bfloat16", cells=ring_cells,
+            err_is=TRAIN_ERR_IS, ms_is="host clock around one forward + "
+            "backward (synchronized), two ranks time-sharing one card",
+            generate=dict(
+                config="llama3-8b", n_layers=L, dtype="bfloat16",
+                attn_impl="ring", prompt_tokens=RING_PROMPT,
+                prefill_chunk=RING_PREFILL_CHUNK, new_tokens=RING_NEW,
+                slots_per_rank=(RING_PROMPT + RING_NEW) // MESH_RANKS,
+                tokens_equal=got[0]["tokens"][0][RING_PROMPT:] == want,
+                divergences=divergences, tie_bound=DECODE_REL,
+                generate_s_per_rank=[r["generate_s"] for r in got],
+                launches=got[0]["launches"],
+                collectives=got[0]["collectives"], decode_steps=n_steps),
+            seconds=time.perf_counter() - t0)
+        emit(rows["ring"])
+
+        # pipeline_train
+        t0 = time.perf_counter()
+        pref = unsharded_train(torch, np, ptl, fa, pa, PIPE_LAYERS,
+                               PIPE_STEPS, ref_path, micro=PIPE_MICRO)
+        got = ranks.ask("train", axes=dict(stage=2), fsdp=False,
+                        n_layers=PIPE_LAYERS, steps=PIPE_STEPS,
+                        ref_path=ref_path, micro=PIPE_MICRO)
+        check_mesh_train_cell(check, "pipeline_train", got, pref,
+                              PIPE_LAYERS // 2, PIPE_STEPS, PIPE_MICRO)
+        rows["pipeline_train"] = dict(
+            phase="pipeline_train", card=smi, ranks=MESH_RANKS, stage=2,
+            config="llama3-8b", n_layers=PIPE_LAYERS,
+            layers_per_stage=PIPE_LAYERS // 2,
+            reduced=f"depth 32 -> {PIPE_LAYERS} layers", dtype="bfloat16",
+            remat="dots", attn_impl="flash", batch=MT_B, seq_len=MT_T,
+            microbatches=PIPE_MICRO, microbatch_rows=MT_B // PIPE_MICRO,
+            steps=PIPE_STEPS, unsharded=pref, losses=got[0]["losses"],
+            step_ms_per_rank=[r["step_ms"] for r in got],
+            launches_per_rank=[r["launches"] for r in got],
+            launches_per_step=got[0]["launches_per_step"][0],
+            instances_per_rank=[r["instances"] for r in got],
+            peak_memory_bytes_per_rank=[r["peak_memory_bytes"] for r in got],
+            collectives=got[0]["collectives"],
+            max_leaf_diff=max(d["max_abs"]
+                              for d in got[0]["diffs"].values()),
+            leaf_diffs=got[0]["diffs"], leaf_bound_is=MT_BOUND_IS,
+            seconds=time.perf_counter() - t0)
+        emit(rows["pipeline_train"])
+
+        # checkpoint_mesh
+        t0 = time.perf_counter()
+        from jax_llama_tpu_torch.convert import load_checkpoint
+
+        cfg = mesh_train_config(ptl, MT_LAYERS)
+        path = os.path.join(tmp, "ckpt")
+        full = ptl.init_params(cfg, seed=0, device="cuda")
+        save_checkpoint(path, full, cfg)
+        del full
+        got = ranks.ask("checkpoint", path=path)
+        manifests = got[0]["manifests"]
+        same_manifest = (manifests[0]["files"] == manifests[1]["files"])
+        check(same_manifest, "checkpoint_mesh: the tensor = 2 save's "
+              "manifest differs from the unsharded save's")
+        check(all(r["fsdp_same"] for r in got),
+              "checkpoint_mesh: an fsdp = 2 load differs from "
+              "shard_params(fsdp=True)")
+        rows["checkpoint_mesh"] = dict(
+            phase="checkpoint_mesh", card=smi, ranks=MESH_RANKS,
+            config="llama3-8b", n_layers=MT_LAYERS, dtype="bfloat16",
+            manifest_digests_equal=same_manifest,
+            files={f: m["sha256"][:16] for f, m in
+                   manifests[1]["files"].items()},
+            fsdp_load_equal=[r["fsdp_same"] for r in got],
+            fsdp_qkv=got[0]["fsdp_qkv"],
+            tensor2_load_and_save_s=[r["save_s"] for r in got],
+            seconds=time.perf_counter() - t0)
+        emit(rows["checkpoint_mesh"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if failures:
+        raise AssertionError("mesh training phases failed:\n"
+                             + "\n".join(failures))
+    return rows
 
 
 RANK_FLAG = "--torchrun-rank"
@@ -7388,6 +7935,8 @@ def main() -> int:
     stock_rows = check_stock(torch, kn, gen)
     splash_rows = check_splash(torch, kn, fa, gen)
     train_rows = check_train_kernels(torch, fa, gen)
+    tp2_train_rows = check_train_kernels(torch, fa, gen, "tp2_train",
+                                         TP2_TRAIN_SHAPE, f32=False)
     shard_rows = check_shard_kernels(torch, fa, pa, kn, gen,
                                      paged_row["instance"])
 
@@ -7483,9 +8032,11 @@ def main() -> int:
     # Phase 3b: tensor and data parallelism (ROADMAP A14 part 1): two
     # ranks on the one card, the generate phase's prompts at full width
     # on a tensor = 2 mesh, then the serving mesh at 8 layers.
+    # The ranks serve phase 9b too; they are stopped at the end.
+    ranks = MeshRanks()
     mesh_gen, mesh_serve_row = drive_mesh(
         torch, ptl, fa, pa, params, cfg, tok, smi, tokens, mask, out,
-        [tok.encode(p, bos=True) for p in prompts])
+        [tok.encode(p, bos=True) for p in prompts], ranks)
 
     # Phase 4: the verify recipe's invariant -- 8 tokens decoded one at a
     # time over a 1024-slot cache give the full forward's logits -- under
@@ -7618,18 +8169,22 @@ def main() -> int:
                                       cfg, tok, smi)
 
     # Phase 5f: the replica router (ROADMAP A12 part 1): two replicas on
-    # the one weight copy at full width, then the control-plane drill at
-    # 8 layers.
-    router_row = drive_router_serving(torch, np, ptl, fa, pa, params, cfg,
-                                      tok, smi)
+    # the one weight copy at full width and FLEET_LAYERS deep, then the
+    # control-plane drill at 8 layers.
+    fleet_params = dict(params, layers={k: w[:FLEET_LAYERS] for k, w in
+                                        params["layers"].items()})
+    fleet_cfg = cfg.replace(n_layers=FLEET_LAYERS)
+    router_row = drive_router_serving(torch, np, ptl, fa, pa, fleet_params,
+                                      fleet_cfg, tok, smi)
     router_drill = drive_router_drill(torch, np, ptl, fa, pa, params, cfg,
                                       tok, smi)
 
     # Phase 5g: the fleet controller (ROADMAP A12 part 2): a scale-up and a
-    # drain by migration at full width, then the controller's drills at 8
-    # layers.
-    fleet_row = drive_fleet_serving(torch, np, ptl, fa, pa, params, cfg,
-                                    tok, smi)
+    # drain by migration at full width and FLEET_LAYERS deep, then the
+    # controller's drills at 8 layers.
+    fleet_row = drive_fleet_serving(torch, np, ptl, fa, pa, fleet_params,
+                                    fleet_cfg, tok, smi)
+    del fleet_params
     fleet_drill = drive_fleet_drill(torch, np, ptl, fa, pa, params, cfg,
                                     tok, smi)
 
@@ -7648,6 +8203,14 @@ def main() -> int:
 
     # Phase 9: the training path, counted from zero.
     train_row = drive_train(torch, np, ptl, fa, pa, params, cfg)
+
+    # Phase 9b: sharded training, ring attention, pipeline stages and
+    # checkpoints from a mesh (ROADMAP A14 part 2), two ranks on the card.
+    try:
+        a14 = drive_mesh_training(torch, np, ptl, fa, pa, smi, ranks)
+    finally:
+        ranks.close()
+    mt_cells = a14["mesh_train"]["cells"]
 
     # Phase 10: every kernel of the port.  ``launches`` counts the run of
     # the path each kernel serves (train for the flash kernels;
@@ -7680,6 +8243,11 @@ def main() -> int:
              "fleet_drill": fleet_drill["launches"],
              "mesh_generate": mesh_gen["launches_per_rank"][0],
              "mesh_serving": mesh_serve_row["tensor2"][
+                 "launches_per_rank"][0],
+             "mesh_train_tensor2": mt_cells["tensor2"][
+                 "launches_per_rank"][0],
+             "mesh_train_fsdp2": mt_cells["fsdp2"]["launches_per_rank"][0],
+             "pipeline_train": a14["pipeline_train"][
                  "launches_per_rank"][0]}
     # Each rank's launches on the mesh paths (every rank launches the
     # same kernels on its own heads and rows).
@@ -7688,7 +8256,10 @@ def main() -> int:
         "mesh_serving": mesh_serve_row["tensor2"]["launches_per_rank"],
         "mesh_serving_data2": mesh_serve_row["data2"]["launches_per_rank"],
         "checkpoint_tensor2": ckpt_row["runs"]["one_shot_tensor2"][
-            "launches_per_rank"]}
+            "launches_per_rank"],
+        "mesh_train_tensor2": mt_cells["tensor2"]["launches_per_rank"],
+        "mesh_train_fsdp2": mt_cells["fsdp2"]["launches_per_rank"],
+        "pipeline_train": a14["pipeline_train"]["launches_per_rank"]}
 
     def shard_sub(name):
         """The kernel at a tensor = 2 rank's shape (its kernel_check
@@ -7712,6 +8283,26 @@ def main() -> int:
     def by_path(name):
         return {path: counts[name] for path, counts in paths.items()}
 
+    def tp2_train_sub(name):
+        """The kernel at a tensor = 2 rank's training shape (its
+        kernel_check cells) and its launches per rank on the mesh
+        training paths."""
+        row = tp2_train_rows[(name, "no_dropout")]
+        drop = tp2_train_rows[(name, "dropout")]
+        return dict(
+            {k: row[k] for k in ("B", "T", "H", "KVH", "d", "instance",
+                                 "ms", "device_ms", "plain_ms",
+                                 "library_ms", "bound_ms", "bound_by")},
+            max_abs_err=max(row["worst_row_rel"], drop["worst_row_rel"]),
+            dropout_ms=drop["ms"], dropout_device_ms=drop["device_ms"],
+            dropout_plain_ms=drop["plain_ms"],
+            dropout_library_ms=drop["library_ms"],
+            dropout_bound_ms=drop["bound_ms"],
+            launches_per_rank={path: [r[name] for r in mesh_paths[path]]
+                               for path in ("mesh_train_tensor2",
+                                            "mesh_train_fsdp2",
+                                            "pipeline_train")})
+
     def train_kernel(name, replaces):
         row = train_rows[(name, "no_dropout")]
         drop = train_rows[(name, "dropout")]
@@ -7732,7 +8323,7 @@ def main() -> int:
                 if f"{name}_by_instance" in inst},
             plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"], bound_by=row["bound_by"],
-            library_ms=row["library_ms"])
+            library_ms=row["library_ms"], tp2_train=tp2_train_sub(name))
 
     def flash_sub(name, extra=()):
         row = flash_rows[name]

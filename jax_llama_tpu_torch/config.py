@@ -72,7 +72,7 @@ class LLaMAConfig:
     scan_unroll: int = 1
     remat: bool = False
     remat_policy: str = "dots"
-    attn_impl: str = "xla"                # "xla" | "flash" | "auto"
+    attn_impl: str = "xla"                # "xla" | "flash" | "ring" | "auto"
     pp_microbatches: Optional[int] = None
     attn_softmax_dtype: str = "float32"
     logits_dtype: str = "float32"
@@ -115,9 +115,6 @@ class LLaMAConfig:
         )
         if self.attn_impl not in ("xla", "flash", "ring", "auto"):
             raise ValueError(f"unknown attn_impl {self.attn_impl!r}")
-        if self.attn_impl == "ring":
-            raise NotImplementedError(
-                "attn_impl='ring' is not ported (ROADMAP A14 part 2)")
         if self.remat_policy not in ("dots", "full"):
             raise ValueError(
                 f"unknown remat_policy {self.remat_policy!r}; expected "

@@ -24,8 +24,12 @@ flipped shard fails before its weights are used.
 
 On a mesh (``load_checkpoint(..., mesh=)``) every rank maps ``params.pt``
 into memory and copies out only its own shard (``parallel.partition``'s
-specs), so no rank holds the full tree on its device.  Saving from a mesh
-(gathering the shards) is ROADMAP A14 part 2 and raises.
+specs; ``fsdp=True`` for the ZeRO-3 layout), so no rank holds the full
+tree on its device.  Saving a shard under the mesh it was sharded for
+(``use_mesh``: JAX's ``save_checkpoint`` and ``save_train_state`` take
+no mesh, its arrays carry theirs) gathers the shards and rank 0 writes
+the directory: the same files, and so the same manifest, as an unsharded
+save of the same tree.
 """
 
 from __future__ import annotations
@@ -44,7 +48,12 @@ import torch
 from ..config import LLaMAConfig
 from ..models.llama import resolve_device
 from ..ops.quant import QuantizedTensor, is_quantized
-from ..parallel.partition import sharded_leaf_index, validate_tp
+from ..parallel.mesh import current_mesh, use_mesh
+from ..parallel.partition import (
+    gather_params,
+    sharded_leaf_index,
+    validate_tp,
+)
 
 MANIFEST_NAME = "manifest.json"
 PARAMS_NAME = "params.pt"
@@ -177,25 +186,35 @@ def _restore(tree, device: torch.device, quantized: bool):
 
 
 def _restore_shard(tree, device: torch.device, quantized: bool, mesh,
-                   config: LLaMAConfig, path: Tuple[str, ...] = ()):
+                   config: LLaMAConfig, path: Tuple[str, ...] = (),
+                   fsdp: bool = False):
     """``_restore`` of this rank's shard only: each leaf of the (memory-
     mapped) saved tree is sliced by its partition spec before the copy."""
     if isinstance(tree, dict):
         if quantized and set(tree) == {"q", "scale"}:
             q = tree["q"]
             return QuantizedTensor(
-                q=q[sharded_leaf_index(mesh, config, path, q.shape)].to(
+                q=q[sharded_leaf_index(mesh, config, path, q.shape,
+                                       fsdp=fsdp)].to(
                     device, copy=True).contiguous(),
                 scale=tree["scale"][sharded_leaf_index(
                     mesh, config, path, tree["scale"].shape,
-                    scale_of=q.shape)].to(device, copy=True).contiguous())
+                    scale_of=q.shape, fsdp=fsdp)].to(
+                        device, copy=True).contiguous())
         return {k: _restore_shard(v, device, quantized, mesh, config,
-                                  path + (k,))
+                                  path + (k,), fsdp)
                 for k, v in tree.items()}
     if isinstance(tree, torch.Tensor):
-        idx = sharded_leaf_index(mesh, config, path, tree.shape)
+        idx = sharded_leaf_index(mesh, config, path, tree.shape, fsdp=fsdp)
         return tree[idx].to(device, copy=True).contiguous()
     return tree
+
+
+def _mesh_fsdp(params: Any, config: LLaMAConfig) -> bool:
+    """Whether a shard's layers hold D / fsdp of the model dimension."""
+    qkv = params["layers"]["qkv"]
+    q = qkv.q if isinstance(qkv, QuantizedTensor) else qkv
+    return q.shape[-2] != config.dim
 
 
 def _load_file(path: Path):
@@ -210,16 +229,31 @@ def save_checkpoint(path: str, params: Any, config: LLaMAConfig) -> None:
     """Write params + config to ``path``, atomically, with an integrity
     manifest (module docstring).  A quantized tree (``quantize_params``)
     round-trips: config.json's ``_quantized`` marker tells
-    ``load_checkpoint`` to rebuild its ``QuantizedTensor``s.  A
-    tensor-parallel shard raises: saving from a mesh (gathering the
-    shards) is ROADMAP A14 part 2."""
+    ``load_checkpoint`` to rebuild its ``QuantizedTensor``s.
+
+    Under an active mesh (``use_mesh``) ``params`` is this rank's shard
+    (any layout ``shard_params`` makes, fsdp included); every rank calls
+    this, the shards are gathered and rank 0 writes.  A shard without
+    its mesh raises."""
+    mesh = current_mesh()
+    if mesh is not None and mesh.size > 1:
+        full = gather_params(params, mesh, config,
+                             fsdp=_mesh_fsdp(params, config))
+        if mesh.rank == 0:
+            with use_mesh(None):
+                save_checkpoint(path, full, config)
+        del full
+        mesh.barrier()
+        return
     layers = params.get("layers", {}) if isinstance(params, dict) else {}
-    if "qkv" in layers and layers["qkv"].shape[-4] != config.kv_heads:
-        raise NotImplementedError(
-            f"save_checkpoint: the weights hold {layers['qkv'].shape[-4]} "
-            f"of {config.kv_heads} KV heads (a tensor-parallel shard); "
-            "saving from a mesh (gathering the shards) is not ported "
-            "(ROADMAP A14 part 2)")
+    if "qkv" in layers and (layers["qkv"].shape[-4] != config.kv_heads
+                            or layers["qkv"].shape[0] != config.n_layers
+                            or _mesh_fsdp(params, config)):
+        raise ValueError(
+            f"save_checkpoint: the weights are a shard "
+            f"({tuple(layers['qkv'].shape)} of qkv); save them under the "
+            "mesh they were sharded for (parallel.use_mesh), which gathers "
+            "them")
     final = Path(path).absolute()
     meta = dict(dataclasses.asdict(config), _quantized=is_quantized(params))
 
@@ -277,13 +311,13 @@ def load_checkpoint(
     without a manifest loads unverified.
 
     ``mesh``: this rank's shard of the params (``parallel.shard_params``'
-    result, read leaf by leaf from the memory-mapped file) on the mesh
-    device unless ``device`` says otherwise.  ``fsdp`` sharding is
-    ROADMAP A14 part 2 and raises.
+    result, ``fsdp=True`` for the ZeRO-3 layout, read leaf by leaf from
+    the memory-mapped file) on the mesh device unless ``device`` says
+    otherwise.
     """
-    if fsdp:
-        raise NotImplementedError(
-            "an fsdp-sharded load is not ported (ROADMAP A14 part 2)")
+    if fsdp and mesh is None:
+        raise ValueError("load_checkpoint: fsdp=True shards over a mesh; "
+                         "pass mesh=")
     if device is None:
         device = mesh.device if mesh is not None else "cuda"
     device = resolve_device(device)
@@ -299,8 +333,9 @@ def load_checkpoint(
         )
     saved = _load_file(_payload(path, PARAMS_NAME, "params"))
     if mesh is not None:
-        validate_tp(config, mesh)
-        return _restore_shard(saved, device, quantized, mesh, config), config
+        validate_tp(config, mesh, fsdp=fsdp)
+        return _restore_shard(saved, device, quantized, mesh, config,
+                              fsdp=fsdp), config
     return _restore(saved, device, quantized), config
 
 
@@ -312,7 +347,28 @@ def save_train_state(path: str, state: Any, config: LLaMAConfig) -> None:
     """Write a ``train.TrainState`` (params, AdamW moments and count, step)
     + config, atomically and with a manifest like ``save_checkpoint``: a
     periodic save that crashes mid-write never destroys the previous
-    resume point."""
+    resume point.  Under an active mesh (``use_mesh``) the state is this
+    rank's shards; every rank calls this, params and moments are
+    gathered and rank 0 writes."""
+    mesh = current_mesh()
+    if mesh is not None and mesh.size > 1:
+        from ..train import AdamWState, TrainState
+
+        fsdp = _mesh_fsdp(state.params, config)
+        opt = state.opt_state
+        full = TrainState(
+            params=gather_params(state.params, mesh, config, fsdp=fsdp),
+            opt_state=AdamWState(
+                mu=gather_params(opt.mu, mesh, config, fsdp=fsdp),
+                nu=gather_params(opt.nu, mesh, config, fsdp=fsdp),
+                count=opt.count),
+            step=state.step)
+        if mesh.rank == 0:
+            with use_mesh(None):
+                save_train_state(path, full, config)
+        del full
+        mesh.barrier()
+        return
     final = Path(path).absolute()
     meta = dict(dataclasses.asdict(config), _train_state=True)
     opt = state.opt_state
@@ -330,18 +386,24 @@ def save_train_state(path: str, state: Any, config: LLaMAConfig) -> None:
 
 def load_train_state(
     path: str,
-    device="cuda",
+    device=None,
     *,
     verify: bool = True,
+    mesh=None,
+    fsdp: bool = False,
 ) -> Tuple[Any, LLaMAConfig]:
-    """Restore (TrainState, config) for training resume on ``device``: the
-    params as autograd leaves (as ``init_train_state`` makes them), the
-    moments and counts as saved.  JAX's ``load_train_state`` also takes the
-    optimizer, to shape its restore target; the port restores the saved
-    tree as it is, so it needs none (neither package stores the
-    optimizer's hyperparameters).  ``verify`` as in ``load_checkpoint``."""
+    """Restore (TrainState, config) for training resume on ``device``
+    ("cuda" by default): the params as autograd leaves (as
+    ``init_train_state`` makes them), the moments and counts as saved.
+    JAX's ``load_train_state`` also takes the optimizer, to shape its
+    restore target; the port restores the saved tree as it is, so it
+    needs none (neither package stores the optimizer's hyperparameters).
+    ``verify`` as in ``load_checkpoint``; ``mesh`` (and ``fsdp``) as
+    there: params and moments come back as this rank's shards."""
     from ..train import AdamWState, TrainState, tree_leaves
 
+    if device is None:
+        device = mesh.device if mesh is not None else "cuda"
     device = resolve_device(device)
     path = Path(path).absolute()
     if verify:
@@ -352,8 +414,18 @@ def load_train_state(
             f"{path} is a serving checkpoint (params only); restore it "
             "with load_checkpoint"
         )
-    saved = _restore(_load_file(_payload(path, STATE_NAME, "state")),
-                     device, False)
+    raw = _load_file(_payload(path, STATE_NAME, "state"))
+    if mesh is not None:
+        validate_tp(config, mesh, fsdp=fsdp)
+        saved = dict(raw, **{
+            "params": _restore_shard(raw["params"], device, False, mesh,
+                                     config, fsdp=fsdp),
+            "opt_state": dict(raw["opt_state"], **{
+                k: _restore_shard(raw["opt_state"][k], device, False, mesh,
+                                  config, fsdp=fsdp)
+                for k in ("mu", "nu")})})
+    else:
+        saved = _restore(raw, device, False)
     for p in tree_leaves(saved["params"]):
         p.requires_grad_(True)
     opt = saved["opt_state"]

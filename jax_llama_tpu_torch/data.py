@@ -4,14 +4,14 @@
 Fixed-size [B, T] batches, greedy document packing with EOS separators
 (no padding waste) and a loss mask that excludes padding targets, as
 numpy; the behaviour, the shuffle's draws included, is the JAX
-package's.  ``to_device`` takes the place of ``shard_batch``: one card
-holds the whole batch; `shard_batch` over a mesh is ROADMAP A14 part 2.
+package's.  ``to_device`` puts a batch on one card; ``shard_batch``
+gives each rank of a mesh its rows (one process per rank):
 
     docs = (tok.encode(line, bos=True, eos=True) for line in corpus)
     for batch in batches(docs, batch_size=8, seq_len=2048, pad_id=0):
-        batch = to_device(batch, "cuda")
+        batch = shard_batch(batch, mesh)          # or to_device(batch)
         state, loss = train_step(state, batch.tokens, cfg, opt,
-                                 loss_mask=batch.loss_mask)
+                                 loss_mask=batch.loss_mask, mesh=mesh)
 """
 
 from __future__ import annotations
@@ -124,12 +124,32 @@ def _buffered_shuffle(rows: Iterator[Batch], buffer: int,
     yield from pool
 
 
+def shard_batch(batch: Batch, mesh: Any) -> Batch:
+    """This rank's rows of a global host batch on its mesh device (JAX
+    :129): the batch dimension splits over ``("data", "fsdp")`` in the
+    axes' rank order, every other axis holds every row (tokens int32,
+    loss_mask bool).  Every rank passes the same global batch."""
+    from .parallel.mesh import ROWS
+
+    n, i = mesh.axis_size(ROWS), mesh.axis_index(ROWS)
+    B = np.shape(batch.tokens)[0]
+    if B % n:
+        raise ValueError(
+            f"data*fsdp={n} must divide the batch of {B} rows")
+    rows = slice(i * (B // n), (i + 1) * (B // n))
+    return Batch(
+        tokens=torch.as_tensor(np.asarray(batch.tokens)[rows],
+                               dtype=torch.int32, device=mesh.device),
+        loss_mask=torch.as_tensor(np.asarray(batch.loss_mask)[rows],
+                                  dtype=torch.bool, device=mesh.device),
+    )
+
+
 def to_device(batch: Batch, device="cuda", mesh: Any = None) -> Batch:
-    """Copy a host batch onto ``device`` (tokens int32, loss_mask bool).
-    A mesh (the JAX package's ``shard_batch``) is not ported."""
+    """Copy a host batch onto ``device`` (tokens int32, loss_mask bool);
+    with ``mesh``, ``shard_batch``."""
     if mesh is not None:
-        raise NotImplementedError(
-            "shard_batch over a mesh is not ported (ROADMAP A14 part 2)")
+        return shard_batch(batch, mesh)
     device = resolve_device(device)
     return Batch(
         tokens=torch.as_tensor(batch.tokens, dtype=torch.int32, device=device),

@@ -70,8 +70,7 @@ for the write.
 ``forward(output_hidden_states=True)`` returns every block's input and
 the final hidden state on whichever attention path the config resolves;
 ``output_attentions=True`` forces the xla path, the only one that
-materializes the probabilities.  Ring attention and pipeline stages
-raise ``NotImplementedError`` (ROADMAP A14 part 2).
+materializes the probabilities.
 
 Tensor and data parallelism (``parallel``; one process per rank): under
 ``parallel.use_mesh(mesh)`` every rank calls ``forward`` with the GLOBAL
@@ -90,6 +89,42 @@ every row, as the JAX package's pool replicates over ``data``: the new
 K/V of a row-split step are all-gathered over the rows before they land,
 so every data rank holds every row's KV.  A sharded tree without a mesh,
 or a mesh whose tensor axis does not match the tree, raises.
+
+Sequence, pipeline and ZeRO-3 axes (``parallel.ring``,
+``parallel.pipeline``):
+
+* ``attn_impl="ring"`` without a cache on a ``seq > 1`` mesh: each seq
+  rank runs its contiguous T / seq slice of every row and attends through
+  ``ring_sdpa``; the outputs are gathered over ``seq``.  With a cache on
+  a ``seq > 1`` mesh the cache holds this rank's S / seq slots
+  (``init_cache``) and every seq rank runs the step's tokens through
+  ``ring_decode`` over the PRE-step cache, landing the part of the
+  step's K/V that falls in its own slots afterwards (a lockstep index
+  only).  ``ring`` on ``seq == 1`` is dense ``sdpa`` without a cache and
+  the flash branch with one (JAX :817-833).
+* ``stage > 1``: the tree holds this stage's L / stage layers and the
+  block stack runs ``pipeline_blocks`` (``config.pp_microbatches``
+  microbatches, ``stage`` by default); no cache, no per-layer outputs,
+  no ``seq > 1`` (JAX :1165-1230).
+* A tree sharded with ``fsdp=True`` is all-gathered a layer at a time
+  before use (inside the block, so remat gathers again in the backward
+  pass); the gather's backward reduce-scatters the gradient.
+
+Under autograd the collectives go through ``Mesh``'s differentiable
+forms: *f* (``copy_f``) in front of the column-parallel qkv, gate_up and
+LM head products, *g* (``reduce_g``) after the row-parallel o and down
+products and the vocab-sharded embedding, ``gather_slice`` for the
+logits.  ``forward(local_rows=True)`` (the training loss under a mesh)
+takes this rank's rows, as ``data.shard_batch`` gives them, and returns
+this rank's rows and sequence slice.  Dropout on a mesh draws every
+generator mask (embedding, residual, the xla path's attention) whole
+from the layer's generator and keeps this rank's slice, so the masks are
+the unsharded run's; the ring path's mask is the position hash keyed on
+global rows and heads; the flash kernel keys its hash on the rows and KV
+heads of its own call, so on a row- or tensor-split mesh each rank folds
+its global row and KV-head offsets into the layer's seed words
+(``_fold_seed``; unchanged at offset zero): its masks are independent
+draws, not the unsharded run's.
 
 Layout helpers (JAX :499-:580): ``rope_permute`` moves q/k features
 between Meta's interleaved RoPE order and the half-split order,
@@ -115,7 +150,11 @@ from torch.utils.checkpoint import (
 
 from ..config import LLaMAConfig, torch_dtype
 from ..ops.attention import attention_bias, dropout, sdpa, sdpa_cached
-from ..ops.flash_attention import flash_attention, flash_attention_quantized
+from ..ops.flash_attention import (
+    _mix32,
+    flash_attention,
+    flash_attention_quantized,
+)
 from ..ops.kernels import (
     splash_eligible,
     splash_prefill_attention,
@@ -126,13 +165,22 @@ from ..ops.norm import rms_norm
 from ..ops.paged_attention import paged_decode_attention
 from ..ops.quant import QuantizedTensor, matmul, quantize_kv
 from ..ops.rope import apply_rope, rope_table
-from ..parallel.mesh import ROWS, constrain, current_mesh, local_size
+from ..parallel.mesh import (
+    ROWS,
+    constrain,
+    current_mesh,
+    local_size,
+    use_mesh,
+)
 from ..parallel.partition import (
     local_shape,
+    mesh_specs,
     param_partition_specs,
     shard_index,
     validate_tp,
 )
+from ..parallel.pipeline import pipeline_blocks
+from ..parallel.ring import ring_decode, ring_sdpa
 from ..parallel.serve_mesh import constrain_pool, constrain_view, fits
 
 Params = Dict[str, Any]
@@ -192,6 +240,13 @@ class KVCache:
     @property
     def per_row_index(self) -> bool:
         return isinstance(self.index, torch.Tensor)
+
+
+def _seq_cached(config: LLaMAConfig, mesh) -> bool:
+    """Whether a cache on ``mesh`` is sharded along its slots: ring
+    attention on a ``seq > 1`` mesh."""
+    return (config.attn_impl == "ring" and mesh is not None
+            and mesh.shape["seq"] > 1)
 
 
 @dataclasses.dataclass
@@ -325,13 +380,23 @@ def init_cache(
     """Allocate an empty cache on ``device``: int8 payload with zero
     scales when ``config.kv_cache_dtype == "int8"`` and no ``dtype`` is
     given (JAX :434-452).  Under an active mesh the cache holds this
-    rank's KV-head slice (KVH/tp heads) and every row."""
+    rank's KV-head slice (KVH/tp heads) and every row; under
+    ``attn_impl="ring"`` on a ``seq > 1`` mesh, this rank's contiguous
+    ``max_len / seq`` slots (``ring_decode``'s shard)."""
     config.validate()
     device = resolve_device(device)
     max_len = max_len or config.max_seq_len
     int8_kv = config.kv_cache_dtype == "int8" and dtype is None
     dtype = torch.int8 if int8_kv else (dtype or config.activation_dtype)
-    kvh = local_size(current_mesh(), config.kv_heads, "tensor")
+    mesh = current_mesh()
+    kvh = local_size(mesh, config.kv_heads, "tensor")
+    if _seq_cached(config, mesh):
+        n = mesh.shape["seq"]
+        if max_len % n:
+            raise ValueError(
+                f"a seq-sharded cache needs seq={n} to divide its "
+                f"{max_len} slots")
+        max_len //= n
     shape = (config.n_layers, batch, max_len, kvh, config.head_dim)
 
     def scales():
@@ -372,7 +437,8 @@ def init_params(
     device = resolve_device(device)
     if mesh is not None:
         validate_tp(config, mesh)
-    specs = param_partition_specs(config)
+    specs = (mesh_specs(config, mesh) if mesh is not None
+             else param_partition_specs(config))
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(seed)
     D, H, KVH, hd, F_, V, L = (
@@ -582,6 +648,29 @@ def _rope_tables(head_dim, max_positions, theta, scaled, device):
     return torch.from_numpy(cos).to(device), torch.from_numpy(sin).to(device)
 
 
+def _gather_fsdp(w, dim: int):
+    """A leaf sharded over ``fsdp`` along ``dim``, all-gathered (its
+    backward reduce-scatters the gradient)."""
+    mesh = current_mesh()
+    if mesh is None or mesh.axis_size("fsdp") == 1:
+        return w
+    if isinstance(w, QuantizedTensor):
+        raise NotImplementedError(
+            "an fsdp-sharded tree is full precision (training); quantize "
+            "a tree sharded without fsdp")
+    return mesh.gather_scatter(w, "fsdp", dim)
+
+
+def _head_kernel(params: Params, config: LLaMAConfig, fsdp: bool):
+    """The LM head [D, V_local] (the tied embedding transposed), with an
+    fsdp-sharded tree's D (untied) or V (tied) gathered."""
+    if config.tie_word_embeddings:
+        table = params["embed"]["embedding"]
+        return (_gather_fsdp(table, 0) if fsdp else table).T
+    head = params["lm_head"]
+    return _gather_fsdp(head, 0) if fsdp else head
+
+
 def lm_head_logits(
     params: Params, x: torch.Tensor, config: LLaMAConfig, normed: bool = False
 ) -> torch.Tensor:
@@ -590,32 +679,34 @@ def lm_head_logits(
     post-final-norm hidden state."""
     if not normed:
         x = rms_norm(x, params["final_norm"], config.rms_norm_eps)
-    if config.tie_word_embeddings:
-        kernel = params["embed"]["embedding"].T
-    else:
-        kernel = params["lm_head"]
+    mesh = current_mesh()
+    kernel = _head_kernel(params, config, _fsdp_sharded(params, config))
     B, T, D = x.shape
+    if mesh is not None:
+        x = mesh.copy_f(x, "tensor")   # column-parallel head
     if isinstance(kernel, QuantizedTensor):
         logits = (matmul_f32_out(x.reshape(B * T, D), kernel.q)
                   * kernel.scale.reshape(-1))
     else:
         logits = matmul_f32_out(x.reshape(B * T, D), kernel)
     logits = logits.reshape(B, T, -1).to(torch_dtype(config.logits_dtype))
-    mesh = current_mesh()
     if mesh is not None:
         # Column-parallel head: each tensor rank holds V/tp logits.
         constrain(logits, None, None, "tensor",
                   full=(None, None, config.vocab_size))
-        logits = mesh.all_gather(logits, "tensor", dim=-1)
+        logits = mesh.gather_slice(logits, "tensor", dim=-1)
     return logits
 
 
 def _embed(params: Params, tokens: torch.Tensor, config: LLaMAConfig,
-           dtype: torch.dtype) -> torch.Tensor:
+           dtype: torch.dtype, fsdp: bool = False) -> torch.Tensor:
     """The token embedding; over a vocab-sharded table (tensor > 1) a
     masked gather of this rank's rows and an ``all_reduce``, which is
-    exact (one rank contributes each row, the others zeros)."""
+    exact (one rank contributes each row, the others zeros).  An
+    fsdp-sharded table is gathered over ``fsdp`` first."""
     table = params["embed"]["embedding"]
+    if fsdp:
+        table = _gather_fsdp(table, 0)
     mesh = current_mesh()
     if mesh is None or mesh.axis_size("tensor") == 1:
         return table[tokens.long()].to(dtype)
@@ -625,17 +716,47 @@ def _embed(params: Params, tokens: torch.Tensor, config: LLaMAConfig,
     hit = (local >= 0) & (local < n)
     x = torch.where(hit[..., None], table[local.clamp(0, n - 1)].to(dtype),
                     torch.zeros((), dtype=dtype, device=table.device))
-    return mesh.all_reduce(x, "tensor")
+    return mesh.reduce_g(x, "tensor")
+
+
+def _fsdp_sharded(params: Params, config: LLaMAConfig) -> bool:
+    """Whether ``params`` is a tree sharded with ``fsdp=True``: its
+    layers hold D / fsdp of the model dimension."""
+    qkv = params["layers"]["qkv"]
+    d = (qkv.q if isinstance(qkv, QuantizedTensor) else qkv).shape[-2]
+    if d == config.dim:
+        return False
+    mesh = current_mesh()
+    fs = mesh.axis_size("fsdp") if mesh is not None else 1
+    if d * fs != config.dim:
+        raise ValueError(
+            f"the weights hold {d} of dim={config.dim} (an fsdp shard); run "
+            "under the mesh they were sharded for (parallel.use_mesh, or "
+            "mesh=)")
+    return True
 
 
 @dataclasses.dataclass(frozen=True)
 class _Shard:
-    """How one forward call splits over the active mesh: ``rows`` is
-    this rank's slice of the rows when they split over the row axes
-    (None: every row runs here)."""
+    """How one forward call splits over the active mesh.
+
+    rows: this rank's slice of the rows when they split over the row
+      axes (global inputs; None: every row runs here).
+    local: the inputs are already this rank's rows (``local_rows``); the
+      outputs stay this rank's.
+    row0, n_rows: the global index of this rank's first row and the
+      global row count.
+    seq: this rank's slice of T (ring attention on ``seq > 1``).
+    fsdp: the weights are fsdp-sharded (gathered per use).
+    """
 
     mesh: Any
     rows: Optional[slice]
+    local: bool = False
+    row0: int = 0
+    n_rows: int = 0
+    seq: Optional[slice] = None
+    fsdp: bool = False
 
     def take(self, t):
         """This rank's rows of a per-row input (identity off-split).  A
@@ -647,6 +768,13 @@ class _Shard:
         part = t[self.rows]
         return part if part.data_ptr() % 16 == 0 else part.clone()
 
+    def take_seq(self, t):
+        """This rank's slice of T of a [B, T, ...] input (identity
+        off-split)."""
+        if self.seq is None or t is None:
+            return t
+        return t[:, self.seq].contiguous()
+
     def view(self, t):
         """This rank's rows of a cache plane, as a view written in place
         (identity off-split)."""
@@ -655,15 +783,34 @@ class _Shard:
         return t[self.rows]
 
     def gather(self, t: Optional[torch.Tensor], dim: int = 0):
-        """Every row's value of a per-row output (identity off-split)."""
-        if self.rows is None or t is None:
+        """Every row's value of a per-row output (identity off-split, and
+        when the outputs stay local)."""
+        if self.rows is None or t is None or self.local:
             return t
-        return self.mesh.all_gather(t, ROWS, dim=dim)
+        return self.mesh.gather_slice(t, ROWS, dim=dim)
+
+    def gather_seq(self, t: Optional[torch.Tensor], dim: int = 1):
+        """Every position's value of an output split over ``seq``."""
+        if self.seq is None or t is None or self.local:
+            return t
+        return self.mesh.gather_slice(t, "seq", dim=dim)
+
+    def place(self, n_local: int, t_full: int, row0: int = None):
+        """Where ``n_local`` rows starting at global row ``row0`` (this
+        rank's first by default) sit: (global rows, global T, row slice,
+        T slice), for dropout masks drawn whole."""
+        r0 = self.row0 if row0 is None else row0
+        return (self.n_rows, t_full, slice(r0, r0 + n_local),
+                self.seq if self.seq is not None else slice(None))
 
 
-def _shard_ctx(params: Params, config: LLaMAConfig, n_rows: int) -> _Shard:
+def _shard_ctx(params: Params, config: LLaMAConfig, n_rows: int,
+               local: bool = False, split_rows: bool = True,
+               seq_len: Optional[int] = None) -> _Shard:
     """Check the weights against the active mesh (a shard without one,
-    or a shard of another tensor width, raises) and split the rows."""
+    or a shard of another tensor width, raises) and split the rows (not
+    with ``split_rows=False``) and, given ``seq_len`` (ring attention),
+    the sequence."""
     mesh = current_mesh()
     kvh = params["layers"]["qkv"].shape[-4]
     if mesh is None:
@@ -672,15 +819,31 @@ def _shard_ctx(params: Params, config: LLaMAConfig, n_rows: int) -> _Shard:
                 f"the weights hold {kvh} of {config.kv_heads} KV heads (a "
                 "tensor-parallel shard); run under the mesh they were "
                 "sharded for (parallel.use_mesh, or mesh=)")
-        return _Shard(None, None)
+        _fsdp_sharded(params, config)
+        return _Shard(None, None, n_rows=n_rows)
     constrain(params["layers"]["qkv"], None, "tensor",
               full=(None, config.kv_heads))
+    fsdp = _fsdp_sharded(params, config)
+    seq = None
+    if seq_len is not None and mesh.shape["seq"] > 1:
+        n = mesh.shape["seq"]
+        if seq_len % n:
+            raise ValueError(
+                f"ring attention over seq={n} needs it to divide the "
+                f"{seq_len} tokens of the call")
+        i = mesh.axis_index("seq")
+        seq = slice(i * (seq_len // n), (i + 1) * (seq_len // n))
     rows = mesh.axis_size(ROWS)
-    if rows > 1 and fits(mesh, config.kv_heads, n_rows):
+    if local:
+        return _Shard(mesh, None, local=True,
+                      row0=mesh.axis_index(ROWS) * n_rows,
+                      n_rows=n_rows * rows, seq=seq, fsdp=fsdp)
+    if split_rows and rows > 1 and fits(mesh, config.kv_heads, n_rows):
         b = n_rows // rows
         i = mesh.axis_index(ROWS)
-        return _Shard(mesh, slice(i * b, (i + 1) * b))
-    return _Shard(mesh, None)
+        return _Shard(mesh, slice(i * b, (i + 1) * b), row0=i * b,
+                      n_rows=n_rows, seq=seq, fsdp=fsdp)
+    return _Shard(mesh, None, n_rows=n_rows, seq=seq, fsdp=fsdp)
 
 
 def _proj(h: torch.Tensor, w) -> torch.Tensor:
@@ -766,6 +929,10 @@ def _block(
     chunk_offset: Optional[int] = None,
     weights_out: Optional[list] = None,
     splash: bool = False,
+    place: Optional[Tuple] = None,
+    fsdp: bool = False,
+    ring_new_pos: Optional[torch.Tensor] = None,
+    ring_lo: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One pre-norm transformer block, x: [B, T, D]; ``impl`` is the
     resolved attention path.  Writes this block's new K/V into
@@ -784,8 +951,18 @@ def _block(
     are summed over ``tensor`` (``all_reduce``).
     ``drop`` (training, cache-free) applies the layer's attention and
     residual dropout.  ``weights_out`` (a list; the xla path only)
-    receives the block's attention probabilities.  Returns (x, the
-    block's new K, its new V) at full precision."""
+    receives the block's attention probabilities.  ``place`` (a mesh
+    call; ``_Shard.place``) says where x's rows and tokens sit in the
+    global batch, for the dropout masks and the kernels' offsets;
+    ``fsdp`` gathers the layer's fsdp-sharded weights first.
+    ``impl="ring"`` attends through ``ring_sdpa`` (cache-free);
+    ``impl="ring_decode"`` through ``ring_decode`` over the pre-step
+    cache shard (``slot_pos``), the step's own positions in
+    ``ring_new_pos``, then lands the step's K/V where they fall in this
+    rank's slots, which start at global slot ``ring_lo``.  Returns (x,
+    the block's new K, its new V) at full precision."""
+    if fsdp:
+        lp = _gather_layer(lp)
     B, T, D = x.shape
     adt = x.dtype
     hd = config.head_dim
@@ -797,8 +974,18 @@ def _block(
     gen = None
     if drop is not None:
         gen = torch.Generator(device=x.device).manual_seed(drop.seed)
+    kvh_off = mesh.axis_index("tensor") * KVH if mesh is not None else 0
+    if place is None:
+        place = (B, T, slice(None), slice(None))
+    n_rows, t_full, rows, tsl = place
+
+    def resid_drop(y):
+        return dropout(y, drop.resid_rate, gen,
+                       ((n_rows, t_full, D), (rows, tsl)))
 
     h = rms_norm(x, lp["attn_norm"], config.rms_norm_eps).reshape(B * T, D)
+    if mesh is not None:
+        h = mesh.copy_f(h, "tensor")          # column-parallel qkv
     qkv = _proj(h, lp["qkv"]).reshape(B, T, KVH, G + 2, hd)
     q = qkv[:, :, :, :G].reshape(B, T, H, hd)
     k = qkv[:, :, :, G]
@@ -808,7 +995,23 @@ def _block(
 
     int8 = cache_ks is not None
     want_w = weights_out is not None
-    if impl == "paged":
+    if impl == "ring_decode":
+        # Seq-sharded cached decode: this rank's slots of the pre-step
+        # cache, combined over ``seq``; the step's K/V merge at the
+        # softmax level, then land where they fall in this rank's slots
+        # (JAX :685-705).
+        if int8:
+            attn = ring_decode(q, cache_k, cache_v, slot_pos, k, v,
+                               positions, ring_new_pos,
+                               softmax_dtype=softmax_dtype,
+                               k_scale=cache_ks, v_scale=cache_vs)
+        else:
+            attn = ring_decode(q, cache_k.to(adt), cache_v.to(adt),
+                               slot_pos, k, v, positions, ring_new_pos,
+                               softmax_dtype=softmax_dtype)
+        _seq_write_kv(cache_k, cache_v, cache_ks, cache_vs, k, v,
+                      cache_index - ring_lo)
+    elif impl == "paged":
         pool, q_pos_row, layer = paged
         if (config.decode_kernel == "stock-paged" and T == 1
                 and not pool.quantized):
@@ -854,7 +1057,13 @@ def _block(
         else:
             kk, vv = k, v
         attn_rate = drop.attn_rate if drop is not None else 0.0
-        if impl == "flash" and cache_k is not None and splash:
+        if impl == "ring" and mesh is not None and mesh.shape["seq"] > 1:
+            attn = ring_sdpa(
+                q, kk, vv, positions, slot_pos,
+                dropout_rng=drop.attn_seed if attn_rate > 0.0 else None,
+                dropout_rate=attn_rate,
+                b_off=rows.start or 0, h_off=kvh_off * G)
+        elif impl == "flash" and cache_k is not None and splash:
             # The insert's chunk offset is a static int: the chunk's
             # causal window is a static offset mask (no dropout with a
             # cache).
@@ -863,31 +1072,84 @@ def _block(
         elif impl == "flash":
             attn = flash_attention(
                 q, kk, vv, positions, slot_pos, dropout_rate=attn_rate,
-                dropout_seed=drop.attn_seed if attn_rate > 0.0 else None)
+                dropout_seed=(_fold_seed(drop.attn_seed, rows.start or 0,
+                                         kvh_off)
+                              if attn_rate > 0.0 else None))
         else:
+            S = kk.shape[1]
             attn = sdpa(q, kk, vv, bias, softmax_dtype=softmax_dtype,
                         dropout_rate=attn_rate, generator=gen,
-                        return_weights=want_w)
+                        return_weights=want_w, dropout_shard=(
+                            (n_rows, config.kv_heads, G, T, S),
+                            (rows, slice(kvh_off, kvh_off + KVH))))
             if want_w:
                 attn, w = attn
                 weights_out.append(w)
 
     attn_out = matmul(attn.reshape(B * T, H * hd), lp["o"])
     if mesh is not None:
-        mesh.all_reduce(attn_out, "tensor")   # row-parallel o
+        attn_out = mesh.reduce_g(attn_out, "tensor")   # row-parallel o
     if drop is not None and drop.resid_rate > 0.0:
-        attn_out = dropout(attn_out, drop.resid_rate, gen)
+        attn_out = resid_drop(attn_out)
     x = x + attn_out.reshape(B, T, D)
 
     h = rms_norm(x, lp["mlp_norm"], config.rms_norm_eps).reshape(B * T, D)
+    if mesh is not None:
+        h = mesh.copy_f(h, "tensor")          # column-parallel gate_up
     gate_up = _proj(h, lp["gate_up"])  # [N, 2, F]
     hidden = F.silu(gate_up[:, 0]) * gate_up[:, 1]
     down = matmul(hidden, lp["down"])
     if mesh is not None:
-        mesh.all_reduce(down, "tensor")       # row-parallel down
+        down = mesh.reduce_g(down, "tensor")  # row-parallel down
     if drop is not None and drop.resid_rate > 0.0:
-        down = dropout(down, drop.resid_rate, gen)
+        down = resid_drop(down)
     return x + down.reshape(B, T, D), k, v
+
+
+# The fsdp-sharded dimension of each per-layer weight (JAX partition :56).
+_FSDP_DIMS = {"qkv": -2, "o": -1, "gate_up": -2, "down": -1}
+
+
+def _gather_layer(lp: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """One layer's fsdp-sharded weights, all-gathered (ZeRO-3)."""
+    return {name: (_gather_fsdp(w, _FSDP_DIMS[name]) if name in _FSDP_DIMS
+                   else w) for name, w in lp.items()}
+
+
+def _fold_seed(seed: Tuple[int, int], b_off: int,
+               kvh_off: int) -> Tuple[int, int]:
+    """The flash kernel's seed words for a call whose rows and KV heads
+    start at global ``b_off`` and ``kvh_off``: the layer's words at
+    offset zero, else the words mixed with the offsets' plane hash (the
+    kernel keys its hash on the call's own rows and heads)."""
+    if b_off == 0 and kvh_off == 0:
+        return seed
+    off = torch.tensor([(b_off * 0x9E3779B9 + kvh_off * 0x85EBCA6B + 1)
+                        & 0xFFFFFFFF], dtype=torch.int64)
+    plane = int(_mix32(off)[0])
+    lo = int(_mix32(torch.tensor([seed[0] ^ plane]))[0])
+    hi = int(_mix32(torch.tensor([seed[1] ^ plane ^ 0x85EBCA6B]))[0])
+    return lo, hi
+
+
+def _seq_part(S: int, T: int, local_index: int):
+    """Of T tokens landing at ``local_index`` of a slot shard of S slots
+    (the global index less the shard's first slot): (the tokens that
+    fall in ``[0, S)``, their first slot), or None."""
+    lo, hi = max(local_index, 0), min(local_index + T, S)
+    if lo >= hi:
+        return None
+    return slice(lo - local_index, hi - local_index), lo
+
+
+def _seq_write_kv(cache_k, cache_v, cache_ks, cache_vs, k, v,
+                  local_index: int) -> None:
+    """Land the part of the step's [B, T] K/V that falls in a slot shard
+    (``_seq_part``); quantized first when the cache is int8."""
+    part = _seq_part(cache_k.shape[1], k.shape[1], local_index)
+    if part is not None:
+        _cache_write_kv(cache_k, cache_v, cache_ks, cache_vs, k[:, part[0]],
+                        v[:, part[0]], part[1])
 
 
 def _cache_write_kv(cache_k, cache_v, cache_ks, cache_vs, k, v, index):
@@ -917,14 +1179,23 @@ def _remat(fn, config: LLaMAConfig):
     """``fn`` under per-block rematerialization (JAX ``_remat``): "full"
     recomputes the whole block in the backward pass, "dots" saves the
     matmul outputs (the QKV, attention-out and MLP projections) and
-    recomputes the elementwise work and the attention kernel."""
+    recomputes the elementwise work and the attention kernel.  The
+    recompute runs where autograd runs it (on its own thread for CUDA
+    tensors), so the block re-enters the mesh that was active when it
+    first ran: its collectives are issued again, on the same groups."""
     kw = {}
     if config.remat_policy == "dots":
         kw["context_fn"] = functools.partial(
             create_selective_checkpoint_contexts, _save_matmuls)
 
     def run(*args):
-        return checkpoint(fn, *args, use_reentrant=False, **kw)
+        mesh = current_mesh()
+
+        def under_mesh(*a):
+            with use_mesh(mesh):
+                return fn(*a)
+
+        return checkpoint(under_mesh, *args, use_reentrant=False, **kw)
 
     return run
 
@@ -958,6 +1229,7 @@ def forward(
     output_attentions: bool = False,
     output_last_hidden: bool = False,
     chunk_offset: Optional[int] = None,
+    local_rows: bool = False,
 ):
     """Run the transformer.
 
@@ -996,6 +1268,11 @@ def forward(
         Only the splash prefill kernel reads it: a cached flash chunk
         runs splash where ``ops.kernels.splash_eligible`` holds.  None
         (the default) keeps the flash kernel.
+      local_rows: under a mesh, ``tokens`` and ``positions`` are this
+        rank's rows of the global batch (``data.shard_batch``), and the
+        outputs stay this rank's rows and, under ring attention on a
+        ``seq > 1`` mesh, its slice of T (the training loss); cache-free
+        only.
     Returns:
       (logits [B, T, V] in config.logits_dtype or None, cache or None),
       plus the AuxOutput when any output flag is set (JAX :1013-1025,
@@ -1011,10 +1288,6 @@ def forward(
         raise ValueError(
             "dropout_rng is training-only; cached decode is deterministic "
             "(pass dropout_rng=None)")
-    if dropout_rng is not None and current_mesh() is not None:
-        raise NotImplementedError(
-            "training on a mesh (dropout_rng under a mesh) is not ported "
-            "(ROADMAP A14 part 2)")
     if isinstance(cache, PagedKVCache):
         if collect or output_last_hidden:
             raise NotImplementedError(
@@ -1026,6 +1299,8 @@ def forward(
                              compute_logits=compute_logits)
     if cache is not None and not isinstance(cache, KVCache):
         raise NotImplementedError(f"{type(cache).__name__} is not ported")
+    if local_rows and cache is not None:
+        raise ValueError("local_rows is cache-free (the training loss)")
     config.validate()
     device = _params_device(params)
     tokens = tokens.to(device)
@@ -1037,46 +1312,97 @@ def forward(
     attn_mask = attn_mask.to(device=device, dtype=torch.bool)
     q_positions = positions.clamp(min=0).contiguous()
     per_row = cache is not None and cache.per_row_index
-    sh = _shard_ctx(params, config, B)
-    if cache is not None:
-        constrain_view(cache, config.kv_heads)
-    if cache is not None and not per_row and cache.index + T > cache.max_len:
-        raise ValueError(
-            f"cache overflow: index {cache.index} + {T} tokens > "
-            f"{cache.max_len} slots"
-        )
-
-    max_positions = max(
-        2 * config.max_seq_len, cache.max_len if cache is not None else 0
-    )
-    cos, sin = _rope_tables(
-        config.head_dim, max_positions, config.rope_theta,
-        config.use_scaled_rope, device,
-    )
-    x = _embed(params, sh.take(tokens), config, adt)
-    drops = [None] * config.n_layers
-    if dropout_rng is not None:
-        gen = _dropout_generator(dropout_rng, device)
-        if config.embd_pdrop > 0.0:
-            x = dropout(x, config.embd_pdrop, gen)
-        if config.resid_pdrop > 0.0 or config.attn_pdrop > 0.0:
-            drops = _layer_dropouts(gen, config)
+    mesh = current_mesh()
+    n_seq = mesh.shape["seq"] if mesh is not None else 1
+    n_stage = mesh.shape["stage"] if mesh is not None else 1
 
     impl = config.attn_impl
     if impl == "auto":
         impl = "flash" if T > FLASH_MIN_SEQ and not per_row else "xla"
     if output_attentions:
+        if impl == "ring":
+            raise NotImplementedError(
+                "output_attentions does not compose with ring "
+                "(seq-sharded) attention -- the chunked accumulation "
+                "never materializes the weights; use "
+                "attn_impl='xla'/'auto'/'flash'")
         impl = "xla"  # the only path that materializes [B, H, T, S]
+    ring_cached = False
+    if cache is not None and impl == "ring":
+        if n_seq > 1:
+            if per_row:
+                raise NotImplementedError(
+                    "seq-sharded decode needs a lockstep (scalar) cache "
+                    "index; continuous batching uses seq == 1 meshes")
+            ring_cached = True
+            impl = "ring_decode"
+        else:
+            impl = "flash"  # ring with a cache on seq == 1 (JAX :833)
     if per_row and impl != "xla":
         raise NotImplementedError(
             "per-row cache indices (continuous batching) run on the xla "
             "attention path only")
+    if n_stage > 1 and cache is not None:
+        raise NotImplementedError(
+            "decode with a KV cache is not supported on a stage > 1 mesh; "
+            "generation meshes keep stage == 1 (use data/tensor axes)")
+    if n_stage > 1 and collect:
+        raise NotImplementedError(
+            "output_hidden_states/output_attentions are not supported on "
+            "stage > 1 (pipeline) meshes -- per-layer outputs live on "
+            "their stage group; run the eval forward on a stage == 1 mesh")
+    if n_stage > 1 and n_seq > 1:
+        raise NotImplementedError(
+            "stage > 1 does not compose with seq > 1 (ring attention "
+            "nests a second shard_map); use stage*tensor*data/fsdp "
+            "meshes for pipeline training")
     xla_cached = cache is not None and impl == "xla"
+    seq_split = impl == "ring" and cache is None and n_seq > 1
+    sh = _shard_ctx(params, config, B, local=local_rows,
+                    split_rows=not ring_cached,
+                    seq_len=T if seq_split else None)
+    if cache is not None:
+        constrain_view(cache, config.kv_heads)
+    capacity = cache.max_len * n_seq if ring_cached else (
+        cache.max_len if cache is not None else 0)
+    if cache is not None and not per_row and cache.index + T > capacity:
+        raise ValueError(
+            f"cache overflow: index {cache.index} + {T} tokens > "
+            f"{capacity} slots"
+        )
+
+    max_positions = max(2 * config.max_seq_len, capacity)
+    cos, sin = _rope_tables(
+        config.head_dim, max_positions, config.rope_theta,
+        config.use_scaled_rope, device,
+    )
+    x = _embed(params, sh.take_seq(sh.take(tokens)), config, adt,
+               fsdp=sh.fsdp)
+    l_B, l_T = x.shape[:2]
+    drops = [None] * config.n_layers
+    if dropout_rng is not None:
+        gen = _dropout_generator(dropout_rng, device)
+        if config.embd_pdrop > 0.0:
+            n_rows, t_full, rows, tsl = sh.place(l_B, T)
+            x = dropout(x, config.embd_pdrop, gen,
+                        ((n_rows, t_full, x.shape[-1]), (rows, tsl)))
+        if config.resid_pdrop > 0.0 or config.attn_pdrop > 0.0:
+            drops = _layer_dropouts(gen, config)
 
     new_slot_pos = torch.where(
         attn_mask, q_positions, torch.full_like(q_positions, -1)
     )
-    if cache is not None:
+    ring_lo = 0
+    if ring_cached:
+        # This rank's slots [ring_lo, ring_lo + S_local) of the global
+        # cache; ring_decode reads the pre-step positions.
+        ring_lo = mesh.axis_index("seq") * cache.max_len
+        slot_pos = cache.pos.clone()
+        part = _seq_part(cache.max_len, T, cache.index - ring_lo)
+        if part is not None:
+            slot_pos[:, part[1]:part[1] + part[0].stop - part[0].start] = (
+                new_slot_pos[:, part[0]])
+    elif cache is not None:
         slot_pos = cache.pos.clone()
         # the positions plane as a [B, S, 1, 1] "layer"
         _cache_write(slot_pos[..., None, None], new_slot_pos[..., None, None],
@@ -1087,17 +1413,21 @@ def forward(
     if xla_cached:
         bias = attention_bias(q_positions, cache.pos, cache.pos >= 0)
         bias_new = attention_bias(q_positions, new_slot_pos, attn_mask)
-    elif impl != "flash":
+    elif impl == "xla" or (impl == "ring" and n_seq == 1):
+        # ring on seq == 1 is dense sdpa (JAX ring_sdpa :277).
         bias = attention_bias(q_positions, slot_pos, slot_pos >= 0)
     splash = (impl == "flash" and cache is not None and splash_eligible(
         config, batch=B, q_len=T, kv_len=cache.max_len,
         chunk_offset=chunk_offset, quantized=cache.quantized))
-    # This rank's rows (all of them unless they split over the row axes);
-    # the cache writes of a row-split call land after the loop.
-    l_pos, l_bias, l_bias_new = (sh.take(q_positions), sh.take(bias),
-                                 sh.take(bias_new))
-    l_slot_pos = sh.take(slot_pos)
+    # This rank's rows (all of them unless they split over the row axes)
+    # and tokens (a slice of T under ring attention on seq > 1); the
+    # cache writes of a row-split call land after the loop.
+    l_pos = sh.take_seq(sh.take(q_positions))
+    l_bias, l_bias_new = sh.take(bias), sh.take(bias_new)
+    l_slot_pos = (cache.pos if ring_cached
+                  else sh.take_seq(sh.take(slot_pos)))
     l_index = sh.take(cache.index) if cache is not None else None
+    place = sh.place(l_B, T)
 
     # unbind, not w[i]: its backward stacks the per-layer gradients once
     # instead of adding a zero-filled full-stack gradient per layer.
@@ -1108,23 +1438,47 @@ def forward(
     hs: list = []      # each block's input (output_hidden_states)
     attns = [] if output_attentions else None
 
-    def block(x, lp_i, drop):
+    def block(x, lp_i, drop, pos, bias_i, spos, where):
         return _block(
-            x, lp_i, None, None, config=config, positions=l_pos,
-            bias=l_bias, slot_pos=l_slot_pos, cache_index=None, cos=cos,
+            x, lp_i, None, None, config=config, positions=pos,
+            bias=bias_i, slot_pos=spos, cache_index=None, cos=cos,
             sin=sin, bias_new=l_bias_new, impl=impl, drop=drop,
-            weights_out=attns,
+            weights_out=attns, place=where, fsdp=sh.fsdp,
         )[0]
 
     if (config.remat and cache is None and torch.is_grad_enabled()
             and not output_attentions):
         block = _remat(block, config)
     new_kv = []        # a row-split cached call's K/V, landed below
-    for i, lp_i in enumerate(layers[:config.n_layers]):
+    if n_stage > 1:
+        # Pipeline stages (JAX :1165-1230): this rank's L / stage layers
+        # over microbatches of its rows; every (layer, microbatch) draws
+        # its generator masks as the unsharded run's rows.
+        L_s = len(layers)
+        first = mesh.axis_index("stage") * L_s
+        M = config.pp_microbatches or n_stage
+        mb = l_B // M if l_B % M == 0 else l_B
+
+        def stage_fn(tree, xx, pos, spos, mb_index):
+            sbias = (attention_bias(pos, spos, spos >= 0)
+                     if impl == "xla" else None)
+            where = sh.place(mb, T, row0=(place[2].start or 0)
+                             + mb_index * mb)
+            for j, lp_j in enumerate(
+                    dict(zip(tree, ws))
+                    for ws in zip(*(w.unbind(0) for w in tree.values()))):
+                xx = block(xx, lp_j, drops[first + j], pos, sbias, spos,
+                           where)
+            return xx
+
+        x = pipeline_blocks(stage_fn, lp, x, l_pos, l_slot_pos, mesh=mesh,
+                            n_microbatches=M, n_layers=config.n_layers)
+    for i, lp_i in enumerate(layers[:config.n_layers] if n_stage == 1
+                             else []):
         if output_hidden_states:
             hs.append(x)
         if cache is None:
-            x = block(x, lp_i, drops[i])
+            x = block(x, lp_i, drops[i], l_pos, l_bias, l_slot_pos, place)
             continue
         x, k, v = _block(
             x, lp_i, sh.view(cache.k[i]), sh.view(cache.v[i]),
@@ -1134,6 +1488,9 @@ def forward(
             cache_ks=sh.view(cache.k_scale[i]) if cache.quantized else None,
             cache_vs=sh.view(cache.v_scale[i]) if cache.quantized else None,
             chunk_offset=chunk_offset, weights_out=attns, splash=splash,
+            place=place, fsdp=sh.fsdp,
+            ring_new_pos=new_slot_pos if ring_cached else None,
+            ring_lo=ring_lo,
         )
         if sh.rows is not None:
             new_kv.append((k, v))
@@ -1151,13 +1508,18 @@ def forward(
                 cache.v_scale[i] if cache.quantized else None,
                 ks[i], vs[i], cache.index)
     with_aux = collect or output_last_hidden
+
+    def out(t, dim=0):
+        """An output of this rank's rows and tokens, gathered."""
+        return sh.gather(sh.gather_seq(t, dim=dim + 1), dim=dim)
+
     if with_aux:
         h = rms_norm(x, params["final_norm"], config.rms_norm_eps)
         logits = (lm_head_logits(params, h, config, normed=True)
                   if compute_logits else None)
     else:
         logits = lm_head_logits(params, x, config) if compute_logits else None
-    logits = sh.gather(logits)
+    logits = out(logits)
     if cache is not None:
         cache.pos.copy_(slot_pos)
         cache.index = cache.index + T
@@ -1169,8 +1531,8 @@ def forward(
                 attentions = sh.mesh.all_gather(attentions, "tensor", dim=2)
             attentions = sh.gather(attentions, dim=1)
         return logits, cache, AuxOutput(
-            last_hidden_state=sh.gather(h),
-            hidden_states=(sh.gather(torch.stack(hs + [h]), dim=1)
+            last_hidden_state=out(h),
+            hidden_states=(out(torch.stack(hs + [h]), dim=1)
                            if output_hidden_states else None),
             attentions=attentions)
     return logits, cache
@@ -1245,7 +1607,7 @@ def paged_forward(
         config.rope_theta, config.use_scaled_rope, device,
     )
     sh = _shard_ctx(params, config, B)
-    x = _embed(params, sh.take(tokens), config, adt)
+    x = _embed(params, sh.take(tokens), config, adt, fsdp=sh.fsdp)
     active = attn_mask[:, 0]
     if T > 1:
         steps = torch.arange(T, device=device, dtype=torch.int32)
@@ -1267,7 +1629,7 @@ def paged_forward(
             x, {name: w[i] for name, w in lp.items()}, None, None,
             config=config, positions=l_pos, bias=None, slot_pos=None,
             cache_index=None, cos=cos, sin=sin, bias_new=None, impl="paged",
-            paged=(local, l_q_pos_row, i),
+            paged=(local, l_q_pos_row, i), fsdp=sh.fsdp,
         )
         if write_back:
             new_k.append(k)

@@ -15,7 +15,7 @@ masks are torch's draws, not JAX's threefry bits.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -23,13 +23,23 @@ NEG_INF = float(torch.finfo(torch.float32).min)
 
 
 def dropout(
-    x: torch.Tensor, rate: float, generator: torch.Generator
+    x: torch.Tensor, rate: float, generator: torch.Generator,
+    shard: Optional[Tuple[Tuple[int, ...], Tuple]] = None,
 ) -> torch.Tensor:
     """Inverted dropout (expectation-preserving): each element is kept
     with probability 1 - rate and scaled by 1 / (1 - rate), drawn from
     ``generator``.  Shared by the attention probabilities and the model's
-    embedding and residual sites."""
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    embedding and residual sites.  ``shard`` = (global shape, index): x
+    is that slice of a global tensor, and its mask is the same slice of
+    the global tensor's mask (every rank of a mesh draws the whole mask
+    from the same generator state and keeps its own part)."""
+    if shard is None:
+        keep = torch.rand(x.shape, generator=generator, device=x.device)
+    else:
+        full, index = shard
+        keep = torch.rand(full, generator=generator,
+                          device=x.device)[index].reshape(x.shape)
+    keep = keep < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
 
 
@@ -133,6 +143,7 @@ def sdpa(
     dropout_rate: float = 0.0,
     generator: Optional[torch.Generator] = None,
     return_weights: bool = False,
+    dropout_shard: Optional[Tuple[Tuple[int, ...], Tuple]] = None,
 ):
     """Scaled dot-product attention with GQA.
 
@@ -142,6 +153,8 @@ def sdpa(
       dropout_rate, generator: attention-probability dropout (training):
         inverted dropout on the post-softmax weights, drawn from
         ``generator``, which a rate above 0 requires.
+      dropout_shard: (global shape, index) of the [B, KVH, G, T, S]
+        weights when this call is one rank's slice of them (``dropout``).
       return_weights: also return the post-softmax, pre-dropout
         probabilities [B, H, T, S] in q.dtype (JAX :143, :156, :199).
     Returns:
@@ -159,7 +172,7 @@ def sdpa(
     probs = torch.softmax(scores.to(softmax_dtype), dim=-1).to(q.dtype)
     w = probs
     if dropout_rate > 0.0:
-        w = dropout(w, dropout_rate, generator)
+        w = dropout(w, dropout_rate, generator, dropout_shard)
     out = _pv(w, v).reshape(b, t, h, d).to(q.dtype)
     if return_weights:
         return out, probs.reshape(b, h, t, probs.shape[-1])

@@ -1,7 +1,7 @@
-"""Tensor and data parallelism over ``torch.distributed`` (port of
+"""Parallelism over ``torch.distributed`` (port of
 ``jax_llama_tpu/parallel``): one process per rank, local weight shards,
-explicit collectives.  See ``mesh`` for the design; ring attention,
-pipeline stages and sharded training are ROADMAP A14 part 2."""
+explicit collectives.  See ``mesh`` for the design, ``ring`` for
+sequence parallelism and ``pipeline`` for pipeline stages."""
 
 from . import distributed, serve_mesh
 from .mesh import (
@@ -20,9 +20,14 @@ from .partition import (
     shard_params,
     validate_tp,
 )
+from .pipeline import pipeline_blocks
+from .ring import ring_attention, ring_sdpa
 
 __all__ = [
     "distributed",
+    "pipeline_blocks",
+    "ring_attention",
+    "ring_sdpa",
     "serve_mesh",
     "shard_abstract",
     "AXES",

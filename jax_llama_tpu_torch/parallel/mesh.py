@@ -7,10 +7,10 @@ so here a mesh is this PROCESS's view of a group of ranks, one rank per
 device, laid out over the same five axes:
 
     data    data parallel (rows)
-    stage   pipeline parallel (ROADMAP A14 part 2: refused here)
-    fsdp    ZeRO-style parameter sharding (a second row axis while
-            serving; sharded training is A14 part 2)
-    seq     sequence parallel, ring attention (A14 part 2: refused here)
+    stage   pipeline parallel: each stage holds L / stage layers
+            (``pipeline``)
+    fsdp    ZeRO-3 parameter sharding in training (a second row axis)
+    seq     sequence parallel: ring attention (``ring``)
     tensor  Megatron-style tensor parallel, innermost
 
 Rank r sits at ``np.arange(n).reshape(data, stage, fsdp, seq, tensor)``,
@@ -18,10 +18,41 @@ so ``tensor`` is innermost as in the JAX layout.  Each axis of size > 1
 owns one ``torch.distributed`` process group (the ranks that differ only
 along it), the row axes ``data`` x ``fsdp`` share one more, and a gloo
 group over every rank carries host objects and host decisions.  The
-collectives the port uses are methods here: ``all_reduce`` and
-``all_gather`` of tensors (gloo has no ``reduce_scatter`` on CUDA
-tensors), ``broadcast_object`` of host objects and ``agree`` on a host
-decision; each call is counted in ``collectives`` by kind and axis.
+collectives the port uses are methods here: ``all_reduce``,
+``all_gather``, ``reduce_scatter`` and ``ppermute`` (JAX's
+``lax.ppermute`` over a ring) of tensors, ``broadcast_object`` of host
+objects and ``agree`` on a host decision; each call is counted in
+``collectives`` by kind and axis.
+
+Routes.  gloo takes CUDA tensors only for ``all_reduce``, ``all_gather``
+and ``broadcast``: it has no send/recv and no reduce-scatter for them.
+So the route of ``ppermute`` and ``reduce_scatter`` is fixed by the
+backend and the device when the mesh is built (``Mesh.routes``), never
+when a call fails, and is part of the kind they are counted under
+(``"ppermute:p2p"``):
+
+    backend, device   ppermute            reduce_scatter
+    nccl, cuda        p2p                 reduce_scatter
+    gloo, cpu         p2p                 reduce_scatter
+    gloo, cuda        all_gather_take     all_reduce_slice
+
+``p2p`` is ``dist.batch_isend_irecv``; ``all_gather_take`` all-gathers
+the tensor along the axis and keeps the shard of the rank ``shift``
+behind; ``all_reduce_slice`` sums the whole tensor and keeps this
+rank's slice.  Both written-out routes give the exact result of the
+collective they stand for.
+
+Autograd.  The collectives above are invisible to autograd; training
+goes through ``reduce_g`` (an all-reduce whose backward is the
+identity: Megatron's *g*, after a row-parallel product), ``copy_f``
+(the identity whose backward all-reduces: *f*, in front of a
+column-parallel product), ``gather_slice`` (an all-gather whose backward
+keeps this rank's slice), ``gather_scatter`` (an all-gather whose
+backward reduce-scatters: a ZeRO-3 weight gather) and ``ppermute``
+(whose backward sends the gradient the other way round the ring).  Each
+takes the plain collective when autograd is off.  Every rank issues the
+backward's collectives in the order its graph gives, the same on every
+rank.
 
 ``constrain`` translates logical names as the JAX one does, but nothing
 is resharded implicitly: it checks that a local tensor has the shape the
@@ -33,7 +64,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import threading
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -58,6 +89,8 @@ ROWS = ("data", "fsdp")
 
 _local = threading.local()
 
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+
 
 def _axes(axis) -> Tuple[str, ...]:
     if axis is None:
@@ -76,7 +109,7 @@ class Mesh:
 
     def __init__(self, shape: Dict[str, int], devices: Sequence[torch.device],
                  rank: int, groups: Dict[Tuple[str, ...], Any],
-                 cpu_group: Any):
+                 cpu_group: Any, backend: Optional[str] = None):
         self.shape = {a: int(shape.get(a, 1)) for a in AXES}
         self.devices = [torch.device(d) for d in devices]
         self.rank = int(rank)
@@ -88,6 +121,8 @@ class Mesh:
         self._groups = groups
         self.cpu_group = cpu_group
         self.collectives: collections.Counter = collections.Counter()
+        self.backend = backend
+        self.routes = collective_routes(backend, self.device)
 
     @property
     def size(self) -> int:
@@ -114,13 +149,16 @@ class Mesh:
 
     # -- collectives over one axis (identity where the axis is 1) ----------
 
-    def all_reduce(self, x: torch.Tensor, axis="tensor") -> torch.Tensor:
-        """Sum ``x`` over ``axis`` in place; returns it."""
+    def all_reduce(self, x: torch.Tensor, axis="tensor",
+                   op: str = "sum") -> torch.Tensor:
+        """Sum (``op="max"``: the maximum of) ``x`` over ``axis`` in
+        place; returns it."""
         g = self.group(axis)
         if g is None:
             return x
-        self.collectives[("all_reduce", _axes(axis))] += 1
-        dist.all_reduce(x, group=g)
+        kind = "all_reduce" if op == "sum" else f"all_reduce_{op}"
+        self.collectives[(kind, _axes(axis))] += 1
+        dist.all_reduce(x, op=_OPS[op], group=g)
         return x
 
     def all_gather(self, x: torch.Tensor, axis="tensor",
@@ -135,6 +173,114 @@ class Mesh:
         parts = [torch.empty_like(x) for _ in range(self.axis_size(axis))]
         dist.all_gather(parts, x, group=g)
         return torch.cat(parts, dim=dim)
+
+    def axis_ranks(self, axis) -> List[int]:
+        """The global ranks of this rank's group along ``axis``, in the
+        axis' rank order."""
+        axes = _axes(axis)
+        grid = np.arange(self.size).reshape([self.shape[a] for a in AXES])
+        index = tuple(slice(None) if a in axes else self.coords[a]
+                      for a in AXES)
+        return grid[index].reshape(-1).tolist()
+
+    def reduce_scatter(self, x: torch.Tensor, axis="fsdp",
+                       dim: int = 0) -> torch.Tensor:
+        """Sum ``x`` over ``axis`` and keep this rank's slice along
+        ``dim`` (the axis' size must divide it)."""
+        g = self.group(axis)
+        if g is None:
+            return x
+        n, i = self.axis_size(axis), self.axis_index(axis)
+        route = self.routes["reduce_scatter"]
+        self.collectives[("reduce_scatter:" + route, _axes(axis))] += 1
+        if x.shape[dim] % n:
+            raise ValueError(
+                f"reduce_scatter: {_axes(axis)} of size {n} does not divide "
+                f"dimension {dim} of a {tuple(x.shape)} tensor")
+        if route == "all_reduce_slice":
+            full = x.contiguous().clone()
+            dist.all_reduce(full, group=g)
+            return full.narrow(dim, i * (x.shape[dim] // n),
+                               x.shape[dim] // n).contiguous()
+        src = x.movedim(dim, 0).contiguous()
+        out = torch.empty((src.shape[0] // n,) + tuple(src.shape[1:]),
+                          dtype=x.dtype, device=x.device)
+        dist.reduce_scatter_tensor(out, src, group=g)
+        return out.movedim(0, dim).contiguous()
+
+    def _ppermute(self, x: torch.Tensor, axis="seq",
+                  shift: int = 1) -> torch.Tensor:
+        """``ppermute`` without autograd."""
+        g = self.group(axis)
+        if g is None:
+            return x
+        n, i = self.axis_size(axis), self.axis_index(axis)
+        route = self.routes["ppermute"]
+        self.collectives[("ppermute:" + route, _axes(axis))] += 1
+        x = x.contiguous()
+        if route == "all_gather_take":
+            parts = [torch.empty_like(x) for _ in range(n)]
+            dist.all_gather(parts, x, group=g)
+            return parts[(i - shift) % n]
+        ranks = self.axis_ranks(axis)
+        out = torch.empty_like(x)
+        ops = [dist.P2POp(dist.isend, x, ranks[(i + shift) % n], g),
+               dist.P2POp(dist.irecv, out, ranks[(i - shift) % n], g)]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        return out
+
+    # -- the differentiable forms (training) --------------------------------
+
+    def reduce_g(self, x: torch.Tensor, axis="tensor") -> torch.Tensor:
+        """The sum of ``x`` over ``axis``; its backward is the identity
+        (Megatron's *g*).  Without autograd: ``all_reduce`` in place."""
+        if self.group(axis) is None:
+            return x
+        if not _tracked(x):
+            return self.all_reduce(x, axis)
+        return _ReduceG.apply(x, self, axis)
+
+    def copy_f(self, x: torch.Tensor, axis="tensor") -> torch.Tensor:
+        """``x``; its backward all-reduces the gradient over ``axis``
+        (Megatron's *f*)."""
+        if self.group(axis) is None or not _tracked(x):
+            return x
+        return _CopyF.apply(x, self, axis)
+
+    def gather_slice(self, x: torch.Tensor, axis="tensor",
+                     dim: int = 0) -> torch.Tensor:
+        """``all_gather`` along ``dim``; the backward keeps this rank's
+        slice of the gradient (every rank of the axis computes the same
+        function of the gathered tensor)."""
+        if self.group(axis) is None:
+            return x
+        if not _tracked(x):
+            return self.all_gather(x, axis, dim)
+        return _GatherSlice.apply(x, self, axis, dim)
+
+    def gather_scatter(self, x: torch.Tensor, axis="fsdp",
+                       dim: int = 0) -> torch.Tensor:
+        """``all_gather`` along ``dim``; the backward reduce-scatters the
+        gradient (the ranks of the axis use the gathered tensor on
+        different rows: ZeRO-3)."""
+        if self.group(axis) is None:
+            return x
+        if not _tracked(x):
+            return self.all_gather(x, axis, dim)
+        return _GatherScatter.apply(x, self, axis, dim)
+
+    def ppermute(self, x: torch.Tensor, axis="seq",
+                 shift: int = 1) -> torch.Tensor:
+        """JAX's ``lax.ppermute`` over the ring of ``axis``: rank j's
+        ``x`` arrives at rank (j + shift) mod n; returns what arrived
+        here.  Differentiable: the backward sends the gradient ``-shift``
+        round the ring."""
+        if self.group(axis) is None:
+            return x
+        if not _tracked(x):
+            return self._ppermute(x, axis, shift)
+        return _PPermute.apply(x, self, axis, shift)
 
     # -- host objects and host decisions (the gloo CPU group) --------------
 
@@ -163,6 +309,78 @@ class Mesh:
             dist.barrier(group=self.cpu_group)
 
 
+def collective_routes(backend: Optional[str],
+                      device: torch.device) -> Dict[str, str]:
+    """The route of each collective gloo cannot run as such (module
+    docstring), from the backend and this rank's device."""
+    if backend == "gloo" and torch.device(device).type == "cuda":
+        return {"ppermute": "all_gather_take",
+                "reduce_scatter": "all_reduce_slice"}
+    return {"ppermute": "p2p", "reduce_scatter": "reduce_scatter"}
+
+
+def _tracked(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+class _ReduceG(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return mesh.all_reduce(x.clone(), axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _CopyF(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_reduce(g.clone(), ctx.axis), None, None
+
+
+class _GatherSlice(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim, ctx.n = mesh, axis, dim, x.shape[dim]
+        return mesh.all_gather(x, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        i = ctx.mesh.axis_index(ctx.axis)
+        return (g.narrow(ctx.dim, i * ctx.n, ctx.n).contiguous(), None,
+                None, None)
+
+
+class _GatherScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return mesh.all_gather(x, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (ctx.mesh.reduce_scatter(g, ctx.axis, ctx.dim), None, None,
+                None)
+
+
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, shift):
+        ctx.mesh, ctx.axis, ctx.shift = mesh, axis, shift
+        return mesh._ppermute(x, axis, shift)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (ctx.mesh._ppermute(g, ctx.axis, -ctx.shift), None, None,
+                None)
+
+
 def _rank_sets(shape: Dict[str, int], axes: Tuple[str, ...]):
     """Every set of ranks that differ only along ``axes``, in a fixed
     order (all ranks must create the same groups in the same order)."""
@@ -189,12 +407,9 @@ def make_mesh(
     to a torch device: by default rank i runs on ``cuda:(i % n_gpus)``,
     and two ranks may share one device (``["cuda:0", "cuda:0"]``), which
     needs the gloo backend; this rank's device becomes its current CUDA
-    device.  The CPU is used only when ``devices`` names it.  ``seq > 1`` and ``stage > 1`` raise: ring attention and pipeline
-    stages are ROADMAP A14 part 2."""
-    if seq > 1 or stage > 1:
-        raise NotImplementedError(
-            f"a mesh with seq={seq} or stage={stage} > 1 (ring attention, "
-            "pipeline stages) is not ported (ROADMAP A14 part 2)")
+    device.  The CPU is used only when ``devices`` names it.  The routes
+    of ``ppermute`` and ``reduce_scatter`` follow from the default
+    group's backend and this rank's device (``collective_routes``)."""
     shape = dict(zip(AXES, (data, stage, fsdp, seq, tensor)))
     want = data * stage * fsdp * seq * tensor
     world = distributed.process_count()
@@ -243,7 +458,8 @@ def make_mesh(
         # The rank's device is its current one: NCCL binds a group's
         # communicator to it.
         torch.cuda.set_device(devices[rank])
-    return Mesh(shape, devices, rank, groups, cpu_group)
+    backend = dist.get_backend() if want > 1 else None
+    return Mesh(shape, devices, rank, groups, cpu_group, backend)
 
 
 def auto_mesh(tensor: Optional[int] = None,
@@ -310,6 +526,7 @@ def constrain(x: torch.Tensor, *logical, full: Optional[Sequence] = None
 
 __all__ = [
     "AXES", "LOGICAL_RULES", "ROWS", "Mesh", "make_mesh", "auto_mesh",
+    "collective_routes",
     "use_mesh", "current_mesh", "logical_to_spec", "local_size",
     "constrain",
 ]

@@ -11,9 +11,12 @@ contents as the separate q/k/v layout.
 
 ``shard_params`` does what ``jax.device_put`` with a ``NamedSharding``
 does, for ONE rank: it slices this rank's shard out of a full tree and
-moves it to the rank's device, so no rank keeps a global weight.  The
-fsdp and pipeline variants of the spec tree are built here and used by
-A14 part 2 (sharded training); sharding a tree with them raises.
+moves it to the rank's device, so no rank keeps a global weight.  With
+``fsdp=True`` each projection's non-tensor-parallel dimension is also
+sharded over ``fsdp`` (ZeRO-3: the forward all-gathers a layer's
+weights before it uses them), and on a ``stage > 1`` mesh the stacked
+layer axis is sharded over ``stage`` (each pipeline stage holds its own
+L / stage layers).
 """
 
 from __future__ import annotations
@@ -89,11 +92,12 @@ def validate_tp(config: LLaMAConfig, mesh: Mesh, *, fsdp: bool = False) -> None:
             )
 
 
-def _check_variant(mesh: Mesh, fsdp: bool) -> None:
-    if fsdp or mesh.shape.get("stage", 1) > 1:
-        raise NotImplementedError(
-            "sharding parameters over fsdp or stage (sharded training) is "
-            "not ported (ROADMAP A14 part 2)")
+def mesh_specs(config: LLaMAConfig, mesh: Mesh, fsdp: bool = False
+               ) -> Dict[str, Any]:
+    """The spec tree a tree sharded for ``mesh`` follows: the pipeline
+    variant on a ``stage > 1`` mesh (JAX :121), fsdp when asked."""
+    return param_partition_specs(config, fsdp=fsdp,
+                                 pp=mesh.shape.get("stage", 1) > 1)
 
 
 def shard_index(mesh: Mesh, spec: Sequence, shape: Sequence[int]
@@ -161,8 +165,7 @@ def shard_params(
     unchanged, quantized or not; every leaf comes back contiguous, so the
     full tree can be let go."""
     validate_tp(config, mesh, fsdp=fsdp)
-    _check_variant(mesh, fsdp)
-    specs = param_partition_specs(config)
+    specs = mesh_specs(config, mesh, fsdp)
     device = torch.device(device) if device is not None else mesh.device
 
     def take(x, spec):
@@ -183,8 +186,7 @@ def shard_abstract(
     shapes (tuples or ``torch.Size``) or tensors (their shapes are
     taken); a QuantizedTensor's leaves likewise."""
     validate_tp(config, mesh, fsdp=fsdp)
-    _check_variant(mesh, fsdp)
-    specs = param_partition_specs(config)
+    specs = mesh_specs(config, mesh, fsdp)
 
     def abstract(x, spec):
         shape = tuple(x.shape) if hasattr(x, "shape") else tuple(x)
@@ -195,12 +197,12 @@ def shard_abstract(
 
 def sharded_leaf_index(mesh: Mesh, config: LLaMAConfig, path: Sequence[str],
                        shape: Sequence[int], scale_of: Optional[Sequence[int]]
-                       = None) -> Tuple[slice, ...]:
+                       = None, fsdp: bool = False) -> Tuple[slice, ...]:
     """This rank's slice of one leaf named by its ``path`` in the tree
     (e.g. ``("layers", "qkv")``), for loaders that read one leaf at a
     time.  ``scale_of`` (the payload's shape) marks the leaf as a
     QuantizedTensor's scale."""
-    spec: Any = param_partition_specs(config)
+    spec: Any = mesh_specs(config, mesh, fsdp)
     for key in path:
         spec = spec[key]
     if scale_of is not None:
@@ -208,7 +210,50 @@ def sharded_leaf_index(mesh: Mesh, config: LLaMAConfig, path: Sequence[str],
     return shard_index(mesh, spec, shape)
 
 
+def gather_params(params: Any, mesh: Mesh, config: LLaMAConfig, *,
+                  fsdp: bool = False, device: Optional[Any] = None) -> Any:
+    """The full tree from every rank's shard (the inverse of
+    ``shard_params``), on every rank: each sharded dimension is
+    all-gathered over its axes, the fastest-varying axis first.  Every
+    rank calls it, with the shard of the same tree."""
+    validate_tp(config, mesh, fsdp=fsdp)
+    specs = mesh_specs(config, mesh, fsdp)
+
+    def full(x, spec):
+        x = x.detach()
+        spec = tuple(spec) + (None,) * (x.dim() - len(tuple(spec)))
+        for dim, axis in enumerate(spec):
+            for a in reversed(_axes(axis)):
+                x = mesh.all_gather(x, a, dim=dim)
+        return x.to(device) if device is not None else x.contiguous()
+
+    return _map_with_specs(full, params, specs)
+
+
+def leaf_specs(config: LLaMAConfig, mesh: Mesh, params: Any,
+               fsdp: bool = False) -> Dict[str, Tuple]:
+    """Each leaf's spec by its ``train.tree_items`` name ("layers/qkv"),
+    for a tree sharded for ``mesh``; a QuantizedTensor's payload and
+    scale as "<name>/q" and "<name>/scale"."""
+    out: Dict[str, Tuple] = {}
+
+    def walk(tree, spec, prefix):
+        if isinstance(tree, dict):
+            for k in tree:
+                walk(tree[k], spec[k], f"{prefix}{k}/")
+        elif isinstance(tree, QuantizedTensor):
+            out[prefix + "q"] = tuple(spec)
+            out[prefix + "scale"] = _scale_spec(spec, tree.q.dim(),
+                                                tree.scale.shape)
+        else:
+            out[prefix[:-1]] = tuple(spec)
+
+    walk(params, mesh_specs(config, mesh, fsdp), "")
+    return out
+
+
 __all__ = [
     "param_partition_specs", "validate_tp", "shard_params",
     "shard_abstract", "shard_index", "local_shape", "sharded_leaf_index",
+    "mesh_specs", "leaf_specs", "gather_params",
 ]

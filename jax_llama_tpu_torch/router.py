@@ -3,7 +3,7 @@
 part is found in both files by name).
 
 The scale-out serving subsystem's outermost layer (a replica over a
-serving mesh is ROADMAP A14 part 2): a :class:`ReplicaRouter` fronts N
+serving mesh is ROADMAP A14 part 3): a :class:`ReplicaRouter` fronts N
 **independent** serving replicas — each an ``LLMServer`` with its own
 ``ContinuousBatcher``, KV pool and radix prefix index — and routes each
 POST to one of them:

@@ -33,13 +33,15 @@ so an argv that one accepts the other does too, plus ``--device`` (default
 (``server.LLMServer``: POST /generate and /chat, GET /metrics, /healthz,
 /debug/*) run on the card, or on the CPU with ``--device cpu``; ``--http``
 never falls back to the CPU.  A flag whose feature is not ported exits
-with a message that names its ROADMAP item: ``--fsdp`` > 1, and
-``--http`` or ``--replicas`` over a mesh of more than one rank (A14 part
-2).
+with a message that names its ROADMAP item: ``--http`` or ``--replicas``
+over a mesh of more than one rank (A14 part 3).
 
-Tensor and data parallelism run one process per rank, as ``torchrun``
-starts them (``parallel.distributed.initialize`` reads its environment):
-``--tensor N`` / ``--data N`` shard the one-shot completion, and
+Tensor, data and fsdp parallelism run one process per rank, as
+``torchrun`` starts them (``parallel.distributed.initialize`` reads its
+environment): ``--tensor N`` / ``--data N`` / ``--fsdp N`` shard the
+one-shot completion and ``--serve`` over a ``data x fsdp x tensor`` mesh
+(``--fsdp`` > 1 loads the ZeRO-3 layout, each layer gathered before
+use), and
 ``--serve --serve-mesh dp,tp`` the batcher, over ``dp * tp`` ranks
 (``--tensor 0``, the default, is every rank the data axis leaves).  Each
 rank loads only its shard of the checkpoint.  Rank 0 reads stdin and
@@ -110,7 +112,8 @@ def main() -> None:
     ap.add_argument("--data", type=int, default=1,
                     help="data-parallel degree (ranks splitting the rows)")
     ap.add_argument("--fsdp", type=int, default=1,
-                    help="FSDP degree (> 1 is ROADMAP A14 part 2)")
+                    help="FSDP degree: ranks holding a ZeRO-3 shard of "
+                         "the weights and splitting the rows")
     ap.add_argument("--prompt", action="append", default=None)
     ap.add_argument("--max-gen-len", type=int, default=256)
     ap.add_argument("--temperature", type=float, default=0.8)
@@ -282,7 +285,9 @@ def _run(args, log, device, mesh) -> None:
 
     with Timer() as load_t:
         params, config = load_checkpoint(args.ckpt_dir, device=device,
-                                         mesh=mesh)
+                                         mesh=mesh,
+                                         fsdp=mesh is not None
+                                         and args.fsdp > 1)
     if args.attn:
         config = config.replace(attn_impl=args.attn)
     if args.serve_mesh is not None and mesh is not None:
@@ -496,12 +501,10 @@ def _refuse_unported(args) -> None:
     multi = mesh > 1 or (args.serve_mesh is not None
                          and _serve_spec(args).n_devices > 1)
     unported = (
-        (args.fsdp > 1, f"--fsdp {args.fsdp} (sharded training layouts)",
-         "A14 part 2"),
         (multi and args.http is not None,
-         "--http over a mesh of more than one rank", "A14 part 2"),
+         "--http over a mesh of more than one rank", "A14 part 3"),
         (multi and args.replicas > 1,
-         "--replicas over a mesh of more than one rank", "A14 part 2"),
+         "--replicas over a mesh of more than one rank", "A14 part 3"),
     )
     for bad, what, item in unported:
         if bad:
@@ -586,8 +589,9 @@ def _mesh_ranks(args) -> int:
     world = int(os.environ.get("WORLD_SIZE",
                                os.environ.get("JAX_NUM_PROCESSES", "1")))
     spec = _serve_spec(args) if args.serve_mesh is not None else None
+    rows = args.data * args.fsdp
     want = (spec.n_devices if spec is not None
-            else args.data * (args.tensor or max(1, world // args.data)))
+            else rows * (args.tensor or max(1, world // rows)))
     if want != world:
         raise SystemExit(
             f"a mesh of {want} ranks needs {want} processes, this run has "
@@ -598,7 +602,8 @@ def _mesh_ranks(args) -> int:
 
 def _mesh_for(args, device, ranks: int):
     """The run's mesh (JAX :402-411, :472-500): ``--serve-mesh`` or the
-    ``--data`` x ``--tensor`` axes over the ``ranks`` processes, whose
+    ``--data`` x ``--fsdp`` x ``--tensor`` axes over the ``ranks``
+    processes, whose
     group is brought up here; None for a single rank.  The backend is
     nccl with one rank per GPU, and gloo on the CPU and where every rank
     of this host shares its one GPU (NCCL refuses two ranks on one
@@ -627,7 +632,8 @@ def _mesh_for(args, device, ranks: int):
                            device=str(device))
     if args.serve_mesh is not None:
         return build_serve_mesh(_serve_spec(args), devices=devices)
-    return make_mesh(data=args.data, tensor=ranks // args.data,
+    return make_mesh(data=args.data, fsdp=args.fsdp,
+                     tensor=ranks // (args.data * args.fsdp),
                      devices=devices)
 
 
@@ -662,8 +668,9 @@ def _load_draft(args, device, mesh=None):
         return None, None
     from .convert.checkpoint import load_checkpoint
 
-    draft_params, draft_config = load_checkpoint(ckpt, device=device,
-                                                 mesh=mesh)
+    draft_params, draft_config = load_checkpoint(
+        ckpt, device=device, mesh=mesh,
+        fsdp=mesh is not None and args.fsdp > 1)
     if args.attn:
         draft_config = draft_config.replace(attn_impl=args.attn)
     return draft_params, draft_config

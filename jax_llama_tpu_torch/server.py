@@ -1646,7 +1646,7 @@ class LLMServer:
             "overload": self.overload.health(),
             # The replica's occupancy (what router.ReplicaRouter reads);
             # the server runs an unsharded batcher (the server over a
-            # serving mesh is ROADMAP A14 part 2), so the mesh is 1 x 1.
+            # serving mesh is ROADMAP A14 part 3), so the mesh is 1 x 1.
             "replica": {
                 "id": self.replica_id,
                 # audit: racy-read(point-in-time /healthz snapshot of

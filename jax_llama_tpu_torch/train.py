@@ -26,6 +26,24 @@ and keeps its moments in the state the caller holds, like optax's.
 before the Adam step, which would have to be matched around it.  The
 update runs in place on the parameters and moments (JAX donates the
 state instead), which saves a copy of each.
+
+On a mesh (``train_step(mesh=)``, one process per rank) each rank holds
+its shards (``parallel.shard_params``, ``fsdp=True`` for ZeRO-3) and
+its rows of the batch (``data.shard_batch``); GSPMD gives the JAX
+package three things that are written out here:
+
+* the loss is the sum of this rank's masked token losses over the
+  GLOBAL count of masked tokens (all-reduced), so the ranks' losses add
+  up to the unsharded mean;
+* each leaf's gradient is summed over the axes whose ranks see
+  different tokens (``data``, ``fsdp`` and ``seq``), except over
+  ``fsdp`` for an fsdp-sharded leaf, whose gather already
+  reduce-scattered it;
+* global-norm clipping sums each leaf's squares once: over the axes it
+  is sharded on (``tensor``, ``fsdp``, ``stage``), never over those it
+  is replicated on.
+
+AdamW then updates each rank's shards in place.
 """
 
 from __future__ import annotations
@@ -38,8 +56,10 @@ import numpy as np
 import torch
 
 from .config import LLaMAConfig
-from .models.llama import forward
+from .models.llama import _head_kernel, _fsdp_sharded, forward
 from .ops.loss import chunked_softmax_xent
+from .parallel.mesh import _axes, current_mesh, use_mesh
+from .parallel.partition import leaf_specs
 
 Params = Dict[str, Any]
 
@@ -114,13 +134,18 @@ class AdamW:
 
     @torch.no_grad()
     def update(self, params: Params, grads: List[torch.Tensor],
-               state: AdamWState) -> AdamWState:
+               state: AdamWState, norm: Optional[torch.Tensor] = None
+               ) -> AdamWState:
         """One update of ``params`` in place from ``grads`` (in
-        ``tree_leaves(params)`` order); returns the advanced state."""
+        ``tree_leaves(params)`` order); returns the advanced state.
+        ``norm``: the gradients' global norm where the caller computes it
+        (a mesh: ``global_norm``), else from ``grads``."""
         ps = tree_leaves(params)
         mus, nus = tree_leaves(state.mu), tree_leaves(state.nu)
-        norm = torch.stack([torch.linalg.vector_norm(g, dtype=torch.float32)
-                            for g in grads]).square().sum().sqrt()
+        if norm is None:
+            norm = torch.stack([
+                torch.linalg.vector_norm(g, dtype=torch.float32)
+                for g in grads]).square().sum().sqrt()
         # optax: t where norm < max_norm, else (t / norm) * max_norm.
         one = torch.ones_like(norm)
         keep = norm < self.grad_clip
@@ -192,6 +217,9 @@ def lm_loss(
     positions = torch.arange(T, dtype=torch.int32, device=device).expand(B, T)
     if loss_mask is not None:
         loss_mask = loss_mask.to(device)
+    if current_mesh() is not None:
+        return _mesh_loss(params, tokens, positions, config, loss_mask,
+                          dropout_rng)
     if fused:
         _, _, aux = forward(params, tokens, positions, config,
                             dropout_rng=dropout_rng, compute_logits=False,
@@ -217,6 +245,74 @@ def lm_loss(
     return nll.mean()
 
 
+# The axes whose ranks see different tokens of the batch.
+_TOKEN_AXES = ("data", "fsdp", "seq")
+
+
+def _mesh_loss(params, tokens, positions, config, loss_mask, dropout_rng):
+    """This rank's share of the global masked mean under the active mesh:
+    ``tokens`` are this rank's rows; the forward keeps them (and, under
+    ring attention, this rank's slice of T) and the chunked head runs on
+    them against the next tokens; the divisor is the global count."""
+    mesh = current_mesh()
+    B, T = tokens.shape
+    _, _, aux = forward(params, tokens, positions, config,
+                        dropout_rng=dropout_rng, compute_logits=False,
+                        output_last_hidden=True, local_rows=True)
+    h = aux.last_hidden_state              # [B, T_local, D]
+    t0 = 0
+    if h.shape[1] != T:                    # this rank's slice of T
+        t0 = mesh.axis_index("seq") * h.shape[1]
+    t1 = t0 + h.shape[1]
+    nxt = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)[:, t0:t1]
+    w = (loss_mask.float() if loss_mask is not None
+         else torch.ones((B, T), device=tokens.device))
+    w = w * (torch.arange(T, device=tokens.device) < T - 1)
+    w = w[:, t0:t1]
+    head = _head_kernel(params, config, _fsdp_sharded(params, config))
+    # Every tensor rank runs the same rows against the whole head: the
+    # gather's backward keeps each rank's columns.
+    head = mesh.gather_slice(head, "tensor", dim=1)
+    tot, _ = chunked_softmax_xent(
+        h.reshape(B * (t1 - t0), -1), head, nxt.reshape(-1),
+        w.reshape(-1))
+    count = w.sum().detach().clone()
+    for a in _TOKEN_AXES:
+        mesh.all_reduce(count, a)
+    return tot / count.clamp(min=1.0)
+
+
+def _reduce_grads(mesh, specs, names, grads):
+    """Each gradient summed over the token axes it is not sharded on
+    (module docstring), in place; every rank issues the same calls in
+    the same order."""
+    for name, g in zip(names, grads):
+        sharded = {a for ax in specs[name] for a in _axes(ax)}
+        for a in _TOKEN_AXES:
+            if a not in sharded:
+                mesh.all_reduce(g, a)
+    return grads
+
+
+def global_norm(mesh, specs, names, grads) -> torch.Tensor:
+    """The global norm of gradients sharded as ``specs`` says: each
+    leaf's squares summed over the axes it is sharded on, and counted
+    once where it is replicated."""
+    groups: Dict[Tuple[str, ...], List[torch.Tensor]] = {}
+    for name, g in zip(names, grads):
+        axes = tuple(sorted({a for ax in specs[name] for a in _axes(ax)
+                             if mesh.shape[a] > 1}))
+        groups.setdefault(axes, []).append(
+            torch.linalg.vector_norm(g, dtype=torch.float32).square())
+    total = None
+    for axes in sorted(groups):
+        sq = torch.stack(groups[axes]).sum()
+        for a in axes:
+            mesh.all_reduce(sq, a)
+        total = sq if total is None else total + sq
+    return total.sqrt()
+
+
 def step_generator(dropout_seed: int, step: int, device) -> torch.Generator:
     """The dropout generator of one step: seeded from (run seed, step), as
     the JAX package folds the step count into its run key."""
@@ -240,15 +336,36 @@ def train_step(
 
     ``dropout_seed``: a per-run int enabling dropout at the config's
     rates; each step draws its masks from a generator seeded with (seed,
-    step).  A ``mesh`` (data/FSDP/tensor sharding) is not ported.
+    step).
+
+    ``mesh``: ``state.params`` is this rank's shard for that mesh
+    (``shard_params``; ``fsdp=True`` for ZeRO-3) and ``tokens`` and
+    ``loss_mask`` this rank's rows (``data.shard_batch``); the returned
+    loss is the global one, the same on every rank (module docstring).
+    An ambient ``use_mesh`` without ``mesh=`` is refused (JAX :165).
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "training on a mesh is not ported (ROADMAP A14 part 2)")
+    if mesh is None and current_mesh() is not None:
+        raise ValueError(
+            "train_step: pass mesh= explicitly; an ambient use_mesh(...) "
+            "context is not taken as the step's mesh")
     device = state.params["embed"]["embedding"].device
     gen = (step_generator(dropout_seed, state.step, device)
            if dropout_seed is not None else None)
-    loss = lm_loss(state.params, tokens, config, loss_mask, gen)
-    grads = torch.autograd.grad(loss, tree_leaves(state.params))
-    opt_state = optimizer.update(state.params, list(grads), state.opt_state)
+    with use_mesh(mesh):
+        loss = lm_loss(state.params, tokens, config, loss_mask, gen)
+        items = tree_items(state.params)
+        names = [n for n, _ in items]
+        grads = list(torch.autograd.grad(loss, [p for _, p in items]))
+        norm = None
+        if mesh is not None:
+            specs = leaf_specs(config, mesh, state.params,
+                               fsdp=_fsdp_sharded(state.params, config))
+            with torch.no_grad():
+                _reduce_grads(mesh, specs, names, grads)
+                norm = global_norm(mesh, specs, names, grads)
+                loss = loss.detach().clone()
+                for a in _TOKEN_AXES:
+                    mesh.all_reduce(loss, a)
+        opt_state = optimizer.update(state.params, grads, state.opt_state,
+                                     norm=norm)
     return TrainState(state.params, opt_state, state.step + 1), loss.detach()

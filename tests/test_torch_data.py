@@ -59,5 +59,13 @@ def test_to_device_and_mesh_refusal():
     assert placed.tokens.dtype == torch.int32
     assert placed.loss_mask.dtype == torch.bool
     np.testing.assert_array_equal(placed.tokens.numpy(), batch.tokens)
-    with pytest.raises(NotImplementedError, match="A14"):
-        pdata.to_device(batch, "cpu", mesh=object())
+    # A mesh (ROADMAP A14 part 2) gives each rank its rows: shard_batch.
+    from jax_llama_tpu_torch.parallel import mesh as pmesh
+
+    two = pmesh.Mesh({"data": 2}, ["cpu"] * 2, 1, {}, None)
+    mine = pdata.to_device(batch, "cpu", mesh=two)
+    np.testing.assert_array_equal(mine.tokens.numpy(), batch.tokens[1:])
+    with pytest.raises(ValueError, match="must divide the batch"):
+        pdata.to_device(batch, "cpu",
+                        mesh=pmesh.Mesh({"data": 4}, ["cpu"] * 4, 0, {},
+                                        None))

@@ -139,6 +139,8 @@ class Block:
 sys.meta_path.insert(0, Block())
 import jax_llama_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+assert {"jax_llama_tpu_torch.parallel.ring",
+        "jax_llama_tpu_torch.parallel.pipeline"} <= set(names), names
 for name in names:
     importlib.import_module(name)
 import chip_smoke

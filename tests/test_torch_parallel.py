@@ -217,7 +217,8 @@ def test_load_checkpoint_keeps_this_ranks_shard(pools, model, geom,
     tp = axes.get("tensor", 1)
     for r in res:
         assert r["same"]
-        assert "A14 part 2" in r["refused"]
+        assert "use_mesh" in r["refused"]
+        assert r["manifest_same"]
         assert r["qkv"][1] == CFG["n_kv_heads"] // tp
 
 
@@ -365,10 +366,18 @@ def test_make_mesh_single_process_and_refusals():
     assert one.all_reduce(x) is x and one.all_gather(x) is x
     assert one.agree(True) and not one.agree(False)
     assert pparallel.auto_mesh(devices=["cpu"]).shape["tensor"] == 1
-    with pytest.raises(NotImplementedError, match="A14 part 2"):
+    # seq and stage axes are ported (ROADMAP A14 part 2): like any axis
+    # they need one process per rank.
+    with pytest.raises(ValueError, match="!= 1 processes"):
         pparallel.make_mesh(seq=2, devices=["cpu"] * 2)
-    with pytest.raises(NotImplementedError, match="A14 part 2"):
+    with pytest.raises(ValueError, match="!= 1 processes"):
         pparallel.make_mesh(stage=2, devices=["cpu"] * 2)
+    # The collective routes follow the backend and the device.
+    assert pmesh.collective_routes("gloo", torch.device("cuda")) == {
+        "ppermute": "all_gather_take", "reduce_scatter": "all_reduce_slice"}
+    for backend, dev in (("gloo", "cpu"), ("nccl", "cuda")):
+        assert pmesh.collective_routes(backend, torch.device(dev)) == {
+            "ppermute": "p2p", "reduce_scatter": "reduce_scatter"}
     with pytest.raises(ValueError, match="!= 1 processes"):
         pparallel.make_mesh(tensor=2, devices=["cpu"] * 2)
     if not torch.cuda.is_available():
@@ -405,5 +414,9 @@ def test_sharded_tree_without_its_mesh_is_refused(model):
     with pmesh.use_mesh(_shape_mesh(tensor=1)):
         with pytest.raises(ValueError, match="constrain"):
             ptl.forward(shard, tokens, positions, pc)
-    with pytest.raises(NotImplementedError, match="A14 part 2"):
-        ppartition.shard_params(pp, _shape_mesh(fsdp=2), pc, fsdp=True)
+    # An fsdp (ZeRO-3) shard holds D / fsdp of each projection and is
+    # refused without its mesh too.
+    fshard = ppartition.shard_params(pp, _shape_mesh(fsdp=2), pc, fsdp=True)
+    assert fshard["layers"]["qkv"].shape[-2] == CFG["dim"] // 2
+    with pytest.raises(ValueError, match="fsdp shard"):
+        ptl.forward(fshard, tokens, positions, pc)

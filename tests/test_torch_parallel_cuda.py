@@ -146,3 +146,81 @@ def test_two_rank_gloo_forward_on_one_card():
     P = 64
     same = (res[0]["tokens"][:, P:] == res[0]["unsharded"][:, P:])
     assert same[:, :4].all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_ring_fold_on_the_card(rate):
+    """The ring's fold (plain torch, one shard) on CUDA tensors from bf16
+    inputs: out and its gradients against the dense float32 attention
+    (under the ring's hash mask with dropout), each within 2e-2 of the
+    tensor's largest value."""
+    _need_card()
+    from jax_llama_tpu_torch.ops import attention as att
+    from jax_llama_tpu_torch.parallel import ring
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    B, T, H, KVH = 1, 1024, 8, 2
+    q, k, v, g = (_randn(gen, B, T, h, D) for h in (H, KVH, KVH, H))
+    pos = torch.arange(T, device="cuda", dtype=torch.int32)[None]
+    words = (0x2545F491, 0x9E3779B9)
+
+    def grads(fn):
+        leaves = [x.float().requires_grad_() for x in (q, k, v)]
+        out = fn(*leaves).float()
+        return [out.detach()] + list(torch.autograd.grad(out, leaves,
+                                                         g.float()))
+
+    def dense(qq, kk, vv):
+        w = att.sdpa(qq, kk, vv, att.attention_bias(pos, pos, pos >= 0),
+                     return_weights=True)[1]
+        if rate:
+            keep = ring.dropout_keep(ring.dropout_base(words, B, H,
+                                                       device="cuda"),
+                                     pos, pos, rate)
+            w = torch.where(keep, w / (1.0 - rate), 0.0)
+        return torch.einsum("bhts,bshd->bthd", w, att.repeat_kv(vv, H // KVH))
+
+    want = grads(dense)
+    got = grads(lambda qq, kk, vv: ring.ring_attention(
+        qq.bfloat16(), kk.bfloat16(), vv.bfloat16(), pos, pos, axis_size=1,
+        dropout_rate=rate, dropout_seed=words))
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.float(), b, rtol=0,
+                                   atol=2e-2 * b.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("axes,fsdp", [(dict(tensor=2), False),
+                                       (dict(fsdp=2), True),
+                                       (dict(seq=2), False)],
+                         ids=["tensor2", "fsdp2", "seq2"])
+def test_two_rank_gloo_train_step_on_one_card(axes, fsdp):
+    """Two train steps on two ranks sharing cuda:0 over gloo, which takes
+    the written-out routes (ppermute by all_gather_take, reduce_scatter
+    by all_reduce_slice): losses and params those of the unsharded
+    steps (float32, head_dim 128 so the flash kernels run)."""
+    _need_card()
+    cfg = dict(vocab_size=512, dim=512, n_layers=2, n_heads=4, n_kv_heads=2,
+               multiple_of=256, max_seq_len=256, dtype="float32",
+               param_dtype="float32", remat=True,
+               attn_impl="ring" if "seq" in axes else "flash")
+    pool = MeshPool(2, timeout_s=300)
+    try:
+        res = pool.run("train_on_card", cfg=cfg, axes=axes, fsdp=fsdp, B=2,
+                       T=128)
+    finally:
+        pool.close()
+    for r in res:
+        assert r["routes"] == {"ppermute": "all_gather_take",
+                               "reduce_scatter": "all_reduce_slice"}
+        np.testing.assert_allclose(r["losses"], r["ref_losses"], rtol=1e-4)
+        assert r["max_diff"] < 1e-3
+        # Forward and remat recompute per layer and step, where the
+        # flash kernel runs (the ring's fold is plain torch).
+        assert r["launches"] == (0 if "seq" in axes else 2 * 2 * 2)
+    if fsdp:
+        assert res[0]["collectives"][
+            "reduce_scatter:all_reduce_slice/fsdp"] > 0
+    if "seq" in axes:
+        assert res[0]["collectives"]["ppermute:all_gather_take/seq"] > 0

@@ -403,9 +403,10 @@ def test_http_replicas_autoscale_arms_the_controller(ckpts, monkeypatch,
     (["--serve-mesh", "1,2"], "--serve-mesh applies to the serving modes"),
     (["--tensor", "2"], "=a mesh of 2 ranks needs 2 processes"),
     (["--data", "2", "--tensor", "1"], "=a mesh of 2 ranks needs 2 processes"),
-    # What stays refused names A14 part 2.
-    (["--fsdp", "2"], "A14 part 2"),
-    (["--serve-mesh", "1,2", "--http", "0"], "A14 part 2"),
+    # --fsdp is ported (ROADMAP A14 part 2): a data x fsdp x tensor mesh,
+    # one process per rank.  What stays refused names A14 part 3.
+    (["--fsdp", "2"], "=a mesh of 2 ranks needs 2 processes"),
+    (["--serve-mesh", "1,2", "--http", "0"], "A14 part 3"),
     # The host tier is ported (ROADMAP A11): the flag is refused only
     # off the radix index, with the JAX CLI's message.
     (["--host-kv-blocks", "1", "--prefix-index", "exact"], None),
@@ -443,8 +444,9 @@ MESH_GREEDY = ["--max-gen-len", "8", "--temperature", "0",
 
 
 @pytest.mark.parametrize("mesh", [["--tensor", "2"],
-                                  ["--data", "2", "--tensor", "1"]],
-                         ids=["tensor", "data"])
+                                  ["--data", "2", "--tensor", "1"],
+                                  ["--fsdp", "2", "--tensor", "1"]],
+                         ids=["tensor", "data", "fsdp"])
 def test_one_shot_on_a_mesh_matches_jax_and_one_rank(
         ckpts, monkeypatch, capsys, ranks2, mesh):
     """run.py one-shot over two ranks (one process each, as torchrun

@@ -204,9 +204,15 @@ def test_dropout_deterministic_per_seed_and_refusals():
     pos = torch.arange(16, dtype=torch.int32).expand(2, 16)
     with pytest.raises(ValueError, match="training-only"):
         ptl.forward(pp, t, pos, pc, cache=cache, dropout_rng=0)
-    with pytest.raises(NotImplementedError, match="A14"):
+    # Training on a mesh is ported (ROADMAP A14 part 2); a mesh the step
+    # was not given is refused, as in the JAX package.
+    from jax_llama_tpu_torch.parallel import mesh as pmesh
+
+    one = pmesh.Mesh({}, ["cpu"], 0, {}, None)
+    with pmesh.use_mesh(one), pytest.raises(ValueError,
+                                            match="pass mesh= explicitly"):
         ptl.train_step(ptl.init_train_state(pp, ptl.make_optimizer()), t, pc,
-                       ptl.make_optimizer(), mesh=object())
+                       ptl.make_optimizer())
 
 
 def test_train_step_with_dropout_learns_and_varies_per_step():

@@ -154,17 +154,20 @@ def _sharded(params, config, mesh):
 
 
 def forward(cfg, tree, axes, tokens, positions, **fw) -> Dict[str, Any]:
-    """Sharded and unsharded ``forward`` logits (and the aux outputs a
-    flag asks for) of the same inputs; the local qkv shape."""
+    """Sharded (``fsdp=True``: the ZeRO-3 layout) and unsharded
+    ``forward`` logits (and the aux outputs a flag asks for) of the same
+    inputs; the local qkv shape."""
     import torch
 
     import jax_llama_tpu_torch as ptl
     from jax_llama_tpu_torch.parallel import use_mesh
 
+    from jax_llama_tpu_torch.parallel import shard_params
+
     params, config = _model(cfg, tree)
     config = config.replace(**fw.pop("config", {}))
     mesh = _mesh(axes)
-    sp = _sharded(params, config, mesh)
+    sp = shard_params(params, mesh, config, fsdp=fw.pop("fsdp", False))
     t = torch.from_numpy(tokens)
     pos = torch.from_numpy(positions)
     with torch.inference_mode():
@@ -305,7 +308,7 @@ def init_params_shard(cfg, axes, seed) -> bool:
 def load_checkpoint_shard(cfg, tree, axes, path) -> Dict[str, Any]:
     """Rank 0 saves the full tree; every rank loads its shard from the
     file and checks it against ``shard_params``; saving a tensor-parallel
-    shard is refused."""
+    shard without its mesh is refused, and under it gathers."""
     import torch
 
     from jax_llama_tpu_torch.convert import load_checkpoint, save_checkpoint
@@ -326,10 +329,21 @@ def load_checkpoint_shard(cfg, tree, axes, path) -> Dict[str, Any]:
     try:
         save_checkpoint(path + "_again", got, config)
         refused = ""
-    except NotImplementedError as e:
+    except ValueError as e:
         refused = str(e)
     mesh.barrier()
+    # Saving from the mesh gathers the shards: rank 0 writes the files,
+    # and so the manifest, of the unsharded save.
+    from jax_llama_tpu_torch.parallel import use_mesh
+
+    with use_mesh(mesh):
+        save_checkpoint(path + "_mesh", got, config)
+    import json
+
+    manifests = [json.load(open(f"{p}/manifest.json"))
+                 for p in (path, path + "_mesh")]
     return dict(same=same, refused=refused,
+                manifest_same=manifests[0] == manifests[1],
                 qkv=tuple(got["layers"]["qkv"].shape))
 
 
@@ -576,3 +590,355 @@ def serve_mesh_checks(cfg, axes) -> Dict[str, Any]:
     except ValueError as e:
         out["odd_slots"] = str(e)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Sequence, pipeline and sharded training (ROADMAP A14 part 2)
+# ---------------------------------------------------------------------------
+
+def _tree_dict(items):
+    """A nested dict from ``train.tree_items`` (name, tensor) pairs."""
+    out: Dict[str, Any] = {}
+    for name, t in items:
+        node = out
+        *path, leaf = name.split("/")
+        for k in path:
+            node = node.setdefault(k, {})
+        node[leaf] = t
+    return out
+
+
+def _numpy_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _numpy_tree(v) for k, v in tree.items()}
+    return tree.detach().float().numpy()
+
+
+def ring_sdpa_case(q, k, v, q_pos, kv_pos, axes, g=None, rate=0.0,
+                   seed=None, routes=None) -> Dict[str, Any]:
+    """``ring_sdpa`` on this rank's rows (over data) and slice of T (over
+    seq) of global inputs; the out gathered whole on every rank, and
+    with a cotangent ``g`` the gathered dq, dk, dv.  ``routes`` replaces
+    the mesh's collective routes (the gloo-on-CUDA ones, on the CPU)."""
+    import torch
+
+    from jax_llama_tpu_torch.parallel import ring, use_mesh
+
+    mesh = _mesh(axes)
+    saved = dict(mesh.routes)
+    if routes:
+        mesh.routes.update(routes)
+    n, i = mesh.shape["seq"], mesh.axis_index("seq")
+    rows, r = mesh.axis_size(("data", "fsdp")), mesh.axis_index(
+        ("data", "fsdp"))
+    B, T = q_pos.shape
+    bs, ts = slice(r * B // rows, (r + 1) * B // rows), slice(
+        i * T // n, (i + 1) * T // n)
+
+    def local(a, dims=2):
+        t = torch.from_numpy(a)[bs][:, ts]
+        return t.clone().requires_grad_(g is not None) if dims else t
+
+    ql, kl, vl = local(q), local(k), local(v)
+    mesh.collectives.clear()
+    try:
+        with use_mesh(mesh):
+            out = ring.ring_sdpa(
+                ql, kl, vl, local(q_pos, 0), local(kv_pos, 0),
+                dropout_rng=seed if rate > 0 else None, dropout_rate=rate)
+            res = {"out": out}
+            if g is not None:
+                (out * local(g, 0)).sum().backward()
+                res.update(dq=ql.grad, dk=kl.grad, dv=vl.grad)
+            full = {name: mesh.all_gather(mesh.all_gather(t.detach(), "seq",
+                                                          dim=1),
+                                          ("data", "fsdp"), dim=0).numpy()
+                    for name, t in res.items()}
+    finally:
+        mesh.routes.clear()
+        mesh.routes.update(saved)
+    full["collectives"] = {"/".join((kk[0],) + kk[1]): vv
+                           for kk, vv in mesh.collectives.items()}
+    return full
+
+
+def collective_routes_case(axes) -> Dict[str, Any]:
+    """``ppermute`` and ``reduce_scatter`` on each route: the written-out
+    gloo-on-CUDA routes give what the p2p and reduce-scatter ones give."""
+    import torch
+
+    mesh = _mesh(axes)
+    saved = dict(mesh.routes)
+    x = torch.arange(8, dtype=torch.float32) + 100 * mesh.rank
+    out = {}
+    for route in ({"ppermute": "p2p", "reduce_scatter": "reduce_scatter"},
+                  {"ppermute": "all_gather_take",
+                   "reduce_scatter": "all_reduce_slice"}):
+        mesh.routes.update(route)
+        name = route["ppermute"]
+        out[name] = dict(
+            fwd=mesh.ppermute(x, "seq", 1).numpy(),
+            back=mesh.ppermute(x, "seq", -1).numpy(),
+            rs=mesh.reduce_scatter(x, "seq").numpy())
+    mesh.routes.clear()
+    mesh.routes.update(saved)
+    out["seq_index"] = mesh.axis_index("seq")
+    return out
+
+
+def cached_ring_case(cfg, tree, axes, prompt, steps) -> Dict[str, Any]:
+    """A prompt, then single-token steps, through a seq-sharded cache
+    (``ring_decode``): each step's last logits, and the cache's local
+    slot count."""
+    import torch
+
+    import jax_llama_tpu_torch as ptl
+    from jax_llama_tpu_torch.parallel import use_mesh
+
+    params, config = _model(cfg, tree)
+    config = config.replace(attn_impl="ring")
+    mesh = _mesh(axes)
+    sp = _sharded(params, config, mesh)
+    B, P = prompt.shape
+    ppos = torch.arange(P, dtype=torch.int32).expand(B, P)
+    out = []
+    mesh.collectives.clear()
+    with torch.inference_mode(), use_mesh(mesh):
+        cache = ptl.init_cache(config, B, max_len=config.max_seq_len,
+                               device="cpu")
+        lg, cache = ptl.forward(sp, torch.from_numpy(prompt), ppos, config,
+                                cache=cache)
+        out.append(lg[:, -1].numpy())
+        for j in range(steps.shape[1]):
+            lg, cache = ptl.forward(
+                sp, torch.from_numpy(steps[:, j:j + 1]),
+                torch.full((B, 1), P + j, dtype=torch.int32), config,
+                cache=cache)
+            out.append(lg[:, 0].numpy())
+    return dict(logits=np.stack(out), slots=int(cache.max_len),
+                index=int(cache.index),
+                collectives={"/".join((kk[0],) + kk[1]): vv
+                             for kk, vv in mesh.collectives.items()})
+
+
+def train_case(cfg, tree, axes, tokens, loss_mask=None, steps=1,
+               fsdp=False, lr=1e-3, dropout_seed=None, config=None,
+               grads_only=False, unsharded=False,
+               backward_thread=False) -> Dict[str, Any]:
+    """``steps`` train_steps on the mesh from the shards of ``tree``
+    (``fsdp`` for ZeRO-3) over ``shard_batch`` of the global batch: the
+    losses and the updated params gathered whole; with ``grads_only``,
+    the first step's gradients instead (reduced as train_step reduces
+    them), gathered whole.  ``unsharded`` runs the same steps without a
+    mesh too.  ``backward_thread`` runs every ``torch.autograd.grad`` on
+    a thread of its own, where no mesh is active, as autograd runs the
+    backward of CUDA tensors."""
+    import torch
+
+    from jax_llama_tpu_torch import data, train
+    from jax_llama_tpu_torch.parallel import use_mesh
+    from jax_llama_tpu_torch.parallel.partition import (
+        gather_params, leaf_specs, shard_params)
+
+    params, conf = _model(cfg, tree)
+    conf = conf.replace(**(config or {}))
+    mesh = _mesh(axes)
+    sp = shard_params(params, mesh, conf, fsdp=fsdp)
+    mask = (np.ones(tokens.shape, bool) if loss_mask is None
+            else loss_mask)
+    batch = data.shard_batch(data.Batch(tokens=tokens, loss_mask=mask),
+                             mesh)
+    opt = train.make_optimizer(lr)
+    mesh.collectives.clear()
+    if grads_only:
+        for p in train.tree_leaves(sp):
+            p.requires_grad_(True)
+        with use_mesh(mesh):
+            loss = train.lm_loss(sp, batch.tokens, conf, batch.loss_mask)
+            items = train.tree_items(sp)
+            names = [n for n, _ in items]
+            grads = list(torch.autograd.grad(loss, [p for _, p in items]))
+            specs = leaf_specs(conf, mesh, sp, fsdp=fsdp)
+            with torch.no_grad():
+                train._reduce_grads(mesh, specs, names, grads)
+        full = gather_params(_tree_dict(zip(names, grads)), mesh, conf,
+                             fsdp=fsdp)
+        return dict(grads=_numpy_tree(full))
+    state = train.init_train_state(sp, opt)
+    losses = []
+    grad = torch.autograd.grad
+    if backward_thread:
+        import threading
+
+        def threaded(*a, **k):
+            box = {}
+            t = threading.Thread(target=lambda: box.update(r=grad(*a, **k)))
+            t.start()
+            t.join()
+            return box["r"]
+
+        torch.autograd.grad = threaded
+    try:
+        for _ in range(steps):
+            state, loss = train.train_step(
+                state, batch.tokens, conf, opt, loss_mask=batch.loss_mask,
+                mesh=mesh, dropout_seed=dropout_seed)
+            losses.append(float(loss))
+    finally:
+        torch.autograd.grad = grad
+    out = dict(losses=losses,
+               params=_numpy_tree(gather_params(state.params, mesh, conf,
+                                                fsdp=fsdp)),
+               local_qkv=tuple(state.params["layers"]["qkv"].shape),
+               collectives={"/".join((kk[0],) + kk[1]): vv
+                            for kk, vv in mesh.collectives.items()})
+    if unsharded:
+        ref = train.init_train_state(_model(cfg, tree)[0], opt)
+        ref_losses = []
+        for _ in range(steps):
+            ref, loss = train.train_step(
+                ref, torch.from_numpy(tokens), conf, opt,
+                loss_mask=torch.from_numpy(mask), dropout_seed=dropout_seed)
+            ref_losses.append(float(loss))
+        out.update(ref_losses=ref_losses, ref_params=_numpy_tree(ref.params))
+    return out
+
+
+def dropout_forward_case(cfg, tree, axes, tokens, config, seed,
+                         fsdp=False) -> Dict[str, Any]:
+    """``forward(dropout_rng=seed)`` on the mesh and without one, the
+    same config: the logits of both (the generator masks are the
+    unsharded run's)."""
+    import torch
+
+    import jax_llama_tpu_torch as ptl
+    from jax_llama_tpu_torch.parallel import use_mesh
+    from jax_llama_tpu_torch.parallel.partition import shard_params
+
+    params, conf = _model(cfg, tree)
+    conf = conf.replace(**config)
+    mesh = _mesh(axes)
+    sp = shard_params(params, mesh, conf, fsdp=fsdp)
+    t = torch.from_numpy(tokens)
+    B, T = t.shape
+    pos = torch.arange(T, dtype=torch.int32).expand(B, T)
+    with torch.no_grad():
+        want = ptl.forward(params, t, pos, conf, dropout_rng=seed)[0]
+        with use_mesh(mesh):
+            got = ptl.forward(sp, t, pos, conf, dropout_rng=seed)[0]
+    return dict(logits=got.numpy(), unsharded=want.numpy())
+
+
+def train_state_roundtrip(cfg, tree, axes, tokens, path,
+                          fsdp=False) -> Dict[str, Any]:
+    """One train step on the mesh, ``save_train_state(mesh=)``, then
+    ``load_train_state(mesh=, fsdp=)``: the loaded shards equal the
+    saved ones; a second step from each gives the same loss."""
+    import torch
+
+    from jax_llama_tpu_torch import data, train
+    from jax_llama_tpu_torch.convert import (load_train_state,
+                                             save_train_state)
+    from jax_llama_tpu_torch.parallel.partition import shard_params
+
+    params, conf = _model(cfg, tree)
+    mesh = _mesh(axes)
+    opt = train.make_optimizer(1e-3)
+    state = train.init_train_state(
+        shard_params(params, mesh, conf, fsdp=fsdp), opt)
+    b = data.shard_batch(data.Batch(tokens=tokens,
+                                    loss_mask=np.ones(tokens.shape, bool)),
+                         mesh)
+    state, _ = train.train_step(state, b.tokens, conf, opt, mesh=mesh)
+    from jax_llama_tpu_torch.parallel import use_mesh
+
+    with use_mesh(mesh):
+        save_train_state(path, state, conf)
+    back, _ = load_train_state(path, mesh=mesh, fsdp=fsdp)
+    same = all(torch.equal(x.detach(), y.detach()) for x, y in zip(
+        train.tree_leaves(state.params) + train.tree_leaves(state.opt_state.mu)
+        + train.tree_leaves(state.opt_state.nu),
+        train.tree_leaves(back.params) + train.tree_leaves(back.opt_state.mu)
+        + train.tree_leaves(back.opt_state.nu)))
+    _, la = train.train_step(state, b.tokens, conf, opt, mesh=mesh)
+    _, lb = train.train_step(back, b.tokens, conf, opt, mesh=mesh)
+    return dict(same=same, count=back.opt_state.count, step=back.step,
+                losses=(float(la), float(lb)))
+
+
+def fsdp_load_case(cfg, tree, axes, path) -> Dict[str, Any]:
+    """``load_checkpoint(mesh=, fsdp=True)`` against
+    ``shard_params(fsdp=True)``; the save from the mesh's manifest
+    against the unsharded save's."""
+    import json
+
+    import torch
+
+    from jax_llama_tpu_torch.convert import load_checkpoint, save_checkpoint
+    from jax_llama_tpu_torch.parallel.partition import shard_params
+    from jax_llama_tpu_torch.train import tree_leaves
+
+    params, config = _model(cfg, tree)
+    mesh = _mesh(axes)
+    got, _ = load_checkpoint(path, mesh=mesh, fsdp=True)
+    want = shard_params(params, mesh, config, fsdp=True)
+    same = all(torch.equal(a, b) for a, b in zip(tree_leaves(got),
+                                                 tree_leaves(want)))
+    from jax_llama_tpu_torch.parallel import use_mesh
+
+    with use_mesh(mesh):
+        save_checkpoint(path + "_mesh", got, config)
+    manifests = [json.load(open(f"{p}/manifest.json"))
+                 for p in (path, path + "_mesh")]
+    return dict(same=same, manifest_same=manifests[0] == manifests[1],
+                qkv=tuple(got["layers"]["qkv"].shape))
+
+
+def train_on_card(cfg, axes, fsdp, B, T, steps=2) -> Dict[str, Any]:
+    """``steps`` train_steps on two ranks sharing cuda:0 (gloo, so
+    ppermute and reduce_scatter take their written-out routes) against
+    the same steps unsharded on this rank: losses, the largest leaf
+    difference, the rank's kernel launches and routes."""
+    import importlib
+
+    import torch
+
+    import jax_llama_tpu_torch as ptl
+    from jax_llama_tpu_torch import data, train
+    from jax_llama_tpu_torch.parallel.partition import (gather_params,
+                                                        shard_params)
+
+    fa = importlib.import_module("jax_llama_tpu_torch.ops.flash_attention")
+    torch.cuda.set_device(0)
+    config = ptl.get_config("tiny", **cfg)
+    mesh = _mesh(axes, device="cuda:0")
+    rng = np.random.RandomState(0)
+    tokens = rng.randint(0, config.vocab_size, (B, T)).astype(np.int32)
+    batch = data.Batch(tokens=tokens, loss_mask=np.ones((B, T), bool))
+    opt = train.make_optimizer(1e-3)
+    ref = train.init_train_state(
+        ptl.init_params(config, seed=0, device="cuda"), opt)
+    sp = shard_params(ptl.init_params(config, seed=0, device="cuda"), mesh,
+                      config, fsdp=fsdp)
+    st = train.init_train_state(sp, opt)
+    local = data.shard_batch(batch, mesh)
+    before = fa.flash_attention.launches
+    mesh.collectives.clear()
+    losses = []
+    for _ in range(steps):
+        st, loss = train.train_step(st, local.tokens, config, opt,
+                                    loss_mask=local.loss_mask, mesh=mesh)
+        losses.append(loss.item())
+    launches = fa.flash_attention.launches - before
+    ref_losses = []
+    for _ in range(steps):
+        ref, loss = train.train_step(ref, torch.from_numpy(tokens).cuda(),
+                                     config, opt)
+        ref_losses.append(loss.item())
+    full = gather_params(st.params, mesh, config, fsdp=fsdp)
+    diff = max((a.float() - b.float()).abs().max().item() for a, b in zip(
+        train.tree_leaves(full), train.tree_leaves(ref.params)))
+    return dict(losses=losses, ref_losses=ref_losses, max_diff=diff,
+                launches=launches, routes=dict(mesh.routes),
+                collectives={"/".join((kk[0],) + kk[1]): vv
+                             for kk, vv in mesh.collectives.items()})
