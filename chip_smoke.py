@@ -592,6 +592,29 @@ single-rank one-shot's, or a near-tie; each rank counts its own
 launches: 8 flash on "wgmma").  The ``kernels`` line gives each
 on-path kernel's ``tp2`` cell and launches per rank on the mesh paths.
 
+The HTTP server and the router over a serving mesh (ROADMAP A14 part
+3), inside ``checkpoint`` on its DECODE_DEPTH-layer checkpoint and on the
+same two ranks: ``mesh_http`` runs ``run.main()`` with ``--http 0
+--serve-mesh 1,2`` on both ranks through run.py's test hook (rank 0
+leads: HTTP, the server's loop; rank 1 follows the lockstep log) beside
+the unsharded ``run.main()`` in this process: six requests under a
+fault drill (a timeout mid-generation, a failed dispatch that replays, a
+blocking /generate, a stream, a /chat, a prefix-hit revisit) in bf16,
+whose tokens equal the unsharded server's or a near-tie below
+DECODE_REL, and two in float32 activations on the splash and stock-paged
+kernels, token-identical; both
+ranks' host states, taken through the log after each request, equal;
+each rank's launches the unsharded server's (flash "wgmma" and the paged
+kernel, then splash and stock-paged, at H = 16); the log's records per
+iteration and ms per record.  ``mesh_router`` runs ``--replicas 2
+--route cache-aware --autoscale --serve-mesh 1,2``, both replicas
+time-sharing the mesh: a routed prefix hit, a handoff whose serve on the
+other replica gives the cold serve's tokens, a FleetController scale-up
+and a drain by migration, the 1 x 2 mesh in each replica's /healthz,
+equal host states, and each rank's launches those of the unsharded
+router's ``run.main()`` on the same traffic in this process and the ones
+the replicas' dispatch records imply.
+
 A ``total`` line gives the script's seconds so far, before the
 ``kernels`` line.  The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or outside a checkout of the repository, it exits non-zero before printing
@@ -4025,11 +4048,13 @@ def run_router_cli(torch, argv, texts):
     return got, out, wall
 
 
-def drive_checkpoint(torch, ptl, fa, pa, shallow, cfg, smi):
+def drive_checkpoint(torch, ptl, fa, pa, shallow, cfg, smi, mesh_ranks):
     """Phase ``checkpoint``: the first DECODE_DEPTH layers of the seed-0
     weights written as a Meta checkpoint, converted, saved, loaded, and
     completed through ``run.py`` (one-shot, ``--serve`` twice,
-    ``--quantize``), each held to the in-process path on the same tree."""
+    ``--quantize``), each held to the in-process path on the same tree;
+    then, on the same checkpoint and ``mesh_ranks``, the phases
+    ``mesh_http`` and ``mesh_router``.  Returns the three rows."""
     import gc
     import shutil
     import tempfile
@@ -4363,14 +4388,24 @@ def drive_checkpoint(torch, ptl, fa, pa, shallow, cfg, smi):
               f"http_router {rr}")
         check(launches == expect and expect["flash_fwd"] == 2 * L,
               f"http_router launches {launches}, expected {expect}")
+
+        # The same checkpoint served over a serving mesh of the two ranks
+        # (ROADMAP A14 part 3).
+        mesh_http, mesh_failures = drive_mesh_http(
+            torch, ptl, fa, pa, smi, mesh_ranks, saved, shallow, auto)
+        mesh_router, bad = drive_mesh_router(torch, ptl, fa, pa, smi,
+                                             mesh_ranks, saved, shallow,
+                                             auto)
+        mesh_failures += bad
     row["runs"] = runs
     row["launches"] = {k: sum(r["launches"][k] for r in runs.values())
                        for k in NO_LAUNCHES}
     row["failures"] = failures
     emit(row)
-    if failures:
-        raise AssertionError(f"checkpoint phase failed: {failures}")
-    return row
+    if failures or mesh_failures:
+        raise AssertionError(f"checkpoint phases failed: {failures} "
+                             f"{mesh_failures}")
+    return row, mesh_http, mesh_router
 
 
 # The prefix cache (ROADMAP A11): prefix_serving at llama3-8b's full width,
@@ -6973,8 +7008,134 @@ def mesh_cell_release(torch, state):
     return dict(reserved=torch.cuda.memory_reserved())
 
 
+def http_session(srv, requests, got):
+    """mesh_http's traffic on one server (run.py's ``_serve_http`` test
+    hook): ``requests`` one after another, each reply kept, and after each
+    the batcher's host state taken on the serving loop (over a mesh, a
+    record of the lockstep log: every rank computes its own there and
+    the ranks compare them); then /healthz and /debug/dispatches, and the
+    log's counts over a mesh."""
+    got["replies"], got["states"] = [], []
+    for path, payload in requests:
+        got["replies"].append(http_request(srv.address, path, payload))
+        got["states"].append(srv.call_on_loop(lambda b: b.host_state()))
+    got["health"] = http_json(srv.address, "/healthz")[1]
+    got["dispatches"] = http_json(
+        srv.address, "/debug/dispatches?n=4096")[1]["dispatches"]
+    leader = getattr(srv.batcher, "_leader", None)
+    if leader is not None:
+        got["lockstep"] = leader.stats()
+
+
+def router_session(router, servers, got):
+    """mesh_router's traffic (run.py's ``_serve_router`` test hook): a
+    session's cold serve through the router and its revisit (a routed
+    prefix hit); the session's chain moved by the router's handoff path to
+    the other replica and served there (a hit, the cold serve's tokens);
+    a FleetController scale-up, a prompt on the grown replica, its
+    scale-down (a drain by migration) and the prompt's revisit through
+    the router.  Host states are taken through the log, /healthz and each
+    replica's dispatch records kept."""
+    from jax_llama_tpu_torch.kvcache import chain_keys
+    from jax_llama_tpu_torch.tokenizers import ByteTokenizer
+
+    texts = serve_texts()
+    tok_ids = ByteTokenizer().encode(texts[5], bos=True)
+    session = {"text": texts[5], "max_new_tokens": MESH_HTTP_NEW}
+    revisit = {"text": texts[5] + " and then some", "max_new_tokens":
+               MESH_HTTP_NEW}
+    grown_prompt = {"text": texts[9], "max_new_tokens": MESH_HTTP_NEW}
+    ctl = router.controller
+    got["cold"] = http_request(router.address, "/generate", session)
+    router.check_health_now()
+    got["routed_hit"] = http_request(router.address, "/generate", revisit)
+    src = int(got["cold"][1]["X-Replica-Id"])
+    dst = 1 - src
+    keys = chain_keys(tok_ids, servers[0].batcher.block_size)
+    router.migrate_chain([k.hex() for k in keys], src, dst)
+    got["handoffs_idle"] = router.wait_handoffs(ROUTER_WAIT_S)
+    got["handoff_hit"] = http_request(servers[dst].address, "/generate",
+                                      session)
+    got["up"] = ctl.scale_up()
+    grown = router._replicas[got["up"]["replica"]].server
+    got["grown_serve"] = http_request(grown.address, "/generate",
+                                      grown_prompt)
+    got["states_grown"] = [s.call_on_loop(lambda b: b.host_state())
+                           for s in servers + [grown]]
+    got["down"] = ctl.scale_down(victim=got["up"]["replica"])
+    got["grown_revisit"] = http_request(router.address, "/generate",
+                                        grown_prompt)
+    got["states"] = [s.call_on_loop(lambda b: b.host_state())
+                     for s in servers]
+    got["records"] = [records(s.batcher) for s in servers + [grown]]
+    got["health"] = router.health()
+    got["replica_stats"] = [s.call_on_loop(lambda b: b.stats())
+                            for s in servers]
+    got["handoffs_completed"] = router.handoffs_completed_total
+    leader = getattr(servers[0].batcher, "_leader", None)
+    if leader is not None:
+        got["lockstep"] = leader.stats()
+
+
+def mesh_cell_http(torch, state, argv, requests=None):
+    """mesh_http's and mesh_router's cells on one rank: ``run.main()``
+    with ``argv`` (an HTTP server over a serving mesh of the two ranks),
+    as torchrun would start it, counted from zero.  On rank 0 run.py's
+    test hook drives the traffic (``http_session`` with ``requests``;
+    ``router_session`` under ``--replicas``); the other rank follows the
+    log until rank 0 stops it.  Returns the rank's launches, what its
+    hook or its follower loop saw, and its wall seconds."""
+    import contextlib
+    import gc
+    import io
+
+    from jax_llama_tpu_torch import run as prun
+    from jax_llama_tpu_torch.parallel import distributed, lockstep
+
+    fa, pa = state["fa"], state["pa"]
+    got, followed = {}, {}
+    orig = (prun._serve_http, prun._serve_router, lockstep.follow)
+
+    def follow(*a, **kw):
+        followed.update(orig[2](*a, **kw))
+        return followed
+
+    lockstep.follow = follow
+    prun._serve_http = lambda *a, **kw: orig[0](*a, **dict(
+        kw, _test_hook=lambda srv: http_session(srv, requests, got)))
+    prun._serve_router = lambda *a, **kw: orig[1](*a, **dict(
+        kw, _test_hook=lambda router, servers: router_session(
+            router, servers, got)))
+    saved = sys.argv, os.environ.get("WORLD_SIZE")
+    sys.argv = ["run", *argv]
+    os.environ["WORLD_SIZE"] = str(MESH_RANKS)
+    zero_counts(fa, pa)
+    out = io.StringIO()
+    t = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            prun.main()
+        torch.cuda.synchronize()
+    finally:
+        prun._serve_http, prun._serve_router, lockstep.follow = orig
+        sys.argv = saved[0]
+        if saved[1] is None:
+            os.environ.pop("WORLD_SIZE", None)
+        else:
+            os.environ["WORLD_SIZE"] = saved[1]
+    wall = time.perf_counter() - t
+    # The card is shared with the main process: its later phases need the
+    # memory this rank's servers cached.
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(got, followed=followed, launches=launch_counts(fa, pa),
+                instances=instance_counts(fa, pa), wall_s=wall,
+                rank=distributed.process_index(), out=out.getvalue())
+
+
 MESH_CELLS = {"generate": mesh_cell_generate, "serve_tp": mesh_cell_serve_tp,
-              "serve_dp": mesh_cell_serve_dp, "release": mesh_cell_release}
+              "serve_dp": mesh_cell_serve_dp, "release": mesh_cell_release,
+              "http": mesh_cell_http}
 
 
 def mesh_rank(rank, port, cmd, res):
@@ -7294,6 +7455,396 @@ def drive_mesh(torch, ptl, fa, pa, params, cfg, tok, smi, gen_tokens,
     if failures:
         raise AssertionError(f"mesh phases failed: {failures}")
     return gen_row, serve_row
+
+
+# ---------------------------------------------------------------------------
+# The HTTP server and the router over a serving mesh (ROADMAP A14 part 3)
+# ---------------------------------------------------------------------------
+
+# mesh_http's traffic: MESH_HTTP_NEW new tokens a request; the first one
+# times out (MESH_HTTP_TIMEOUT_S) in its first decode dispatch, which the
+# drill delays, and the second one's first decode dispatch fails and
+# replays (MESH_HTTP_FAULTS counts decode dispatches from the first).
+MESH_HTTP_NEW = 16
+MESH_HTTP_TIMEOUT_S = 1.0
+MESH_HTTP_FAULTS = "step@0:delay=2,step@1:error"
+MESH_SPEC = ["--serve-mesh", f"1,{MESH_RANKS}"]
+
+
+def mesh_http_requests():
+    """mesh_http's requests, in the order they are sent: the timeout, the
+    replayed one, a blocking /generate, an NDJSON stream, a /chat (the
+    byte tokenizer has no chat format: every server answers 400) and the
+    blocking prompt's revisit (a prefix hit)."""
+    t = serve_texts()
+    new = MESH_HTTP_NEW
+    return [
+        ("/generate", {"text": t[1], "max_new_tokens": 64,
+                       "timeout_s": MESH_HTTP_TIMEOUT_S}),
+        ("/generate", {"text": t[4], "max_new_tokens": new}),
+        ("/generate", {"text": t[5], "max_new_tokens": new}),
+        ("/generate", {"text": t[3], "max_new_tokens": new,
+                       "stream": True}),
+        ("/chat", {"messages": [{"role": "user", "content": t[1]}],
+                   "max_new_tokens": new}),
+        ("/generate", {"text": t[5] + " and then some",
+                       "max_new_tokens": new}),
+    ]
+
+
+def http_cli_session(torch, argv, requests):
+    """The unsharded reference of a mesh_http cell: ``run.main()`` with
+    ``argv`` in this process, ``http_session`` as its test hook."""
+    from jax_llama_tpu_torch import run as prun
+
+    got = {}
+    orig = prun._serve_http
+    prun._serve_http = lambda *a, **kw: orig(*a, **dict(
+        kw, _test_hook=lambda srv: http_session(srv, requests, got)))
+    try:
+        out, _, wall = run_cli(torch, argv)
+    finally:
+        prun._serve_http = orig
+    return dict(got, out=out, wall_s=wall)
+
+
+def router_cli_session(torch, argv):
+    """The unsharded reference of mesh_router: ``run.main()`` with
+    ``argv`` in this process, ``router_session`` as its test hook."""
+    from jax_llama_tpu_torch import run as prun
+
+    got = {}
+    orig = prun._serve_router
+    prun._serve_router = lambda *a, **kw: orig(*a, **dict(
+        kw, _test_hook=lambda router, servers: router_session(
+            router, servers, got)))
+    try:
+        out, _, wall = run_cli(torch, argv)
+    finally:
+        prun._serve_router = orig
+    return dict(got, out=out, wall_s=wall)
+
+
+def batcher_session(torch, ptl, params, cfg, kernels, requests):
+    """What a server run.py builds at the checkpoint phase's flags
+    (``cli_batcher``) answers to ``requests`` sent one at a time, each
+    (path, payload) a /generate of a text: its tokens, and its host state
+    after each, counted from zero."""
+    tok = ptl.ByteTokenizer()
+    cb = cli_batcher(ptl, params, cfg, kernels)
+    tokens, states = [], []
+    t = time.perf_counter()
+    for _, payload in requests:
+        rid = cb.submit(tok.encode(payload["text"], bos=True),
+                        max_new_tokens=payload["max_new_tokens"])
+        tokens.append(cb.run_to_completion()[rid])
+        states.append(cb.host_state())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    del cb
+    torch.cuda.empty_cache()
+    return dict(tokens=tokens, states=states, wall_s=wall)
+
+
+def float32_checkpoint(saved, path):
+    """``saved`` with float32 activations: its params hard-linked, its
+    config's dtype float32, the manifest's config entry re-hashed."""
+    import hashlib
+
+    from jax_llama_tpu_torch.convert.checkpoint import (
+        MANIFEST_NAME,
+        PARAMS_NAME,
+    )
+
+    path.mkdir()
+    os.link(saved / PARAMS_NAME, path / PARAMS_NAME)
+    conf = json.loads((saved / "config.json").read_text())
+    conf["dtype"] = "float32"
+    data = json.dumps(conf).encode()
+    (path / "config.json").write_bytes(data)
+    manifest = json.loads((saved / MANIFEST_NAME).read_text())
+    manifest["files"]["config.json"] = {
+        "sha256": hashlib.sha256(data).hexdigest(), "bytes": len(data)}
+    (path / MANIFEST_NAME).write_text(json.dumps(manifest))
+    return path
+
+
+def lockstep_figures(stats):
+    """The leader's log counts: records by kind, records per serving
+    iteration (a step record each) and the ms each record took to
+    publish and to agree on."""
+    n = max(1, stats["records_total"])
+    steps = stats["records"].get("step", 0)
+    return dict(records=stats["records"], records_total=stats[
+        "records_total"], records_per_iteration=(
+            stats["records_total"] / steps if steps else None),
+        publish_ms_per_record=stats["publish_ms_total"] / n,
+        agree_ms_per_record=stats["agree_ms_total"] / n)
+
+
+def drive_mesh_http(torch, ptl, fa, pa, smi, ranks, saved, shallow, cfg):
+    """Phase ``mesh_http`` (ROADMAP A14 part 3): ``run.main()`` with
+    ``--http 0 --serve-mesh 1,2`` on the two ranks, through run.py's test
+    hook, over the checkpoint phase's DECODE_DEPTH-layer llama3-8b
+    checkpoint; rank 0 leads (HTTP, the server's loop), rank 1 follows
+    the lockstep log.  Two cells, each beside the unsharded server
+    (``run.main()`` without the mesh in this process, the same argv and
+    requests):
+
+    - bf16: ``mesh_http_requests`` under MESH_HTTP_FAULTS (a request
+      that times out mid-generation, one whose failed dispatch replays):
+      the same statuses, tokens equal or a near-tie below DECODE_REL;
+    - float32 activations (the same bf16 weights) on the selected kernels
+      (``--prefill-kernel splash --decode-kernel stock-paged``, rows 6
+      and 5): a blocking request and a stream, tokens identical to those
+      of the batcher such a server builds (``batcher_session``: the
+      server adds no kernel launch, and loading the checkpoint once
+      more would cost the phase seconds).
+
+    In each: both ranks' host state (block tables, free list, radix
+    digest, queue, slots) taken through the log after every request and
+    equal; each rank's launches and kernel instances the unsharded
+    server's (bf16 inserts on flash "wgmma"); /healthz reports the 1 x 2
+    mesh.  The log's records
+    per iteration and ms per record are reported."""
+    t0 = time.perf_counter()
+    failures = []
+
+    def check(ok, what):
+        if not ok:
+            failures.append(what)
+
+    L = cfg.n_layers
+    tok = ptl.ByteTokenizer()
+    base = ["--byte-tokenizer", "--http", "0", "--slots", str(CKPT_SLOTS),
+            "--temperature", "0", "--attn", "auto"]
+    f32 = float32_checkpoint(saved, saved.parent / "saved_f32")
+    reqs = mesh_http_requests()
+    cells = {}
+    selected = [a for k, v in SELECTED.items()
+                for a in ("--" + k.replace("_", "-"), v)]
+    for name, ckpt, cell_reqs, extra in (
+            ("bf16", saved, reqs, ["--inject-faults", MESH_HTTP_FAULTS]),
+            ("float32", f32, reqs[2:4], selected)):
+        argv = ["--ckpt-dir", str(ckpt), *base, *extra]
+        zero_counts(fa, pa)
+        if name == "bf16":
+            ref = http_cli_session(torch, argv, cell_reqs)
+            want = [http_tokens(r) for r in ref["replies"]]
+            ref["recoveries"] = ref["health"]["recoveries_total"]
+        else:
+            ref = batcher_session(torch, ptl, shallow,
+                                  cfg.replace(dtype="float32"), SELECTED,
+                                  cell_reqs)
+            want = [(200, t) for t in ref["tokens"]]
+            ref["recoveries"] = 0
+        ref_launches = launch_counts(fa, pa)
+        ref_inst = instance_counts(fa, pa)
+        t = time.perf_counter()
+        rows = ranks.ask("http", argv=argv + MESH_SPEC, requests=cell_reqs)
+        mesh_s = time.perf_counter() - t
+        lead, follow = rows
+        got = [http_tokens(r) for r in lead["replies"]]
+        statuses = [st for st, _ in got]
+        check(statuses == [st for st, _ in want],
+              f"mesh_http {name} statuses {statuses}, unsharded "
+              f"{[st for st, _ in want]}")
+        ok = [i for i, (st, _) in enumerate(got) if st == 200]
+        prompts = [tok.encode(cell_reqs[i][1]["text"], bos=True) for i in ok]
+        divergences = []
+        if name == "float32":
+            check([got[i] for i in ok] == [want[i] for i in ok],
+                  f"mesh_http float32 tokens {got}, unsharded {want}")
+        else:
+            try:
+                divergences = token_divergences(
+                    torch, ptl, shallow, cfg, prompts,
+                    [got[i][1] for i in ok], [want[i][1] for i in ok],
+                    DECODE_REL)
+            except AssertionError as e:
+                failures.append(f"mesh_http bf16: {e}")
+        same_states = lead["states"] == follow["followed"].get("states")
+        check(same_states and len(lead["states"]) == len(cell_reqs),
+              f"mesh_http {name}: the ranks' host states differ")
+        check(lead["launches"] == follow["launches"] == ref_launches,
+              f"mesh_http {name} launches per rank "
+              f"{[r['launches'] for r in rows]}, unsharded {ref_launches}")
+        path = (("flash_fwd", "paged_decode") if name == "bf16"
+                else ("splash_prefill", "stock_paged"))
+        check(all(ref_launches[k] > 0 for k in path),
+              f"mesh_http {name}: a kernel of the path did not launch: "
+              f"{ref_launches}")
+        # Each rank runs the unsharded server's instances (bf16 inserts
+        # the Hopper flash instance).
+        inst_keys = ("flash_fwd_by_instance", "splash_by_instance",
+                     "stock_by_instance")
+        for r in rows:
+            inst = {k: r["instances"][k] for k in inst_keys}
+            check(inst == {k: ref_inst[k] for k in inst_keys} and (
+                name != "bf16"
+                or set(inst["flash_fwd_by_instance"]) == {"wgmma"}),
+                f"mesh_http {name} rank {r['rank']} instances {inst}, "
+                f"unsharded {ref_inst}")
+        check(lead["health"]["replica"]["serve_mesh"] == {
+            "data": 1, "tensor": MESH_RANKS, "devices": MESH_RANKS},
+            f"mesh_http {name} /healthz {lead['health']['replica']}")
+        cells[name] = dict(
+            requests=[p for p, _ in cell_reqs], statuses=statuses,
+            unsharded_statuses=[st for st, _ in want],
+            tokens_equal=[got[i] for i in ok] == [want[i] for i in ok],
+            divergences=divergences,
+            host_state_identical_after_each_request=same_states,
+            host_state_equal_to_unsharded=lead["states"] == ref["states"],
+            launches_per_rank=[r["launches"] for r in rows],
+            unsharded_launches=ref_launches,
+            kernels=SELECTED if name == "float32" else "checkpoint's",
+            instances_per_rank=[{k: r["instances"][k] for k in inst_keys}
+                                for r in rows],
+            paged_by_instance_per_rank=[
+                r["instances"]["paged_by_instance"] for r in rows],
+            recoveries=[lead["health"]["recoveries_total"],
+                        ref["recoveries"]],
+            lockstep=lockstep_figures(lead["lockstep"]),
+            follower_records=follow["followed"].get("records"),
+            mesh_s=mesh_s, rank_wall_s=[r["wall_s"] for r in rows],
+            unsharded_s=ref["wall_s"],
+            unsharded_is=("run.main()" if name == "bf16"
+                          else "batcher_session"))
+    bf = cells["bf16"]
+    check(bf["statuses"] == [504, 200, 200, 200, 400, 200],
+          f"mesh_http bf16 statuses {bf['statuses']}")
+    check(bf["recoveries"] == [1, 1], f"mesh_http recoveries "
+          f"{bf['recoveries']}")
+    check(cells["float32"]["host_state_equal_to_unsharded"],
+          "mesh_http float32: host state differs from the unsharded "
+          "server's")
+    row = dict(phase="mesh_http", card=smi, ranks=MESH_RANKS,
+               backend="gloo", config="llama3-8b", n_layers=L,
+               argv_mesh=MESH_SPEC, faults=MESH_HTTP_FAULTS, cells=cells,
+               launches=cells["bf16"]["launches_per_rank"][0],
+               seconds=time.perf_counter() - t0, failures=failures)
+    emit(row)
+    return row, failures
+
+
+def drive_mesh_router(torch, ptl, fa, pa, smi, ranks, saved, shallow, cfg):
+    """Phase ``mesh_router`` (ROADMAP A14 part 3): ``run.main()`` with
+    ``--http 0 --replicas 2 --route cache-aware --autoscale --serve-mesh
+    1,2`` on the two ranks (JAX's time-shared geometry: both replicas on
+    the one mesh), over the checkpoint phase's DECODE_DEPTH-layer
+    checkpoint, the controller's own loop idle (``--autoscale-interval-s``
+    3600) so that the hook's actions are the only ones.  It runs the
+    checkpoint's kernels (flash, paged): the stock-paged slot rounds K/V
+    to bf16 in the kernel (JAX's semantics), so under it a hit and a cold
+    serve part at a non-tie even in float32, unsharded as on the mesh
+    (mesh_http's float32 cell holds the selected kernels instead).  Checks
+    (``router_session``): the session's revisit routed to its holder (a
+    hit in the router's index); the router's handoff moves the chain and
+    its serve on the other replica is a prefix hit with the cold serve's
+    tokens; a FleetController scale-up builds a third replica on both
+    ranks and a scale-down drains it by migration, its prompt's revisit
+    the served tokens (a hit and a cold insert round differently in
+    bf16: a differing token must be a near-tie below DECODE_REL, as in
+    mesh_serving); every live replica's /healthz reports the 1 x 2
+    mesh; the ranks' host states agree through the log; each rank's
+    launches are the unsharded router's on the same traffic
+    (``run.main()`` without the mesh in this process, counted from zero
+    just before it), and the ones the replicas' dispatch records
+    imply."""
+    t0 = time.perf_counter()
+    failures = []
+
+    def check(ok, what):
+        if not ok:
+            failures.append(what)
+
+    L = cfg.n_layers
+    argv = ["--ckpt-dir", str(saved), "--byte-tokenizer", "--http", "0",
+            "--slots", str(CKPT_SLOTS), "--temperature", "0", "--attn",
+            "auto", "--replicas", "2", "--route", "cache-aware",
+            "--canary-interval-s", "0", "--autoscale", "--autoscale-min",
+            "2", "--autoscale-max", "3", "--autoscale-interval-s", "3600"]
+    zero_counts(fa, pa)
+    ref = router_cli_session(torch, argv)
+    ref_launches = launch_counts(fa, pa)
+    t = time.perf_counter()
+    rows = ranks.ask("http", argv=argv + MESH_SPEC)
+    mesh_s = time.perf_counter() - t
+    lead, follow = rows
+    toks = {k: http_tokens(lead[k]) for k in (
+        "cold", "routed_hit", "handoff_hit", "grown_serve",
+        "grown_revisit")}
+    check(all(st == 200 for st, _ in toks.values()),
+          f"mesh_router statuses { {k: v[0] for k, v in toks.items()} }")
+    holder = lead["cold"][1].get("X-Replica-Id")
+    check(lead["routed_hit"][1].get("X-Replica-Id") == holder
+          and lead["health"]["cache_index"]["hit_depth_blocks_total"] >= 1,
+          f"mesh_router: the revisit was not a routed hit "
+          f"({lead['routed_hit'][1].get('X-Replica-Id')} vs {holder})")
+    dst = 1 - int(holder)
+    check(lead["handoffs_idle"] and lead["handoffs_completed"] == 1
+          and lead["replica_stats"][dst]["prefix_requests_hit_total"] >= 1,
+          f"mesh_router handoff: completed {lead['handoffs_completed']}, "
+          f"replica {dst} {lead['replica_stats'][dst]}")
+    up, down = lead["up"], lead["down"]
+    check(up.get("ok") and up.get("replica") == 2 and down.get("ok")
+          and down["drain"]["migrated"] >= 1,
+          f"mesh_router scale: up {up}, down {down}")
+    texts = serve_texts()
+    tok = ptl.ByteTokenizer()
+    divergences = {}
+    for name, (hit, cold, text) in dict(
+            handoff=("handoff_hit", "cold", texts[5]),
+            drain=("grown_revisit", "grown_serve", texts[9])).items():
+        try:
+            divergences[name] = token_divergences(
+                torch, ptl, shallow, cfg, [tok.encode(text, bos=True)],
+                [toks[hit][1]], [toks[cold][1]], DECODE_REL)
+        except AssertionError as e:
+            failures.append(f"mesh_router {name}: {e}")
+    meshes = [r["replica"]["serve_mesh"]
+              for r in lead["health"]["replicas"] if not r.get("retired")]
+    check(len(meshes) == 2 and all(m == {
+        "data": 1, "tensor": MESH_RANKS, "devices": MESH_RANKS}
+        for m in meshes), f"mesh_router /healthz meshes {meshes}")
+    states = lead["states_grown"] + lead["states"]
+    check(states == follow["followed"].get("states"),
+          "mesh_router: the ranks' host states differ")
+    recs = [r for rs in lead["records"] for r in rs]
+    expect = record_launches(recs, L)
+    check(lead["launches"] == follow["launches"] == ref_launches == expect
+          and expect["flash_fwd"] > 0 and expect["paged_decode"] > 0,
+          f"mesh_router launches per rank {[r['launches'] for r in rows]}, "
+          f"unsharded {ref_launches}, the records imply {expect}")
+    ref_toks = {k: http_tokens(ref[k]) for k in toks}
+    row = dict(
+        phase="mesh_router", card=smi, ranks=MESH_RANKS, backend="gloo",
+        config="llama3-8b", n_layers=L, argv_mesh=MESH_SPEC,
+        replicas=2, holder=holder,
+        statuses={k: v[0] for k, v in toks.items()},
+        handoff_tokens_equal_cold=toks["handoff_hit"] == toks["cold"],
+        drain_revisit_tokens_equal=toks["grown_revisit"]
+        == toks["grown_serve"], divergences=divergences,
+        routed_hit_depth_blocks=lead["health"]["cache_index"][
+            "hit_depth_blocks_total"],
+        handoffs_completed=lead["handoffs_completed"],
+        scale_up=up, drain={k: down["drain"].get(k) for k in (
+            "ok", "sessions", "migrated", "blocks", "dur_ms")},
+        serve_meshes=meshes, host_states_identical=states == follow[
+            "followed"].get("states"),
+        launches_per_rank=[r["launches"] for r in rows],
+        unsharded_launches=ref_launches, expected_launches=expect,
+        tokens_equal_unsharded={k: toks[k] == ref_toks[k] for k in toks},
+        instances_per_rank=[{k: r["instances"][k] for k in (
+            "flash_fwd_by_instance", "paged_by_instance")} for r in rows],
+        lockstep=lockstep_figures(lead["lockstep"]),
+        follower_records=follow["followed"].get("records"),
+        mesh_s=mesh_s, rank_wall_s=[r["wall_s"] for r in rows],
+        unsharded_s=ref["wall_s"],
+        launches=lead["launches"], seconds=time.perf_counter() - t0,
+        failures=failures)
+    emit(row)
+    return row, failures
 
 
 # ---------------------------------------------------------------------------
@@ -8115,7 +8666,8 @@ def main() -> int:
                              f"expected {want_by}")
 
     # Phase 4b: checkpoint load and run.py over the 8-layer tree.
-    ckpt_row = drive_checkpoint(torch, ptl, fa, pa, shallow, cfg, smi)
+    ckpt_row, mesh_http_row, mesh_router_row = drive_checkpoint(
+        torch, ptl, fa, pa, shallow, cfg, smi, ranks)
     del shallow
 
     # Phase 5: the serving path, counted from zero.
@@ -8244,6 +8796,10 @@ def main() -> int:
              "mesh_generate": mesh_gen["launches_per_rank"][0],
              "mesh_serving": mesh_serve_row["tensor2"][
                  "launches_per_rank"][0],
+             "mesh_http": mesh_http_row["launches"],
+             "mesh_http_float32": mesh_http_row["cells"]["float32"][
+                 "launches_per_rank"][0],
+             "mesh_router": mesh_router_row["launches"],
              "mesh_train_tensor2": mt_cells["tensor2"][
                  "launches_per_rank"][0],
              "mesh_train_fsdp2": mt_cells["fsdp2"]["launches_per_rank"][0],
@@ -8257,6 +8813,10 @@ def main() -> int:
         "mesh_serving_data2": mesh_serve_row["data2"]["launches_per_rank"],
         "checkpoint_tensor2": ckpt_row["runs"]["one_shot_tensor2"][
             "launches_per_rank"],
+        "mesh_http": mesh_http_row["cells"]["bf16"]["launches_per_rank"],
+        "mesh_http_float32": mesh_http_row["cells"]["float32"][
+            "launches_per_rank"],
+        "mesh_router": mesh_router_row["launches_per_rank"],
         "mesh_train_tensor2": mt_cells["tensor2"]["launches_per_rank"],
         "mesh_train_fsdp2": mt_cells["fsdp2"]["launches_per_rank"],
         "pipeline_train": a14["pipeline_train"]["launches_per_rank"]}

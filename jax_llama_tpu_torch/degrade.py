@@ -28,6 +28,12 @@ restores fused speculative serving with the same R.  Failures are
 attributed once per chunk dispatch (the R rounds of one ``step()`` are
 one dispatch).
 
+Over a serving mesh of more than one rank (``parallel.lockstep``) the
+state machine runs on rank 0 only, inside its ``LLMServer``: it reads
+the clock there.  Its effects on the batcher (a quarantine's or a
+probe's rebuild, as keyword overrides over the first construction)
+reach the other ranks as records of the lockstep log.
+
 The server recovers from a crash by rebuilding and replaying; this
 module gives it *degraded* operation: a kernel that starts failing (a
 build regression, a launch error, silent NaN emission) should cost

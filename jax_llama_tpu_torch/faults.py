@@ -52,6 +52,17 @@ The kernel/spec sites carry their site name on the raised exception
 layer (``degrade.py``) attribute the failure to a feature and quarantine
 it onto its fallback path instead of burning the crash-recovery budget.
 
+Over a serving mesh (``parallel.lockstep``, run.py ``--http`` under
+torchrun) every rank arms an injector with the same spec and seed: each
+rank's batcher replays the same calls, so a batcher site fires at the
+same call on every rank and the ranks agree that the call raised.  The
+``router_replica`` and controller sites fire on rank 0 only, where the
+router and the fleet controller run, from an injector of their own (the
+same spec and seed): a ``site~P`` draw there would otherwise move rank
+0's random stream alone, and a batcher's ``site~P`` then fire on one
+rank only.  An injector armed on one rank
+alone makes the ranks diverge, which stops them all.
+
 Spec grammar (comma-separated, used by the CLI flag and ``JLT_FAULTS``)::
 
     site@N:kind[=value]     fire when the site's call counter == N

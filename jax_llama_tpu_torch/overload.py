@@ -3,7 +3,10 @@ an SLO-driven brownout ladder (a copy of ``jax_llama_tpu/overload.py``;
 it imports nothing of the package).  The brownout rungs shrink the
 batcher's live fused-prefill budget (``ContinuousBatcher.prefill_budget``,
 read by ``_pf_chunk`` at each fused admission) and run the host-tier
-demotion sweep (``ContinuousBatcher.demote_idle``).
+demotion sweep (``ContinuousBatcher.demote_idle``).  Over a serving mesh
+of more than one rank the controller runs on rank 0 only (it reads the
+clock and the sockets there); the budget write and the sweep reach the
+other ranks as records of the lockstep log (``parallel.lockstep``).
 
 A static FIFO depth count (``LLMServer.max_queue`` -> bare 503) alone
 would give a 32k-token prompt and a 16-token ping the same admission

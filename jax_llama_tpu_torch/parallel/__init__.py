@@ -1,9 +1,10 @@
 """Parallelism over ``torch.distributed`` (port of
 ``jax_llama_tpu/parallel``): one process per rank, local weight shards,
 explicit collectives.  See ``mesh`` for the design, ``ring`` for
-sequence parallelism and ``pipeline`` for pipeline stages."""
+sequence parallelism, ``pipeline`` for pipeline stages and ``lockstep``
+for the HTTP server and the router over a serving mesh."""
 
-from . import distributed, serve_mesh
+from . import distributed, lockstep, serve_mesh
 from .mesh import (
     AXES,
     Mesh,
@@ -25,6 +26,7 @@ from .ring import ring_attention, ring_sdpa
 
 __all__ = [
     "distributed",
+    "lockstep",
     "pipeline_blocks",
     "ring_attention",
     "ring_sdpa",

@@ -21,8 +21,13 @@ group over every rank carries host objects and host decisions.  The
 collectives the port uses are methods here: ``all_reduce``,
 ``all_gather``, ``reduce_scatter`` and ``ppermute`` (JAX's
 ``lax.ppermute`` over a ring) of tensors, ``broadcast_object`` of host
-objects and ``agree`` on a host decision; each call is counted in
-``collectives`` by kind and axis.
+objects, ``gather_object`` of every rank's host object and ``agree``
+on a host decision; each call is counted in ``collectives`` by kind and
+axis.  ``make_mesh(timeout_s=, control_timeout_s=)`` bounds how long a
+collective of the axis groups, and of the CPU group, waits for a rank
+that never joins it: past the bound it raises on the ranks that did
+(``parallel.lockstep`` relies on this to stop every rank of a server
+whose ranks diverged instead of hanging).
 
 Routes.  gloo takes CUDA tensors only for ``all_reduce``, ``all_gather``
 and ``broadcast``: it has no send/recv and no reduce-scatter for them.
@@ -63,6 +68,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import datetime
 import threading
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -109,7 +115,9 @@ class Mesh:
 
     def __init__(self, shape: Dict[str, int], devices: Sequence[torch.device],
                  rank: int, groups: Dict[Tuple[str, ...], Any],
-                 cpu_group: Any, backend: Optional[str] = None):
+                 cpu_group: Any, backend: Optional[str] = None,
+                 timeout_s: Optional[float] = None,
+                 control_timeout_s: Optional[float] = None):
         self.shape = {a: int(shape.get(a, 1)) for a in AXES}
         self.devices = [torch.device(d) for d in devices]
         self.rank = int(rank)
@@ -123,6 +131,10 @@ class Mesh:
         self.collectives: collections.Counter = collections.Counter()
         self.backend = backend
         self.routes = collective_routes(backend, self.device)
+        # The bounds ``make_mesh`` gave the groups (None: torch's
+        # default of the backend).
+        self.timeout_s = timeout_s
+        self.control_timeout_s = control_timeout_s
 
     @property
     def size(self) -> int:
@@ -293,6 +305,15 @@ class Mesh:
         dist.broadcast_object_list(box, src=src, group=self.cpu_group)
         return box[0]
 
+    def gather_object(self, obj: Any) -> List[Any]:
+        """Every rank's picklable ``obj``, in rank order, on every rank."""
+        if self.size == 1:
+            return [obj]
+        self.collectives[("gather_object", AXES)] += 1
+        out: List[Any] = [None] * self.size
+        dist.all_gather_object(out, obj, group=self.cpu_group)
+        return out
+
     def agree(self, flag: bool) -> bool:
         """True on every rank iff ``flag`` is true on every rank: a host
         decision that reads a clock or a CUDA event is agreed through
@@ -400,6 +421,8 @@ def make_mesh(
     seq: int = 1,
     tensor: int = 1,
     devices: Optional[Sequence[Any]] = None,
+    timeout_s: Optional[float] = None,
+    control_timeout_s: Optional[float] = None,
 ) -> Mesh:
     """Build this rank's view of a 5-axis mesh (JAX :78).  The axis
     product must equal the number of processes in the default group
@@ -409,7 +432,10 @@ def make_mesh(
     needs the gloo backend; this rank's device becomes its current CUDA
     device.  The CPU is used only when ``devices`` names it.  The routes
     of ``ppermute`` and ``reduce_scatter`` follow from the default
-    group's backend and this rank's device (``collective_routes``)."""
+    group's backend and this rank's device (``collective_routes``).
+    ``timeout_s`` bounds each collective of the axis groups and
+    ``control_timeout_s`` each one of the CPU group (None: the backend's
+    default); a rank that waits past it raises."""
     shape = dict(zip(AXES, (data, stage, fsdp, seq, tensor)))
     want = data * stage * fsdp * seq * tensor
     world = distributed.process_count()
@@ -449,17 +475,23 @@ def make_mesh(
             keys.append(("data", "fsdp"))
         for key in keys:
             for ranks in _rank_sets(shape, key):
-                g = dist.new_group(ranks)
+                g = dist.new_group(ranks, timeout=_delta(timeout_s))
                 if dist.get_rank() in ranks:
                     groups[key] = g
-        cpu_group = dist.new_group(list(range(want)), backend="gloo")
+        cpu_group = dist.new_group(list(range(want)), backend="gloo",
+                                   timeout=_delta(control_timeout_s))
     rank = dist.get_rank() if want > 1 else 0
     if devices[rank].type == "cuda":
         # The rank's device is its current one: NCCL binds a group's
         # communicator to it.
         torch.cuda.set_device(devices[rank])
     backend = dist.get_backend() if want > 1 else None
-    return Mesh(shape, devices, rank, groups, cpu_group, backend)
+    return Mesh(shape, devices, rank, groups, cpu_group, backend,
+                timeout_s=timeout_s, control_timeout_s=control_timeout_s)
+
+
+def _delta(seconds: Optional[float]) -> Optional[datetime.timedelta]:
+    return None if seconds is None else datetime.timedelta(seconds=seconds)
 
 
 def auto_mesh(tensor: Optional[int] = None,

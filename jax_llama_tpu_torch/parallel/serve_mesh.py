@@ -76,15 +76,20 @@ def parse_serve_mesh(text: str) -> ServeMeshSpec:
 
 
 def build_serve_mesh(spec: ServeMeshSpec,
-                     devices: Optional[Sequence[Any]] = None) -> Mesh:
+                     devices: Optional[Sequence[Any]] = None,
+                     timeout_s: Optional[float] = None,
+                     control_timeout_s: Optional[float] = None) -> Mesh:
     """The serving mesh over ``spec.n_devices`` ranks (the process
-    group's; ``devices`` maps rank i to its device as in ``make_mesh``)."""
+    group's; ``devices`` maps rank i to its device, and the two timeouts
+    bound its groups' collectives, as in ``make_mesh``)."""
     if devices is not None and len(devices) != spec.n_devices:
         raise ValueError(
             f"serve mesh {spec.data}x{spec.tensor} needs "
             f"{spec.n_devices} devices, got {len(devices)}"
         )
-    return make_mesh(data=spec.data, tensor=spec.tensor, devices=devices)
+    return make_mesh(data=spec.data, tensor=spec.tensor, devices=devices,
+                     timeout_s=timeout_s,
+                     control_timeout_s=control_timeout_s)
 
 
 def is_serving_mesh(mesh: Optional[Mesh]) -> bool:

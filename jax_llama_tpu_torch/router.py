@@ -2,8 +2,8 @@
 (port of ``jax_llama_tpu/router.py``; the JAX names are kept, so each
 part is found in both files by name).
 
-The scale-out serving subsystem's outermost layer (a replica over a
-serving mesh is ROADMAP A14 part 3): a :class:`ReplicaRouter` fronts N
+The scale-out serving subsystem's outermost layer (each replica may
+itself run over a serving mesh, below): a :class:`ReplicaRouter` fronts N
 **independent** serving replicas — each an ``LLMServer`` with its own
 ``ContinuousBatcher``, KV pool and radix prefix index — and routes each
 POST to one of them:
@@ -83,6 +83,17 @@ request it may have half-delivered.
 (tests/drills drive it on the owning threads); live traffic goes
 through the scheduler above, which reaches each batcher via its
 server's control path (``call_on_loop``).
+
+**Over a serving mesh** (``run.py --replicas N --serve-mesh dp,tp``
+under torchrun): the router, every replica's server and the fleet
+controller run on rank 0, and every replica time-shares the one mesh
+(JAX's geometry when the host has no device slice of its own for a
+replica).  Each replica's batcher is built on every rank through the
+mesh's lockstep log (``parallel.lockstep``), whose one lock orders all
+replicas' logged calls.  A control closure runs on the leader's loop,
+where the batcher it is given publishes each of its calls as a named
+record: an export on each rank returns that rank's own head slice, and
+the import of it lands each rank's own slabs.
 
 HTTP surface (the router speaks the same protocol as a single server,
 so clients need no changes):

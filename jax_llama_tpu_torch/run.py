@@ -23,6 +23,8 @@
         --ckpt-dir ... --tensor 2 [--data 1] ...
     torchrun --nproc-per-node 2 -m jax_llama_tpu_torch.run \
         --ckpt-dir ... --serve --serve-mesh 1,2 < prompts.txt
+    torchrun --nproc-per-node 2 -m jax_llama_tpu_torch.run \
+        --ckpt-dir ... --http 8000 --serve-mesh 1,2 [--replicas 2 ...]
 
 The checkpoint is the port's (``python -m jax_llama_tpu_torch.convert``
 writes one from Meta's files).  The argument parser is the JAX package's,
@@ -33,8 +35,9 @@ so an argv that one accepts the other does too, plus ``--device`` (default
 (``server.LLMServer``: POST /generate and /chat, GET /metrics, /healthz,
 /debug/*) run on the card, or on the CPU with ``--device cpu``; ``--http``
 never falls back to the CPU.  A flag whose feature is not ported exits
-with a message that names its ROADMAP item: ``--http`` or ``--replicas``
-over a mesh of more than one rank (A14 part 3).
+with a message that names its ROADMAP item: ``--replicas`` over a serving
+mesh whose job has a mesh's worth of ranks for each of two or more
+replicas (sliced replicas, A14 part 4).
 
 Tensor, data and fsdp parallelism run one process per rank, as
 ``torchrun`` starts them (``parallel.distributed.initialize`` reads its
@@ -50,6 +53,14 @@ is nccl with one rank per GPU and gloo with ``--device cpu``, and gloo
 where the ranks share the one GPU of a single-GPU host (NCCL refuses two
 ranks on one device); more ranks than GPUs on a host with several exit.
 ``checkpoint_restored`` logs the backend and each rank's device.
+``--http`` over a mesh of more than one rank (``--serve-mesh`` or the
+``--tensor``/``--data`` axes) serves from rank 0, the leader, which runs
+the HTTP front end, the server's loop and, with ``--replicas``, the router
+and the fleet controller; every other rank is a follower that builds the
+same batchers over its own shard and applies, in order, the batcher calls
+the leader publishes (``parallel.lockstep``).  Every replica time-shares
+the one mesh.  SIGTERM or SIGINT on rank 0 drains, then stops the
+followers, which ignore signals.
 ``--http`` with ``--replicas`` > 1 serves N replicas on the one device
 behind ``router.ReplicaRouter`` (``--route``, ``--replica-roles``,
 ``--canary-interval-s``), as the JAX CLI does; ``--autoscale`` adds a
@@ -312,7 +323,8 @@ def _run(args, log, device, mesh) -> None:
         )
 
     if args.http is not None:
-        _serve_http(params, config, tokenizer, device, args, logger=log)
+        _serve_http(params, config, tokenizer, device, args, logger=log,
+                    mesh=mesh)
         return
     if args.serve:
         _serve(params, config, tokenizer, device, args, mesh=mesh)
@@ -497,18 +509,6 @@ def _refuse_unported(args) -> None:
             "--serve-mesh applies to the serving modes "
             "(--serve / --http PORT)"
         )
-    mesh = args.data * args.fsdp * max(1, args.tensor)
-    multi = mesh > 1 or (args.serve_mesh is not None
-                         and _serve_spec(args).n_devices > 1)
-    unported = (
-        (multi and args.http is not None,
-         "--http over a mesh of more than one rank", "A14 part 3"),
-        (multi and args.replicas > 1,
-         "--replicas over a mesh of more than one rank", "A14 part 3"),
-    )
-    for bad, what, item in unported:
-        if bad:
-            raise SystemExit(f"{what} is not ported (ROADMAP {item})")
     if args.replica_roles is not None:
         roles = tuple(
             r.strip() for r in args.replica_roles.split(",") if r.strip()
@@ -589,6 +589,18 @@ def _mesh_ranks(args) -> int:
     world = int(os.environ.get("WORLD_SIZE",
                                os.environ.get("JAX_NUM_PROCESSES", "1")))
     spec = _serve_spec(args) if args.serve_mesh is not None else None
+    if (spec is not None and args.replicas > 1 and args.http is not None
+            and world >= 2 * spec.n_devices):
+        # JAX gives replica i its own devices while the host has
+        # (i + 1) x dp x tp of them; here those ranks would hold a
+        # batcher the router's process does not, and a handoff between
+        # them a transfer between processes.
+        raise SystemExit(
+            f"--replicas {args.replicas} over --serve-mesh "
+            f"{args.serve_mesh} with {world} processes: replicas on ranks "
+            "of their own (sliced replicas) are not ported (ROADMAP A14 "
+            "part 4); run one mesh's worth of ranks, which every replica "
+            "time-shares")
     rows = args.data * args.fsdp
     want = (spec.n_devices if spec is not None
             else rows * (args.tensor or max(1, world // rows)))
@@ -630,11 +642,20 @@ def _mesh_for(args, device, ranks: int):
             devices = ["cuda:0"] * ranks
     distributed.initialize(backend="gloo" if devices else None,
                            device=str(device))
+    # An HTTP server's ranks wait on one another only so long: a rank
+    # that is lost or diverges stops every rank (parallel.lockstep).
+    bounds = {}
+    if args.http is not None:
+        from .parallel.lockstep import CONTROL_TIMEOUT_S, MESH_TIMEOUT_S
+
+        bounds = dict(timeout_s=MESH_TIMEOUT_S,
+                      control_timeout_s=CONTROL_TIMEOUT_S)
     if args.serve_mesh is not None:
-        return build_serve_mesh(_serve_spec(args), devices=devices)
+        return build_serve_mesh(_serve_spec(args), devices=devices,
+                                **bounds)
     return make_mesh(data=args.data, fsdp=args.fsdp,
                      tensor=ranks // (args.data * args.fsdp),
-                     devices=devices)
+                     devices=devices, **bounds)
 
 
 def _mesh_placement(mesh) -> dict:
@@ -748,53 +769,159 @@ def _serve(params, config, tokenizer, device, args, mesh=None) -> None:
               f"slot(s)")
 
 
-def _serve_http(params, config, tokenizer, device, args, _test_hook=None,
-                logger=None) -> None:
-    """HTTP front-end: ``LLMServer`` over the batcher until interrupted
-    (JAX ``run._serve_http``); ``--replicas`` > 1 serves through
-    ``_serve_router``.  ``_test_hook(srv)``, when given, runs once the
-    server is up, and then the function returns instead of blocking."""
+def _arm_faults(args, logger):
+    """The fault injector of ``--inject-faults`` (over the JLT_FAULTS env
+    var), its build-time hook installed; None with neither.  Every rank
+    of a mesh arms the same spec and seed, so a batcher site fires at the
+    same call on every rank."""
+    from .faults import FaultInjector, install_trace_hook
+
+    fault_spec = args.inject_faults or os.environ.get("JLT_FAULTS")
+    if not fault_spec:
+        return None
+    injector = FaultInjector(fault_spec, seed=args.fault_seed)
+    # The first load of each kernel's library fires its site too
+    # (ops._build.load), so a drill can fail a kernel's build.
+    install_trace_hook(injector.fire)
+    logger.log("faults_armed", spec=fault_spec)
+    return injector
+
+
+def _replica_batchers(params, config, tokenizer, device, args, injector,
+                      mesh):
+    """``make(i)``: replica ``i``'s batcher, the flags' with its own
+    sampling seed and observability sink, over ``mesh`` (time-shared by
+    every replica).  The draft model is loaded here, sharded like the
+    target, and a serving mesh is validated against it too (JAX)."""
+    from .obs import Observability
+    from .serving import ContinuousBatcher
+
+    draft_params, draft_config = _load_draft(args, device, mesh)
+    if args.serve_mesh is not None and mesh is not None \
+            and draft_config is not None:
+        # _run validated the target before the draft existed.
+        from .parallel.serve_mesh import validate_serve_mesh
+
+        try:
+            validate_serve_mesh(config, mesh, args.slots,
+                                draft_config=draft_config)
+        except ValueError as e:
+            raise SystemExit(str(e))
+
+    def make(i):
+        # The observability sink gets the CLI's SLO deadlines and peaks;
+        # the batcher hands it to every rebuild, so the trace stays one.
+        obs = Observability(
+            slo_ttft_ms=args.slo_ttft_ms or None,
+            slo_itl_ms=args.slo_itl_ms or None,
+            peak_flops=args.peak_tflops * 1e12,
+            peak_bytes_per_s=args.peak_hbm_gbps * 1e9,
+        )
+        return ContinuousBatcher(
+            params, config, **dict(_batcher_kwargs(args), seed=args.seed + i),
+            stop_tokens=_stops(tokenizer), draft_params=draft_params,
+            draft_config=draft_config, fault_injector=injector, obs=obs,
+            cost_models=not args.no_cost_models, device=device, mesh=mesh,
+        )
+
+    return make
+
+
+def _follow(mesh, make) -> None:
+    """A follower rank of an HTTP server over ``mesh``: build the
+    replicas the leader makes (``make``) and apply its records until its
+    stop record (``parallel.lockstep.follow``).  Signals are ignored
+    meanwhile: rank 0 drains on them, then stops this rank."""
+    import signal
+
+    from .parallel import lockstep
+
+    previous = []
+    try:
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            previous.append((sig, signal.signal(sig, signal.SIG_IGN)))
+    except ValueError:
+        previous = []  # not the main thread; no signal wiring
+    try:
+        lockstep.follow(mesh, make)
+    finally:
+        for sig, old in previous:
+            signal.signal(sig, old)
+
+
+def _until_signal(on_drain, on_hard, leader=None) -> None:
+    """Block until SIGTERM or the first Ctrl-C, then ``on_drain()``; a
+    second Ctrl-C during it calls ``on_hard()``.  The handler only flips
+    a flag (a store is async-signal-safe) and restores SIGINT's default,
+    so a second Ctrl-C raises KeyboardInterrupt here.  When ``leader``'s
+    lockstep log breaks (a rank diverged or was lost) the wait ends and
+    its error raises: no rank of the mesh can serve any more."""
     import signal
     import time
 
-    from .faults import FaultInjector, install_trace_hook
-    from .obs import Observability, StructuredLogger
+    state = {"signaled": False}
+
+    def _on_signal(signum, frame):
+        state["signaled"] = True
+        signal.signal(signal.SIGINT, signal.default_int_handler)
+
+    previous = []
+    try:
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            previous.append((sig, signal.signal(sig, _on_signal)))
+    except ValueError:
+        previous = []  # not the main thread; no signal wiring
+    try:
+        while not state["signaled"]:
+            if leader is not None and leader.broken is not None:
+                raise leader.broken
+            time.sleep(0.2)
+        on_drain()
+    except KeyboardInterrupt:
+        on_hard()
+    finally:
+        for sig, old in previous:
+            try:
+                signal.signal(sig, old)
+            except (ValueError, TypeError):
+                pass
+
+
+def _serve_http(params, config, tokenizer, device, args, _test_hook=None,
+                logger=None, mesh=None) -> None:
+    """HTTP front-end: ``LLMServer`` over the batcher until interrupted
+    (JAX ``run._serve_http``); ``--replicas`` > 1 serves through
+    ``_serve_router``.  Over a mesh of more than one rank, rank 0 is the
+    leader: it serves HTTP and publishes each batcher call to the other
+    ranks, the followers, which apply them on their own shards until the
+    leader stops them (``parallel.lockstep``).  ``_test_hook(srv)``, when
+    given, runs on the leader once the server is up, and then the
+    function returns instead of blocking."""
+    from .faults import install_trace_hook
+    from .obs import StructuredLogger
+    from .parallel import lockstep
     from .server import LLMServer
-    from .serving import ContinuousBatcher
 
     if logger is None:
         logger = StructuredLogger(json_mode=args.log_json)
     if args.replicas > 1:
         _serve_router(params, config, tokenizer, device, args,
-                      _test_hook=_test_hook, logger=logger)
+                      _test_hook=_test_hook, logger=logger, mesh=mesh)
         return
-    # --inject-faults wins over the JLT_FAULTS env var; with neither, no
-    # injector is built.
-    fault_spec = args.inject_faults or os.environ.get("JLT_FAULTS")
-    injector = None
-    if fault_spec:
-        injector = FaultInjector(fault_spec, seed=args.fault_seed)
-        # The first load of each kernel's library fires its site too
-        # (ops._build.load), so a drill can fail a kernel's build.
-        install_trace_hook(injector.fire)
-        logger.log("faults_armed", spec=fault_spec)
-    draft_params, draft_config = _load_draft(args, device)
-    # The observability sink gets the CLI's SLO deadlines and peaks; the
-    # batcher hands it to every rebuild, so the trace stays one.
-    obs = Observability(
-        slo_ttft_ms=args.slo_ttft_ms or None,
-        slo_itl_ms=args.slo_itl_ms or None,
-        peak_flops=args.peak_tflops * 1e12,
-        peak_bytes_per_s=args.peak_hbm_gbps * 1e9,
-    )
-    cb = ContinuousBatcher(
-        params, config, **_batcher_kwargs(args),
-        stop_tokens=_stops(tokenizer), draft_params=draft_params,
-        draft_config=draft_config, fault_injector=injector, obs=obs,
-        cost_models=not args.no_cost_models, device=device,
-    )
-    chat_format = _chat_format_for(tokenizer)
+    injector = _arm_faults(args, logger)
+    leader = None
     try:
+        make = _replica_batchers(params, config, tokenizer, device, args,
+                                 injector, mesh)
+        if mesh is not None and mesh.size > 1:
+            if mesh.rank != 0:
+                _follow(mesh, make)
+                return
+            leader = lockstep.leader_for(mesh)
+            cb = leader.make(0, lambda: make(0))
+        else:
+            cb = make(0)
+        chat_format = _chat_format_for(tokenizer)
         with LLMServer(
             cb, tokenizer=tokenizer, host=args.host, port=args.http,
             chat_format=chat_format,
@@ -821,29 +948,14 @@ def _serve_http(params, config, tokenizer, device, args, _test_hook=None,
                 ", /chat" if chat_format is not None else "")
             logger.log("serving", address=srv.address,
                        endpoints=f"{endpoints}, GET /metrics, /healthz, "
-                                 "/debug/*")
+                                 "/debug/*",
+                       **({"mesh": str(dict(mesh.shape))}
+                          if leader is not None else {}))
             if _test_hook is not None:
                 _test_hook(srv)
                 return
-            # SIGTERM and the first Ctrl-C flip a flag (the handler does
-            # nothing else: a store is async-signal-safe) and restore
-            # SIGINT's default, so a second Ctrl-C hard-stops; the loop
-            # below drains.
-            state = {"signaled": False}
 
-            def _on_signal(signum, frame):
-                state["signaled"] = True
-                signal.signal(signal.SIGINT, signal.default_int_handler)
-
-            previous = []
-            try:
-                for sig in (signal.SIGTERM, signal.SIGINT):
-                    previous.append((sig, signal.signal(sig, _on_signal)))
-            except ValueError:
-                previous = []  # not the main thread; no signal wiring
-            try:
-                while not state["signaled"]:
-                    time.sleep(0.2)
+            def drain():
                 srv.begin_drain()
                 logger.log(
                     "drain_begin",
@@ -854,16 +966,16 @@ def _serve_http(params, config, tokenizer, device, args, _test_hook=None,
                     logger.log("drained", "shutting down")
                 else:
                     logger.log("drain_timeout", "shutting down")
-            except KeyboardInterrupt:
+
+            def hard():
                 srv.begin_drain(timeout_s=0.0)
                 logger.log("hard_shutdown", "second interrupt")
-            finally:
-                for sig, old in previous:
-                    try:
-                        signal.signal(sig, old)
-                    except (ValueError, TypeError):
-                        pass
+
+            _until_signal(drain, hard, leader)
     finally:
+        if leader is not None:
+            # The server has stopped: the followers return.
+            leader.stop()
         if injector is not None:
             # The hook is a module global: clear it so an embedding
             # process does not keep firing a dead drill's injector.
@@ -871,53 +983,61 @@ def _serve_http(params, config, tokenizer, device, args, _test_hook=None,
 
 
 def _serve_router(params, config, tokenizer, device, args, _test_hook=None,
-                  logger=None) -> None:
+                  logger=None, mesh=None) -> None:
     """``--replicas N`` mode (JAX ``run._serve_router``): N independent
     batcher + server replicas behind one ``router.ReplicaRouter`` speaking
     the standard protocol on the ``--http`` port.  The replicas share the
     one copy of the weights on ``device``, as the JAX package's share
-    ``params`` without a serving mesh; each owns its pool, queue, prefix
-    index and serving-loop thread.  One fault injector serves the router
-    site and every replica's sites, so ``site@N`` counts the process's
-    dispatches.  With ``--autoscale`` a ``router.FleetController`` grows
-    the fleet through ``make_replica`` (the same weight copy) and, when
-    the router shuts down, stops the replicas it grew.
-    ``_test_hook(router, servers)``, when given, runs once everything is
-    up, and then the function returns instead of blocking."""
-    import signal
-    import time
-
+    ``params``, and the one ``mesh`` (JAX's time-shared geometry: a
+    replica on ranks of its own is refused in ``_mesh_ranks``); each owns
+    its pool, queue, prefix index and serving-loop thread.  One fault
+    injector serves the router site and every replica's sites, so
+    ``site@N`` counts the process's dispatches; over a mesh the router
+    and the controller draw from an injector of their own (the same spec
+    and seed), so that a ``site~P`` draw on the leader alone never moves
+    the random stream every rank's batchers share.  With ``--autoscale`` a
+    ``router.FleetController`` grows the fleet through ``make_replica``
+    (the same weight copy) and, when the router shuts down, stops the
+    replicas it grew.  Over a mesh of more than one rank, rank 0 is the
+    leader: it runs the router, the controller and every replica's
+    server, and builds each replica's batcher on every rank through the
+    lockstep log; the other ranks follow it (``parallel.lockstep``).
+    ``_test_hook(router, servers)``, when given, runs on the leader once
+    everything is up, and then the function returns instead of
+    blocking."""
     from .faults import FaultInjector, install_trace_hook
-    from .obs import Observability, StructuredLogger
+    from .obs import StructuredLogger
+    from .parallel import lockstep
     from .router import FleetController, ReplicaRouter
     from .server import LLMServer
-    from .serving import ContinuousBatcher
 
     if logger is None:
         logger = StructuredLogger(json_mode=args.log_json)
-    fault_spec = args.inject_faults or os.environ.get("JLT_FAULTS")
-    injector = None
-    if fault_spec:
-        injector = FaultInjector(fault_spec, seed=args.fault_seed)
-        install_trace_hook(injector.fire)
-        logger.log("faults_armed", spec=fault_spec)
-    draft_params, draft_config = _load_draft(args, device)
+    injector = _arm_faults(args, logger)
+    make = _replica_batchers(params, config, tokenizer, device, args,
+                             injector, mesh)
+    leader, router_faults = None, injector
+    if mesh is not None and mesh.size > 1:
+        if mesh.rank != 0:
+            try:
+                _follow(mesh, make)
+            finally:
+                if injector is not None:
+                    install_trace_hook(None)
+            return
+        leader = lockstep.leader_for(mesh)
+        if injector is not None:
+            router_faults = FaultInjector(injector.specs,
+                                          seed=args.fault_seed)
+        logger.log("serve_mesh_shared",
+                   f"{args.replicas} replicas time-share one mesh of "
+                   f"{mesh.size} ranks", mesh=str(dict(mesh.shape)))
 
     def make_replica(i):
-        """Build and start replica ``i``: the flags' batcher with its own
-        sampling seed, and the server the JAX CLI builds per replica."""
-        obs = Observability(
-            slo_ttft_ms=args.slo_ttft_ms or None,
-            slo_itl_ms=args.slo_itl_ms or None,
-            peak_flops=args.peak_tflops * 1e12,
-            peak_bytes_per_s=args.peak_hbm_gbps * 1e9,
-        )
-        cb = ContinuousBatcher(
-            params, config, **dict(_batcher_kwargs(args), seed=args.seed + i),
-            stop_tokens=_stops(tokenizer), draft_params=draft_params,
-            draft_config=draft_config, fault_injector=injector, obs=obs,
-            cost_models=not args.no_cost_models, device=device,
-        )
+        """Build and start replica ``i``: its batcher (on every rank of
+        a mesh) and the server the JAX CLI builds per replica."""
+        cb = (leader.make(i, lambda: make(i)) if leader is not None
+              else make(i))
         srv = LLMServer(
             cb, tokenizer=tokenizer, host=args.host, port=0, replica_id=i,
             max_recoveries=args.max_recoveries,
@@ -940,7 +1060,8 @@ def _serve_router(params, config, tokenizer, device, args, _test_hook=None,
         # block_size is the key granularity (one config, so one size).
         router = ReplicaRouter(
             servers, host=args.host, port=args.http, policy=args.route,
-            fault_injector=injector, logger=logger, tokenizer=tokenizer,
+            fault_injector=router_faults, logger=logger,
+            tokenizer=tokenizer,
             block_size=servers[0].batcher.block_size,
             chat_format=_chat_format_for(tokenizer),
             roles=args.replica_roles,
@@ -963,25 +1084,14 @@ def _serve_router(params, config, tokenizer, device, args, _test_hook=None,
         try:
             logger.log("serving_replicas", address=router.address,
                        replicas=args.replicas, policy=args.route,
-                       device=str(device))
+                       device=str(device),
+                       **({"mesh": str(dict(mesh.shape))}
+                          if leader is not None else {}))
             if _test_hook is not None:
                 _test_hook(router, servers)
                 return
-            state = {"signaled": False}
 
-            def _on_signal(signum, frame):
-                state["signaled"] = True
-                signal.signal(signal.SIGINT, signal.default_int_handler)
-
-            previous = []
-            try:
-                for sig in (signal.SIGTERM, signal.SIGINT):
-                    previous.append((sig, signal.signal(sig, _on_signal)))
-            except ValueError:
-                previous = []
-            try:
-                while not state["signaled"]:
-                    time.sleep(0.2)
+            def drain():
                 logger.log("drain_begin", "all replicas draining",
                            timeout_s=args.drain_timeout_s)
                 for srv in servers:
@@ -989,16 +1099,13 @@ def _serve_router(params, config, tokenizer, device, args, _test_hook=None,
                 for srv in servers:
                     srv.wait_drained(args.drain_timeout_s + 10)
                 logger.log("drained", "shutting down")
-            except KeyboardInterrupt:
+
+            def hard():
                 for srv in servers:
                     srv.begin_drain(timeout_s=0.0)
                 logger.log("hard_shutdown", "second interrupt")
-            finally:
-                for sig, old in previous:
-                    try:
-                        signal.signal(sig, old)
-                    except (ValueError, TypeError):
-                        pass
+
+            _until_signal(drain, hard, leader)
         finally:
             if controller is not None:
                 controller.close(stop_owned=True)
@@ -1006,6 +1113,9 @@ def _serve_router(params, config, tokenizer, device, args, _test_hook=None,
     finally:
         for srv in servers:
             srv.stop()
+        if leader is not None:
+            # Every replica has stopped: the followers return.
+            leader.stop()
         if injector is not None:
             install_trace_hook(None)
 

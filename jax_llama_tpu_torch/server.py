@@ -59,6 +59,17 @@ store, its host tier and the compact summary of its chain digest,
 ``replica`` (``serve_mesh``, 1 x 1 off-mesh) and ``features`` (one
 entry per degradable feature).
 
+Over a serving mesh of more than one rank (``parallel.serve_mesh``) the
+server runs on rank 0 only, and its batcher is seen through the mesh's
+lockstep log (``parallel.lockstep``): ``LLMServer(batcher)`` takes the
+``LockstepBatcher`` that ``Leader.make`` built (and refuses a plain
+batcher on such a mesh), and every call that changes the batcher's host
+state or issues a collective (admission, cancels, steps, the degrade
+ladder's writes, recovery and quarantine rebuilds, the router's handoff
+calls) is published to the follower ranks before it runs, so they apply
+it in the same order.  A rank that diverges or is lost stops the loop
+(``LockstepError``), which no recovery retries.
+
 Endpoints:
   POST /generate   {"prompt": [ids]} or {"text": "..."} (needs a
                    tokenizer), optional max_new_tokens / temperature /
@@ -132,8 +143,9 @@ from .obs import Observability, StructuredLogger, metric_meta
 from .ops import _build
 from .ops.kernels import kernel_specs
 from .overload import CANARY, PRIORITIES, RUNG_INDEX, OverloadController
+from .parallel import lockstep
 from .parallel.serve_mesh import mesh_shape
-from .serving import ContinuousBatcher, _round_up
+from .serving import ContinuousBatcher, _round_up, build_batcher
 from .utils.profiling import ProfilerSession, summarize_trace
 
 # Injection-site -> degradable-feature attribution for dispatch
@@ -315,6 +327,14 @@ class LLMServer:
         replica_id: Optional[int] = None,
         flight_interval_s: float = 5.0,
     ):
+        mesh = getattr(batcher, "mesh", None)
+        if (mesh is not None and mesh.size > 1
+                and not isinstance(batcher, lockstep.LockstepBatcher)):
+            # No other rank would replay what this server does to it.
+            raise ValueError(
+                f"a batcher on a mesh of {mesh.size} ranks must be built "
+                "through lockstep.Leader.make on rank 0 (and "
+                "lockstep.follow on the others)")
         self.batcher = batcher
         # Replica index behind a ReplicaRouter (router.py); None when
         # standalone.  Purely observational: /healthz gains a
@@ -391,9 +411,7 @@ class LLMServer:
         self.max_queue = self.overload.max_queue
         if self.batcher.obs.on_dispatch is None:
             self.batcher.obs.on_dispatch = self.overload.on_dispatch
-        self._base_ctor = (
-            batcher.params, batcher.config, dict(batcher._ctor_kwargs)
-        )
+        self._base_ctor = batcher.construction()
         # The degrade state the current batcher was built for.
         self._built_disabled: frozenset = frozenset()
         self.quarantine_rebuilds_total = 0
@@ -1016,6 +1034,10 @@ class LLMServer:
         self._loop_thread.join(timeout=30)
         if self._watchdog_thread is not None:
             self._watchdog_thread.join(timeout=10)
+        if (isinstance(self.batcher, lockstep.LockstepBatcher)
+                and not self._loop_thread.is_alive()):
+            # The follower ranks drop their copy of this batcher too.
+            self.batcher.release()
 
     def call_on_loop(self, fn, timeout_s: float = 30.0):
         """Run ``fn(batcher)`` on the serving-loop thread (the
@@ -1045,7 +1067,8 @@ class LLMServer:
     def _drain_control(self) -> None:
         """Execute queued control calls (loop thread only).  Errors
         are CAPTURED into the call — a failed handoff export must
-        never take down the device-owning thread."""
+        never take down the device-owning thread — except a lockstep
+        error, which the caller gets and the loop dies of."""
         while True:
             try:
                 call = self._control.get_nowait()
@@ -1058,6 +1081,8 @@ class LLMServer:
             except BaseException as e:
                 call.error = e
             call.done.set()
+            if isinstance(call.error, lockstep.LockstepError):
+                raise call.error
 
     def begin_drain(self, timeout_s: Optional[float] = None) -> None:
         """Flip the server into drain mode (the SIGTERM/SIGINT path):
@@ -1406,15 +1431,16 @@ class LLMServer:
         the state the current batcher was built for (a crash recovery),
         ``ContinuousBatcher.rebuild()`` reproduces it; otherwise the
         ORIGINAL construction is rebuilt with every quarantined feature
-        swapped for its fallback."""
+        swapped for its fallback (on a serving mesh, on every rank: the
+        overrides are plain values a follower applies to its own
+        construction)."""
         disabled = self._disabled_features()
         if disabled == self._built_disabled:
             return self.batcher.rebuild()
         # The batcher this one replaces is dropped: its swap-in copies
         # must land before their staging memory goes.
         self.batcher._quiesce_restores()
-        params, config, kwargs = self._base_ctor
-        kw = dict(kwargs)
+        kw: Dict[str, Any] = {}
         # Kernel-selection rungs: each falls back to another custom
         # kernel (ctor kwargs override the config fields, so this wins
         # over a baked-in "splash"/"stock-paged"/"auto").
@@ -1429,10 +1455,10 @@ class LLMServer:
         for feature, (arg, value) in _PLAIN_RUNGS.items():
             if feature in disabled:
                 kw[arg] = value
-        attn_impl = kw.pop("attn_impl", None)
-        if attn_impl is not None and config.attn_impl != attn_impl:
-            config = config.replace(attn_impl=attn_impl)
-        batcher = ContinuousBatcher(params, config, **kw)
+        if isinstance(self.batcher, lockstep.LockstepBatcher):
+            batcher = self.batcher.build(kw)
+        else:
+            batcher = build_batcher(self._base_ctor, kw)
         self._built_disabled = disabled
         return batcher
 
@@ -1461,6 +1487,9 @@ class LLMServer:
         unattributable rebuilds inside ``recovery_window_s``): the
         caller re-raises and the finally-drain 503s every client
         instead of crash-looping."""
+        if isinstance(exc, lockstep.LockstepError):
+            # The ranks can no longer agree: nothing a rebuild can mend.
+            return False
         feature = self._attribute(exc)
         if feature is not None:
             if self.degrade.record_failure(feature):
@@ -1644,9 +1673,8 @@ class LLMServer:
                 "prompt_tokens_total": self.batcher.prompt_tokens_total,
             },
             "overload": self.overload.health(),
-            # The replica's occupancy (what router.ReplicaRouter reads);
-            # the server runs an unsharded batcher (the server over a
-            # serving mesh is ROADMAP A14 part 3), so the mesh is 1 x 1.
+            # The replica's occupancy (what router.ReplicaRouter reads)
+            # and its serving mesh (1 x 1 for an unsharded batcher).
             "replica": {
                 "id": self.replica_id,
                 # audit: racy-read(point-in-time /healthz snapshot of

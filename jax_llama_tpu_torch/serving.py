@@ -138,7 +138,9 @@ in the queue.
   rows over ``data`` and returns global outputs; every data rank lands
   every row's K/V, so a prefix hit reads blocks another data rank
   computed.  A mesh the kernels cannot cover is refused when the batcher
-  is built (``serve_mesh.validate_serve_mesh``).
+  is built (``serve_mesh.validate_serve_mesh``).  Under the HTTP server
+  the ranks' calls come from one ordered log that rank 0 publishes
+  (``parallel.lockstep``); ``host_state()`` is what the ranks compare.
 """
 
 from __future__ import annotations
@@ -209,6 +211,20 @@ from .spec_decode import (
 # (the row was already inactive).  Distinct from the -1 non-finite
 # sentinel: real tokens are never negative.
 _CHUNK_PAD = -2
+
+
+def build_batcher(base, overrides: Optional[Dict[str, Any]] = None
+                  ) -> "ContinuousBatcher":
+    """A batcher of the construction ``base`` (``construction()``) with
+    ``overrides`` over its keyword arguments; an ``attn_impl`` among them
+    replaces the config's.  The server's quarantine and probe rebuilds,
+    and a follower rank's replay of them (``parallel.lockstep``)."""
+    params, config, kwargs = base
+    kw = dict(kwargs, **(overrides or {}))
+    attn_impl = kw.pop("attn_impl", None)
+    if attn_impl is not None and config.attn_impl != attn_impl:
+        config = config.replace(attn_impl=attn_impl)
+    return ContinuousBatcher(params, config, **kw)
 
 
 def _round_up(n: int, m: int) -> int:
@@ -1377,6 +1393,27 @@ class ContinuousBatcher:
         self._quiesce_restores()
         return ContinuousBatcher(self.params, self.config,
                                  **self._ctor_kwargs)
+
+    def host_state(self) -> Dict[str, Any]:
+        """The host state every rank of a serving mesh must share: the
+        block tables, the free list, the prefix store's digest (its
+        per-store random epoch left out), the queued request ids, each
+        slot's request and the next request id.  Through the lockstep log
+        every rank computes it at the same point and the ranks compare
+        it (``parallel.lockstep``)."""
+        digest = self.kv_digest.summary()
+        digest.pop("epoch", None)
+        return dict(table=self.table.tolist(),
+                    free=sorted(int(b) for b in self.free_blocks),
+                    digest=digest, queue=[r.rid for r in self.queue],
+                    slots=[None if s is None else s.request_id
+                           for _, s in sorted(self.slots.items())],
+                    next_id=self._next_id)
+
+    def construction(self):
+        """``(params, config, kwargs)``: this batcher's construction, as
+        ``rebuild()`` and ``build_batcher`` take it."""
+        return self.params, self.config, dict(self._ctor_kwargs)
 
     def _quiesce_restores(self) -> None:
         """Wait for every swap-in copy in flight, so that this batcher's

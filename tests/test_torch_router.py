@@ -41,10 +41,11 @@ CFG = dict(vocab_size=512, dim=64, n_layers=2, n_heads=4, n_kv_heads=2,
            param_dtype="float32")
 PROMPTS = ["hello tpu", "paged kv", "radix tree"]
 
-# Router /metrics series the two packages do not share: none.  A replica
-# on the card has no serving mesh (ROADMAP A14 part 3), so its /healthz reports
-# JAX's unplaced shape and ``llm_router_replica_mesh_devices`` reads 1 in
-# both packages.
+# Router /metrics series the two packages do not share: none.  The
+# replicas here run unsharded batchers, so their /healthz reports JAX's
+# unplaced shape and ``llm_router_replica_mesh_devices`` reads 1 in both
+# packages (tests/test_torch_router_mesh.py holds replicas on a serving
+# mesh).
 PORT_ONLY_SERIES = set()
 JAX_ONLY_SERIES = set()
 

@@ -404,9 +404,11 @@ def test_http_replicas_autoscale_arms_the_controller(ckpts, monkeypatch,
     (["--tensor", "2"], "=a mesh of 2 ranks needs 2 processes"),
     (["--data", "2", "--tensor", "1"], "=a mesh of 2 ranks needs 2 processes"),
     # --fsdp is ported (ROADMAP A14 part 2): a data x fsdp x tensor mesh,
-    # one process per rank.  What stays refused names A14 part 3.
+    # one process per rank.  So is --http over a mesh (A14 part 3): one
+    # process is refused a mesh of two ranks (run_cli's ranks2 serves it).
     (["--fsdp", "2"], "=a mesh of 2 ranks needs 2 processes"),
-    (["--serve-mesh", "1,2", "--http", "0"], "A14 part 3"),
+    (["--serve-mesh", "1,2", "--http", "0"],
+     "=a mesh of 2 ranks needs 2 processes"),
     # The host tier is ported (ROADMAP A11): the flag is refused only
     # off the radix index, with the JAX CLI's message.
     (["--host-kv-blocks", "1", "--prefix-index", "exact"], None),
@@ -428,6 +430,20 @@ def test_unported_flags_exit_naming_their_item(tmp_path, monkeypatch, argv,
     if ported:  # JAX's CLI refuses the same argv so
         with pytest.raises(SystemExit, match=match):
             jrun.main()
+
+
+def test_sliced_replicas_exit_naming_a14_part_4(tmp_path, monkeypatch):
+    """``--replicas 2`` over a serving mesh in a job with a mesh's worth
+    of ranks for each replica (JAX's sliced geometry, each replica on
+    devices of its own) is refused before the process group comes up,
+    naming its ROADMAP item; one mesh's worth is served time-shared."""
+    monkeypatch.setenv("WORLD_SIZE", "4")
+    monkeypatch.setattr(sys, "argv", [
+        "run", "--ckpt-dir", str(tmp_path), "--byte-tokenizer", "--http",
+        "0", "--replicas", "2", "--serve-mesh", "1,2"])
+    with pytest.raises(SystemExit, match=(
+            r"sliced replicas\) are not ported \(ROADMAP A14 part 4\)")):
+        prun.main()
 
 
 @pytest.fixture(scope="module")
@@ -484,6 +500,58 @@ def test_serve_on_a_serving_mesh_matches_one_rank(ckpts, monkeypatch,
     assert sorted(_completions(out[0], "served")) == sorted(
         _completions(single, "served"))
     assert out[0].splitlines()[-1] == "served 3 request(s) on 2 slot(s)"
+
+
+def test_http_on_a_serving_mesh_matches_one_rank(ckpts, monkeypatch,
+                                                 capsys, ranks2):
+    """``--http 0 --serve-mesh 1,2`` under two ranks: rank 0 serves HTTP
+    and leads, rank 1 follows and prints nothing; the reply is the
+    single-rank server's, and /healthz reports the mesh."""
+    _, pdir, _, _, _ = ckpts
+    argv = ["--ckpt-dir", str(pdir), "--http", "0", "--slots", "2",
+            *MESH_GREEDY]
+    payload = {"text": "hello world", "max_new_tokens": 8, "temperature": 0}
+    single, _, _ = _http_generate(prun.main, prun, argv, monkeypatch,
+                                  capsys, payload)
+    out = ranks2.run("run_http_cli", argv=argv + ["--serve-mesh", "1,2"],
+                     requests=[("/generate", payload)])
+    lead, follow = out
+    assert follow["out"] == "" and "replies" not in follow
+    (st, body), = lead["replies"]
+    assert st == single[0] == 200
+    assert body["tokens"] == single[1]["tokens"] and len(body["tokens"]) == 8
+    assert body["text"] == single[1]["text"]
+    assert lead["health"][1]["replica"]["serve_mesh"] == {
+        "data": 1, "tensor": 2, "devices": 2}
+    assert "serving address=http://127.0.0.1:" in lead["out"]
+
+
+def test_http_replicas_on_a_serving_mesh_keep_probabilistic_faults_equal(
+        ckpts, ranks2):
+    """``--replicas 2 --serve-mesh 1,2`` with ``router_replica~P`` and
+    ``step~P`` armed on both ranks: the router (rank 0 only) draws from an
+    injector of its own, so the step draws fire at the same record on
+    both ranks; the failed steps replay and every request is answered,
+    and the ranks' host states end equal."""
+    _, pdir, _, _, _ = ckpts
+    argv = ["--ckpt-dir", str(pdir), "--http", "0", "--slots", "2",
+            "--replicas", "2", "--inject-faults",
+            "router_replica~0.5:delay=0.001,step~0.3:error",
+            "--fault-seed", "3", "--max-recoveries", "100", *MESH_GREEDY,
+            "--serve-mesh", "1,2"]
+    requests = [("/generate", {"text": t, "max_new_tokens": 8,
+                               "temperature": 0}) for t in PROMPTS * 2]
+    lead, follow = ranks2.run("run_router_cli", argv=argv,
+                              requests=requests)
+    assert [st for st, _ in lead["replies"]] == [200] * len(requests)
+    router, batchers = lead["router_faults"], lead["batcher_faults"]
+    assert not router["same"]
+    assert router["calls"]["router_replica"] == len(requests)
+    assert router["delays"] >= 1
+    assert batchers["injected"]["step"] >= 1
+    assert sum(lead["recoveries"]) == batchers["injected"]["step"]
+    assert lead["states"] == follow["states"] and len(lead["states"]) == 2
+    assert follow["records"]["rebuild"] == batchers["injected"]["step"]
 
 
 def test_serve_mesh_that_does_not_fit_exits(ckpts, ranks2):

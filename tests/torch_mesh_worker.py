@@ -942,3 +942,316 @@ def train_on_card(cfg, axes, fsdp, B, T, steps=2) -> Dict[str, Any]:
                 launches=launches, routes=dict(mesh.routes),
                 collectives={"/".join((kk[0],) + kk[1]): vv
                              for kk, vv in mesh.collectives.items()})
+
+
+# ---------------------------------------------------------------------------
+# The HTTP server and the replica router over a serving mesh (ROADMAP A14
+# part 3): rank 0 leads (LLMServer, ReplicaRouter), the others follow.
+# ---------------------------------------------------------------------------
+
+def _http(url, path, payload=None, timeout=120):
+    """(status, parsed body) of one request; NDJSON bodies as lists."""
+    import json
+    import urllib.error
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(url + path, data=data)
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            status, raw, ctype = r.status, r.read(), r.headers.get(
+                "Content-Type", "")
+    except urllib.error.HTTPError as e:
+        status, raw, ctype = e.code, e.read(), e.headers.get(
+            "Content-Type", "")
+    if "ndjson" in ctype:
+        return status, [json.loads(x) for x in raw.splitlines()]
+    if "json" in ctype:
+        return status, json.loads(raw)
+    return status, raw.decode()
+
+
+def _send_together(url, requests):
+    """Every (path, payload) of ``requests`` at once, one thread each;
+    the replies in the same order."""
+    import threading
+
+    out = [None] * len(requests)
+
+    def run(i):
+        out[i] = _http(url, *requests[i])
+
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(requests))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    return out
+
+
+def _serving_stack(cfg, tree, rank_file, axes, timeouts=None):
+    """This rank's mesh (a fresh one with ``timeouts``), its weight shard,
+    the Llama-3 tokenizer over ``rank_file`` and its chat format."""
+    from jax_llama_tpu_torch.parallel import make_mesh
+    from jax_llama_tpu_torch.tokenizers import ChatFormat, LLaMA3Tokenizer
+
+    params, config = _model(cfg, tree)
+    if timeouts is not None:
+        n = int(np.prod(list(axes.values())))
+        mesh = make_mesh(**axes, devices=["cpu"] * n, **timeouts)
+    else:
+        mesh = _mesh(axes)
+    tok = LLaMA3Tokenizer(rank_file)
+    return _sharded(params, config, mesh), config, mesh, tok, \
+        ChatFormat(tok)
+
+
+def _serving_batcher(params, config, mesh, tok, injector=None, seed=0,
+                     **kw):
+    """test_torch_server's batcher (2 slots, max_len 64, decode_chunk 4,
+    the tokenizer's stop ids) on ``mesh``."""
+    kw = dict(dict(n_slots=2, max_len=64, decode_chunk=4), **kw)
+    return _batcher(params, config, mesh,
+                    stop_tokens=tuple(sorted(tok.stop_tokens)),
+                    fault_injector=injector, seed=seed, **kw)
+
+
+def _lockstep_summary(leader):
+    return dict(leader.stats(), broken=None if leader.broken is None
+                else f"{type(leader.broken).__name__}: {leader.broken}")
+
+
+def server_mesh(cfg, tree, rank_file, axes, requests, faults=None,
+                fault_ranks=None, timeouts=None, batcher_kw=None,
+                server_kw=None) -> Dict[str, Any]:
+    """``LLMServer`` over a batcher on the mesh ``axes``: rank 0 serves
+    ``requests`` (sent together), then its /healthz and /metrics and the
+    host state through the log; every other rank follows.  ``faults``
+    arms an injector on the ``fault_ranks`` (default: every rank).  A
+    rank whose log broke raises its error."""
+    from jax_llama_tpu_torch.faults import FaultInjector
+    from jax_llama_tpu_torch.parallel import lockstep
+    from jax_llama_tpu_torch.server import LLMServer
+
+    params, config, mesh, tok, chat = _serving_stack(cfg, tree, rank_file,
+                                                     axes, timeouts)
+    armed = faults is not None and (fault_ranks is None
+                                    or mesh.rank in fault_ranks)
+    injector = FaultInjector(faults) if armed else None
+    cb = _serving_batcher(params, config, mesh, tok, injector,
+                          **(batcher_kw or {}))
+    if mesh.rank != 0:
+        return dict(rank=mesh.rank, **lockstep.follow(mesh, lambda _: cb))
+    leader = lockstep.leader_for(mesh)
+    srv = LLMServer(leader.make(0, lambda: cb), tokenizer=tok,
+                    chat_format=chat, **(server_kw or {})).start()
+    try:
+        replies = _send_together(srv.address, requests)
+        out = dict(rank=0, replies=replies)
+        if leader.broken is None:
+            out.update(
+                health=_http(srv.address, "/healthz"),
+                metrics=_http(srv.address, "/metrics")[1],
+                states=[srv.call_on_loop(lambda b: b.host_state())])
+    finally:
+        srv.stop()
+        leader.stop()
+    if leader.broken is not None:
+        raise leader.broken
+    return dict(out, lockstep=_lockstep_summary(leader))
+
+
+def router_mesh(cfg, tree, rank_file, axes, scenario,
+                timeouts=None) -> Dict[str, Any]:
+    """Two replicas time-sharing the mesh ``axes`` behind a
+    ``ReplicaRouter`` (cache-aware): rank 0 runs ``scenario`` (``ROUTER
+    _SCENARIOS``), every other rank follows, building each replica's
+    batcher through the log (``make`` records)."""
+    from jax_llama_tpu_torch.parallel import lockstep
+    from jax_llama_tpu_torch.router import ReplicaRouter
+    from jax_llama_tpu_torch.server import LLMServer
+
+    params, config, mesh, tok, chat = _serving_stack(cfg, tree, rank_file,
+                                                     axes, timeouts)
+
+    def make(i):
+        return _serving_batcher(params, config, mesh, tok, seed=i,
+                                max_len=128)
+
+    if mesh.rank != 0:
+        return dict(rank=mesh.rank, **lockstep.follow(mesh, make))
+    leader = lockstep.leader_for(mesh)
+    servers = []
+
+    def make_replica(i):
+        srv = LLMServer(leader.make(i, lambda: make(i)), tokenizer=tok,
+                        chat_format=chat, replica_id=i).start()
+        servers.append(srv)
+        return srv
+
+    try:
+        first = [make_replica(0), make_replica(1)]
+        router = ReplicaRouter(
+            first, policy="cache-aware", tokenizer=tok, chat_format=chat,
+            block_size=first[0].batcher.block_size).start()
+        try:
+            out = ROUTER_SCENARIOS[scenario](router, servers, make_replica)
+        finally:
+            router.stop()
+    finally:
+        for srv in servers:
+            srv.stop()
+        leader.stop()
+    if leader.broken is not None:
+        raise leader.broken
+    return dict(out, rank=0, lockstep=_lockstep_summary(leader))
+
+
+def _states(servers):
+    """Each live replica's host state, taken through the log (so every
+    rank computes and compares its own at the same point); none for
+    JAX's servers, whose one process needs no log."""
+    return [s.call_on_loop(lambda b: b.host_state()) for s in servers
+            if not s._closed.is_set() and hasattr(s.batcher, "host_state")]
+
+
+ROUTER_PROMPT = ("the quick brown fox jumps over the lazy dog while the "
+                 "sphinx of black quartz judges my vow")
+
+
+def _router_routed(router, servers, make_replica):
+    """A session's first turn, an unrelated prompt, and the session's
+    revisit (routed to the replica holding its chain); /healthz and
+    /metrics of the router and the replicas."""
+    turns = [{"text": ROUTER_PROMPT, "max_new_tokens": 6},
+             {"text": "pack my box with five dozen liquor jugs",
+              "max_new_tokens": 6},
+             {"text": ROUTER_PROMPT + " again", "max_new_tokens": 6}]
+    replies = []
+    for i, payload in enumerate(turns):
+        replies.append(_http(router.address, "/generate", payload))
+        router.check_health_now()
+    return dict(replies=replies, health=_http(router.address, "/healthz"),
+                metrics=_http(router.address, "/metrics")[1],
+                replica_health=[_http(s.address, "/healthz")
+                                for s in servers],
+                replica_metrics=[_http(s.address, "/metrics")[1]
+                                 for s in servers],
+                states=_states(servers))
+
+
+def _router_handoff(router, servers, make_replica):
+    """The router's handoff path (``migrate_chain``: its worker exports on
+    replica 0's serving loop and imports on replica 1's, as
+    ``handoff_prefix`` does on two batchers): serve a prompt on replica
+    0 (cold), move its chain to replica 1, serve it there (a prefix
+    hit)."""
+    from jax_llama_tpu_torch.kvcache import chain_keys
+
+    prompt = [int(t) for t in np.random.RandomState(3).randint(1, 128, 50)]
+    payload = {"prompt": prompt, "max_new_tokens": 6, "seed": 5}
+    cold = _http(servers[0].address, "/generate", payload)
+    keys = chain_keys(prompt, servers[0].batcher.block_size)
+    router.migrate_chain([k.hex() for k in keys], 0, 1)
+    idle = router.wait_handoffs(60.0)
+    hit = _http(servers[1].address, "/generate", payload)
+    stats = [s.call_on_loop(lambda b: b.stats()) for s in servers]
+    return dict(cold=cold, hit=hit, idle=idle,
+                completed=router.handoffs_completed_total,
+                exported=stats[0]["kv_export_blocks_total"],
+                imported=stats[1]["kv_import_blocks_total"],
+                hits=stats[1]["prefix_requests_hit_total"],
+                states=_states(servers))
+
+
+def _router_elastic(router, servers, make_replica):
+    """One FleetController scale-up (a third replica, built on every rank
+    through the log), a session served on it, then a scale-down that
+    drains it by migration onto a survivor (and drops its batcher on
+    every rank); the session's revisit through the router after."""
+    from jax_llama_tpu_torch.router import FleetController
+
+    ctl = FleetController(router, replica_factory=make_replica,
+                          min_replicas=1, max_replicas=3,
+                          drain_timeout_s=60.0)
+    try:
+        up = ctl.scale_up()
+        new = up.get("replica")
+        prompt = [int(t) for t in
+                  np.random.RandomState(11).randint(1, 128, 40)]
+        payload = {"prompt": prompt, "max_new_tokens": 4}
+        served = _http(servers[new].address, "/generate", payload)
+        grown = _states(servers)
+        down = ctl.scale_down(victim=new)
+        revisit = _http(router.address, "/generate", payload)
+        return dict(up=up, served=served, down=down, revisit=revisit,
+                    grown=grown, after=_states(servers),
+                    replicas=len(servers))
+    finally:
+        ctl.close(stop_owned=True)
+
+
+ROUTER_SCENARIOS = {"routed": _router_routed, "handoff": _router_handoff,
+                    "elastic": _router_elastic}
+
+
+def run_http_cli(argv, requests) -> Dict[str, Any]:
+    """``run.main()`` with ``--http`` on this rank, as ``run_cli`` runs
+    it, through ``_serve_http``'s test hook: rank 0 sends ``requests`` in
+    turn, and returns the replies and what it printed; the other ranks
+    return what they printed."""
+    from jax_llama_tpu_torch import run as prun
+
+    got = {}
+
+    def hook(srv):
+        got["replies"] = [_http(srv.address, *r) for r in requests]
+        got["health"] = _http(srv.address, "/healthz")
+
+    orig = prun._serve_http
+    prun._serve_http = lambda *a, **kw: orig(*a, **dict(kw, _test_hook=hook))
+    try:
+        out = run_cli(argv)
+    finally:
+        prun._serve_http = orig
+    return dict(got, out=out)
+
+
+def run_router_cli(argv, requests) -> Dict[str, Any]:
+    """``run.main()`` with ``--http`` and ``--replicas`` on this rank, as
+    ``run_cli`` runs it, through ``_serve_router``'s test hook: rank 0
+    sends ``requests`` to the router in turn, then takes each replica's
+    host state through the log and reads the router's and the batchers'
+    fault injectors; a follower returns the host states it computed."""
+    from jax_llama_tpu_torch import run as prun
+    from jax_llama_tpu_torch.parallel import lockstep
+
+    got = {}
+
+    def hook(router, servers):
+        got["replies"] = [_http(router.address, *r) for r in requests]
+        got["states"] = [s.call_on_loop(lambda b: b.host_state())
+                         for s in servers]
+        got["recoveries"] = [s.recoveries_total for s in servers]
+        for name, inj in (("router_faults", router.fault_injector),
+                          ("batcher_faults",
+                           servers[0].batcher.fault_injector)):
+            got[name] = dict(calls=dict(inj.calls),
+                             injected=dict(inj.injected),
+                             delays=inj.delays_total, same=inj is (
+                                 servers[0].batcher.fault_injector))
+
+    def follow(*a, **kw):
+        got.update(orig[1](*a, **kw))
+        return got
+
+    orig = prun._serve_router, lockstep.follow
+    prun._serve_router = lambda *a, **kw: orig[0](*a, **dict(
+        kw, _test_hook=hook))
+    lockstep.follow = follow
+    try:
+        out = run_cli(argv)
+    finally:
+        prun._serve_router, lockstep.follow = orig
+    return dict(got, out=out)
