@@ -615,6 +615,38 @@ equal host states, and each rank's launches those of the unsharded
 router's ``run.main()`` on the same traffic in this process and the ones
 the replicas' dispatch records imply.
 
+The dress rehearsal and the runtime host-sync audit (ROADMAP A16 part
+2) add two phases after ``fleet_drill``:
+
+* ``rehearsal``: ``rehearsal.rehearse_synthetic`` on the card at a
+  head_dim-64 geometry (REHEARSAL_GEOMETRY, float32): a Meta-format
+  checkpoint converted, saved, loaded (manifest verified), generated
+  from greedily and held against the torch oracle (parity below 1e-3);
+  exactly 2 x its layers flash launches, all on the "float32" instance
+  (the prefill and the parity forward; decode steps are T = 1, "auto"'s
+  plain path), nothing else; JAX's default geometry (head_dim 16) must
+  raise on the card, not fall back; then ``rehearse_8b_shapes`` (leaf
+  count, parameter total, largest shard bytes at tensor = 4 x data = 2).
+* ``hostsync_runtime``: 8 layers of llama3-8b in bf16, a batcher of four
+  decoding rows (their inserts launch the flash forward), then
+  HOSTSYNC_STEPS steady ``step()``s (no dirty row, nothing admissible)
+  under ``torch.cuda.set_sync_debug_mode("warn")``: every sync warning
+  mapped to the port's file and line through its Python stack; each
+  site must carry an ``# audit: host-fetch`` pragma (the static lint's
+  grammar), and each step's syncs must equal its rise in
+  ``host_syncs_total`` (one packed fetch); the paged kernel's launches
+  are 8 a decode iteration.
+
+With them three checks of earlier phases: ``mesh_router`` holds every
+request whose tokens part from the unsharded router's to a near-tie
+below DECODE_REL (``divergences_unsharded``); ``http_serving`` prints
+its worst decode record after a classic insert (``c2_worst``: its
+cell, index, ratio to the steady median, whether it started before the
+insert's end event, its device ms beside its host wall; C2_RATIO
+unchanged); and ``kernel_check``'s ``tp2_train`` rows add a dropout
+cell keyed on global offsets (TP2_DROPOUT_OFFSETS: a rank's slice of a
+split mesh's mask) for the forward, dQ and dK/dV kernels.
+
 A ``total`` line gives the script's seconds so far, before the
 ``kernels`` line.  The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or outside a checkout of the repository, it exits non-zero before printing
@@ -1942,10 +1974,12 @@ def train_kernel_errors(torch, fa, args, rate, seed):
 
 
 def check_train_kernels(torch, fa, gen, shape_name="train",
-                        shape=TRAIN_SHAPE, f32=True):
+                        shape=TRAIN_SHAPE, f32=True, offsets=None):
     """kernel_check at the training shape (``shape_name``: "train", or
     "tp2_train", a tensor = 2 rank's heads), without and with dropout,
-    and (``f32``) the float32 path on a smaller shape."""
+    with ``offsets`` also with dropout keyed on those global (row, KV
+    head) offsets (a rank's slice of a split mesh's mask), and (``f32``)
+    the float32 path on a smaller shape."""
     import torch.nn.functional as F
 
     rows = {}
@@ -1955,8 +1989,11 @@ def check_train_kernels(torch, fa, gen, shape_name="train",
     wrappers = {"flash_fwd": fa.flash_attention,
                 "flash_bwd_dq": fa.flash_bwd_dq,
                 "flash_bwd_dkv": fa.flash_bwd_dkv}
-    for rate in (0.0, TRAIN_DROPOUT):
-        seed = TRAIN_SEED_WORDS if rate else None
+    cells = [(0.0, None), (TRAIN_DROPOUT, None)]
+    if offsets is not None:
+        cells.append((TRAIN_DROPOUT, offsets))
+    for rate, off in cells:
+        seed = (TRAIN_SEED_WORDS + tuple(off or ())) if rate else None
         before = {name: dict(w.launches_by_instance)
                   for name, w in wrappers.items()}
         errs, finite, out, lse = train_kernel_errors(torch, fa, args, rate,
@@ -2021,14 +2058,16 @@ def check_train_kernels(torch, fa, gen, shape_name="train",
             bwd=library_kernels(lambda: torch.autograd.grad(
                 lib_out, leaves, gt, retain_graph=True)))
         del lib_out, leaves, out, lse, delta
-        label = "dropout" if rate else "no_dropout"
+        label = ("dropout_offsets" if off else "dropout" if rate
+                 else "no_dropout")
         for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
             fwd = name == "flash_fwd"
             keys = ("out", "lse") if fwd else (
                 ("dq",) if name == "flash_bwd_dq" else ("dk", "dv"))
             row = dict(
                 phase="kernel_check", kernel=name, shape=shape_name,
-                dropout=rate, **shape, dtype="bfloat16",
+                dropout=rate, dropout_offsets=off, **shape,
+                dtype="bfloat16",
                 err={key: errs[key] for key in keys},
                 err_is=TRAIN_ERR_IS, bound={key: TRAIN_BOUNDS[key]
                                             for key in keys},
@@ -2808,6 +2847,68 @@ def insert_timing(recs):
                 decode_tokens_per_s_ewma=ewma)
 
 
+def c2_probe(torch, cb):
+    """ROADMAP C4: instrument ``cb`` so that every decode dispatch whose
+    fetch waited for classic inserts (``_wall_past_inserts`` given an
+    event) leaves, in order, its device time (an event recorded where
+    the dispatch starts, at ``_dispatch_cost``, to the event before its
+    fetch) beside its host wall, whether it started before the last
+    insert's end event (the insert's device time inside it), and the
+    wall its record kept.  Returns the list it fills."""
+    probes, start = [], {}
+    dispatch_cost, wall_past = cb._dispatch_cost, cb._wall_past_inserts
+
+    def mark_start(program, count):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        start["ev"] = ev
+        return dispatch_cost(program, count)
+
+    def measured(wall_ms, fetched):
+        out = wall_past(wall_ms, fetched)
+        if fetched is not None and "ev" in start:
+            end = cb._unsettled[-1][3]
+            probes.append(dict(
+                host_wall_ms=wall_ms,
+                device_ms=start["ev"].elapsed_time(fetched),
+                insert_end_to_fetch_ms=end.elapsed_time(fetched),
+                start_before_insert_end=start["ev"].elapsed_time(end) > 0,
+                recorded_wall_ms=out))
+        return out
+
+    cb._dispatch_cost = mark_start
+    cb._wall_past_inserts = measured
+    return probes
+
+
+def c2_worst(cells):
+    """C4: the worst decode record after a classic insert over ``cells``
+    ({name: (insert_timing's result, c2_probe's list)}): its cell, index
+    among that cell's waited records, seq, ratio to the steady median and
+    its probe (insert overlap, device time beside host wall), found as
+    the probe whose recorded wall is the record's (a fetch after two
+    inserts, or a fused dispatch's, leaves a probe and no waited
+    record)."""
+    worst = None
+    for name, (timing, probes) in cells.items():
+        for i, w in enumerate(timing["waited"]):
+            ratio = w["ratio_to_steady_median"]
+            if ratio is None or (worst and ratio <= worst["ratio"]):
+                continue
+            probe = min(probes, default=None, key=lambda p: abs(
+                p["recorded_wall_ms"] - w["wall_ms"]))
+            if probe is not None and abs(
+                    probe["recorded_wall_ms"] - w["wall_ms"]) > 0.01:
+                probe = None
+            worst = dict(cell=name, index=i, seq=w["seq"], ratio=ratio,
+                         steady_median_ms_per_iteration=timing[
+                             "steady_ms_per_iteration_median"],
+                         wall_ms=w["wall_ms"], k=w["k"],
+                         insert_device_ms=w["insert_device_ms"],
+                         probe=probe)
+    return worst
+
+
 def c2_cell(torch, ptl, params, cfg, tok):
     """ROADMAP C2 at its largest: one row decoding, then C2_ROWS prompts
     of C2_PROMPT_TOKENS tokens admitted in one classic insert, whose
@@ -2830,6 +2931,7 @@ def c2_cell(torch, ptl, params, cfg, tok):
                                    decode_chunk=8, device="cuda")
         if variant == "unrepaired":
             cb._wall_past_inserts = lambda wall_ms, fetched: wall_ms
+        probes = c2_probe(torch, cb)
         cb.submit(serve_prompts(tok)[1], max_new_tokens=C2_DECODE_NEW)
         for _ in range(3):
             cb.step()
@@ -2837,7 +2939,7 @@ def c2_cell(torch, ptl, params, cfg, tok):
             cb.submit(p, max_new_tokens=4)
         while cb.pending():
             cb.step()
-        out[variant] = insert_timing(records(cb))
+        out[variant] = dict(insert_timing(records(cb)), probes=probes)
         del cb
     torch.cuda.empty_cache()
     return out
@@ -2858,6 +2960,7 @@ def drive_http_serving(torch, ptl, fa, pa, params, cfg, tok, smi, serve_row,
     cb = ptl.ContinuousBatcher(params, cfg, n_slots=8, max_len=2048,
                                decode_chunk=8, device="cuda",
                                cost_models=True)
+    probes = c2_probe(torch, cb)
     replies, sent, done = [None] * 12, [None] * 12, [None] * 12
 
     def call(i):
@@ -2907,6 +3010,7 @@ def drive_http_serving(torch, ptl, fa, pa, params, cfg, tok, smi, serve_row,
     # time per iteration (dispatch and fetch).
     recs = dispatches["dispatches"]
     c2 = insert_timing(recs)
+    c2_probes = list(probes)
     own, period = [], []
     for a, b in zip(recs, recs[1:]):
         if (a["kind"] == "decode" and a["occupancy"] == 8
@@ -2959,7 +3063,8 @@ def drive_http_serving(torch, ptl, fa, pa, params, cfg, tok, smi, serve_row,
                                if period else None),
         steady_iterations_seen=len(period),
         serving_decode_ms_per_iteration=serve_row["decode_ms_per_iteration"],
-        insert_timing=c2, insert_timing_bound=C2_RATIO,
+        insert_timing=dict(c2, probes=c2_probes),
+        insert_timing_bound=C2_RATIO,
         c2_cell=c2_cell(torch, ptl, params, cfg, tok),
         metrics_series=len(samples), missing_series=missing,
         healthz=dict(status=health_status, ok=health["ok"],
@@ -2968,6 +3073,11 @@ def drive_http_serving(torch, ptl, fa, pa, params, cfg, tok, smi, serve_row,
             metrics=metrics_status, bundle=bundle_status),
         profiler=profile,
     )
+    # C4: the worst decode record after a classic insert, on every run.
+    row["c2_worst"] = c2_worst({
+        "http_serving": (c2, c2_probes),
+        "c2_cell": (row["c2_cell"]["repaired"],
+                    row["c2_cell"]["repaired"]["probes"])})
     emit(row)
     if statuses != [200] * 12 or not row["all_sent_before_first_done"]:
         raise AssertionError(f"http_serving: statuses {statuses}, all sent "
@@ -2997,7 +3107,8 @@ def drive_http_serving(torch, ptl, fa, pa, params, cfg, tok, smi, serve_row,
     if not c2["waited"] or not row["c2_cell"]["repaired"]["waited"] or any(
             w["ratio_to_steady_median"] > C2_RATIO for w in waited):
         raise AssertionError(f"http_serving: the decode records after a "
-                             f"classic insert {c2}, {row['c2_cell']}")
+                             f"classic insert: worst {row['c2_worst']}; "
+                             f"{c2}, {row['c2_cell']}")
     if not profile["ok"]:
         raise AssertionError(f"http_serving: the profiler cross-check "
                              f"{profile}")
@@ -7817,6 +7928,23 @@ def drive_mesh_router(torch, ptl, fa, pa, smi, ranks, saved, shallow, cfg):
           f"mesh_router launches per rank {[r['launches'] for r in rows]}, "
           f"unsharded {ref_launches}, the records imply {expect}")
     ref_toks = {k: http_tokens(ref[k]) for k in toks}
+    # C3: a request whose tokens differ from the unsharded router's must
+    # part at a near-tie below DECODE_REL, as mesh_http's bf16 cell.
+    prompt_of = dict(cold=texts[5], routed_hit=texts[5] + " and then some",
+                     handoff_hit=texts[5], grown_serve=texts[9],
+                     grown_revisit=texts[9])
+    divergences_unsharded = {}
+    for k in toks:
+        if toks[k] == ref_toks[k]:
+            continue
+        try:
+            divergences_unsharded[k] = token_divergences(
+                torch, ptl, shallow, cfg,
+                [tok.encode(prompt_of[k], bos=True)], [toks[k][1]],
+                [ref_toks[k][1]], DECODE_REL)
+        except AssertionError as e:
+            failures.append(f"mesh_router {k} against the unsharded "
+                            f"router: {e}")
     row = dict(
         phase="mesh_router", card=smi, ranks=MESH_RANKS, backend="gloo",
         config="llama3-8b", n_layers=L, argv_mesh=MESH_SPEC,
@@ -7835,6 +7963,7 @@ def drive_mesh_router(torch, ptl, fa, pa, smi, ranks, saved, shallow, cfg):
         launches_per_rank=[r["launches"] for r in rows],
         unsharded_launches=ref_launches, expected_launches=expect,
         tokens_equal_unsharded={k: toks[k] == ref_toks[k] for k in toks},
+        divergences_unsharded=divergences_unsharded,
         instances_per_rank=[{k: r["instances"][k] for k in (
             "flash_fwd_by_instance", "paged_by_instance")} for r in rows],
         lockstep=lockstep_figures(lead["lockstep"]),
@@ -7852,6 +7981,10 @@ def drive_mesh_router(torch, ptl, fa, pa, smi, ranks, saved, shallow, cfg):
 # ---------------------------------------------------------------------------
 
 TP2_TRAIN_SHAPE = dict(B=4, T=2048, H=16, KVH=4, d=128)
+# The rows and KV heads of the rank at data 1, tensor 1 of a data 2 x
+# tensor 2 mesh over 8 rows: the kernel_check cell whose dropout hash is
+# keyed on global offsets (C5).
+TP2_DROPOUT_OFFSETS = (4, 4)
 MT_LAYERS, MT_STEPS, MT_B, MT_T = 2, 3, 4, 2048
 PIPE_LAYERS, PIPE_STEPS, PIPE_MICRO = 4, 2, 4
 MT_LOSS_REL = 1e-2
@@ -8430,6 +8563,189 @@ def rel_err(a, b) -> float:
     return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
 
 
+# The rehearsal phase's synthetic geometry: head_dim 64, which the flash
+# kernels take (JAX's default, dim 64 over 4 heads, is head_dim 16).
+REHEARSAL_GEOMETRY = dict(dim=256, n_heads=4, n_kv_heads=2)
+REHEARSAL_PARITY = 1e-3
+# The runtime host-sync audit: depth, rows, prompt and new tokens, and
+# the steady steps watched.
+HOSTSYNC_LAYERS, HOSTSYNC_ROWS = 8, 4
+HOSTSYNC_PROMPT, HOSTSYNC_NEW, HOSTSYNC_STEPS = 64, 96, 4
+
+
+def drive_rehearsal(torch, fa, pa, smi):
+    """Phase ``rehearsal`` (module docstring)."""
+    import numpy as np
+
+    from jax_llama_tpu_torch import rehearsal
+
+    t0 = time.perf_counter()
+    L = 2                      # _write_synthetic_meta_checkpoint's depth
+    zero_counts(fa, pa)
+    res = rehearsal.rehearse_synthetic(device="cuda", **REHEARSAL_GEOMETRY)
+    torch.cuda.synchronize()
+    launches = launch_counts(fa, pa)
+    by_instance = dict(fa.flash_attention.launches_by_instance)
+    synthetic_s = time.perf_counter() - t0
+    zero_counts(fa, pa)
+    try:
+        rehearsal.rehearse_synthetic(device="cuda")
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    refused_launches = launch_counts(fa, pa)
+    t = time.perf_counter()
+    shapes = rehearsal.rehearse_8b_shapes()
+    shapes_s = time.perf_counter() - t
+    want = dict(NO_LAUNCHES, flash_fwd=2 * L)
+    row = dict(phase="rehearsal", card=smi, geometry=REHEARSAL_GEOMETRY,
+               n_layers=L, dtype="float32",
+               tokens=res["tokens"].tolist(), parity=res["parity"],
+               parity_bound=REHEARSAL_PARITY,
+               last_logits_finite=bool(np.isfinite(
+                   res["last_logits"]).all()),
+               launches=launches, expected_launches=want,
+               flash_by_instance=by_instance,
+               default_geometry_refused=refused,
+               default_geometry_launches=refused_launches,
+               shapes_8b=shapes, synthetic_s=synthetic_s,
+               shapes_8b_s=shapes_s, seconds=time.perf_counter() - t0)
+    emit(row)
+    if not (res["parity"] is not None
+            and res["parity"] < REHEARSAL_PARITY
+            and row["last_logits_finite"]):
+        raise AssertionError(f"rehearsal parity {res['parity']}")
+    if launches != want or by_instance != {"float32": 2 * L}:
+        raise AssertionError(f"rehearsal launches {launches} "
+                             f"{by_instance}, expected {want} on float32")
+    if refused is None or "head_dim 16" not in refused or any(
+            refused_launches.values()):
+        raise AssertionError(f"rehearsal at JAX's default geometry on the "
+                             f"card: {refused}, {refused_launches}")
+    if not (shapes["leaves"] == 9 and 7.9e9 < shapes["params"] < 8.4e9
+            and shapes["largest_shard_bytes"] > 0):
+        raise AssertionError(f"rehearse_8b_shapes: {shapes}")
+    return row
+
+
+def sync_site_sanctioned(path, line):
+    """Does the statement of ``path`` holding ``line`` carry an
+    ``# audit: host-fetch`` pragma (the static lint's grammar: on the
+    statement, the line above it, or its function's ``def`` line)?"""
+    import ast
+
+    from jax_llama_tpu_torch.analysis.common import Pragmas
+
+    with open(path) as f:
+        source = f.read()
+    tree = ast.parse(source)
+    spans = []
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)) and (
+                node.lineno <= line <= node.end_lineno):
+            spans.append((node.lineno, node.lineno))
+        elif isinstance(node, ast.stmt) and not isinstance(node, (
+                ast.If, ast.For, ast.While, ast.With, ast.Try,
+                ast.ClassDef)) and node.lineno <= line <= node.end_lineno:
+            spans.append((node.lineno, node.end_lineno))
+    return Pragmas.scan(source).allows("host-fetch", *spans)
+
+
+def drive_hostsync_runtime(torch, ptl, fa, pa, params, cfg, tok, smi):
+    """Phase ``hostsync_runtime`` (module docstring)."""
+    import traceback
+    import warnings
+
+    t0 = time.perf_counter()
+    L = HOSTSYNC_LAYERS
+    shallow = dict(params, layers={k: w[:L] for k, w in
+                                   params["layers"].items()})
+    c = cfg.replace(n_layers=L)
+    text = serve_texts()[0]
+    prompts = [tok.encode(text[17 * i:17 * i + HOSTSYNC_PROMPT - 1],
+                          bos=True) for i in range(HOSTSYNC_ROWS)]
+    zero_counts(fa, pa)
+    cb = ptl.ContinuousBatcher(shallow, c, n_slots=8, max_len=2048,
+                               decode_chunk=8, device="cuda")
+    for p in prompts:
+        cb.submit(p, max_new_tokens=HOSTSYNC_NEW)
+    for _ in range(2):                 # admission, then a settled step
+        cb.step()
+    torch.cuda.synchronize()
+    pkg = os.path.join(HERE, "jax_llama_tpu_torch") + os.sep
+    sites, steps, stepping = [], [], [False]
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        # Only what a step raises: setting the mode warns once that the
+        # feature is a prototype, which is no sync.
+        if not stepping[0]:
+            return
+        port = [f for f in traceback.extract_stack()
+                if f.filename.startswith(pkg)]
+        where = port[-1] if port else None
+        sites.append(dict(
+            path=os.path.relpath(where.filename, HERE) if where
+            else filename, line=where.lineno if where else lineno,
+            message=str(message)[:120]))
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = hook
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for _ in range(HOSTSYNC_STEPS):
+                if not cb.pending():
+                    break
+                n0, h0 = len(sites), cb.host_syncs_total
+                d0, u0 = cb.steps_total, cb.state_uploads_total
+                stepping[0] = True
+                try:
+                    cb.step()
+                finally:
+                    stepping[0] = False
+                steps.append(dict(syncs=len(sites) - n0,
+                                  host_syncs=cb.host_syncs_total - h0,
+                                  iterations=cb.steps_total - d0,
+                                  uploads=cb.state_uploads_total - u0))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    launches = launch_counts(fa, pa)
+    stats = cb.stats()
+    del cb
+    by_site = {}
+    for st in sites:
+        key = f"{st['path']}:{st['line']}"
+        by_site.setdefault(key, dict(count=0, message=st["message"],
+                                     sanctioned=sync_site_sanctioned(
+                                         os.path.join(HERE, st["path"]),
+                                         st["line"])))
+        by_site[key]["count"] += 1
+    want = dict(NO_LAUNCHES, flash_fwd=L * stats["insert_dispatches_total"],
+                paged_decode=L * stats["decode_steps_total"])
+    row = dict(phase="hostsync_runtime", card=smi, config="llama3-8b",
+               n_layers=L, dtype="bfloat16", rows=HOSTSYNC_ROWS,
+               steady_steps=steps, sync_sites=by_site, launches=launches,
+               expected_launches=want,
+               host_syncs_total=stats["host_syncs_total"],
+               seconds=time.perf_counter() - t0)
+    emit(row)
+    if len(steps) != HOSTSYNC_STEPS or any(
+            s["syncs"] != s["host_syncs"] or s["host_syncs"] != 1
+            or s["uploads"] or not s["iterations"] for s in steps):
+        raise AssertionError(f"hostsync_runtime: steady steps {steps}, "
+                             f"sites {by_site}")
+    unsanctioned = [k for k, v in by_site.items() if not v["sanctioned"]]
+    if not by_site or unsanctioned:
+        raise AssertionError(f"hostsync_runtime: sync sites without a "
+                             f"host-fetch pragma: {unsanctioned} "
+                             f"({by_site})")
+    if launches != want or not want["flash_fwd"]:
+        raise AssertionError(f"hostsync_runtime launches {launches}, "
+                             f"expected {want}")
+    return row
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -8487,7 +8803,8 @@ def main() -> int:
     splash_rows = check_splash(torch, kn, fa, gen)
     train_rows = check_train_kernels(torch, fa, gen)
     tp2_train_rows = check_train_kernels(torch, fa, gen, "tp2_train",
-                                         TP2_TRAIN_SHAPE, f32=False)
+                                         TP2_TRAIN_SHAPE, f32=False,
+                                         offsets=TP2_DROPOUT_OFFSETS)
     shard_rows = check_shard_kernels(torch, fa, pa, kn, gen,
                                      paged_row["instance"])
 
@@ -8740,6 +9057,12 @@ def main() -> int:
     fleet_drill = drive_fleet_drill(torch, np, ptl, fa, pa, params, cfg,
                                     tok, smi)
 
+    # Phase 5h: the dress rehearsal and the runtime host-sync audit
+    # (ROADMAP A16 part 2).
+    rehearsal_row = drive_rehearsal(torch, fa, pa, smi)
+    hostsync_row = drive_hostsync_runtime(torch, ptl, fa, pa, params, cfg,
+                                          tok, smi)
+
     # Phase 6: paged = gathered = standalone generate.
     paged_invariant(torch, ptl, engine, serving, params, cfg, tok)
     # Phase 6b: the selected slots' invariants in float32 activations.
@@ -8793,6 +9116,8 @@ def main() -> int:
              "router_drill": router_drill["launches"],
              "fleet_serving": fleet_row["launches"],
              "fleet_drill": fleet_drill["launches"],
+             "rehearsal": rehearsal_row["launches"],
+             "hostsync_runtime": hostsync_row["launches"],
              "mesh_generate": mesh_gen["launches_per_rank"][0],
              "mesh_serving": mesh_serve_row["tensor2"][
                  "launches_per_rank"][0],

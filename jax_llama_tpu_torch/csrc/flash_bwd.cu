@@ -1372,11 +1372,13 @@ static int dq_classic(const void* q, const void* k, const void* v,
                       int H, int KVH, int D, int dtype, float scale,
                       int with_drop, unsigned int seed_lo,
                       unsigned int seed_hi, unsigned int threshold,
-                      float inv_keep, void* stream) {
+                      float inv_keep,
+                      unsigned int b_off, unsigned int h_off, void* stream) {
   if (bad_shape(B, T, S, H, KVH)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long R = (long)(H / KVH) * T;
-  const Dropout drop{seed_lo, seed_hi, threshold, inv_keep};
+  const Dropout drop{seed_lo, seed_hi, threshold, inv_keep, b_off,
+                     h_off};
   if (dtype == 1) {
     dim3 grid((unsigned)((R + BM - 1) / BM), KVH, B);
 #define FLASH_DQ(DIM, DR)                                                  \
@@ -1425,10 +1427,12 @@ static int dkv_classic(const void* q, const void* k, const void* v,
                        int T, int S, int H, int KVH, int D, int dtype,
                        float scale, int with_drop, unsigned int seed_lo,
                        unsigned int seed_hi, unsigned int threshold,
-                       float inv_keep, void* stream) {
+                       float inv_keep,
+                       unsigned int b_off, unsigned int h_off, void* stream) {
   if (bad_shape(B, T, S, H, KVH)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Dropout drop{seed_lo, seed_hi, threshold, inv_keep};
+  const Dropout drop{seed_lo, seed_hi, threshold, inv_keep, b_off,
+                     h_off};
   if (dtype == 1) {
     dim3 grid((unsigned)((S + BN - 1) / BN), KVH, B);
 #define FLASH_DKV(DIM, DR)                                                   \
@@ -1486,11 +1490,14 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                             int H, int KVH, int D, int dtype, float scale,
                             int with_drop, unsigned int seed_lo,
                             unsigned int seed_hi, unsigned int threshold,
-                            float inv_keep, void* stream, int* instance) {
+                            float inv_keep,
+                            unsigned int b_off, unsigned int h_off,
+                            void* stream, int* instance) {
   *instance = 0;
   const int err = dq_classic(q, k, v, g, q_pos, kv_pos, lse, delta, dq, B, T,
                              S, H, KVH, D, dtype, scale, with_drop, seed_lo,
-                             seed_hi, threshold, inv_keep, stream);
+                             seed_hi, threshold, inv_keep,
+                             b_off, h_off, stream);
   if (err == 0) *instance = dtype == 0 ? INSTANCE_FLOAT32 : INSTANCE_MMA_SYNC;
   return err;
 }
@@ -1502,11 +1509,14 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
                              int T, int S, int H, int KVH, int D, int dtype,
                              float scale, int with_drop, unsigned int seed_lo,
                              unsigned int seed_hi, unsigned int threshold,
-                             float inv_keep, void* stream, int* instance) {
+                             float inv_keep,
+                             unsigned int b_off, unsigned int h_off,
+                             void* stream, int* instance) {
   *instance = 0;
   const int err = dkv_classic(q, k, v, g, q_pos, kv_pos, lse, delta, dk, dv,
                               B, T, S, H, KVH, D, dtype, scale, with_drop,
-                              seed_lo, seed_hi, threshold, inv_keep, stream);
+                              seed_lo, seed_hi, threshold, inv_keep,
+                              b_off, h_off, stream);
   if (err == 0) *instance = dtype == 0 ? INSTANCE_FLOAT32 : INSTANCE_MMA_SYNC;
   return err;
 }
@@ -1520,6 +1530,7 @@ extern "C" int flash_bwd_dq_wgmma(const void* q, const void* k,
                                   int with_drop, unsigned int seed_lo,
                                   unsigned int seed_hi,
                                   unsigned int threshold, float inv_keep,
+                                  unsigned int b_off, unsigned int h_off,
                                   void* stream, int* instance) {
   *instance = 0;
   CUtensorMap maps[4];
@@ -1529,7 +1540,8 @@ extern "C" int flash_bwd_dq_wgmma(const void* q, const void* k,
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Dropout drop{seed_lo, seed_hi, threshold, inv_keep};
+  const Dropout drop{seed_lo, seed_hi, threshold, inv_keep, b_off,
+                     h_off};
   const dim3 grid((unsigned)(B * H), (unsigned)(T / wgb::dq::BM));
   const cudaError_t err =
       with_drop ? launch_dq_wgmma<true>(grid, st, maps, q_pos, kv_pos, lse,
@@ -1550,6 +1562,7 @@ extern "C" int flash_bwd_dkv_wgmma(const void* q, const void* k,
                                    float scale, int with_drop,
                                    unsigned int seed_lo, unsigned int seed_hi,
                                    unsigned int threshold, float inv_keep,
+                                   unsigned int b_off, unsigned int h_off,
                                    void* stream, int* instance) {
   *instance = 0;
   CUtensorMap maps[4];
@@ -1559,7 +1572,8 @@ extern "C" int flash_bwd_dkv_wgmma(const void* q, const void* k,
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Dropout drop{seed_lo, seed_hi, threshold, inv_keep};
+  const Dropout drop{seed_lo, seed_hi, threshold, inv_keep, b_off,
+                     h_off};
   const dim3 grid((unsigned)(B * KVH),
                   (unsigned)((S + wgb::dkv::BN - 1) / wgb::dkv::BN));
   const cudaError_t err =

@@ -10,7 +10,11 @@
 // base_lo = mix32(seed_lo ^ plane), base_hi = mix32(seed_hi ^ plane ^
 // 0x85EBCA6B) and thr = min(floor(rate * 2^32), 2^32 - 1).  It is a pure
 // function of the global (row, slot), so the forward and both backward
-// kernels, whatever their tiling, draw the same bits.
+// kernels, whatever their tiling, draw the same bits.  b and h are global:
+// a call that holds rows or KV heads of a larger batch (one rank of a
+// row- or tensor-split mesh) passes its first row and KV head as b_off and
+// h_off, and draws the slice of the unsharded call's mask; at offset zero
+// the bits are those of a call without offsets.
 
 #pragma once
 
@@ -29,10 +33,12 @@ constexpr int NTHREADS = NWARPS * 32;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
-// Dropout parameters of one launch; `inv` is 1 / (1 - rate).
+// Dropout parameters of one launch; `inv` is 1 / (1 - rate); b_off and
+// h_off are the call's first global row and KV head.
 struct Dropout {
   uint32_t seed_lo, seed_hi, threshold;
   float inv;
+  uint32_t b_off, h_off;
 };
 
 __device__ __forceinline__ uint32_t mix32(uint32_t x) {
@@ -44,11 +50,13 @@ __device__ __forceinline__ uint32_t mix32(uint32_t x) {
   return x;
 }
 
-// The per-(batch, KV head) row and column bases of the hash.
+// The per-(batch, KV head) row and column bases of the hash; b and h are
+// the call's own, the plane is keyed on the global ones.
 __device__ __forceinline__ void drop_bases(const Dropout& dp, uint32_t b,
                                            uint32_t h, uint32_t& base_lo,
                                            uint32_t& base_hi) {
-  const uint32_t plane = mix32(b * 0x9E3779B9u + h * 0x85EBCA6Bu + 1u);
+  const uint32_t plane = mix32((b + dp.b_off) * 0x9E3779B9u +
+                               (h + dp.h_off) * 0x85EBCA6Bu + 1u);
   base_lo = mix32(dp.seed_lo ^ plane);
   base_hi = mix32(dp.seed_hi ^ plane ^ 0x85EBCA6Bu);
 }

@@ -1128,7 +1128,7 @@ flash_fwd_int8_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                             int KVH, float scale_log2) {
   wgmma_body<false, false, true>(tq, tk, tv, q_pos, kv_pos, k_scale, v_scale,
                                  out, nullptr, T, S, H, KVH, scale_log2,
-                                 Dropout{0u, 0u, 0u, 1.f});
+                                 Dropout{0u, 0u, 0u, 1.f, 0u, 0u});
 }
 
 template <bool LSE, bool DROP>
@@ -1529,6 +1529,7 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          int dtype, float scale_log2, int with_drop,
                          unsigned int seed_lo, unsigned int seed_hi,
                          unsigned int threshold, float inv_keep,
+                         unsigned int b_off, unsigned int h_off,
                          void* stream, int* instance) {
   *instance = 0;
   if (B <= 0 || T <= 0 || S <= 0 || KVH <= 0 || H % KVH != 0 || B > 65535 ||
@@ -1537,7 +1538,8 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long R = (long)(H / KVH) * T;
-  const Dropout drop{seed_lo, seed_hi, threshold, inv_keep};
+  const Dropout drop{seed_lo, seed_hi, threshold, inv_keep, b_off,
+                     h_off};
   int code = 0;
   if (dtype == 1) {
     dim3 grid((unsigned)((R + BM - 1) / BM), KVH, B);
@@ -1591,8 +1593,10 @@ extern "C" int flash_fwd_split_at(
     int S, int H, int KVH, int D, int dtype, int split, int n_split,
     float scale_log2, int with_drop, unsigned int seed_lo,
     unsigned int seed_hi, unsigned int threshold, float inv_keep,
+    unsigned int b_off, unsigned int h_off,
     void* stream, int* instance, int* kernels) {
   (void)seed_lo, (void)seed_hi, (void)threshold, (void)inv_keep;
+  (void)b_off, (void)h_off;
   *instance = 0;
   *kernels = 0;
   if (B <= 0 || T <= 0 || S <= 0 || KVH <= 0 || H % KVH != 0 || B > 65535 ||
@@ -1627,12 +1631,14 @@ extern "C" int flash_fwd_split(
     const int* kv_pos, void* out, float* lse, float* partials, int B, int T,
     int S, int H, int KVH, int D, int dtype, int n_split, float scale_log2,
     int with_drop, unsigned int seed_lo, unsigned int seed_hi,
-    unsigned int threshold, float inv_keep, void* stream, int* instance,
+    unsigned int threshold, float inv_keep,
+    unsigned int b_off, unsigned int h_off, void* stream, int* instance,
     int* kernels) {
   return flash_fwd_split_at(q, k, v, q_pos, kv_pos, out, lse, partials, B, T,
                             S, H, KVH, D, dtype, sk::SPLIT, n_split,
                             scale_log2, with_drop, seed_lo, seed_hi,
-                            threshold, inv_keep, stream, instance, kernels);
+                            threshold, inv_keep,
+                            b_off, h_off, stream, instance, kernels);
 }
 
 // The int8-KV forward: q and out [B, T, H, d] (dtype 0 = float32, 1 =
@@ -1744,7 +1750,9 @@ extern "C" int flash_fwd_wgmma(const void* q, const void* k, const void* v,
                                int KVH, int D, int dtype, float scale_log2,
                                int with_drop, unsigned int seed_lo,
                                unsigned int seed_hi, unsigned int threshold,
-                               float inv_keep, void* stream, int* instance) {
+                               float inv_keep,
+                               unsigned int b_off, unsigned int h_off,
+                               void* stream, int* instance) {
   *instance = 0;
   if (B <= 0 || T <= 0 || T % wg::BM != 0 || T / wg::BM > 65535 || S <= 0 ||
       KVH <= 0 || H % KVH != 0 || D != wg::D || dtype != 1 ||
@@ -1758,7 +1766,8 @@ extern "C" int flash_fwd_wgmma(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Dropout drop{seed_lo, seed_hi, threshold, inv_keep};
+  const Dropout drop{seed_lo, seed_hi, threshold, inv_keep, b_off,
+                     h_off};
   int err;
   if (with_drop) {
     err = launch_wgmma<true, true>(tq, tk, tv, q_pos, kv_pos, out, lse, B, T,

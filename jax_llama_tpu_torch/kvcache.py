@@ -1163,6 +1163,9 @@ def stage_restore(
         ids_t = torch.from_numpy(ids).to(where("ids"))
         for name in slabs[0]:
             first = slabs[0][name]
+            # audit: host-upload(one staging buffer per pool plane of a
+            # swap-in, allocated on the device at admission: the loop runs
+            # over the pool's planes, not over tokens)
             buf = torch.empty((nb,) + tuple(first.shape), dtype=first.dtype,
                               device=where(name))
             for i, s in enumerate(slabs):
@@ -1185,6 +1188,8 @@ def wait_restore(staged: Staged) -> None:
     """Block until a staged swap-in's copies have landed (the idle path,
     and before an in-flight swap-in's memory may be let go)."""
     if staged.event is not None:
+        # audit: host-fetch(a swap-in's copies land before its staging
+        # memory may go: the idle path, a rebuild and teardown only)
         staged.event.synchronize()
 
 

@@ -120,11 +120,10 @@ this rank's rows and sequence slice.  Dropout on a mesh draws every
 generator mask (embedding, residual, the xla path's attention) whole
 from the layer's generator and keeps this rank's slice, so the masks are
 the unsharded run's; the ring path's mask is the position hash keyed on
-global rows and heads; the flash kernel keys its hash on the rows and KV
-heads of its own call, so on a row- or tensor-split mesh each rank folds
-its global row and KV-head offsets into the layer's seed words
-(``_fold_seed``; unchanged at offset zero): its masks are independent
-draws, not the unsharded run's.
+global rows and heads, and the flash kernel's hash is keyed on global
+rows and KV heads too (each rank passes its first row and KV head as
+``dropout_offsets``), so its masks are the unsharded run's, as the JAX
+package's are (GSPMD never partitions its ``pallas_call``).
 
 Layout helpers (JAX :499-:580): ``rope_permute`` moves q/k features
 between Meta's interleaved RoPE order and the half-split order,
@@ -150,11 +149,7 @@ from torch.utils.checkpoint import (
 
 from ..config import LLaMAConfig, torch_dtype
 from ..ops.attention import attention_bias, dropout, sdpa, sdpa_cached
-from ..ops.flash_attention import (
-    _mix32,
-    flash_attention,
-    flash_attention_quantized,
-)
+from ..ops.flash_attention import flash_attention, flash_attention_quantized
 from ..ops.kernels import (
     splash_eligible,
     splash_prefill_attention,
@@ -432,14 +427,19 @@ def init_params(
     With ``mesh`` the result is this rank's shard (``shard_params``) of
     the very tree drawn without one: every rank draws every slice in the
     same order and keeps the part its shard holds, so no rank ever holds
-    the full tree."""
+    the full tree.
+
+    On ``device="meta"`` the tree holds shapes and dtypes only: nothing
+    is drawn or allocated (the full-size shape checks of
+    ``rehearsal.rehearse_8b_shapes``)."""
     config.validate()
     device = resolve_device(device)
     if mesh is not None:
         validate_tp(config, mesh)
     specs = (mesh_specs(config, mesh) if mesh is not None
              else param_partition_specs(config))
-    if generator is None:
+    meta = device.type == "meta"
+    if generator is None and not meta:
         generator = torch.Generator(device=device).manual_seed(seed)
     D, H, KVH, hd, F_, V, L = (
         config.dim, config.n_heads, config.kv_heads, config.head_dim,
@@ -449,6 +449,10 @@ def init_params(
     wd = config.weight_dtype
 
     def dense(shape, std, spec):
+        if meta:
+            return torch.empty(shape if mesh is None
+                               else local_shape(mesh, spec, shape),
+                               dtype=wd, device=device)
         if mesh is None:
             out = torch.empty(shape, dtype=wd, device=device)
             flat = out.view(-1, *shape[-2:]) if len(shape) > 2 else out[None]
@@ -1072,9 +1076,8 @@ def _block(
         elif impl == "flash":
             attn = flash_attention(
                 q, kk, vv, positions, slot_pos, dropout_rate=attn_rate,
-                dropout_seed=(_fold_seed(drop.attn_seed, rows.start or 0,
-                                         kvh_off)
-                              if attn_rate > 0.0 else None))
+                dropout_seed=drop.attn_seed if attn_rate > 0.0 else None,
+                dropout_offsets=(rows.start or 0, kvh_off))
         else:
             S = kk.shape[1]
             attn = sdpa(q, kk, vv, bias, softmax_dtype=softmax_dtype,
@@ -1114,22 +1117,6 @@ def _gather_layer(lp: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """One layer's fsdp-sharded weights, all-gathered (ZeRO-3)."""
     return {name: (_gather_fsdp(w, _FSDP_DIMS[name]) if name in _FSDP_DIMS
                    else w) for name, w in lp.items()}
-
-
-def _fold_seed(seed: Tuple[int, int], b_off: int,
-               kvh_off: int) -> Tuple[int, int]:
-    """The flash kernel's seed words for a call whose rows and KV heads
-    start at global ``b_off`` and ``kvh_off``: the layer's words at
-    offset zero, else the words mixed with the offsets' plane hash (the
-    kernel keys its hash on the call's own rows and heads)."""
-    if b_off == 0 and kvh_off == 0:
-        return seed
-    off = torch.tensor([(b_off * 0x9E3779B9 + kvh_off * 0x85EBCA6B + 1)
-                        & 0xFFFFFFFF], dtype=torch.int64)
-    plane = int(_mix32(off)[0])
-    lo = int(_mix32(torch.tensor([seed[0] ^ plane]))[0])
-    hi = int(_mix32(torch.tensor([seed[1] ^ plane ^ 0x85EBCA6B]))[0])
-    return lo, hi
 
 
 def _seq_part(S: int, T: int, local_index: int):

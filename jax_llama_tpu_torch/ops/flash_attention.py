@@ -23,7 +23,13 @@ Dropout (training) is inverted dropout on the attention probabilities,
 generated from a counter hash of (two seed words, batch, KV head, packed
 row, slot) -- ``dropout_keep``, bit for bit the JAX ``_dropout_keep`` --
 so the forward and both backward kernels draw the same mask without
-storing it.
+storing it.  Batch and KV head are global: a call that holds rows or KV
+heads of a larger batch (one rank of a row- or tensor-split mesh) passes
+its first row and KV head as ``dropout_offsets`` and draws its slice of
+the unsharded call's mask, as JAX's kernel, which GSPMD never partitions,
+draws it whole.  The dropout key is the tuple (seed words, row offset,
+KV-head offset); every function that takes ``dropout_seed`` also takes
+such a key, and a seed of two words has offsets 0.
 
 The forward has four instances, picked per call by ``flash_instance``
 from the dtype, head_dim, the query and KV lengths, the query heads per KV
@@ -177,10 +183,12 @@ def _threshold(rate: float) -> int:
     return min(int(rate * 4294967296.0), 4294967295)
 
 
-def _keep(seed: Tuple[int, int], b, h, rows, cols, rate: float):
-    """The keep mask at every broadcast (b, h, row, col): b, h, rows and
-    cols are int64 tensors that broadcast against each other."""
-    seed_lo, seed_hi = seed
+def _keep(seed, b, h, rows, cols, rate: float):
+    """The keep mask at every broadcast (b, h, row, col) of the call: b,
+    h, rows and cols are int64 tensors that broadcast against each other;
+    the key's offsets make b and h global."""
+    seed_lo, seed_hi, b_off, h_off = _key(seed)
+    b, h = (b + b_off) & _M32, (h + h_off) & _M32
     plane = _mix32((_mul32(b, 0x9E3779B9) + _mul32(h, 0x85EBCA6B) + 1) & _M32)
     base_lo = _mix32(plane ^ seed_lo)
     base_hi = _mix32(plane ^ seed_hi ^ 0x85EBCA6B)
@@ -232,8 +240,11 @@ def normalize_seed(dropout_seed) -> Tuple[int, int]:
     return words[0], words[1]
 
 
-def _dropout_args(dropout_rate: float, dropout_seed):
-    """Validate the rate (in [0, 1)) and the seed (required above 0)."""
+def _dropout_args(dropout_rate: float, dropout_seed, offsets=(0, 0)):
+    """Validate the rate (in [0, 1)) and the seed (required above 0);
+    return the rate and the dropout key: the seed words, then the call's
+    global row and KV-head ``offsets``.  A seed of four words is such a
+    key already (the functions of this module pass theirs on)."""
     rate = float(dropout_rate)
     if not 0.0 <= rate < 1.0:
         raise ValueError(f"dropout_rate={dropout_rate} not in [0, 1)")
@@ -241,7 +252,22 @@ def _dropout_args(dropout_rate: float, dropout_seed):
         return 0.0, None
     if dropout_seed is None:
         raise ValueError("dropout_rate > 0 requires dropout_seed")
-    return rate, normalize_seed(dropout_seed)
+    if not isinstance(dropout_seed, int) and len(dropout_seed) == 4:
+        if tuple(offsets) != (0, 0):
+            raise ValueError("dropout_seed is a key with its offsets; "
+                             "pass no dropout_offsets beside it")
+        dropout_seed, offsets = dropout_seed[:2], dropout_seed[2:]
+    b_off, h_off = (int(o) for o in offsets)
+    if not (0 <= b_off <= _M32 and 0 <= h_off <= _M32):
+        raise ValueError(f"dropout_offsets {offsets} are not uint32")
+    return rate, (*normalize_seed(dropout_seed), b_off, h_off)
+
+
+def _key(seed) -> Tuple[int, int, int, int]:
+    """(seed_lo, seed_hi, b_off, h_off) of a dropout key of two or four
+    words."""
+    return tuple((*seed, 0, 0)[:4])
+
 
 
 # ---------------------------------------------------------------------------
@@ -264,6 +290,7 @@ def flash_attention_reference(
     return_lse: bool = False,
     k_scale: Optional[torch.Tensor] = None,
     v_scale: Optional[torch.Tensor] = None,
+    dropout_offsets=(0, 0),
 ):
     """Dense positional-mask softmax attention with the kernel's contract.
 
@@ -275,8 +302,10 @@ def flash_attention_reference(
     ``v_scale`` ([B, S, KVH] float32) k and v are int8: each score is
     multiplied by its slot's k_scale before the mask, and each probability
     by its slot's v_scale before it is rounded to q's dtype for P.V.
+    ``dropout_offsets``: the call's first global row and KV head (module
+    docstring).
     """
-    rate, seed = _dropout_args(dropout_rate, dropout_seed)
+    rate, seed = _dropout_args(dropout_rate, dropout_seed, dropout_offsets)
     B, T, H, d = q.shape
     S, KVH = k.shape[1], k.shape[2]
     assert H % KVH == 0, (H, KVH)
@@ -385,6 +414,7 @@ def flash_backward_reference(
     g: torch.Tensor,
     dropout_rate: float = 0.0,
     dropout_seed=None,
+    dropout_offsets=(0, 0),
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The backward kernels' formulas (JAX ``_flash_backward``) in plain
     torch: P = exp(S*scale - lse) on the attended slots, dP = dO V^T (times
@@ -393,7 +423,7 @@ def flash_backward_reference(
     dV = (mask * P)^T dO.  P and dS are rounded to the input dtype before
     their products, as the kernels round them.  Returns (dq, dk, dv) in
     the input dtype."""
-    rate, seed = _dropout_args(dropout_rate, dropout_seed)
+    rate, seed = _dropout_args(dropout_rate, dropout_seed, dropout_offsets)
     delta = flash_delta(out, g, k.shape[2])
     return _backward_plain(q, k, v, q_pos, kv_pos, lse, delta, g, rate, seed)
 
@@ -465,15 +495,16 @@ def _check(q, k, v, q_pos, kv_pos, *extra, kv_dtype=None) -> None:
 
 
 def _drop_ctypes(rate: float, seed) -> list:
-    """(with_drop, seed_lo, seed_hi, threshold, 1 / (1 - rate)) for a C
-    entry point."""
+    """(with_drop, seed_lo, seed_hi, threshold, 1 / (1 - rate), b_off,
+    h_off) for a C entry point, from the rate and the dropout key."""
     if rate == 0.0:
-        return [0, 0, 0, 0, 1.0]
-    return [1, seed[0], seed[1], _threshold(rate), 1.0 / (1.0 - rate)]
+        return [0, 0, 0, 0, 1.0, 0, 0]
+    lo, hi, b_off, h_off = _key(seed)
+    return [1, lo, hi, _threshold(rate), 1.0 / (1.0 - rate), b_off, h_off]
 
 
 _DROP_ARGTYPES = [ctypes.c_int, ctypes.c_uint, ctypes.c_uint, ctypes.c_uint,
-                  ctypes.c_float]
+                  ctypes.c_float, ctypes.c_uint, ctypes.c_uint]
 
 
 @functools.lru_cache(maxsize=None)
@@ -751,11 +782,11 @@ def flash_delta(out: torch.Tensor, g: torch.Tensor,
 
 
 def flash_backward(q, k, v, q_pos, kv_pos, out, lse, g, dropout_rate=0.0,
-                   dropout_seed=None):
+                   dropout_seed=None, dropout_offsets=(0, 0)):
     """(dq, dk, dv) of ``flash_attention`` for the cotangent g: the two
     backward kernels on CUDA tensors, ``flash_backward_reference`` on CPU
     tensors; Delta from ``flash_delta``."""
-    rate, seed = _dropout_args(dropout_rate, dropout_seed)
+    rate, seed = _dropout_args(dropout_rate, dropout_seed, dropout_offsets)
     if q.device.type == "cpu":
         return flash_backward_reference(q, k, v, q_pos, kv_pos, out, lse, g,
                                         rate, seed)
@@ -799,6 +830,7 @@ def flash_attention(
     kv_pos: torch.Tensor,
     dropout_rate: float = 0.0,
     dropout_seed=None,
+    dropout_offsets=(0, 0),
 ) -> torch.Tensor:
     """Blockwise causal attention with positional masking (see module
     docstring), differentiable in q, k and v.  CPU tensors take the plain
@@ -808,8 +840,11 @@ def flash_attention(
     dropout_rate: attention-probability dropout in [0, 1) (training).
     dropout_seed: required when dropout_rate > 0: two uint32 words (an int
       or a single word is widened with a zero high word).
+    dropout_offsets: (first global row, first global KV head) of this
+      call's q when it holds a slice of a larger batch: the mask is that
+      slice of the whole batch's mask.
     """
-    rate, seed = _dropout_args(dropout_rate, dropout_seed)
+    rate, seed = _dropout_args(dropout_rate, dropout_seed, dropout_offsets)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return _FlashAttention.apply(q, k, v, q_pos, kv_pos, rate, seed)

@@ -315,6 +315,9 @@ class Leader:
     def stats(self) -> Dict[str, Any]:
         """Records published by kind (a call by its method), and the
         leader's milliseconds spent publishing and agreeing."""
+        # audit: unguarded(single-writer: only the record running under
+        # the lock writes these; dict() copies the Counter atomically, so
+        # a read may miss the record in flight, never crash)
         return dict(records=dict(self.records), records_total=self.index,
                     publish_ms_total=self.publish_ms_total,
                     agree_ms_total=self.agree_ms_total)

@@ -1458,6 +1458,9 @@ class ContinuousBatcher:
             rec, start, ev0, ev1 = self._unsettled[0]
             if not (wait or ev1.query()):
                 return
+            # audit: host-fetch(a no-op wait: the insert's end event has
+            # passed, since the fetch before this waited for it or the
+            # event's query said so; not counted in host_syncs_total)
             ev1.synchronize()
             del self._unsettled[0]
             ms = ev0.elapsed_time(ev1)
@@ -1615,6 +1618,8 @@ class ContinuousBatcher:
         """Acceptance over the recent spec-dispatch window (the last 64
         dispatches that proposed drafts); an atomic ``list()`` snapshot,
         since /metrics reads it while the loop appends."""
+        # audit: racy-read(atomic list() snapshot of the single-writer
+        # window; a scrape may miss the newest dispatch, never crash)
         window = list(self._accept_window)
         proposed = sum(p for p, _ in window)
         if not proposed:
@@ -1653,11 +1658,15 @@ class ContinuousBatcher:
         each value is a point-in-time read of single-writer host state
         (the digest under its own lock; ``_pf`` snapshotted first, the
         loop may null it), never a device read."""
+        # audit: racy-read(point-in-time /metrics snapshot of
+        # single-writer loop state; stale by <= 1 step, never torn)
         pf = self._pf
         shape = _smesh.mesh_shape(self.mesh)
         dg = self.kv_digest.summary()
         out: Dict[str, float] = {} if self.fault_injector is None else (
             dict(self.fault_injector.stats()))
+        # audit: racy-read(point-in-time /metrics snapshot of
+        # single-writer loop state; stale by <= 1 step, never torn)
         out.update({
             "emitted_tokens_total": self.emitted_total,
             "decode_steps_total": self.steps_total,
@@ -1763,6 +1772,9 @@ class ContinuousBatcher:
             "block_bytes": self.block_bytes,
             "total_blocks": self.n_blocks,
             "host_kv_blocks": self.host_kv_blocks,
+            # audit: racy-read(point-in-time snapshot of single-writer
+            # hit counters; stale by <= 1 admission, never torn -- the
+            # fleet view's hit-ratio numerator and denominator)
             "prefix_hit_tokens_total": self.prefix_hit_tokens_total,
             "prompt_tokens_total": self.prompt_tokens_total,
         })
@@ -1975,6 +1987,8 @@ class ContinuousBatcher:
         # A decode chunk's record starts where the classic inserts before
         # it ended (their own records carry their time).
         fetched = self._fetch_mark() if pf_adv == 0 else None
+        # audit: host-fetch(the one packed fetch of a chunk dispatch,
+        # counted in host_syncs_total)
         arr = packed.cpu().numpy()
         self.host_syncs_total += 1
         now_obs = time.monotonic()
@@ -2096,6 +2110,8 @@ class ContinuousBatcher:
         out: List[Tuple] = []
         # The pending tokens and, bit-cast beside them, their logprobs:
         # one fetch.
+        # audit: host-fetch(the one packed fetch of a speculative round,
+        # counted in host_syncs_total and spec_host_syncs_total)
         got = _pack_logprobs(self.tau, self.d_tau_lp if self.logprobs
                              else None).cpu().numpy()
         taus = got[0]
@@ -2165,6 +2181,8 @@ class ContinuousBatcher:
             cols.append(lps.float().contiguous().view(torch.int32))
         cols = torch.cat(cols, dim=1)
         fetched = self._fetch_mark()
+        # audit: host-fetch(the one packed fetch of a speculative round's
+        # verify, counted in host_syncs_total and spec_host_syncs_total)
         arr = cols.cpu().numpy()
         lps = arr[:, G + 2:].view(np.float32) if self.logprobs else None
         self.host_syncs_total += 1
@@ -2259,6 +2277,8 @@ class ContinuousBatcher:
         # The one device->host sync of the chunk.
         tf_obs = time.monotonic()
         fetched = self._fetch_mark()
+        # audit: host-fetch(the one packed fetch of a chunk of speculative
+        # rounds, counted in host_syncs_total and spec_host_syncs_total)
         arr = packed.cpu().numpy()
         self.host_syncs_total += 1
         self.spec_host_syncs_total += 1
@@ -2380,6 +2400,8 @@ class ContinuousBatcher:
         them.  Counted in ``swap_out_blocks_total`` (per block), never in
         ``host_syncs_total`` (the decode loop's contract)."""
         if self._demotions_unsynced and self.device.type == "cuda":
+            # audit: host-fetch(the one sync of a demotion sweep, off the
+            # decode loop; counted in swap_out_blocks_total per block)
             torch.cuda.current_stream(self.device).synchronize()
         self._demotions_unsynced = False
 

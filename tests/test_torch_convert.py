@@ -561,7 +561,9 @@ def test_jax_reads_a_port_checkpoint_directory(tmp_path):
 _SLICE_MODULES = (
     "convert", "convert.meta", "convert.checkpoint", "convert.__main__",
     "tokenizers.llama3", "tokenizers.llama2", "run", "download", "obs",
-    "utils.profiling",
+    "utils.profiling", "rehearsal", "analysis", "analysis.common",
+    "analysis.hostsync", "analysis.lockcheck", "analysis.metricscheck",
+    "analysis.schedules", "analysis.comms", "analysis.__main__",
 )
 
 _BLOCKED = """

@@ -183,7 +183,8 @@ def test_split_kv_entry_point_rejects_other_run_counts():
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
                 kv_pos.data_ptr(), out.data_ptr(), None, partials.data_ptr(),
                 B, T, S, heads, KVH, d, 1, n_split, 0.1, drop, 1, 2, 3, 1.0,
-                stream, fa.ctypes.byref(code), fa.ctypes.byref(kernels))
+                0, 0, stream, fa.ctypes.byref(code),
+                fa.ctypes.byref(kernels))
         return rc, code.value, kernels.value
 
     want = -(-S // fa.FLASH_SPLIT)

@@ -240,30 +240,116 @@ def test_shard_batch_gives_each_rank_its_rows():
 
 @pytest.mark.parametrize("geom", ["fsdp2_tensor2", "data2_tensor2"])
 def test_mesh_dropout_masks_are_the_unsharded_runs(pool, model, geom):
-    """Embedding, residual and (xla path) attention dropout on a row- and
-    tensor-split mesh draw every mask whole and keep this rank's slice:
-    the dropped forward is the unsharded one."""
-    _, _, tree, tokens, _ = model
+    """Embedding, residual and attention dropout on a row- and
+    tensor-split mesh are the unsharded run's: the generator masks
+    (embedding, residual, the xla path's attention) are drawn whole and
+    sliced, and the flash hash is keyed on global rows and KV heads
+    (``dropout_offsets``), as JAX's flash masks are (see
+    ``test_jax_flash_dropout_masks_are_global``).  The dropped forward
+    on both paths, and the flash path's loss and gradients, equal the
+    unsharded run's."""
+    _, _, tree, tokens, mask = model
     axes, fsdp = GEOMS[geom]
     rates = dict(embd_pdrop=0.1, resid_pdrop=0.2, attn_pdrop=0.1)
-    res = pool.run("dropout_forward_case", cfg=CFG, tree=tree, axes=axes,
-                   tokens=tokens, config=rates, seed=3, fsdp=fsdp)
-    np.testing.assert_allclose(_same(res, "logits"), res[0]["unsharded"],
-                               atol=ATOL, rtol=ATOL)
+    for impl in ("xla", "flash"):
+        res = pool.run("dropout_forward_case", cfg=CFG, tree=tree,
+                       axes=axes, tokens=tokens,
+                       config=dict(rates, attn_impl=impl), seed=3,
+                       fsdp=fsdp)
+        np.testing.assert_allclose(_same(res, "logits"),
+                                   res[0]["unsharded"], atol=ATOL,
+                                   rtol=ATOL)
+    res = pool.run("train_case", cfg=CFG, tree=tree, axes=axes,
+                   tokens=tokens, loss_mask=mask, fsdp=fsdp,
+                   grads_only=True, unsharded=True, dropout_seed=3,
+                   config=dict(attn_pdrop=0.5, attn_impl="flash"))
+    r = res[0]
+    np.testing.assert_allclose(r["loss"], r["ref_loss"], rtol=1e-5)
+    got, want = _flat(r["grads"]), _flat(r["ref_grads"])
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], atol=ATOL, rtol=ATOL,
+                                   err_msg=k)
 
 
 def test_flash_dropout_seed_folds_offsets():
-    """The flash kernel keys its hash on its call's own rows and KV
-    heads, so a rank whose rows or heads start past zero folds its
-    offsets into the seed words: unchanged at zero, distinct per
-    offset."""
-    from jax_llama_tpu_torch.models.llama import _fold_seed
+    """A flash call that holds rows and KV heads of a larger batch draws,
+    with its first row and KV head as ``dropout_offsets``, exactly its
+    slice of the whole batch's dropped attention, forward and backward;
+    at offset zero the key draws the bits of a call without offsets."""
+    import importlib
 
-    seed = (0x2545F491, 0x9E3779B9)
-    assert _fold_seed(seed, 0, 0) == seed
-    folded = {_fold_seed(seed, b, h) for b in (0, 2) for h in (0, 4)}
-    assert len(folded) == 4
-    assert all(0 <= w < 2**32 for pair in folded for w in pair)
+    pfa = importlib.import_module("jax_llama_tpu_torch.ops.flash_attention")
+    rng = np.random.RandomState(5)
+    B, T, KVH, G, d = 4, 12, 4, 2, 16
+    q, g = (torch.from_numpy(rng.randn(B, T, KVH * G, d).astype(np.float32))
+            for _ in range(2))
+    k, v = (torch.from_numpy(rng.randn(B, T, KVH, d).astype(np.float32))
+            for _ in range(2))
+    pos = torch.arange(T, dtype=torch.int32).expand(B, T).contiguous()
+    seed, rate = (0x2545F491, 0x9E3779B9), 0.3
+    whole = pfa.flash_attention_reference(q, k, v, pos, pos, rate, seed,
+                                          return_lse=True)
+    dwhole = pfa.flash_backward_reference(q, k, v, pos, pos, *whole, g,
+                                          rate, seed)
+    zero = pfa.flash_attention_reference(q, k, v, pos, pos, rate, seed,
+                                         dropout_offsets=(0, 0))
+    assert torch.equal(zero, whole[0])
+    rows, heads = slice(2, 4), slice(1, 3)
+    qh = slice(heads.start * G, heads.stop * G)
+    part = [x[rows][:, :, qh] for x in (q, g)] + [
+        x[rows][:, :, heads] for x in (k, v)]
+    pq, pg, pk, pv = (x.contiguous() for x in part)
+    off = (rows.start, heads.start)
+    out, lse = pfa.flash_attention_reference(
+        pq, pk, pv, pos[rows], pos[rows], rate, seed, return_lse=True,
+        dropout_offsets=off)
+    torch.testing.assert_close(out, whole[0][rows][:, :, qh], rtol=0,
+                               atol=0)
+    dq, dk, dv = pfa.flash_backward_reference(
+        pq, pk, pv, pos[rows], pos[rows], out, lse, pg, rate, seed,
+        dropout_offsets=off)
+    for a, b in ((dq, dwhole[0][rows][:, :, qh]),
+                 (dk, dwhole[1][rows][:, :, heads]),
+                 (dv, dwhole[2][rows][:, :, heads])):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+    plain = pfa.flash_attention_reference(pq, pk, pv, pos[rows], pos[rows],
+                                          rate, seed)
+    assert not torch.allclose(plain, out)
+
+
+@pytest.mark.parametrize("axes", [dict(tensor=2), dict(data=2)],
+                         ids=["tensor2", "data2"])
+def test_jax_flash_dropout_masks_are_global(axes):
+    """The reference the port's flash offsets follow: on JAX's CPU device
+    mesh, one flash train step with attention dropout at tensor = 2 or
+    data = 2 has the unsharded step's loss and gradients (GSPMD does not
+    partition a ``pallas_call``, so the kernel draws every mask whole),
+    and a step without dropout does not."""
+    from jax_llama_tpu.train import lm_loss as jlm_loss
+
+    jc = jget_config("tiny", **dict(CFG, n_layers=1, attn_impl="flash",
+                                    attn_pdrop=0.5))
+    jp = jinit_params(jax.random.PRNGKey(0), jc)
+    tokens = jnp.asarray(np.random.RandomState(2).randint(
+        0, CFG["vocab_size"], (4, 16)).astype(np.int32))
+
+    def step(config, mesh=None):
+        params = (jpartition.shard_params(jp, mesh, config)
+                  if mesh is not None else jp)
+        with juse_mesh(mesh):
+            loss, grads = jax.jit(jax.value_and_grad(
+                lambda p, t: jlm_loss(p, t, config, None,
+                                      jax.random.PRNGKey(7))))(params, tokens)
+        return float(loss), _flat(jax.tree.map(np.asarray, grads))
+
+    want_loss, want = step(jc)
+    loss, got = step(jc, _jmesh(**axes))
+    np.testing.assert_allclose(loss, want_loss, rtol=1e-5)
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], atol=ATOL, rtol=ATOL,
+                                   err_msg=k)
+    plain_loss, _ = step(jc.replace(attn_pdrop=0.0))
+    assert abs(plain_loss - want_loss) > 1e-3
 
 
 @pytest.mark.parametrize("geom", ["fsdp2_tensor2", "data2_tensor2"])

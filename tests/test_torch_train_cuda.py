@@ -10,7 +10,9 @@ neither jax nor the JAX package, so it runs on a GPU host without them:
 The flash forward's Hopper instance (TMA + wgmma: bf16, d = 128, T a
 multiple of 128) is held at T = 128, 512 and 2048 in the left-padded,
 cache and chunk-window layouts, with lse and dropout; its dropout keep
-bits must equal the plain version's exactly.  The backward's Hopper pair
+bits must equal the plain version's exactly, at offset zero and, on
+every instance, for a call keyed on global row and KV-head offsets.  The
+backward's Hopper pair
 (``flash_bwd_dq`` and ``flash_bwd_dkv`` where ``flash_bwd_instance`` says
 "wgmma") is held at T = S = 128 and 384 and at T = 256 over S = 600, with
 G = 1, 4 and 8, left padding, empty (-1) slots and query rows that see no
@@ -204,6 +206,48 @@ def test_wgmma_dropout_keep_bits_match_plain(T):
         window = slice(128 * j, 128 * (j + 1))
         want = keep[:, :, window] & allowed[None, :, window]
         assert torch.equal(got, want), j
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d,instance", [
+    (torch.bfloat16, 128, "wgmma"), (torch.bfloat16, 64, "mma_sync"),
+    (torch.float32, 64, "float32")], ids=["wgmma", "mma_sync", "float32"])
+def test_dropout_keep_bits_with_global_offsets(dtype, d, instance):
+    """A call whose rows and KV heads start at global offsets (a rank of a
+    split mesh) drops exactly the (packed row, slot) pairs the plain
+    version keyed on those offsets drops, on each forward instance
+    (one-hot V over d-slot windows, as above), and not offset zero's."""
+    _skip_without_card()
+    B, T, H, KVH, rate, off = 2, 128, 4, 2, 0.1, (3, 5)
+    rng = np.random.default_rng(6)
+    q = torch.from_numpy(rng.standard_normal((B, T, H, d)).astype(
+        np.float32)).cuda().to(dtype)
+    k = torch.from_numpy(rng.standard_normal((B, T, KVH, d)).astype(
+        np.float32)).cuda().to(dtype)
+    pos = torch.arange(T, dtype=torch.int32, device="cuda")[None].expand(
+        B, T).contiguous()
+    G = H // KVH
+    key = SEED + off
+    keep = fa._keep_plane(key, B, KVH, G, T, T, rate, "cuda")
+    zero = fa._keep_plane(SEED, B, KVH, G, T, T, rate, "cuda")
+    assert not torch.equal(keep, zero)
+    allowed = pos[0][None, :] <= pos[0][:, None]
+    eye = torch.eye(d, dtype=dtype, device="cuda")
+    before = fa.flash_attention.launches_by_instance.get(instance, 0)
+    for j in range(T // d):
+        v = torch.zeros((B, T, KVH, d), dtype=dtype, device="cuda")
+        v[:, d * j:d * (j + 1)] = eye[None, :, None, :]
+        out = fa.flash_attention(q, k, v, pos, pos, dropout_rate=rate,
+                                 dropout_seed=SEED, dropout_offsets=off)
+        # [B, T, KVH, G, d] -> [B, KVH, G, T, d]
+        got = (out.float() != 0).reshape(B, T, KVH, G, d).permute(
+            0, 2, 3, 1, 4)
+        window = slice(d * j, d * (j + 1))
+        want = keep[..., window] & allowed[None, None, None, :, window]
+        assert torch.equal(got, want), j
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches_by_instance[instance] == (
+        before + T // d)
 
 
 @pytest.mark.cuda

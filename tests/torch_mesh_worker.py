@@ -728,8 +728,9 @@ def train_case(cfg, tree, axes, tokens, loss_mask=None, steps=1,
     """``steps`` train_steps on the mesh from the shards of ``tree``
     (``fsdp`` for ZeRO-3) over ``shard_batch`` of the global batch: the
     losses and the updated params gathered whole; with ``grads_only``,
-    the first step's gradients instead (reduced as train_step reduces
-    them), gathered whole.  ``unsharded`` runs the same steps without a
+    the first step's loss and gradients instead (reduced as train_step
+    reduces them, dropout seeded with ``dropout_seed``), gathered whole.
+    ``unsharded`` runs the same steps (or the same gradients) without a
     mesh too.  ``backward_thread`` runs every ``torch.autograd.grad`` on
     a thread of its own, where no mesh is active, as autograd runs the
     backward of CUDA tensors."""
@@ -754,16 +755,32 @@ def train_case(cfg, tree, axes, tokens, loss_mask=None, steps=1,
         for p in train.tree_leaves(sp):
             p.requires_grad_(True)
         with use_mesh(mesh):
-            loss = train.lm_loss(sp, batch.tokens, conf, batch.loss_mask)
+            loss = train.lm_loss(sp, batch.tokens, conf, batch.loss_mask,
+                                 dropout_rng=dropout_seed)
             items = train.tree_items(sp)
             names = [n for n, _ in items]
             grads = list(torch.autograd.grad(loss, [p for _, p in items]))
             specs = leaf_specs(conf, mesh, sp, fsdp=fsdp)
             with torch.no_grad():
                 train._reduce_grads(mesh, specs, names, grads)
+            loss = loss.detach().clone()
+            for a in train._TOKEN_AXES:
+                mesh.all_reduce(loss, a)
         full = gather_params(_tree_dict(zip(names, grads)), mesh, conf,
                              fsdp=fsdp)
-        return dict(grads=_numpy_tree(full))
+        out = dict(grads=_numpy_tree(full), loss=float(loss))
+        if unsharded:
+            ref = _model(cfg, tree)[0]
+            for p in train.tree_leaves(ref):
+                p.requires_grad_(True)
+            ref_loss = train.lm_loss(ref, torch.from_numpy(tokens), conf,
+                                     torch.from_numpy(mask),
+                                     dropout_rng=dropout_seed)
+            items = train.tree_items(ref)
+            ref_grads = torch.autograd.grad(ref_loss, [p for _, p in items])
+            out.update(ref_loss=float(ref_loss), ref_grads=_numpy_tree(
+                _tree_dict(zip([n for n, _ in items], ref_grads))))
+        return out
     state = train.init_train_state(sp, opt)
     losses = []
     grad = torch.autograd.grad
