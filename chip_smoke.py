@@ -615,6 +615,21 @@ equal host states, and each rank's launches those of the unsharded
 router's ``run.main()`` on the same traffic in this process and the ones
 the replicas' dispatch records imply.
 
+Sliced replicas (ROADMAP A14 part 4): ``mesh_sliced``, after
+``mesh_router`` on the same checkpoint, runs on four ranks of its own on
+cuda:0 over gloo (spawned before mesh_http, so that they start up while
+the two-rank phases run, and stopped after it) with mesh_router's argv as
+two slices of ``--serve-mesh 1,2`` (``parallel.slices``): replica 0 on
+ranks 0-1 beside the router, replica 1 on ranks 2-3, its server on rank
+2.  A routed prefix hit; a handoff each way between the slices (its
+bytes and ms printed), each a prefix hit with the cold serve's tokens
+or a near-tie below DECODE_REL; a scale-up whose replica lands on slice
+0; a drain of replica 1 by migration onto slice 0 and the moved chain's
+revisit; each slice's ranks' host states equal; each rank's flash
+("wgmma") and paged launches what its slice's dispatch records imply,
+and their sum over the slices the unsharded router's, every token the
+unsharded router's or a near-tie below DECODE_REL.
+
 The dress rehearsal and the runtime host-sync audit (ROADMAP A16 part
 2) add two phases after ``fleet_drill``:
 
@@ -810,7 +825,14 @@ CKPT_SLOTS = 4
 CKPT_GEN = 32
 
 
+T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """Print one JSON line; a phase's line also carries ``at_s``, the
+    script's seconds when it was printed."""
+    if "phase" in obj:
+        obj = dict(obj, at_s=time.perf_counter() - T0)
     print(json.dumps(obj), flush=True)
 
 
@@ -4165,7 +4187,8 @@ def drive_checkpoint(torch, ptl, fa, pa, shallow, cfg, smi, mesh_ranks):
     completed through ``run.py`` (one-shot, ``--serve`` twice,
     ``--quantize``), each held to the in-process path on the same tree;
     then, on the same checkpoint and ``mesh_ranks``, the phases
-    ``mesh_http`` and ``mesh_router``.  Returns the three rows."""
+    ``mesh_http``, ``mesh_router`` and ``mesh_sliced``.  Returns the four
+    rows."""
     import gc
     import shutil
     import tempfile
@@ -4500,14 +4523,24 @@ def drive_checkpoint(torch, ptl, fa, pa, shallow, cfg, smi, mesh_ranks):
         check(launches == expect and expect["flash_fwd"] == 2 * L,
               f"http_router launches {launches}, expected {expect}")
 
-        # The same checkpoint served over a serving mesh of the two ranks
-        # (ROADMAP A14 part 3).
-        mesh_http, mesh_failures = drive_mesh_http(
-            torch, ptl, fa, pa, smi, mesh_ranks, saved, shallow, auto)
-        mesh_router, bad = drive_mesh_router(torch, ptl, fa, pa, smi,
-                                             mesh_ranks, saved, shallow,
-                                             auto)
-        mesh_failures += bad
+        # Sliced replicas (ROADMAP A14 part 4) run on four ranks of their
+        # own, which start up while mesh_http and mesh_router run.
+        sliced_ranks = MeshRanks(SLICED_RANKS)
+        try:
+            # The same checkpoint served over a serving mesh of the two
+            # ranks (ROADMAP A14 part 3).
+            mesh_http, mesh_failures = drive_mesh_http(
+                torch, ptl, fa, pa, smi, mesh_ranks, saved, shallow, auto)
+            mesh_router, bad = drive_mesh_router(torch, ptl, fa, pa, smi,
+                                                 mesh_ranks, saved, shallow,
+                                                 auto)
+            mesh_failures += bad
+            mesh_sliced, bad = drive_mesh_sliced(torch, ptl, fa, pa, smi,
+                                                 sliced_ranks, saved,
+                                                 shallow, auto)
+            mesh_failures += bad
+        finally:
+            sliced_ranks.close()
     row["runs"] = runs
     row["launches"] = {k: sum(r["launches"][k] for r in runs.values())
                        for k in NO_LAUNCHES}
@@ -4516,7 +4549,7 @@ def drive_checkpoint(torch, ptl, fa, pa, shallow, cfg, smi, mesh_ranks):
     if failures or mesh_failures:
         raise AssertionError(f"checkpoint phases failed: {failures} "
                              f"{mesh_failures}")
-    return row, mesh_http, mesh_router
+    return row, mesh_http, mesh_router, mesh_sliced
 
 
 # The prefix cache (ROADMAP A11): prefix_serving at llama3-8b's full width,
@@ -6332,7 +6365,22 @@ def drive_fleet_serving(torch, np, ptl, fa, pa, params, cfg, tok, smi):
         burst = [add(f"burst-{t}-{j}",
                      sys_ids[t] + tok.encode(turns[t][j % len(turns[t])]))
                  for j in range(FLEET_BURST) for t in (0, 1)]
+
+        def routed():
+            with router._lock:
+                return sum(r.routed_total for r in router._replicas)
+
+        routed0 = routed()
+        t_burst = time.perf_counter()
         burst_threads = fleet_send(router, prompts, out, burst, wait=False)
+        # Every burst request is picked before the first tick: the
+        # router's listen backlog is the standard library's 5, so some of
+        # the burst's connections wait out a SYN retransmit (about 1 s)
+        # and would otherwise be picked while a grown replica is already
+        # in the fleet and not yet retiring.
+        wait_until(lambda: routed() - routed0 >= len(burst),
+                   "the burst's route picks")
+        burst_routed_ms = (time.perf_counter() - t_burst) * 1e3
         hold_ms, up = [], {}
         while True:
             router.check_health_now()
@@ -6356,7 +6404,7 @@ def drive_fleet_serving(torch, np, ptl, fa, pa, params, cfg, tok, smi):
         cells["scale_up"] = dict(
             action=up.get("action"), reason=up.get("reason"),
             replica=grown, signals=up.get("signals"), tick_ms=up_ms,
-            holds_before=len(hold_ms),
+            holds_before=len(hold_ms), burst_routed_ms=burst_routed_ms,
             factory_ms=built_ms.get(grown),
             shares_embedding=embeds.get(grown) == embeds[0],
             replicas=len(router.health()["replicas"]))
@@ -6524,6 +6572,8 @@ def drive_fleet_serving(torch, np, ptl, fa, pa, params, cfg, tok, smi):
         fails.append("a stream did not end with its max_new tokens")
     if any(out[r]["replica"] != grown for r in sessions + holder):
         fails.append("the sessions did not reach the grown replica")
+    if any(out[r].get("replica") == grown for r in burst):
+        fails.append("a burst request reached the grown replica")
     dests = {int(k) for k in (drain.get("destinations") or {})}
     for r in holder + revisits:
         home_r = out[r]["replica"]
@@ -7138,47 +7188,59 @@ def http_session(srv, requests, got):
         got["lockstep"] = leader.stats()
 
 
-def router_session(router, servers, got):
-    """mesh_router's traffic (run.py's ``_serve_router`` test hook): a
-    session's cold serve through the router and its revisit (a routed
-    prefix hit); the session's chain moved by the router's handoff path to
-    the other replica and served there (a hit, the cold serve's tokens);
-    a FleetController scale-up, a prompt on the grown replica, its
-    scale-down (a drain by migration) and the prompt's revisit through
-    the router.  Host states are taken through the log, /healthz and each
-    replica's dispatch records kept."""
+def open_session(router, got):
+    """mesh_router's and mesh_sliced's opening: a session's cold serve
+    (serve_texts()[5]) through the router, a health check (the router's
+    prefix index syncs), each replica's KV state then, and the session's
+    revisit (a routed prefix hit) with the router's decision for it."""
+    texts = serve_texts()
+    session = {"text": texts[5], "max_new_tokens": MESH_HTTP_NEW}
+    got["cold"] = http_request(router.address, "/generate", session)
+    router.check_health_now()
+    got["health_cold"] = [dict(index=r["index"], healthy=r["healthy"],
+                               kv=r["kv"]) for r in
+                          router.health()["replicas"]]
+    got["routed_hit"] = http_request(
+        router.address, "/generate",
+        dict(session, text=texts[5] + " and then some"),
+        headers={"X-Request-Id": "revisit"})
+    got["revisit_route"] = route_decision(router, "revisit")
+    return session
+
+
+def move_chain(router, text, src, dst, block):
+    """The router's handoff path moves ``text``'s chain (its keys at
+    ``block`` tokens a block) from replica ``src`` to ``dst``; returns
+    whether the handoffs went idle in ROUTER_WAIT_S and the keys sent."""
     from jax_llama_tpu_torch.kvcache import chain_keys
     from jax_llama_tpu_torch.tokenizers import ByteTokenizer
 
-    texts = serve_texts()
-    tok_ids = ByteTokenizer().encode(texts[5], bos=True)
-    session = {"text": texts[5], "max_new_tokens": MESH_HTTP_NEW}
-    revisit = {"text": texts[5] + " and then some", "max_new_tokens":
-               MESH_HTTP_NEW}
-    grown_prompt = {"text": texts[9], "max_new_tokens": MESH_HTTP_NEW}
-    ctl = router.controller
-    got["cold"] = http_request(router.address, "/generate", session)
-    router.check_health_now()
-    got["routed_hit"] = http_request(router.address, "/generate", revisit)
-    src = int(got["cold"][1]["X-Replica-Id"])
-    dst = 1 - src
-    keys = chain_keys(tok_ids, servers[0].batcher.block_size)
+    keys = chain_keys(ByteTokenizer().encode(text, bos=True), block)
     router.migrate_chain([k.hex() for k in keys], src, dst)
-    got["handoffs_idle"] = router.wait_handoffs(ROUTER_WAIT_S)
-    got["handoff_hit"] = http_request(servers[dst].address, "/generate",
-                                      session)
-    got["up"] = ctl.scale_up()
+    return router.wait_handoffs(ROUTER_WAIT_S), len(keys)
+
+
+def grow_fleet(router, servers, got):
+    """A FleetController scale-up, a prompt (serve_texts()[9]) served on
+    the grown replica and every replica's host state through its log.
+    Returns the replicas, the grown one last."""
+    got["up"] = router.controller.scale_up()
     grown = router._replicas[got["up"]["replica"]].server
-    got["grown_serve"] = http_request(grown.address, "/generate",
-                                      grown_prompt)
+    got["grown_serve"] = http_request(grown.address, "/generate", {
+        "text": serve_texts()[9], "max_new_tokens": MESH_HTTP_NEW})
+    every = list(servers) + [grown]
     got["states_grown"] = [s.call_on_loop(lambda b: b.host_state())
-                           for s in servers + [grown]]
-    got["down"] = ctl.scale_down(victim=got["up"]["replica"])
-    got["grown_revisit"] = http_request(router.address, "/generate",
-                                        grown_prompt)
+                           for s in every]
+    return every
+
+
+def close_session(router, servers, every, got):
+    """What a session leaves: host states and stats of ``servers``
+    through their logs, dispatch records of ``every`` replica, the
+    router's health and completed handoffs, slice 0's log counts."""
     got["states"] = [s.call_on_loop(lambda b: b.host_state())
                      for s in servers]
-    got["records"] = [records(s.batcher) for s in servers + [grown]]
+    got["records"] = [replica_records(s) for s in every]
     got["health"] = router.health()
     got["replica_stats"] = [s.call_on_loop(lambda b: b.stats())
                             for s in servers]
@@ -7188,38 +7250,130 @@ def router_session(router, servers, got):
         got["lockstep"] = leader.stats()
 
 
-def mesh_cell_http(torch, state, argv, requests=None):
-    """mesh_http's and mesh_router's cells on one rank: ``run.main()``
-    with ``argv`` (an HTTP server over a serving mesh of the two ranks),
-    as torchrun would start it, counted from zero.  On rank 0 run.py's
-    test hook drives the traffic (``http_session`` with ``requests``;
-    ``router_session`` under ``--replicas``); the other rank follows the
-    log until rank 0 stops it.  Returns the rank's launches, what its
-    hook or its follower loop saw, and its wall seconds."""
+def router_session(router, servers, got):
+    """mesh_router's traffic (run.py's ``_serve_router`` test hook): a
+    session's cold serve through the router and its revisit (a routed
+    prefix hit); the session's chain moved by the router's handoff path to
+    the other replica and served there (a hit, the cold serve's tokens);
+    a FleetController scale-up, a prompt on the grown replica, its
+    scale-down (a drain by migration) and the prompt's revisit through
+    the router.  Host states are taken through the log, /healthz and each
+    replica's dispatch records kept."""
+    session = open_session(router, got)
+    dst = 1 - int(got["cold"][1]["X-Replica-Id"])
+    got["handoffs_idle"], _ = move_chain(
+        router, session["text"], 1 - dst, dst,
+        servers[0].batcher.block_size)
+    got["handoff_hit"] = http_request(servers[dst].address, "/generate",
+                                      session)
+    every = grow_fleet(router, servers, got)
+    got["down"] = router.controller.scale_down(victim=got["up"]["replica"])
+    got["grown_revisit"] = http_request(router.address, "/generate", {
+        "text": serve_texts()[9], "max_new_tokens": MESH_HTTP_NEW})
+    close_session(router, servers, every, got)
+
+
+def replica_records(srv):
+    """A replica's dispatch records: its batcher's, or over HTTP from a
+    replica on another slice (``/debug/dispatches``)."""
+    if hasattr(srv, "batcher"):
+        return records(srv.batcher)
+    return http_json(srv.address, "/debug/dispatches?n=65536")[1][
+        "dispatches"]
+
+
+def sliced_session(router, servers, got):
+    """mesh_sliced's traffic (run.py's ``_serve_router`` test hook), over
+    replicas 0 and 1 on slices of their own (or, for the unsharded
+    reference, in one process): a session's cold serve through the
+    router and its revisit (a routed prefix hit); a prompt served on
+    replica 0, its chain moved by the router's handoff path to replica 1
+    and served there, and another the other way, each handoff's bytes and
+    wall ms kept; a FleetController scale-up (replica 2, on slice 0), a
+    prompt served on it, a drain of replica 1 by migration and the
+    revisit of the chain it held.  Host states through the logs, each
+    replica's dispatch records, place and stats, /healthz, the log's and
+    the channel's counts."""
+    from jax_llama_tpu_torch.parallel.slices import RemoteReplica
+
+    texts = serve_texts()
+    open_session(router, got)
+    block = servers[0].batcher.block_size
+    got["handoffs"] = []
+    for src, dst, i in SLICED_HANDOFFS:
+        payload = {"text": texts[i], "max_new_tokens": MESH_HTTP_NEW}
+        cold = http_request(servers[src].address, "/generate", payload)
+        before = router.handoff_bytes_total
+        t = time.perf_counter()
+        idle, keys = move_chain(router, texts[i], src, dst, block)
+        ms = (time.perf_counter() - t) * 1e3
+        hit = http_request(servers[dst].address, "/generate", payload)
+        got["handoffs"].append(dict(
+            src=src, dst=dst, text=i, cold=cold, hit=hit, idle=idle,
+            ms=ms, bytes=router.handoff_bytes_total - before,
+            keys=keys, decisions=[
+                d for d in http_json(router.address, "/debug/decisions?n=64")[
+                    1]["decisions"] if d["kind"].startswith("handoff")][-3:]))
+    every = grow_fleet(router, servers, got)
+    router.check_health_now()
+    got["health_grown"] = router.health()
+    t = time.perf_counter()
+    got["down"] = router.controller.scale_down(victim=1)
+    got["down_ms"] = (time.perf_counter() - t) * 1e3
+    got["drain_revisit"] = http_request(router.address, "/generate", {
+        "text": texts[SLICED_HANDOFFS[0][2]],
+        "max_new_tokens": MESH_HTTP_NEW})
+    close_session(router, every, every, got)
+    got["where"] = [
+        dict(remote=True, slice=s.slice) if isinstance(s, RemoteReplica)
+        else dict(remote=False, slice=getattr(s.batcher.mesh, "slice", 0)
+                  if s.batcher.mesh is not None else None)
+        for s in every]
+    if isinstance(servers[1], RemoteReplica):
+        ch = servers[1].channel
+        got["channel"] = dict(messages=ch.messages, ms_total=ch.ms_total)
+
+
+def mesh_cell_http(torch, state, argv, requests=None, sliced=False):
+    """mesh_http's, mesh_router's and mesh_sliced's cells on one rank:
+    ``run.main()`` with ``argv`` (an HTTP server over a serving mesh of
+    the job's ranks, or ``sliced``, over its slices), as torchrun would
+    start it, counted from zero.  On rank 0 run.py's test hook drives the
+    traffic (``http_session`` with ``requests``; ``router_session`` under
+    ``--replicas``; ``sliced_session``); another slice's head serves its
+    replica, and the other ranks follow their log until their head stops
+    it.  Returns the rank's launches, what its hook, its head loop or its
+    follower loop saw, and its wall seconds."""
     import contextlib
     import gc
     import io
 
     from jax_llama_tpu_torch import run as prun
-    from jax_llama_tpu_torch.parallel import distributed, lockstep
+    from jax_llama_tpu_torch.parallel import distributed, lockstep, slices
 
     fa, pa = state["fa"], state["pa"]
     got, followed = {}, {}
-    orig = (prun._serve_http, prun._serve_router, lockstep.follow)
+    orig = (prun._serve_http, prun._serve_router, lockstep.follow,
+            slices.serve_slice)
 
     def follow(*a, **kw):
         followed.update(orig[2](*a, **kw))
         return followed
 
-    lockstep.follow = follow
+    def serve_slice(*a, **kw):
+        followed.update(orig[3](*a, **kw))
+        return followed
+
+    session = sliced_session if sliced else router_session
+    lockstep.follow, slices.serve_slice = follow, serve_slice
     prun._serve_http = lambda *a, **kw: orig[0](*a, **dict(
         kw, _test_hook=lambda srv: http_session(srv, requests, got)))
     prun._serve_router = lambda *a, **kw: orig[1](*a, **dict(
-        kw, _test_hook=lambda router, servers: router_session(
+        kw, _test_hook=lambda router, servers: session(
             router, servers, got)))
     saved = sys.argv, os.environ.get("WORLD_SIZE")
     sys.argv = ["run", *argv]
-    os.environ["WORLD_SIZE"] = str(MESH_RANKS)
+    os.environ["WORLD_SIZE"] = str(state["world"])
     zero_counts(fa, pa)
     out = io.StringIO()
     t = time.perf_counter()
@@ -7228,7 +7382,8 @@ def mesh_cell_http(torch, state, argv, requests=None):
             prun.main()
         torch.cuda.synchronize()
     finally:
-        prun._serve_http, prun._serve_router, lockstep.follow = orig
+        prun._serve_http, prun._serve_router = orig[:2]
+        lockstep.follow, slices.serve_slice = orig[2:]
         sys.argv = saved[0]
         if saved[1] is None:
             os.environ.pop("WORLD_SIZE", None)
@@ -7249,10 +7404,10 @@ MESH_CELLS = {"generate": mesh_cell_generate, "serve_tp": mesh_cell_serve_tp,
               "http": mesh_cell_http}
 
 
-def mesh_rank(rank, port, cmd, res):
-    """One rank of the mesh phases (spawned): it brings up the gloo group
-    on cuda:0 and runs the ``MESH_CELLS`` the parent sends, each on its
-    own shard, until the parent sends None."""
+def mesh_rank(rank, port, cmd, res, world=MESH_RANKS):
+    """One rank of the mesh phases (spawned, one of ``world``): it brings
+    up the gloo group on cuda:0 and runs the ``MESH_CELLS`` the parent
+    sends, each on its own shard, until the parent sends None."""
     import faulthandler
     import traceback
 
@@ -7262,9 +7417,10 @@ def mesh_rank(rank, port, cmd, res):
     from jax_llama_tpu_torch.parallel import distributed
 
     torch.cuda.set_device(0)
-    distributed.initialize(f"localhost:{port}", MESH_RANKS, rank,
+    distributed.initialize(f"localhost:{port}", world, rank,
                            backend="gloo")
     state = dict(
+        world=world,
         fa=importlib.import_module("jax_llama_tpu_torch.ops.flash_attention"),
         pa=importlib.import_module("jax_llama_tpu_torch.ops.paged_attention"))
     try:
@@ -7295,18 +7451,21 @@ def free_port() -> int:
 
 
 class MeshRanks:
-    """MESH_RANKS spawned ranks (``mesh_rank``), asked cell by cell."""
+    """``world`` (MESH_RANKS by default) spawned ranks (``mesh_rank``),
+    asked cell by cell."""
 
-    def __init__(self):
+    def __init__(self, world=MESH_RANKS):
         import multiprocessing as mp
 
         ctx = mp.get_context("spawn")
         port = free_port()
-        self.cmd = [ctx.Queue() for _ in range(MESH_RANKS)]
+        self.world = world
+        self.cmd = [ctx.Queue() for _ in range(world)]
         self.res = ctx.Queue()
         self.procs = [ctx.Process(target=mesh_rank, daemon=True,
-                                  args=(r, port, self.cmd[r], self.res))
-                      for r in range(MESH_RANKS)]
+                                  args=(r, port, self.cmd[r], self.res,
+                                        world))
+                      for r in range(world)]
         for p in self.procs:
             p.start()
 
@@ -7315,10 +7474,10 @@ class MeshRanks:
 
         for q in self.cmd:
             q.put((name, kw))
-        out, errors = [None] * MESH_RANKS, []
+        out, errors = [None] * self.world, []
         deadline = time.monotonic() + MESH_WAIT_S
         got = 0
-        while got < MESH_RANKS:
+        while got < self.world:
             try:
                 rank, ok, value = self.res.get(timeout=5)
             except queue.Empty:
@@ -7577,6 +7736,10 @@ def drive_mesh(torch, ptl, fa, pa, params, cfg, tok, smi, gen_tokens,
 # drill delays, and the second one's first decode dispatch fails and
 # replays (MESH_HTTP_FAULTS counts decode dispatches from the first).
 MESH_HTTP_NEW = 16
+# mesh_sliced: four ranks, two slices of --serve-mesh 1,2; the handoffs
+# it drives as (source replica, destination replica, serve_texts index).
+SLICED_RANKS = 4
+SLICED_HANDOFFS = ((0, 1, 2), (1, 0, 8))
 MESH_HTTP_TIMEOUT_S = 1.0
 MESH_HTTP_FAULTS = "step@0:delay=2,step@1:error"
 MESH_SPEC = ["--serve-mesh", f"1,{MESH_RANKS}"]
@@ -7619,15 +7782,18 @@ def http_cli_session(torch, argv, requests):
     return dict(got, out=out, wall_s=wall)
 
 
-def router_cli_session(torch, argv):
-    """The unsharded reference of mesh_router: ``run.main()`` with
-    ``argv`` in this process, ``router_session`` as its test hook."""
+def router_cli_session(torch, argv, session=None):
+    """The unsharded reference of mesh_router (or of mesh_sliced):
+    ``run.main()`` with ``argv`` in this process (every replica
+    time-shares the card), ``session`` (``router_session`` unless given)
+    as its test hook."""
     from jax_llama_tpu_torch import run as prun
 
+    session = session or router_session
     got = {}
     orig = prun._serve_router
     prun._serve_router = lambda *a, **kw: orig(*a, **dict(
-        kw, _test_hook=lambda router, servers: router_session(
+        kw, _test_hook=lambda router, servers: session(
             router, servers, got)))
     try:
         out, _, wall = run_cli(torch, argv)
@@ -7838,6 +8004,17 @@ def drive_mesh_http(torch, ptl, fa, pa, smi, ranks, saved, shallow, cfg):
     return row, failures
 
 
+def router_argv(saved):
+    """mesh_router's and mesh_sliced's run.py flags (without the mesh):
+    two replicas of the checkpoint at ``saved``, cache-aware routing, the
+    fleet controller armed with its own loop idle."""
+    return ["--ckpt-dir", str(saved), "--byte-tokenizer", "--http", "0",
+            "--slots", str(CKPT_SLOTS), "--temperature", "0", "--attn",
+            "auto", "--replicas", "2", "--route", "cache-aware",
+            "--canary-interval-s", "0", "--autoscale", "--autoscale-min",
+            "2", "--autoscale-max", "3", "--autoscale-interval-s", "3600"]
+
+
 def drive_mesh_router(torch, ptl, fa, pa, smi, ranks, saved, shallow, cfg):
     """Phase ``mesh_router`` (ROADMAP A14 part 3): ``run.main()`` with
     ``--http 0 --replicas 2 --route cache-aware --autoscale --serve-mesh
@@ -7870,11 +8047,7 @@ def drive_mesh_router(torch, ptl, fa, pa, smi, ranks, saved, shallow, cfg):
             failures.append(what)
 
     L = cfg.n_layers
-    argv = ["--ckpt-dir", str(saved), "--byte-tokenizer", "--http", "0",
-            "--slots", str(CKPT_SLOTS), "--temperature", "0", "--attn",
-            "auto", "--replicas", "2", "--route", "cache-aware",
-            "--canary-interval-s", "0", "--autoscale", "--autoscale-min",
-            "2", "--autoscale-max", "3", "--autoscale-interval-s", "3600"]
+    argv = router_argv(saved)
     zero_counts(fa, pa)
     ref = router_cli_session(torch, argv)
     ref_launches = launch_counts(fa, pa)
@@ -7971,6 +8144,178 @@ def drive_mesh_router(torch, ptl, fa, pa, smi, ranks, saved, shallow, cfg):
         mesh_s=mesh_s, rank_wall_s=[r["wall_s"] for r in rows],
         unsharded_s=ref["wall_s"],
         launches=lead["launches"], seconds=time.perf_counter() - t0,
+        failures=failures)
+    emit(row)
+    return row, failures
+
+
+def drive_mesh_sliced(torch, ptl, fa, pa, smi, ranks, saved, shallow, cfg):
+    """Phase ``mesh_sliced`` (ROADMAP A14 part 4): ``run.main()`` with
+    mesh_router's argv (``--http 0 --replicas 2 --route cache-aware
+    --autoscale --serve-mesh 1,2``) on ``ranks``, SLICED_RANKS ranks on
+    cuda:0 over gloo of their own: two slices of two ranks
+    (``parallel.slices``), replica 0 on ranks 0-1 (rank 0 also runs the
+    router and the controller), replica 1 on ranks 2-3 (its server on
+    rank 2, reached over a control channel), over the checkpoint phase's
+    DECODE_DEPTH-layer checkpoint.  Traffic (``sliced_session``): a
+    routed prefix hit; a handoff each way between the slices, its bytes
+    and ms; a scale-up onto slice 0 (the job has two slices); a drain of
+    replica 1 by migration onto slice 0 and the moved chain's revisit.
+    Checks: every status 200; the revisit routed to its holder; both
+    handoffs completed and their serves prefix hits whose tokens are the
+    cold serve's or part at a near-tie below DECODE_REL; the grown
+    replica on slice 0; the drain migrating onto slice 0; each slice's
+    ranks equal host states and each rank's flash and paged launches
+    what its slice's dispatch records imply; the launches of the two
+    slices summed, and every request's tokens, the unsharded router's
+    (``run.main()`` without the mesh in this process, on the same
+    traffic, counted from zero just before it), a differing token a
+    near-tie below DECODE_REL."""
+    t0 = time.perf_counter()
+    failures = []
+
+    def check(ok, what):
+        if not ok:
+            failures.append(what)
+
+    L = cfg.n_layers
+    argv = router_argv(saved)
+    zero_counts(fa, pa)
+    ref = router_cli_session(torch, argv, session=sliced_session)
+    ref_launches = launch_counts(fa, pa)
+    t = time.perf_counter()
+    rows = ranks.ask("http", argv=argv + MESH_SPEC, sliced=True)
+    mesh_s = time.perf_counter() - t
+    lead, follow0, head1, follow1 = rows
+    names = ["cold", "routed_hit", "grown_serve", "drain_revisit"]
+    toks = {k: http_tokens(lead[k]) for k in names}
+    ref_toks = {k: http_tokens(ref[k]) for k in names}
+    for j, h in enumerate(lead["handoffs"]):
+        for k in ("cold", "hit"):
+            toks[f"handoff{j}_{k}"] = http_tokens(h[k])
+            ref_toks[f"handoff{j}_{k}"] = http_tokens(ref["handoffs"][j][k])
+    check(all(st == 200 for st, _ in toks.values()),
+          f"mesh_sliced statuses { {k: v[0] for k, v in toks.items()} }")
+    holder = lead["cold"][1].get("X-Replica-Id")
+    check(lead["routed_hit"][1].get("X-Replica-Id") == holder
+          and lead["health"]["cache_index"]["hit_depth_blocks_total"] >= 1,
+          f"mesh_sliced: the revisit was not a routed hit "
+          f"({lead['routed_hit'][1].get('X-Replica-Id')} vs {holder}; "
+          f"route {lead['revisit_route']}, replicas after the cold serve "
+          f"{lead['health_cold']})")
+    stats = lead["replica_stats"]
+    check(lead["handoffs_completed"] == 2
+          and all(h["idle"] and h["bytes"] > 0 for h in lead["handoffs"])
+          and stats[0]["kv_import_blocks_total"] > 0
+          and stats[1]["kv_import_blocks_total"] > 0
+          and stats[0]["kv_export_blocks_total"] > 0
+          and stats[1]["kv_export_blocks_total"] > 0,
+          "mesh_sliced handoffs " + repr([
+              {k: h[k] for k in ("src", "dst", "idle", "bytes")}
+              for h in lead["handoffs"]])
+          + f", completed {lead['handoffs_completed']}")
+    where = lead["where"]
+    check(where == [dict(remote=False, slice=0), dict(remote=True, slice=1),
+                    dict(remote=False, slice=0)],
+          f"mesh_sliced replicas' places {where}")
+    up, down = lead["up"], lead["down"]
+    check(up.get("ok") and up.get("replica") == 2 and down.get("ok")
+          and down["drain"]["migrated"] >= 1
+          and set(down["drain"]["destinations"]) <= {"0", "2"},
+          f"mesh_sliced scale: up {up}, down {down}")
+    texts = serve_texts()
+    tok = ptl.ByteTokenizer()
+    prompt_of = dict(cold=texts[5], routed_hit=texts[5] + " and then some",
+                     grown_serve=texts[9],
+                     drain_revisit=texts[SLICED_HANDOFFS[0][2]])
+    for j, (_, _, i) in enumerate(SLICED_HANDOFFS):
+        prompt_of[f"handoff{j}_cold"] = prompt_of[f"handoff{j}_hit"] = texts[i]
+    divergences = {}
+    pairs = [(f"handoff{j}", f"handoff{j}_hit", f"handoff{j}_cold")
+             for j in range(len(SLICED_HANDOFFS))]
+    pairs.append(("drain", "drain_revisit", "handoff0_cold"))
+    for name, hit, cold in pairs:
+        try:
+            divergences[name] = token_divergences(
+                torch, ptl, shallow, cfg,
+                [tok.encode(prompt_of[hit], bos=True)], [toks[hit][1]],
+                [toks[cold][1]], DECODE_REL)
+        except AssertionError as e:
+            failures.append(f"mesh_sliced {name}: {e}")
+    divergences_unsharded = {}
+    for k in toks:
+        if toks[k] == ref_toks[k]:
+            continue
+        try:
+            divergences_unsharded[k] = token_divergences(
+                torch, ptl, shallow, cfg,
+                [tok.encode(prompt_of[k], bos=True)], [toks[k][1]],
+                [ref_toks[k][1]], DECODE_REL)
+        except AssertionError as e:
+            failures.append(f"mesh_sliced {k} against the unsharded "
+                            f"router: {e}")
+    meshes = [r["replica"]["serve_mesh"]
+              for r in lead["health_grown"]["replicas"]]
+    check(meshes == [{"data": 1, "tensor": MESH_RANKS,
+                      "devices": MESH_RANKS}] * 3,
+          f"mesh_sliced /healthz meshes {meshes}")
+    # Host states: slice 0's follower computed replicas 0 and 2's, slice
+    # 1's replica 1's, at the same records as their heads.
+    grown, after = lead["states_grown"], lead["states"]
+    check(follow0["followed"].get("states") == [grown[0], grown[2],
+                                                after[0], after[2]]
+          and follow1["followed"].get("states") == [grown[1], after[1]],
+          "mesh_sliced: a slice's ranks' host states differ")
+    recs = lead["records"]
+    expect = [record_launches(recs[0] + recs[2], L),
+              record_launches(recs[1], L)]
+    per_slice = [[lead, follow0], [head1, follow1]]
+    for s, members in enumerate(per_slice):
+        for r in members:
+            check(r["launches"] == expect[s],
+                  f"mesh_sliced rank {r['rank']} (slice {s}) launches "
+                  f"{r['launches']}, its slice's records imply {expect[s]}")
+    summed = {k: lead["launches"][k] + head1["launches"][k]
+              for k in lead["launches"]}
+    ref_expect = record_launches([r for rs in ref["records"] for r in rs], L)
+    check(summed == ref_launches == ref_expect
+          and expect[0]["flash_fwd"] > 0 and expect[1]["flash_fwd"] > 0
+          and expect[0]["paged_decode"] > 0
+          and expect[1]["paged_decode"] > 0,
+          f"mesh_sliced launches summed over the slices {summed}, "
+          f"unsharded {ref_launches}, its records imply {ref_expect}")
+    row = dict(
+        phase="mesh_sliced", card=smi, ranks=SLICED_RANKS, slices=2,
+        ranks_per_slice=MESH_RANKS, backend="gloo", config="llama3-8b",
+        n_layers=L, argv_mesh=MESH_SPEC, replicas=2, holder=holder,
+        statuses={k: v[0] for k, v in toks.items()},
+        revisit_route=lead["revisit_route"], health_cold=lead["health_cold"],
+        handoffs=[dict(src=h["src"], dst=h["dst"], keys=h["keys"],
+                       bytes=h["bytes"], ms=h["ms"],
+                       decisions=h["decisions"],
+                       tokens_equal_cold=http_tokens(h["hit"])
+                       == http_tokens(h["cold"]))
+                  for h in lead["handoffs"]],
+        handoffs_completed=lead["handoffs_completed"],
+        divergences=divergences, places=where, scale_up=up,
+        drain={k: down["drain"].get(k) for k in (
+            "ok", "sessions", "migrated", "blocks", "destinations",
+            "dur_ms")}, drain_ms=lead["down_ms"],
+        serve_meshes=meshes,
+        launches_per_rank=[r["launches"] for r in rows],
+        expected_launches_per_slice=expect,
+        launches_summed=summed, unsharded_launches=ref_launches,
+        tokens_equal_unsharded={k: toks[k] == ref_toks[k] for k in toks},
+        divergences_unsharded=divergences_unsharded,
+        instances_per_rank=[{k: r["instances"][k] for k in (
+            "flash_fwd_by_instance", "paged_by_instance")} for r in rows],
+        lockstep_slice0=lockstep_figures(lead["lockstep"]),
+        lockstep_slice1=lockstep_figures(head1["followed"]["lockstep"]),
+        channel=lead.get("channel"), follower_records=[
+            follow0["followed"].get("records"),
+            follow1["followed"].get("records")],
+        mesh_s=mesh_s, rank_wall_s=[r["wall_s"] for r in rows],
+        unsharded_s=ref["wall_s"], seconds=time.perf_counter() - t0,
         failures=failures)
     emit(row)
     return row, failures
@@ -8983,8 +9328,8 @@ def main() -> int:
                              f"expected {want_by}")
 
     # Phase 4b: checkpoint load and run.py over the 8-layer tree.
-    ckpt_row, mesh_http_row, mesh_router_row = drive_checkpoint(
-        torch, ptl, fa, pa, shallow, cfg, smi, ranks)
+    ckpt_row, mesh_http_row, mesh_router_row, mesh_sliced_row = (
+        drive_checkpoint(torch, ptl, fa, pa, shallow, cfg, smi, ranks))
     del shallow
 
     # Phase 5: the serving path, counted from zero.
@@ -9125,6 +9470,7 @@ def main() -> int:
              "mesh_http_float32": mesh_http_row["cells"]["float32"][
                  "launches_per_rank"][0],
              "mesh_router": mesh_router_row["launches"],
+             "mesh_sliced": mesh_sliced_row["launches_summed"],
              "mesh_train_tensor2": mt_cells["tensor2"][
                  "launches_per_rank"][0],
              "mesh_train_fsdp2": mt_cells["fsdp2"]["launches_per_rank"][0],
@@ -9142,6 +9488,7 @@ def main() -> int:
         "mesh_http_float32": mesh_http_row["cells"]["float32"][
             "launches_per_rank"],
         "mesh_router": mesh_router_row["launches_per_rank"],
+        "mesh_sliced": mesh_sliced_row["launches_per_rank"],
         "mesh_train_tensor2": mt_cells["tensor2"]["launches_per_rank"],
         "mesh_train_fsdp2": mt_cells["fsdp2"]["launches_per_rank"],
         "pipeline_train": a14["pipeline_train"]["launches_per_rank"]}

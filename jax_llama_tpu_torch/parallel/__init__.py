@@ -1,10 +1,11 @@
 """Parallelism over ``torch.distributed`` (port of
 ``jax_llama_tpu/parallel``): one process per rank, local weight shards,
 explicit collectives.  See ``mesh`` for the design, ``ring`` for
-sequence parallelism, ``pipeline`` for pipeline stages and ``lockstep``
-for the HTTP server and the router over a serving mesh."""
+sequence parallelism, ``pipeline`` for pipeline stages, ``lockstep``
+for the HTTP server and the router over a serving mesh and ``slices``
+for sliced replicas, each on ranks of its own."""
 
-from . import distributed, lockstep, serve_mesh
+from . import distributed, lockstep, serve_mesh, slices
 from .mesh import (
     AXES,
     Mesh,
@@ -32,6 +33,7 @@ __all__ = [
     "ring_sdpa",
     "serve_mesh",
     "shard_abstract",
+    "slices",
     "AXES",
     "Mesh",
     "auto_mesh",

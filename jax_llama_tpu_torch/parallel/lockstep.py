@@ -12,10 +12,11 @@ The server decides those calls from clocks and sockets (admission,
 deadlines, the degrade ladders, recovery), which no two processes read
 alike, so the ranks do not each decide them.  Instead:
 
-* **One leader.**  Global rank 0 runs the HTTP front end, the server's
-  loop, its overload and degrade state machines and watchdog, the router
-  and the fleet controller: every decision that reads a clock or a
-  socket.  Each of its batchers is a :class:`LockstepBatcher`, which
+* **One leader.**  The mesh's first rank (global rank 0) runs the HTTP
+  front end, the server's loop, its overload and degrade state machines
+  and watchdog, the router and the fleet controller: every decision that
+  reads a clock or a socket.  Each of its batchers is a
+  :class:`LockstepBatcher`, which
   publishes every call that changes host state or issues a collective as
   a record, through the mesh's CPU group, **before** it runs the call.
 * **Followers.**  Every other rank builds the same batchers over its own
@@ -39,6 +40,13 @@ alike, so the ranks do not each decide them.  Instead:
   (:class:`Exported`); an ``import_prefix`` record names that record, and
   a follower lands its OWN slabs of it.  A follower drops an export's
   slabs once the leader has dropped its result.
+* **One log per slice.**  Sliced replicas (``parallel.slices``) run a
+  serving mesh per replica, each with a log of its own led by the
+  slice's first rank (``mesh.rank`` counts within the slice; its CPU
+  group is the slice's).  On a job of more than one slice each export
+  record puts the followers' head slices together on the leader
+  (``Exported.full``), and an import of slabs from another slice carries
+  them inline in its record: every rank lands its own head slice of them.
 
 What is logged: ``submit``, ``cancel``, ``step`` (a follower drains
 ``pop_failed`` after it, as the server does on the leader), attribute
@@ -138,15 +146,23 @@ def _digest(method: str, result: Any) -> Any:
 
 class Exported(list):
     """An ``export_prefix`` result's slabs on the leader: a list that
-    remembers the record that made it and which of that record's slabs it
-    holds (``picks``), so that an import or a demotion of any slice of it
-    names, to a follower, that follower's own slabs."""
+    remembers its log (``owner``), the record that made it and which of
+    that record's slabs it holds (``picks``), so that an import or a
+    demotion of any slice of it names, to a follower, that follower's
+    own slabs.  ``full``, where the job has more than one slice, holds
+    the same blocks with every KV head: what another slice imports.  Slabs
+    that came from another slice's head are an ``Exported`` too: its
+    ``owner`` is the channel, ``record`` the head's export id, ``full``
+    the slabs themselves."""
 
     def __init__(self, items, record: int, picks: Sequence[int],
-                 root: Optional["Exported"] = None):
+                 root: Optional["Exported"] = None, owner=None,
+                 full: Optional[list] = None):
         super().__init__(items)
         self.record = record
         self.picks = list(picks)
+        self.owner = owner
+        self.full = full
         # A slice keeps its root alive: the follower holds the record's
         # slabs until the root is collected.
         self._root = root
@@ -155,22 +171,43 @@ class Exported(list):
         if isinstance(i, slice):
             return Exported(list.__getitem__(self, i), self.record,
                             self.picks[i],
-                            self if self._root is None else self._root)
+                            self if self._root is None else self._root,
+                            self.owner,
+                            None if self.full is None else self.full[i])
         return list.__getitem__(self, i)
 
     def ref(self):
         return ("exported", self.record, self.picks)
 
 
-def _encode_slabs(slabs):
+def full_slabs(slabs) -> list:
+    """The slabs of every KV head behind an export result: an
+    ``Exported``'s gathered ``full``, or a plain list (a batcher off any
+    mesh, or slabs that crossed from another slice)."""
+    if isinstance(slabs, Exported):
+        if slabs.full is None:
+            raise ValueError(
+                "this export holds one rank's KV heads only: a log "
+                "gathers exports only on a job of more than one slice")
+        return list(slabs.full)
+    return list(slabs)
+
+
+def _encode_slabs(slabs, leader, inline: bool = False):
+    """The wire form of an import's or a demotion's slabs: a reference to
+    an export record of this log (each follower lands its own slabs of
+    it), or with ``inline``, slabs of every head from elsewhere, carried
+    in the record (each rank lands its own head slice of them)."""
     if slabs is None:
         return None
-    if not isinstance(slabs, Exported):
+    if isinstance(slabs, Exported) and slabs.owner is leader:
+        return slabs.ref()
+    if not inline:
         raise ValueError(
-            "on a serving mesh the slabs of an import or a demotion must be "
-            "an export_prefix result of the same job: a follower lands its "
-            "own head slice of that export")
-    return slabs.ref()
+            "on a serving mesh the slabs of a demotion must be an "
+            "export_prefix result of the same log: a follower demotes "
+            "its own head slice of that export")
+    return ("inline", full_slabs(slabs))
 
 
 class Leader:
@@ -374,31 +411,51 @@ class LockstepBatcher:
                          f"set {name}")
 
     def _call(self, method, *args, **kwargs):
-        wire_args, wire_kw = list(args), dict(kwargs)
-        if method == "import_prefix":
-            if len(wire_args) > 1:
-                wire_args[1] = _encode_slabs(wire_args[1])
-            else:
-                wire_kw["slabs"] = _encode_slabs(wire_kw["slabs"])
-        elif method == "demote_exported":
-            if len(wire_args) > 1:
-                wire_args[1] = _encode_slabs(wire_args[1])
-            elif "slabs" in wire_kw:
-                wire_kw["slabs"] = _encode_slabs(wire_kw["slabs"])
         leader = self._leader
+        wire_args, wire_kw = list(args), dict(kwargs)
+        if method in ("import_prefix", "demote_exported"):
+            at_arg = len(wire_args) > 1
+            slabs = wire_args[1] if at_arg else wire_kw.get("slabs")
+            wire = _encode_slabs(slabs, leader,
+                                 inline=method == "import_prefix")
+            if at_arg:
+                wire_args[1] = wire
+            elif "slabs" in wire_kw:
+                wire_kw["slabs"] = wire
+            if wire is not None and wire[0] == "inline":
+                # The leader lands its own head slice too.
+                from .serve_mesh import slab_head_slice
+
+                mine = slab_head_slice(leader.mesh, wire[1])
+                if at_arg:
+                    args = args[:1] + (mine,) + args[2:]
+                else:
+                    kwargs = dict(kwargs, slabs=mine)
         rec = self._rec(op="call", method=method, args=wire_args,
                         kwargs=wire_kw)
-        at = []
+        # Sliced replicas: every export also puts its KV heads together
+        # here (serve_mesh.gather_slab_heads), for an import on another
+        # slice.
+        full = method == "export_prefix" and leader.mesh.slices > 1
+        if full:
+            rec["full"] = True
+        at, gathered = [], []
 
         def call():
             at.append(leader.index - 1)  # this record's, under the lock
-            return getattr(self._b, method)(*args, **kwargs)
+            out = getattr(self._b, method)(*args, **kwargs)
+            if full:
+                from .serve_mesh import gather_slab_heads
+
+                gathered.append(gather_slab_heads(leader.mesh, out[1]))
+            return out
 
         result = leader.run(rec, call, method)
         if method == "export_prefix":
             n = at[0]
             keys, slabs = result
-            slabs = Exported(slabs, n, range(len(slabs)))
+            slabs = Exported(slabs, n, range(len(slabs)), owner=leader,
+                             full=gathered[0] if full else None)
             weakref.finalize(slabs, leader._forget.append, n)
             return keys, slabs
         if method == "rebuild":
@@ -463,6 +520,10 @@ class _Follower:
     def _slabs(self, ref):
         if ref is None:
             return None
+        if ref[0] == "inline":
+            from .serve_mesh import slab_head_slice
+
+            return slab_head_slice(self.mesh, ref[1])
         _, record, picks = ref
         slabs = self.exports[record]
         return [slabs[j] for j in picks]
@@ -503,6 +564,10 @@ class _Follower:
             b.pop_failed()
         elif method == "export_prefix":
             self.exports[rec["n"]] = result[1]
+            if rec.get("full"):
+                from .serve_mesh import gather_slab_heads
+
+                gather_slab_heads(self.mesh, result[1])
         elif method == "rebuild":
             self.batchers[lid] = result
             self.gens[lid] += 1
@@ -556,5 +621,6 @@ def follow(mesh, factory: Callable[[Any], Any]) -> Dict[str, Any]:
 __all__ = [
     "CONTROL_TIMEOUT_S", "HEARTBEAT_S", "MESH_TIMEOUT_S", "LOGGED",
     "READ_ONLY", "Exported", "Leader", "LockstepBatcher",
-    "LockstepDivergence", "LockstepError", "follow", "leader_for",
+    "LockstepDivergence", "LockstepError", "follow", "full_slabs",
+    "leader_for",
 ]

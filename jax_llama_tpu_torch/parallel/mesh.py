@@ -23,7 +23,12 @@ collectives the port uses are methods here: ``all_reduce``,
 ``lax.ppermute`` over a ring) of tensors, ``broadcast_object`` of host
 objects, ``gather_object`` of every rank's host object and ``agree``
 on a host decision; each call is counted in ``collectives`` by kind and
-axis.  ``make_mesh(timeout_s=, control_timeout_s=)`` bounds how long a
+axis.  ``make_mesh(slices=k)`` lays ``k`` such meshes over consecutive
+blocks of the world's ranks (sliced replicas, ``parallel.slices``): a
+rank's ``rank`` and ``coords`` are its place in its own slice, and
+``offset`` (its slice's first global rank) turns them into the global
+ranks torch's collectives name.  ``make_mesh(timeout_s=,
+control_timeout_s=)`` bounds how long a
 collective of the axis groups, and of the CPU group, waits for a rank
 that never joins it: past the bound it raises on the ranks that did
 (``parallel.lockstep`` relies on this to stop every rank of a server
@@ -109,7 +114,9 @@ class Mesh:
 
     ``shape`` maps every axis in ``AXES`` to its size, ``devices[i]`` is
     rank i's torch device and ``device`` this rank's, ``coords`` this
-    rank's index along each axis.  Built by ``make_mesh``."""
+    rank's index along each axis.  ``rank`` counts from the mesh's first
+    rank, global rank ``offset`` (0 unless the mesh is slice ``slice`` of
+    ``make_mesh(slices=)``).  Built by ``make_mesh``."""
 
     axis_names = AXES
 
@@ -117,10 +124,14 @@ class Mesh:
                  rank: int, groups: Dict[Tuple[str, ...], Any],
                  cpu_group: Any, backend: Optional[str] = None,
                  timeout_s: Optional[float] = None,
-                 control_timeout_s: Optional[float] = None):
+                 control_timeout_s: Optional[float] = None,
+                 offset: int = 0, slice_index: int = 0, slices: int = 1):
         self.shape = {a: int(shape.get(a, 1)) for a in AXES}
         self.devices = [torch.device(d) for d in devices]
         self.rank = int(rank)
+        self.offset = int(offset)
+        self.slice = int(slice_index)
+        self.slices = int(slices)
         self.device = self.devices[self.rank]
         grid = np.arange(len(self.devices)).reshape(
             [self.shape[a] for a in AXES])
@@ -140,6 +151,10 @@ class Mesh:
     def size(self) -> int:
         return len(self.devices)
 
+    @property
+    def global_rank(self) -> int:
+        return self.offset + self.rank
+
     def axis_size(self, axis) -> int:
         return int(np.prod([self.shape[a] for a in _axes(axis)] or [1]))
 
@@ -157,7 +172,9 @@ class Mesh:
 
     def __repr__(self) -> str:
         dims = "x".join(str(self.shape[a]) for a in AXES)
-        return f"Mesh({dims}, rank={self.rank}, device={self.device})"
+        where = (f", slice={self.slice}/{self.slices}" if self.slices > 1
+                 else "")
+        return f"Mesh({dims}, rank={self.rank}{where}, device={self.device})"
 
     # -- collectives over one axis (identity where the axis is 1) ----------
 
@@ -193,7 +210,7 @@ class Mesh:
         grid = np.arange(self.size).reshape([self.shape[a] for a in AXES])
         index = tuple(slice(None) if a in axes else self.coords[a]
                       for a in AXES)
-        return grid[index].reshape(-1).tolist()
+        return (grid[index].reshape(-1) + self.offset).tolist()
 
     def reduce_scatter(self, x: torch.Tensor, axis="fsdp",
                        dim: int = 0) -> torch.Tensor:
@@ -302,16 +319,25 @@ class Mesh:
             return obj
         self.collectives[("broadcast_object", AXES)] += 1
         box = [obj]
-        dist.broadcast_object_list(box, src=src, group=self.cpu_group)
+        dist.broadcast_object_list(box, src=self.offset + src,
+                                   group=self.cpu_group)
         return box[0]
 
-    def gather_object(self, obj: Any) -> List[Any]:
-        """Every rank's picklable ``obj``, in rank order, on every rank."""
+    def gather_object(self, obj: Any, dst: Optional[int] = None
+                      ) -> Optional[List[Any]]:
+        """Every rank's picklable ``obj``, in rank order, on every rank;
+        with ``dst``, on rank ``dst`` only (None elsewhere)."""
         if self.size == 1:
             return [obj]
-        self.collectives[("gather_object", AXES)] += 1
-        out: List[Any] = [None] * self.size
-        dist.all_gather_object(out, obj, group=self.cpu_group)
+        if dst is None:
+            self.collectives[("gather_object", AXES)] += 1
+            out: List[Any] = [None] * self.size
+            dist.all_gather_object(out, obj, group=self.cpu_group)
+            return out
+        self.collectives[("gather_object_to", AXES)] += 1
+        out = [None] * self.size if self.rank == dst else None
+        dist.gather_object(obj, out, dst=self.offset + dst,
+                           group=self.cpu_group)
         return out
 
     def agree(self, flag: bool) -> bool:
@@ -423,10 +449,14 @@ def make_mesh(
     devices: Optional[Sequence[Any]] = None,
     timeout_s: Optional[float] = None,
     control_timeout_s: Optional[float] = None,
+    slices: int = 1,
 ) -> Mesh:
     """Build this rank's view of a 5-axis mesh (JAX :78).  The axis
-    product must equal the number of processes in the default group
-    (``distributed.initialize``; 1 without one).  ``devices`` maps rank i
+    product times ``slices`` must equal the number of processes in the
+    default group (``distributed.initialize``; 1 without one): with
+    ``slices`` > 1 every rank builds the groups of ``slices`` meshes of
+    that shape, slice s over global ranks ``[s * n, (s + 1) * n)``, and
+    gets its own slice's.  ``devices`` maps global rank i
     to a torch device: by default rank i runs on ``cuda:(i % n_gpus)``,
     and two ranks may share one device (``["cuda:0", "cuda:0"]``), which
     needs the gloo backend; this rank's device becomes its current CUDA
@@ -439,9 +469,10 @@ def make_mesh(
     shape = dict(zip(AXES, (data, stage, fsdp, seq, tensor)))
     want = data * stage * fsdp * seq * tensor
     world = distributed.process_count()
-    if want != world:
+    sliced = f" x {slices} slices" if slices > 1 else ""
+    if want * slices != world:
         raise ValueError(
-            f"mesh {data}x{stage}x{fsdp}x{seq}x{tensor}={want} "
+            f"mesh {data}x{stage}x{fsdp}x{seq}x{tensor}={want}{sliced} "
             f"!= {world} processes")
     if devices is None:
         if not torch.cuda.is_available():
@@ -449,11 +480,11 @@ def make_mesh(
                 "make_mesh: no CUDA device is available; pass devices= "
                 "(e.g. ['cpu'] * n) to build a mesh on the CPU")
         n_gpu = torch.cuda.device_count()
-        devices = [f"cuda:{i % n_gpu}" for i in range(want)]
+        devices = [f"cuda:{i % n_gpu}" for i in range(world)]
     devices = [torch.device(d) for d in devices]
-    if len(devices) != want:
+    if len(devices) != world:
         raise ValueError(
-            f"mesh {data}x{stage}x{fsdp}x{seq}x{tensor}={want} "
+            f"mesh {data}x{stage}x{fsdp}x{seq}x{tensor}={want}{sliced} "
             f"!= {len(devices)} devices")
     for d in devices:
         if d.type == "cuda" and not torch.cuda.is_available():
@@ -462,32 +493,42 @@ def make_mesh(
                 "available")
     groups: Dict[Tuple[str, ...], Any] = {}
     cpu_group = None
+    me = dist.get_rank() if world > 1 else 0
+    offset = me - me % want
     if want > 1:
         if not dist.is_initialized():
             raise RuntimeError(
                 "make_mesh: a mesh of more than one rank needs the process "
                 "group; call parallel.distributed.initialize() first")
         live = [a for a in AXES if shape[a] > 1]
-        # One group per axis, plus the row axes together; the same calls
-        # in the same order on every rank.
+        # One group per axis, plus the row axes together, for every
+        # slice; the same calls in the same order on every rank, the
+        # groups of other slices included.
         keys = [(a,) for a in live]
         if shape["data"] > 1 and shape["fsdp"] > 1:
             keys.append(("data", "fsdp"))
-        for key in keys:
-            for ranks in _rank_sets(shape, key):
-                g = dist.new_group(ranks, timeout=_delta(timeout_s))
-                if dist.get_rank() in ranks:
-                    groups[key] = g
-        cpu_group = dist.new_group(list(range(want)), backend="gloo",
-                                   timeout=_delta(control_timeout_s))
-    rank = dist.get_rank() if want > 1 else 0
+        for first in range(0, world, want):
+            for key in keys:
+                for ranks in _rank_sets(shape, key):
+                    ranks = [first + r for r in ranks]
+                    g = dist.new_group(ranks, timeout=_delta(timeout_s))
+                    if me in ranks:
+                        groups[key] = g
+            g = dist.new_group(list(range(first, first + want)),
+                               backend="gloo",
+                               timeout=_delta(control_timeout_s))
+            if first == offset:
+                cpu_group = g
+    devices = devices[offset:offset + want]
+    rank = me - offset
     if devices[rank].type == "cuda":
         # The rank's device is its current one: NCCL binds a group's
         # communicator to it.
         torch.cuda.set_device(devices[rank])
-    backend = dist.get_backend() if want > 1 else None
+    backend = dist.get_backend() if world > 1 else None
     return Mesh(shape, devices, rank, groups, cpu_group, backend,
-                timeout_s=timeout_s, control_timeout_s=control_timeout_s)
+                timeout_s=timeout_s, control_timeout_s=control_timeout_s,
+                offset=offset, slice_index=offset // want, slices=slices)
 
 
 def _delta(seconds: Optional[float]) -> Optional[datetime.timedelta]:

@@ -78,18 +78,22 @@ def parse_serve_mesh(text: str) -> ServeMeshSpec:
 def build_serve_mesh(spec: ServeMeshSpec,
                      devices: Optional[Sequence[Any]] = None,
                      timeout_s: Optional[float] = None,
-                     control_timeout_s: Optional[float] = None) -> Mesh:
+                     control_timeout_s: Optional[float] = None,
+                     slices: int = 1) -> Mesh:
     """The serving mesh over ``spec.n_devices`` ranks (the process
     group's; ``devices`` maps rank i to its device, and the two timeouts
-    bound its groups' collectives, as in ``make_mesh``)."""
-    if devices is not None and len(devices) != spec.n_devices:
+    bound its groups' collectives, as in ``make_mesh``); with ``slices``
+    > 1, this rank's slice of ``slices`` such meshes over consecutive
+    ranks (sliced replicas, ``parallel.slices``), ``devices`` then
+    naming every rank's."""
+    if devices is not None and len(devices) != spec.n_devices * slices:
         raise ValueError(
             f"serve mesh {spec.data}x{spec.tensor} needs "
-            f"{spec.n_devices} devices, got {len(devices)}"
+            f"{spec.n_devices * slices} devices, got {len(devices)}"
         )
     return make_mesh(data=spec.data, tensor=spec.tensor, devices=devices,
                      timeout_s=timeout_s,
-                     control_timeout_s=control_timeout_s)
+                     control_timeout_s=control_timeout_s, slices=slices)
 
 
 def is_serving_mesh(mesh: Optional[Mesh]) -> bool:
@@ -214,6 +218,44 @@ def shard_pool(pool, mesh: Mesh):
     return dataclasses.replace(pool, **{n: take(n) for n in _POOL_LEAVES})
 
 
+def _head_axis(name: str) -> bool:
+    """Whether a slab field carries the KV-head axis (dim 1 of k/v
+    ``[L, KVH, BLK, hd]`` and scales ``[L, KVH, BLK]``, the draft's
+    ``d_`` twins too); ``pos`` ``[BLK]`` does not."""
+    return not name.endswith("pos")
+
+
+def gather_slab_heads(mesh: Mesh, slabs) -> Optional[list]:
+    """Every rank's export slabs (its KV-head slice of each block), put
+    together on the mesh's first rank as slabs of every head, in the
+    tensor axis' order (the ranks at data 0 hold one slice each; the
+    pools replicate over ``data``); None on the other ranks.  A
+    collective of the mesh's CPU group."""
+    parts = mesh.gather_object(list(slabs), dst=0)
+    if parts is None:
+        return None
+    tp = mesh.shape.get("tensor", 1)
+    return [{name: torch.cat([parts[t][j][name] for t in range(tp)], dim=1)
+             if _head_axis(name) else v for name, v in slab.items()}
+            for j, slab in enumerate(parts[0])]
+
+
+def slab_head_slice(mesh: Optional[Mesh], slabs) -> list:
+    """This rank's KV-head slice of slabs of every head (the inverse of
+    :func:`gather_slab_heads`): what the rank's ``import_prefix`` lands."""
+    tp = 1 if mesh is None else mesh.shape.get("tensor", 1)
+    if tp == 1:
+        return list(slabs)
+    t = mesh.coords["tensor"]
+
+    def part(v):
+        n = v.shape[1] // tp
+        return v.narrow(1, t * n, n).contiguous()
+
+    return [{name: part(v) if _head_axis(name) else v
+             for name, v in slab.items()} for slab in slabs]
+
+
 def place_rows(mesh: Optional[Mesh], x, device=None) -> torch.Tensor:
     """Upload one per-slot array: on the mesh device, every row (the
     port's rows replicate, see the module docstring); on ``device`` (or
@@ -302,7 +344,8 @@ __all__ = [
     "ROW_AXES", "ServeMeshSpec", "parse_serve_mesh", "build_serve_mesh",
     "is_serving_mesh", "row_shards", "fits", "placement_ok",
     "validate_serve_mesh",
-    "mesh_shape", "pool_pspec", "row_pspec", "shard_pool", "place_rows",
+    "mesh_shape", "pool_pspec", "row_pspec", "shard_pool",
+    "gather_slab_heads", "slab_head_slice", "place_rows",
     "StagingSharding", "staging_shardings", "constraints_apply",
     "constrain_view", "constrain_pool", "constrain_rows",
 ]

@@ -25,6 +25,8 @@
         --ckpt-dir ... --serve --serve-mesh 1,2 < prompts.txt
     torchrun --nproc-per-node 2 -m jax_llama_tpu_torch.run \
         --ckpt-dir ... --http 8000 --serve-mesh 1,2 [--replicas 2 ...]
+    torchrun --nproc-per-node 4 -m jax_llama_tpu_torch.run \
+        --ckpt-dir ... --http 8000 --serve-mesh 1,2 --replicas 2 ...
 
 The checkpoint is the port's (``python -m jax_llama_tpu_torch.convert``
 writes one from Meta's files).  The argument parser is the JAX package's,
@@ -34,10 +36,7 @@ so an argv that one accepts the other does too, plus ``--device`` (default
 ``--serve`` (prompts on stdin, one per line) and ``--http PORT``
 (``server.LLMServer``: POST /generate and /chat, GET /metrics, /healthz,
 /debug/*) run on the card, or on the CPU with ``--device cpu``; ``--http``
-never falls back to the CPU.  A flag whose feature is not ported exits
-with a message that names its ROADMAP item: ``--replicas`` over a serving
-mesh whose job has a mesh's worth of ranks for each of two or more
-replicas (sliced replicas, A14 part 4).
+never falls back to the CPU.
 
 Tensor, data and fsdp parallelism run one process per rank, as
 ``torchrun`` starts them (``parallel.distributed.initialize`` reads its
@@ -60,7 +59,16 @@ and the fleet controller; every other rank is a follower that builds the
 same batchers over its own shard and applies, in order, the batcher calls
 the leader publishes (``parallel.lockstep``).  Every replica time-shares
 the one mesh.  SIGTERM or SIGINT on rank 0 drains, then stops the
-followers, which ignore signals.
+followers, which ignore signals.  ``--http --replicas N --serve-mesh
+dp,tp`` under ``k x dp x tp`` ranks (k > 1) slices the job as JAX slices
+its devices (``parallel.slices``): replica i runs on ranks ``[i x dp x
+tp, (i + 1) x dp x tp)``, a serving mesh with its own log and its own
+shard of the weights, while the job has them, and time-shares the first
+slice after (autoscaled replicas too); rank 0 runs the router and
+reaches each other slice's replica, whose server runs on that slice's
+first rank, through a control channel, and a handoff or a drain between
+slices carries the KV of every head.  A world that is not a whole
+number of slices exits naming the flags.
 ``--http`` with ``--replicas`` > 1 serves N replicas on the one device
 behind ``router.ReplicaRouter`` (``--route``, ``--replica-roles``,
 ``--canary-interval-s``), as the JAX CLI does; ``--autoscale`` adds a
@@ -83,6 +91,7 @@ are parsed from one table, ``_FLEET_FLAGS``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 
 DEFAULT_PROMPTS = [
@@ -258,10 +267,10 @@ def main() -> None:
 
     from .parallel import distributed
 
-    ranks = _mesh_ranks(args)
+    ranks, slices = _mesh_ranks(args)
     device = resolve_device(args.device)
     owned = not distributed.is_initialized()
-    mesh = _mesh_for(args, device, ranks)
+    mesh = _mesh_for(args, device, ranks, slices)
     if mesh is not None:
         device = mesh.device
     try:
@@ -278,7 +287,7 @@ def _run(args, log, device, mesh) -> None:
     from .generation import LLaMA
     from .utils.profiling import DecodeStats, Timer
 
-    rank0 = mesh is None or mesh.rank == 0
+    rank0 = mesh is None or mesh.global_rank == 0
     if args.byte_tokenizer:
         from .tokenizers import ByteTokenizer
 
@@ -583,44 +592,52 @@ def _serve_spec(args):
         raise SystemExit(str(e))
 
 
-def _mesh_ranks(args) -> int:
-    """The ranks the mesh flags ask for, checked against this run's
-    processes (torchrun's ``WORLD_SIZE``) before anything is loaded."""
+def _mesh_ranks(args):
+    """``(ranks, slices)``: the ranks of one mesh the flags ask for, and
+    how many such meshes this run's processes (torchrun's
+    ``WORLD_SIZE``) hold, checked before anything is loaded.  Over
+    ``--serve-mesh`` with ``--http`` and ``--replicas`` > 1 a world wider
+    than one mesh is sliced (``parallel.slices``), one slice per replica
+    while they last (JAX :856); it must be a whole number of slices."""
     world = int(os.environ.get("WORLD_SIZE",
                                os.environ.get("JAX_NUM_PROCESSES", "1")))
     spec = _serve_spec(args) if args.serve_mesh is not None else None
-    if (spec is not None and args.replicas > 1 and args.http is not None
-            and world >= 2 * spec.n_devices):
-        # JAX gives replica i its own devices while the host has
-        # (i + 1) x dp x tp of them; here those ranks would hold a
-        # batcher the router's process does not, and a handoff between
-        # them a transfer between processes.
-        raise SystemExit(
-            f"--replicas {args.replicas} over --serve-mesh "
-            f"{args.serve_mesh} with {world} processes: replicas on ranks "
-            "of their own (sliced replicas) are not ported (ROADMAP A14 "
-            "part 4); run one mesh's worth of ranks, which every replica "
-            "time-shares")
     rows = args.data * args.fsdp
     want = (spec.n_devices if spec is not None
             else rows * (args.tensor or max(1, world // rows)))
+    if (spec is not None and args.replicas > 1 and args.http is not None
+            and world > want):
+        from .parallel.slices import slice_count
+
+        try:
+            return want, slice_count(world, want)
+        except ValueError:
+            raise SystemExit(
+                f"--replicas {args.replicas} over --serve-mesh "
+                f"{args.serve_mesh} with {world} processes: sliced replicas "
+                f"take a whole number of slices of dp x tp = {want} ranks "
+                f"each; start a multiple of {want} processes (torchrun "
+                f"--nproc-per-node k x {want}), or {want} for replicas that "
+                "time-share one mesh")
     if want != world:
         raise SystemExit(
             f"a mesh of {want} ranks needs {want} processes, this run has "
             f"{world} (start one per rank, e.g. torchrun "
             f"--nproc-per-node {want})")
-    return want
+    return want, 1
 
 
-def _mesh_for(args, device, ranks: int):
+def _mesh_for(args, device, ranks: int, slices: int = 1):
     """The run's mesh (JAX :402-411, :472-500): ``--serve-mesh`` or the
     ``--data`` x ``--fsdp`` x ``--tensor`` axes over the ``ranks``
     processes, whose
-    group is brought up here; None for a single rank.  The backend is
-    nccl with one rank per GPU, and gloo on the CPU and where every rank
-    of this host shares its one GPU (NCCL refuses two ranks on one
+    group is brought up here; None for a single rank.  With ``slices`` >
+    1 the job's ``ranks x slices`` processes hold that many serving
+    meshes, and this is this rank's (``make_mesh(slices=)``).  The backend
+    is nccl with one rank per GPU, and gloo on the CPU and where every
+    rank of this host shares its one GPU (NCCL refuses two ranks on one
     device); more ranks than GPUs on a host with several is refused."""
-    if ranks == 1:
+    if ranks * slices == 1:
         return None
     import torch
 
@@ -628,18 +645,19 @@ def _mesh_for(args, device, ranks: int):
     from .parallel.mesh import make_mesh
     from .parallel.serve_mesh import build_serve_mesh
 
+    world = ranks * slices
     devices = None
     if device.type == "cpu":
-        devices = ["cpu"] * ranks
+        devices = ["cpu"] * world
     else:
-        local = int(os.environ.get("LOCAL_WORLD_SIZE", ranks))
+        local = int(os.environ.get("LOCAL_WORLD_SIZE", world))
         n_gpu = torch.cuda.device_count()
         if local > n_gpu > 1:
             raise SystemExit(
                 f"{local} ranks on a host with {n_gpu} GPUs: run one rank "
                 "per GPU, or every rank on the one GPU of a single-GPU host")
         if local > n_gpu:
-            devices = ["cuda:0"] * ranks
+            devices = ["cuda:0"] * world
     distributed.initialize(backend="gloo" if devices else None,
                            device=str(device))
     # An HTTP server's ranks wait on one another only so long: a rank
@@ -652,7 +670,7 @@ def _mesh_for(args, device, ranks: int):
                       control_timeout_s=CONTROL_TIMEOUT_S)
     if args.serve_mesh is not None:
         return build_serve_mesh(_serve_spec(args), devices=devices,
-                                **bounds)
+                                slices=slices, **bounds)
     return make_mesh(data=args.data, fsdp=args.fsdp,
                      tensor=ranks // (args.data * args.fsdp),
                      devices=devices, **bounds)
@@ -827,14 +845,11 @@ def _replica_batchers(params, config, tokenizer, device, args, injector,
     return make
 
 
-def _follow(mesh, make) -> None:
-    """A follower rank of an HTTP server over ``mesh``: build the
-    replicas the leader makes (``make``) and apply its records until its
-    stop record (``parallel.lockstep.follow``).  Signals are ignored
-    meanwhile: rank 0 drains on them, then stops this rank."""
+@contextlib.contextmanager
+def _signals_ignored():
+    """SIGTERM and SIGINT ignored meanwhile (a follower's or a slice
+    head's: rank 0 drains on them, then stops this rank)."""
     import signal
-
-    from .parallel import lockstep
 
     previous = []
     try:
@@ -843,10 +858,21 @@ def _follow(mesh, make) -> None:
     except ValueError:
         previous = []  # not the main thread; no signal wiring
     try:
-        lockstep.follow(mesh, make)
+        yield
     finally:
         for sig, old in previous:
             signal.signal(sig, old)
+
+
+def _follow(mesh, make) -> None:
+    """A follower rank of an HTTP server over ``mesh``: build the
+    replicas the leader makes (``make``) and apply its records until its
+    stop record (``parallel.lockstep.follow``).  Signals are ignored
+    meanwhile: rank 0 drains on them, then stops this rank."""
+    from .parallel import lockstep
+
+    with _signals_ignored():
+        lockstep.follow(mesh, make)
 
 
 def _until_signal(on_drain, on_hard, leader=None) -> None:
@@ -986,59 +1012,73 @@ def _serve_router(params, config, tokenizer, device, args, _test_hook=None,
                   logger=None, mesh=None) -> None:
     """``--replicas N`` mode (JAX ``run._serve_router``): N independent
     batcher + server replicas behind one ``router.ReplicaRouter`` speaking
-    the standard protocol on the ``--http`` port.  The replicas share the
-    one copy of the weights on ``device``, as the JAX package's share
-    ``params``, and the one ``mesh`` (JAX's time-shared geometry: a
-    replica on ranks of its own is refused in ``_mesh_ranks``); each owns
-    its pool, queue, prefix index and serving-loop thread.  One fault
-    injector serves the router site and every replica's sites, so
-    ``site@N`` counts the process's dispatches; over a mesh the router
-    and the controller draw from an injector of their own (the same spec
-    and seed), so that a ``site~P`` draw on the leader alone never moves
-    the random stream every rank's batchers share.  With ``--autoscale`` a
-    ``router.FleetController`` grows the fleet through ``make_replica``
-    (the same weight copy) and, when the router shuts down, stops the
-    replicas it grew.  Over a mesh of more than one rank, rank 0 is the
-    leader: it runs the router, the controller and every replica's
-    server, and builds each replica's batcher on every rank through the
-    lockstep log; the other ranks follow it (``parallel.lockstep``).
+    the standard protocol on the ``--http`` port.  The replicas of one
+    mesh share its one copy of the weights, as the JAX package's share
+    ``params``; each owns its pool, queue, prefix index and serving-loop
+    thread.  A job of several serving meshes' worth of ranks is sliced
+    (``parallel.slices``, JAX's geometry): replica i runs on slice i, its
+    ranks holding their own shard of the target and the draft, while the
+    job has that slice, and time-shares slice 0 after, the fleet
+    controller's grown replicas alike; one mesh's worth of ranks is
+    time-shared by every replica.  One fault injector serves the router
+    site and every replica's sites, so ``site@N`` counts the process's
+    dispatches; over a mesh the router and the controller draw from an
+    injector of their own (the same spec and seed), so that a ``site~P``
+    draw on the leader alone never moves the random stream every rank's
+    batchers share, and a slice's ranks count their own replicas'
+    dispatches only.  With ``--autoscale`` a ``router.FleetController``
+    grows the fleet through ``make_replica`` and, when the router shuts
+    down, stops the replicas it grew.  Over a mesh of more than one rank,
+    global rank 0 is the leader: it runs the router, the controller and
+    the server of every replica on slice 0, and builds each such
+    replica's batcher on every rank of the slice through the lockstep
+    log; the other ranks of the slice follow it (``parallel.lockstep``).
+    The head of another slice runs its replica's server and leads its
+    slice's log at rank 0's word (``slices.serve_slice``), and rank 0's
+    router reaches it through a ``slices.RemoteReplica``.
     ``_test_hook(router, servers)``, when given, runs on the leader once
     everything is up, and then the function returns instead of
     blocking."""
-    from .faults import FaultInjector, install_trace_hook
     from .obs import StructuredLogger
     from .parallel import lockstep
-    from .router import FleetController, ReplicaRouter
-    from .server import LLMServer
+    from .parallel import slices as slicing
 
     if logger is None:
         logger = StructuredLogger(json_mode=args.log_json)
+    n_slices = 1 if mesh is None else mesh.slices
+    channels = {}
+    if n_slices > 1:
+        channels = slicing.open_channels(
+            mesh, timeout_s=lockstep.CONTROL_TIMEOUT_S)
+    try:
+        _serve_replicas(params, config, tokenizer, device, args, _test_hook,
+                        logger, mesh, channels)
+    finally:
+        if mesh is not None and mesh.global_rank == 0:
+            for ch in channels.values():
+                # Each other slice's head stops its servers and its log.
+                ch.close()
+
+
+def _serve_replicas(params, config, tokenizer, device, args, _test_hook,
+                    logger, mesh, channels) -> None:
+    """``_serve_router`` past the slices' channels (``channels``: rank 0's
+    to every other slice's head, a head's to rank 0)."""
+    from .faults import FaultInjector, install_trace_hook
+    from .parallel import lockstep
+    from .parallel import slices as slicing
+    from .router import FleetController, ReplicaRouter
+    from .server import LLMServer
+
+    n_slices = 1 if mesh is None else mesh.slices
     injector = _arm_faults(args, logger)
     make = _replica_batchers(params, config, tokenizer, device, args,
                              injector, mesh)
-    leader, router_faults = None, injector
-    if mesh is not None and mesh.size > 1:
-        if mesh.rank != 0:
-            try:
-                _follow(mesh, make)
-            finally:
-                if injector is not None:
-                    install_trace_hook(None)
-            return
-        leader = lockstep.leader_for(mesh)
-        if injector is not None:
-            router_faults = FaultInjector(injector.specs,
-                                          seed=args.fault_seed)
-        logger.log("serve_mesh_shared",
-                   f"{args.replicas} replicas time-share one mesh of "
-                   f"{mesh.size} ranks", mesh=str(dict(mesh.shape)))
 
-    def make_replica(i):
-        """Build and start replica ``i``: its batcher (on every rank of
-        a mesh) and the server the JAX CLI builds per replica."""
-        cb = (leader.make(i, lambda: make(i)) if leader is not None
-              else make(i))
-        srv = LLMServer(
+    def serve(cb, i):
+        """Replica ``i``'s server over its batcher, as the JAX CLI builds
+        one per replica, started."""
+        return LLMServer(
             cb, tokenizer=tokenizer, host=args.host, port=0, replica_id=i,
             max_recoveries=args.max_recoveries,
             recovery_window_s=args.recovery_window_s,
@@ -1048,8 +1088,48 @@ def _serve_router(params, config, tokenizer, device, args, _test_hook=None,
             logger=logger,
             max_queue=args.max_queue,
             priority_classes=args.priority_classes == "on",
-        )
-        return srv.start()
+        ).start()
+
+    leader, router_faults = None, injector
+    if mesh is not None and mesh.global_rank != 0:
+        try:
+            with _signals_ignored():
+                if mesh.rank == 0:
+                    slicing.serve_slice(mesh, channels[mesh.slice], make,
+                                        serve)
+                else:
+                    lockstep.follow(mesh, make)
+        finally:
+            if injector is not None:
+                install_trace_hook(None)
+        return
+    if mesh is not None and mesh.size > 1:
+        leader = lockstep.leader_for(mesh)
+    if mesh is not None and (mesh.size > 1 or n_slices > 1):
+        if injector is not None:
+            router_faults = FaultInjector(injector.specs,
+                                          seed=args.fault_seed)
+        if n_slices < args.replicas:
+            logger.log("serve_mesh_shared",
+                       f"{args.replicas} replicas on {n_slices} slice(s) of "
+                       f"{mesh.size} ranks: replicas past the last slice "
+                       "time-share slice 0", mesh=str(dict(mesh.shape)))
+        if n_slices > 1:
+            logger.log("serve_mesh_sliced", slices=n_slices,
+                       ranks_per_slice=mesh.size,
+                       replica_slices=[slicing.replica_slice(i, n_slices)
+                                       for i in range(args.replicas)])
+
+    def make_replica(i):
+        """Build and start replica ``i``: on slice 0, its batcher (on
+        every rank of a mesh) and its server here; on another slice, the
+        same on that slice, reached through a RemoteReplica."""
+        s = slicing.replica_slice(i, n_slices)
+        if s != 0:
+            return slicing.RemoteReplica(channels[s], i).start()
+        cb = (leader.make(i, lambda: make(i)) if leader is not None
+              else make(i))
+        return serve(cb, i)
 
     servers = []
     try:
@@ -1057,7 +1137,8 @@ def _serve_router(params, config, tokenizer, device, args, _test_hook=None,
             servers.append(make_replica(i))
         # Cache-aware routing speaks the replicas' chain-key schema: the
         # tokenizer and chat format mirror each replica's own encoding,
-        # block_size is the key granularity (one config, so one size).
+        # block_size is the key granularity (one config, so one size;
+        # replica 0 is always on slice 0, in this process).
         router = ReplicaRouter(
             servers, host=args.host, port=args.http, policy=args.route,
             fault_injector=router_faults, logger=logger,
@@ -1069,8 +1150,9 @@ def _serve_router(params, config, tokenizer, device, args, _test_hook=None,
         ).start()
         controller = None
         if args.autoscale:
-            # Grown replicas come from make_replica, so they share the
-            # one weight copy; the controller stops them on close.
+            # Grown replicas come from make_replica (a fresh slice while
+            # the job has one, else slice 0's weight copy); the
+            # controller stops them on close.
             controller = FleetController(
                 router, replica_factory=make_replica,
                 min_replicas=args.autoscale_min,
@@ -1086,7 +1168,7 @@ def _serve_router(params, config, tokenizer, device, args, _test_hook=None,
                        replicas=args.replicas, policy=args.route,
                        device=str(device),
                        **({"mesh": str(dict(mesh.shape))}
-                          if leader is not None else {}))
+                          if mesh is not None else {}))
             if _test_hook is not None:
                 _test_hook(router, servers)
                 return

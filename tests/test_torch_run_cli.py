@@ -12,7 +12,9 @@ down, and with ``--logprobs`` both return the same per-token logprobs;
 router with the single server's replies, and with ``--autoscale`` a fleet
 controller whose ``/debug/fleet`` block has the JAX CLI's keys.  Flags
 whose feature is not ported exit naming their ROADMAP item; the router's
-flags are refused as the JAX CLI refuses them, with its messages."""
+flags are refused as the JAX CLI refuses them, with its messages, and a
+sliced job that is not a whole number of serving meshes exits naming
+the flags."""
 
 import io
 import json
@@ -432,17 +434,19 @@ def test_unported_flags_exit_naming_their_item(tmp_path, monkeypatch, argv,
             jrun.main()
 
 
-def test_sliced_replicas_exit_naming_a14_part_4(tmp_path, monkeypatch):
-    """``--replicas 2`` over a serving mesh in a job with a mesh's worth
-    of ranks for each replica (JAX's sliced geometry, each replica on
-    devices of its own) is refused before the process group comes up,
-    naming its ROADMAP item; one mesh's worth is served time-shared."""
-    monkeypatch.setenv("WORLD_SIZE", "4")
+def test_world_not_a_whole_number_of_slices_exits(tmp_path, monkeypatch):
+    """``--replicas 2`` over a serving mesh in a job wider than one mesh
+    is sliced (one mesh's worth of ranks per replica, JAX's geometry;
+    ``test_torch_sliced_replicas`` serves it); a job that is not a whole
+    number of meshes is refused before the process group comes up,
+    naming the flags."""
+    monkeypatch.setenv("WORLD_SIZE", "3")
     monkeypatch.setattr(sys, "argv", [
         "run", "--ckpt-dir", str(tmp_path), "--byte-tokenizer", "--http",
         "0", "--replicas", "2", "--serve-mesh", "1,2"])
     with pytest.raises(SystemExit, match=(
-            r"sliced replicas\) are not ported \(ROADMAP A14 part 4\)")):
+            r"--replicas 2 over --serve-mesh 1,2 with 3 processes: sliced "
+            r"replicas take a whole number of slices")):
         prun.main()
 
 

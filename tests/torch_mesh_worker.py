@@ -1272,3 +1272,234 @@ def run_router_cli(argv, requests) -> Dict[str, Any]:
     finally:
         prun._serve_router, lockstep.follow = orig
     return dict(got, out=out)
+
+
+# ---------------------------------------------------------------------------
+# Sliced replicas (ROADMAP A14 part 4): each replica of run.py --http
+# --replicas N --serve-mesh dp,tp on ranks of its own (parallel.slices).
+# ---------------------------------------------------------------------------
+
+def _where(srv) -> Dict[str, Any]:
+    """Where a port replica runs: in rank 0's process on its slice, or on
+    another slice behind a RemoteReplica."""
+    from jax_llama_tpu_torch.parallel.slices import RemoteReplica
+
+    if isinstance(srv, RemoteReplica):
+        return dict(remote=True, slice=srv.slice)
+    return dict(remote=False, slice=srv.batcher.mesh.slice)
+
+
+def _host_states(servers):
+    """The port replicas' host states through their logs (a remote one's
+    on its slice); none for JAX's servers."""
+    from jax_llama_tpu_torch.parallel.slices import RemoteReplica
+
+    return [s.call_on_loop(lambda b: b.host_state()) for s in servers
+            if isinstance(s, RemoteReplica)
+            or hasattr(s.batcher, "host_state")]
+
+
+def _stats(servers):
+    return [s.call_on_loop(lambda b: b.stats()) for s in servers]
+
+
+def sliced_session(router, servers) -> Dict[str, Any]:
+    """The sliced-replica traffic through a router over replicas 0 and 1
+    (the port's on slices 0 and 1, or JAX's on their device slices):
+    a session's cold serve and its routed revisit; a token prompt served
+    cold on replica 0, its chain moved to replica 1 by the router's
+    handoff path and served there, and another the other way; a
+    FleetController scale-up (replica 2), a prompt served on it, a drain
+    of replica 1 by migration and the first moved prompt's revisit
+    through the router.  Each replica's stats, host states and place, and
+    the router's health, along the way."""
+    from jax_llama_tpu_torch.kvcache import chain_keys
+
+    got = {}
+    block = servers[0].batcher.block_size
+    turn = {"text": ROUTER_PROMPT, "max_new_tokens": 6}
+    got["cold"] = _http(router.address, "/generate", turn)
+    router.check_health_now()
+    got["routed_hit"] = _http(router.address, "/generate",
+                              dict(turn, text=ROUTER_PROMPT + " again"))
+    moved = []
+    for src, dst, seed in ((0, 1, 3), (1, 0, 4)):
+        prompt = [int(t) for t in
+                  np.random.RandomState(seed).randint(1, 128, 50)]
+        payload = {"prompt": prompt, "max_new_tokens": 6, "seed": 5}
+        cold = _http(servers[src].address, "/generate", payload)
+        router.migrate_chain([k.hex() for k in chain_keys(prompt, block)],
+                             src, dst)
+        idle = router.wait_handoffs(60.0)
+        hit = _http(servers[dst].address, "/generate", payload)
+        moved.append(dict(src=src, dst=dst, payload=payload, cold=cold,
+                          hit=hit, idle=idle))
+    got["moved"] = moved
+    got["handoffs_completed"] = router.handoffs_completed_total
+    got["stats_moved"] = _stats(servers)
+    ctl = router.controller
+    got["up"] = ctl.scale_up()
+    grown = router._replicas[got["up"]["replica"]].server
+    every = list(servers) + [grown]
+    grown_payload = {"prompt": [int(t) for t in np.random.RandomState(
+        11).randint(1, 128, 40)], "max_new_tokens": 4}
+    got["grown_serve"] = _http(grown.address, "/generate", grown_payload)
+    got["states_grown"] = _host_states(every)
+    router.check_health_now()
+    got["health"] = router.health()
+    got["down"] = ctl.scale_down(victim=1)
+    got["drain_revisit"] = _http(router.address, "/generate",
+                                 moved[0]["payload"])
+    got["states"] = _host_states(every)
+    got["stats"] = _stats(every)
+    if type(servers[0]).__module__.startswith("jax_llama_tpu_torch."):
+        got["where"] = [_where(s) for s in every]
+    return got
+
+
+def sliced_faults_session(router, servers) -> Dict[str, Any]:
+    """One token prompt served on each seed replica directly, then each
+    replica's /healthz (its recoveries)."""
+    payload = {"prompt": [5, 17, 99, 3, 42, 7, 8, 9], "max_new_tokens": 4}
+    replies = [_http(s.address, "/generate", payload) for s in servers]
+    return dict(replies=replies, recoveries=[
+        _http(s.address, "/healthz")[1]["recoveries_total"]
+        for s in servers])
+
+
+SLICED_SESSIONS = {"sliced": sliced_session,
+                   "faults": sliced_faults_session}
+
+
+def run_sliced_cli(argv, session="sliced") -> Dict[str, Any]:
+    """``run.main()`` with ``argv`` (sliced replicas over this pool's
+    ranks), as ``run_cli`` runs it: rank 0 drives ``SLICED_SESSIONS
+    [session]`` through ``_serve_router``'s test hook; a slice head
+    returns what its ``serve_slice`` returned, a follower the host states
+    it computed."""
+    from jax_llama_tpu_torch import run as prun
+    from jax_llama_tpu_torch.parallel import lockstep, slices
+
+    got = {}
+
+    def hook(router, servers):
+        got.update(SLICED_SESSIONS[session](router, servers))
+        got["lockstep"] = servers[0].batcher._leader.stats()
+        got["channels"] = [dict(messages=s.channel.messages,
+                                ms_total=s.channel.ms_total)
+                           for s in servers
+                           if isinstance(s, slices.RemoteReplica)]
+
+    def follow(*a, **kw):
+        got["followed"] = orig[1](*a, **kw)
+        return got["followed"]
+
+    def serve_slice(*a, **kw):
+        got["head"] = orig[2](*a, **kw)
+        return got["head"]
+
+    orig = prun._serve_router, lockstep.follow, slices.serve_slice
+    prun._serve_router = lambda *a, **kw: orig[0](*a, **dict(
+        kw, _test_hook=hook))
+    lockstep.follow, slices.serve_slice = follow, serve_slice
+    try:
+        out = run_cli(argv)
+    finally:
+        prun._serve_router = orig[0]
+        lockstep.follow, slices.serve_slice = orig[1:]
+    from jax_llama_tpu_torch.parallel import distributed
+
+    return dict(got, out=out, rank=distributed.process_index())
+
+
+def _planes(cb, keys) -> Dict[str, Any]:
+    """The pool planes (and a draft pool's, ``d_``) of the blocks that
+    hold chain ``keys`` in ``cb``, as numpy (bf16 as its int16 bits)."""
+    import torch
+
+    blocks = list(cb._match_prefix(list(keys)).blocks)
+    out = dict(blocks=blocks)
+    pools = [("", cb.pool)] + ([("d_", cb.draft_pool)]
+                               if getattr(cb, "spec", False) else [])
+    for prefix, pool in pools:
+        for name in ("k", "v", "pos", "k_scale", "v_scale"):
+            arr = getattr(pool, name)
+            if arr is None:
+                continue
+            sel = arr[blocks] if name == "pos" else arr[:, :, blocks]
+            if sel.dtype == torch.bfloat16:
+                sel = sel.view(torch.int16)
+            out[prefix + name] = sel.numpy().copy()
+    return out
+
+
+def sliced_slabs(cfg, tree, kv) -> Dict[str, Any]:
+    """Two 1 x 2 slices of the pool's four ranks (``make_mesh(slices=2)``),
+    a batcher on each through its own log (``kv``: "bf16" activations and
+    KV, "int8" KV, "draft": bf16 with a self-draft's ``d_`` twins).  Each
+    slice serves a prompt of its own and exports its chain (the heads
+    gathered on its head); the heads swap the slabs over their channel
+    and each imports the other's, every rank landing its own head slice.
+    Each rank returns the planes of both chains' blocks in its pool."""
+    from jax_llama_tpu_torch.parallel import lockstep, make_mesh, slices
+
+    params, config = _model(cfg, tree)
+    config = config.replace(
+        dtype="bfloat16",
+        **({"kv_cache_dtype": "int8"} if kv == "int8" else {}))
+    mesh = make_mesh(tensor=2, devices=["cpu"] * 4, slices=2)
+    channels = slices.open_channels(mesh)
+    sp = _sharded(params, config, mesh)
+    extra = (dict(draft_params=sp, draft_config=config, n_draft=2,
+                  spec_rounds=1) if kv == "draft" else {})
+    made = []
+
+    def make(_):
+        made.append(_batcher(sp, config, mesh, n_slots=2, max_len=128,
+                             decode_chunk=1, **extra))
+        return made[-1]
+
+    prompts = [[int(t) for t in np.random.RandomState(s).randint(1, 128, 50)]
+               for s in (3, 4)]
+    from jax_llama_tpu_torch.kvcache import chain_keys
+
+    keys = [chain_keys(p, 16) for p in prompts]
+    out = dict(rank=mesh.global_rank, slice=mesh.slice,
+               tensor=mesh.coords["tensor"])
+    if mesh.rank != 0:
+        lockstep.follow(mesh, make)
+        cb = made[0]
+    else:
+        leader = lockstep.leader_for(mesh)
+        cb = leader.make(0, lambda: make(0))
+        me = mesh.slice
+        assert cb.block_size == 16
+        rid = cb.submit(prompts[me], max_new_tokens=2)
+        while cb.pending():
+            cb.step()
+        del rid
+        mine_keys, slabs = cb.export_prefix(prompts[me])
+        full = lockstep.full_slabs(slabs)
+        ch = channels[1]
+        if me == 0:
+            theirs = ch.ask({"op": "swap", "keys": mine_keys, "full": full})
+            ch.close()
+        else:
+            theirs = None
+            while True:
+                msg = ch.recv()
+                if msg["op"] == "swap":
+                    theirs = (msg["keys"], msg["full"])
+                    ch.reply("returned", (mine_keys, full))
+                    continue
+                ch.reply("returned", None)
+                if msg["op"] == "exit":
+                    break
+        out["exported"] = len(slabs)
+        out["full_heads"] = {n: tuple(v.shape) for n, v in full[0].items()}
+        out["landed"] = cb.import_prefix(*theirs)
+        leader.stop()
+    out["own"] = _planes(cb, keys[mesh.slice])
+    out["imported"] = _planes(cb, keys[1 - mesh.slice])
+    out["kv_cache_dtype"] = config.kv_cache_dtype
+    return out
