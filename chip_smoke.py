@@ -461,15 +461,17 @@ The replica router (ROADMAP A12 part 1) adds two phases after
 
 * ``http_serving`` also replays its dispatch records through a fresh
   ``OverloadController`` (the records the server's controller took): the
-  decode record right after each classic insert must have a wall per
-  iteration within C2_RATIO times the median of the steady decode
-  records (it carried the insert's device time before the repair), and
-  the decode-rate EWMA just before and just after each admission is
-  printed; and ``c2_cell`` (one row decoding, then 7 prompts of 1900
-  tokens in one classic insert whose device time outlasts the host's
-  enqueue of it and of the next chunk): the decode record after it
-  within C2_RATIO, beside a batcher whose decode records keep the host
-  wall (the fault unrepaired), for comparison.
+  decode record right after each classic insert must not be both slow
+  (over C2_RATIO times the median of the steady decode records) and
+  longer than its own dispatch's device span by more than C2_MARGIN
+  plus C2_SLACK_MS (ROADMAP C6; it carried the insert's device time
+  before the C2 repair), and the decode-rate EWMA just before and just
+  after each admission is printed; and ``c2_cell`` (one row decoding,
+  then 7 prompts of 1900 tokens in one classic insert whose device time
+  outlasts the host's enqueue of it and of the next chunk): the decode
+  record after it within that bound, beside a batcher whose record
+  spans the insert (the fault unrepaired), on which the bound must trip
+  (``c2_breaks``).
 * ``checkpoint``: after its ``--http 0`` run, ``run.main()`` with
   ``--replicas 2 --route cache-aware --http 0``: two replicas on the one
   loaded tree, two /generate replies equal to the single server's, one on
@@ -483,9 +485,10 @@ The replica router (ROADMAP A12 part 1) adds two phases after
   canaries.  Two tenants, each a 1024-token system prompt (8 blocks) and
   user turns of 20-120 tokens, 32 new tokens: one cold request each; a
   health poll; 6 concurrent revisits, each routed to its tenant's holder
-  with hit depth 8; then one holder filled with 8 long generations
-  (ROUTER_LONG_NEW tokens, prompts that share no block) and the other
-  kept decoding two more, so that a revisit spills to the other replica
+  with hit depth 8; then the other replica kept decoding two long
+  generations (ROUTER_LONG_NEW tokens, prompts that share no block) and
+  the holder filled with 8 more, so that a revisit routed as soon as
+  they are in flight spills to the other replica
   and schedules one handoff of its chain, which lands there before the
   spilled request's own fused prefill publishes it; after a health poll a
   last revisit hits at the handoff's destination.  Checks: every reply
@@ -652,13 +655,35 @@ The dress rehearsal and the runtime host-sync audit (ROADMAP A16 part
   ``host_syncs_total`` (one packed fetch); the paged kernel's launches
   are 8 a decode iteration.
 
+The batcher's programs as CUDA graphs (ROADMAP A4 part 1) and the
+program passes (A16 part 3) add one phase after ``hostsync_runtime``,
+and every unsharded batcher of the earlier phases now replays its decode
+programs' graphs (``serving``, ``selected_serving``, ``int8_serving``,
+``spec_serving`` and ``http_serving`` print ``graph_replays`` and fail
+without one), each phase with its launch counts and checks unchanged:
+
+* ``programs``: a speculative batcher at llama3-8b width, PROGRAMS_LAYERS
+  deep, 8 rows (4 greedy, 4 sampled), its decode programs called
+  directly -- PROGRAMS_CALLS decode chunks of PROGRAMS_K, two decode
+  steps, two rounds, PROGRAMS_CALLS chunks of PROGRAMS_R rounds --
+  first under the batcher's graph store (a capture, then replays), then
+  from the same state through the undecorated functions
+  (``__wrapped__``, no graph store): every fetch equal and the pools
+  bit-equal; every captured graph read back through libcuda
+  (``graph_census``: at least as many kernel nodes as the hand-written
+  kernels its capture recorded, no memcpy node as large as one pool
+  plane); the retrace drill's admission sweep on the card
+  (``analysis.retrace.sweep``), each program's new keys within its
+  contract; decode ms per iteration and the busy share with graphs and
+  eagerly, in turns, beside the card's name and power limit.
+
 With them three checks of earlier phases: ``mesh_router`` holds every
 request whose tokens part from the unsharded router's to a near-tie
 below DECODE_REL (``divergences_unsharded``); ``http_serving`` prints
 its worst decode record after a classic insert (``c2_worst``: its
 cell, index, ratio to the steady median, whether it started before the
-insert's end event, its device ms beside its host wall; C2_RATIO
-unchanged); and ``kernel_check``'s ``tp2_train`` rows add a dropout
+insert's end event, its device ms beside its host wall; held to the
+C6 bound); and ``kernel_check``'s ``tp2_train`` rows add a dropout
 cell keyed on global offsets (TP2_DROPOUT_OFFSETS: a rank's slice of a
 split mesh's mask) for the forward, dQ and dK/dV kernels.
 
@@ -830,9 +855,15 @@ T0 = time.perf_counter()
 
 def emit(obj) -> None:
     """Print one JSON line; a phase's line also carries ``at_s``, the
-    script's seconds when it was printed."""
+    script's seconds when it was printed, and the card's memory then
+    (GiB allocated and reserved by PyTorch)."""
     if "phase" in obj:
         obj = dict(obj, at_s=time.perf_counter() - T0)
+        torch = sys.modules.get("torch")
+        if torch is not None and torch.cuda.is_initialized():
+            obj["cuda_memory_gib"] = dict(
+                allocated=torch.cuda.memory_allocated() / 2**30,
+                reserved=torch.cuda.memory_reserved() / 2**30)
     print(json.dumps(obj), flush=True)
 
 
@@ -2499,7 +2530,8 @@ def drive_serving(torch, ptl, fa, pa, params, cfg, tok, phase="serving",
     L = cfg.n_layers
     results, rids = {}, {}
     steady_ms, steady_iters, steady_tokens = [], 0, 0
-    quiet_steps, quiet_bad = 0, []
+    replayed = [0.0, 0, 0]     # ms, iterations, tokens of steps that
+    quiet_steps, quiet_bad = 0, []    # captured no graph
     zero_counts(fa, pa)
     t0 = time.perf_counter()
     for i in range(6):
@@ -2533,6 +2565,11 @@ def drive_serving(torch, ptl, fa, pa, params, cfg, tok, phase="serving",
             steady_ms.append(wall)
             steady_iters += after["decode_chunk_size"]
             steady_tokens += len(events)
+            if (after["graph_captures_total"]
+                    == before["graph_captures_total"]):
+                replayed[0] += wall
+                replayed[1] += after["decode_chunk_size"]
+                replayed[2] += len(events)
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
     stats = cb.stats()
@@ -2595,11 +2632,24 @@ def drive_serving(torch, ptl, fa, pa, params, cfg, tok, phase="serving",
         steady_steps=len(steady_ms), steady_iterations=steady_iters,
         decode_ms_per_iteration=wall / steady_iters if steady_iters else None,
         tokens_per_s=steady_tokens / wall * 1e3 if wall else None,
+        # The steady steps that captured no graph (each key's first call
+        # runs eagerly and captures): replays only.
+        replayed_iterations=replayed[1],
+        replayed_ms_per_iteration=(replayed[0] / replayed[1]
+                                   if replayed[1] else None),
+        replayed_tokens_per_s=(replayed[2] / replayed[0] * 1e3
+                               if replayed[0] else None),
         insert_ms=insert_ms, insert_rows=8,
         busy_share=profile["device_busy_share"], profile_3_steps=profile,
         profile_insert=insert_profile,
+        graph_captures=stats["graph_captures_total"],
+        graph_replays=stats["graph_replays_total"],
     )
     emit(row)
+    if not stats["graph_replays_total"]:
+        raise AssertionError(f"{phase}: the decode programs replayed no "
+                             f"graph ({stats['graph_captures_total']} "
+                             f"captured)")
     suffix = "_int8" if int8 else ""
     steps = stats["decode_steps_total"]
     inserts = stats["insert_dispatches_total"]
@@ -2673,9 +2723,15 @@ HTTP_STREAMS = tuple(range(1, 12, 2))  # 6 of the 12 requests stream
 HTTP_QUANTILES = (0.5, 0.95)
 # The decode record after a classic insert, per iteration, over the steady
 # decode records' median (ROADMAP C2: it carried the insert's device time).
-# c2_cell's long insert while a row decodes: rows, prompt tokens, and the
-# decoding row's new tokens.
+# A record fails only when it is both slow (over C2_RATIO times the
+# steady median) and longer than its own dispatch's device span (from the
+# event at its start to the one before its fetch) by more than
+# C2_MARGIN of that span plus C2_SLACK_MS (ROADMAP C6): only time that is
+# not its own can make a record outlast its own span, however slow the
+# host.  c2_cell's long insert while a row decodes: rows, prompt tokens,
+# and the decoding row's new tokens.
 C2_RATIO = 1.5
+C2_MARGIN, C2_SLACK_MS = 0.10, 2.0
 C2_ROWS, C2_PROMPT_TOKENS, C2_DECODE_NEW = 7, 1900, 64
 # Series that /metrics must carry (the JAX package's names; every other
 # scalar is checked against the port's registry, obs.METRICS).
@@ -2722,7 +2778,14 @@ def http_request(url, path, payload=None, timeout=900, headers=None):
         with urllib.request.urlopen(req, timeout=timeout) as r:
             return r.status, dict(r.headers), r.read()
     except urllib.error.HTTPError as e:
-        return e.code, dict(e.headers), e.read()
+        try:
+            body = e.read()
+        except ConnectionError:
+            # A refusal the server sends before reading the request body
+            # (drain, shutdown, the breaker) can reset the connection
+            # under its reply; the status and the headers arrived.
+            body = b""
+        return e.code, dict(e.headers), body
 
 
 def http_json(url, path):
@@ -2903,25 +2966,51 @@ def c2_probe(torch, cb):
     return probes
 
 
+def c2_record_probe(w, probes):
+    """The probe (``c2_probe``) of a waited decode record: the one whose
+    recorded wall is the record's, or None (a fetch after two inserts, or
+    a fused dispatch's, leaves a probe and no waited record)."""
+    probe = min(probes, default=None, key=lambda p: abs(
+        p["recorded_wall_ms"] - w["wall_ms"]))
+    if probe is not None and abs(
+            probe["recorded_wall_ms"] - w["wall_ms"]) > 0.01:
+        return None
+    return probe
+
+
+def c2_verdicts(timing, probes):
+    """C6: each decode record after a classic insert (``insert_timing``'s
+    ``waited``) with its probe and whether it breaks the bound: slow
+    (ratio over C2_RATIO) and longer than its own device span by more
+    than the margin.  A record with no probe cannot be cleared and breaks
+    it."""
+    out = []
+    for w in timing["waited"]:
+        probe = c2_record_probe(w, probes)
+        own = (probe["device_ms"] * (1 + C2_MARGIN) + C2_SLACK_MS
+               if probe is not None else None)
+        slow = (w["ratio_to_steady_median"] or 0.0) > C2_RATIO
+        out.append(dict(seq=w["seq"], ratio=w["ratio_to_steady_median"],
+                        wall_ms=w["wall_ms"],
+                        device_ms=probe and probe["device_ms"],
+                        own_bound_ms=own,
+                        breaks=slow and (own is None or w["wall_ms"] > own)))
+    return out
+
+
 def c2_worst(cells):
     """C4: the worst decode record after a classic insert over ``cells``
     ({name: (insert_timing's result, c2_probe's list)}): its cell, index
     among that cell's waited records, seq, ratio to the steady median and
-    its probe (insert overlap, device time beside host wall), found as
-    the probe whose recorded wall is the record's (a fetch after two
-    inserts, or a fused dispatch's, leaves a probe and no waited
-    record)."""
+    its probe (insert overlap, device time beside host wall;
+    ``c2_record_probe``)."""
     worst = None
     for name, (timing, probes) in cells.items():
         for i, w in enumerate(timing["waited"]):
             ratio = w["ratio_to_steady_median"]
             if ratio is None or (worst and ratio <= worst["ratio"]):
                 continue
-            probe = min(probes, default=None, key=lambda p: abs(
-                p["recorded_wall_ms"] - w["wall_ms"]))
-            if probe is not None and abs(
-                    probe["recorded_wall_ms"] - w["wall_ms"]) > 0.01:
-                probe = None
+            probe = c2_record_probe(w, probes)
             worst = dict(cell=name, index=i, seq=w["seq"], ratio=ratio,
                          steady_median_ms_per_iteration=timing[
                              "steady_ms_per_iteration_median"],
@@ -2936,10 +3025,12 @@ def c2_cell(torch, ptl, params, cfg, tok):
     of C2_PROMPT_TOKENS tokens admitted in one classic insert, whose
     device time outlasts the host's enqueue of it and of the next chunk;
     the decode record right after it (``insert_timing``) on a batcher as
-    it is ("repaired") and on one whose decode records keep the host wall
-    ("unrepaired").  The admitted rows' upload before that decode
-    dispatch is a pageable copy, which waits for the insert, so the two
-    read alike while that upload stays blocking."""
+    it is ("repaired") and on one whose decode record spans the insert
+    ("unrepaired": measured from the first unsettled insert's start event
+    to the fetch, the span C2's records had when their clock began before
+    the insert ended; the port's admitted-row upload is a pageable copy
+    that waits for the insert, so a record on the bare host wall no
+    longer holds it).  The C6 bound must trip on the unrepaired one."""
     import numpy as np
 
     rng = np.random.default_rng(3)
@@ -2952,7 +3043,9 @@ def c2_cell(torch, ptl, params, cfg, tok):
         cb = ptl.ContinuousBatcher(params, cfg, n_slots=8, max_len=2048,
                                    decode_chunk=8, device="cuda")
         if variant == "unrepaired":
-            cb._wall_past_inserts = lambda wall_ms, fetched: wall_ms
+            cb._wall_past_inserts = (
+                lambda wall_ms, fetched, cb=cb: wall_ms if fetched is None
+                else cb._unsettled[0][2].elapsed_time(fetched))
         probes = c2_probe(torch, cb)
         cb.submit(serve_prompts(tok)[1], max_new_tokens=C2_DECODE_NEW)
         for _ in range(3):
@@ -2961,7 +3054,9 @@ def c2_cell(torch, ptl, params, cfg, tok):
             cb.submit(p, max_new_tokens=4)
         while cb.pending():
             cb.step()
-        out[variant] = dict(insert_timing(records(cb)), probes=probes)
+        timing = insert_timing(records(cb))
+        out[variant] = dict(timing, probes=probes,
+                            verdicts=c2_verdicts(timing, probes))
         del cb
     torch.cuda.empty_cache()
     return out
@@ -3079,6 +3174,7 @@ def drive_http_serving(torch, ptl, fa, pa, params, cfg, tok, smi, serve_row,
             sum(r["prefill_tokens"] for r in ins) / (ins_ms / 1000.0)
             if ins_ms else None),
         prefill_tokens_per_s_ewma=samples["llm_prefill_tokens_per_s_ewma"],
+        graph_replays=samples["llm_graph_replays_total"],
         batcher_ms_per_iteration=(sorted(own)[len(own) // 2]
                                   if own else None),
         loop_ms_per_iteration=(sorted(period)[len(period) // 2]
@@ -3086,7 +3182,8 @@ def drive_http_serving(torch, ptl, fa, pa, params, cfg, tok, smi, serve_row,
         steady_iterations_seen=len(period),
         serving_decode_ms_per_iteration=serve_row["decode_ms_per_iteration"],
         insert_timing=dict(c2, probes=c2_probes),
-        insert_timing_bound=C2_RATIO,
+        insert_timing_bound=dict(ratio=C2_RATIO, margin=C2_MARGIN,
+                                 slack_ms=C2_SLACK_MS),
         c2_cell=c2_cell(torch, ptl, params, cfg, tok),
         metrics_series=len(samples), missing_series=missing,
         healthz=dict(status=health_status, ok=health["ok"],
@@ -3100,7 +3197,19 @@ def drive_http_serving(torch, ptl, fa, pa, params, cfg, tok, smi, serve_row,
         "http_serving": (c2, c2_probes),
         "c2_cell": (row["c2_cell"]["repaired"],
                     row["c2_cell"]["repaired"]["probes"])})
+    row["c2_worst_unrepaired"] = c2_worst({
+        "c2_cell": (row["c2_cell"]["unrepaired"],
+                    row["c2_cell"]["unrepaired"]["probes"])})
+    row["c2_breaks"] = dict(
+        http_serving=sum(v["breaks"] for v in c2_verdicts(c2, c2_probes)),
+        repaired=sum(v["breaks"] for v in
+                     row["c2_cell"]["repaired"]["verdicts"]),
+        unrepaired=sum(v["breaks"] for v in
+                       row["c2_cell"]["unrepaired"]["verdicts"]))
     emit(row)
+    if not row["graph_replays"]:
+        raise AssertionError("http_serving: the server's batcher replayed "
+                             "no graph")
     if statuses != [200] * 12 or not row["all_sent_before_first_done"]:
         raise AssertionError(f"http_serving: statuses {statuses}, all sent "
                              f"first: {row['all_sent_before_first_done']}")
@@ -3125,12 +3234,15 @@ def drive_http_serving(torch, ptl, fa, pa, params, cfg, tok, smi, serve_row,
             or "trace" not in bundle):
         raise AssertionError(f"http_serving surfaces: {row['healthz']}, "
                              f"missing {missing}")
-    waited = c2["waited"] + row["c2_cell"]["repaired"]["waited"]
-    if not c2["waited"] or not row["c2_cell"]["repaired"]["waited"] or any(
-            w["ratio_to_steady_median"] > C2_RATIO for w in waited):
+    breaks = row["c2_breaks"]
+    if (not c2["waited"] or not row["c2_cell"]["repaired"]["waited"]
+            or breaks["http_serving"] or breaks["repaired"]
+            or not breaks["unrepaired"]):
         raise AssertionError(f"http_serving: the decode records after a "
-                             f"classic insert: worst {row['c2_worst']}; "
-                             f"{c2}, {row['c2_cell']}")
+                             f"classic insert: breaks {breaks}, worst "
+                             f"{row['c2_worst']}, unrepaired "
+                             f"{row['c2_worst_unrepaired']}; {c2}, "
+                             f"{row['c2_cell']}")
     if not profile["ok"]:
         raise AssertionError(f"http_serving: the profiler cross-check "
                              f"{profile}")
@@ -3754,7 +3866,10 @@ def drive_spec_serving(torch, np, ptl, llama, fa, pa, params, cfg, smi):
         host_syncs_per_token=stats["host_syncs_per_token"],
         spec_host_syncs_per_token=stats["spec_host_syncs_per_token"],
         busy_share=profile["device_busy_share"], profile_1_round=profile,
-        stats=stats)
+        graph_replays=stats["graph_replays_total"], stats=stats)
+    if not stats["graph_replays_total"]:
+        raise AssertionError("spec_serving: the speculative rounds replayed "
+                             "no graph")
     want = dict(NO_LAUNCHES,
                 flash_fwd=2 * L * stats["insert_dispatches_total"],
                 paged_decode=(SPEC_DRAFT + 2) * L * rounds,
@@ -5711,7 +5826,10 @@ ROUTER_NEW = 32          # new tokens per tenant request
 ROUTER_REVISITS = 3      # wave 2: concurrent revisits per tenant
 ROUTER_LONG = 8          # long generations that fill the spilling holder
 ROUTER_BUSY = 2          # long generations that keep the spill target busy
-ROUTER_LONG_NEW = 256
+# The spill target's long generations must still decode when the spill is
+# routed, after their first tokens and the holder's 8 admissions: with the
+# decode programs replayed as CUDA graphs, 256 tokens ended before that.
+ROUTER_LONG_NEW = 1024
 ROUTER_TURN_CHARS = (20, 121)    # user turns: a prompt keys 8 blocks
 ROUTER_LONG_CHARS = (160, 201)
 ROUTER_WAIT_S = 300.0
@@ -5862,27 +5980,29 @@ def drive_router_serving(torch, np, ptl, fa, pa, params, cfg, tok, smi):
                         sys_ids[t] + tok.encode(turns[t][1 + j]), ROUTER_NEW)
                     for j in range(ROUTER_REVISITS) for t in (0, 1)]
         send(revisits)
-        # Wave 3: tenant 0's holder filled with long generations (the other
-        # replica retired from picks meanwhile), two more on the other
-        # replica, which keep it decoding: the spilled revisit is then a
-        # fused admission, whose chain is published after its last chunk,
-        # so the handoff's import lands first.
+        router.check_health_now()
+        # Wave 3: two long generations on the other replica (tenant 0's
+        # holder retired from picks meanwhile), which keep it decoding,
+        # then the holder filled with 8 more: the revisit routed as soon as
+        # the router counts them in flight spills to the other replica,
+        # where it is a fused admission, whose chain is published after its
+        # last chunk, so the handoff's import lands first.
         ha, hb = holder
         long_a = [add(f"long-a{j}", tok.encode(longs[j], bos=True),
                       ROUTER_LONG_NEW) for j in range(ROUTER_LONG)]
         long_b = [add(f"long-b{j}", tok.encode(longs[ROUTER_LONG + j],
                                                bos=True), ROUTER_LONG_NEW)
                   for j in range(ROUTER_BUSY)]
-        for rids, on, off in ((long_a, ha, hb), (long_b, hb, ha)):
+        for rids, on, off in ((long_b, hb, ha), (long_a, ha, hb)):
             router.set_retiring(off)
             send(rids, wait=False)
             wait_until(lambda: router.health()["replicas"][on]["inflight"]
                        >= len(rids), f"{len(rids)} long requests on {on}")
             router.set_retiring(off, False)
-        wait_until(lambda: all(out[r]["ttft_ms"] is not None
-                               for r in long_a + long_b),
-                   "the long generations' first tokens")
-        router.check_health_now()
+            if rids is long_b:
+                wait_until(lambda: all(out[r]["ttft_ms"] is not None
+                                       for r in rids),
+                           f"the long generations' first tokens on {on}")
         spill = add("t0-spill", sys_ids[0] + tok.encode(turns[0][4]),
                     ROUTER_NEW)
         send([spill])
@@ -6356,6 +6476,7 @@ def drive_fleet_serving(torch, np, ptl, fa, pa, params, cfg, tok, smi):
         torch.cuda.synchronize()
         gc.collect()
         mem_before_up = torch.cuda.memory_allocated()
+        reserved_before_up = torch.cuda.memory_reserved()
         zero_counts(fa, pa)
         t_phase = time.perf_counter()
         # 1. Pressure: the two tenants' burst, more requests than slots,
@@ -6431,6 +6552,7 @@ def drive_fleet_serving(torch, np, ptl, fa, pa, params, cfg, tok, smi):
         torch.cuda.synchronize()
         gc.collect()
         mem_three = torch.cuda.memory_allocated()
+        reserved_three = torch.cuda.memory_reserved()
         # Calm: the burst's queue waits age out of the replicas' signal
         # windows.
         t_calm = time.perf_counter()
@@ -6472,6 +6594,7 @@ def drive_fleet_serving(torch, np, ptl, fa, pa, params, cfg, tok, smi):
         gc.collect()
         torch.cuda.synchronize()
         mem_after = torch.cuda.memory_allocated()
+        reserved_after = torch.cuda.memory_reserved()
         # 3. Each session's revisit on its new home.
         router.check_health_now()
         revisits = [add(f"revisit-{t}", prompts[f"session-{t}-0"][0])
@@ -6551,6 +6674,9 @@ def drive_fleet_serving(torch, np, ptl, fa, pa, params, cfg, tok, smi):
                           three_replicas=mem_three, after_retire=mem_after,
                           difference=mem_after - mem_before_up,
                           freed=mem_three - mem_after,
+                          reserved=dict(before_burst=reserved_before_up,
+                                        three_replicas=reserved_three,
+                                        after_retire=reserved_after),
                           grown_pool=pool_bytes.get(grown)),
         prefix_hits={i: s["prefix_requests_hit_total"]
                      for i, s in stats.items()},
@@ -8996,6 +9122,243 @@ def sync_site_sanctioned(path, line):
     return Pragmas.scan(source).allows("host-fetch", *spans)
 
 
+# Phase ``programs`` (ROADMAP A4 part 1, A16 part 3): one speculative
+# batcher at llama3-8b width, PROGRAMS_LAYERS deep, its decode programs
+# called directly, first through their graphs and then eagerly
+# (``__wrapped__``) from the same state.
+PROGRAMS_LAYERS = 8
+PROGRAMS_K, PROGRAMS_R, PROGRAMS_CALLS = 8, 4, 4
+PROGRAMS_NEW = 400
+
+
+def graph_census(store):
+    """Every graph ``store`` captured, read back through libcuda
+    (``cuGraphGetNodes``, ``cuGraphNodeGetType``,
+    ``cuGraphMemcpyNodeGetParams`` on ``CUDAGraph.raw_cuda_graph()``):
+    its nodes by type, its kernel nodes beside the hand-written kernels
+    its capture recorded, and its largest memcpy node's bytes."""
+    import ctypes
+
+    cu = ctypes.CDLL("libcuda.so.1")
+    cu.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                   ctypes.POINTER(ctypes.c_size_t)]
+    cu.cuGraphNodeGetType.argtypes = [ctypes.c_void_p,
+                                      ctypes.POINTER(ctypes.c_int)]
+    cu.cuGraphMemcpyNodeGetParams.argtypes = [ctypes.c_void_p,
+                                              ctypes.c_void_p]
+    # libcuda's CUDA_MEMCPY3D (cuda.h): a source and a destination
+    # description, then the extent.
+    size, ptr = ctypes.c_size_t, ctypes.c_void_p
+    side = [("XInBytes", size), ("Y", size), ("Z", size), ("LOD", size),
+            ("MemoryType", ctypes.c_int), ("Host", ptr), ("Device", ptr),
+            ("Array", ptr), ("reserved", ptr), ("Pitch", size),
+            ("Height", size)]
+
+    class Memcpy3D(ctypes.Structure):
+        _fields_ = ([("src" + n, t) for n, t in side]
+                    + [("dst" + n, t) for n, t in side]
+                    + [("WidthInBytes", size), ("Height", size),
+                       ("Depth", size)])
+
+    names = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host", 4: "graph",
+             5: "empty", 6: "wait_event", 7: "event_record"}
+    out = []
+    for g in store.graphs.values():
+        raw = ctypes.c_void_p(g.graph.raw_cuda_graph())
+        n = ctypes.c_size_t(0)
+        if cu.cuGraphGetNodes(raw, None, ctypes.byref(n)):
+            raise RuntimeError(f"cuGraphGetNodes failed for {g.program}")
+        nodes = (ctypes.c_void_p * n.value)()
+        if cu.cuGraphGetNodes(raw, nodes, ctypes.byref(n)):
+            raise RuntimeError(f"cuGraphGetNodes failed for {g.program}")
+        by_type, biggest = {}, 0
+        for node in nodes:
+            t = ctypes.c_int(-1)
+            if cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(t)):
+                raise RuntimeError("cuGraphNodeGetType failed")
+            name = names.get(t.value, str(t.value))
+            by_type[name] = by_type.get(name, 0) + 1
+            if name == "memcpy":
+                p = Memcpy3D()
+                if cu.cuGraphMemcpyNodeGetParams(ctypes.c_void_p(node),
+                                                 ctypes.byref(p)):
+                    raise RuntimeError("cuGraphMemcpyNodeGetParams failed")
+                biggest = max(biggest, p.WidthInBytes * max(p.Height, 1)
+                              * max(p.Depth, 1))
+        out.append(dict(program=g.program, nodes=n.value, by_type=by_type,
+                        custom_kernels=g.custom_kernels,
+                        max_memcpy_bytes=biggest, replays=g.replays))
+    return out
+
+
+def drive_programs(torch, ptl, params, cfg, tok, smi):
+    """Phase ``programs`` (module docstring): replay against eager, the
+    graphs' node census, the retrace sweep's key counts on the card, and
+    decode ms per iteration and busy share with graphs and without."""
+    from jax_llama_tpu_torch import serving
+    from jax_llama_tpu_torch.analysis import retrace
+    from jax_llama_tpu_torch.analysis.contracts import REGISTRY
+
+    t0 = time.perf_counter()
+    L = PROGRAMS_LAYERS
+    p8 = dict(params, layers={k: w[:L] for k, w in params["layers"].items()})
+    c8 = cfg.replace(n_layers=L)
+    cb = ptl.ContinuousBatcher(p8, c8, n_slots=8, max_len=2048,
+                               decode_chunk=PROGRAMS_K, draft_params=p8,
+                               draft_config=c8, n_draft=3,
+                               spec_rounds=PROGRAMS_R, device="cuda")
+    for i, prompt in enumerate(serve_prompts(tok)[:8]):
+        sampled = i % 2 == 1
+        cb.submit(prompt, max_new_tokens=PROGRAMS_NEW,
+                  temperature=0.8 if sampled else 0.0,
+                  top_k=50 if sampled else None,
+                  seed=1000 + i if sampled else None)
+    cb.step()                         # the admission and its first round
+    torch.cuda.synchronize()
+    store = cb._graphs
+    pools = [cb.pool, cb.draft_pool]
+    planes = [getattr(p, n) for p in pools for n in ("k", "v", "pos")]
+    twins = [cb.d_fill, cb.tau, cb.d_tau_lp, cb.d_pos, cb.d_active,
+             cb.d_remaining]
+    start = ([t.clone() for t in planes + twins],
+             [g.get_state() for g in cb.generators])
+    gens = list(cb.generators)
+    common = (cb.d_table, cb.d_n_alloc)
+    policies = (cb.d_temps, cb.d_top_ps, cb.d_top_ks)
+
+    def restore():
+        for t, saved in zip(planes + twins, start[0]):
+            t.copy_(saved)
+        for g, state in zip(cb.generators, start[1]):
+            g.set_state(state)
+
+    def run(wrapped):
+        """The sequence: PROGRAMS_CALLS decode chunks, two decode steps
+        and two speculative rounds, PROGRAMS_CALLS chunks of rounds; each
+        call's fetch surface, copied.  ``wrapped``: the undecorated
+        functions, the carry applied here as the decorator applies it."""
+        out = []
+
+        def call(prog, args, kw, donated):
+            fn = prog.__wrapped__ if wrapped else prog
+            res = fn(*args, **kw)
+            if wrapped:
+                for name, i in donated:
+                    dst = getattr(cb, name)
+                    if res[i] is not dst:
+                        dst.copy_(res[i])
+            first = res[0] if isinstance(res, tuple) else res
+            out.append(first.clone())
+            if isinstance(res, tuple) and prog is serving._spec_round_core:
+                out.append(res[1].clone())
+
+        carry = [("tau", 1), ("d_tau_lp", 2), ("d_fill", 3), ("d_pos", 4),
+                 ("d_active", 5), ("d_remaining", 6)]
+        for _ in range(PROGRAMS_CALLS):
+            call(serving._chunk_scan, (
+                cb.params, cb.pool, *common, cb.d_fill, cb.tau, cb.d_tau_lp,
+                cb.d_pos, cb.d_active, cb.d_remaining, cb.d_stops, gens,
+                *policies), dict(config=cb.config, n_iter=PROGRAMS_K,
+                                 use_kernel=True, all_greedy=False), carry)
+        for _ in range(2):            # a capture, then a replay
+            call(serving._decode_step_core, (
+                cb.params, cb.pool, *common, cb.d_fill, cb.tau, cb.d_pos,
+                cb.d_active, gens, *policies), dict(
+                    config=cb.config, use_kernel=True, all_greedy=False), [])
+            call(serving._spec_round_core, (
+                cb.params, cb.draft_params, cb.pool, cb.draft_pool, *common,
+                cb.d_fill, cb.tau, cb.d_pos, cb.d_active, gens, *policies),
+                dict(t_config=cb.config, d_config=cb.draft_config,
+                     n_draft=3, use_kernel=True, all_greedy=False), [])
+        for _ in range(PROGRAMS_CALLS):
+            call(serving._spec_rounds_chunk, (
+                cb.params, cb.draft_params, cb.pool, cb.draft_pool, *common,
+                cb.d_fill, cb.tau, cb.d_tau_lp, cb.d_pos, cb.d_active,
+                cb.d_remaining, cb.d_stops, gens, *policies), dict(
+                    t_config=cb.config, d_config=cb.draft_config,
+                    n_draft=3, n_rounds=PROGRAMS_R, use_kernel=True,
+                    all_greedy=False), carry)
+        torch.cuda.synchronize()
+        return out, [t.clone() for t in planes]
+
+    with torch.no_grad():
+        with serving.use_graphs(store):
+            graph_out, graph_pool = run(False)
+        restore()
+        # Eager: the undecorated functions, and no graph store for the
+        # programs they call inside (the decode step in a chunk, the round
+        # in a chunk of rounds), which then run as they would on the CPU.
+        eager_out, eager_pool = run(True)
+    fetch_equal = len(graph_out) == len(eager_out) and all(
+        torch.equal(a, b) for a, b in zip(graph_out, eager_out))
+    pool_diff = max(float((a.float() - b.float()).abs().max())
+                    for a, b in zip(graph_pool, eager_pool))
+    census = graph_census(store)
+    plane_bytes = cb.pool.k[0].numel() * cb.pool.k.element_size()
+    census_ok = all(c["by_type"].get("kernel", 0) >= c["custom_kernels"] > 0
+                    and c["max_memcpy_bytes"] < plane_bytes for c in census)
+    captured = sorted({c["program"] for c in census})
+
+    # Decode ms per iteration and the device's busy share: the chunk
+    # replayed, then the undecorated function on the same state.
+    def chunk(wrapped):
+        fn = (serving._chunk_scan.__wrapped__ if wrapped
+              else serving._chunk_scan)
+        with torch.no_grad(), serving.use_graphs(None if wrapped else store):
+            return fn(cb.params, cb.pool, *common, cb.d_fill, cb.tau,
+                      cb.d_tau_lp, cb.d_pos, cb.d_active, cb.d_remaining,
+                      cb.d_stops, gens, *policies, config=cb.config,
+                      n_iter=PROGRAMS_K, use_kernel=True, all_greedy=False)
+
+    timing = {}
+    for name, wrapped in (("graphs", False), ("eager", True),
+                          ("eager_2", True), ("graphs_2", False)):
+        ms = time_ms(torch, lambda w=wrapped: chunk(w), iters=3, warmup=1)
+        timing[name] = ms / PROGRAMS_K
+    busy = {name: device_profile(torch, lambda w=wrapped: [
+        chunk(w) for _ in range(2)])["device_busy_share"]
+        for name, wrapped in (("graphs", False), ("eager", True))}
+    cb.close()
+    del cb
+
+    # The retrace drill's admission sweep on the card (8 layers, the
+    # contracts' batcher geometry), each program's key count held to its
+    # contract.
+    before = serving.jit_cache_entries()
+    retrace.sweep(device="cuda", params=p8, config=c8)
+    after = serving.jit_cache_entries()
+    overruns = retrace.check_deltas(before, after)
+    del p8
+    torch.cuda.empty_cache()
+    row = dict(phase="programs", card=smi, config="llama3-8b", n_layers=L,
+               dtype="bfloat16", decode_chunk=PROGRAMS_K,
+               spec_rounds=PROGRAMS_R, calls_per_program=PROGRAMS_CALLS,
+               graphs=len(census), captured_programs=captured,
+               fetches_compared=len(graph_out), fetches_equal=fetch_equal,
+               pool_max_abs_diff=pool_diff, census=census,
+               pool_plane_bytes=plane_bytes, census_ok=census_ok,
+               decode_ms_per_iteration=timing,
+               busy_share=busy,
+               key_deltas={k: after[k] - before.get(k, 0) for k in after},
+               key_budgets={k: c.max_cache_keys for k, c in REGISTRY.items()},
+               key_overruns=[f.message for f in overruns],
+               seconds=time.perf_counter() - t0)
+    emit(row)
+    want = {"_paged_decode_chunk", "_paged_decode_step", "_spec_round",
+            "_spec_rounds_chunk"}
+    if not fetch_equal or pool_diff != 0.0:
+        raise AssertionError(f"programs: graph replay against eager: "
+                             f"fetches equal {fetch_equal}, pool max abs "
+                             f"diff {pool_diff}")
+    if not census_ok or not want <= set(captured):
+        raise AssertionError(f"programs: captured {captured}, census "
+                             f"{census}")
+    if overruns:
+        raise AssertionError(f"programs: key counts over their contracts: "
+                             f"{row['key_overruns']}")
+    return row
+
+
 def drive_hostsync_runtime(torch, ptl, fa, pa, params, cfg, tok, smi):
     """Phase ``hostsync_runtime`` (module docstring)."""
     import traceback
@@ -9407,6 +9770,9 @@ def main() -> int:
     rehearsal_row = drive_rehearsal(torch, fa, pa, smi)
     hostsync_row = drive_hostsync_runtime(torch, ptl, fa, pa, params, cfg,
                                           tok, smi)
+    # Phase 5i: the batcher's programs as CUDA graphs (ROADMAP A4 part 1)
+    # and the program passes' card reading (A16 part 3).
+    drive_programs(torch, ptl, params, cfg, tok, smi)
 
     # Phase 6: paged = gathered = standalone generate.
     paged_invariant(torch, ptl, engine, serving, params, cfg, tok)

@@ -6,10 +6,16 @@ and exit codes).
     python -m jax_llama_tpu_torch.analysis                  # every pass
     python -m jax_llama_tpu_torch.analysis --checker host   # one pass
     python -m jax_llama_tpu_torch.analysis --no-trace       # skip the
-                                                  # comms budgets (they
-                                                  # spawn two ranks)
+                                                  # layers that run
+                                                  # programs (lowering's
+                                                  # recorded runs, the
+                                                  # retrace drill, the
+                                                  # comms budgets)
     python -m jax_llama_tpu_torch.analysis path/to/file.py  # lint files
                                                   # (host + lock only)
+    python -m jax_llama_tpu_torch.analysis --contracts pkg.mod
+                                                  # audit an external
+                                                  # REGISTRY (tests)
     python -m jax_llama_tpu_torch.analysis --json           # findings
                                                   # as JSON, per-pass
                                                   # exit codes
@@ -25,15 +31,12 @@ Exit codes: 0 clean, 1 findings, 2 usage/internal error.  Under
     10 host-boundary   11 lowering   12 lock-discipline
     13 retrace         14 comms      15 schedules        16 metrics
 
-``--checker lowering``, ``--checker retrace`` and ``--contracts`` are
-the JAX package's jaxpr passes, ROADMAP A16 part 3: the port has no
-compiled program for them to read until its CUDA graphs (A4), so they
-exit 2 and say so.
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
 import sys
 from typing import List, Optional, Sequence
@@ -41,6 +44,7 @@ from typing import List, Optional, Sequence
 from .common import Finding, Pragmas, iter_package_sources
 from .hostsync import HostBoundaryChecker
 from .lockcheck import LockDisciplineChecker
+from .lowering import LoweringAuditor
 
 # Pass order is the exit-code order (module docstring).
 PASS_CODES = {
@@ -52,11 +56,6 @@ _CHECKER_CHOICES = (
     "all", "host", "lowering", "lock", "retrace", "comms",
     "schedules", "metrics",
 )
-
-_PART3 = ("is the JAX package's jaxpr pass, ROADMAP A16 part 3: the port "
-          "has no compiled program for it to read until its CUDA graphs "
-          "(A4)")
-
 
 def _file_findings(paths: Sequence[str], checker: str) -> List[Finding]:
     out: List[Finding] = []
@@ -109,21 +108,23 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     parser = argparse.ArgumentParser(
         prog="python -m jax_llama_tpu_torch.analysis",
         description="Invariant auditor for the port's serving stack "
-                    "(host-boundary lint, lock discipline, schedule "
-                    "models, metrics registry, comms budgets).",
+                    "(host-boundary lint, lowering contracts, lock "
+                    "discipline, retrace domains, comms budgets, schedule "
+                    "models, metrics registry).",
     )
     parser.add_argument(
         "--checker", choices=_CHECKER_CHOICES, default="all",
     )
     parser.add_argument(
         "--no-trace", action="store_true",
-        help="skip the comms budgets, which run the serving programs on "
-             "two spawned ranks (the static layers still run)",
+        help="skip the layers that run programs: the lowering auditor's "
+             "recorded runs, the retrace drill and the comms budgets, "
+             "which spawn two ranks (the static layers still run)",
     )
     parser.add_argument(
         "--contracts", metavar="MODULE",
-        help="the JAX package's external lowering REGISTRY hook: ROADMAP "
-             "A16 part 3, not in the port yet",
+        help="import MODULE and audit its REGISTRY instead of the "
+             "built-in one (fixture/testing hook)",
     )
     parser.add_argument(
         "--json", action="store_true",
@@ -146,11 +147,14 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     if args.report:
         print(json.dumps(_report(), indent=2))
         return 0
-    if args.contracts:
-        print(f"--contracts {_PART3}", file=sys.stderr)
-        return 2
-    if args.checker in ("lowering", "retrace"):
-        print(f"--checker {args.checker} {_PART3}", file=sys.stderr)
+    if args.contracts and args.no_trace:
+        # An external registry has ONLY the recorded-run layer --
+        # static-only would silently audit nothing.
+        print(
+            "--contracts audits an external registry's programs; "
+            "--no-trace would skip the only layer it has",
+            file=sys.stderr,
+        )
         return 2
     if args.no_trace and args.checker == "comms":
         # The comms pass IS the two-rank run -- "clean" under --no-trace
@@ -158,6 +162,17 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         print(
             "--checker comms has only the two-rank layer; --no-trace "
             "would skip it and report a vacuous clean",
+            file=sys.stderr,
+        )
+        return 2
+    if args.contracts and args.checker == "retrace":
+        # The retrace static layer audits the PACKAGE's dispatch call
+        # sites and the drill is package-batcher-driven: neither can
+        # audit an external fixture registry.
+        print(
+            "--checker retrace audits the package's own call sites "
+            "and cache drill; it cannot audit an external --contracts "
+            "registry (use --checker lowering/comms with --contracts)",
             file=sys.stderr,
         )
         return 2
@@ -181,6 +196,12 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                 findings.extend(HostBoundaryChecker().check_package())
             if args.checker in ("all", "lock"):
                 findings.extend(LockDisciplineChecker().check_package())
+            if args.checker in ("all", "retrace"):
+                from . import retrace
+
+                findings.extend(retrace.check_static())
+                if not args.no_trace and not args.contracts:
+                    findings.extend(retrace.check_runtime())
             if args.checker in ("all", "schedules"):
                 from . import schedules
 
@@ -189,10 +210,29 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                 from . import metricscheck
 
                 findings.extend(metricscheck.check_package())
-            if args.checker in ("all", "comms") and not args.no_trace:
-                from . import comms
+        if args.checker in ("all", "lowering", "comms") and not args.paths:
+            if args.contracts:
+                # External registry: audit ITS programs only (the static
+                # coverage layer is about the package's own modules).
+                registry = importlib.import_module(args.contracts).REGISTRY
+                if args.checker in ("all", "lowering"):
+                    from .lowering import check_traces
 
-                findings.extend(comms.check_package())
+                    findings.extend(check_traces(registry))
+                if args.checker in ("all", "comms"):
+                    from . import comms
+
+                    findings.extend(comms.check_package({
+                        c.function or c.name: c.comms
+                        for c in registry.values() if c.comms}))
+            else:
+                if args.checker in ("all", "lowering"):
+                    findings.extend(LoweringAuditor().check_package(
+                        trace=not args.no_trace))
+                if args.checker in ("all", "comms") and not args.no_trace:
+                    from . import comms
+
+                    findings.extend(comms.check_package())
     except Exception as e:  # noqa: BLE001 - CLI boundary
         print(f"analysis failed: {type(e).__name__}: {e}",
               file=sys.stderr)

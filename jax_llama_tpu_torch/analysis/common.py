@@ -18,8 +18,7 @@ when placed on its ``def`` line.  The reason is mandatory: a bare
 ``# audit: host-fetch`` does not parse and the crossing stays flagged.
 An unknown pragma kind is itself a finding (typo defense -- a
 misspelled allowlist entry must not silently sanction anything).  The
-grammar is the JAX package's, unchanged (``trace-domain`` included: the
-port's retrace pass is ROADMAP A16 part 3).
+grammar is the JAX package's, unchanged.
 """
 
 from __future__ import annotations
@@ -35,7 +34,7 @@ from typing import Dict, Iterable, List, Optional, Sequence, Set, Tuple
 # Pragma kinds, by checker:
 #   host-fetch / host-upload / device-flow  -> hostsync.py
 #   locked / racy-read / unguarded          -> lockcheck.py
-#   trace-domain                            -> retrace (A16 part 3)
+#   trace-domain                            -> retrace.py
 PRAGMA_KINDS = frozenset({
     "host-fetch", "host-upload", "device-flow",
     "locked", "racy-read", "unguarded",
@@ -206,6 +205,28 @@ def compiled_decorations(
                     for a in dec.args
                 ):
                     out[node.name] = (node, dec)
+    return out
+
+
+def program_decorations(
+    tree: ast.Module,
+) -> Dict[str, Tuple[ast.FunctionDef, ast.Call]]:
+    """Module-level defs decorated with ``program("<name>", ...)``
+    (``utils.programs``, the port's counterpart of ``jax.jit``), as
+    ``{program name: (fn, decorator Call)}``: the counterpart of the JAX
+    package's ``jit_decorations``."""
+    out: Dict[str, Tuple[ast.FunctionDef, ast.Call]] = {}
+    for node in tree.body:
+        if not isinstance(node, ast.FunctionDef):
+            continue
+        for dec in node.decorator_list:
+            if not isinstance(dec, ast.Call):
+                continue
+            name = dotted_name(dec.func) or ""
+            if (name.rsplit(".", 1)[-1] == "program" and dec.args
+                    and isinstance(dec.args[0], ast.Constant)
+                    and isinstance(dec.args[0].value, str)):
+                out[dec.args[0].value] = (node, dec)
     return out
 
 

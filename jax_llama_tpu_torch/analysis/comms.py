@@ -11,7 +11,8 @@ the CPU (:func:`run_example`) -- with every collective of rank 0 recorded
 included), its result's shape and bytes, and the serving program it ran
 in (``serving._chunk_scan``, ``_paged_insert`` ...; ``"host"`` for a host
 decision agreed between dispatches).  Each program's calls are held to
-its :class:`CommsBudget`, declared at that example geometry:
+its :class:`~.contracts.CommsBudget` (on its contract), declared at that
+example geometry:
 
   * ``pool-collective``: a collective whose RESULT has the shape of the
     pool or of one layer's plane of it (a K/V plane, the positions) is a
@@ -31,10 +32,10 @@ package's compiled layer does.
 from __future__ import annotations
 
 import collections
-import dataclasses
 from typing import Any, Dict, List, Optional, Sequence, Set, Tuple
 
 from .common import Finding
+from .contracts import REGISTRY, CommsBudget
 
 CHECKER = "comms"
 PATH = "jax_llama_tpu_torch/serving.py"
@@ -63,40 +64,11 @@ EXAMPLE_AXES = dict(tensor=2)
 EXAMPLE_PROMPTS = ((12, 6), (20, 6))   # (prompt tokens, new tokens)
 
 
-@dataclasses.dataclass(frozen=True)
-class CommsBudget:
-    """Per-program collective budget, declared at the example geometry
-    (tensor = 2 over two ranks, EXAMPLE_CONFIG) and checked per call of
-    the program against the collectives rank 0 issued in it.
-
-      * ``max_count``: counted kind (``Mesh.collectives``' first key:
-        ``all_reduce``, ``all_gather``, ``agree`` ...) -> the most one
-        call may issue (a kind absent from the dict allows ZERO).  A
-        program's per-layer collectives scale with the layers and the
-        chunk's iterations, which the example fixes.
-      * ``max_bytes``: result bytes of the largest single collective.
-        The per-layer tensor-axis reductions are activation-sized; a
-        pool-sized one is orders larger at any geometry.
-
-    Full-pool / one-plane shaped collective RESULTS are a hard finding
-    whatever the budget (not declarable here on purpose)."""
-
-    max_count: Dict[str, int]
-    max_bytes: int
-
-
-# Measured at the example (2 layers, decode_chunk 4, tensor = 2): a
-# decode iteration reduces the embedding, each layer's o and down
-# products (row-parallel) and gathers the vocab-sharded logits, so a
-# 4-iteration chunk issues 4 x (1 + 2 x 2) all-reduces and 4 gathers; an
-# insert is one such forward.  The host decisions between dispatches
-# agree nothing on a one-replica serving mesh.
+# Each program's budget, from its contract (contracts.py, as JAX keeps
+# them), by the port's function name: the name the recorder sees.
 BUDGETS: Dict[str, CommsBudget] = {
-    "_chunk_scan": CommsBudget(
-        max_count={"all_reduce": 20, "all_gather": 4}, max_bytes=4096),
-    "_paged_insert": CommsBudget(
-        max_count={"all_reduce": 5, "all_gather": 1}, max_bytes=16384),
-}
+    c.function or c.name: c.comms for c in REGISTRY.values()
+    if c.comms is not None}
 
 Record = Tuple[str, Tuple[int, ...], int]       # (kind, shape, bytes)
 

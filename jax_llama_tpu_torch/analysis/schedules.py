@@ -442,6 +442,7 @@ def _make_batcher_stub():
     s.kv_export_blocks_total = 0
     s.kv_import_blocks_total = 0
     s.mesh = None
+    s._graphs = None
     s.nonfinite_rows_total = 0
     s.decode_chunk_last = 1
     s.decode_dispatches_total = 0
@@ -499,7 +500,7 @@ def _loop_dispatch(s, clock):
     s.decode_dispatches_total += 1
     s._accept_window.append((4, 3))
     if s._pf is not None:
-        s._pf.off += s._pf.chunk
+        s._pf.h_off += s._pf.chunk
 
 
 def _loop_finish(s, clock):

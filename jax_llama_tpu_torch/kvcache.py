@@ -65,6 +65,8 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .utils.programs import program
+
 
 def pow2_bucket(n: int) -> int:
     """Smallest power of two >= max(n, 1)."""
@@ -1194,32 +1196,47 @@ def wait_restore(staged: Staged) -> None:
 
 
 def adopt_into_pool(pool, staged: Staged, prefix: str = ""):
-    """ONE scatter landing a completed swap-in's staged blocks in the
-    pool, in place, on the pool's current stream after it waits for the
-    staging copies' event; sentinel pad rows drop.  The staging tensors
-    were allocated on the side stream and are read here on the main
-    one, so each is marked used by the main stream (``record_stream``):
-    the caching allocator then does not hand its memory out again before
-    this scatter has run.  A staged plane of another head count than the
-    pool's (a slab of another tensor width) raises.  Returns the pool."""
-    main = None
+    """Land a completed swap-in's staged blocks in the pool, in place:
+    on the pool's current stream after it waits for the staging copies'
+    event, ONE scatter (``_adopt_jit``); sentinel pad rows drop.  The
+    staging tensors were allocated on the side stream and are read here
+    on the main one, so each is marked used by the main stream
+    (``record_stream``): the caching allocator then does not hand its
+    memory out again before this scatter has run.  ``prefix`` picks the
+    staged planes of this pool (``"d_"``: the draft pool's).  Returns the
+    pool."""
+    planes = {name: staged.planes[prefix + name]
+              for name in _pool_names(pool)}
     if staged.event is not None:
         main = torch.cuda.current_stream(pool.k.device)
         main.wait_event(staged.event)
         staged.ids.record_stream(main)
-    ids = staged.ids[:staged.n].long()
-    for name in _pool_names(pool):
-        a = getattr(pool, name)
-        s = staged.planes[prefix + name]
-        if main is not None:
+        for s in planes.values():
             s.record_stream(main)
-        s = s[:staged.n].to(a.dtype)
-        if name == "pos":      # [NB, BLK] <- [n, BLK]
+    _adopt_jit(pool, staged.ids, planes)
+    return pool
+
+
+@program("_adopt_jit", donate=("pool",))
+def _adopt_jit(pool, ids, planes):
+    """The adoption's scatter (JAX :1081): staged block i of each plane
+    ({name: [nb, ...]}, block-major) lands in pool block ``ids[i]``, in
+    place.  ``ids`` [nb] int32 is padded with the sentinel (an id past the
+    pool's blocks), which drops: a pad row rewrites the first row's block
+    with the first row's bytes.  A staged plane of another head count
+    than the pool's (a slab of another tensor width) raises."""
+    ids = ids.long()
+    rows = torch.arange(ids.numel(), device=ids.device)
+    src = torch.where(ids < pool.pos.shape[0], rows, 0)
+    ids = ids[src]
+    for name, s in planes.items():
+        a = getattr(pool, name)
+        s = s[src].to(a.dtype)
+        if name == "pos":      # [NB, BLK] <- [nb, BLK]
             a[ids] = s
-        else:                  # [L, KVH, NB, ...] <- [n, L, KVH, ...]
+        else:                  # [L, KVH, NB, ...] <- [nb, L, KVH, ...]
             if s.shape[2] != a.shape[1]:
                 raise ValueError(
-                    f"adopt_into_pool: a staged {prefix + name} plane holds "
+                    f"adopt_into_pool: a staged {name} plane holds "
                     f"{s.shape[2]} KV heads, the pool {a.shape[1]}")
             a[:, :, ids] = s.movedim(0, 2)
-    return pool

@@ -383,6 +383,15 @@ METRICS: Dict[str, Tuple[str, str]] = {
     "decode_stall_ms_total": _reg(
         "counter", "Wall time classic whole-prompt admissions stalled "
                    "decoding rows (ms)"),
+    "programs_captured": _reg(
+        "gauge", "1 when this batcher's decode programs run as CUDA "
+                 "graphs (the port's; 0: eager, as on a gloo mesh)"),
+    "graph_captures_total": _reg(
+        "counter", "CUDA graphs this batcher captured, one per program "
+                   "key (the port's)"),
+    "graph_replays_total": _reg(
+        "counter", "CUDA graph replays of this batcher's programs (the "
+                   "port's)"),
     # -- fault injection -----------------------------------------------------
     "faults_injected_total": _reg("counter", "Injected faults raised"),
     "fault_delays_total": _reg("counter", "Injected delays served"),
@@ -468,8 +477,10 @@ METRICS: Dict[str, Tuple[str, str]] = {
         "counter", "Kernel builds attributed to each serving program "
                    "(per program)"),
     "jit_cache_entries": _reg(
-        "gauge", "Kernel libraries loaded in this process per CUDA "
-                 "source (0/1; the port's compiled-program cache)"),
+        "gauge", "Cache keys seen per registered serving program (each "
+                 "a CUDA graph where the program is captured; a runaway "
+                 "series here is a bucketing bug re-specializing a "
+                 "program per request)"),
     # -- overload control (overload.py) --------------------------------------
     "overload_rung": _reg(
         "gauge", "Brownout-ladder rung (0=normal 1=elevated "

@@ -21,6 +21,7 @@ machine with no ``nvcc``.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -47,10 +48,79 @@ _LOADED: Dict[str, ctypes.CDLL] = {}
 # behind a router): it loads each library, and fires its fault site, once.
 _LOAD_LOCK = threading.Lock()
 # The wrappers' launch counters are read-modify-writes shared by those
-# threads; each wrapper updates its counts under this lock.
+# threads; each wrapper updates its counts under this lock, on the object
+# ``counts`` returns.
 COUNT_LOCK = threading.Lock()
+# Per thread: the launch counts a CUDA graph capture records in place of
+# the wrappers' own (``record_counts``).
+_COUNT_TLS = threading.local()
 # Called as fn(source, seconds) after each successful build.
 BUILD_LISTENERS: List[Callable[[str, float], None]] = []
+
+
+class CountRecord:
+    """The launch counts one wrapper made while a CUDA graph was being
+    captured on this thread: a capture enqueues no kernel, so its counts
+    are kept apart and added to the wrapper on each replay
+    (``add_counts``), the launches that replay runs."""
+
+    INTS = ("launches", "kernel_launches", "launches_int8")
+    DICTS = ("launches_by_t", "launches_by_instance")
+
+    def __init__(self, wrapper):
+        self.wrapper = wrapper
+        for name in self.INTS:
+            setattr(self, name, 0)
+        for name in self.DICTS:
+            setattr(self, name, {})
+
+    @property
+    def kernels(self) -> int:
+        """The kernels these launches ran (``kernel_launches`` where the
+        wrapper counts them apart from its calls, else ``launches``)."""
+        if hasattr(self.wrapper, "kernel_launches"):
+            return self.kernel_launches
+        return self.launches
+
+
+def counts(wrapper):
+    """The object ``wrapper``'s launch counts go to (call under
+    ``COUNT_LOCK``): the wrapper itself, or, while this thread captures a
+    CUDA graph, the capture's ``CountRecord`` of it."""
+    record = getattr(_COUNT_TLS, "record", None)
+    if record is None:
+        return wrapper
+    rec = record.get(id(wrapper))
+    if rec is None:
+        rec = record[id(wrapper)] = CountRecord(wrapper)
+    return rec
+
+
+@contextlib.contextmanager
+def record_counts():
+    """Route this thread's launch counts into a fresh ``{id: CountRecord}``
+    (yielded) for the duration: a graph capture's counts."""
+    record: Dict[int, CountRecord] = {}
+    _COUNT_TLS.record = record
+    try:
+        yield record
+    finally:
+        _COUNT_TLS.record = None
+
+
+def add_counts(records: Iterable[CountRecord]) -> None:
+    """Add recorded counts to their wrappers (one replay's launches)."""
+    with COUNT_LOCK:
+        for rec in records:
+            w = rec.wrapper
+            for name in CountRecord.INTS:
+                if hasattr(w, name):
+                    setattr(w, name, getattr(w, name) + getattr(rec, name))
+            for name in CountRecord.DICTS:
+                if hasattr(w, name):
+                    by = getattr(w, name)
+                    for k, n in getattr(rec, name).items():
+                        by[k] = by.get(k, 0) + n
 
 
 def _nvcc() -> str:

@@ -527,9 +527,10 @@ def _count(wrapper, code: int, kernels: int = 1) -> None:
     reported (``code``), which ran ``kernels`` kernels."""
     instance = _INSTANCES[code]
     with _build.COUNT_LOCK:
-        wrapper.launches += 1
-        wrapper.kernel_launches += kernels
-        by = wrapper.launches_by_instance
+        c = _build.counts(wrapper)
+        c.launches += 1
+        c.kernel_launches += kernels
+        by = c.launches_by_instance
         by[instance] = by.get(instance, 0) + 1
 
 

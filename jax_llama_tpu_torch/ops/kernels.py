@@ -58,6 +58,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
+from ..utils.programs import program
 
 # ---------------------------------------------------------------------------
 # Selection registry (JAX :65-101)
@@ -227,8 +228,9 @@ def _count(wrapper, instance: str, launches: int) -> None:
     """``launches`` kernel launches of one ``wrapper`` call, of
     ``instance``."""
     with _build.COUNT_LOCK:
-        wrapper.launches += launches
-        by = wrapper.launches_by_instance
+        c = _build.counts(wrapper)
+        c.launches += launches
+        by = c.launches_by_instance
         by[instance] = by.get(instance, 0) + 1
 
 
@@ -308,6 +310,7 @@ def splash_prefill_reference(
     return o.reshape(B, T, H, d).to(q.dtype)
 
 
+@program("splash_prefill", static=("chunk_offset",))
 def splash_prefill(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -397,6 +400,9 @@ def splash_prefill_attention(
     """The model's entry point for the splash slot (JAX :277): the kernel
     on this rank's heads and rows (under a mesh, ``forward`` hands it
     the rank's own slices: JAX's per-shard branch)."""
+    # audit: trace-domain(chunk_offset is the insert loop's Python-int
+    # chunk base: multiples of the fixed prefill chunk inside the
+    # pow2-bucketed group width, bounded where serving constructs it)
     return splash_prefill(q, k, v, chunk_offset=chunk_offset)
 
 
@@ -573,6 +579,7 @@ def _stock_check(q, k_new, v_new, k_pool, v_pool, table, q_pos) -> None:
         ("v_pool", v_pool), ("table", table), ("q_pos", q_pos)])
 
 
+@program("stock_paged_decode", static=("layer",))
 def stock_paged_decode(
     q: torch.Tensor,
     k_new: torch.Tensor,
@@ -727,5 +734,8 @@ def stock_paged_decode_attention(
     full-precision pool: the kernel on this rank's heads and rows (under
     a mesh, ``paged_forward`` hands it the rank's own slices, after
     ``models.llama._paged_shard_check``: JAX's per-shard branch)."""
+    # audit: trace-domain(layer is the forward's loop index over the
+    # model's layers, one key per layer of a ctor-stable config; inside a
+    # decode program this call runs inline and keys nothing)
     return stock_paged_decode(q, k_new, v_new, k_pool, v_pool, table, q_pos,
                               layer)

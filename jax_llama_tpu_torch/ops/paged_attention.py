@@ -233,16 +233,17 @@ def _launch(q, k_pool, v_pool, pool_pos, table, q_pos, layer, t_tokens,
             ctypes.byref(kernels), ctypes.byref(instance),
         )
     with _build.COUNT_LOCK:
-        paged_pool_attention.kernel_launches += kernels.value
+        _build.counts(paged_pool_attention).kernel_launches += kernels.value
     if rc != 0:
         raise RuntimeError(f"paged_decode launch failed: cudaError_t {rc}")
     name = split_instance_name(instance.value)
     with _build.COUNT_LOCK:
-        paged_pool_attention.launches += 1
-        paged_pool_attention.launches_int8 += int8
-        by_t = paged_pool_attention.launches_by_t
+        c = _build.counts(paged_pool_attention)
+        c.launches += 1
+        c.launches_int8 += int8
+        by_t = c.launches_by_t
         by_t[t_tokens] = by_t.get(t_tokens, 0) + 1
-        by = paged_pool_attention.launches_by_instance
+        by = c.launches_by_instance
         by[name] = by.get(name, 0) + 1
     return out, lse
 

@@ -44,6 +44,17 @@ def top_k_filter(logits: torch.Tensor, top_k: int) -> torch.Tensor:
     )
 
 
+def categorical(probs: torch.Tensor,
+                generator: Optional[torch.Generator]) -> torch.Tensor:
+    """One draw per row of ``probs`` [N, V] from ``generator``: [N] int64.
+    This is ``torch.multinomial(probs, 1)``'s own one-sample algorithm
+    (the argmax of probs over Exp(1) noise: the same generator advance,
+    the same token), without its validity checks, so that a CUDA graph
+    can hold it; a caller guards rows that are not distributions."""
+    q = torch.empty_like(probs).exponential_(1, generator=generator)
+    return torch.argmax(probs / q, dim=-1)
+
+
 def _warp(logits, temperature, top_p, top_k):
     logits = logits.float() / temperature
     if top_k is not None and top_k > 0:
@@ -91,5 +102,5 @@ def sample(
         return greedy(logits)
     probs = torch.softmax(_warp(logits, temperature, top_p, top_k), dim=-1)
     flat = probs.reshape(-1, probs.shape[-1])
-    out = torch.multinomial(flat, 1, generator=generator)
+    out = categorical(flat, generator)
     return out.reshape(probs.shape[:-1]).to(torch.int32)

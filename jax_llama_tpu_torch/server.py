@@ -140,12 +140,13 @@ import torch
 
 from .degrade import FEATURES, DegradeManager
 from .obs import Observability, StructuredLogger, metric_meta
-from .ops import _build
 from .ops.kernels import kernel_specs
 from .overload import CANARY, PRIORITIES, RUNG_INDEX, OverloadController
 from .parallel import lockstep
 from .parallel.serve_mesh import mesh_shape
-from .serving import ContinuousBatcher, _round_up, build_batcher
+from .serving import (
+    ContinuousBatcher, _round_up, build_batcher, jit_cache_entries,
+)
 from .utils.profiling import ProfilerSession, summarize_trace
 
 # Injection-site -> degradable-feature attribution for dispatch
@@ -2243,13 +2244,12 @@ class LLMServer:
         lines.extend(self.obs.expose_histograms("llm_"))
         # Labeled families: per-kind device-time attribution gauges and
         # per-program build counters (obs.utilization_metrics), plus
-        # each kernel source's loaded-library count (ops._build; the
-        # port's compiled-program cache).  One HELP/TYPE header per
-        # family, even
-        # while a family has no samples yet, so dashboards can discover
-        # them before traffic.
+        # each serving program's cache keys (serving.jit_cache_entries,
+        # JAX :2491).  One HELP/TYPE header per family, even while a
+        # family has no samples yet, so dashboards can discover them
+        # before traffic.
         labeled = list(self.obs.utilization_metrics())
-        for prog, n in sorted(_build.loaded().items()):
+        for prog, n in sorted(jit_cache_entries().items()):
             labeled.append(("jit_cache_entries", {"program": prog}, n))
         for family in ("mxu_utilization", "hbm_utilization",
                        "host_overhead_ratio", "program_compiles_total",

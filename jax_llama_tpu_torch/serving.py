@@ -198,8 +198,9 @@ from .ops.kernels import (
     splash_eligible,
 )
 from .ops.paged_attention import MAX_GROUP
-from .ops.sampling import greedy, stop_token_hits
-from .utils.profiling import program_range
+from .ops.sampling import categorical, greedy, stop_token_hits
+from .utils import programs as _programs
+from .utils.programs import GraphStore, program, use_graphs
 from .spec_decode import (
     accepted_emit_counts,
     draft_categorical,
@@ -408,21 +409,25 @@ def sample_rows(
     temperature: torch.Tensor,  # [B] float32; 0 = greedy
     top_p: torch.Tensor,        # [B] float32
     top_k: torch.Tensor,        # [B] int32
+    all_greedy: bool = False,
 ) -> torch.Tensor:
     """Next token per row: argmax for greedy rows, else one draw from the
     row's warped distribution with the row's own generator (rows without
-    one take the argmax).  A row draws exactly as ``ops.sampling.sample``
-    on its [1, V] logits would with that generator."""
+    one take the argmax; ``all_greedy``, JAX's static flag: every row, and
+    no generator advances).  Each row with a generator draws once, whether
+    or not its temperature samples, so a slot's generator advances once a
+    call; a sampled row draws exactly as ``ops.sampling.sample`` on its
+    [1, V] logits would with that generator."""
     greedy_tok = torch.argmax(logits.float(), dim=-1).to(torch.int32)
-    rows = [b for b, g in enumerate(generators) if g is not None]
+    rows = [] if all_greedy else [
+        b for b, g in enumerate(generators) if g is not None]
     if not rows:
         return greedy_tok
     probs = torch.softmax(_warp_rows(logits, temperature, top_p, top_k),
                           dim=-1)
     tok = greedy_tok.clone()
     for b in rows:
-        tok[b] = torch.multinomial(probs[b:b + 1], 1,
-                                   generator=generators[b])[0, 0]
+        tok[b] = categorical(probs[b:b + 1], generators[b])[0]
     return torch.where(temperature <= 0.0, greedy_tok, tok)
 
 
@@ -456,9 +461,13 @@ def _pack_logprobs(toks: torch.Tensor, lps: Optional[torch.Tensor]
 # Step programs
 # ---------------------------------------------------------------------------
 
+@program("_paged_decode_step",
+         static=("config", "use_kernel", "all_greedy", "with_logprobs"),
+         donate=("pool",), returns=("next", "logprob"), graph=True)
 def _decode_step_core(
     params, pool, table, n_alloc, fill, tau, pos, active, generators,
-    temperature, top_p, top_k, *, config, use_kernel, with_logprobs=False,
+    temperature, top_p, top_k, *, config, use_kernel, all_greedy=False,
+    with_logprobs=False,
 ):
     """One [n_slots, 1] decode iteration over the paged pool, updating the
     pool in place.  Returns (the next token [B], -1 for a row whose logits
@@ -475,15 +484,26 @@ def _decode_step_core(
                                cache=view, attn_mask=active[:, None])
         _scatter_back(pool, view, table, fill, active, T=1)
     last = logits[:, -1]
-    nxt = sample_rows(generators, last, temperature, top_p, top_k)
+    nxt = sample_rows(generators, last, temperature, top_p, top_k,
+                      all_greedy=all_greedy)
     lp = _token_logprob(last, nxt) if with_logprobs else None
     return torch.where(_finite_rows(last), nxt, -1), lp
 
 
+_CHUNK_DONATED = ("pool", "fill", "tau", "tau_lp", "pos", "active",
+                  "remaining", "generators")
+_CHUNK_RETURNS = ("packed", "tau", "tau_lp", "fill", "pos", "active",
+                  "remaining")
+
+
+@program("_paged_decode_chunk",
+         static=("config", "n_iter", "use_kernel", "all_greedy",
+                 "with_logprobs"),
+         donate=_CHUNK_DONATED, returns=_CHUNK_RETURNS, graph=True)
 def _chunk_scan(
     params, pool, table, n_alloc, fill, tau, tau_lp, pos, active, remaining,
     stops, generators, temperature, top_p, top_k, *, config, n_iter,
-    use_kernel, with_logprobs=False,
+    use_kernel, all_greedy=False, with_logprobs=False,
 ):
     """``n_iter`` decode iterations (JAX ``_chunk_scan``, a Python loop over
     device tensors here).  Each iteration replays the host's one-token
@@ -516,7 +536,8 @@ def _chunk_scan(
         nxt, lp = _decode_step_core(
             params, pool, table, n_alloc, fill, tau, pos, active,
             generators, temperature, top_p, top_k, config=config,
-            use_kernel=use_kernel, with_logprobs=with_logprobs,
+            use_kernel=use_kernel, all_greedy=all_greedy,
+            with_logprobs=with_logprobs,
         )
         tau = torch.where(active, nxt, tau)
         if with_logprobs:
@@ -529,15 +550,28 @@ def _chunk_scan(
     return packed, tau, tau_lp, fill, pos, active, remaining
 
 
+@program("_fused_chunk",
+         static=("config", "n_iter", "pf_chunk", "use_kernel", "all_greedy",
+                 "with_logprobs"),
+         donate=_CHUNK_DONATED + ("pf_off",),
+         returns=_CHUNK_RETURNS + ("pf_off",))
 def _fused_chunk(
     params, pool, table, n_alloc, fill, tau, tau_lp, pos, active, remaining,
-    stops, generators, temperature, top_p, top_k, pf_toks, *, config,
-    n_iter, use_kernel, with_logprobs, pf_row, pf_base, pf_off, pf_len,
-    pf_chunk, pf_generator,
+    stops, generators, temperature, top_p, top_k, pf_row, pf_toks, pf_len,
+    pf_base, pf_off, *, config, n_iter, pf_chunk, use_kernel,
+    all_greedy=False, with_logprobs=False,
 ):
     """The fused prefill-decode dispatch (JAX :770): one bounded prefill
     chunk of the single in-flight admission, then the unchanged
     ``_chunk_scan``, so admissions never stall the decoding rows.
+
+    ``pf_row``, ``pf_len``, ``pf_base`` and ``pf_off`` are 0-d int32
+    tensors on the host: JAX traces them (its key is ``pf_chunk`` and
+    shapes only, so is this one), and ``pf_off`` is the prefill's carry,
+    advanced by ``pf_chunk`` in place (donated).  The body slices and
+    branches on them on the host and hands the flash kernel a host write
+    index, which is why this program runs eagerly (its graph waits for a
+    device-side write index: ROADMAP A4 part 2).
 
     Prefill half: row ``pf_row``'s gathered view (``_gather_cache`` of
     its table row) with the SCALAR write index ``pf_base + pf_off``, so
@@ -553,56 +587,62 @@ def _fused_chunk(
 
     On the chunk that lands the last prompt token (the host knows which)
     the first token is sampled from that token's logits with the row's
-    own policy and generator ``pf_generator`` (one draw, the classic
+    own policy and its slot's generator, which the host seeded from the
+    request's seed just before this dispatch (one draw, the classic
     insert's), under the non-finite guard, and the row folds into the
     decode state on the device (active, tau, tau_lp, fill, pos): the scan
     below emits its first token from this dispatch.  A non-final chunk
-    draws nothing.  The prefilling row rides the scan masked until then.
+    draws nothing for the row.  The prefilling row rides the scan masked
+    until then.
 
-    Returns ``_chunk_scan``'s tuple."""
+    Returns ``_chunk_scan``'s tuple, then ``pf_off``."""
     C = pf_chunk
     dev = tau.device
-    write_at = pf_base + pf_off
-    table_r = table[pf_row:pf_row + 1]
+    row, base, off, plen = (int(t) for t in (pf_row, pf_base, pf_off,
+                                             pf_len))
+    write_at = base + off
+    table_r = table[row:row + 1]
     at = torch.full((1,), write_at, dtype=torch.int32, device=dev)
-    view = _gather_cache(pool, table_r, n_alloc[pf_row:pf_row + 1], at)
+    view = _gather_cache(pool, table_r, n_alloc[row:row + 1], at)
     view.index = write_at
-    positions, real = window_positions(pf_base, pf_off, C, pf_len,
-                                       device=dev)
+    positions, real = window_positions(base, off, C, plen, device=dev)
     _, view, aux = forward(
-        params, pf_toks[pf_off:pf_off + C][None], positions, config,
+        params, pf_toks[off:off + C][None], positions, config,
         cache=view, attn_mask=real, compute_logits=False,
         output_last_hidden=True,
     )
     _scatter_back(pool, view, table_r, at,
                   torch.ones((1,), dtype=torch.bool, device=dev), T=C)
-    idx = pf_len - 1 - pf_off
+    idx = plen - 1 - off
     if 0 <= idx < C:
         logits = lm_head_logits(
             params, aux.last_hidden_state[:, idx:idx + 1], config,
             normed=True)[:, 0]
-        r = slice(pf_row, pf_row + 1)
-        first = sample_rows([pf_generator], logits, temperature[r],
-                            top_p[r], top_k[r])
+        r = slice(row, row + 1)
+        first = sample_rows([generators[row]], logits, temperature[r],
+                            top_p[r], top_k[r], all_greedy=all_greedy)
         if with_logprobs:
             tau_lp = torch.where(
-                torch.arange(tau.shape[0], device=dev) == pf_row,
+                torch.arange(tau.shape[0], device=dev) == row,
                 _token_logprob(logits, first)[0], tau_lp)
         first = torch.where(_finite_rows(logits), first, -1)
-        fold = torch.arange(tau.shape[0], device=dev) == pf_row
+        fold = torch.arange(tau.shape[0], device=dev) == row
         active = active | fold
         tau = torch.where(fold, first[0], tau)
         fill = torch.where(
-            fold, _round_up(pf_base + pf_len, pool.block_size), fill)
-        pos = torch.where(fold, pf_base + pf_len, pos)
+            fold, _round_up(base + plen, pool.block_size), fill)
+        pos = torch.where(fold, base + plen, pos)
     return _chunk_scan(
         params, pool, table, n_alloc, fill, tau, tau_lp, pos, active,
         remaining, stops, generators, temperature, top_p, top_k,
         config=config, n_iter=n_iter, use_kernel=use_kernel,
-        with_logprobs=with_logprobs,
-    )
+        all_greedy=all_greedy, with_logprobs=with_logprobs,
+    ) + (pf_off + C,)
 
 
+@program("_paged_insert",
+         static=("config", "prefill_chunk", "with_logprobs"),
+         donate=("pool",), returns=("first", "logprob"))
 def _paged_insert(
     params, pool, block_ids, prompt_tokens, prompt_mask, generators,
     temperature, top_p, top_k, *, config, prefill_chunk=None,
@@ -613,11 +653,11 @@ def _paged_insert(
 
     prompt_tokens/prompt_mask: [k, P] on the device, RIGHT-padded to the
     group's block-multiple length P.  block_ids: [k, P // block_size]
-    numpy int32, the physical blocks of each row's prompt span; entries
-    equal to n_blocks (past a shorter row's span, or a padding row) are
-    dropped.  Logits are taken at each row's last real token.  Returns
-    (the sampled first tokens [k] int32, -1 where the logits are not
-    finite; their logprobs [k] under ``with_logprobs``, else None).
+    int32 on the host, the physical blocks of each row's prompt span;
+    entries equal to n_blocks (past a shorter row's span, or a padding
+    row) are dropped.  Logits are taken at each row's last real token.
+    Returns (the sampled first tokens [k] int32, -1 where the logits are
+    not finite; their logprobs [k] under ``with_logprobs``, else None).
     """
     k_rows, P = prompt_tokens.shape
     L, KVH, NB, BLK = pool.k.shape[:4]
@@ -648,10 +688,11 @@ def _paged_insert(
     lp = _token_logprob(logits_last, tau) if with_logprobs else None
     tau = torch.where(_finite_rows(logits_last), tau, -1)
 
-    r, j = np.nonzero(block_ids < NB)
+    bid = block_ids.numpy()
+    r, j = np.nonzero(bid < NB)
     if r.size:
         idx = torch.from_numpy(
-            np.stack([r, j, block_ids[r, j]]).astype(np.int64)).to(device)
+            np.stack([r, j, bid[r, j]]).astype(np.int64)).to(device)
         r_t, j_t, b_t = idx.unbind(0)
         # [L, k, P, KVH, hd] -> [L, k, nb, BLK, KVH, hd], then the chosen
         # (row, block) pairs -> [L, KVH, n, BLK, hd]
@@ -667,6 +708,9 @@ def _paged_insert(
     return tau, lp
 
 
+@program("_paged_suffix_insert",
+         static=("config", "prefill_chunk", "with_logprobs"),
+         donate=("pool",), returns=("first", "logprob"))
 def _paged_suffix_insert(
     params, pool, table_rows, n_alloc_rows, fill0, suffix_tokens,
     suffix_mask, generators, temperature, top_p, top_k, *, config,
@@ -719,10 +763,15 @@ def _paged_suffix_insert(
     return torch.where(_finite_rows(logits_last), tau, -1), lp
 
 
+@program("_spec_round",
+         static=("t_config", "d_config", "n_draft", "use_kernel",
+                 "all_greedy", "with_logprobs"),
+         donate=("t_pool", "d_pool"), returns=("outs", "acc", "logprobs"),
+         graph=True)
 def _spec_round_core(
     t_params, d_params, t_pool, d_pool, table, n_alloc, fill, tau, pos,
     active, generators, temperature, top_p, top_k, *, t_config, d_config,
-    n_draft, use_kernel, with_logprobs=False,
+    n_draft, use_kernel, all_greedy=False, with_logprobs=False,
 ):
     """One speculative round for every active slot (JAX :1146), greedy or
     sampled verification per row, both pools updated in place.
@@ -739,8 +788,11 @@ def _spec_round_core(
     3. Greedy rows accept the matching prefix; sampled rows (a generator
        and temperature > 0) run ``leviathan_verify``, drawing from their
        own generator the n_draft draft tokens (in step 1), then n_draft
-       uniforms, then the replacement/bonus token.  A row whose target
-       logits hold NaN/Inf anywhere in the block gets acc = -1.
+       uniforms, then the replacement/bonus token.  Unless ``all_greedy``
+       (JAX's static flag), every row with a generator draws so, sampled
+       or not, so that each slot's generator advances alike every round.
+       A row whose target logits hold NaN/Inf anywhere in the block gets
+       acc = -1.
     4. Commit: slot j of the block (tau, then d_j) stays valid iff
        j <= acc; the rest are marked pos -1 in both pools (no rollback;
        the host advances fill by acc+1, so they are reused).
@@ -762,7 +814,8 @@ def _spec_round_core(
     block = torch.cat(
         [tau[:, None], torch.zeros((B, G), dtype=torch.int32, device=dev)],
         dim=1)
-    drawing = [b for b, g in enumerate(generators) if g is not None]
+    drawing = [] if all_greedy else [
+        b for b, g in enumerate(generators) if g is not None]
     if use_kernel:
         t_cache = t_pool.paged(table, fill)
         d_cache = d_pool.paged(table, fill)
@@ -842,10 +895,15 @@ def _spec_round_core(
     return outs, acc, lps
 
 
+@program("_spec_rounds_chunk",
+         static=("t_config", "d_config", "n_draft", "n_rounds",
+                 "use_kernel", "all_greedy", "with_logprobs"),
+         donate=("t_pool", "d_pool") + _CHUNK_DONATED[1:],
+         returns=_CHUNK_RETURNS, graph=True)
 def _spec_rounds_chunk(
     t_params, d_params, t_pool, d_pool, table, n_alloc, fill, tau, tau_lp,
     pos, active, remaining, stops, generators, temperature, top_p, top_k,
-    *, t_config, d_config, n_draft, n_rounds, use_kernel,
+    *, t_config, d_config, n_draft, n_rounds, use_kernel, all_greedy=False,
     with_logprobs=False,
 ):
     """``n_rounds`` speculative rounds with one packed result (JAX :1434,
@@ -883,7 +941,8 @@ def _spec_rounds_chunk(
             t_params, d_params, t_pool, d_pool, table, n_alloc, fill, tau,
             pos, active, generators, temperature, top_p, top_k,
             t_config=t_config, d_config=d_config, n_draft=G,
-            use_kernel=use_kernel, with_logprobs=with_logprobs,
+            use_kernel=use_kernel, all_greedy=all_greedy,
+            with_logprobs=with_logprobs,
         )
         verify_nan = active & (acc < 0)
         acc_c = acc.clamp(0, G)
@@ -913,6 +972,35 @@ def _spec_rounds_chunk(
     return packed, tau, tau_lp, fill, pos, active, remaining
 
 
+@program("_scatter_rows", donate=("state",))
+def _scatter_rows(state, idx, rows):
+    """The dirty-row upload's scatter (JAX :895): row ``idx[i]`` of each
+    per-slot twin in ``state`` takes ``rows[j][i]``, in place.  The
+    host pads ``idx`` to a power of two by repeating its first row (the
+    same value written twice), so that the key holds a pow2 row count,
+    as JAX's does."""
+    for twin, new in zip(state, rows):
+        twin[idx] = new
+
+
+@program("_release_blocks", donate=("pos",))
+def _release_blocks(pos, block_ids):
+    """Invalidate re-purposed blocks' positions in the pool's position
+    plane (JAX :1125), in place.  ``block_ids`` [MB] int32 is padded with
+    the sentinel n_blocks, which drops: a pad rewrites the first id's
+    row, as ``paged_pool_write`` repeats a live pair."""
+    ids = block_ids.long()
+    ids = torch.where(ids < pos.shape[0], ids, ids[0])
+    pos[ids] = -1
+
+
+def jit_cache_entries() -> Dict[str, int]:
+    """Cache keys per registered program (JAX :1622): each program's
+    keys seen in this process (``utils.programs``), the source of the
+    ``llm_jit_cache_entries`` gauge."""
+    return _programs.jit_cache_entries()
+
+
 # ---------------------------------------------------------------------------
 # Host-side batcher
 # ---------------------------------------------------------------------------
@@ -935,8 +1023,9 @@ class _Prefill:
     """Host view of the single in-flight fused admission (queued ->
     prefilling(off) -> decoding; JAX :1667).  The suffix tokens are
     uploaded once, at admission (``d_toks``); ``off`` advances by
-    ``chunk`` per fused dispatch on the host, which therefore knows
-    without a fetch which dispatch lands the last chunk."""
+    ``chunk`` per fused dispatch (``_fused_chunk`` advances ``h_off``, a
+    tensor on the host), so the host knows without a fetch which
+    dispatch lands the last chunk."""
 
     slot: int
     req: "_Request"
@@ -945,8 +1034,26 @@ class _Prefill:
     base: int             # fill0 in tokens (a block multiple)
     suffix_len: int       # real suffix tokens to prefill
     chunk: int            # C: prompt tokens advanced per dispatch
-    off: int = 0          # suffix tokens already dispatched
-    d_toks: Any = None    # [n_chunks * C] int32 on the device
+    d_toks: Any = None    # [pow2(n_chunks) * C] int32 on the device
+    # ``_fused_chunk``'s host scalars (0-d int32 tensors on the host,
+    # JAX's traced d_row, d_len, d_base, d_off): the row, the suffix
+    # length, fill0 and the carry ``off``.
+    h_row: Any = None
+    h_len: Any = None
+    h_base: Any = None
+    h_off: Any = None
+
+    def __post_init__(self):
+        def scalar(v):
+            return torch.tensor(v, dtype=torch.int32)
+
+        self.h_row, self.h_len = scalar(self.slot), scalar(self.suffix_len)
+        self.h_base, self.h_off = scalar(self.base), scalar(0)
+
+    @property
+    def off(self) -> int:
+        """Suffix tokens already dispatched."""
+        return int(self.h_off)
 
     @property
     def remaining_tokens(self) -> int:
@@ -1326,8 +1433,19 @@ class ContinuousBatcher:
         self.tau = torch.zeros((B,), dtype=torch.int32, device=dev)
         # The model logprob of each row's pending tau (logprobs=True).
         self.d_tau_lp = torch.zeros((B,), dtype=torch.float32, device=dev)
-        self.generators: List[Optional[torch.Generator]] = [None] * B
+        # One generator per slot for the batcher's life (JAX's ``keys``
+        # rows), seeded from a sampled request's seed at its admission
+        # (``_seed_slot``): the decode programs' graphs hold these.
+        self.generators: List[torch.Generator] = [
+            torch.Generator(device=dev) for _ in range(B)]
         self._dirty_rows: set = set()
+        # The programs' CUDA graphs (utils.programs), decided here, once:
+        # on the card, unless a mesh's collectives go through the host
+        # (gloo), which no graph can hold; None runs every program
+        # eagerly.
+        self._graphs: Optional[GraphStore] = (
+            GraphStore(dev) if dev.type == "cuda" and (
+                mesh is None or mesh.backend != "gloo") else None)
 
         # Counters, under the JAX package's names.
         self.emitted_total = 0
@@ -1393,6 +1511,14 @@ class ContinuousBatcher:
         self._quiesce_restores()
         return ContinuousBatcher(self.params, self.config,
                                  **self._ctor_kwargs)
+
+    def close(self) -> None:
+        """Free this batcher's CUDA graphs and their memory pool (a
+        retired replica, a drained or replaced batcher); a later step
+        runs its programs eagerly."""
+        if self._graphs is not None:
+            self._graphs.close()
+            self._graphs = None
 
     def host_state(self) -> Dict[str, Any]:
         """The host state every rank of a serving mesh must share: the
@@ -1657,10 +1783,11 @@ class ContinuousBatcher:
         HTTP handler threads while the serving loop owns the batcher:
         each value is a point-in-time read of single-writer host state
         (the digest under its own lock; ``_pf`` snapshotted first, the
-        loop may null it), never a device read."""
+        loop may null it, and ``_graphs``), never a device read."""
         # audit: racy-read(point-in-time /metrics snapshot of
         # single-writer loop state; stale by <= 1 step, never torn)
         pf = self._pf
+        graphs = self._graphs   # close() may null it
         shape = _smesh.mesh_shape(self.mesh)
         dg = self.kv_digest.summary()
         out: Dict[str, float] = {} if self.fault_injector is None else (
@@ -1737,6 +1864,11 @@ class ContinuousBatcher:
             "prefill_chunks_total": self.prefill_chunks_total,
             "fused_admissions_total": self.fused_admissions_total,
             "decode_stall_ms_total": round(self.decode_stall_ms_total, 3),
+            # The program layer (utils.programs): whether the decode
+            # programs run as CUDA graphs here, graphs captured, replays.
+            "programs_captured": int(graphs is not None),
+            "graph_captures_total": 0 if graphs is None else graphs.captures,
+            "graph_replays_total": 0 if graphs is None else graphs.replays,
         })
         return out
 
@@ -1791,7 +1923,7 @@ class ContinuousBatcher:
         for the next call."""
         self.last_step_features = set()
         try:
-            with use_mesh(self.mesh):
+            with use_mesh(self.mesh), use_graphs(self._graphs):
                 self._settle_inserts(wait=False)
                 self._admit()
                 if not any(s is not None for s in self.slots.values()):
@@ -1835,13 +1967,11 @@ class ContinuousBatcher:
     def _sync_device_rows(self) -> None:
         """Flush the dirty rows' host state to the device twins: one packed
         int32 upload (float policies ride bit-cast), scattered on the
-        device.  No dirty rows (the steady state): no upload."""
+        device (``_scatter_rows``, the row count padded to a power of two
+        by repeating the first row).  No dirty rows (the steady state): no
+        upload."""
         if not self._dirty_rows:
             return
-        with program_range("_scatter_rows"):
-            self._upload_dirty_rows()
-
-    def _upload_dirty_rows(self) -> None:
         if self.d_stops.shape != self.stop_tab.shape:
             # The stop table widened: grow the twin on the device.
             grown = torch.full(self.stop_tab.shape, -1, dtype=torch.int32,
@@ -1850,6 +1980,8 @@ class ContinuousBatcher:
             self.d_stops = grown
         rows = np.asarray(sorted(self._dirty_rows))
         self._dirty_rows.clear()
+        rows = np.concatenate([rows, np.full(
+            (pow2_bucket(len(rows)) - len(rows),), rows[0], rows.dtype)])
         packed = np.concatenate([
             rows[:, None], self.table[rows],
             np.stack([self.n_alloc[rows], self.fill[rows], self.pos[rows],
@@ -1861,20 +1993,17 @@ class ContinuousBatcher:
         ], axis=1).astype(np.int32)
         up = torch.from_numpy(packed).to(self.device)
         self.state_uploads_total += 1
-        idx = up[:, 0].long()
         MB = self.table.shape[1]
-        self.d_table[idx] = up[:, 1:1 + MB]
         (n_alloc, fill, pos, active, top_k, remaining, temps,
          top_ps) = up[:, 1 + MB:9 + MB].unbind(1)
-        self.d_n_alloc[idx] = n_alloc
-        self.d_fill[idx] = fill
-        self.d_pos[idx] = pos
-        self.d_active[idx] = active.bool()
-        self.d_top_ks[idx] = top_k
-        self.d_remaining[idx] = remaining
-        self.d_temps[idx] = temps.view(torch.float32)
-        self.d_top_ps[idx] = top_ps.view(torch.float32)
-        self.d_stops[idx] = up[:, 9 + MB:]
+        _scatter_rows(
+            (self.d_table, self.d_n_alloc, self.d_fill, self.d_pos,
+             self.d_active, self.d_top_ks, self.d_remaining, self.d_temps,
+             self.d_top_ps, self.d_stops),
+            up[:, 0].long(),
+            (up[:, 1:1 + MB], n_alloc, fill, pos, active.bool(), top_k,
+             remaining, temps.view(torch.float32),
+             top_ps.view(torch.float32), up[:, 9 + MB:]))
 
     def _step_chunked(self) -> List[Tuple]:
         """One chunk dispatch, one packed fetch, then the host replays the
@@ -1937,36 +2066,34 @@ class ContinuousBatcher:
 
         prog = "_chunk_scan" if pf is None else "_fused_chunk"
         cost_fl, cost_by = self._dispatch_cost(prog, cost)
-        generators = self._generators_for_round()
+        all_greedy = self._all_greedy()
         pf_done_rid: Optional[int] = None
         t0_obs = time.monotonic()
         state = (self.params, self.pool, self.d_table, self.d_n_alloc,
                  self.d_fill, self.tau, self.d_tau_lp, self.d_pos,
-                 self.d_active, self.d_remaining, self.d_stops)
-        policies = (self.d_temps, self.d_top_ps, self.d_top_ks)
+                 self.d_active, self.d_remaining, self.d_stops,
+                 self._generators_for_round(), self.d_temps, self.d_top_ps,
+                 self.d_top_ks)
         if pf is None:
-            with program_range("_paged_decode_chunk"):
-                out = _chunk_scan(
-                    *state, generators, *policies, config=self.config,
-                    n_iter=K, use_kernel=self.use_pallas_kernel,
-                    with_logprobs=self.logprobs)
+            out = _chunk_scan(
+                *state, config=self.config, n_iter=K,
+                use_kernel=self.use_pallas_kernel, all_greedy=all_greedy,
+                with_logprobs=self.logprobs)
         else:
             b = pf.slot
-            pf_generator = generators[b] if final else None
-            # The prefilling row draws nothing until its first token (the
-            # classic insert's draw, made inside the final dispatch).
-            if not final:
-                generators[b] = None
-            with program_range("_fused_chunk"):
-                out = _fused_chunk(
-                    *state, generators, *policies, pf.d_toks,
-                    config=self.config, n_iter=K,
-                    use_kernel=self.use_pallas_kernel,
-                    with_logprobs=self.logprobs, pf_row=b, pf_base=pf.base,
-                    pf_off=pf.off, pf_len=pf.suffix_len, pf_chunk=pf.chunk,
-                    pf_generator=pf_generator)
+            # The prefilling row's first token is its request's first draw
+            # (the classic insert's): its slot's generator starts from the
+            # request's seed at the dispatch that lands the last chunk,
+            # whatever the scans before drew on it.
+            all_greedy = all_greedy and pf.req.temperature <= 0.0
+            if final:
+                self._seed_slot(b, pf.req)
+            out = _fused_chunk(
+                *state, pf.h_row, pf.d_toks, pf.h_len, pf.h_base, pf.h_off,
+                config=self.config, n_iter=K, pf_chunk=pf.chunk,
+                use_kernel=self.use_pallas_kernel, all_greedy=all_greedy,
+                with_logprobs=self.logprobs)[:-1]
             self.prefill_chunks_total += 1
-            pf.off += pf.chunk
             if final:
                 # The device folded the row into the decode state and
                 # the scan emitted its first token: catch the host
@@ -2060,11 +2187,16 @@ class ContinuousBatcher:
         self._admit()
         return out_ev
 
-    def _generators_for_round(self) -> List[Optional[torch.Generator]]:
-        """Each slot's generator where its request samples, else None (the
-        rows a decode iteration or speculative round draws for)."""
-        return [self.generators[b] if s is not None and self.temp_arr[b] > 0
-                else None for b, s in self.slots.items()]
+    def _generators_for_round(self) -> List[torch.Generator]:
+        """Every slot's generator, in slot order: a decode program draws
+        once an iteration from each of them (a speculative round its
+        draws) unless every active row is greedy (``_all_greedy``)."""
+        return list(self.generators)
+
+    def _all_greedy(self) -> bool:
+        """JAX's static ``all_greedy``: every active row is greedy, so a
+        program draws nothing (its own key; JAX :2942)."""
+        return bool(np.all(self.temp_arr[self.active] <= 0.0))
 
     def _emit(self, b: int, tok: int, out: List[Tuple], lp=None) -> bool:
         """Deliver one token of slot ``b`` on a speculative step (with its
@@ -2140,8 +2272,7 @@ class ContinuousBatcher:
             self.decode_dispatches_total += 1
             self.spec_dispatches_total += 1
             self.decode_chunk_last = self.spec_rounds_last = 1
-            with program_range("_spec_round"):
-                self._spec_tail(out)
+            self._spec_tail(out)
         self._admit()
         return out
 
@@ -2173,7 +2304,8 @@ class ContinuousBatcher:
             self._generators_for_round(), temps.view(torch.float32),
             top_ps.view(torch.float32), top_k, t_config=self.config,
             d_config=self.draft_config, n_draft=G,
-            use_kernel=self.use_pallas_kernel, with_logprobs=self.logprobs,
+            use_kernel=self.use_pallas_kernel,
+            all_greedy=self._all_greedy(), with_logprobs=self.logprobs,
         )
         tf_obs = time.monotonic()
         cols = [outs, acc[:, None]]
@@ -2262,18 +2394,17 @@ class ContinuousBatcher:
         live = [s.request_id for s in self.slots.values() if s is not None]
         cost_fl, cost_by = self._spec_cost(R)
         t0_obs = time.monotonic()
-        with program_range("_spec_rounds_chunk"):
-            (packed, self.tau, self.d_tau_lp, self.d_fill, self.d_pos,
-             self.d_active, self.d_remaining) = _spec_rounds_chunk(
-                self.params, self.draft_params, self.pool, self.draft_pool,
-                self.d_table, self.d_n_alloc, self.d_fill, self.tau,
-                self.d_tau_lp, self.d_pos, self.d_active, self.d_remaining,
-                self.d_stops, self._generators_for_round(), self.d_temps,
-                self.d_top_ps, self.d_top_ks, t_config=self.config,
-                d_config=self.draft_config, n_draft=G, n_rounds=R,
-                use_kernel=self.use_pallas_kernel,
-                with_logprobs=self.logprobs,
-            )
+        (packed, self.tau, self.d_tau_lp, self.d_fill, self.d_pos,
+         self.d_active, self.d_remaining) = _spec_rounds_chunk(
+            self.params, self.draft_params, self.pool, self.draft_pool,
+            self.d_table, self.d_n_alloc, self.d_fill, self.tau,
+            self.d_tau_lp, self.d_pos, self.d_active, self.d_remaining,
+            self.d_stops, self._generators_for_round(), self.d_temps,
+            self.d_top_ps, self.d_top_ks, t_config=self.config,
+            d_config=self.draft_config, n_draft=G, n_rounds=R,
+            use_kernel=self.use_pallas_kernel,
+            all_greedy=self._all_greedy(), with_logprobs=self.logprobs,
+        )
         # The one device->host sync of the chunk.
         tf_obs = time.monotonic()
         fetched = self._fetch_mark()
@@ -2435,14 +2566,18 @@ class ContinuousBatcher:
         return out
 
     def _invalidate_evicted(self, evicted: List[int]) -> None:
-        """Invalidate re-purposed blocks' pool positions in one write (and
-        the draft pool's), after any demotion copy, which needs them
-        live."""
-        with program_range("_release_blocks"):
-            ids = torch.as_tensor(evicted, device=self.device)
-            self.pool.pos[ids] = -1
+        """Invalidate re-purposed blocks' pool positions (and the draft
+        pool's), after any demotion copy, which needs them live: one
+        ``_release_blocks`` write per ``blocks_per_slot`` ids, padded to
+        that fixed width with the sentinel (JAX :3868)."""
+        MB = self.blocks_per_slot
+        ids = np.full((-(-len(evicted) // MB), MB), self.n_blocks, np.int32)
+        ids.reshape(-1)[:len(evicted)] = evicted
+        d_ids = torch.from_numpy(ids).to(self.device)
+        for row in d_ids:
+            _release_blocks(self.pool.pos, row)
             if self.spec:
-                self.draft_pool.pos[ids] = -1
+                _release_blocks(self.draft_pool.pos, row)
 
     def demote_idle(self, n: int) -> int:
         """Demote up to ``n`` idle cached-prefix blocks into the host tier,
@@ -2624,10 +2759,9 @@ class ContinuousBatcher:
                             f"{timeout_s}s (unwound cleanly)")
                     time.sleep(0.001)
             wait_restore(staged)
-            with program_range("_adopt_jit"):
-                adopt_into_pool(self.pool, staged)
-                if self.spec:
-                    adopt_into_pool(self.draft_pool, staged, prefix="d_")
+            adopt_into_pool(self.pool, staged)
+            if self.spec:
+                adopt_into_pool(self.draft_pool, staged, prefix="d_")
             self._store.publish(keys[: len(have) + len(todo)], have + fresh)
             # A node mid-swap-in refuses the published copy: its fresh
             # block stays unkeyed, so free it instead of leaking it.
@@ -2712,7 +2846,6 @@ class ContinuousBatcher:
         # Session KV footprint at teardown.
         self.obs.observe_kv(session_blocks=len(slot.blocks))
         self.slots[b] = None
-        self.generators[b] = None
         self.table[b] = self.n_blocks
         self.n_alloc[b] = 0
         self.fill[b] = 0
@@ -2748,13 +2881,18 @@ class ContinuousBatcher:
         if stops:
             self.stop_tab[b, :len(stops)] = sorted(stops)
 
-    def _generator(self, req: _Request) -> Optional[torch.Generator]:
-        """The request's own generator (None for a greedy request)."""
+    def _seed_slot(self, b: int, req: _Request
+                   ) -> Optional[torch.Generator]:
+        """Seed slot ``b``'s generator from a sampled request's seed (its
+        own, or ``default_seed``): the request's draws are then the
+        generator's from that seed on, as a fresh generator's would be.
+        Returns it, or None (the generator left as it is) for a greedy
+        request."""
         if req.temperature <= 0.0:
             return None
         seed = req.seed if req.seed is not None else self.default_seed(
             req.rid)
-        return torch.Generator(device=self.device).manual_seed(seed)
+        return self.generators[b].manual_seed(seed)
 
     def _side_stream(self):
         """The CUDA stream swap-in copies run on (None on the CPU), made
@@ -2797,7 +2935,7 @@ class ContinuousBatcher:
             (dict(rec, stalled=self._stalling), start, ev0, ev1))
 
     def _install_row(self, b: int, req: _Request, blocks: List[int],
-                     generator, shared: int = 0) -> None:
+                     shared: int = 0) -> None:
         """Slot ``b``'s host mirrors for an admitted request (its prompt
         prefilled, its first token pending on the device)."""
         self.pos[b] = len(req.tokens)
@@ -2812,7 +2950,6 @@ class ContinuousBatcher:
         self.remaining[b] = req.max_new
         self._set_stop_row(b, req.stops)
         self._dirty_rows.add(b)
-        self.generators[b] = generator
         self.slots[b] = _Slot(
             request_id=req.rid, emitted=[], max_new=req.max_new,
             stop_tokens=req.stops, blocks=blocks, shared=shared,
@@ -2917,14 +3054,10 @@ class ContinuousBatcher:
                                          len(hits))
                     groups.setdefault(T, []).append((req, chain, hits))
             for grp in groups.values():
-                with program_range("_paged_suffix_insert"):
-                    self._admit_shared_group(
-                        grp, [next(slot_iter) for _ in grp])
+                self._admit_shared_group(grp, [next(slot_iter) for _ in grp])
             batch = [(r, c) for r, c, h in picked if not h]
             if batch:
-                with program_range("_paged_insert"):
-                    self._insert_batch(
-                        batch, [next(slot_iter) for _ in batch])
+                self._insert_batch(batch, [next(slot_iter) for _ in batch])
 
     def _insert_batch(self, batch: List[Tuple[_Request, List[bytes]]],
                       slot_ids: List[int]) -> None:
@@ -2960,7 +3093,7 @@ class ContinuousBatcher:
             span = _round_up(n, BLK) // BLK
             bid[i, :span] = blocks[:span]
             pol[i] = (req.temperature, req.top_p, req.top_k)
-            generators[i] = self._generator(req)
+            generators[i] = self._seed_slot(slot_ids[i], req)
         # One upload for the admission: prompts, masks and policies.
         up = torch.from_numpy(np.concatenate(
             [pt, pm, pol.view(np.int32)], axis=1)).to(self.device)
@@ -2990,8 +3123,9 @@ class ContinuousBatcher:
         self._open_dispatch("insert", kernels)
         self._admit_dispatches += 1
         taus, lps = _paged_insert(
-            self.params, self.pool, bid, up[:, :P], up[:, P:2 * P].bool(),
-            generators, temps, top_ps, top_ks, config=self.config,
+            self.params, self.pool, torch.from_numpy(bid), up[:, :P],
+            up[:, P:2 * P].bool(), generators, temps, top_ps, top_ks,
+            config=self.config,
             prefill_chunk=self.prefill_chunk, with_logprobs=self.logprobs,
         )
         if self.spec:
@@ -2999,7 +3133,8 @@ class ContinuousBatcher:
             # tokens are dropped (the target picks tau, and a sampled
             # request's generator is drawn by the target insert only).
             _paged_insert(
-                self.draft_params, self.draft_pool, bid, up[:, :P],
+                self.draft_params, self.draft_pool, torch.from_numpy(bid),
+                up[:, :P],
                 up[:, P:2 * P].bool(), [None] * kb,
                 torch.zeros_like(temps), torch.ones_like(top_ps),
                 torch.zeros_like(top_ks), config=self.draft_config,
@@ -3025,7 +3160,7 @@ class ContinuousBatcher:
         for i, (req, chain) in enumerate(batch):
             b = slot_ids[i]
             blocks = row_blocks[i]
-            self._install_row(b, req, blocks, generators[i])
+            self._install_row(b, req, blocks)
             # Every block now has a user; the freshly prefilled full
             # prompt blocks join the prefix index.
             self._claim_blocks(blocks)
@@ -3073,7 +3208,7 @@ class ContinuousBatcher:
             n_alloc_arr[i] = len(blocks)
             fill0s[i] = L0
             pol[i] = (req.temperature, req.top_p, req.top_k)
-            generators[i] = self._generator(req)
+            generators[i] = self._seed_slot(slots[i], req)
         # One upload: the suffixes, masks, tables, offsets and policies.
         MB = self.blocks_per_slot
         up = torch.from_numpy(np.concatenate(
@@ -3133,7 +3268,7 @@ class ContinuousBatcher:
             b = slots[i]
             blocks = row_blocks[i]
             n_share = len(hits)
-            self._install_row(b, req, blocks, generators[i], shared=n_share)
+            self._install_row(b, req, blocks, shared=n_share)
             self._claim_blocks(row_fresh[i])
             # Publish the FULL chain: the hit prefix re-publishes as a
             # no-op and parents the fresh nodes correctly.
@@ -3243,10 +3378,9 @@ class ContinuousBatcher:
             cost_fl, cost_by = self._dispatch_cost(
                 "_adopt", lambda: (0.0, 2.0 * r.staged.nbytes))
             timer = self._start_timer()
-            with program_range("_adopt_jit"):
-                adopt_into_pool(self.pool, r.staged)
-                if self.spec:
-                    adopt_into_pool(self.draft_pool, r.staged, prefix="d_")
+            adopt_into_pool(self.pool, r.staged)
+            if self.spec:
+                adopt_into_pool(self.draft_pool, r.staged, prefix="d_")
             self._store.complete_restore(r.restore, r.fresh)
             self.swap_in_blocks_total += len(r.fresh)
             swap_ms = (time.monotonic() - r.t0) * 1000.0
@@ -3299,8 +3433,7 @@ class ContinuousBatcher:
                 self._setup_fused_prefill(req, chain, hits, claimed=True)
             else:
                 self._restored_ready.pop(0)
-                with program_range("_paged_suffix_insert"):
-                    self._admit_shared_group([(req, chain, hits)], [free[0]])
+                self._admit_shared_group([(req, chain, hits)], [free[0]])
 
     # -- fused prefill-decode admission --------------------------------------
 
@@ -3367,11 +3500,12 @@ class ContinuousBatcher:
         blocks = hits + fresh
         suffix = req.tokens[base:]
         C = self._pf_chunk(len(suffix), n_share)
-        # Whole chunks; trailing zeros are masked and never dispatched.
-        toks = np.zeros((-(-len(suffix) // C) * C,), np.int32)
+        # Whole chunks, their count bucketed to a power of two (JAX
+        # :4605; the buffer's width keys _fused_chunk); trailing zeros are
+        # masked and never dispatched.
+        toks = np.zeros((pow2_bucket(-(-len(suffix) // C)) * C,), np.int32)
         toks[:len(suffix)] = suffix
-        self._install_row(b, req, blocks, self._generator(req),
-                          shared=n_share)
+        self._install_row(b, req, blocks, shared=n_share)
         self.fill[b] = 0
         self.pos[b] = 0
         self.active[b] = False

@@ -33,7 +33,7 @@ import torch
 from .config import LLaMAConfig
 from .engine import GenerationConfig, _is_stop, prompt_positions
 from .models.llama import _params_device, forward, init_cache, resolve_device
-from .ops.sampling import greedy, sample, warped_probs
+from .ops.sampling import categorical, greedy, sample, warped_probs
 
 
 def draft_categorical(
@@ -49,7 +49,7 @@ def draft_categorical(
     ok = (torch.isfinite(flat).all(dim=-1, keepdim=True)
           & (flat.sum(dim=-1, keepdim=True) > 0))
     flat = torch.where(ok, flat, 1.0)
-    out = torch.multinomial(flat, 1, generator=generator)
+    out = categorical(flat, generator)
     return out.reshape(probs.shape[:-1]).to(torch.int32)
 
 

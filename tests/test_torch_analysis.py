@@ -9,18 +9,31 @@ becomes ``torch``, a jitted program a compiled one, a blocking fetch a
 ``.cpu()`` or a ``synchronize``), and the sorted rule names must match.
 Then the port's own gates: its static audit is clean, every
 cross-thread pragma has a passing schedule model, and its comms budgets
-hold on a two-rank serving mesh.
+hold on a two-rank serving mesh.  The program passes (``lowering``,
+``retrace``, their registry ``contracts``): the port's REGISTRY is JAX's
+through the argument-name map, JAX's lowering fixtures written as torch
+programs give JAX's rule names, JAX's retrace fixture and its torch twin
+give the same findings, and both passes are clean on the package through
+the CLI, every layer included (the recorded runs, the drill).
 """
 
+import dataclasses
 import json
+import sys
+import types
 
 import pytest
+import torch
 
 from jax_llama_tpu.analysis import metricscheck as jmetrics
 from jax_llama_tpu.analysis import schedules as jsched
 from jax_llama_tpu.analysis.__main__ import main as jcli
 from jax_llama_tpu.analysis.common import Pragmas as JPragmas
 from jax_llama_tpu.analysis.hostsync import HostBoundaryChecker as JHost
+from jax_llama_tpu.analysis import retrace as jretrace
+from jax_llama_tpu.analysis.contracts import (
+    REGISTRY as JREGISTRY, ProgramContract as JContract,
+)
 from jax_llama_tpu.analysis.lockcheck import (
     LockDisciplineChecker as JLock, LockGuard as JGuard,
     ThreadConfinement as JConf,
@@ -29,7 +42,12 @@ from jax_llama_tpu.analysis.lockcheck import (
 from jax_llama_tpu_torch.analysis import run_all
 from jax_llama_tpu_torch.analysis import comms as pcomms
 from jax_llama_tpu_torch.analysis import metricscheck as pmetrics
+from jax_llama_tpu_torch.analysis import lowering as plowering
+from jax_llama_tpu_torch.analysis import retrace as pretrace
 from jax_llama_tpu_torch.analysis import schedules as psched
+from jax_llama_tpu_torch.analysis.contracts import (
+    JAX_ARG_NAMES, REGISTRY as PREGISTRY, ProgramContract as PContract,
+)
 from jax_llama_tpu_torch.analysis.__main__ import main as pcli
 from jax_llama_tpu_torch.analysis.common import Pragmas as PPragmas
 from jax_llama_tpu_torch.analysis.hostsync import (
@@ -39,6 +57,8 @@ from jax_llama_tpu_torch.analysis.lockcheck import (
     CONFINEMENTS, LOCK_GUARDS, LockDisciplineChecker as PLock,
     LockGuard as PGuard, ThreadConfinement as PConf,
 )
+from jax_llama_tpu_torch.utils import programs
+from jax_llama_tpu_torch.utils.programs import Program
 
 pytestmark = pytest.mark.analysis
 
@@ -480,12 +500,265 @@ def test_cli_file_exit_codes_match_jax(case, tmp_path, capsys):
             assert payload[0]["sanctionable"] in (True, False)
 
 
-@pytest.mark.parametrize("argv", [
-    ["--checker", "lowering"], ["--checker", "retrace"],
-    ["--contracts", "anything"]], ids=["lowering", "retrace", "contracts"])
-def test_cli_jaxpr_passes_name_a16_part_3(argv, capsys):
-    assert pcli(argv) == 2
-    assert "A16 part 3" in capsys.readouterr().err
+@pytest.mark.parametrize("checker", ["lowering", "retrace"])
+def test_cli_program_passes_exit_zero_on_the_package(checker, capsys):
+    """The program passes over the package, every layer: the lowering
+    auditor's static layer and its recorded runs of all twelve programs,
+    the retrace static layer and its runtime drill."""
+    assert pcli(["--checker", checker]) == 0
+    assert "clean" in capsys.readouterr().out
+
+
+def test_cli_contracts_hook_flags_a_forgotten_donation(capsys):
+    """JAX's ``--contracts`` fixture (tests/test_analysis.py:630-655, a
+    slow JAX trace there): a forgotten donation in an external registry
+    exits 1 with ``donation-not-applied``."""
+    reg = types.ModuleType("_torch_analysis_fixture_registry")
+    reg.REGISTRY = {"undonated": _lowering_contract("undonated", ("pool",),
+                                                    1, 8, _args)}
+    sys.modules[reg.__name__] = reg
+    try:
+        rc = pcli(["--checker", "lowering", "--contracts", reg.__name__])
+        assert rc == 1
+        assert "donation-not-applied" in capsys.readouterr().out
+    finally:
+        del sys.modules[reg.__name__]
+
+
+# ---------------------------------------------------------------------------
+# Lowering contracts (JAX's fixtures, tests/test_analysis.py:389-540, as
+# torch programs)
+# ---------------------------------------------------------------------------
+
+def _fixture_programs():
+    """A module of tiny programs, JAX's fixtures in torch: one donates its
+    pool, one forgot, one materializes a pool-sized broadcast, one copies
+    through a non-donated carry."""
+    mod = types.ModuleType("_torch_analysis_fixture_programs")
+
+    def good(pool, x):
+        pool[0, 0] += x.sum()
+        return pool, x * 2
+
+    def leaky(pool, x):
+        ghost = x[0].expand(pool.shape) + pool
+        pool[0, 0] += x.sum()
+        return pool, ghost
+
+    def copying(pool, x):
+        plane = x.sum().expand(pool.k.shape) + pool.k
+        return plane, x * 2
+
+    mod.good = Program(good, "good", (), ("pool",), ("pool", "y"), False)
+    mod.undonated = Program(good, "undonated", (), (), ("pool", "y"), False)
+    mod.leaky = Program(leaky, "leaky", (), ("pool",), ("pool", "ghost"),
+                        False)
+    mod.copying = Program(copying, "copying", (), (), ("plane", "y"), False)
+    return mod
+
+
+_FIXTURES = _fixture_programs()
+sys.modules[_FIXTURES.__name__] = _FIXTURES
+
+
+@dataclasses.dataclass
+class _MiniPool:
+    k: torch.Tensor
+    v: torch.Tensor
+    pos: torch.Tensor
+    k_scale: torch.Tensor = None
+    v_scale: torch.Tensor = None
+
+    @property
+    def block_size(self):
+        return 8
+
+
+def _args():
+    return (("pool", "x"),
+            (torch.zeros(2, 2, 4, 8, 4), torch.ones(2)), {})
+
+
+def _pooled_args():
+    k = torch.zeros(2, 2, 4, 8, 4)
+    pool = _MiniPool(k=k, v=k.clone(), pos=torch.zeros(4, 8,
+                                                       dtype=torch.int32))
+    return ("pool", "x"), (pool, torch.ones(2)), {}
+
+
+def _lowering_contract(fn_name, donated, live, bpr, build,
+                       forbid_pool_shapes=False, forbidden_shapes=None):
+    return PContract(name=fn_name, module=_FIXTURES.__name__,
+                     donated=donated, max_live_outputs=live,
+                     max_fetch_bytes_per_row=bpr, build=build,
+                     forbid_pool_shapes=forbid_pool_shapes,
+                     forbidden_shapes=forbidden_shapes)
+
+
+def _bare_pool(args):
+    return [tuple(args[0].shape)]
+
+
+LOWERING_CASES = {
+    # name: (program, donated, live, bytes/row, build, forbid, forbidden
+    # shapes, JAX's rules)
+    "good_program_clean": ("good", ("pool",), 1, 8, _args, False, None,
+                           []),
+    "forgotten_donation": ("undonated", ("pool",), 1, 8, _args, False, None,
+                           ["donation-not-applied"]),
+    "full_pool_copy_and_fetch_surface": (
+        "copying", (), 2, 8, _pooled_args, True, None,
+        ["fetch-bytes", "full-pool-copy"]),
+    "vacuous_shape_set": ("good", ("pool",), 1, 8, _args, True, None,
+                          ["no-forbidden-shapes"]),
+    "live_output_count": ("good", ("pool",), 0, 8, _args, False, None,
+                          ["fetch-count"]),
+    "leaky_broadcast": ("leaky", ("pool",), 1, 1 << 20, _args, True,
+                        _bare_pool, ["full-pool-copy"]),
+}
+
+
+@pytest.mark.parametrize("case", list(LOWERING_CASES))
+def test_lowering_fixture_gives_jaxs_rules(case):
+    """Each fixture of JAX's TestLoweringTraceFixtures gives JAX's rule
+    names (its JAX side traces, slow-marked there; these run in
+    tier-1); the good program gives none."""
+    fn, donated, live, bpr, build, forbid, shapes, want = LOWERING_CASES[
+        case]
+    fs = plowering.check_lowering(_lowering_contract(
+        fn, donated, live, bpr, build, forbid, shapes))
+    got = rules(fs)
+    assert set(want) <= set(got) and (want or not got), [
+        f.render() for f in fs]
+
+
+def test_lowering_static_layer_catches_drift():
+    """JAX's static-layer pins: a contract naming no program is stale, a
+    donation set that differs from the decorator's is a mismatch."""
+    reg = dict(PREGISTRY)
+    reg["_ghost"] = dataclasses.replace(PREGISTRY["_release_blocks"],
+                                        name="_ghost")
+    assert rules(plowering.check_static(registry=reg)) == ["stale-contract"]
+    reg = dict(PREGISTRY)
+    reg["_paged_insert"] = dataclasses.replace(
+        PREGISTRY["_paged_insert"], donated=("pool", "generators"))
+    assert rules(plowering.check_static(registry=reg)) == [
+        "donation-mismatch"]
+    reg = dict(PREGISTRY)
+    del reg["_adopt_jit"]
+    assert rules(plowering.check_static(registry=reg)) == [
+        "unregistered-program"]
+
+
+def test_registry_is_jaxs_through_the_name_map():
+    """The same twelve programs as JAX's REGISTRY, their donated sets
+    through JAX_ARG_NAMES (JAX's ``keys`` are the slots' generators, its
+    ``pool_arrays`` the pool; ``_fused_chunk``'s ``pf_key`` is the row's
+    slot generator, inside ``generators``), and the same budgets, read as
+    data (JAX's builders are not called)."""
+    assert set(PREGISTRY) == set(JREGISTRY)
+    for name, j in JREGISTRY.items():
+        p = PREGISTRY[name]
+        want = {JAX_ARG_NAMES.get(a, a) for a in j.donated}
+        assert set(p.donated) == want, name
+        for field in ("max_live_outputs", "max_fetch_bytes_per_row",
+                      "max_cache_keys", "forbid_pool_shapes"):
+            assert getattr(p, field) == getattr(j, field), (name, field)
+        decorated = programs.registry()[name]
+        assert set(decorated.donate) == set(p.donated), name
+
+
+# ---------------------------------------------------------------------------
+# Retrace (JAX's fixture source, tests/test_analysis.py:693-765, in torch,
+# line for line)
+# ---------------------------------------------------------------------------
+
+_RETRACE_JAX = '''
+import functools, jax
+import numpy as np
+import jax.numpy as jnp
+from jax_llama_tpu.engine import pow2_bucket
+
+@functools.partial(jax.jit, static_argnames=("width",))
+def _prog(x, *, width):
+    return x[:width]
+
+class Batcher:
+    def __init__(self):
+        self.cap = 8
+    def good(self, req):
+        w = pow2_bucket(len(req))
+        buf = np.zeros((w,), np.int32)
+        return _prog(jnp.asarray(buf), width=min(len(req), self.cap))
+    def bad_static(self, req):
+        buf = np.zeros((self.cap,), np.int32)
+        return _prog(jnp.asarray(buf), width=len(req))
+    def bad_shape(self, req):
+        buf = np.zeros((len(req),), np.int32)
+        return _prog(jnp.asarray(buf), width=self.cap)
+    def sanctioned(self, req):
+        buf = np.zeros((len(req),), np.int32)  # audit: trace-domain(fixture: caller guarantees <= 4 lengths)
+        # audit: trace-domain(fixture: caller-bounded)
+        return _prog(jnp.asarray(buf), width=len(req))
+'''
+_RETRACE_PORT = '''
+import torch
+import numpy as np
+from jax_llama_tpu_torch.utils.programs import program
+from jax_llama_tpu_torch.kvcache import pow2_bucket
+
+@program("_prog", static=("width",))
+def _prog(x, *, width):
+    return x[:width]
+
+class Batcher:
+    def __init__(self):
+        self.cap = 8
+    def good(self, req):
+        w = pow2_bucket(len(req))
+        buf = np.zeros((w,), np.int32)
+        return _prog(torch.from_numpy(buf), width=min(len(req), self.cap))
+    def bad_static(self, req):
+        buf = np.zeros((self.cap,), np.int32)
+        return _prog(torch.from_numpy(buf), width=len(req))
+    def bad_shape(self, req):
+        buf = np.zeros((len(req),), np.int32)
+        return _prog(torch.from_numpy(buf), width=self.cap)
+    def sanctioned(self, req):
+        buf = np.zeros((len(req),), np.int32)  # audit: trace-domain(fixture: caller guarantees <= 4 lengths)
+        # audit: trace-domain(fixture: caller-bounded)
+        return _prog(torch.from_numpy(buf), width=len(req))
+'''
+
+
+def test_retrace_fixture_findings_match_jax():
+    """JAX's retrace fixture through JAX's pass and its torch twin
+    through the port's: the same findings (rule, line, the function and
+    the key value named), every one sanctionable."""
+    got = {}
+    for name, check, contract, src in (
+            ("jax", jretrace.check_module_source, JContract, _RETRACE_JAX),
+            ("port", pretrace.check_module_source, PContract,
+             _RETRACE_PORT)):
+        reg = {"_prog": contract(
+            name="_prog", module="retrace_fixture", donated=(),
+            max_live_outputs=1, max_fetch_bytes_per_row=1 << 20,
+            max_cache_keys=4)}
+        fs = check("retrace_fixture.py", src, registry=reg)
+        assert all(f.sanctionable for f in fs), name
+        got[name] = sorted((f.rule, f.line, f.message.split(" is not")[0])
+                           for f in fs)
+    assert got["port"] == got["jax"] and len(got["port"]) == 2
+    assert any("bad_static" in m and "static arg" in m
+               for _, _, m in got["port"])
+    assert any("bad_shape" in m for _, _, m in got["port"])
+
+
+def test_retrace_missing_budget_is_a_finding():
+    reg = {"_paged_insert": dataclasses.replace(
+        PREGISTRY["_paged_insert"], max_cache_keys=None)}
+    assert "no-cache-key-budget" in rules(pretrace.check_static(
+        registry=reg))
 
 
 # ---------------------------------------------------------------------------

@@ -634,8 +634,9 @@ def test_structured_logger_json_and_text(ob, capsys):
 # ---------------------------------------------------------------------------
 
 # Help texts the port rewrites because its mechanism differs: kernel builds
-# (nvcc) where JAX counts XLA compiles, loaded kernel libraries where JAX
-# counts jit-cache entries, a roofline share without the TPU's MXU.
+# (nvcc) where JAX counts XLA compiles, program keys (CUDA graphs on the
+# card) where JAX counts jit-cache entries, a roofline share without the
+# TPU's MXU.
 PORT_HELP = {"compiles_total", "program_compiles_total", "jit_cache_entries",
              "mxu_utilization", "host_overhead_ratio"}
 
@@ -643,7 +644,8 @@ PORT_HELP = {"compiles_total", "program_compiles_total", "jit_cache_entries",
 def test_registry_is_the_jax_packages():
     assert set(jobs.METRICS) <= set(pobs.METRICS)
     assert set(pobs.METRICS) - set(jobs.METRICS) == {
-        "insert_dispatches_total"}
+        "insert_dispatches_total", "programs_captured",
+        "graph_captures_total", "graph_replays_total"}
     for name, (kind, help_text) in jobs.METRICS.items():
         assert pobs.METRICS[name][0] == kind, name
         if name not in PORT_HELP:

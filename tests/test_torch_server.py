@@ -65,6 +65,11 @@ PORT_ONLY_SERIES = {
     # The port's count of batched prefill dispatches (one per admitted
     # burst; the chip smoke run's flash launch counts divide by it).
     "llm_insert_dispatches_total",
+    # The program layer's CUDA graphs (utils.programs): whether the
+    # batcher captures, graphs captured, replays; XLA compiles every
+    # program, so JAX has no such choice to report.
+    "llm_programs_captured", "llm_graph_captures_total",
+    "llm_graph_replays_total",
 }
 JAX_ONLY_SERIES = {
     # Samples appear once a kernel is built inside a dispatch: XLA
@@ -267,7 +272,14 @@ def test_metrics_series_match_jax(served):
                 "host_overhead_ratio"):
         for kind in ("decode", "insert"):
             assert f'llm_{fam}{{kind="{kind}"}}' in text
-    assert 'llm_jit_cache_entries{program="paged_decode"} 0' in text
+    # Both packages label the gauge by JAX's program names.
+    jtext = served["jax"]["metrics"]
+    for prog in ("_paged_decode_chunk", "_paged_insert", "_adopt_jit"):
+        assert f'llm_jit_cache_entries{{program="{prog}"}}' in text
+        assert f'llm_jit_cache_entries{{program="{prog}"}}' in jtext
+    assert re.search(
+        r'llm_jit_cache_entries\{program="_paged_decode_chunk"\} [1-9]',
+        text)
 
 
 def test_debug_payloads_match_jax(served):
