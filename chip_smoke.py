@@ -33,8 +33,12 @@ raises and exits non-zero:
    tokens, 32 new tokens).  Launch counts are zeroed just before and read
    just after; the flash kernel must have run once per layer of the one
    prefill forward.  Prefill ms (CUDA events) and decode ms per token
-   (median of 3 pairs of 32- and 1-token generates) are timed apart, and
-   torch.profiler gives the device busy share of one generate.
+   (the difference of a 32- and a 1-token generate) are timed apart,
+   through ``generate``'s CUDA graphs and eagerly (no graph store) in
+   turns -- graphs, eager, eager, graphs -- with the same tokens, and
+   torch.profiler gives the device busy share, the device kernels and
+   the host's launch calls per token of one generate each way
+   (``generate_profile``, its ``eager`` key).
 4. cached_decode: at the same width, decoding token by token over the
    cache must give the full forward's logits, under attn_impl "flash"
    (every step runs the kernel) and "auto": rel < 0.02 in bf16 at the
@@ -675,7 +679,19 @@ without one), each phase with its launch counts and checks unchanged:
   plane); the retrace drill's admission sweep on the card
   (``analysis.retrace.sweep``), each program's new keys within its
   contract; decode ms per iteration and the busy share with graphs and
-  eagerly, in turns, beside the card's name and power limit.
+  eagerly, in turns, beside the card's name and power limit.  Since
+  ROADMAP A4 part 2 the phase also replays, in one graph store (one
+  memory pool, as a batcher's), every prefill-side program on a
+  batcher's pool (``drive_prefill_programs``: ``_paged_insert`` on flash
+  and on splash, ``_paged_suffix_insert``, ``_fused_chunk`` at a
+  non-final and the final chunk, ``_scatter_rows``,
+  ``_release_blocks``, ``_adopt_jit``) against its eager call from the
+  same state: outputs equal and the pool bit-equal, each graph's census
+  (the flash "wgmma" or splash launches of the inserts and fused chunks
+  among its kernel nodes), and the ``memory_reserved`` its pool holds;
+  and ``engine.generate`` (greedy and sampled) and ``score`` through
+  their graphs twice (a warm capture, then a capture replayed at once)
+  against eager: identical tokens and scores, the same flash launches.
 
 With them three checks of earlier phases: ``mesh_router`` holds every
 request whose tokens part from the unsharded router's to a near-tie
@@ -2447,6 +2463,24 @@ def prompts_for():
     return [text[:512 - pad - 1] for pad in PREFILL_PADS]
 
 
+def eager_engine(engine, eager: bool):
+    """A context in which ``engine.generate`` and ``score`` run their
+    programs eagerly (no graph store of the call's own) when ``eager``."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def ctx():
+        real = engine._call_graphs
+        if eager:
+            engine._call_graphs = lambda device, mesh: None
+        try:
+            yield
+        finally:
+            engine._call_graphs = real
+
+    return ctx()
+
+
 def device_profile(torch, fn, top=6, categories=None):
     """Device busy share and the top kernels by device time over ``fn()``,
     from torch.profiler; None where the profiler saw no device time.
@@ -2464,12 +2498,20 @@ def device_profile(torch, fn, top=6, categories=None):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    # The host's launch calls as the CUDA runtime saw them (kernels one by
+    # one, a graph as one launch), where the trace holds them.
+    runtime = {e.key: e.count for e in events
+               if e.device_type != DeviceType.CUDA and e.key in (
+                   "cudaLaunchKernel", "cudaLaunchKernelExC",
+                   "cuLaunchKernel", "cuLaunchKernelEx",
+                   "cudaGraphLaunch")}
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)
     out = dict(
         wall_ms=wall_ms,
+        runtime_launches=runtime,
         device_ms=device_ms or None,
         device_busy_share=(device_ms / wall_ms) if device_ms else None,
         kernel_launches=sum(e.count for e in kernels),
@@ -9187,14 +9229,252 @@ def graph_census(store):
                               * max(p.Depth, 1))
         out.append(dict(program=g.program, nodes=n.value, by_type=by_type,
                         custom_kernels=g.custom_kernels,
+                        recorded={rec.wrapper.__name__: dict(
+                            rec.launches_by_instance) for rec in g.counts},
                         max_memcpy_bytes=biggest, replays=g.replays))
     return out
+
+
+def census_holds(census, plane_bytes) -> bool:
+    """Every graph holds at least the hand-written kernel nodes its
+    capture recorded, and no memcpy node as large as one pool plane."""
+    return all(c["by_type"].get("kernel", 0) >= c["custom_kernels"]
+               and c["max_memcpy_bytes"] < plane_bytes for c in census)
+
+
+def replay_against_eager(torch, serving, store, prog, args, kw, restored,
+                         written, gens=()):
+    """``prog`` through ``store`` from one state twice (its warm run and
+    capture of a new graph, then from the state again its replay), then
+    its undecorated function (``__wrapped__``, no store) from the state
+    again: (outputs equal, max abs difference of the tensors both write
+    in place (``written``)).  ``restored``: every tensor either path
+    writes; ``gens``: the generators it draws from."""
+    saved = [t.clone() for t in restored]
+    gsaved = [g.get_state() for g in gens]
+
+    def restore():
+        for t, v in zip(restored, saved):
+            t.copy_(v)
+        for g, v in zip(gens, gsaved):
+            g.set_state(v)
+
+    def flat(out):
+        outs = out if isinstance(out, tuple) else (out,)
+        return [o.clone() for o in outs if isinstance(o, torch.Tensor)]
+
+    had = set(store.graphs)
+    with torch.no_grad():
+        with serving.use_graphs(store):
+            prog(*args, **kw)
+            restore()
+            got = flat(prog(*args, **kw))
+        got_written = [t.clone() for t in written]
+        restore()
+        with serving.use_graphs(None):
+            want = flat(prog.__wrapped__(*args, **kw))
+        torch.cuda.synchronize()
+    equal = len(got) == len(want) and all(
+        torch.equal(a, b) for a, b in zip(got, want))
+    diff = max((float((a.float() - b.float()).abs().max())
+                for a, b in zip(got_written, written)), default=0.0)
+    new = [g for gid, g in store.graphs.items() if gid not in had]
+    if len(new) != 1 or new[0].replays != 1:
+        raise AssertionError(f"programs: {prog.name} was not captured and "
+                             "replayed once")
+    return equal, diff
+
+
+def drive_prefill_programs(torch, np, ptl, p8, c8):
+    """The prefill-side programs (ROADMAP A4 part 2) on a batcher's pool at
+    llama3-8b width, PROGRAMS_LAYERS deep: each replayed against its eager
+    call from the same state (``replay_against_eager``), all in one graph
+    store (one memory pool, as a batcher's), with its graph's census;
+    returns the rows, the store (for ``memory_reserved``) and the
+    census."""
+    from jax_llama_tpu_torch import kvcache, serving
+    from jax_llama_tpu_torch.utils.programs import GraphStore
+
+    cb = ptl.ContinuousBatcher(p8, c8, n_slots=4, max_len=2048,
+                               decode_chunk=4, prefill_budget=512,
+                               device="cuda")
+    cb.close()
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(11)
+    pool = cb.pool
+    for plane in (pool.k, pool.v):
+        plane.normal_(generator=g)
+    NB, BLK = pool.pos.shape
+    V = c8.vocab_size
+
+    def i32(a):
+        return torch.tensor(np.asarray(a), dtype=torch.int32, device=dev)
+
+    def f32(a):
+        return torch.tensor(np.asarray(a), dtype=torch.float32, device=dev)
+
+    # Blocks 16-31 hold row 0's 300 decoded tokens, 32-33 row 1's cached
+    # 256-token prefix.
+    pos = torch.full((NB, BLK), -1, dtype=torch.int32, device=dev)
+    pos.view(-1)[16 * BLK:16 * BLK + 300] = torch.arange(300, device=dev)
+    pos.view(-1)[32 * BLK:32 * BLK + 256] = torch.arange(256, device=dev)
+    pool.pos.copy_(pos)
+    planes = [pool.k, pool.v, pool.pos]
+    toks = torch.randint(1, V, (2, 1024), device=dev, generator=g,
+                         dtype=torch.int32)
+    lanes = cb._lane_gens[:2]
+    for i, lane in enumerate(lanes):
+        lane.manual_seed(50 + i)
+    pol = (f32([0.0, 0.8]), f32([1.0, 0.95]), i32([0, 50]))
+    mask = torch.zeros((2, 1024), dtype=torch.bool, device=dev)
+    mask[0, :] = True
+    mask[1, :500] = True
+    bid = np.full((2, 8), NB, np.int32)
+    bid[0] = range(0, 8)
+    bid[1, :4] = range(8, 12)
+    rows, store = {}, GraphStore("cuda")
+
+    def check(name, prog, args, kw, restored, written, gens=()):
+        equal, diff = replay_against_eager(
+            torch, serving, store, prog, args, kw, restored, written, gens)
+        rows[name] = dict(outputs_equal=equal, written_max_abs_diff=diff)
+
+    # The cold insert, on flash and under --prefill-kernel splash.
+    for name, cfg in (("_paged_insert", c8),
+                      ("_paged_insert:splash",
+                       c8.replace(prefill_kernel="splash"))):
+        check(name, serving._paged_insert,
+              (p8, pool, i32(bid), toks, mask, lanes, *pol),
+              dict(config=cfg, with_logprobs=True), planes, planes, lanes)
+    # The prefix-hit insert: rows reuse 4 and 2 cached blocks.
+    table = np.full((2, 16), NB, np.int32)
+    table[0, :12] = [*range(0, 4), *range(36, 44)]
+    table[1, :12] = [32, 33, *range(44, 54)]
+    check("_paged_suffix_insert", serving._paged_suffix_insert,
+          (p8, pool, i32(table), i32([12, 12]), i32([512, 256]),
+           toks[:, :256], mask[:, :256], lanes, *pol),
+          dict(config=c8, with_logprobs=True), planes, planes, lanes)
+    # The fused lane: row 0 decodes, row 1 (a 700-token suffix over its
+    # 256-token hit) prefills in chunks of 512: a non-final chunk, then
+    # the final one, which folds the row in.
+    d_table = np.full((4, 16), NB, np.int32)
+    d_table[0] = range(16, 32)
+    d_table[1] = [32, 33, *range(54, 62), *range(0, 6)]
+    state = dict(
+        table=i32(d_table), n_alloc=i32([16, 16, 0, 0]),
+        fill=i32([300, 0, 0, 0]), tau=i32([5, 0, 0, 0]),
+        tau_lp=f32([0.0] * 4), pos=i32([300, 0, 0, 0]),
+        active=torch.tensor([True, False, False, False], device=dev),
+        remaining=i32([100, 40, 0, 0]), stops=i32([[-1]] * 4),
+        temps=f32([0.8, 0.7, 0, 0]), top_ps=f32([0.95, 1, 1, 1]),
+        top_ks=i32([40, 0, 0, 0]))
+    for gen_i, gen_ in enumerate(cb.generators):
+        gen_.manual_seed(70 + gen_i)
+    cb._pf_gen.manual_seed(90)
+    carry = [state[k] for k in ("fill", "tau", "tau_lp", "pos", "active",
+                                "remaining")]
+    for name, off in (("_fused_chunk", 0), ("_fused_chunk:final", 512)):
+        lane = i32([1, 700, 256, off])
+        check(name, serving._fused_chunk, (
+            p8, pool, state["table"], state["n_alloc"], state["fill"],
+            state["tau"], state["tau_lp"], state["pos"], state["active"],
+            state["remaining"], state["stops"], list(cb.generators),
+            state["temps"], state["top_ps"], state["top_ks"], lane[0],
+            toks[0], lane[1], lane[2], lane[3], cb._pf_gen), dict(
+                config=c8, n_iter=4, pf_chunk=512, use_kernel=True,
+                all_greedy=False, with_logprobs=True),
+            planes + carry + [lane], planes,
+            list(cb.generators) + [cb._pf_gen])
+    twins = (cb.d_table, cb.d_n_alloc, cb.d_fill, cb.d_pos, cb.d_active,
+             cb.d_top_ks, cb.d_remaining, cb.d_temps, cb.d_top_ps,
+             cb.d_stops)
+    new = tuple(torch.ones((2,) + tuple(t.shape[1:]), dtype=t.dtype,
+                           device=dev) for t in twins)
+    check("_scatter_rows", serving._scatter_rows,
+          (twins, torch.tensor([1, 3], device=dev), new), {},
+          list(twins), list(twins))
+    ids = np.full((16,), NB, np.int32)
+    ids[:3] = (16, 17, 32)
+    check("_release_blocks", serving._release_blocks, (pool.pos, i32(ids)),
+          {}, [pool.pos], [pool.pos])
+    slabs = [kvcache.fetch_slab(pool, b) for b in (20, 21, 22)]
+    staged = kvcache.stage_restore(slabs, [60, 61, 62], NB, device=dev)
+    check("_adopt_jit", kvcache._adopt_jit,
+          (pool, staged.ids, dict(staged.planes)), {}, planes, planes)
+    census = graph_census(store)
+    del cb
+    return rows, store, census
+
+
+def generate_graphs_against_eager(torch, np, ptl, p8, c8, tok):
+    """``engine.generate`` at PROGRAMS_LAYERS deep through its graphs (two
+    calls: the first runs its programs warm and captures them, the second
+    captures and replays at once) against eager calls (no graph store),
+    greedy and sampled from one seed, and ``score`` likewise: tokens and
+    scores identical, the same flash launches, and each graph's census
+    (read before the call's store is closed)."""
+    from jax_llama_tpu_torch import engine
+    from jax_llama_tpu_torch.utils import programs
+
+    fa = importlib.import_module("jax_llama_tpu_torch.ops.flash_attention")
+    kept = []
+
+    class Kept(programs.GraphStore):
+        def close(self):          # closed below, after the census
+            kept.append(self)
+
+    P, n = 256, 24
+    tokens = torch.zeros((2, P), dtype=torch.int32)
+    mask = torch.zeros((2, P), dtype=torch.bool)
+    for i, text in enumerate(prompts_for()[:2]):
+        ids = tok.encode(text, bos=True)[-P:]
+        tokens[i, P - len(ids):] = torch.tensor(ids)
+        mask[i, P - len(ids):] = True
+    tokens, mask = tokens.cuda(), mask.cuda()
+    out, launches = {}, {}
+    real = engine._call_graphs
+    for mode in ("graphs", "graphs_again", "eager"):
+        engine._call_graphs = (
+            (lambda d, m: None) if mode == "eager"
+            else (lambda d, m: Kept(d, capture_first=True)))
+        try:
+            for temp in (0.0, 0.8):
+                gc = engine.GenerationConfig(max_new_tokens=n,
+                                             temperature=temp, top_k=50)
+                gen = torch.Generator(device="cuda").manual_seed(3)
+                before = fa.flash_attention.launches
+                out[mode, temp] = engine.generate(
+                    p8, tokens, mask, gen, config=c8, gen_config=gc,
+                    device="cuda").clone()
+                launches[mode, temp] = fa.flash_attention.launches - before
+            out[mode, "score"] = engine.score(p8, tokens, mask, config=c8)
+        finally:
+            engine._call_graphs = real
+    torch.cuda.synchronize()
+    census = [c for st in kept for c in graph_census(st)]
+    for st in kept:
+        programs.GraphStore.close(st)
+    same = {str(k): all(torch.equal(out[m, k], out["eager", k])
+                        for m in ("graphs", "graphs_again"))
+            for k in (0.0, 0.8, "score")}
+    same_launches = all(launches[m, t] == launches["eager", t] == c8.n_layers
+                        for m in ("graphs", "graphs_again")
+                        for t in (0.0, 0.8))
+    replays = {c["program"]: c["replays"] for c in census}
+    return dict(identical=same, flash_launches=same_launches,
+                step_replays=replays.get("_generate_step"),
+                sampled_differs_from_greedy=not torch.equal(
+                    out["eager", 0.0], out["eager", 0.8])), census
 
 
 def drive_programs(torch, ptl, params, cfg, tok, smi):
     """Phase ``programs`` (module docstring): replay against eager, the
     graphs' node census, the retrace sweep's key counts on the card, and
-    decode ms per iteration and busy share with graphs and without."""
+    decode ms per iteration and busy share with graphs and without; then
+    the prefill-side programs, ``generate`` and ``score`` replayed against
+    eager, and the memory their graphs reserve."""
+    import numpy as np
+
     from jax_llama_tpu_torch import serving
     from jax_llama_tpu_torch.analysis import retrace
     from jax_llama_tpu_torch.analysis.contracts import REGISTRY
@@ -9295,8 +9575,11 @@ def drive_programs(torch, ptl, params, cfg, tok, smi):
                     for a, b in zip(graph_pool, eager_pool))
     census = graph_census(store)
     plane_bytes = cb.pool.k[0].numel() * cb.pool.k.element_size()
-    census_ok = all(c["by_type"].get("kernel", 0) >= c["custom_kernels"] > 0
-                    and c["max_memcpy_bytes"] < plane_bytes for c in census)
+    # Every decode program and insert graph holds hand-written kernels;
+    # the state scatters hold none.
+    census_ok = census_holds(census, plane_bytes) and all(
+        c["custom_kernels"] > 0 for c in census
+        if c["program"] not in ("_scatter_rows", "_release_blocks"))
     captured = sorted({c["program"] for c in census})
 
     # Decode ms per iteration and the device's busy share: the chunk
@@ -9321,6 +9604,32 @@ def drive_programs(torch, ptl, params, cfg, tok, smi):
     cb.close()
     del cb
 
+    # The prefill-side programs, generate and score: replay against eager
+    # from the same state, each graph's census, and the memory the
+    # graphs' pools reserve (the stores alive, then closed).
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    eager_reserved = torch.cuda.memory_reserved()
+    prefill, store, prefill_census = drive_prefill_programs(
+        torch, np, ptl, p8, c8)
+    torch.cuda.synchronize()
+    graphs_reserved = torch.cuda.memory_reserved()
+    store.close()
+    del store
+    torch.cuda.empty_cache()
+    closed_reserved = torch.cuda.memory_reserved()
+    generate_row, generate_census = generate_graphs_against_eager(
+        torch, np, ptl, p8, c8, tok)
+    new_census = prefill_census + generate_census
+    flash_recorded = {c["program"]: c["recorded"] for c in prefill_census}
+    new_census_ok = census_holds(new_census, plane_bytes) and all(
+        c["recorded"].get("flash_attention", {}).get("wgmma", 0) >= L
+        for c in prefill_census if c["program"] in (
+            "_paged_insert", "_fused_chunk")
+        and "splash" not in str(c["recorded"])) and any(
+        c["recorded"].get("splash_prefill", {}).get("wgmma", 0) >= L
+        for c in prefill_census)
+
     # The retrace drill's admission sweep on the card (8 layers, the
     # contracts' batcher geometry), each program's key count held to its
     # contract.
@@ -9339,6 +9648,15 @@ def drive_programs(torch, ptl, params, cfg, tok, smi):
                pool_plane_bytes=plane_bytes, census_ok=census_ok,
                decode_ms_per_iteration=timing,
                busy_share=busy,
+               prefill_programs=prefill, prefill_census=new_census,
+               prefill_census_ok=new_census_ok,
+               prefill_recorded_launches=flash_recorded,
+               generate_graphs=generate_row,
+               memory_reserved=dict(
+                   before_prefill_graphs=eager_reserved,
+                   with_prefill_graphs=graphs_reserved,
+                   after_closing_them=closed_reserved,
+                   graphs_bytes=graphs_reserved - closed_reserved),
                key_deltas={k: after[k] - before.get(k, 0) for k in after},
                key_budgets={k: c.max_cache_keys for k, c in REGISTRY.items()},
                key_overruns=[f.message for f in overruns],
@@ -9356,6 +9674,17 @@ def drive_programs(torch, ptl, params, cfg, tok, smi):
     if overruns:
         raise AssertionError(f"programs: key counts over their contracts: "
                              f"{row['key_overruns']}")
+    bad = {k: r for k, r in prefill.items()
+           if not r["outputs_equal"] or r["written_max_abs_diff"] != 0.0}
+    if bad or not new_census_ok:
+        raise AssertionError(f"programs: prefill-side graphs against eager "
+                             f"{bad}, census ok {new_census_ok}")
+    if not (all(generate_row["identical"].values())
+            and generate_row["flash_launches"]
+            and generate_row["step_replays"]
+            and generate_row["sampled_differs_from_greedy"]):
+        raise AssertionError(f"programs: generate's graphs against eager "
+                             f"{generate_row}")
     return row
 
 
@@ -9568,24 +9897,35 @@ def main() -> int:
     prefill_ms = time_ms(torch, prefill, iters=5, warmup=1)
     del logits
 
-    def gen_ms(n):
+    def gen_ms(n, eager=False):
         gc = engine.GenerationConfig(max_new_tokens=n, temperature=0.0)
         torch.cuda.synchronize()
         t = time.perf_counter()
-        out = engine.generate(params, tokens, mask, config=cfg, gen_config=gc,
-                              device="cuda")
+        with eager_engine(engine, eager):
+            out = engine.generate(params, tokens, mask, config=cfg,
+                                  gen_config=gc, device="cuda")
         torch.cuda.synchronize()
         return (time.perf_counter() - t) * 1e3, out
 
-    # The decode step is host-bound and the host's cores are shared, so
-    # one pair is noisy: take the median of 3 pairs, report all of them.
+    # Decode per token through the graphs (the default) and eagerly (no
+    # graph store), in turns: graphs, eager, eager, graphs, each the
+    # difference of a 32- and a 1-token generate; the host's cores are
+    # shared, so each mode reports both of its samples and their mean.
     gen_ms(1)
-    samples = []
-    for _ in range(3):
-        one_ms, _ = gen_ms(1)
-        many_ms, out = gen_ms(32)
-        samples.append((many_ms - one_ms) / 31)
-    decode_ms = sorted(samples)[1]
+    gen_ms(1, eager=True)
+    by_mode = {"graphs": [], "eager": []}
+    for mode in ("graphs", "eager", "eager", "graphs"):
+        one_ms, _ = gen_ms(1, eager=mode == "eager")
+        many_ms, out_m = gen_ms(32, eager=mode == "eager")
+        by_mode[mode].append((many_ms - one_ms) / 31)
+        if mode == "graphs":
+            out = out_m
+        elif not torch.equal(out_m, out):
+            raise AssertionError("generate: the eager tokens differ from "
+                                 "the graphs'")
+    samples = by_mode["graphs"]
+    decode_ms = sum(samples) / len(samples)
+    eager_decode_ms = sum(by_mode["eager"]) / len(by_mode["eager"])
     out_ok = (tuple(out.shape) == (4, P + 32)
               and bool((out[:, P:] >= 0).all())
               and bool((out[:, P:] < cfg.vocab_size).all()))
@@ -9595,15 +9935,30 @@ def main() -> int:
               init_params_s=init_s, generate_from_str_s=generate_s,
               launches=launches, instances=instances, prefill_ms=prefill_ms,
               decode_ms_per_token=decode_ms,
-              decode_ms_per_token_samples=samples, logits_finite=finite,
+              decode_ms_per_token_samples=samples,
+              eager_decode_ms_per_token=eager_decode_ms,
+              eager_decode_ms_per_token_samples=by_mode["eager"],
+              logits_finite=finite,
               tokens_ok=out_ok, sample=texts[0][:40]))
     if not (finite and out_ok and len(texts) == 4):
         raise AssertionError("generate phase produced bad output")
 
     gc = engine.GenerationConfig(max_new_tokens=32, temperature=0.0)
-    profile = device_profile(torch, lambda: engine.generate(
-        params, tokens, mask, config=cfg, gen_config=gc, device="cuda"))
-    emit(dict(phase="generate_profile", max_new_tokens=32, **profile))
+
+    def profiled(eager):
+        with eager_engine(engine, eager):
+            prof = device_profile(torch, lambda: engine.generate(
+                params, tokens, mask, config=cfg, gen_config=gc,
+                device="cuda"))
+        per = dict(kernel_launches_per_token=prof["kernel_launches"] / 32,
+                   host_launches_per_token={
+                       k: v / 32 for k, v in prof["runtime_launches"].items()})
+        return dict(prof, **per)
+
+    profile = profiled(False)
+    eager_profile = profiled(True)
+    emit(dict(phase="generate_profile", max_new_tokens=32, card=smi,
+              **profile, eager=eager_profile))
 
     # Phase 3b: tensor and data parallelism (ROADMAP A14 part 1): two
     # ranks on the one card, the generate phase's prompts at full width

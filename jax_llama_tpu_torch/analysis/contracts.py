@@ -28,10 +28,14 @@ under its JAX name:
                         pass's two-rank serving mesh (``comms``).
 
 The budgets are JAX's; a JAX ``keys`` argument is the port's
-``generators`` (the slots' generators) and ``pool_arrays`` the port's
-``pool``.  New programs MUST join this registry: the auditor's coverage
-check fails on any ``program``-decorated module-level function in
-serving.py / kvcache.py / ops/kernels.py without a contract.
+``generators`` (the slots' generators), ``pool_arrays`` the port's
+``pool`` and ``_fused_chunk``'s ``pf_key`` the fused lane's generator
+``pf_gen``.  ``engine.generate`` (two programs, ``generate`` and its
+decode loop's body ``_generate_step``) and ``score`` are the port's own
+entries (:data:`PORT_ONLY`; JAX jits them outside its registry).  New
+programs MUST join this registry: the auditor's coverage check fails on
+any ``program``-decorated module-level function in serving.py /
+kvcache.py / ops/kernels.py / engine.py without a contract.
 """
 
 from __future__ import annotations
@@ -247,11 +251,13 @@ def _build_fused_chunk():
     cb = _fused_batcher()
     pf = cb._pf
     names = ("params", "pool") + _STATE_NAMES + (
-        "pf_row", "pf_toks", "pf_len", "pf_base", "pf_off",
+        "pf_row", "pf_toks", "pf_len", "pf_base", "pf_off", "pf_gen",
     )
-    args = (cb.params, _fresh(cb.pool)) + _chunk_state(cb) + _fresh((
-        pf.h_row, pf.d_toks, pf.h_len, pf.h_base, pf.h_off,
-    ))
+    # The batcher's four lane scalars are views of one tensor; each is its
+    # own here, so that only pf_off's writes count as pf_off's.
+    row, n, base, off = (_fresh(t) for t in cb._pf_dev.unbind(0))
+    args = (cb.params, _fresh(cb.pool)) + _chunk_state(cb) + (
+        row, _fresh(pf.d_toks), n, base, off, _fresh(cb._pf_gen))
     kwargs = dict(config=cb.config, n_iter=2, pf_chunk=pf.chunk,
                   use_kernel=True, all_greedy=True, with_logprobs=False)
     return names, args, kwargs
@@ -398,6 +404,70 @@ def _build_stock_paged_decode():
         _host([17, 9], np.int32),
     )
     return names, args, dict(layer=1)
+
+
+# ``engine.generate``'s two programs and ``score`` at the tiny model: B =
+# 2 rows, a left-padded prompt of P = 8, 4 new tokens, greedy.
+_GEN_B, _GEN_P, _GEN_NEW = 2, 8, 4
+
+
+def _gen_example():
+    import numpy as np
+    import torch
+
+    from ..engine import GenerationConfig
+    from ..models import init_cache
+
+    cfg, params = _tiny_config_params()
+    gc = GenerationConfig(max_new_tokens=_GEN_NEW, temperature=0.0,
+                          stop_tokens=(3,))
+    rng = np.random.RandomState(8)
+    toks = _host(rng.randint(1, _VOCAB, (_GEN_B, _GEN_P)), np.int32)
+    mask = _host(np.arange(_GEN_P)[None, :]
+                 >= np.array([[0], [3]]), bool)
+    cache = init_cache(cfg, _GEN_B, max_len=_GEN_P + _GEN_NEW, device="cpu")
+    cache.index = torch.zeros((), dtype=torch.int32)
+    buf = torch.zeros((_GEN_B, _GEN_P + _GEN_NEW), dtype=torch.int32)
+    return cfg, params, gc, toks, mask, cache, buf
+
+
+def _build_generate():
+    import torch
+
+    cfg, params, gc, toks, mask, cache, buf = _gen_example()
+    names = ("params", "prompt_tokens", "prompt_mask", "generator",
+             "cache", "buf", "next_tok")
+    args = (params, toks, mask, None, cache, buf,
+            torch.zeros((_GEN_B,), dtype=torch.int32))
+    return names, args, dict(config=cfg, gen_config=gc)
+
+
+def _build_generate_step():
+    import torch
+
+    cfg, params, gc, toks, mask, cache, buf = _gen_example()
+    cache.index = torch.tensor(_GEN_P, dtype=torch.int32)
+    cache.pos[:, :_GEN_P] = torch.arange(_GEN_P, dtype=torch.int32)
+    names = ("params", "cache", "buf", "next_tok", "done", "prompt_lens",
+             "stops", "generator")
+    args = (params, cache, buf, torch.ones((_GEN_B,), dtype=torch.int32),
+            torch.zeros((_GEN_B,), dtype=torch.bool),
+            mask.to(torch.int32).sum(dim=1, dtype=torch.int32),
+            torch.tensor(gc.stop_tokens, dtype=torch.int32), None)
+    return names, args, dict(config=cfg, gen_config=gc)
+
+
+def _build_score():
+    cfg, params, _, toks, mask, _, _ = _gen_example()
+    return (("params", "tokens", "attn_mask"), (params, toks, mask),
+            dict(config=cfg))
+
+
+def _cache_shapes(args):
+    """The KV cache of a generate example (its ``cache`` argument): the
+    shapes no copy-class op may produce."""
+    cache = next(a for a in args if hasattr(a, "max_len"))
+    return [tuple(cache.k.shape), tuple(cache.k.shape[1:])]
 
 
 def _build_adopt_jit():
@@ -570,6 +640,40 @@ REGISTRY: Dict[str, ProgramContract] = {
             max_cache_keys=8,
         ),
         ProgramContract(
+            name="generate", module="jax_llama_tpu_torch.engine",
+            donated=("cache", "buf", "next_tok"), max_live_outputs=0,
+            max_fetch_bytes_per_row=0,
+            build=_build_generate,
+            # The decode state is written in place; the caller reads the
+            # buffer after the loop.  The cache the call owns is its
+            # "pool": no copy-class op may make a cache-sized tensor.
+            forbidden_shapes=_cache_shapes,
+            # config x gen_config x (B, P) as the caller picks them, as
+            # JAX keys generate: one per shape a serving CLI or an eval
+            # loop uses.
+            max_cache_keys=8, function="_generate_prefill",
+        ),
+        ProgramContract(
+            name="_generate_step", module="jax_llama_tpu_torch.engine",
+            donated=("cache", "buf", "next_tok", "done"),
+            max_live_outputs=0, max_fetch_bytes_per_row=0,
+            build=_build_generate_step,
+            forbidden_shapes=_cache_shapes,
+            # Keyed as generate is (one step program per generate key).
+            max_cache_keys=8,
+        ),
+        ProgramContract(
+            name="score", module="jax_llama_tpu_torch.engine",
+            donated=(), max_live_outputs=1,
+            # [B, T - 1] float32 log-probabilities: 28 bytes a row at T = 8.
+            max_fetch_bytes_per_row=4 * (_GEN_P - 1),
+            build=_build_score,
+            # No cache: the forward is cache-free.
+            forbid_pool_shapes=False,
+            # config x (B, T), as JAX keys score.
+            max_cache_keys=8, function="_score",
+        ),
+        ProgramContract(
             name="_adopt_jit", module="jax_llama_tpu_torch.kvcache",
             donated=("pool",), max_live_outputs=0,
             max_fetch_bytes_per_row=0,
@@ -587,10 +691,16 @@ REGISTRY: Dict[str, ProgramContract] = {
 NON_DISPATCHED: frozenset = frozenset()
 
 # Modules whose programs must be registered.
-CONTRACT_MODULES = ("serving", "kvcache", "kernels")
+CONTRACT_MODULES = ("serving", "kvcache", "kernels", "engine")
+
+# The port's programs that JAX's registry does not hold: JAX's
+# ``engine.generate`` and ``score`` (jitted there, outside its serving
+# registry) and the body of ``generate``'s decode loop.
+PORT_ONLY = frozenset({"generate", "_generate_step", "score"})
 
 # JAX argument names -> the port's, where they differ.
-JAX_ARG_NAMES = {"keys": "generators", "pool_arrays": "pool"}
+JAX_ARG_NAMES = {"keys": "generators", "pool_arrays": "pool",
+                 "pf_key": "pf_gen"}
 
 
 def pool_shapes(pool) -> List[Tuple[int, ...]]:

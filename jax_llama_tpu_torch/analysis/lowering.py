@@ -236,7 +236,7 @@ def _batch_rows(args: tuple, argnames: Tuple[str, ...]) -> int:
     """Example batch size: rows of the first per-row state tensor."""
     for name, arg in zip(argnames, args):
         if name in ("tau", "fill", "active", "prompt_tokens",
-                    "suffix_tokens"):
+                    "suffix_tokens", "tokens"):
             return int(arg.shape[0])
     return 1
 

@@ -500,7 +500,7 @@ def _loop_dispatch(s, clock):
     s.decode_dispatches_total += 1
     s._accept_window.append((4, 3))
     if s._pf is not None:
-        s._pf.h_off += s._pf.chunk
+        s._pf.off += s._pf.chunk
 
 
 def _loop_finish(s, clock):

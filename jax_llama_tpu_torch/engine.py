@@ -3,11 +3,27 @@
 Prompts arrive left-padded to a common length P with a boolean mask.  The
 engine prefills them (in one forward, or in ``prefill_chunk``-sized
 chunks whose non-final chunks skip the LM head), then decodes one token
-per step.  The JAX ``lax.while_loop`` is a Python loop with the same
-exit: after ``max_new_tokens`` steps, or as soon as every row has emitted
-a stop token.  A stop token is written to the buffer, then the row emits
+per step.  A stop token is written to the buffer, then the row emits
 ``pad_id``.  As in the JAX engine, the last step's forward runs even
 though its token is discarded.
+
+JAX jits ``generate`` as one program whose decode loop is a
+``lax.while_loop`` on the device.  The port runs it as two programs
+(``utils.programs``): ``generate`` (JAX's name and key: the prefill and
+the first sample) and ``_generate_step`` (the loop's body: the buffer
+write at the cache's device write index ``P + step``, the stop test, the
+T = 1 forward and the sample), and a host loop that calls the step at
+most ``max_new_tokens`` times.  The host reads whether every row is done
+once every ``DONE_EVERY`` steps, not once a step: a row that is done
+emits ``pad_id``, so the steps past the last stop change nothing in the
+buffer, which is the eager loop's and JAX's.  On the card each call owns
+a ``GraphStore``: both programs are captured as CUDA graphs (a key this
+process has run before is captured and replayed at once) and the step
+is replayed, so a step costs one graph launch instead of some thousand
+kernel launches; the store is closed when the call returns.  A call on a
+mesh whose collectives go through the host (``mesh.backend == "gloo"``)
+runs the same programs eagerly.  ``score`` is one program, ``score``, and
+one graph on the card.
 
 ``score`` gives per-token log-probabilities of given sequences, and
 ``window_positions`` the positions of one window of a chunked prefill
@@ -31,6 +47,10 @@ from .config import LLaMAConfig
 from .models.llama import _params_device, forward, init_cache, resolve_device
 from .ops.sampling import sample
 from .parallel.mesh import current_mesh, use_mesh
+from .utils.programs import GraphStore, program, use_graphs
+
+# Decode steps between two host reads of ``done`` in ``generate``.
+DONE_EVERY = 8
 
 
 def _mesh_scope(fn_name: str, mesh):
@@ -81,10 +101,23 @@ def window_positions(base, offset, width: int, length, device=None):
     a window of a longer right-padded prompt."""
     if isinstance(base, torch.Tensor):
         device = base.device
+    elif isinstance(offset, torch.Tensor):
+        device = offset.device
     j = torch.arange(width, dtype=torch.int32, device=device)[None, :]
     real = (offset + j) < length
     pos = torch.where(real, base + offset + j, -1).to(torch.int32)
     return pos, real
+
+
+def _call_graphs(device: torch.device, mesh) -> Optional[GraphStore]:
+    """The graph store one ``generate``/``score`` call owns: on the card,
+    unless ``mesh``'s collectives go through the host (gloo), which no
+    graph can hold (decided from ``mesh.backend``, never by catching an
+    error); None runs the programs eagerly."""
+    if device.type != "cuda" or (mesh is not None
+                                 and mesh.backend == "gloo"):
+        return None
+    return GraphStore(device, capture_first=True)
 
 
 @torch.inference_mode()
@@ -103,18 +136,35 @@ def score(params, tokens: torch.Tensor,
       :t+1]) from a float32 log-softmax of the forward's logits; 0 where
       the query or the target is padding.  The forward resolves
       ``config.attn_impl`` as any forward does ("auto": the flash kernel
-      at T > 8)."""
+      at T > 8).  On the card the program runs as one CUDA graph of this
+      call's own."""
     with _mesh_scope("score", mesh):
-        return _score(params, tokens, attn_mask, config)
+        device = _params_device(params)
+        tokens = tokens.to(device=device, dtype=torch.int32)
+        if attn_mask is not None:
+            attn_mask = attn_mask.to(device=device, dtype=torch.bool)
+        store = _call_graphs(device, mesh)
+        try:
+            with use_graphs(store):
+                # audit: trace-domain(keyed by the caller's config and
+                # shapes, as JAX's jit keys score)
+                out = _score(params, tokens, attn_mask, config=config)
+            # The graph's output goes with the store: keep a copy.
+            return out if store is None else out.clone()
+        finally:
+            if store is not None:
+                store.close()
 
 
-def _score(params, tokens, attn_mask, config):
-    device = _params_device(params)
-    tokens = tokens.to(device=device, dtype=torch.int32)
+@program("score", static=("config",), graph=True)
+@torch.inference_mode()
+def _score(params, tokens, attn_mask, *, config):
+    """``score``'s program (JAX's ``score``, keyed by ``config`` and the
+    shapes): ``tokens`` [B, T] int32 and ``attn_mask`` ([B, T] bool or
+    None) on the params' device."""
     B, T = tokens.shape
     if attn_mask is None:
-        attn_mask = torch.ones((B, T), dtype=torch.bool, device=device)
-    attn_mask = attn_mask.to(device=device, dtype=torch.bool)
+        attn_mask = torch.ones((B, T), dtype=torch.bool, device=tokens.device)
     positions = prompt_positions(attn_mask)
     logits, _ = forward(params, tokens, positions, config,
                         attn_mask=attn_mask)
@@ -150,6 +200,8 @@ def generate(
       prompt_tokens: [B, P] integer, left-padded.
       prompt_mask: [B, P] bool, False on padding.
       generator: torch.Generator on ``device``; required unless greedy.
+        The prefill's sample and each step's draw from it as the eager
+        loop did (a graph registers it and advances it on replay).
       device: where the model runs; "cuda" (the default) raises when no
         GPU is present.
       mesh: a ``parallel.Mesh`` when ``params`` is this rank's shard
@@ -161,11 +213,11 @@ def generate(
     """
     with _mesh_scope("generate", mesh):
         return _generate(params, prompt_tokens, prompt_mask, generator,
-                         config, gen_config, device)
+                         config, gen_config, device, mesh)
 
 
 def _generate(params, prompt_tokens, prompt_mask, generator, config,
-              gen_config, device):
+              gen_config, device, mesh):
     device = resolve_device(device)
     if _params_device(params).type != device.type:
         raise ValueError(
@@ -179,42 +231,101 @@ def _generate(params, prompt_tokens, prompt_mask, generator, config,
     prompt_mask = prompt_mask.to(device=device, dtype=torch.bool)
     B, P = prompt_tokens.shape
     total = P + gc.max_new_tokens
-    positions = prompt_positions(prompt_mask)
-    prompt_lens = prompt_mask.to(torch.int32).sum(dim=-1, dtype=torch.int32)
-
+    # The decode state, made here and updated in place by the programs
+    # (so that no graph's output is held across another's replay): the
+    # cache with its device write index, the buffer, the pending token,
+    # the done flags, the prompt lengths and the stop tokens.
     cache = init_cache(config, B, max_len=total, device=device)
+    cache.index = torch.zeros((), dtype=torch.int32, device=device)
+    buf = torch.full((B, total), gc.pad_id, dtype=torch.int32, device=device)
+    next_tok = torch.zeros((B,), dtype=torch.int32, device=device)
+    done = torch.zeros((B,), dtype=torch.bool, device=device)
+    prompt_lens = prompt_mask.to(torch.int32).sum(dim=-1, dtype=torch.int32)
+    stops = (torch.tensor(gc.stop_tokens, dtype=torch.int32, device=device)
+             if gc.stop_tokens else None)
+    store = _call_graphs(device, mesh)
+    try:
+        with use_graphs(store):
+            # audit: trace-domain(keyed by the caller's config, gen_config
+            # and shapes, as JAX's jit keys generate)
+            _generate_prefill(params, prompt_tokens, prompt_mask, generator,
+                              cache, buf, next_tok, config=config,
+                              gen_config=gc)
+            for step in range(gc.max_new_tokens):
+                # audit: host-fetch(whether every row is done, read once
+                # every DONE_EVERY steps: the loop's early exit)
+                if step and step % DONE_EVERY == 0 and bool(done.all()):
+                    break
+                # audit: trace-domain(keyed as generate is)
+                _generate_step(params, cache, buf, next_tok, done,
+                               prompt_lens, stops, generator, config=config,
+                               gen_config=gc)
+    finally:
+        if store is not None:
+            store.close()
+    return buf
+
+
+@program("generate", static=("config", "gen_config"),
+         donate=("cache", "buf", "next_tok"), graph=True)
+@torch.inference_mode()
+def _generate_prefill(params, prompt_tokens, prompt_mask, generator, cache,
+                      buf, next_tok, *, config, gen_config):
+    """``generate``'s first program (JAX's ``generate``, keyed as JAX
+    keys it: ``config``, ``gen_config`` and the shapes): the prompt into
+    ``buf``, the prefill into ``cache`` from its device index (0), the
+    first token into ``next_tok``; all in place.  ``prompt_tokens`` [B,
+    P] int32 and ``prompt_mask`` [B, P] bool on the params' device."""
+    gc = gen_config
+    P = prompt_tokens.shape[1]
+    buf[:, :P] = prompt_tokens
+    positions = prompt_positions(prompt_mask)
+    view = dataclasses.replace(cache)
     chunk = gc.prefill_chunk
     if chunk is not None and chunk < P:
         for start in range(0, P, chunk):
             end = min(start + chunk, P)
-            logits, cache = forward(
+            logits, view = forward(
                 params, prompt_tokens[:, start:end], positions[:, start:end],
-                config, cache=cache, attn_mask=prompt_mask[:, start:end],
+                config, cache=view, attn_mask=prompt_mask[:, start:end],
                 compute_logits=end >= P,
             )
     else:
-        logits, cache = forward(
-            params, prompt_tokens, positions, config, cache=cache,
+        logits, view = forward(
+            params, prompt_tokens, positions, config, cache=view,
             attn_mask=prompt_mask,
         )
-    next_tok = sample(generator, logits[:, -1], gc.temperature, gc.top_p, gc.top_k)
+    cache.index.copy_(view.index)
+    next_tok.copy_(sample(generator, logits[:, -1], gc.temperature, gc.top_p,
+                          gc.top_k))
 
-    buf = torch.full((B, total), gc.pad_id, dtype=torch.int32, device=device)
-    buf[:, :P] = prompt_tokens
-    done = torch.zeros((B,), dtype=torch.bool, device=device)
-    ones = torch.ones((B, 1), dtype=torch.bool, device=device)
-    pad = torch.full_like(next_tok, gc.pad_id)
-    step = 0
-    while step < gc.max_new_tokens and not bool(done.all()):
-        tok = torch.where(done, pad, next_tok)
-        buf[:, P + step] = tok
-        done = done | _is_stop(next_tok, gc.stop_tokens)
-        pos = (prompt_lens + step)[:, None]
-        logits, cache = forward(
-            params, tok[:, None], pos, config, cache=cache, attn_mask=ones,
-        )
-        next_tok = sample(
-            generator, logits[:, -1], gc.temperature, gc.top_p, gc.top_k
-        )
-        step += 1
-    return buf
+
+@program("_generate_step", static=("config", "gen_config"),
+         donate=("cache", "buf", "next_tok", "done"), graph=True)
+@torch.inference_mode()
+def _generate_step(params, cache, buf, next_tok, done, prompt_lens, stops,
+                   generator, *, config, gen_config):
+    """One iteration of ``generate``'s decode loop (the body of JAX's
+    ``lax.while_loop``, :278), in place: emit the pending token (``pad_id``
+    for a row already done) into column ``cache.index`` = P + step of
+    ``buf``, fold stop tokens into ``done``, run the T = 1 forward at the
+    cache's device index (which advances by one) and sample the next
+    token.  Nothing is read on the host.  ``stops`` is the stop tokens'
+    int32 vector (None without any)."""
+    gc = gen_config
+    B = buf.shape[0]
+    P = buf.shape[1] - gc.max_new_tokens
+    col = cache.index.long().view(1)
+    tok = torch.where(done, gc.pad_id, next_tok).to(torch.int32)
+    buf.index_copy_(1, col, tok[:, None])
+    if stops is not None:
+        done |= torch.any(next_tok[:, None] == stops, dim=-1)
+    pos = (prompt_lens + (cache.index - P))[:, None]
+    view = dataclasses.replace(cache)
+    logits, view = forward(
+        params, tok[:, None], pos, config, cache=view,
+        attn_mask=torch.ones((B, 1), dtype=torch.bool, device=buf.device),
+    )
+    cache.index.copy_(view.index)
+    next_tok.copy_(sample(generator, logits[:, -1], gc.temperature, gc.top_p,
+                          gc.top_k))

@@ -1217,11 +1217,12 @@ def adopt_into_pool(pool, staged: Staged, prefix: str = ""):
     return pool
 
 
-@program("_adopt_jit", donate=("pool",))
+@program("_adopt_jit", donate=("pool",), graph=True, copied=("planes",))
 def _adopt_jit(pool, ids, planes):
     """The adoption's scatter (JAX :1081): staged block i of each plane
     ({name: [nb, ...]}, block-major) lands in pool block ``ids[i]``, in
-    place.  ``ids`` [nb] int32 is padded with the sentinel (an id past the
+    place.  The staged planes are new tensors at every swap-in: a replay
+    copies them into the ones its graph captured (``copied``).  ``ids`` [nb] int32 is padded with the sentinel (an id past the
     pool's blocks), which drops: a pad row rewrites the first row's block
     with the first row's bytes.  A staged plane of another head count
     than the pool's (a slab of another tensor width) raises."""

@@ -33,9 +33,14 @@ The KV cache is updated IN PLACE (its k, v, pos and index): a forward
 with a cache returns the same ``KVCache`` object it was given, so every
 handle to it sees the advanced state.  The JAX package returns a fresh
 buffer; copying a multi-gigabyte cache per decode step is what in-place
-writes save.  The cache index is a scalar (lockstep decode) or a [B]
-tensor (one write offset per row, the serving batcher's gathered view,
-xla path only).
+writes save.  The cache index takes three forms: a host int, one for
+all rows (lockstep decode); a 0-d int32 tensor on the device, one for all
+rows too (the counterpart of JAX's traced scalar index: ``engine.generate``'s
+decode step and the fused prefill lane write at it with no host read, and
+a CUDA graph replays the write at whatever the index holds); or a [B]
+tensor, one write offset per row (the serving batcher's gathered view,
+xla path only).  The two shared forms keep the flash path: the kernels
+mask by the device position arrays, never by the index.
 
 A ``PagedKVCache`` (the serving block pool) routes to ``paged_forward``:
 T >= 1 consecutive tokens per row (a decode token, or the speculative
@@ -212,7 +217,9 @@ class KVCache:
            when the cache is quantized (config.kv_cache_dtype == "int8").
     pos:   [B, S_max] int32 absolute position of each slot; -1 = invalid.
     index: next write offset: an int, one for all rows (lockstep decode),
-           or a [B] int32 tensor, one per row (continuous batching).
+           a 0-d int32 tensor on the cache's device, one for all rows
+           (read on the device only), or a [B] int32 tensor, one per row
+           (continuous batching).
     k_scale, v_scale: [L, B, S_max, KVH] float32 per-slot-per-head dequant
            scales (int8 cache only; None otherwise).
     """
@@ -234,7 +241,12 @@ class KVCache:
 
     @property
     def per_row_index(self) -> bool:
-        return isinstance(self.index, torch.Tensor)
+        return isinstance(self.index, torch.Tensor) and self.index.dim() == 1
+
+    @property
+    def device_index(self) -> bool:
+        """The shared index lives on the device (a 0-d tensor)."""
+        return isinstance(self.index, torch.Tensor) and self.index.dim() == 0
 
 
 def _seq_cached(config: LLaMAConfig, mesh) -> bool:
@@ -646,7 +658,7 @@ def param_count(params: Params) -> int:
 # Forward
 # ---------------------------------------------------------------------------
 
-@functools.lru_cache(maxsize=8)
+@functools.lru_cache(maxsize=32)
 def _rope_tables(head_dim, max_positions, theta, scaled, device):
     cos, sin = rope_table(head_dim, max_positions, theta, use_scaled_rope=scaled)
     return torch.from_numpy(cos).to(device), torch.from_numpy(sin).to(device)
@@ -876,12 +888,21 @@ def _cache_write(
     index: Union[int, torch.Tensor],
 ) -> None:
     """Write new [B, T, KVH, hd] into one layer's cache [B, S, KVH, hd] at
-    ``index``: a shared int offset, or a [B] tensor of per-row offsets
-    (row b's token t lands at index[b] + t; a token past the cache is
-    dropped, as JAX's ``.at[...].set(mode="drop")``).  The same for a
-    layer's [B, S, KVH] scale plane with new [B, T, KVH]."""
+    ``index``: a shared int offset; a shared 0-d device tensor, read on
+    the device only (the T entries land at ``index`` clamped into [0, S -
+    T], as JAX's ``dynamic_update_slice`` clamps its start); or a [B]
+    tensor of per-row offsets (row b's token t lands at index[b] + t; a
+    token past the cache is dropped, as JAX's ``.at[...].set(mode=
+    "drop")``).  The same for a layer's [B, S, KVH] scale plane with new
+    [B, T, KVH]."""
     if not isinstance(index, torch.Tensor):
         cache_layer[:, index:index + new.shape[1]] = new.to(cache_layer.dtype)
+        return
+    if index.dim() == 0:
+        T, S = new.shape[1], cache_layer.shape[1]
+        cols = (index.long().clamp(0, S - T)
+                + torch.arange(T, device=new.device))
+        cache_layer.index_copy_(1, cols, new.to(cache_layer.dtype))
         return
     B, T = new.shape[:2]
     S = cache_layer.shape[1]
@@ -1130,13 +1151,44 @@ def _seq_part(S: int, T: int, local_index: int):
 
 
 def _seq_write_kv(cache_k, cache_v, cache_ks, cache_vs, k, v,
-                  local_index: int) -> None:
+                  local_index) -> None:
     """Land the part of the step's [B, T] K/V that falls in a slot shard
-    (``_seq_part``); quantized first when the cache is int8."""
+    (``_seq_part``; with a device index, ``_shard_write`` on the device);
+    quantized first when the cache is int8."""
+    if isinstance(local_index, torch.Tensor):
+        if cache_ks is not None:
+            k, ks = quantize_kv(k)
+            v, vs = quantize_kv(v)
+            _shard_write(cache_ks, ks, local_index)
+            _shard_write(cache_vs, vs, local_index)
+        _shard_write(cache_k, k, local_index)
+        _shard_write(cache_v, v, local_index)
+        return
     part = _seq_part(cache_k.shape[1], k.shape[1], local_index)
     if part is not None:
         _cache_write_kv(cache_k, cache_v, cache_ks, cache_vs, k[:, part[0]],
                         v[:, part[0]], part[1])
+
+
+def _shard_write(cache_layer: torch.Tensor, new: torch.Tensor,
+                 local_index: torch.Tensor) -> None:
+    """``_seq_write_kv``'s device form: of new [B, T, ...] landing at the
+    0-d ``local_index`` of a slot shard [B, S, ...] (which may lie before
+    or past the shard), write the tokens that fall in [0, S) and drop
+    the rest.  A dropped token repeats the first kept one (the same slot,
+    the same value: ``index_copy_`` leaves the winner of duplicate
+    targets unspecified); with none kept every token rewrites its clamped
+    slot's own value."""
+    T, S = new.shape[1], cache_layer.shape[1]
+    t = torch.arange(T, device=new.device)
+    cols = local_index.long() + t
+    keep = (cols >= 0) & (cols < S)
+    any_keep = keep.any()
+    src = torch.where(keep | ~any_keep, t, keep.int().argmax())
+    dst = cols[src].clamp(0, S - 1)
+    vals = torch.where(any_keep, new.index_select(1, src).to(
+        cache_layer.dtype), cache_layer.index_select(1, dst))
+    cache_layer.index_copy_(1, dst, vals)
 
 
 def _cache_write_kv(cache_k, cache_v, cache_ks, cache_vs, k, v, index):
@@ -1230,8 +1282,12 @@ def forward(
         docstring): the T tokens are written at ``cache.index``, attention
         runs over the whole cache, and ``cache.index`` advances by T.
         ``cache.index + T`` must not pass ``cache.max_len`` (a per-row
-        index past it drops that row's writes).  A per-row index runs the
-        xla path ("auto" resolves there).  A PagedKVCache runs
+        index past it drops that row's writes; a 0-d device index is not
+        read on the host, and its write is clamped into the cache, as
+        JAX's traced index is).  A per-row index runs the xla path
+        ("auto" resolves there); a 0-d device index resolves as a host
+        int does.  ``cache.index`` is rebound to ``cache.index + T`` (a
+        new tensor for a tensor index).  A PagedKVCache runs
         ``paged_forward``.
       attn_mask: optional [B, T] bool, False for padding; defaults to
         positions >= 0.
@@ -1352,7 +1408,9 @@ def forward(
         constrain_view(cache, config.kv_heads)
     capacity = cache.max_len * n_seq if ring_cached else (
         cache.max_len if cache is not None else 0)
-    if cache is not None and not per_row and cache.index + T > capacity:
+    if cache is not None and not per_row and (
+            T > capacity if cache.device_index
+            else cache.index + T > capacity):
         raise ValueError(
             f"cache overflow: index {cache.index} + {T} tokens > "
             f"{capacity} slots"
@@ -1385,10 +1443,13 @@ def forward(
         # cache; ring_decode reads the pre-step positions.
         ring_lo = mesh.axis_index("seq") * cache.max_len
         slot_pos = cache.pos.clone()
-        part = _seq_part(cache.max_len, T, cache.index - ring_lo)
-        if part is not None:
-            slot_pos[:, part[1]:part[1] + part[0].stop - part[0].start] = (
-                new_slot_pos[:, part[0]])
+        if cache.device_index:
+            _shard_write(slot_pos, new_slot_pos, cache.index - ring_lo)
+        else:
+            part = _seq_part(cache.max_len, T, cache.index - ring_lo)
+            if part is not None:
+                slot_pos[:, part[1]:part[1] + part[0].stop
+                         - part[0].start] = new_slot_pos[:, part[0]]
     elif cache is not None:
         slot_pos = cache.pos.clone()
         # the positions plane as a [B, S, 1, 1] "layer"
@@ -1413,7 +1474,8 @@ def forward(
     l_bias, l_bias_new = sh.take(bias), sh.take(bias_new)
     l_slot_pos = (cache.pos if ring_cached
                   else sh.take_seq(sh.take(slot_pos)))
-    l_index = sh.take(cache.index) if cache is not None else None
+    l_index = (sh.take(cache.index) if per_row
+               else cache.index if cache is not None else None)
     place = sh.place(l_B, T)
 
     # unbind, not w[i]: its backward stacks the per-layer gradients once

@@ -554,11 +554,11 @@ def _chunk_scan(
          static=("config", "n_iter", "pf_chunk", "use_kernel", "all_greedy",
                  "with_logprobs"),
          donate=_CHUNK_DONATED + ("pf_off",),
-         returns=_CHUNK_RETURNS + ("pf_off",))
+         returns=_CHUNK_RETURNS + ("pf_off",), graph=True)
 def _fused_chunk(
     params, pool, table, n_alloc, fill, tau, tau_lp, pos, active, remaining,
     stops, generators, temperature, top_p, top_k, pf_row, pf_toks, pf_len,
-    pf_base, pf_off, *, config, n_iter, pf_chunk, use_kernel,
+    pf_base, pf_off, pf_gen, *, config, n_iter, pf_chunk, use_kernel,
     all_greedy=False, with_logprobs=False,
 ):
     """The fused prefill-decode dispatch (JAX :770): one bounded prefill
@@ -566,72 +566,71 @@ def _fused_chunk(
     ``_chunk_scan``, so admissions never stall the decoding rows.
 
     ``pf_row``, ``pf_len``, ``pf_base`` and ``pf_off`` are 0-d int32
-    tensors on the host: JAX traces them (its key is ``pf_chunk`` and
-    shapes only, so is this one), and ``pf_off`` is the prefill's carry,
-    advanced by ``pf_chunk`` in place (donated).  The body slices and
-    branches on them on the host and hands the flash kernel a host write
-    index, which is why this program runs eagerly (its graph waits for a
-    device-side write index: ROADMAP A4 part 2).
+    tensors on the device, read there only (JAX traces them; its key is
+    ``pf_chunk`` and shapes, and so is this one): ``pf_off`` is the
+    prefill's carry, advanced by ``pf_chunk`` in place (donated).
 
     Prefill half: row ``pf_row``'s gathered view (``_gather_cache`` of
-    its table row) with the SCALAR write index ``pf_base + pf_off``, so
-    the forward's "auto" rule runs the flash kernel over a chunk of more
-    than ``FLASH_MIN_SEQ`` tokens (a per-row index would force the xla
-    path); a prefix-hit row starts its walk at ``pf_base`` = fill0 and
+    its table row) with the 0-d device write index ``pf_base + pf_off``,
+    so the forward's "auto" rule runs the flash kernel over a chunk of
+    more than ``FLASH_MIN_SEQ`` tokens (a per-row index would force the
+    xla path); a prefix-hit row starts its walk at ``pf_base`` = fill0 and
     attends the reused KV through the same view.  ``pf_toks`` is the
-    suffix, uploaded once at admission; the window's positions are made
-    on the device from host ints (``window_positions``), so no chunk
-    copies anything to the card.  Only the chunk's own window is written
-    back (``_scatter_back(T=C)``); the host's ``_pf_chunk`` clamp keeps
-    ``pf_base + pf_off + C`` inside the view.
+    suffix, uploaded once at admission and sliced here at ``pf_off``; the
+    window's positions are made on the device (``window_positions``), so
+    no chunk copies anything to the card.  Only the chunk's own window is
+    written back (``_scatter_back(T=C)``); the host's ``_pf_chunk`` clamp
+    keeps ``pf_base + pf_off + C`` inside the view.
 
-    On the chunk that lands the last prompt token (the host knows which)
-    the first token is sampled from that token's logits with the row's
-    own policy and its slot's generator, which the host seeded from the
-    request's seed just before this dispatch (one draw, the classic
-    insert's), under the non-finite guard, and the row folds into the
-    decode state on the device (active, tau, tau_lp, fill, pos): the scan
-    below emits its first token from this dispatch.  A non-final chunk
-    draws nothing for the row.  The prefilling row rides the scan masked
-    until then.
+    The last prompt token's logits are sampled every dispatch with the
+    row's own policy from ``pf_gen`` (JAX's ``pf_key``), under the
+    non-finite guard, and folded into the decode state (active, tau,
+    tau_lp, fill, pos) under the device mask ``pf_off + C >= pf_len``, as
+    JAX computes it: the scan below emits the row's first token from the
+    dispatch that lands the last chunk.  The host seeds ``pf_gen`` from
+    the request's seed before that dispatch (its first draw is then the
+    classic insert's) and moves the row's slot generator one draw past
+    the same seed, so that the scan's draws continue the request's
+    sequence; a non-final chunk's draw is discarded.  The prefilling row
+    rides the scan masked until then.
 
     Returns ``_chunk_scan``'s tuple, then ``pf_off``."""
     C = pf_chunk
+    B = tau.shape[0]
     dev = tau.device
-    row, base, off, plen = (int(t) for t in (pf_row, pf_base, pf_off,
-                                             pf_len))
-    write_at = base + off
-    table_r = table[row:row + 1]
-    at = torch.full((1,), write_at, dtype=torch.int32, device=dev)
-    view = _gather_cache(pool, table_r, n_alloc[row:row + 1], at)
+    BLK = pool.block_size
+    row = pf_row.long().view(1)
+    table_r = table.index_select(0, row)
+    write_at = (pf_base + pf_off).to(torch.int32)
+    view = _gather_cache(pool, table_r, n_alloc.index_select(0, row),
+                         write_at.view(1))
     view.index = write_at
-    positions, real = window_positions(base, off, C, plen, device=dev)
+    start = pf_off.long().clamp(0, pf_toks.shape[0] - C)
+    toks = pf_toks.index_select(0, start + torch.arange(C, device=dev))
+    positions, real = window_positions(pf_base, pf_off, C, pf_len)
     _, view, aux = forward(
-        params, pf_toks[off:off + C][None], positions, config,
-        cache=view, attn_mask=real, compute_logits=False,
-        output_last_hidden=True,
+        params, toks[None], positions, config, cache=view, attn_mask=real,
+        compute_logits=False, output_last_hidden=True,
     )
-    _scatter_back(pool, view, table_r, at,
+    _scatter_back(pool, view, table_r, write_at.view(1),
                   torch.ones((1,), dtype=torch.bool, device=dev), T=C)
-    idx = plen - 1 - off
-    if 0 <= idx < C:
-        logits = lm_head_logits(
-            params, aux.last_hidden_state[:, idx:idx + 1], config,
-            normed=True)[:, 0]
-        r = slice(row, row + 1)
-        first = sample_rows([generators[row]], logits, temperature[r],
-                            top_p[r], top_k[r], all_greedy=all_greedy)
-        if with_logprobs:
-            tau_lp = torch.where(
-                torch.arange(tau.shape[0], device=dev) == row,
-                _token_logprob(logits, first)[0], tau_lp)
-        first = torch.where(_finite_rows(logits), first, -1)
-        fold = torch.arange(tau.shape[0], device=dev) == row
-        active = active | fold
-        tau = torch.where(fold, first[0], tau)
-        fill = torch.where(
-            fold, _round_up(base + plen, pool.block_size), fill)
-        pos = torch.where(fold, base + plen, pos)
+    idx = (pf_len - 1 - pf_off).long().clamp(0, C - 1).view(1)
+    logits = lm_head_logits(
+        params, aux.last_hidden_state.index_select(1, idx), config,
+        normed=True)[:, 0]
+    first = sample_rows([pf_gen], logits, temperature.index_select(0, row),
+                        top_p.index_select(0, row),
+                        top_k.index_select(0, row), all_greedy=all_greedy)
+    fold = ((torch.arange(B, device=dev) == pf_row)
+            & (pf_off + C >= pf_len))
+    if with_logprobs:
+        tau_lp = torch.where(fold, _token_logprob(logits, first)[0], tau_lp)
+    first = torch.where(_finite_rows(logits), first, -1)
+    active = active | fold
+    tau = torch.where(fold, first[0], tau)
+    fill = torch.where(fold, pf_base + (pf_len + BLK - 1) // BLK * BLK,
+                       fill)
+    pos = torch.where(fold, pf_base + pf_len, pos)
     return _chunk_scan(
         params, pool, table, n_alloc, fill, tau, tau_lp, pos, active,
         remaining, stops, generators, temperature, top_p, top_k,
@@ -640,9 +639,28 @@ def _fused_chunk(
     ) + (pf_off + C,)
 
 
+def _drop_scatter(plane: torch.Tensor, dim: int, ids: torch.Tensor,
+                  new: torch.Tensor) -> None:
+    """``plane.index_copy_(dim, ids, new)`` in place, where an id outside
+    [0, plane.shape[dim]) drops its entry (JAX's ``.at[ids].set(mode=
+    "drop")``), with no host read: a dropped entry repeats the first live
+    one (the same target, the same value: ``index_copy_`` leaves the
+    winner of duplicate targets unspecified); with none live every entry
+    rewrites its clamped target's own value."""
+    n, NB = ids.numel(), plane.shape[dim]
+    live = (ids >= 0) & (ids < NB)
+    any_live = live.any()
+    every = torch.arange(n, device=ids.device)
+    src = torch.where(live | ~any_live, every, live.int().argmax())
+    dst = ids[src].clamp(0, NB - 1)
+    vals = torch.where(any_live, new.index_select(dim, src).to(plane.dtype),
+                       plane.index_select(dim, dst))
+    plane.index_copy_(dim, dst, vals)
+
+
 @program("_paged_insert",
          static=("config", "prefill_chunk", "with_logprobs"),
-         donate=("pool",), returns=("first", "logprob"))
+         donate=("pool",), returns=("first", "logprob"), graph=True)
 def _paged_insert(
     params, pool, block_ids, prompt_tokens, prompt_mask, generators,
     temperature, top_p, top_k, *, config, prefill_chunk=None,
@@ -653,14 +671,15 @@ def _paged_insert(
 
     prompt_tokens/prompt_mask: [k, P] on the device, RIGHT-padded to the
     group's block-multiple length P.  block_ids: [k, P // block_size]
-    int32 on the host, the physical blocks of each row's prompt span;
+    int32 on the device, the physical blocks of each row's prompt span;
     entries equal to n_blocks (past a shorter row's span, or a padding
-    row) are dropped.  Logits are taken at each row's last real token.
+    row) are dropped on the device (``_drop_scatter``, JAX's
+    ``mode="drop"``).  Logits are taken at each row's last real token.
     Returns (the sampled first tokens [k] int32, -1 where the logits are
     not finite; their logprobs [k] under ``with_logprobs``, else None).
     """
     k_rows, P = prompt_tokens.shape
-    L, KVH, NB, BLK = pool.k.shape[:4]
+    L, KVH, _, BLK = pool.k.shape[:4]
     device = pool.k.device
     sub = init_cache(config, k_rows, max_len=P, device=device)
     positions = prompt_positions(prompt_mask)
@@ -688,29 +707,25 @@ def _paged_insert(
     lp = _token_logprob(logits_last, tau) if with_logprobs else None
     tau = torch.where(_finite_rows(logits_last), tau, -1)
 
-    bid = block_ids.numpy()
-    r, j = np.nonzero(bid < NB)
-    if r.size:
-        idx = torch.from_numpy(
-            np.stack([r, j, bid[r, j]]).astype(np.int64)).to(device)
-        r_t, j_t, b_t = idx.unbind(0)
-        # [L, k, P, KVH, hd] -> [L, k, nb, BLK, KVH, hd], then the chosen
-        # (row, block) pairs -> [L, KVH, n, BLK, hd]
-        span = (L, k_rows, P // BLK, BLK, KVH)
-        planes = [(pool.k, sub.k), (pool.v, sub.v)]
-        if pool.quantized:  # the scale planes too (JAX :1023-1031)
-            planes += [(pool.k_scale, sub.k_scale),
-                       (pool.v_scale, sub.v_scale)]
-        for plane, new in planes:
-            plane[:, :, b_t] = new.reshape(span + new.shape[4:])[
-                :, r_t, j_t].movedim(3, 1)
-        pool.pos[b_t] = sub.pos.reshape(k_rows, P // BLK, BLK)[r_t, j_t]
+    nb = P // BLK
+    ids = block_ids.reshape(-1).long()
+
+    def to_blocks(a):  # [L, k, P, KVH, ...] -> [L, KVH, k * nb, BLK, ...]
+        a = a.reshape((L, k_rows, nb, BLK, KVH) + a.shape[4:]).movedim(4, 1)
+        return a.reshape((L, KVH, k_rows * nb, BLK) + a.shape[5:])
+
+    planes = [(pool.k, sub.k), (pool.v, sub.v)]
+    if pool.quantized:  # the scale planes too (JAX :1023-1031)
+        planes += [(pool.k_scale, sub.k_scale), (pool.v_scale, sub.v_scale)]
+    for plane, new in planes:
+        _drop_scatter(plane, 2, ids, to_blocks(new))
+    _drop_scatter(pool.pos, 0, ids, sub.pos.reshape(k_rows * nb, BLK))
     return tau, lp
 
 
 @program("_paged_suffix_insert",
          static=("config", "prefill_chunk", "with_logprobs"),
-         donate=("pool",), returns=("first", "logprob"))
+         donate=("pool",), returns=("first", "logprob"), graph=True)
 def _paged_suffix_insert(
     params, pool, table_rows, n_alloc_rows, fill0, suffix_tokens,
     suffix_mask, generators, temperature, top_p, top_k, *, config,
@@ -972,7 +987,7 @@ def _spec_rounds_chunk(
     return packed, tau, tau_lp, fill, pos, active, remaining
 
 
-@program("_scatter_rows", donate=("state",))
+@program("_scatter_rows", donate=("state",), graph=True)
 def _scatter_rows(state, idx, rows):
     """The dirty-row upload's scatter (JAX :895): row ``idx[i]`` of each
     per-slot twin in ``state`` takes ``rows[j][i]``, in place.  The
@@ -983,7 +998,7 @@ def _scatter_rows(state, idx, rows):
         twin[idx] = new
 
 
-@program("_release_blocks", donate=("pos",))
+@program("_release_blocks", donate=("pos",), graph=True)
 def _release_blocks(pos, block_ids):
     """Invalidate re-purposed blocks' positions in the pool's position
     plane (JAX :1125), in place.  ``block_ids`` [MB] int32 is padded with
@@ -991,7 +1006,7 @@ def _release_blocks(pos, block_ids):
     row, as ``paged_pool_write`` repeats a live pair."""
     ids = block_ids.long()
     ids = torch.where(ids < pos.shape[0], ids, ids[0])
-    pos[ids] = -1
+    pos.index_fill_(0, ids, -1)
 
 
 def jit_cache_entries() -> Dict[str, int]:
@@ -1022,10 +1037,11 @@ class _Slot:
 class _Prefill:
     """Host view of the single in-flight fused admission (queued ->
     prefilling(off) -> decoding; JAX :1667).  The suffix tokens are
-    uploaded once, at admission (``d_toks``); ``off`` advances by
-    ``chunk`` per fused dispatch (``_fused_chunk`` advances ``h_off``, a
-    tensor on the host), so the host knows without a fetch which
-    dispatch lands the last chunk."""
+    uploaded once, at admission (``d_toks``), with the lane's device
+    scalars (the batcher's ``_pf_dev``: row, suffix length, fill0 and
+    the carry ``off``, which ``_fused_chunk`` advances on the device);
+    the host advances its own ``off`` by ``chunk`` per fused dispatch,
+    so it knows without a fetch which dispatch lands the last chunk."""
 
     slot: int
     req: "_Request"
@@ -1035,25 +1051,7 @@ class _Prefill:
     suffix_len: int       # real suffix tokens to prefill
     chunk: int            # C: prompt tokens advanced per dispatch
     d_toks: Any = None    # [pow2(n_chunks) * C] int32 on the device
-    # ``_fused_chunk``'s host scalars (0-d int32 tensors on the host,
-    # JAX's traced d_row, d_len, d_base, d_off): the row, the suffix
-    # length, fill0 and the carry ``off``.
-    h_row: Any = None
-    h_len: Any = None
-    h_base: Any = None
-    h_off: Any = None
-
-    def __post_init__(self):
-        def scalar(v):
-            return torch.tensor(v, dtype=torch.int32)
-
-        self.h_row, self.h_len = scalar(self.slot), scalar(self.suffix_len)
-        self.h_base, self.h_off = scalar(self.base), scalar(0)
-
-    @property
-    def off(self) -> int:
-        """Suffix tokens already dispatched."""
-        return int(self.h_off)
+    off: int = 0          # suffix tokens already dispatched
 
     @property
     def remaining_tokens(self) -> int:
@@ -1063,8 +1061,8 @@ class _Prefill:
     def flash(self) -> bool:
         """Host mirror of the prefill half's "auto" rule: the chunk runs
         the flash kernel iff it is longer than ``FLASH_MIN_SEQ`` tokens
-        (the view's write index is a scalar, so the per-row rule never
-        forces the xla path here)."""
+        (the view's write index is a 0-d device scalar, shared, so the
+        per-row rule never forces the xla path here)."""
         return self.chunk > FLASH_MIN_SEQ
 
 
@@ -1434,15 +1432,26 @@ class ContinuousBatcher:
         # The model logprob of each row's pending tau (logprobs=True).
         self.d_tau_lp = torch.zeros((B,), dtype=torch.float32, device=dev)
         # One generator per slot for the batcher's life (JAX's ``keys``
-        # rows), seeded from a sampled request's seed at its admission
-        # (``_seed_slot``): the decode programs' graphs hold these.
+        # rows): the decode programs' graphs hold these.  An admission
+        # draws a request's first token from a generator of its own lane
+        # (one per insert row, and the fused lane's ``_pf_gen``: the
+        # prefill programs' graphs hold those), seeded from the request's
+        # seed; the slot's generator then takes the lane's state, one draw
+        # past the seed (``_seed_lane``, ``_hand_lanes``).
         self.generators: List[torch.Generator] = [
             torch.Generator(device=dev) for _ in range(B)]
+        self._lane_gens: List[torch.Generator] = [
+            torch.Generator(device=dev) for _ in range(B)]
+        self._pf_gen = torch.Generator(device=dev)
+        # The fused lane's device scalars (row, suffix length, fill0, the
+        # carry off), one tensor for the batcher's life, so that its
+        # graphs hold it (``_setup_fused_prefill`` uploads them).
+        self._pf_dev = torch.zeros((4,), dtype=torch.int32, device=dev)
         self._dirty_rows: set = set()
-        # The programs' CUDA graphs (utils.programs), decided here, once:
-        # on the card, unless a mesh's collectives go through the host
-        # (gloo), which no graph can hold; None runs every program
-        # eagerly.
+        # The programs' CUDA graphs (utils.programs), decided here, once
+        # (from ``mesh.backend``): on the card, unless a mesh's
+        # collectives go through the host (gloo), which no graph can hold;
+        # None runs every program eagerly.
         self._graphs: Optional[GraphStore] = (
             GraphStore(dev) if dev.type == "cuda" and (
                 mesh is None or mesh.backend != "gloo") else None)
@@ -2082,17 +2091,21 @@ class ContinuousBatcher:
         else:
             b = pf.slot
             # The prefilling row's first token is its request's first draw
-            # (the classic insert's): its slot's generator starts from the
-            # request's seed at the dispatch that lands the last chunk,
-            # whatever the scans before drew on it.
+            # (the classic insert's): the fused lane's generator starts
+            # from the request's seed at the dispatch that lands the last
+            # chunk, whatever the dispatches before drew on it, and the
+            # slot's generator one draw past it, where the scan's draws
+            # go on.
             all_greedy = all_greedy and pf.req.temperature <= 0.0
             if final:
-                self._seed_slot(b, pf.req)
+                self._seed_lane(self._pf_gen, pf.req, slot=b)
+            pf_row, pf_len, pf_base, pf_off = self._pf_dev.unbind(0)
             out = _fused_chunk(
-                *state, pf.h_row, pf.d_toks, pf.h_len, pf.h_base, pf.h_off,
-                config=self.config, n_iter=K, pf_chunk=pf.chunk,
-                use_kernel=self.use_pallas_kernel, all_greedy=all_greedy,
-                with_logprobs=self.logprobs)[:-1]
+                *state, pf_row, pf.d_toks, pf_len, pf_base, pf_off,
+                self._pf_gen, config=self.config, n_iter=K,
+                pf_chunk=pf.chunk, use_kernel=self.use_pallas_kernel,
+                all_greedy=all_greedy, with_logprobs=self.logprobs)[:-1]
+            pf.off += pf.chunk
             self.prefill_chunks_total += 1
             if final:
                 # The device folded the row into the decode state and
@@ -2881,18 +2894,35 @@ class ContinuousBatcher:
         if stops:
             self.stop_tab[b, :len(stops)] = sorted(stops)
 
-    def _seed_slot(self, b: int, req: _Request
-                   ) -> Optional[torch.Generator]:
-        """Seed slot ``b``'s generator from a sampled request's seed (its
-        own, or ``default_seed``): the request's draws are then the
-        generator's from that seed on, as a fresh generator's would be.
-        Returns it, or None (the generator left as it is) for a greedy
-        request."""
+    def _seed_lane(self, lane: torch.Generator, req: _Request,
+                   slot: Optional[int] = None) -> None:
+        """Seed an admission lane's generator from a sampled request's
+        seed (its own, or ``default_seed``): the request's first token is
+        then the first draw from that seed, as a fresh generator's would
+        be.  With ``slot`` (the fused lane, whose dispatch goes on to draw
+        the row's next tokens from the slot's generator) the slot's
+        generator is also set one draw past the same seed, where the
+        lane's draw leaves a generator.  A greedy request leaves both as
+        they are."""
         if req.temperature <= 0.0:
-            return None
+            return
         seed = req.seed if req.seed is not None else self.default_seed(
             req.rid)
-        return self.generators[b].manual_seed(seed)
+        lane.manual_seed(seed)
+        if slot is not None:
+            g = self.generators[slot].manual_seed(seed)
+            # One draw of the first token's shape, as ``categorical``'s.
+            torch.empty((1, self.config.vocab_size), dtype=torch.float32,
+                        device=self.device).exponential_(1, generator=g)
+
+    def _hand_lanes(self, reqs: Sequence[_Request],
+                    slots: Sequence[int]) -> None:
+        """After an insert: each sampled request's slot generator takes
+        its insert lane's state (one draw past the request's seed), so
+        the decode programs' draws go on from there."""
+        for i, (req, b) in enumerate(zip(reqs, slots)):
+            if req.temperature > 0.0:
+                self.generators[b].set_state(self._lane_gens[i].get_state())
 
     def _side_stream(self):
         """The CUDA stream swap-in copies run on (None on the CPU), made
@@ -3077,7 +3107,10 @@ class ContinuousBatcher:
         bid = np.full((kb, nb), self.n_blocks, np.int32)
         pol = np.zeros((kb, 3), np.float32)  # temperature, top_p, top_k
         pol[:, 1] = 1.0
-        generators: List[Optional[torch.Generator]] = [None] * kb
+        # Every row draws from its lane's generator (the same objects at
+        # every call, which the insert's graphs hold); a greedy or padding
+        # row's draw is discarded.
+        generators = self._lane_gens[:kb]
         row_blocks = []
         for i, (req, _) in enumerate(batch):
             need = req.blocks_needed(BLK)
@@ -3093,13 +3126,15 @@ class ContinuousBatcher:
             span = _round_up(n, BLK) // BLK
             bid[i, :span] = blocks[:span]
             pol[i] = (req.temperature, req.top_p, req.top_k)
-            generators[i] = self._seed_slot(slot_ids[i], req)
-        # One upload for the admission: prompts, masks and policies.
+            self._seed_lane(generators[i], req)
+        # One upload for the admission: prompts, masks, policies and the
+        # rows' destination blocks.
         up = torch.from_numpy(np.concatenate(
-            [pt, pm, pol.view(np.int32)], axis=1)).to(self.device)
+            [pt, pm, pol.view(np.int32), bid], axis=1)).to(self.device)
         temps = up[:, 2 * P].view(torch.float32)
         top_ps = up[:, 2 * P + 1].view(torch.float32)
         top_ks = up[:, 2 * P + 2].view(torch.float32).to(torch.int32)
+        d_bid = up[:, 2 * P + 3:]
         # Host mirror of the insert's attention choice (the model's
         # "auto" rule per chunk, and splash_eligible over the chunk
         # geometry): the features and sites of this dispatch.
@@ -3123,18 +3158,18 @@ class ContinuousBatcher:
         self._open_dispatch("insert", kernels)
         self._admit_dispatches += 1
         taus, lps = _paged_insert(
-            self.params, self.pool, torch.from_numpy(bid), up[:, :P],
+            self.params, self.pool, d_bid, up[:, :P],
             up[:, P:2 * P].bool(), generators, temps, top_ps, top_ks,
             config=self.config,
             prefill_chunk=self.prefill_chunk, with_logprobs=self.logprobs,
         )
+        self._hand_lanes([r for r, _ in batch], slot_ids)
         if self.spec:
             # The draft pool over the same blocks; its greedy first
             # tokens are dropped (the target picks tau, and a sampled
             # request's generator is drawn by the target insert only).
             _paged_insert(
-                self.draft_params, self.draft_pool, torch.from_numpy(bid),
-                up[:, :P],
+                self.draft_params, self.draft_pool, d_bid, up[:, :P],
                 up[:, P:2 * P].bool(), [None] * kb,
                 torch.zeros_like(temps), torch.ones_like(top_ps),
                 torch.zeros_like(top_ks), config=self.draft_config,
@@ -3191,7 +3226,7 @@ class ContinuousBatcher:
         fill0s = np.zeros((kb,), np.int32)
         pol = np.zeros((kb, 3), np.float32)  # temperature, top_p, top_k
         pol[:, 1] = 1.0
-        generators: List[Optional[torch.Generator]] = [None] * kb
+        generators = self._lane_gens[:kb]   # as in _insert_batch
         row_blocks: List[List[int]] = []
         row_fresh: List[List[int]] = []
         for i, (req, chain, hits) in enumerate(grp):
@@ -3208,7 +3243,7 @@ class ContinuousBatcher:
             n_alloc_arr[i] = len(blocks)
             fill0s[i] = L0
             pol[i] = (req.temperature, req.top_p, req.top_k)
-            generators[i] = self._seed_slot(slots[i], req)
+            self._seed_lane(generators[i], req)
         # One upload: the suffixes, masks, tables, offsets and policies.
         MB = self.blocks_per_slot
         up = torch.from_numpy(np.concatenate(
@@ -3240,6 +3275,7 @@ class ContinuousBatcher:
             generators, temps, top_ps, top_ks, config=self.config,
             prefill_chunk=self.prefill_chunk, with_logprobs=self.logprobs,
         )
+        self._hand_lanes([r for r, _, _ in grp], slots)
         if self.spec:
             # The draft pool: the shared blocks hold the DRAFT model's KV
             # for the same tokens, so only the suffixes run here too; its
@@ -3509,10 +3545,15 @@ class ContinuousBatcher:
         self.fill[b] = 0
         self.pos[b] = 0
         self.active[b] = False
+        # One upload: the lane's scalars (row, suffix length, fill0, off
+        # = 0) into ``_pf_dev``, and the suffix.
+        up = torch.from_numpy(np.concatenate(
+            [np.asarray([b, len(suffix), base, 0], np.int32), toks])
+        ).to(self.device)
+        self._pf_dev.copy_(up[:4])
         self._pf = _Prefill(
             slot=b, req=req, chain=chain, n_share=n_share, base=base,
-            suffix_len=len(suffix), chunk=C,
-            d_toks=torch.from_numpy(toks).to(self.device))
+            suffix_len=len(suffix), chunk=C, d_toks=up[4:])
         self.fused_admissions_total += 1
         self.prompt_tokens_total += len(req.tokens)
         self.obs.begin_span(req.rid, "prefilling")

@@ -23,27 +23,41 @@ module-level function under its JAX program name:
   donated argument not in ``returns`` (a pool) is one the function
   writes in place.  The analysis pass ``lowering`` checks both.
 * **Graphs.**  Under :func:`use_graphs` with a :class:`GraphStore` (a
-  batcher's, on CUDA), a ``graph=True`` program runs its first call for
-  a key eagerly (the warm run, whose results the call returns), then
-  captures one ``torch.cuda.CUDAGraph`` for that key into the store's
-  memory pool, on the process's capture thread and stream; every later
-  call for the key replays it.  Tensor inputs
-  at the captured address are used in place (weights, pool, block
-  table, the per-slot state twins); a small input elsewhere (at most
-  :data:`SMALL_INPUT_BYTES`) is copied into the captured one first (and
-  a donated one copied back after); a large one elsewhere raises.
-  Outputs that are not donated belong to the graph and stay valid until
-  that key's next replay.  Generators in the arguments are registered
-  with the graph, so a replay draws from their current seed and offset
-  and advances them.  The kernel wrappers count launches in Python,
-  which a replay does not run: a capture records each wrapper's counts
+  batcher's, or one ``engine.generate``/``score`` call's, on CUDA), a
+  ``graph=True`` program runs its first call for a key eagerly (the warm
+  run, whose results the call returns), then captures one
+  ``torch.cuda.CUDAGraph`` for that key into the store's memory pool, on
+  the process's capture thread and stream; every later call for the key
+  replays it.  A store made with ``capture_first=True`` (a call's own,
+  which a warm run would not pay back) captures a key this process has
+  already run once and replays the capture at once, so the call's first
+  run is a replay; a key new to the process still runs warm first (it
+  loads kernels and fills caches, which a capture may not do).  A graph
+  is one per key and per address of each donated or large tensor input
+  (the weights, a pool, the state twins): the same key called on
+  another pool (a draft model's) captures its own.  Other tensor inputs
+  at the captured address are used in place; a small one elsewhere (at
+  most :data:`SMALL_INPUT_BYTES`), or one of the program's ``copied``
+  arguments (a swap-in's staged planes), is copied into the captured one
+  first.  Outputs that are not donated belong to the graph and stay
+  valid until that key's next replay (copy them to keep them).
+  Generators in the arguments are registered with the graph, so a
+  replay draws from their current seed and offset and advances them.
+  The kernel wrappers count launches in Python, which a replay does not
+  run: a capture records each wrapper's counts
   (``ops._build.record_counts``) and every replay adds them.  A failed
-  capture raises, naming the program and the key.
-* **Everything else runs eagerly**: outside a store (the CPU, a batcher
+  capture raises, naming the program and the key.  All graphs of a store
+  share its one memory pool: a replay's temporaries reuse the space of
+  every other graph's, so the pool holds about the largest graph's
+  working set, not their sum.
+* **Everything else runs eagerly**: outside a store (the CPU, a caller
   on a mesh whose collectives go through the host, a direct call), for
-  ``graph=False`` programs (the prefill side, ROADMAP A4 part 2), and
+  ``graph=False`` programs (the kernel wrappers of ``ops.kernels``), and
   for a program called inside another program's call, which runs inline
   and is keyed by the outer call alone.
+
+:func:`clear_caches` forgets every program's keys (``jax.clear_caches()``'s
+counterpart for the key counts); it closes no store's graphs.
 
 A dispatch of a program listed in ``utils.profiling.PROGRAMS`` runs
 inside its ``program_range``, so each name has one source.
@@ -58,6 +72,7 @@ import functools
 import gc
 import inspect
 import threading
+import weakref
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -71,15 +86,19 @@ SMALL_INPUT_BYTES = 1 << 20
 
 # Every program by its JAX name, in definition order.
 REGISTRY: Dict[str, "Program"] = {}
+# Every Program object, registered or not (``clear_caches``).
+_ALL: "weakref.WeakSet[Program]" = weakref.WeakSet()
 
 _TLS = threading.local()
 # Every capture runs on one thread of the process, on one capture stream
-# per device (both made on first use): one capture at a time (PyTorch's
-# graph capture rule; replicas in one process dispatch from their own
-# serving threads), and cuBLAS allocates its workspace for that (thread,
-# stream) pair once, when the stream is made, outside any graph's pool: a
-# workspace made inside a capture would pin that graph's pool, and one per
-# serving thread would stay allocated after its replica retires.
+# per device (both made when the device's first graph store is): one
+# capture at a time (PyTorch's graph capture rule; replicas in one process
+# dispatch from their own serving threads), and cuBLAS allocates its
+# workspace for that (thread, stream) pair once, when the stream is made,
+# outside any graph's pool: a workspace made inside a capture would pin
+# that graph's pool, one per serving thread would stay allocated after its
+# replica retires, and one made at a later store's first capture would
+# read as that store's memory.
 _CAPTURER: List[Any] = []
 _CAPTURER_LOCK = threading.Lock()
 _CAPTURE_STREAMS: Dict[Any, Any] = {}
@@ -98,27 +117,38 @@ def _capturer():
 
 def program(name: str, *, static: Sequence[str] = (),
             donate: Sequence[str] = (), returns: Sequence[str] = (),
-            graph: bool = False):
-    """Decorate a module-level function as the serving program ``name``
-    (JAX's name).  ``static``, ``donate``: JAX's ``static_argnames`` and
+            graph: bool = False, copied: Sequence[str] = ()):
+    """Decorate a module-level function as the program ``name`` (JAX's
+    name).  ``static``, ``donate``: JAX's ``static_argnames`` and
     ``donate_argnames``; ``returns`` names the outputs (a donated
     argument named there is returned aliased); ``graph``: captured as a
-    CUDA graph under a :class:`GraphStore`."""
+    CUDA graph under a :class:`GraphStore`; ``copied``: arguments a
+    replay copies into the captured tensors whatever their size (they
+    are new tensors at every call)."""
 
     def deco(fn):
         if name in REGISTRY:
             raise ValueError(f"program {name!r} is already registered")
-        prog = Program(fn, name, static, donate, returns, graph)
+        prog = Program(fn, name, static, donate, returns, graph, copied)
         REGISTRY[name] = prog
         return prog
 
     return deco
 
 
+def clear_caches() -> None:
+    """Forget every program's keys, as ``jax.clear_caches()`` empties
+    JAX's jit caches: each ``cache_size()`` starts again from 0.  No
+    store's graphs are closed (their owners close them)."""
+    for prog in list(_ALL):
+        with prog._lock:
+            prog._keys.clear()
+
+
 def registry() -> Dict[str, "Program"]:
     """The registered programs by name (importing the modules that
     define them first)."""
-    from .. import kvcache, serving  # noqa: F401
+    from .. import engine, kvcache, serving  # noqa: F401
     from ..ops import kernels  # noqa: F401
 
     return dict(REGISTRY)
@@ -130,16 +160,17 @@ class Program:
 
     def __init__(self, fn, name: str, static: Sequence[str],
                  donate: Sequence[str], returns: Sequence[str],
-                 graph: bool):
+                 graph: bool, copied: Sequence[str] = ()):
         functools.update_wrapper(self, fn)
         self.name = name
         self.static = tuple(static)
         self.donate = tuple(donate)
         self.returns = tuple(returns)
         self.graph = bool(graph)
+        self.copied = tuple(copied)
         self._sig = inspect.signature(fn)
         params = self._sig.parameters
-        for arg in (*self.static, *self.donate):
+        for arg in (*self.static, *self.donate, *self.copied):
             if arg not in params:
                 raise TypeError(f"program {name}: no argument {arg!r}")
         for arg in self.donate:
@@ -148,6 +179,7 @@ class Program:
                                 "and donated")
         self._keys: set = set()
         self._lock = threading.Lock()
+        _ALL.add(self)
 
     def cache_size(self) -> int:
         """Keys seen by this program in this process (JAX's
@@ -184,6 +216,7 @@ class Program:
             return self.__wrapped__(*args, **kwargs)
         bound, key, leaves = self._bind(args, kwargs)
         with self._lock:
+            seen = key in self._keys
             self._keys.add(key)
         store = getattr(_TLS, "store", None) if self.graph else None
         ctx = (program_range(self.name) if self.name in PROGRAMS
@@ -193,7 +226,7 @@ class Program:
             try:
                 if store is None:
                     return self._run(bound)
-                return store.call(self, key, bound, leaves)
+                return store.call(self, key, bound, leaves, seen)
             finally:
                 _TLS.depth = 0
 
@@ -274,13 +307,13 @@ def use_graphs(store: Optional["GraphStore"]):
 @dataclasses.dataclass
 class CapturedGraph:
     """One captured key: the graph, the inputs it reads (path, tensor or
-    generator, donated), its outputs, and the launch counts each replay
-    adds."""
+    generator, donated, copied), its outputs, and the launch counts each
+    replay adds."""
 
     program: str
     key: Any
     graph: Any
-    inputs: List[Tuple[str, Any, bool]]
+    inputs: List[Tuple[str, Any, bool, bool]]
     outputs: Any
     counts: List[Any]               # ops._build.CountRecord
     replays: int = 0
@@ -293,13 +326,23 @@ class CapturedGraph:
 
 
 class GraphStore:
-    """The CUDA graphs of one owner (a batcher on one card): graphs by
-    (program, key) and one memory pool shared by all of them.
-    :meth:`close` frees them (a retired replica, a dropped batcher)."""
+    """The CUDA graphs of one owner (a batcher on one card, or one
+    ``engine.generate``/``score`` call): graphs by (program, key, pinned
+    input addresses) and one memory pool shared by all of them.
+    ``capture_first``: a key this process has run before is captured
+    and replayed at its first call here (see the module docstring).
+    :meth:`close` frees them (a retired replica, a dropped batcher, the
+    end of a call)."""
 
-    def __init__(self, device):
-        self.device = torch.device(device)
-        self.graphs: Dict[Tuple[str, Any], CapturedGraph] = {}
+    def __init__(self, device, capture_first: bool = False):
+        device = torch.device(device)
+        if device.index is None:   # "cuda": the current card
+            device = torch.device("cuda", torch.cuda.current_device())
+        self.device = device
+        if device not in _CAPTURE_STREAMS:
+            _capturer().submit(_capture_stream, device).result()
+        self.capture_first = bool(capture_first)
+        self.graphs: Dict[Tuple[str, Any, Any], CapturedGraph] = {}
         self._pool = torch.cuda.graph_pool_handle()
         self.captures = 0
         self.replays = 0
@@ -316,35 +359,41 @@ class GraphStore:
         if self.graphs:
             _DROPPED[0] += 1
 
-    def call(self, prog: Program, key, bound, leaves):
-        entry = self.graphs.get((prog.name, key))
-        if entry is None:
-            return self._capture(prog, key, bound, leaves)
-        return self._replay(prog, entry, bound, leaves)
+    def call(self, prog: Program, key, bound, leaves, seen: bool = False):
+        gid = (prog.name, key, _pins(prog, leaves))
+        entry = self.graphs.get(gid)
+        if entry is not None:
+            return self._replay(prog, entry, bound, leaves)
+        if self.capture_first and seen:
+            self._capture(prog, key, gid, bound, leaves)
+            return self._replay(prog, self.graphs[gid], bound, leaves)
+        warm = prog._run(bound)
+        self._capture(prog, key, gid, bound, leaves)
+        return warm
 
-    def _capture(self, prog: Program, key, bound, leaves):
-        """The warm run of a new key here (this call's result), then its
-        capture on the capture thread, in this thread's grad mode and
-        mesh; this thread waits for it."""
+    def _capture(self, prog: Program, key, gid, bound, leaves):
+        """Capture ``gid`` on the capture thread, in this thread's grad
+        and inference modes and mesh; this thread waits for it."""
         from ..parallel.mesh import current_mesh, use_mesh
 
-        warm = prog._run(bound)
         main = torch.cuda.current_stream(self.device)
         grad, mesh = torch.is_grad_enabled(), current_mesh()
+        inference = torch.is_inference_mode_enabled()
 
         def job():
             with torch.cuda.device(self.device), \
+                    torch.inference_mode(inference), \
                     torch.set_grad_enabled(grad), use_mesh(mesh):
                 _TLS.depth = 1
                 try:
-                    self._capture_graph(prog, key, bound, leaves, main)
+                    self._capture_graph(prog, key, gid, bound, leaves,
+                                        main)
                 finally:
                     _TLS.depth = 0
 
         _capturer().submit(job).result()
-        return warm
 
-    def _capture_graph(self, prog: Program, key, bound, leaves, main):
+    def _capture_graph(self, prog: Program, key, gid, bound, leaves, main):
         from ..ops import _build  # the ops package imports this module
 
         if self._pool is None:
@@ -356,26 +405,24 @@ class GraphStore:
                 raise RuntimeError(
                     f"program {prog.name}: {path} lies on {obj.device}, "
                     f"the graph store on {self.device}")
-            inputs.append((path, obj, _is_donated(path, prog.donate)))
+            inputs.append((path, obj, _in_args(path, prog.donate),
+                           _in_args(path, prog.copied)))
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         seen = set()
-        for _, obj, _ in inputs:
+        for _, obj, _, _ in inputs:
             if isinstance(obj, torch.Generator) and id(obj) not in seen:
                 seen.add(id(obj))
                 graph.register_generator_state(obj)
         # Return the memory pools of graphs freed since (a dropped
-        # batcher's) and the cache's idle blocks to the device before the
-        # new graph allocates its own (torch.cuda.graph empties the cache
-        # before every capture): memory a dead graph's pool holds serves
-        # no other allocation, and the graph's instantiation allocates
-        # outside the cache.
+        # batcher's, an ended call's) and the cache's idle blocks to the
+        # device before the new graph allocates its own
+        # (torch.cuda.graph empties the cache before every capture):
+        # memory a dead graph's pool holds serves no other allocation,
+        # and the graph's instantiation allocates outside the cache.
         if _DROPPED[0] != _DROPPED[1]:
             _DROPPED[1] = _DROPPED[0]
             torch.cuda.empty_cache()
-        side = _CAPTURE_STREAMS.get(self.device)
-        if side is None:
-            side = _CAPTURE_STREAMS[self.device] = _capture_stream(
-                self.device)
+        side = _capture_stream(self.device)
         side.wait_stream(main)
         # No cyclic collection during the capture: a dropped batcher's
         # graphs destroyed by one on this thread is an operation a capture
@@ -400,29 +447,29 @@ class GraphStore:
                 gc.enable()
             main.wait_stream(side)
         self.captures += 1
-        self.graphs[(prog.name, key)] = CapturedGraph(
+        self.graphs[gid] = CapturedGraph(
             prog.name, key, graph, inputs, outputs, list(record.values()))
 
     def _replay(self, prog: Program, entry: CapturedGraph, bound, leaves):
         from ..ops import _build
 
         back = []
-        for (path, cap, donated), (_, cur) in zip(entry.inputs, leaves):
+        for (path, cap, donated, copied), (_, cur) in zip(entry.inputs,
+                                                          leaves):
             if cur is cap:
                 continue
             if not isinstance(cap, torch.Tensor):
                 raise RuntimeError(
                     f"program {prog.name}: {path} is not the generator "
-                    "the graph captured (each batcher's slots keep theirs)")
+                    "the graph captured (each caller keeps its own)")
             if (cur.data_ptr() == cap.data_ptr()
                     and cur.stride() == cap.stride()):
                 continue
             nbytes = cur.numel() * cur.element_size()
-            if nbytes > SMALL_INPUT_BYTES:
+            if nbytes > SMALL_INPUT_BYTES and not copied:
                 raise RuntimeError(
                     f"program {prog.name}: {path} ({nbytes} bytes) is not "
-                    "at the address the graph captured; weights and pools "
-                    "stay where a batcher's graphs were captured")
+                    "at the address the graph captured")
             cap.copy_(cur)
             if donated:
                 back.append((cur, cap))
@@ -443,16 +490,37 @@ class GraphStore:
         return outs[0] if single else tuple(outs)
 
 
+def _pins(prog: Program, leaves) -> Tuple[Tuple[str, int], ...]:
+    """The addresses that pick a call's graph besides its key: those of
+    its donated and its large tensor inputs (weights, pools, the state
+    twins), outside the ``copied`` arguments.  Another address there is
+    another graph, so a captured input the caller still owns is never
+    overwritten by a copy-in."""
+    out = []
+    for path, obj in leaves:
+        if not isinstance(obj, torch.Tensor) or _in_args(path, prog.copied):
+            continue
+        if (_in_args(path, prog.donate)
+                or obj.numel() * obj.element_size() > SMALL_INPUT_BYTES):
+            out.append((path, obj.data_ptr()))
+    return tuple(out)
+
+
 def _capture_stream(device):
-    """A new capture stream for ``device``, with cuBLAS's workspaces for
-    it and this thread made by a few products (plain and with a bias, in
-    bf16 and float32) run on it before any capture."""
-    stream = torch.cuda.Stream(device=device)
-    with torch.cuda.stream(stream):
-        for dtype in (torch.bfloat16, torch.float32):
-            a = torch.ones((64, 64), dtype=dtype, device=device)
-            torch.mm(a, a)
-            torch.addmm(a[0], a, a)
+    """The capture stream for ``device`` (on the capture thread only),
+    made on first use with cuBLAS's workspaces for it and this thread by a
+    few products (plain and with a bias, in bf16 and float32) run on it
+    before any capture."""
+    stream = _CAPTURE_STREAMS.get(device)
+    if stream is None:
+        with torch.cuda.device(device):
+            stream = torch.cuda.Stream(device=device)
+            with torch.cuda.stream(stream):
+                for dtype in (torch.bfloat16, torch.float32):
+                    a = torch.ones((64, 64), dtype=dtype, device=device)
+                    torch.mm(a, a)
+                    torch.addmm(a[0], a, a)
+        _CAPTURE_STREAMS[device] = stream
     return stream
 
 
@@ -466,11 +534,11 @@ def _key_label(key) -> str:
     return f"({shown}; {len(traced)} traced arguments)"
 
 
-def _is_donated(path: str, donated: Sequence[str]) -> bool:
+def _in_args(path: str, names: Sequence[str]) -> bool:
     """Whether a leaf path (``fill``, ``pool.k``, ``generators[3]``)
-    lies in a donated argument."""
+    lies in one of the arguments ``names``."""
     head = path.split(".", 1)[0].split("[", 1)[0]
-    return head in donated
+    return head in names
 
 
 def jit_cache_entries() -> Dict[str, int]:
@@ -481,6 +549,6 @@ def jit_cache_entries() -> Dict[str, int]:
 
 __all__ = [
     "CapturedGraph", "GraphStore", "Program", "REGISTRY",
-    "SMALL_INPUT_BYTES", "jit_cache_entries", "program", "registry",
-    "use_graphs",
+    "SMALL_INPUT_BYTES", "clear_caches", "jit_cache_entries", "program",
+    "registry", "use_graphs",
 ]

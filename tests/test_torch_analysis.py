@@ -503,7 +503,7 @@ def test_cli_file_exit_codes_match_jax(case, tmp_path, capsys):
 @pytest.mark.parametrize("checker", ["lowering", "retrace"])
 def test_cli_program_passes_exit_zero_on_the_package(checker, capsys):
     """The program passes over the package, every layer: the lowering
-    auditor's static layer and its recorded runs of all twelve programs,
+    auditor's static layer and its recorded runs of all fifteen programs,
     the retrace static layer and its runtime drill."""
     assert pcli(["--checker", checker]) == 0
     assert "clean" in capsys.readouterr().out
@@ -651,12 +651,20 @@ def test_lowering_static_layer_catches_drift():
 
 
 def test_registry_is_jaxs_through_the_name_map():
-    """The same twelve programs as JAX's REGISTRY, their donated sets
-    through JAX_ARG_NAMES (JAX's ``keys`` are the slots' generators, its
-    ``pool_arrays`` the pool; ``_fused_chunk``'s ``pf_key`` is the row's
-    slot generator, inside ``generators``), and the same budgets, read as
+    """The same twelve programs as JAX's REGISTRY, besides the port's own
+    entries for JAX's jitted ``engine.generate`` and ``score``
+    (``PORT_ONLY``), their donated sets through JAX_ARG_NAMES (JAX's
+    ``keys`` are the slots' generators, its ``pool_arrays`` the pool;
+    ``_fused_chunk``'s ``pf_key`` is the fused lane's generator
+    ``pf_gen``, which neither donates), and the same budgets, read as
     data (JAX's builders are not called)."""
-    assert set(PREGISTRY) == set(JREGISTRY)
+    from jax_llama_tpu_torch.analysis.contracts import PORT_ONLY
+
+    assert set(PREGISTRY) == set(JREGISTRY) | PORT_ONLY
+    assert not PORT_ONLY & set(JREGISTRY)
+    for name in PORT_ONLY:
+        assert set(programs.registry()[name].donate) == set(
+            PREGISTRY[name].donated), name
     for name, j in JREGISTRY.items():
         p = PREGISTRY[name]
         want = {JAX_ARG_NAMES.get(a, a) for a in j.donated}

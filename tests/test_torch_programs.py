@@ -4,7 +4,10 @@ tensors by shape, dtype and device; an undeclared Python scalar raises),
 donated arguments updated in place and returned as the same tensors, a
 program called inside another running inline, and the batcher's
 ``jit_cache_entries()`` counting every registered program's keys, held
-against the JAX batcher's jit cache on the same traffic.  On the CPU a
+against the JAX batcher's jit cache on the same traffic, both counted
+from empty caches (``jax.clear_caches()`` and the port's
+``programs.clear_caches()``), so that what ran before in the process
+does not count.  On the CPU a
 program runs eagerly; its CUDA graphs are held on the card in
 tests/test_torch_programs_cuda.py.
 """
@@ -95,15 +98,32 @@ def test_a_program_inside_another_runs_inline():
 
 
 def test_registry_names_are_jaxs_programs():
+    """JAX's serving programs, its two jitted kernel wrappers, its
+    ``engine.generate`` and ``score``, and the body of ``generate``'s
+    decode loop (``_generate_step``, which the port dispatches from the
+    host); every program but the kernel wrappers is captured as a CUDA
+    graph on the card."""
     reg = programs.registry()
     assert set(reg) == set(jserving._programs()) | {
+        "splash_prefill", "stock_paged_decode", "generate", "score",
+        "_generate_step"}
+    assert {n for n, p in reg.items() if not p.graph} == {
         "splash_prefill", "stock_paged_decode"}
-    assert {n for n, p in reg.items() if p.graph} == {
-        "_paged_decode_step", "_paged_decode_chunk", "_spec_round",
-        "_spec_rounds_chunk"}
     for name, prog in reg.items():
         assert set(prog.donate) <= set(prog.returns) | {
-            "pool", "t_pool", "d_pool", "generators", "state", "pos"}, name
+            "pool", "t_pool", "d_pool", "generators", "state", "pos",
+            "cache", "buf", "next_tok", "done"}, name
+
+
+def test_clear_caches_forgets_every_programs_keys():
+    p = _prog(lambda x: x + 1, name="cleared")
+    p(torch.zeros(2))
+    p(torch.zeros(3))
+    assert p.cache_size() == 2
+    programs.clear_caches()
+    assert p.cache_size() == 0
+    p(torch.zeros(2))
+    assert p.cache_size() == 1
 
 
 def _tiny():
@@ -122,14 +142,11 @@ def _tiny():
     return cfg, jparams, pcfg, pparams
 
 
-def test_jit_cache_entries_count_every_program_like_jax():
-    """The same traffic through both packages' batchers: every registered
-    program appears, the decode chunk's and the insert's keys grow as
-    JAX's jit cache entries do (n_iter buckets, the insert's row and
-    width buckets), and each stays within its contract."""
-    from jax_llama_tpu_torch.analysis.contracts import REGISTRY
+def _count_like_jax(cfg, jparams, pcfg, pparams):
+    """The same traffic through both packages' batchers, each counted
+    from empty caches; returns {package: {program: keys added}}."""
+    import jax
 
-    cfg, jparams, pcfg, pparams = _tiny()
     rng = np.random.RandomState(0)
     prompts = [list(rng.randint(1, 128, n)) for n in (5, 20, 37, 9)]
     counts = {}
@@ -142,6 +159,8 @@ def test_jit_cache_entries_count_every_program_like_jax():
              pparams, pcfg, n_slots=2, max_len=64, block_size=16,
              decode_chunk=4, prefix_cache=False, device="cpu")),
     ):
+        jax.clear_caches()
+        programs.clear_caches()
         before = entries()
         cb = make()
         for p in prompts:
@@ -149,8 +168,40 @@ def test_jit_cache_entries_count_every_program_like_jax():
         cb.run_to_completion()
         after = entries()
         counts[name] = {k: after[k] - before.get(k, 0) for k in after}
+    return counts
+
+
+def _assert_counts_like_jax(counts):
+    from jax_llama_tpu_torch.analysis.contracts import REGISTRY
+
     assert set(jserving.jit_cache_entries()) <= set(counts["port"])
     for prog in ("_paged_decode_chunk", "_paged_insert", "_scatter_rows"):
         assert counts["port"][prog] == counts["jax"][prog], prog
     assert all(counts["port"][n] <= c.max_cache_keys
                for n, c in REGISTRY.items())
+
+
+def test_jit_cache_entries_count_every_program_like_jax():
+    """The same traffic through both packages' batchers: every registered
+    program appears, the decode chunk's and the insert's keys grow as
+    JAX's jit cache entries do (n_iter buckets, the insert's row and
+    width buckets), and each stays within its contract.  Both counts
+    start from empty caches, whatever ran before in the process."""
+    _assert_counts_like_jax(_count_like_jax(*_tiny()))
+
+
+def test_jit_cache_entries_count_like_jax_after_a_port_batcher():
+    """The comparison above, after a port batcher of the same shapes has
+    already run its programs in this process (as an earlier test module
+    does in a shared worker): its keys are forgotten, so the counts are
+    still JAX's."""
+    cfg, jparams, pcfg, pparams = _tiny()
+    cb = serving.ContinuousBatcher(pparams, pcfg, n_slots=2, max_len=64,
+                                   block_size=16, decode_chunk=4,
+                                   prefix_cache=False, device="cpu")
+    rng = np.random.RandomState(0)
+    for n in (5, 20, 37, 9):
+        cb.submit(list(rng.randint(1, 128, n)), max_new_tokens=6)
+    cb.run_to_completion()
+    assert serving.jit_cache_entries()["_scatter_rows"] > 0
+    _assert_counts_like_jax(_count_like_jax(cfg, jparams, pcfg, pparams))

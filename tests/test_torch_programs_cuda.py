@@ -5,11 +5,14 @@ package:
 
     python -m pytest tests/test_torch_programs_cuda.py -m cuda --noconftest -q
 
-In float32 (matmuls without TF32) a batcher that replays its decode
-programs' graphs emits exactly the tokens of one that runs them eagerly
-(``close()`` drops a batcher's graphs), greedy and sampled, with slots
-reused across admissions; every replay adds the launches its capture
-recorded, so the wrappers' counts are an eager run's.
+In float32 (matmuls without TF32) a batcher that replays its programs'
+graphs (the decode programs, and the prefill side: inserts, fused
+chunks, the state scatters, swap-in adoptions) emits exactly the tokens
+of one that runs them eagerly (``close()`` drops a batcher's graphs),
+greedy and sampled, with slots reused across admissions; every replay
+adds the launches its capture recorded, so the wrappers' counts are an
+eager run's.  ``engine.generate`` and ``score`` through a call's own
+graphs give the tokens and scores of their eager runs.
 """
 
 import importlib
@@ -160,3 +163,133 @@ def test_slot_generator_reseeded_across_admissions():
         solo.append(cb.run_to_completion()[rid])
     assert solo[0] == solo[2] != solo[1]
     assert cb.stats()["graph_replays_total"] > 0
+
+
+def _prefill_traffic(params, cfg, graphs):
+    """Fused admissions (a budget of 32 tokens), prefix hits (a shared
+    48-token prefix) and a host-tier swap-in, greedy and sampled: the
+    tokens per request, the flash wrapper's launches and the batcher
+    (its graphs closed first when not ``graphs``)."""
+    cb = serving.ContinuousBatcher(params, cfg, n_slots=3, max_len=256,
+                                   block_size=16, decode_chunk=4,
+                                   prefill_budget=32, host_kv_blocks=8,
+                                   n_blocks=40, device="cuda")
+    if not graphs:
+        cb.close()
+    fa = importlib.import_module("jax_llama_tpu_torch.ops.flash_attention")
+    before = fa.flash_attention.launches
+    rng = np.random.RandomState(1)
+    shared = rng.randint(1, 256, 48).tolist()
+    out, got = [], {}
+
+    def pump():
+        for rid, tok, *_ in cb.step():
+            got.setdefault(rid, []).append(tok)
+
+    # The shared prefix alone first, then every idle block demoted to the
+    # host tier: the next sharer restores it (a swap-in and an adoption).
+    rid = cb.submit(shared + [7, 8], max_new_tokens=3)
+    while cb.pending():
+        pump()
+    out.append(got.get(rid, []))
+    cb.demote_idle(cb.n_blocks)
+    for wave in range(2):
+        rids = []
+        for i in range(4):
+            sampled = i % 2 == 1
+            tail = rng.randint(1, 256, rng.randint(5, 70)).tolist()
+            rids.append(cb.submit(
+                (shared if i < 2 else []) + tail,
+                max_new_tokens=int(rng.randint(4, 12)),
+                temperature=0.9 if sampled else 0.0,
+                top_k=20 if sampled else None,
+                seed=300 + 10 * wave + i if sampled else None))
+            pump()
+        while cb.pending():
+            pump()
+        out += [got.get(r, []) for r in rids]
+    torch.cuda.synchronize()
+    return out, fa.flash_attention.launches - before, cb
+
+
+@pytest.mark.cuda
+def test_prefill_graphs_replay_eager_tokens():
+    """The prefill-side programs replayed (``_fused_chunk``,
+    ``_paged_insert``, ``_paged_suffix_insert``, ``_scatter_rows``,
+    ``_adopt_jit``): the eager batcher's tokens, greedy and sampled, and
+    its flash launches."""
+    _card()
+    params, cfg = _model()
+    got, n_graph, cb = _prefill_traffic(params, cfg, True)
+    want, n_eager, cb_e = _prefill_traffic(params, cfg, False)
+    assert got == want and all(got)
+    assert n_graph == n_eager > 0
+    st = cb.stats()
+    assert st["fused_admissions_total"] > 0 and st["swap_ins_total"] > 0
+    assert st["prefix_requests_hit_total"] > 0
+    captured = {g.program for g in cb._graphs.graphs.values()}
+    assert {"_fused_chunk", "_paged_insert", "_scatter_rows",
+            "_adopt_jit"} <= captured, captured
+    replayed = {g.program for g in cb._graphs.graphs.values() if g.replays}
+    assert {"_fused_chunk", "_scatter_rows"} <= replayed, replayed
+    cb.close()
+
+
+@pytest.mark.cuda
+def test_insert_graphs_one_per_pool():
+    """A self-draft batcher's target and draft inserts share a key (the
+    same config and shapes) but not a pool: each pool gets its own graph,
+    and the tokens are the eager batcher's."""
+    _card()
+    params, cfg = _model()
+    kw = dict(draft_params=params, draft_config=cfg, n_draft=2,
+              spec_rounds=2)
+    got, _, st = _serve(params, cfg, True, **kw)
+    want, _, _ = _serve(params, cfg, False, **kw)
+    assert got == want
+    cb = serving.ContinuousBatcher(params, cfg, n_slots=3, max_len=256,
+                                   block_size=16, device="cuda", **kw)
+    cb.submit(list(range(1, 30)), max_new_tokens=4)
+    cb.step()
+    inserts = [g for g in cb._graphs.graphs.values()
+               if g.program == "_paged_insert"]
+    assert len(inserts) == 2 and inserts[0].key == inserts[1].key
+    cb.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("temperature", [0.0, 0.9])
+def test_generate_graphs_replay_eager_tokens(temperature, monkeypatch):
+    """``engine.generate`` through the call's graphs (twice: the first
+    call runs its programs warm and captures them, the second captures and
+    replays at once) and eagerly (no store): the same tokens from one
+    generator seed, the same flash launches; ``score`` alike."""
+    from jax_llama_tpu_torch import engine
+
+    _card()
+    params, cfg = _model()
+    fa = importlib.import_module("jax_llama_tpu_torch.ops.flash_attention")
+    rng = np.random.RandomState(2)
+    tokens = torch.from_numpy(rng.randint(1, 256, (3, 40)).astype(np.int32))
+    mask = torch.ones((3, 40), dtype=torch.bool)
+    mask[1, :7] = False
+    tokens[~mask] = 0
+    gc = engine.GenerationConfig(max_new_tokens=21, temperature=temperature,
+                                 top_k=30, stop_tokens=(5,))
+    runs = []
+    for eager in (False, False, True):
+        if eager:
+            monkeypatch.setattr(engine, "_call_graphs",
+                                lambda device, mesh: None)
+        gen = torch.Generator(device="cuda").manual_seed(4)
+        before = fa.flash_attention.launches
+        out = engine.generate(params, tokens, mask, gen, config=cfg,
+                              gen_config=gc, device="cuda")
+        score = engine.score(params, tokens, mask, config=cfg)
+        torch.cuda.synchronize()
+        runs.append((out.cpu(), score.cpu(),
+                     fa.flash_attention.launches - before))
+    for out, score, n in runs[:2]:
+        assert torch.equal(out, runs[2][0])
+        assert torch.equal(score, runs[2][1])
+        assert n == runs[2][2] == 2 * cfg.n_layers   # generate + score
